@@ -8,26 +8,34 @@ of which raises on failure:
 1. the card's name and power limit (``nvidia-smi``);
 2. build of every kernel from ``magicdec_tpu_torch/csrc`` (timed);
 3. kernel phase: each Hopper kernel against its plain PyTorch version at the
-   shapes of the bench's main path (llama-3.2-1b widths, B=32, cache 8704
-   rows, draft cache 640 rows), within ``kernels.bf16_limit`` (2**-5 times
-   the RMS of each output row plus 2**-6 |ref|); each attention kernel run
+   shapes of the bench's main path (llama-3.2-1b widths, B=32, target cache
+   8704 rows in bf16 and in int8 with f32 scales quantized from the same
+   values by ``ops.kv_cache.quantize_kv_tokens``, draft cache 640 rows),
+   within ``kernels.bf16_limit`` (2**-5 times the RMS of each output row
+   plus 2**-6 |ref|), the appends bit for bit; each attention kernel run
    without the window's fresh rows must fail that bound, so the check can
    tell a kernel that drops them.  With each: its time (CUDA events), its bound
-   (bytes over 3.35 TB/s or flops over 989 TFLOP/s, whichever is larger),
-   the plain version's time and a library yardstick (``library_ms``:
-   ``scaled_dot_product_attention`` for the attention kernels,
-   ``index_copy_`` for the append; timed only, never used by the port);
-4. main path: ``magicdec_tpu_torch.bench.main`` with its defaults, launch
-   counters zeroed just before and read just after, every kernel of the path
+   (bytes over 3.35 TB/s or flops over 989 TFLOP/s, whichever is larger;
+   the int8 kernels' bytes include the scales), the plain version's time
+   and a library yardstick (``library_ms``: ``scaled_dot_product_attention``
+   on the (dequantized) bf16 K/V for the attention kernels, ``index_copy_``
+   of the rows (and scales) for the appends; timed only, never used by the
+   port);
+4. main paths: ``magicdec_tpu_torch.bench.main`` with its defaults (int8
+   target cache), then with ``--kv_quant none --iters 1`` (the bf16 cache,
+   one measured repeat instead of three), each with the launch counters
+   zeroed just before and read just after: every kernel of the path
    launched, tokens per step >= 2.5, the spec and autoregressive streams
-   agreeing on every committed token of every request, peak device memory;
+   agreeing on every committed token of every request, and the int8 path's
+   peak device memory below the bf16 path's;
 5. row invariance: for each of the target's dots, and for two layers and
    the head, a row's bits at verify (B*(gamma+1) rows) against the AR step
    (B rows), at the live row count and padded to decode_rows; fails if the
    model's rows differ at the live row count, which the engine runs;
-6. profile: where the decode time goes at the bench shapes (spec generate
-   and AR generate on the host clock, then under torch.profiler for the
-   device's busy time and the kernels that take it), and spec == AR again.
+6. profile: where the decode time goes at the bench's default shapes (spec
+   generate and AR generate on the host clock, then under torch.profiler
+   for the device's busy time and the kernels that take it), and spec == AR
+   again.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -90,16 +98,17 @@ def _err(out, ref):
     return err, f"at most {share:.3f} of bf16_limit"
 
 
-def _sdpa_inputs(q, k4, v4, layer, base, k_new, v_new):
+def _sdpa_inputs(q, k_layer, v_layer, base, k_new, v_new):
     """(q, k, v, mask) for scaled_dot_product_attention computing the same
-    attention as the kernels: cache rows < base plus causal fresh rows."""
+    attention as the kernels over one layer [B, S, K] in bf16: cache rows <
+    base plus causal fresh rows."""
     import torch
 
     B, T, Hq, hd = q.shape
-    S, K = k4.shape[2], k4.shape[3]
+    S, K = k_layer.shape[1], k_layer.shape[2]
     Hkv = K // hd
-    kf = torch.cat([k4[layer], k_new], dim=1).view(B, S + T, Hkv, hd).transpose(1, 2)
-    vf = torch.cat([v4[layer], v_new], dim=1).view(B, S + T, Hkv, hd).transpose(1, 2)
+    kf = torch.cat([k_layer, k_new], dim=1).view(B, S + T, Hkv, hd).transpose(1, 2)
+    vf = torch.cat([v_layer, v_new], dim=1).view(B, S + T, Hkv, hd).transpose(1, 2)
     kf = kf.repeat_interleave(Hq // Hkv, dim=1).contiguous()
     vf = vf.repeat_interleave(Hq // Hkv, dim=1).contiguous()
     col = torch.arange(S + T, device=q.device)
@@ -114,6 +123,7 @@ def kernel_phase(torch, gen):
     from magicdec_tpu_torch.kernels import append as AP
     from magicdec_tpu_torch.kernels import decode_attention as DA
     from magicdec_tpu_torch.kernels import prefill_attention as PA
+    from magicdec_tpu_torch.ops.kv_cache import dequant_kv, quantize_kv_tokens
 
     F = torch.nn.functional
     dev = torch.device("cuda")
@@ -141,16 +151,46 @@ def kernel_phase(torch, gen):
               f"library_ms={library_ms if library_ms is None else round(library_ms, 4)}",
               flush=True)
 
-    def attn_case(name, fn, plain, case, kc, vc, T, base, plain_iters):
+    def quantize(x):
+        """[L, B, S, K] bf16 -> int8 [L, B, S, K] and f32 scales [L, B, Hkv, S],
+        one layer at a time (the float32 temporaries of a whole cache would
+        take 18 GB)."""
+        Lx, Bx, Sx = x.shape[:3]
+        q = torch.empty(x.shape, dtype=torch.int8, device=dev)
+        s = torch.empty((Lx, Bx, Hkv, Sx), dtype=torch.float32, device=dev)
+        for l in range(Lx):
+            q[l], s[l] = quantize_kv_tokens(x[l].view(Bx, Sx, Hkv, hd))
+        return q, s
+
+    def dense_fresh(T):
+        return {"k_new": randn(B, T, K), "v_new": randn(B, T, K)}
+
+    def quant_fresh(T):
+        (kn, ksn), (vn, vsn) = (quantize_kv_tokens(randn(B, T, Hkv, hd)) for _ in range(2))
+        return {"k_new": kn, "v_new": vn, "ks_new": ksn, "vs_new": vsn}
+
+    def dense_layer(caches, fresh):
+        """(k, v, k_new, v_new) of layer `layer` in bf16 for the library call."""
+        if len(caches) == 2:
+            return caches[0][layer], caches[1][layer], fresh["k_new"], fresh["v_new"]
+        kq, ks, vq, vs = caches
+        return (dequant_kv(kq[layer], ks[layer], hd, bf),
+                dequant_kv(vq[layer], vs[layer], hd, bf),
+                dequant_kv(fresh["k_new"], fresh["ks_new"], hd, bf),
+                dequant_kv(fresh["v_new"], fresh["vs_new"], hd, bf))
+
+    def attn_case(name, fn, plain, case, caches, make_fresh, T, base, plain_iters):
+        """caches: the cache operands as the kernel takes them, (k, v) or
+        (k, k_scale, v, v_scale); make_fresh(T): the window's rows."""
         q = randn(B, T, Hq, hd)
-        kn, vn = randn(B, T, K), randn(B, T, K)
-        out = fn(q, kc, vc, base, layer=layer, k_new=kn, v_new=vn)
-        ref = plain(q, kc, vc, base, layer=layer, k_new=kn, v_new=vn)
+        fresh = make_fresh(T)
+        out = fn(q, *caches, base, layer=layer, **fresh)
+        ref = plain(q, *caches, base, layer=layer, **fresh)
         torch.cuda.synchronize()
         err, tol = _err(out, ref)
         # the same kernel without the fresh rows reads the cache where they
         # belong: bf16_limit must reject it
-        wrong_err, wrong_bad, wrong_share = _outside(fn(q, kc, vc, base, layer=layer), ref)
+        wrong_err, wrong_bad, wrong_share = _outside(fn(q, *caches, base, layer=layer), ref)
         print(f"[kernel] {name} {case}: without the fresh rows max_abs_err="
               f"{wrong_err:.3e}, {wrong_bad} of {ref.numel()} elements outside "
               f"bf16_limit (up to {wrong_share:.3g} of it)", flush=True)
@@ -160,16 +200,21 @@ def kernel_phase(torch, gen):
         # timed over the layers in turn: one layer of the draft cache fits
         # the 50 MB L2, which the model's pass never finds warm
         layers = itertools.cycle(range(L))
-        ms = _cuda_ms(lambda: fn(q, kc, vc, base, layer=next(layers), k_new=kn, v_new=vn))
-        plain_ms = _cuda_ms(lambda: plain(q, kc, vc, base, layer=layer, k_new=kn, v_new=vn),
+        ms = _cuda_ms(lambda: fn(q, *caches, base, layer=next(layers), **fresh))
+        plain_ms = _cuda_ms(lambda: plain(q, *caches, base, layer=layer, **fresh),
                             iters=plain_iters, warmup=1)
-        lib_args = _sdpa_inputs(q, kc, vc, layer, base, kn, vn)
+        kl, vl, knl, vnl = dense_layer(caches, fresh)
+        lib_args = _sdpa_inputs(q, kl, vl, base, knl, vnl)
+        del kl, vl
         library_ms = _cuda_ms(lambda: F.scaled_dot_product_attention(
             lib_args[0], lib_args[1], lib_args[2], attn_mask=lib_args[3]))
         del lib_args
         vis = base.double()
         pairs = float((vis[:, None] + torch.arange(1, T + 1, device=dev)).sum())
-        nbytes = 2 * q.numel() * 2 + 2 * float(vis.sum()) * K * 2 + 2 * kn.numel() * 2
+        # a visible row of k (and of v): its K values and, int8, its Hkv scales
+        row_bytes = K * caches[0].element_size() + (Hkv * 4 if len(caches) == 4 else 0)
+        nbytes = (2 * q.numel() * 2 + 2 * float(vis.sum()) * row_bytes
+                  + sum(t.numel() * t.element_size() for t in fresh.values()))
         flops = 4 * hd * Hq * pairs
         record(name, case, err, tol, ms, plain_ms, nbytes, flops, library_ms)
 
@@ -179,41 +224,78 @@ def kernel_phase(torch, gen):
     base_d = torch.randint(513, 600, (B,), generator=gen, device=dev, dtype=torch.int32)
     for T in (4, 1):
         attn_case("flash_decode_attend", DA.flash_decode_attend,
-                  DA.flash_decode_attend_plain, f"target T={T} S={S}", k4, v4, T,
-                  base_t, 3)
+                  DA.flash_decode_attend_plain, f"target T={T} S={S}", (k4, v4),
+                  dense_fresh, T, base_t, 3)
     for T in (1, 2):
         attn_case("flash_decode_attend", DA.flash_decode_attend,
-                  DA.flash_decode_attend_plain, f"draft T={T} S={Sd}", dk4, dv4, T,
-                  base_d, 3)
+                  DA.flash_decode_attend_plain, f"draft T={T} S={Sd}", (dk4, dv4),
+                  dense_fresh, T, base_d, 3)
     for base in (7680, 0):
         attn_case("flash_prefill_attend", PA.flash_prefill_attend,
-                  PA.flash_prefill_attend_plain, f"C=512 base={base}", k4, v4, 512,
-                  torch.full((B,), base, device=dev, dtype=torch.int32), 1)
+                  PA.flash_prefill_attend_plain, f"C=512 base={base}", (k4, v4),
+                  dense_fresh, 512, torch.full((B,), base, device=dev, dtype=torch.int32), 1)
     del dk4, dv4
 
-    # K3: bit-exact against the plain version on copies of the target cache
-    for T in (4, 1, 512):
-        rk, rv = randn(L, B, T, K), randn(L, B, T, K)
-        pos = torch.randint(0, S - T, (B,), generator=gen, device=dev, dtype=torch.int32)
-        ka, va = k4.clone(), v4.clone()
-        AP.append_all_rows_inplace(ka, va, rk, rv, pos)
-        AP.append_all_rows_inplace_plain(k4, v4, rk, rv, pos)
+    # K1q and K2q over the int8 cache quantized from the same values, at the
+    # same lengths
+    kq4, ks4 = quantize(k4)
+    vq4, vs4 = quantize(v4)
+    qcaches = (kq4, ks4, vq4, vs4)
+    for T in (4, 1):
+        attn_case("flash_decode_attend_quant", DA.flash_decode_attend_quant,
+                  DA.flash_decode_attend_quant_plain, f"target T={T} S={S}", qcaches,
+                  quant_fresh, T, base_t, 3)
+    for base in (7680, 0):
+        attn_case("flash_prefill_attend_quant", PA.flash_prefill_attend_quant,
+                  PA.flash_prefill_attend_quant_plain, f"C=512 base={base}", qcaches,
+                  quant_fresh, 512, torch.full((B,), base, device=dev, dtype=torch.int32), 1)
+    torch.cuda.empty_cache()
+
+    def flat_index(rows, pos, T):
+        """Flat row indices of the appended rows ([L, rows, S] viewed as one
+        axis; rows = B for the data, B * Hkv for the scales, each request's
+        rows at its position)."""
+        lead = torch.arange(L * rows, device=dev).view(L, rows)[..., None] * S
+        start = pos.long().repeat_interleave(rows // B)[None, :, None]
+        return (lead + start + torch.arange(T, device=dev)[None, None]).reshape(-1)
+
+    def append_case(name, fn, plain, caches, rows, pos, T):
+        """Bit-exact against the plain version on copies of the caches, then
+        timed; caches and rows in the wrapper's order, data then scales."""
+        copies = [c.clone() for c in caches]
+        fn(*copies[:2], *rows[:2], pos, *copies[2:], *rows[2:])
+        plain(*caches[:2], *rows[:2], pos, *caches[2:], *rows[2:])
         torch.cuda.synchronize()
-        if not (torch.equal(ka, k4) and torch.equal(va, v4)):
-            raise AssertionError(f"append T={T}: kernel and plain version differ")
-        del ka, va
-        ms = _cuda_ms(lambda: AP.append_all_rows_inplace(k4, v4, rk, rv, pos))
-        plain_ms = _cuda_ms(lambda: AP.append_all_rows_inplace_plain(k4, v4, rk, rv, pos),
+        if not all(torch.equal(a, b) for a, b in zip(copies, caches)):
+            raise AssertionError(f"{name} T={T}: kernel and plain version differ")
+        del copies
+        ms = _cuda_ms(lambda: fn(*caches[:2], *rows[:2], pos, *caches[2:], *rows[2:]))
+        plain_ms = _cuda_ms(lambda: plain(*caches[:2], *rows[:2], pos, *caches[2:], *rows[2:]),
                             iters=5, warmup=1)
-        flat = ((torch.arange(L, device=dev)[:, None, None] * B
-                 + torch.arange(B, device=dev)[None, :, None]) * S
-                + pos.long()[None, :, None] + torch.arange(T, device=dev)[None, None]).reshape(-1)
-        kf, vf = k4.view(-1, K), v4.view(-1, K)
-        rkf, rvf = rk.reshape(-1, K), rv.reshape(-1, K)
-        library_ms = _cuda_ms(lambda: (kf.index_copy_(0, flat, rkf), vf.index_copy_(0, flat, rvf)))
-        record("append_all_rows_inplace", f"T={T}", 0.0, "bit-exact", ms, plain_ms,
-               2 * 2 * rk.numel() * 2, 0.0, library_ms)
+        flat = flat_index(B, pos, T)
+        pairs = [(caches[i].view(-1, K), flat, rows[i].reshape(-1, K)) for i in (0, 1)]
+        if len(caches) == 4:
+            sflat = flat_index(B * Hkv, pos, T)
+            pairs += [(caches[i].view(-1), sflat, rows[i].reshape(-1)) for i in (2, 3)]
+        library_ms = _cuda_ms(lambda: [c.index_copy_(0, i, r) for c, i, r in pairs])
+        nbytes = 2 * sum(r.numel() * r.element_size() for r in rows)  # read + write
+        record(name, f"T={T}", 0.0, "bit-exact", ms, plain_ms, nbytes, 0.0, library_ms)
+
+    # K3 and K3q: bit-exact against the plain versions on copies of the
+    # target caches
+    for T in (4, 1, 512):
+        pos = torch.randint(0, S - T, (B,), generator=gen, device=dev, dtype=torch.int32)
+        append_case("append_all_rows_inplace", AP.append_all_rows_inplace,
+                    AP.append_all_rows_inplace_plain, (k4, v4),
+                    (randn(L, B, T, K), randn(L, B, T, K)), pos, T)
     del k4, v4
+    for T in (4, 1, 512):
+        pos = torch.randint(0, S - T, (B,), generator=gen, device=dev, dtype=torch.int32)
+        (rk, srk), (rv, srv) = (quantize(randn(L, B, T, K)) for _ in range(2))
+        append_case("append_all_rows_inplace_quant", AP.append_all_rows_inplace_quant,
+                    AP.append_all_rows_inplace_plain, (kq4, vq4, ks4, vs4),
+                    (rk, rv, srk, srv), pos, T)
+    del qcaches, kq4, ks4, vq4, vs4
     torch.cuda.empty_cache()
     return entries
 
@@ -239,25 +321,36 @@ def _agreement(spec_out, spec_n, base_out, max_gen):
     return summary
 
 
-def main_path(torch, wrappers):
-    """The bench's main path with its defaults; the counters are zeroed just
-    before and read just after."""
+def main_path(torch, wrappers, required, argv):
+    """The bench's main path with ``argv``; the counters are zeroed just
+    before and read just after.  Fails unless every kernel in ``required``
+    was launched, tokens per step reach 2.5 and spec == AR on every
+    committed token.  Returns (bench result, launches, peak GiB)."""
     from magicdec_tpu_torch import bench
 
     for w in wrappers:
         w.launches = 0
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    out = bench.main([])
+    out = bench.main(argv)
     wall = time.perf_counter() - t0
     launches = {w.__name__: w.launches for w in wrappers}
     peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"[main] wall={wall:.1f}s launches={launches} peak_mem={peak:.2f} GiB",
+    tag = " ".join(argv) or "defaults"
+    print(f"[main {tag}] wall={wall:.1f}s launches={launches} peak_mem={peak:.2f} GiB",
           flush=True)
-    print("[main] " + _agreement(out["spec_output"], out["spec_committed"],
-                                 out["base_output"], bench.parse_args([]).max_gen),
+    print(f"[main {tag}] " + _agreement(out["spec_output"], out["spec_committed"],
+                                        out["base_output"], bench.parse_args(argv).max_gen),
           flush=True)
-    return out["result"], launches
+    for w in required:
+        if launches[w.__name__] <= 0:
+            raise AssertionError(f"the main path ({tag}) never launched {w.__name__}")
+    res = out["result"]
+    if res["tokens_per_step"] < 2.5:
+        raise AssertionError(f"acceptance collapsed ({tag}): {res['tokens_per_step']} "
+                             "tokens/step")
+    return res, launches, peak
 
 
 def row_invariance_phase(torch):
@@ -428,13 +521,21 @@ def main():
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = kernel_phase(torch, gen)
 
-    wrappers = [DA.flash_decode_attend, PA.flash_prefill_attend, AP.append_all_rows_inplace]
-    res, launches = main_path(torch, wrappers)
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"the main path never launched {name}")
-    if res["tokens_per_step"] < 2.5:
-        raise AssertionError(f"acceptance collapsed: {res['tokens_per_step']} tokens/step")
+    dense = [DA.flash_decode_attend, PA.flash_prefill_attend, AP.append_all_rows_inplace]
+    quant = [DA.flash_decode_attend_quant, PA.flash_prefill_attend_quant,
+             AP.append_all_rows_inplace_quant]
+    # the default path: the target on the int8 kernels, the draft on K1 and K3
+    _, launches, peak8 = main_path(torch, dense + quant,
+                                   quant + [DA.flash_decode_attend, AP.append_all_rows_inplace],
+                                   [])
+    # the bf16 target cache (one measured repeat): K2 carries its prefill
+    _, launches16, peak16 = main_path(torch, dense + quant, dense,
+                                      ["--kv_quant", "none", "--iters", "1"])
+    launches["flash_prefill_attend"] = launches16["flash_prefill_attend"]
+    print(f"[main] peak device memory: int8 target cache {peak8:.2f} GiB, bf16 "
+          f"{peak16:.2f} GiB", flush=True)
+    if peak8 >= peak16:
+        raise AssertionError("the int8 target cache did not lower peak device memory")
     # the row-invariance question (PERF.md): is a target row computed the
     # same at verify and at the AR step, and do the tokens agree
     row_invariance_phase(torch)
@@ -447,6 +548,12 @@ def main():
                                  "magicdec_tpu/ops/pallas/prefill_attention.py:304"),
         "append_all_rows_inplace": ("magicdec_tpu_torch/csrc/append.cu",
                                     "magicdec_tpu/ops/kv_cache.py:374"),
+        "flash_decode_attend_quant": ("magicdec_tpu_torch/csrc/decode_attention_quant.cu",
+                                      "magicdec_tpu/ops/pallas/decode_attention.py:547"),
+        "flash_prefill_attend_quant": ("magicdec_tpu_torch/csrc/prefill_attention_quant.cu",
+                                       "magicdec_tpu/ops/pallas/prefill_attention.py:340"),
+        "append_all_rows_inplace_quant": ("magicdec_tpu_torch/csrc/append.cu",
+                                          "magicdec_tpu/ops/kv_cache.py:489"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():

@@ -6,7 +6,9 @@ throughput (counterpart of the repository's ``bench.py``).
 Same protocol, flags and defaults as ``bench.py`` for what this port runs:
 llama-3.2-1b widths with synthetic weights, StreamingLLM self-speculation at
 B=32, prefix 8192, gamma=3, draft budget 513, prefill chunk 512, max_gen 80,
-bf16 target KV cache and a draft that shares the bf16 weights.  Decode-loop
+an int8 target KV cache with f32 scales (``--kv_quant none``: bf16) and a
+draft that shares the bf16 weights (``--draft_quant none``: the int8 draft
+copy of ``bench.py``'s default is not ported yet).  Decode-loop
 wall time is taken between ``torch.cuda.synchronize()`` calls.  Acceptance
 and both throughputs go to stderr; the single JSON line on stdout is the
 result.
@@ -79,9 +81,12 @@ def parse_args(argv=None):
     p.add_argument("--prefill_chunk", type=int, default=512)
     p.add_argument("--attn_backend", default="flash", choices=["jnp", "flash"])
     p.add_argument("--quantize", choices=["int8", "int4"], default=None)
-    p.add_argument("--kv_quant", nargs="?", const="int8", default="none",
+    p.add_argument("--kv_quant", nargs="?", const="int8", default="int8",
                    choices=["int8", "int4", "none"],
-                   help="quantized target KV cache (not ported yet: bf16 only)")
+                   help="quantized target KV cache (int8 halves the bytes the "
+                        "decode kernels stream; int4 is not ported yet)")
+    p.add_argument("--kv_scale", default="f32", choices=["f32", "bf16"],
+                   help="quantized-cache scale dtype (bf16 is not ported yet)")
     p.add_argument("--draft_quant", nargs="?", const="int8", default="none",
                    choices=["int8", "int4", "none"],
                    help="quantized draft weight copy (not ported yet: the draft "
@@ -99,11 +104,23 @@ def _not_ported(args):
         return "--attn_backend jnp: the port runs its Hopper kernels only"
     if args.quantize:
         return "--quantize (int8/int4 verify weights) is ROADMAP item A8"
-    if args.kv_quant != "none":
-        return "--kv_quant int8/int4 is ROADMAP slice 2 (B1, B7) and A8"
+    if args.kv_quant == "int4":
+        return "--kv_quant int4 is ROADMAP item A8"
+    if args.kv_quant != "none" and args.kv_scale != "f32":
+        return "--kv_scale bf16 is ROADMAP item A8"
     if args.draft_quant != "none":
-        return "--draft_quant int8/int4 is ROADMAP slice 2 (B4-B6)"
+        return "--draft_quant int8/int4 is ROADMAP slice 3 (A3, B4-B6)"
     return None
+
+
+def metric_name(args) -> str:
+    """The result's metric name: ``bench.py``'s, with its quantization tags
+    before ``_B``, and ``_torch`` after."""
+    tag = f"_{args.quantize}" if args.quantize else ""
+    tag += f"_kvq{args.kv_quant[3:]}" if args.kv_quant != "none" else ""
+    tag += f"_dq{args.draft_quant[3:]}" if args.draft_quant != "none" else ""
+    return (f"selfspec_{args.mode}_tokens_per_s_{args.model}{tag}_B{args.B}"
+            f"_ctx{args.prefix_len}_torch")
 
 
 def setup(args):
@@ -126,7 +143,8 @@ def setup(args):
         mode=args.mode, gamma=args.gamma, draft_budget=args.draft_budget,
         max_seq_len=_round_up(prefix + args.max_gen + args.gamma + 2, 512),
         chunk_size=128, prefill_chunk_size=args.prefill_chunk,
-        max_gen=args.max_gen, eot_ids=(-1,), cache_dtype=torch.bfloat16)
+        max_gen=args.max_gen, eot_ids=(-1,), cache_dtype=torch.bfloat16,
+        kv_quant=args.kv_quant if args.kv_quant != "none" else False)
     engine = SpecEngine(params, cfg, ecfg, device=dev)
     rng = np.random.RandomState(0)
     n_prompts = args.iters if args.protocol == "steady" else 1
@@ -200,8 +218,7 @@ def run(args):
     print(f"[bench] autoregressive: {base_tps:.1f} tok/s "
           f"({base_lat_ms:.2f} ms/token)", file=sys.stderr)
     result = {
-        "metric": f"selfspec_{args.mode}_tokens_per_s_{args.model}_B{args.B}"
-                  f"_ctx{prefix}_torch",
+        "metric": metric_name(args),
         "value": round(spec_tps, 2),
         "unit": "tok/s",
         "vs_baseline": round(spec_tps / base_tps, 4),

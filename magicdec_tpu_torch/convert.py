@@ -42,8 +42,15 @@ def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def caches_from_jax(caches, device="cpu", dtype=None):
-    """{'k','v','dk',...: numpy [L, B, S, K]} -> dict of tensors."""
-    return {k: tensor_from_numpy(v, device, dtype) for k, v in caches.items()}
+    """{'k','v','dk',...: numpy [L, B, S, K]} -> dict of tensors.  ``dtype``
+    casts the float KV data only: int8 caches and the scale arrays of a
+    quantized cache ({'ks','vs'} [L, B, Hkv, S]) keep their own dtype, so
+    they move bit for bit."""
+    def keep(name, a):
+        return name.endswith(("ks", "vs")) or np.issubdtype(np.asarray(a).dtype, np.integer)
+
+    return {k: tensor_from_numpy(v, device, None if keep(k, v) else dtype)
+            for k, v in caches.items()}
 
 
 def caches_to_numpy(caches):

@@ -1,4 +1,5 @@
-// K3: in-place append of every layer's new KV rows into the stacked caches.
+// K3 and K3q: in-place append of every layer's new KV rows into the stacked
+// caches (K3q: int8 rows and their scales).
 //
 // Replaces magicdec_tpu/ops/kv_cache.py append_all_rows_inplace, dense call
 // (its inline kernel and _merge_rows_block): rows_k/rows_v [L, B, T, K] land
@@ -34,6 +35,43 @@ __global__ void append_rows_kernel(uint4* __restrict__ ck, uint4* __restrict__ c
 
 }  // namespace
 
+namespace md {
+
+// K3q (replaces the quantized call of append_all_rows_inplace: its inline
+// kernel, _merge_rows_block and _merge_scale_block).  As append_rows_kernel
+// for the int8 rows, and in the same launch the scale rows srows [L, B, H, T]
+// land at scale [L, B, H, S] columns [start_b, start_b + T): thread idx <
+// H*T of each (request, layer) moves one f32 of k and one of v.  Both are
+// copies, so the result is bit-exact; bound: HBM bytes, launch-bound at
+// T <= 4.
+__global__ void append_rows_quant_kernel(uint4* __restrict__ ck, uint4* __restrict__ cv,
+                                         float* __restrict__ sk, float* __restrict__ sv,
+                                         const uint4* __restrict__ rk,
+                                         const uint4* __restrict__ rv,
+                                         const float* __restrict__ srk,
+                                         const float* __restrict__ srv,
+                                         const int* __restrict__ pos, int B, int S, int T,
+                                         int H, int vec) {
+  const int b = blockIdx.y, l = blockIdx.z;
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  const int start = min(max(pos[b], 0), S - T);
+  if (idx < T * vec) {
+    const int t = idx / vec, c = idx % vec;
+    const size_t src = (((size_t)l * B + b) * T + t) * vec + c;
+    const size_t dst = (((size_t)l * B + b) * S + start + t) * vec + c;
+    ck[dst] = rk[src];
+    cv[dst] = rv[src];
+  }
+  if (idx < H * T) {
+    const int h = idx / T, t = idx % T;
+    const size_t row = ((size_t)l * B + b) * H + h;
+    sk[row * S + start + t] = srk[row * T + t];
+    sv[row * S + start + t] = srv[row * T + t];
+  }
+}
+
+}  // namespace md
+
 // row_bytes = K * element size, a multiple of 16.  Returns cudaGetLastError().
 extern "C" int md_append_rows(void* cache_k, void* cache_v, const void* rows_k,
                               const void* rows_v, const void* write_pos, int L, int B,
@@ -46,5 +84,27 @@ extern "C" int md_append_rows(void* cache_k, void* cache_v, const void* rows_k,
       static_cast<uint4*>(cache_k), static_cast<uint4*>(cache_v),
       static_cast<const uint4*>(rows_k), static_cast<const uint4*>(rows_v),
       static_cast<const int*>(write_pos), B, S, T, vec);
+  return (int)cudaGetLastError();
+}
+
+// K3q: int8 rows (row_bytes = K, a multiple of 16) and their f32 scale rows
+// srows_k/srows_v [L, B, H, T] into scale_k/scale_v [L, B, H, S], one launch.
+// Returns cudaGetLastError().
+extern "C" int md_append_rows_quant(void* cache_k, void* cache_v, void* scale_k, void* scale_v,
+                                    const void* rows_k, const void* rows_v,
+                                    const void* srows_k, const void* srows_v,
+                                    const void* write_pos, int L, int B, int S, int T, int H,
+                                    int row_bytes, void* stream) {
+  if (row_bytes % 16 != 0 || T > S) return (int)cudaErrorInvalidValue;
+  const int vec = row_bytes / 16;
+  const int threads = 256;
+  const int work = T * (vec > H ? vec : H);
+  dim3 grid((work + threads - 1) / threads, B, L);
+  md::append_rows_quant_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<uint4*>(cache_k), static_cast<uint4*>(cache_v),
+      static_cast<float*>(scale_k), static_cast<float*>(scale_v),
+      static_cast<const uint4*>(rows_k), static_cast<const uint4*>(rows_v),
+      static_cast<const float*>(srows_k), static_cast<const float*>(srows_v),
+      static_cast<const int*>(write_pos), B, S, T, H, vec);
   return (int)cudaGetLastError();
 }

@@ -25,6 +25,19 @@
 // Masking follows magicdec_tpu's kernels exactly: scores of invisible columns
 // are set to -1e30 (not -inf), the running max starts at -1e30, and the
 // output is acc / max(l, 1e-30).
+//
+// int8 caches (QUANT = true: the K1q decode and K2q prefill kernels).  The
+// cache holds int8 rows with one f32 scale per (token, kv head), scales laid
+// out [L, B, Hkv, S] so a tile's columns of one head are contiguous.  A tile
+// stages its int8 rows (HD bytes a row, four 16-byte cp.async) and its k
+// and v scales (4-byte cp.async each) two stages deep; after the copy lands,
+// each thread converts the chunks it copied to bf16 (exact: |q| <= 127, by
+// integer and float adds, i8x4_to_bf16x4) into the tile the tensor-core
+// code reads, so the mma path is K1/K2's.  The
+// scales follow magicdec_tpu's _quant_online_update: the score of column c
+// is s_raw * (k_scale[c] * 1/sqrt(hd)), masked after scaling; the
+// normaliser l sums the unscaled p, and the P.V product takes
+// bf16(p * v_scale[c]).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -37,10 +50,18 @@ constexpr float kNegInf = -1e30f;
 
 struct AttnArgs {
   const __nv_bfloat16* q;      // [B, T, Hq, HD]
-  const __nv_bfloat16* k;      // [L, B, S, Hkv*HD]
+  const __nv_bfloat16* k;      // [L, B, S, Hkv*HD]  (bf16 caches)
   const __nv_bfloat16* v;
   const __nv_bfloat16* k_new;  // [B, T, Hkv*HD] fresh rows, or null
   const __nv_bfloat16* v_new;
+  const int8_t* kq;            // [L, B, S, Hkv*HD]  (int8 caches, QUANT)
+  const int8_t* vq;
+  const int8_t* kq_new;        // [B, T, Hkv*HD] fresh int8 rows, or null
+  const int8_t* vq_new;
+  const float* k_scale;        // [L, B, Hkv, S]
+  const float* v_scale;
+  const float* ks_new;         // [B, Hkv, T] scales of the fresh rows
+  const float* vs_new;
   const int* base_lens;        // [B]
   __nv_bfloat16* out;          // [B, T, Hq, HD]            (nsplit == 1)
   float* part_o;               // [B, Hkv, nsplit, R, HD]   (nsplit > 1)
@@ -88,6 +109,13 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool va
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
                "r"(valid ? 16 : 0));
 }
+// 4-byte asynchronous copy (the .ca form: .cg copies 16 bytes only); with
+// valid false it reads nothing and writes zeros.
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool valid) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(gmem),
+               "r"(valid ? 4 : 0));
+}
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int PENDING>
 __device__ __forceinline__ void cp_async_wait() {
@@ -114,6 +142,76 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat1
   }
 }
 
+// int8 counterpart of load_tile: positions [c0, c0 + N) of one head, HD
+// bytes a row, into dst [N][HD] bytes.
+template <int HD, int N, int NT>
+__device__ __forceinline__ void load_tile_i8(int8_t* dst, const int8_t* cache,
+                                             const int8_t* fresh, int fresh_at, int stride,
+                                             int c0, int c_end) {
+  constexpr int kVec = HD / 16;
+  for (int i = threadIdx.x; i < N * kVec; i += NT) {
+    const int row = i / kVec, c16 = i % kVec, col = c0 + row;
+    const bool valid = col < c_end;
+    const int8_t* src = !valid           ? cache
+                        : col < fresh_at ? cache + (size_t)col * stride + c16 * 16
+                                         : fresh + (size_t)(col - fresh_at) * stride + c16 * 16;
+    cp_async16(dst + row * HD + c16 * 16, src, valid);
+  }
+}
+
+// The scales of positions [c0, c0 + N) of one head: `cache` points at the
+// head's scale row (S contiguous columns), `fresh` at the fresh rows' (T
+// columns, the first at position fresh_at).  Zero past c_end.
+template <int N, int NT>
+__device__ __forceinline__ void load_scales(float* dst, const float* cache, const float* fresh,
+                                            int fresh_at, int c0, int c_end) {
+  for (int i = threadIdx.x; i < N; i += NT) {
+    const int col = c0 + i;
+    const bool valid = col < c_end;
+    const float* src = !valid ? cache : col < fresh_at ? cache + col : fresh + (col - fresh_at);
+    cp_async4(dst + i, src, valid);
+  }
+}
+
+// Four int8 (one word, byte 0 first) -> four bf16 (two words, lo holds
+// bytes 0 and 1), exactly and without the conversion unit, which runs at a
+// fraction of the ALU rate and would bound K1q: byte v, its sign bit
+// flipped (v + 128), goes under the exponent of 2^23, so the float is
+// 2^23 + v + 128; subtracting 2^23 + 128 leaves v, and a float holding an
+// integer of at most 8 significant bits is its bf16 in the upper half.
+__device__ __forceinline__ void i8x4_to_bf16x4(uint32_t w, uint32_t& lo, uint32_t& hi) {
+  constexpr float kMagic = 8388736.f;  // 2^23 + 128
+  const uint32_t u = w ^ 0x80808080u;
+  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440)) - kMagic;
+  const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7441)) - kMagic;
+  const float f2 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7442)) - kMagic;
+  const float f3 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7443)) - kMagic;
+  lo = __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
+  hi = __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632);
+}
+
+// int8 -> bf16 of the chunks of an int8 tile that this thread copied in
+// load_tile_i8 (the same index walk), into the padded bf16 tile: the
+// thread's own cp.async groups have landed once it has waited, so no
+// barrier is needed before the conversion, only after it.
+template <int HD, int N, int NT>
+__device__ __forceinline__ void convert_tile(__nv_bfloat16* dst, const int8_t* src) {
+  constexpr int kVec = HD / 16;
+  constexpr int LD = HD + 8;
+  for (int i = threadIdx.x; i < N * kVec; i += NT) {
+    const int row = i / kVec, c16 = i % kVec;
+    const uint4 raw = *reinterpret_cast<const uint4*>(src + row * HD + c16 * 16);
+    uint32_t w[8];
+    i8x4_to_bf16x4(raw.x, w[0], w[1]);
+    i8x4_to_bf16x4(raw.y, w[2], w[3]);
+    i8x4_to_bf16x4(raw.z, w[4], w[5]);
+    i8x4_to_bf16x4(raw.w, w[6], w[7]);
+    uint4* d = reinterpret_cast<uint4*>(dst + row * LD + c16 * 16);
+    d[0] = make_uint4(w[0], w[1], w[2], w[3]);
+    d[1] = make_uint4(w[4], w[5], w[6], w[7]);
+  }
+}
+
 template <int HD>
 struct WarpState {
   uint32_t qf[HD / 16][4];  // Q as mma A fragments
@@ -123,11 +221,16 @@ struct WarpState {
 
 // One online-softmax update of a warp's 16 rows with the N-column tile held
 // in Ks/Vs.  Column col0 + c is visible to the thread's row i iff
-// col0 + c < lim[i].
-template <int HD, int N>
+// col0 + c < lim[i].  QUANT: ksc/vsc hold the tile's k and v scales.  A
+// thread's scales are column pairs: on the H100, reading them as float2
+// timed faster for the prefill's 64-column tiles and slower for the
+// decode's 32-column tiles than reading them one by one, hence both forms.
+template <int HD, int N, bool QUANT = false>
 __device__ __forceinline__ void tile_update(WarpState<HD>& w, const __nv_bfloat16* Ks,
                                             const __nv_bfloat16* Vs, int col0,
-                                            const int lim[2], float scale, int lane) {
+                                            const int lim[2], float scale, int lane,
+                                            const float* ksc = nullptr,
+                                            const float* vsc = nullptr) {
   constexpr int LD = HD + 8;
   const int t4 = lane & 3;
   const int mat = lane >> 3, mrow = lane & 7;  // ldmatrix: this lane's row address
@@ -146,12 +249,17 @@ __device__ __forceinline__ void tile_update(WarpState<HD>& w, const __nv_bfloat1
     }
   }
   float mx[2] = {kNegInf, kNegInf};
+  constexpr bool kVecScales = N >= 64;
 #pragma unroll
   for (int j = 0; j < N / 8; ++j) {
+    float2 ks2 = make_float2(1.f, 1.f);
+    if constexpr (QUANT && kVecScales) ks2 = *reinterpret_cast<const float2*>(ksc + j * 8 + t4 * 2);
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int i = e >> 1, col = col0 + j * 8 + t4 * 2 + (e & 1);
-      const float x = col < lim[i] ? s[j][e] * scale : kNegInf;
+      const int i = e >> 1, c = j * 8 + t4 * 2 + (e & 1);
+      float f = scale;
+      if constexpr (QUANT) f = (kVecScales ? ((e & 1) ? ks2.y : ks2.x) : ksc[c]) * scale;
+      const float x = col0 + c < lim[i] ? s[j][e] * f : kNegInf;
       s[j][e] = x;
       mx[i] = fmaxf(mx[i], x);
     }
@@ -184,15 +292,28 @@ __device__ __forceinline__ void tile_update(WarpState<HD>& w, const __nv_bfloat1
     w.o[n][3] *= corr[1];
   }
   // O += P V: P (rounded to bf16, as the reference rounds p to the value
-  // dtype) is re-used from the score registers as A fragments; V's B
-  // fragments (V rows are keys) come transposed by ldmatrix.
+  // dtype; QUANT: p * v_scale) is re-used from the score registers as A
+  // fragments; V's B fragments (V rows are keys) come transposed by ldmatrix.
 #pragma unroll
   for (int kk = 0; kk < N / 16; ++kk) {
     uint32_t a[4];
-    a[0] = pack_bf16x2(s[2 * kk][0], s[2 * kk][1]);
-    a[1] = pack_bf16x2(s[2 * kk][2], s[2 * kk][3]);
-    a[2] = pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-    a[3] = pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+    if constexpr (QUANT) {
+      // columns 16 kk + 2 t4 (+1) for s[2 kk], 16 kk + 8 + 2 t4 (+1) for s[2 kk + 1]
+      const float* v0 = vsc + 16 * kk + 2 * t4;
+      const float2 va = kVecScales ? *reinterpret_cast<const float2*>(v0)
+                                   : make_float2(v0[0], v0[1]);
+      const float2 vb = kVecScales ? *reinterpret_cast<const float2*>(v0 + 8)
+                                   : make_float2(v0[8], v0[9]);
+      a[0] = pack_bf16x2(s[2 * kk][0] * va.x, s[2 * kk][1] * va.y);
+      a[1] = pack_bf16x2(s[2 * kk][2] * va.x, s[2 * kk][3] * va.y);
+      a[2] = pack_bf16x2(s[2 * kk + 1][0] * vb.x, s[2 * kk + 1][1] * vb.y);
+      a[3] = pack_bf16x2(s[2 * kk + 1][2] * vb.x, s[2 * kk + 1][3] * vb.y);
+    } else {
+      a[0] = pack_bf16x2(s[2 * kk][0], s[2 * kk][1]);
+      a[1] = pack_bf16x2(s[2 * kk][2], s[2 * kk][3]);
+      a[2] = pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      a[3] = pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+    }
 #pragma unroll
     for (int n = 0; n < HD / 8; n += 2) {
       uint32_t b[4];
@@ -203,17 +324,32 @@ __device__ __forceinline__ void tile_update(WarpState<HD>& w, const __nv_bfloat1
   }
 }
 
+// Shared tiles: bf16 K/V two stages deep; for int8 caches one bf16 tile
+// (converted) plus two stages of int8 rows and their scales.
+template <int HD, int N, bool QUANT>
+struct TileSmem {
+  __nv_bfloat16 K[2][N * (HD + 8)];
+  __nv_bfloat16 V[2][N * (HD + 8)];
+};
+template <int HD, int N>
+struct TileSmem<HD, N, true> {
+  __nv_bfloat16 K[1][N * (HD + 8)];
+  __nv_bfloat16 V[1][N * (HD + 8)];
+  int8_t Kq[2][N * HD];
+  int8_t Vq[2][N * HD];
+  float Ks[2][N];
+  float Vs[2][N];
+};
+
 // The kernel body.  Grid (row_blocks * nsplit, Hkv, B), W warps per block.
 // Split `split` covers positions [split*chunk, (split+1)*chunk); token t sees
 // positions [0, base + t + 1).  nsplit == 1 writes the normalised output;
 // nsplit > 1 writes (o, m, l) partials that a combine pass merges.
-template <int HD, int N, int W, int MIN_BLOCKS = 1>
+template <int HD, int N, int W, int MIN_BLOCKS = 1, bool QUANT = false>
 __global__ void __launch_bounds__(32 * W, MIN_BLOCKS) attend_kernel(AttnArgs a) {
-  constexpr int LD = HD + 8;
   constexpr int NT = 32 * W;
   // two stages: the next tile's copy runs while this one is computed
-  __shared__ __align__(16) __nv_bfloat16 Ks[2][N * LD];
-  __shared__ __align__(16) __nv_bfloat16 Vs[2][N * LD];
+  __shared__ __align__(16) TileSmem<HD, N, QUANT> sm;
 
   const int b = blockIdx.z, h = blockIdx.y;
   const int rb = blockIdx.x / a.nsplit, split = blockIdx.x % a.nsplit;
@@ -221,7 +357,7 @@ __global__ void __launch_bounds__(32 * W, MIN_BLOCKS) attend_kernel(AttnArgs a) 
   const int g = lane >> 2, t4 = lane & 3;
   const int G = a.Hq / a.Hkv, GT = G * a.T, K = a.Hkv * HD;
   const int base = a.base_lens[b];
-  const bool fresh = a.k_new != nullptr;
+  const bool fresh = QUANT ? a.kq_new != nullptr : a.k_new != nullptr;
   const int r_block = rb * 16 * W;
   const float scale = 1.f / sqrtf((float)HD);
 
@@ -258,24 +394,45 @@ __global__ void __launch_bounds__(32 * W, MIN_BLOCKS) attend_kernel(AttnArgs a) 
   const size_t kv_off = (((size_t)a.layer * a.B + b) * a.S) * K + (size_t)h * HD;
   const size_t f_off = (size_t)b * a.T * K + (size_t)h * HD;
   const int fresh_at = fresh ? base : a.S;  // first position read from k_new
+  const int lim_s[2] = {min(lim[0], hi_s), min(lim[1], hi_s)};
   const __nv_bfloat16* kn = fresh ? a.k_new + f_off : nullptr;
   const __nv_bfloat16* vn = fresh ? a.v_new + f_off : nullptr;
-  const int lim_s[2] = {min(lim[0], hi_s), min(lim[1], hi_s)};
-  if (lo < hi_s) {
-    load_tile<HD, N, NT>(Ks[0], a.k + kv_off, kn, fresh_at, K, lo, hi_s);
-    load_tile<HD, N, NT>(Vs[0], a.v + kv_off, vn, fresh_at, K, lo, hi_s);
-  }
+  const int8_t* kqn = fresh ? a.kq_new + f_off : nullptr;
+  const int8_t* vqn = fresh ? a.vq_new + f_off : nullptr;
+  const size_t s_off = (((size_t)a.layer * a.B + b) * a.Hkv + h) * a.S;  // scale rows
+  const size_t sn_off = ((size_t)b * a.Hkv + h) * a.T;
+  const float* ksn = fresh ? a.ks_new + sn_off : nullptr;
+  const float* vsn = fresh ? a.vs_new + sn_off : nullptr;
+  // issue the copies of the tile at position c into stage st
+  auto issue = [&](int st, int c) {
+    if constexpr (QUANT) {
+      load_tile_i8<HD, N, NT>(sm.Kq[st], a.kq + kv_off, kqn, fresh_at, K, c, hi_s);
+      load_tile_i8<HD, N, NT>(sm.Vq[st], a.vq + kv_off, vqn, fresh_at, K, c, hi_s);
+      load_scales<N, NT>(sm.Ks[st], a.k_scale + s_off, ksn, fresh_at, c, hi_s);
+      load_scales<N, NT>(sm.Vs[st], a.v_scale + s_off, vsn, fresh_at, c, hi_s);
+    } else {
+      load_tile<HD, N, NT>(sm.K[st], a.k + kv_off, kn, fresh_at, K, c, hi_s);
+      load_tile<HD, N, NT>(sm.V[st], a.v + kv_off, vn, fresh_at, K, c, hi_s);
+    }
+  };
+  if (lo < hi_s) issue(0, lo);
   cp_async_commit();
   int stage = 0;
   for (int c0 = lo; c0 < hi_s; c0 += N) {
-    if (c0 + N < hi_s) {  // stage ^ 1 was released by the last iteration's barrier
-      load_tile<HD, N, NT>(Ks[stage ^ 1], a.k + kv_off, kn, fresh_at, K, c0 + N, hi_s);
-      load_tile<HD, N, NT>(Vs[stage ^ 1], a.v + kv_off, vn, fresh_at, K, c0 + N, hi_s);
-    }
+    // stage ^ 1 was released by the last iteration's barrier
+    if (c0 + N < hi_s) issue(stage ^ 1, c0 + N);
     cp_async_commit();
     cp_async_wait<1>();  // all groups but the newest have landed: this stage
-    __syncthreads();
-    tile_update<HD, N>(w, Ks[stage], Vs[stage], c0, lim_s, scale, lane);
+    if constexpr (QUANT) {
+      convert_tile<HD, N, NT>(sm.K[0], sm.Kq[stage]);
+      convert_tile<HD, N, NT>(sm.V[0], sm.Vq[stage]);
+      __syncthreads();
+      tile_update<HD, N, true>(w, sm.K[0], sm.V[0], c0, lim_s, scale, lane, sm.Ks[stage],
+                               sm.Vs[stage]);
+    } else {
+      __syncthreads();
+      tile_update<HD, N>(w, sm.K[stage], sm.V[stage], c0, lim_s, scale, lane);
+    }
     __syncthreads();
     stage ^= 1;
   }
@@ -312,6 +469,30 @@ __global__ void __launch_bounds__(32 * W, MIN_BLOCKS) attend_kernel(AttnArgs a) 
         a.part_ml[(part * R + row[i]) * 2 + 1] = w.l[i];
       }
     }
+  }
+}
+
+// Merge the (o, m, l) partials of the nsplit splits of each (request, kv
+// head) into the normalised bf16 output.  Grid (Hkv, B).
+template <int HD>
+__global__ void combine_kernel(AttnArgs a, int R) {
+  const int b = blockIdx.y, h = blockIdx.x;
+  const int G = a.Hq / a.Hkv, GT = G * a.T;
+  const size_t part0 = ((size_t)b * a.Hkv + h) * a.nsplit;
+  for (int idx = threadIdx.x; idx < GT * HD; idx += blockDim.x) {
+    const int r = idx / HD, d = idx % HD;
+    float m = kNegInf;
+    for (int s = 0; s < a.nsplit; ++s) m = fmaxf(m, a.part_ml[((part0 + s) * R + r) * 2]);
+    float l = 0.f, o = 0.f;
+    for (int s = 0; s < a.nsplit; ++s) {
+      const size_t pr = (part0 + s) * R + r;
+      const float c = __expf(a.part_ml[pr * 2] - m);
+      l += a.part_ml[pr * 2 + 1] * c;
+      o += a.part_o[pr * HD + d] * c;
+    }
+    const int t = r / G, gq = r % G;
+    a.out[(((size_t)b * a.T + t) * a.Hq + h * G + gq) * HD + d] =
+        __float2bfloat16(o / fmaxf(l, 1e-30f));
   }
 }
 

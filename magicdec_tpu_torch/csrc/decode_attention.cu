@@ -24,28 +24,6 @@
 
 namespace md {
 
-template <int HD>
-__global__ void combine_kernel(AttnArgs a, int R) {
-  const int b = blockIdx.y, h = blockIdx.x;
-  const int G = a.Hq / a.Hkv, GT = G * a.T;
-  const size_t part0 = ((size_t)b * a.Hkv + h) * a.nsplit;
-  for (int idx = threadIdx.x; idx < GT * HD; idx += blockDim.x) {
-    const int r = idx / HD, d = idx % HD;
-    float m = kNegInf;
-    for (int s = 0; s < a.nsplit; ++s) m = fmaxf(m, a.part_ml[((part0 + s) * R + r) * 2]);
-    float l = 0.f, o = 0.f;
-    for (int s = 0; s < a.nsplit; ++s) {
-      const size_t pr = (part0 + s) * R + r;
-      const float c = __expf(a.part_ml[pr * 2] - m);
-      l += a.part_ml[pr * 2 + 1] * c;
-      o += a.part_o[pr * HD + d] * c;
-    }
-    const int t = r / G, gq = r % G;
-    a.out[(((size_t)b * a.T + t) * a.Hq + h * G + gq) * HD + d] =
-        __float2bfloat16(o / fmaxf(l, 1e-30f));
-  }
-}
-
 template <int HD, int W>
 static void launch(const AttnArgs& a, cudaStream_t stream) {
   constexpr int N = 32;
@@ -65,7 +43,7 @@ extern "C" int md_decode_attend(const void* q, const void* k, const void* v,
                                 void* part_ml, int layer, int B, int S, int T, int Hq,
                                 int Hkv, int hd, int nsplit, int chunk, void* stream) {
   if (hd != 64) return (int)cudaErrorInvalidValue;
-  md::AttnArgs a;
+  md::AttnArgs a{};  // the int8 fields stay null
   a.q = static_cast<const __nv_bfloat16*>(q);
   a.k = static_cast<const __nv_bfloat16*>(k);
   a.v = static_cast<const __nv_bfloat16*>(v);

@@ -25,7 +25,7 @@ extern "C" int md_prefill_attend(const void* q, const void* k, const void* v,
                                  int S, int T, int Hq, int Hkv, int hd, void* stream) {
   constexpr int W = 8, N = 64;
   if (hd != 64) return (int)cudaErrorInvalidValue;
-  md::AttnArgs a;
+  md::AttnArgs a{};  // the int8 fields stay null
   a.q = static_cast<const __nv_bfloat16*>(q);
   a.k = static_cast<const __nv_bfloat16*>(k);
   a.v = static_cast<const __nv_bfloat16*>(v);

@@ -9,7 +9,9 @@ magicdec_tpu/engine/engine.py ``SpecEngine``).
 - ``encode_baseline`` / ``generate_baseline``  greedy autoregressive decoding.
 
 Greedy acceptance matches the reference exactly (engine/spec.py).  The draft
-shares the target's weights and attends its budget-sized cache.  Target passes
+shares the target's weights and attends its budget-sized cache, which stays
+in ``cache_dtype``; the target cache is int8 with per-(token, kv head) f32
+scales under ``kv_quant``.  Target passes
 run their dots at the live row count (no ``decode_rows`` padding): on the H100
 a target row comes out with the same bits at verify (B * (gamma + 1) rows) and
 at the autoregressive step (B rows), which ``chip_smoke.py`` checks each run.
@@ -33,6 +35,18 @@ def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
 
 
+def kv_quant_bits(kv_quant) -> int:
+    """EngineConfig.kv_quant -> bits (0 = a dense cache_dtype cache)."""
+    if not kv_quant:
+        return 0
+    if kv_quant is True or kv_quant == "int8":
+        return 8
+    if kv_quant == "int4":
+        raise NotImplementedError("kv_quant='int4' (head-pair-packed int4 KV) is "
+                                  "ROADMAP item A8")
+    raise ValueError(f"kv_quant must be False/True/'int8'/'int4', got {kv_quant!r}")
+
+
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
     mode: str = "streamingllm"       # "snapkv" arrives with ROADMAP A7
@@ -45,6 +59,10 @@ class EngineConfig:
     max_gen: int = 80                # reference stop rule
     eot_ids: Tuple[int, ...] = (-1,)
     cache_dtype: Any = torch.bfloat16
+    kv_quant: Any = False            # False | True/"int8": int8 target cache with
+                                     # per-(token, kv head) scales; the draft
+                                     # cache stays in cache_dtype ("int4": A8)
+    kv_scale_dtype: Any = torch.float32  # the scales' dtype (bf16: A8)
 
 
 class SpecEngine:
@@ -63,6 +81,11 @@ class SpecEngine:
                 f"chunk_size (got {ecfg.draft_budget} - {ecfg.sink_size} < "
                 f"{ecfg.chunk_size}); the reference uses budget = 128k+1")
         # wq|wk|wv and w1|w3 as single dots (idempotent)
+        self._kv_bits = kv_quant_bits(ecfg.kv_quant)
+        if self._kv_bits and ecfg.kv_scale_dtype != torch.float32:
+            raise NotImplementedError(
+                f"kv_scale_dtype {ecfg.kv_scale_dtype}: the port's int8 cache keeps "
+                "float32 scales (bf16 scales are ROADMAP item A8)")
         self.params = _to_device(M.fuse_exec_params(params, cfg), self.device)
         self.cfg = cfg
         self.ecfg = ecfg
@@ -80,8 +103,25 @@ class SpecEngine:
         return torch.zeros(shape, dtype=self.ecfg.cache_dtype, device=self.device)
 
     def _zero_target_caches(self, B: int) -> dict:
-        shape = self._cache_shape(B, self.ecfg.max_seq_len)
-        return {"k": self._zeros(shape), "v": self._zeros(shape)}
+        """{'k','v'} in cache_dtype, or int8 with zero scales {'ks','vs'}
+        [L, B, Hkv, S] under kv_quant."""
+        e, c = self.ecfg, self.cfg
+        shape = self._cache_shape(B, e.max_seq_len)
+        if not self._kv_bits:
+            return {"k": self._zeros(shape), "v": self._zeros(shape)}
+        sshape = (c.n_layer, B, c.n_kv_head, e.max_seq_len)
+        caches = {n: torch.zeros(shape, dtype=torch.int8, device=self.device) for n in "kv"}
+        caches.update({n: torch.zeros(sshape, dtype=e.kv_scale_dtype, device=self.device)
+                       for n in ("ks", "vs")})
+        return caches
+
+    @staticmethod
+    def _state_tcaches(st) -> dict:
+        """The target-cache dict of a state."""
+        c = {"k": st.k, "v": st.v}
+        if st.ks is not None:
+            c.update(ks=st.ks, vs=st.vs)
+        return c
 
     def _zero_caches(self, B: int):
         """(target cache dict, draft cache dict)."""
@@ -138,7 +178,8 @@ class SpecEngine:
         dcaches = M.streaming_finalize_draft(self.cfg, dcaches, budget=e.draft_budget)
         draft_fill = torch.full((B,), fill, dtype=torch.int32, device=self.device)
         return SpecState(
-            k=tcaches["k"], v=tcaches["v"], target_lens=lens,
+            k=tcaches["k"], v=tcaches["v"], ks=tcaches.get("ks"), vs=tcaches.get("vs"),
+            target_lens=lens,
             dk=dcaches["dk"], dv=dcaches["dv"],
             draft_fill=draft_fill, draft_pos=draft_fill.clone(), token0=token0,
             output=torch.zeros((B, self._out_cap), dtype=torch.int32, device=self.device),
@@ -205,7 +246,7 @@ class SpecEngine:
             fill = fill + 1
         tokens_buffer = torch.stack([st.token0, *drafted], dim=1)
         target_tokens, _ = M.forward_target(self.params, self.cfg, tokens_buffer,
-                                            st.target_lens, {"k": st.k, "v": st.v})
+                                            st.target_lens, self._state_tcaches(st))
         return self._finish_window(
             st, tokens_buffer, target_tokens,
             fill_after=lambda acc: f0 + st.db_update - 1 + torch.clamp(acc, max=e.gamma))
@@ -221,22 +262,22 @@ class SpecEngine:
         token0 = self._head_token(x_last)
         output = torch.zeros((B, self._out_cap), dtype=torch.int32, device=self.device)
         output = spec_ops.write_at(output, torch.zeros_like(token0), token0)
-        return BaselineState(k=caches["k"], v=caches["v"], lens=lens, token0=token0,
-                             output=output,
+        return BaselineState(k=caches["k"], v=caches["v"], ks=caches.get("ks"),
+                             vs=caches.get("vs"), lens=lens, token0=token0, output=output,
                              num_committed=torch.ones((B,), dtype=torch.int32,
                                                       device=self.device))
 
     def generate_baseline(self, state: BaselineState, max_new=None):
         max_new = max_new if max_new is not None else self.ecfg.max_gen
-        caches = {"k": state.k, "v": state.v}
+        caches = self._state_tcaches(state)
         lens, tok, out, n = state.lens, state.token0, state.output, state.num_committed
         for _ in range(max_new - 1):
             nxt, caches = M.forward_target(self.params, self.cfg, tok[:, None], lens, caches)
             tok = nxt[:, 0]
             out = spec_ops.write_at(out, n, tok)
             lens, n = lens + 1, n + 1
-        state = BaselineState(k=caches["k"], v=caches["v"], lens=lens, token0=tok,
-                              output=out, num_committed=n)
+        state = dataclasses.replace(state, lens=lens, token0=tok, output=out,
+                                    num_committed=n)
         return state, {"output": out, "num_committed": n, "gen_tokens": n - 1}
 
 

@@ -1,13 +1,14 @@
 """Decode state of the engines (counterpart of magicdec_tpu/engine/state.py).
 
 Plain dataclasses of tensors.  The caches inside are updated in place by the
-model passes; the other fields are replaced each window.  The quantized-KV,
-sampling and paged-serving fields of the reference arrive with their slices.
+model passes; the other fields are replaced each window.  The sampling and
+paged-serving fields of the reference arrive with their slices.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -30,6 +31,10 @@ class SpecState:
     done: torch.Tensor           # scalar bool (batch-global, like the reference)
     db_tokens: torch.Tensor      # [B, 2] StreamingLLM double-buffer tokens
     db_update: torch.Tensor      # [B] in {1, 2}
+    # int8 target-cache scales [L, B, Hkv, S] (EngineConfig.kv_quant; None
+    # for a bf16 cache), the ops.kv_cache.quantize_kv_tokens layout
+    ks: Optional[torch.Tensor] = None
+    vs: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass
@@ -42,3 +47,5 @@ class BaselineState:
     token0: torch.Tensor
     output: torch.Tensor
     num_committed: torch.Tensor
+    ks: Optional[torch.Tensor] = None  # int8-cache scales, as in SpecState
+    vs: Optional[torch.Tensor] = None

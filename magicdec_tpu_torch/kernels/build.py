@@ -35,6 +35,9 @@ SIGNATURES = {
     "md_decode_attend": [_P] * 9 + [_I] * 9 + [_P],
     "md_prefill_attend": [_P] * 7 + [_I] * 7 + [_P],
     "md_append_rows": [_P] * 5 + [_I] * 5 + [_P],
+    "md_decode_attend_quant": [_P] * 13 + [_I] * 9 + [_P],
+    "md_prefill_attend_quant": [_P] * 11 + [_I] * 7 + [_P],
+    "md_append_rows_quant": [_P] * 9 + [_I] * 6 + [_P],
 }
 
 _lock = threading.Lock()

@@ -1,11 +1,14 @@
-"""K1: flash decode / verify attention (CUDA, ``csrc/decode_attention.cu``).
+"""K1 and K1q: flash decode / verify attention (CUDA,
+``csrc/decode_attention.cu`` and ``csrc/decode_attention_quant.cu``).
 
-Replaces magicdec_tpu/ops/pallas/decode_attention.py ``flash_decode_attend``
-(both ``_decode_kernel`` and ``_whole_row_kernel``).  Bound on the card: HBM
-bytes (each visible K/V row is read once and feeds only G*T query rows).
-The kernel splits each (request, kv head)'s KV rows over several blocks and
-merges their softmax partials in a second pass — see the source for the
-design.
+K1 replaces magicdec_tpu/ops/pallas/decode_attention.py
+``flash_decode_attend`` (both ``_decode_kernel`` and ``_whole_row_kernel``);
+K1q replaces ``flash_decode_attend_quant`` (``_decode_quant_kernel``) over
+an int8 cache with per-(token, kv head) f32 scales.  Bound on the card: HBM
+bytes (each visible K/V row is read once and feeds only G*T query rows;
+int8 rows halve them).  Both split each (request, kv head)'s KV rows over
+several blocks and merge their softmax partials in a second pass — see the
+sources for the design.
 """
 
 from __future__ import annotations
@@ -14,7 +17,8 @@ import torch
 
 from magicdec_tpu_torch.kernels import on_cpu, ptr, require, require_bf16
 from magicdec_tpu_torch.ops.attention import attend
-from magicdec_tpu_torch.ops.kv_cache import append_rows_all_layers
+from magicdec_tpu_torch.ops.kv_cache import (append_rows_all_layers,
+                                             append_scale_rows_all_layers, dequant_kv)
 
 TILE = 32             # KV rows per shared-memory tile (N in the source)
 # The most one-warp blocks one wave holds: 11 per SM (each keeps 18 KB of
@@ -111,3 +115,101 @@ def flash_decode_attend(q, k_cache, v_cache, base_lens, *, layer=0,
 
 
 flash_decode_attend.launches = 0
+
+
+def visible_layer_quant(cache, scale, layer, rows, srows, base_lens):
+    """Layer ``layer`` of an int8 cache and its scales, with the fresh rows
+    and their scales written at base_lens (into copies)."""
+    c, s = cache[layer], scale[layer]
+    if rows is not None:
+        c, s = c.clone(), s.clone()
+        append_rows_all_layers(c[None], rows.reshape(c.shape[0], -1, c.shape[2])[None],
+                               base_lens)
+        append_scale_rows_all_layers(s[None], srows[None], base_lens)
+    return c, s
+
+
+def flash_decode_attend_quant_plain(q, k_cache, k_scale, v_cache, v_scale, base_lens, *,
+                                    layer=0, k_new=None, v_new=None, ks_new=None,
+                                    vs_new=None):
+    """Plain version: dequantize the layer with the fresh rows appended, then
+    attend one query token at a time, as ``flash_decode_attend_plain``."""
+    hd = q.shape[-1]
+    kc = dequant_kv(*visible_layer_quant(k_cache, k_scale, layer, k_new, ks_new, base_lens), hd)
+    vc = dequant_kv(*visible_layer_quant(v_cache, v_scale, layer, v_new, vs_new, base_lens), hd)
+    base = base_lens.to(torch.int64)
+    return torch.cat([attend(q[:, t:t + 1], kc, vc, base + t)
+                      for t in range(q.shape[1])], dim=1)
+
+
+def check_quant_operands(q, k_cache, k_scale, v_cache, v_scale, k_new, v_new, ks_new,
+                         vs_new):
+    """Shapes, types and layouts the int8 attention kernels take (K1q, K2q);
+    returns the fresh operands made contiguous (None when absent)."""
+    B, T, Hq, hd = q.shape
+    L, Bc, S, K = k_cache.shape
+    Hkv = K // hd
+    require(Bc == B and Hkv * hd == K and Hq % Hkv == 0, "shape mismatch")
+    require(v_cache.shape == k_cache.shape, "k and v caches differ in shape")
+    require(k_scale.shape == (L, B, Hkv, S) and v_scale.shape == k_scale.shape,
+            f"scales {tuple(k_scale.shape)} do not match the cache {tuple(k_cache.shape)}")
+    require(k_cache.dtype == v_cache.dtype == torch.int8, "the cache must be int8")
+    require(k_scale.dtype == v_scale.dtype == torch.float32,
+            "the scales must be float32 (bf16 scales are ROADMAP item A8)")
+    require(all(t.is_contiguous() for t in (k_cache, v_cache, k_scale, v_scale)),
+            "caches and scales must be contiguous")
+    require_bf16(q)
+    if k_new is None:
+        return None, None, None, None
+    require(ks_new is not None and vs_new is not None, "fresh rows need their scales")
+    k_new = k_new.reshape(B, T, K).contiguous()
+    v_new = v_new.reshape(B, T, K).contiguous()
+    ks_new = ks_new.reshape(B, Hkv, T).contiguous()
+    vs_new = vs_new.reshape(B, Hkv, T).contiguous()
+    require(k_new.dtype == v_new.dtype == torch.int8
+            and ks_new.dtype == vs_new.dtype == torch.float32,
+            "fresh rows must be int8 with float32 scales")
+    return k_new, v_new, ks_new, vs_new
+
+
+def flash_decode_attend_quant(q, k_cache, k_scale, v_cache, v_scale, base_lens, *,
+                              layer=0, k_new=None, v_new=None, ks_new=None, vs_new=None):
+    """``flash_decode_attend`` over an int8 cache.
+
+    q [B, T, Hq, hd] bf16 (T <= 16); k_cache/v_cache int8 [L, B, S, Hkv*hd];
+    k_scale/v_scale f32 [L, B, Hkv, S]; base_lens [B] int32; k_new/v_new int8
+    [B, T, Hkv*hd] with ks_new/vs_new f32 [B, Hkv, T]: the window's rows when
+    the cache does not hold them yet.  Returns [B, T, Hq, hd] in q.dtype.
+    """
+    if on_cpu(q, k_cache, k_scale, v_cache, v_scale, base_lens, k_new, v_new, ks_new,
+              vs_new):
+        return flash_decode_attend_quant_plain(
+            q, k_cache, k_scale, v_cache, v_scale, base_lens, layer=layer,
+            k_new=k_new, v_new=v_new, ks_new=ks_new, vs_new=vs_new)
+    from magicdec_tpu_torch.kernels import build
+
+    B, T, Hq, hd = q.shape
+    L, _, S, K = k_cache.shape
+    Hkv = K // hd
+    require(0 <= layer < L and 1 <= T <= 16, "bad layer or window length")
+    k_new, v_new, ks_new, vs_new = check_quant_operands(
+        q, k_cache, k_scale, v_cache, v_scale, k_new, v_new, ks_new, vs_new)
+    q = q.contiguous()
+    lens = base_lens.to(torch.int32).contiguous()
+    out = torch.empty_like(q)
+    nsplit, chunk = split_plan(B, Hkv, S)
+    R = rows_pad(Hq // Hkv * T)
+    part_o = part_ml = None
+    if nsplit > 1:
+        part_o = torch.empty((B, Hkv, nsplit, R, hd), dtype=torch.float32, device=q.device)
+        part_ml = torch.empty((B, Hkv, nsplit, R, 2), dtype=torch.float32, device=q.device)
+    err = build.library().md_decode_attend_quant(
+        ptr(q), ptr(k_cache), ptr(v_cache), ptr(k_scale), ptr(v_scale), ptr(k_new),
+        ptr(v_new), ptr(ks_new), ptr(vs_new), ptr(lens), ptr(out), ptr(part_o),
+        ptr(part_ml), layer, B, S, T, Hq, Hkv, hd, nsplit, chunk, build.stream_ptr(q))
+    build.check(err, "md_decode_attend_quant")
+    flash_decode_attend_quant.launches += 1
+    return out
+
+
+flash_decode_attend_quant.launches = 0

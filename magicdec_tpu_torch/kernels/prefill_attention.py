@@ -1,9 +1,12 @@
-"""K2: chunked-prefill flash attention (CUDA, ``csrc/prefill_attention.cu``).
+"""K2 and K2q: chunked-prefill flash attention (CUDA,
+``csrc/prefill_attention.cu`` and ``csrc/prefill_attention_quant.cu``).
 
-Replaces magicdec_tpu/ops/pallas/prefill_attention.py ``flash_prefill_attend``
-(``_prefill_kernel``).  Bound on the card: tensor-core operations; the
-kernel runs its two products on ``mma.sync`` with fp32 accumulators — see
-the source for the design.
+K2 replaces magicdec_tpu/ops/pallas/prefill_attention.py
+``flash_prefill_attend`` (``_prefill_kernel``); K2q replaces
+``flash_prefill_attend_quant`` (``_prefill_quant_kernel``) over an int8
+cache with per-(token, kv head) f32 scales.  Bound on the card:
+tensor-core operations; both run their two products on ``mma.sync`` with
+fp32 accumulators — see the sources for the design.
 """
 
 from __future__ import annotations
@@ -11,7 +14,9 @@ from __future__ import annotations
 import torch
 
 from magicdec_tpu_torch.kernels import on_cpu, ptr, require, require_bf16
-from magicdec_tpu_torch.ops.attention import attend
+from magicdec_tpu_torch.kernels.decode_attention import (check_quant_operands,
+                                                         visible_layer_quant)
+from magicdec_tpu_torch.ops.attention import attend, attend_quant
 from magicdec_tpu_torch.ops.kv_cache import append_rows_all_layers
 
 
@@ -71,3 +76,59 @@ def flash_prefill_attend(q, k_cache, v_cache, base_lens, *, layer=0,
 
 
 flash_prefill_attend.launches = 0
+
+
+def flash_prefill_attend_quant_plain(q, k_cache, k_scale, v_cache, v_scale, base_lens, *,
+                                     layer=0, k_new=None, v_new=None, ks_new=None,
+                                     vs_new=None):
+    """Plain version: per request, ``attend_quant`` over the layer with the
+    chunk's fresh rows appended."""
+    fresh = k_new is not None
+    outs = []
+    for b in range(q.shape[0]):
+        one = slice(b, b + 1)
+        lens = base_lens[one]
+        kc = visible_layer_quant(k_cache[:, one], k_scale[:, one], layer,
+                                 k_new[one] if fresh else None,
+                                 ks_new[one] if fresh else None, lens)
+        vc = visible_layer_quant(v_cache[:, one], v_scale[:, one], layer,
+                                 v_new[one] if fresh else None,
+                                 vs_new[one] if fresh else None, lens)
+        outs.append(attend_quant(q[one], kc[0], kc[1], vc[0], vc[1], lens))
+    return torch.cat(outs, dim=0)
+
+
+def flash_prefill_attend_quant(q, k_cache, k_scale, v_cache, v_scale, base_lens, *,
+                               layer=0, k_new=None, v_new=None, ks_new=None, vs_new=None):
+    """``flash_prefill_attend`` over an int8 cache.
+
+    q [B, C, Hq, hd] bf16; k_cache/v_cache int8 [L, B, S, Hkv*hd];
+    k_scale/v_scale f32 [L, B, Hkv, S]; base_lens [B] int32; k_new/v_new int8
+    [B, C, Hkv*hd] with ks_new/vs_new f32 [B, Hkv, C]: the chunk's rows when
+    the cache does not hold them yet.  Returns [B, C, Hq, hd] in q.dtype.
+    """
+    if on_cpu(q, k_cache, k_scale, v_cache, v_scale, base_lens, k_new, v_new, ks_new,
+              vs_new):
+        return flash_prefill_attend_quant_plain(
+            q, k_cache, k_scale, v_cache, v_scale, base_lens, layer=layer,
+            k_new=k_new, v_new=v_new, ks_new=ks_new, vs_new=vs_new)
+    from magicdec_tpu_torch.kernels import build
+
+    B, C, Hq, hd = q.shape
+    L, _, S, K = k_cache.shape
+    require(0 <= layer < L, "bad layer")
+    k_new, v_new, ks_new, vs_new = check_quant_operands(
+        q, k_cache, k_scale, v_cache, v_scale, k_new, v_new, ks_new, vs_new)
+    q = q.contiguous()
+    lens = base_lens.to(torch.int32).contiguous()
+    out = torch.empty_like(q)
+    err = build.library().md_prefill_attend_quant(
+        ptr(q), ptr(k_cache), ptr(v_cache), ptr(k_scale), ptr(v_scale), ptr(k_new),
+        ptr(v_new), ptr(ks_new), ptr(vs_new), ptr(lens), ptr(out),
+        layer, B, S, C, Hq, K // hd, hd, build.stream_ptr(q))
+    build.check(err, "md_prefill_attend_quant")
+    flash_prefill_attend_quant.launches += 1
+    return out
+
+
+flash_prefill_attend_quant.launches = 0

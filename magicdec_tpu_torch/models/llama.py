@@ -13,7 +13,9 @@ The JAX ``lax.scan`` over layers is a Python loop over the stacked weights.
 Target and draft decode passes read the stacked caches ``[L, B, S, K]``
 without writing them: each layer attends its new KV as fresh-row operands of
 the attention kernel, and ONE in-place append after the loop writes every
-layer's rows (``kernels/append.py``).  The bf16 dense dots are
+layer's rows (``kernels/append.py``).  A target cache may be int8 with
+per-(token, kv head) scales {'ks', 'vs'} (``EngineConfig.kv_quant``): its
+new rows are quantized once and the same rows are attended and appended.  The bf16 dense dots are
 ``torch.matmul`` (the reference leaves them to XLA).
 """
 
@@ -28,6 +30,7 @@ import torch.nn.functional as F
 from magicdec_tpu_torch.config import ModelConfig
 from magicdec_tpu_torch.kernels.append import append_all_rows_inplace
 from magicdec_tpu_torch.ops import attention as attn_ops
+from magicdec_tpu_torch.ops.kv_cache import quantize_kv_tokens
 from magicdec_tpu_torch.ops.rope import (apply_rope, apply_rope_cs, rope_cos_sin,
                                          rope_inv_freq)
 from magicdec_tpu_torch.ops.streamingllm import stream_update_raw
@@ -153,17 +156,26 @@ def _attn_project(x, wl, cfg, cs_q, cs_k):
 
 
 def _kv_rows(k, v, caches, prefix=""):
-    """The layer's new KV in the cache's at-rest format: these exact rows are
+    """The layer's new KV in the cache's at-rest format (the dense cache
+    dtype, or int8 data + per-(token, head) scales): these exact rows are
     both the kernel's fresh operands and what the post-loop append writes."""
+    sc = caches.get(prefix + "ks")
+    if sc is not None:
+        kq, ksn = quantize_kv_tokens(k, scale_dtype=sc.dtype)
+        vq, vsn = quantize_kv_tokens(v, scale_dtype=sc.dtype)
+        return {"k": kq, "v": vq, "ks": ksn, "vs": vsn}
     B, T = k.shape[:2]
     dt = caches[prefix + "k"].dtype
     return {"k": k.reshape(B, T, -1).to(dt), "v": v.reshape(B, T, -1).to(dt)}
 
 
 def _append_rows(caches, rows, write_pos, prefix=""):
-    """One in-place append of every layer's rows {'k','v'} [L, B, T, K]."""
+    """One in-place append of every layer's rows {'k','v'} [L, B, T, K]
+    (with their scales {'ks','vs'} [L, B, Hkv, T] for an int8 cache)."""
+    scales = ((caches[prefix + "ks"], caches[prefix + "vs"], rows["ks"], rows["vs"])
+              if "ks" in rows else ())
     append_all_rows_inplace(caches[prefix + "k"], caches[prefix + "v"],
-                            rows["k"], rows["v"], write_pos)
+                            rows["k"], rows["v"], write_pos, *scales)
     return caches
 
 
@@ -186,16 +198,16 @@ def _head(params, cfg, x, head):
 
 def _decode_layers(params, cfg, x, caches, cs, attend_fn):
     """Run every layer; attend_fn(q, k, v, l) -> (attn_out, rows).  Returns
-    x and the rows stacked [L, B, T, K] for the post-loop append."""
-    rows_k, rows_v = [], []
+    x and the rows stacked [L, ...] ({'k','v'} [L, B, T, K], and
+    {'ks','vs'} [L, B, Hkv, T] for an int8 cache) for the post-loop append."""
+    per_layer = []
     for l in range(cfg.n_layer):
         wl = _layer(params, l)
         q, k, v = _attn_project(x, wl, cfg, cs, cs)
         out, rows = attend_fn(q, k, v, l)
-        rows_k.append(rows["k"])
-        rows_v.append(rows["v"])
+        per_layer.append(rows)
         x = _layer_tail(x, out, wl, cfg)
-    return x, {"k": torch.stack(rows_k), "v": torch.stack(rows_v)}
+    return x, {n: torch.stack([r[n] for r in per_layer]) for n in per_layer[0]}
 
 
 def forward_target(params: Params, cfg: ModelConfig, tokens, base_lens, caches,
@@ -203,7 +215,8 @@ def forward_target(params: Params, cfg: ModelConfig, tokens, base_lens, caches,
     """Decode / verify / prefill chunk over the full target cache.
 
     tokens [B, T]; base_lens [B] int32 = visible cache length before this
-    call; caches {'k','v'} [L, B, S, K], appended in place at base_lens.
+    call; caches {'k','v'} [L, B, S, K] (+ {'ks','vs'} [L, B, Hkv, S] for an
+    int8 cache), appended in place at base_lens.
     Positions are base_lens + arange(T).  head: 'argmax' | 'logits' | 'none'
     (final hidden states).  Returns (head output, caches).
     """

@@ -3,9 +3,11 @@ magicdec_tpu/ops/attention.py).
 
 ``attend`` is the plain numerics oracle: ragged per-request lengths, causal
 masking aligned so the END of the query window meets the end of the visible
-KV, GQA, fp32 softmax.  ``attend_cache`` dispatches a layer of the stacked
-``[L, B, S, Hkv*hd]`` caches to the Hopper kernels: the decode kernel for
-small windows (T <= 16), the prefill kernel for chunks.
+KV, GQA, fp32 softmax; ``attend_quant`` is its int8-cache counterpart
+(dequantize, then attend).  ``attend_cache`` dispatches a layer of the
+stacked ``[L, B, S, Hkv*hd]`` caches (bf16, or int8 with scales) to the
+Hopper kernels: the decode kernel for small windows (T <= 16), the prefill
+kernel for chunks.
 """
 
 from __future__ import annotations
@@ -48,22 +50,41 @@ def attend(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     return out.permute(0, 3, 1, 2, 4).reshape(B, T, Hq, D).to(q.dtype)
 
 
+def attend_quant(q, k_cache, k_scale, v_cache, v_scale, base_lens) -> torch.Tensor:
+    """``attend`` over int8 caches [B, S, Hkv*hd] with per-(token, head)
+    scales [B, Hkv, S]: dequantize to float32, then attend."""
+    from magicdec_tpu_torch.ops.kv_cache import dequant_kv
+
+    hd = q.shape[-1]
+    return attend(q, dequant_kv(k_cache, k_scale, hd), dequant_kv(v_cache, v_scale, hd),
+                  base_lens)
+
+
 def attend_cache(q, caches, base_lens, *, layer: int, prefix: str = "",
                  fresh=None) -> torch.Tensor:
     """Causal attention over layer ``layer`` of the stacked caches.
 
     caches: {'k', 'v'} (``prefix`` renames them: the draft cache is
-    {'dk', 'dv'}) with tensors [L, B, S, Hkv*hd].  The kernels take the whole
+    {'dk', 'dv'}) with tensors [L, B, S, Hkv*hd]; an int8 cache also holds
+    its scales {'ks', 'vs'} [L, B, Hkv, S].  The kernels take the whole
     stacked cache and the layer index: no [B, S, K] slice is copied.
-    ``fresh``: {'k', 'v'} rows [B, T, Hkv*hd] of the T window tokens when the
-    cache does not hold them yet; the caller appends these exact rows after
-    the layer loop, so attending them as fresh operands equals attending the
-    appended cache.
+    ``fresh``: the rows of the T window tokens when the cache does not hold
+    them yet, in the cache's at-rest format ({'k', 'v'} [B, T, Hkv*hd], plus
+    {'ks', 'vs'} [B, Hkv, T] for an int8 cache); the caller appends these
+    exact rows after the layer loop, so attending them as fresh operands
+    equals attending the appended cache.
     """
-    from magicdec_tpu_torch.kernels.decode_attention import flash_decode_attend
-    from magicdec_tpu_torch.kernels.prefill_attention import flash_prefill_attend
+    from magicdec_tpu_torch.kernels import decode_attention as DA
+    from magicdec_tpu_torch.kernels import prefill_attention as PA
 
+    decode = q.shape[1] <= DECODE_MAX_T
+    k, v = caches[prefix + "k"], caches[prefix + "v"]
+    if caches.get(prefix + "ks") is not None:
+        fresh_kw = {} if fresh is None else dict(
+            k_new=fresh["k"], v_new=fresh["v"], ks_new=fresh["ks"], vs_new=fresh["vs"])
+        fn = DA.flash_decode_attend_quant if decode else PA.flash_prefill_attend_quant
+        return fn(q, k, caches[prefix + "ks"], v, caches[prefix + "vs"], base_lens,
+                  layer=layer, **fresh_kw)
     fresh_kw = {} if fresh is None else dict(k_new=fresh["k"], v_new=fresh["v"])
-    fn = flash_decode_attend if q.shape[1] <= DECODE_MAX_T else flash_prefill_attend
-    return fn(q, caches[prefix + "k"], caches[prefix + "v"], base_lens,
-              layer=layer, **fresh_kw)
+    fn = DA.flash_decode_attend if decode else PA.flash_prefill_attend
+    return fn(q, k, v, base_lens, layer=layer, **fresh_kw)

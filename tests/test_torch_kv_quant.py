@@ -1,0 +1,458 @@
+"""The port's int8 target KV cache (``EngineConfig.kv_quant``, the bench's
+default ``--kv_quant int8``).
+
+On the CPU, against the JAX package: the plain quantized-KV ops bit for bit;
+the plain versions of K1q (decode), K2q (prefill) and K3q (append) against
+its Pallas kernels in interpret mode; the target pass over int8 caches; the
+engine's tokens; the bench's defaults and metric name.  On the card (``gpu``
+marker, skipped without one): each CUDA kernel against its plain version.
+
+Tolerances.  Quantization, dequantization, the scale append and K3q are
+exact (copies and the same float32 operations); the int8 rows a model pass
+appends may differ by one step where a value lies within float rounding of
+a .5 tie (its k and v differ from the JAX pass's in the last bits).  Attention on the CPU:
+atol = rtol = 2e-5 in float32 (the same function; the kernels apply the k
+scale to the score and the v scale to p, the plain versions dequantize
+first: another rounding order).  The target pass: 1e-4 (as the dense pass,
+tests/test_torch_model.py).  On the card, in bf16: within
+``kernels.bf16_limit``; the kernel run without the window's fresh rows must
+fail it.
+
+The JAX package is imported inside the CPU tests only, so the ``gpu`` tests
+also run where JAX is absent:
+``python -m pytest tests/test_torch_kv_quant.py -m gpu --noconftest``.
+"""
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+from magicdec_tpu_torch import bench
+from magicdec_tpu_torch.kernels import append as AP
+from magicdec_tpu_torch.kernels import bf16_limit
+from magicdec_tpu_torch.kernels import decode_attention as DA
+from magicdec_tpu_torch.kernels import prefill_attention as PA
+from magicdec_tpu_torch.ops import kv_cache as KV
+
+TOL = dict(atol=2e-5, rtol=2e-5)
+L, B, HKV, HD = 2, 4, 2, 64
+K = HKV * HD
+LAYER = 1
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+
+
+# -- plain quantized-KV ops vs the JAX package, bit for bit -------------------
+
+
+@pytest.mark.parametrize("scale_dtype", ["float32", "bfloat16"])
+def test_quantize_kv_tokens_matches_jax(scale_dtype):
+    import jax.numpy as jnp
+    from magicdec_tpu.ops import kv_cache as jkv
+
+    rng = np.random.RandomState(0)
+    x = (rng.randn(2, 5, 4, 16) * 3).astype(np.float32)
+    x[0, 1, 2] = 0.0  # an all-zero head: the 1e-8 clamp
+    # amax 127 gives scale 1 (exact in bf16 too): x.5 values are exact ties
+    x[1, 3, 0] = np.concatenate([[127.0], np.arange(15) - 7 + 0.5])
+    x[1, 3, 1] = -x[1, 3, 0]
+    jq, js = jkv.quantize_kv_tokens(jnp.asarray(x), scale_dtype=getattr(jnp, scale_dtype))
+    tq, ts = KV.quantize_kv_tokens(torch.from_numpy(x), scale_dtype=getattr(torch, scale_dtype))
+    assert tq.dtype == torch.int8 and ts.dtype == getattr(torch, scale_dtype)
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(ts.float().numpy(), np.asarray(js, dtype=np.float32))
+    # round half to even: -6.5 -> -6, -5.5 -> -6, ..., 0.5 -> 0, 1.5 -> 2
+    ties = tq.reshape(2, 5, 4, 16)[1, 3, 0, 1:].numpy()
+    np.testing.assert_array_equal(ties, np.round(np.arange(15) - 7 + 0.5))
+    assert (tq.reshape(2, 5, 4, 16)[0, 1, 2] == 0).all()
+
+
+def test_dequant_kv_matches_jax():
+    import jax.numpy as jnp
+    from magicdec_tpu.ops import kv_cache as jkv
+
+    rng = np.random.RandomState(1)
+    q = rng.randint(-127, 128, (3, 40, K)).astype(np.int8)
+    s = rng.uniform(1e-3, 1.0, (3, HKV, 40)).astype(np.float32)
+    ref = jkv.dequant_kv(jnp.asarray(q), jnp.asarray(s), HD)
+    np.testing.assert_array_equal(KV.dequant_kv(*_t(q, s), HD).numpy(), np.asarray(ref))
+
+
+def test_append_scale_rows_matches_jax():
+    import jax.numpy as jnp
+    from magicdec_tpu.ops import kv_cache as jkv
+
+    rng = np.random.RandomState(2)
+    S, T = 32, 5
+    scale = rng.rand(L, B, HKV, S).astype(np.float32)
+    rows = rng.rand(L, B, HKV, T).astype(np.float32)
+    pos = np.array([0, 9, S - T, S + 3], np.int32)  # the last clamps to S - T
+    ref = jkv.append_scale_rows_all_layers(jnp.asarray(scale), jnp.asarray(rows),
+                                           jnp.asarray(pos))
+    got = KV.append_scale_rows_all_layers(*_t(scale, rows, pos))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+# -- plain versions of K1q, K2q, K3q vs the Pallas kernels (interpret) --------
+
+
+def _quant_caches(rng, S, base, T):
+    """int8 caches [L, B, S, K] with f32 scales [L, B, Hkv, S] (dequantized
+    values about unit scale), holding garbage past each request's visible
+    rows (base + T): int8 +-127 with scales 1e3, never to be read."""
+    k = rng.randint(-127, 128, (L, B, S, K)).astype(np.int8)
+    v = rng.randint(-127, 128, (L, B, S, K)).astype(np.int8)
+    ks = rng.uniform(0.01, 0.02, (L, B, HKV, S)).astype(np.float32)
+    vs = rng.uniform(0.01, 0.02, (L, B, HKV, S)).astype(np.float32)
+    for b, n in enumerate(base):
+        k[:, b, n + T:], v[:, b, n + T:] = 127, -127
+        ks[:, b, :, n + T:] = vs[:, b, :, n + T:] = 1e3
+    return k, v, ks, vs
+
+
+def _fresh(rng, T):
+    """A window's rows as the model makes them: quantize_kv_tokens of
+    unit-scale values (int8 [B, T, K], f32 scales [B, Hkv, T])."""
+    x = rng.randn(2, B, T, HKV, HD).astype(np.float32)
+    kn, ksn = KV.quantize_kv_tokens(torch.from_numpy(x[0]))
+    vn, vsn = KV.quantize_kv_tokens(torch.from_numpy(x[1]))
+    return kn.numpy(), vn.numpy(), ksn.numpy(), vsn.numpy()
+
+
+def _attn_case(jfn, tfn, rng, S, G, T, base, fresh, **jkw):
+    import jax.numpy as jnp
+
+    k, v, ks, vs = _quant_caches(rng, S, base, 0 if fresh else T)
+    q = rng.randn(B, T, HKV * G, HD).astype(np.float32)
+    fresh_ops = dict(zip(("k_new", "v_new", "ks_new", "vs_new"), _fresh(rng, T)))
+    kw_j = {n: jnp.asarray(a) for n, a in fresh_ops.items()} if fresh else {}
+    ref = jfn(*(jnp.asarray(a) for a in (q, k, ks, v, vs, base)), layer=LAYER,
+              interpret=True, **jkw, **kw_j)
+    kw_t = {n: torch.from_numpy(a) for n, a in fresh_ops.items()} if fresh else {}
+    out = tfn(*_t(q, k, ks, v, vs, base), layer=LAYER, **kw_t)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+
+
+@pytest.mark.parametrize("fresh", [True, False], ids=["fresh", "cached"])
+@pytest.mark.parametrize("T", [1, 2, 4])
+def test_decode_quant_plain_matches_pallas(T, fresh):
+    from magicdec_tpu.ops.pallas.decode_attention import flash_decode_attend_quant
+
+    S = 256
+    base = np.array([17, 100, 200, S - T], np.int32)
+    _attn_case(flash_decode_attend_quant, DA.flash_decode_attend_quant,
+               np.random.RandomState(10 + T), S, 2, T, base, fresh, block_s=128)
+
+
+@pytest.mark.parametrize("fresh", [True, False], ids=["fresh", "cached"])
+def test_prefill_quant_plain_matches_pallas(fresh):
+    from magicdec_tpu.ops.pallas.prefill_attention import flash_prefill_attend_quant
+
+    S, C = 256, 64  # G*C = 128: the Pallas kernel's row block
+    base = np.array([0, 64, 100, 192], np.int32)
+    _attn_case(flash_prefill_attend_quant, PA.flash_prefill_attend_quant,
+               np.random.RandomState(20), S, 2, C, base, fresh, block_s=128, block_r=128)
+
+
+@pytest.mark.parametrize("T", [1, 4, 13])
+def test_append_quant_plain_matches_pallas_bitwise(T):
+    import jax.numpy as jnp
+    from magicdec_tpu.ops import kv_cache as jkv
+
+    S = 128  # the Pallas kernel merges 128-column scale blocks
+    rng = np.random.RandomState(T)
+    ck, cv, rk, rv = (rng.randint(-127, 128, shape).astype(np.int8)
+                      for shape in [(L, B, S, K)] * 2 + [(L, B, T, K)] * 2)
+    sk, sv, srk, srv = (rng.rand(*shape).astype(np.float32)
+                        for shape in [(L, B, HKV, S)] * 2 + [(L, B, HKV, T)] * 2)
+    pos = np.array([0, 7, 100, S - T], np.int32)
+    ref = jkv.append_all_rows_inplace(*(jnp.asarray(a) for a in (ck, cv, rk, rv, pos,
+                                                                  sk, sv, srk, srv)),
+                                      interpret=True)
+    out = AP.append_all_rows_inplace(*_t(ck, cv, rk, rv, pos, sk, sv, srk, srv))
+    assert len(out) == 4
+    for got, want in zip(out, ref):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# -- model pass and engine vs the JAX package -------------------------------
+
+
+def test_forward_target_int8_cache_matches_jax():
+    """A 32-token prefill chunk, then a verify (T=4) and a decode (T=1)
+    window at ragged lengths, over int8 caches.  Each window starts both
+    packages from the same caches (the JAX pass's, moved across bit for
+    bit): hidden states and logits agree to 1e-4, tokens exactly, and so do
+    the appended caches and scales (int8 rows within the one-step rule)."""
+    import jax.numpy as jnp
+    from magicdec_tpu.models import llama as JM
+    from magicdec_tpu_torch.convert import caches_from_jax, caches_to_numpy
+    from magicdec_tpu_torch.models import llama as TM
+    from test_torch_model import JCFG, TCFG, _both_params
+
+    rng = np.random.RandomState(3)
+    jp, tp = _both_params(True)
+    Bm, S, Km = 2, 96, JCFG.n_kv_head * JCFG.head_dim
+    caches = {"k": np.zeros((JCFG.n_layer, Bm, S, Km), np.int8),
+              "ks": np.zeros((JCFG.n_layer, Bm, JCFG.n_kv_head, S), np.float32)}
+    caches["v"], caches["vs"] = caches["k"].copy(), caches["ks"].copy()
+    for T, base, head in ((32, [0, 0], "none"), (4, [32, 20], "logits"),
+                          (1, [36, 24], "logits")):
+        tokens = rng.randint(0, JCFG.vocab_size, size=(Bm, T)).astype(np.int32)
+        base = np.array(base, np.int32)
+        yj, jc = JM.forward_target(jp, JCFG, jnp.asarray(tokens), jnp.asarray(base),
+                                   {n: jnp.asarray(a) for n, a in caches.items()}, head=head)
+        yt, tc = TM.forward_target(tp, TCFG, torch.from_numpy(tokens),
+                                   torch.from_numpy(base), caches_from_jax(caches), head=head)
+        np.testing.assert_allclose(yt.numpy(), np.asarray(yj), atol=1e-4, rtol=1e-4)
+        if head == "logits":
+            np.testing.assert_array_equal(yt.argmax(-1).numpy(), np.asarray(yj).argmax(-1))
+        got = caches_to_numpy(tc)
+        caches = {n: np.asarray(a) for n, a in jc.items()}
+        assert got["k"].dtype == np.int8 and got["ks"].dtype == np.float32
+        for name in ("ks", "vs"):
+            np.testing.assert_allclose(got[name], caches[name], rtol=1e-5, atol=0,
+                                       err_msg=name)
+        # int8 data: a value whose x / scale lies within float rounding of a
+        # .5 tie may round the other way, since the two packages' k and v
+        # differ in the last bits: one step at most, in at most 0.1% of the
+        # entries (1 of 12288 at this seed)
+        for name in ("k", "v"):
+            diff = np.abs(got[name].astype(np.int32) - caches[name].astype(np.int32))
+            assert diff.max() <= 1 and (diff > 0).mean() <= 1e-3, name
+
+
+@functools.lru_cache(maxsize=None)
+def _engine_runs(prefix):
+    """(port spec, port AR, JAX spec, JAX AR) stats at ``prefix`` with an
+    int8 target cache, on tests/test_spec_parity.py's weights."""
+    import jax.numpy as jnp
+    from magicdec_tpu.engine.engine import EngineConfig as JEngineConfig
+    from magicdec_tpu.engine.engine import SpecEngine as JSpecEngine
+    from magicdec_tpu_torch.convert import params_from_jax
+    from magicdec_tpu_torch.engine.engine import EngineConfig, SpecEngine
+    from test_torch_engine import ENGINE_KW, JCFG, MAX_GEN, PARAMS, TCFG, _prompt
+
+    eng = SpecEngine(params_from_jax(PARAMS), TCFG,
+                     EngineConfig(cache_dtype=torch.float32, kv_quant=True, **ENGINE_KW),
+                     device="cpu")
+    prompt = _prompt(prefix)
+    st = eng.encode(prompt)
+    assert st.k.dtype == torch.int8 and st.ks.dtype == torch.float32
+    assert st.dk.dtype == torch.float32  # the draft cache stays in cache_dtype
+    _, spec = eng.generate(st)
+    _, base = eng.generate_baseline(eng.encode_baseline(prompt), max_new=MAX_GEN)
+    jparams = {k: ({n: None if a is None else jnp.asarray(a) for n, a in v.items()}
+                   if isinstance(v, dict) else jnp.asarray(v)) for k, v in PARAMS.items()}
+    jeng = JSpecEngine(jparams, JCFG, JEngineConfig(mode="streamingllm", kv_quant=True,
+                                                    cache_dtype=jnp.float32, **ENGINE_KW))
+    jprompt = jnp.asarray(prompt, jnp.int32)
+    _, jspec = jeng.generate(jeng.encode(jprompt))
+    _, jbase = jeng.generate_baseline(jeng.encode_baseline(jprompt), max_new=MAX_GEN)
+    as_np = lambda d: {k: np.asarray(v) for k, v in d.items()}  # noqa: E731
+    return as_np(spec), as_np(base), as_np(jspec), as_np(jbase), MAX_GEN
+
+
+# prefix 32 < budget: the draft cache is the full cache; 96 > budget: the
+# sink+window eviction is active
+PREFIXES = [32, 96]
+
+
+@pytest.mark.parametrize("prefix", PREFIXES)
+def test_int8_engine_spec_matches_autoregressive(prefix):
+    spec, base, _, _, max_gen = _engine_runs(prefix)
+    n = spec["num_committed"]
+    assert n.max() >= max_gen, n
+    for b in range(len(n)):
+        m = min(int(n[b]), max_gen)
+        np.testing.assert_array_equal(spec["output"][b, :m], base["output"][b, :m])
+
+
+@pytest.mark.parametrize("prefix", PREFIXES)
+def test_int8_engine_matches_jax(prefix):
+    spec, base, jspec, jbase, max_gen = _engine_runs(prefix)
+    for key in ("output", "num_committed", "target_steps"):
+        np.testing.assert_array_equal(spec[key], jspec[key], err_msg=key)
+    np.testing.assert_array_equal(base["output"][:, :max_gen], jbase["output"][:, :max_gen])
+
+
+def test_int8_bench_protocol_acceptance():
+    """The bench's synthetic-weight gate (tests/test_torch_engine.py) with
+    the int8 target cache: >= 2.5 tokens per gamma=3 window."""
+    from magicdec_tpu_torch import config as tcfg
+    from magicdec_tpu_torch.engine.engine import EngineConfig, SpecEngine
+
+    cfg = tcfg.tiny_config(vocab_size=1024, n_layer=4, n_head=8, n_kv_head=4,
+                           dim=256, intermediate_size=512)
+    eng = SpecEngine(bench.make_params(cfg, device="cpu"), cfg,
+                     EngineConfig(gamma=3, draft_budget=257, max_seq_len=1024,
+                                  chunk_size=128, max_gen=64, eot_ids=(-1,),
+                                  cache_dtype=torch.bfloat16, kv_quant="int8"),
+                     device="cpu")
+    prompt = np.random.RandomState(0).randint(0, cfg.vocab_size, (4, 768))
+    _, stats = eng.generate(eng.encode(prompt))
+    steps = int(stats["target_steps"])
+    assert steps > 0
+    rate = int(stats["gen_tokens"].sum()) / steps / 4
+    assert rate >= 2.5, f"int8-KV synthetic-weight protocol collapsed: {rate:.2f} tokens/step"
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(kv_quant="int4"), "A8"),
+    (dict(kv_quant=True, kv_scale_dtype=torch.bfloat16), "A8"),
+], ids=["int4", "bf16_scales"])
+def test_engine_quant_configs_not_ported_raise(kw, match):
+    from magicdec_tpu_torch.config import tiny_config
+    from magicdec_tpu_torch.engine.engine import EngineConfig, SpecEngine
+
+    cfg = tiny_config()
+    with pytest.raises(NotImplementedError, match=match):
+        SpecEngine(bench.make_params(cfg, device="cpu"), cfg,
+                   EngineConfig(draft_budget=257, **kw), device="cpu")
+
+
+# -- bench defaults and conversion ------------------------------------------
+
+
+def test_bench_defaults_and_metric_tag():
+    args = bench.parse_args([])
+    assert (args.kv_quant, args.kv_scale, args.draft_quant) == ("int8", "f32", "none")
+    assert bench.metric_name(args) == \
+        "selfspec_streamingllm_tokens_per_s_llama-3.2-1b_kvq8_B32_ctx8192_torch"
+    assert bench.metric_name(bench.parse_args(["--kv_quant", "none"])) == \
+        "selfspec_streamingllm_tokens_per_s_llama-3.2-1b_B32_ctx8192_torch"
+    assert bench.parse_args(["--kv_quant"]).kv_quant == "int8"
+
+
+@pytest.mark.parametrize("argv,match", [
+    (["--kv_scale", "bf16"], "A8"), (["--kv_quant", "int4"], "A8"),
+    (["--draft_quant", "int8"], "slice 3"),
+], ids=lambda a: "_".join(a).strip("-") if isinstance(a, list) else a)
+def test_bench_quant_paths_not_ported_raise(argv, match):
+    with pytest.raises(NotImplementedError, match=match):
+        bench.setup(bench.parse_args(argv + ["--device", "cpu"]))
+
+
+def test_convert_int8_caches_round_trip_bitwise():
+    """JAX int8 caches and f32 scales -> the port -> numpy, bit for bit; a
+    dtype given for the float data leaves them alone."""
+    import jax.numpy as jnp
+    from magicdec_tpu.ops import kv_cache as jkv
+    from magicdec_tpu_torch.convert import caches_from_jax, caches_to_numpy
+
+    rng = np.random.RandomState(4)
+    kq, ks = jkv.quantize_kv_tokens(jnp.asarray(rng.randn(B, 16, HKV, HD), jnp.float32))
+    dk = jnp.asarray(rng.randn(1, B, 8, K), jnp.bfloat16)
+    jax_caches = {"k": np.asarray(kq)[None], "ks": np.asarray(ks)[None],
+                  "v": np.asarray(kq)[None], "vs": np.asarray(ks)[None], "dk": np.asarray(dk)}
+    tc = caches_from_jax(jax_caches, dtype=torch.bfloat16)
+    assert tc["k"].dtype == torch.int8 and tc["ks"].dtype == torch.float32
+    assert tc["dk"].dtype == torch.bfloat16
+    back = caches_to_numpy(tc)
+    for name in ("k", "v", "ks", "vs"):
+        assert back[name].dtype == jax_caches[name].dtype
+        np.testing.assert_array_equal(back[name], jax_caches[name], err_msg=name)
+    np.testing.assert_array_equal(back["dk"], np.asarray(dk, dtype=np.float32))
+
+
+def test_quant_wrappers_never_fall_back():
+    q = torch.zeros(1, 1, 2, HD, device="meta")
+    c = torch.zeros(1, 1, 8, HD, dtype=torch.int8, device="meta")
+    s = torch.zeros(1, 1, 1, 8, device="meta")
+    lens = torch.zeros(1, dtype=torch.int32, device="meta")
+    for fn in (DA.flash_decode_attend_quant, PA.flash_prefill_attend_quant):
+        with pytest.raises(ValueError, match="unsupported device"):
+            fn(q, c, s, c, s, lens)
+    with pytest.raises(ValueError, match="several devices"):
+        AP.append_all_rows_inplace(c, c, c[:, :, :1], c[:, :, :1], torch.zeros(1),
+                                   s, s, s[..., :1], s[..., :1])
+
+
+# -- on the card: CUDA kernel vs plain version --------------------------------
+
+
+def _quant_cache_on_card(gen, Lc, Bc, S, Hkv, device):
+    """int8 cache [Lc, Bc, S, Hkv*HD] and scales [Lc, Bc, Hkv, S] quantized
+    from bf16 randn by the port's quantize_kv_tokens (realistic scales)."""
+    x = torch.randn((Lc * Bc, S, Hkv, HD), generator=gen, device=device).to(torch.bfloat16)
+    q, s = KV.quantize_kv_tokens(x)
+    return q.reshape(Lc, Bc, S, Hkv * HD), s.reshape(Lc, Bc, Hkv, S)
+
+
+def _fresh_on_card(gen, Bc, T, Hkv, device):
+    x = torch.randn((2, Bc, T, Hkv, HD), generator=gen, device=device).to(torch.bfloat16)
+    (kn, ksn), (vn, vsn) = KV.quantize_kv_tokens(x[0]), KV.quantize_kv_tokens(x[1])
+    return dict(k_new=kn, v_new=vn, ks_new=ksn, vs_new=vsn)
+
+
+def _outside(out, ref):
+    return int(((out.float() - ref.float()).abs() > bf16_limit(ref)).sum())
+
+
+def _card_attn_case(fn, plain, gen, cuda, S, T, base):
+    Bc, Hkv, G = len(base), 8, 4
+    k, ks = _quant_cache_on_card(gen, L, Bc, S, Hkv, cuda)
+    v, vs = _quant_cache_on_card(gen, L, Bc, S, Hkv, cuda)
+    q = torch.randn((Bc, T, Hkv * G, HD), generator=gen, device=cuda).to(torch.bfloat16)
+    base = torch.tensor(base, dtype=torch.int32, device=cuda)
+    for kw in ({}, _fresh_on_card(gen, Bc, T, Hkv, cuda)):
+        out = fn(q, k, ks, v, vs, base, layer=LAYER, **kw)
+        ref = plain(q, k, ks, v, vs, base, layer=LAYER, **kw)
+        assert torch.isfinite(out).all()
+        assert _outside(out, ref) == 0
+    # without its fresh rows the kernel reads the cache where they belong
+    assert _outside(fn(q, k, ks, v, vs, base, layer=LAYER), ref) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [256, 8704])
+@pytest.mark.parametrize("T", [1, 2, 4])
+def test_decode_quant_kernel_matches_plain_on_card(cuda, T, S):
+    gen = torch.Generator(device=cuda).manual_seed(T)
+    _card_attn_case(DA.flash_decode_attend_quant, DA.flash_decode_attend_quant_plain, gen,
+                    cuda, S, T, [0, S // 3, S - T])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [64, 200])
+def test_prefill_quant_kernel_matches_plain_on_card(cuda, C):
+    gen = torch.Generator(device=cuda).manual_seed(C)
+    S = 1024
+    _card_attn_case(PA.flash_prefill_attend_quant, PA.flash_prefill_attend_quant_plain, gen,
+                    cuda, S, C, [0, S - C])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [1, 4, 512])
+def test_append_quant_kernel_matches_plain_on_card(cuda, T):
+    gen = torch.Generator(device=cuda).manual_seed(T)
+    S, Hkv = 1024, 8
+    ck, sk = _quant_cache_on_card(gen, L, B, S, Hkv, cuda)
+    cv, sv = _quant_cache_on_card(gen, L, B, S, Hkv, cuda)
+    rk, srk = _quant_cache_on_card(gen, L, B, T, Hkv, cuda)
+    rv, srv = _quant_cache_on_card(gen, L, B, T, Hkv, cuda)
+    pos = torch.tensor([0, 5, S - T, 2 * S], dtype=torch.int32, device=cuda)  # last clamps
+    got = AP.append_all_rows_inplace_quant(ck.clone(), cv.clone(), rk, rv, pos, sk.clone(),
+                                           sv.clone(), srk, srv)
+    want = AP.append_all_rows_inplace_plain(ck, cv, rk, rv, pos, sk, sv, srk, srv)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+

@@ -56,7 +56,7 @@ def test_chip_smoke_fails_without_card(no_card, capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--kv_quant", "int8"], ["--kv_quant", "int4"], ["--draft_quant", "int8"],
+    ["--kv_quant", "int4"], ["--draft_quant", "int8"],
     ["--quantize", "int8"], ["--mode", "snapkv"], ["--gamma", "0"],
     ["--attn_backend", "jnp"],
 ], ids=lambda a: "_".join(a).strip("-"))
