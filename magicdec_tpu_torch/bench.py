@@ -6,9 +6,11 @@ throughput (counterpart of the repository's ``bench.py``).
 Same protocol, flags and defaults as ``bench.py`` for what this port runs:
 llama-3.2-1b widths with synthetic weights, StreamingLLM self-speculation at
 B=32, prefix 8192, gamma=3, draft budget 513, prefill chunk 512, max_gen 80,
-an int8 target KV cache with f32 scales (``--kv_quant none``: bf16) and a
-draft that shares the bf16 weights (``--draft_quant none``: the int8 draft
-copy of ``bench.py``'s default is not ported yet).  Decode-loop
+an int8 target KV cache with f32 scales (``--kv_quant none``: bf16), bf16
+verify weights, and an int8 per-channel copy of the weights for the draft
+with a quantized lm_head (``--draft_quant none``: the draft shares the bf16
+weights; ``--draft_head shared``: the copy shares the bf16 head) on the
+Hopper kernels.  Decode-loop
 wall time is taken between ``torch.cuda.synchronize()`` calls.  Acceptance
 and both throughputs go to stderr; the single JSON line on stdout is the
 result.
@@ -81,16 +83,22 @@ def parse_args(argv=None):
     p.add_argument("--prefill_chunk", type=int, default=512)
     p.add_argument("--attn_backend", default="flash", choices=["jnp", "flash"])
     p.add_argument("--quantize", choices=["int8", "int4"], default=None)
+    p.add_argument("--quant_backend", default="pallas", choices=["jnp", "pallas"],
+                   help="int8 dots of the draft copy: pallas = the Hopper kernels "
+                        "(B4/B5/B6); the port runs no other")
     p.add_argument("--kv_quant", nargs="?", const="int8", default="int8",
                    choices=["int8", "int4", "none"],
                    help="quantized target KV cache (int8 halves the bytes the "
                         "decode kernels stream; int4 is not ported yet)")
     p.add_argument("--kv_scale", default="f32", choices=["f32", "bf16"],
                    help="quantized-cache scale dtype (bf16 is not ported yet)")
-    p.add_argument("--draft_quant", nargs="?", const="int8", default="none",
+    p.add_argument("--draft_quant", nargs="?", const="int8", default="int8",
                    choices=["int8", "int4", "none"],
-                   help="quantized draft weight copy (not ported yet: the draft "
-                        "shares the bf16 weights)")
+                   help="quantize the draft pass's weight copy (draft decode is "
+                        "weight-bandwidth-bound; the output still equals greedy AR; "
+                        "int4 is not ported yet)")
+    p.add_argument("--draft_head", default="quant", choices=["quant", "shared"],
+                   help="shared: the int8 draft copy reuses the target's bf16 lm_head")
     p.add_argument("--device", default="cuda")
     return p.parse_args(argv)
 
@@ -102,14 +110,16 @@ def _not_ported(args):
         return "--mode snapkv is ROADMAP item A7"
     if args.attn_backend != "flash":
         return "--attn_backend jnp: the port runs its Hopper kernels only"
+    if args.quant_backend != "pallas":
+        return "--quant_backend jnp: the port runs its Hopper kernels only"
     if args.quantize:
         return "--quantize (int8/int4 verify weights) is ROADMAP item A8"
     if args.kv_quant == "int4":
         return "--kv_quant int4 is ROADMAP item A8"
     if args.kv_quant != "none" and args.kv_scale != "f32":
         return "--kv_scale bf16 is ROADMAP item A8"
-    if args.draft_quant != "none":
-        return "--draft_quant int8/int4 is ROADMAP slice 3 (A3, B4-B6)"
+    if args.draft_quant == "int4":
+        return "--draft_quant int4 is ROADMAP item A8"
     return None
 
 
@@ -144,7 +154,9 @@ def setup(args):
         max_seq_len=_round_up(prefix + args.max_gen + args.gamma + 2, 512),
         chunk_size=128, prefill_chunk_size=args.prefill_chunk,
         max_gen=args.max_gen, eot_ids=(-1,), cache_dtype=torch.bfloat16,
-        kv_quant=args.kv_quant if args.kv_quant != "none" else False)
+        kv_quant=args.kv_quant if args.kv_quant != "none" else False,
+        draft_quant=args.draft_quant if args.draft_quant != "none" else False,
+        draft_quant_head=args.draft_head == "quant")
     engine = SpecEngine(params, cfg, ecfg, device=dev)
     rng = np.random.RandomState(0)
     n_prompts = args.iters if args.protocol == "steady" else 1

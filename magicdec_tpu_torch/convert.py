@@ -6,7 +6,10 @@ maps ``np.asarray`` over the tree), caches and lengths as numpy arrays.
 Layouts are kept: caches ``[L, B, S, Hkv*hd]``, weights ``[In, Out]``,
 ``embed [V, D]``, ``lm_head [D, V]`` or None.  bfloat16 travels as float32,
 which holds every bfloat16 value exactly, so a weight or a cache compares
-bit for bit across the two packages.
+bit for bit across the two packages.  A quantized weight (the JAX package's
+``QuantizedWeight``, or any object or dict with ``q``, ``scale``, ``bits``
+and ``group_size``) becomes the port's ``QuantizedWeight`` with its int8 data
+and f32 scales in their own dtypes.
 """
 
 from __future__ import annotations
@@ -24,8 +27,27 @@ def tensor_from_numpy(a, device="cpu", dtype=None) -> torch.Tensor:
     return t.to(device=device, dtype=dtype)
 
 
+def _quant_fields(leaf):
+    """(q, scale, bits, group_size) of a quantized-weight leaf, else None."""
+    names = ("q", "scale", "bits", "group_size")
+    if isinstance(leaf, dict):
+        return tuple(leaf[n] for n in names) if set(names) <= leaf.keys() else None
+    if all(hasattr(leaf, n) for n in names):
+        return tuple(getattr(leaf, n) for n in names)
+    return None
+
+
 def params_from_jax(tree, device="cpu", dtype=None):
-    """Nested dict of numpy arrays (None leaves kept) -> dict of tensors."""
+    """Nested dict of numpy arrays (None leaves kept) -> dict of tensors;
+    ``dtype`` casts the float weights, never a quantized weight's data or
+    scales."""
+    fields = _quant_fields(tree)
+    if fields is not None:
+        from magicdec_tpu_torch.quantization import QuantizedWeight
+
+        q, scale, bits, group_size = fields
+        return QuantizedWeight(tensor_from_numpy(q, device), tensor_from_numpy(scale, device),
+                               bits=int(bits), group_size=int(group_size))
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device, dtype) for k, v in tree.items()}
     if tree is None:

@@ -9,12 +9,18 @@ magicdec_tpu/engine/engine.py ``SpecEngine``).
 - ``encode_baseline`` / ``generate_baseline``  greedy autoregressive decoding.
 
 Greedy acceptance matches the reference exactly (engine/spec.py).  The draft
-shares the target's weights and attends its budget-sized cache, which stays
-in ``cache_dtype``; the target cache is int8 with per-(token, kv head) f32
-scales under ``kv_quant``.  Target passes
-run their dots at the live row count (no ``decode_rows`` padding): on the H100
-a target row comes out with the same bits at verify (B * (gamma + 1) rows) and
-at the autoregressive step (B rows), which ``chip_smoke.py`` checks each run.
+shares the target's weights, or under ``draft_quant`` runs an int8 copy of
+them (built once at init; its prefill and decode passes both use it), and
+attends its budget-sized cache, which stays in ``cache_dtype``; the target
+keeps the bf16 weights, and its cache is int8 with per-(token, kv head) f32
+scales under ``kv_quant``.  Target decode and verify passes run at
+``ModelConfig.decode_rows`` = B * (gamma + 1) rows, the autoregressive
+step's B rows padded once per pass (``models.llama.pad_rows``), where the
+JAX engine's ``_hinted`` hints its dots: a target row then comes out with
+the same bits at verify and at the autoregressive step, the greedy spec ==
+AR contract (on the H100, cuBLAS's w2 dot at B = 4 and 8 and torch's row
+mean at B = 2 to 8 differ by M otherwise; ``chip_smoke.py`` checks).
+Prefill and draft passes run at the live row count.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from magicdec_tpu_torch import quantization as Q
 from magicdec_tpu_torch import resolve_device
 from magicdec_tpu_torch.config import ModelConfig
 from magicdec_tpu_torch.engine import spec as spec_ops
@@ -47,6 +54,18 @@ def kv_quant_bits(kv_quant) -> int:
     raise ValueError(f"kv_quant must be False/True/'int8'/'int4', got {kv_quant!r}")
 
 
+def weight_quant_bits(draft_quant) -> int:
+    """EngineConfig.draft_quant -> bits (0 = the draft shares the weights)."""
+    if not draft_quant:
+        return 0
+    if draft_quant is True or draft_quant == "int8":
+        return 8
+    if draft_quant == "int4":
+        raise NotImplementedError("draft_quant='int4' (group-wise int4 weights) is "
+                                  "ROADMAP item A8")
+    raise ValueError(f"draft_quant must be False/True/'int8'/'int4', got {draft_quant!r}")
+
+
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
     mode: str = "streamingllm"       # "snapkv" arrives with ROADMAP A7
@@ -63,6 +82,12 @@ class EngineConfig:
                                      # per-(token, kv head) scales; the draft
                                      # cache stays in cache_dtype ("int4": A8)
     kv_scale_dtype: Any = torch.float32  # the scales' dtype (bf16: A8)
+    draft_quant: Any = False         # False | True/"int8": the draft runs an int8
+                                     # per-channel copy of the weights; the target
+                                     # keeps them, so greedy output is unchanged
+                                     # ("int4": A8)
+    draft_quant_head: bool = True    # False: the int8 draft copy shares the
+                                     # target's bf16 lm_head (no copy)
 
 
 class SpecEngine:
@@ -86,7 +111,16 @@ class SpecEngine:
             raise NotImplementedError(
                 f"kv_scale_dtype {ecfg.kv_scale_dtype}: the port's int8 cache keeps "
                 "float32 scales (bf16 scales are ROADMAP item A8)")
+        wbits = weight_quant_bits(ecfg.draft_quant)
         self.params = _to_device(M.fuse_exec_params(params, cfg), self.device)
+        # the draft's weights: the target's, or an int8 copy quantized once
+        # on the device, sharing embed, norms and (draft_quant_head=False)
+        # the bf16 head with the target
+        self.draft_params = self.params
+        if wbits:
+            self.draft_params = Q.quantize_params(
+                self.params, bits=wbits, include_head=ecfg.draft_quant_head,
+                materialize_tied_head=ecfg.draft_quant_head)
         self.cfg = cfg
         self.ecfg = ecfg
         self._draft_cap = _round_up(ecfg.draft_budget + ecfg.max_gen + ecfg.gamma + 2, 128)
@@ -134,6 +168,10 @@ class SpecEngine:
         if prefix + e.max_gen + e.gamma + 2 > e.max_seq_len:
             raise ValueError("max_seq_len too small for prefix + generation")
 
+    def _hinted(self, B: int) -> ModelConfig:
+        """The target's config for decode and verify passes of B requests."""
+        return dataclasses.replace(self.cfg, decode_rows=B * (self.ecfg.gamma + 1))
+
     def _tokens(self, input_ids) -> torch.Tensor:
         return torch.as_tensor(input_ids, dtype=torch.int32).to(self.device)
 
@@ -167,12 +205,13 @@ class SpecEngine:
         lens, x_last = self._target_prefill(tokens, tcaches)
         token0 = self._head_token(x_last)
         # draft prefill with sink+window eviction, with the draft's weights
-        # (== the target's), so decode queries match prefilled keys
+        # (the int8 copy under draft_quant), so decode queries match
+        # prefilled keys
         C, fill = e.chunk_size, 0
         for start in range(0, prefix, C):
             chunk = tokens[:, start:start + C]
             _, dcaches = M.forward_streaming_draft_chunk(
-                self.params, self.cfg, chunk, fill, dcaches,
+                self.draft_params, self.cfg, chunk, fill, dcaches,
                 budget=e.draft_budget, sink=e.sink_size)
             fill = min(fill + chunk.shape[1], e.draft_budget)
         dcaches = M.streaming_finalize_draft(self.cfg, dcaches, budget=e.draft_budget)
@@ -233,19 +272,20 @@ class SpecEngine:
         f0 = st.draft_fill
         delta = st.draft_pos - st.draft_fill
         dcaches = {"dk": st.dk, "dv": st.dv}
-        nxt2, dcaches = M.forward_draft(self.params, self.cfg, st.db_tokens, f0,
+        nxt2, dcaches = M.forward_draft(self.draft_params, self.cfg, st.db_tokens, f0,
                                         f0 + delta, dcaches)
         tok = torch.gather(nxt2, 1, (st.db_update - 1)[:, None].long())[:, 0]
         fill = f0 + st.db_update
         drafted = [tok]
         for _ in range(e.gamma - 1):
-            nxt, dcaches = M.forward_draft(self.params, self.cfg, tok[:, None], fill,
+            nxt, dcaches = M.forward_draft(self.draft_params, self.cfg, tok[:, None], fill,
                                            fill + delta, dcaches)
             tok = nxt[:, 0]
             drafted.append(tok)
             fill = fill + 1
         tokens_buffer = torch.stack([st.token0, *drafted], dim=1)
-        target_tokens, _ = M.forward_target(self.params, self.cfg, tokens_buffer,
+        target_tokens, _ = M.forward_target(self.params, self._hinted(tokens_buffer.shape[0]),
+                                            tokens_buffer,
                                             st.target_lens, self._state_tcaches(st))
         return self._finish_window(
             st, tokens_buffer, target_tokens,
@@ -271,8 +311,9 @@ class SpecEngine:
         max_new = max_new if max_new is not None else self.ecfg.max_gen
         caches = self._state_tcaches(state)
         lens, tok, out, n = state.lens, state.token0, state.output, state.num_committed
+        cfg = self._hinted(tok.shape[0])
         for _ in range(max_new - 1):
-            nxt, caches = M.forward_target(self.params, self.cfg, tok[:, None], lens, caches)
+            nxt, caches = M.forward_target(self.params, cfg, tok[:, None], lens, caches)
             tok = nxt[:, 0]
             out = spec_ops.write_at(out, n, tok)
             lens, n = lens + 1, n + 1

@@ -29,8 +29,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C entry points: name -> argument types (pointers, the stream, ints).  Each
-# returns cudaGetLastError() after its launches.
+_F = ctypes.c_float
+# C entry points: name -> argument types (pointers, the stream, ints,
+# floats).  Each returns cudaGetLastError() after its launches.
 SIGNATURES = {
     "md_decode_attend": [_P] * 9 + [_I] * 9 + [_P],
     "md_prefill_attend": [_P] * 7 + [_I] * 7 + [_P],
@@ -38,6 +39,9 @@ SIGNATURES = {
     "md_decode_attend_quant": [_P] * 13 + [_I] * 9 + [_P],
     "md_prefill_attend_quant": [_P] * 11 + [_I] * 7 + [_P],
     "md_append_rows_quant": [_P] * 9 + [_I] * 6 + [_P],
+    "md_quant_matmul": [_P] * 8 + [_I] * 5 + [_F, _P],
+    "md_quant_layer_tail": [_P] * 14 + [_I] * 7 + [_F, _P],
+    "md_quant_mlp": [_P] * 11 + [_I] * 5 + [_F, _P],
 }
 
 _lock = threading.Lock()

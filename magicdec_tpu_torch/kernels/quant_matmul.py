@@ -1,0 +1,224 @@
+"""B4, B5, B6, B9: the int8 weight-only dots of the draft's weight copy
+(CUDA, ``csrc/quant_matmul.cu``).
+
+B4 ``quant_matmul_fused`` replaces magicdec_tpu/ops/pallas/quant_matmul.py
+``quant_matmul_fused_pallas`` (``_fused_kernel``, int8): x @ (q * scale)
+with an rms-norm prologue, a SiLU gate|up epilogue or a residual add.
+B5 ``quant_layer_tail`` replaces ``quant_layer_tail_pallas``
+(``_layer_tail_kernel``): a draft layer's wo + residual + FFN + residual.
+B6 ``quant_matmul`` replaces ``quant_matmul_pallas`` (``_int8_kernel``): the
+plain dequant dot (the draft's int8 lm_head).  B9 ``quant_mlp`` replaces
+``quant_mlp_pallas`` (``_mlp_kernel``): the FFN block alone, norm to w2
+and an optional residual, which the draft takes where B5 declines (129 to
+256 rows, e.g. a prefill chunk of 2 requests).
+
+Weights are int8 ``q [In, Out]`` with one f32 scale per output column
+(``scale`` [1, Out] or [Out]).  Numerics of the kernels and of the plain
+versions: acc = f32 sum of x * q; y = bf16(acc * scale) with the scale in
+f32 (the reference scales each in-block partial, equal up to f32 rounding);
+the norm is ``bf16(xf * rsqrt(mean(xf^2) + eps)) * bf16(norm_w)``; the gate
+rounds g and u to bf16 and returns bf16(g * sigmoid(g) * u); a residual is
+added in bf16.  Bound on the card: the weight's HBM bytes (see the source
+for the design).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from magicdec_tpu_torch.kernels import on_cpu, ptr, require, require_bf16
+from magicdec_tpu_torch.ops.norm import rms_norm
+
+BN, BK = 128, 64      # output columns per block, contraction rows per stage
+TARGET_BLOCKS = 132   # one block per SM of the H100 before splitting further
+
+
+def split_plan(In: int, Out: int) -> int:
+    """Contraction splits of one dot: enough that Out / BN column blocks
+    times the splits fill the card's 132 SMs, no split empty.  Fixed by the
+    weight's shape alone, so a row's sums run in the same order at every M."""
+    tiles = In // BK
+    want = max(1, min(tiles, -(-TARGET_BLOCKS // max(1, Out // BN))))
+    per = -(-tiles // want)
+    return -(-tiles // per)
+
+
+def _scaled(x, q, scale):
+    return (x.to(torch.float32) @ q.to(torch.float32)) * scale.reshape(-1).to(torch.float32)
+
+
+def quant_matmul_plain(x, q, scale):
+    """Plain version of B6: bf16(f32(x @ q) * scale), in x.dtype."""
+    return _scaled(x, q, scale).to(x.dtype)
+
+
+def quant_matmul_fused_plain(x, q, scale, norm_w=None, res=None, *, gate=False, eps=1e-5):
+    """Plain version of B4 (see the module docstring for its rounding)."""
+    if norm_w is not None:
+        x = rms_norm(x, norm_w.to(x.dtype), eps)
+    acc = _scaled(x, q, scale)
+    if gate:
+        F = acc.shape[-1] // 2
+        g = acc[..., :F].to(x.dtype).to(torch.float32)
+        u = acc[..., F:].to(x.dtype).to(torch.float32)
+        return (g * torch.sigmoid(g) * u).to(x.dtype)
+    y = acc.to(x.dtype)
+    return y if res is None else y + res
+
+
+def quant_mlp_plain(x, q13, s13, q2, s2, norm_w, res=None, *, eps):
+    """Plain version of B9: [res +] bf16(gate(rms(x) * norm_w @ q13 * s13)
+    @ q2 * s2)."""
+    gated = quant_matmul_fused_plain(x, q13, s13, norm_w, gate=True, eps=eps)
+    return quant_matmul_fused_plain(gated, q2, s2, res=res)
+
+
+def quant_layer_tail_plain(a, x, qo, so, q13, s13, q2, s2, norm_w, *, eps):
+    """Plain version of B5: h = x + bf16(a @ qo * so), then B9 of h with
+    the residual h."""
+    h = quant_matmul_fused_plain(a, qo, so, res=x)
+    return quant_mlp_plain(h, q13, s13, q2, s2, norm_w, h, eps=eps)
+
+
+def _check_dot(x, q, scale, what):
+    """(M, In, Out, flat f32 scale) of one dequant dot on the card; raises
+    on what the kernel does not take."""
+    require(x.dim() == 2 and q.dim() == 2, f"{what}: x [M, In] and q [In, Out] are 2-D")
+    M, In = x.shape
+    Out = q.shape[1]
+    require(q.shape[0] == In and M >= 1, f"{what}: x {tuple(x.shape)} and q {tuple(q.shape)}")
+    require(q.dtype == torch.int8 and q.is_contiguous(), f"{what}: q must be contiguous int8")
+    require(In % BK == 0 and Out % BN == 0,
+            f"{what}: the kernel takes In % {BK} == 0 and Out % {BN} == 0, got {In}, {Out}")
+    require(scale.dtype == torch.float32 and scale.numel() == Out,
+            f"{what}: one float32 scale per output column")
+    return M, In, Out, scale.reshape(-1).contiguous()
+
+
+def _launch_dot(x, q, scale, norm_w=None, res=None, gate=False, eps=1e-5, what=""):
+    from magicdec_tpu_torch.kernels import build
+
+    x = x.contiguous()
+    require_bf16(x, norm_w, res)
+    M, In, Out, scale = _check_dot(x, q, scale, what)
+    Fo = Out // 2 if gate else Out
+    if norm_w is not None:
+        require(norm_w.numel() == In, f"{what}: norm weight of {norm_w.numel()}, not {In}")
+        norm_w = norm_w.reshape(-1).contiguous()
+    if res is not None:
+        require(res.shape == (M, Out), f"{what}: residual {tuple(res.shape)}, not {(M, Out)}")
+        res = res.contiguous()
+    split = split_plan(In, Out)
+    dev = x.device
+    out = torch.empty((M, Fo), dtype=torch.bfloat16, device=dev)
+    part = (torch.empty((split, M, Out), dtype=torch.float32, device=dev)
+            if split > 1 or gate else None)
+    xn = torch.empty_like(x) if norm_w is not None else None
+    err = build.library().md_quant_matmul(
+        ptr(x), ptr(q), ptr(scale), ptr(norm_w), ptr(res), ptr(out), ptr(part), ptr(xn),
+        M, In, Out, int(gate), split, float(eps), build.stream_ptr(x))
+    build.check(err, "md_quant_matmul")
+    return out
+
+
+def quant_matmul(x, q, scale):
+    """B6: x [M, In] @ (q int8 [In, Out] * scale [Out]) -> [M, Out]."""
+    if on_cpu(x, q, scale):
+        return quant_matmul_plain(x, q, scale)
+    out = _launch_dot(x, q, scale, what="quant_matmul")
+    quant_matmul.launches += 1
+    return out
+
+
+quant_matmul.launches = 0
+
+
+def quant_matmul_fused(x, q, scale, norm_w=None, res=None, *, gate=False, eps=1e-5):
+    """B4: ``quant_matmul`` with the rms-norm of x first (``norm_w`` [In]),
+    and either the SiLU gate over q's gate|up halves (``gate``: q [In, 2F],
+    returns [M, F]) or a residual ``res`` [M, Out] added."""
+    require(not (gate and res is not None), "the gate and the residual do not combine")
+    if on_cpu(x, q, scale, norm_w, res):
+        return quant_matmul_fused_plain(x, q, scale, norm_w, res, gate=gate, eps=eps)
+    out = _launch_dot(x, q, scale, norm_w, res, gate, eps, what="quant_matmul_fused")
+    quant_matmul_fused.launches += 1
+    return out
+
+
+quant_matmul_fused.launches = 0
+
+
+def _check_ffn(x, q13, s13, q2, s2, norm_w, what):
+    """(M, D, F, s13, s2, norm_w) of an int8 FFN block on the card; raises
+    on what the kernels do not take."""
+    M, D, F2, s13 = _check_dot(x, q13, s13, what + " w13")
+    F = F2 // 2
+    require(norm_w.numel() == D, f"{what}: norm weight of {norm_w.numel()}, not {D}")
+    require(q2.shape == (F, D) and q2.dtype == torch.int8 and q2.is_contiguous()
+            and F % BK == 0 and s2.dtype == torch.float32 and s2.numel() == D,
+            f"{what}: w2 {tuple(q2.shape)} {q2.dtype} for F={F}, D={D}")
+    return M, D, F, s13, s2.reshape(-1).contiguous(), norm_w.reshape(-1).contiguous()
+
+
+def _ffn_scratch(M, D, F, dev, *splits):
+    """hn [M, D], gated [M, F] and the partial sums of the largest phase."""
+    part = torch.empty((max(splits) * M,), dtype=torch.float32, device=dev)
+    return (torch.empty((M, D), dtype=torch.bfloat16, device=dev),
+            torch.empty((M, F), dtype=torch.bfloat16, device=dev), part)
+
+
+def quant_mlp(x, q13, s13, q2, s2, norm_w, res=None, *, eps):
+    """B9: x [M, D]; q13 [D, 2F] (gate columns, then up), q2 [F, D] int8
+    with per-column f32 scales; norm_w [D]; res [M, D] or None.  Returns
+    [res +] the FFN block of x, [M, D]."""
+    if on_cpu(x, q13, s13, q2, s2, norm_w, res):
+        return quant_mlp_plain(x, q13, s13, q2, s2, norm_w, res, eps=eps)
+    from magicdec_tpu_torch.kernels import build
+
+    x = x.contiguous()
+    require_bf16(x, norm_w, res)
+    M, D, F, s13, s2, norm_w = _check_ffn(x, q13, s13, q2, s2, norm_w, "quant_mlp")
+    if res is not None:
+        require(res.shape == (M, D), f"quant_mlp: residual {tuple(res.shape)}, not {(M, D)}")
+        res = res.contiguous()
+    splits = (split_plan(D, 2 * F), split_plan(F, D))
+    hn, gated, part = _ffn_scratch(M, D, F, x.device, splits[0] * 2 * F, splits[1] * D)
+    out = torch.empty((M, D), dtype=torch.bfloat16, device=x.device)
+    err = build.library().md_quant_mlp(
+        ptr(x), ptr(q13), ptr(s13), ptr(q2), ptr(s2), ptr(norm_w), ptr(res), ptr(out),
+        ptr(hn), ptr(gated), ptr(part), M, D, F, *splits, float(eps), build.stream_ptr(x))
+    build.check(err, "md_quant_mlp")
+    quant_mlp.launches += 1
+    return out
+
+
+quant_mlp.launches = 0
+
+
+def quant_layer_tail(a, x, qo, so, q13, s13, q2, s2, norm_w, *, eps):
+    """B5: a [M, K] attention output, x [M, D] the layer's input; qo [K, D],
+    q13 [D, 2F], q2 [F, D] int8 with per-column f32 scales; norm_w [D] the
+    FFN norm.  Returns the layer's output [M, D]."""
+    if on_cpu(a, x, qo, so, q13, s13, q2, s2, norm_w):
+        return quant_layer_tail_plain(a, x, qo, so, q13, s13, q2, s2, norm_w, eps=eps)
+    from magicdec_tpu_torch.kernels import build
+
+    a, x = a.contiguous(), x.contiguous()
+    require_bf16(a, x, norm_w)
+    M, K, D, so = _check_dot(a, qo, so, "quant_layer_tail wo")
+    _, _, F, s13, s2, norm_w = _check_ffn(x, q13, s13, q2, s2, norm_w, "quant_layer_tail")
+    require(x.shape == (M, D), f"quant_layer_tail: x {tuple(x.shape)}, not {(M, D)}")
+    splits = (split_plan(K, D), split_plan(D, 2 * F), split_plan(F, D))
+    hn, gated, part = _ffn_scratch(M, D, F, x.device, splits[0] * D, splits[1] * 2 * F,
+                                   splits[2] * D)
+    h, out = (torch.empty((M, D), dtype=torch.bfloat16, device=x.device) for _ in range(2))
+    err = build.library().md_quant_layer_tail(
+        ptr(a), ptr(x), ptr(qo), ptr(so), ptr(q13), ptr(s13), ptr(q2), ptr(s2),
+        ptr(norm_w), ptr(out), ptr(h), ptr(hn), ptr(gated), ptr(part), M, K, D, F,
+        *splits, float(eps), build.stream_ptr(x))
+    build.check(err, "md_quant_layer_tail")
+    quant_layer_tail.launches += 1
+    return out
+
+
+quant_layer_tail.launches = 0

@@ -16,7 +16,11 @@ the attention kernel, and ONE in-place append after the loop writes every
 layer's rows (``kernels/append.py``).  A target cache may be int8 with
 per-(token, kv head) scales {'ks', 'vs'} (``EngineConfig.kv_quant``): its
 new rows are quantized once and the same rows are attended and appended.  The bf16 dense dots are
-``torch.matmul`` (the reference leaves them to XLA).
+``torch.matmul`` (the reference leaves them to XLA).  A weight may be an
+int8 ``quantization.QuantizedWeight`` (the draft's weight copy,
+``EngineConfig.draft_quant``): ``matmul`` dispatches on it, the attention
+norm rides the wqkv dot (B4), and draft decode passes run each layer's tail
+as one B5 call and the int8 head as B6.
 """
 
 from __future__ import annotations
@@ -27,10 +31,12 @@ from typing import Any, Dict
 import torch
 import torch.nn.functional as F
 
+from magicdec_tpu_torch import quantization as Q
 from magicdec_tpu_torch.config import ModelConfig
 from magicdec_tpu_torch.kernels.append import append_all_rows_inplace
 from magicdec_tpu_torch.ops import attention as attn_ops
 from magicdec_tpu_torch.ops.kv_cache import quantize_kv_tokens
+from magicdec_tpu_torch.ops.norm import rms_norm
 from magicdec_tpu_torch.ops.rope import (apply_rope, apply_rope_cs, rope_cos_sin,
                                          rope_inv_freq)
 from magicdec_tpu_torch.ops.streamingllm import stream_update_raw
@@ -38,45 +44,47 @@ from magicdec_tpu_torch.ops.streamingllm import stream_update_raw
 Params = Dict[str, Any]
 
 
-def matmul(x: torch.Tensor, w: torch.Tensor, rows_hint: int = 0) -> torch.Tensor:
-    """x [..., In] @ w [In, Out].
-
-    ``rows_hint`` (ModelConfig.decode_rows) pads the rows to that count, so
-    the autoregressive step (M = B) and the verify pass (M = B * (gamma + 1))
-    run one GEMM shape and each row gets the same arithmetic, whatever a
-    BLAS picks by M.  The engine leaves it 0: on the H100 the rows come out
-    the same without it (``chip_smoke.py`` checks)."""
-    if not rows_hint:
-        return x @ w
-    lead = x.shape[:-1]
-    M = math.prod(lead)
-    xm = x.reshape(M, x.shape[-1])
-    if M < rows_hint:
-        xm = torch.cat([xm, xm.new_zeros(rows_hint - M, xm.shape[1])])
-    return (xm @ w)[:M].reshape(*lead, w.shape[-1])
+def matmul(x: torch.Tensor, w) -> torch.Tensor:
+    """x [..., In] @ w [In, Out], dense or a ``QuantizedWeight``."""
+    if Q.is_quantized(w):
+        return Q.quant_matmul(x, w)
+    return x @ w
 
 
-def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
-    """fp32 norm, cast to x.dtype, THEN scaled by w (the reference's order)."""
-    xf = x.to(torch.float32)
-    norm = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
-    return norm.to(x.dtype) * w
+def pad_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
+    """x [..., N] as [max(M, rows), N]: its M rows, then zero rows.
+
+    A target decode or verify pass runs its residual stream padded to
+    ``ModelConfig.decode_rows`` = B * (gamma + 1) rows, once per pass: the
+    autoregressive step (M = B) then runs every dot and rms-norm at the
+    verify pass's row count, so a row gets the same arithmetic at both,
+    whatever cuBLAS or torch's row reduction picks by M (on the H100,
+    cuBLAS's w2 dot at B = 4 and 8 and the row mean at B = 2 to 8 give
+    other bits otherwise, which breaks the greedy spec == AR contract;
+    ``chip_smoke.py``'s row-invariance phase).  Zero rows stay zero through
+    every layer, and attention reads the live rows only."""
+    xm = x.reshape(-1, x.shape[-1])
+    return F.pad(xm, (0, 0, 0, rows - xm.shape[0])) if xm.shape[0] < rows else xm
 
 
-def _qkv(x, wl, cfg: ModelConfig):
-    """RAW (pre-norm) x [B, T, D] -> q [B,T,Hq,hd], k,v [B,T,Hkv,hd] (pre-rope)."""
-    B, T, _ = x.shape
+def _qkv(x, wl, cfg: ModelConfig, B: int, T: int):
+    """RAW (pre-norm) x [R, D], R >= B*T (the rows past B*T are padding) ->
+    q [B,T,Hq,hd], k,v [B,T,Hkv,hd] (pre-rope) of the first B*T rows."""
     hd = cfg.head_dim
     nq, nkv = cfg.n_head * hd, cfg.n_kv_head * hd
-    hint = cfg.decode_rows
-    xn = rms_norm(x, wl["attn_norm"], cfg.norm_eps)
+    norm = (wl["attn_norm"], cfg.norm_eps)
     if "wqkv" in wl:
-        qkv = matmul(xn, wl["wqkv"], hint)
-        if wl.get("bqkv") is not None:
-            qkv = qkv + wl["bqkv"]
+        if Q.is_quantized(wl["wqkv"]) and wl.get("bqkv") is None:
+            qkv = Q.quant_matmul(x, wl["wqkv"], norm=norm)
+        else:
+            qkv = matmul(rms_norm(x, *norm), wl["wqkv"])
+            if wl.get("bqkv") is not None:
+                qkv = qkv + wl["bqkv"]
+        qkv = qkv[:B * T]
         q, k, v = qkv[..., :nq], qkv[..., nq:nq + nkv], qkv[..., nq + nkv:]
     else:
-        q, k, v = (matmul(xn, wl[n], hint) for n in ("wq", "wk", "wv"))
+        xn = rms_norm(x, *norm)
+        q, k, v = (matmul(xn, wl[n])[:B * T] for n in ("wq", "wk", "wv"))
         if wl.get("bq") is not None:
             q, k, v = q + wl["bq"], k + wl["bk"], v + wl["bv"]
     return (q.reshape(B, T, cfg.n_head, hd), k.reshape(B, T, cfg.n_kv_head, hd),
@@ -84,43 +92,65 @@ def _qkv(x, wl, cfg: ModelConfig):
 
 
 def _mlp(x, wl, cfg: ModelConfig, residual=None):
-    """rms_norm -> silu-gated MLP [+ residual]."""
-    hint = cfg.decode_rows
-    xn = rms_norm(x, wl["ffn_norm"], cfg.norm_eps)
+    """rms_norm -> silu-gated MLP [+ residual].  An int8 w13 takes the norm
+    and the gate into its dot and w2 the residual (B4 where routed)."""
+    norm = (wl["ffn_norm"], cfg.norm_eps)
+    if "w13" in wl and Q.is_quantized(wl["w13"]):
+        y = Q.quant_mlp(x, wl["w13"], wl["w2"], norm, residual=residual)
+        if y is not None:
+            return y
+        gated = Q.quant_matmul(x, wl["w13"], norm=norm, gate=True)
+        return Q.quant_matmul(gated, wl["w2"], residual=residual)
+    xn = rms_norm(x, *norm)
     if "w13" in wl:
-        gu = matmul(xn, wl["w13"], hint)
+        gu = matmul(xn, wl["w13"])
         Fh = gu.shape[-1] // 2
         gate, up = gu[..., :Fh], gu[..., Fh:]
     else:
-        gate, up = matmul(xn, wl["w1"], hint), matmul(xn, wl["w3"], hint)
-    y = matmul(F.silu(gate) * up, wl["w2"], hint)
+        gate, up = matmul(xn, wl["w1"]), matmul(xn, wl["w3"])
+    y = matmul(F.silu(gate) * up, wl["w2"])
     return y if residual is None else residual + y
 
 
-def _wo_residual(x, out, wl, cfg: ModelConfig):
-    """h = x + attn_out @ wo."""
-    B, t = out.shape[:2]
-    o = out.reshape(B, t, cfg.n_head * cfg.head_dim)
-    return x + matmul(o, wl["wo"], cfg.decode_rows)
-
-
-def _layer_tail(x, out, wl, cfg: ModelConfig):
-    """x + out @ wo, then the FFN block with its residual."""
-    h = _wo_residual(x, out, wl, cfg)
+def _layer_tail(x, out, wl, cfg: ModelConfig, *, mega: bool = False):
+    """x [R, D] + out @ wo, then the FFN block with its residual; out
+    [B, T, Hq, hd] is the attention output of x's first B*T rows, padded
+    with zero rows to R.  An int8 wo adds x in its dot's epilogue.  ``mega``
+    (draft decode passes only, as in the JAX package): an int8 layer's
+    whole tail as one B5 call where it routes."""
+    o = pad_rows(out.reshape(-1, cfg.n_head * cfg.head_dim), x.shape[0])
+    if mega and Q.is_quantized(wl["wo"]) and "w13" in wl:
+        y = Q.quant_layer_tail(o, x, wl["wo"], wl["w13"], wl["w2"],
+                               (wl["ffn_norm"], cfg.norm_eps))
+        if y is not None:
+            return y
+    if Q.is_quantized(wl["wo"]):
+        h = Q.quant_matmul(o, wl["wo"], residual=x)
+    else:
+        h = x + matmul(o, wl["wo"])
     return _mlp(h, wl, cfg, residual=h)
 
 
 def fuse_exec_params(params: Params, cfg: ModelConfig) -> Params:
     """wq|wk|wv -> wqkv and w1|w3 -> w13, concatenated on the output axis:
     one QKV dot and one gate/up dot per layer.  Bit-identical (each output
-    column contracts independently).  Idempotent."""
+    column contracts independently); int8 weights concatenate their data
+    and their per-column scales.  Idempotent."""
     L = dict(params["layers"])
     if "wqkv" in L or "w13" in L:
         return params
-    L["wqkv"] = torch.cat([L.pop("wq"), L.pop("wk"), L.pop("wv")], dim=-1)
+
+    def cat(*ws):
+        if any(Q.is_quantized(w) for w in ws):
+            return Q.QuantizedWeight(torch.cat([w.q for w in ws], dim=-1),
+                                     torch.cat([w.scale for w in ws], dim=-1),
+                                     ws[0].bits, ws[0].group_size)
+        return torch.cat(ws, dim=-1)
+
+    L["wqkv"] = cat(L.pop("wq"), L.pop("wk"), L.pop("wv"))
     bq, bk, bv = L.pop("bq", None), L.pop("bk", None), L.pop("bv", None)
     L["bqkv"] = torch.cat([bq, bk, bv], dim=-1) if bq is not None else None
-    L["w13"] = torch.cat([L.pop("w1"), L.pop("w3")], dim=-1)
+    L["w13"] = cat(L.pop("w1"), L.pop("w3"))
     return dict(params, layers=L)
 
 
@@ -128,27 +158,26 @@ def _layer(params: Params, l: int) -> Params:
     return {n: t[l] for n, t in params["layers"].items() if t is not None}
 
 
-def head_logits(params: Params, x_normed, rows_hint: int = 0):
+def head_logits(params: Params, x_normed):
     if params.get("lm_head") is not None:
-        return matmul(x_normed, params["lm_head"], rows_hint)
-    return matmul(x_normed, params["embed"].T, rows_hint)  # tied embeddings
+        return matmul(x_normed, params["lm_head"])
+    return matmul(x_normed, params["embed"].T)  # tied embeddings
 
 
 def head_argmax(params: Params, cfg: ModelConfig, x) -> torch.Tensor:
     """Final norm + lm head + greedy argmax (lowest index on ties) -> int32."""
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = head_logits(params, x, rows_hint=cfg.decode_rows)
-    return torch.argmax(logits, dim=-1).to(torch.int32)
+    return torch.argmax(head_logits(params, x), dim=-1).to(torch.int32)
 
 
 def embed_lookup(params: Params, tokens: torch.Tensor) -> torch.Tensor:
     return params["embed"][tokens.long()]
 
 
-def _attn_project(x, wl, cfg, cs_q, cs_k):
-    """Pre-norm + projections + rope; cs_k=None leaves k un-roped (the
-    StreamingLLM draft prefill stores raw keys)."""
-    q, k, v = _qkv(x, wl, cfg)
+def _attn_project(x, wl, cfg, B, T, cs_q, cs_k):
+    """Pre-norm + projections + rope of x [R, D]'s first B*T rows; cs_k=None
+    leaves k un-roped (the StreamingLLM draft prefill stores raw keys)."""
+    q, k, v = _qkv(x, wl, cfg, B, T)
     q = apply_rope_cs(q, *cs_q)
     if cs_k is not None:
         k = apply_rope_cs(k, *cs_k)
@@ -187,26 +216,30 @@ def _target_attend(q, k, v, caches, l, base_lens):
     return out, rows
 
 
-def _head(params, cfg, x, head):
+def _head(params, cfg, x, head, B, T):
+    """The head over x [R, D]; returns its first B*T rows as [B, T, ...]."""
     if head == "logits":
-        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-        return head_logits(params, x, rows_hint=cfg.decode_rows)
-    if head == "none":
-        return x
-    return head_argmax(params, cfg, x)
+        out = head_logits(params, rms_norm(x, params["final_norm"], cfg.norm_eps))
+    elif head == "none":
+        out = x
+    else:
+        out = head_argmax(params, cfg, x)
+    return out[:B * T].reshape(B, T, *out.shape[1:])
 
 
-def _decode_layers(params, cfg, x, caches, cs, attend_fn):
-    """Run every layer; attend_fn(q, k, v, l) -> (attn_out, rows).  Returns
-    x and the rows stacked [L, ...] ({'k','v'} [L, B, T, K], and
-    {'ks','vs'} [L, B, Hkv, T] for an int8 cache) for the post-loop append."""
+def _decode_layers(params, cfg, x, B, T, cs, attend_fn, *, mega=False):
+    """Run every layer over x [R, D] (the rows past B*T are padding);
+    attend_fn(q, k, v, l) -> (attn_out, rows); ``mega`` as in
+    ``_layer_tail``.  Returns x and the rows stacked [L, ...] ({'k','v'}
+    [L, B, T, K], and {'ks','vs'} [L, B, Hkv, T] for an int8 cache) for the
+    post-loop append."""
     per_layer = []
     for l in range(cfg.n_layer):
         wl = _layer(params, l)
-        q, k, v = _attn_project(x, wl, cfg, cs, cs)
+        q, k, v = _attn_project(x, wl, cfg, B, T, cs, cs)
         out, rows = attend_fn(q, k, v, l)
         per_layer.append(rows)
-        x = _layer_tail(x, out, wl, cfg)
+        x = _layer_tail(x, out, wl, cfg, mega=mega)
     return x, {n: torch.stack([r[n] for r in per_layer]) for n in per_layer[0]}
 
 
@@ -218,17 +251,18 @@ def forward_target(params: Params, cfg: ModelConfig, tokens, base_lens, caches,
     call; caches {'k','v'} [L, B, S, K] (+ {'ks','vs'} [L, B, Hkv, S] for an
     int8 cache), appended in place at base_lens.
     Positions are base_lens + arange(T).  head: 'argmax' | 'logits' | 'none'
-    (final hidden states).  Returns (head output, caches).
+    (final hidden states).  ``cfg.decode_rows`` pads the pass's rows to that
+    count (``pad_rows``).  Returns (head output, caches).
     """
-    T = tokens.shape[1]
+    B, T = tokens.shape
     pos = base_lens[:, None] + torch.arange(T, device=tokens.device, dtype=torch.int32)
     cs = rope_cos_sin(pos, rope_inv_freq(cfg, tokens.device))
-    x = embed_lookup(params, tokens)
+    x = pad_rows(embed_lookup(params, tokens), cfg.decode_rows)
     x, rows = _decode_layers(
-        params, cfg, x, caches, cs,
+        params, cfg, x, B, T, cs,
         lambda q, k, v, l: _target_attend(q, k, v, caches, l, base_lens))
     caches = _append_rows(caches, rows, base_lens)
-    return _head(params, cfg, x, head), caches
+    return _head(params, cfg, x, head, B, T), caches
 
 
 def forward_streaming_draft_chunk(params: Params, cfg: ModelConfig, tokens,
@@ -250,16 +284,16 @@ def forward_streaming_draft_chunk(params: Params, cfg: ModelConfig, tokens,
                         inv_freq)
     cs_slot = rope_cos_sin(torch.arange(budget, device=dev)[None], inv_freq)
     hd, Hkv = cfg.head_dim, cfg.n_kv_head
-    x = embed_lookup(params, tokens)
+    x = embed_lookup(params, tokens).reshape(B * C, -1)
     for l in range(cfg.n_layer):
         wl = _layer(params, l)
-        q, k, v = _attn_project(x, wl, cfg, cs_q, None)
+        q, k, v = _attn_project(x, wl, cfg, B, C, cs_q, None)
         dk, dv = caches["dk"][l], caches["dv"][l]
         stream_update_raw(dk, dv, k, v, fill, budget=budget, sink=sink)
         k_att = apply_rope_cs(dk[:, :budget].reshape(B, budget, Hkv, hd), *cs_slot)
         out = attn_ops.attend(q, k_att.reshape(B, budget, -1), dv[:, :budget], base)
         x = _layer_tail(x, out, wl, cfg)
-    return x, caches
+    return x.reshape(B, C, -1), caches
 
 
 def streaming_finalize_draft(cfg: ModelConfig, caches, *, budget: int):
@@ -286,10 +320,10 @@ def forward_draft(params: Params, cfg: ModelConfig, tokens, draft_fill, rope_pos
     StreamingLLM); caches {'dk','dv'}, appended in place at draft_fill.
     Returns (argmax tokens [B, T] int32, caches).
     """
-    T = tokens.shape[1]
+    B, T = tokens.shape
     pos = rope_pos[:, None] + torch.arange(T, device=tokens.device, dtype=torch.int32)
     cs = rope_cos_sin(pos, rope_inv_freq(cfg, tokens.device))
-    x = embed_lookup(params, tokens)
+    x = embed_lookup(params, tokens).reshape(B * T, -1)
 
     def attend_fn(q, k, v, l):
         rows = _kv_rows(k, v, caches, prefix="d")
@@ -297,6 +331,6 @@ def forward_draft(params: Params, cfg: ModelConfig, tokens, draft_fill, rope_pos
                                     fresh=rows)
         return out, rows
 
-    x, rows = _decode_layers(params, cfg, x, caches, cs, attend_fn)
+    x, rows = _decode_layers(params, cfg, x, B, T, cs, attend_fn, mega=True)
     caches = _append_rows(caches, rows, draft_fill, prefix="d")
-    return head_argmax(params, cfg, x), caches
+    return head_argmax(params, cfg, x.reshape(B, T, -1)), caches

@@ -335,17 +335,20 @@ def test_engine_quant_configs_not_ported_raise(kw, match):
 
 def test_bench_defaults_and_metric_tag():
     args = bench.parse_args([])
-    assert (args.kv_quant, args.kv_scale, args.draft_quant) == ("int8", "f32", "none")
+    assert (args.kv_quant, args.kv_scale, args.draft_quant) == ("int8", "f32", "int8")
+    assert (args.draft_head, args.quant_backend) == ("quant", "pallas")
     assert bench.metric_name(args) == \
-        "selfspec_streamingllm_tokens_per_s_llama-3.2-1b_kvq8_B32_ctx8192_torch"
-    assert bench.metric_name(bench.parse_args(["--kv_quant", "none"])) == \
+        "selfspec_streamingllm_tokens_per_s_llama-3.2-1b_kvq8_dq8_B32_ctx8192_torch"
+    assert bench.metric_name(bench.parse_args(["--kv_quant", "none", "--draft_quant",
+                                               "none"])) == \
         "selfspec_streamingllm_tokens_per_s_llama-3.2-1b_B32_ctx8192_torch"
     assert bench.parse_args(["--kv_quant"]).kv_quant == "int8"
+    assert bench.parse_args(["--draft_quant"]).draft_quant == "int8"
 
 
 @pytest.mark.parametrize("argv,match", [
     (["--kv_scale", "bf16"], "A8"), (["--kv_quant", "int4"], "A8"),
-    (["--draft_quant", "int8"], "slice 3"),
+    (["--draft_quant", "int4"], "A8"),
 ], ids=lambda a: "_".join(a).strip("-") if isinstance(a, list) else a)
 def test_bench_quant_paths_not_ported_raise(argv, match):
     with pytest.raises(NotImplementedError, match=match):

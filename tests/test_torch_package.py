@@ -56,9 +56,9 @@ def test_chip_smoke_fails_without_card(no_card, capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--kv_quant", "int4"], ["--draft_quant", "int8"],
+    ["--kv_quant", "int4"], ["--draft_quant", "int4"],
     ["--quantize", "int8"], ["--mode", "snapkv"], ["--gamma", "0"],
-    ["--attn_backend", "jnp"],
+    ["--attn_backend", "jnp"], ["--quant_backend", "jnp"],
 ], ids=lambda a: "_".join(a).strip("-"))
 def test_bench_paths_not_ported_raise(argv):
     from magicdec_tpu_torch import bench
