@@ -27,26 +27,39 @@ of which raises on failure:
    without its first residual, B6 with its scales off by one column, B9
    without its residual) that must fail bf16_limit, their bound the int8
    weight's bytes, and ``torch.matmul`` on the dequantized bf16 weight as
-   the library yardstick of B4 and B6;
+   the library yardstick of B4 and B6; and the int4 capacity format: B10
+   and B11 over the head-pair-packed int4 cache quantized from the same
+   values by ``quantize_kv_tokens_int4`` (wrong references: without the
+   fresh rows, and with the nibble planes swapped), K3q on packed rows bit
+   for bit, and the group-wise int4 dots B4-int4 (wqkv, wo + residual, w13
+   + gate, w2 + residual) and B6-int4 (the head) at M = 32 and 64 (wrong
+   references: the group scales shifted by one group, the head's scales
+   rolled by one column), their bound the packed weight and its scales;
 4. main paths: ``magicdec_tpu_torch.bench.main`` (1) with its defaults
    (int8 target cache, int8 draft weight copy), (2) with ``--kv_quant none
    --draft_quant none --iters 1`` (all bf16, one measured repeat instead of
    three), (3) with ``--B 2 --prefix_len 2048 --iters 1`` (the draft
-   prefill chunk's 256 rows take B9), each with the launch counters zeroed
-   just before and read just after: every kernel of the path launched,
-   tokens per step >= 2.5, the spec and autoregressive streams agreeing on
-   every committed token of every request, and path (1)'s peak device
-   memory below path (2)'s;
+   prefill chunk's 256 rows take B9), (4) with ``--kv_quant int4
+   --draft_quant int4 --iters 1`` (the int4 capacity path: B10, B11, K3q on
+   packed rows, B4-int4 and B6-int4; B5, B9, K1q and K2q must not launch),
+   (5) with ``--kv_quant int4 --iters 1`` (the int4 cache under the int8
+   draft copy), each with the launch counters zeroed just before and read
+   just after: every kernel of the path launched, tokens per step >= 2.5
+   (>= 1.8 on path (4), whose int4 draft copy of random weights accepts
+   less), the spec and autoregressive streams agreeing on every committed
+   token of every request, path (1)'s peak device memory below path (2)'s
+   and path (4)'s below path (1)'s;
 5. row invariance at B=32, 4 and 2: for each of the target's dots, and for
    two layers and the head, a row's bits at verify (B*(gamma+1) rows)
    against the AR step (B rows), at the live row count and padded to
    decode_rows; fails if the model's rows differ when padded, which the
    engine runs;
-6. profile: where the decode time goes at the bench's default shapes (spec
-   generate and AR generate on the host clock, with the host time spent
-   issuing draft steps, then under torch.profiler for the device's busy time
-   and the kernels that take it), spec == AR again, and the AR step's
-   decode_rows padding against its live rows, ten alternating pairs in one run.
+6. profile: where the decode time goes at the bench's default shapes and on
+   the int4 path (spec generate and AR generate on the host clock, with the
+   host time spent issuing draft steps, then under torch.profiler for the
+   device's busy time and the kernels that take it), spec == AR again, and,
+   on the default path, the AR step's decode_rows padding against its live
+   rows, ten alternating pairs in one run.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -130,11 +143,18 @@ def _sdpa_inputs(q, k_layer, v_layer, base, k_new, v_new):
     return q.transpose(1, 2).contiguous(), kf, vf, mask
 
 
+def _swap_planes(packed):
+    """Packed int4 bytes with their nibbles swapped: kv heads 2i and 2i+1
+    exchanged (a wrong reference)."""
+    return (packed << 4) | ((packed >> 4) & 0x0F)
+
+
 def kernel_phase(torch, gen):
     from magicdec_tpu_torch.kernels import append as AP
     from magicdec_tpu_torch.kernels import decode_attention as DA
     from magicdec_tpu_torch.kernels import prefill_attention as PA
-    from magicdec_tpu_torch.ops.kv_cache import dequant_kv, quantize_kv_tokens
+    from magicdec_tpu_torch.ops.kv_cache import (dequant_kv, quantize_kv_tokens,
+                                                 quantize_kv_tokens_int4)
 
     F = torch.nn.functional
     dev = torch.device("cuda")
@@ -162,23 +182,42 @@ def kernel_phase(torch, gen):
               f"library_ms={library_ms if library_ms is None else round(library_ms, 4)}",
               flush=True)
 
-    def quantize(x):
-        """[L, B, S, K] bf16 -> int8 [L, B, S, K] and f32 scales [L, B, Hkv, S],
+    def quantize(x, fn=quantize_kv_tokens, width=K):
+        """[L, B, S, K] bf16 -> int8 [L, B, S, width] (``fn``: int8, or int4
+        packed in head pairs at width K // 2) and f32 scales [L, B, Hkv, S],
         one layer at a time (the float32 temporaries of a whole cache would
         take 18 GB)."""
         Lx, Bx, Sx = x.shape[:3]
-        q = torch.empty(x.shape, dtype=torch.int8, device=dev)
+        q = torch.empty((Lx, Bx, Sx, width), dtype=torch.int8, device=dev)
         s = torch.empty((Lx, Bx, Hkv, Sx), dtype=torch.float32, device=dev)
         for l in range(Lx):
-            q[l], s[l] = quantize_kv_tokens(x[l].view(Bx, Sx, Hkv, hd))
+            q[l], s[l] = fn(x[l].view(Bx, Sx, Hkv, hd))
         return q, s
+
+    def quantize4(x):
+        return quantize(x, quantize_kv_tokens_int4, K // 2)
 
     def dense_fresh(T):
         return {"k_new": randn(B, T, K), "v_new": randn(B, T, K)}
 
-    def quant_fresh(T):
-        (kn, ksn), (vn, vsn) = (quantize_kv_tokens(randn(B, T, Hkv, hd)) for _ in range(2))
+    def quant_fresh(T, fn=quantize_kv_tokens):
+        (kn, ksn), (vn, vsn) = (fn(randn(B, T, Hkv, hd)) for _ in range(2))
         return {"k_new": kn, "v_new": vn, "ks_new": ksn, "vs_new": vsn}
+
+    def quant4_fresh(T):
+        return quant_fresh(T, quantize_kv_tokens_int4)
+
+    def swapped(plain, caches):
+        """A wrong reference of an int4 kernel: its plain version over layer
+        `layer` with the nibble planes of the cache and the fresh rows
+        swapped."""
+        kq, ks, vq, vs = (c[layer:layer + 1] for c in caches)
+
+        def run(q, base, fresh):
+            sw = {n: _swap_planes(t) if n in ("k_new", "v_new") else t
+                  for n, t in fresh.items()}
+            return plain(q, _swap_planes(kq), ks, _swap_planes(vq), vs, base, layer=0, **sw)
+        return run
 
     def dense_layer(caches, fresh):
         """(k, v, k_new, v_new) of layer `layer` in bf16 for the library call."""
@@ -190,9 +229,12 @@ def kernel_phase(torch, gen):
                 dequant_kv(fresh["k_new"], fresh["ks_new"], hd, bf),
                 dequant_kv(fresh["v_new"], fresh["vs_new"], hd, bf))
 
-    def attn_case(name, fn, plain, case, caches, make_fresh, T, base, plain_iters):
+    def attn_case(name, fn, plain, case, caches, make_fresh, T, base, plain_iters,
+                  swap=False):
         """caches: the cache operands as the kernel takes them, (k, v) or
-        (k, k_scale, v, v_scale); make_fresh(T): the window's rows."""
+        (k, k_scale, v, v_scale); make_fresh(T): the window's rows; swap: an
+        int4 cache, whose plain version with the nibble planes swapped must
+        fail too."""
         q = randn(B, T, Hq, hd)
         fresh = make_fresh(T)
         out = fn(q, *caches, base, layer=layer, **fresh)
@@ -201,13 +243,18 @@ def kernel_phase(torch, gen):
         err, tol = _err(out, ref)
         # the same kernel without the fresh rows reads the cache where they
         # belong: bf16_limit must reject it
-        wrong_err, wrong_bad, wrong_share = _outside(fn(q, *caches, base, layer=layer), ref)
-        print(f"[kernel] {name} {case}: without the fresh rows max_abs_err="
-              f"{wrong_err:.3e}, {wrong_bad} of {ref.numel()} elements outside "
-              f"bf16_limit (up to {wrong_share:.3g} of it)", flush=True)
-        if not wrong_bad:
-            raise AssertionError(f"{name} {case}: bf16_limit passes a kernel that "
-                                 "drops the fresh rows")
+        wrongs = {"without the fresh rows": fn(q, *caches, base, layer=layer)}
+        if swap:
+            wrongs["the plain version with the nibble planes swapped"] = swapped(
+                plain, caches)(q, base, fresh)
+        for what, wrong in wrongs.items():
+            wrong_err, wrong_bad, wrong_share = _outside(wrong, ref)
+            print(f"[kernel] {name} {case}: {what} max_abs_err={wrong_err:.3e}, "
+                  f"{wrong_bad} of {ref.numel()} elements outside bf16_limit (up to "
+                  f"{wrong_share:.3g} of it)", flush=True)
+            if not wrong_bad:
+                raise AssertionError(f"{name} {case}: bf16_limit passes {what}")
+        del wrongs
         # timed over the layers in turn: one layer of the draft cache fits
         # the 50 MB L2, which the model's pass never finds warm
         layers = itertools.cycle(range(L))
@@ -222,8 +269,10 @@ def kernel_phase(torch, gen):
         del lib_args
         vis = base.double()
         pairs = float((vis[:, None] + torch.arange(1, T + 1, device=dev)).sum())
-        # a visible row of k (and of v): its K values and, int8, its Hkv scales
-        row_bytes = K * caches[0].element_size() + (Hkv * 4 if len(caches) == 4 else 0)
+        # a visible row of k (and of v): its bytes (int4: K / 2) and, when
+        # quantized, its Hkv scales
+        row_bytes = (caches[0].shape[-1] * caches[0].element_size()
+                     + (Hkv * 4 if len(caches) == 4 else 0))
         nbytes = (2 * q.numel() * 2 + 2 * float(vis.sum()) * row_bytes
                   + sum(t.numel() * t.element_size() for t in fresh.values()))
         flops = 4 * hd * Hq * pairs
@@ -260,6 +309,20 @@ def kernel_phase(torch, gen):
         attn_case("flash_prefill_attend_quant", PA.flash_prefill_attend_quant,
                   PA.flash_prefill_attend_quant_plain, f"C=512 base={base}", qcaches,
                   quant_fresh, 512, torch.full((B,), base, device=dev, dtype=torch.int32), 1)
+    # B10 and B11 over the int4 cache packed in head pairs, quantized from
+    # the same values
+    kp4, kps4 = quantize4(k4)
+    vp4, vps4 = quantize4(v4)
+    pcaches = (kp4, kps4, vp4, vps4)
+    for T in (4, 1):
+        attn_case("flash_decode_attend_quant4", DA.flash_decode_attend_quant4,
+                  DA.flash_decode_attend_quant4_plain, f"target T={T} S={S}", pcaches,
+                  quant4_fresh, T, base_t, 3, swap=True)
+    for base in (7680, 0):
+        attn_case("flash_prefill_attend_quant4", PA.flash_prefill_attend_quant4,
+                  PA.flash_prefill_attend_quant4_plain, f"C=512 base={base}", pcaches,
+                  quant4_fresh, 512, torch.full((B,), base, device=dev, dtype=torch.int32), 1,
+                  swap=True)
     torch.cuda.empty_cache()
 
     def flat_index(rows, pos, T):
@@ -270,27 +333,29 @@ def kernel_phase(torch, gen):
         start = pos.long().repeat_interleave(rows // B)[None, :, None]
         return (lead + start + torch.arange(T, device=dev)[None, None]).reshape(-1)
 
-    def append_case(name, fn, plain, caches, rows, pos, T):
+    def append_case(name, fn, plain, caches, rows, pos, T, label=""):
         """Bit-exact against the plain version on copies of the caches, then
         timed; caches and rows in the wrapper's order, data then scales."""
+        case = f"{label}T={T}"
         copies = [c.clone() for c in caches]
         fn(*copies[:2], *rows[:2], pos, *copies[2:], *rows[2:])
         plain(*caches[:2], *rows[:2], pos, *caches[2:], *rows[2:])
         torch.cuda.synchronize()
         if not all(torch.equal(a, b) for a, b in zip(copies, caches)):
-            raise AssertionError(f"{name} T={T}: kernel and plain version differ")
+            raise AssertionError(f"{name} {case}: kernel and plain version differ")
         del copies
         ms = _cuda_ms(lambda: fn(*caches[:2], *rows[:2], pos, *caches[2:], *rows[2:]))
         plain_ms = _cuda_ms(lambda: plain(*caches[:2], *rows[:2], pos, *caches[2:], *rows[2:]),
                             iters=5, warmup=1)
         flat = flat_index(B, pos, T)
-        pairs = [(caches[i].view(-1, K), flat, rows[i].reshape(-1, K)) for i in (0, 1)]
+        width = caches[0].shape[-1]
+        pairs = [(caches[i].view(-1, width), flat, rows[i].reshape(-1, width)) for i in (0, 1)]
         if len(caches) == 4:
             sflat = flat_index(B * Hkv, pos, T)
             pairs += [(caches[i].view(-1), sflat, rows[i].reshape(-1)) for i in (2, 3)]
         library_ms = _cuda_ms(lambda: [c.index_copy_(0, i, r) for c, i, r in pairs])
         nbytes = 2 * sum(r.numel() * r.element_size() for r in rows)  # read + write
-        record(name, f"T={T}", 0.0, "bit-exact", ms, plain_ms, nbytes, 0.0, library_ms)
+        record(name, case, 0.0, "bit-exact", ms, plain_ms, nbytes, 0.0, library_ms)
 
     # K3 and K3q: bit-exact against the plain versions on copies of the
     # target caches
@@ -307,6 +372,15 @@ def kernel_phase(torch, gen):
                     AP.append_all_rows_inplace_plain, (kq4, vq4, ks4, vs4),
                     (rk, rv, srk, srv), pos, T)
     del qcaches, kq4, ks4, vq4, vs4
+    # K3q on the int4 cache's packed rows: (Hkv / 2) * hd bytes a row, the
+    # scales of all Hkv heads
+    for T in (4, 1, 512):
+        pos = torch.randint(0, S - T, (B,), generator=gen, device=dev, dtype=torch.int32)
+        (rk, srk), (rv, srv) = (quantize4(randn(L, B, T, K)) for _ in range(2))
+        append_case("append_all_rows_inplace_quant", AP.append_all_rows_inplace_quant,
+                    AP.append_all_rows_inplace_plain, (kp4, vp4, kps4, vps4),
+                    (rk, rv, srk, srv), pos, T, label="packed int4 ")
+    del pcaches, kp4, kps4, vp4, vps4
     torch.cuda.empty_cache()
     quant_kernel_cases(torch, gen, record)
     return entries
@@ -360,15 +434,25 @@ def quant_kernel_cases(torch, gen, record):
         plain_ms = _cuda_ms(lambda: plain(*args), iters=3, warmup=1)
         library_ms = None
         if lib is not None:
-            deq = [(weights[k][0][l].float() * weights[k][1][l]).to(bf)
-                   for k in keys for l in range(weights[k][0].shape[0])]
+            deq = [dequant(k, l) for k in keys for l in range(weights[k][0].shape[0])]
             xs = itertools.cycle(deq)
             library_ms = _cuda_ms(lambda: torch.matmul(lib, next(xs)))
             del deq
         moved = nbytes(*(t for k in keys for t in (weights[k][0][0], weights[k][1][0])),
                        *(a for a in args if a.dtype == bf), out)
-        flops = 2.0 * M * sum(weights[k][0][0].numel() for k in keys)
+        # an int4 byte holds two weights
+        flops = 2.0 * M * sum(weights[k][0][0].numel() * (2 if is4(k) else 1) for k in keys)
         record(name, label, err, tol, ms, plain_ms, moved, flops, library_ms)
+
+    def is4(key):
+        """An int4 weight: its per-layer scales are [G, Out]."""
+        return weights[key][1].dim() == 3
+
+    def dequant(key, l):
+        q, s = w(key, l)
+        if is4(key):
+            return Q.dequantize_weight(Q.QuantizedWeight(q, s, 4, 2 * q.shape[0] // s.shape[0]))
+        return (q.float() * s).to(bf)
 
     def w(key, l):
         return weights[key][0][l], weights[key][1][l]
@@ -424,6 +508,47 @@ def quant_kernel_cases(torch, gen, record):
     del weights
     torch.cuda.empty_cache()
 
+    # the int4 copy: groups of 128 contraction rows, scales [L, G, Out];
+    # every dot takes its input normed already (no norm in the int4 kernels)
+    def stack4(In, Out, layers=L):
+        w = Q.quantize_params({"layers": {"wo": randn(layers, In, Out, scale=In ** -0.5)}},
+                              bits=4, include_head=False)["layers"]["wo"]
+        return w.q, w.scale
+
+    weights = {"wqkv4": stack4(D, D + 1024), "wo4": stack4(D, D), "w134": stack4(D, 2 * F),
+               "w24": stack4(F, D), "lm_head4": stack4(D, V, layers=1)}
+    fused4, plain4 = QK.quant_matmul_fused_int4, QK.quant_matmul_fused_int4_plain
+
+    def shifted(s):
+        return s.roll(1, 0)  # each group takes the scales of the group before
+
+    for M in (32, 64):
+        x, res = randn(M, D), randn(M, D)
+        g = randn(M, F, scale=0.5)
+        case("quant_matmul_fused_int4", f"wqkv M={M}", fused4, plain4,
+             lambda x, q, s: plain4(x, q, shifted(s)),
+             lambda l: (x, *w("wqkv4", l)), ["wqkv4"], lib=x, M=M)
+        case("quant_matmul_fused_int4", f"wo + residual M={M}",
+             lambda x, q, s, r: fused4(x, q, s, r), lambda x, q, s, r: plain4(x, q, s, r),
+             lambda x, q, s, r: plain4(x, q, shifted(s), r),
+             lambda l: (x, *w("wo4", l), res), ["wo4"], lib=x, M=M)
+        case("quant_matmul_fused_int4", f"w13 + SiLU gate M={M}",
+             lambda x, q, s: fused4(x, q, s, gate=True),
+             lambda x, q, s: plain4(x, q, s, gate=True),
+             lambda x, q, s: plain4(x, q, shifted(s), gate=True),
+             lambda l: (x, *w("w134", l)), ["w134"], lib=x, M=M)
+        case("quant_matmul_fused_int4", f"w2 + residual M={M}",
+             lambda x, q, s, r: fused4(x, q, s, r), lambda x, q, s, r: plain4(x, q, s, r),
+             lambda x, q, s, r: plain4(x, q, shifted(s), r),
+             lambda l: (g, *w("w24", l), res), ["w24"], lib=g, M=M)
+        x = randn(M, D, scale=0.5)
+        case("quant_matmul_int4", f"lm_head [2048, 128256] M={M}",
+             QK.quant_matmul_int4, QK.quant_matmul_int4_plain,
+             lambda x, q, s: QK.quant_matmul_int4_plain(x, q, s.roll(1, -1)),
+             lambda l: (x, *w("lm_head4", l)), ["lm_head4"], lib=x, M=M)
+    del weights
+    torch.cuda.empty_cache()
+
 
 def _agreement(spec_out, spec_n, base_out, max_gen):
     """Spec vs AR tokens per request, over the tokens spec committed (at most
@@ -446,11 +571,12 @@ def _agreement(spec_out, spec_n, base_out, max_gen):
     return summary
 
 
-def main_path(torch, wrappers, required, argv):
+def main_path(torch, wrappers, required, argv, forbidden=(), min_tokens_per_step=2.5):
     """The bench's main path with ``argv``; the counters are zeroed just
     before and read just after.  Fails unless every kernel in ``required``
-    was launched, tokens per step reach 2.5 and spec == AR on every
-    committed token.  Returns (bench result, launches, peak GiB)."""
+    was launched, none in ``forbidden`` was, tokens per step reach
+    ``min_tokens_per_step`` and spec == AR on every committed token.
+    Returns (bench result, launches, peak GiB)."""
     from magicdec_tpu_torch import bench
 
     for w in wrappers:
@@ -471,8 +597,12 @@ def main_path(torch, wrappers, required, argv):
     for w in required:
         if launches[w.__name__] <= 0:
             raise AssertionError(f"the main path ({tag}) never launched {w.__name__}")
+    for w in forbidden:
+        if launches[w.__name__]:
+            raise AssertionError(f"the main path ({tag}) launched {w.__name__}, which it "
+                                 "must not reach")
     res = out["result"]
-    if res["tokens_per_step"] < 2.5:
+    if res["tokens_per_step"] < min_tokens_per_step:
         raise AssertionError(f"acceptance collapsed ({tag}): {res['tokens_per_step']} "
                              "tokens/step")
     return res, launches, peak
@@ -552,8 +682,10 @@ def _device_ms(event):
 
 
 def _kernel_class(name):
+    if "qmm4" in name:
+        return "int4 dots (B4/B6-int4)"
     if "qmm" in name:
-        return "int8 dots (B4/B5/B6)"
+        return "int8 dots (B4/B5/B6) and split-K epilogues"
     if "md::" in name or "attend_kernel" in name or "combine_kernel" in name \
             or "append_rows_kernel" in name:
         return "port kernels"
@@ -562,16 +694,18 @@ def _kernel_class(name):
     return "other PyTorch ops"
 
 
-def profile_phase(torch):
-    """Spec generate and AR generate at the bench's shapes: host-clock wall
-    time, then a profiled run for the device's busy time and the kernels that
-    take it, then whether the spec and AR tokens agree."""
+def profile_phase(torch, argv=(), pad_pairs=True):
+    """Spec generate and AR generate at the bench's shapes with ``argv``:
+    host-clock wall time, then a profiled run for the device's busy time and
+    the kernels that take it, then whether the spec and AR tokens agree;
+    ``pad_pairs``: then the AR step padded against its live rows."""
     from torch.profiler import ProfilerActivity, profile
 
     from magicdec_tpu_torch import bench
     from magicdec_tpu_torch.models import llama as M
 
-    args = bench.parse_args([])
+    args = bench.parse_args(list(argv))
+    tag = " ".join(argv) or "defaults"
     engine, prompts = bench.setup(args)
     prompt = prompts[0]
     # the host time the engine spends issuing draft steps (no sync inside)
@@ -618,21 +752,25 @@ def profile_phase(torch):
         for e in kern:
             c = _kernel_class(e.key)
             by_class[c] = by_class.get(c, 0.0) + _device_ms(e)
-        print(f"[profile] {name}: encode {encode_s:.2f}s; generate "
+        print(f"[profile {tag}] {name}: encode {encode_s:.2f}s; generate "
               f"wall {wall_ms:.1f} ms over {steps} {'windows' if name == 'spec' else 'steps'} "
               f"({wall_ms / steps:.2f} ms each); device busy {busy:.1f} ms "
               f"({busy / wall_ms:.1%} of the wall, idle {1 - busy / wall_ms:.1%}); "
               + ", ".join(f"{c} {t:.1f} ms" for c, t in sorted(by_class.items())),
               flush=True)
         if name == "spec":
-            print(f"[profile] spec: host time issuing draft steps {draft_s[0] * 1e3:.1f} ms "
-                  f"({draft_s[0] * 1e3 / steps:.2f} ms per window)", flush=True)
-        for e in sorted(kern, key=_device_ms, reverse=True)[:6]:
-            print(f"[profile]   {_device_ms(e):8.2f} ms  x{e.count:<6d} {e.key[:90]}",
+            print(f"[profile {tag}] spec: host time issuing draft steps "
+                  f"{draft_s[0] * 1e3:.1f} ms ({draft_s[0] * 1e3 / steps:.2f} ms per window)",
                   flush=True)
-    print("[profile] " + _agreement(outputs["spec"]["output"],
-                                    outputs["spec"]["num_committed"],
-                                    outputs["AR"]["output"], args.max_gen), flush=True)
+        for e in sorted(kern, key=_device_ms, reverse=True)[:6]:
+            print(f"[profile {tag}]   {_device_ms(e):8.2f} ms  x{e.count:<6d} {e.key[:90]}",
+                  flush=True)
+    print(f"[profile {tag}] " + _agreement(outputs["spec"]["output"],
+                                           outputs["spec"]["num_committed"],
+                                           outputs["AR"]["output"], args.max_gen), flush=True)
+    if not pad_pairs:
+        del engine
+        return
     # the cost of the target's decode_rows padding: AR generate from one
     # encoded state with the AR step padded to B * (gamma + 1) rows (the
     # engine's passes) and at its live B rows, ten pairs, alternating which
@@ -701,7 +839,9 @@ def main():
     quant = [DA.flash_decode_attend_quant, PA.flash_prefill_attend_quant,
              AP.append_all_rows_inplace_quant]
     dots = [QK.quant_matmul_fused, QK.quant_layer_tail, QK.quant_matmul]
-    wrappers = dense + quant + dots + [QK.quant_mlp]
+    quant4 = [DA.flash_decode_attend_quant4, PA.flash_prefill_attend_quant4]
+    dots4 = [QK.quant_matmul_fused_int4, QK.quant_matmul_int4]
+    wrappers = dense + quant + dots + [QK.quant_mlp] + quant4 + dots4
     # (1) the default path: the target on the int8 KV kernels, the draft's
     # int8 weight copy on B4/B5/B6 and its bf16 cache on K1 and K3
     _, launches, peak8 = main_path(
@@ -714,12 +854,34 @@ def main():
     # take B9
     _, launches2, _ = main_path(torch, wrappers, quant + dots + [QK.quant_mlp],
                                 ["--B", "2", "--prefix_len", "2048", "--iters", "1"])
+    # (4) the int4 capacity path (one measured repeat): the target on B10,
+    # B11 and K3q over packed rows, the draft's int4 copy on B4-int4 (norms
+    # first) and B6-int4; B5, B9 and the int8 attention kernels stay idle.
+    # Its acceptance floor is lower: an int4 draft copy of random synthetic
+    # weights loses acceptance, as the JAX package records for its own
+    # (alpha 0.82 -> 0.52, CLAUDE.md); a broken draft reads near 1
+    _, launches4, peak4 = main_path(
+        torch, wrappers,
+        quant4 + dots4 + [AP.append_all_rows_inplace_quant, DA.flash_decode_attend,
+                          AP.append_all_rows_inplace],
+        ["--kv_quant", "int4", "--draft_quant", "int4", "--iters", "1"],
+        forbidden=[QK.quant_layer_tail, QK.quant_mlp, DA.flash_decode_attend_quant,
+                   PA.flash_prefill_attend_quant], min_tokens_per_step=1.8)
+    # (5) the int4 cache under the default int8 draft copy (one measured
+    # repeat): the cache format alone keeps the default's acceptance floor
+    main_path(torch, wrappers, quant4 + dots + [AP.append_all_rows_inplace_quant],
+              ["--kv_quant", "int4", "--iters", "1"],
+              forbidden=[DA.flash_decode_attend_quant, PA.flash_prefill_attend_quant]
+              + dots4)
     launches["flash_prefill_attend"] = launches16["flash_prefill_attend"]
     launches["quant_mlp"] = launches2["quant_mlp"]
+    launches.update({w.__name__: launches4[w.__name__] for w in quant4 + dots4})
     print(f"[main] peak device memory: int8 KV + int8 draft {peak8:.2f} GiB, all bf16 "
-          f"{peak16:.2f} GiB", flush=True)
+          f"{peak16:.2f} GiB, int4 KV + int4 draft {peak4:.2f} GiB", flush=True)
     if peak8 >= peak16:
         raise AssertionError("the int8 path did not lower peak device memory")
+    if peak4 >= peak8:
+        raise AssertionError("the int4 path did not lower peak device memory below int8's")
     # the row-invariance question (PERF.md): is a target row computed the
     # same at verify and at the AR step; at B=4 and 2 the live row counts
     # differ (cuBLAS's w2, torch's row mean), the padded ones the engine runs
@@ -727,6 +889,7 @@ def main():
     for B in (32, 4, 2):
         row_invariance_phase(torch, B)
     profile_phase(torch)
+    profile_phase(torch, ["--kv_quant", "int4", "--draft_quant", "int4"], pad_pairs=False)
 
     meta = {
         "flash_decode_attend": ("magicdec_tpu_torch/csrc/decode_attention.cu",
@@ -749,6 +912,16 @@ def main():
                          "magicdec_tpu/ops/pallas/quant_matmul.py:221"),
         "quant_mlp": ("magicdec_tpu_torch/csrc/quant_matmul.cu",
                       "magicdec_tpu/ops/pallas/quant_matmul.py:749"),
+        "flash_decode_attend_quant4": ("magicdec_tpu_torch/csrc/decode_attention_quant4.cu",
+                                       "magicdec_tpu/ops/pallas/decode_attention.py:585"),
+        "flash_prefill_attend_quant4": ("magicdec_tpu_torch/csrc/prefill_attention_quant4.cu",
+                                        "magicdec_tpu/ops/pallas/prefill_attention.py:377"),
+        # the bits=4 branches of quant_matmul_fused_pallas (:301) and
+        # quant_matmul_pallas (:221)
+        "quant_matmul_fused_int4": ("magicdec_tpu_torch/csrc/quant_matmul.cu",
+                                    "magicdec_tpu/ops/pallas/quant_matmul.py:151"),
+        "quant_matmul_int4": ("magicdec_tpu_torch/csrc/quant_matmul.cu",
+                              "magicdec_tpu/ops/pallas/quant_matmul.py:189"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():

@@ -6,11 +6,13 @@ throughput (counterpart of the repository's ``bench.py``).
 Same protocol, flags and defaults as ``bench.py`` for what this port runs:
 llama-3.2-1b widths with synthetic weights, StreamingLLM self-speculation at
 B=32, prefix 8192, gamma=3, draft budget 513, prefill chunk 512, max_gen 80,
-an int8 target KV cache with f32 scales (``--kv_quant none``: bf16), bf16
-verify weights, and an int8 per-channel copy of the weights for the draft
-with a quantized lm_head (``--draft_quant none``: the draft shares the bf16
-weights; ``--draft_head shared``: the copy shares the bf16 head) on the
-Hopper kernels.  Decode-loop
+an int8 target KV cache with f32 scales (``--kv_quant none``: bf16;
+``--kv_quant int4``: int4 packed in kv-head pairs, the capacity format),
+bf16 verify weights, and an int8 per-channel copy of the weights for the
+draft with a quantized lm_head (``--draft_quant none``: the draft shares the
+bf16 weights; ``--draft_quant int4``: a group-wise int4 copy, groups of 128;
+``--draft_head shared``: the copy shares the bf16 head) on the Hopper
+kernels.  Decode-loop
 wall time is taken between ``torch.cuda.synchronize()`` calls.  Acceptance
 and both throughputs go to stderr; the single JSON line on stdout is the
 result.
@@ -89,16 +91,18 @@ def parse_args(argv=None):
     p.add_argument("--kv_quant", nargs="?", const="int8", default="int8",
                    choices=["int8", "int4", "none"],
                    help="quantized target KV cache (int8 halves the bytes the "
-                        "decode kernels stream; int4 is not ported yet)")
+                        "decode kernels stream, int4 quarters them)")
     p.add_argument("--kv_scale", default="f32", choices=["f32", "bf16"],
                    help="quantized-cache scale dtype (bf16 is not ported yet)")
     p.add_argument("--draft_quant", nargs="?", const="int8", default="int8",
                    choices=["int8", "int4", "none"],
                    help="quantize the draft pass's weight copy (draft decode is "
                         "weight-bandwidth-bound; the output still equals greedy AR; "
-                        "int4 is not ported yet)")
+                        "int4: group-wise, groups of 128)")
+    p.add_argument("--quantize_embed", action="store_true",
+                   help="quantize the embedding table (not ported yet)")
     p.add_argument("--draft_head", default="quant", choices=["quant", "shared"],
-                   help="shared: the int8 draft copy reuses the target's bf16 lm_head")
+                   help="shared: the quantized draft copy reuses the target's bf16 lm_head")
     p.add_argument("--device", default="cuda")
     return p.parse_args(argv)
 
@@ -114,12 +118,10 @@ def _not_ported(args):
         return "--quant_backend jnp: the port runs its Hopper kernels only"
     if args.quantize:
         return "--quantize (int8/int4 verify weights) is ROADMAP item A8"
-    if args.kv_quant == "int4":
-        return "--kv_quant int4 is ROADMAP item A8"
+    if args.quantize_embed:
+        return "--quantize_embed (the quantized embedding) is ROADMAP item A8"
     if args.kv_quant != "none" and args.kv_scale != "f32":
         return "--kv_scale bf16 is ROADMAP item A8"
-    if args.draft_quant == "int4":
-        return "--draft_quant int4 is ROADMAP item A8"
     return None
 
 
@@ -149,6 +151,10 @@ def setup(args):
     # copy of the weights stays alive beside the fused one
     params = fuse_exec_params(make_params(cfg, device=dev), cfg)
     prefix = args.prefix_len
+    # the cache length rounds to 512 rows for every format.  bench.py rounds
+    # an int4 cache to 2048 because its TPU kernel's blocks are capped at
+    # 2048 rows by VMEM; the Hopper kernels tile by 32 or 64 rows, so the
+    # port keeps 512 (8704 rows at the bench's shapes, not 10240)
     ecfg = EngineConfig(
         mode=args.mode, gamma=args.gamma, draft_budget=args.draft_budget,
         max_seq_len=_round_up(prefix + args.max_gen + args.gamma + 2, 512),

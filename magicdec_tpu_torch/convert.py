@@ -9,7 +9,9 @@ which holds every bfloat16 value exactly, so a weight or a cache compares
 bit for bit across the two packages.  A quantized weight (the JAX package's
 ``QuantizedWeight``, or any object or dict with ``q``, ``scale``, ``bits``
 and ``group_size``) becomes the port's ``QuantizedWeight`` with its int8 data
-and f32 scales in their own dtypes.
+(int4: packed pairs, ``[In/2, Out]``) and f32 scales (``[G, Out]``) in their
+own dtypes; an int4 cache's packed rows ``[L, B, S, (Hkv/2)*hd]`` move as
+any int8 cache.
 """
 
 from __future__ import annotations

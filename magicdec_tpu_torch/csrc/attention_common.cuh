@@ -38,6 +38,18 @@
 // is s_raw * (k_scale[c] * 1/sqrt(hd)), masked after scaling; the
 // normaliser l sums the unscaled p, and the P.V product takes
 // bf16(p * v_scale[c]).
+//
+// int4 caches (QUANT and INT4: the B10 decode and B11 prefill kernels).  The
+// cache packs kv heads 2i and 2i+1 into the low and high nibbles of packed
+// pseudo-head i, lane for lane, so a row is (Hkv/2)*HD bytes and head h's
+// HD lanes sit at (h/2)*HD; the scales are the int8 path's.  A block of
+// head h stages those HD bytes a row exactly as the int8 path stages its
+// own, and converts the (h & 1) nibble plane (i4x4_to_bf16x4: exact, no
+// conversion unit), so the tiles, the mma path and the scale order are
+// K1q's and K2q's.  Heads 2i and 2i+1 run in separate blocks that read the
+// same packed bytes: the second read mostly hits L2 (the blocks of one
+// request's heads run side by side), so DRAM traffic stays at the packed
+// bytes, while the L2 traffic is that of an int8 cache.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -54,7 +66,8 @@ struct AttnArgs {
   const __nv_bfloat16* v;
   const __nv_bfloat16* k_new;  // [B, T, Hkv*HD] fresh rows, or null
   const __nv_bfloat16* v_new;
-  const int8_t* kq;            // [L, B, S, Hkv*HD]  (int8 caches, QUANT)
+  const int8_t* kq;            // [L, B, S, Hkv*HD]  (int8 caches, QUANT;
+                               //  int4: [L, B, S, (Hkv/2)*HD] packed)
   const int8_t* vq;
   const int8_t* kq_new;        // [B, T, Hkv*HD] fresh int8 rows, or null
   const int8_t* vq_new;
@@ -212,6 +225,45 @@ __device__ __forceinline__ void convert_tile(__nv_bfloat16* dst, const int8_t* s
   }
 }
 
+// Four packed bytes (one word, byte 0 first) -> the four values of one
+// nibble plane (shift 0: the low nibbles, 4: the high ones) as bf16, two
+// words, lo holding bytes 0 and 1.  Exact, without the conversion unit: the
+// nibble n of value v has n ^ 8 == v + 8 in [0, 15]; as the low mantissa
+// bits under bf16's exponent of 2^7 it reads 128 + v + 8, and subtracting
+// 136 (exact: the difference is representable) leaves v.
+__device__ __forceinline__ void i4x4_to_bf16x4(uint32_t w, int shift, uint32_t& lo,
+                                               uint32_t& hi) {
+  const __nv_bfloat162 bias = __floats2bfloat162_rn(136.f, 136.f);
+  uint32_t x[2] = {((__byte_perm(w, 0u, 0x4140) >> shift) & 0x000F000Fu) ^ 0x43084308u,
+                   ((__byte_perm(w, 0u, 0x4342) >> shift) & 0x000F000Fu) ^ 0x43084308u};
+  const __nv_bfloat162 v0 = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&x[0]), bias);
+  const __nv_bfloat162 v1 = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&x[1]), bias);
+  lo = *reinterpret_cast<const uint32_t*>(&v0);
+  hi = *reinterpret_cast<const uint32_t*>(&v1);
+}
+
+// int4 counterpart of convert_tile: the chunks this thread copied in
+// load_tile_i8 hold 16 lanes of packed pairs; their `shift` plane goes into
+// the padded bf16 tile.
+template <int HD, int N, int NT>
+__device__ __forceinline__ void convert_tile_i4(__nv_bfloat16* dst, const int8_t* src,
+                                                int shift) {
+  constexpr int kVec = HD / 16;
+  constexpr int LD = HD + 8;
+  for (int i = threadIdx.x; i < N * kVec; i += NT) {
+    const int row = i / kVec, c16 = i % kVec;
+    const uint4 raw = *reinterpret_cast<const uint4*>(src + row * HD + c16 * 16);
+    uint32_t w[8];
+    i4x4_to_bf16x4(raw.x, shift, w[0], w[1]);
+    i4x4_to_bf16x4(raw.y, shift, w[2], w[3]);
+    i4x4_to_bf16x4(raw.z, shift, w[4], w[5]);
+    i4x4_to_bf16x4(raw.w, shift, w[6], w[7]);
+    uint4* d = reinterpret_cast<uint4*>(dst + row * LD + c16 * 16);
+    d[0] = make_uint4(w[0], w[1], w[2], w[3]);
+    d[1] = make_uint4(w[4], w[5], w[6], w[7]);
+  }
+}
+
 template <int HD>
 struct WarpState {
   uint32_t qf[HD / 16][4];  // Q as mma A fragments
@@ -342,11 +394,13 @@ struct TileSmem<HD, N, true> {
 };
 
 // The kernel body.  Grid (row_blocks * nsplit, Hkv, B), W warps per block.
+// INT4 (with QUANT): the cache rows and fresh rows are packed in head pairs.
 // Split `split` covers positions [split*chunk, (split+1)*chunk); token t sees
 // positions [0, base + t + 1).  nsplit == 1 writes the normalised output;
 // nsplit > 1 writes (o, m, l) partials that a combine pass merges.
-template <int HD, int N, int W, int MIN_BLOCKS = 1, bool QUANT = false>
+template <int HD, int N, int W, int MIN_BLOCKS = 1, bool QUANT = false, bool INT4 = false>
 __global__ void __launch_bounds__(32 * W, MIN_BLOCKS) attend_kernel(AttnArgs a) {
+  static_assert(QUANT || !INT4, "an int4 cache is a quantized cache");
   constexpr int NT = 32 * W;
   // two stages: the next tile's copy runs while this one is computed
   __shared__ __align__(16) TileSmem<HD, N, QUANT> sm;
@@ -355,7 +409,10 @@ __global__ void __launch_bounds__(32 * W, MIN_BLOCKS) attend_kernel(AttnArgs a) 
   const int rb = blockIdx.x / a.nsplit, split = blockIdx.x % a.nsplit;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t4 = lane & 3;
-  const int G = a.Hq / a.Hkv, GT = G * a.T, K = a.Hkv * HD;
+  const int G = a.Hq / a.Hkv, GT = G * a.T;
+  // a cache row's width and the head's first lane in it
+  const int K = INT4 ? (a.Hkv / 2) * HD : a.Hkv * HD;
+  const int h_lane = INT4 ? (h >> 1) * HD : h * HD;
   const int base = a.base_lens[b];
   const bool fresh = QUANT ? a.kq_new != nullptr : a.k_new != nullptr;
   const int r_block = rb * 16 * W;
@@ -391,8 +448,8 @@ __global__ void __launch_bounds__(32 * W, MIN_BLOCKS) attend_kernel(AttnArgs a) 
   w.m[0] = w.m[1] = kNegInf;
   w.l[0] = w.l[1] = 0.f;
 
-  const size_t kv_off = (((size_t)a.layer * a.B + b) * a.S) * K + (size_t)h * HD;
-  const size_t f_off = (size_t)b * a.T * K + (size_t)h * HD;
+  const size_t kv_off = (((size_t)a.layer * a.B + b) * a.S) * K + h_lane;
+  const size_t f_off = (size_t)b * a.T * K + h_lane;
   const int fresh_at = fresh ? base : a.S;  // first position read from k_new
   const int lim_s[2] = {min(lim[0], hi_s), min(lim[1], hi_s)};
   const __nv_bfloat16* kn = fresh ? a.k_new + f_off : nullptr;
@@ -423,9 +480,14 @@ __global__ void __launch_bounds__(32 * W, MIN_BLOCKS) attend_kernel(AttnArgs a) 
     if (c0 + N < hi_s) issue(stage ^ 1, c0 + N);
     cp_async_commit();
     cp_async_wait<1>();  // all groups but the newest have landed: this stage
-    if constexpr (QUANT) {
+    if constexpr (INT4) {
+      convert_tile_i4<HD, N, NT>(sm.K[0], sm.Kq[stage], (h & 1) * 4);
+      convert_tile_i4<HD, N, NT>(sm.V[0], sm.Vq[stage], (h & 1) * 4);
+    } else if constexpr (QUANT) {
       convert_tile<HD, N, NT>(sm.K[0], sm.Kq[stage]);
       convert_tile<HD, N, NT>(sm.V[0], sm.Vq[stage]);
+    }
+    if constexpr (QUANT) {
       __syncthreads();
       tile_update<HD, N, true>(w, sm.K[0], sm.V[0], c0, lim_s, scale, lane, sm.Ks[stage],
                                sm.Vs[stage]);
@@ -494,6 +556,84 @@ __global__ void combine_kernel(AttnArgs a, int R) {
     a.out[(((size_t)b * a.T + t) * a.Hq + h * G + gq) * HD + d] =
         __float2bfloat16(o / fmaxf(l, 1e-30f));
   }
+}
+
+// ---- host side of the quantized-cache entry points (K1q, K2q, B10, B11) ----
+
+// The entry points' operands of a quantized cache (int8, or int4 packed in
+// head pairs with INT4): q [B, T, Hq, 64] bf16; k/v int8 [L, B, S, K] (K =
+// Hkv*64, or (Hkv/2)*64 packed) with f32 scales [L, B, Hkv, S]; k_new/v_new
+// [B, T, K] and ks_new/vs_new [B, Hkv, T], or all four null; base_lens [B];
+// out [B, T, Hq, 64].  nullptr when the kernels do not take them.  One split
+// (the decode entry points set their split plan after).
+template <bool INT4>
+inline bool quant_args(AttnArgs& a, const void* q, const void* k, const void* v,
+                       const void* k_scale, const void* v_scale, const void* k_new,
+                       const void* v_new, const void* ks_new, const void* vs_new,
+                       const void* base_lens, void* out, int layer, int B, int S, int T,
+                       int Hq, int Hkv, int hd) {
+  if (hd != 64 || (INT4 && Hkv % 2 != 0) || (k_new == nullptr) != (ks_new == nullptr))
+    return false;
+  a = AttnArgs{};  // the bf16 fields stay null
+  a.q = static_cast<const __nv_bfloat16*>(q);
+  a.kq = static_cast<const int8_t*>(k);
+  a.vq = static_cast<const int8_t*>(v);
+  a.k_scale = static_cast<const float*>(k_scale);
+  a.v_scale = static_cast<const float*>(v_scale);
+  a.kq_new = static_cast<const int8_t*>(k_new);
+  a.vq_new = static_cast<const int8_t*>(v_new);
+  a.ks_new = static_cast<const float*>(ks_new);
+  a.vs_new = static_cast<const float*>(vs_new);
+  a.base_lens = static_cast<const int*>(base_lens);
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.layer = layer;
+  a.B = B;
+  a.S = S;
+  a.T = T;
+  a.Hq = Hq;
+  a.Hkv = Hkv;
+  a.nsplit = 1;
+  a.chunk = S;
+  return true;
+}
+
+template <int W, bool INT4>
+void launch_decode_quant(const AttnArgs& a, cudaStream_t stream) {
+  dim3 grid(a.nsplit, a.Hkv, a.B);
+  attend_kernel<64, 32, W, 1, true, INT4><<<grid, 32 * W, 0, stream>>>(a);
+  if (a.nsplit > 1) combine_kernel<64><<<dim3(a.Hkv, a.B), 256, 0, stream>>>(a, 16 * W);
+}
+
+// Decode over a quantized cache: 32-row tiles, one block per (split, kv
+// head, request) of 16 grouped query rows a warp (1 to 8 warps), then the
+// combine pass when a.nsplit > 1.  Returns cudaGetLastError().
+template <bool INT4>
+int decode_attend_quant(const AttnArgs& a, cudaStream_t st) {
+  const int rows = (a.Hq / a.Hkv) * a.T;
+  if (rows <= 16)
+    launch_decode_quant<1, INT4>(a, st);
+  else if (rows <= 32)
+    launch_decode_quant<2, INT4>(a, st);
+  else if (rows <= 64)
+    launch_decode_quant<4, INT4>(a, st);
+  else if (rows <= 128)
+    launch_decode_quant<8, INT4>(a, st);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+// Chunked prefill over a quantized cache: 128 grouped query rows of one
+// (request, kv head) per block, eight warps, 64-row tiles, two resident
+// blocks per SM (16 warps: caps the kernel at 128 registers).  Returns
+// cudaGetLastError().
+template <bool INT4>
+int prefill_attend_quant(const AttnArgs& a, cudaStream_t st) {
+  constexpr int W = 8, N = 64;
+  const int rows = (a.Hq / a.Hkv) * a.T;
+  dim3 grid((rows + 16 * W - 1) / (16 * W), a.Hkv, a.B);
+  attend_kernel<64, N, W, 2, true, INT4><<<grid, 32 * W, 0, st>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace md

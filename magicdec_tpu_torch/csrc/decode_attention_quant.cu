@@ -20,18 +20,6 @@
 // memory costs a write, a read and a barrier per tile beyond K1's.
 #include "attention_common.cuh"
 
-namespace md {
-
-template <int HD, int W>
-static void launch_quant(const AttnArgs& a, cudaStream_t stream) {
-  constexpr int N = 32;
-  dim3 grid(a.nsplit, a.Hkv, a.B);
-  attend_kernel<HD, N, W, 1, true><<<grid, 32 * W, 0, stream>>>(a);
-  if (a.nsplit > 1) combine_kernel<HD><<<dim3(a.Hkv, a.B), 256, 0, stream>>>(a, 16 * W);
-}
-
-}  // namespace md
-
 // As md_decode_attend, with int8 k/v (+ k_new/v_new) and f32 scales
 // k_scale/v_scale [L, B, Hkv, S] (+ ks_new/vs_new [B, Hkv, T]).  Returns
 // cudaGetLastError().
@@ -42,41 +30,13 @@ extern "C" int md_decode_attend_quant(const void* q, const void* k, const void* 
                                       const void* base_lens, void* out, void* part_o,
                                       void* part_ml, int layer, int B, int S, int T, int Hq,
                                       int Hkv, int hd, int nsplit, int chunk, void* stream) {
-  if (hd != 64) return (int)cudaErrorInvalidValue;
-  if ((k_new == nullptr) != (ks_new == nullptr)) return (int)cudaErrorInvalidValue;
-  md::AttnArgs a{};  // the bf16 fields stay null
-  a.q = static_cast<const __nv_bfloat16*>(q);
-  a.kq = static_cast<const int8_t*>(k);
-  a.vq = static_cast<const int8_t*>(v);
-  a.k_scale = static_cast<const float*>(k_scale);
-  a.v_scale = static_cast<const float*>(v_scale);
-  a.kq_new = static_cast<const int8_t*>(k_new);
-  a.vq_new = static_cast<const int8_t*>(v_new);
-  a.ks_new = static_cast<const float*>(ks_new);
-  a.vs_new = static_cast<const float*>(vs_new);
-  a.base_lens = static_cast<const int*>(base_lens);
-  a.out = static_cast<__nv_bfloat16*>(out);
+  md::AttnArgs a;
+  if (!md::quant_args<false>(a, q, k, v, k_scale, v_scale, k_new, v_new, ks_new, vs_new,
+                             base_lens, out, layer, B, S, T, Hq, Hkv, hd))
+    return (int)cudaErrorInvalidValue;
   a.part_o = static_cast<float*>(part_o);
   a.part_ml = static_cast<float*>(part_ml);
-  a.layer = layer;
-  a.B = B;
-  a.S = S;
-  a.T = T;
-  a.Hq = Hq;
-  a.Hkv = Hkv;
   a.nsplit = nsplit;
   a.chunk = chunk;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int rows = (Hq / Hkv) * T;
-  if (rows <= 16)
-    md::launch_quant<64, 1>(a, st);
-  else if (rows <= 32)
-    md::launch_quant<64, 2>(a, st);
-  else if (rows <= 64)
-    md::launch_quant<64, 4>(a, st);
-  else if (rows <= 128)
-    md::launch_quant<64, 8>(a, st);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  return md::decode_attend_quant<false>(a, static_cast<cudaStream_t>(stream));
 }

@@ -25,33 +25,9 @@ extern "C" int md_prefill_attend_quant(const void* q, const void* k, const void*
                                        const void* ks_new, const void* vs_new,
                                        const void* base_lens, void* out, int layer, int B,
                                        int S, int T, int Hq, int Hkv, int hd, void* stream) {
-  constexpr int W = 8, N = 64;
-  if (hd != 64) return (int)cudaErrorInvalidValue;
-  if ((k_new == nullptr) != (ks_new == nullptr)) return (int)cudaErrorInvalidValue;
-  md::AttnArgs a{};  // the bf16 fields stay null
-  a.q = static_cast<const __nv_bfloat16*>(q);
-  a.kq = static_cast<const int8_t*>(k);
-  a.vq = static_cast<const int8_t*>(v);
-  a.k_scale = static_cast<const float*>(k_scale);
-  a.v_scale = static_cast<const float*>(v_scale);
-  a.kq_new = static_cast<const int8_t*>(k_new);
-  a.vq_new = static_cast<const int8_t*>(v_new);
-  a.ks_new = static_cast<const float*>(ks_new);
-  a.vs_new = static_cast<const float*>(vs_new);
-  a.base_lens = static_cast<const int*>(base_lens);
-  a.out = static_cast<__nv_bfloat16*>(out);
-  a.layer = layer;
-  a.B = B;
-  a.S = S;
-  a.T = T;
-  a.Hq = Hq;
-  a.Hkv = Hkv;
-  a.nsplit = 1;
-  a.chunk = S;
-  const int rows = (Hq / Hkv) * T;
-  dim3 grid((rows + 16 * W - 1) / (16 * W), Hkv, B);
-  // two resident blocks per SM (16 warps): caps the kernel at 128 registers
-  md::attend_kernel<64, N, W, 2, true>
-      <<<grid, 32 * W, 0, static_cast<cudaStream_t>(stream)>>>(a);
-  return (int)cudaGetLastError();
+  md::AttnArgs a;
+  if (!md::quant_args<false>(a, q, k, v, k_scale, v_scale, k_new, v_new, ks_new, vs_new,
+                             base_lens, out, layer, B, S, T, Hq, Hkv, hd))
+    return (int)cudaErrorInvalidValue;
+  return md::prefill_attend_quant<false>(a, static_cast<cudaStream_t>(stream));
 }

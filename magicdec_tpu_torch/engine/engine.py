@@ -9,12 +9,12 @@ magicdec_tpu/engine/engine.py ``SpecEngine``).
 - ``encode_baseline`` / ``generate_baseline``  greedy autoregressive decoding.
 
 Greedy acceptance matches the reference exactly (engine/spec.py).  The draft
-shares the target's weights, or under ``draft_quant`` runs an int8 copy of
-them (built once at init; its prefill and decode passes both use it), and
-attends its budget-sized cache, which stays in ``cache_dtype``; the target
-keeps the bf16 weights, and its cache is int8 with per-(token, kv head) f32
-scales under ``kv_quant``.  Target decode and verify passes run at
-``ModelConfig.decode_rows`` = B * (gamma + 1) rows, the autoregressive
+shares the target's weights, or under ``draft_quant`` runs an int8 or int4
+copy of them (built once at init; its prefill and decode passes both use
+it), and attends its budget-sized cache, which stays in ``cache_dtype``; the
+target keeps the bf16 weights, and its cache is int8, or int4 packed in
+kv-head pairs, with per-(token, kv head) f32 scales under ``kv_quant``.
+Target decode and verify passes run at ``ModelConfig.decode_rows`` = B * (gamma + 1) rows, the autoregressive
 step's B rows padded once per pass (``models.llama.pad_rows``), where the
 JAX engine's ``_hinted`` hints its dots: a target row then comes out with
 the same bits at verify and at the autoregressive step, the greedy spec ==
@@ -49,8 +49,7 @@ def kv_quant_bits(kv_quant) -> int:
     if kv_quant is True or kv_quant == "int8":
         return 8
     if kv_quant == "int4":
-        raise NotImplementedError("kv_quant='int4' (head-pair-packed int4 KV) is "
-                                  "ROADMAP item A8")
+        return 4
     raise ValueError(f"kv_quant must be False/True/'int8'/'int4', got {kv_quant!r}")
 
 
@@ -61,8 +60,7 @@ def weight_quant_bits(draft_quant) -> int:
     if draft_quant is True or draft_quant == "int8":
         return 8
     if draft_quant == "int4":
-        raise NotImplementedError("draft_quant='int4' (group-wise int4 weights) is "
-                                  "ROADMAP item A8")
+        return 4
     raise ValueError(f"draft_quant must be False/True/'int8'/'int4', got {draft_quant!r}")
 
 
@@ -79,14 +77,16 @@ class EngineConfig:
     eot_ids: Tuple[int, ...] = (-1,)
     cache_dtype: Any = torch.bfloat16
     kv_quant: Any = False            # False | True/"int8": int8 target cache with
-                                     # per-(token, kv head) scales; the draft
-                                     # cache stays in cache_dtype ("int4": A8)
+                                     # per-(token, kv head) scales | "int4": int4,
+                                     # kv heads packed in pairs, the same scales;
+                                     # the draft cache stays in cache_dtype
     kv_scale_dtype: Any = torch.float32  # the scales' dtype (bf16: A8)
     draft_quant: Any = False         # False | True/"int8": the draft runs an int8
-                                     # per-channel copy of the weights; the target
-                                     # keeps them, so greedy output is unchanged
-                                     # ("int4": A8)
-    draft_quant_head: bool = True    # False: the int8 draft copy shares the
+                                     # per-channel copy of the weights | "int4": a
+                                     # group-wise int4 copy (groups of 128); the
+                                     # target keeps them, so greedy output is
+                                     # unchanged
+    draft_quant_head: bool = True    # False: the quantized draft copy shares the
                                      # target's bf16 lm_head (no copy)
 
 
@@ -109,12 +109,16 @@ class SpecEngine:
         self._kv_bits = kv_quant_bits(ecfg.kv_quant)
         if self._kv_bits and ecfg.kv_scale_dtype != torch.float32:
             raise NotImplementedError(
-                f"kv_scale_dtype {ecfg.kv_scale_dtype}: the port's int8 cache keeps "
+                f"kv_scale_dtype {ecfg.kv_scale_dtype}: the port's quantized caches keep "
                 "float32 scales (bf16 scales are ROADMAP item A8)")
+        if self._kv_bits == 4 and cfg.n_kv_head % 2:
+            raise ValueError(
+                f"kv_quant='int4' packs adjacent kv-head pairs and needs an even kv-head "
+                f"count, got {cfg.n_kv_head}")
         wbits = weight_quant_bits(ecfg.draft_quant)
         self.params = _to_device(M.fuse_exec_params(params, cfg), self.device)
-        # the draft's weights: the target's, or an int8 copy quantized once
-        # on the device, sharing embed, norms and (draft_quant_head=False)
+        # the draft's weights: the target's, or an int8 / int4 copy quantized
+        # once on the device, sharing embed, norms and (draft_quant_head=False)
         # the bf16 head with the target
         self.draft_params = self.params
         if wbits:
@@ -138,11 +142,14 @@ class SpecEngine:
 
     def _zero_target_caches(self, B: int) -> dict:
         """{'k','v'} in cache_dtype, or int8 with zero scales {'ks','vs'}
-        [L, B, Hkv, S] under kv_quant."""
+        [L, B, Hkv, S] under kv_quant; int4 packs kv-head pairs into rows of
+        (Hkv//2)*hd bytes."""
         e, c = self.ecfg, self.cfg
         shape = self._cache_shape(B, e.max_seq_len)
         if not self._kv_bits:
             return {"k": self._zeros(shape), "v": self._zeros(shape)}
+        if self._kv_bits == 4:
+            shape = shape[:-1] + (shape[-1] // 2,)
         sshape = (c.n_layer, B, c.n_kv_head, e.max_seq_len)
         caches = {n: torch.zeros(shape, dtype=torch.int8, device=self.device) for n in "kv"}
         caches.update({n: torch.zeros(sshape, dtype=e.kv_scale_dtype, device=self.device)

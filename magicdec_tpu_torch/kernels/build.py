@@ -42,6 +42,9 @@ SIGNATURES = {
     "md_quant_matmul": [_P] * 8 + [_I] * 5 + [_F, _P],
     "md_quant_layer_tail": [_P] * 14 + [_I] * 7 + [_F, _P],
     "md_quant_mlp": [_P] * 11 + [_I] * 5 + [_F, _P],
+    "md_decode_attend_quant4": [_P] * 13 + [_I] * 9 + [_P],
+    "md_prefill_attend_quant4": [_P] * 11 + [_I] * 7 + [_P],
+    "md_quant_matmul_int4": [_P] * 6 + [_I] * 6 + [_P],
 }
 
 _lock = threading.Lock()

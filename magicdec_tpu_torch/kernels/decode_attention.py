@@ -1,14 +1,17 @@
-"""K1 and K1q: flash decode / verify attention (CUDA,
-``csrc/decode_attention.cu`` and ``csrc/decode_attention_quant.cu``).
+"""K1, K1q and B10: flash decode / verify attention (CUDA,
+``csrc/decode_attention.cu``, ``csrc/decode_attention_quant.cu`` and
+``csrc/decode_attention_quant4.cu``).
 
 K1 replaces magicdec_tpu/ops/pallas/decode_attention.py
 ``flash_decode_attend`` (both ``_decode_kernel`` and ``_whole_row_kernel``);
 K1q replaces ``flash_decode_attend_quant`` (``_decode_quant_kernel``) over
-an int8 cache with per-(token, kv head) f32 scales.  Bound on the card: HBM
+an int8 cache with per-(token, kv head) f32 scales; B10 replaces
+``flash_decode_attend_quant4`` (``_decode_quant4_kernel``) over an int4
+cache packed in head pairs with the same scales.  Bound on the card: HBM
 bytes (each visible K/V row is read once and feeds only G*T query rows;
-int8 rows halve them).  Both split each (request, kv head)'s KV rows over
-several blocks and merge their softmax partials in a second pass — see the
-sources for the design.
+int8 rows halve them, int4 rows quarter them).  All split each (request, kv
+head)'s KV rows over several blocks and merge their softmax partials in a
+second pass — see the sources for the design.
 """
 
 from __future__ import annotations
@@ -118,8 +121,9 @@ flash_decode_attend.launches = 0
 
 
 def visible_layer_quant(cache, scale, layer, rows, srows, base_lens):
-    """Layer ``layer`` of an int8 cache and its scales, with the fresh rows
-    and their scales written at base_lens (into copies)."""
+    """Layer ``layer`` of a quantized cache (int8 or packed int4) and its
+    scales, with the fresh rows and their scales written at base_lens (into
+    copies)."""
     c, s = cache[layer], scale[layer]
     if rows is not None:
         c, s = c.clone(), s.clone()
@@ -132,8 +136,9 @@ def visible_layer_quant(cache, scale, layer, rows, srows, base_lens):
 def flash_decode_attend_quant_plain(q, k_cache, k_scale, v_cache, v_scale, base_lens, *,
                                     layer=0, k_new=None, v_new=None, ks_new=None,
                                     vs_new=None):
-    """Plain version: dequantize the layer with the fresh rows appended, then
-    attend one query token at a time, as ``flash_decode_attend_plain``."""
+    """Plain version: dequantize the layer (int8 or packed int4) with the
+    fresh rows appended, then attend one query token at a time, as
+    ``flash_decode_attend_plain``."""
     hd = q.shape[-1]
     kc = dequant_kv(*visible_layer_quant(k_cache, k_scale, layer, k_new, ks_new, base_lens), hd)
     vc = dequant_kv(*visible_layer_quant(v_cache, v_scale, layer, v_new, vs_new, base_lens), hd)
@@ -143,13 +148,19 @@ def flash_decode_attend_quant_plain(q, k_cache, k_scale, v_cache, v_scale, base_
 
 
 def check_quant_operands(q, k_cache, k_scale, v_cache, v_scale, k_new, v_new, ks_new,
-                         vs_new):
-    """Shapes, types and layouts the int8 attention kernels take (K1q, K2q);
-    returns the fresh operands made contiguous (None when absent)."""
+                         vs_new, *, packed=False):
+    """Shapes, types and layouts the quantized attention kernels take (K1q,
+    K2q; ``packed``: the int4 B10, B11).  Hkv comes from the scales: a
+    packed row is (Hkv//2)*hd bytes wide.  Returns Hkv and the fresh operands
+    made contiguous (None when absent)."""
     B, T, Hq, hd = q.shape
     L, Bc, S, K = k_cache.shape
-    Hkv = K // hd
-    require(Bc == B and Hkv * hd == K and Hq % Hkv == 0, "shape mismatch")
+    require(k_scale.dim() == 4, f"scales {tuple(k_scale.shape)} must be [L, B, Hkv, S]")
+    Hkv = k_scale.shape[2]
+    want = (Hkv // 2) * hd if packed else Hkv * hd
+    require(Bc == B and K == want and Hkv >= 1 and Hq % Hkv == 0
+            and not (packed and Hkv % 2), "shape mismatch"
+            + (" (an int4 cache packs an even kv-head count in pairs)" if packed else ""))
     require(v_cache.shape == k_cache.shape, "k and v caches differ in shape")
     require(k_scale.shape == (L, B, Hkv, S) and v_scale.shape == k_scale.shape,
             f"scales {tuple(k_scale.shape)} do not match the cache {tuple(k_cache.shape)}")
@@ -160,7 +171,7 @@ def check_quant_operands(q, k_cache, k_scale, v_cache, v_scale, k_new, v_new, ks
             "caches and scales must be contiguous")
     require_bf16(q)
     if k_new is None:
-        return None, None, None, None
+        return Hkv, (None, None, None, None)
     require(ks_new is not None and vs_new is not None, "fresh rows need their scales")
     k_new = k_new.reshape(B, T, K).contiguous()
     v_new = v_new.reshape(B, T, K).contiguous()
@@ -169,7 +180,35 @@ def check_quant_operands(q, k_cache, k_scale, v_cache, v_scale, k_new, v_new, ks
     require(k_new.dtype == v_new.dtype == torch.int8
             and ks_new.dtype == vs_new.dtype == torch.float32,
             "fresh rows must be int8 with float32 scales")
-    return k_new, v_new, ks_new, vs_new
+    return Hkv, (k_new, v_new, ks_new, vs_new)
+
+
+def _launch_decode_quant(entry, q, k_cache, k_scale, v_cache, v_scale, base_lens, layer,
+                         fresh, packed):
+    """One launch of K1q (``md_decode_attend_quant``) or B10
+    (``md_decode_attend_quant4``); returns the output."""
+    from magicdec_tpu_torch.kernels import build
+
+    B, T, Hq, hd = q.shape
+    L, _, S, _ = k_cache.shape
+    require(0 <= layer < L and 1 <= T <= 16, "bad layer or window length")
+    Hkv, (k_new, v_new, ks_new, vs_new) = check_quant_operands(
+        q, k_cache, k_scale, v_cache, v_scale, *fresh, packed=packed)
+    q = q.contiguous()
+    lens = base_lens.to(torch.int32).contiguous()
+    out = torch.empty_like(q)
+    nsplit, chunk = split_plan(B, Hkv, S)
+    R = rows_pad(Hq // Hkv * T)
+    part_o = part_ml = None
+    if nsplit > 1:
+        part_o = torch.empty((B, Hkv, nsplit, R, hd), dtype=torch.float32, device=q.device)
+        part_ml = torch.empty((B, Hkv, nsplit, R, 2), dtype=torch.float32, device=q.device)
+    err = getattr(build.library(), entry)(
+        ptr(q), ptr(k_cache), ptr(v_cache), ptr(k_scale), ptr(v_scale), ptr(k_new),
+        ptr(v_new), ptr(ks_new), ptr(vs_new), ptr(lens), ptr(out), ptr(part_o),
+        ptr(part_ml), layer, B, S, T, Hq, Hkv, hd, nsplit, chunk, build.stream_ptr(q))
+    build.check(err, entry)
+    return out
 
 
 def flash_decode_attend_quant(q, k_cache, k_scale, v_cache, v_scale, base_lens, *,
@@ -186,30 +225,39 @@ def flash_decode_attend_quant(q, k_cache, k_scale, v_cache, v_scale, base_lens, 
         return flash_decode_attend_quant_plain(
             q, k_cache, k_scale, v_cache, v_scale, base_lens, layer=layer,
             k_new=k_new, v_new=v_new, ks_new=ks_new, vs_new=vs_new)
-    from magicdec_tpu_torch.kernels import build
-
-    B, T, Hq, hd = q.shape
-    L, _, S, K = k_cache.shape
-    Hkv = K // hd
-    require(0 <= layer < L and 1 <= T <= 16, "bad layer or window length")
-    k_new, v_new, ks_new, vs_new = check_quant_operands(
-        q, k_cache, k_scale, v_cache, v_scale, k_new, v_new, ks_new, vs_new)
-    q = q.contiguous()
-    lens = base_lens.to(torch.int32).contiguous()
-    out = torch.empty_like(q)
-    nsplit, chunk = split_plan(B, Hkv, S)
-    R = rows_pad(Hq // Hkv * T)
-    part_o = part_ml = None
-    if nsplit > 1:
-        part_o = torch.empty((B, Hkv, nsplit, R, hd), dtype=torch.float32, device=q.device)
-        part_ml = torch.empty((B, Hkv, nsplit, R, 2), dtype=torch.float32, device=q.device)
-    err = build.library().md_decode_attend_quant(
-        ptr(q), ptr(k_cache), ptr(v_cache), ptr(k_scale), ptr(v_scale), ptr(k_new),
-        ptr(v_new), ptr(ks_new), ptr(vs_new), ptr(lens), ptr(out), ptr(part_o),
-        ptr(part_ml), layer, B, S, T, Hq, Hkv, hd, nsplit, chunk, build.stream_ptr(q))
-    build.check(err, "md_decode_attend_quant")
+    out = _launch_decode_quant("md_decode_attend_quant", q, k_cache, k_scale, v_cache,
+                               v_scale, base_lens, layer, (k_new, v_new, ks_new, vs_new),
+                               packed=False)
     flash_decode_attend_quant.launches += 1
     return out
 
 
 flash_decode_attend_quant.launches = 0
+
+# The plain versions dequantize by dequant_kv, which reads either layout.
+flash_decode_attend_quant4_plain = flash_decode_attend_quant_plain
+
+
+def flash_decode_attend_quant4(q, k_cache, k_scale, v_cache, v_scale, base_lens, *,
+                               layer=0, k_new=None, v_new=None, ks_new=None, vs_new=None):
+    """B10: ``flash_decode_attend_quant`` over an int4 cache packed in head
+    pairs (``ops.kv_cache.quantize_kv_tokens_int4``).
+
+    q [B, T, Hq, hd] bf16 (T <= 16); k_cache/v_cache int8 [L, B, S,
+    (Hkv//2)*hd]; k_scale/v_scale f32 [L, B, Hkv, S]; base_lens [B] int32;
+    k_new/v_new packed int8 [B, T, (Hkv//2)*hd] with ks_new/vs_new f32
+    [B, Hkv, T].  Returns [B, T, Hq, hd] in q.dtype.
+    """
+    if on_cpu(q, k_cache, k_scale, v_cache, v_scale, base_lens, k_new, v_new, ks_new,
+              vs_new):
+        return flash_decode_attend_quant4_plain(
+            q, k_cache, k_scale, v_cache, v_scale, base_lens, layer=layer,
+            k_new=k_new, v_new=v_new, ks_new=ks_new, vs_new=vs_new)
+    out = _launch_decode_quant("md_decode_attend_quant4", q, k_cache, k_scale, v_cache,
+                               v_scale, base_lens, layer, (k_new, v_new, ks_new, vs_new),
+                               packed=True)
+    flash_decode_attend_quant4.launches += 1
+    return out
+
+
+flash_decode_attend_quant4.launches = 0

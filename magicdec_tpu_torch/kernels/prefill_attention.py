@@ -1,11 +1,14 @@
-"""K2 and K2q: chunked-prefill flash attention (CUDA,
-``csrc/prefill_attention.cu`` and ``csrc/prefill_attention_quant.cu``).
+"""K2, K2q and B11: chunked-prefill flash attention (CUDA,
+``csrc/prefill_attention.cu``, ``csrc/prefill_attention_quant.cu`` and
+``csrc/prefill_attention_quant4.cu``).
 
 K2 replaces magicdec_tpu/ops/pallas/prefill_attention.py
 ``flash_prefill_attend`` (``_prefill_kernel``); K2q replaces
 ``flash_prefill_attend_quant`` (``_prefill_quant_kernel``) over an int8
-cache with per-(token, kv head) f32 scales.  Bound on the card:
-tensor-core operations; both run their two products on ``mma.sync`` with
+cache with per-(token, kv head) f32 scales; B11 replaces
+``flash_prefill_attend_quant4`` (``_prefill_quant4_kernel``) over an int4
+cache packed in head pairs.  Bound on the card:
+tensor-core operations; all run their two products on ``mma.sync`` with
 fp32 accumulators — see the sources for the design.
 """
 
@@ -81,8 +84,8 @@ flash_prefill_attend.launches = 0
 def flash_prefill_attend_quant_plain(q, k_cache, k_scale, v_cache, v_scale, base_lens, *,
                                      layer=0, k_new=None, v_new=None, ks_new=None,
                                      vs_new=None):
-    """Plain version: per request, ``attend_quant`` over the layer with the
-    chunk's fresh rows appended."""
+    """Plain version: per request, ``attend_quant`` over the layer (int8 or
+    packed int4) with the chunk's fresh rows appended."""
     fresh = k_new is not None
     outs = []
     for b in range(q.shape[0]):
@@ -96,6 +99,28 @@ def flash_prefill_attend_quant_plain(q, k_cache, k_scale, v_cache, v_scale, base
                                  vs_new[one] if fresh else None, lens)
         outs.append(attend_quant(q[one], kc[0], kc[1], vc[0], vc[1], lens))
     return torch.cat(outs, dim=0)
+
+
+def _launch_prefill_quant(entry, q, k_cache, k_scale, v_cache, v_scale, base_lens, layer,
+                          fresh, packed):
+    """One launch of K2q (``md_prefill_attend_quant``) or B11
+    (``md_prefill_attend_quant4``); returns the output."""
+    from magicdec_tpu_torch.kernels import build
+
+    B, C, Hq, hd = q.shape
+    L, _, S, _ = k_cache.shape
+    require(0 <= layer < L, "bad layer")
+    Hkv, (k_new, v_new, ks_new, vs_new) = check_quant_operands(
+        q, k_cache, k_scale, v_cache, v_scale, *fresh, packed=packed)
+    q = q.contiguous()
+    lens = base_lens.to(torch.int32).contiguous()
+    out = torch.empty_like(q)
+    err = getattr(build.library(), entry)(
+        ptr(q), ptr(k_cache), ptr(v_cache), ptr(k_scale), ptr(v_scale), ptr(k_new),
+        ptr(v_new), ptr(ks_new), ptr(vs_new), ptr(lens), ptr(out),
+        layer, B, S, C, Hq, Hkv, hd, build.stream_ptr(q))
+    build.check(err, entry)
+    return out
 
 
 def flash_prefill_attend_quant(q, k_cache, k_scale, v_cache, v_scale, base_lens, *,
@@ -112,23 +137,34 @@ def flash_prefill_attend_quant(q, k_cache, k_scale, v_cache, v_scale, base_lens,
         return flash_prefill_attend_quant_plain(
             q, k_cache, k_scale, v_cache, v_scale, base_lens, layer=layer,
             k_new=k_new, v_new=v_new, ks_new=ks_new, vs_new=vs_new)
-    from magicdec_tpu_torch.kernels import build
-
-    B, C, Hq, hd = q.shape
-    L, _, S, K = k_cache.shape
-    require(0 <= layer < L, "bad layer")
-    k_new, v_new, ks_new, vs_new = check_quant_operands(
-        q, k_cache, k_scale, v_cache, v_scale, k_new, v_new, ks_new, vs_new)
-    q = q.contiguous()
-    lens = base_lens.to(torch.int32).contiguous()
-    out = torch.empty_like(q)
-    err = build.library().md_prefill_attend_quant(
-        ptr(q), ptr(k_cache), ptr(v_cache), ptr(k_scale), ptr(v_scale), ptr(k_new),
-        ptr(v_new), ptr(ks_new), ptr(vs_new), ptr(lens), ptr(out),
-        layer, B, S, C, Hq, K // hd, hd, build.stream_ptr(q))
-    build.check(err, "md_prefill_attend_quant")
+    out = _launch_prefill_quant("md_prefill_attend_quant", q, k_cache, k_scale, v_cache,
+                                v_scale, base_lens, layer, (k_new, v_new, ks_new, vs_new),
+                                packed=False)
     flash_prefill_attend_quant.launches += 1
     return out
 
 
 flash_prefill_attend_quant.launches = 0
+
+# The plain version dequantizes by dequant_kv, which reads either layout.
+flash_prefill_attend_quant4_plain = flash_prefill_attend_quant_plain
+
+
+def flash_prefill_attend_quant4(q, k_cache, k_scale, v_cache, v_scale, base_lens, *,
+                                layer=0, k_new=None, v_new=None, ks_new=None, vs_new=None):
+    """B11: ``flash_prefill_attend_quant`` over an int4 cache packed in head
+    pairs: k_cache/v_cache int8 [L, B, S, (Hkv//2)*hd], k_new/v_new packed
+    int8 [B, C, (Hkv//2)*hd]; the rest as ``flash_prefill_attend_quant``."""
+    if on_cpu(q, k_cache, k_scale, v_cache, v_scale, base_lens, k_new, v_new, ks_new,
+              vs_new):
+        return flash_prefill_attend_quant4_plain(
+            q, k_cache, k_scale, v_cache, v_scale, base_lens, layer=layer,
+            k_new=k_new, v_new=v_new, ks_new=ks_new, vs_new=vs_new)
+    out = _launch_prefill_quant("md_prefill_attend_quant4", q, k_cache, k_scale, v_cache,
+                                v_scale, base_lens, layer, (k_new, v_new, ks_new, vs_new),
+                                packed=True)
+    flash_prefill_attend_quant4.launches += 1
+    return out
+
+
+flash_prefill_attend_quant4.launches = 0

@@ -1,5 +1,5 @@
-"""B4, B5, B6, B9: the int8 weight-only dots of the draft's weight copy
-(CUDA, ``csrc/quant_matmul.cu``).
+"""B4, B5, B6, B9: the int8 weight-only dots of the draft's weight copy, and
+B4-int4, B6-int4: its group-wise int4 dots (CUDA, ``csrc/quant_matmul.cu``).
 
 B4 ``quant_matmul_fused`` replaces magicdec_tpu/ops/pallas/quant_matmul.py
 ``quant_matmul_fused_pallas`` (``_fused_kernel``, int8): x @ (q * scale)
@@ -20,6 +20,15 @@ the norm is ``bf16(xf * rsqrt(mean(xf^2) + eps)) * bf16(norm_w)``; the gate
 rounds g and u to bf16 and returns bf16(g * sigmoid(g) * u); a residual is
 added in bf16.  Bound on the card: the weight's HBM bytes (see the source
 for the design).
+
+The int4 dots replace the nibble-plane branches of the same Pallas calls:
+``quant_matmul_fused_int4`` (B4-int4, ``_fused_kernel`` with bits=4: the
+gate or residual epilogue, never the norm, which the reference applies
+outside) and ``quant_matmul_int4`` (B6-int4, ``_int4_kernel``).  q is packed
+int8 [In/2, Out] (contraction rows 2r and 2r+1 in the low and high nibble of
+row r, ``quantization.pack_int4``) with f32 scales [In/group, Out].
+Numerics: acc = sum over groups g in order of f32(x_g @ q_g) * s_g, then
+one bf16 cast and B4's epilogue.
 """
 
 from __future__ import annotations
@@ -30,14 +39,17 @@ from magicdec_tpu_torch.kernels import on_cpu, ptr, require, require_bf16
 from magicdec_tpu_torch.ops.norm import rms_norm
 
 BN, BK = 128, 64      # output columns per block, contraction rows per stage
+BK4 = 128             # contraction rows per int4 stage (64 packed rows)
 TARGET_BLOCKS = 132   # one block per SM of the H100 before splitting further
 
 
-def split_plan(In: int, Out: int) -> int:
-    """Contraction splits of one dot: enough that Out / BN column blocks
-    times the splits fill the card's 132 SMs, no split empty.  Fixed by the
-    weight's shape alone, so a row's sums run in the same order at every M."""
-    tiles = In // BK
+def split_plan(In: int, Out: int, unit: int = BK) -> int:
+    """Contraction splits of one dot, cut in units of ``unit`` rows (an int4
+    dot's max(group, BK4): every split starts on a group boundary): enough
+    that Out / BN column blocks times the splits fill the card's 132 SMs,
+    no split empty.  Fixed by the weight's shape alone, so a row's sums run
+    in the same order at every M."""
+    tiles = In // unit
     want = max(1, min(tiles, -(-TARGET_BLOCKS // max(1, Out // BN))))
     per = -(-tiles // want)
     return -(-tiles // per)
@@ -45,6 +57,34 @@ def split_plan(In: int, Out: int) -> int:
 
 def _scaled(x, q, scale):
     return (x.to(torch.float32) @ q.to(torch.float32)) * scale.reshape(-1).to(torch.float32)
+
+
+def _scaled_int4(x, q, scale):
+    """sum over groups g, in order, of f32(x_g @ q_g) * s_g: q packed
+    [In/2, Out], scale [G, Out]."""
+    from magicdec_tpu_torch.quantization import unpack_int4
+
+    qf = unpack_int4(q).to(torch.float32)
+    G = scale.shape[-2]
+    gs = qf.shape[0] // G
+    xf = x.to(torch.float32)
+    sf = scale.reshape(G, -1).to(torch.float32)
+    acc = torch.zeros((x.shape[0], qf.shape[1]), dtype=torch.float32, device=x.device)
+    for g in range(G):
+        acc += (xf[:, g * gs:(g + 1) * gs] @ qf[g * gs:(g + 1) * gs]) * sf[g]
+    return acc
+
+
+def _epilogue(acc, dtype, res, gate):
+    """B4's finish of the f32 sums: the SiLU gate of the bf16-rounded gate
+    and up halves, or bf16(acc) plus a residual added in bf16."""
+    if gate:
+        F = acc.shape[-1] // 2
+        g = acc[..., :F].to(dtype).to(torch.float32)
+        u = acc[..., F:].to(dtype).to(torch.float32)
+        return (g * torch.sigmoid(g) * u).to(dtype)
+    y = acc.to(dtype)
+    return y if res is None else y + res
 
 
 def quant_matmul_plain(x, q, scale):
@@ -56,14 +96,17 @@ def quant_matmul_fused_plain(x, q, scale, norm_w=None, res=None, *, gate=False, 
     """Plain version of B4 (see the module docstring for its rounding)."""
     if norm_w is not None:
         x = rms_norm(x, norm_w.to(x.dtype), eps)
-    acc = _scaled(x, q, scale)
-    if gate:
-        F = acc.shape[-1] // 2
-        g = acc[..., :F].to(x.dtype).to(torch.float32)
-        u = acc[..., F:].to(x.dtype).to(torch.float32)
-        return (g * torch.sigmoid(g) * u).to(x.dtype)
-    y = acc.to(x.dtype)
-    return y if res is None else y + res
+    return _epilogue(_scaled(x, q, scale), x.dtype, res, gate)
+
+
+def quant_matmul_int4_plain(x, q, scale):
+    """Plain version of B6-int4: bf16 of the group-wise f32 sums."""
+    return _scaled_int4(x, q, scale).to(x.dtype)
+
+
+def quant_matmul_fused_int4_plain(x, q, scale, res=None, *, gate=False):
+    """Plain version of B4-int4: B4's epilogue on the group-wise sums."""
+    return _epilogue(_scaled_int4(x, q, scale), x.dtype, res, gate)
 
 
 def quant_mlp_plain(x, q13, s13, q2, s2, norm_w, res=None, *, eps):
@@ -222,3 +265,67 @@ def quant_layer_tail(a, x, qo, so, q13, s13, q2, s2, norm_w, *, eps):
 
 
 quant_layer_tail.launches = 0
+
+
+def _launch_dot_int4(x, q, scale, res=None, gate=False, what=""):
+    from magicdec_tpu_torch.kernels import build
+
+    x = x.contiguous()
+    require_bf16(x, res)
+    require(x.dim() == 2 and q.dim() == 2 and scale.dim() == 2,
+            f"{what}: x [M, In], packed q [In/2, Out] and scale [G, Out] are 2-D")
+    M, In = x.shape
+    Out = q.shape[1]
+    G = scale.shape[0]
+    require(q.shape[0] * 2 == In and M >= 1,
+            f"{what}: x {tuple(x.shape)} and packed q {tuple(q.shape)}")
+    require(q.dtype == torch.int8 and q.is_contiguous(), f"{what}: q must be contiguous int8")
+    require(scale.dtype == torch.float32 and scale.shape[1] == Out and G >= 1 and In % G == 0,
+            f"{what}: float32 scales [G, {Out}] with G dividing {In}, got {tuple(scale.shape)}")
+    group = In // G
+    require(group >= 32 and group & (group - 1) == 0 and In % max(group, BK4) == 0
+            and Out % BN == 0,
+            f"{what}: the kernel takes a power-of-two group >= 32, In % max(group, {BK4}) == 0 "
+            f"and Out % {BN} == 0, got group {group}, In {In}, Out {Out}")
+    Fo = Out // 2 if gate else Out
+    if res is not None:
+        require(res.shape == (M, Out), f"{what}: residual {tuple(res.shape)}, not {(M, Out)}")
+        res = res.contiguous()
+    split = split_plan(In, Out, max(group, BK4))
+    dev = x.device
+    out = torch.empty((M, Fo), dtype=torch.bfloat16, device=dev)
+    part = (torch.empty((split, M, Out), dtype=torch.float32, device=dev)
+            if split > 1 or gate else None)
+    err = build.library().md_quant_matmul_int4(
+        ptr(x), ptr(q), ptr(scale.contiguous()), ptr(res), ptr(out), ptr(part),
+        M, In, Out, int(gate), split, group, build.stream_ptr(x))
+    build.check(err, "md_quant_matmul_int4")
+    return out
+
+
+def quant_matmul_int4(x, q, scale):
+    """B6-int4: x [M, In] @ dequant(q packed int4 [In/2, Out], scale f32
+    [In/group, Out]) -> [M, Out]."""
+    if on_cpu(x, q, scale):
+        return quant_matmul_int4_plain(x, q, scale)
+    out = _launch_dot_int4(x, q, scale, what="quant_matmul_int4")
+    quant_matmul_int4.launches += 1
+    return out
+
+
+quant_matmul_int4.launches = 0
+
+
+def quant_matmul_fused_int4(x, q, scale, res=None, *, gate=False):
+    """B4-int4: ``quant_matmul_int4`` with either the SiLU gate over q's
+    gate|up halves (``gate``: q [In/2, 2F], returns [M, F]) or a residual
+    ``res`` [M, Out] added, or neither (the caller norms x first)."""
+    require(not (gate and res is not None), "the gate and the residual do not combine")
+    if on_cpu(x, q, scale, res):
+        return quant_matmul_fused_int4_plain(x, q, scale, res, gate=gate)
+    out = _launch_dot_int4(x, q, scale, res, gate, what="quant_matmul_fused_int4")
+    quant_matmul_fused_int4.launches += 1
+    return out
+
+
+quant_matmul_fused_int4.launches = 0

@@ -13,14 +13,16 @@ The JAX ``lax.scan`` over layers is a Python loop over the stacked weights.
 Target and draft decode passes read the stacked caches ``[L, B, S, K]``
 without writing them: each layer attends its new KV as fresh-row operands of
 the attention kernel, and ONE in-place append after the loop writes every
-layer's rows (``kernels/append.py``).  A target cache may be int8 with
-per-(token, kv head) scales {'ks', 'vs'} (``EngineConfig.kv_quant``): its
-new rows are quantized once and the same rows are attended and appended.  The bf16 dense dots are
+layer's rows (``kernels/append.py``).  A target cache may be int8, or int4
+packed in head pairs, with per-(token, kv head) scales {'ks', 'vs'}
+(``EngineConfig.kv_quant``): its new rows are quantized once and the same
+rows are attended and appended.  The bf16 dense dots are
 ``torch.matmul`` (the reference leaves them to XLA).  A weight may be an
-int8 ``quantization.QuantizedWeight`` (the draft's weight copy,
-``EngineConfig.draft_quant``): ``matmul`` dispatches on it, the attention
-norm rides the wqkv dot (B4), and draft decode passes run each layer's tail
-as one B5 call and the int8 head as B6.
+int8 or int4 ``quantization.QuantizedWeight`` (the draft's weight copy,
+``EngineConfig.draft_quant``): ``matmul`` dispatches on it; with int8 the
+attention norm rides the wqkv dot (B4), draft decode passes run each
+layer's tail as one B5 call and the head as B6; with int4 every dot is
+B4-int4 (the norms run first) and the head B6-int4.
 """
 
 from __future__ import annotations
@@ -35,7 +37,8 @@ from magicdec_tpu_torch import quantization as Q
 from magicdec_tpu_torch.config import ModelConfig
 from magicdec_tpu_torch.kernels.append import append_all_rows_inplace
 from magicdec_tpu_torch.ops import attention as attn_ops
-from magicdec_tpu_torch.ops.kv_cache import quantize_kv_tokens
+from magicdec_tpu_torch.ops.kv_cache import (is_packed_int4, quantize_kv_tokens,
+                                             quantize_kv_tokens_int4)
 from magicdec_tpu_torch.ops.norm import rms_norm
 from magicdec_tpu_torch.ops.rope import (apply_rope, apply_rope_cs, rope_cos_sin,
                                          rope_inv_freq)
@@ -134,14 +137,19 @@ def _layer_tail(x, out, wl, cfg: ModelConfig, *, mega: bool = False):
 def fuse_exec_params(params: Params, cfg: ModelConfig) -> Params:
     """wq|wk|wv -> wqkv and w1|w3 -> w13, concatenated on the output axis:
     one QKV dot and one gate/up dot per layer.  Bit-identical (each output
-    column contracts independently); int8 weights concatenate their data
-    and their per-column scales.  Idempotent."""
+    column contracts independently); quantized weights concatenate their
+    data and their scales ([..., G, Out]: the groups tile the shared
+    contraction axis) and must share bits and group size.  Idempotent."""
     L = dict(params["layers"])
     if "wqkv" in L or "w13" in L:
         return params
 
     def cat(*ws):
         if any(Q.is_quantized(w) for w in ws):
+            w0 = ws[0]
+            if not all(Q.is_quantized(w) and (w.bits, w.group_size, w.scale.shape[-2])
+                       == (w0.bits, w0.group_size, w0.scale.shape[-2]) for w in ws):
+                raise ValueError("fusing quantized weights needs one quantization config")
             return Q.QuantizedWeight(torch.cat([w.q for w in ws], dim=-1),
                                      torch.cat([w.scale for w in ws], dim=-1),
                                      ws[0].bits, ws[0].group_size)
@@ -186,12 +194,16 @@ def _attn_project(x, wl, cfg, B, T, cs_q, cs_k):
 
 def _kv_rows(k, v, caches, prefix=""):
     """The layer's new KV in the cache's at-rest format (the dense cache
-    dtype, or int8 data + per-(token, head) scales): these exact rows are
-    both the kernel's fresh operands and what the post-loop append writes."""
+    dtype, or int8 data, or int4 packed in head pairs when the cache's rows
+    are (Hkv//2)*hd wide, with per-(token, head) scales): these exact rows
+    are both the kernel's fresh operands and what the post-loop append
+    writes."""
     sc = caches.get(prefix + "ks")
     if sc is not None:
-        kq, ksn = quantize_kv_tokens(k, scale_dtype=sc.dtype)
-        vq, vsn = quantize_kv_tokens(v, scale_dtype=sc.dtype)
+        qz = (quantize_kv_tokens_int4 if is_packed_int4(caches[prefix + "k"], sc, k.shape[-1])
+              else quantize_kv_tokens)
+        kq, ksn = qz(k, scale_dtype=sc.dtype)
+        vq, vsn = qz(v, scale_dtype=sc.dtype)
         return {"k": kq, "v": vq, "ks": ksn, "vs": vsn}
     B, T = k.shape[:2]
     dt = caches[prefix + "k"].dtype

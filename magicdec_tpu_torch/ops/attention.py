@@ -3,9 +3,9 @@ magicdec_tpu/ops/attention.py).
 
 ``attend`` is the plain numerics oracle: ragged per-request lengths, causal
 masking aligned so the END of the query window meets the end of the visible
-KV, GQA, fp32 softmax; ``attend_quant`` is its int8-cache counterpart
+KV, GQA, fp32 softmax; ``attend_quant`` is its quantized-cache counterpart
 (dequantize, then attend).  ``attend_cache`` dispatches a layer of the
-stacked ``[L, B, S, Hkv*hd]`` caches (bf16, or int8 with scales) to the
+stacked ``[L, B, S, K]`` caches (bf16, or int8 or packed int4 with scales) to the
 Hopper kernels: the decode kernel for small windows (T <= 16), the prefill
 kernel for chunks.
 """
@@ -51,8 +51,9 @@ def attend(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
 
 
 def attend_quant(q, k_cache, k_scale, v_cache, v_scale, base_lens) -> torch.Tensor:
-    """``attend`` over int8 caches [B, S, Hkv*hd] with per-(token, head)
-    scales [B, Hkv, S]: dequantize to float32, then attend."""
+    """``attend`` over quantized caches (int8 [B, S, Hkv*hd], or int4
+    head-pair-packed [B, S, (Hkv//2)*hd]) with per-(token, head) scales
+    [B, Hkv, S]: dequantize to float32, then attend."""
     from magicdec_tpu_torch.ops.kv_cache import dequant_kv
 
     hd = q.shape[-1]
@@ -65,26 +66,32 @@ def attend_cache(q, caches, base_lens, *, layer: int, prefix: str = "",
     """Causal attention over layer ``layer`` of the stacked caches.
 
     caches: {'k', 'v'} (``prefix`` renames them: the draft cache is
-    {'dk', 'dv'}) with tensors [L, B, S, Hkv*hd]; an int8 cache also holds
-    its scales {'ks', 'vs'} [L, B, Hkv, S].  The kernels take the whole
+    {'dk', 'dv'}) with tensors [L, B, S, Hkv*hd]; a quantized cache also
+    holds its scales {'ks', 'vs'} [L, B, Hkv, S], and is int4 packed in head
+    pairs when its rows are (Hkv//2)*hd wide (Hkv from the scales, as in the
+    JAX package).  The kernels take the whole
     stacked cache and the layer index: no [B, S, K] slice is copied.
     ``fresh``: the rows of the T window tokens when the cache does not hold
-    them yet, in the cache's at-rest format ({'k', 'v'} [B, T, Hkv*hd], plus
-    {'ks', 'vs'} [B, Hkv, T] for an int8 cache); the caller appends these
+    them yet, in the cache's at-rest format ({'k', 'v'} [B, T, K], plus
+    {'ks', 'vs'} [B, Hkv, T] for a quantized cache); the caller appends these
     exact rows after the layer loop, so attending them as fresh operands
     equals attending the appended cache.
     """
     from magicdec_tpu_torch.kernels import decode_attention as DA
     from magicdec_tpu_torch.kernels import prefill_attention as PA
+    from magicdec_tpu_torch.ops.kv_cache import is_packed_int4
 
     decode = q.shape[1] <= DECODE_MAX_T
     k, v = caches[prefix + "k"], caches[prefix + "v"]
-    if caches.get(prefix + "ks") is not None:
+    ks = caches.get(prefix + "ks")
+    if ks is not None:
         fresh_kw = {} if fresh is None else dict(
             k_new=fresh["k"], v_new=fresh["v"], ks_new=fresh["ks"], vs_new=fresh["vs"])
-        fn = DA.flash_decode_attend_quant if decode else PA.flash_prefill_attend_quant
-        return fn(q, k, caches[prefix + "ks"], v, caches[prefix + "vs"], base_lens,
-                  layer=layer, **fresh_kw)
+        if is_packed_int4(k, ks, q.shape[-1]):
+            fn = DA.flash_decode_attend_quant4 if decode else PA.flash_prefill_attend_quant4
+        else:
+            fn = DA.flash_decode_attend_quant if decode else PA.flash_prefill_attend_quant
+        return fn(q, k, ks, v, caches[prefix + "vs"], base_lens, layer=layer, **fresh_kw)
     fresh_kw = {} if fresh is None else dict(k_new=fresh["k"], v_new=fresh["v"])
     fn = DA.flash_decode_attend if decode else PA.flash_prefill_attend
     return fn(q, k, v, base_lens, layer=layer, **fresh_kw)

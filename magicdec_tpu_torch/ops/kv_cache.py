@@ -1,10 +1,11 @@
-"""Layer-stacked KV-cache appends and int8 KV quantization (counterpart of
-magicdec_tpu/ops/kv_cache.py).
+"""Layer-stacked KV-cache appends and int8 / int4 KV quantization
+(counterpart of magicdec_tpu/ops/kv_cache.py).
 
 Caches are ``[L, B, S, Hkv*hd]``: the head axis folded minor, the JAX
 package's at-rest layout, so a cache moves between the two packages bit for
-bit.  A quantized cache holds int8 data in that layout plus per-(token, kv
-head) scales ``[L, B, Hkv, S]`` (the cache-length axis minor, as in the JAX
+bit.  A quantized cache holds int8 data in that layout, or int4 packed in
+head pairs into ``[L, B, S, (Hkv//2)*hd]`` int8, plus per-(token, kv head)
+scales ``[L, B, Hkv, S]`` (the cache-length axis minor, as in the JAX
 package).  The layer loop reads the stacked cache and collects each layer's
 new rows; ONE append after the loop writes them, in place.  The Hopper
 kernel for that append is ``kernels/append.py``; this module holds its plain
@@ -67,12 +68,67 @@ def quantize_kv_tokens(x: torch.Tensor, scale_dtype=torch.float32):
     return q.reshape(B, T, -1), scale.transpose(1, 2).contiguous()
 
 
+def is_packed_int4(cache: torch.Tensor, scale: torch.Tensor, head_dim: int) -> bool:
+    """True when a quantized cache [..., S, K] holds head-pair-packed int4
+    rows: K == (H // 2) * hd with H the scale's head count ([..., H, S])."""
+    return cache.shape[-1] == (scale.shape[-2] // 2) * head_dim
+
+
 def dequant_kv(cache: torch.Tensor, scale: torch.Tensor, head_dim: int,
                dtype=torch.float32) -> torch.Tensor:
-    """int8 cache [B, S, H*hd] with scales [B, H, S] -> dense [B, S, H*hd]
-    in ``dtype`` (the int4 layout arrives with ROADMAP item A8)."""
+    """Quantized cache with scales [B, H, S] -> dense [B, S, H*hd] in
+    ``dtype``.  The layout is detected from the lane width against the
+    scale's head count, as in the JAX package: int8 [B, S, H*hd], or int4
+    head-pair-packed [B, S, (H//2)*hd] (``pack_int4_heads``)."""
     B, S, K = cache.shape
     H = scale.shape[1]
-    x = cache.reshape(B, S, H, head_dim).to(torch.float32)
+    if is_packed_int4(cache, scale, head_dim):
+        x = unpack_int4_heads(cache, head_dim).to(torch.float32)
+    else:
+        x = cache.reshape(B, S, H, head_dim).to(torch.float32)
     x = x * scale.transpose(1, 2).to(torch.float32)[..., None]
     return x.reshape(B, S, H * head_dim).to(dtype)
+
+
+# int4 KV, head-pair packed: kv head 2i rides the LOW nibble and kv head 2i+1
+# the HIGH nibble of packed pseudo-head i, lane for lane (packed lane i*hd + l
+# holds (head 2i, lane l) | (head 2i+1, lane l) << 4).  Values are symmetric
+# int4 in [-7, 7]; the scales keep the int8 layout [B, H, S], one per
+# (token, kv head).  A quarter of bf16's bytes.
+
+
+def pack_int4_heads(q: torch.Tensor) -> torch.Tensor:
+    """int8 values in [-7, 7], [..., H, hd] (H even) -> packed int8
+    [..., (H//2)*hd]."""
+    *lead, H, hd = q.shape
+    if H % 2:
+        raise ValueError(f"int4 packing needs an even kv-head count, got {H}")
+    pairs = q.to(torch.int8).reshape(*lead, H // 2, 2, hd)
+    packed = (pairs[..., 0, :] & 0x0F) | (pairs[..., 1, :] << 4)
+    return packed.reshape(*lead, (H // 2) * hd)
+
+
+def unpack_int4_heads(packed: torch.Tensor, head_dim: int) -> torch.Tensor:
+    """Packed int8 [..., (H//2)*hd] -> int8 values [..., H, hd]: the low
+    nibble sign-extended by a shift pair, the high one by an arithmetic
+    shift."""
+    *lead, Kp = packed.shape
+    p = packed.reshape(*lead, Kp // head_dim, head_dim)
+    lo = (p << 4) >> 4
+    hi = p >> 4
+    return torch.stack([lo, hi], dim=-2).reshape(*lead, 2 * (Kp // head_dim), head_dim)
+
+
+def quantize_kv_tokens_int4(x: torch.Tensor, scale_dtype=torch.float32):
+    """Per-(token, kv head) symmetric int4 quantization with head-pair
+    packing: x [B, T, H, hd] -> (packed int8 [B, T, (H//2)*hd], scale
+    [B, H, T] in ``scale_dtype``).  scale = max(amax, 1e-8) / 7, rounded to
+    its dtype; q = clip(round(x / scale), -7, 7) against the rounded scale,
+    round half to even."""
+    B, T = x.shape[:2]
+    xf = x.to(torch.float32)
+    amax = xf.abs().amax(dim=-1)                                   # [B, T, H]
+    scale = (torch.clamp(amax, min=1e-8) / 7.0).to(scale_dtype)
+    sf = scale.to(torch.float32)
+    q = torch.clamp(torch.round(xf / sf[..., None]), -7, 7).to(torch.int8)
+    return pack_int4_heads(q), scale.transpose(1, 2).contiguous()

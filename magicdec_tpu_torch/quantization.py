@@ -1,23 +1,29 @@
-"""Weight-only int8 quantization of the draft's weight copy (counterpart of
-magicdec_tpu/quantization.py).
+"""Weight-only int8 and int4 quantization of the draft's weight copy
+(counterpart of magicdec_tpu/quantization.py).
 
-A quantized weight is a ``QuantizedWeight``: int8 ``q [..., In, Out]`` and
-f32 ``scale [..., 1, Out]``, one scale per output column, the JAX package's
-at-rest format (``convert.py`` moves it across bit for bit).  The model's
-``matmul`` dispatches on it.
+A quantized weight is a ``QuantizedWeight``: int8 ``q [..., In, Out]`` with
+f32 ``scale [..., 1, Out]``, one scale per output column, or int4 packed in
+contraction-row pairs into ``q [..., In/2, Out]`` (``pack_int4``) with
+group-wise f32 ``scale [..., In/group, Out]`` (group 128 by default), the
+JAX package's at-rest formats (``convert.py`` moves them across bit for
+bit).  The model's ``matmul`` dispatches on it.
 
 Routing follows the JAX package's shape predicates exactly, because they
 choose between two numerics: a kernel (f32 accumulation, the f32 scale, then
 one bf16 cast: B4/B5/B6/B9 in ``kernels/quant_matmul.py``) or the plain
-product ``x @ q.to(x.dtype) * scale.to(x.dtype)`` that the JAX package leaves
-to XLA (prefill-sized M).  The JAX package's VMEM budgets (``_pick_block_out``,
-the 13 and 14 MiB budgets of ``quant_layer_tail`` and ``quant_mlp``) are
+product ``x @ q.to(x.dtype) * scale.to(x.dtype)`` (int4: ``x @ bf16(q * s)``,
+dequantized by groups first) that the JAX package leaves to XLA
+(prefill-sized M).  An int4 dot never takes the norm into its kernel: as in
+the JAX package, the rms-norm runs first and B4-int4 takes the gate or the
+residual, B6-int4 neither; B5 and B9 take int8 only.  The JAX package's
+VMEM budgets (``_pick_block_out``, the 13 and 14 MiB budgets of
+``quant_layer_tail`` and ``quant_mlp``) are
 facts of the TPU and are dropped: at llama-3.2-1b widths they never decline
 for M <= 128.  A pass whose rows are padded (a target pass at
 ``ModelConfig.decode_rows``) hands its dots the padded rows, so the JAX
 package's ``rows_hint`` is the live row count here.
 
-int4 and group-wise int8 are ROADMAP item A8.
+Group-wise int8 is ROADMAP item A8.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ ROWS_CAP = 256           # decode-sized rows: B4 and B6 route at most this many
 TAIL_ROWS_CAP = 128      # B5
 _QUANT_COLS = 16384      # columns quantized at a time (bounds the f32 temporaries)
 _INV127 = torch.tensor(1.0 / 127.0, dtype=torch.float32).item()  # rounded to f32
+_INV7 = torch.tensor(1.0 / 7.0, dtype=torch.float32).item()
 
 # "pallas" (the JAX package's name for its kernel backend): the Hopper
 # kernels wherever the shape rules route to a kernel.  "jnp": the plain
@@ -69,8 +76,10 @@ def _plain_backend(x: torch.Tensor) -> bool:
 
 @dataclasses.dataclass(frozen=True)
 class QuantizedWeight:
-    """q int8 [..., In, Out]; scale f32 [..., 1, Out].  ``w[l]`` slices a
-    layer-stacked weight (both arrays)."""
+    """bits 8: q int8 [..., In, Out], scale f32 [..., 1, Out]; bits 4: q
+    packed int8 [..., In/2, Out], scale f32 [..., G, Out] with G groups
+    tiling the contraction.  ``w[l]`` slices a layer-stacked weight (both
+    arrays)."""
 
     q: torch.Tensor
     scale: torch.Tensor
@@ -78,10 +87,14 @@ class QuantizedWeight:
     group_size: int = 0
 
     def __post_init__(self):
-        if self.bits != 8:
-            raise NotImplementedError("int4 weights are ROADMAP item A8")
-        if self.scale.shape[-2] != 1:
+        if self.bits not in (8, 4):
+            raise ValueError(f"bits must be 8 or 4, got {self.bits}")
+        if self.bits == 8 and self.scale.shape[-2] != 1:
             raise NotImplementedError("group-wise int8 weights are ROADMAP item A8")
+
+    @property
+    def in_features(self) -> int:
+        return self.q.shape[-2] * (2 if self.bits == 4 else 1)
 
     def __getitem__(self, idx):
         return QuantizedWeight(self.q[idx], self.scale[idx], self.bits, self.group_size)
@@ -95,38 +108,84 @@ def is_quantized(w) -> bool:
     return isinstance(w, QuantizedWeight)
 
 
+def default_group_size(In: int, bits: int) -> int:
+    """The JAX package's default: int8 one group (per output column); int4
+    groups of 128 contraction rows, else 64, else 32, else one group."""
+    if bits == 4:
+        for g in (128, 64, 32):
+            if In % g == 0:
+                return g
+    return In
+
+
 def quantize_weight(w: torch.Tensor, bits: int = 8, group_size=None, *,
                     reciprocal: bool = False) -> QuantizedWeight:
-    """Symmetric int8 per-output-channel quantization of [..., In, Out]
-    weights, the JAX package's ``quantize_weight`` op for op: scale = amax
-    over In / 127, at least 1e-10; q = clip(round(w / scale), -128, 127),
-    rounding half to even.  ``reciprocal``: scale = amax * f32(1/127), which
-    is what XLA makes of the division inside the JAX package's jitted
+    """Symmetric quantization of [..., In, Out] weights, the JAX package's
+    ``quantize_weight`` op for op: per group of ``group_size`` contraction
+    rows and output column (int8: the whole column; int4: 128 rows by
+    default), scale = amax / qmax (127 or 7), at least 1e-10; q =
+    clip(round(w / scale), -qmax - 1, qmax), rounding half to even; int4
+    packed by ``pack_int4``.  ``reciprocal``: scale = amax * f32(1/qmax),
+    which is what XLA makes of the division inside the JAX package's jitted
     ``quantize_params`` (one f32 ulp apart in some columns).  One layer and
     up to 16384 columns at a time, so the f32 temporaries stay small on the
     card."""
     In, Out = w.shape[-2], w.shape[-1]
-    if bits != 8:
-        raise NotImplementedError("int4 weights are ROADMAP item A8")
-    if group_size not in (None, In):
+    if bits not in (8, 4):
+        raise ValueError(f"bits must be 8 or 4, got {bits}")
+    gs = default_group_size(In, bits) if group_size is None else group_size
+    if bits == 8 and gs != In:
         raise NotImplementedError("group-wise int8 weights are ROADMAP item A8")
+    if In % gs:
+        raise ValueError(f"group size {gs} does not divide {In}")
+    G = In // gs
+    qmax = 127.0 if bits == 8 else 7.0
+    inv = _INV127 if bits == 8 else _INV7
     flat = w.reshape(-1, In, Out)
     q = torch.empty(flat.shape, dtype=torch.int8, device=w.device)
-    scale = torch.empty((flat.shape[0], 1, Out), dtype=torch.float32, device=w.device)
+    scale = torch.empty((flat.shape[0], G, Out), dtype=torch.float32, device=w.device)
     for i in range(flat.shape[0]):
         for c in range(0, Out, _QUANT_COLS):
-            wf = flat[i, :, c:c + _QUANT_COLS].to(torch.float32)
-            amax = wf.abs().amax(dim=0, keepdim=True)
-            s = amax * _INV127 if reciprocal else amax / 127.0
+            wf = flat[i, :, c:c + _QUANT_COLS].to(torch.float32).reshape(G, gs, -1)
+            amax = wf.abs().amax(dim=1, keepdim=True)
+            s = amax * inv if reciprocal else amax / qmax
             s = torch.clamp_min(s, 1e-10)
-            q[i, :, c:c + _QUANT_COLS] = torch.clamp(torch.round(wf / s), -128, 127)
-            scale[i, :, c:c + _QUANT_COLS] = s
-    return QuantizedWeight(q.reshape(w.shape), scale.reshape(*w.shape[:-2], 1, Out),
-                           bits=8, group_size=In)
+            q[i, :, c:c + _QUANT_COLS] = torch.clamp(
+                torch.round(wf / s), -qmax - 1, qmax).reshape(In, -1)
+            scale[i, :, c:c + _QUANT_COLS] = s[:, 0]
+    q = q.reshape(w.shape)
+    if bits == 4:
+        q = pack_int4(q)
+    return QuantizedWeight(q, scale.reshape(*w.shape[:-2], G, Out), bits=bits, group_size=gs)
+
+
+def pack_int4(q: torch.Tensor) -> torch.Tensor:
+    """Pack int8 values in [-8, 7] pairwise along the contraction axis (even
+    rows in the low nibble) into int8 [..., In/2, Out]."""
+    if q.shape[-2] % 2:
+        raise ValueError(f"int4 packing needs an even row count, got {q.shape[-2]}")
+    q = q.to(torch.int8)
+    return (q[..., 0::2, :] & 0x0F) | (q[..., 1::2, :] << 4)
+
+
+def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``pack_int4``: int8 [..., In, Out], each nibble
+    sign-extended (a shift pair for the low one, an arithmetic shift for the
+    high one)."""
+    lo = (packed << 4) >> 4
+    hi = packed >> 4
+    out = torch.stack([lo, hi], dim=-2)                          # [..., In/2, 2, Out]
+    return out.reshape(*packed.shape[:-2], packed.shape[-2] * 2, packed.shape[-1])
 
 
 def dequantize_weight(wq: QuantizedWeight, dtype=torch.bfloat16) -> torch.Tensor:
-    return (wq.q.to(torch.float32) * wq.scale).to(dtype)
+    """q * scale by groups, in float32, then ``dtype``."""
+    q = unpack_int4(wq.q) if wq.bits == 4 else wq.q
+    In, Out = q.shape[-2], q.shape[-1]
+    G = wq.scale.shape[-2]
+    grouped = q.reshape(*q.shape[:-2], G, In // G, Out).to(torch.float32)
+    deq = grouped * wq.scale[..., :, None, :].to(torch.float32)
+    return deq.reshape(*q.shape[:-2], In, Out).to(dtype)
 
 
 def quantize_params(params, bits: int = 8, group_size=None, include_head: bool = True,
@@ -137,7 +196,7 @@ def quantize_params(params, bits: int = 8, group_size=None, include_head: bool =
     unquantized head are the input's tensors, shared, not copied (the
     quantized embedding is ROADMAP item A8).  Bit for bit the JAX package's
     ``quantize_params``, whose jitted quantization scales by the f32
-    reciprocal of 127."""
+    reciprocal of 127 (int8) or of 7 (int4)."""
     qw = functools.partial(quantize_weight, bits=bits, group_size=group_size,
                            reciprocal=True)
     layers = dict(params["layers"])
@@ -161,20 +220,27 @@ def quant_matmul(x, wq: QuantizedWeight, norm=None, gate: bool = False, residual
     projection [In, 2F], returns silu(x @ w_gate) * (x @ w_up) [..., F];
     ``residual`` [..., Out] is added.  Under the "pallas" backend a 2-D
     weight at M <= 256 rows, In % 512 == 0 and F % 256 == 0 takes B4 (with
-    any of the three) or B6 (without); the rest takes the plain product."""
+    any of the three; int4: B4-int4 after a plain rms-norm) or B6 (without;
+    int4: B6-int4); the rest takes the plain product."""
     assert not (gate and residual is not None)
     lead = x.shape[:-1]
     M = math.prod(lead)
-    In, Out = wq.q.shape[-2], wq.q.shape[-1]
+    In, Out = wq.in_features, wq.q.shape[-1]
     kernel = (not _plain_backend(x) and wq.q.dim() == 2 and M <= ROWS_CAP
               and In % 512 == 0)
     if norm is not None or gate or residual is not None:
         Fo = Out // 2 if gate else Out
         if kernel and Fo % 256 == 0:
-            y = K.quant_matmul_fused(
-                x.reshape(M, In), wq.q, wq.scale, norm[0] if norm is not None else None,
-                residual.reshape(M, Fo) if residual is not None else None, gate=gate,
-                eps=norm[1] if norm is not None else 1e-5)
+            res = residual.reshape(M, Fo) if residual is not None else None
+            if wq.bits == 4:
+                xm = x.reshape(M, In)
+                if norm is not None:
+                    xm = rms_norm(xm, norm[0], norm[1])
+                y = K.quant_matmul_fused_int4(xm, wq.q, wq.scale, res, gate=gate)
+            else:
+                y = K.quant_matmul_fused(
+                    x.reshape(M, In), wq.q, wq.scale, norm[0] if norm is not None else None,
+                    res, gate=gate, eps=norm[1] if norm is not None else 1e-5)
             return y.reshape(*lead, Fo)
         if norm is not None:
             x = rms_norm(x, norm[0], norm[1])
@@ -185,20 +251,28 @@ def quant_matmul(x, wq: QuantizedWeight, norm=None, gate: bool = False, residual
         if residual is not None:
             return residual + quant_matmul(x, wq)
     if kernel and Out % 256 == 0:
-        return K.quant_matmul(x.reshape(M, In), wq.q, wq.scale).reshape(*lead, Out)
-    return (x @ wq.q.to(x.dtype)) * wq.scale[..., 0, :].to(x.dtype)
+        fn = K.quant_matmul_int4 if wq.bits == 4 else K.quant_matmul
+        return fn(x.reshape(M, In), wq.q, wq.scale).reshape(*lead, Out)
+    if wq.scale.shape[-2] == 1:
+        q = unpack_int4(wq.q) if wq.bits == 4 else wq.q
+        return (x @ q.to(x.dtype)) * wq.scale[..., 0, :].to(x.dtype)
+    # group-wise: dequantize by groups, then ONE dot (the JAX package's plain
+    # path; its kernels scale each group's partial sum instead)
+    return x @ dequantize_weight(wq, x.dtype)
 
 
-def _all_2d(*ws) -> bool:
-    return all(is_quantized(w) and w.q.dim() == 2 for w in ws)
+def _all_int8_2d(*ws) -> bool:
+    """B5 and B9 take 2-D int8 per-column weights only (the JAX package's
+    ``quant_mlp`` and ``quant_layer_tail`` decline the rest)."""
+    return all(is_quantized(w) and w.q.dim() == 2 and w.bits == 8 for w in ws)
 
 
 def quant_mlp(x, w13: QuantizedWeight, w2: QuantizedWeight, norm, residual=None):
     """The FFN block, rms_norm -> silu-gated MLP -> w2 [+ residual], as B9
     where the JAX package takes ``quant_mlp_pallas`` (M <= 256,
     D % 128 == 0, D <= 4096, F % 128 == 0); else None.  The draft reaches
-    it at 129 <= M <= 256 rows, where B5 declines."""
-    if _plain_backend(x) or not _all_2d(w13, w2):
+    it at 129 <= M <= 256 rows, where B5 declines.  None for int4."""
+    if _plain_backend(x) or not _all_int8_2d(w13, w2):
         return None
     lead = x.shape[:-1]
     D = x.shape[-1]
@@ -216,9 +290,9 @@ def quant_layer_tail(a, x, wo: QuantizedWeight, w13: QuantizedWeight, w2: Quanti
                      norm):
     """The draft layer's whole tail, x + a @ wo then the FFN block with its
     residual, as B5 where the JAX package takes ``quant_layer_tail_pallas``
-    (M <= 128, D % 128 == 0, K % 128 == 0, F % 128 == 0); else None.  Draft
-    passes only, as in the JAX package."""
-    if _plain_backend(x) or not _all_2d(wo, w13, w2):
+    (M <= 128, D % 128 == 0, K % 128 == 0, F % 128 == 0); else None (and
+    for int4).  Draft passes only, as in the JAX package."""
+    if _plain_backend(x) or not _all_int8_2d(wo, w13, w2):
         return None
     lead = x.shape[:-1]
     D, Kd = x.shape[-1], a.shape[-1]

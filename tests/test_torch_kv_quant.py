@@ -317,9 +317,9 @@ def test_int8_bench_protocol_acceptance():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(kv_quant="int4"), "A8"),
+    (dict(kv_quant="int4", kv_scale_dtype=torch.bfloat16), "A8"),
     (dict(kv_quant=True, kv_scale_dtype=torch.bfloat16), "A8"),
-], ids=["int4", "bf16_scales"])
+], ids=["int4_bf16_scales", "bf16_scales"])
 def test_engine_quant_configs_not_ported_raise(kw, match):
     from magicdec_tpu_torch.config import tiny_config
     from magicdec_tpu_torch.engine.engine import EngineConfig, SpecEngine
@@ -347,9 +347,9 @@ def test_bench_defaults_and_metric_tag():
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--kv_scale", "bf16"], "A8"), (["--kv_quant", "int4"], "A8"),
-    (["--draft_quant", "int4"], "A8"),
-], ids=lambda a: "_".join(a).strip("-") if isinstance(a, list) else a)
+    (["--kv_scale", "bf16"], "A8"), (["--kv_quant", "int4", "--kv_scale", "bf16"], "A8"),
+    (["--quantize", "int4"], "A8"),
+], ids=lambda a: "_".join(a).replace("--", "").strip("_") if isinstance(a, list) else a)
 def test_bench_quant_paths_not_ported_raise(argv, match):
     with pytest.raises(NotImplementedError, match=match):
         bench.setup(bench.parse_args(argv + ["--device", "cpu"]))

@@ -56,7 +56,7 @@ def test_chip_smoke_fails_without_card(no_card, capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--kv_quant", "int4"], ["--draft_quant", "int4"],
+    ["--quantize", "int4"], ["--quantize_embed"],
     ["--quantize", "int8"], ["--mode", "snapkv"], ["--gamma", "0"],
     ["--attn_backend", "jnp"], ["--quant_backend", "jnp"],
 ], ids=lambda a: "_".join(a).strip("-"))

@@ -1,0 +1,423 @@
+"""The port's int4 draft weight copy (``EngineConfig.draft_quant="int4"``,
+the bench's ``--draft_quant int4``): group-wise int4 weights, contraction
+rows packed in pairs, one f32 scale per 128-row group and output column.
+
+On the CPU, against the JAX package: packing and weight quantization bit for
+bit; the plain versions of B6-int4 (``quant_matmul_int4``) and B4-int4
+(``quant_matmul_fused_int4``: gate, residual, none) against the Pallas
+kernels in interpret mode; the plain group-wise product against the JAX
+package's jnp path; the routing of the draft's int4 dots; the draft pass
+on the ``pallas`` backend at the t512 widths of tests/test_torch_quant.py,
+where the JAX package's routing reaches its kernels (the engine's tokens
+are in tests/test_torch_int4_engine.py).  On the card (``gpu`` marker, skipped without one): each CUDA
+kernel against its plain version.
+
+Tolerances.  Packing, quantization, dequantization and conversion are
+exact.  Plain versions against the Pallas kernels: atol = rtol = 2e-5 in
+float32 (the kernels contract the even and odd columns of x as two dots,
+the plain versions each group as one: another summation order); in
+bfloat16 within ``kernels.bf16_limit`` of the Pallas output.  The draft
+pass: tokens exactly, hidden states and caches to 1e-4.  On the card, in
+bf16: within ``kernels.bf16_limit``, and a deliberately wrong reference
+(the group scales shifted by one group, or rolled by one column) must fail
+it.
+
+The JAX package is imported inside the CPU tests only:
+``python -m pytest tests/test_torch_weight_int4.py -m gpu --noconftest``
+runs the card's tests where JAX is absent.
+"""
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+from magicdec_tpu_torch import quantization as Q
+from magicdec_tpu_torch.kernels import bf16_limit
+from magicdec_tpu_torch.kernels import quant_matmul as QK
+
+TOL = dict(atol=2e-5, rtol=2e-5)
+T512 = dict(vocab_size=256, n_layer=2, n_head=8, n_kv_head=4, dim=512, intermediate_size=1024)
+WRAPPERS = ("quant_matmul", "quant_matmul_fused", "quant_layer_tail", "quant_mlp",
+            "quant_matmul_int4", "quant_matmul_fused_int4")
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+@pytest.fixture
+def pallas():
+    """Both packages on their kernel backend ("pallas"), restored after."""
+    from magicdec_tpu import quantization as JQ
+
+    old_j, old_t = JQ._MATMUL_BACKEND, Q.matmul_backend()
+    JQ.set_matmul_backend("pallas")
+    Q.set_matmul_backend("pallas")
+    yield
+    JQ.set_matmul_backend(old_j)
+    Q.set_matmul_backend(old_t)
+
+
+@pytest.fixture
+def calls(monkeypatch):
+    """The names of the kernel wrappers the port's routing calls, in order."""
+    seen = []
+    for name in WRAPPERS:
+        fn = getattr(QK, name)
+
+        def spy(*args, _fn=fn, _name=name, **kw):
+            seen.append(_name)
+            return _fn(*args, **kw)
+
+        monkeypatch.setattr(QK, name, spy)
+    return seen
+
+
+def _np_tree(tree):
+    import jax
+
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def _jq4(w, group_size=None):
+    """A JAX int4 QuantizedWeight of numpy weights w."""
+    import jax.numpy as jnp
+    from magicdec_tpu import quantization as JQ
+
+    return JQ.quantize_weight(jnp.asarray(w), bits=4, group_size=group_size)
+
+
+def _tq(jw):
+    """The port's QuantizedWeight moved from a JAX one."""
+    from magicdec_tpu_torch.convert import params_from_jax
+
+    return params_from_jax({"w": _np_tree(jw)})["w"]
+
+
+def _compare(got, want, dtype):
+    if dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    else:
+        want = torch.from_numpy(np.asarray(want, dtype=np.float32))
+        assert ((got.float() - want).abs() <= bf16_limit(want)).all()
+
+
+# -- packing and quantization vs the JAX package, bit for bit -----------------
+
+
+def test_pack_unpack_int4_match_jax():
+    import jax.numpy as jnp
+    from magicdec_tpu import quantization as JQ
+
+    rng = np.random.RandomState(0)
+    q = rng.randint(-8, 8, (3, 64, 24)).astype(np.int8)
+    packed = Q.pack_int4(torch.from_numpy(q))
+    assert packed.dtype == torch.int8 and packed.shape == (3, 32, 24)
+    np.testing.assert_array_equal(packed.numpy(), np.asarray(JQ.pack_int4(jnp.asarray(q))))
+    every = np.arange(-128, 128, dtype=np.int8).reshape(16, 16)
+    np.testing.assert_array_equal(Q.unpack_int4(torch.from_numpy(every)).numpy(),
+                                  np.asarray(JQ.unpack_int4(jnp.asarray(every))))
+    np.testing.assert_array_equal(Q.unpack_int4(packed).numpy(), q)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,group", [((256, 96), None), ((3, 192, 40), None),
+                                         ((128, 40), 32)], ids=["2d", "stacked", "group32"])
+def test_quantize_weight_int4_matches_jax(shape, group, dtype):
+    """The op, eager, bit for bit: groups of 128 (else 64, else 32) by
+    default, scale = amax / 7, values clipped to [-8, 7], ties to even."""
+    import jax.numpy as jnp
+    from magicdec_tpu import quantization as JQ
+
+    w = np.random.RandomState(1).randn(*shape).astype(np.float32)
+    w.reshape(-1, *shape[-2:])[0, :, 3] = 0.0          # an all-zero column: the 1e-10 clamp
+    # amax 7 gives scale 1 in the first group: x.5 values are exact ties
+    ties = np.concatenate([np.arange(29) * 0.5 - 7.0, [2.5, -2.5]])
+    w.reshape(-1, *shape[-2:])[-1, :32, 0] = np.concatenate([[7.0], ties])
+    jw = JQ.quantize_weight(jnp.asarray(w, getattr(jnp, dtype)), bits=4, group_size=group)
+    tw = Q.quantize_weight(torch.from_numpy(w).to(getattr(torch, dtype)), bits=4,
+                           group_size=group)
+    assert (tw.bits, tw.group_size) == (jw.bits, jw.group_size)
+    assert tw.q.shape == jw.q.shape and tw.scale.shape == jw.scale.shape
+    np.testing.assert_array_equal(tw.q.numpy(), np.asarray(jw.q))
+    np.testing.assert_array_equal(tw.scale.numpy(), np.asarray(jw.scale))
+    vals = Q.unpack_int4(tw.q).reshape(-1, *shape[-2:])[-1, 1:32, 0].numpy()
+    np.testing.assert_array_equal(vals, np.round(ties))
+    np.testing.assert_array_equal(Q.dequantize_weight(tw, torch.float32).numpy(),
+                                  np.asarray(JQ.dequantize_weight(jw, jnp.float32)))
+
+
+def test_quantize_params_int4_matches_jax():
+    """The JAX package's jitted quantize_params(bits=4) scales by f32(1/7)
+    (XLA's rewrite of the division, as it does for int8's 127): the port's
+    quantize_params does the same, bit for bit; the op divides."""
+    import jax
+    import jax.numpy as jnp
+    from magicdec_tpu import quantization as JQ
+    from magicdec_tpu_torch.convert import params_from_jax
+    from magicdec_tpu_torch.models import llama as TM
+    from magicdec_tpu_torch import config as tcfg
+    from test_torch_model import _jax_tree, random_params
+
+    cfg = tcfg.tiny_config(**T512)
+    params = random_params(cfg)
+    jp = jax.jit(functools.partial(JQ.quantize_params, bits=4))(_jax_tree(params))
+    tp_in = TM.fuse_exec_params(params_from_jax(params), cfg)
+    tp = Q.quantize_params(tp_in, bits=4)
+    jp = TM.fuse_exec_params(params_from_jax(_np_tree(jp)), cfg)
+    for key in ("wqkv", "wo", "w13", "w2"):
+        w, jw = tp["layers"][key], jp["layers"][key]
+        assert (w.bits, w.group_size) == (jw.bits, jw.group_size) == (4, 128), key
+        assert w.scale.shape[-2] == w.in_features // 128 > 1, key
+        np.testing.assert_array_equal(tp["layers"][key].q.numpy(), jp["layers"][key].q.numpy())
+        np.testing.assert_array_equal(tp["layers"][key].scale.numpy(),
+                                      jp["layers"][key].scale.numpy())
+    np.testing.assert_array_equal(tp["lm_head"].scale.numpy(), jp["lm_head"].scale.numpy())
+    eager = Q.quantize_weight(params_from_jax(params)["lm_head"], bits=4)
+    differ = int((eager.scale != tp["lm_head"].scale).sum())
+    assert differ > 0 and (eager.scale - tp["lm_head"].scale).abs().max() <= \
+        tp["lm_head"].scale.abs().max() * 2 ** -23
+
+
+def test_convert_int4_weight_round_trip_bitwise():
+    from magicdec_tpu_torch.convert import params_from_jax, tensor_to_numpy
+
+    rng = np.random.RandomState(4)
+    jw = _np_tree(_jq4(rng.randn(2, 256, 48).astype(np.float32)))
+    tree = {"layers": {"wo": jw, "w2": {"q": jw.q, "scale": jw.scale, "bits": 4,
+                                         "group_size": 128}}}
+    got = params_from_jax(tree, dtype=torch.bfloat16)
+    for key in ("wo", "w2"):
+        w = got["layers"][key]
+        assert Q.is_quantized(w) and (w.bits, w.group_size) == (4, 128)
+        assert w.q.dtype == torch.int8 and w.scale.dtype == torch.float32
+        np.testing.assert_array_equal(tensor_to_numpy(w.q), jw.q)
+        np.testing.assert_array_equal(tensor_to_numpy(w.scale), jw.scale)
+        assert (w[1].q.shape, w[1].scale.shape, w[1].in_features) == ((128, 48), (2, 48), 256)
+
+
+# -- plain kernel versions vs the Pallas kernels (interpret) ------------------
+
+
+def _operands(rng, dtype, M, In, Out, *extra):
+    """x [M, In], an int4 [In, Out] weight (JAX and port) and unit-scale
+    arrays of the shapes in ``extra``, in ``dtype``."""
+    import jax.numpy as jnp
+
+    jw = _jq4((rng.randn(In, Out) / np.sqrt(In)).astype(np.float32))
+    arrays = [rng.randn(M, In).astype(np.float32)] + [
+        (rng.rand(*s) + 0.5).astype(np.float32) for s in extra]
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    return (jw, _tq(jw), [jnp.asarray(a, jd) for a in arrays],
+            [torch.from_numpy(a).to(td) for a in arrays])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quant_matmul_int4_plain_matches_pallas(dtype):
+    """B6-int4 against ``_int4_kernel``: two in-blocks of 8 groups each."""
+    from magicdec_tpu.ops.pallas.quant_matmul import quant_matmul_pallas
+
+    jw, tw, (jx,), (tx,) = _operands(np.random.RandomState(1), dtype, 8, 2048, 256)
+    ref = quant_matmul_pallas(jx, jw.q, jw.scale, bits=4, group_size=jw.group_size,
+                              block_in=1024, block_out=128, interpret=True)
+    _compare(QK.quant_matmul_int4(tx, tw.q, tw.scale), ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("epilogue", ["none", "gate", "residual"])
+def test_quant_matmul_fused_int4_plain_matches_pallas(epilogue, dtype):
+    """B4-int4 against ``_fused_kernel`` with bits=4 (two in-blocks)."""
+    from magicdec_tpu.ops.pallas.quant_matmul import quant_matmul_fused_pallas
+
+    M, In, Out = 8, 2048, 256
+    extra = [(M, Out)] if epilogue == "residual" else []
+    jw, tw, ja, ta = _operands(np.random.RandomState(2), dtype, M, In, Out, *extra)
+    kw = dict(bits=4, group_size=jw.group_size, block_in=1024, block_out=64, interpret=True)
+    if epilogue == "none":
+        ref = quant_matmul_fused_pallas(ja[0], jw.q, jw.scale, **kw)
+        got = QK.quant_matmul_fused_int4(ta[0], tw.q, tw.scale)
+    elif epilogue == "gate":
+        ref = quant_matmul_fused_pallas(ja[0], jw.q, jw.scale, gate=True, **kw)
+        got = QK.quant_matmul_fused_int4(ta[0], tw.q, tw.scale, gate=True)
+    else:
+        ref = quant_matmul_fused_pallas(ja[0], jw.q, jw.scale, None, ja[1], **kw)
+        got = QK.quant_matmul_fused_int4(ta[0], tw.q, tw.scale, ta[1])
+    _compare(got, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_groupwise_plain_product_matches_jax(dtype):
+    """Prefill-sized rows take the plain product on both packages' pallas
+    backends: x @ (q * s by groups, rounded to x's dtype), one dot.  The
+    dequantized weights agree bit for bit; in bf16 the two CPU dots round
+    differently in a few outputs (7 of 76,800 by one bf16 step at this
+    seed), so the product is held to ``kernels.bf16_limit``."""
+    import jax.numpy as jnp
+    from magicdec_tpu import quantization as JQ
+
+    jw, tw, (jx,), (tx,) = _operands(np.random.RandomState(3), dtype, 300, 512, 256)
+    old = JQ._MATMUL_BACKEND
+    JQ.set_matmul_backend("pallas")
+    try:
+        ref = JQ.quant_matmul(jx, jw)
+    finally:
+        JQ.set_matmul_backend(old)
+    got = Q.quant_matmul(tx, tw)
+    td = getattr(torch, dtype)
+    np.testing.assert_array_equal(Q.dequantize_weight(tw, td).float().numpy(),
+                                  np.asarray(JQ.dequantize_weight(jw, jx.dtype), np.float32))
+    _compare(got, ref, dtype)
+
+
+# -- routing ------------------------------------------------------------------
+
+
+def _t512_draft(seed=0):
+    """(cfg, port params fused with their int4 draft copy) at the t512 widths."""
+    from magicdec_tpu_torch import config as tcfg
+    from magicdec_tpu_torch.convert import params_from_jax
+    from magicdec_tpu_torch.models import llama as TM
+    from test_torch_model import random_params
+
+    cfg = tcfg.tiny_config(**T512)
+    params = TM.fuse_exec_params(params_from_jax(random_params(cfg, seed=seed)), cfg)
+    return cfg, Q.quantize_params(params, bits=4)
+
+
+@pytest.mark.parametrize("T", [1, 2], ids=["M32", "M64"])
+def test_int4_draft_step_routes_to_kernels(T, pallas, calls):
+    """A draft step at B=32 on the int4 copy: per layer B4-int4 four times
+    (wqkv after the norm, wo + residual, w13 + gate, w2 + residual), B5 and
+    B9 declining, then the head as B6-int4."""
+    from magicdec_tpu_torch.models import llama as TM
+
+    cfg, dq = _t512_draft()
+    B, Sd = 32, 64
+    K = cfg.n_kv_head * cfg.head_dim
+    caches = {n: torch.zeros(cfg.n_layer, B, Sd, K) for n in ("dk", "dv")}
+    fill = torch.full((B,), 8, dtype=torch.int32)
+    TM.forward_draft(dq, cfg, torch.zeros(B, T, dtype=torch.int32), fill, fill, caches)
+    assert calls == ["quant_matmul_fused_int4"] * 4 * cfg.n_layer + ["quant_matmul_int4"]
+
+
+def test_int4_wrappers_never_fall_back():
+    x = torch.zeros(4, 512, dtype=torch.bfloat16, device="meta")
+    q = torch.zeros(256, 256, dtype=torch.int8, device="meta")
+    s = torch.ones(4, 256, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        QK.quant_matmul_int4(x, q, s)
+    with pytest.raises(ValueError, match="unsupported device"):
+        QK.quant_matmul_fused_int4(x, q, s, torch.zeros(4, 256, device="meta"))
+    with pytest.raises(ValueError, match="several devices"):
+        QK.quant_matmul_fused_int4(x, q, torch.ones(4, 256), gate=True)
+
+
+# -- the draft pass and the engine vs the JAX package -------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_t512():
+    import jax.numpy as jnp
+    from magicdec_tpu import config as jcfg
+    from magicdec_tpu import quantization as JQ
+    from magicdec_tpu.models import llama as JM
+    from test_torch_model import _jax_tree, random_params
+
+    cfg = jcfg.tiny_config(**T512)
+    params = JM.fuse_exec_params(_jax_tree(random_params(cfg)), cfg)
+    return cfg, params, JQ.quantize_params(params, bits=4), jnp
+
+
+@pytest.mark.parametrize("T", [1, 2])
+def test_forward_draft_int4_matches_jax(T, pallas, monkeypatch):
+    """One draft step with the int4 copy on both packages' kernel routes:
+    the pre-head hidden states and the appended caches to 1e-4; the tokens
+    of each package's int4 head on its own hidden states exactly."""
+    from magicdec_tpu.models import llama as JM
+    from magicdec_tpu_torch.convert import caches_from_jax, caches_to_numpy, params_from_jax
+    from magicdec_tpu_torch.models import llama as TM
+
+    jcfg, _, jdq, jnp = _jax_t512()
+    tcfg, tdq = _t512_draft()
+    np.testing.assert_array_equal(tdq["layers"]["w13"].q.numpy(),
+                                  np.asarray(jdq["layers"]["w13"].q))
+    rng = np.random.RandomState(6)
+    B, Sd, K = 2, 64, jcfg.n_kv_head * jcfg.head_dim
+    caches = {n: rng.randn(jcfg.n_layer, B, Sd, K).astype(np.float32) for n in ("dk", "dv")}
+    tokens = rng.randint(0, jcfg.vocab_size, size=(B, T)).astype(np.int32)
+    fill = np.array([10, 33], np.int32)
+    tdq = params_from_jax(_np_tree(jdq))
+    j_head, t_head = JM.head_argmax, TM.head_argmax
+    # the passes return their pre-head hidden states; each head runs after
+    monkeypatch.setattr(JM, "head_argmax", lambda p, c, x: x)
+    monkeypatch.setattr(TM, "head_argmax", lambda p, c, x: x)
+    hj, jc = JM.forward_draft(jdq, jcfg, jnp.asarray(tokens), jnp.asarray(fill),
+                              jnp.asarray(fill), {n: jnp.asarray(a) for n, a in caches.items()})
+    ht, tc = TM.forward_draft(tdq, tcfg, torch.from_numpy(tokens), torch.from_numpy(fill),
+                              torch.from_numpy(fill), caches_from_jax(caches))
+    np.testing.assert_allclose(ht.numpy(), np.asarray(hj), atol=1e-4, rtol=1e-4)
+    tc = caches_to_numpy(tc)
+    for name in ("dk", "dv"):
+        np.testing.assert_allclose(tc[name], np.asarray(jc[name]), atol=1e-4, rtol=1e-4,
+                                   err_msg=name)
+    np.testing.assert_array_equal(t_head(tdq, tcfg, ht).numpy(),
+                                  np.asarray(j_head(jdq, jcfg, hj)))
+
+
+# -- on the card: CUDA kernel vs plain version --------------------------------
+
+
+def _card_weight(gen, In, Out, device):
+    w = torch.randn((In, Out), generator=gen, device=device) / In ** 0.5
+    qw = Q.quantize_weight(w.to(torch.bfloat16), bits=4)
+    return qw.q, qw.scale
+
+
+def _outside(out, ref):
+    return int(((out.float() - ref.float()).abs() > bf16_limit(ref)).sum())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [32, 64, 160])
+@pytest.mark.parametrize("kind", ["b6", "b4_none", "b4_gate", "b4_residual"])
+def test_int4_kernels_match_plain_on_card(cuda, kind, M):
+    """B6-int4 and B4-int4 against their plain versions (M = 160: three row
+    groups); the reference with the scales rolled by one column (B6) or
+    shifted by one group (B4) must fail the bound."""
+    gen = torch.Generator(device=cuda).manual_seed(M)
+    In, Out = 2048, 3072 if kind != "b4_gate" else 4096
+    q, s = _card_weight(gen, In, Out, cuda)
+    x = torch.randn((M, In), generator=gen, device=cuda).to(torch.bfloat16)
+    shifted = s.roll(1, 0)
+    if kind == "b6":
+        out, ref = QK.quant_matmul_int4(x, q, s), QK.quant_matmul_int4_plain(x, q, s)
+        wrong = QK.quant_matmul_int4_plain(x, q, s.roll(1, -1))
+    elif kind == "b4_none":
+        out, ref = QK.quant_matmul_fused_int4(x, q, s), QK.quant_matmul_fused_int4_plain(x, q, s)
+        wrong = QK.quant_matmul_fused_int4_plain(x, q, shifted)
+    elif kind == "b4_gate":
+        out = QK.quant_matmul_fused_int4(x, q, s, gate=True)
+        ref = QK.quant_matmul_fused_int4_plain(x, q, s, gate=True)
+        wrong = QK.quant_matmul_fused_int4_plain(x, q, shifted, gate=True)
+    else:
+        res = torch.randn((M, Out), generator=gen, device=cuda).to(torch.bfloat16)
+        out = QK.quant_matmul_fused_int4(x, q, s, res)
+        ref = QK.quant_matmul_fused_int4_plain(x, q, s, res)
+        wrong = QK.quant_matmul_fused_int4_plain(x, q, shifted, res)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert _outside(out, ref) == 0
+    assert _outside(wrong, ref) > 0
