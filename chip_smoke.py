@@ -34,9 +34,16 @@ of which raises on failure:
    for bit, and the group-wise int4 dots B4-int4 (wqkv, wo + residual, w13
    + gate, w2 + residual) and B6-int4 (the head) at M = 32 and 64 (wrong
    references: the group scales shifted by one group, the head's scales
-   rolled by one column), their bound the packed weight and its scales;
-4. main paths: ``magicdec_tpu_torch.bench.main`` (1) with its defaults
-   (int8 target cache, int8 draft weight copy), (2) with ``--kv_quant none
+   rolled by one column), their bound the packed weight and its scales; and
+   the paged serving kernels at the serving paths' shapes (16 slots of
+   8192 rows, page size 512 and 16, a random permuted table, ragged lengths
+   including 0 and 8192 - T): B12 over bf16, int8 and packed int4 pools
+   (wrong references: two table entries swapped, the fresh rows dropped),
+   each also bit-equal to its contiguous kernel over the gathered pool, and
+   B13 into each pool bit for bit (library: SDPA on the gathered layer,
+   ``index_copy_`` through the flattened page indices);
+4. main paths: ``magicdec_tpu_torch.bench.main`` (1) with ``--iters 1``
+   (its defaults otherwise: int8 target cache, int8 draft weight copy), (2) with ``--kv_quant none
    --draft_quant none --iters 1`` (all bf16, one measured repeat instead of
    three), (3) with ``--B 2 --prefix_len 2048 --iters 1`` (the draft
    prefill chunk's 256 rows take B9), (4) with ``--kv_quant int4
@@ -48,7 +55,16 @@ of which raises on failure:
    (>= 1.8 on path (4), whose int4 draft copy of random weights accepts
    less), the spec and autoregressive streams agreeing on every committed
    token of every request, path (1)'s peak device memory below path (2)'s
-   and path (4)'s below path (1)'s;
+   and path (4)'s below path (1)'s; then the paged serving paths,
+   ``magicdec_tpu_torch.serving_bench.main`` with ``SERVE_ARGV`` (16 slots,
+   32 requests of distinct lengths in [4096, 8000], 512-row pages): (6) a
+   bf16 pool, (7) an int8 pool, (8) an int8 pool of half the pages
+   (backpressure), (9) an int4 pool, each failing unless every kernel of
+   the path launched, the paged decode kernel once a layer per target pass,
+   tokens per step >= 1.8, and ``ServingEngine`` on the same prompts
+   returns the same tokens for every request; on the int8 path, 8 requests
+   each served alone through the same 16 slots return their served tokens,
+   and the half pool peaks below the full one;
 5. row invariance at B=32, 4 and 2: for each of the target's dots, and for
    two layers and the head, a row's bits at verify (B*(gamma+1) rows)
    against the AR step (B rows), at the live row count and padded to
@@ -382,8 +398,179 @@ def kernel_phase(torch, gen):
                     (rk, rv, srk, srv), pos, T, label="packed int4 ")
     del pcaches, kp4, kps4, vp4, vps4
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     quant_kernel_cases(torch, gen, record)
+    t1 = time.perf_counter()
+    paged_kernel_cases(torch, gen, record)
+    print(f"[time] kernel phase: the dots took {t1 - t0:.1f}s, the paged kernels "
+          f"{time.perf_counter() - t1:.1f}s", flush=True)
     return entries
+
+
+def paged_kernel_cases(torch, gen, record):
+    """B12 (bf16, int8 and packed int4 pools) and B13 (the same three) at
+    the serving paths' shapes: llama-3.2-1b widths (16 layers, 8 kv heads of
+    64, 32 query heads), 16 slots, T = 4, npr * ps = 8192 logical rows a
+    slot, page size 512 and 16 (a 32-row tile spans two pages), the slots'
+    pages a random permutation of the pool's user pages (pages 0..15 are the
+    scratch pages), ragged base_lens including 0 and 8192 - T.  Each B12 is
+    held against its plain version within bf16_limit and bit for bit against
+    its contiguous kernel over the gathered pool (with and without the fresh
+    rows); two wrong references must fail the bound: the kernel with two
+    table entries of a request swapped, and without the fresh rows.  Each
+    B13 is bit-exact against its plain version.  library_ms: SDPA on the
+    gathered (and dequantized) layer, the gather untimed; for B13,
+    index_copy_ through the flattened page indices."""
+    from magicdec_tpu_torch.kernels import decode_attention as DA
+    from magicdec_tpu_torch.kernels import paged_attention as PGA
+    from magicdec_tpu_torch.ops import paged_kv as PKV
+    from magicdec_tpu_torch.ops.kv_cache import (dequant_kv, quantize_kv_tokens,
+                                                 quantize_kv_tokens_int4)
+
+    F = torch.nn.functional
+    dev = torch.device("cuda")
+    L, B, Hq, Hkv, hd, T, S = 16, 16, 32, 8, 64, 4, 8192
+    K = Hkv * hd
+    bf = torch.bfloat16
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(bf)
+
+    base = torch.randint(0, S - T + 1, (B,), generator=gen, device=dev, dtype=torch.int32)
+    base[0], base[-1] = 0, S - T
+    wide = int(base.argmax())  # the request whose table gets two entries swapped
+    formats = {
+        "flash_paged_decode_attend": (None, DA.flash_decode_attend,
+                                      PGA.flash_paged_decode_attend_plain),
+        "flash_paged_decode_attend_quant": (quantize_kv_tokens, DA.flash_decode_attend_quant,
+                                            PGA.flash_paged_decode_attend_quant_plain),
+        "flash_paged_decode_attend_quant4": (quantize_kv_tokens_int4,
+                                             DA.flash_decode_attend_quant4,
+                                             PGA.flash_paged_decode_attend_quant4_plain),
+    }
+    for ps in (512, 16):
+        npr = S // ps
+        P = B * npr + B
+        table = (torch.randperm(B * npr, generator=gen, device=dev) + B).to(torch.int32)
+        table = table.reshape(B, npr).contiguous()
+        swapped = table.clone()
+        swapped[wide, 0], swapped[wide, npr - 1] = table[wide, npr - 1], table[wide, 0]
+        dense = (randn(L, P, ps, K), randn(L, P, ps, K))
+        for name, (qz, contig, plain) in formats.items():
+            case = f"T={T} ps={ps}"
+            if qz is None:
+                pools = dense
+                fresh = {"k_new": randn(B, T, K), "v_new": randn(B, T, K)}
+            else:
+                pools = []
+                for x in dense:  # each layer's [P, ps] rows quantize as [B, T] tokens
+                    qs = [qz(x[l].view(P, ps, Hkv, hd)) for l in range(L)]
+                    pools += [torch.stack([a for a, _ in qs]), torch.stack([b for _, b in qs])]
+                (kn, ksn), (vn, vsn) = (qz(randn(B, T, Hkv, hd)) for _ in range(2))
+                fresh = {"k_new": kn, "v_new": vn, "ks_new": ksn, "vs_new": vsn}
+            fn = getattr(PGA, name)
+            q = randn(B, T, Hq, hd)
+            out = fn(q, *pools, table, base, layer=5, **fresh)
+            ref = plain(q, *pools, table, base, layer=5, **fresh)
+            torch.cuda.synchronize()
+            err, tol = _err(out, ref)
+            gathered = [PKV.scale_pool_gather(p, table) if qz and i % 2
+                        else PKV.pool_gather(p, table) for i, p in enumerate(pools)]
+            for kw in (fresh, {}):
+                if not torch.equal(fn(q, *pools, table, base, layer=5, **kw),
+                                   contig(q, *gathered, base, layer=5, **kw)):
+                    raise AssertionError(f"{name} {case}: the paged kernel and the contiguous "
+                                         "kernel over the gathered pool differ in bits")
+            print(f"[kernel] {name} {case}: bit-equal to {contig.__name__} over the gathered "
+                  "pool, with and without the fresh rows", flush=True)
+            wrongs = {"with two table entries swapped": fn(q, *pools, swapped, base, layer=5,
+                                                           **fresh),
+                      "without the fresh rows": fn(q, *pools, table, base, layer=5)}
+            for what, wrong in wrongs.items():
+                w_err, w_bad, w_share = _outside(wrong, ref)
+                print(f"[kernel] {name} {case}: {what} max_abs_err={w_err:.3e}, {w_bad} of "
+                      f"{ref.numel()} elements outside bf16_limit (up to {w_share:.3g} of it)",
+                      flush=True)
+                if not w_bad:
+                    raise AssertionError(f"{name} {case}: bf16_limit passes {what}")
+            del wrongs
+            layers = itertools.cycle(range(L))
+            ms = _cuda_ms(lambda: fn(q, *pools, table, base, layer=next(layers), **fresh))
+            plain_ms = _cuda_ms(lambda: plain(q, *pools, table, base, layer=5, **fresh),
+                                iters=3, warmup=1)
+            if qz is None:
+                kl, vl, knl, vnl = gathered[0][5], gathered[1][5], fresh["k_new"], fresh["v_new"]
+            else:
+                kl, vl = (dequant_kv(gathered[i][5], gathered[i + 1][5], hd, bf) for i in (0, 2))
+                knl = dequant_kv(fresh["k_new"], fresh["ks_new"], hd, bf)
+                vnl = dequant_kv(fresh["v_new"], fresh["vs_new"], hd, bf)
+            del gathered
+            lib_args = _sdpa_inputs(q, kl, vl, base, knl, vnl)
+            del kl, vl
+            library_ms = _cuda_ms(lambda: F.scaled_dot_product_attention(
+                lib_args[0], lib_args[1], lib_args[2], attn_mask=lib_args[3]))
+            del lib_args
+            vis = base.double()
+            pairs = float((vis[:, None] + torch.arange(1, T + 1, device=dev)).sum())
+            row_bytes = pools[0].shape[-1] * pools[0].element_size() + (Hkv * 4 if qz else 0)
+            nbytes = (2 * q.numel() * 2 + 2 * float(vis.sum()) * row_bytes + table.numel() * 4
+                      + sum(t.numel() * t.element_size() for t in fresh.values()))
+            record(name, case, err, tol, ms, plain_ms, nbytes, 4 * hd * Hq * pairs, library_ms)
+            fmt = {None: "bf16", quantize_kv_tokens: "int8"}.get(qz, "packed int4")
+            paged_append_case(torch, record, pools, table, base, T, f"{fmt} pool ps={ps} ", gen)
+            del pools, fresh
+            torch.cuda.empty_cache()
+        del dense
+        torch.cuda.empty_cache()
+
+
+def paged_append_case(torch, record, pools, table, pos, T, label, gen):
+    """B13 into copies of ``pools`` (bf16 (k, v) or quantized (k, k_scale,
+    v, v_scale)) at ``pos``: bit-exact against the plain version, then
+    timed; library_ms is index_copy_ through the flattened page indices."""
+    from magicdec_tpu_torch.kernels import paged_attention as PGA
+
+    dev = torch.device("cuda")
+    L, P, ps, Kc = pools[0].shape
+    B, npr = table.shape
+    data = [pools[0], pools[2]] if len(pools) == 4 else list(pools)
+    scales = [pools[1], pools[3]] if len(pools) == 4 else []
+    if data[0].dtype == torch.int8:
+        rows = [torch.randint(-128, 128, (L, B, T, Kc), generator=gen, device=dev,
+                              dtype=torch.int8) for _ in range(2)]
+        H = scales[0].shape[2]
+        srows = [torch.rand((L, B, H, T), generator=gen, device=dev) for _ in range(2)]
+    else:
+        rows = [torch.randn((L, B, T, Kc), generator=gen, device=dev).to(data[0].dtype)
+                for _ in range(2)]
+        srows = []
+    ops = (*rows, pos, table)
+    mine = [t.clone() for t in data + scales]
+    out = PGA.append_paged_rows_inplace(*mine[:2], *ops, *mine[2:], *srows)
+    ref = PGA.append_paged_rows_inplace_plain(*data, *ops, *scales, *srows)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(out, ref)):
+        raise AssertionError(f"append_paged_rows_inplace {label}: kernel and plain version "
+                             "differ")
+    del mine, out, ref
+    ms = _cuda_ms(lambda: PGA.append_paged_rows_inplace(*data, *ops, *scales, *srows))
+    plain_ms = _cuda_ms(lambda: PGA.append_paged_rows_inplace_plain(*data, *ops, *scales,
+                                                                    *srows),
+                        iters=5, warmup=1)
+    p = pos.long()[:, None] + torch.arange(T, device=dev)                       # [B, T]
+    page = table.long().gather(1, p // ps)                                         # [B, T]
+    lp = torch.arange(L, device=dev)[:, None, None] * P + page[None]               # [L, B, T]
+    flat = (lp * ps + p % ps).reshape(-1)
+    pairs = [(d.view(-1, Kc), flat, r.reshape(-1, Kc)) for d, r in zip(data, rows)]
+    if scales:
+        h = torch.arange(H, device=dev)[None, None, :, None]
+        sflat = ((lp[:, :, None] * H + h) * ps + (p % ps)[None, :, None]).reshape(-1)
+        pairs += [(s.view(-1), sflat, r.reshape(-1)) for s, r in zip(scales, srows)]
+    library_ms = _cuda_ms(lambda: [d.index_copy_(0, i, r) for d, i, r in pairs])
+    nbytes = (2 * sum(r.numel() * r.element_size() for r in rows + srows)
+              + table.numel() * 4 + pos.numel() * 4)
+    record("append_paged_rows_inplace", f"{label}T={T}", 0.0, "bit-exact", ms, plain_ms,
+           nbytes, 0.0, library_ms)
 
 
 def quant_kernel_cases(torch, gen, record):
@@ -608,6 +795,165 @@ def main_path(torch, wrappers, required, argv, forbidden=(), min_tokens_per_step
     return res, launches, peak
 
 
+# The serving paths: llama-3.2-1b widths, synthetic weights, gamma 3, draft
+# budget 257, max_gen 80, 16 slots over 8192-row slots in 512-row pages, 32
+# requests of distinct lengths in [4192, 7875] (--ragged with --seed 107;
+# a prefix_len of 62 x 128 makes serving_bench's target prefill chunk 512).
+SERVE_ARGV = ["--paged", "--slots", "16", "--num_requests", "32", "--prefix_len", "7936",
+              "--ragged", "--seed", "107", "--max_len", "8192", "--page_size", "512"]
+
+
+def _serving_summary(out):
+    st = out["stats"]
+    per_req = [(len(o) - 1) / max(n, 1) for o, n in zip(out["outputs"], st["request_passes"])]
+    return (f"{out['result']['value']} tok/s, {len(out['outputs']) / out['seconds']:.3f} req/s, "
+            f"mean queue {st['mean_queue_ms']:.1f} ms, mean service "
+            f"{st['mean_service_ms']:.1f} ms, {st['admission_waves']} admission waves "
+            f"taking {st['admission_time_s']:.2f} s of host time "
+            f"({st['page_blocked']} refills with a free slot blocked on pages), "
+            f"{st['windows']} windows, min free pages {st['min_free_pages']} of "
+            f"{st['total_pages']}, tokens/step {st['tokens_per_step']:.3f} (per request min "
+            f"{min(per_req):.3f}, max {max(per_req):.3f})")
+
+
+def serving_path(torch, wrappers, required, paged_attend, extra, forbidden=(),
+                 min_tokens_per_step=1.8):
+    """``python -m magicdec_tpu_torch.serving_bench`` with SERVE_ARGV +
+    ``extra`` (with ``--skip_warmup``, the timed serve of 32 requests only;
+    else a warmup serve of 16 first), the counters zeroed just before and
+    read just after.  Fails unless
+    every kernel in ``required`` launched, none in ``forbidden`` did, the
+    paged decode kernel ``paged_attend`` launched once a layer per target
+    pass (16 x the windows of the serves), the prompts are the distinct
+    lengths asked for, and tokens per step reach the floor.  Returns
+    (serving_bench output, launches, peak GiB)."""
+    from magicdec_tpu_torch import serving_bench
+
+    argv = SERVE_ARGV + extra
+    for w in wrappers:
+        w.launches = 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = serving_bench.main(argv)
+    wall = time.perf_counter() - t0
+    launches = {w.__name__: w.launches for w in wrappers}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    tag = " ".join(extra) or "bf16 pool"
+    print(f"[serve {tag}] wall={wall:.1f}s launches={launches} peak_mem={peak:.2f} GiB",
+          flush=True)
+    print(f"[serve {tag}] " + _serving_summary(out), flush=True)
+    lens = [len(p) for p in out["prompts"]]
+    if len(set(lens)) != len(lens) or min(lens) < 4096 or max(lens) > 8000:
+        raise AssertionError(f"the prompt lengths are not distinct in [4096, 8000]: {lens}")
+    for w in required:
+        if launches[w.__name__] <= 0:
+            raise AssertionError(f"the serving path ({tag}) never launched {w.__name__}")
+    for w in forbidden:
+        if launches[w.__name__]:
+            raise AssertionError(f"the serving path ({tag}) launched {w.__name__}, which it "
+                                 "must not reach")
+    passes = out["stats"]["windows"] + (out["warmup_stats"] or {}).get("windows", 0)
+    if launches[paged_attend.__name__] != 16 * passes:
+        raise AssertionError(f"{paged_attend.__name__} launched "
+                             f"{launches[paged_attend.__name__]} times, not 16 layers x "
+                             f"{passes} target passes")
+    if out["stats"]["tokens_per_step"] < min_tokens_per_step:
+        raise AssertionError(f"acceptance collapsed ({tag}): "
+                             f"{out['stats']['tokens_per_step']} tokens/step")
+    return out, launches, peak
+
+
+def _same_tokens(what, outs, refs):
+    """Raises unless every request's tokens agree; returns a summary."""
+    differ = [i for i, (o, r) in enumerate(zip(outs, refs)) if not np_equal(o, r)]
+    if differ:
+        i = differ[0]
+        o, r = outs[i], refs[i]
+        first = next((j for j in range(min(len(o), len(r))) if o[j] != r[j]),
+                     min(len(o), len(r)))
+        raise AssertionError(f"{what}: {len(differ)} of {len(outs)} requests differ; request "
+                             f"{i} first at token {first} ({len(o)} against {len(r)} tokens)")
+    return f"{what}: all {len(outs)} requests agree on every token"
+
+
+def np_equal(a, b):
+    return len(a) == len(b) and bool((a == b).all())
+
+
+def contiguous_serve(extra, prompts):
+    """The same prompts through ``ServingEngine`` (contiguous slots), slots
+    and windows_per_sync of the paged run."""
+    from magicdec_tpu_torch import serving_bench
+
+    args = serving_bench.parse_args([a for a in SERVE_ARGV + extra if a != "--paged"])
+    engine, _ = serving_bench.setup(args)
+    return engine.serve(prompts, B=args.slots, windows_per_sync=args.windows_per_sync)
+
+
+def serving_phase(torch, wrappers, kernels):
+    """The paged serving paths (bf16, int8 at full and half capacity, int4
+    pools), each against ServingEngine on the same prompts, and served ==
+    solo on the int8 path.  Returns the launches of each kernel's path."""
+    from magicdec_tpu_torch import serving_bench
+
+    DA, PA, AP, PGA = (kernels[n] for n in ("DA", "PA", "AP", "PGA"))
+    paged_all = [PGA.flash_paged_decode_attend, PGA.flash_paged_decode_attend_quant,
+                 PGA.flash_paged_decode_attend_quant4]
+    draft = [DA.flash_decode_attend, AP.append_all_rows_inplace]
+    paths = {
+        "bf16": ([], [PGA.flash_paged_decode_attend, PA.flash_prefill_attend]),
+        "int8": (["--kv_quant", "int8"], [PGA.flash_paged_decode_attend_quant,
+                                          PA.flash_prefill_attend_quant,
+                                          AP.append_all_rows_inplace_quant]),
+        "int4": (["--kv_quant", "int4"], [PGA.flash_paged_decode_attend_quant4,
+                                          PA.flash_prefill_attend_quant4,
+                                          AP.append_all_rows_inplace_quant]),
+    }
+    result = {}
+    peaks = {}
+    for fmt, (extra, own) in paths.items():
+        # the first path as a user runs it; the others skip the warmup serve
+        extra = extra + ([] if fmt == "bf16" else ["--skip_warmup"])
+        out, launches, peaks[fmt] = serving_path(
+            torch, wrappers, own + draft + [PGA.append_paged_rows_inplace], own[0], extra,
+            forbidden=[w for w in paged_all if w is not own[0]])
+        result[own[0].__name__] = launches[own[0].__name__]
+        if fmt == "bf16":
+            result["append_paged_rows_inplace"] = launches["append_paged_rows_inplace"]
+        t0 = time.perf_counter()
+        contig = contiguous_serve(extra, out["prompts"])
+        print(f"[serve {fmt}] " + _same_tokens(
+            "PagedServingEngine against ServingEngine", out["outputs"], contig)
+            + f" (contiguous serve {time.perf_counter() - t0:.1f}s)", flush=True)
+        del contig
+        if fmt != "int8":
+            continue
+        # backpressure: half the pages of 16 slots x 16 pages
+        half, _, peaks["int8 half"] = serving_path(
+            torch, wrappers, own + draft + [PGA.append_paged_rows_inplace], own[0],
+            extra + ["--total_pages", "128"], forbidden=paged_all[::2])
+        print("[serve int8 half] " + _same_tokens("the half pool against the full pool",
+                                                  half["outputs"], out["outputs"]), flush=True)
+        if half["stats"]["page_blocked"] <= 0:
+            raise AssertionError("the half pool never made a free slot wait for pages")
+        # served == solo: each of 8 requests alone through the same 16 slots
+        engine, _ = serving_bench.setup(serving_bench.parse_args(SERVE_ARGV + extra))
+        idx = list(range(0, 32, 4))
+        t0 = time.perf_counter()
+        solo = [engine.serve([out["prompts"][i]], B=16, windows_per_sync=4)[0] for i in idx]
+        print(f"[serve int8] " + _same_tokens(
+            "served against solo (8 requests, each alone through the same 16 slots)",
+            [out["outputs"][i] for i in idx], solo)
+            + f" ({time.perf_counter() - t0:.1f}s)", flush=True)
+        del engine, solo
+    print("[serve] peak device memory: " + ", ".join(f"{k} pool {v:.2f} GiB"
+                                                     for k, v in peaks.items()), flush=True)
+    if peaks["int8 half"] >= peaks["int8"]:
+        raise AssertionError("the half pool did not peak below the full one")
+    return result
+
+
 def row_invariance_phase(torch, B=32):
     """Is a target row computed the same at verify (M = B*(gamma+1) rows) as
     at the AR step (M = B)?  At the bench's widths, each target dot alone,
@@ -739,13 +1085,17 @@ def profile_phase(torch, argv=(), pad_pairs=True):
         del st
         st = encode(prompt)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # device activity only: the host-side op events, which nothing here
+        # reads, made the trace's post-processing the slowest phase of the run
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             st, _ = generate(st)
             torch.cuda.synchronize()
         del st
         kern = [e for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA]
         busy = sum(_device_ms(e) for e in kern)
+        if not kern or busy <= 0:
+            raise AssertionError(f"the profiler saw no device time ({tag}, {name})")
         steps = (int(stats["target_steps"]) if name == "spec"
                  else int(stats["num_committed"][0]) - 1)
         by_class = {}
@@ -813,6 +1163,7 @@ def main():
         from magicdec_tpu_torch.kernels import append as AP
         from magicdec_tpu_torch.kernels import build
         from magicdec_tpu_torch.kernels import decode_attention as DA
+        from magicdec_tpu_torch.kernels import paged_attention as PGA
         from magicdec_tpu_torch.kernels import prefill_attention as PA
         from magicdec_tpu_torch.kernels import quant_matmul as QK
     except ImportError as exc:
@@ -826,14 +1177,19 @@ def main():
     print(smi, flush=True)
     print(f"[device] {torch.cuda.get_device_name(0)} count={torch.cuda.device_count()} "
           f"torch={torch.__version__} cuda={torch.version.cuda}", flush=True)
-    t0 = time.perf_counter()
+    t_start = time.perf_counter()
+
+    def phase_done(name):
+        print(f"[time] {name} done at {time.perf_counter() - t_start:.1f}s", flush=True)
+
     lib = build.build(verbose=True)
-    print(f"[build] {lib.name} in {time.perf_counter() - t0:.1f}s", flush=True)
+    print(f"[build] {lib.name} in {time.perf_counter() - t_start:.1f}s", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = kernel_phase(torch, gen)
+    phase_done("kernel phase")
 
     dense = [DA.flash_decode_attend, PA.flash_prefill_attend, AP.append_all_rows_inplace]
     quant = [DA.flash_decode_attend_quant, PA.flash_prefill_attend_quant,
@@ -841,12 +1197,15 @@ def main():
     dots = [QK.quant_matmul_fused, QK.quant_layer_tail, QK.quant_matmul]
     quant4 = [DA.flash_decode_attend_quant4, PA.flash_prefill_attend_quant4]
     dots4 = [QK.quant_matmul_fused_int4, QK.quant_matmul_int4]
-    wrappers = dense + quant + dots + [QK.quant_mlp] + quant4 + dots4
-    # (1) the default path: the target on the int8 KV kernels, the draft's
-    # int8 weight copy on B4/B5/B6 and its bf16 cache on K1 and K3
+    paged = [PGA.flash_paged_decode_attend, PGA.flash_paged_decode_attend_quant,
+             PGA.flash_paged_decode_attend_quant4, PGA.append_paged_rows_inplace]
+    wrappers = dense + quant + dots + [QK.quant_mlp] + quant4 + dots4 + paged
+    # (1) the default path (one measured repeat): the target on the int8 KV
+    # kernels, the draft's int8 weight copy on B4/B5/B6 and its bf16 cache
+    # on K1 and K3
     _, launches, peak8 = main_path(
         torch, wrappers, quant + dots + [DA.flash_decode_attend, AP.append_all_rows_inplace],
-        [])
+        ["--iters", "1"], forbidden=paged)
     # (2) all bf16 (one measured repeat): K2 carries the target prefill
     _, launches16, peak16 = main_path(
         torch, wrappers, dense, ["--kv_quant", "none", "--draft_quant", "none", "--iters", "1"])
@@ -882,14 +1241,20 @@ def main():
         raise AssertionError("the int8 path did not lower peak device memory")
     if peak4 >= peak8:
         raise AssertionError("the int4 path did not lower peak device memory below int8's")
+    phase_done("main paths")
+    # (6)-(9) the paged serving paths
+    launches.update(serving_phase(torch, wrappers, {"DA": DA, "PA": PA, "AP": AP, "PGA": PGA}))
+    phase_done("serving paths")
     # the row-invariance question (PERF.md): is a target row computed the
     # same at verify and at the AR step; at B=4 and 2 the live row counts
     # differ (cuBLAS's w2, torch's row mean), the padded ones the engine runs
     # must not
     for B in (32, 4, 2):
         row_invariance_phase(torch, B)
+    phase_done("row invariance")
     profile_phase(torch)
     profile_phase(torch, ["--kv_quant", "int4", "--draft_quant", "int4"], pad_pairs=False)
+    phase_done("profiles")
 
     meta = {
         "flash_decode_attend": ("magicdec_tpu_torch/csrc/decode_attention.cu",
@@ -922,6 +1287,14 @@ def main():
                                     "magicdec_tpu/ops/pallas/quant_matmul.py:151"),
         "quant_matmul_int4": ("magicdec_tpu_torch/csrc/quant_matmul.cu",
                               "magicdec_tpu/ops/pallas/quant_matmul.py:189"),
+        "flash_paged_decode_attend": ("magicdec_tpu_torch/csrc/paged_attention.cu",
+                                      "magicdec_tpu/ops/pallas/paged_attention.py:122"),
+        "flash_paged_decode_attend_quant": ("magicdec_tpu_torch/csrc/paged_attention.cu",
+                                            "magicdec_tpu/ops/pallas/paged_attention.py:147"),
+        "flash_paged_decode_attend_quant4": ("magicdec_tpu_torch/csrc/paged_attention.cu",
+                                             "magicdec_tpu/ops/pallas/paged_attention.py:176"),
+        "append_paged_rows_inplace": ("magicdec_tpu_torch/csrc/paged_attention.cu",
+                                      "magicdec_tpu/ops/pallas/paged_attention.py:212"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():

@@ -50,11 +50,23 @@
 // same packed bytes: the second read mostly hits L2 (the blocks of one
 // request's heads run side by side), so DRAM traffic stays at the packed
 // bytes, while the L2 traffic is that of an int8 cache.
+//
+// Page pools (PAGED = true: the B12 paged decode kernels).  The cache is a
+// pool [L, P, ps, K] shared by all requests, and row r of request b lives
+// in page table[b*npr + r/ps] at row r%ps (scales: pool [L, P, Hkv, ps]).
+// Only the address of a row changes (RowAddr); tiles, splits and
+// arithmetic are the contiguous kernel's at S = npr*ps, so a paged launch
+// gives the bits of a contiguous launch over the gathered cache.  A page
+// is resolved per 16-byte chunk (and per 4-byte scale), so a 32-row tile
+// may span pages of any size.  Rows at or past a request's visible length
+// are never read through the table.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace md {
 
@@ -79,8 +91,53 @@ struct AttnArgs {
   __nv_bfloat16* out;          // [B, T, Hq, HD]            (nsplit == 1)
   float* part_o;               // [B, Hkv, nsplit, R, HD]   (nsplit > 1)
   float* part_ml;              // [B, Hkv, nsplit, R, 2]
+  const int* table;            // [B, npr] pool page of each logical page (PAGED)
   int layer, B, S, T, Hq, Hkv, nsplit, chunk;
+  int P, ps, npr;              // PAGED: pool pages, rows per page, pages per
+                               // request (S = npr * ps)
 };
+
+// Where KV position r of one (layer, request, head) lies: contiguous, row r
+// of the request's rows (base + r * stride); paged, row r % ps of pool page
+// table[r / ps] (base + table[r / ps] * page_stride + (r % ps) * stride).
+template <typename T, bool PAGED>
+struct RowAddr {
+  const T* base;       // contiguous: position 0; paged: page 0 of the layer
+  const int* table;    // paged: the request's row of the page table
+  size_t page_stride;  // paged: elements from one page to the next
+  int stride;          // elements from one position to the next inside a page
+  int ps;              // paged: rows per page
+  __device__ __forceinline__ const T* operator()(int r) const {
+    if constexpr (PAGED)
+      return base + (size_t)__ldg(table + r / ps) * page_stride + (size_t)(r % ps) * stride;
+    else
+      return base + (size_t)r * stride;
+  }
+};
+
+// The rows of head lane offset h_lane of request b in layer a.layer of a
+// cache (or pool) whose rows are K elements wide.
+template <typename T, bool PAGED>
+__device__ __forceinline__ RowAddr<T, PAGED> kv_rows(const AttnArgs& a, const T* cache, int b,
+                                                     int K, int h_lane) {
+  if constexpr (PAGED)
+    return {cache + (size_t)a.layer * a.P * a.ps * K + h_lane, a.table + (size_t)b * a.npr,
+            (size_t)a.ps * K, K, a.ps};
+  else
+    return {cache + (((size_t)a.layer * a.B + b) * a.S) * K + h_lane, nullptr, 0, K, 0};
+}
+
+// The scales of kv head h of request b in layer a.layer: [L, B, Hkv, S]
+// contiguous, [L, P, Hkv, ps] paged.
+template <bool PAGED>
+__device__ __forceinline__ RowAddr<float, PAGED> scale_rows(const AttnArgs& a,
+                                                            const float* scale, int b, int h) {
+  if constexpr (PAGED)
+    return {scale + ((size_t)a.layer * a.P * a.Hkv + h) * a.ps, a.table + (size_t)b * a.npr,
+            (size_t)a.Hkv * a.ps, 1, a.ps};
+  else
+    return {scale + (((size_t)a.layer * a.B + b) * a.Hkv + h) * a.S, nullptr, 0, 1, 0};
+}
 
 __device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4],
                                                uint32_t b0, uint32_t b1) {
@@ -136,11 +193,12 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Start copying KV positions [c0, c0 + N) into a padded shared tile:
-// positions below `fresh_at` from the cache, from there on from the fresh
-// rows (both with row stride `stride`).  Positions at or past c_end are
-// zero-filled, so a masked column never multiplies uninitialised memory.
-template <int HD, int N, int NT>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* cache,
+// positions below `fresh_at` from the cache (row addresses from `cache`),
+// from there on from the fresh rows (row stride `stride`).  Positions at
+// or past c_end are zero-filled, so a masked column never multiplies
+// uninitialised memory.
+template <int HD, int N, int NT, typename Addr>
+__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const Addr& cache,
                                           const __nv_bfloat16* fresh, int fresh_at,
                                           int stride, int c0, int c_end) {
   constexpr int kVec = HD / 8;
@@ -148,8 +206,8 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat1
   for (int i = threadIdx.x; i < N * kVec; i += NT) {
     const int row = i / kVec, c8 = i % kVec, col = c0 + row;
     const bool valid = col < c_end;
-    const __nv_bfloat16* src = !valid           ? cache
-                               : col < fresh_at ? cache + (size_t)col * stride + c8 * 8
+    const __nv_bfloat16* src = !valid           ? cache.base
+                               : col < fresh_at ? cache(col) + c8 * 8
                                                 : fresh + (size_t)(col - fresh_at) * stride + c8 * 8;
     cp_async16(dst + row * LD + c8 * 8, src, valid);
   }
@@ -157,31 +215,31 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat1
 
 // int8 counterpart of load_tile: positions [c0, c0 + N) of one head, HD
 // bytes a row, into dst [N][HD] bytes.
-template <int HD, int N, int NT>
-__device__ __forceinline__ void load_tile_i8(int8_t* dst, const int8_t* cache,
+template <int HD, int N, int NT, typename Addr>
+__device__ __forceinline__ void load_tile_i8(int8_t* dst, const Addr& cache,
                                              const int8_t* fresh, int fresh_at, int stride,
                                              int c0, int c_end) {
   constexpr int kVec = HD / 16;
   for (int i = threadIdx.x; i < N * kVec; i += NT) {
     const int row = i / kVec, c16 = i % kVec, col = c0 + row;
     const bool valid = col < c_end;
-    const int8_t* src = !valid           ? cache
-                        : col < fresh_at ? cache + (size_t)col * stride + c16 * 16
+    const int8_t* src = !valid           ? cache.base
+                        : col < fresh_at ? cache(col) + c16 * 16
                                          : fresh + (size_t)(col - fresh_at) * stride + c16 * 16;
     cp_async16(dst + row * HD + c16 * 16, src, valid);
   }
 }
 
-// The scales of positions [c0, c0 + N) of one head: `cache` points at the
-// head's scale row (S contiguous columns), `fresh` at the fresh rows' (T
-// columns, the first at position fresh_at).  Zero past c_end.
-template <int N, int NT>
-__device__ __forceinline__ void load_scales(float* dst, const float* cache, const float* fresh,
+// The scales of positions [c0, c0 + N) of one head: `cache` addresses the
+// head's scales (scale_rows), `fresh` points at the fresh rows' (T columns,
+// the first at position fresh_at).  Zero past c_end.
+template <int N, int NT, typename Addr>
+__device__ __forceinline__ void load_scales(float* dst, const Addr& cache, const float* fresh,
                                             int fresh_at, int c0, int c_end) {
   for (int i = threadIdx.x; i < N; i += NT) {
     const int col = c0 + i;
     const bool valid = col < c_end;
-    const float* src = !valid ? cache : col < fresh_at ? cache + col : fresh + (col - fresh_at);
+    const float* src = !valid ? cache.base : col < fresh_at ? cache(col) : fresh + (col - fresh_at);
     cp_async4(dst + i, src, valid);
   }
 }
@@ -395,10 +453,12 @@ struct TileSmem<HD, N, true> {
 
 // The kernel body.  Grid (row_blocks * nsplit, Hkv, B), W warps per block.
 // INT4 (with QUANT): the cache rows and fresh rows are packed in head pairs.
+// PAGED: the cache is a page pool read through a.table (RowAddr).
 // Split `split` covers positions [split*chunk, (split+1)*chunk); token t sees
 // positions [0, base + t + 1).  nsplit == 1 writes the normalised output;
 // nsplit > 1 writes (o, m, l) partials that a combine pass merges.
-template <int HD, int N, int W, int MIN_BLOCKS = 1, bool QUANT = false, bool INT4 = false>
+template <int HD, int N, int W, int MIN_BLOCKS = 1, bool QUANT = false, bool INT4 = false,
+          bool PAGED = false>
 __global__ void __launch_bounds__(32 * W, MIN_BLOCKS) attend_kernel(AttnArgs a) {
   static_assert(QUANT || !INT4, "an int4 cache is a quantized cache");
   constexpr int NT = 32 * W;
@@ -448,7 +508,23 @@ __global__ void __launch_bounds__(32 * W, MIN_BLOCKS) attend_kernel(AttnArgs a) 
   w.m[0] = w.m[1] = kNegInf;
   w.l[0] = w.l[1] = 0.f;
 
-  const size_t kv_off = (((size_t)a.layer * a.B + b) * a.S) * K + h_lane;
+  using CacheT = std::conditional_t<QUANT, int8_t, __nv_bfloat16>;
+  const CacheT* kc;
+  const CacheT* vc;
+  if constexpr (QUANT) {
+    kc = a.kq;
+    vc = a.vq;
+  } else {
+    kc = a.k;
+    vc = a.v;
+  }
+  const RowAddr<CacheT, PAGED> krows = kv_rows<CacheT, PAGED>(a, kc, b, K, h_lane);
+  const RowAddr<CacheT, PAGED> vrows = kv_rows<CacheT, PAGED>(a, vc, b, K, h_lane);
+  RowAddr<float, PAGED> ksrows{}, vsrows{};
+  if constexpr (QUANT) {
+    ksrows = scale_rows<PAGED>(a, a.k_scale, b, h);
+    vsrows = scale_rows<PAGED>(a, a.v_scale, b, h);
+  }
   const size_t f_off = (size_t)b * a.T * K + h_lane;
   const int fresh_at = fresh ? base : a.S;  // first position read from k_new
   const int lim_s[2] = {min(lim[0], hi_s), min(lim[1], hi_s)};
@@ -456,20 +532,19 @@ __global__ void __launch_bounds__(32 * W, MIN_BLOCKS) attend_kernel(AttnArgs a) 
   const __nv_bfloat16* vn = fresh ? a.v_new + f_off : nullptr;
   const int8_t* kqn = fresh ? a.kq_new + f_off : nullptr;
   const int8_t* vqn = fresh ? a.vq_new + f_off : nullptr;
-  const size_t s_off = (((size_t)a.layer * a.B + b) * a.Hkv + h) * a.S;  // scale rows
   const size_t sn_off = ((size_t)b * a.Hkv + h) * a.T;
   const float* ksn = fresh ? a.ks_new + sn_off : nullptr;
   const float* vsn = fresh ? a.vs_new + sn_off : nullptr;
   // issue the copies of the tile at position c into stage st
   auto issue = [&](int st, int c) {
     if constexpr (QUANT) {
-      load_tile_i8<HD, N, NT>(sm.Kq[st], a.kq + kv_off, kqn, fresh_at, K, c, hi_s);
-      load_tile_i8<HD, N, NT>(sm.Vq[st], a.vq + kv_off, vqn, fresh_at, K, c, hi_s);
-      load_scales<N, NT>(sm.Ks[st], a.k_scale + s_off, ksn, fresh_at, c, hi_s);
-      load_scales<N, NT>(sm.Vs[st], a.v_scale + s_off, vsn, fresh_at, c, hi_s);
+      load_tile_i8<HD, N, NT>(sm.Kq[st], krows, kqn, fresh_at, K, c, hi_s);
+      load_tile_i8<HD, N, NT>(sm.Vq[st], vrows, vqn, fresh_at, K, c, hi_s);
+      load_scales<N, NT>(sm.Ks[st], ksrows, ksn, fresh_at, c, hi_s);
+      load_scales<N, NT>(sm.Vs[st], vsrows, vsn, fresh_at, c, hi_s);
     } else {
-      load_tile<HD, N, NT>(sm.K[st], a.k + kv_off, kn, fresh_at, K, c, hi_s);
-      load_tile<HD, N, NT>(sm.V[st], a.v + kv_off, vn, fresh_at, K, c, hi_s);
+      load_tile<HD, N, NT>(sm.K[st], krows, kn, fresh_at, K, c, hi_s);
+      load_tile<HD, N, NT>(sm.V[st], vrows, vn, fresh_at, K, c, hi_s);
     }
   };
   if (lo < hi_s) issue(0, lo);
@@ -597,30 +672,56 @@ inline bool quant_args(AttnArgs& a, const void* q, const void* k, const void* v,
   return true;
 }
 
-template <int W, bool INT4>
-void launch_decode_quant(const AttnArgs& a, cudaStream_t stream) {
+template <int W, bool QUANT, bool INT4, bool PAGED>
+void launch_decode(const AttnArgs& a, cudaStream_t stream) {
   dim3 grid(a.nsplit, a.Hkv, a.B);
-  attend_kernel<64, 32, W, 1, true, INT4><<<grid, 32 * W, 0, stream>>>(a);
+  attend_kernel<64, 32, W, 1, QUANT, INT4, PAGED><<<grid, 32 * W, 0, stream>>>(a);
   if (a.nsplit > 1) combine_kernel<64><<<dim3(a.Hkv, a.B), 256, 0, stream>>>(a, 16 * W);
 }
 
-// Decode over a quantized cache: 32-row tiles, one block per (split, kv
-// head, request) of 16 grouped query rows a warp (1 to 8 warps), then the
-// combine pass when a.nsplit > 1.  Returns cudaGetLastError().
-template <bool INT4>
-int decode_attend_quant(const AttnArgs& a, cudaStream_t st) {
+// Decode (K1, K1q, B10; PAGED: their B12 twins): 32-row tiles, one block
+// per (split, kv head, request) of 16 grouped query rows a warp (1 to 8
+// warps), then the combine pass when a.nsplit > 1.  The caller sizes
+// part_o/part_ml with R = 16 * W rows (rows_pad in
+// kernels/decode_attention.py).  Returns cudaGetLastError().
+template <bool QUANT, bool INT4, bool PAGED = false>
+int decode_attend(const AttnArgs& a, cudaStream_t st) {
   const int rows = (a.Hq / a.Hkv) * a.T;
   if (rows <= 16)
-    launch_decode_quant<1, INT4>(a, st);
+    launch_decode<1, QUANT, INT4, PAGED>(a, st);
   else if (rows <= 32)
-    launch_decode_quant<2, INT4>(a, st);
+    launch_decode<2, QUANT, INT4, PAGED>(a, st);
   else if (rows <= 64)
-    launch_decode_quant<4, INT4>(a, st);
+    launch_decode<4, QUANT, INT4, PAGED>(a, st);
   else if (rows <= 128)
-    launch_decode_quant<8, INT4>(a, st);
+    launch_decode<8, QUANT, INT4, PAGED>(a, st);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
+}
+
+// The bf16 counterpart of quant_args (K1; B12's bf16 entry point).
+inline bool dense_args(AttnArgs& a, const void* q, const void* k, const void* v,
+                       const void* k_new, const void* v_new, const void* base_lens, void* out,
+                       int layer, int B, int S, int T, int Hq, int Hkv, int hd) {
+  if (hd != 64) return false;
+  a = AttnArgs{};  // the int8 fields stay null
+  a.q = static_cast<const __nv_bfloat16*>(q);
+  a.k = static_cast<const __nv_bfloat16*>(k);
+  a.v = static_cast<const __nv_bfloat16*>(v);
+  a.k_new = static_cast<const __nv_bfloat16*>(k_new);
+  a.v_new = static_cast<const __nv_bfloat16*>(v_new);
+  a.base_lens = static_cast<const int*>(base_lens);
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.layer = layer;
+  a.B = B;
+  a.S = S;
+  a.T = T;
+  a.Hq = Hq;
+  a.Hkv = Hkv;
+  a.nsplit = 1;
+  a.chunk = S;
+  return true;
 }
 
 // Chunked prefill over a quantized cache: 128 grouped query rows of one

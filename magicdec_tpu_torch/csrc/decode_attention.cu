@@ -22,18 +22,6 @@
 // never loaded, as the TPU kernel's clamped index maps skip them.
 #include "attention_common.cuh"
 
-namespace md {
-
-template <int HD, int W>
-static void launch(const AttnArgs& a, cudaStream_t stream) {
-  constexpr int N = 32;
-  dim3 grid(a.nsplit, a.Hkv, a.B);
-  attend_kernel<HD, N, W><<<grid, 32 * W, 0, stream>>>(a);
-  if (a.nsplit > 1) combine_kernel<HD><<<dim3(a.Hkv, a.B), 256, 0, stream>>>(a, 16 * W);
-}
-
-}  // namespace md
-
 // Rows per (request, kv head) G*T are served by W = 1, 2, 4 or 8 warps of 16
 // rows; the caller sizes part_o/part_ml with R = 16 * W (rows_pad in
 // kernels/decode_attention.py).  Returns cudaGetLastError().
@@ -42,36 +30,12 @@ extern "C" int md_decode_attend(const void* q, const void* k, const void* v,
                                 const void* base_lens, void* out, void* part_o,
                                 void* part_ml, int layer, int B, int S, int T, int Hq,
                                 int Hkv, int hd, int nsplit, int chunk, void* stream) {
-  if (hd != 64) return (int)cudaErrorInvalidValue;
-  md::AttnArgs a{};  // the int8 fields stay null
-  a.q = static_cast<const __nv_bfloat16*>(q);
-  a.k = static_cast<const __nv_bfloat16*>(k);
-  a.v = static_cast<const __nv_bfloat16*>(v);
-  a.k_new = static_cast<const __nv_bfloat16*>(k_new);
-  a.v_new = static_cast<const __nv_bfloat16*>(v_new);
-  a.base_lens = static_cast<const int*>(base_lens);
-  a.out = static_cast<__nv_bfloat16*>(out);
+  md::AttnArgs a;
+  if (!md::dense_args(a, q, k, v, k_new, v_new, base_lens, out, layer, B, S, T, Hq, Hkv, hd))
+    return (int)cudaErrorInvalidValue;
   a.part_o = static_cast<float*>(part_o);
   a.part_ml = static_cast<float*>(part_ml);
-  a.layer = layer;
-  a.B = B;
-  a.S = S;
-  a.T = T;
-  a.Hq = Hq;
-  a.Hkv = Hkv;
   a.nsplit = nsplit;
   a.chunk = chunk;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int rows = (Hq / Hkv) * T;
-  if (rows <= 16)
-    md::launch<64, 1>(a, st);
-  else if (rows <= 32)
-    md::launch<64, 2>(a, st);
-  else if (rows <= 64)
-    md::launch<64, 4>(a, st);
-  else if (rows <= 128)
-    md::launch<64, 8>(a, st);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  return md::decode_attend<false, false>(a, static_cast<cudaStream_t>(stream));
 }

@@ -38,5 +38,5 @@ extern "C" int md_decode_attend_quant(const void* q, const void* k, const void* 
   a.part_ml = static_cast<float*>(part_ml);
   a.nsplit = nsplit;
   a.chunk = chunk;
-  return md::decode_attend_quant<false>(a, static_cast<cudaStream_t>(stream));
+  return md::decode_attend<true, false>(a, static_cast<cudaStream_t>(stream));
 }

@@ -1,0 +1,188 @@
+// B12 and B13: paged decode attention and the paged append, over KV page
+// pools shared by all requests of a serving batch.
+//
+// B12 replaces magicdec_tpu/ops/pallas/paged_attention.py
+// flash_paged_decode_attend, flash_paged_decode_attend_quant and
+// flash_paged_decode_attend_quant4 (_paged_call): the K1, K1q and B10
+// decode bodies over pools [L, P, ps, Kc] (bf16; int8; int4 packed in head
+// pairs, Kc = (Hkv/2)*hd) with f32 scale pools [L, P, Hkv, ps], reading row
+// r of request b from page table[b*npr + r/ps].  As in the TPU kernel the
+// bodies are shared and only the addressing differs: attend_kernel with
+// PAGED = true (attention_common.cuh RowAddr).  The split plan is the
+// contiguous kernel's at S = npr*ps (kernels/decode_attention.py
+// split_plan), so the paged kernel reads the same rows in the same tiles
+// and its output equals the contiguous kernel's over the gathered cache
+// bit for bit.  Bound: HBM bytes, as K1/K1q/B10; the table adds one 4-byte
+// read (an L1 hit) per 16-byte chunk.  Fresh rows ride as operands.
+//
+// B13 replaces paged_attention.py append_paged_rows_inplace (its dense
+// call :294 and quantized call :331, the _merge_rows_block and
+// _merge_scale_block RMW blocks): rows [L, B, T, Kc] land at the logical
+// positions [write_pos[b], write_pos[b] + T) of request b, every layer, k
+// and v (and their scale rows [L, B, H, T]) in ONE launch; a row at or past
+// S = npr*ps is dropped (no clamp and no shift, unlike K3's
+// dynamic_update_slice start).  Design: K3/K3q's (one 16-byte vector of k
+// and the same one of v per thread, 4-byte scale copies), with each row's
+// page looked up in the table; the TPU kernel's 8-row read-modify-write
+// blocks exist for its DMA granule, so no pool row is read here.  Bound:
+// HBM bytes, launch-bound at T <= 4.  Copies, so the result is bit-exact,
+// and pool pages the table does not name stay untouched.
+#include "attention_common.cuh"
+
+namespace {
+
+// The common operands of the three paged decode entry points; false when
+// the shapes are not the kernels'.
+bool paged_shape(md::AttnArgs& a, const void* table, int P, int ps, int npr, int nsplit,
+                 int chunk, void* part_o, void* part_ml) {
+  if (ps <= 0 || npr <= 0 || P <= 0) return false;
+  a.table = static_cast<const int*>(table);
+  a.P = P;
+  a.ps = ps;
+  a.npr = npr;
+  a.S = npr * ps;
+  a.nsplit = nsplit;
+  a.chunk = chunk;
+  a.part_o = static_cast<float*>(part_o);
+  a.part_ml = static_cast<float*>(part_ml);
+  return true;
+}
+
+__global__ void append_paged_rows_kernel(uint4* __restrict__ pk, uint4* __restrict__ pv,
+                                         float* __restrict__ sk, float* __restrict__ sv,
+                                         const uint4* __restrict__ rk,
+                                         const uint4* __restrict__ rv,
+                                         const float* __restrict__ srk,
+                                         const float* __restrict__ srv,
+                                         const int* __restrict__ pos,
+                                         const int* __restrict__ table, int B, int P, int ps,
+                                         int npr, int T, int H, int vec) {
+  const int b = blockIdx.y, l = blockIdx.z;
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  const int S = npr * ps;
+  const int* trow = table + (size_t)b * npr;
+  if (idx < T * vec) {
+    const int t = idx / vec, c = idx % vec;
+    const int p = pos[b] + t;
+    if (p >= 0 && p < S) {
+      const size_t page = (size_t)l * P + trow[p / ps];
+      const size_t src = (((size_t)l * B + b) * T + t) * vec + c;
+      const size_t dst = (page * ps + p % ps) * vec + c;
+      pk[dst] = rk[src];
+      pv[dst] = rv[src];
+    }
+  }
+  if (sk != nullptr && idx < H * T) {
+    const int h = idx / T, t = idx % T;
+    const int p = pos[b] + t;
+    if (p >= 0 && p < S) {
+      const size_t page = (size_t)l * P + trow[p / ps];
+      const size_t src = (((size_t)l * B + b) * H + h) * T + t;
+      const size_t dst = (page * H + h) * ps + p % ps;
+      sk[dst] = srk[src];
+      sv[dst] = srv[src];
+    }
+  }
+}
+
+int append_paged(void* pool_k, void* pool_v, void* spool_k, void* spool_v, const void* rows_k,
+                 const void* rows_v, const void* srows_k, const void* srows_v,
+                 const void* write_pos, const void* table, int L, int B, int P, int ps,
+                 int npr, int T, int H, int row_bytes, void* stream) {
+  if (row_bytes % 16 != 0 || T < 1 || ps <= 0 || npr <= 0) return (int)cudaErrorInvalidValue;
+  const int vec = row_bytes / 16;
+  const int threads = 256;
+  const int work = T * (vec > H ? vec : H);
+  dim3 grid((work + threads - 1) / threads, B, L);
+  append_paged_rows_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<uint4*>(pool_k), static_cast<uint4*>(pool_v), static_cast<float*>(spool_k),
+      static_cast<float*>(spool_v), static_cast<const uint4*>(rows_k),
+      static_cast<const uint4*>(rows_v), static_cast<const float*>(srows_k),
+      static_cast<const float*>(srows_v), static_cast<const int*>(write_pos),
+      static_cast<const int*>(table), B, P, ps, npr, T, H, vec);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// B12 over a bf16 pool: as md_decode_attend, with k_pool/v_pool [L, P, ps,
+// Hkv*hd] read through table [B, npr].  Returns cudaGetLastError().
+extern "C" int md_paged_decode_attend(const void* q, const void* k_pool, const void* v_pool,
+                                      const void* table, const void* k_new, const void* v_new,
+                                      const void* base_lens, void* out, void* part_o,
+                                      void* part_ml, int layer, int B, int P, int ps, int npr,
+                                      int T, int Hq, int Hkv, int hd, int nsplit, int chunk,
+                                      void* stream) {
+  md::AttnArgs a;
+  if (!md::dense_args(a, q, k_pool, v_pool, k_new, v_new, base_lens, out, layer, B, npr * ps,
+                      T, Hq, Hkv, hd) ||
+      !paged_shape(a, table, P, ps, npr, nsplit, chunk, part_o, part_ml))
+    return (int)cudaErrorInvalidValue;
+  return md::decode_attend<false, false, true>(a, static_cast<cudaStream_t>(stream));
+}
+
+// B12 over an int8 pool (INT4 = 0) or an int4 pool packed in head pairs
+// (INT4 = 1): as md_decode_attend_quant{,4}, with the pools [L, P, ps, Kc]
+// and the scale pools [L, P, Hkv, ps] read through table [B, npr].
+template <bool INT4>
+static int paged_decode_quant(const void* q, const void* k_pool, const void* v_pool,
+                              const void* k_scale, const void* v_scale, const void* table,
+                              const void* k_new, const void* v_new, const void* ks_new,
+                              const void* vs_new, const void* base_lens, void* out,
+                              void* part_o, void* part_ml, int layer, int B, int P, int ps,
+                              int npr, int T, int Hq, int Hkv, int hd, int nsplit, int chunk,
+                              void* stream) {
+  md::AttnArgs a;
+  if (!md::quant_args<INT4>(a, q, k_pool, v_pool, k_scale, v_scale, k_new, v_new, ks_new,
+                            vs_new, base_lens, out, layer, B, npr * ps, T, Hq, Hkv, hd) ||
+      !paged_shape(a, table, P, ps, npr, nsplit, chunk, part_o, part_ml))
+    return (int)cudaErrorInvalidValue;
+  return md::decode_attend<true, INT4, true>(a, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int md_paged_decode_attend_quant(
+    const void* q, const void* k_pool, const void* v_pool, const void* k_scale,
+    const void* v_scale, const void* table, const void* k_new, const void* v_new,
+    const void* ks_new, const void* vs_new, const void* base_lens, void* out, void* part_o,
+    void* part_ml, int layer, int B, int P, int ps, int npr, int T, int Hq, int Hkv, int hd,
+    int nsplit, int chunk, void* stream) {
+  return paged_decode_quant<false>(q, k_pool, v_pool, k_scale, v_scale, table, k_new, v_new,
+                                   ks_new, vs_new, base_lens, out, part_o, part_ml, layer, B,
+                                   P, ps, npr, T, Hq, Hkv, hd, nsplit, chunk, stream);
+}
+
+extern "C" int md_paged_decode_attend_quant4(
+    const void* q, const void* k_pool, const void* v_pool, const void* k_scale,
+    const void* v_scale, const void* table, const void* k_new, const void* v_new,
+    const void* ks_new, const void* vs_new, const void* base_lens, void* out, void* part_o,
+    void* part_ml, int layer, int B, int P, int ps, int npr, int T, int Hq, int Hkv, int hd,
+    int nsplit, int chunk, void* stream) {
+  return paged_decode_quant<true>(q, k_pool, v_pool, k_scale, v_scale, table, k_new, v_new,
+                                  ks_new, vs_new, base_lens, out, part_o, part_ml, layer, B,
+                                  P, ps, npr, T, Hq, Hkv, hd, nsplit, chunk, stream);
+}
+
+// B13, dense call: rows_k/rows_v [L, B, T, Kc] (row_bytes = Kc * element
+// size, a multiple of 16) into pool_k/pool_v [L, P, ps, Kc] at logical
+// positions write_pos[b] + t < npr * ps through table [B, npr].  Returns
+// cudaGetLastError().
+extern "C" int md_append_paged_rows(void* pool_k, void* pool_v, const void* rows_k,
+                                    const void* rows_v, const void* write_pos,
+                                    const void* table, int L, int B, int P, int ps, int npr,
+                                    int T, int row_bytes, void* stream) {
+  return append_paged(pool_k, pool_v, nullptr, nullptr, rows_k, rows_v, nullptr, nullptr,
+                      write_pos, table, L, B, P, ps, npr, T, 0, row_bytes, stream);
+}
+
+// B13, quantized call: int8 (or packed int4) rows as above, and in the same
+// launch their f32 scale rows srows_k/srows_v [L, B, H, T] into the scale
+// pools spool_k/spool_v [L, P, H, ps].  Returns cudaGetLastError().
+extern "C" int md_append_paged_rows_quant(void* pool_k, void* pool_v, void* spool_k,
+                                          void* spool_v, const void* rows_k, const void* rows_v,
+                                          const void* srows_k, const void* srows_v,
+                                          const void* write_pos, const void* table, int L,
+                                          int B, int P, int ps, int npr, int T, int H,
+                                          int row_bytes, void* stream) {
+  return append_paged(pool_k, pool_v, spool_k, spool_v, rows_k, rows_v, srows_k, srows_v,
+                      write_pos, table, L, B, P, ps, npr, T, H, row_bytes, stream);
+}

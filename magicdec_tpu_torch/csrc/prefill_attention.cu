@@ -24,25 +24,9 @@ extern "C" int md_prefill_attend(const void* q, const void* k, const void* v,
                                  const void* base_lens, void* out, int layer, int B,
                                  int S, int T, int Hq, int Hkv, int hd, void* stream) {
   constexpr int W = 8, N = 64;
-  if (hd != 64) return (int)cudaErrorInvalidValue;
-  md::AttnArgs a{};  // the int8 fields stay null
-  a.q = static_cast<const __nv_bfloat16*>(q);
-  a.k = static_cast<const __nv_bfloat16*>(k);
-  a.v = static_cast<const __nv_bfloat16*>(v);
-  a.k_new = static_cast<const __nv_bfloat16*>(k_new);
-  a.v_new = static_cast<const __nv_bfloat16*>(v_new);
-  a.base_lens = static_cast<const int*>(base_lens);
-  a.out = static_cast<__nv_bfloat16*>(out);
-  a.part_o = nullptr;
-  a.part_ml = nullptr;
-  a.layer = layer;
-  a.B = B;
-  a.S = S;
-  a.T = T;
-  a.Hq = Hq;
-  a.Hkv = Hkv;
-  a.nsplit = 1;
-  a.chunk = S;
+  md::AttnArgs a;
+  if (!md::dense_args(a, q, k, v, k_new, v_new, base_lens, out, layer, B, S, T, Hq, Hkv, hd))
+    return (int)cudaErrorInvalidValue;
   const int rows = (Hq / Hkv) * T;
   dim3 grid((rows + 16 * W - 1) / (16 * W), Hkv, B);
   // two resident blocks per SM (16 warps): caps the kernel at 128 registers

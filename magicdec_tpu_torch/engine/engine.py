@@ -88,6 +88,7 @@ class EngineConfig:
                                      # unchanged
     draft_quant_head: bool = True    # False: the quantized draft copy shares the
                                      # target's bf16 lm_head (no copy)
+    page_size: int = 2048            # paged serving (PagedServingEngine)
 
 
 class SpecEngine:
@@ -158,10 +159,13 @@ class SpecEngine:
 
     @staticmethod
     def _state_tcaches(st) -> dict:
-        """The target-cache dict of a state."""
+        """The target-cache dict of a state (with the page table of paged
+        serving's pools)."""
         c = {"k": st.k, "v": st.v}
         if st.ks is not None:
             c.update(ks=st.ks, vs=st.vs)
+        if getattr(st, "table", None) is not None:
+            c["table"] = st.table
         return c
 
     def _zero_caches(self, B: int):
@@ -249,32 +253,62 @@ class SpecEngine:
         return state, stats
 
     def _finish_window(self, st: SpecState, tokens_buffer, target_tokens, *,
-                       fill_after) -> SpecState:
-        """Acceptance, commit and batch-global termination."""
+                       fill_after, masks=None):
+        """Acceptance, commit and termination.
+
+        Fixed batch (``masks=None``): termination is batch-global, as the
+        reference's stop rule; returns the new state.  Serving
+        (``masks=(active, done_vec)``): acceptance and termination are per
+        request, and a slot that is not live keeps its lengths, fill,
+        position, token0 and double buffer; returns ``(state, done_vec)``.
+        """
         e = self.ecfg
         accept, bonus, eot_accepted = spec_ops.greedy_accept(
             target_tokens, tokens_buffer, self._eot)
+        if masks is not None:
+            active, done_vec = masks
+            live = active & ~done_vec
+            accept = torch.where(live, accept, 0).to(torch.int32)
         output = spec_ops.commit_tokens(st.output, st.num_committed, tokens_buffer, accept)
         committed = st.num_committed + accept
-        done = (eot_accepted.any() | spec_ops.is_eot(bonus, self._eot).any()
-                | (committed.max() >= e.max_gen))
-        output = torch.where(done, spec_ops.write_at(output, committed, bonus), output)
-        committed = committed + done.to(torch.int32)
+        if masks is None:
+            done = (eot_accepted.any() | spec_ops.is_eot(bonus, self._eot).any()
+                    | (committed.max() >= e.max_gen))
+            output = torch.where(done, spec_ops.write_at(output, committed, bonus), output)
+            committed = committed + done.to(torch.int32)
+        else:
+            newly_done = live & (eot_accepted | spec_ops.is_eot(bonus, self._eot)
+                                 | (committed >= e.max_gen))
+            output = torch.where(newly_done[:, None],
+                                 spec_ops.write_at(output, committed, bonus), output)
+            committed = committed + newly_done.to(torch.int32)
+            done_vec = done_vec | newly_done
+            done = (done_vec | ~active).all()
         full = accept == e.gamma + 1
         db_tokens = torch.stack([torch.where(full, tokens_buffer[:, e.gamma], bonus),
                                  torch.where(full, bonus, torch.zeros_like(bonus))], dim=1)
+        db_update = torch.where(full, 2, 1).to(torch.int32)
         new_fill = fill_after(accept)
-        return dataclasses.replace(
+        new_pos = new_fill + (st.draft_pos - st.draft_fill)
+        token0 = bonus
+        if masks is not None:
+            new_fill = torch.where(live, new_fill, st.draft_fill)
+            new_pos = torch.where(live, new_pos, st.draft_pos)
+            token0 = torch.where(live, token0, st.token0)
+            db_tokens = torch.where(live[:, None], db_tokens, st.db_tokens)
+            db_update = torch.where(live, db_update, st.db_update)
+        st = dataclasses.replace(
             st, target_lens=st.target_lens + accept, draft_fill=new_fill,
-            draft_pos=new_fill + (st.draft_pos - st.draft_fill), token0=bonus,
-            output=output, num_committed=committed,
+            draft_pos=new_pos, token0=token0, output=output, num_committed=committed,
             target_steps=st.target_steps + 1, done=done, db_tokens=db_tokens,
-            db_update=torch.where(full, 2, 1).to(torch.int32))
+            db_update=db_update)
+        return st if masks is None else (st, done_vec)
 
-    def _window_streaming(self, st: SpecState) -> SpecState:
+    def _window_streaming(self, st: SpecState, masks=None):
         """Double-buffer speculation window: the first draft step consumes the
         2-token double buffer (bonus + carried last-draft token after a fully
-        accepted window); the draft cache advances by at most gamma."""
+        accepted window); the draft cache advances by at most gamma.
+        ``masks``: serving mode, as in ``_finish_window``."""
         e = self.ecfg
         f0 = st.draft_fill
         delta = st.draft_pos - st.draft_fill
@@ -296,7 +330,8 @@ class SpecEngine:
                                             st.target_lens, self._state_tcaches(st))
         return self._finish_window(
             st, tokens_buffer, target_tokens,
-            fill_after=lambda acc: f0 + st.db_update - 1 + torch.clamp(acc, max=e.gamma))
+            fill_after=lambda acc: f0 + st.db_update - 1 + torch.clamp(acc, max=e.gamma),
+            masks=masks)
 
     # -- autoregressive baseline --------------------------------------------
 

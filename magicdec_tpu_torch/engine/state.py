@@ -1,8 +1,8 @@
 """Decode state of the engines (counterpart of magicdec_tpu/engine/state.py).
 
 Plain dataclasses of tensors.  The caches inside are updated in place by the
-model passes; the other fields are replaced each window.  The sampling and
-paged-serving fields of the reference arrive with their slices.
+model passes; the other fields are replaced each window.  The sampling
+fields of the reference arrive with their slice (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -35,6 +35,20 @@ class SpecState:
     # for a bf16 cache), the ops.kv_cache.quantize_kv_tokens layout
     ks: Optional[torch.Tensor] = None
     vs: Optional[torch.Tensor] = None
+    # Paged serving (engine/serving.PagedServingEngine): k/v (+ks/vs) are page
+    # POOLS [L, P, ps, Kc] (+ [L, P, Hkv, ps]) shared by the slots, and table
+    # [B, npr] int32 maps a slot's logical pages to pool pages.  None:
+    # contiguous caches.
+    table: Optional[torch.Tensor] = None
+
+
+@dataclasses.dataclass
+class ServingState:
+    """Continuous-batching state (engine/serving.py)."""
+
+    spec: SpecState
+    active: torch.Tensor         # [B] bool: the slot holds a live request
+    done: torch.Tensor           # [B] bool: its request finished, awaiting drain
 
 
 @dataclasses.dataclass

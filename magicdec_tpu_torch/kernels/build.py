@@ -45,6 +45,11 @@ SIGNATURES = {
     "md_decode_attend_quant4": [_P] * 13 + [_I] * 9 + [_P],
     "md_prefill_attend_quant4": [_P] * 11 + [_I] * 7 + [_P],
     "md_quant_matmul_int4": [_P] * 6 + [_I] * 6 + [_P],
+    "md_paged_decode_attend": [_P] * 10 + [_I] * 11 + [_P],
+    "md_paged_decode_attend_quant": [_P] * 14 + [_I] * 11 + [_P],
+    "md_paged_decode_attend_quant4": [_P] * 14 + [_I] * 11 + [_P],
+    "md_append_paged_rows": [_P] * 6 + [_I] * 7 + [_P],
+    "md_append_paged_rows_quant": [_P] * 10 + [_I] * 8 + [_P],
 }
 
 _lock = threading.Lock()

@@ -48,6 +48,20 @@ def rows_pad(rows: int) -> int:
     return 16 * w
 
 
+def split_buffers(q, Hkv: int, S: int):
+    """(nsplit, chunk, part_o, part_ml) of a decode launch over S positions:
+    the split plan and, with more than one split, the f32 partials the
+    combine pass merges (None otherwise)."""
+    B, T, Hq, hd = q.shape
+    nsplit, chunk = split_plan(B, Hkv, S)
+    if nsplit == 1:
+        return nsplit, chunk, None, None
+    R = rows_pad(Hq // Hkv * T)
+    part_o = torch.empty((B, Hkv, nsplit, R, hd), dtype=torch.float32, device=q.device)
+    part_ml = torch.empty((B, Hkv, nsplit, R, 2), dtype=torch.float32, device=q.device)
+    return nsplit, chunk, part_o, part_ml
+
+
 def _visible_layer(cache, layer, rows, base_lens):
     """Layer ``layer`` of the cache with the fresh rows written at base_lens
     (a copy): what the cache will hold once the caller appends them."""
@@ -102,12 +116,7 @@ def flash_decode_attend(q, k_cache, v_cache, base_lens, *, layer=0,
     require_bf16(q, k_cache, v_cache)
     lens = base_lens.to(torch.int32).contiguous()
     out = torch.empty_like(q)
-    nsplit, chunk = split_plan(B, Hkv, S)
-    R = rows_pad(Hq // Hkv * T)
-    part_o = part_ml = None
-    if nsplit > 1:
-        part_o = torch.empty((B, Hkv, nsplit, R, hd), dtype=torch.float32, device=q.device)
-        part_ml = torch.empty((B, Hkv, nsplit, R, 2), dtype=torch.float32, device=q.device)
+    nsplit, chunk, part_o, part_ml = split_buffers(q, Hkv, S)
     err = build.library().md_decode_attend(
         ptr(q), ptr(k_cache), ptr(v_cache), ptr(k_new), ptr(v_new), ptr(lens), ptr(out),
         ptr(part_o), ptr(part_ml), layer, B, S, T, Hq, Hkv, hd, nsplit, chunk,
@@ -170,8 +179,14 @@ def check_quant_operands(q, k_cache, k_scale, v_cache, v_scale, k_new, v_new, ks
     require(all(t.is_contiguous() for t in (k_cache, v_cache, k_scale, v_scale)),
             "caches and scales must be contiguous")
     require_bf16(q)
+    return Hkv, quant_fresh_operands(B, T, Hkv, K, k_new, v_new, ks_new, vs_new)
+
+
+def quant_fresh_operands(B, T, Hkv, K, k_new, v_new, ks_new, vs_new):
+    """The fresh rows of a quantized window (int8 [B, T, K] with f32 scales
+    [B, Hkv, T]) made contiguous, or four Nones when absent."""
     if k_new is None:
-        return Hkv, (None, None, None, None)
+        return None, None, None, None
     require(ks_new is not None and vs_new is not None, "fresh rows need their scales")
     k_new = k_new.reshape(B, T, K).contiguous()
     v_new = v_new.reshape(B, T, K).contiguous()
@@ -180,7 +195,7 @@ def check_quant_operands(q, k_cache, k_scale, v_cache, v_scale, k_new, v_new, ks
     require(k_new.dtype == v_new.dtype == torch.int8
             and ks_new.dtype == vs_new.dtype == torch.float32,
             "fresh rows must be int8 with float32 scales")
-    return Hkv, (k_new, v_new, ks_new, vs_new)
+    return k_new, v_new, ks_new, vs_new
 
 
 def _launch_decode_quant(entry, q, k_cache, k_scale, v_cache, v_scale, base_lens, layer,
@@ -197,12 +212,7 @@ def _launch_decode_quant(entry, q, k_cache, k_scale, v_cache, v_scale, base_lens
     q = q.contiguous()
     lens = base_lens.to(torch.int32).contiguous()
     out = torch.empty_like(q)
-    nsplit, chunk = split_plan(B, Hkv, S)
-    R = rows_pad(Hq // Hkv * T)
-    part_o = part_ml = None
-    if nsplit > 1:
-        part_o = torch.empty((B, Hkv, nsplit, R, hd), dtype=torch.float32, device=q.device)
-        part_ml = torch.empty((B, Hkv, nsplit, R, 2), dtype=torch.float32, device=q.device)
+    nsplit, chunk, part_o, part_ml = split_buffers(q, Hkv, S)
     err = getattr(build.library(), entry)(
         ptr(q), ptr(k_cache), ptr(v_cache), ptr(k_scale), ptr(v_scale), ptr(k_new),
         ptr(v_new), ptr(ks_new), ptr(vs_new), ptr(lens), ptr(out), ptr(part_o),

@@ -13,8 +13,10 @@ The JAX ``lax.scan`` over layers is a Python loop over the stacked weights.
 Target and draft decode passes read the stacked caches ``[L, B, S, K]``
 without writing them: each layer attends its new KV as fresh-row operands of
 the attention kernel, and ONE in-place append after the loop writes every
-layer's rows (``kernels/append.py``).  A target cache may be int8, or int4
-packed in head pairs, with per-(token, kv head) scales {'ks', 'vs'}
+layer's rows (``kernels/append.py``; into pool pages through the page
+table under paged serving, ``kernels/paged_attention.py``).  A target
+cache may be int8, or int4 packed in head pairs, with per-(token, kv head)
+scales {'ks', 'vs'}
 (``EngineConfig.kv_quant``): its new rows are quantized once and the same
 rows are attended and appended.  The bf16 dense dots are
 ``torch.matmul`` (the reference leaves them to XLA).  A weight may be an
@@ -36,6 +38,7 @@ import torch.nn.functional as F
 from magicdec_tpu_torch import quantization as Q
 from magicdec_tpu_torch.config import ModelConfig
 from magicdec_tpu_torch.kernels.append import append_all_rows_inplace
+from magicdec_tpu_torch.kernels.paged_attention import append_paged_rows_inplace
 from magicdec_tpu_torch.ops import attention as attn_ops
 from magicdec_tpu_torch.ops.kv_cache import (is_packed_int4, quantize_kv_tokens,
                                              quantize_kv_tokens_int4)
@@ -212,11 +215,18 @@ def _kv_rows(k, v, caches, prefix=""):
 
 def _append_rows(caches, rows, write_pos, prefix=""):
     """One in-place append of every layer's rows {'k','v'} [L, B, T, K]
-    (with their scales {'ks','vs'} [L, B, Hkv, T] for an int8 cache)."""
+    (with their scales {'ks','vs'} [L, B, Hkv, T] for an int8 cache); into
+    the pages of a page pool through its table when the caches hold one
+    (paged serving, B13)."""
     scales = ((caches[prefix + "ks"], caches[prefix + "vs"], rows["ks"], rows["vs"])
               if "ks" in rows else ())
-    append_all_rows_inplace(caches[prefix + "k"], caches[prefix + "v"],
-                            rows["k"], rows["v"], write_pos, *scales)
+    table = caches.get(prefix + "table")
+    if table is not None:
+        append_paged_rows_inplace(caches[prefix + "k"], caches[prefix + "v"], rows["k"],
+                                  rows["v"], write_pos, table, *scales)
+    else:
+        append_all_rows_inplace(caches[prefix + "k"], caches[prefix + "v"],
+                                rows["k"], rows["v"], write_pos, *scales)
     return caches
 
 

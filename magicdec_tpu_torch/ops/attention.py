@@ -7,7 +7,8 @@ KV, GQA, fp32 softmax; ``attend_quant`` is its quantized-cache counterpart
 (dequantize, then attend).  ``attend_cache`` dispatches a layer of the
 stacked ``[L, B, S, K]`` caches (bf16, or int8 or packed int4 with scales) to the
 Hopper kernels: the decode kernel for small windows (T <= 16), the prefill
-kernel for chunks.
+kernel for chunks; a page pool (caches holding a ``table``) takes the paged
+decode kernel for small windows and is gathered for longer ones.
 """
 
 from __future__ import annotations
@@ -75,12 +76,16 @@ def attend_cache(q, caches, base_lens, *, layer: int, prefix: str = "",
     them yet, in the cache's at-rest format ({'k', 'v'} [B, T, K], plus
     {'ks', 'vs'} [B, Hkv, T] for a quantized cache); the caller appends these
     exact rows after the layer loop, so attending them as fresh operands
-    equals attending the appended cache.
+    equals attending the appended cache.  Page pools (``caches[prefix +
+    'table']`` set: ``attend_cache_paged``) take the same layout rules.
     """
     from magicdec_tpu_torch.kernels import decode_attention as DA
     from magicdec_tpu_torch.kernels import prefill_attention as PA
     from magicdec_tpu_torch.ops.kv_cache import is_packed_int4
 
+    if caches.get(prefix + "table") is not None:
+        return attend_cache_paged(q, caches, base_lens, layer=layer, prefix=prefix,
+                                  fresh=fresh)
     decode = q.shape[1] <= DECODE_MAX_T
     k, v = caches[prefix + "k"], caches[prefix + "v"]
     ks = caches.get(prefix + "ks")
@@ -95,3 +100,37 @@ def attend_cache(q, caches, base_lens, *, layer: int, prefix: str = "",
     fresh_kw = {} if fresh is None else dict(k_new=fresh["k"], v_new=fresh["v"])
     fn = DA.flash_decode_attend if decode else PA.flash_prefill_attend
     return fn(q, k, v, base_lens, layer=layer, **fresh_kw)
+
+
+def attend_cache_paged(q, caches, base_lens, *, layer: int, prefix: str = "",
+                       fresh=None) -> torch.Tensor:
+    """``attend_cache`` over page pools (paged serving): {'k', 'v'} [L, P,
+    ps, Kc] (+ {'ks', 'vs'} [L, P, Hkv, ps]) and 'table' [B, npr] int32.
+    Decode windows (T <= 16) take the paged kernels (B12); longer windows
+    gather the layer into the contiguous layout and take the contiguous
+    route, as the JAX package does (``_attend_cache_paged``): the serving
+    loop runs decode windows only, and admission encodes contiguously."""
+    from magicdec_tpu_torch.kernels import paged_attention as PGA
+    from magicdec_tpu_torch.ops.kv_cache import is_packed_int4
+    from magicdec_tpu_torch.ops.paged_kv import pool_gather, scale_pool_gather
+
+    table = caches[prefix + "table"]
+    k, v = caches[prefix + "k"], caches[prefix + "v"]
+    ks = caches.get(prefix + "ks")
+    if q.shape[1] <= DECODE_MAX_T:
+        if ks is not None:
+            fresh_kw = {} if fresh is None else dict(
+                k_new=fresh["k"], v_new=fresh["v"], ks_new=fresh["ks"], vs_new=fresh["vs"])
+            fn = (PGA.flash_paged_decode_attend_quant4 if is_packed_int4(k, ks, q.shape[-1])
+                  else PGA.flash_paged_decode_attend_quant)
+            return fn(q, k, ks, v, caches[prefix + "vs"], table, base_lens, layer=layer,
+                      **fresh_kw)
+        fresh_kw = {} if fresh is None else dict(k_new=fresh["k"], v_new=fresh["v"])
+        return PGA.flash_paged_decode_attend(q, k, v, table, base_lens, layer=layer,
+                                             **fresh_kw)
+    sl = slice(layer, layer + 1)
+    contig = {prefix + "k": pool_gather(k[sl], table), prefix + "v": pool_gather(v[sl], table)}
+    if ks is not None:
+        contig[prefix + "ks"] = scale_pool_gather(ks[sl], table)
+        contig[prefix + "vs"] = scale_pool_gather(caches[prefix + "vs"][sl], table)
+    return attend_cache(q, contig, base_lens, layer=0, prefix=prefix, fresh=fresh)
