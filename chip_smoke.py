@@ -41,7 +41,15 @@ of which raises on failure:
    (wrong references: two table entries swapped, the fresh rows dropped),
    each also bit-equal to its contiguous kernel over the gathered pool, and
    B13 into each pool bit for bit (library: SDPA on the gathered layer,
-   ``index_copy_`` through the flattened page indices);
+   ``index_copy_`` through the flattened page indices); B14, the per-array
+   appends (rows on the int8 target cache and the draft's bf16 cache, f32
+   scale columns) at T = 4, 1 and 512 with a window running past the cache's
+   end, bit for bit (library: ``index_copy_`` of the kept rows); and B15,
+   the target's bf16 dots (``dense_matmul_fused`` as wqkv + norm, wo +
+   residual, w13 + norm and w2 + residual at M = 128, 16 and 8;
+   ``dense_mlp`` at M = 128 and 16), within bf16_limit, with wrong
+   references (without the norm, without the residual, the w13 halves
+   swapped) that must fail it (library: ``torch.matmul`` on the weight);
 4. main paths: ``magicdec_tpu_torch.bench.main`` (1) with ``--iters 1``
    (its defaults otherwise: int8 target cache, int8 draft weight copy), (2) with ``--kv_quant none
    --draft_quant none --iters 1`` (all bf16, one measured repeat instead of
@@ -59,18 +67,33 @@ of which raises on failure:
    ``magicdec_tpu_torch.serving_bench.main`` with ``SERVE_ARGV`` (16 slots,
    32 requests of distinct lengths in [4096, 8000], 512-row pages): (6) a
    bf16 pool, (7) an int8 pool, (8) an int8 pool of half the pages
-   (backpressure), (9) an int4 pool, each failing unless every kernel of
+   (backpressure), (9) an int4 pool, (7) to (9) serving the first 16 of the
+   requests (a depth cut for the time limit), each failing unless every kernel of
    the path launched, the paged decode kernel once a layer per target pass,
    tokens per step >= 1.8, and ``ServingEngine`` on the same prompts
    returns the same tokens for every request; on the int8 path, 8 requests
    each served alone through the same 16 slots return their served tokens,
-   and the half pool peaks below the full one;
-5. row invariance at B=32, 4 and 2: for each of the target's dots, and for
-   two layers and the head, a row's bits at verify (B*(gamma+1) rows)
-   against the AR step (B rows), at the live row count and padded to
-   decode_rows; fails if the model's rows differ when padded, which the
-   engine runs;
-6. profile: where the decode time goes at the bench's default shapes and on
+   and the half pool peaks below the full one; (10) the default path with
+   the JAX package's kernel A/B switches on, ``set_dense_kernels(True)``
+   and ``MAGICDEC_PER_ARRAY_APPEND=1``: B14 and B15 launched, K3, K3q and
+   B13 idle, spec == AR; ``bench --gamma 0 --B 2 --prefix_len 2048``: the
+   gamma the autotune picks, spec == AR at it;
+5. C2, served == solo: 4 equal-length prompts (one admission bucket) and 4
+   of distinct lengths served through 16 slots over an int8 pool, each
+   against the same prompt served alone through the same slots and against
+   a B=1 ``SpecEngine`` on the same weights; where tokens differ, again at
+   a fixed row count (each prefill alone; the B=1 decode at the slots'
+   rows and split plan), which must agree;
+6. row invariance at B=32, 4 and 2, on cuBLAS and with the target's dots on
+   B15: for each of the target's dots, and for two layers and the head, a
+   row's bits at verify (B*(gamma+1) rows) against the AR step (B rows),
+   at the live row count and padded to decode_rows; fails if the model's
+   rows differ when padded, which the engine runs;
+7. the dense A/B, ``profile_decode`` at B=32, ctx 8192, the int8 cache
+   (baseline, verify and noctx steps), without and with ``--dense_kernels``
+   in turns, and ``kernel_benchmark --which append`` (merged against
+   per-array appends);
+8. profile: where the decode time goes at the bench's default shapes and on
    the int4 path (spec generate and AR generate on the host clock, with the
    host time spent issuing draft steps, then under torch.profiler for the
    device's busy time and the kernels that take it), spec == AR again, and,
@@ -402,9 +425,180 @@ def kernel_phase(torch, gen):
     quant_kernel_cases(torch, gen, record)
     t1 = time.perf_counter()
     paged_kernel_cases(torch, gen, record)
+    t2 = time.perf_counter()
+    per_array_append_cases(torch, gen, record)
+    t3 = time.perf_counter()
+    dense_kernel_cases(torch, gen, record)
     print(f"[time] kernel phase: the dots took {t1 - t0:.1f}s, the paged kernels "
-          f"{time.perf_counter() - t1:.1f}s", flush=True)
+          f"{t2 - t1:.1f}s, B14 {t3 - t2:.1f}s, B15 {time.perf_counter() - t3:.1f}s", flush=True)
     return entries
+
+
+def per_array_append_cases(torch, gen, record):
+    """B14 (append_rows_inplace, append_scale_rows_inplace) bit for bit
+    against their plain versions on the int8 target cache (8704 rows) and
+    the draft's bf16 cache (640 rows) of the bench's main path (16 layers,
+    B=32, 8 kv heads of 64), and on f32 scales [16, 32, 8, S] of both
+    lengths, at T = 4, 1 and 512, ragged positions with one request whose
+    window runs past the end (T > 1; wholly past it at T = 1): the kernel
+    must drop the rows at or past S, as the plain version does.
+    library_ms: index_copy_ of the kept rows (scale columns) through flat
+    indices."""
+    from magicdec_tpu_torch.kernels import append as AP
+
+    dev = torch.device("cuda")
+    L, B, Hkv, K = 16, 32, 8, 512
+
+    def case(name, fn, plain, dst, src, pos, T, label):
+        S = dst.shape[-1] if name == "append_scale_rows_inplace" else dst.shape[2]
+        mine = dst.clone()
+        fn(mine, src, pos)
+        plain(dst, src, pos)
+        torch.cuda.synchronize()
+        if not torch.equal(mine, dst):
+            raise AssertionError(f"{name} {label} T={T}: kernel and plain version differ")
+        del mine
+        ms = _cuda_ms(lambda: fn(dst, src, pos))
+        plain_ms = _cuda_ms(lambda: plain(dst, src, pos), iters=5, warmup=1)
+        p = pos.long()[:, None] + torch.arange(T, device=dev)
+        b, t = (p < S).nonzero(as_tuple=True)
+        lb = torch.arange(L, device=dev)[:, None] * B + b[None]             # [L, kept]
+        if name == "append_scale_rows_inplace":
+            h = torch.arange(Hkv, device=dev)[None, None]
+            flat = ((lb[..., None] * Hkv + h) * S + p[b, t][None, :, None]).reshape(-1)
+            vals = src[:, b, :, t].permute(1, 0, 2).reshape(-1)
+            pair = (dst.view(-1), flat, vals)
+        else:
+            flat = (lb * S + p[b, t][None]).reshape(-1)
+            vals = src[:, b, t].reshape(-1, K)
+            pair = (dst.view(-1, K), flat, vals)
+        library_ms = _cuda_ms(lambda: pair[0].index_copy_(0, pair[1], pair[2]))
+        nbytes = 2.0 * vals.numel() * vals.element_size()  # the kept rows, read and written
+        record(name, f"{label} T={T} (request {B - 1} at {int(pos[-1])}: rows past {S} "
+               "dropped)", 0.0, "bit-exact", ms, plain_ms, nbytes, 0.0, library_ms)
+
+    caches = {
+        "target int8 S=8704": torch.randint(-128, 128, (L, B, 8704, K), generator=gen,
+                                            device=dev, dtype=torch.int8),
+        "draft bf16 S=640": torch.randn((L, B, 640, K), generator=gen,
+                                        device=dev).to(torch.bfloat16),
+    }
+    for label, cache in caches.items():
+        S = cache.shape[2]
+        scale = torch.rand((L, B, Hkv, S), generator=gen, device=dev)
+        for T in (4, 1, 512):
+            pos = torch.randint(0, S - T + 1, (B,), generator=gen, device=dev,
+                                dtype=torch.int32)
+            pos[-1] = S - T // 2 if T > 1 else S
+            if cache.dtype == torch.int8:
+                rows = torch.randint(-128, 128, (L, B, T, K), generator=gen, device=dev,
+                                     dtype=torch.int8)
+            else:
+                rows = torch.randn((L, B, T, K), generator=gen, device=dev).to(cache.dtype)
+            case("append_rows_inplace", AP.append_rows_inplace, AP.append_rows_inplace_plain,
+                 cache, rows, pos, T, label)
+            case("append_scale_rows_inplace", AP.append_scale_rows_inplace,
+                 AP.append_scale_rows_inplace_plain, scale,
+                 torch.rand((L, B, Hkv, T), generator=gen, device=dev), pos, T,
+                 f"f32 scales S={S}")
+        del scale
+    del caches
+    torch.cuda.empty_cache()
+
+
+def dense_kernel_cases(torch, gen, record):
+    """B15 against its plain versions at the target's bf16 widths
+    (llama-3.2-1b: wqkv [2048, 3072], wo [2048, 2048], w13 [2048, 16384],
+    w2 [8192, 2048]) and the target pass's row counts, M = decode_rows = 128
+    (B=32, gamma 3), 16 and 8 (B=4 and 2): dense_matmul_fused as wqkv +
+    norm, wo + residual, w13 + norm and w2 + residual, and dense_mlp (the
+    FFN block with its residual) at M = 128 and 16, each timed over 16
+    layers' weights in turn, within bf16_limit of the plain version; wrong
+    references that must fail it: without the norm, without the residual,
+    with the w13 halves swapped.  Bound: the weight's bytes (with the rows
+    in and out); library_ms: torch.matmul on the same weight (none for
+    dense_mlp, two dots)."""
+    from magicdec_tpu_torch.kernels import dense_matmul as DK
+
+    dev = torch.device("cuda")
+    L, D, F = 16, 2048, 8192
+    bf = torch.bfloat16
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(bf)
+
+    weights = {"wqkv": randn(L, D, D + 1024, scale=D ** -0.5),
+               "wo": randn(L, D, D, scale=0.25 * D ** -0.5),
+               "w13": randn(L, D, 2 * F, scale=D ** -0.5),
+               "w2": randn(L, F, D, scale=0.25 * F ** -0.5)}
+    norm_w = (torch.rand((D,), generator=gen, device=dev) + 0.5).to(bf)
+
+    def case(name, label, fn, plain, wrongs, args_of, keys, lib=None, M=128):
+        args = args_of(0)
+        out, ref = fn(*args), plain(*args)
+        torch.cuda.synchronize()
+        err, tol = _err(out, ref)
+        for what, wrong in wrongs.items():
+            w_err, w_bad, w_share = _outside(wrong(*args), ref)
+            print(f"[kernel] {name} {label}: {what} max_abs_err={w_err:.3e}, {w_bad} of "
+                  f"{ref.numel()} elements outside bf16_limit (up to {w_share:.3g} of it)",
+                  flush=True)
+            if not w_bad:
+                raise AssertionError(f"{name} {label}: bf16_limit passes {what}")
+        layers = itertools.cycle(range(L))
+        ms = _cuda_ms(lambda: fn(*args_of(next(layers))))
+        plain_ms = _cuda_ms(lambda: plain(*args), iters=3, warmup=1)
+        library_ms = None
+        if lib is not None:
+            ws = itertools.cycle([weights[keys[0]][l] for l in range(L)])
+            library_ms = _cuda_ms(lambda: torch.matmul(lib, next(ws)))
+        # every operand read once (one layer's weights, rows, norm) and the
+        # output written once
+        moved = float(sum(a.numel() * a.element_size() for a in args)
+                      + out.numel() * out.element_size())
+        flops = 2.0 * M * sum(weights[k][0].numel() for k in keys)
+        record(name, label, err, tol, ms, plain_ms, moved, flops, library_ms)
+
+    def w(key, l):
+        return weights[key][l]
+
+    fused = lambda *a: DK.dense_matmul_fused(*a[:2], *a[2:], eps=1e-5)  # noqa: E731
+    plain = lambda *a: DK.dense_matmul_fused_plain(*a[:2], *a[2:], eps=1e-5)  # noqa: E731
+    for M in (128, 16, 8):
+        x, a, res = randn(M, D, scale=3.0), randn(M, D), randn(M, D)
+        g = randn(M, F, scale=0.5)
+        case("dense_matmul_fused", f"wqkv + norm M={M}", fused, plain,
+             {"without the norm": lambda x, wq, n: DK.dense_matmul_fused_plain(x, wq)},
+             lambda l: (x, w("wqkv", l), norm_w), ["wqkv"], lib=x, M=M)
+        case("dense_matmul_fused", f"wo + residual M={M}",
+             lambda a, wo, r: DK.dense_matmul_fused(a, wo, res=r),
+             lambda a, wo, r: DK.dense_matmul_fused_plain(a, wo, res=r),
+             {"without the residual": lambda a, wo, r: DK.dense_matmul_fused_plain(a, wo)},
+             lambda l: (a, w("wo", l), res), ["wo"], lib=a, M=M)
+        case("dense_matmul_fused", f"w13 + norm M={M}", fused, plain,
+             {"without the norm": lambda x, w13, n: DK.dense_matmul_fused_plain(x, w13)},
+             lambda l: (x, w("w13", l), norm_w), ["w13"], lib=x, M=M)
+        case("dense_matmul_fused", f"w2 + residual M={M}",
+             lambda g, w2, r: DK.dense_matmul_fused(g, w2, res=r),
+             lambda g, w2, r: DK.dense_matmul_fused_plain(g, w2, res=r),
+             {"without the residual": lambda g, w2, r: DK.dense_matmul_fused_plain(g, w2)},
+             lambda l: (g, w("w2", l), res), ["w2"], lib=g, M=M)
+
+    def halves_swapped(w13):
+        return torch.cat([w13[:, F:], w13[:, :F]], dim=1).contiguous()
+
+    for M in (128, 16):
+        x, res = randn(M, D), randn(M, D)
+        case("dense_mlp", f"FFN + residual M={M}",
+             lambda x, w13, w2, n, r: DK.dense_mlp(x, w13, w2, n, r, eps=1e-5),
+             lambda x, w13, w2, n, r: DK.dense_mlp_plain(x, w13, w2, n, r, eps=1e-5),
+             {"with the w13 halves swapped": lambda x, w13, w2, n, r: DK.dense_mlp_plain(
+                 x, halves_swapped(w13), w2, n, r, eps=1e-5),
+              "without the residual": lambda x, w13, w2, n, r: DK.dense_mlp_plain(
+                  x, w13, w2, n, eps=1e-5)},
+             lambda l: (x, w("w13", l), w("w2", l), norm_w, res), ["w13", "w2"], M=M)
+    del weights
+    torch.cuda.empty_cache()
 
 
 def paged_kernel_cases(torch, gen, record):
@@ -776,8 +970,8 @@ def main_path(torch, wrappers, required, argv, forbidden=(), min_tokens_per_step
     launches = {w.__name__: w.launches for w in wrappers}
     peak = torch.cuda.max_memory_allocated() / 2**30
     tag = " ".join(argv) or "defaults"
-    print(f"[main {tag}] wall={wall:.1f}s launches={launches} peak_mem={peak:.2f} GiB",
-          flush=True)
+    print(f"[main {tag}] wall={wall:.1f}s gamma={out['gamma']} launches={launches} "
+          f"peak_mem={peak:.2f} GiB", flush=True)
     print(f"[main {tag}] " + _agreement(out["spec_output"], out["spec_committed"],
                                         out["base_output"], bench.parse_args(argv).max_gen),
           flush=True)
@@ -819,7 +1013,7 @@ def _serving_summary(out):
 def serving_path(torch, wrappers, required, paged_attend, extra, forbidden=(),
                  min_tokens_per_step=1.8):
     """``python -m magicdec_tpu_torch.serving_bench`` with SERVE_ARGV +
-    ``extra`` (with ``--skip_warmup``, the timed serve of 32 requests only;
+    ``extra`` (with ``--skip_warmup``, the timed serve only;
     else a warmup serve of 16 first), the counters zeroed just before and
     read just after.  Fails unless
     every kernel in ``required`` launched, none in ``forbidden`` did, the
@@ -914,7 +1108,9 @@ def serving_phase(torch, wrappers, kernels):
     peaks = {}
     for fmt, (extra, own) in paths.items():
         # the first path as a user runs it; the others skip the warmup serve
-        extra = extra + ([] if fmt == "bf16" else ["--skip_warmup"])
+        # and serve the first 16 of its 32 requests (a depth cut that keeps
+        # chip_smoke.py inside its time limit on a slow host)
+        extra = extra + ([] if fmt == "bf16" else ["--skip_warmup", "--num_requests", "16"])
         out, launches, peaks[fmt] = serving_path(
             torch, wrappers, own + draft + [PGA.append_paged_rows_inplace], own[0], extra,
             forbidden=[w for w in paged_all if w is not own[0]])
@@ -939,7 +1135,7 @@ def serving_phase(torch, wrappers, kernels):
             raise AssertionError("the half pool never made a free slot wait for pages")
         # served == solo: each of 8 requests alone through the same 16 slots
         engine, _ = serving_bench.setup(serving_bench.parse_args(SERVE_ARGV + extra))
-        idx = list(range(0, 32, 4))
+        idx = list(range(0, len(out["prompts"]), len(out["prompts"]) // 8))
         t0 = time.perf_counter()
         solo = [engine.serve([out["prompts"][i]], B=16, windows_per_sync=4)[0] for i in idx]
         print(f"[serve int8] " + _same_tokens(
@@ -954,16 +1150,161 @@ def serving_phase(torch, wrappers, kernels):
     return result
 
 
-def row_invariance_phase(torch, B=32):
+# C2: served == solo (the JAX package's contract, tests/test_paged_serving.py
+# _solo) at the serving path's widths: 16 slots, an int8 pool of 512-row
+# pages, 4 requests of 2048-token prompts (one admission bucket) and 4 of
+# distinct lengths
+SOLO_ARGV = ["--paged", "--slots", "16", "--num_requests", "4", "--prefix_len", "2048",
+             "--max_len", "4096", "--page_size", "512", "--kv_quant", "int8"]
+
+
+# the dense A/B: profile_decode at the bench's default shapes, target phases
+AB_ARGV = ["--B", "32", "--ctx", "8192", "--kv_quant", "int8",
+           "--phases", "baseline_step_ms,verify_step_ms,noctx_step_ms"]
+APPEND_ARGV = ["--which", "append"]
+
+
+def _first_diffs(outs, refs):
+    """{request: first differing token} over the tokens both runs committed.
+    Where one run commits more, it is the last window's acceptance, which
+    the draft's row count steers; every committed token is the target's."""
+    diffs = {}
+    for i, (o, r) in enumerate(zip(outs, refs)):
+        n = min(len(o), len(r))
+        j = next((j for j in range(n) if o[j] != r[j]), None)
+        if j is not None:
+            diffs[i] = j
+    return diffs
+
+
+def solo_phase(torch):
+    """C2: each served request against (a) the same prompt served alone
+    through the same 16 slots and (b) a B=1 ``SpecEngine.generate`` on the
+    same prompt and weights, for a stream of 4 equal-length prompts (one
+    admission bucket: its prefill runs at 4x the chunk's rows) and one of 4
+    distinct lengths.  Where tokens differ at the live row counts, the check
+    runs again at a fixed row count: the served stream with each request's
+    prefill alone (a bucket of one), and the B=1 engine's target passes at
+    the 16 slots' decode_rows and decode split plan; it fails unless they
+    then agree.  Returns a summary per (stream, reference)."""
+    import dataclasses
+    import functools
+
+    import numpy as np
+
+    from magicdec_tpu_torch import serving_bench
+    from magicdec_tpu_torch.engine.engine import SpecEngine
+    from magicdec_tpu_torch.kernels import decode_attention as DA
+
+    args = serving_bench.parse_args(SOLO_ARGV)
+    engine, _ = serving_bench.setup(args)
+    slots, V, P = args.slots, engine.cfg.vocab_size, args.prefix_len
+    rng = np.random.RandomState(11)
+    streams = {"one bucket of 4 equal-length prompts":
+               [rng.randint(0, V, P).astype(np.int32) for _ in range(4)],
+               "4 distinct lengths":  # 1280, 1536, 1792 and 2048 tokens
+               [rng.randint(0, V, P * (4 + i) // 8).astype(np.int32) for i in range(1, 5)]}
+    b1 = SpecEngine(engine.params, engine.cfg, engine.ecfg, device=engine.device)
+
+    def serve(prompts, one_bucket_each=False):
+        admit = engine.admit_many
+        if one_bucket_each:  # every request's prefill alone
+            engine.admit_many = lambda sst, wave: functools.reduce(
+                lambda st, adm: admit(st, [adm]), wave, sst)
+        try:
+            outs = engine.serve(prompts, B=slots, windows_per_sync=args.windows_per_sync)
+        finally:
+            vars(engine).pop("admit_many", None)
+        return outs, engine.last_serve_stats
+
+    def solo_b1(prompt, fixed_rows=False):
+        split_plan = DA.split_plan
+        if fixed_rows:  # the serving pass's rows and decode split plan
+            b1._hinted = lambda B: dataclasses.replace(
+                b1.cfg, decode_rows=slots * (b1.ecfg.gamma + 1))
+            DA.split_plan = lambda B, Hkv, S: split_plan(slots, Hkv, S)
+        try:
+            _, stats = b1.generate(b1.encode(prompt[None]))
+        finally:
+            vars(b1).pop("_hinted", None)
+            DA.split_plan = split_plan
+        n = int(stats["num_committed"][0])
+        return stats["output"][0, :n].cpu().numpy()
+
+    summary = {}
+    for stream, prompts in streams.items():
+        t0 = time.perf_counter()
+        served, st = serve(prompts)
+        if stream.startswith("one bucket") and st["admission_waves"] != 1:
+            raise AssertionError(f"C2 {stream}: admitted in {st['admission_waves']} waves")
+        refs = {"served alone through the same 16 slots":
+                lambda fixed: [serve([p])[0][0] for p in prompts],
+                "a B=1 SpecEngine": lambda fixed: [solo_b1(p, fixed) for p in prompts]}
+        for ref_name, make_ref in refs.items():
+            ref = make_ref(False)
+            diffs = _first_diffs(served, ref)
+            if not diffs:
+                line = "all 4 requests agree on every token both committed"
+                if any(len(o) != len(r) for o, r in zip(served, ref)):
+                    line += (f" (token counts {[len(o) for o in served]} served, "
+                             f"{[len(r) for r in ref]} in the reference)")
+            else:
+                line = (f"DIFFER at the live row counts: requests {sorted(diffs)}, first "
+                        f"differing tokens {diffs} (of {[len(o) for o in served]} tokens)")
+                fixed = _first_diffs(serve(prompts, one_bucket_each=True)[0], make_ref(True))
+                if fixed:
+                    raise AssertionError(f"C2 {stream} against {ref_name}: {line}; still "
+                                         f"differ at a fixed row count: {fixed}")
+                line += "; at a fixed row count all 4 agree on every token"
+            summary[(stream, ref_name)] = line
+            print(f"[C2] {stream}, against {ref_name}: {line}", flush=True)
+        print(f"[C2] {stream}: {time.perf_counter() - t0:.1f}s", flush=True)
+    del engine, b1
+    torch.cuda.empty_cache()
+    return summary
+
+
+def dense_ab_phase(torch, wrappers):
+    """The dense A/B: ``profile_decode`` at B=32, ctx 8192, the int8 cache,
+    phases baseline, verify and noctx, without and with --dense_kernels, in
+    turns (off, on, on, off); B15 must launch in the dense runs only.  Then
+    ``kernel_benchmark --which append``: K3q's merged launch against B14's
+    four per-array launches.  Returns the figures."""
+    from magicdec_tpu_torch import kernel_benchmark, profile_decode
+    from magicdec_tpu_torch.kernels import dense_matmul as DK
+
+    runs = {"cuBLAS": [], "B15": []}
+    for dense in (False, True, True, False):
+        for w in wrappers:
+            w.launches = 0
+        r = profile_decode.main(AB_ARGV + (["--dense_kernels"] if dense else []))
+        used = DK.dense_matmul_fused.launches + DK.dense_mlp.launches
+        if bool(used) != dense:
+            raise AssertionError(f"profile_decode dense={dense}: {used} B15 launches")
+        runs["B15" if dense else "cuBLAS"].append(r)
+        torch.cuda.empty_cache()
+    for phase in runs["B15"][0]:
+        print(f"[A/B] {phase}: cuBLAS {[round(r[phase], 4) for r in runs['cuBLAS']]} ms, "
+              f"B15 {[round(r[phase], 4) for r in runs['B15']]} ms", flush=True)
+    append = kernel_benchmark.main(APPEND_ARGV)
+    print(f"[A/B] appends (B=32, 16 layers, int8 rows and f32 scales): {append}", flush=True)
+    return {"profile_decode": runs, "append": append}
+
+
+def row_invariance_phase(torch, B=32, dense=False):
     """Is a target row computed the same at verify (M = B*(gamma+1) rows) as
     at the AR step (M = B)?  At the bench's widths, each target dot alone,
     then two layers and the head: the logits of a 4-token verify window
     against 4 single-token steps, with the dots at the live row count and
-    padded to decode_rows."""
+    padded to decode_rows.  ``dense``: the model part with the target's
+    bf16 dots on B15 (``quantization.set_dense_kernels``), which must
+    launch; the dots alone are cuBLAS's and are skipped."""
     import dataclasses
 
+    from magicdec_tpu_torch import quantization as Q
     from magicdec_tpu_torch.bench import make_params
     from magicdec_tpu_torch.config import ModelConfig
+    from magicdec_tpu_torch.kernels import dense_matmul as DK
     from magicdec_tpu_torch.models import llama as M
 
     dev = torch.device("cuda")
@@ -981,7 +1322,7 @@ def row_invariance_phase(torch, B=32):
     # a strided view of the window (x[:, t])
     dots = {n: params["layers"][n][0] for n in ("wqkv", "wo", "w13", "w2")}
     dots["lm_head"] = params["lm_head"]
-    for name, w in dots.items():
+    for name, w in ({} if dense else dots).items():
         x = torch.randn((B, T, w.shape[0]), generator=gen, device=dev).to(torch.bfloat16)
         counts = []
 
@@ -1003,22 +1344,31 @@ def row_invariance_phase(torch, B=32):
               f"{counts[3]}, of {B * T * w.shape[1]}", flush=True)
     tokens = torch.randint(0, cfg.vocab_size, (B, T), generator=gen, device=dev)
     lens = torch.full((B,), P, dtype=torch.int32, device=dev)
-    for rows in (0, B * T):
-        hcfg = dataclasses.replace(cfg, decode_rows=rows)
-        c = {n: t.clone() for n, t in caches.items()}
-        verify, _ = M.forward_target(params, hcfg, tokens, lens, c, head="logits")
-        c = {n: t.clone() for n, t in caches.items()}
-        ar = torch.cat([M.forward_target(params, hcfg, tokens[:, t:t + 1], lens + t, c,
-                                         head="logits")[0] for t in range(T)], dim=1)
-        differ = int((verify != ar).any(-1).sum())
-        print(f"[rows] decode_rows={rows}: {differ} of {B * T} target rows differ in "
-              f"bits between verify and AR, {int((verify != ar).sum())} of "
-              f"{ar.numel()} logits", flush=True)
-        if rows and differ:
-            # the engine runs its target passes at decode_rows = B * (gamma + 1)
-            # and rests on this for greedy spec == AR
-            raise AssertionError(f"B={B}: target rows differ between verify and AR even "
-                                 "with the dots padded to decode_rows")
+    tag = " (B15 dense dots)" if dense else ""
+    for fn in (DK.dense_matmul_fused, DK.dense_mlp):
+        fn.launches = 0
+    Q.set_dense_kernels(dense)
+    try:
+        for rows in (0, B * T):
+            hcfg = dataclasses.replace(cfg, decode_rows=rows)
+            c = {n: t.clone() for n, t in caches.items()}
+            verify, _ = M.forward_target(params, hcfg, tokens, lens, c, head="logits")
+            c = {n: t.clone() for n, t in caches.items()}
+            ar = torch.cat([M.forward_target(params, hcfg, tokens[:, t:t + 1], lens + t, c,
+                                             head="logits")[0] for t in range(T)], dim=1)
+            differ = int((verify != ar).any(-1).sum())
+            print(f"[rows] B={B} decode_rows={rows}{tag}: {differ} of {B * T} target rows "
+                  f"differ in bits between verify and AR, {int((verify != ar).sum())} of "
+                  f"{ar.numel()} logits", flush=True)
+            if rows and differ:
+                # the engine runs its target passes at decode_rows = B * (gamma + 1)
+                # and rests on this for greedy spec == AR
+                raise AssertionError(f"B={B}{tag}: target rows differ between verify and AR "
+                                     "even with the dots padded to decode_rows")
+    finally:
+        Q.set_dense_kernels(False)
+    if dense and not (DK.dense_matmul_fused.launches and DK.dense_mlp.launches):
+        raise AssertionError(f"B={B}: the padded passes never launched B15")
     del params, caches
 
 
@@ -1160,9 +1510,11 @@ def main():
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
+        from magicdec_tpu_torch import quantization as Q
         from magicdec_tpu_torch.kernels import append as AP
         from magicdec_tpu_torch.kernels import build
         from magicdec_tpu_torch.kernels import decode_attention as DA
+        from magicdec_tpu_torch.kernels import dense_matmul as DK
         from magicdec_tpu_torch.kernels import paged_attention as PGA
         from magicdec_tpu_torch.kernels import prefill_attention as PA
         from magicdec_tpu_torch.kernels import quant_matmul as QK
@@ -1199,13 +1551,16 @@ def main():
     dots4 = [QK.quant_matmul_fused_int4, QK.quant_matmul_int4]
     paged = [PGA.flash_paged_decode_attend, PGA.flash_paged_decode_attend_quant,
              PGA.flash_paged_decode_attend_quant4, PGA.append_paged_rows_inplace]
-    wrappers = dense + quant + dots + [QK.quant_mlp] + quant4 + dots4 + paged
+    per_array = [AP.append_rows_inplace, AP.append_scale_rows_inplace]
+    dense_dots = [DK.dense_matmul_fused, DK.dense_mlp]
+    wrappers = (dense + quant + dots + [QK.quant_mlp] + quant4 + dots4 + paged + per_array
+                + dense_dots)
     # (1) the default path (one measured repeat): the target on the int8 KV
     # kernels, the draft's int8 weight copy on B4/B5/B6 and its bf16 cache
-    # on K1 and K3
+    # on K1 and K3; B14 and B15 stay off by default
     _, launches, peak8 = main_path(
         torch, wrappers, quant + dots + [DA.flash_decode_attend, AP.append_all_rows_inplace],
-        ["--iters", "1"], forbidden=paged)
+        ["--iters", "1"], forbidden=paged + per_array + dense_dots)
     # (2) all bf16 (one measured repeat): K2 carries the target prefill
     _, launches16, peak16 = main_path(
         torch, wrappers, dense, ["--kv_quant", "none", "--draft_quant", "none", "--iters", "1"])
@@ -1242,16 +1597,48 @@ def main():
     if peak4 >= peak8:
         raise AssertionError("the int4 path did not lower peak device memory below int8's")
     phase_done("main paths")
+    # (10) the JAX package's kernel A/B configuration on the default path:
+    # the target's bf16 decode and verify dots on B15 (set_dense_kernels)
+    # and every cache append as B14's per-array calls
+    # (MAGICDEC_PER_ARRAY_APPEND), the merged appends idle
+    env = os.environ.get("MAGICDEC_PER_ARRAY_APPEND")
+    os.environ["MAGICDEC_PER_ARRAY_APPEND"] = "1"
+    Q.set_dense_kernels(True)
+    try:
+        _, launches10, _ = main_path(
+            torch, wrappers,
+            per_array + dense_dots + [DA.flash_decode_attend_quant, DA.flash_decode_attend] + dots,
+            ["--iters", "1"],
+            forbidden=[AP.append_all_rows_inplace, AP.append_all_rows_inplace_quant,
+                       PGA.append_paged_rows_inplace])
+    finally:
+        Q.set_dense_kernels(False)
+        if env is None:
+            os.environ.pop("MAGICDEC_PER_ARRAY_APPEND")
+        else:
+            os.environ["MAGICDEC_PER_ARRAY_APPEND"] = env
+    launches.update({w.__name__: launches10[w.__name__] for w in per_array + dense_dots})
+    phase_done("path (10): B14 and B15")
+    # --gamma 0: the autotune's warmup at gamma 4, phase timers and pick
+    main_path(torch, wrappers, quant + dots,
+              ["--gamma", "0", "--B", "2", "--prefix_len", "2048", "--iters", "1"],
+              min_tokens_per_step=1.8)
+    phase_done("bench --gamma 0")
     # (6)-(9) the paged serving paths
     launches.update(serving_phase(torch, wrappers, {"DA": DA, "PA": PA, "AP": AP, "PGA": PGA}))
     phase_done("serving paths")
+    solo_phase(torch)
+    phase_done("C2: served against solo")
     # the row-invariance question (PERF.md): is a target row computed the
     # same at verify and at the AR step; at B=4 and 2 the live row counts
     # differ (cuBLAS's w2, torch's row mean), the padded ones the engine runs
-    # must not
-    for B in (32, 4, 2):
-        row_invariance_phase(torch, B)
+    # must not, on cuBLAS and on B15
+    for dense_rows in (False, True):
+        for B in (32, 4, 2):
+            row_invariance_phase(torch, B, dense=dense_rows)
     phase_done("row invariance")
+    dense_ab_phase(torch, wrappers)
+    phase_done("dense and append A/B")
     profile_phase(torch)
     profile_phase(torch, ["--kv_quant", "int4", "--draft_quant", "int4"], pad_pairs=False)
     phase_done("profiles")
@@ -1295,6 +1682,14 @@ def main():
                                              "magicdec_tpu/ops/pallas/paged_attention.py:176"),
         "append_paged_rows_inplace": ("magicdec_tpu_torch/csrc/paged_attention.cu",
                                       "magicdec_tpu/ops/pallas/paged_attention.py:212"),
+        "append_rows_inplace": ("magicdec_tpu_torch/csrc/append.cu",
+                                "magicdec_tpu/ops/kv_cache.py:292"),
+        "append_scale_rows_inplace": ("magicdec_tpu_torch/csrc/append.cu",
+                                      "magicdec_tpu/ops/kv_cache.py:499"),
+        "dense_matmul_fused": ("magicdec_tpu_torch/csrc/dense_matmul.cu",
+                               "magicdec_tpu/ops/pallas/quant_matmul.py:507"),
+        "dense_mlp": ("magicdec_tpu_torch/csrc/dense_matmul.cu",
+                      "magicdec_tpu/ops/pallas/quant_matmul.py:605"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():

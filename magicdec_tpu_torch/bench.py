@@ -12,7 +12,10 @@ bf16 verify weights, and an int8 per-channel copy of the weights for the
 draft with a quantized lm_head (``--draft_quant none``: the draft shares the
 bf16 weights; ``--draft_quant int4``: a group-wise int4 copy, groups of 128;
 ``--draft_head shared``: the copy shares the bf16 head) on the Hopper
-kernels.  Decode-loop
+kernels.  ``--gamma 0`` autotunes gamma as ``bench.py`` does: a warmup run
+at gamma 4, alpha from its tokens per window, the phase timers
+(``engine/profiling.py``, 8 steps a phase), the throughput-best gamma in
+2..8 (``engine/autotune.py``), and a rebuild at that gamma.  Decode-loop
 wall time is taken between ``torch.cuda.synchronize()`` calls.  Acceptance
 and both throughputs go to stderr; the single JSON line on stdout is the
 result.
@@ -21,6 +24,7 @@ result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import sys
 import time
@@ -29,6 +33,9 @@ import numpy as np
 import torch
 
 from magicdec_tpu_torch import resolve_device
+
+GAMMA_MAX = 8               # --gamma 0: the candidates are 2..GAMMA_MAX
+AUTOTUNE_WARMUP_GAMMA = 4   # --gamma 0: the warmup run's window
 
 
 def make_params(cfg, seed=0, dtype=torch.bfloat16, residual_scale=0.25,
@@ -71,7 +78,8 @@ def parse_args(argv=None):
     p.add_argument("--B", type=int, default=32)
     p.add_argument("--prefix_len", type=int, default=8192)
     p.add_argument("--gamma", type=int, default=3,
-                   help="speculation window (0 = autotune: ROADMAP A14)")
+                   help="speculation window (0 = autotune in 2..8 from a warmup "
+                        "run at 4 and the phase timers)")
     p.add_argument("--draft_budget", type=int, default=513)
     p.add_argument("--mode", default="streamingllm", choices=["streamingllm", "snapkv"])
     p.add_argument("--max_gen", type=int, default=80)
@@ -108,8 +116,6 @@ def parse_args(argv=None):
 
 
 def _not_ported(args):
-    if args.gamma == 0:
-        return "--gamma 0 (autotune) is ROADMAP item A14"
     if args.mode != "streamingllm":
         return "--mode snapkv is ROADMAP item A7"
     if args.attn_backend != "flash":
@@ -151,13 +157,15 @@ def setup(args):
     # copy of the weights stays alive beside the fused one
     params = fuse_exec_params(make_params(cfg, device=dev), cfg)
     prefix = args.prefix_len
+    gamma_max = GAMMA_MAX if args.gamma == 0 else args.gamma
     # the cache length rounds to 512 rows for every format.  bench.py rounds
     # an int4 cache to 2048 because its TPU kernel's blocks are capped at
     # 2048 rows by VMEM; the Hopper kernels tile by 32 or 64 rows, so the
     # port keeps 512 (8704 rows at the bench's shapes, not 10240)
     ecfg = EngineConfig(
-        mode=args.mode, gamma=args.gamma, draft_budget=args.draft_budget,
-        max_seq_len=_round_up(prefix + args.max_gen + args.gamma + 2, 512),
+        mode=args.mode, gamma=args.gamma or AUTOTUNE_WARMUP_GAMMA,
+        draft_budget=args.draft_budget,
+        max_seq_len=_round_up(prefix + args.max_gen + gamma_max + 2, 512),
         chunk_size=128, prefill_chunk_size=args.prefill_chunk,
         max_gen=args.max_gen, eot_ids=(-1,), cache_dtype=torch.bfloat16,
         kv_quant=args.kv_quant if args.kv_quant != "none" else False,
@@ -171,9 +179,28 @@ def setup(args):
     return engine, prompts
 
 
+def autotune(engine, warm, args) -> int:
+    """``bench.py``'s gamma pick: alpha from the warmup run's committed
+    tokens per window, draft and verify step times from the phase timers at
+    the bench's lengths, then the throughput-best gamma in 2..GAMMA_MAX."""
+    from magicdec_tpu_torch.engine import autotune as AT
+    from magicdec_tpu_torch.engine.profiling import time_phases_config
+
+    gamma = engine.ecfg.gamma
+    tpw = warm[1] / max(warm[2], 1) / args.B
+    ph = time_phases_config(engine, args.B, args.prefix_len, iters=8)
+    alpha = AT.alpha_from_window_stats(tpw, gamma)
+    g_star = AT.pick_gamma(alpha, ph["draft_step_ms"], ph["verify_step_ms"],
+                           candidates=tuple(range(2, GAMMA_MAX + 1)))
+    print(f"[bench] autotune: alpha={alpha:.3f} td={ph['draft_step_ms']:.2f}ms "
+          f"tv={ph['verify_step_ms']:.2f}ms -> gamma={g_star}", file=sys.stderr)
+    return g_star
+
+
 def run(args):
-    """Run the benchmark; returns {'result': the JSON dict, 'spec_output',
-    'spec_committed', 'base_output': numpy arrays of the last measured runs}."""
+    """Run the benchmark; returns {'result': the JSON dict, 'gamma': the
+    speculation window run, 'spec_output', 'spec_committed', 'base_output':
+    numpy arrays of the last measured runs}."""
     engine, prompts = setup(args)
     prefix = args.prefix_len
     cuda = engine.device.type == "cuda"
@@ -209,8 +236,18 @@ def run(args):
         gen = int(stats["gen_tokens"].sum())
         return gen / dt, gen, dt
 
-    run_spec(prompts[0])  # warmup: kernel build, allocator, cuBLAS heuristics
+    warm = run_spec(prompts[0])  # warmup: kernel build, allocator, cuBLAS heuristics
     run_baseline(prompts[0])
+    if args.gamma == 0:
+        gamma = autotune(engine, warm, args)
+        if gamma != engine.ecfg.gamma:
+            from magicdec_tpu_torch.engine.engine import SpecEngine
+
+            params, cfg, dev = engine.params, engine.cfg, engine.device
+            ecfg = dataclasses.replace(engine.ecfg, gamma=gamma)
+            engine = None  # the old draft copy goes before the new one is made
+            engine = SpecEngine(params, cfg, ecfg, device=dev)
+            run_spec(prompts[0])  # warm at the chosen gamma
     if args.protocol == "steady":
         spec_runs = [run_spec(p) for p in prompts]
         base_runs = [run_baseline(p) for p in prompts]
@@ -228,7 +265,7 @@ def run(args):
     accept = gen / max(steps, 1) / args.B  # committed tokens per target step
     spec_lat_ms = dt / (gen / args.B) * 1e3
     base_lat_ms = base[2] / (base[1] / args.B) * 1e3
-    print(f"[bench] mode={args.mode} B={args.B} prefix={prefix} gamma={args.gamma} "
+    print(f"[bench] mode={args.mode} B={args.B} prefix={prefix} gamma={engine.ecfg.gamma} "
           f"budget={args.draft_budget} protocol={args.protocol}", file=sys.stderr)
     print(f"[bench] spec: {spec_tps:.1f} tok/s ({gen} tok in {dt:.3f}s, "
           f"{steps} target steps, {accept:.2f} tokens/step/seq, "
@@ -244,7 +281,7 @@ def run(args):
         "baseline_latency_ms_per_token": round(base_lat_ms, 3),
         "tokens_per_step": round(accept, 3),
     }
-    return {"result": result, **last}
+    return {"result": result, "gamma": engine.ecfg.gamma, **last}
 
 
 def _round_up(x: int, m: int) -> int:

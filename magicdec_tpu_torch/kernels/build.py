@@ -50,6 +50,10 @@ SIGNATURES = {
     "md_paged_decode_attend_quant4": [_P] * 14 + [_I] * 11 + [_P],
     "md_append_paged_rows": [_P] * 6 + [_I] * 7 + [_P],
     "md_append_paged_rows_quant": [_P] * 10 + [_I] * 8 + [_P],
+    "md_append_array_rows": [_P] * 3 + [_I] * 5 + [_P],
+    "md_append_scale_cols": [_P] * 3 + [_I] * 5 + [_P],
+    "md_dense_matmul": [_P] * 7 + [_I] * 4 + [_F, _P],
+    "md_dense_mlp": [_P] * 9 + [_I] * 5 + [_F, _P],
 }
 
 _lock = threading.Lock()

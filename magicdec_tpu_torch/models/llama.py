@@ -19,7 +19,10 @@ cache may be int8, or int4 packed in head pairs, with per-(token, kv head)
 scales {'ks', 'vs'}
 (``EngineConfig.kv_quant``): its new rows are quantized once and the same
 rows are attended and appended.  The bf16 dense dots are
-``torch.matmul`` (the reference leaves them to XLA).  A weight may be an
+``torch.matmul`` (the reference leaves them to XLA), except on a target
+decode or verify pass with ``quantization.set_dense_kernels(True)``, where
+they take B15 as the JAX package's do (``cfg.decode_rows`` as the rows
+hint).  A weight may be an
 int8 or int4 ``quantization.QuantizedWeight`` (the draft's weight copy,
 ``EngineConfig.draft_quant``): ``matmul`` dispatches on it; with int8 the
 attention norm rides the wqkv dot (B4), draft decode passes run each
@@ -30,6 +33,7 @@ B4-int4 (the norms run first) and the head B6-int4.
 from __future__ import annotations
 
 import math
+import os
 from typing import Any, Dict
 
 import torch
@@ -37,7 +41,8 @@ import torch.nn.functional as F
 
 from magicdec_tpu_torch import quantization as Q
 from magicdec_tpu_torch.config import ModelConfig
-from magicdec_tpu_torch.kernels.append import append_all_rows_inplace
+from magicdec_tpu_torch.kernels.append import (append_all_rows_inplace, append_rows_inplace,
+                                               append_scale_rows_inplace)
 from magicdec_tpu_torch.kernels.paged_attention import append_paged_rows_inplace
 from magicdec_tpu_torch.ops import attention as attn_ops
 from magicdec_tpu_torch.ops.kv_cache import (is_packed_int4, quantize_kv_tokens,
@@ -83,7 +88,10 @@ def _qkv(x, wl, cfg: ModelConfig, B: int, T: int):
         if Q.is_quantized(wl["wqkv"]) and wl.get("bqkv") is None:
             qkv = Q.quant_matmul(x, wl["wqkv"], norm=norm)
         else:
-            qkv = matmul(rms_norm(x, *norm), wl["wqkv"])
+            if Q.is_quantized(wl["wqkv"]):
+                qkv = matmul(rms_norm(x, *norm), wl["wqkv"])
+            else:
+                qkv = Q.dense_matmul(x, wl["wqkv"], norm=norm, rows_hint=cfg.decode_rows)
             if wl.get("bqkv") is not None:
                 qkv = qkv + wl["bqkv"]
         qkv = qkv[:B * T]
@@ -99,7 +107,9 @@ def _qkv(x, wl, cfg: ModelConfig, B: int, T: int):
 
 def _mlp(x, wl, cfg: ModelConfig, residual=None):
     """rms_norm -> silu-gated MLP [+ residual].  An int8 w13 takes the norm
-    and the gate into its dot and w2 the residual (B4 where routed)."""
+    and the gate into its dot and w2 the residual (B4 where routed); a bf16
+    w13 on a target decode or verify pass takes B15 where routed
+    (``quantization.dense_mlp``, else ``dense_matmul`` pieces)."""
     norm = (wl["ffn_norm"], cfg.norm_eps)
     if "w13" in wl and Q.is_quantized(wl["w13"]):
         y = Q.quant_mlp(x, wl["w13"], wl["w2"], norm, residual=residual)
@@ -107,14 +117,17 @@ def _mlp(x, wl, cfg: ModelConfig, residual=None):
             return y
         gated = Q.quant_matmul(x, wl["w13"], norm=norm, gate=True)
         return Q.quant_matmul(gated, wl["w2"], residual=residual)
-    xn = rms_norm(x, *norm)
     if "w13" in wl:
-        gu = matmul(xn, wl["w13"])
+        hint = cfg.decode_rows
+        y = Q.dense_mlp(x, wl["w13"], wl["w2"], norm, residual=residual, rows_hint=hint)
+        if y is not None:
+            return y
+        gu = Q.dense_matmul(x, wl["w13"], norm=norm, rows_hint=hint)
         Fh = gu.shape[-1] // 2
-        gate, up = gu[..., :Fh], gu[..., Fh:]
-    else:
-        gate, up = matmul(xn, wl["w1"]), matmul(xn, wl["w3"])
-    y = matmul(F.silu(gate) * up, wl["w2"])
+        return Q.dense_matmul(F.silu(gu[..., :Fh]) * gu[..., Fh:], wl["w2"],
+                              residual=residual, rows_hint=hint)
+    xn = rms_norm(x, *norm)
+    y = matmul(F.silu(matmul(xn, wl["w1"])) * matmul(xn, wl["w3"]), wl["w2"])
     return y if residual is None else residual + y
 
 
@@ -133,7 +146,7 @@ def _layer_tail(x, out, wl, cfg: ModelConfig, *, mega: bool = False):
     if Q.is_quantized(wl["wo"]):
         h = Q.quant_matmul(o, wl["wo"], residual=x)
     else:
-        h = x + matmul(o, wl["wo"])
+        h = Q.dense_matmul(o, wl["wo"], residual=x, rows_hint=cfg.decode_rows)
     return _mlp(h, wl, cfg, residual=h)
 
 
@@ -217,13 +230,22 @@ def _append_rows(caches, rows, write_pos, prefix=""):
     """One in-place append of every layer's rows {'k','v'} [L, B, T, K]
     (with their scales {'ks','vs'} [L, B, Hkv, T] for an int8 cache); into
     the pages of a page pool through its table when the caches hold one
-    (paged serving, B13)."""
+    (paged serving, B13).  With ``MAGICDEC_PER_ARRAY_APPEND`` set (the JAX
+    package's A/B switch, read at each call as the JAX package reads it at
+    each trace), a contiguous cache takes one B14 call per array instead of
+    the merged K3/K3q launch."""
     scales = ((caches[prefix + "ks"], caches[prefix + "vs"], rows["ks"], rows["vs"])
               if "ks" in rows else ())
     table = caches.get(prefix + "table")
     if table is not None:
         append_paged_rows_inplace(caches[prefix + "k"], caches[prefix + "v"], rows["k"],
                                   rows["v"], write_pos, table, *scales)
+    elif os.environ.get("MAGICDEC_PER_ARRAY_APPEND"):
+        for n in ("k", "v"):
+            append_rows_inplace(caches[prefix + n], rows[n], write_pos)
+        if scales:
+            for n in ("ks", "vs"):
+                append_scale_rows_inplace(caches[prefix + n], rows[n], write_pos)
     else:
         append_all_rows_inplace(caches[prefix + "k"], caches[prefix + "v"],
                                 rows["k"], rows["v"], write_pos, *scales)

@@ -8,8 +8,10 @@ head pairs into ``[L, B, S, (Hkv//2)*hd]`` int8, plus per-(token, kv head)
 scales ``[L, B, Hkv, S]`` (the cache-length axis minor, as in the JAX
 package).  The layer loop reads the stacked cache and collects each layer's
 new rows; ONE append after the loop writes them, in place.  The Hopper
-kernel for that append is ``kernels/append.py``; this module holds its plain
-version.
+kernels for that append and their plain versions are ``kernels/append.py``;
+they drop the rows that would land past the cache's end, as the Pallas
+kernels do.  This module's ``append_rows_all_layers`` is the counterpart
+of the JAX package's jnp op, which clamps the start instead.
 """
 
 from __future__ import annotations

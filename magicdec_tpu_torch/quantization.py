@@ -23,6 +23,24 @@ for M <= 128.  A pass whose rows are padded (a target pass at
 ``ModelConfig.decode_rows``) hands its dots the padded rows, so the JAX
 package's ``rows_hint`` is the live row count here.
 
+The target's bf16 dots on its decode and verify passes (``rows_hint`` =
+``ModelConfig.decode_rows`` > 0) take B15 (``kernels/dense_matmul.py``)
+when ``set_dense_kernels(True)``: ``dense_matmul`` and ``dense_mlp`` route
+as the JAX package's do, and are off by default as there.  Their routing
+keeps the JAX package's integer budgets (``_pick_block_out`` and
+``dense_mlp``'s 14 MiB rule) as routing rules, not as TPU facts, because
+they choose between two numerics: where ``dense_mlp`` declines, the block
+runs as two ``dense_matmul`` calls with the SiLU between them, outside the
+kernel; where ``_pick_block_out`` declines, the plain bf16 dot runs.  They
+decline only at row counts the bench does not reach: at llama-3.2-1b widths
+(D 2048, F 8192) ``dense_mlp`` declines above 402 rows (``decode_rows``
+above 402, e.g. B=128 at gamma 3) and ``dense_matmul`` never does
+(``rows_hint`` <= 512); at llama-3.1-8b widths (D 4096, F 14336)
+``dense_mlp`` declines above 146 rows and the norm-fused wqkv and w13 dots
+above 200 (B=32 at gamma 3 is 128 rows).  Routing reads ``rows_hint``,
+never the live M, so the padded autoregressive step and the verify pass
+take the same kernel.
+
 Group-wise int8 is ROADMAP item A8.
 """
 
@@ -35,6 +53,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from magicdec_tpu_torch.kernels import dense_matmul as DK
 from magicdec_tpu_torch.kernels import quant_matmul as K
 from magicdec_tpu_torch.ops.norm import rms_norm
 
@@ -50,6 +69,20 @@ _INV7 = torch.tensor(1.0 / 7.0, dtype=torch.float32).item()
 # product at every shape, as the JAX package's "jnp" backend computes it, for
 # CPU tensors only: on the card the port runs its Hopper kernels.
 _MATMUL_BACKEND = "pallas"
+
+
+# the target's bf16 decode and verify dots on B15 (dense_matmul, dense_mlp):
+# off by default, as in the JAX package
+_DENSE_KERNELS = False
+
+
+def set_dense_kernels(on: bool) -> None:
+    global _DENSE_KERNELS
+    _DENSE_KERNELS = bool(on)
+
+
+def dense_kernels() -> bool:
+    return _DENSE_KERNELS
 
 
 def set_matmul_backend(name: str) -> None:
@@ -304,4 +337,86 @@ def quant_layer_tail(a, x, wo: QuantizedWeight, w13: QuantizedWeight, w2: Quanti
         return None
     y = K.quant_layer_tail(a.reshape(M, Kd), x.reshape(M, D), wo.q, wo.scale, w13.q,
                            w13.scale, w2.q, w2.scale, norm[0], eps=norm[1])
+    return y.reshape(*lead, D)
+
+
+def _in_block_cap(In: int) -> int:
+    for cand in (2048, 1024, 512):
+        if In % cand == 0:
+            return cand
+    return In
+
+
+def _pick_block_out(Out: int, rows: int, block_in: int, In: int, w_bytes_per_out: float,
+                    norm: bool) -> int:
+    """The JAX package's ``_pick_block_out``, kept as a routing rule: the
+    widest output block whose modelled footprint at ``rows`` (the routing
+    row count) fits 9 MiB, or 0 when none does (the plain dot runs)."""
+    fixed = rows * (2 * block_in * 2)
+    if norm:
+        fixed += rows * In * 2
+    budget = 9 * 1024 * 1024
+    for bo in (8192, 4096, 3072, 2048, 1536, 1024, 768, 512, 384, 256):
+        if Out % bo:
+            continue
+        if bo * w_bytes_per_out > 2 * 1024 * 1024 and bo > 256:
+            continue
+        if fixed + 2 * bo * w_bytes_per_out + rows * bo * 6 <= budget:
+            return bo
+    return 0
+
+
+def _dense_routes(w, rows_hint: int, M: int) -> bool:
+    """The JAX package's gate for the dense kernels: a decode or verify pass
+    (``rows_hint`` > 0, at most 512, the live rows within it), the switch
+    on, the "pallas" backend and a 2-D bf16-weight dot."""
+    return (bool(rows_hint) and _DENSE_KERNELS and _MATMUL_BACKEND == "pallas"
+            and not is_quantized(w) and w.dim() == 2 and rows_hint <= 512 and M <= rows_hint)
+
+
+def dense_matmul(x, w, norm=None, residual=None, rows_hint: int = 0):
+    """[residual +] rms_norm?(x) @ w for a dense (bf16) weight, as
+    ``magicdec_tpu.quantization.dense_matmul`` routes it: B15's
+    ``dense_matmul_fused`` on a target decode or verify pass where the JAX
+    package takes ``dense_matmul_fused_pallas`` (In % 128 == 0,
+    Out % 128 == 0, a block from ``_pick_block_out`` at ``rows_hint``
+    rows), else the plain bf16 dot (cuBLAS on the card)."""
+    lead = x.shape[:-1]
+    M = math.prod(lead)
+    In, Out = w.shape[-2], w.shape[-1]
+    if _dense_routes(w, rows_hint, M) and In % 128 == 0 and Out % 128 == 0:
+        block_in = In if norm is not None else min(_in_block_cap(In), In)
+        if In % block_in:
+            block_in = In
+        if _pick_block_out(Out, rows_hint, block_in, In, block_in * 2, norm is not None):
+            y = DK.dense_matmul_fused(
+                x.reshape(M, In), w, norm[0] if norm is not None else None,
+                residual.reshape(M, Out) if residual is not None else None,
+                eps=norm[1] if norm is not None else 1e-5)
+            return y.reshape(*lead, Out)
+    if norm is not None:
+        x = rms_norm(x, norm[0], norm[1])
+    y = x @ w
+    return y if residual is None else residual + y
+
+
+def dense_mlp(x, w13, w2, norm, residual=None, rows_hint: int = 0):
+    """The dense FFN block, rms_norm -> silu-gated MLP -> w2 [+ residual],
+    as B15's ``dense_mlp`` where the JAX package takes ``dense_mlp_pallas``
+    (w2 [F, D], D % 128 == 0, D <= 4096, an F block from its 14 MiB rule at
+    ``rows_hint`` rows); else None, and the caller runs the block as
+    ``dense_matmul`` pieces."""
+    lead = x.shape[:-1]
+    M = math.prod(lead)
+    D = x.shape[-1]
+    if not (_dense_routes(w13, rows_hint, M) and _dense_routes(w2, rows_hint, M)):
+        return None
+    F = w13.shape[1] // 2
+    if tuple(w2.shape) != (F, D) or D % 128 or D > 4096:
+        return None
+    if not any(F % bf == 0 and 12 * D * bf + rows_hint * D * 14 <= 14 * 1024 * 1024
+               for bf in (1024, 768, 512, 384, 256, 128)):
+        return None
+    y = DK.dense_mlp(x.reshape(M, D), w13, w2, norm[0],
+                     residual.reshape(M, D) if residual is not None else None, eps=norm[1])
     return y.reshape(*lead, D)

@@ -187,7 +187,10 @@ def test_append_kernel_matches_plain_on_card(cuda, T):
     S, K = 1024, 512
     ck, cv = (_rand(gen, L, B, S, K, device=cuda) for _ in range(2))
     rk, rv = (_rand(gen, L, B, T, K, device=cuda) for _ in range(2))
-    pos = torch.tensor([0, 5, S - T, 2 * S], dtype=torch.int32, device=cuda)  # last clamps
+    # ragged, the last row, a window running past the end, one wholly past it:
+    # rows at or past S are dropped
+    pos = torch.tensor([5, S - T, S - (T + 1) // 2, 2 * S], dtype=torch.int32,
+                       device=cuda)
     ak, av = AP.append_all_rows_inplace(ck.clone(), cv.clone(), rk, rv, pos)
     pk, pv = AP.append_all_rows_inplace_plain(ck, cv, rk, rv, pos)
     assert torch.equal(ak, pk) and torch.equal(av, pv)

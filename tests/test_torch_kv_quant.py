@@ -453,7 +453,10 @@ def test_append_quant_kernel_matches_plain_on_card(cuda, T):
     cv, sv = _quant_cache_on_card(gen, L, B, S, Hkv, cuda)
     rk, srk = _quant_cache_on_card(gen, L, B, T, Hkv, cuda)
     rv, srv = _quant_cache_on_card(gen, L, B, T, Hkv, cuda)
-    pos = torch.tensor([0, 5, S - T, 2 * S], dtype=torch.int32, device=cuda)  # last clamps
+    # ragged, the last row, a window running past the end, one wholly past it:
+    # rows at or past S are dropped
+    pos = torch.tensor([5, S - T, S - (T + 1) // 2, 2 * S], dtype=torch.int32,
+                       device=cuda)
     got = AP.append_all_rows_inplace_quant(ck.clone(), cv.clone(), rk, rv, pos, sk.clone(),
                                            sv.clone(), srk, srv)
     want = AP.append_all_rows_inplace_plain(ck, cv, rk, rv, pos, sk, sv, srk, srv)
