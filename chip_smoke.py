@@ -6,7 +6,8 @@ Needs one CUDA card and ``nvcc``; exits non-zero without them.  Phases, each
 of which raises on failure:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build of every kernel from ``magicdec_tpu_torch/csrc`` (timed);
+2. build of every kernel from ``magicdec_tpu_torch/csrc`` (timed), with
+   ptxas's registers, shared memory and spills of B4/B6's kernel;
 3. kernel phase: each Hopper kernel against its plain PyTorch version at the
    shapes of the bench's main path (llama-3.2-1b widths, B=32, target cache
    8704 rows in bf16 and in int8 with f32 scales quantized from the same
@@ -14,7 +15,12 @@ of which raises on failure:
    within ``kernels.bf16_limit`` (2**-5 times the RMS of each output row
    plus 2**-6 |ref|), the appends bit for bit; each attention kernel run
    without the window's fresh rows must fail that bound, so the check can
-   tell a kernel that drops them.  With each: its time (CUDA events), its bound
+   tell a kernel that drops them.  With each: its time (CUDA events around 20
+   calls issued from Python, ``ms``), its device-only time (``device_ms``:
+   the same launches, one per layer in turn for a weight- or layer-stacked
+   case, captured in one CUDA graph and replayed between CUDA events; the
+   library call's likewise, ``library_device_ms``; a case that cannot be
+   captured fails the run), its bound
    (bytes over 3.35 TB/s or flops over 989 TFLOP/s, whichever is larger;
    the int8 kernels' bytes include the scales), the plain version's time
    and a library yardstick (``library_ms``: ``scaled_dot_product_attention``
@@ -22,8 +28,9 @@ of which raises on failure:
    of the rows (and scales) for the appends; timed only, never used by the
    port); then the int8 dots of the draft's weight copy (B4 with its norm,
    gate and residual epilogues, B5, B6, and B9), at llama-3.2-1b widths and
-   M = 32 and 64, each timed over 16 layers' weights in turn, each with a
-   deliberately wrong reference (B4 without its norm or residual, B5
+   M = 32 and 64, each timed over 16 layers' weights in turn (B4 and B6
+   also under torch.profiler, which must see one kernel launch a call), each
+   with a deliberately wrong reference (B4 without its norm or residual, B5
    without its first residual, B6 with its scales off by one column, B9
    without its residual) that must fail bf16_limit, their bound the int8
    weight's bytes, and ``torch.matmul`` on the dequantized bf16 weight as
@@ -131,6 +138,10 @@ def _cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def _round(ms):
+    return ms if ms is None else round(ms, 4)
+
+
 def _bound(nbytes, flops):
     t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_BF16_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -189,6 +200,7 @@ def _swap_planes(packed):
 
 
 def kernel_phase(torch, gen):
+    from magicdec_tpu_torch.kernel_benchmark import graph_ms
     from magicdec_tpu_torch.kernels import append as AP
     from magicdec_tpu_torch.kernels import decode_attention as DA
     from magicdec_tpu_torch.kernels import prefill_attention as PA
@@ -210,16 +222,25 @@ def kernel_phase(torch, gen):
     layer = 5
     entries = {}
 
-    def record(name, case, err, tol, ms, plain_ms, nbytes, flops, library_ms):
+    def record(name, case, err, tol, ms, plain_ms, nbytes, flops, library_ms, calls,
+               lib_calls=None, extra=None):
+        """One case: its host-issued times (``ms``, ``plain_ms``,
+        ``library_ms``), and the device-only times of ``calls`` (the
+        kernel's launches) and ``lib_calls`` (the library call's) from CUDA
+        graph replay; a case that cannot be captured fails the run."""
         bound_ms, bound_by = _bound(nbytes, flops)
+        device_ms = graph_ms(calls)
+        lib_device_ms = graph_ms(lib_calls) if lib_calls else None
         c = {"case": case, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+             "device_ms": device_ms, "library_device_ms": lib_device_ms, **(extra or {})}
         entries.setdefault(name, []).append(c)
         print(f"[kernel] {name} {case}: max_abs_err={err:.3e} ({tol}) "
-              f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
-              f"({bound_by}, {bound_ms / ms:.1%} of roofline) "
-              f"library_ms={library_ms if library_ms is None else round(library_ms, 4)}",
+              f"ms={ms:.4f} device_ms={device_ms:.4f} plain_ms={plain_ms:.4f} "
+              f"bound_ms={bound_ms:.4f} ({bound_by}, {bound_ms / device_ms:.1%} of roofline) "
+              f"library_ms={_round(library_ms)} library_device_ms={_round(lib_device_ms)}",
               flush=True)
+        return c
 
     def quantize(x, fn=quantize_kv_tokens, width=K):
         """[L, B, S, K] bf16 -> int8 [L, B, S, width] (``fn``: int8, or int4
@@ -303,9 +324,11 @@ def kernel_phase(torch, gen):
         kl, vl, knl, vnl = dense_layer(caches, fresh)
         lib_args = _sdpa_inputs(q, kl, vl, base, knl, vnl)
         del kl, vl
-        library_ms = _cuda_ms(lambda: F.scaled_dot_product_attention(
-            lib_args[0], lib_args[1], lib_args[2], attn_mask=lib_args[3]))
-        del lib_args
+
+        def lib():
+            return F.scaled_dot_product_attention(lib_args[0], lib_args[1], lib_args[2],
+                                                  attn_mask=lib_args[3])
+        library_ms = _cuda_ms(lib)
         vis = base.double()
         pairs = float((vis[:, None] + torch.arange(1, T + 1, device=dev)).sum())
         # a visible row of k (and of v): its bytes (int4: K / 2) and, when
@@ -315,7 +338,9 @@ def kernel_phase(torch, gen):
         nbytes = (2 * q.numel() * 2 + 2 * float(vis.sum()) * row_bytes
                   + sum(t.numel() * t.element_size() for t in fresh.values()))
         flops = 4 * hd * Hq * pairs
-        record(name, case, err, tol, ms, plain_ms, nbytes, flops, library_ms)
+        record(name, case, err, tol, ms, plain_ms, nbytes, flops, library_ms,
+               [lambda l=l: fn(q, *caches, base, layer=l, **fresh) for l in range(L)], [lib])
+        del lib_args
 
     # K1 at the target cache: verify (T = gamma + 1 = 4) and the AR step,
     # ragged lengths around the bench's prefix
@@ -394,7 +419,10 @@ def kernel_phase(torch, gen):
             pairs += [(caches[i].view(-1), sflat, rows[i].reshape(-1)) for i in (2, 3)]
         library_ms = _cuda_ms(lambda: [c.index_copy_(0, i, r) for c, i, r in pairs])
         nbytes = 2 * sum(r.numel() * r.element_size() for r in rows)  # read + write
-        record(name, case, 0.0, "bit-exact", ms, plain_ms, nbytes, 0.0, library_ms)
+        call = lambda: fn(*caches[:2], *rows[:2], pos, *caches[2:], *rows[2:])  # noqa: E731
+        lib = lambda: [c.index_copy_(0, i, r) for c, i, r in pairs]  # noqa: E731
+        record(name, case, 0.0, "bit-exact", ms, plain_ms, nbytes, 0.0, library_ms,
+               [call] * 10, [lib] * 10)
 
     # K3 and K3q: bit-exact against the plain versions on copies of the
     # target caches
@@ -475,7 +503,9 @@ def per_array_append_cases(torch, gen, record):
         library_ms = _cuda_ms(lambda: pair[0].index_copy_(0, pair[1], pair[2]))
         nbytes = 2.0 * vals.numel() * vals.element_size()  # the kept rows, read and written
         record(name, f"{label} T={T} (request {B - 1} at {int(pos[-1])}: rows past {S} "
-               "dropped)", 0.0, "bit-exact", ms, plain_ms, nbytes, 0.0, library_ms)
+               "dropped)", 0.0, "bit-exact", ms, plain_ms, nbytes, 0.0, library_ms,
+               [lambda: fn(dst, src, pos)] * 10,
+               [lambda: pair[0].index_copy_(0, pair[1], pair[2])] * 10)
 
     caches = {
         "target int8 S=8704": torch.randint(-128, 128, (L, B, 8704, K), generator=gen,
@@ -548,16 +578,18 @@ def dense_kernel_cases(torch, gen, record):
         layers = itertools.cycle(range(L))
         ms = _cuda_ms(lambda: fn(*args_of(next(layers))))
         plain_ms = _cuda_ms(lambda: plain(*args), iters=3, warmup=1)
-        library_ms = None
+        library_ms, lib_calls = None, None
         if lib is not None:
             ws = itertools.cycle([weights[keys[0]][l] for l in range(L)])
             library_ms = _cuda_ms(lambda: torch.matmul(lib, next(ws)))
+            lib_calls = [lambda w=weights[keys[0]][l]: torch.matmul(lib, w) for l in range(L)]
         # every operand read once (one layer's weights, rows, norm) and the
         # output written once
         moved = float(sum(a.numel() * a.element_size() for a in args)
                       + out.numel() * out.element_size())
         flops = 2.0 * M * sum(weights[k][0].numel() for k in keys)
-        record(name, label, err, tol, ms, plain_ms, moved, flops, library_ms)
+        record(name, label, err, tol, ms, plain_ms, moved, flops, library_ms,
+               [lambda l=l: fn(*args_of(l)) for l in range(L)], lib_calls)
 
     def w(key, l):
         return weights[key][l]
@@ -701,15 +733,20 @@ def paged_kernel_cases(torch, gen, record):
             del gathered
             lib_args = _sdpa_inputs(q, kl, vl, base, knl, vnl)
             del kl, vl
-            library_ms = _cuda_ms(lambda: F.scaled_dot_product_attention(
-                lib_args[0], lib_args[1], lib_args[2], attn_mask=lib_args[3]))
-            del lib_args
+
+            def lib():
+                return F.scaled_dot_product_attention(lib_args[0], lib_args[1], lib_args[2],
+                                                      attn_mask=lib_args[3])
+            library_ms = _cuda_ms(lib)
             vis = base.double()
             pairs = float((vis[:, None] + torch.arange(1, T + 1, device=dev)).sum())
             row_bytes = pools[0].shape[-1] * pools[0].element_size() + (Hkv * 4 if qz else 0)
             nbytes = (2 * q.numel() * 2 + 2 * float(vis.sum()) * row_bytes + table.numel() * 4
                       + sum(t.numel() * t.element_size() for t in fresh.values()))
-            record(name, case, err, tol, ms, plain_ms, nbytes, 4 * hd * Hq * pairs, library_ms)
+            record(name, case, err, tol, ms, plain_ms, nbytes, 4 * hd * Hq * pairs, library_ms,
+                   [lambda l=l: fn(q, *pools, table, base, layer=l, **fresh) for l in range(L)],
+                   [lib])
+            del lib_args
             fmt = {None: "bf16", quantize_kv_tokens: "int8"}.get(qz, "packed int4")
             paged_append_case(torch, record, pools, table, base, T, f"{fmt} pool ps={ps} ", gen)
             del pools, fresh
@@ -764,7 +801,9 @@ def paged_append_case(torch, record, pools, table, pos, T, label, gen):
     nbytes = (2 * sum(r.numel() * r.element_size() for r in rows + srows)
               + table.numel() * 4 + pos.numel() * 4)
     record("append_paged_rows_inplace", f"{label}T={T}", 0.0, "bit-exact", ms, plain_ms,
-           nbytes, 0.0, library_ms)
+           nbytes, 0.0, library_ms,
+           [lambda: PGA.append_paged_rows_inplace(*data, *ops, *scales, *srows)] * 10,
+           [lambda: [d.index_copy_(0, i, r) for d, i, r in pairs]] * 10)
 
 
 def quant_kernel_cases(torch, gen, record):
@@ -810,20 +849,32 @@ def quant_kernel_cases(torch, gen, record):
               f"{w_share:.3g} of it)", flush=True)
         if not w_bad:
             raise AssertionError(f"{name} {label}: bf16_limit passes a wrong reference")
-        layers = itertools.cycle(range(weights[keys[0]][0].shape[0]))
+        n_layers = weights[keys[0]][0].shape[0]
+        layers = itertools.cycle(range(n_layers))
         ms = _cuda_ms(lambda: fn(*args_of(next(layers))))
         plain_ms = _cuda_ms(lambda: plain(*args), iters=3, warmup=1)
-        library_ms = None
+        calls = [lambda l=l: fn(*args_of(l)) for l in range(n_layers)]
+        extra = None
+        if name in ("quant_matmul_fused", "quant_matmul"):
+            # B4/B6: one kernel a call, its device time from the profiler
+            per_call, prof_ms, kernels = _profiled(torch, calls)
+            print(f"[kernel] {name} {label}: profiler: {per_call:g} kernel launches a call, "
+                  f"device ms a call {prof_ms:.4f} ({', '.join(sorted(kernels))})", flush=True)
+            if per_call != 1:
+                raise AssertionError(f"{name} {label}: {per_call} kernel launches a call, not 1")
+            extra = {"launches_per_call": per_call, "profiler_device_ms": prof_ms}
+        library_ms, deq = None, None
         if lib is not None:
             deq = [dequant(k, l) for k in keys for l in range(weights[k][0].shape[0])]
             xs = itertools.cycle(deq)
             library_ms = _cuda_ms(lambda: torch.matmul(lib, next(xs)))
-            del deq
         moved = nbytes(*(t for k in keys for t in (weights[k][0][0], weights[k][1][0])),
                        *(a for a in args if a.dtype == bf), out)
         # an int4 byte holds two weights
         flops = 2.0 * M * sum(weights[k][0][0].numel() * (2 if is4(k) else 1) for k in keys)
-        record(name, label, err, tol, ms, plain_ms, moved, flops, library_ms)
+        record(name, label, err, tol, ms, plain_ms, moved, flops, library_ms, calls,
+               deq and [lambda d=d: torch.matmul(lib, d) for d in deq], extra)
+        del deq
 
     def is4(key):
         """An int4 weight: its per-layer scales are [G, Out]."""
@@ -845,18 +896,19 @@ def quant_kernel_cases(torch, gen, record):
              lambda x, q, s, n: QK.quant_matmul_fused_plain(x, q, s, n),
              lambda x, q, s, n: QK.quant_matmul_plain(x, q, s),  # without the norm
              lambda l: (x, *w("wqkv", l), norm_w), ["wqkv"], lib=x, M=M)
-    x = randn(32, D, scale=3.0)
-    case("quant_matmul_fused", "w13 + norm + SiLU gate M=32",
-         lambda x, q, s, n: QK.quant_matmul_fused(x, q, s, n, gate=True),
-         lambda x, q, s, n: QK.quant_matmul_fused_plain(x, q, s, n, gate=True),
-         lambda x, q, s, n: QK.quant_matmul_fused_plain(x, q, s, gate=True),  # no norm
-         lambda l: (x, *w("w13", l), norm_w), ["w13"], lib=x)
-    g, res = randn(32, F, scale=0.5), randn(32, D)
-    case("quant_matmul_fused", "w2 + residual M=32",
-         lambda x, q, s, r: QK.quant_matmul_fused(x, q, s, res=r),
-         lambda x, q, s, r: QK.quant_matmul_fused_plain(x, q, s, res=r),
-         lambda x, q, s, r: QK.quant_matmul_plain(x, q, s),  # without the residual
-         lambda l: (g, *w("w2", l), res), ["w2"], lib=g)
+    for M in (32, 64):
+        x = randn(M, D, scale=3.0)
+        case("quant_matmul_fused", f"w13 + norm + SiLU gate M={M}",
+             lambda x, q, s, n: QK.quant_matmul_fused(x, q, s, n, gate=True),
+             lambda x, q, s, n: QK.quant_matmul_fused_plain(x, q, s, n, gate=True),
+             lambda x, q, s, n: QK.quant_matmul_fused_plain(x, q, s, gate=True),  # no norm
+             lambda l: (x, *w("w13", l), norm_w), ["w13"], lib=x, M=M)
+        g, res = randn(M, F, scale=0.5), randn(M, D)
+        case("quant_matmul_fused", f"w2 + residual M={M}",
+             lambda x, q, s, r: QK.quant_matmul_fused(x, q, s, res=r),
+             lambda x, q, s, r: QK.quant_matmul_fused_plain(x, q, s, res=r),
+             lambda x, q, s, r: QK.quant_matmul_plain(x, q, s),  # without the residual
+             lambda l: (g, *w("w2", l), res), ["w2"], lib=g, M=M)
 
     def tail_args(M):
         a, x = randn(M, D), randn(M, D)
@@ -1377,6 +1429,24 @@ def _device_ms(event):
     return (t if t is not None else event.self_cuda_time_total) / 1e3
 
 
+def _profiled(torch, calls):
+    """(kernel launches a call, device ms a call, kernel names) of ``calls``
+    under torch.profiler, after one unprofiled pass."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for call in calls:
+        call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for call in calls:
+            call()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    launches = sum(e.count for e in kern)
+    return (launches / len(calls), sum(_device_ms(e) for e in kern) / len(calls),
+            {e.key[:60] for e in kern})
+
+
 def _kernel_class(name):
     if "qmm4" in name:
         return "int4 dots (B4/B6-int4)"
@@ -1536,6 +1606,13 @@ def main():
 
     lib = build.build(verbose=True)
     print(f"[build] {lib.name} in {time.perf_counter() - t_start:.1f}s", flush=True)
+    # registers, shared memory and spills of B4/B6's kernel, each instantiation
+    log = build.BUILD_DIR / "quant_matmul_sm90.nvcc.log"
+    ptxas = log.read_text().splitlines() if log.exists() else []
+    for i, line in enumerate(ptxas):
+        if "Compiling entry function" in line and "qmm_sm90_kernel" in line:
+            detail = " | ".join(x.strip() for x in ptxas[i + 1:i + 4] if "ptxas" in x or "spill" in x)
+            print(f"[ptxas] {line.split(chr(39))[1]}: {detail}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1656,11 +1733,11 @@ def main():
                                        "magicdec_tpu/ops/pallas/prefill_attention.py:340"),
         "append_all_rows_inplace_quant": ("magicdec_tpu_torch/csrc/append.cu",
                                           "magicdec_tpu/ops/kv_cache.py:489"),
-        "quant_matmul_fused": ("magicdec_tpu_torch/csrc/quant_matmul.cu",
+        "quant_matmul_fused": ("magicdec_tpu_torch/csrc/quant_matmul_sm90.cu",
                                "magicdec_tpu/ops/pallas/quant_matmul.py:301"),
         "quant_layer_tail": ("magicdec_tpu_torch/csrc/quant_matmul.cu",
                              "magicdec_tpu/ops/pallas/quant_matmul.py:699"),
-        "quant_matmul": ("magicdec_tpu_torch/csrc/quant_matmul.cu",
+        "quant_matmul": ("magicdec_tpu_torch/csrc/quant_matmul_sm90.cu",
                          "magicdec_tpu/ops/pallas/quant_matmul.py:221"),
         "quant_mlp": ("magicdec_tpu_torch/csrc/quant_matmul.cu",
                       "magicdec_tpu/ops/pallas/quant_matmul.py:749"),
@@ -1700,6 +1777,7 @@ def main():
             "max_abs_err": max(c["max_abs_err"] for c in cases[name]),
             "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "device_ms": head["device_ms"], "library_device_ms": head["library_device_ms"],
             "case": head["case"], "cases": cases[name]})
     print(smi, flush=True)  # again, so that the end of a long log keeps it
     print(json.dumps({"kernels": kernels}))

@@ -1,17 +1,17 @@
-// B4, B5, B6, B9: the int8 weight-only dots of the draft's weight copy, and
-// B4-int4, B6-int4: its group-wise int4 dots.
+// B5, B9: the int8 weight-only dots of the draft's weight copy that run
+// several dots a call, and B4-int4, B6-int4: its group-wise int4 dots.  B4
+// and B6 (one int8 dot a call) run on quant_matmul_sm90.cu.
 //
-// Replaces magicdec_tpu/ops/pallas/quant_matmul.py quant_matmul_fused_pallas
-// (_fused_kernel, int8 branch: B4; nibble-plane branch: B4-int4),
-// quant_layer_tail_pallas (_layer_tail_kernel: B5), quant_matmul_pallas
-// (_int8_kernel: B6; _int4_kernel: B6-int4) and quant_mlp_pallas
-// (_mlp_kernel: B9, the FFN block alone, which the draft takes where B5
-// declines).
-// Each computes y = x[M, In] @ q[In, Out] * scale[Out]: bf16 x, int8 q with
-// one f32 scale per output column, f32 accumulation, then the reference's
-// epilogue: bf16(acc * scale) (B6); the same after an rms-norm of x, or as
-// bf16(g * sigmoid(g) * u) over the gate|up halves of q, or plus a bf16
-// residual (B4); and B5's whole post-attention layer tail,
+// Replaces magicdec_tpu/ops/pallas/quant_matmul.py quant_layer_tail_pallas
+// (_layer_tail_kernel: B5), quant_mlp_pallas (_mlp_kernel: B9, the FFN block
+// alone, which the draft takes where B5 declines), quant_matmul_fused_pallas
+// (nibble-plane branch: B4-int4) and quant_matmul_pallas (_int4_kernel:
+// B6-int4).
+// Each dot computes y = x[M, In] @ q[In, Out] * scale[Out]: bf16 x, int8 q
+// with one f32 scale per output column, f32 accumulation, then the
+// reference's epilogue: bf16(acc * scale), the same after an rms-norm of x,
+// or as bf16(g * sigmoid(g) * u) over the gate|up halves of q, or plus a
+// bf16 residual; B5 is a draft layer's whole post-attention tail,
 //   h = x + bf16(a @ wo * so);  gated = gate(rms(h) * ffn_norm @ w13 * s13);
 //   out = h + bf16(gated @ w2 * s2).
 //
@@ -28,12 +28,12 @@
 //   bf16 tile, so the conversion needs no block barrier; ldmatrix (.trans
 //   for the weight) feeds mma.sync m16n8k16, bf16 in, f32 accumulate.  Rows
 //   are tiled by 16 (MT tiles, at most 128 rows a launch).
-// - With one split and no gate (the lm_head fills the card by itself) the
-//   block finishes in registers.  Otherwise each split writes f32 partial
-//   sums and qmm_epilogue_kernel adds them in split order (no atomics, so the
-//   draft's tokens are the same on every run) and applies scale, gate or
-//   residual; the gate pairs column n with column F + n of the same partials.
-// - rms_norm_rows_kernel: the norm prologue, once per call, into a bf16
+// - With one split and no gate the block finishes in registers.  Otherwise
+//   each split writes f32 partial sums and qmm_epilogue_kernel adds them in
+//   split order (no atomics, so the draft's tokens are the same on every
+//   run) and applies scale, gate or residual; the gate pairs column n with
+//   column F + n of the same partials.
+// - rms_norm_rows_kernel: the norm prologue, once per dot, into a bf16
 //   scratch that the dot then streams (the row statistic needs whole rows).
 // - B5 enqueues its three phases from one entry point: phase 2 needs all of
 //   h, so the phase boundaries are launch boundaries.  B9 is B5's phases 2
@@ -53,6 +53,7 @@
 //   ends; splits and tiles start on group boundaries.  The epilogue is B4's
 //   with the scale already applied (no norm: the reference norms int4 x
 //   outside the kernel).
+// - cudaFuncSetAttribute runs once per kernel instantiation, not per launch.
 #include "attention_common.cuh"
 #include "matmul_common.cuh"
 
@@ -199,9 +200,9 @@ __global__ void __launch_bounds__(NT) qmm_partial_kernel(Args a) {
 template <int MT>
 static cudaError_t launch_partial(const Args& a, dim3 grid, cudaStream_t st) {
   constexpr int bytes = smem_bytes<MT>();
-  const cudaError_t err = cudaFuncSetAttribute(
+  static const cudaError_t attr = cudaFuncSetAttribute(
       qmm_partial_kernel<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return err;
+  if (attr != cudaSuccess) return attr;
   qmm_partial_kernel<MT><<<grid, NT, bytes, st>>>(a);
   return cudaSuccess;
 }
@@ -433,9 +434,9 @@ __global__ void __launch_bounds__(NT) qmm4_partial_kernel(Args a) {
 template <int MT>
 static cudaError_t launch_partial4(const Args& a, dim3 grid, cudaStream_t st) {
   constexpr int bytes = smem_bytes4<MT>();
-  const cudaError_t err = cudaFuncSetAttribute(
+  static const cudaError_t attr = cudaFuncSetAttribute(
       qmm4_partial_kernel<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return err;
+  if (attr != cudaSuccess) return attr;
   qmm4_partial_kernel<MT><<<grid, NT, bytes, st>>>(a);
   return cudaSuccess;
 }
@@ -494,21 +495,6 @@ static cudaError_t run_qmm4(const __nv_bfloat16* x, const int8_t* q, const float
 }  // namespace md
 
 using bf16 = __nv_bfloat16;
-
-// B4 and B6: out = epilogue(norm?(x)[M, In] @ q[In, Out] * scale[Out]).
-// norm_w / res / xn / part may be null (see run_qmm).  Returns
-// cudaGetLastError().
-extern "C" int md_quant_matmul(const void* x, const void* q, const void* scale,
-                               const void* norm_w, const void* res, void* out, void* part,
-                               void* xn, int M, int In, int Out, int gate, int split, float eps,
-                               void* stream) {
-  return (int)md::qmm::run_qmm(
-      static_cast<const bf16*>(x), static_cast<const int8_t*>(q),
-      static_cast<const float*>(scale), static_cast<const bf16*>(norm_w),
-      static_cast<const bf16*>(res), static_cast<bf16*>(out), static_cast<float*>(part),
-      static_cast<bf16*>(xn), M, In, Out, gate != 0, split, eps,
-      static_cast<cudaStream_t>(stream));
-}
 
 // B5: the draft layer's tail.  a [M, K] attention output, x [M, D] residual;
 // qo [K, D] / so [D], q13 [D, 2F] / s13 [2F], q2 [F, D] / s2 [D], norm_w

@@ -4,7 +4,7 @@ kernel against its plain PyTorch version (counterpart of
 here).
 
     python -m magicdec_tpu_torch.kernel_benchmark [--B 32] [--S 8704] [--C 512]
-        [--which all|decode|prefill|append|paged] [--device cpu]
+        [--which all|decode|prefill|append|paged|dots] [--device cpu]
 
 Each case is timed by ``engine/profiling.py``'s chain: ``--iters`` launches
 back to back, each attention launch's output feeding the next one's queries,
@@ -21,7 +21,20 @@ Cases (``--which``):
            merged launch (``append_T{t}_merged``) against B14's four
            per-array launches (``append_T{t}_per_array``, the
            ``MAGICDEC_PER_ARRAY_APPEND`` path);
-  paged    B12 over bf16 and int8 pools, one layer, a permuted page table.
+  paged    B12 over bf16 and int8 pools, one layer, a permuted page table;
+  dots     (the card only; not in "all") the draft's int8 dots B4 (wqkv +
+           norm, w13 + norm + gate, w2 + residual) and B6 (the lm_head) at
+           the model's widths and M = B and 2B rows, over the layer stack's
+           weights in turn: ``{dot}_M{m}_device`` is the device time a call
+           (``graph_ms``: one call per layer captured in a CUDA graph,
+           replayed between CUDA events), ``_matmul_device`` torch.matmul
+           on the dequantized bf16 weight (the library yardstick).
+           ``chip_smoke.py`` times the same dots with the same ``graph_ms``
+           beside its correctness checks; this case exists for A/B runs:
+           it uses only the wrappers' public signatures, so the file also
+           runs against an older checkout of the package, whose own
+           ``chip_smoke.py`` may have no device times (PYTHONPATH=<checkout>
+           python magicdec_tpu_torch/kernel_benchmark.py --which dots).
 """
 
 from __future__ import annotations
@@ -35,6 +48,35 @@ import torch
 from magicdec_tpu_torch import resolve_device
 
 
+def graph_ms(calls, reps: int = 20) -> float:
+    """Device milliseconds a call of ``calls`` (zero-argument callables, e.g.
+    one per layer): run once on a side stream, then all captured in one CUDA
+    graph, the graph replayed ``reps`` times between CUDA events, the time
+    divided by reps * len(calls).  No host issue is in the time."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for call in calls:
+            call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for call in calls:
+            call()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (reps * len(calls))
+    del graph
+    return ms
+
+
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--device", default="cuda")
@@ -45,7 +87,7 @@ def parse_args(argv=None):
     p.add_argument("--T", type=int, default=5, help="verify window gamma+1 for the decode kernels")
     p.add_argument("--iters", type=int, default=20)
     p.add_argument("--which", default="all",
-                   choices=["all", "decode", "prefill", "append", "paged"])
+                   choices=["all", "decode", "prefill", "append", "paged", "dots"])
     return p.parse_args(argv)
 
 
@@ -169,10 +211,55 @@ def main(argv=None):
             bench(f"paged_decode_T{t}_int8_flash", PGA.flash_paged_decode_attend_quant, q, kp8,
                   sk8, kp8, sk8, table, lens(S - t))
 
+    if args.which == "dots":
+        results.update(_dots(cfg, B, dev, gen))
+
     device = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(json.dumps({"metric": f"kernel_bench_{args.model}_B{B}_S{S}_torch",
                       "value": results.get("decode_T1_flash", 0.0), "unit": "ms",
                       "vs_baseline": 1.0, "device": device, "detail": results}))
+    return results
+
+
+def _dots(cfg, B, dev, gen):
+    """The ``dots`` cases (see the module docstring); returns {case: ms}."""
+    from magicdec_tpu_torch.kernels import quant_matmul as QK
+
+    if dev.type != "cuda":
+        raise SystemExit("--which dots times the card's kernels: it needs --device cuda")
+    L, D, F, V = cfg.n_layer, cfg.dim, cfg.intermediate_size, cfg.vocab_size
+    qkv = (cfg.n_head + 2 * cfg.n_kv_head) * cfg.head_dim
+    bf = torch.bfloat16
+
+    def stack(In, Out, layers=L):
+        q = torch.randint(-127, 128, (layers, In, Out), generator=gen, device=dev,
+                          dtype=torch.int8)
+        return q, torch.rand((layers, Out), generator=gen, device=dev) / (127 * In ** 0.5)
+
+    weights = {"wqkv_norm": stack(D, qkv), "w13_norm_gate": stack(D, 2 * F),
+               "w2_residual": stack(F, D), "lm_head": stack(D, V, layers=1)}
+    norm_w = (torch.rand((D,), generator=gen, device=dev) + 0.5).to(bf)
+    results = {}
+    for M in (B, 2 * B):
+        x, g, res = (torch.randn((M, n), generator=gen, device=dev).to(bf) for n in (D, F, D))
+        kernels = {
+            "wqkv_norm": lambda q, s: QK.quant_matmul_fused(x, q, s, norm_w),
+            "w13_norm_gate": lambda q, s: QK.quant_matmul_fused(x, q, s, norm_w, gate=True),
+            "w2_residual": lambda q, s: QK.quant_matmul_fused(g, q, s, res=res),
+            "lm_head": lambda q, s: QK.quant_matmul(x, q, s),
+        }
+        for name, fn in kernels.items():
+            q, s = weights[name]
+            calls = [lambda l=l: fn(q[l], s[l]) for l in range(q.shape[0])]
+            lhs = g if name == "w2_residual" else x
+            deq = [(q[l].float() * s[l]).to(bf) for l in range(q.shape[0])]
+            lib = [lambda w=w: torch.matmul(lhs, w) for w in deq]
+            for tag, ms in ((f"{name}_M{M}_device", graph_ms(calls)),
+                            (f"{name}_M{M}_matmul_device", graph_ms(lib))):
+                results[tag] = ms
+                print(f"[kernel] {tag:32s} {ms:8.4f} ms", file=sys.stderr, flush=True)
+            del deq, lib
+            torch.cuda.empty_cache()
     return results
 
 

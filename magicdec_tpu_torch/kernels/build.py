@@ -39,7 +39,7 @@ SIGNATURES = {
     "md_decode_attend_quant": [_P] * 13 + [_I] * 9 + [_P],
     "md_prefill_attend_quant": [_P] * 11 + [_I] * 7 + [_P],
     "md_append_rows_quant": [_P] * 9 + [_I] * 6 + [_P],
-    "md_quant_matmul": [_P] * 8 + [_I] * 5 + [_F, _P],
+    "md_quant_matmul_sm90": [_P] * 6 + [_I] * 5 + [_F, _P],
     "md_quant_layer_tail": [_P] * 14 + [_I] * 7 + [_F, _P],
     "md_quant_mlp": [_P] * 11 + [_I] * 5 + [_F, _P],
     "md_decode_attend_quant4": [_P] * 13 + [_I] * 9 + [_P],
@@ -110,6 +110,8 @@ def build(verbose: bool = False) -> Path:
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed on {src.name}:\n{out}")
             if verbose and out:
+                # -Xptxas=-v: each kernel's registers, shared memory, spills
+                (BUILD_DIR / f"{src.stem}.nvcc.log").write_text(out)
                 print(out)
             objs.append(str(obj))
         tmp_lib = Path(tmp) / LIB_NAME

@@ -1,5 +1,6 @@
 """B4, B5, B6, B9: the int8 weight-only dots of the draft's weight copy, and
-B4-int4, B6-int4: its group-wise int4 dots (CUDA, ``csrc/quant_matmul.cu``).
+B4-int4, B6-int4: its group-wise int4 dots (CUDA: B4 and B6 in
+``csrc/quant_matmul_sm90.cu``, the others in ``csrc/quant_matmul.cu``).
 
 B4 ``quant_matmul_fused`` replaces magicdec_tpu/ops/pallas/quant_matmul.py
 ``quant_matmul_fused_pallas`` (``_fused_kernel``, int8): x @ (q * scale)
@@ -18,8 +19,10 @@ versions: acc = f32 sum of x * q; y = bf16(acc * scale) with the scale in
 f32 (the reference scales each in-block partial, equal up to f32 rounding);
 the norm is ``bf16(xf * rsqrt(mean(xf^2) + eps)) * bf16(norm_w)``; the gate
 rounds g and u to bf16 and returns bf16(g * sigmoid(g) * u); a residual is
-added in bf16.  Bound on the card: the weight's HBM bytes (see the source
-for the design).
+added in bf16.  Bound on the card: the weight's HBM bytes (see the sources
+for the designs).  B4 and B6 are one launch a call: the contraction's
+splits (``cluster_split_plan``, at most 8) form a thread-block cluster that
+adds its f32 partial sums on chip, in split order.
 
 The int4 dots replace the nibble-plane branches of the same Pallas calls:
 ``quant_matmul_fused_int4`` (B4-int4, ``_fused_kernel`` with bits=4: the
@@ -41,18 +44,44 @@ from magicdec_tpu_torch.ops.norm import rms_norm
 BN, BK = 128, 64      # output columns per block, contraction rows per stage
 BK4 = 128             # contraction rows per int4 stage (64 packed rows)
 TARGET_BLOCKS = 132   # one block per SM of the H100 before splitting further
+MAX_SPLIT = 8         # B4/B6: the splits of a column tile form one portable cluster
+ROWS_MAX = 256        # B4/B6 rows a launch (the routing's ROWS_CAP)
+ENCODE_ERROR = 0x10000  # md_quant_matmul_sm90: a failed tensor-map encode, + CUresult
 
 
 def split_plan(In: int, Out: int, unit: int = BK) -> int:
-    """Contraction splits of one dot, cut in units of ``unit`` rows (an int4
-    dot's max(group, BK4): every split starts on a group boundary): enough
-    that Out / BN column blocks times the splits fill the card's 132 SMs,
-    no split empty.  Fixed by the weight's shape alone, so a row's sums run
-    in the same order at every M."""
+    """Contraction splits of one dot (B5, B9 and the int4 dots), cut in
+    units of ``unit`` rows (an int4 dot's max(group, BK4): every split
+    starts on a group boundary): enough that Out / BN column blocks times
+    the splits fill the card's 132 SMs, no split empty.  Fixed by the
+    weight's shape alone, so a row's sums run in the same order at every M."""
     tiles = In // unit
     want = max(1, min(tiles, -(-TARGET_BLOCKS // max(1, Out // BN))))
     per = -(-tiles // want)
     return -(-tiles // per)
+
+
+def cluster_split_plan(In: int, Out: int) -> int:
+    """B4/B6's contraction splits: at most MAX_SPLIT (one portable cluster
+    per column tile), none empty.  One where the column tiles alone fill
+    the 132 SMs (the blocks then walk the tiles); else the split that
+    minimizes the contraction tiles the busiest SM streams, ceil(blocks /
+    132) blocks an SM times the tiles a block streams; of equals, the most
+    splits that keep every block resident (two an SM: more warps on the
+    same bytes).  Fixed by the weight's shape alone, so a row's sums run in
+    the same order at every M."""
+    tiles = max(1, In // BK)
+    ncol = max(1, Out // BN)
+    if ncol >= TARGET_BLOCKS:
+        return 1
+    best = None
+    for want in range(1, min(MAX_SPLIT, tiles) + 1):
+        per = -(-tiles // want)
+        split = -(-tiles // per)
+        key = (-(-(ncol * split) // TARGET_BLOCKS) * per, ncol * split > 2 * TARGET_BLOCKS,
+               -split)
+        best = min(best or key, key)
+    return -best[2]
 
 
 def _scaled(x, q, scale):
@@ -139,11 +168,13 @@ def _check_dot(x, q, scale, what):
 
 
 def _launch_dot(x, q, scale, norm_w=None, res=None, gate=False, eps=1e-5, what=""):
+    """B4 and B6 on the card: one launch, only ``out`` allocated."""
     from magicdec_tpu_torch.kernels import build
 
     x = x.contiguous()
     require_bf16(x, norm_w, res)
     M, In, Out, scale = _check_dot(x, q, scale, what)
+    require(M <= ROWS_MAX, f"{what}: the kernel takes at most {ROWS_MAX} rows, got {M}")
     Fo = Out // 2 if gate else Out
     if norm_w is not None:
         require(norm_w.numel() == In, f"{what}: norm weight of {norm_w.numel()}, not {In}")
@@ -151,16 +182,14 @@ def _launch_dot(x, q, scale, norm_w=None, res=None, gate=False, eps=1e-5, what="
     if res is not None:
         require(res.shape == (M, Out), f"{what}: residual {tuple(res.shape)}, not {(M, Out)}")
         res = res.contiguous()
-    split = split_plan(In, Out)
-    dev = x.device
-    out = torch.empty((M, Fo), dtype=torch.bfloat16, device=dev)
-    part = (torch.empty((split, M, Out), dtype=torch.float32, device=dev)
-            if split > 1 or gate else None)
-    xn = torch.empty_like(x) if norm_w is not None else None
-    err = build.library().md_quant_matmul(
-        ptr(x), ptr(q), ptr(scale), ptr(norm_w), ptr(res), ptr(out), ptr(part), ptr(xn),
-        M, In, Out, int(gate), split, float(eps), build.stream_ptr(x))
-    build.check(err, "md_quant_matmul")
+    out = torch.empty((M, Fo), dtype=torch.bfloat16, device=x.device)
+    err = build.library().md_quant_matmul_sm90(
+        ptr(x), ptr(q), ptr(scale), ptr(norm_w), ptr(res), ptr(out), M, In, Out, int(gate),
+        cluster_split_plan(In, Out), float(eps), build.stream_ptr(x))
+    if err >= ENCODE_ERROR:
+        raise RuntimeError(f"{what}: cuTensorMapEncodeTiled failed with CUresult "
+                           f"{err - ENCODE_ERROR}")
+    build.check(err, "md_quant_matmul_sm90")
     return out
 
 

@@ -8,8 +8,14 @@ the Pallas kernels in interpret mode; the routing of the draft's dots; the
 draft pass and the engine on the ``pallas`` backend at widths where the JAX
 package's routing reaches its kernels (the t512 widths of
 tests/test_quantization.py:246-247: dim 512, F 1024, heads 8/4, vocab 256,
-2 layers).  On the card (``gpu`` marker, skipped without one): each CUDA
-kernel against its plain version.
+2 layers).  B4 and B6 run on one cluster kernel (csrc/quant_matmul_sm90.cu):
+its split plan (at most 8 splits, none empty, a function of the weight's
+shape) and a plain model of its sum order (the norm statistic and the
+split-K partials added in split order) against the plain versions and the
+Pallas kernels.  On the card (``gpu`` marker, skipped without one): each
+CUDA kernel against its plain version, B4/B6 at M = 1 to 256 with every
+epilogue, at the w2 and lm_head shapes, bit-equal across launches and
+under CUDA-graph replay.
 
 Tolerances.  Quantization and conversion are exact.  Plain versions against
 the Pallas kernels: atol = rtol = 2e-5 in float32; in bfloat16 at most one
@@ -320,6 +326,164 @@ def test_quant_mlp_plain_matches_pallas(residual, dtype):
     _compare(got, ref, dtype)
 
 
+# -- B4/B6's cluster kernel: split plan and sum order --------------------------
+
+
+def _draft_dot_shapes(cfg):
+    """(In, Out) of the draft's int8 dots at ``cfg``'s widths: wqkv, wo,
+    w13, w2, lm_head."""
+    D, F = cfg.dim, cfg.intermediate_size
+    qkv = (cfg.n_head + 2 * cfg.n_kv_head) * cfg.head_dim
+    return [(D, qkv), (D, D), (D, 2 * F), (F, D), (D, cfg.vocab_size)]
+
+
+def _plan_shapes():
+    from magicdec_tpu_torch import config as tcfg
+
+    shapes = _draft_dot_shapes(tcfg.ModelConfig.from_name("llama-3.2-1b"))
+    shapes += _draft_dot_shapes(tcfg.tiny_config())
+    return shapes + _draft_dot_shapes(tcfg.tiny_config(**T512))
+
+
+@pytest.mark.parametrize("In,Out", _plan_shapes())
+def test_cluster_split_plan_capped_none_empty(In, Out):
+    """At most MAX_SPLIT = 8 splits (the portable cluster), none empty, at
+    the main path's shapes (llama-3.2-1b) and the test widths; one split
+    where the column tiles fill the 132 SMs; every block resident (two an
+    SM) unless one split is already too many."""
+    split = QK.cluster_split_plan(In, Out)
+    tiles = max(1, In // QK.BK)
+    per = -(-tiles // split)
+    ncol = max(1, Out // QK.BN)
+    assert 1 <= split <= QK.MAX_SPLIT
+    assert tiles - (split - 1) * per > 0
+    assert split == 1 or ncol * split <= 2 * QK.TARGET_BLOCKS
+    if ncol >= QK.TARGET_BLOCKS:
+        assert split == 1
+
+
+def test_cluster_split_plan_at_the_main_path():
+    """llama-3.2-1b: wqkv 5 splits (120 blocks, one an SM: 6 would put two
+    blocks on 12 SMs), wo 8, w13 2, w2 8 (the uncapped plan's 9 capped),
+    lm_head 1 (its 1002 column tiles fill the card)."""
+    got = [QK.cluster_split_plan(*s) for s in _plan_shapes()[:5]]
+    assert got == [5, 8, 2, 8, 1]
+    assert QK.split_plan(8192, 2048) == 9
+
+
+class _FakeLibrary:
+    """Records the arguments of md_quant_matmul_sm90 (returns success)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def md_quant_matmul_sm90(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+@pytest.mark.parametrize("gate", [False, True], ids=["plain", "gate"])
+def test_b4_b6_launch_once_with_a_shape_only_plan(gate, monkeypatch):
+    """The B4/B6 host side: one kernel call a wrapper call, the split from
+    the weight's shape at every M from 1 to 256, nothing allocated but the
+    output (rows past 256 raise)."""
+    from magicdec_tpu_torch.kernels import build
+
+    lib = _FakeLibrary()
+    monkeypatch.setattr(build, "library", lambda: lib)
+    monkeypatch.setattr(build, "stream_ptr", lambda t: 0)
+    In, Out = 8192, 2048
+    q = torch.zeros(In, Out, dtype=torch.int8)
+    s = torch.ones(1, Out)
+    for M in (1, 17, 32, 64, 128, 160, 256):
+        out = QK._launch_dot(torch.zeros(M, In, dtype=torch.bfloat16), q, s, gate=gate)
+        assert out.shape == (M, Out // 2 if gate else Out)
+    assert len(lib.calls) == 7
+    args = lib.calls[0]
+    assert len(args) == 13  # x, q, scale, norm_w, res, out, M, In, Out, gate, split, eps, stream
+    assert {c[10] for c in lib.calls} == {QK.cluster_split_plan(In, Out)} == {8}
+    assert [c[6] for c in lib.calls] == [1, 17, 32, 64, 128, 160, 256]
+    with pytest.raises(ValueError, match="at most 256 rows"):
+        QK._launch_dot(torch.zeros(257, In, dtype=torch.bfloat16), q, s)
+
+
+def _cluster_order_model(x, q, scale, norm_w=None, res=None, *, gate=False, eps=1e-5):
+    """B4/B6's sum order in plain torch: the contraction cut by
+    cluster_split_plan; the norm's sum of squares as one partial a split,
+    added in split order; each split's f32 partial product, the partials
+    added in split order; then the scale and the epilogue."""
+    M, In = x.shape
+    split = QK.cluster_split_plan(In, q.shape[1])
+    per = -(-(In // QK.BK) // split) * QK.BK
+    bounds = [(k, min(In, k + per)) for k in range(0, In, per)]
+    assert len(bounds) == split
+    xf = x.to(torch.float32)
+    if norm_w is not None:
+        ss = torch.zeros(M, dtype=torch.float32)
+        for k0, k1 in bounds:
+            ss = ss + (xf[:, k0:k1] * xf[:, k0:k1]).sum(-1)
+        r = 1.0 / torch.sqrt(ss / In + eps)
+        xf = ((xf * r[:, None]).to(x.dtype) * norm_w.to(x.dtype)).to(torch.float32)
+    acc = None
+    for k0, k1 in bounds:
+        part = xf[:, k0:k1] @ q[k0:k1].to(torch.float32)
+        acc = part if acc is None else acc + part
+    return QK._epilogue(acc * scale.reshape(-1).to(torch.float32), x.dtype, res, gate)
+
+
+_EPILOGUES = ["norm", "gate", "residual", "none", "norm_gate"]
+
+
+def _epilogue_args(epilogue, ta):
+    """(norm_w, res, gate) of an epilogue from the port operands ta."""
+    norm_w = ta[1] if epilogue.startswith("norm") else None
+    res = ta[1] if epilogue == "residual" else None
+    return norm_w, res, epilogue.endswith("gate")
+
+
+@pytest.mark.parametrize("epilogue", _EPILOGUES)
+def test_cluster_order_model_matches_plain(epilogue):
+    """The split-order model against the plain version in float32, at a
+    shape with 8 splits (In 512) and at the w2 shape's cap (In 1024, 16
+    tiles in 8 splits)."""
+    for In in (512, 1024):
+        M, Out = 8, 256
+        extra = {"norm": [(In,)], "norm_gate": [(In,)], "residual": [(M, Out)]}.get(epilogue, [])
+        _, tw, _, ta = _operands(np.random.RandomState(9), "float32", M, In, Out, *extra)
+        assert QK.cluster_split_plan(In, Out) == 8
+        norm_w, res, gate = _epilogue_args(epilogue, ta)
+        got = _cluster_order_model(ta[0], tw.q, tw.scale, norm_w, res, gate=gate)
+        want = QK.quant_matmul_fused_plain(ta[0], tw.q, tw.scale, norm_w, res, gate=gate)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("epilogue", _EPILOGUES)
+def test_cluster_order_model_matches_pallas(epilogue, dtype):
+    """The split-order model against ``_fused_kernel`` / ``_int8_kernel``
+    in interpret mode (8 splits over In 512)."""
+    from magicdec_tpu.ops.pallas.quant_matmul import quant_matmul_fused_pallas, quant_matmul_pallas
+
+    M, In, Out = 8, 512, 256
+    extra = {"norm": [(In,)], "norm_gate": [(In,)], "residual": [(M, Out)]}.get(epilogue, [])
+    jw, tw, ja, ta = _operands(np.random.RandomState(10), dtype, M, In, Out, *extra)
+    kw = dict(bits=8, group_size=jw.group_size, interpret=True)
+    if epilogue == "none":
+        ref = quant_matmul_pallas(ja[0], jw.q, jw.scale, block_in=256, block_out=128, **kw)
+    elif epilogue.startswith("norm"):
+        ref = quant_matmul_fused_pallas(ja[0], jw.q, jw.scale, ja[1], block_in=In, block_out=64,
+                                        norm=True, norm_eps=1e-5,
+                                        gate=epilogue == "norm_gate", **kw)
+    elif epilogue == "gate":
+        ref = quant_matmul_fused_pallas(ja[0], jw.q, jw.scale, block_in=256, block_out=64,
+                                        gate=True, **kw)
+    else:
+        ref = quant_matmul_fused_pallas(ja[0], jw.q, jw.scale, None, ja[1], block_in=256,
+                                        block_out=64, **kw)
+    norm_w, res, gate = _epilogue_args(epilogue, ta)
+    _compare(_cluster_order_model(ta[0], tw.q, tw.scale, norm_w, res, gate=gate), ref, dtype)
+
+
 # -- routing ------------------------------------------------------------------
 
 
@@ -587,37 +751,110 @@ def _outside(out, ref):
     return int(((out.float() - ref.float()).abs() > bf16_limit(ref)).sum())
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("M", [32, 64, 160])
-@pytest.mark.parametrize("kind", ["b6", "b4_norm", "b4_gate", "b4_residual"])
-def test_quant_matmul_kernels_match_plain_on_card(cuda, kind, M):
-    """B6 and B4 against their plain versions (M = 160: two row groups); a
-    reference with the wrong scales (B6: rolled by one column) or without
-    the epilogue (B4) must fail the bound."""
-    gen = torch.Generator(device=cuda).manual_seed(M)
-    In, Out = 2048, 3072 if kind != "b4_gate" else 4096
-    q, s = _card_weight(gen, In, Out, cuda)
-    x = torch.randn((M, In), generator=gen, device=cuda).to(torch.bfloat16)
+def _b4_b6_case(kind, M, In, Out, device, seed):
+    """(run, plain, wrong) of a B6 / B4 case: zero-argument callables of the
+    kernel, its plain version and a reference that must fail the bound (B6
+    and B4 without an epilogue: the scales rolled by one column; B4: without
+    its epilogue)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q, s = _card_weight(gen, In, Out, device)
+    x = torch.randn((M, In), generator=gen, device=device).to(torch.bfloat16)
     if kind == "b6":
-        out, ref = QK.quant_matmul(x, q, s), QK.quant_matmul_plain(x, q, s)
-        wrong = QK.quant_matmul_plain(x, q, s.roll(1, -1))
-    elif kind == "b4_norm":
-        nw = (torch.rand(In, generator=gen, device=cuda) + 0.5).to(torch.bfloat16)
-        out = QK.quant_matmul_fused(x * 3, q, s, nw)
-        ref = QK.quant_matmul_fused_plain(x * 3, q, s, nw)
-        wrong = QK.quant_matmul_plain(x * 3, q, s)
-    elif kind == "b4_gate":
-        out, ref = (QK.quant_matmul_fused(x, q, s, gate=True),
-                    QK.quant_matmul_fused_plain(x, q, s, gate=True))
-        wrong = QK.quant_matmul_plain(x, q, s)[:, :Out // 2]
-    else:
-        res = torch.randn((M, Out), generator=gen, device=cuda).to(torch.bfloat16)
-        out, ref = QK.quant_matmul_fused(x, q, s, res=res), QK.quant_matmul_fused_plain(x, q, s, res=res)
-        wrong = QK.quant_matmul_plain(x, q, s)
+        return (lambda: QK.quant_matmul(x, q, s), lambda: QK.quant_matmul_plain(x, q, s),
+                lambda: QK.quant_matmul_plain(x, q, s.roll(1, -1)))
+    if kind == "b4_none":
+        return (lambda: QK.quant_matmul_fused(x, q, s),
+                lambda: QK.quant_matmul_fused_plain(x, q, s),
+                lambda: QK.quant_matmul_plain(x, q, s.roll(1, -1)))
+    if kind == "b4_norm":
+        nw = (torch.rand(In, generator=gen, device=device) + 0.5).to(torch.bfloat16)
+        x3 = x * 3
+        return (lambda: QK.quant_matmul_fused(x3, q, s, nw),
+                lambda: QK.quant_matmul_fused_plain(x3, q, s, nw),
+                lambda: QK.quant_matmul_plain(x3, q, s))
+    if kind == "b4_norm_gate":
+        nw = (torch.rand(In, generator=gen, device=device) + 0.5).to(torch.bfloat16)
+        return (lambda: QK.quant_matmul_fused(x, q, s, nw, gate=True),
+                lambda: QK.quant_matmul_fused_plain(x, q, s, nw, gate=True),
+                lambda: QK.quant_matmul_fused_plain(x, q, s, gate=True))
+    if kind == "b4_gate":
+        return (lambda: QK.quant_matmul_fused(x, q, s, gate=True),
+                lambda: QK.quant_matmul_fused_plain(x, q, s, gate=True),
+                lambda: QK.quant_matmul_plain(x, q, s)[:, :Out // 2])
+    res = torch.randn((M, Out), generator=gen, device=device).to(torch.bfloat16)
+    return (lambda: QK.quant_matmul_fused(x, q, s, res=res),
+            lambda: QK.quant_matmul_fused_plain(x, q, s, res=res),
+            lambda: QK.quant_matmul_plain(x, q, s))
+
+
+def _check_case(run, plain, wrong):
+    out, ref = run(), plain()
     torch.cuda.synchronize()
     assert torch.isfinite(out).all()
     assert _outside(out, ref) == 0
-    assert _outside(wrong, ref) > 0
+    assert _outside(wrong(), ref) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [32, 64, 160, 1, 17, 128, 256])
+@pytest.mark.parametrize("kind", ["b6", "b4_norm", "b4_gate", "b4_residual", "b4_none",
+                                  "b4_norm_gate"])
+def test_quant_matmul_kernels_match_plain_on_card(cuda, kind, M):
+    """B6 and B4 against their plain versions at the wqkv width (In 2048,
+    Out 3072; 4096 with the gate: 6 and 4 splits), M = 1 to 256 (160 and
+    256: two row passes); a reference with the wrong scales or without the
+    epilogue must fail the bound."""
+    Out = 4096 if kind.endswith("gate") else 3072
+    _check_case(*_b4_b6_case(kind, M, 2048, Out, cuda, M))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,In,Out,M", [
+    ("b4_residual", 8192, 2048, 32),   # w2: the cap binds (9 -> 8 splits)
+    ("b4_residual", 8192, 2048, 160),
+    ("b4_gate", 2048, 16384, 64),      # w13 + gate, 2 splits
+    ("b4_norm_gate", 2048, 16384, 32),
+    ("b6", 2048, 128256, 32),          # the lm_head's full width, one split
+])
+def test_quant_matmul_kernels_at_draft_shapes_on_card(cuda, kind, In, Out, M):
+    _check_case(*_b4_b6_case(kind, M, In, Out, cuda, 7))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,In,Out,M", [("b4_norm", 2048, 3072, 32),
+                                           ("b4_residual", 8192, 2048, 64),
+                                           ("b4_gate", 2048, 16384, 17),
+                                           ("b6", 2048, 128256, 64)])
+def test_quant_matmul_kernels_deterministic_on_card(cuda, kind, In, Out, M):
+    """Two launches on the same inputs are bit-equal (splits added in split
+    order on chip, no atomics)."""
+    run, _, _ = _b4_b6_case(kind, M, In, Out, cuda, 3)
+    first = run()
+    for _ in range(3):
+        assert torch.equal(run(), first)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["b4_norm", "b4_gate", "b4_residual", "b6"])
+def test_quant_matmul_graph_replay_matches_eager_on_card(cuda, kind):
+    """B4/B6 captured in a CUDA graph: replay is bit-equal to the eager
+    launch (the tensor maps are encoded at capture, the output is the
+    graph's)."""
+    run, _, _ = _b4_b6_case(kind, 32, 2048, 4096 if kind == "b4_gate" else 3072, cuda, 5)
+    eager = run()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        run()  # warm the stream outside the capture
+    torch.cuda.current_stream().wait_stream(stream)
+    with torch.cuda.graph(graph):
+        captured = run()
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, eager)
 
 
 @pytest.mark.gpu
