@@ -7,7 +7,8 @@ of which raises on failure:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build of every kernel from ``magicdec_tpu_torch/csrc`` (timed), with
-   ptxas's registers, shared memory and spills of B4/B6's kernel;
+   ptxas's registers, shared memory and spills of the Hopper kernels of B4/B6
+   and K2q/B11;
 3. kernel phase: each Hopper kernel against its plain PyTorch version at the
    shapes of the bench's main path (llama-3.2-1b widths, B=32, target cache
    8704 rows in bf16 and in int8 with f32 scales quantized from the same
@@ -21,12 +22,16 @@ of which raises on failure:
    case, captured in one CUDA graph and replayed between CUDA events; the
    library call's likewise, ``library_device_ms``; a case that cannot be
    captured fails the run), its bound
-   (bytes over 3.35 TB/s or flops over 989 TFLOP/s, whichever is larger;
-   the int8 kernels' bytes include the scales), the plain version's time
+   (the largest of bytes over 3.35 TB/s, flops over 989 TFLOP/s and, for
+   attention, one exponential a visible (row, column) pair over 16 ex2 a
+   clock on each of 132 SMs at the card's maximum SM clock; the int8
+   kernels' bytes include the scales), the plain version's time
    and a library yardstick (``library_ms``: ``scaled_dot_product_attention``
    on the (dequantized) bf16 K/V for the attention kernels, ``index_copy_``
    of the rows (and scales) for the appends; timed only, never used by the
-   port); then the int8 dots of the draft's weight copy (B4 with its norm,
+   port); K2q and B11 also under torch.profiler, which must see one
+   launch of ``prefill_sm90_kernel`` a call; then the int8 dots of the
+   draft's weight copy (B4 with its norm,
    gate and residual epilogues, B5, B6, and B9), at llama-3.2-1b widths and
    M = 32 and 64, each timed over 16 layers' weights in turn (B4 and B6
    also under torch.profiler, which must see one kernel launch a call), each
@@ -70,7 +75,8 @@ of which raises on failure:
    (>= 1.8 on path (4), whose int4 draft copy of random weights accepts
    less), the spec and autoregressive streams agreeing on every committed
    token of every request, path (1)'s peak device memory below path (2)'s
-   and path (4)'s below path (1)'s; then the paged serving paths,
+   and path (4)'s below path (1)'s, each path's time to first token (its
+   last measured spec encode) printed; then the paged serving paths,
    ``magicdec_tpu_torch.serving_bench.main`` with ``SERVE_ARGV`` (16 slots,
    32 requests of distinct lengths in [4096, 8000], 512-row pages): (6) a
    bf16 pool, (7) an int8 pool, (8) an int8 pool of half the pages
@@ -120,6 +126,9 @@ import time
 
 PEAK_BYTES_S = 3.35e12   # H100 SXM HBM3
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
+EX2_PER_CLOCK_SM = 16     # compute capability 9.0: ex2 a clock per SM
+SMS = 132                 # H100 SXM
+SM_CLOCK_HZ = None        # the card's maximum SM clock (nvidia-smi), set in main
 
 
 def _cuda_ms(fn, iters=20, warmup=3):
@@ -142,9 +151,14 @@ def _round(ms):
     return ms if ms is None else round(ms, 4)
 
 
-def _bound(nbytes, flops):
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_BF16_FLOPS
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+def _bound(nbytes, flops, exps=0.0):
+    """(ms, kind): the largest of the bytes over the HBM rate, the tensor
+    flops over the bf16 peak and, for attention, the exponentials over the
+    SMs' ex2 rate at the card's maximum SM clock."""
+    times = {"bytes": nbytes / PEAK_BYTES_S, "operations": flops / PEAK_BF16_FLOPS,
+             "exp": exps / (EX2_PER_CLOCK_SM * SMS * SM_CLOCK_HZ) if exps else 0.0}
+    kind = max(times, key=times.get)
+    return times[kind] * 1e3, kind
 
 
 def _outside(out, ref):
@@ -223,12 +237,12 @@ def kernel_phase(torch, gen):
     entries = {}
 
     def record(name, case, err, tol, ms, plain_ms, nbytes, flops, library_ms, calls,
-               lib_calls=None, extra=None):
+               lib_calls=None, extra=None, exps=0.0):
         """One case: its host-issued times (``ms``, ``plain_ms``,
         ``library_ms``), and the device-only times of ``calls`` (the
         kernel's launches) and ``lib_calls`` (the library call's) from CUDA
         graph replay; a case that cannot be captured fails the run."""
-        bound_ms, bound_by = _bound(nbytes, flops)
+        bound_ms, bound_by = _bound(nbytes, flops, exps)
         device_ms = graph_ms(calls)
         lib_device_ms = graph_ms(lib_calls) if lib_calls else None
         c = {"case": case, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -338,8 +352,20 @@ def kernel_phase(torch, gen):
         nbytes = (2 * q.numel() * 2 + 2 * float(vis.sum()) * row_bytes
                   + sum(t.numel() * t.element_size() for t in fresh.values()))
         flops = 4 * hd * Hq * pairs
-        record(name, case, err, tol, ms, plain_ms, nbytes, flops, library_ms,
-               [lambda l=l: fn(q, *caches, base, layer=l, **fresh) for l in range(L)], [lib])
+        calls = [lambda l=l: fn(q, *caches, base, layer=l, **fresh) for l in range(L)]
+        extra = None
+        if fn in (PA.flash_prefill_attend_quant, PA.flash_prefill_attend_quant4):
+            # K2q / B11: one launch of the Hopper kernel a call
+            per_call, prof_ms, kernels = _profiled(torch, calls)
+            print(f"[kernel] {name} {case}: profiler: {per_call:g} kernel launches a call, "
+                  f"device ms a call {prof_ms:.4f} ({', '.join(sorted(kernels))})", flush=True)
+            if per_call != 1 or not all("prefill_sm90_kernel" in k for k in kernels):
+                raise AssertionError(f"{name} {case}: {per_call} kernel launches a call "
+                                     f"({sorted(kernels)}), not one prefill_sm90_kernel")
+            extra = {"launches_per_call": per_call, "profiler_device_ms": prof_ms}
+        # one exponential a visible (row, column) pair
+        record(name, case, err, tol, ms, plain_ms, nbytes, flops, library_ms, calls, [lib],
+               extra, exps=Hq * pairs)
         del lib_args
 
     # K1 at the target cache: verify (T = gamma + 1 = 4) and the AR step,
@@ -1024,8 +1050,11 @@ def main_path(torch, wrappers, required, argv, forbidden=(), min_tokens_per_step
     tag = " ".join(argv) or "defaults"
     print(f"[main {tag}] wall={wall:.1f}s gamma={out['gamma']} launches={launches} "
           f"peak_mem={peak:.2f} GiB", flush=True)
+    args = bench.parse_args(argv)
+    print(f"[main {tag}] time to first token (the last measured spec encode, B={args.B} x "
+          f"{args.prefix_len}): {out['encode_s']:.4f} s", flush=True)
     print(f"[main {tag}] " + _agreement(out["spec_output"], out["spec_committed"],
-                                        out["base_output"], bench.parse_args(argv).max_gen),
+                                        out["base_output"], args.max_gen),
           flush=True)
     for w in required:
         if launches[w.__name__] <= 0:
@@ -1597,6 +1626,11 @@ def main():
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    global SM_CLOCK_HZ
+    SM_CLOCK_HZ = 1e6 * float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0])
+    print(f"[device] maximum SM clock {SM_CLOCK_HZ / 1e6:.0f} MHz (the exp bound's)", flush=True)
     print(f"[device] {torch.cuda.get_device_name(0)} count={torch.cuda.device_count()} "
           f"torch={torch.__version__} cuda={torch.version.cuda}", flush=True)
     t_start = time.perf_counter()
@@ -1606,13 +1640,17 @@ def main():
 
     lib = build.build(verbose=True)
     print(f"[build] {lib.name} in {time.perf_counter() - t_start:.1f}s", flush=True)
-    # registers, shared memory and spills of B4/B6's kernel, each instantiation
-    log = build.BUILD_DIR / "quant_matmul_sm90.nvcc.log"
-    ptxas = log.read_text().splitlines() if log.exists() else []
-    for i, line in enumerate(ptxas):
-        if "Compiling entry function" in line and "qmm_sm90_kernel" in line:
-            detail = " | ".join(x.strip() for x in ptxas[i + 1:i + 4] if "ptxas" in x or "spill" in x)
-            print(f"[ptxas] {line.split(chr(39))[1]}: {detail}", flush=True)
+    # registers, shared memory and spills of the Hopper kernels (B4/B6,
+    # K2q/B11), each instantiation
+    for source, kernel in (("quant_matmul_sm90", "qmm_sm90_kernel"),
+                           ("prefill_attention_sm90", "prefill_sm90_kernel")):
+        log = build.BUILD_DIR / f"{source}.nvcc.log"
+        ptxas = log.read_text().splitlines() if log.exists() else []
+        for i, line in enumerate(ptxas):
+            if "Compiling entry function" in line and kernel in line:
+                detail = " | ".join(x.strip() for x in ptxas[i + 1:i + 4]
+                                    if "ptxas" in x or "spill" in x)
+                print(f"[ptxas] {line.split(chr(39))[1]}: {detail}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1729,7 +1767,7 @@ def main():
                                     "magicdec_tpu/ops/kv_cache.py:374"),
         "flash_decode_attend_quant": ("magicdec_tpu_torch/csrc/decode_attention_quant.cu",
                                       "magicdec_tpu/ops/pallas/decode_attention.py:547"),
-        "flash_prefill_attend_quant": ("magicdec_tpu_torch/csrc/prefill_attention_quant.cu",
+        "flash_prefill_attend_quant": ("magicdec_tpu_torch/csrc/prefill_attention_sm90.cu",
                                        "magicdec_tpu/ops/pallas/prefill_attention.py:340"),
         "append_all_rows_inplace_quant": ("magicdec_tpu_torch/csrc/append.cu",
                                           "magicdec_tpu/ops/kv_cache.py:489"),
@@ -1743,7 +1781,7 @@ def main():
                       "magicdec_tpu/ops/pallas/quant_matmul.py:749"),
         "flash_decode_attend_quant4": ("magicdec_tpu_torch/csrc/decode_attention_quant4.cu",
                                        "magicdec_tpu/ops/pallas/decode_attention.py:585"),
-        "flash_prefill_attend_quant4": ("magicdec_tpu_torch/csrc/prefill_attention_quant4.cu",
+        "flash_prefill_attend_quant4": ("magicdec_tpu_torch/csrc/prefill_attention_sm90.cu",
                                         "magicdec_tpu/ops/pallas/prefill_attention.py:377"),
         # the bits=4 branches of quant_matmul_fused_pallas (:301) and
         # quant_matmul_pallas (:221)

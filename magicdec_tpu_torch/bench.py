@@ -200,7 +200,10 @@ def autotune(engine, warm, args) -> int:
 def run(args):
     """Run the benchmark; returns {'result': the JSON dict, 'gamma': the
     speculation window run, 'spec_output', 'spec_committed', 'base_output':
-    numpy arrays of the last measured runs}."""
+    numpy arrays of the last measured runs, 'encode_s': the wall seconds of
+    the last measured spec encode (target and draft prefill of the prompt,
+    between synchronizations: the time to the first token), which the JSON
+    line leaves out}."""
     engine, prompts = setup(args)
     prefix = args.prefix_len
     cuda = engine.device.type == "cuda"
@@ -212,8 +215,11 @@ def run(args):
     last = {}
 
     def run_spec(prompt):
+        sync()
+        t0 = time.perf_counter()
         st = engine.encode(prompt)
         sync()
+        last["encode_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         st, stats = engine.generate(st)
         sync()

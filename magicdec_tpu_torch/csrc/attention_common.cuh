@@ -1,14 +1,26 @@
-// Shared flash-attention core of the decode (K1) and prefill (K2) kernels.
+// Shared flash-attention core of the decode (K1, K1q, B10, B12) and bf16
+// prefill (K2) kernels, which replace magicdec_tpu/ops/pallas/
+// decode_attention.py (_decode_kernel, _decode_quant_kernel,
+// _decode_quant4_kernel), paged_attention.py (_paged_call's kernels) and
+// prefill_attention.py (_prefill_kernel).  The quantized prefill kernels
+// (K2q, B11: _prefill_quant_kernel, _prefill_quant4_kernel) run on their own
+// Hopper kernel, prefill_attention_sm90.cu.
 //
-// One thread block serves one (request b, kv head h) and a run of W*16
-// grouped query rows; each warp owns 16 rows and keeps their fp32 online
-// softmax state (running max m, normaliser l, accumulator o) in registers.
-// The block walks a range of KV rows in tiles of N rows staged in shared
-// memory by cp.async, two stages deep (the next tile's copy overlaps this
-// tile's arithmetic); each warp computes S = Q K^T and O += P V with the
-// tensor cores (mma.sync m16n8k16, bf16 in, fp32 accumulate; K and V
-// fragments through ldmatrix), which serves both the bandwidth-bound decode
-// (few rows, long KV) and the compute-bound prefill (many rows).
+// Bound: bytes for the decode (few query rows over a long cache: K1 and K1q
+// stream the cache once), tensor-core operations and exponentials for K2
+// (each visible (row, column) pair costs 4 hd flops and one exp; at hd = 64
+// the two bounds are about equal on the H100).  The design serves both with
+// one tile loop: one thread block serves one (request b, kv head h) and a
+// run of W*16 grouped query rows; each warp owns 16 rows and keeps their
+// fp32 online softmax state (running max m, normaliser l, accumulator o) in
+// registers.  The block walks a range of KV rows in tiles of N rows staged
+// in shared memory by cp.async, two stages deep (the next tile's copy
+// overlaps this tile's arithmetic); each warp computes S = Q K^T and O += P
+// V with the tensor cores (mma.sync m16n8k16, bf16 in, fp32 accumulate; K
+// and V fragments through ldmatrix).  That is the pre-Hopper tensor-core
+// path: K2 runs S, softmax and P V in turn and stays at about 20% of its
+// bound (PERF.md), and is next in line for the wgmma core of
+// prefill_attention_sm90.cu.
 //
 // Rows are packed t-major inside a kv head: row r is token t = r / G of query
 // head h*G + r % G, so a row block covers consecutive tokens and its causal
@@ -26,30 +38,29 @@
 // are set to -1e30 (not -inf), the running max starts at -1e30, and the
 // output is acc / max(l, 1e-30).
 //
-// int8 caches (QUANT = true: the K1q decode and K2q prefill kernels).  The
-// cache holds int8 rows with one f32 scale per (token, kv head), scales laid
-// out [L, B, Hkv, S] so a tile's columns of one head are contiguous.  A tile
-// stages its int8 rows (HD bytes a row, four 16-byte cp.async) and its k
-// and v scales (4-byte cp.async each) two stages deep; after the copy lands,
-// each thread converts the chunks it copied to bf16 (exact: |q| <= 127, by
-// integer and float adds, i8x4_to_bf16x4) into the tile the tensor-core
-// code reads, so the mma path is K1/K2's.  The
-// scales follow magicdec_tpu's _quant_online_update: the score of column c
-// is s_raw * (k_scale[c] * 1/sqrt(hd)), masked after scaling; the
-// normaliser l sums the unscaled p, and the P.V product takes
-// bf16(p * v_scale[c]).
+// int8 caches (QUANT = true: the K1q decode kernel).  The cache holds int8
+// rows with one f32 scale per (token, kv head), scales laid out [L, B, Hkv,
+// S] so a tile's columns of one head are contiguous.  A tile stages its int8
+// rows (HD bytes a row, four 16-byte cp.async) and its k and v scales
+// (4-byte cp.async each) two stages deep; after the copy lands, each thread
+// converts the chunks it copied to bf16 (exact: |q| <= 127, by integer and
+// float adds, i8x4_to_bf16x4) into the tile the tensor-core code reads, so
+// the mma path is K1's.  The scales follow magicdec_tpu's
+// _quant_online_update: the score of column c is s_raw * (k_scale[c] *
+// 1/sqrt(hd)), masked after scaling; the normaliser l sums the unscaled p,
+// and the P.V product takes bf16(p * v_scale[c]).
 //
-// int4 caches (QUANT and INT4: the B10 decode and B11 prefill kernels).  The
-// cache packs kv heads 2i and 2i+1 into the low and high nibbles of packed
-// pseudo-head i, lane for lane, so a row is (Hkv/2)*HD bytes and head h's
-// HD lanes sit at (h/2)*HD; the scales are the int8 path's.  A block of
-// head h stages those HD bytes a row exactly as the int8 path stages its
-// own, and converts the (h & 1) nibble plane (i4x4_to_bf16x4: exact, no
-// conversion unit), so the tiles, the mma path and the scale order are
-// K1q's and K2q's.  Heads 2i and 2i+1 run in separate blocks that read the
-// same packed bytes: the second read mostly hits L2 (the blocks of one
-// request's heads run side by side), so DRAM traffic stays at the packed
-// bytes, while the L2 traffic is that of an int8 cache.
+// int4 caches (QUANT and INT4: the B10 decode kernel).  The cache packs kv
+// heads 2i and 2i+1 into the low and high nibbles of packed pseudo-head i,
+// lane for lane, so a row is (Hkv/2)*HD bytes and head h's HD lanes sit at
+// (h/2)*HD; the scales are the int8 path's.  A block of head h stages those
+// HD bytes a row exactly as the int8 path stages its own, and converts the
+// (h & 1) nibble plane (i4x4_to_bf16x4: exact, no conversion unit), so the
+// tiles, the mma path and the scale order are K1q's.  Heads 2i and 2i+1 run
+// in separate blocks that read the same packed bytes: the second read
+// mostly hits L2 (the blocks of one request's heads run side by side), so
+// DRAM traffic stays at the packed bytes, while the L2 traffic is that of
+// an int8 cache.
 //
 // Page pools (PAGED = true: the B12 paged decode kernels).  The cache is a
 // pool [L, P, ps, K] shared by all requests, and row r of request b lives
@@ -331,10 +342,7 @@ struct WarpState {
 
 // One online-softmax update of a warp's 16 rows with the N-column tile held
 // in Ks/Vs.  Column col0 + c is visible to the thread's row i iff
-// col0 + c < lim[i].  QUANT: ksc/vsc hold the tile's k and v scales.  A
-// thread's scales are column pairs: on the H100, reading them as float2
-// timed faster for the prefill's 64-column tiles and slower for the
-// decode's 32-column tiles than reading them one by one, hence both forms.
+// col0 + c < lim[i].  QUANT: ksc/vsc hold the tile's k and v scales.
 template <int HD, int N, bool QUANT = false>
 __device__ __forceinline__ void tile_update(WarpState<HD>& w, const __nv_bfloat16* Ks,
                                             const __nv_bfloat16* Vs, int col0,
@@ -359,16 +367,13 @@ __device__ __forceinline__ void tile_update(WarpState<HD>& w, const __nv_bfloat1
     }
   }
   float mx[2] = {kNegInf, kNegInf};
-  constexpr bool kVecScales = N >= 64;
 #pragma unroll
   for (int j = 0; j < N / 8; ++j) {
-    float2 ks2 = make_float2(1.f, 1.f);
-    if constexpr (QUANT && kVecScales) ks2 = *reinterpret_cast<const float2*>(ksc + j * 8 + t4 * 2);
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int i = e >> 1, c = j * 8 + t4 * 2 + (e & 1);
       float f = scale;
-      if constexpr (QUANT) f = (kVecScales ? ((e & 1) ? ks2.y : ks2.x) : ksc[c]) * scale;
+      if constexpr (QUANT) f = ksc[c] * scale;
       const float x = col0 + c < lim[i] ? s[j][e] * f : kNegInf;
       s[j][e] = x;
       mx[i] = fmaxf(mx[i], x);
@@ -410,10 +415,8 @@ __device__ __forceinline__ void tile_update(WarpState<HD>& w, const __nv_bfloat1
     if constexpr (QUANT) {
       // columns 16 kk + 2 t4 (+1) for s[2 kk], 16 kk + 8 + 2 t4 (+1) for s[2 kk + 1]
       const float* v0 = vsc + 16 * kk + 2 * t4;
-      const float2 va = kVecScales ? *reinterpret_cast<const float2*>(v0)
-                                   : make_float2(v0[0], v0[1]);
-      const float2 vb = kVecScales ? *reinterpret_cast<const float2*>(v0 + 8)
-                                   : make_float2(v0[8], v0[9]);
+      const float2 va = make_float2(v0[0], v0[1]);
+      const float2 vb = make_float2(v0[8], v0[9]);
       a[0] = pack_bf16x2(s[2 * kk][0] * va.x, s[2 * kk][1] * va.y);
       a[1] = pack_bf16x2(s[2 * kk][2] * va.x, s[2 * kk][3] * va.y);
       a[2] = pack_bf16x2(s[2 * kk + 1][0] * vb.x, s[2 * kk + 1][1] * vb.y);
@@ -633,7 +636,7 @@ __global__ void combine_kernel(AttnArgs a, int R) {
   }
 }
 
-// ---- host side of the quantized-cache entry points (K1q, K2q, B10, B11) ----
+// ---- host side of the quantized-cache entry points (K1q, B10) ----
 
 // The entry points' operands of a quantized cache (int8, or int4 packed in
 // head pairs with INT4): q [B, T, Hq, 64] bf16; k/v int8 [L, B, S, K] (K =
@@ -722,19 +725,6 @@ inline bool dense_args(AttnArgs& a, const void* q, const void* k, const void* v,
   a.nsplit = 1;
   a.chunk = S;
   return true;
-}
-
-// Chunked prefill over a quantized cache: 128 grouped query rows of one
-// (request, kv head) per block, eight warps, 64-row tiles, two resident
-// blocks per SM (16 warps: caps the kernel at 128 registers).  Returns
-// cudaGetLastError().
-template <bool INT4>
-int prefill_attend_quant(const AttnArgs& a, cudaStream_t st) {
-  constexpr int W = 8, N = 64;
-  const int rows = (a.Hq / a.Hkv) * a.T;
-  dim3 grid((rows + 16 * W - 1) / (16 * W), a.Hkv, a.B);
-  attend_kernel<64, N, W, 2, true, INT4><<<grid, 32 * W, 0, st>>>(a);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace md

@@ -1,0 +1,646 @@
+// K2q and B11 on Hopper: chunked-prefill flash attention over the
+// layer-stacked int8 cache (K2q) and the int4 cache packed in head pairs
+// (B11), one launch a call.
+//
+// Replaces magicdec_tpu/ops/pallas/prefill_attention.py
+// flash_prefill_attend_quant (_prefill_quant_kernel) and
+// flash_prefill_attend_quant4 (_prefill_quant4_kernel), with the scale
+// order of decode_attention.py _quant_online_update.  A C-token chunk of
+// request b attends the cache rows [0, base_b) of layer `layer` plus its own
+// fresh rows [base_b, base_b + C) (or, without fresh rows, the cache holds
+// the chunk): token t sees positions [0, min(base_b + t + 1, S)).  The
+// score of column c is s_raw * (k_scale[c] / sqrt(hd)), masked columns take
+// -1e30, l sums the unscaled p, P.V takes bf16(p * v_scale[c]), and the
+// output is acc / max(l, 1e-30) in bf16.
+//
+// Bound: tensor-core operations and exponentials, about equally.  Each
+// visible (row, column) pair costs 4 hd = 256 flops and one ex2; at 989
+// TFLOP/s and 16 ex2 a clock per SM the two take about the same time at hd =
+// 64, and the bytes (int8 or int4 rows, read once per 192 query rows) are
+// far below either.  Every instruction the softmax issues besides the
+// products (the scale multiplies, max, exp, sums, packing) competes for the
+// same issue slots, and the exponentials for the SM's 16 ex2 a clock, so the
+// design keeps everything else off the consumers' path:
+//
+// - Rows.  A block takes 192 grouped query rows of one (request b, kv head
+//   h) (row r: token t = r / G of query head h G + r % G, so one K/V tile
+//   feeds all G heads), split between three consumer warpgroups of 64 rows;
+//   a fourth warpgroup produces the tiles.  setmaxnreg moves registers from
+//   the producer (56) to the consumers (152).  Three consumer warps on each
+//   SM sub-partition hide each other's softmax latency: with two (128 rows)
+//   the kernel took 3.55 ms at the bench's shape, with three 2.99 (PERF.md).
+// - Products on wgmma.  S = Q K^T is m64n128k16 with Q resident in shared
+//   memory and the K tile K-major; O += P V is m64n64k16 with P taken from
+//   the score registers (the S accumulator's layout is the A fragment's)
+//   and V MN-major.  A 64-value bf16 row is 128 bytes: both tiles use the
+//   128-byte swizzle, so wgmma reads them without bank conflicts.  Each
+//   warpgroup runs S, softmax, P.V in turn; the three overlap one another.
+//   Issuing the next tile's S before this tile's softmax (FA3's in-warpgroup
+//   overlap) needs S, P and O live at once, past the 152 registers a
+//   consumer has here: ptxas then serializes every wgmma, which was slower;
+//   turns on named barriers (FA3's ping-pong) changed nothing measurable.
+// - Loads by TMA.  The producer's lead thread keeps I8_STAGES tiles of 128
+//   int8 (int4: packed) rows of K and V in flight on mbarriers: 64-byte
+//   boxes of a 3-D tensor map over the layer's cache [B, S, row bytes]
+//   (rows past S arrive as zeros), or over the fresh rows [B, C, row bytes]
+//   for tiles at or past base.  The maps are encoded once per (pointer,
+//   shape) and cached.  The one tile of a block that straddles base (serving
+//   admission's ragged lengths) takes its rows from base on by the
+//   producer's own 16-byte loads.
+// - Conversion off the consumers' path.  The producer warpgroup turns each
+//   landed int8 tile (int4: the head's nibble plane) into the swizzled bf16
+//   tile the consumers' wgmma reads, exactly (a byte permute, two logic ops
+//   and a bf16x2 subtraction a pair, no conversion unit), with the tile's
+//   scales: k_scale * 1/sqrt(hd) * log2(e) folded into one factor a column,
+//   v_scale as is, both zero for columns the block cannot see (a
+//   torch.empty cache may hold inf there: 0 * inf must never reach a sum),
+//   the scale loads issued one tile ahead.  It arrives on the stage's
+//   "full" barrier; the consumers release it on an "empty" barrier once
+//   their P.V has read it.  Loads and conversion run BF_STAGES tiles ahead.
+// - Softmax in the exp2 domain: one multiply a score (the folded factor),
+//   the mask compare only on tiles that reach past the warpgroup's first
+//   token's limit, the row maxima and sums as trees.
+// - Bits.  No atomics and no split of the KV range: every launch on the same
+//   inputs gives the same bits (the encode and encode_baseline contract).
+#include <tuple>
+
+#include "attention_common.cuh"
+#include "sm90_common.cuh"
+
+namespace md {
+namespace pfa {
+
+using namespace md::sm90;
+
+constexpr int HD = 64;
+constexpr int NCONS = 3;                    // consumer warpgroups of 64 rows
+constexpr int BM = 64 * NCONS;              // grouped query rows a block
+constexpr int BN = 128;                     // KV positions a tile
+constexpr int NS = BN / 2;                  // scores a consumer thread holds (S fragment)
+constexpr int NTHREADS = 128 * (NCONS + 1);  // + the producer warpgroup
+constexpr int I8_STAGES = 4;                // int8 tiles in flight (TMA)
+constexpr int BF_STAGES = 3;                // converted tiles ready for wgmma
+constexpr int I8_TILE = BN * HD;            // bytes of one int8 K or V tile
+constexpr int BF_TILE = BN * HD * 2;        // bytes of one bf16 K or V tile
+// shared memory, from a 1024-byte-aligned base (the swizzle's period)
+constexpr int Q_OFF = 0;                    // [BM][HD] bf16, swizzled
+constexpr int BF_OFF = Q_OFF + BM * HD * 2;
+// a tile's column scales, laid out for the consumers: column c = 8 j + 2 t4
+// + e at t4 * SC_LD + 2 j + e, so the thread quad's lane t4 reads its 32
+// columns as 16-byte loads, each quad lane from other banks
+constexpr int SC_LD = BN / 4 + 4;
+constexpr int SC_FLOATS = 4 * SC_LD;
+constexpr int BF_STAGE = 2 * BF_TILE + 2048;  // K, V, k factors and v scales (2 x SC_FLOATS)
+constexpr int I8_OFF = BF_OFF + BF_STAGES * BF_STAGE;
+constexpr int I8_STAGE = 2 * I8_TILE;       // K, V
+constexpr int BAR_OFF = I8_OFF + I8_STAGES * I8_STAGE;
+constexpr int NBARS = I8_STAGES + 2 * BF_STAGES;
+constexpr int SMEM = BAR_OFF + 8 * NBARS + 1024;  // + slack to align the base
+static_assert(BF_STAGE % 1024 == 0 && BF_OFF % 1024 == 0, "bf16 tiles keep the swizzle period");
+static_assert(SMEM <= 227 * 1024, "shared memory of one block");
+static_assert(2 * SC_FLOATS * 4 <= 2048, "the scales fit their slot");
+// named barriers (0 is __syncthreads): the producer warpgroup's, each
+// consumer warpgroup's Q
+constexpr int BAR_PRODUCER = 1;
+constexpr int BAR_Q = 2;
+
+struct Args {
+  CUtensorMap kmap, vmap;    // layer's cache [B, S, Kw] int8, box {HD, BN, 1}
+  CUtensorMap knmap, vnmap;  // fresh rows [B, T, Kw], same box (with fresh rows)
+  const __nv_bfloat16* q;    // [B, T, Hq, HD]
+  const int8_t* k_new;       // [B, T, Kw] or null
+  const int8_t* v_new;
+  const float* k_scale;      // [L, B, Hkv, S]
+  const float* v_scale;
+  const float* ks_new;       // [B, Hkv, T] or null
+  const float* vs_new;
+  const int* base_lens;      // [B]
+  __nv_bfloat16* out;        // [B, T, Hq, HD]
+  int layer, B, S, T, Hq, Hkv, Kw;
+};
+
+namespace {
+
+// A wgmma shared-memory descriptor: start address, leading and stride byte
+// offsets, 128-byte swizzle.  The start address advances in 16-byte units
+// by adding to the descriptor.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving accesses of a wgmma operand across the
+// asynchronous window (issue to wait).
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// S (+)= A B over one k16 step: m64n128k16, A (Q) and B (K) from shared
+// memory (K-major, 128-byte swizzle), f32 accumulators in the D fragment
+// layout (d[4j + e]: row 16 warp + g + 8 (e / 2), column 8 j + 2 t4 + e % 2).
+__device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+      "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+      "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+      "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+      "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+      "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+      "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// O += P V over one k16 step: m64n64k16, A (P) from registers in the mma A
+// fragment layout, B (V) from shared memory MN-major (imm-trans-b 1).
+__device__ __forceinline__ void wgmma_pv(float (&d)[32], const uint32_t (&pa)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+      "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+      "+f"(d[30]), "+f"(d[31])
+      : "r"(pa[0]), "r"(pa[1]), "r"(pa[2]), "r"(pa[3]), "l"(db), "n"(1));
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t bf16x2_sub(uint32_t a, uint32_t b) {
+  const __nv_bfloat162 d = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&a),
+                                   *reinterpret_cast<const __nv_bfloat162*>(&b));
+  return *reinterpret_cast<const uint32_t*>(&d);
+}
+
+// (a & b) | c in one logic op (the compiler splits it when b and c are both
+// immediates).
+__device__ __forceinline__ uint32_t and_or(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t d;
+  asm("lop3.b32 %0, %1, %2, %3, 0xEA;\n" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+
+// Four int8 (one word, byte 0 first) -> four bf16 in order (lo: bytes 0 and
+// 1), exactly: with x holding bytes at 0 and 2 of each half, low7 = v & 0x7F
+// under bf16's exponent of 2^7 reads 128 + low7 and the sign bit under the
+// same exponent reads 128 or 256, so their difference is v.  Two byte
+// permutes, four logic ops and two bf16x2 subtractions; k7, ks and kb hold
+// 0x007F007F, 0x00800080 and 0x43004300 in registers.
+__device__ __forceinline__ void i8x4_bf16(uint32_t w, uint32_t k7, uint32_t ks, uint32_t kb,
+                                          uint32_t& lo, uint32_t& hi) {
+  const uint32_t x01 = __byte_perm(w, 0u, 0x4140), x23 = __byte_perm(w, 0u, 0x4342);
+  lo = bf16x2_sub(and_or(x01, k7, kb), and_or(x01, ks, kb));
+  hi = bf16x2_sub(and_or(x23, k7, kb), and_or(x23, ks, kb));
+}
+
+// Sixteen cache bytes -> sixteen bf16 values (int8, or the `shift` nibble
+// plane of a packed int4 row) in order, as two 16-byte chunks.
+template <bool INT4>
+__device__ __forceinline__ void convert16(uint4 raw, int shift, const uint32_t (&k)[3],
+                                          uint4& c0, uint4& c1) {
+  uint32_t w[8];
+  const uint32_t in[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if constexpr (INT4)
+      i4x4_to_bf16x4(in[j], shift, w[2 * j], w[2 * j + 1]);
+    else
+      i8x4_bf16(in[j], k[0], k[1], k[2], w[2 * j], w[2 * j + 1]);
+  }
+  c0 = make_uint4(w[0], w[1], w[2], w[3]);
+  c1 = make_uint4(w[4], w[5], w[6], w[7]);
+}
+
+// t[0] = op over t[0 .. N), as a tree (N a power of two; constant indices,
+// so t stays in registers).
+template <int N, typename Op>
+__device__ __forceinline__ void tree(float* t, Op op) {
+  if constexpr (N > 1) {
+#pragma unroll
+    for (int j = 0; j < N / 2; ++j) t[j] = op(t[j], t[j + N / 2]);
+    tree<N / 2>(t, op);
+  }
+}
+
+// The online softmax of one tile's scores s (the S accumulator: s[4 j + e]
+// is row i = e / 2 of the thread's two, column c0 + 8 j + 2 t4 + e % 2) in
+// the exp2 domain: y = s_raw * kf (k_scale / sqrt(hd) * log2 e), -1e30 where
+// masked (MASKED: a tile reaching past the warpgroup's first limit); s
+// becomes p, m and l are updated, corr is the factor for the accumulator.
+// kf points at the thread's 32 columns (2 j + e).  The row maxima and sums
+// are trees, not chains: a warp has few neighbours to hide latency.
+template <bool MASKED>
+__device__ __forceinline__ void softmax_tile(float (&s)[NS], const float* kf, int c0,
+                                             const int (&lim)[2], int t4, float (&m)[2],
+                                             float (&l)[2], float (&corr)[2]) {
+#pragma unroll
+  for (int j2 = 0; j2 < BN / 16; ++j2) {
+    const float4 f = *reinterpret_cast<const float4*>(kf + 4 * j2);
+    const float fj[4] = {f.x, f.y, f.z, f.w};
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[8 * j2 + 4 * h + e] *= fj[2 * h + (e & 1)];
+  }
+  if constexpr (MASKED) {
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (c0 + 8 * j + 2 * t4 + (e & 1) >= lim[e >> 1]) s[4 * j + e] = kNegInf;
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float t[NS / 4];
+#pragma unroll
+    for (int j = 0; j < NS / 4; ++j) t[j] = fmaxf(s[4 * j + 2 * i], s[4 * j + 2 * i + 1]);
+    tree<NS / 4>(t, [](float x, float y) { return fmaxf(x, y); });
+    float mx = fmaxf(t[0], __shfl_xor_sync(0xffffffffu, t[0], 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m[i], mx);
+    corr[i] = ex2(m[i] - m_new);
+    m[i] = m_new;
+  }
+#pragma unroll
+  for (int j = 0; j < NS; ++j) s[j] = ex2(s[j] - m[(j >> 1) & 1]);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float t[NS / 4];
+#pragma unroll
+    for (int j = 0; j < NS / 4; ++j) t[j] = s[4 * j + 2 * i] + s[4 * j + 2 * i + 1];
+    tree<NS / 4>(t, [](float x, float y) { return x + y; });
+    l[i] = l[i] * corr[i] + t[0];
+  }
+}
+
+// P = bf16(p * v_scale) as A fragments (pa[kk]: columns 16 kk .. 16 kk + 15);
+// vsc points at the thread's 32 columns (2 j + e).
+__device__ __forceinline__ void pack_p(const float (&s)[NS], const float* vsc,
+                                       uint32_t (&pa)[BN / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk) {
+    // columns 16 kk + 2 t4 (+1) (j = 2 kk) and 16 kk + 8 + 2 t4 (+1) (j = 2 kk + 1)
+    const float4 v = *reinterpret_cast<const float4*>(vsc + 4 * kk);
+    pa[kk][0] = pack_bf16x2(s[8 * kk] * v.x, s[8 * kk + 1] * v.y);
+    pa[kk][1] = pack_bf16x2(s[8 * kk + 2] * v.x, s[8 * kk + 3] * v.y);
+    pa[kk][2] = pack_bf16x2(s[8 * kk + 4] * v.z, s[8 * kk + 5] * v.w);
+    pa[kk][3] = pack_bf16x2(s[8 * kk + 6] * v.z, s[8 * kk + 7] * v.w);
+  }
+}
+
+}  // namespace
+
+// Grid (row blocks, Hkv, B), NTHREADS threads: warpgroups 0 .. NCONS - 1
+// consume (64 rows each), warpgroup NCONS produces.
+template <bool INT4>
+__global__ void __launch_bounds__(NTHREADS, 1) prefill_sm90_kernel(const __grid_constant__ Args a) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t pad = ((raw + 1023u) & ~1023u) - raw;
+  uint8_t* smem = smem_raw + pad;
+  const uint32_t sbase = raw + pad;
+  // i8_full[s] (TMA bytes), bf_full[s] (the producer's 128 threads),
+  // bf_empty[s] (every consumer thread)
+  const uint32_t i8_full = sbase + BAR_OFF;
+  const uint32_t bf_full = i8_full + 8 * I8_STAGES;
+  const uint32_t bf_empty = bf_full + 8 * BF_STAGES;
+
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int G = a.Hq / a.Hkv, GT = G * a.T;
+  const int r_block = blockIdx.x * BM;
+  const int base = a.base_lens[b];
+  const bool fresh = a.k_new != nullptr;
+  const int t_last = min((r_block + BM - 1) / G, a.T - 1);
+  const int hi = min(base + t_last + 1, a.S);  // the block sees positions [0, hi)
+  const int ntiles = (hi + BN - 1) / BN;
+  const int wg = threadIdx.x >> 7;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < I8_STAGES; ++s) mbar_init(i8_full + 8 * s, 1);
+    for (int s = 0; s < BF_STAGES; ++s) {
+      mbar_init(bf_full + 8 * s, 128);
+      mbar_init(bf_empty + 8 * s, 128 * NCONS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == NCONS) {
+    // ---- producer: TMA loads (lead thread), conversion (all 128) ------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n" ::: "memory");
+    const int p = threadIdx.x - 128 * NCONS;
+    const int h_lane = INT4 ? (h >> 1) * HD : h * HD;  // the head's bytes in a row
+    const int shift = (h & 1) * 4;                     // int4: its nibble plane
+    auto issue = [&](int i) {
+      const int c0 = i * BN, s = i % I8_STAGES;
+      const uint32_t full = i8_full + 8 * s;
+      const uint32_t dst = sbase + I8_OFF + s * I8_STAGE;
+      mbar_expect_tx(full, I8_STAGE);
+      if (fresh && c0 >= base) {
+        tma_load_3d(dst, &a.knmap, full, h_lane, c0 - base, b);
+        tma_load_3d(dst + I8_TILE, &a.vnmap, full, h_lane, c0 - base, b);
+      } else {
+        tma_load_3d(dst, &a.kmap, full, h_lane, c0, b);
+        tma_load_3d(dst + I8_TILE, &a.vmap, full, h_lane, c0, b);
+      }
+    };
+    if (p == 0) {
+      prefetch_map(&a.kmap);
+      prefetch_map(&a.vmap);
+      if (fresh) {
+        prefetch_map(&a.knmap);
+        prefetch_map(&a.vnmap);
+      }
+      for (int i = 0; i < min(ntiles, I8_STAGES); ++i) issue(i);
+    }
+    constexpr float kFold = 0.125f * 1.4426950408889634f;  // 1/sqrt(HD) * log2(e)
+    const size_t srow = (((size_t)a.layer * a.B + b) * a.Hkv + h) * a.S;
+    const size_t snew = ((size_t)b * a.Hkv + h) * a.T;
+    // the scales of column c0 + p, zero where the block sees nothing
+    auto load_scales = [&](int c0, float& ksv, float& vsv) {
+      const int col = c0 + p;
+      const bool from_new = fresh && col >= base;
+      const float* kp = from_new ? a.ks_new + snew + (col - base) : a.k_scale + srow + col;
+      const float* vp = from_new ? a.vs_new + snew + (col - base) : a.v_scale + srow + col;
+      ksv = col < hi ? __ldg(kp) : 0.f;
+      vsv = col < hi ? __ldg(vp) : 0.f;
+    };
+    // this thread's chunks: 16-byte chunk c16 of rows row0 + 32 k of each
+    // tile, whose bf16 halves land at fixed swizzled offsets
+    const int row0 = p >> 2, c16 = p & 3;
+    const uint32_t lo_off = ((2 * c16) ^ (row0 & 7)) << 4;
+    const uint32_t hi_off = ((2 * c16 + 1) ^ (row0 & 7)) << 4;
+    const int slot = ((p >> 1) & 3) * SC_LD + (p >> 3) * 2 + (p & 1);
+    const uint32_t kconst[3] = {0x007F007Fu, 0x00800080u, 0x43004300u};
+    float ksv, vsv;
+    load_scales(0, ksv, vsv);
+    for (int i = 0; i < ntiles; ++i) {
+      const int c0 = i * BN;
+      float ks_next = 0.f, vs_next = 0.f;  // one tile ahead: the loads' latency
+      if (i + 1 < ntiles) load_scales(c0 + BN, ks_next, vs_next);
+      const int s8 = i % I8_STAGES, sb = i % BF_STAGES;
+      mbar_wait(bf_empty + 8 * sb, ((i / BF_STAGES) & 1) ^ 1);  // the consumers let it go
+      mbar_wait(i8_full + 8 * s8, (i / I8_STAGES) & 1);         // the int8 tile landed
+      const uint8_t* src = smem + I8_OFF + s8 * I8_STAGE + row0 * HD + c16 * 16;
+      uint8_t* dst = smem + BF_OFF + sb * BF_STAGE + row0 * 128;
+      // rows row0 + 32 k of one tile, converted, into its bf16 tile (128
+      // bytes a row, 16-byte chunk c at c ^ row % 8: the 128-byte swizzle)
+      auto put = [&](uint8_t* row, uint4 v) {
+        uint4 lo, hi16;
+        convert16<INT4>(v, shift, kconst, lo, hi16);
+        *reinterpret_cast<uint4*>(row + lo_off) = lo;
+        *reinterpret_cast<uint4*>(row + hi_off) = hi16;
+      };
+      // the tile that straddles base takes its rows from base on from the
+      // fresh rows, by this thread's own loads (the TMA box brought cache rows)
+      const bool straddle = fresh && c0 < base && c0 + BN > base;
+#pragma unroll
+      for (int kv = 0; kv < 2; ++kv) {
+        const int8_t* fr = (kv ? a.v_new : a.k_new) + h_lane + c16 * 16;
+#pragma unroll
+        for (int k = 0; k < BN / 32; ++k) {
+          uint4 v = *reinterpret_cast<const uint4*>(src + kv * I8_TILE + k * 32 * HD);
+          if (straddle) {
+            const int t = c0 + row0 + 32 * k - base;
+            if (t >= 0)
+              v = t < a.T ? __ldg(reinterpret_cast<const uint4*>(fr + ((size_t)b * a.T + t) * a.Kw))
+                          : make_uint4(0, 0, 0, 0);
+          }
+          put(dst + kv * BF_TILE + k * 32 * 128, v);
+        }
+      }
+      float* sc = reinterpret_cast<float*>(smem + BF_OFF + sb * BF_STAGE + 2 * BF_TILE);
+      sc[slot] = ksv * kFold;
+      sc[SC_FLOATS + slot] = vsv;
+      ksv = ks_next;
+      vsv = vs_next;
+      fence_proxy_async();  // the tile's generic writes before wgmma reads them
+      mbar_arrive(bf_full + 8 * sb);
+      // every producer thread has read int8 stage s8: refill it
+      asm volatile("bar.sync %0, 128;\n" ::"n"(BAR_PRODUCER) : "memory");
+      if (p == 0 && i + I8_STAGES < ntiles) issue(i + I8_STAGES);
+    }
+  } else {
+    // ---- consumers: 64 rows each -------------------------------------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 152;\n" ::: "memory");
+    const int tid = threadIdx.x & 127;
+    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+    const int r_wg = r_block + 64 * wg;
+    // Q: this warpgroup's 64 rows into shared memory, 128-byte swizzle
+    uint8_t* qs = smem + Q_OFF + wg * 64 * HD * 2;
+    for (int j = tid; j < 64 * 8; j += 128) {
+      const int rl = j >> 3, c = j & 7, r = r_wg + rl;
+      uint4 v = make_uint4(0, 0, 0, 0);
+      if (r < GT) {
+        const int t = r / G, gq = r % G;
+        v = __ldg(reinterpret_cast<const uint4*>(
+            a.q + (((size_t)b * a.T + t) * a.Hq + h * G + gq) * HD + c * 8));
+      }
+      *reinterpret_cast<uint4*>(qs + rl * 128 + ((c ^ (rl & 7)) << 4)) = v;
+    }
+    fence_proxy_async();
+    asm volatile("bar.sync %0, 128;\n" ::"r"(BAR_Q + wg) : "memory");
+    const uint64_t qdesc = smem_desc(smem_u32(qs), 16, 1024);
+
+    // this thread's rows: r_wg + 16 warp + g (+ 8); row i sees [0, lim[i])
+    int lim[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = r_wg + 16 * warp + g + 8 * i;
+      lim[i] = r < GT ? min(base + r / G + 1, a.S) : 0;
+    }
+    // a tile ending at or below the first token's limit needs no mask
+    const int lim_full = min(base + r_wg / G + 1, a.S);
+    float o[32];
+#pragma unroll
+    for (int n = 0; n < 32; ++n) o[n] = 0.f;
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, corr[2];
+    float s[NS];
+    uint32_t pa[BN / 16][4];  // P as the P.V product's A fragments
+    auto stage = [&](int i) { return sbase + BF_OFF + (i % BF_STAGES) * BF_STAGE; };
+    auto issue_qk = [&](int i) {
+      const uint64_t kdesc = smem_desc(stage(i), 16, 1024);
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) wgmma_qk(s, qdesc + 2 * kk, kdesc + 2 * kk, kk);
+      wgmma_commit();
+    };
+    auto issue_pv = [&](int i) {
+      const uint64_t vdesc = smem_desc(stage(i) + BF_TILE, 1024, 1024);
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) wgmma_pv(o, pa[kk], vdesc + 128 * kk);
+      wgmma_commit();
+    };
+    auto scales = [&](int i) {
+      return reinterpret_cast<const float*>(smem + (stage(i) - sbase) + 2 * BF_TILE) +
+             t4 * SC_LD;
+    };
+    auto softmax = [&](int i) {
+      if (i * BN + BN > lim_full)
+        softmax_tile<true>(s, scales(i), i * BN, lim, t4, m, l, corr);
+      else
+        softmax_tile<false>(s, scales(i), i * BN, lim, t4, m, l, corr);
+    };
+    for (int i = 0; i < ntiles; ++i) {
+      mbar_wait(bf_full + 8 * (i % BF_STAGES), (i / BF_STAGES) & 1);
+      wgmma_fence();
+      issue_qk(i);
+      wgmma_wait<0>();
+      fence_regs(s);
+      softmax(i);
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        o[4 * n] *= corr[0];
+        o[4 * n + 1] *= corr[0];
+        o[4 * n + 2] *= corr[1];
+        o[4 * n + 3] *= corr[1];
+      }
+      pack_p(s, scales(i) + SC_FLOATS, pa);
+      wgmma_fence();
+      issue_pv(i);
+      wgmma_wait<0>();
+      fence_regs(o);
+      mbar_arrive(bf_empty + 8 * (i % BF_STAGES));
+    }
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+      const int r = r_wg + 16 * warp + g + 8 * i;
+      if (r >= GT) continue;
+      const int t = r / G, gq = r % G;
+      const float inv = 1.f / fmaxf(l[i], 1e-30f);
+      __nv_bfloat16* op = a.out + (((size_t)b * a.T + t) * a.Hq + h * G + gq) * HD + 2 * t4;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+        *reinterpret_cast<__nv_bfloat162*>(op + 8 * n) =
+            __floats2bfloat162_rn(o[4 * n + 2 * i] * inv, o[4 * n + 2 * i + 1] * inv);
+    }
+  }
+}
+
+// ---- host side ----------------------------------------------------------------
+
+// A map over `planes` planes of `rows` rows of `cols` bytes, box {HD, BN,
+// 1}, encoded once per (pointer, shape).
+static CUresult rows_map(CUtensorMap* map, const void* ptr, int cols, int rows, int planes) {
+  return cached_map(map, std::make_tuple(ptr, cols, rows, planes), [&](CUtensorMap* m) {
+    return encode_3d_u8(m, ptr, cols, rows, planes, HD, BN);
+  });
+}
+
+template <bool INT4>
+static int prefill(const void* q, const void* k, const void* v, const void* k_scale,
+                   const void* v_scale, const void* k_new, const void* v_new, const void* ks_new,
+                   const void* vs_new, const void* base_lens, void* out, int layer, int B, int S,
+                   int T, int Hq, int Hkv, int hd, cudaStream_t st) {
+  if (hd != HD || Hkv < 1 || Hq % Hkv != 0 || (INT4 && Hkv % 2 != 0) || B < 1 || S < 1 ||
+      T < 1 || layer < 0 || (k_new == nullptr) != (ks_new == nullptr) ||
+      (k_new == nullptr) != (v_new == nullptr))
+    return (int)cudaErrorInvalidValue;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      prefill_sm90_kernel<INT4>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  Args a;
+  a.Kw = INT4 ? (Hkv / 2) * HD : Hkv * HD;
+  const size_t layer_bytes = (size_t)B * S * a.Kw;
+  const int8_t* kl = static_cast<const int8_t*>(k) + (size_t)layer * layer_bytes;
+  const int8_t* vl = static_cast<const int8_t*>(v) + (size_t)layer * layer_bytes;
+  CUresult enc = rows_map(&a.kmap, kl, a.Kw, S, B);
+  if (enc == CUDA_SUCCESS) enc = rows_map(&a.vmap, vl, a.Kw, S, B);
+  if (enc == CUDA_SUCCESS && k_new != nullptr) enc = rows_map(&a.knmap, k_new, a.Kw, T, B);
+  if (enc == CUDA_SUCCESS && v_new != nullptr) enc = rows_map(&a.vnmap, v_new, a.Kw, T, B);
+  if (enc != CUDA_SUCCESS) return kEncodeError + (int)enc;
+  if (k_new == nullptr) a.knmap = a.vnmap = a.kmap;  // never read
+  a.q = static_cast<const __nv_bfloat16*>(q);
+  a.k_new = static_cast<const int8_t*>(k_new);
+  a.v_new = static_cast<const int8_t*>(v_new);
+  a.k_scale = static_cast<const float*>(k_scale);
+  a.v_scale = static_cast<const float*>(v_scale);
+  a.ks_new = static_cast<const float*>(ks_new);
+  a.vs_new = static_cast<const float*>(vs_new);
+  a.base_lens = static_cast<const int*>(base_lens);
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.layer = layer;
+  a.B = B;
+  a.S = S;
+  a.T = T;
+  a.Hq = Hq;
+  a.Hkv = Hkv;
+  const int rows = (Hq / Hkv) * T;
+  dim3 grid((rows + BM - 1) / BM, Hkv, B);
+  prefill_sm90_kernel<INT4><<<grid, NTHREADS, SMEM, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace pfa
+}  // namespace md
+
+// K2q: q [B, T, Hq, 64] bf16; k/v int8 [L, B, S, Hkv*64] with f32 scales
+// k_scale/v_scale [L, B, Hkv, S]; k_new/v_new [B, T, Hkv*64] and
+// ks_new/vs_new [B, Hkv, T], or all four null; base_lens [B]; out [B, T, Hq,
+// 64].  Returns cudaGetLastError(), or 0x10000 + the CUresult of a failed
+// tensor-map encode.
+extern "C" int md_prefill_attend_quant(const void* q, const void* k, const void* v,
+                                       const void* k_scale, const void* v_scale,
+                                       const void* k_new, const void* v_new,
+                                       const void* ks_new, const void* vs_new,
+                                       const void* base_lens, void* out, int layer, int B,
+                                       int S, int T, int Hq, int Hkv, int hd, void* stream) {
+  return md::pfa::prefill<false>(q, k, v, k_scale, v_scale, k_new, v_new, ks_new, vs_new,
+                                 base_lens, out, layer, B, S, T, Hq, Hkv, hd,
+                                 static_cast<cudaStream_t>(stream));
+}
+
+// B11: as md_prefill_attend_quant over packed int4 k/v [L, B, S, (Hkv/2)*64]
+// (+ k_new/v_new [B, T, (Hkv/2)*64]); Hkv must be even.
+extern "C" int md_prefill_attend_quant4(const void* q, const void* k, const void* v,
+                                        const void* k_scale, const void* v_scale,
+                                        const void* k_new, const void* v_new,
+                                        const void* ks_new, const void* vs_new,
+                                        const void* base_lens, void* out, int layer, int B,
+                                        int S, int T, int Hq, int Hkv, int hd, void* stream) {
+  return md::pfa::prefill<true>(q, k, v, k_scale, v_scale, k_new, v_new, ks_new, vs_new,
+                                base_lens, out, layer, B, S, T, Hq, Hkv, hd,
+                                static_cast<cudaStream_t>(stream));
+}

@@ -63,13 +63,10 @@
 //   conversion and epilogue; rows past 128 run as a second pass over each
 //   tile inside the same launch (tile outer, so the pass re-reads the tile
 //   from L2).
-#include <cuda.h>
-
-#include <map>
-#include <mutex>
 #include <tuple>
 
 #include "attention_common.cuh"
+#include "sm90_common.cuh"
 
 namespace md {
 namespace sm90 {
@@ -120,61 +117,6 @@ struct Args {
 
 namespace {
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// Wait until the phase of parity `parity` of the barrier has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// `bytes` contiguous bytes (a multiple of 16) from global memory.
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
-                                          uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
-  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
-}
-
 // Every non-exited thread of the cluster (release, then acquire).
 __device__ __forceinline__ void cluster_sync() {
   asm volatile("barrier.cluster.arrive;\nbarrier.cluster.wait;\n" ::: "memory");
@@ -221,12 +163,6 @@ __device__ __forceinline__ void cluster_wait() {
 // The consumer warps only (named barrier 1; the producer warp is not in it).
 __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(NCW * 32) : "memory");
-}
-
-// Generic-proxy writes to shared memory before the async proxy (TMA)
-// overwrites the same bytes.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void ldsm_x4_u32(uint32_t r[4], uint32_t addr) {
@@ -644,68 +580,13 @@ __global__ void __launch_bounds__(NTHREADS, MT <= 4 ? 2 : 1)
 
 // ---- host side ----------------------------------------------------------------
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// An error the wrapper reports as a failed tensor-map encode (CUresult added)
-constexpr int kEncodeError = 0x10000;
-
-static EncodeTiled encode_fn() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &q);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    return (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A 2-D tensor map over a row-major [rows, cols] array of `elem` bytes an
-// element, box {box_cols, box_rows}.  Out-of-bounds rows read as zeros.
-static CUresult encode_2d(CUtensorMap* map, CUtensorMapDataType type, const void* ptr,
-                          int elem, uint64_t cols, uint64_t rows, uint32_t box_cols,
-                          uint32_t box_rows, CUtensorMapSwizzle swizzle) {
-  const EncodeTiled fn = encode_fn();
-  if (fn == nullptr) return CUDA_ERROR_NOT_FOUND;
-  const cuuint64_t dims[2] = {cols, rows};
-  const cuuint64_t strides[1] = {cols * elem};
-  const cuuint32_t box[2] = {box_cols, box_rows};
-  const cuuint32_t estrides[2] = {1, 1};
-  return fn(map, type, 2, const_cast<void*>(ptr), dims, strides, box, estrides,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-}
-
-// The weight's map, encoded once per (pointer, shape).  A map holds only the
-// pointer, shape and strides, so a freed weight's entry stays right for
-// whatever later lives at that address with that shape.
+// The weight's map, encoded once per (pointer, shape).
 static CUresult weight_map(CUtensorMap* map, const int8_t* q, int In, int Out) {
-  static std::mutex mu;
-  static std::map<std::tuple<const void*, int, int>, CUtensorMap> cache;
-  std::lock_guard<std::mutex> lock(mu);
-  const auto key = std::make_tuple(static_cast<const void*>(q), In, Out);
-  const auto hit = cache.find(key);
-  if (hit != cache.end()) {
-    *map = hit->second;
-    return CUDA_SUCCESS;
-  }
-  const CUresult res = encode_2d(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, q, 1, Out, In, HALF, BK,
-                                 CU_TENSOR_MAP_SWIZZLE_64B);
-  if (res == CUDA_SUCCESS) {
-    if (cache.size() >= 4096) cache.clear();
-    cache.emplace(key, *map);
-  }
-  return res;
+  return cached_map(map, std::make_tuple(static_cast<const void*>(q), In, Out),
+                    [&](CUtensorMap* m) {
+                      return encode_2d(m, CU_TENSOR_MAP_DATA_TYPE_UINT8, q, 1, Out, In, HALF,
+                                       BK, CU_TENSOR_MAP_SWIZZLE_64B);
+                    });
 }
 
 template <int MT>

@@ -4,7 +4,8 @@ kernel against its plain PyTorch version (counterpart of
 here).
 
     python -m magicdec_tpu_torch.kernel_benchmark [--B 32] [--S 8704] [--C 512]
-        [--which all|decode|prefill|append|paged|dots] [--device cpu]
+        [--bases 7680,0] [--which all|decode|prefill|append|paged|encode|dots]
+        [--bench_args "--B 32 ..."] [--device cpu]
 
 Each case is timed by ``engine/profiling.py``'s chain: ``--iters`` launches
 back to back, each attention launch's output feeding the next one's queries,
@@ -14,14 +15,33 @@ last line is the JSON result; ``detail`` holds every case in ms.
 Cases (``--which``):
   decode   K1 and K1q at T = 1 and ``--T`` (the verify window) over one
            layer of an S-row cache, every request at length S - T;
-  prefill  K2 and K2q over a ``--C``-row chunk at length S - C, and the
-           int8 cache dequantized then K2;
+  prefill  K2 (bf16 cache), K2q (int8) and B11 (int4 packed in head
+           pairs) over a ``--C``-row chunk with its fresh rows, at each of
+           ``--bases`` (the bench's last chunk, 7680, and its first, 0), over
+           the layer stack's caches in turn: ``prefill_{kind}_base{n}`` is
+           the device time a call (``graph_ms``, one call per layer
+           captured in a CUDA graph and replayed; on ``--device cpu`` the
+           host clock over the plain versions), ``prefill_sdpa_base{n}``
+           ``scaled_dot_product_attention`` on one layer's bf16 K/V with the
+           same visibility as a mask (the library yardstick).  Like
+           ``dots`` it uses only the wrappers' public signatures, so an A/B
+           against an older checkout runs in one call
+           (PYTHONPATH=<checkout> python magicdec_tpu_torch/kernel_benchmark.py
+           --which prefill);
   append   the in-place appends over the layer stack (int8 rows of 2048-row
            caches with their f32 scales) at T = 1 and ``--T``: K3q's one
            merged launch (``append_T{t}_merged``) against B14's four
            per-array launches (``append_T{t}_per_array``, the
            ``MAGICDEC_PER_ARRAY_APPEND`` path);
   paged    B12 over bf16 and int8 pools, one layer, a permuted page table;
+  encode   (not in "all") the time to first token at the bench's shapes:
+           the wall milliseconds of ``SpecEngine.encode`` (target and draft
+           prefill, ``encode_spec_{r}``) and ``encode_baseline`` (target
+           prefill, ``encode_baseline_{r}``), two runs each after a warm one,
+           between synchronizations, with the bench's flags from
+           ``--bench_args`` (its defaults otherwise).  It uses only
+           ``bench.setup`` and the engine's methods, so an A/B against an
+           older checkout runs as for ``prefill``;
   dots     (the card only; not in "all") the draft's int8 dots B4 (wqkv +
            norm, w13 + norm + gate, w2 + residual) and B6 (the lm_head) at
            the model's widths and M = B and 2B rows, over the layer stack's
@@ -42,6 +62,7 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+import time
 
 import torch
 
@@ -84,10 +105,14 @@ def parse_args(argv=None):
     p.add_argument("--B", type=int, default=32)
     p.add_argument("--S", type=int, default=8704, help="cache capacity (tile of 512)")
     p.add_argument("--C", type=int, default=512, help="prefill chunk rows")
+    p.add_argument("--bases", default="7680,0",
+                   help="prefill: the chunk's visible cache lengths, comma-separated")
     p.add_argument("--T", type=int, default=5, help="verify window gamma+1 for the decode kernels")
     p.add_argument("--iters", type=int, default=20)
     p.add_argument("--which", default="all",
-                   choices=["all", "decode", "prefill", "append", "paged", "dots"])
+                   choices=["all", "decode", "prefill", "append", "paged", "encode", "dots"])
+    p.add_argument("--bench_args", default="",
+                   help="encode: the bench's flags, one string (its defaults otherwise)")
     return p.parse_args(argv)
 
 
@@ -99,8 +124,7 @@ def main(argv=None):
     from magicdec_tpu_torch.kernels import append as AP
     from magicdec_tpu_torch.kernels import decode_attention as DA
     from magicdec_tpu_torch.kernels import paged_attention as PGA
-    from magicdec_tpu_torch.kernels import prefill_attention as PA
-    from magicdec_tpu_torch.ops.kv_cache import dequant_kv, quantize_kv_tokens
+    from magicdec_tpu_torch.ops.kv_cache import quantize_kv_tokens
 
     dev = resolve_device(args.device)
     cfg = ModelConfig.from_name(args.model)
@@ -126,14 +150,12 @@ def main(argv=None):
     def lens(n):
         return torch.full((B,), n, dtype=torch.int32, device=dev)
 
-    if args.which in ("all", "decode", "prefill"):
+    if args.which in ("all", "decode"):
         k4, v4 = randn(B, S, Hkv, hd), randn(B, S, Hkv, hd)
         k, v = k4.reshape(1, B, S, K), v4.reshape(1, B, S, K)
         (kq, ks), (vq, vs) = quantize_kv_tokens(k4), quantize_kv_tokens(v4)
         kq, ks, vq, vs = kq[None], ks[None], vq[None], vs[None]
         del k4, v4
-
-    if args.which in ("all", "decode"):
         for t in sorted({1, T}):
             q = randn(B, t, Hq, hd)
             bench(f"decode_T{t}_plain", DA.flash_decode_attend_plain, q, k, v, lens(S - t))
@@ -142,22 +164,11 @@ def main(argv=None):
                   vq, vs, lens(S - t))
             bench(f"decode_T{t}_int8_flash", DA.flash_decode_attend_quant, q, kq, ks, vq, vs,
                   lens(S - t))
+        del k, v, kq, ks, vq, vs
 
     if args.which in ("all", "prefill"):
-        q = randn(B, C, Hq, hd)
-        bench("prefill_flash", PA.flash_prefill_attend, q, k, v, lens(S - C))
-        bench("prefill_int8_flash", PA.flash_prefill_attend_quant, q, kq, ks, vq, vs,
-              lens(S - C))
-
-        def dequant_then_flash(x, kq, ks, vq, vs, base):
-            kd = dequant_kv(kq[0], ks[0], hd, x.dtype)[None]
-            vd = dequant_kv(vq[0], vs[0], hd, x.dtype)[None]
-            return PA.flash_prefill_attend(x, kd, vd, base)
-
-        bench("prefill_int8_dequant_flash", dequant_then_flash, q, kq, ks, vq, vs, lens(S - C))
-
-    if args.which in ("all", "decode", "prefill"):
-        del k, v, kq, ks, vq, vs
+        results.update(_prefill(cfg, B, S, C, [int(x) for x in args.bases.split(",")], dev,
+                                gen))
 
     if args.which in ("all", "append"):
         # in-place appends at decode and verify windows over the layer stack
@@ -211,6 +222,9 @@ def main(argv=None):
             bench(f"paged_decode_T{t}_int8_flash", PGA.flash_paged_decode_attend_quant, q, kp8,
                   sk8, kp8, sk8, table, lens(S - t))
 
+    if args.which == "encode":
+        results.update(_encode(args.bench_args.split() + ["--device", args.device], dev))
+
     if args.which == "dots":
         results.update(_dots(cfg, B, dev, gen))
 
@@ -218,6 +232,104 @@ def main(argv=None):
     print(json.dumps({"metric": f"kernel_bench_{args.model}_B{B}_S{S}_torch",
                       "value": results.get("decode_T1_flash", 0.0), "unit": "ms",
                       "vs_baseline": 1.0, "device": device, "detail": results}))
+    return results
+
+
+def _prefill(cfg, B, S, C, bases, dev, gen):
+    """The ``prefill`` cases (see the module docstring); returns {case: ms}."""
+    from magicdec_tpu_torch.kernels import prefill_attention as PA
+    from magicdec_tpu_torch.ops.kv_cache import quantize_kv_tokens, quantize_kv_tokens_int4
+
+    L, Hq, Hkv, hd = cfg.n_layer, cfg.n_head, cfg.n_kv_head, cfg.head_dim
+    K = Hkv * hd
+    bf = torch.bfloat16
+    cuda = dev.type == "cuda"
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf)
+
+    def quantize(x, fn):
+        """[L, B, S, K] bf16 -> (rows [L, B, S, width] int8, scales [L, B,
+        Hkv, S]), a layer at a time (a whole cache's float32 temporaries
+        would not fit)."""
+        pairs = [fn(x[l].view(B, S, Hkv, hd)) for l in range(L)]
+        return torch.stack([r for r, _ in pairs]), torch.stack([s for _, s in pairs])
+
+    def timed(calls):
+        if cuda:
+            return graph_ms(calls)
+        t0 = time.perf_counter()
+        for call in calls:
+            call()
+        return (time.perf_counter() - t0) * 1e3 / len(calls)
+
+    kb, vb = randn(L, B, S, K), randn(L, B, S, K)
+    # the wrappers' operand order: (k, v), or (k, k_scale, v, v_scale)
+    caches = {"bf16": (kb, vb),
+              "int8": (*quantize(kb, quantize_kv_tokens), *quantize(vb, quantize_kv_tokens)),
+              "int4": (*quantize(kb, quantize_kv_tokens_int4),
+                       *quantize(vb, quantize_kv_tokens_int4))}
+    fns = {"bf16": PA.flash_prefill_attend, "int8": PA.flash_prefill_attend_quant,
+           "int4": PA.flash_prefill_attend_quant4}
+    results = {}
+    for base in bases:
+        lens = torch.full((B,), base, dtype=torch.int32, device=dev)
+        q = randn(B, C, Hq, hd)
+        kn, vn = randn(B, C, K), randn(B, C, K)
+        fresh = {"bf16": {"k_new": kn, "v_new": vn}}
+        for kind, fn_q in (("int8", quantize_kv_tokens), ("int4", quantize_kv_tokens_int4)):
+            (kq, ks), (vq, vs) = (fn_q(x.view(B, C, Hkv, hd)) for x in (kn, vn))
+            fresh[kind] = {"k_new": kq, "v_new": vq, "ks_new": ks, "vs_new": vs}
+        for kind, fn in fns.items():
+            calls = [lambda l=l, fn=fn, kind=kind: fn(q, *caches[kind], lens, layer=l,
+                                                      **fresh[kind]) for l in range(L)]
+            results[f"prefill_{kind}_base{base}"] = timed(calls)
+        # SDPA on layer 0's bf16 K/V with the fresh rows appended, the same
+        # visibility as a mask
+        kf = torch.cat([kb[0], kn], 1).view(B, S + C, Hkv, hd).transpose(1, 2)
+        vf = torch.cat([vb[0], vn], 1).view(B, S + C, Hkv, hd).transpose(1, 2)
+        kf = kf.repeat_interleave(Hq // Hkv, 1).contiguous()
+        vf = vf.repeat_interleave(Hq // Hkv, 1).contiguous()
+        col = torch.arange(S + C, device=dev)
+        t = torch.arange(C, device=dev)
+        mask = ((col[None, None] < lens[:, None, None])
+                | ((col[None] >= S) & (col[None] - S <= t[:, None]))[None])[:, None]
+        qt = q.transpose(1, 2).contiguous()
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        results[f"prefill_sdpa_base{base}"] = timed(
+            [lambda: sdpa(qt, kf, vf, attn_mask=mask)])
+        del kf, vf, mask
+        for name in [n for n in results if n.endswith(f"_base{base}")]:
+            print(f"[kernel] {name:32s} {results[name]:8.4f} ms", file=sys.stderr, flush=True)
+    del caches, kb, vb
+    if cuda:
+        torch.cuda.empty_cache()
+    return results
+
+
+def _encode(bench_argv, dev):
+    """The ``encode`` cases (see the module docstring); returns {case: ms}."""
+    from magicdec_tpu_torch import bench
+
+    engine, prompts = bench.setup(bench.parse_args(bench_argv))
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    results = {}
+    for name, encode in (("encode_spec", engine.encode),
+                         ("encode_baseline", engine.encode_baseline)):
+        encode(prompts[0])  # warm: kernel builds, allocator, cuBLAS heuristics
+        for r in range(2):
+            sync()
+            t0 = time.perf_counter()
+            st = encode(prompts[0])
+            sync()
+            results[f"{name}_{r}"] = (time.perf_counter() - t0) * 1e3
+            del st
+            print(f"[encode] {name}_{r:<26d} {results[f'{name}_{r}']:10.1f} ms", file=sys.stderr,
+                  flush=True)
     return results
 
 

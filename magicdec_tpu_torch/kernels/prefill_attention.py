@@ -1,15 +1,18 @@
-"""K2, K2q and B11: chunked-prefill flash attention (CUDA,
-``csrc/prefill_attention.cu``, ``csrc/prefill_attention_quant.cu`` and
-``csrc/prefill_attention_quant4.cu``).
+"""K2, K2q and B11: chunked-prefill flash attention (CUDA for Hopper).
 
-K2 replaces magicdec_tpu/ops/pallas/prefill_attention.py
-``flash_prefill_attend`` (``_prefill_kernel``); K2q replaces
-``flash_prefill_attend_quant`` (``_prefill_quant_kernel``) over an int8
-cache with per-(token, kv head) f32 scales; B11 replaces
+K2 (``csrc/prefill_attention.cu``) replaces
+magicdec_tpu/ops/pallas/prefill_attention.py ``flash_prefill_attend``
+(``_prefill_kernel``) on the shared ``mma.sync`` core of
+``csrc/attention_common.cuh``.  K2q and B11 (``csrc/prefill_attention_sm90.cu``)
+replace ``flash_prefill_attend_quant`` (``_prefill_quant_kernel``) over an
+int8 cache with per-(token, kv head) f32 scales and
 ``flash_prefill_attend_quant4`` (``_prefill_quant4_kernel``) over an int4
-cache packed in head pairs.  Bound on the card:
-tensor-core operations; all run their two products on ``mma.sync`` with
-fp32 accumulators — see the sources for the design.
+cache packed in head pairs.  Bound on the card: tensor-core operations and
+exponentials, about equally (4 hd flops and one exp a visible (row,
+column) pair).  K2q and B11 run one launch a call of a warp-specialized
+Hopper kernel: ``wgmma`` products, K/V rows by TMA into an mbarrier ring, a
+producer warpgroup converting int8 (int4) tiles to bf16 while three
+consumer warpgroups run the softmax — see the sources for the design.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import torch
 from magicdec_tpu_torch.kernels import on_cpu, ptr, require, require_bf16
 from magicdec_tpu_torch.kernels.decode_attention import (check_quant_operands,
                                                          visible_layer_quant)
+from magicdec_tpu_torch.kernels.quant_matmul import ENCODE_ERROR
 from magicdec_tpu_torch.ops.attention import attend, attend_quant
 from magicdec_tpu_torch.ops.kv_cache import append_rows_all_layers
 
@@ -104,7 +108,8 @@ def flash_prefill_attend_quant_plain(q, k_cache, k_scale, v_cache, v_scale, base
 def _launch_prefill_quant(entry, q, k_cache, k_scale, v_cache, v_scale, base_lens, layer,
                           fresh, packed):
     """One launch of K2q (``md_prefill_attend_quant``) or B11
-    (``md_prefill_attend_quant4``); returns the output."""
+    (``md_prefill_attend_quant4``); returns the output (a failed tensor-map
+    encode raises)."""
     from magicdec_tpu_torch.kernels import build
 
     B, C, Hq, hd = q.shape
@@ -119,6 +124,9 @@ def _launch_prefill_quant(entry, q, k_cache, k_scale, v_cache, v_scale, base_len
         ptr(q), ptr(k_cache), ptr(v_cache), ptr(k_scale), ptr(v_scale), ptr(k_new),
         ptr(v_new), ptr(ks_new), ptr(vs_new), ptr(lens), ptr(out),
         layer, B, S, C, Hq, Hkv, hd, build.stream_ptr(q))
+    if err >= ENCODE_ERROR:
+        raise RuntimeError(f"{entry}: cuTensorMapEncodeTiled failed with CUresult "
+                           f"{err - ENCODE_ERROR}")
     build.check(err, entry)
     return out
 

@@ -436,12 +436,60 @@ def test_decode_quant_kernel_matches_plain_on_card(cuda, T, S):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("C", [64, 200])
+@pytest.mark.parametrize("C", [64, 200, 512])
 def test_prefill_quant_kernel_matches_plain_on_card(cuda, C):
+    """Ragged chunks (C = 200: rows not a multiple of the 128-row block) at
+    bases that start a 128-column tile (0), straddle one (37, 300, S - C -
+    5: the tile takes cache rows below base and fresh rows from it on), with
+    and without fresh rows."""
     gen = torch.Generator(device=cuda).manual_seed(C)
     S = 1024
     _card_attn_case(PA.flash_prefill_attend_quant, PA.flash_prefill_attend_quant_plain, gen,
-                    cuda, S, C, [0, S - C])
+                    cuda, S, C, [0, 37, 300, S - C - 5])
+
+
+def _prefill_quant_operands(cuda, C=200, S=1024):
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    Bc, Hkv, G = 3, 8, 4
+    k, ks = _quant_cache_on_card(gen, L, Bc, S, Hkv, cuda)
+    v, vs = _quant_cache_on_card(gen, L, Bc, S, Hkv, cuda)
+    fk, fks = _quant_cache_on_card(gen, 1, Bc, C, Hkv, cuda)
+    fv, fvs = _quant_cache_on_card(gen, 1, Bc, C, Hkv, cuda)
+    q = torch.randn((Bc, C, Hkv * G, HD), generator=gen, device=cuda).to(torch.bfloat16)
+    base = torch.tensor([0, 300, S - C - 5], dtype=torch.int32, device=cuda)
+    fresh = dict(k_new=fk[0], v_new=fv[0], ks_new=fks[0], vs_new=fvs[0])
+    return lambda: PA.flash_prefill_attend_quant(q, k, ks, v, vs, base, layer=LAYER, **fresh)
+
+
+@pytest.mark.gpu
+def test_prefill_quant_kernel_deterministic_on_card(cuda):
+    """Two launches on the same inputs are bit-equal (no atomics, no split
+    of the KV range): encode and encode_baseline start from the same bits."""
+    run = _prefill_quant_operands(cuda)
+    first = run()
+    for _ in range(3):
+        assert torch.equal(run(), first)
+
+
+@pytest.mark.gpu
+def test_prefill_quant_graph_replay_matches_eager_on_card(cuda):
+    """Captured in a CUDA graph, the kernel's replay is bit-equal to its
+    eager launch (the tensor maps are encoded at capture)."""
+    run = _prefill_quant_operands(cuda)
+    eager = run()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        run()  # warm the stream outside the capture
+    torch.cuda.current_stream().wait_stream(stream)
+    with torch.cuda.graph(graph):
+        captured = run()
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, eager)
 
 
 @pytest.mark.gpu

@@ -95,6 +95,82 @@ def test_kernel_benchmark_append_runs_on_cpu(capsys, monkeypatch):
     assert calls.count("append_scale_rows_inplace") == calls.count("append_rows_inplace") > 0
 
 
+def test_kernel_benchmark_prefill_runs_on_cpu(capsys, monkeypatch):
+    """The prefill cases: K2, K2q and B11 over the layer stack (one call a
+    layer, at each base, with the chunk's fresh rows) and the SDPA
+    yardstick, each case a time; on the CPU the wrappers take their plain
+    versions."""
+    from magicdec_tpu_torch import kernel_benchmark
+    from magicdec_tpu_torch.kernels import prefill_attention as PA
+
+    calls = []
+    for name in ("flash_prefill_attend", "flash_prefill_attend_quant",
+                 "flash_prefill_attend_quant4"):
+        monkeypatch.setattr(PA, name, lambda *a, _f=getattr(PA, name), _n=name, **kw:
+                            calls.append((_n, kw["layer"], int(a[-1][0]),
+                                          kw.get("k_new") is not None)) or _f(*a, **kw))
+    r = kernel_benchmark.main(["--device", "cpu", "--which", "prefill", "--model", "68m",
+                               "--B", "2", "--S", "384", "--C", "64", "--bases", "128,0"])
+    line = _last_json(capsys)
+    kinds = ("bf16", "int8", "int4", "sdpa")
+    assert set(r) == {f"prefill_{k}_base{b}" for k in kinds for b in (128, 0)}
+    assert line["detail"] == r and line["device"] == "cpu"
+    assert all(v > 0 for v in r.values())
+    # two layers a case, each with its fresh rows, at each base
+    for name in ("flash_prefill_attend", "flash_prefill_attend_quant",
+                 "flash_prefill_attend_quant4"):
+        assert sorted((l, b) for n, l, b, f in calls if n == name and f) == \
+            [(0, 0), (0, 128), (1, 0), (1, 128)]
+
+
+def test_kernel_benchmark_encode_runs_on_cpu(capsys):
+    """The encode cases: SpecEngine.encode and encode_baseline, two timed
+    runs each, with the bench's flags passed through."""
+    from magicdec_tpu_torch import kernel_benchmark
+
+    r = kernel_benchmark.main([
+        "--device", "cpu", "--which", "encode", "--bench_args",
+        "--model 68m --B 2 --prefix_len 256 --draft_budget 257 --prefill_chunk 128 "
+        "--max_gen 8 --kv_quant int8 --draft_quant none"])
+    line = _last_json(capsys)
+    assert set(r) == {f"encode_{k}_{i}" for k in ("spec", "baseline") for i in (0, 1)}
+    assert line["detail"] == r and all(v > 0 for v in r.values())
+
+
+def test_prefill_variants_apply_to_the_source():
+    """Every variant of the K2q/B11 kernel that prefill_variants times still
+    applies to the source (each patch's text is there), and says what it
+    does: the trace variant adds its reader, the isolation variants drop the
+    producer's conversion or the consumers' products."""
+    from magicdec_tpu_torch import prefill_variants as PV
+
+    source = PV.SOURCE.read_text()
+    assert PV.patched("current") == source
+    texts = {name: PV.patched(name) for name in PV.VARIANTS}
+    assert 'extern "C" int md_trace_read' in texts["trace"]
+    assert texts["trace"].count("clock64()") == 10  # five phases each side
+    assert "put(dst" not in texts["consumers_alone"]
+    assert "ex2(s[j]" not in texts["consumers_alone_no_exp"]
+    assert "issue_qk(i);" not in texts["producer_alone"]
+    assert "issue_pv(i - 1);" in texts["in_warpgroup_overlap"]
+    assert "NCONS = 2;" in texts["two_warpgroups"]
+    with pytest.raises(ValueError, match="no longer holds"):
+        PV.patched("two_warpgroups", source.replace("NCONS = 3;", "NCONS = 4;"))
+
+
+def test_bench_returns_encode_seconds_on_cpu(capsys):
+    """``bench.run`` returns the last measured spec encode's wall seconds
+    (the time to the first token) beside its arrays, out of the JSON line."""
+    from magicdec_tpu_torch import bench
+
+    out = bench.main(["--device", "cpu", "--model", "68m", "--B", "2", "--prefix_len", "256",
+                      "--draft_budget", "257", "--prefill_chunk", "128", "--max_gen", "8",
+                      "--iters", "1", "--kv_quant", "int8", "--draft_quant", "none"])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["encode_s"] > 0.0
+    assert "encode_s" not in line and line == out["result"]
+
+
 def test_bench_gamma_autotune_runs_on_cpu(capsys):
     """``bench --gamma 0``: warmup at gamma 4, the phase timers, a pick in
     2..8, the run at the pick; spec == AR there, and the bench's JSON."""
