@@ -44,9 +44,10 @@ of which raises on failure:
    values by ``quantize_kv_tokens_int4`` (wrong references: without the
    fresh rows, and with the nibble planes swapped), K3q on packed rows bit
    for bit, and the group-wise int4 dots B4-int4 (wqkv, wo + residual, w13
-   + gate, w2 + residual) and B6-int4 (the head) at M = 32 and 64 (wrong
-   references: the group scales shifted by one group, the head's scales
-   rolled by one column), their bound the packed weight and its scales; and
+   + gate, w2 + residual; under torch.profiler one kernel launch a call)
+   and B6-int4 (the head) at M = 32 and 64 (wrong references: the group
+   scales shifted by one group, the head's scales rolled by one column),
+   their bound the packed weight and its scales; and
    the paged serving kernels at the serving paths' shapes (16 slots of
    8192 rows, page size 512 and 16, a random permuted table, ragged lengths
    including 0 and 8192 - T): B12 over bf16, int8 and packed int4 pools
@@ -58,8 +59,9 @@ of which raises on failure:
    scale columns) at T = 4, 1 and 512 with a window running past the cache's
    end, bit for bit (library: ``index_copy_`` of the kept rows); and B15,
    the target's bf16 dots (``dense_matmul_fused`` as wqkv + norm, wo +
-   residual, w13 + norm and w2 + residual at M = 128, 16 and 8;
-   ``dense_mlp`` at M = 128 and 16), within bf16_limit, with wrong
+   residual, w13 + norm and w2 + residual at M = 128, 16 and 8, under
+   torch.profiler one kernel launch a call; ``dense_mlp`` at M = 128 and
+   16), within bf16_limit, with wrong
    references (without the norm, without the residual, the w13 halves
    swapped) that must fail it (library: ``torch.matmul`` on the weight);
 4. main paths: ``magicdec_tpu_torch.bench.main`` (1) with ``--iters 1``
@@ -356,13 +358,7 @@ def kernel_phase(torch, gen):
         extra = None
         if fn in (PA.flash_prefill_attend_quant, PA.flash_prefill_attend_quant4):
             # K2q / B11: one launch of the Hopper kernel a call
-            per_call, prof_ms, kernels = _profiled(torch, calls)
-            print(f"[kernel] {name} {case}: profiler: {per_call:g} kernel launches a call, "
-                  f"device ms a call {prof_ms:.4f} ({', '.join(sorted(kernels))})", flush=True)
-            if per_call != 1 or not all("prefill_sm90_kernel" in k for k in kernels):
-                raise AssertionError(f"{name} {case}: {per_call} kernel launches a call "
-                                     f"({sorted(kernels)}), not one prefill_sm90_kernel")
-            extra = {"launches_per_call": per_call, "profiler_device_ms": prof_ms}
+            extra = _one_launch(torch, name, case, calls, kernel="prefill_sm90_kernel")
         # one exponential a visible (row, column) pair
         record(name, case, err, tol, ms, plain_ms, nbytes, flops, library_ms, calls, [lib],
                extra, exps=Hq * pairs)
@@ -614,8 +610,11 @@ def dense_kernel_cases(torch, gen, record):
         moved = float(sum(a.numel() * a.element_size() for a in args)
                       + out.numel() * out.element_size())
         flops = 2.0 * M * sum(weights[k][0].numel() for k in keys)
-        record(name, label, err, tol, ms, plain_ms, moved, flops, library_ms,
-               [lambda l=l: fn(*args_of(l)) for l in range(L)], lib_calls)
+        calls = [lambda l=l: fn(*args_of(l)) for l in range(L)]
+        extra = (_one_launch(torch, name, label, calls, ONE_LAUNCH[name]) if name in ONE_LAUNCH
+                 else None)
+        record(name, label, err, tol, ms, plain_ms, moved, flops, library_ms, calls, lib_calls,
+               extra)
 
     def w(key, l):
         return weights[key][l]
@@ -881,14 +880,8 @@ def quant_kernel_cases(torch, gen, record):
         plain_ms = _cuda_ms(lambda: plain(*args), iters=3, warmup=1)
         calls = [lambda l=l: fn(*args_of(l)) for l in range(n_layers)]
         extra = None
-        if name in ("quant_matmul_fused", "quant_matmul"):
-            # B4/B6: one kernel a call, its device time from the profiler
-            per_call, prof_ms, kernels = _profiled(torch, calls)
-            print(f"[kernel] {name} {label}: profiler: {per_call:g} kernel launches a call, "
-                  f"device ms a call {prof_ms:.4f} ({', '.join(sorted(kernels))})", flush=True)
-            if per_call != 1:
-                raise AssertionError(f"{name} {label}: {per_call} kernel launches a call, not 1")
-            extra = {"launches_per_call": per_call, "profiler_device_ms": prof_ms}
+        if name in ONE_LAUNCH:
+            extra = _one_launch(torch, name, label, calls, ONE_LAUNCH[name])
         library_ms, deq = None, None
         if lib is not None:
             deq = [dequant(k, l) for k in keys for l in range(weights[k][0].shape[0])]
@@ -1458,26 +1451,54 @@ def _device_ms(event):
     return (t if t is not None else event.self_cuda_time_total) / 1e3
 
 
-def _profiled(torch, calls):
+def _profiled(torch, calls, attempts=3):
     """(kernel launches a call, device ms a call, kernel names) of ``calls``
-    under torch.profiler, after one unprofiled pass."""
+    under torch.profiler, after one unprofiled pass.  The profiler now and
+    then loses a run's events on the card (fewer kernels than calls, never
+    more): such a run is profiled again, at most ``attempts`` times."""
     from torch.profiler import ProfilerActivity, profile
 
     for call in calls:
         call()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for call in calls:
-            call()
-        torch.cuda.synchronize()
-    kern = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    launches = sum(e.count for e in kern)
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for call in calls:
+                call()
+            torch.cuda.synchronize()
+        kern = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        launches = sum(e.count for e in kern)
+        if launches >= len(calls):
+            break
     return (launches / len(calls), sum(_device_ms(e) for e in kern) / len(calls),
             {e.key[:60] for e in kern})
 
 
+# The wrappers whose kernel is one launch a call (the profiler must count 1),
+# with what the kernel's name holds
+ONE_LAUNCH = {"quant_matmul_fused": "qmm_sm90_kernel<false",
+              "quant_matmul": "qmm_sm90_kernel<false",
+              "quant_matmul_fused_int4": "qmm_sm90_kernel<true",
+              "dense_matmul_fused": "dmm_sm90_kernel"}
+
+
+def _one_launch(torch, name, label, calls, kernel=""):
+    """The profiler's kernel launches a call of ``calls`` (one a call, of a
+    kernel whose name holds ``kernel``, or the run fails), its device ms a
+    call and the kernels' names."""
+    per_call, prof_ms, kernels = _profiled(torch, calls)
+    print(f"[kernel] {name} {label}: profiler: {per_call:g} kernel launches a call, "
+          f"device ms a call {prof_ms:.4f} ({', '.join(sorted(kernels))})", flush=True)
+    if per_call != 1 or not all(kernel in k for k in kernels):
+        raise AssertionError(f"{name} {label}: {per_call} kernel launches a call "
+                             f"({sorted(kernels)}), not one {kernel or 'kernel'}")
+    return {"launches_per_call": per_call, "profiler_device_ms": prof_ms,
+            "kernel": sorted(kernels)}
+
+
 def _kernel_class(name):
-    if "qmm4" in name:
+    if "qmm4" in name or "qmm_sm90_kernel<true" in name:
         return "int4 dots (B4/B6-int4)"
     if "qmm" in name:
         return "int8 dots (B4/B5/B6) and split-K epilogues"
@@ -1640,9 +1661,10 @@ def main():
 
     lib = build.build(verbose=True)
     print(f"[build] {lib.name} in {time.perf_counter() - t_start:.1f}s", flush=True)
-    # registers, shared memory and spills of the Hopper kernels (B4/B6,
-    # K2q/B11), each instantiation
+    # registers, shared memory and spills of the Hopper kernels (B4/B6 and
+    # B4-int4, B15's dense_matmul_fused, K2q/B11), each instantiation
     for source, kernel in (("quant_matmul_sm90", "qmm_sm90_kernel"),
+                           ("dense_matmul_sm90", "dmm_sm90_kernel"),
                            ("prefill_attention_sm90", "prefill_sm90_kernel")):
         log = build.BUILD_DIR / f"{source}.nvcc.log"
         ptxas = log.read_text().splitlines() if log.exists() else []
@@ -1785,7 +1807,7 @@ def main():
                                         "magicdec_tpu/ops/pallas/prefill_attention.py:377"),
         # the bits=4 branches of quant_matmul_fused_pallas (:301) and
         # quant_matmul_pallas (:221)
-        "quant_matmul_fused_int4": ("magicdec_tpu_torch/csrc/quant_matmul.cu",
+        "quant_matmul_fused_int4": ("magicdec_tpu_torch/csrc/quant_matmul_sm90.cu",
                                     "magicdec_tpu/ops/pallas/quant_matmul.py:151"),
         "quant_matmul_int4": ("magicdec_tpu_torch/csrc/quant_matmul.cu",
                               "magicdec_tpu/ops/pallas/quant_matmul.py:189"),
@@ -1801,7 +1823,7 @@ def main():
                                 "magicdec_tpu/ops/kv_cache.py:292"),
         "append_scale_rows_inplace": ("magicdec_tpu_torch/csrc/append.cu",
                                       "magicdec_tpu/ops/kv_cache.py:499"),
-        "dense_matmul_fused": ("magicdec_tpu_torch/csrc/dense_matmul.cu",
+        "dense_matmul_fused": ("magicdec_tpu_torch/csrc/dense_matmul_sm90.cu",
                                "magicdec_tpu/ops/pallas/quant_matmul.py:507"),
         "dense_mlp": ("magicdec_tpu_torch/csrc/dense_matmul.cu",
                       "magicdec_tpu/ops/pallas/quant_matmul.py:605"),

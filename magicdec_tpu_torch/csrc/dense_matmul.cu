@@ -1,9 +1,8 @@
-// B15: the bf16 weight-streaming dots of the target's decode and verify
-// passes.
+// B15 dense_mlp: the target's whole bf16 FFN block in its decode and verify
+// passes (dense_matmul_fused, one dot a call, runs on dense_matmul_sm90.cu).
 //
-// Replaces magicdec_tpu/ops/pallas/quant_matmul.py dense_matmul_fused_pallas
-// (_dense_fused_kernel): y = [res +] bf16(rms_norm?(x) @ w), and
-// dense_mlp_pallas (_dense_mlp_kernel): the whole dense FFN block,
+// Replaces magicdec_tpu/ops/pallas/quant_matmul.py dense_mlp_pallas
+// (_dense_mlp_kernel): the whole dense FFN block,
 //   gated = bf16(g * sigmoid(g) * u),  g = bf16(xn @ w13[:, :F]),
 //                                      u = bf16(xn @ w13[:, F:]),
 //   y = [res +] bf16(gated @ w2),      xn = rms_norm(x) * norm_w,
@@ -225,19 +224,6 @@ static cudaError_t run_dmm(const __nv_bfloat16* x, const __nv_bfloat16* w,
 }  // namespace md
 
 using bf16 = __nv_bfloat16;
-
-// B15 dense_matmul_fused: out = [res +] bf16(norm?(x)[M, In] @ w[In, Out]).
-// norm_w / res / xn / part may be null (see run_dmm).  Returns
-// cudaGetLastError().
-extern "C" int md_dense_matmul(const void* x, const void* w, const void* norm_w,
-                               const void* res, void* out, void* part, void* xn, int M, int In,
-                               int Out, int split, float eps, void* stream) {
-  return (int)md::dmm::run_dmm(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w),
-      static_cast<const bf16*>(norm_w), static_cast<const bf16*>(res), static_cast<bf16*>(out),
-      static_cast<float*>(part), static_cast<bf16*>(xn), M, In, Out, false, split, eps,
-      static_cast<cudaStream_t>(stream));
-}
 
 // B15 dense_mlp: out = [res +] bf16(gate(rms(x) * norm_w @ w13) @ w2).
 // x [M, D]; w13 [D, 2F] (gate columns, then up), w2 [F, D], norm_w [D]; res

@@ -1,5 +1,6 @@
-// Tiles and the kernels around the dot that the weight-streaming dots share:
-// B4/B5/B6/B9 and the int4 dots (quant_matmul.cu) and B15 (dense_matmul.cu).
+// Tiles and the kernels around the dot that the split-K weight-streaming
+// dots of several launches share: B5/B9 and B6-int4 (quant_matmul.cu) and
+// B15's dense_mlp (dense_matmul.cu).
 // The kernels sit in an unnamed namespace, so each source that includes
 // this header gets its own copy and the shared library links.
 #pragma once

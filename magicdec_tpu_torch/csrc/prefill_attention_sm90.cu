@@ -121,33 +121,6 @@ struct Args {
 
 namespace {
 
-// A wgmma shared-memory descriptor: start address, leading and stride byte
-// offsets, 128-byte swizzle.  The start address advances in 16-byte units
-// by adding to the descriptor.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keep the compiler from moving accesses of a wgmma operand across the
-// asynchronous window (issue to wait).
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
 // S (+)= A B over one k16 step: m64n128k16, A (Q) and B (K) from shared
 // memory (K-major, 128-byte swizzle), f32 accumulators in the D fragment
 // layout (d[4j + e]: row 16 warp + g + 8 (e / 2), column 8 j + 2 t4 + e % 2).

@@ -1,12 +1,11 @@
 // B5, B9: the int8 weight-only dots of the draft's weight copy that run
-// several dots a call, and B4-int4, B6-int4: its group-wise int4 dots.  B4
-// and B6 (one int8 dot a call) run on quant_matmul_sm90.cu.
+// several dots a call, and B6-int4: its group-wise int4 lm_head.  B4, B6 and
+// B4-int4 (one dot a call with its epilogue) run on quant_matmul_sm90.cu.
 //
 // Replaces magicdec_tpu/ops/pallas/quant_matmul.py quant_layer_tail_pallas
 // (_layer_tail_kernel: B5), quant_mlp_pallas (_mlp_kernel: B9, the FFN block
-// alone, which the draft takes where B5 declines), quant_matmul_fused_pallas
-// (nibble-plane branch: B4-int4) and quant_matmul_pallas (_int4_kernel:
-// B6-int4).
+// alone, which the draft takes where B5 declines) and quant_matmul_pallas
+// (_int4_kernel: B6-int4).
 // Each dot computes y = x[M, In] @ q[In, Out] * scale[Out]: bf16 x, int8 q
 // with one f32 scale per output column, f32 accumulation, then the
 // reference's epilogue: bf16(acc * scale), the same after an rms-norm of x,
@@ -38,7 +37,7 @@
 // - B5 enqueues its three phases from one entry point: phase 2 needs all of
 //   h, so the phase boundaries are launch boundaries.  B9 is B5's phases 2
 //   and 3 (the residual optional).
-// - qmm4_partial_kernel (B4-int4, B6-int4): q packs contraction rows 2r
+// - qmm4_partial_kernel (B6-int4): q packs contraction rows 2r
 //   (low nibble) and 2r + 1 (high nibble) of column n in byte [r, n], with
 //   one f32 scale per group of `group` contraction rows and column
 //   ([In / group, Out]).  The reference computes acc += f32(x_g . q_g) * s_g
@@ -50,9 +49,9 @@
 //   (the TPU kernel splits x into even and odd columns because Mosaic cannot
 //   re-slice lanes: the same sum in another f32 order).  Each group's
 //   products go to a fresh f32 fragment, scaled and added when the group
-//   ends; splits and tiles start on group boundaries.  The epilogue is B4's
-//   with the scale already applied (no norm: the reference norms int4 x
-//   outside the kernel).
+//   ends; splits and tiles start on group boundaries; the splits' partials
+//   are added in split order by qmm_epilogue_kernel, the scale already
+//   applied.
 // - cudaFuncSetAttribute runs once per kernel instantiation, not per launch.
 #include "attention_common.cuh"
 #include "matmul_common.cuh"
@@ -422,9 +421,8 @@ __global__ void __launch_bounds__(NT) qmm4_partial_kernel(Args a) {
               make_float2(v0, v1);
         } else {
           const size_t o = (size_t)m * a.Out + n;
-          const __nv_bfloat16* r = a.res != nullptr ? a.res + o : nullptr;
-          a.out[o] = finish(v0, 1.f, r);
-          a.out[o + 1] = finish(v1, 1.f, r != nullptr ? r + 1 : nullptr);
+          a.out[o] = finish(v0, 1.f, nullptr);
+          a.out[o + 1] = finish(v1, 1.f, nullptr);
         }
       }
     }
@@ -441,20 +439,18 @@ static cudaError_t launch_partial4(const Args& a, dim3 grid, cudaStream_t st) {
   return cudaSuccess;
 }
 
-// One group-wise int4 dot with B4's gate or residual epilogue (or none),
-// enqueued on `st`.  q packed [In / 2, Out], scale [In / group, Out]; group
-// a power of two >= 32; the splits cut the contraction in units of
-// max(group, BK4) rows.  part: [split, M, Out] f32, needed unless split == 1
-// and no gate.
+// One group-wise int4 dot, enqueued on `st`.  q packed [In / 2, Out], scale
+// [In / group, Out]; group a power of two >= 32; the splits cut the
+// contraction in units of max(group, BK4) rows.  part: [split, M, Out] f32,
+// needed unless split == 1.
 static cudaError_t run_qmm4(const __nv_bfloat16* x, const int8_t* q, const float* scale,
-                            const __nv_bfloat16* res, __nv_bfloat16* out, float* part, int M,
-                            int In, int Out, bool gate, int split, int group, cudaStream_t st) {
-  if (M < 1 || Out % BN != 0 || split < 1 || (gate && res != nullptr) || group < 32 ||
-      (group & (group - 1)) != 0)
+                            __nv_bfloat16* out, float* part, int M, int In, int Out, int split,
+                            int group, cudaStream_t st) {
+  if (M < 1 || Out % BN != 0 || split < 1 || group < 32 || (group & (group - 1)) != 0)
     return cudaErrorInvalidValue;
   const int unit = max(group, BK4);
   if (In % unit != 0) return cudaErrorInvalidValue;
-  const bool direct = split == 1 && !gate;
+  const bool direct = split == 1;
   if (!direct && part == nullptr) return cudaErrorInvalidValue;
   const int tiles = In / unit;
   const int per = (tiles + split - 1) / split;
@@ -465,7 +461,6 @@ static cudaError_t run_qmm4(const __nv_bfloat16* x, const int8_t* q, const float
     a.x = x + (size_t)m0 * In;
     a.q = q;
     a.scale = scale;
-    a.res = direct && res != nullptr ? res + (size_t)m0 * Out : nullptr;
     a.out = direct ? out + (size_t)m0 * Out : nullptr;
     a.part = direct ? nullptr : part + (size_t)m0 * Out;
     a.part_stride = (size_t)M * Out;
@@ -484,9 +479,9 @@ static cudaError_t run_qmm4(const __nv_bfloat16* x, const int8_t* q, const float
     if (err != cudaSuccess) return err;
   }
   if (!direct) {
-    const size_t total = (size_t)M * (gate ? Out / 2 : Out);
+    const size_t total = (size_t)M * Out;
     qmm_epilogue_kernel<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
-        part, split, (size_t)M * Out, nullptr, res, out, M, Out, gate ? 1 : 0);
+        part, split, (size_t)M * Out, nullptr, nullptr, out, M, Out, 0);
   }
   return cudaGetLastError();
 }
@@ -546,16 +541,14 @@ extern "C" int md_quant_mlp(const void* x, const void* q13, const void* s13, con
                       static_cast<bf16*>(out), p, nullptr, M, F, D, false, split_2, eps, st);
 }
 
-// B4-int4 and B6-int4: out = epilogue(x[M, In] @ dequant(q[In / 2, Out],
-// scale[In / group, Out])), the epilogue the SiLU gate (gate: out [M, Out / 2])
-// or a residual res [M, Out] (or null), or none.  part may be null (see
-// run_qmm4).  Returns cudaGetLastError().
-extern "C" int md_quant_matmul_int4(const void* x, const void* q, const void* scale,
-                                    const void* res, void* out, void* part, int M, int In,
-                                    int Out, int gate, int split, int group, void* stream) {
-  return (int)md::qmm::run_qmm4(
-      static_cast<const bf16*>(x), static_cast<const int8_t*>(q),
-      static_cast<const float*>(scale), static_cast<const bf16*>(res), static_cast<bf16*>(out),
-      static_cast<float*>(part), M, In, Out, gate != 0, split, group,
-      static_cast<cudaStream_t>(stream));
+// B6-int4: out = bf16(x[M, In] @ dequant(q[In / 2, Out], scale[In / group,
+// Out])).  part may be null when split == 1 (see run_qmm4).  Returns
+// cudaGetLastError().
+extern "C" int md_quant_matmul_int4(const void* x, const void* q, const void* scale, void* out,
+                                    void* part, int M, int In, int Out, int split, int group,
+                                    void* stream) {
+  return (int)md::qmm::run_qmm4(static_cast<const bf16*>(x), static_cast<const int8_t*>(q),
+                                static_cast<const float*>(scale), static_cast<bf16*>(out),
+                                static_cast<float*>(part), M, In, Out, split, group,
+                                static_cast<cudaStream_t>(stream));
 }

@@ -1,35 +1,41 @@
-// B4 and B6 on Hopper: the draft's int8 weight-streaming dots, one launch a
-// call.
+// B4, B6 and B4-int4 on Hopper: the draft's weight-streaming dots over its
+// int8 and group-wise int4 weight copies, one launch a call.
 //
 // Replaces magicdec_tpu/ops/pallas/quant_matmul.py quant_matmul_pallas
 // (_int8_kernel: B6, the draft's int8 lm_head) and quant_matmul_fused_pallas
 // (_fused_kernel, int8 branch: B4, the draft's wqkv with its rms-norm, w13
-// with the SiLU gate, w2 or wo with a residual).  Both compute
-//   y = epilogue(norm?(x)[M, In] @ q[In, Out] * scale[Out])
-// with bf16 x, int8 q, one f32 scale per output column and f32 sums; the
-// epilogue is bf16(acc * scale) [+ res in bf16], or bf16(g * sigmoid(g) * u)
-// over the bf16-rounded gate and up halves of q; the norm is
-// bf16(bf16(x * rsqrt(mean(x^2) + eps)) * norm_w).
+// with the SiLU gate, w2 or wo with a residual; nibble branch :151-167 with
+// bits=4: B4-int4, the same epilogues without the norm, which the reference
+// applies outside).  They compute
+//   y = epilogue(norm?(x)[M, In] @ q[In, Out] * scale)
+// with bf16 x and f32 sums: int8 q with one f32 scale per output column, the
+// sum scaled once; or int4 q packed in contraction-row pairs ([In/2, Out]:
+// byte [r, n] holds row 2r in its low nibble, 2r + 1 in its high one) with
+// one f32 scale per group of `group` contraction rows and column, each
+// group's products summed in a fresh f32 partial and added as acc +=
+// part * s_g in group order.  The epilogue is bf16(acc) [+ res in bf16], or
+// bf16(g * sigmoid(g) * u) over the bf16-rounded gate and up halves of q;
+// the norm is bf16(bf16(x * rsqrt(mean(x^2) + eps)) * norm_w).
 //
-// Bound: the int8 weight's HBM bytes.  At M <= 256 a weight byte feeds 2M <=
-// 512 flops, and at the main path's M = 32 and 64 at most 128, far under the
-// ~295 flop/byte where the bf16 tensor cores limit; so the design streams q
-// at HBM rate and keeps everything else on chip.
+// Bound: the weight's HBM bytes.  At M <= 256 an int8 weight byte feeds 2M
+// <= 512 flops (an int4 byte 4M), and at the main path's M = 32 and 64 at
+// most 256, under the ~295 flop/byte where the bf16 tensor cores limit; so
+// the design streams q at HBM rate and keeps everything else on chip.
 //
 // - One launch.  A block owns a tile of 128 output columns (with the gate:
 //   64 gate columns and the 64 matching up columns, so the gate finishes in
 //   the block) and one split of the contraction.  The splits of a tile form a
 //   thread-block cluster (1, split, 1), split <= 8 (the portable cluster
 //   size), fixed by the weight's shape alone (kernels/quant_matmul.py
-//   cluster_split_plan).  The tile's fragment groups are shared out among
-//   the ranks: each rank stores its f32 partial of each group into a
-//   receive area of the owning rank by st.async (distributed shared memory,
-//   completing on the owner's mbarrier: no round trip, no cluster barrier),
-//   and the owner adds the ranks' partials in split order (no atomics: the
-//   draft's tokens are the same on every run) and applies scale, residual
-//   or gate, its scales and residual loaded before the main loop.  With one
-//   split the block finishes from registers.
-// - The norm's row statistic: each rank sums the squares of its own
+//   cluster_split_plan; int4 splits start on group boundaries).  The tile's
+//   fragment groups are shared out among the ranks: each rank stores its f32
+//   partial of each group into a receive area of the owning rank by st.async
+//   (distributed shared memory, completing on the owner's mbarrier: no round
+//   trip, no cluster barrier), and the owner adds the ranks' partials in
+//   split order (no atomics: the draft's tokens are the same on every run)
+//   and applies scale, residual or gate, its scales and residual loaded
+//   before the main loop.  With one split the block finishes from registers.
+// - The norm's row statistic (int8): each rank sums the squares of its own
 //   contraction range of every row (one warp a row, sixteen loads in
 //   flight, a fixed order) and stores the partial sums into every rank the
 //   same way; every rank adds them in rank order, so every block of a row
@@ -40,29 +46,37 @@
 //   then a named barrier among the consumers).
 // - Weight streaming by TMA.  One producer warp (one lane) keeps a ring of
 //   STAGES stages in flight on mbarriers: each stage is two 64-column boxes
-//   of BK = 64 contraction rows of q (4 KB each; 64-byte swizzle) and the x
-//   tile [R rows, 64] (128-byte swizzle; rows past M arrive as zeros).  The
-//   weight's tensor map is encoded once per (pointer, shape) and cached; x's
-//   is encoded per call.  cuTensorMapEncodeTiled comes through
-//   cudaGetDriverEntryPoint, so the library needs no -lcuda; a failed
-//   encode returns an error (the wrapper raises), never a fallback.
+//   of 64 byte rows of q (4 KB each; 64-byte swizzle: 64 contraction rows of
+//   int8, 128 of packed int4) and the x tile of the same contraction rows
+//   ([R rows, 64] sub-tiles, 128-byte swizzle; rows past M arrive as zeros),
+//   with int4 the stage's group scales of the tile's columns (bulk copies on
+//   the same mbarrier).  The weight's tensor map is encoded once per
+//   (pointer, shape) and cached; x's is encoded per call.  A failed encode
+//   returns an error (the wrapper raises), never a fallback.
 // - Conversion without a second tile.  Four consumer warps each own 16
-//   columns of each 64-column box.  One ldmatrix.x4.trans reads the int8
+//   columns of each 64-column box.  One ldmatrix.x4.trans reads the weight
 //   tile as b16 pairs straight from the swizzled stage: lane (g, t4) gets
-//   bytes (k 2t4, 2t4+1) x (columns 2g, 2g+1) of each 8x16-byte matrix, so
-//   one register holds the k-pairs of two columns, and two logic ops and a
-//   bf16x2 subtraction a pair (i8_pair, exact) turn it into the mma B
-//   fragments of an even and an odd column (the mma's column order is a
-//   permutation of the weight's; the epilogue undoes it).  mma.sync
-//   m16n8k16 (bf16 in, f32 accumulate): the tensor cores are not the limit
-//   here (see the bound), and x stays the 16-row A operand, tiled MT = 1, 2,
-//   4 or 8 times (M <= 16, 32, 64, 128 rows a pass).
+//   bytes (byte row 2t4, 2t4+1) x (columns 2g, 2g+1) of each 8x16-byte
+//   matrix.  int8: one register holds the k-pairs of two columns, and two
+//   logic ops and a bf16x2 subtraction a pair (i8_pair, exact) turn it into
+//   the mma B fragments of an even and an odd column (the mma's column order
+//   is a permutation of the weight's; the epilogue undoes it).  int4: the
+//   two bytes of a column hold contraction rows 4t4 .. 4t4+3, so one register
+//   gives both B registers of an even and an odd column's k16 fragment (a
+//   byte permute, one logic op and a bf16x2 subtraction a pair, i4_frags,
+//   exact); the k16 step's slots 2t4, 2t4+1, 2t4+8, 2t4+9 then hold rows
+//   4t4 .. 4t4+3, and the A fragments read x in the same permutation (8
+//   contiguous bytes a row, the same at every M).  mma.sync m16n8k16 (bf16
+//   in, f32 accumulate): the tensor cores are not the limit here (see the
+//   bound), and x stays the 16-row A operand, tiled MT = 1, 2, 4 or 8 times
+//   (M <= 16, 32, 64, 128 rows a pass; int4 at most 4: its group partials
+//   double the accumulators).
 // - Persistence.  Clusters walk the column tiles (tile c, c + G, ...), G =
 //   min(tiles, resident blocks / split), so the lm_head's 1002 tiles run on
 //   one wave of resident blocks and the next tile's loads overlap this tile's
-//   conversion and epilogue; rows past 128 run as a second pass over each
-//   tile inside the same launch (tile outer, so the pass re-reads the tile
-//   from L2).
+//   conversion and epilogue; rows past a pass run as further passes over
+//   each tile inside the same launch (tile outer, so a pass re-reads the
+//   tile from L2).
 #include <tuple>
 
 #include "attention_common.cuh"
@@ -71,21 +85,25 @@
 namespace md {
 namespace sm90 {
 
-constexpr int BK = 64;        // contraction rows a stage
+constexpr int BK = 64;        // weight byte rows a stage (int8: contraction rows)
 constexpr int HALF = 64;      // weight columns a TMA box: half a tile
 constexpr int BN = 2 * HALF;  // output columns a tile
 constexpr int NCW = 4;        // consumer warps
 constexpr int NTHREADS = 32 * (NCW + 1);
 constexpr int MAX_ROWS = 256;  // the routing's ROWS_CAP (quantization.py)
 constexpr int MAX_SPLIT = 8;   // the portable cluster size
+constexpr int MAX_G4 = 4;      // int4 scale rows a stage (group 32)
 
-template <int MT>
+template <bool INT4, int MT>
 struct Cfg {
+  static_assert(!INT4 || MT <= 4, "int4: acc and the group partial in registers");
   static constexpr int R = 16 * MT;            // x rows a pass
+  static constexpr int KS = INT4 ? 2 * BK : BK;  // contraction rows a stage
   static constexpr int W_BYTES = BK * HALF;    // one weight box, 4 KB
-  static constexpr int X_BYTES = R * BK * 2;   // the x tile, 128 bytes a row
+  static constexpr int X_BYTES = R * KS * 2;   // the x tile: KS / 64 sub-tiles, 128 bytes a row
   static constexpr int STAGE = 2 * W_BYTES + X_BYTES;
-  static constexpr int STAGES = MT == 1 ? 7 : (MT == 2 ? 5 : (MT == 4 ? 3 : 4));
+  static constexpr int STAGES = INT4 ? (MT == 1 ? 6 : (MT == 2 ? 4 : 2))
+                                     : (MT == 1 ? 7 : (MT == 2 ? 5 : (MT == 4 ? 3 : 4)));
   static constexpr int RING = STAGES * STAGE;
   // the fragment groups (2 KB: 4 mma fragments x 32 lanes x 16 B) a rank
   // reduces, each with a slot for every rank's partial
@@ -94,71 +112,35 @@ struct Cfg {
   // full[STAGES], empty[STAGES], stat (the statistic's pushes), red (the
   // partials' pushes)
   static constexpr int BARS = RECV + RECV_BYTES;
-  static constexpr int SSQ = BARS + 16 * STAGES + 16;  // [MAX_SPLIT][MAX_ROWS] f32
-  static constexpr int RR = SSQ + 4 * MAX_SPLIT * MAX_ROWS;
-  static constexpr int NW = RR + 4 * MAX_ROWS;  // the norm weight's BK values a stage
-  static constexpr int SMEM = NW + STAGES * BK * 2 + 1024;  // + slack to align to 1024
+  // int8: the statistic's partials [MAX_SPLIT][MAX_ROWS] f32, the rows'
+  // factors and the norm weight's BK values a stage; int4: the group scales,
+  // [MAX_G4 rows][2 boxes][HALF] f32 a stage
+  static constexpr int SSQ = BARS + 16 * STAGES + 16;
+  static constexpr int RR = SSQ + (INT4 ? 0 : 4 * MAX_SPLIT * MAX_ROWS);
+  static constexpr int NW = RR + (INT4 ? 0 : 4 * MAX_ROWS);
+  static constexpr int SC_STAGE = MAX_G4 * 2 * HALF * 4;
+  static constexpr int SC = NW;
+  static constexpr int SMEM =
+      NW + (INT4 ? STAGES * SC_STAGE : STAGES * BK * 2) + 1024;  // + slack to align to 1024
   static_assert(STAGE % 1024 == 0, "stages keep the swizzle's 1024-byte alignment");
   // two blocks an SM up to MT = 4 (registers allow one at MT = 8)
   static_assert(MT == 8 || 2 * (SMEM + 1024) <= 228 * 1024, "two blocks an SM");
 };
 
 struct Args {
-  CUtensorMap wmap;            // q [In, Out] int8, box {HALF, BK}, 64-byte swizzle
+  CUtensorMap wmap;            // q [In, Out] int8 (int4: [In / 2, Out]), box {HALF, BK}, 64-byte swizzle
   CUtensorMap xmap;            // x [M, In] bf16, box {BK, R}, 128-byte swizzle
   const __nv_bfloat16* x;      // [M, In], for the norm's statistic
-  const float* scale;          // [Out]
+  const float* scale;          // [Out]; int4: [In / group, Out]
   const __nv_bfloat16* norm_w;  // [In] or null
   const __nv_bfloat16* res;    // [M, Out] or null
   __nv_bfloat16* out;          // [M, Out], or [M, Out / 2] with the gate
   int M, In, Out, kchunk, ntiles, gate;
+  int group;                   // int4: contraction rows a scale group
   float eps;
 };
 
 namespace {
-
-// Every non-exited thread of the cluster (release, then acquire).
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive;\nbarrier.cluster.wait;\n" ::: "memory");
-}
-
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
-// The address of the same shared-memory location in cluster rank `rank`.
-__device__ __forceinline__ uint32_t rank_addr(uint32_t addr, uint32_t rank) {
-  uint32_t r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
-  return r;
-}
-
-// Remote stores that complete on the receiving rank's mbarrier (its
-// transaction count falls by the bytes stored).
-__device__ __forceinline__ void st_async_f32(uint32_t addr, float v, uint32_t bar) {
-  asm volatile(
-      "st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [%0], %1, [%2];\n" ::"r"(addr),
-      "f"(v), "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void st_async_f32x4(uint32_t addr, const float (&v)[4], uint32_t bar) {
-  asm volatile(
-      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, "
-      "[%5];\n" ::"r"(addr),
-      "f"(v[0]), "f"(v[1]), "f"(v[2]), "f"(v[3]), "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void cluster_arrive_relaxed() {
-  asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait;\n" ::: "memory");
-}
 
 // The consumer warps only (named barrier 1; the producer warp is not in it).
 __device__ __forceinline__ void consumers_sync() {
@@ -200,27 +182,35 @@ __device__ __forceinline__ void i8_pairs(uint32_t w, uint32_t& even, uint32_t& o
   odd = i8_pair(w >> 8);
 }
 
+// The two nibbles of byte `sel` of w and of w >> 4 (selectors 0x4400, 0x5511,
+// 0x6622, 0x7733: bytes 0..3) -> bf16x2 {low nibble, high nibble} as signed
+// int4 values, exactly: a nibble n with its bit 3 flipped is v + 8 for the
+// value v in [-8, 7], 0x4300 | (v + 8) reads 136 + v in bf16, and 136 is
+// subtracted.  One byte permute, one logic op and a bf16x2 subtraction.
+template <uint32_t SEL>
+__device__ __forceinline__ uint32_t i4_pair(uint32_t w, uint32_t w4) {
+  const uint32_t v = (__byte_perm(w, w4, SEL) & 0x000F000Fu) ^ 0x43084308u;
+  const uint32_t bias = 0x43084308u;  // bf16x2 {136, 136}
+  const __nv_bfloat162 d = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&v),
+                                   *reinterpret_cast<const __nv_bfloat162*>(&bias));
+  return *reinterpret_cast<const uint32_t*>(&d);
+}
+
+// An ldmatrix.trans register of the packed int4 tile: bytes (packed row 2t4,
+// col 2g), (2t4, 2g+1), (2t4+1, 2g), (2t4+1, 2g+1), i.e. contraction rows
+// 4t4 .. 4t4+3 of columns 2g and 2g+1.  even / odd: the mma B fragments
+// (both registers) of the even and the odd column, slots 2t4, 2t4+1 holding
+// rows 4t4, 4t4+1 and slots 2t4+8, 2t4+9 rows 4t4+2, 4t4+3.
+__device__ __forceinline__ void i4_frags(uint32_t w, uint32_t (&even)[2], uint32_t (&odd)[2]) {
+  const uint32_t w4 = w >> 4;
+  even[0] = i4_pair<0x4400u>(w, w4);
+  even[1] = i4_pair<0x6622u>(w, w4);
+  odd[0] = i4_pair<0x5511u>(w, w4);
+  odd[1] = i4_pair<0x7733u>(w, w4);
+}
+
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16(v));
-}
-
-__device__ __forceinline__ float sum_sq8(float acc, uint4 v) {
-  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[j]));
-    acc += f.x * f.x;
-    acc += f.y * f.y;
-  }
-  return acc;
-}
-
-// bf16(bf16(x * r) * w) of a bf16 pair
-__device__ __forceinline__ uint32_t norm_pair(uint32_t xv, uint32_t wv, float r) {
-  const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xv));
-  const __nv_bfloat162 n = __floats2bfloat162_rn(f.x * r, f.y * r);
-  const __nv_bfloat162 o = __hmul2(n, *reinterpret_cast<const __nv_bfloat162*>(&wv));
-  return *reinterpret_cast<const uint32_t*>(&o);
 }
 
 __device__ __forceinline__ uint2 pack_bf16x4(const float v[4]) {
@@ -235,13 +225,18 @@ struct GroupOperands {
   uint2 rv[2][2];
 };
 
+template <bool INT4>
 __device__ __forceinline__ void load_group(const Args& a, int t, int row0, int uw, int lane,
                                            GroupOperands& o) {
   const int cw = 16 * uw + 4 * (lane & 3);
   const int c0 = a.gate ? t * HALF : t * BN;
   const int c1 = a.gate ? a.Out / 2 + t * HALF : t * BN + HALF;
-  o.sc[0] = __ldg(reinterpret_cast<const float4*>(a.scale + c0 + cw));
-  o.sc[1] = __ldg(reinterpret_cast<const float4*>(a.scale + c1 + cw));
+  if constexpr (INT4) {
+    o.sc[0] = o.sc[1] = make_float4(1.f, 1.f, 1.f, 1.f);  // the groups are scaled already
+  } else {
+    o.sc[0] = __ldg(reinterpret_cast<const float4*>(a.scale + c0 + cw));
+    o.sc[1] = __ldg(reinterpret_cast<const float4*>(a.scale + c1 + cw));
+  }
   if (a.res == nullptr) return;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -311,12 +306,15 @@ __device__ __forceinline__ void finish_group(const Args& a, int t, int row0, int
 // Grid (clusters, split), cluster (1, split, 1), NTHREADS threads: warps
 // 0..NCW-1 consume, warp NCW produces.  Rank s of a cluster covers
 // contraction rows [s * kchunk, min(In, (s + 1) * kchunk)).
-template <int MT>
+// Two blocks an SM up to MT = 4.  int4 at MT = 4 (acc and the group partial
+// in registers) then spills a few hundred bytes; one block an SM without
+// spills was slower (PERF.md, PR 9).
+template <bool INT4, int MT>
 __global__ void __launch_bounds__(NTHREADS, MT <= 4 ? 2 : 1)
     qmm_sm90_kernel(const __grid_constant__ Args a) {
-  using C = Cfg<MT>;
-  constexpr int R = C::R, S = C::STAGES;
-  constexpr int KU = MT <= 2 ? BK / 16 : 2;  // k-steps unrolled (registers at MT >= 4)
+  using C = Cfg<INT4, MT>;
+  constexpr int R = C::R, S = C::STAGES, KS = C::KS;
+  constexpr int KU = MT <= 2 ? BK / 16 : 2;  // int8 k-steps unrolled (registers at MT >= 4)
   extern __shared__ uint8_t smem_raw[];
   // the swizzle patterns repeat every 1024 bytes of the shared address
   const uint32_t raw = smem_u32(smem_raw);
@@ -334,9 +332,12 @@ __global__ void __launch_bounds__(NTHREADS, MT <= 4 ? 2 : 1)
   const int split = gridDim.y;
   const int k0 = (int)rank * a.kchunk;
   const int k1 = min(a.In, k0 + a.kchunk);
-  const int nk = (k1 - k0) / BK;
+  const int nk = (k1 - k0) / KS;
   const int npass = (a.M + R - 1) / R;
-  const bool norm = a.norm_w != nullptr;
+  const bool norm = !INT4 && a.norm_w != nullptr;
+  // int4: the scale rows a stage brings (the groups it spans, or the one it
+  // lies in)
+  const int ng = INT4 ? max(1, KS / a.group) : 0;
   // the fragment groups u = (warp, row tile) this rank reduces: u = rank,
   // rank + split, ...; each receives every rank's partial (2 KB)
   const int owned = (NCW * MT - (int)rank + split - 1) / split;
@@ -373,15 +374,28 @@ __global__ void __launch_bounds__(NTHREADS, MT <= 4 ? 2 : 1)
       ++it;
       mbar_wait(bars + 8 * (S + s), ph ^ 1);  // the consumers released the stage
       const uint32_t full = bars + 8 * s;
-      mbar_expect_tx(full, 2 * C::W_BYTES + C::X_BYTES + (norm ? BK * 2 : 0));
+      mbar_expect_tx(full, 2 * C::W_BYTES + C::X_BYTES + (norm ? BK * 2 : 0) +
+                               (INT4 ? ng * 2 * HALF * 4 : 0));
       const uint32_t st = sbase + s * C::STAGE;
-      const int kt = k0 + i * BK;
+      const int kt = k0 + i * KS;
       if (norm) bulk_load(sbase + C::NW + s * BK * 2, a.norm_w + kt, BK * 2, full);
       const int c0 = a.gate ? t * HALF : t * BN;
       const int c1 = a.gate ? a.Out / 2 + t * HALF : t * BN + HALF;
-      tma_load_2d(st, &a.wmap, full, c0, kt);
-      tma_load_2d(st + C::W_BYTES, &a.wmap, full, c1, kt);
-      tma_load_2d(st + 2 * C::W_BYTES, &a.xmap, full, kt, p * R);
+      const int kq = INT4 ? kt / 2 : kt;  // the weight's byte row
+      tma_load_2d(st, &a.wmap, full, c0, kq);
+      tma_load_2d(st + C::W_BYTES, &a.wmap, full, c1, kq);
+#pragma unroll
+      for (int j = 0; j < KS / BK; ++j)
+        tma_load_2d(st + 2 * C::W_BYTES + j * R * 128, &a.xmap, full, kt + j * BK, p * R);
+      if constexpr (INT4) {
+        // the scale rows of the groups of [kt, kt + KS), the tile's two boxes each
+        const uint32_t sc = sbase + C::SC + s * C::SC_STAGE;
+        for (int j = 0; j < ng; ++j) {
+          const float* srow = a.scale + (size_t)(kt / a.group + j) * a.Out;
+          bulk_load(sc + j * 2 * HALF * 4, srow + c0, HALF * 4, full);
+          bulk_load(sc + j * 2 * HALF * 4 + HALF * 4, srow + c1, HALF * 4, full);
+        }
+      }
     };
     // with the norm, the loads start once this rank holds the statistic's
     // partials: the statistic's own loads of x would queue behind the ring's
@@ -399,59 +413,10 @@ __global__ void __launch_bounds__(NTHREADS, MT <= 4 ? 2 : 1)
 
   // ---- consumers ------------------------------------------------------------
   const int tid = threadIdx.x;  // 0 .. NCW * 32 - 1
-  if (norm) {
-    // this rank's partial sums of squares: warp w takes rows w, w + NCW, ...
-    // eight at a time, each lane its 16-byte chunks in order, two a row in
-    // flight together, then a fixed shuffle tree; every rank gets every
-    // rank's partials (remote stores) and adds them in rank order
-    const int nchunk = (k1 - k0) / 8;
-    bool waited = false;
-    for (int mb = warp; mb < a.M; mb += 8 * NCW) {
-      float acc[8];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[j] = 0.f;
-      for (int c = lane; c < nchunk; c += 64) {
-        uint4 v[8][2];  // chunks c and c + 32 of eight rows: 16 loads in flight
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int m = mb + j * NCW, ce = c + 32 * e;
-            v[j][e] = m < a.M && ce < nchunk
-                          ? __ldg(reinterpret_cast<const uint4*>(a.x + (size_t)m * a.In + k0 +
-                                                                 ce * 8))
-                          : make_uint4(0, 0, 0, 0);
-          }
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[j] = sum_sq8(sum_sq8(acc[j], v[j][0]), v[j][1]);
-      }
-      if (!waited) {
-        cluster_wait();
-        waited = true;
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        float v = acc[j];
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-        // lane s stores the partial into slot [rank] of rank s
-        const int m = mb + j * NCW;
-        if (lane < split && m < a.M)
-          st_async_f32(rank_addr(smem_u32(ssq + rank * MAX_ROWS + m), lane), v,
-                       rank_addr(stat_bar, lane));
-      }
-    }
-    if (!waited) cluster_wait();
-    mbar_wait(stat_bar, 0);  // every rank's partials have landed
-    for (int m = tid; m < a.M; m += NCW * 32) {
-      float tot = 0.f;
-      for (int s = 0; s < split; ++s) tot += ssq[s * MAX_ROWS + m];
-      rr[m] = 1.f / sqrtf(tot / (float)a.In + a.eps);
-    }
-    consumers_sync();  // rr visible to every consumer
-  } else {
+  if (norm)
+    row_norm_factors<NCW>(a.x, a.M, a.In, k0, k1, a.eps, MAX_ROWS, ssq, rr, stat_bar, rank, split);
+  else
     cluster_wait();
-  }
 
   int it = 0, item = 0;
   for (int t = blockIdx.x; t < a.ntiles; t += gridDim.x) {
@@ -463,7 +428,7 @@ __global__ void __launch_bounds__(NTHREADS, MT <= 4 ? 2 : 1)
       // the finish does not wait on them
       const int u0 = split == 1 ? warp * MT : (int)rank + split * warp;
       GroupOperands ops;
-      if (u0 < NCW * MT) load_group(a, t, m0 + (u0 % MT) * 16, u0 / MT, lane, ops);
+      if (u0 < NCW * MT) load_group<INT4>(a, t, m0 + (u0 % MT) * 16, u0 / MT, lane, ops);
       float acc[MT][4][4];
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
@@ -471,6 +436,16 @@ __global__ void __launch_bounds__(NTHREADS, MT <= 4 ? 2 : 1)
         for (int nb = 0; nb < 4; ++nb)
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[mt][nb][e] = 0.f;
+      // int4: the current group's f32 partial (products of one group only)
+      float part[INT4 ? MT : 1][4][4];
+      if constexpr (INT4) {
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) part[mt][nb][e] = 0.f;
+      }
 
       for (int i = 0; i < nk; ++i) {
         const int s = it % S;
@@ -479,61 +454,121 @@ __global__ void __launch_bounds__(NTHREADS, MT <= 4 ? 2 : 1)
         mbar_wait(bars + 8 * s, ph);  // the stage's boxes have landed
         const uint32_t wst = sbase + s * C::STAGE;
         const uint32_t xst = wst + 2 * C::W_BYTES;
-        if (norm) {
-          // normalize the x tile in place; chunk (row r, physical chunk pc)
-          // holds logical columns 8 (pc ^ (r % 8)) .. + 7 (128-byte swizzle)
-          uint8_t* xs = smem + s * C::STAGE + 2 * C::W_BYTES;
-          const uint8_t* nw = smem + C::NW + s * BK * 2;
-          for (int j = tid; j < R * 8; j += NCW * 32) {
-            const int r = j >> 3, pc = j & 7, m = m0 + r;
-            if (m >= a.M) continue;
-            uint4* cp = reinterpret_cast<uint4*>(xs + r * 128 + pc * 16);
-            const uint4 wv = *reinterpret_cast<const uint4*>(nw + ((pc ^ (r & 7)) << 4));
-            const float f = rr[m];
-            uint4 v = *cp;
-            v.x = norm_pair(v.x, wv.x, f);
-            v.y = norm_pair(v.y, wv.y, f);
-            v.z = norm_pair(v.z, wv.z, f);
-            v.w = norm_pair(v.w, wv.w, f);
-            *cp = v;
+        if constexpr (INT4) {
+          const int kt = k0 + i * KS;
+          const uint8_t* xs = smem + s * C::STAGE + 2 * C::W_BYTES;
+          const float* sc = reinterpret_cast<const float*>(smem + C::SC + s * C::SC_STAGE) +
+                            16 * warp + 4 * (lane & 3);
+          const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+          for (int kk = 0; kk < BK / 16; ++kk) {
+            // packed rows kk*16 .. +15 (contraction rows kk*32 .. +31): box 0
+            // rows 0-7, 8-15, box 1 rows 0-7, 8-15, this warp's 16-byte chunk
+            // (64-byte swizzle: chunk ^ (row / 2 % 4))
+            uint32_t wr[4];
+            {
+              const int row = kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7);
+              ldsm_x4_trans_u32(wr, wst + (lane >> 4) * C::W_BYTES + row * HALF +
+                                        ((warp ^ ((row >> 1) & 3)) << 4));
+            }
+#pragma unroll
+            for (int hs = 0; hs < 2; ++hs) {
+              // contraction rows kk*32 + 16 hs .. + 15 of the stage; b[nb]: nb
+              // 0/1 the even/odd columns of box 0, 2/3 of box 1
+              uint32_t b[4][2];
+              i4_frags(wr[hs], b[0], b[1]);
+              i4_frags(wr[2 + hs], b[2], b[3]);
+              // x[row, c .. c + 3], c = kk*32 + 16 hs + 4 t4, in sub-tile kk / 2
+              const int col = (kk & 1) * 32 + hs * 16 + 4 * t4;
+              const uint8_t* sub = xs + (kk >> 1) * (R * 128) + (col & 7) * 2;
+#pragma unroll
+              for (int mt = 0; mt < MT; ++mt) {
+                const int r0 = mt * 16 + g, r1 = r0 + 8;
+                const uint2 v0 =
+                    *reinterpret_cast<const uint2*>(sub + r0 * 128 + (((col >> 3) ^ (r0 & 7)) << 4));
+                const uint2 v1 =
+                    *reinterpret_cast<const uint2*>(sub + r1 * 128 + (((col >> 3) ^ (r1 & 7)) << 4));
+                const uint32_t af[4] = {v0.x, v1.x, v0.y, v1.y};
+#pragma unroll
+                for (int nb = 0; nb < 4; ++nb) mma_bf16_16816(part[mt][nb], af, b[nb][0], b[nb][1]);
+              }
+            }
+            if (((kt + (kk + 1) * 32) & (a.group - 1)) == 0) {
+              // the group ends here: its partial, scaled, into acc (lane's
+              // columns 16 warp + 4 t4 .. + 3 of each box: nb 0/1 take the
+              // even/odd ones of box 0, 2/3 of box 1)
+              const float* srow = sc + (a.group >= KS ? 0 : (kk * 32) / a.group) * 2 * HALF;
+              const float4 s0 = *reinterpret_cast<const float4*>(srow);
+              const float4 s1 = *reinterpret_cast<const float4*>(srow + HALF);
+              const float sv[4][2] = {{s0.x, s0.z}, {s0.y, s0.w}, {s1.x, s1.z}, {s1.y, s1.w}};
+#pragma unroll
+              for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+                for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+                  for (int e = 0; e < 4; ++e) {
+                    acc[mt][nb][e] += part[mt][nb][e] * sv[nb][e & 1];
+                    part[mt][nb][e] = 0.f;
+                  }
+            }
           }
-          consumers_sync();
-        }
+        } else {
+          if (norm) {
+            // normalize the x tile in place; chunk (row r, physical chunk pc)
+            // holds logical columns 8 (pc ^ (r % 8)) .. + 7 (128-byte swizzle)
+            uint8_t* xs = smem + s * C::STAGE + 2 * C::W_BYTES;
+            const uint8_t* nw = smem + C::NW + s * BK * 2;
+            for (int j = tid; j < R * 8; j += NCW * 32) {
+              const int r = j >> 3, pc = j & 7, m = m0 + r;
+              if (m >= a.M) continue;
+              uint4* cp = reinterpret_cast<uint4*>(xs + r * 128 + pc * 16);
+              const uint4 wv = *reinterpret_cast<const uint4*>(nw + ((pc ^ (r & 7)) << 4));
+              const float f = rr[m];
+              uint4 v = *cp;
+              v.x = norm_pair(v.x, wv.x, f);
+              v.y = norm_pair(v.y, wv.y, f);
+              v.z = norm_pair(v.z, wv.z, f);
+              v.w = norm_pair(v.w, wv.w, f);
+              *cp = v;
+            }
+            consumers_sync();
+          }
 #pragma unroll KU
-        for (int kk = 0; kk < BK / 16; ++kk) {
-          // matrices: box 0 rows 0-7, box 0 rows 8-15, box 1 rows 0-7, box 1
-          // rows 8-15, each this warp's 16-byte chunk (64-byte swizzle:
-          // chunk ^ (row / 2 % 4))
-          uint32_t wr[4];
-          {
-            const int row = kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7);
-            ldsm_x4_trans_u32(wr, wst + (lane >> 4) * C::W_BYTES + row * HALF +
-                                      ((warp ^ ((row >> 1) & 3)) << 4));
-          }
-          // b[nb]: nb 0/1 the even/odd columns of box 0, 2/3 of box 1
-          uint32_t b[4][2];
-          i8_pairs(wr[0], b[0][0], b[1][0]);
-          i8_pairs(wr[1], b[0][1], b[1][1]);
-          i8_pairs(wr[2], b[2][0], b[3][0]);
-          i8_pairs(wr[3], b[2][1], b[3][1]);
+          for (int kk = 0; kk < BK / 16; ++kk) {
+            // matrices: box 0 rows 0-7, box 0 rows 8-15, box 1 rows 0-7, box 1
+            // rows 8-15, each this warp's 16-byte chunk (64-byte swizzle:
+            // chunk ^ (row / 2 % 4))
+            uint32_t wr[4];
+            {
+              const int row = kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7);
+              ldsm_x4_trans_u32(wr, wst + (lane >> 4) * C::W_BYTES + row * HALF +
+                                        ((warp ^ ((row >> 1) & 3)) << 4));
+            }
+            // b[nb]: nb 0/1 the even/odd columns of box 0, 2/3 of box 1
+            uint32_t b[4][2];
+            i8_pairs(wr[0], b[0][0], b[1][0]);
+            i8_pairs(wr[1], b[0][1], b[1][1]);
+            i8_pairs(wr[2], b[2][0], b[3][0]);
+            i8_pairs(wr[3], b[2][1], b[3][1]);
 #pragma unroll
-          for (int mt = 0; mt < MT; ++mt) {
-            uint32_t af[4];
-            const int row = mt * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-            const int ch = kk * 2 + (lane >> 4);
-            ldsm_x4_u32(af, xst + row * 128 + ((ch ^ (row & 7)) << 4));
+            for (int mt = 0; mt < MT; ++mt) {
+              uint32_t af[4];
+              const int row = mt * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+              const int ch = kk * 2 + (lane >> 4);
+              ldsm_x4_u32(af, xst + row * 128 + ((ch ^ (row & 7)) << 4));
 #pragma unroll
-            for (int nb = 0; nb < 4; ++nb) mma_bf16_16816(acc[mt][nb], af, b[nb][0], b[nb][1]);
+              for (int nb = 0; nb < 4; ++nb) mma_bf16_16816(acc[mt][nb], af, b[nb][0], b[nb][1]);
+            }
           }
+          if (norm) fence_proxy_async();  // the normalized tile before TMA reuses it
         }
-        if (norm) fence_proxy_async();  // the normalized tile before TMA reuses it
         mbar_arrive(bars + 8 * (S + s));
       }
 
       if (split == 1) {
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
-          if (mt > 0 && a.res != nullptr) load_group(a, t, m0 + mt * 16, warp, lane, ops);
+          if (mt > 0 && a.res != nullptr) load_group<INT4>(a, t, m0 + mt * 16, warp, lane, ops);
           finish_group(a, t, m0 + mt * 16, warp, lane, acc[mt], ops);
         }
         continue;
@@ -568,7 +603,7 @@ __global__ void __launch_bounds__(NTHREADS, MT <= 4 ? 2 : 1)
             const float4 q = slot[(r * 4 + nb) * 32];
             v[nb][0] += q.x, v[nb][1] += q.y, v[nb][2] += q.z, v[nb][3] += q.w;
           }
-        if (u != u0) load_group(a, t, m0 + (u % MT) * 16, u / MT, lane, ops);
+        if (u != u0) load_group<INT4>(a, t, m0 + (u % MT) * 16, u / MT, lane, ops);
         finish_group(a, t, m0 + (u % MT) * 16, u / MT, lane, v, ops);
       }
       // between two items of a cluster the receive slots are reused
@@ -580,27 +615,29 @@ __global__ void __launch_bounds__(NTHREADS, MT <= 4 ? 2 : 1)
 
 // ---- host side ----------------------------------------------------------------
 
-// The weight's map, encoded once per (pointer, shape).
-static CUresult weight_map(CUtensorMap* map, const int8_t* q, int In, int Out) {
-  return cached_map(map, std::make_tuple(static_cast<const void*>(q), In, Out),
+// The weight's map over its [rows, Out] bytes (int8 q, or packed int4 q with
+// rows = In / 2), encoded once per (pointer, shape).
+static CUresult weight_map(CUtensorMap* map, const int8_t* q, int rows, int Out) {
+  return cached_map(map, std::make_tuple(static_cast<const void*>(q), rows, Out),
                     [&](CUtensorMap* m) {
-                      return encode_2d(m, CU_TENSOR_MAP_DATA_TYPE_UINT8, q, 1, Out, In, HALF,
+                      return encode_2d(m, CU_TENSOR_MAP_DATA_TYPE_UINT8, q, 1, Out, rows, HALF,
                                        BK, CU_TENSOR_MAP_SWIZZLE_64B);
                     });
 }
 
-template <int MT>
+template <bool INT4, int MT>
 static cudaError_t launch(Args& a, int split, cudaStream_t st) {
-  using C = Cfg<MT>;
+  using C = Cfg<INT4, MT>;
   // once per instantiation: the attribute, and the blocks an SM holds
   static const cudaError_t attr = cudaFuncSetAttribute(
-      qmm_sm90_kernel<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+      qmm_sm90_kernel<INT4, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (attr != cudaSuccess) return attr;
   static const int resident = [] {
     int dev = 0, sms = 0, per_sm = 0;
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, qmm_sm90_kernel<MT>, NTHREADS, C::SMEM);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, qmm_sm90_kernel<INT4, MT>, NTHREADS,
+                                                  C::SMEM);
     return max(1, sms * max(1, per_sm));
   }();
   const CUresult enc = encode_2d(&a.xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, a.x, 2, a.In, a.M,
@@ -618,7 +655,34 @@ static cudaError_t launch(Args& a, int split, cudaStream_t st) {
   cluster[0].val.clusterDim.z = 1;
   cfg.attrs = cluster;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, qmm_sm90_kernel<MT>, a);
+  return cudaLaunchKernelEx(&cfg, qmm_sm90_kernel<INT4, MT>, a);
+}
+
+// The checks and the launch both entry points share; unit: the contraction
+// rows a split is cut in (a multiple of the stage's).
+template <bool INT4>
+static int run(Args& a, const void* q, int split, int unit, cudaStream_t st) {
+  const int tiles = a.In / unit;
+  const int per = (tiles + split - 1) / split;
+  if ((tiles + per - 1) / per != split) return (int)cudaErrorInvalidValue;  // an empty split
+  const CUresult enc = weight_map(&a.wmap, static_cast<const int8_t*>(q), INT4 ? a.In / 2 : a.In,
+                                  a.Out);
+  if (enc != CUDA_SUCCESS) return kEncodeError + (int)enc;
+  a.kchunk = per * unit;
+  a.ntiles = a.Out / BN;
+  const int rows = min(a.M, INT4 ? 64 : 128);
+  cudaError_t err;
+  if (rows <= 16)
+    err = launch<INT4, 1>(a, split, st);
+  else if (rows <= 32)
+    err = launch<INT4, 2>(a, split, st);
+  else if (rows <= 64 || INT4)
+    err = launch<INT4, 4>(a, split, st);
+  else
+    err = launch<INT4, INT4 ? 4 : 8>(a, split, st);
+  if ((int)err >= kEncodeError) return (int)err;
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace sm90
@@ -637,12 +701,7 @@ extern "C" int md_quant_matmul_sm90(const void* x, const void* q, const void* sc
   if (M < 1 || M > MAX_ROWS || In % BK != 0 || Out % BN != 0 || split < 1 ||
       split > MAX_SPLIT || (gate && res != nullptr))
     return (int)cudaErrorInvalidValue;
-  const int tiles = In / BK;
-  const int per = (tiles + split - 1) / split;
-  if ((tiles + per - 1) / per != split) return (int)cudaErrorInvalidValue;  // an empty split
   Args a;
-  const CUresult enc = weight_map(&a.wmap, static_cast<const int8_t*>(q), In, Out);
-  if (enc != CUDA_SUCCESS) return kEncodeError + (int)enc;
   a.x = static_cast<const __nv_bfloat16*>(x);
   a.scale = static_cast<const float*>(scale);
   a.norm_w = static_cast<const __nv_bfloat16*>(norm_w);
@@ -651,22 +710,38 @@ extern "C" int md_quant_matmul_sm90(const void* x, const void* q, const void* sc
   a.M = M;
   a.In = In;
   a.Out = Out;
-  a.kchunk = per * BK;
-  a.ntiles = Out / BN;
   a.gate = gate != 0;
+  a.group = In;
   a.eps = eps;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int rows = M < 128 ? M : 128;
-  cudaError_t err;
-  if (rows <= 16)
-    err = launch<1>(a, split, st);
-  else if (rows <= 32)
-    err = launch<2>(a, split, st);
-  else if (rows <= 64)
-    err = launch<4>(a, split, st);
-  else
-    err = launch<8>(a, split, st);
-  if ((int)err >= kEncodeError) return (int)err;
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return run<false>(a, q, split, BK, static_cast<cudaStream_t>(stream));
+}
+
+// B4-int4: out = epilogue(x[M, In] @ dequant(q[In / 2, Out] packed int4,
+// scale[In / group, Out])) in one launch, the epilogue the SiLU gate (gate:
+// out [M, Out / 2]), a residual res [M, Out] (or null), or none.  group: a
+// power of two >= 32 with In % max(group, 128) == 0; split: the
+// contraction's splits in units of max(group, 128) rows (1..8, none empty,
+// the wrapper's cluster_split_plan).  Returns as md_quant_matmul_sm90.
+extern "C" int md_quant_matmul_int4_sm90(const void* x, const void* q, const void* scale,
+                                         const void* res, void* out, int M, int In, int Out,
+                                         int gate, int split, int group, void* stream) {
+  using namespace md::sm90;
+  constexpr int KS = Cfg<true, 1>::KS;
+  if (M < 1 || M > MAX_ROWS || Out % BN != 0 || split < 1 || split > MAX_SPLIT ||
+      (gate && res != nullptr) || group < 32 || (group & (group - 1)) != 0 ||
+      In % max(group, KS) != 0)
+    return (int)cudaErrorInvalidValue;
+  Args a;
+  a.x = static_cast<const __nv_bfloat16*>(x);
+  a.scale = static_cast<const float*>(scale);
+  a.norm_w = nullptr;
+  a.res = static_cast<const __nv_bfloat16*>(res);
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.M = M;
+  a.In = In;
+  a.Out = Out;
+  a.gate = gate != 0;
+  a.group = group;
+  a.eps = 0.f;
+  return run<true>(a, q, split, max(group, KS), static_cast<cudaStream_t>(stream));
 }

@@ -1,12 +1,16 @@
 // Hopper building blocks shared by the sm_90a kernels (quant_matmul_sm90.cu,
-// prefill_attention_sm90.cu): mbarriers, TMA loads (cp.async.bulk.tensor and
-// the plain bulk copy), the async-proxy fence, and the host side's
-// tensor-map encoding and its per-(pointer, shape) cache.  cuTensorMapEncodeTiled comes through
+// dense_matmul_sm90.cu, prefill_attention_sm90.cu): mbarriers, TMA loads
+// (cp.async.bulk.tensor and the plain bulk copy), the async-proxy fence,
+// thread-block clusters (rank, barriers, mapa and st.async into another
+// rank's shared memory), wgmma (shared-memory descriptors, fence, commit,
+// wait), and the host side's tensor-map encoding and its per-(pointer,
+// shape) cache.  cuTensorMapEncodeTiled comes through
 // cudaGetDriverEntryPoint, so the library needs no -lcuda; a failed encode
 // returns an error (the wrappers raise), never a fallback.
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -84,6 +88,167 @@ __device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
 // touches the same bytes.
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---- the rms-norm prologue of the weight-streaming dots -----------------------
+
+// acc + the sum of the squares of eight bf16 values
+__device__ __forceinline__ float sum_sq8(float acc, uint4 v) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[j]));
+    acc += f.x * f.x;
+    acc += f.y * f.y;
+  }
+  return acc;
+}
+
+// bf16(bf16(x * r) * w) of a bf16 pair (the norm of x by its factor r and
+// the norm weight w)
+__device__ __forceinline__ uint32_t norm_pair(uint32_t xv, uint32_t wv, float r) {
+  const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xv));
+  const __nv_bfloat162 n = __floats2bfloat162_rn(f.x * r, f.y * r);
+  const __nv_bfloat162 o = __hmul2(n, *reinterpret_cast<const __nv_bfloat162*>(&wv));
+  return *reinterpret_cast<const uint32_t*>(&o);
+}
+
+// ---- clusters ----------------------------------------------------------------
+
+// Every non-exited thread of the cluster (release, then acquire).
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive;\nbarrier.cluster.wait;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// The address of the same shared-memory location in cluster rank `rank`.
+__device__ __forceinline__ uint32_t rank_addr(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+// Remote stores that complete on the receiving rank's mbarrier (its
+// transaction count falls by the bytes stored).
+__device__ __forceinline__ void st_async_f32(uint32_t addr, float v, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [%0], %1, [%2];\n" ::"r"(addr),
+      "f"(v), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void st_async_f32x4(uint32_t addr, const float (&v)[4], uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, "
+      "[%5];\n" ::"r"(addr),
+      "f"(v[0]), "f"(v[1]), "f"(v[2]), "f"(v[3]), "r"(bar)
+      : "memory");
+}
+
+// The rms-norm factors rr[m] = 1 / sqrt(mean(x[m]^2) + eps) of rows 0..M-1
+// of x [M, In], the contraction split over the `split` ranks of a cluster,
+// computed by the NCW consumer warps (threads 0 .. 32 NCW - 1).  This rank
+// sums the squares of its range [k0, k1) of every row (warp w takes rows w,
+// w + NCW, ... eight at a time, each lane its 16-byte chunks in order, two a
+// row in flight together, then a fixed shuffle tree) and stores each partial
+// into slot [rank] of every rank's ssq ([split][max_rows] f32) by st.async
+// on that rank's stat barrier, whose transaction count the caller set to
+// split * M * 4 bytes; every rank adds the slots in rank order, so every
+// block of a row holds the same factor bit for bit.  Completes the
+// cluster's initial barrier (cluster_wait) before the first remote store
+// and ends with the consumers' named barrier 1.
+template <int NCW>
+__device__ __forceinline__ void row_norm_factors(const __nv_bfloat16* x, int M, int In, int k0,
+                                                 int k1, float eps, int max_rows, float* ssq,
+                                                 float* rr, uint32_t stat_bar, uint32_t rank,
+                                                 int split) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nchunk = (k1 - k0) / 8;
+  bool waited = false;
+  for (int mb = warp; mb < M; mb += 8 * NCW) {
+    float acc[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[j] = 0.f;
+    for (int c = lane; c < nchunk; c += 64) {
+      uint4 v[8][2];  // chunks c and c + 32 of eight rows: 16 loads in flight
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int m = mb + j * NCW, ce = c + 32 * e;
+          v[j][e] = m < M && ce < nchunk
+                        ? __ldg(reinterpret_cast<const uint4*>(x + (size_t)m * In + k0 + ce * 8))
+                        : make_uint4(0, 0, 0, 0);
+        }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[j] = sum_sq8(sum_sq8(acc[j], v[j][0]), v[j][1]);
+    }
+    if (!waited) {
+      cluster_wait();
+      waited = true;
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float v = acc[j];
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+      // lane s stores the partial into slot [rank] of rank s
+      const int m = mb + j * NCW;
+      if (lane < split && m < M)
+        st_async_f32(rank_addr(smem_u32(ssq + rank * max_rows + m), lane), v,
+                     rank_addr(stat_bar, lane));
+    }
+  }
+  if (!waited) cluster_wait();
+  mbar_wait(stat_bar, 0);  // every rank's partials have landed
+  for (int m = threadIdx.x; m < M; m += NCW * 32) {
+    float tot = 0.f;
+    for (int s = 0; s < split; ++s) tot += ssq[s * max_rows + m];
+    rr[m] = 1.f / sqrtf(tot / (float)In + eps);
+  }
+  asm volatile("bar.sync 1, %0;\n" ::"n"(NCW * 32) : "memory");  // rr for every consumer
+}
+
+// ---- wgmma ---------------------------------------------------------------------
+
+// A wgmma shared-memory descriptor: start address, leading and stride byte
+// offsets, 128-byte swizzle.  The start address advances in 16-byte units
+// by adding to the descriptor.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving accesses of a wgmma operand across the
+// asynchronous window (issue to wait).
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
 // ---- host side ----------------------------------------------------------------

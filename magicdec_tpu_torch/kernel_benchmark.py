@@ -43,12 +43,17 @@ Cases (``--which``):
            ``bench.setup`` and the engine's methods, so an A/B against an
            older checkout runs as for ``prefill``;
   dots     (the card only; not in "all") the draft's int8 dots B4 (wqkv +
-           norm, w13 + norm + gate, w2 + residual) and B6 (the lm_head) at
-           the model's widths and M = B and 2B rows, over the layer stack's
-           weights in turn: ``{dot}_M{m}_device`` is the device time a call
+           norm, w13 + norm + gate, w2 + residual) and B6 (the lm_head) and
+           its int4 dots B4-int4 (``int4_`` wqkv, wo + residual, w13 +
+           gate, w2 + residual; group 128) and B6-int4 (``int4_lm_head``)
+           at the model's widths and M = B and 2B rows, and the target's
+           bf16 dots B15 (``dense_matmul_fused``: ``dense_`` wqkv + norm,
+           wo + residual, w13 + norm, w2 + residual) at M = 128 (the verify
+           rows at B = 32, gamma 3) and 16, over the layer stack's weights
+           in turn: ``{dot}_M{m}_device`` is the device time a call
            (``graph_ms``: one call per layer captured in a CUDA graph,
            replayed between CUDA events), ``_matmul_device`` torch.matmul
-           on the dequantized bf16 weight (the library yardstick).
+           on a bf16 weight of the same shape (the library yardstick).
            ``chip_smoke.py`` times the same dots with the same ``graph_ms``
            beside its correctness checks; this case exists for A/B runs:
            it uses only the wrappers' public signatures, so the file also
@@ -360,18 +365,91 @@ def _dots(cfg, B, dev, gen):
             "w2_residual": lambda q, s: QK.quant_matmul_fused(g, q, s, res=res),
             "lm_head": lambda q, s: QK.quant_matmul(x, q, s),
         }
-        for name, fn in kernels.items():
-            q, s = weights[name]
-            calls = [lambda l=l: fn(q[l], s[l]) for l in range(q.shape[0])]
-            lhs = g if name == "w2_residual" else x
-            deq = [(q[l].float() * s[l]).to(bf) for l in range(q.shape[0])]
-            lib = [lambda w=w: torch.matmul(lhs, w) for w in deq]
-            for tag, ms in ((f"{name}_M{M}_device", graph_ms(calls)),
-                            (f"{name}_M{M}_matmul_device", graph_ms(lib))):
-                results[tag] = ms
-                print(f"[kernel] {tag:32s} {ms:8.4f} ms", file=sys.stderr, flush=True)
-            del deq, lib
-            torch.cuda.empty_cache()
+        _timed_dots(results, M, kernels, weights,
+                    lambda name: g if name == "w2_residual" else x, gen, dev)
+    del weights
+    results.update(_dots_int4(cfg, B, dev, gen))
+    results.update(_dots_dense(cfg, dev, gen))
+    return results
+
+
+def _timed_dots(results, M, kernels, weights, lhs_of, gen, dev):
+    """``{dot}_M{m}_device`` and ``_matmul_device`` (torch.matmul on a bf16
+    weight of the dot's [In, Out], one per layer) of each kernel
+    ``kernels[name](*weights[name] of one layer)``."""
+    for name, fn in kernels.items():
+        stack = weights[name]
+        layers = stack[0].shape[0]
+        calls = [lambda l=l: fn(*(t[l] for t in stack)) for l in range(layers)]
+        lhs = lhs_of(name)
+        lib_w = [torch.randn((lhs.shape[1], stack[0].shape[-1]), generator=gen,
+                             device=dev).to(torch.bfloat16) for _ in range(layers)]
+        lib = [lambda w=w: torch.matmul(lhs, w) for w in lib_w]
+        for tag, ms in ((f"{name}_M{M}_device", graph_ms(calls)),
+                        (f"{name}_M{M}_matmul_device", graph_ms(lib))):
+            results[tag] = ms
+            print(f"[kernel] {tag:40s} {ms:8.4f} ms", file=sys.stderr, flush=True)
+        del lib_w, lib
+        torch.cuda.empty_cache()
+
+
+def _dots_int4(cfg, B, dev, gen):
+    """B4-int4 and B6-int4 at M = B and 2B: packed int4 weights [L, In/2,
+    Out] of random bytes with f32 scales per 128-row group."""
+    from magicdec_tpu_torch.kernels import quant_matmul as QK
+
+    L, D, F, V = cfg.n_layer, cfg.dim, cfg.intermediate_size, cfg.vocab_size
+    qkv = (cfg.n_head + 2 * cfg.n_kv_head) * cfg.head_dim
+    bf = torch.bfloat16
+
+    def stack(In, Out, layers=L):
+        q = torch.randint(-128, 128, (layers, In // 2, Out), generator=gen, device=dev,
+                          dtype=torch.int8)
+        return q, torch.rand((layers, In // 128, Out), generator=gen, device=dev) / (8 * In ** 0.5)
+
+    weights = {"int4_wqkv": stack(D, qkv), "int4_wo_residual": stack(D, D),
+               "int4_w13_gate": stack(D, 2 * F), "int4_w2_residual": stack(F, D),
+               "int4_lm_head": stack(D, V, layers=1)}
+    results = {}
+    for M in (B, 2 * B):
+        x, g, res = (torch.randn((M, n), generator=gen, device=dev).to(bf) for n in (D, F, D))
+        kernels = {
+            "int4_wqkv": lambda q, s: QK.quant_matmul_fused_int4(x, q, s),
+            "int4_wo_residual": lambda q, s: QK.quant_matmul_fused_int4(x, q, s, res),
+            "int4_w13_gate": lambda q, s: QK.quant_matmul_fused_int4(x, q, s, gate=True),
+            "int4_w2_residual": lambda q, s: QK.quant_matmul_fused_int4(g, q, s, res),
+            "int4_lm_head": lambda q, s: QK.quant_matmul_int4(x, q, s),
+        }
+        _timed_dots(results, M, kernels, weights,
+                    lambda name: g if name == "int4_w2_residual" else x, gen, dev)
+    return results
+
+
+def _dots_dense(cfg, dev, gen):
+    """B15's dense_matmul_fused at M = 128 and 16 on bf16 weights."""
+    from magicdec_tpu_torch.kernels import dense_matmul as DK
+
+    L, D, F = cfg.n_layer, cfg.dim, cfg.intermediate_size
+    qkv = (cfg.n_head + 2 * cfg.n_kv_head) * cfg.head_dim
+    bf = torch.bfloat16
+
+    def stack(In, Out):
+        return (torch.randn((L, In, Out), generator=gen, device=dev) * In ** -0.5).to(bf),
+
+    weights = {"dense_wqkv_norm": stack(D, qkv), "dense_wo_residual": stack(D, D),
+               "dense_w13_norm": stack(D, 2 * F), "dense_w2_residual": stack(F, D)}
+    norm_w = (torch.rand((D,), generator=gen, device=dev) + 0.5).to(bf)
+    results = {}
+    for M in (128, 16):
+        x, g, res = (torch.randn((M, n), generator=gen, device=dev).to(bf) for n in (D, F, D))
+        kernels = {
+            "dense_wqkv_norm": lambda w: DK.dense_matmul_fused(x, w, norm_w),
+            "dense_wo_residual": lambda w: DK.dense_matmul_fused(x, w, res=res),
+            "dense_w13_norm": lambda w: DK.dense_matmul_fused(x, w, norm_w),
+            "dense_w2_residual": lambda w: DK.dense_matmul_fused(g, w, res=res),
+        }
+        _timed_dots(results, M, kernels, weights,
+                    lambda name: g if name == "dense_w2_residual" else x, gen, dev)
     return results
 
 

@@ -44,7 +44,8 @@ SIGNATURES = {
     "md_quant_mlp": [_P] * 11 + [_I] * 5 + [_F, _P],
     "md_decode_attend_quant4": [_P] * 13 + [_I] * 9 + [_P],
     "md_prefill_attend_quant4": [_P] * 11 + [_I] * 7 + [_P],
-    "md_quant_matmul_int4": [_P] * 6 + [_I] * 6 + [_P],
+    "md_quant_matmul_int4": [_P] * 5 + [_I] * 5 + [_P],
+    "md_quant_matmul_int4_sm90": [_P] * 5 + [_I] * 6 + [_P],
     "md_paged_decode_attend": [_P] * 10 + [_I] * 11 + [_P],
     "md_paged_decode_attend_quant": [_P] * 14 + [_I] * 11 + [_P],
     "md_paged_decode_attend_quant4": [_P] * 14 + [_I] * 11 + [_P],
@@ -52,7 +53,7 @@ SIGNATURES = {
     "md_append_paged_rows_quant": [_P] * 10 + [_I] * 8 + [_P],
     "md_append_array_rows": [_P] * 3 + [_I] * 5 + [_P],
     "md_append_scale_cols": [_P] * 3 + [_I] * 5 + [_P],
-    "md_dense_matmul": [_P] * 7 + [_I] * 4 + [_F, _P],
+    "md_dense_matmul_sm90": [_P] * 5 + [_I] * 5 + [_F, _P],
     "md_dense_mlp": [_P] * 9 + [_I] * 5 + [_F, _P],
 }
 
@@ -139,8 +140,16 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
+# The sm_90a entry points' code for a failed tensor-map encode, plus its CUresult
+ENCODE_ERROR = 0x10000
+
+
 def check(err: int, name: str) -> None:
-    """Raise if a C entry point reported a CUDA error at launch."""
+    """Raise if a C entry point reported a CUDA error at launch (or, from an
+    sm_90a entry point, a failed tensor-map encode)."""
+    if err >= ENCODE_ERROR:
+        raise RuntimeError(f"{name}: cuTensorMapEncodeTiled failed with CUresult "
+                           f"{err - ENCODE_ERROR}")
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
 

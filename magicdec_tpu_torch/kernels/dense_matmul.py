@@ -1,5 +1,6 @@
 """B15: the bf16 weight-streaming dots of the target's decode and verify
-passes (CUDA, ``csrc/dense_matmul.cu``).
+passes (CUDA: ``dense_matmul_fused`` in ``csrc/dense_matmul_sm90.cu``,
+``dense_mlp`` in ``csrc/dense_matmul.cu``).
 
 ``dense_matmul_fused`` replaces magicdec_tpu/ops/pallas/quant_matmul.py
 ``dense_matmul_fused_pallas`` (``_dense_fused_kernel``): [res +] rms_norm?(x)
@@ -12,7 +13,10 @@ residual is added in bf16; the MLP rounds g and u to bf16 first and gates
 them as bf16(g * sigmoid(g) * u) in f32.  The kernels are row-invariant: a
 row's bits do not depend on M or on the other rows (see the source), which
 the target's padded autoregressive step needs.  Bound on the card: the
-weight's HBM bytes.
+weight's HBM bytes.  ``dense_matmul_fused`` is one launch a call: wgmma
+products on TMA-streamed weight boxes, the contraction's splits
+(``dense_plan``, at most 5) a thread-block cluster that adds its f32
+partials on chip in split order.
 """
 
 from __future__ import annotations
@@ -20,8 +24,38 @@ from __future__ import annotations
 import torch
 
 from magicdec_tpu_torch.kernels import on_cpu, ptr, require, require_bf16
-from magicdec_tpu_torch.kernels.quant_matmul import BK, BN, _epilogue, split_plan
+from magicdec_tpu_torch.kernels.quant_matmul import (BK, BN, TARGET_BLOCKS, _epilogue,
+                                                     split_plan)
 from magicdec_tpu_torch.ops.norm import rms_norm
+
+BOX = 64          # dense_matmul_fused: weight columns a TMA box
+ROWS_MAX = 512    # dense_matmul_fused rows a call (the dense routing's cap)
+# dense_matmul_fused's largest split: at one block an SM, clusters of 8 ran
+# up to 1.7x slower than clusters of 5 on the H100 (PERF.md, PR 9)
+DENSE_SPLIT = 5
+
+
+def dense_plan(In: int, Out: int, norm: bool) -> tuple[int, int]:
+    """(split, boxes) of ``dense_matmul_fused``, from the weight's shape and
+    whether the dot norms x (both fixed at a call site), never from M, so a
+    row's sums run in the same order at every M.  Boxes: the 64-column
+    boxes a tile, 4 with the norm where they divide Out (every column
+    tile's cluster reads x from L2 for the statistic and the tiles: half the
+    tiles, half those bytes), else 2.  Split: the contraction's splits in
+    BK-row tiles, none empty, at most DENSE_SPLIT, minimizing the tiles the
+    busiest SM streams (ceil(blocks / 132) blocks an SM, one block an SM,
+    times the tiles a block streams), of equals the fewest.  The H100
+    measurements behind both choices are in PERF.md (PR 9,
+    ``python -m magicdec_tpu_torch.dot_variants --plans``)."""
+    boxes = 4 if norm and Out % (BOX * 4) == 0 else 2
+    ncol = Out // (BOX * boxes)
+    tiles = max(1, In // BK)
+    best = None
+    for want in range(1, min(DENSE_SPLIT, tiles) + 1):
+        per = -(-tiles // want)
+        split = -(-tiles // per)
+        best = min(best or (1 << 30, 0), (-(-(ncol * split) // TARGET_BLOCKS) * per, split))
+    return best[1], boxes
 
 
 def _dot(x, w):
@@ -57,14 +91,28 @@ def _check_dot(x, w, what):
 
 def dense_matmul_fused(x, w, norm_w=None, res=None, *, eps=1e-5):
     """B15: x [M, In] @ w [In, Out] (bf16), with the rms-norm of x by
-    ``norm_w`` [In] first and ``res`` [M, Out] added, each optional."""
+    ``norm_w`` [In] first and ``res`` [M, Out] added, each optional.  On the
+    card: one launch, only ``out`` allocated, at most ROWS_MAX rows."""
     if on_cpu(x, w, norm_w, res):
         return dense_matmul_fused_plain(x, w, norm_w, res, eps=eps)
+    out = _launch_fused(x, w, norm_w, res, eps)
+    dense_matmul_fused.launches += 1
+    return out
+
+
+dense_matmul_fused.launches = 0
+
+
+def _launch_fused(x, w, norm_w, res, eps):
+    """``dense_matmul_fused`` on the card: one launch, only ``out``
+    allocated."""
     from magicdec_tpu_torch.kernels import build
 
     x = x.contiguous()
     require_bf16(x, w, norm_w, res)
     M, In, Out = _check_dot(x, w, "dense_matmul_fused")
+    require(M <= ROWS_MAX, f"dense_matmul_fused: the kernel takes at most {ROWS_MAX} rows, "
+                           f"got {M}")
     if norm_w is not None:
         require(norm_w.numel() == In, f"dense_matmul_fused: norm weight of {norm_w.numel()}, "
                                       f"not {In}")
@@ -73,20 +121,13 @@ def dense_matmul_fused(x, w, norm_w=None, res=None, *, eps=1e-5):
         require(res.shape == (M, Out), f"dense_matmul_fused: residual {tuple(res.shape)}, "
                                        f"not {(M, Out)}")
         res = res.contiguous()
-    split = split_plan(In, Out)
-    dev = x.device
-    out = torch.empty((M, Out), dtype=torch.bfloat16, device=dev)
-    part = torch.empty((split, M, Out), dtype=torch.float32, device=dev) if split > 1 else None
-    xn = torch.empty_like(x) if norm_w is not None else None
-    err = build.library().md_dense_matmul(
-        ptr(x), ptr(w), ptr(norm_w), ptr(res), ptr(out), ptr(part), ptr(xn), M, In, Out, split,
+    out = torch.empty((M, Out), dtype=torch.bfloat16, device=x.device)
+    err = build.library().md_dense_matmul_sm90(
+        ptr(x), ptr(w), ptr(norm_w), ptr(res), ptr(out), M, In, Out,
+        *dense_plan(In, Out, norm_w is not None),
         float(eps), build.stream_ptr(x))
-    build.check(err, "md_dense_matmul")
-    dense_matmul_fused.launches += 1
+    build.check(err, "dense_matmul_fused (md_dense_matmul_sm90)")
     return out
-
-
-dense_matmul_fused.launches = 0
 
 
 def dense_mlp(x, w13, w2, norm_w, res=None, *, eps=1e-5):

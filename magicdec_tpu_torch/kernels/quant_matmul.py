@@ -1,5 +1,5 @@
 """B4, B5, B6, B9: the int8 weight-only dots of the draft's weight copy, and
-B4-int4, B6-int4: its group-wise int4 dots (CUDA: B4 and B6 in
+B4-int4, B6-int4: its group-wise int4 dots (CUDA: B4, B6 and B4-int4 in
 ``csrc/quant_matmul_sm90.cu``, the others in ``csrc/quant_matmul.cu``).
 
 B4 ``quant_matmul_fused`` replaces magicdec_tpu/ops/pallas/quant_matmul.py
@@ -31,7 +31,9 @@ outside) and ``quant_matmul_int4`` (B6-int4, ``_int4_kernel``).  q is packed
 int8 [In/2, Out] (contraction rows 2r and 2r+1 in the low and high nibble of
 row r, ``quantization.pack_int4``) with f32 scales [In/group, Out].
 Numerics: acc = sum over groups g in order of f32(x_g @ q_g) * s_g, then
-one bf16 cast and B4's epilogue.
+one bf16 cast and B4's epilogue.  B4-int4 is one launch a call on B4's
+cluster kernel, its splits cut on group boundaries
+(``cluster_split_plan(In, Out, max(group, BK4))``).
 """
 
 from __future__ import annotations
@@ -46,7 +48,6 @@ BK4 = 128             # contraction rows per int4 stage (64 packed rows)
 TARGET_BLOCKS = 132   # one block per SM of the H100 before splitting further
 MAX_SPLIT = 8         # B4/B6: the splits of a column tile form one portable cluster
 ROWS_MAX = 256        # B4/B6 rows a launch (the routing's ROWS_CAP)
-ENCODE_ERROR = 0x10000  # md_quant_matmul_sm90: a failed tensor-map encode, + CUresult
 
 
 def split_plan(In: int, Out: int, unit: int = BK) -> int:
@@ -61,16 +62,17 @@ def split_plan(In: int, Out: int, unit: int = BK) -> int:
     return -(-tiles // per)
 
 
-def cluster_split_plan(In: int, Out: int) -> int:
-    """B4/B6's contraction splits: at most MAX_SPLIT (one portable cluster
-    per column tile), none empty.  One where the column tiles alone fill
-    the 132 SMs (the blocks then walk the tiles); else the split that
-    minimizes the contraction tiles the busiest SM streams, ceil(blocks /
-    132) blocks an SM times the tiles a block streams; of equals, the most
-    splits that keep every block resident (two an SM: more warps on the
-    same bytes).  Fixed by the weight's shape alone, so a row's sums run in
-    the same order at every M."""
-    tiles = max(1, In // BK)
+def cluster_split_plan(In: int, Out: int, unit: int = BK) -> int:
+    """B4/B6's (and B4-int4's) contraction splits, cut in units of ``unit``
+    rows (B4-int4: max(group, BK4), so every split starts on a group
+    boundary): at most MAX_SPLIT (one portable cluster per column tile),
+    none empty.  One where the column tiles alone fill the 132 SMs (the
+    blocks then walk the tiles); else the split that minimizes the units
+    the busiest SM streams, ceil(blocks / 132) blocks an SM times the units
+    a block streams; of equals, the most splits that keep every block
+    resident (two an SM: more warps on the same bytes).  Fixed by the
+    weight's shape alone, so a row's sums run in the same order at every M."""
+    tiles = max(1, In // unit)
     ncol = max(1, Out // BN)
     if ncol >= TARGET_BLOCKS:
         return 1
@@ -186,10 +188,7 @@ def _launch_dot(x, q, scale, norm_w=None, res=None, gate=False, eps=1e-5, what="
     err = build.library().md_quant_matmul_sm90(
         ptr(x), ptr(q), ptr(scale), ptr(norm_w), ptr(res), ptr(out), M, In, Out, int(gate),
         cluster_split_plan(In, Out), float(eps), build.stream_ptr(x))
-    if err >= ENCODE_ERROR:
-        raise RuntimeError(f"{what}: cuTensorMapEncodeTiled failed with CUresult "
-                           f"{err - ENCODE_ERROR}")
-    build.check(err, "md_quant_matmul_sm90")
+    build.check(err, f"{what} (md_quant_matmul_sm90)")
     return out
 
 
@@ -296,11 +295,9 @@ def quant_layer_tail(a, x, qo, so, q13, s13, q2, s2, norm_w, *, eps):
 quant_layer_tail.launches = 0
 
 
-def _launch_dot_int4(x, q, scale, res=None, gate=False, what=""):
-    from magicdec_tpu_torch.kernels import build
-
-    x = x.contiguous()
-    require_bf16(x, res)
+def _check_dot_int4(x, q, scale, what):
+    """(M, In, Out, group) of one int4 dot on the card; raises on what the
+    kernels do not take."""
     require(x.dim() == 2 and q.dim() == 2 and scale.dim() == 2,
             f"{what}: x [M, In], packed q [In/2, Out] and scale [G, Out] are 2-D")
     M, In = x.shape
@@ -316,19 +313,46 @@ def _launch_dot_int4(x, q, scale, res=None, gate=False, what=""):
             and Out % BN == 0,
             f"{what}: the kernel takes a power-of-two group >= 32, In % max(group, {BK4}) == 0 "
             f"and Out % {BN} == 0, got group {group}, In {In}, Out {Out}")
-    Fo = Out // 2 if gate else Out
+    return M, In, Out, group
+
+
+def _launch_b6_int4(x, q, scale):
+    """B6-int4 on the card (csrc/quant_matmul.cu): the split-K partials in
+    an f32 scratch, added by a second launch when there are several."""
+    from magicdec_tpu_torch.kernels import build
+
+    x = x.contiguous()
+    require_bf16(x)
+    M, In, Out, group = _check_dot_int4(x, q, scale, "quant_matmul_int4")
+    split = split_plan(In, Out, max(group, BK4))
+    out = torch.empty((M, Out), dtype=torch.bfloat16, device=x.device)
+    part = (torch.empty((split, M, Out), dtype=torch.float32, device=x.device)
+            if split > 1 else None)
+    err = build.library().md_quant_matmul_int4(
+        ptr(x), ptr(q), ptr(scale.contiguous()), ptr(out), ptr(part), M, In, Out, split, group,
+        build.stream_ptr(x))
+    build.check(err, "md_quant_matmul_int4")
+    return out
+
+
+def _launch_b4_int4(x, q, scale, res=None, gate=False):
+    """B4-int4 on the card (csrc/quant_matmul_sm90.cu): one launch, only
+    ``out`` allocated."""
+    from magicdec_tpu_torch.kernels import build
+
+    what = "quant_matmul_fused_int4"
+    x = x.contiguous()
+    require_bf16(x, res)
+    M, In, Out, group = _check_dot_int4(x, q, scale, what)
+    require(M <= ROWS_MAX, f"{what}: the kernel takes at most {ROWS_MAX} rows, got {M}")
     if res is not None:
         require(res.shape == (M, Out), f"{what}: residual {tuple(res.shape)}, not {(M, Out)}")
         res = res.contiguous()
-    split = split_plan(In, Out, max(group, BK4))
-    dev = x.device
-    out = torch.empty((M, Fo), dtype=torch.bfloat16, device=dev)
-    part = (torch.empty((split, M, Out), dtype=torch.float32, device=dev)
-            if split > 1 or gate else None)
-    err = build.library().md_quant_matmul_int4(
-        ptr(x), ptr(q), ptr(scale.contiguous()), ptr(res), ptr(out), ptr(part),
-        M, In, Out, int(gate), split, group, build.stream_ptr(x))
-    build.check(err, "md_quant_matmul_int4")
+    out = torch.empty((M, Out // 2 if gate else Out), dtype=torch.bfloat16, device=x.device)
+    err = build.library().md_quant_matmul_int4_sm90(
+        ptr(x), ptr(q), ptr(scale.contiguous()), ptr(res), ptr(out), M, In, Out, int(gate),
+        cluster_split_plan(In, Out, max(group, BK4)), group, build.stream_ptr(x))
+    build.check(err, f"{what} (md_quant_matmul_int4_sm90)")
     return out
 
 
@@ -337,7 +361,7 @@ def quant_matmul_int4(x, q, scale):
     [In/group, Out]) -> [M, Out]."""
     if on_cpu(x, q, scale):
         return quant_matmul_int4_plain(x, q, scale)
-    out = _launch_dot_int4(x, q, scale, what="quant_matmul_int4")
+    out = _launch_b6_int4(x, q, scale)
     quant_matmul_int4.launches += 1
     return out
 
@@ -352,7 +376,7 @@ def quant_matmul_fused_int4(x, q, scale, res=None, *, gate=False):
     require(not (gate and res is not None), "the gate and the residual do not combine")
     if on_cpu(x, q, scale, res):
         return quant_matmul_fused_int4_plain(x, q, scale, res, gate=gate)
-    out = _launch_dot_int4(x, q, scale, res, gate, what="quant_matmul_fused_int4")
+    out = _launch_b4_int4(x, q, scale, res, gate)
     quant_matmul_fused_int4.launches += 1
     return out
 

@@ -10,7 +10,14 @@ the engine with the dense kernels on against the JAX engine with its
 own on, both on the "pallas" backend (tokens exactly; spec == AR).  On the
 card (``gpu`` marker, skipped without one): each kernel against its plain
 version within ``kernels.bf16_limit`` at the shapes of ``chip_smoke.py``'s
-kernel phase, and wrong references that must fail it.
+kernel phase (``dense_matmul_fused`` also at M = 512), and wrong
+references that must fail it; ``dense_matmul_fused`` bit-equal across two
+launches and under CUDA-graph replay, and row-invariant (the rows of an
+M = 16 call equal those rows of an M = 128 call).  On the CPU also its
+one-launch host side (``dense_plan``, one C call with only ``out``
+allocated, against a fake library) and a plain model of its sum order
+(split-K partials and the norm statistic added in split order) against the
+plain version and the Pallas kernel.
 
 The JAX package is imported inside the CPU tests only, so the ``gpu`` tests
 also run where JAX is absent:
@@ -210,6 +217,176 @@ def test_engine_dense_kernels_match_jax(dense_on):
                                   np.asarray(jbase["output"])[:, :14])
 
 
+# -- dense_matmul_fused's one-launch kernel: plan, host side, sum order -------
+
+
+@pytest.mark.parametrize("In,Out,norm,want", [
+    (2048, 3072, True, (5, 4)),     # wqkv: four boxes with the norm
+    (2048, 2048, False, (5, 2)),    # wo
+    (2048, 16384, True, (2, 4)),    # w13: 64 column tiles fill the card with 2 splits
+    (8192, 2048, False, (5, 2)),    # w2: the cap binds
+    (512, 256, False, (4, 2)),
+    (128, 128, True, (2, 2)),       # 2 boxes where 4 do not divide Out
+])
+def test_dense_plan_is_shape_only(In, Out, norm, want):
+    """At most 5 splits, none empty, 2 or 4 boxes that divide Out, from the
+    weight's shape and the norm (never M); the target's shapes get the
+    plans the kernel was measured with."""
+    split, boxes = DK.dense_plan(In, Out, norm)
+    assert (split, boxes) == want
+    tiles = In // 64
+    per = -(-tiles // split)
+    assert 1 <= split <= DK.DENSE_SPLIT and -(-tiles // per) == split
+    assert boxes in (2, 4) and Out % (64 * boxes) == 0
+
+
+class _FakeLibrary:
+    """Records the arguments of md_dense_matmul_sm90 (returns success)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def md_dense_matmul_sm90(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+@pytest.mark.parametrize("norm,res", [(True, False), (False, True), (True, True)],
+                         ids=["norm", "res", "norm_res"])
+def test_dense_fused_launch_once_with_a_shape_only_plan(norm, res, monkeypatch):
+    """The host side of dense_matmul_fused: one kernel call a wrapper call,
+    the plan from the weight's shape at every M from 1 to 512, nothing
+    allocated but the output (rows past 512 raise)."""
+    from magicdec_tpu_torch.kernels import build
+
+    lib = _FakeLibrary()
+    monkeypatch.setattr(build, "library", lambda: lib)
+    monkeypatch.setattr(build, "stream_ptr", lambda t: 0)
+    In, Out = 2048, 3072
+    w = torch.zeros(In, Out, dtype=torch.bfloat16)
+    nw = torch.ones(In, dtype=torch.bfloat16) if norm else None
+    allocated = []
+    empty = torch.empty
+    monkeypatch.setattr(torch, "empty", lambda *a, **k: allocated.append(a) or empty(*a, **k))
+    rows = (1, 8, 16, 64, 65, 128, 200, 512)
+    for M in rows:
+        r = torch.zeros(M, Out, dtype=torch.bfloat16) if res else None
+        out = DK._launch_fused(torch.zeros(M, In, dtype=torch.bfloat16), w, nw, r, 1e-5)
+        assert out.shape == (M, Out) and out.dtype == torch.bfloat16
+    assert allocated == [((M, Out),) for M in rows]
+    assert len(lib.calls) == len(rows)
+    # x, w, norm_w, res, out, M, In, Out, split, boxes, eps, stream
+    assert all(len(c) == 12 for c in lib.calls)
+    assert {(c[8], c[9]) for c in lib.calls} == {DK.dense_plan(In, Out, norm)}
+    assert DK.dense_plan(In, Out, norm) == ((5, 4) if norm else (5, 2))
+    assert [c[5] for c in lib.calls] == list(rows)
+    assert all((c[2] is None) != norm and (c[3] is None) != res for c in lib.calls)
+    with pytest.raises(ValueError, match="at most 512 rows"):
+        DK._launch_fused(torch.zeros(513, In, dtype=torch.bfloat16), w, nw, None, 1e-5)
+
+
+def _dense_order_model(x, w, norm_w=None, res=None, *, eps=1e-5):
+    """dense_matmul_fused's sum order in plain torch: the contraction cut by
+    dense_plan; the norm's sum of squares as one partial a split, added in
+    split order; each split's f32 partial product, the partials added in
+    split order; then the bf16 epilogue."""
+    M, In = x.shape
+    split, _ = DK.dense_plan(In, w.shape[1], norm_w is not None)
+    per = -(-(In // 64) // split) * 64
+    bounds = [(k, min(In, k + per)) for k in range(0, In, per)]
+    assert len(bounds) == split
+    xf = x.to(torch.float32)
+    if norm_w is not None:
+        ss = torch.zeros(M, dtype=torch.float32)
+        for k0, k1 in bounds:
+            ss = ss + (xf[:, k0:k1] * xf[:, k0:k1]).sum(-1)
+        r = 1.0 / torch.sqrt(ss / In + eps)
+        xf = ((xf * r[:, None]).to(x.dtype) * norm_w.to(x.dtype)).to(torch.float32)
+    acc = None
+    for k0, k1 in bounds:
+        part = xf[:, k0:k1] @ w[k0:k1].to(torch.float32)
+        acc = part if acc is None else acc + part
+    y = acc.to(x.dtype)
+    return y if res is None else y + res
+
+
+_DENSE_EPILOGUES = ["norm", "res", "norm_res", "none"]
+
+
+def _dense_operands(dtype, M=8, In=512, Out=256, seed=61):
+    rng = np.random.RandomState(seed)
+    x = rng.randn(M, In).astype(np.float32)
+    w = (rng.randn(In, Out) / np.sqrt(In)).astype(np.float32)
+    nw = (rng.rand(In) + 0.5).astype(np.float32)
+    r = rng.randn(M, Out).astype(np.float32)
+    td = getattr(torch, dtype)
+    return (x, w, nw, r), [t.to(td) for t in _t(x, w, nw, r)]
+
+
+@pytest.mark.parametrize("epilogue", _DENSE_EPILOGUES)
+def test_dense_order_model_matches_plain(epilogue):
+    """The split-order model against the plain version in float32, with 4
+    splits of 2 tiles (In 512) and of 4 (In 1024) and 5 splits of 7 tiles
+    and one of 4 (In 2048, w2's uneven cut)."""
+    for In in (512, 1024, 2048):
+        _, (x, w, nw, r) = _dense_operands("float32", In=In)
+        assert DK.dense_plan(In, 256, "norm" in epilogue)[0] == (5 if In == 2048 else 4)
+        kw = dict(norm_w=nw if "norm" in epilogue else None,
+                  res=r if "res" in epilogue else None)
+        np.testing.assert_allclose(_dense_order_model(x, w, **kw).numpy(),
+                                   DK.dense_matmul_fused_plain(x, w, **kw).numpy(), **TOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("epilogue", _DENSE_EPILOGUES)
+def test_dense_order_model_matches_pallas(epilogue, dtype):
+    """The split-order model against ``_dense_fused_kernel`` in interpret
+    mode (4 splits over In 512): float32 to 2e-5, bfloat16 within
+    ``kernels.bf16_limit``."""
+    import jax.numpy as jnp
+    from magicdec_tpu.ops.pallas.quant_matmul import dense_matmul_fused_pallas
+
+    (x, w, nw, r), (tx, tw, tnw, tr) = _dense_operands(dtype)
+    norm, res = "norm" in epilogue, "res" in epilogue
+    jd = getattr(jnp, dtype)
+    ref = dense_matmul_fused_pallas(jnp.asarray(x, jd), jnp.asarray(w, jd),
+                                    jnp.asarray(nw, jd) if norm else None,
+                                    jnp.asarray(r, jd) if res else None,
+                                    block_in=512 if norm else 128, block_out=128, norm=norm,
+                                    norm_eps=1e-5, interpret=True)
+    got = _dense_order_model(tx, tw, tnw if norm else None, tr if res else None)
+    want = np.asarray(ref, dtype=np.float32)
+    if dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), want, **TOL)
+    else:
+        want = torch.from_numpy(want)
+        assert ((got.float() - want).abs() <= bf16_limit(want)).all()
+
+
+def test_dot_variants_apply_to_the_sources():
+    """Every variant of the B15 and B4-int4 kernels that dot_variants times
+    still patches its source (the tool itself needs the card)."""
+    from magicdec_tpu_torch import dot_variants as DV
+
+    for name in DV.VARIANTS:
+        text = DV.patched(name)
+        assert (text == (DV.CSRC / DV.SOURCES[DV.VARIANTS[name][0]]).read_text()) == (
+            not DV.VARIANTS[name][1])
+
+
+def test_dense_wrappers_never_fall_back():
+    x = torch.zeros(4, 512, dtype=torch.bfloat16, device="meta")
+    w = torch.zeros(512, 256, dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        DK.dense_matmul_fused(x, w)
+    with pytest.raises(ValueError, match="unsupported device"):
+        DK.dense_mlp(x, torch.zeros(512, 512, dtype=torch.bfloat16, device="meta"),
+                     torch.zeros(256, 512, dtype=torch.bfloat16, device="meta"),
+                     torch.ones(512, dtype=torch.bfloat16, device="meta"))
+    with pytest.raises(ValueError, match="several devices"):
+        DK.dense_matmul_fused(x, torch.zeros(512, 256, dtype=torch.bfloat16))
+
+
 # -- on the card: each kernel against its plain version, bf16 -----------------
 
 
@@ -221,22 +398,72 @@ def _outside(out, ref):
     return int(((out.float() - ref.float()).abs() > bf16_limit(ref)).sum())
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("M", [128, 16, 8])
-@pytest.mark.parametrize("dot", ["wqkv + norm", "wo + residual", "w13 + norm", "w2 + residual"])
-def test_dense_matmul_fused_kernel_matches_plain_on_card(cuda, dot, M):
+def _fused_case(dot, M, device, seed=None):
+    """(run, plain, wrong) of one dense_matmul_fused case at the target's
+    widths; wrong drops the norm or the residual."""
     In, Out = {"wqkv": (2048, 3072), "wo": (2048, 2048), "w13": (2048, 16384),
                "w2": (8192, 2048)}[dot.split()[0]]
-    gen = torch.Generator(device=cuda).manual_seed(M)
-    x = _rand(gen, M, In, device=cuda, scale=3.0)
+    gen = torch.Generator(device=device).manual_seed(M if seed is None else seed)
+    x = _rand(gen, M, In, device=device, scale=3.0)
+    w = _rand(gen, In, Out, device=device, scale=In ** -0.5)
+    nw = (torch.rand((In,), generator=gen, device=device) + 0.5).to(torch.bfloat16)
+    res = _rand(gen, M, Out, device=device)
+    kw = dict(norm_w=nw) if "norm" in dot else dict(res=res)
+    return (lambda: DK.dense_matmul_fused(x, w, **kw),
+            lambda: DK.dense_matmul_fused_plain(x, w, **kw),
+            lambda: DK.dense_matmul_fused_plain(x, w))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [128, 16, 8, 512])
+@pytest.mark.parametrize("dot", ["wqkv + norm", "wo + residual", "w13 + norm", "w2 + residual"])
+def test_dense_matmul_fused_kernel_matches_plain_on_card(cuda, dot, M):
+    run, plain, wrong = _fused_case(dot, M, cuda)
+    out, ref = run(), plain()
+    assert torch.isfinite(out).all() and _outside(out, ref) == 0
+    assert _outside(wrong(), ref) > 0  # without the norm / residual
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dot", ["wqkv + norm", "wo + residual", "w13 + norm", "w2 + residual"])
+def test_dense_matmul_fused_deterministic_and_graph_replay_on_card(cuda, dot):
+    """Two launches bit-equal (split-K added in split order on chip, no
+    atomics), and CUDA-graph replay bit-equal to the eager launch."""
+    run, _, _ = _fused_case(dot, 128, cuda, seed=3)
+    eager = run()
+    assert torch.equal(run(), eager)
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        run()  # warm the stream outside the capture
+    torch.cuda.current_stream().wait_stream(stream)
+    with torch.cuda.graph(graph):
+        captured = run()
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, eager)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dot", ["wqkv + norm", "wo + residual", "w13 + norm", "w2 + residual"])
+def test_dense_matmul_fused_rows_bit_equal_across_m_on_card(cuda, dot):
+    """Row invariance: the rows of an M = 16 call (the AR step at B = 4
+    padded) equal the same rows of an M = 128 call bit for bit."""
+    In, Out = {"wqkv": (2048, 3072), "wo": (2048, 2048), "w13": (2048, 16384),
+               "w2": (8192, 2048)}[dot.split()[0]]
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    x = _rand(gen, 128, In, device=cuda, scale=3.0)
     w = _rand(gen, In, Out, device=cuda, scale=In ** -0.5)
     nw = (torch.rand((In,), generator=gen, device=cuda) + 0.5).to(torch.bfloat16)
-    res = _rand(gen, M, Out, device=cuda)
-    kw = dict(norm_w=nw) if "norm" in dot else dict(res=res)
-    out = DK.dense_matmul_fused(x, w, **kw)
-    ref = DK.dense_matmul_fused_plain(x, w, **kw)
-    assert torch.isfinite(out).all() and _outside(out, ref) == 0
-    assert _outside(DK.dense_matmul_fused_plain(x, w), ref) > 0  # without the norm / residual
+    res = _rand(gen, 128, Out, device=cuda)
+    if "norm" in dot:
+        big, small = (DK.dense_matmul_fused(x[:m].contiguous(), w, nw) for m in (128, 16))
+    else:
+        big, small = (DK.dense_matmul_fused(x[:m].contiguous(), w, res=res[:m].contiguous())
+                      for m in (128, 16))
+    assert torch.equal(big[:16], small)
 
 
 @pytest.mark.gpu

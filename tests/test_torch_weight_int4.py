@@ -9,8 +9,13 @@ kernels in interpret mode; the plain group-wise product against the JAX
 package's jnp path; the routing of the draft's int4 dots; the draft pass
 on the ``pallas`` backend at the t512 widths of tests/test_torch_quant.py,
 where the JAX package's routing reaches its kernels (the engine's tokens
-are in tests/test_torch_int4_engine.py).  On the card (``gpu`` marker, skipped without one): each CUDA
-kernel against its plain version.
+are in tests/test_torch_int4_engine.py); B4-int4's one-launch host side
+(its split plan on group boundaries, one C call with only ``out``
+allocated, against a fake library) and a plain model of its split and
+group order against the plain version and the Pallas kernel.  On the card
+(``gpu`` marker, skipped without one): each CUDA kernel against its plain
+version, B4-int4 at M = 32 to 256 and groups 64 to 256, bit-equal across
+two launches and under CUDA-graph replay.
 
 Tolerances.  Packing, quantization, dequantization and conversion are
 exact.  Plain versions against the Pallas kernels: atol = rtol = 2e-5 in
@@ -325,6 +330,152 @@ def test_int4_wrappers_never_fall_back():
         QK.quant_matmul_fused_int4(x, q, torch.ones(4, 256), gate=True)
 
 
+# -- B4-int4's one-launch cluster kernel: plan, host side, sum order ----------
+
+
+@pytest.mark.parametrize("In,Out,group", [(2048, 3072, 128), (2048, 2048, 128),
+                                          (2048, 16384, 128), (8192, 2048, 128),
+                                          (2048, 3072, 32), (2048, 3072, 64),
+                                          (2048, 3072, 256), (1024, 256, 128)])
+def test_b4_int4_split_plan_on_group_boundaries(In, Out, group):
+    """B4-int4's splits: at most 8, none empty, each starting on a group
+    boundary (cut in units of max(group, 128) rows), from the shape alone."""
+    unit = max(group, QK.BK4)
+    split = QK.cluster_split_plan(In, Out, unit)
+    units = In // unit
+    per = -(-units // split)
+    assert 1 <= split <= 8 and -(-units // per) == split
+    bounds = [(k, min(In, k + per * unit)) for k in range(0, In, per * unit)]
+    assert len(bounds) == split and all(k0 % group == 0 and k1 > k0 for k0, k1 in bounds)
+
+
+class _FakeLibrary:
+    """Records the arguments of the int4 entry points (returns success)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def md_quant_matmul_int4_sm90(self, *args):
+        self.calls.append(("b4", args))
+        return 0
+
+    def md_quant_matmul_int4(self, *args):
+        self.calls.append(("b6", args))
+        return 0
+
+
+@pytest.mark.parametrize("epilogue", ["none", "gate", "residual"])
+def test_b4_int4_launch_once_with_a_shape_only_plan(epilogue, monkeypatch):
+    """The B4-int4 host side: one kernel call a wrapper call, the split from
+    the weight's shape and group at every M from 1 to 256, nothing allocated
+    but the output (rows past 256 raise); B6-int4 keeps its own entry."""
+    from magicdec_tpu_torch.kernels import build
+
+    lib = _FakeLibrary()
+    monkeypatch.setattr(build, "library", lambda: lib)
+    monkeypatch.setattr(build, "stream_ptr", lambda t: 0)
+    In, Out, group = 8192, 2048, 128
+    q = torch.zeros(In // 2, Out, dtype=torch.int8)
+    s = torch.ones(In // group, Out)
+    gate = epilogue == "gate"
+    allocated = []
+    empty = torch.empty
+    monkeypatch.setattr(torch, "empty", lambda *a, **k: allocated.append(a) or empty(*a, **k))
+    rows = (1, 17, 32, 64, 65, 160, 256)
+    for M in rows:
+        res = torch.zeros(M, Out, dtype=torch.bfloat16) if epilogue == "residual" else None
+        out = QK._launch_b4_int4(torch.zeros(M, In, dtype=torch.bfloat16), q, s, res, gate)
+        assert out.shape == (M, Out // 2 if gate else Out)
+    assert allocated == [((M, Out // 2 if gate else Out),) for M in rows]
+    assert [c[0] for c in lib.calls] == ["b4"] * len(rows)
+    args = [c[1] for c in lib.calls]
+    # x, q, scale, res, out, M, In, Out, gate, split, group, stream
+    assert all(len(a) == 12 for a in args)
+    assert {a[9] for a in args} == {QK.cluster_split_plan(In, Out, 128)} == {8}
+    assert {(a[8], a[10]) for a in args} == {(int(gate), group)}
+    assert [a[5] for a in args] == list(rows)
+    with pytest.raises(ValueError, match="at most 256 rows"):
+        QK._launch_b4_int4(torch.zeros(257, In, dtype=torch.bfloat16), q, s)
+    QK._launch_b6_int4(torch.zeros(32, In, dtype=torch.bfloat16), q, s)
+    assert lib.calls[-1][0] == "b6" and len(lib.calls[-1][1]) == 11
+
+
+def _int4_cluster_order_model(x, q, scale, res=None, *, gate=False):
+    """B4-int4's sum order in plain torch: the contraction cut by
+    cluster_split_plan in units of max(group, 128) rows; in each split the
+    groups in order, acc += f32(x_g @ q_g) * s_g; the splits' partials added
+    in split order; then B4's epilogue."""
+    from magicdec_tpu_torch.quantization import unpack_int4
+
+    M, In = x.shape
+    G = scale.shape[0]
+    group = In // G
+    unit = max(group, QK.BK4)
+    split = QK.cluster_split_plan(In, q.shape[1], unit)
+    per = -(-(In // unit) // split) * unit
+    qf = unpack_int4(q).to(torch.float32)
+    xf = x.to(torch.float32)
+    acc = None
+    for k0 in range(0, In, per):
+        part = torch.zeros((M, q.shape[1]), dtype=torch.float32)
+        for g0 in range(k0, min(In, k0 + per), group):
+            part += (xf[:, g0:g0 + group] @ qf[g0:g0 + group]) * scale[g0 // group].float()
+        acc = part if acc is None else acc + part
+    return QK._epilogue(acc, x.dtype, res, gate)
+
+
+@pytest.mark.parametrize("group", [64, 128, 256])
+@pytest.mark.parametrize("epilogue", ["none", "gate", "residual"])
+def test_int4_cluster_order_model_matches_plain(epilogue, group):
+    """The split- and group-order model against the plain version in
+    float32 (In 1024: 8 splits at groups 64 and 128, 4 at 256)."""
+    M, In, Out = 8, 1024, 256
+    extra = [(M, Out)] if epilogue == "residual" else []
+    _, _, _, ta = _operands_group(np.random.RandomState(4), "float32", M, In, Out, group,
+                                  *extra)
+    x, q, s = ta[0], ta[-2], ta[-1]
+    res = ta[1] if epilogue == "residual" else None
+    assert QK.cluster_split_plan(In, Out, max(group, 128)) == In // max(group, 128)
+    got = _int4_cluster_order_model(x, q, s, res, gate=epilogue == "gate")
+    want = QK.quant_matmul_fused_int4_plain(x, q, s, res, gate=epilogue == "gate")
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+
+
+def _operands_group(rng, dtype, M, In, Out, group, *extra):
+    """_operands with an int4 weight of the given group: (jw, None, ja, ta
+    + [q, scale] of the port)."""
+    import jax.numpy as jnp
+
+    jw = _jq4((rng.randn(In, Out) / np.sqrt(In)).astype(np.float32), group_size=group)
+    tw = _tq(jw)
+    arrays = [rng.randn(M, In).astype(np.float32)] + [
+        (rng.rand(*s) + 0.5).astype(np.float32) for s in extra]
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    return (jw, None, [jnp.asarray(a, jd) for a in arrays],
+            [torch.from_numpy(a).to(td) for a in arrays] + [tw.q, tw.scale])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("epilogue", ["none", "gate", "residual"])
+def test_int4_cluster_order_model_matches_pallas(epilogue, dtype):
+    """The split- and group-order model against ``_fused_kernel`` with
+    bits=4 in interpret mode (8 splits over In 1024, group 128)."""
+    from magicdec_tpu.ops.pallas.quant_matmul import quant_matmul_fused_pallas
+
+    M, In, Out = 8, 1024, 256
+    extra = [(M, Out)] if epilogue == "residual" else []
+    jw, _, ja, ta = _operands_group(np.random.RandomState(5), dtype, M, In, Out, 128, *extra)
+    kw = dict(bits=4, group_size=jw.group_size, block_in=512, block_out=64, interpret=True)
+    if epilogue == "residual":
+        ref = quant_matmul_fused_pallas(ja[0], jw.q, jw.scale, None, ja[1], **kw)
+    else:
+        ref = quant_matmul_fused_pallas(ja[0], jw.q, jw.scale, gate=epilogue == "gate", **kw)
+    got = _int4_cluster_order_model(ta[0], ta[-2], ta[-1],
+                                    ta[1] if epilogue == "residual" else None,
+                                    gate=epilogue == "gate")
+    _compare(got, ref, dtype)
+
+
 # -- the draft pass and the engine vs the JAX package -------------------------
 
 
@@ -380,9 +531,9 @@ def test_forward_draft_int4_matches_jax(T, pallas, monkeypatch):
 # -- on the card: CUDA kernel vs plain version --------------------------------
 
 
-def _card_weight(gen, In, Out, device):
+def _card_weight(gen, In, Out, device, group=None):
     w = torch.randn((In, Out), generator=gen, device=device) / In ** 0.5
-    qw = Q.quantize_weight(w.to(torch.bfloat16), bits=4)
+    qw = Q.quantize_weight(w.to(torch.bfloat16), bits=4, group_size=group)
     return qw.q, qw.scale
 
 
@@ -421,3 +572,59 @@ def test_int4_kernels_match_plain_on_card(cuda, kind, M):
     assert torch.isfinite(out).all()
     assert _outside(out, ref) == 0
     assert _outside(wrong, ref) > 0
+
+
+def _b4_int4_case(kind, M, In, Out, group, device, seed):
+    """(run, plain, wrong) of one B4-int4 case; wrong shifts the scales by
+    one group (none, gate) or drops the residual."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q, s = _card_weight(gen, In, Out, device, group)
+    x = torch.randn((M, In), generator=gen, device=device).to(torch.bfloat16)
+    res = torch.randn((M, Out), generator=gen, device=device).to(torch.bfloat16)
+    kw = {"none": {}, "gate": dict(gate=True), "residual": dict(res=res)}[kind]
+    wrong = (lambda: QK.quant_matmul_fused_int4_plain(x, q, s)) if kind == "residual" else (
+        lambda: QK.quant_matmul_fused_int4_plain(x, q, s.roll(1, 0), **kw))
+    return (lambda: QK.quant_matmul_fused_int4(x, q, s, **kw),
+            lambda: QK.quant_matmul_fused_int4_plain(x, q, s, **kw), wrong)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("group", [64, 128, 256])
+@pytest.mark.parametrize("M", [32, 64, 160, 256])
+@pytest.mark.parametrize("kind", ["none", "gate", "residual"])
+def test_b4_int4_kernel_groups_match_plain_on_card(cuda, kind, M, group):
+    """B4-int4 on the cluster kernel at the wqkv width (w13's 4096 columns
+    with the gate), M = 32 to 256 (160 and 256: several row passes), groups
+    64 to 256; the wrong reference must fail the bound."""
+    run, plain, wrong = _b4_int4_case(kind, M, 2048, 4096 if kind == "gate" else 3072, group,
+                                      cuda, M + group)
+    out, ref = run(), plain()
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert _outside(out, ref) == 0
+    assert _outside(wrong(), ref) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,In,Out,M", [("none", 2048, 3072, 32), ("residual", 2048, 2048, 64),
+                                           ("gate", 2048, 16384, 32),
+                                           ("residual", 8192, 2048, 64)])
+def test_b4_int4_deterministic_and_graph_replay_on_card(cuda, kind, In, Out, M):
+    """At the draft's shapes: two launches bit-equal (splits added in split
+    order on chip, no atomics), CUDA-graph replay bit-equal to eager."""
+    run, plain, _ = _b4_int4_case(kind, M, In, Out, 128, cuda, 9)
+    eager = run()
+    assert torch.equal(run(), eager)
+    assert _outside(eager, plain()) == 0
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        run()  # warm the stream outside the capture
+    torch.cuda.current_stream().wait_stream(stream)
+    with torch.cuda.graph(graph):
+        captured = run()
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, eager)
