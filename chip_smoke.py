@@ -7,8 +7,8 @@ of which raises on failure:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build of every kernel from ``magicdec_tpu_torch/csrc`` (timed), with
-   ptxas's registers, shared memory and spills of the Hopper kernels of B4/B6
-   and K2q/B11;
+   ptxas's registers, shared memory and spills of the Hopper kernels of B4/B6,
+   B4-int4/B6-int4, B15 and K2/K2q/B11;
 3. kernel phase: each Hopper kernel against its plain PyTorch version at the
    shapes of the bench's main path (llama-3.2-1b widths, B=32, target cache
    8704 rows in bf16 and in int8 with f32 scales quantized from the same
@@ -29,7 +29,7 @@ of which raises on failure:
    and a library yardstick (``library_ms``: ``scaled_dot_product_attention``
    on the (dequantized) bf16 K/V for the attention kernels, ``index_copy_``
    of the rows (and scales) for the appends; timed only, never used by the
-   port); K2q and B11 also under torch.profiler, which must see one
+   port); K2, K2q and B11 also under torch.profiler, which must see one
    launch of ``prefill_sm90_kernel`` a call; then the int8 dots of the
    draft's weight copy (B4 with its norm,
    gate and residual epilogues, B5, B6, and B9), at llama-3.2-1b widths and
@@ -44,8 +44,8 @@ of which raises on failure:
    values by ``quantize_kv_tokens_int4`` (wrong references: without the
    fresh rows, and with the nibble planes swapped), K3q on packed rows bit
    for bit, and the group-wise int4 dots B4-int4 (wqkv, wo + residual, w13
-   + gate, w2 + residual; under torch.profiler one kernel launch a call)
-   and B6-int4 (the head) at M = 32 and 64 (wrong references: the group
+   + gate, w2 + residual) and B6-int4 (the head), each under torch.profiler
+   one kernel launch a call, at M = 32 and 64 (wrong references: the group
    scales shifted by one group, the head's scales rolled by one column),
    their bound the packed weight and its scales; and
    the paged serving kernels at the serving paths' shapes (16 slots of
@@ -356,8 +356,9 @@ def kernel_phase(torch, gen):
         flops = 4 * hd * Hq * pairs
         calls = [lambda l=l: fn(q, *caches, base, layer=l, **fresh) for l in range(L)]
         extra = None
-        if fn in (PA.flash_prefill_attend_quant, PA.flash_prefill_attend_quant4):
-            # K2q / B11: one launch of the Hopper kernel a call
+        if fn in (PA.flash_prefill_attend, PA.flash_prefill_attend_quant,
+                  PA.flash_prefill_attend_quant4):
+            # K2 / K2q / B11: one launch of the Hopper kernel a call
             extra = _one_launch(torch, name, case, calls, kernel="prefill_sm90_kernel")
         # one exponential a visible (row, column) pair
         record(name, case, err, tol, ms, plain_ms, nbytes, flops, library_ms, calls, [lib],
@@ -1480,6 +1481,7 @@ def _profiled(torch, calls, attempts=3):
 ONE_LAUNCH = {"quant_matmul_fused": "qmm_sm90_kernel<false",
               "quant_matmul": "qmm_sm90_kernel<false",
               "quant_matmul_fused_int4": "qmm_sm90_kernel<true",
+              "quant_matmul_int4": "qmm4_sm90_kernel",
               "dense_matmul_fused": "dmm_sm90_kernel"}
 
 
@@ -1662,8 +1664,10 @@ def main():
     lib = build.build(verbose=True)
     print(f"[build] {lib.name} in {time.perf_counter() - t_start:.1f}s", flush=True)
     # registers, shared memory and spills of the Hopper kernels (B4/B6 and
-    # B4-int4, B15's dense_matmul_fused, K2q/B11), each instantiation
+    # B4-int4, B6-int4, B15's dense_matmul_fused, K2/K2q/B11), each
+    # instantiation
     for source, kernel in (("quant_matmul_sm90", "qmm_sm90_kernel"),
+                           ("quant_matmul_sm90", "qmm4_sm90_kernel"),
                            ("dense_matmul_sm90", "dmm_sm90_kernel"),
                            ("prefill_attention_sm90", "prefill_sm90_kernel")):
         log = build.BUILD_DIR / f"{source}.nvcc.log"
@@ -1783,7 +1787,7 @@ def main():
     meta = {
         "flash_decode_attend": ("magicdec_tpu_torch/csrc/decode_attention.cu",
                                 "magicdec_tpu/ops/pallas/decode_attention.py:505"),
-        "flash_prefill_attend": ("magicdec_tpu_torch/csrc/prefill_attention.cu",
+        "flash_prefill_attend": ("magicdec_tpu_torch/csrc/prefill_attention_sm90.cu",
                                  "magicdec_tpu/ops/pallas/prefill_attention.py:304"),
         "append_all_rows_inplace": ("magicdec_tpu_torch/csrc/append.cu",
                                     "magicdec_tpu/ops/kv_cache.py:374"),
@@ -1809,7 +1813,7 @@ def main():
         # quant_matmul_pallas (:221)
         "quant_matmul_fused_int4": ("magicdec_tpu_torch/csrc/quant_matmul_sm90.cu",
                                     "magicdec_tpu/ops/pallas/quant_matmul.py:151"),
-        "quant_matmul_int4": ("magicdec_tpu_torch/csrc/quant_matmul.cu",
+        "quant_matmul_int4": ("magicdec_tpu_torch/csrc/quant_matmul_sm90.cu",
                               "magicdec_tpu/ops/pallas/quant_matmul.py:189"),
         "flash_paged_decode_attend": ("magicdec_tpu_torch/csrc/paged_attention.cu",
                                       "magicdec_tpu/ops/pallas/paged_attention.py:122"),

@@ -1,17 +1,18 @@
-// K2q and B11 on Hopper: chunked-prefill flash attention over the
-// layer-stacked int8 cache (K2q) and the int4 cache packed in head pairs
-// (B11), one launch a call.
+// K2, K2q and B11 on Hopper: chunked-prefill flash attention over the
+// layer-stacked bf16 cache (K2), the int8 cache (K2q) and the int4 cache
+// packed in head pairs (B11), one launch a call.
 //
-// Replaces magicdec_tpu/ops/pallas/prefill_attention.py
-// flash_prefill_attend_quant (_prefill_quant_kernel) and
-// flash_prefill_attend_quant4 (_prefill_quant4_kernel), with the scale
-// order of decode_attention.py _quant_online_update.  A C-token chunk of
-// request b attends the cache rows [0, base_b) of layer `layer` plus its own
-// fresh rows [base_b, base_b + C) (or, without fresh rows, the cache holds
-// the chunk): token t sees positions [0, min(base_b + t + 1, S)).  The
-// score of column c is s_raw * (k_scale[c] / sqrt(hd)), masked columns take
-// -1e30, l sums the unscaled p, P.V takes bf16(p * v_scale[c]), and the
-// output is acc / max(l, 1e-30) in bf16.
+// Replaces magicdec_tpu/ops/pallas/prefill_attention.py flash_prefill_attend
+// (_prefill_kernel), flash_prefill_attend_quant (_prefill_quant_kernel) and
+// flash_prefill_attend_quant4 (_prefill_quant4_kernel), the quantized ones
+// with the scale order of decode_attention.py _quant_online_update.  A
+// C-token chunk of request b attends the cache rows [0, base_b) of layer
+// `layer` plus its own fresh rows [base_b, base_b + C) (or, without fresh
+// rows, the cache holds the chunk): token t sees positions [0, min(base_b +
+// t + 1, S)).  The score of column c is s_raw / sqrt(hd) (quantized: s_raw *
+// (k_scale[c] / sqrt(hd))), masked columns take -1e30, l sums the unscaled
+// p, P.V takes bf16(p) (quantized: bf16(p * v_scale[c])), and the output is
+// acc / max(l, 1e-30) in bf16.
 //
 // Bound: tensor-core operations and exponentials, about equally.  Each
 // visible (row, column) pair costs 4 hd = 256 flops and one ex2; at 989
@@ -26,7 +27,8 @@
 //   h) (row r: token t = r / G of query head h G + r % G, so one K/V tile
 //   feeds all G heads), split between three consumer warpgroups of 64 rows;
 //   a fourth warpgroup produces the tiles.  setmaxnreg moves registers from
-//   the producer (56) to the consumers (152).  Three consumer warps on each
+//   the producer (56) to the consumers (152).  The three formats share the
+//   consumers; only the producer differs.  Three consumer warps on each
 //   SM sub-partition hide each other's softmax latency: with two (128 rows)
 //   the kernel took 3.55 ms at the bench's shape, with three 2.99 (PERF.md).
 // - Products on wgmma.  S = Q K^T is m64n128k16 with Q resident in shared
@@ -47,11 +49,21 @@
 //   shape) and cached.  The one tile of a block that straddles base (serving
 //   admission's ragged lengths) takes its rows from base on by the
 //   producer's own 16-byte loads.
-// - Conversion off the consumers' path.  The producer warpgroup turns each
-//   landed int8 tile (int4: the head's nibble plane) into the swizzled bf16
-//   tile the consumers' wgmma reads, exactly (a byte permute, two logic ops
-//   and a bf16x2 subtraction a pair, no conversion unit), with the tile's
-//   scales: k_scale * 1/sqrt(hd) * log2(e) folded into one factor a column,
+// - bf16 (K2): no conversion.  The lead thread lands 128-byte (64-value) x
+//   128-row boxes with the 128-byte swizzle straight into the tiles the
+//   consumers' wgmma reads, BF_STAGES of them in flight; the score factor
+//   is the constant 1/sqrt(hd) * log2(e).  A bf16 tile has no scale to zero,
+//   and a masked p of 0 times a V row holding inf or NaN (a torch.empty
+//   cache) is NaN inside wgmma, so rows the block cannot see must be zeros:
+//   the tile that holds the block's visible end (without fresh rows) and the
+//   tile that straddles base (with them) are written by all 128 producer
+//   threads with 16-byte loads, zeros from the visible end on (TMA
+//   zero-fills only past S), and handed on by the lead thread.
+// - Conversion off the consumers' path (int8, int4).  The producer
+//   warpgroup turns each landed int8 tile (int4: the head's nibble plane)
+//   into the swizzled bf16 tile the consumers' wgmma reads, exactly (a byte
+//   permute, two logic ops and a bf16x2 subtraction a pair, no conversion
+//   unit), with the tile's scales: k_scale * 1/sqrt(hd) * log2(e) folded into one factor a column,
 //   v_scale as is, both zero for columns the block cannot see (a
 //   torch.empty cache may hold inf there: 0 * inf must never reach a sum),
 //   the scale loads issued one tile ahead.  It arrives on the stage's
@@ -73,6 +85,9 @@ namespace pfa {
 using namespace md::sm90;
 
 constexpr int HD = 64;
+constexpr float kFold = 0.125f * 1.4426950408889634f;  // 1/sqrt(HD) * log2(e)
+// the cache formats: bf16 (K2), int8 (K2q), int4 packed in head pairs (B11)
+enum Fmt { kBF16 = 0, kI8 = 1, kI4 = 2 };
 constexpr int NCONS = 3;                    // consumer warpgroups of 64 rows
 constexpr int BM = 64 * NCONS;              // grouped query rows a block
 constexpr int BN = 128;                     // KV positions a tile
@@ -93,11 +108,14 @@ constexpr int SC_FLOATS = 4 * SC_LD;
 constexpr int BF_STAGE = 2 * BF_TILE + 2048;  // K, V, k factors and v scales (2 x SC_FLOATS)
 constexpr int I8_OFF = BF_OFF + BF_STAGES * BF_STAGE;
 constexpr int I8_STAGE = 2 * I8_TILE;       // K, V
-constexpr int BAR_OFF = I8_OFF + I8_STAGES * I8_STAGE;
+// the barriers: after the int8 ring, or (bf16) where it would start
+template <int FMT>
+constexpr int BAR_OFF = I8_OFF + (FMT == kBF16 ? 0 : I8_STAGES * I8_STAGE);
 constexpr int NBARS = I8_STAGES + 2 * BF_STAGES;
-constexpr int SMEM = BAR_OFF + 8 * NBARS + 1024;  // + slack to align the base
+template <int FMT>
+constexpr int SMEM = BAR_OFF<FMT> + 8 * NBARS + 1024;  // + slack to align the base
 static_assert(BF_STAGE % 1024 == 0 && BF_OFF % 1024 == 0, "bf16 tiles keep the swizzle period");
-static_assert(SMEM <= 227 * 1024, "shared memory of one block");
+static_assert(SMEM<kI8> <= 227 * 1024, "shared memory of one block");
 static_assert(2 * SC_FLOATS * 4 <= 2048, "the scales fit their slot");
 // named barriers (0 is __syncthreads): the producer warpgroup's, each
 // consumer warpgroup's Q
@@ -105,18 +123,20 @@ constexpr int BAR_PRODUCER = 1;
 constexpr int BAR_Q = 2;
 
 struct Args {
-  CUtensorMap kmap, vmap;    // layer's cache [B, S, Kw] int8, box {HD, BN, 1}
+  CUtensorMap kmap, vmap;    // layer's cache [B, S, Kw], box {HD, BN, 1} (bf16: 128-byte swizzle)
   CUtensorMap knmap, vnmap;  // fresh rows [B, T, Kw], same box (with fresh rows)
   const __nv_bfloat16* q;    // [B, T, Hq, HD]
-  const int8_t* k_new;       // [B, T, Kw] or null
-  const int8_t* v_new;
-  const float* k_scale;      // [L, B, Hkv, S]
+  const uint8_t* k;          // the layer's cache [B, S, Kw] (bf16: the producer's own loads)
+  const uint8_t* v;
+  const uint8_t* k_new;      // [B, T, Kw] or null
+  const uint8_t* v_new;
+  const float* k_scale;      // [L, B, Hkv, S] (quantized)
   const float* v_scale;
   const float* ks_new;       // [B, Hkv, T] or null
   const float* vs_new;
   const int* base_lens;      // [B]
   __nv_bfloat16* out;        // [B, T, Hq, HD]
-  int layer, B, S, T, Hq, Hkv, Kw;
+  int layer, B, S, T, Hq, Hkv, Kw;  // Kw: a row's values (int4: bytes of a head pair's rows)
 };
 
 namespace {
@@ -237,23 +257,29 @@ __device__ __forceinline__ void tree(float* t, Op op) {
 
 // The online softmax of one tile's scores s (the S accumulator: s[4 j + e]
 // is row i = e / 2 of the thread's two, column c0 + 8 j + 2 t4 + e % 2) in
-// the exp2 domain: y = s_raw * kf (k_scale / sqrt(hd) * log2 e), -1e30 where
-// masked (MASKED: a tile reaching past the warpgroup's first limit); s
-// becomes p, m and l are updated, corr is the factor for the accumulator.
-// kf points at the thread's 32 columns (2 j + e).  The row maxima and sums
-// are trees, not chains: a warp has few neighbours to hide latency.
-template <bool MASKED>
+// the exp2 domain: y = s_raw * kf (SCALED: k_scale / sqrt(hd) * log2 e a
+// column, else kFold), -1e30 where masked (MASKED: a tile reaching past the
+// warpgroup's first limit); s becomes p, m and l are updated, corr is the
+// factor for the accumulator.  kf points at the thread's 32 columns (2 j +
+// e).  The row maxima and sums are trees, not chains: a warp has few
+// neighbours to hide latency.
+template <bool MASKED, bool SCALED>
 __device__ __forceinline__ void softmax_tile(float (&s)[NS], const float* kf, int c0,
                                              const int (&lim)[2], int t4, float (&m)[2],
                                              float (&l)[2], float (&corr)[2]) {
+  if constexpr (SCALED) {
 #pragma unroll
-  for (int j2 = 0; j2 < BN / 16; ++j2) {
-    const float4 f = *reinterpret_cast<const float4*>(kf + 4 * j2);
-    const float fj[4] = {f.x, f.y, f.z, f.w};
+    for (int j2 = 0; j2 < BN / 16; ++j2) {
+      const float4 f = *reinterpret_cast<const float4*>(kf + 4 * j2);
+      const float fj[4] = {f.x, f.y, f.z, f.w};
 #pragma unroll
-    for (int h = 0; h < 2; ++h)
+      for (int h = 0; h < 2; ++h)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[8 * j2 + 4 * h + e] *= fj[2 * h + (e & 1)];
+        for (int e = 0; e < 4; ++e) s[8 * j2 + 4 * h + e] *= fj[2 * h + (e & 1)];
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < NS; ++j) s[j] *= kFold;
   }
   if constexpr (MASKED) {
 #pragma unroll
@@ -286,14 +312,17 @@ __device__ __forceinline__ void softmax_tile(float (&s)[NS], const float* kf, in
   }
 }
 
-// P = bf16(p * v_scale) as A fragments (pa[kk]: columns 16 kk .. 16 kk + 15);
-// vsc points at the thread's 32 columns (2 j + e).
+// P = bf16(p * v_scale) (SCALED) or bf16(p) as A fragments (pa[kk]:
+// columns 16 kk .. 16 kk + 15); vsc points at the thread's 32 columns (2 j +
+// e).
+template <bool SCALED>
 __device__ __forceinline__ void pack_p(const float (&s)[NS], const float* vsc,
                                        uint32_t (&pa)[BN / 16][4]) {
 #pragma unroll
   for (int kk = 0; kk < BN / 16; ++kk) {
     // columns 16 kk + 2 t4 (+1) (j = 2 kk) and 16 kk + 8 + 2 t4 (+1) (j = 2 kk + 1)
-    const float4 v = *reinterpret_cast<const float4*>(vsc + 4 * kk);
+    const float4 v = SCALED ? *reinterpret_cast<const float4*>(vsc + 4 * kk)
+                            : make_float4(1.f, 1.f, 1.f, 1.f);
     pa[kk][0] = pack_bf16x2(s[8 * kk] * v.x, s[8 * kk + 1] * v.y);
     pa[kk][1] = pack_bf16x2(s[8 * kk + 2] * v.x, s[8 * kk + 3] * v.y);
     pa[kk][2] = pack_bf16x2(s[8 * kk + 4] * v.z, s[8 * kk + 5] * v.w);
@@ -303,18 +332,24 @@ __device__ __forceinline__ void pack_p(const float (&s)[NS], const float* vsc,
 
 }  // namespace
 
+// The producer warpgroup's own barrier.
+__device__ __forceinline__ void producer_sync() {
+  asm volatile("bar.sync %0, 128;\n" ::"n"(BAR_PRODUCER) : "memory");
+}
+
 // Grid (row blocks, Hkv, B), NTHREADS threads: warpgroups 0 .. NCONS - 1
 // consume (64 rows each), warpgroup NCONS produces.
-template <bool INT4>
+template <int FMT>
 __global__ void __launch_bounds__(NTHREADS, 1) prefill_sm90_kernel(const __grid_constant__ Args a) {
+  constexpr bool INT4 = FMT == kI4, Q8 = FMT != kBF16;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t pad = ((raw + 1023u) & ~1023u) - raw;
   uint8_t* smem = smem_raw + pad;
   const uint32_t sbase = raw + pad;
-  // i8_full[s] (TMA bytes), bf_full[s] (the producer's 128 threads),
-  // bf_empty[s] (every consumer thread)
-  const uint32_t i8_full = sbase + BAR_OFF;
+  // i8_full[s] (TMA bytes), bf_full[s] (the producer's 128 threads; bf16:
+  // the lead thread, with the TMA bytes), bf_empty[s] (every consumer thread)
+  const uint32_t i8_full = sbase + BAR_OFF<FMT>;
   const uint32_t bf_full = i8_full + 8 * I8_STAGES;
   const uint32_t bf_empty = bf_full + 8 * BF_STAGES;
 
@@ -331,14 +366,84 @@ __global__ void __launch_bounds__(NTHREADS, 1) prefill_sm90_kernel(const __grid_
   if (threadIdx.x == 0) {
     for (int s = 0; s < I8_STAGES; ++s) mbar_init(i8_full + 8 * s, 1);
     for (int s = 0; s < BF_STAGES; ++s) {
-      mbar_init(bf_full + 8 * s, 128);
+      mbar_init(bf_full + 8 * s, Q8 ? 128 : 1);
       mbar_init(bf_empty + 8 * s, 128 * NCONS);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  if (wg == NCONS) {
+  if (wg == NCONS && !Q8) {
+    // ---- bf16 producer: TMA loads (lead thread), the tiles that need zeros
+    // by hand (all 128) --------------------------------------------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n" ::: "memory");
+    const int p = threadIdx.x - 128 * NCONS;
+    if (p == 0) {
+      prefetch_map(&a.kmap);
+      prefetch_map(&a.vmap);
+      if (fresh) {
+        prefetch_map(&a.knmap);
+        prefetch_map(&a.vnmap);
+      }
+    }
+    const int c16 = p & 7;  // this thread's 16-byte chunk of every row
+    const size_t col = (size_t)h * HD + c16 * 8;
+    for (int i = 0; i < ntiles; ++i) {
+      const int c0 = i * BN, s = i % BF_STAGES;
+      // rows past the visible end come from the cache only in the block's
+      // last tile without fresh rows; with them, the tile straddling base
+      const bool by_hand = fresh ? c0 < base && c0 + BN > base : c0 + BN > hi && hi < a.S;
+      // every thread waits for every tile in turn: a parity wait is right
+      // only one phase ahead
+      mbar_wait(bf_empty + 8 * s, ((i / BF_STAGES) & 1) ^ 1);  // the consumers let it go
+      const uint32_t full = bf_full + 8 * s;
+      if (!by_hand) {
+        if (p != 0) continue;
+        const uint32_t dst = sbase + BF_OFF + s * BF_STAGE;
+        mbar_expect_tx(full, 2 * BF_TILE);
+        const bool from_new = fresh && c0 >= base;
+        const int row = from_new ? c0 - base : c0;
+        tma_load_3d(dst, from_new ? &a.knmap : &a.kmap, full, h * HD, row, b);
+        tma_load_3d(dst + BF_TILE, from_new ? &a.vnmap : &a.vmap, full, h * HD, row, b);
+        continue;
+      }
+      // row c0 + r: fresh row r + c0 - base from base on, a cache row below
+      // the visible end, else zeros; 128 bytes a row, 16-byte chunk c at c ^
+      // r % 8 (the 128-byte swizzle TMA writes); four loads in flight
+      uint8_t* tile = smem + BF_OFF + s * BF_STAGE;
+#pragma unroll
+      for (int kv = 0; kv < 2; ++kv) {
+        const uint8_t* cache = kv ? a.v : a.k;
+        const uint8_t* fr = kv ? a.v_new : a.k_new;
+#pragma unroll
+        for (int k0 = 0; k0 < BN / 16; k0 += 4) {
+          uint4 v[4];
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const int r = c0 + (p >> 3) + 16 * (k0 + k);
+            v[k] = make_uint4(0, 0, 0, 0);
+            if (fresh && r >= base) {
+              if (r - base < a.T)
+                v[k] = __ldg(reinterpret_cast<const uint4*>(
+                    fr + (((size_t)b * a.T + (r - base)) * a.Kw + col) * 2));
+            } else if (r < hi) {
+              v[k] = __ldg(reinterpret_cast<const uint4*>(
+                  cache + (((size_t)b * a.S + r) * a.Kw + col) * 2));
+            }
+          }
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const int r = (p >> 3) + 16 * (k0 + k);
+            *reinterpret_cast<uint4*>(tile + kv * BF_TILE + r * 128 + ((c16 ^ (r & 7)) << 4)) =
+                v[k];
+          }
+        }
+      }
+      fence_proxy_async();  // the tile's generic writes before wgmma reads them
+      producer_sync();
+      if (p == 0) mbar_arrive(full);
+    }
+  } else if (wg == NCONS) {
     // ---- producer: TMA loads (lead thread), conversion (all 128) ------------
     asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n" ::: "memory");
     const int p = threadIdx.x - 128 * NCONS;
@@ -366,7 +471,6 @@ __global__ void __launch_bounds__(NTHREADS, 1) prefill_sm90_kernel(const __grid_
       }
       for (int i = 0; i < min(ntiles, I8_STAGES); ++i) issue(i);
     }
-    constexpr float kFold = 0.125f * 1.4426950408889634f;  // 1/sqrt(HD) * log2(e)
     const size_t srow = (((size_t)a.layer * a.B + b) * a.Hkv + h) * a.S;
     const size_t snew = ((size_t)b * a.Hkv + h) * a.T;
     // the scales of column c0 + p, zero where the block sees nothing
@@ -409,7 +513,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) prefill_sm90_kernel(const __grid_
       const bool straddle = fresh && c0 < base && c0 + BN > base;
 #pragma unroll
       for (int kv = 0; kv < 2; ++kv) {
-        const int8_t* fr = (kv ? a.v_new : a.k_new) + h_lane + c16 * 16;
+        const uint8_t* fr = (kv ? a.v_new : a.k_new) + h_lane + c16 * 16;
 #pragma unroll
         for (int k = 0; k < BN / 32; ++k) {
           uint4 v = *reinterpret_cast<const uint4*>(src + kv * I8_TILE + k * 32 * HD);
@@ -489,9 +593,9 @@ __global__ void __launch_bounds__(NTHREADS, 1) prefill_sm90_kernel(const __grid_
     };
     auto softmax = [&](int i) {
       if (i * BN + BN > lim_full)
-        softmax_tile<true>(s, scales(i), i * BN, lim, t4, m, l, corr);
+        softmax_tile<true, Q8>(s, scales(i), i * BN, lim, t4, m, l, corr);
       else
-        softmax_tile<false>(s, scales(i), i * BN, lim, t4, m, l, corr);
+        softmax_tile<false, Q8>(s, scales(i), i * BN, lim, t4, m, l, corr);
     };
     for (int i = 0; i < ntiles; ++i) {
       mbar_wait(bf_full + 8 * (i % BF_STAGES), (i / BF_STAGES) & 1);
@@ -507,7 +611,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) prefill_sm90_kernel(const __grid_
         o[4 * n + 2] *= corr[1];
         o[4 * n + 3] *= corr[1];
       }
-      pack_p(s, scales(i) + SC_FLOATS, pa);
+      pack_p<Q8>(s, scales(i) + SC_FLOATS, pa);
       wgmma_fence();
       issue_pv(i);
       wgmma_wait<0>();
@@ -538,36 +642,49 @@ __global__ void __launch_bounds__(NTHREADS, 1) prefill_sm90_kernel(const __grid_
 // 1}, encoded once per (pointer, shape).
 static CUresult rows_map(CUtensorMap* map, const void* ptr, int cols, int rows, int planes) {
   return cached_map(map, std::make_tuple(ptr, cols, rows, planes), [&](CUtensorMap* m) {
-    return encode_3d_u8(m, ptr, cols, rows, planes, HD, BN);
+    return encode_3d(m, CU_TENSOR_MAP_DATA_TYPE_UINT8, ptr, 1, cols, rows, planes, HD, BN,
+                     CU_TENSOR_MAP_SWIZZLE_NONE);
   });
 }
 
-template <bool INT4>
+// The same over bf16 values, the 128-byte swizzle the consumers' wgmma reads.
+static CUresult bf16_rows_map(CUtensorMap* map, const void* ptr, int cols, int rows,
+                              int planes) {
+  return cached_map(map, std::make_tuple(ptr, cols, rows, planes), [&](CUtensorMap* m) {
+    return encode_3d(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, ptr, 2, cols, rows, planes, HD, BN,
+                     CU_TENSOR_MAP_SWIZZLE_128B);
+  });
+}
+
+template <int FMT>
 static int prefill(const void* q, const void* k, const void* v, const void* k_scale,
                    const void* v_scale, const void* k_new, const void* v_new, const void* ks_new,
                    const void* vs_new, const void* base_lens, void* out, int layer, int B, int S,
                    int T, int Hq, int Hkv, int hd, cudaStream_t st) {
-  if (hd != HD || Hkv < 1 || Hq % Hkv != 0 || (INT4 && Hkv % 2 != 0) || B < 1 || S < 1 ||
-      T < 1 || layer < 0 || (k_new == nullptr) != (ks_new == nullptr) ||
-      (k_new == nullptr) != (v_new == nullptr))
+  constexpr bool Q8 = FMT != kBF16;
+  if (hd != HD || Hkv < 1 || Hq % Hkv != 0 || (FMT == kI4 && Hkv % 2 != 0) || B < 1 || S < 1 ||
+      T < 1 || layer < 0 || (k_new == nullptr) != (v_new == nullptr) ||
+      (Q8 && (k_new == nullptr) != (ks_new == nullptr)))
     return (int)cudaErrorInvalidValue;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      prefill_sm90_kernel<INT4>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+      prefill_sm90_kernel<FMT>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM<FMT>);
   if (attr != cudaSuccess) return (int)attr;
   Args a;
-  a.Kw = INT4 ? (Hkv / 2) * HD : Hkv * HD;
-  const size_t layer_bytes = (size_t)B * S * a.Kw;
-  const int8_t* kl = static_cast<const int8_t*>(k) + (size_t)layer * layer_bytes;
-  const int8_t* vl = static_cast<const int8_t*>(v) + (size_t)layer * layer_bytes;
-  CUresult enc = rows_map(&a.kmap, kl, a.Kw, S, B);
-  if (enc == CUDA_SUCCESS) enc = rows_map(&a.vmap, vl, a.Kw, S, B);
-  if (enc == CUDA_SUCCESS && k_new != nullptr) enc = rows_map(&a.knmap, k_new, a.Kw, T, B);
-  if (enc == CUDA_SUCCESS && v_new != nullptr) enc = rows_map(&a.vnmap, v_new, a.Kw, T, B);
+  a.Kw = FMT == kI4 ? (Hkv / 2) * HD : Hkv * HD;
+  const int elem = Q8 ? 1 : 2;
+  const size_t layer_bytes = (size_t)B * S * a.Kw * elem;
+  a.k = static_cast<const uint8_t*>(k) + (size_t)layer * layer_bytes;
+  a.v = static_cast<const uint8_t*>(v) + (size_t)layer * layer_bytes;
+  const auto map = Q8 ? rows_map : bf16_rows_map;
+  CUresult enc = map(&a.kmap, a.k, a.Kw, S, B);
+  if (enc == CUDA_SUCCESS) enc = map(&a.vmap, a.v, a.Kw, S, B);
+  if (enc == CUDA_SUCCESS && k_new != nullptr) enc = map(&a.knmap, k_new, a.Kw, T, B);
+  if (enc == CUDA_SUCCESS && v_new != nullptr) enc = map(&a.vnmap, v_new, a.Kw, T, B);
   if (enc != CUDA_SUCCESS) return kEncodeError + (int)enc;
   if (k_new == nullptr) a.knmap = a.vnmap = a.kmap;  // never read
   a.q = static_cast<const __nv_bfloat16*>(q);
-  a.k_new = static_cast<const int8_t*>(k_new);
-  a.v_new = static_cast<const int8_t*>(v_new);
+  a.k_new = static_cast<const uint8_t*>(k_new);
+  a.v_new = static_cast<const uint8_t*>(v_new);
   a.k_scale = static_cast<const float*>(k_scale);
   a.v_scale = static_cast<const float*>(v_scale);
   a.ks_new = static_cast<const float*>(ks_new);
@@ -582,27 +699,38 @@ static int prefill(const void* q, const void* k, const void* v, const void* k_sc
   a.Hkv = Hkv;
   const int rows = (Hq / Hkv) * T;
   dim3 grid((rows + BM - 1) / BM, Hkv, B);
-  prefill_sm90_kernel<INT4><<<grid, NTHREADS, SMEM, st>>>(a);
+  prefill_sm90_kernel<FMT><<<grid, NTHREADS, SMEM<FMT>, st>>>(a);
   return (int)cudaGetLastError();
 }
 
 }  // namespace pfa
 }  // namespace md
 
+// K2: q [B, T, Hq, 64] bf16; k/v bf16 [L, B, S, Hkv*64]; k_new/v_new bf16
+// [B, T, Hkv*64], or both null; base_lens [B]; out [B, T, Hq, 64].  Returns
+// cudaGetLastError(), or 0x10000 + the CUresult of a failed tensor-map
+// encode.
+extern "C" int md_prefill_attend(const void* q, const void* k, const void* v, const void* k_new,
+                                 const void* v_new, const void* base_lens, void* out, int layer,
+                                 int B, int S, int T, int Hq, int Hkv, int hd, void* stream) {
+  return md::pfa::prefill<md::pfa::kBF16>(q, k, v, nullptr, nullptr, k_new, v_new, nullptr,
+                                          nullptr, base_lens, out, layer, B, S, T, Hq, Hkv, hd,
+                                          static_cast<cudaStream_t>(stream));
+}
+
 // K2q: q [B, T, Hq, 64] bf16; k/v int8 [L, B, S, Hkv*64] with f32 scales
 // k_scale/v_scale [L, B, Hkv, S]; k_new/v_new [B, T, Hkv*64] and
 // ks_new/vs_new [B, Hkv, T], or all four null; base_lens [B]; out [B, T, Hq,
-// 64].  Returns cudaGetLastError(), or 0x10000 + the CUresult of a failed
-// tensor-map encode.
+// 64].  Returns as md_prefill_attend.
 extern "C" int md_prefill_attend_quant(const void* q, const void* k, const void* v,
                                        const void* k_scale, const void* v_scale,
                                        const void* k_new, const void* v_new,
                                        const void* ks_new, const void* vs_new,
                                        const void* base_lens, void* out, int layer, int B,
                                        int S, int T, int Hq, int Hkv, int hd, void* stream) {
-  return md::pfa::prefill<false>(q, k, v, k_scale, v_scale, k_new, v_new, ks_new, vs_new,
-                                 base_lens, out, layer, B, S, T, Hq, Hkv, hd,
-                                 static_cast<cudaStream_t>(stream));
+  return md::pfa::prefill<md::pfa::kI8>(q, k, v, k_scale, v_scale, k_new, v_new, ks_new, vs_new,
+                                        base_lens, out, layer, B, S, T, Hq, Hkv, hd,
+                                        static_cast<cudaStream_t>(stream));
 }
 
 // B11: as md_prefill_attend_quant over packed int4 k/v [L, B, S, (Hkv/2)*64]
@@ -613,7 +741,7 @@ extern "C" int md_prefill_attend_quant4(const void* q, const void* k, const void
                                         const void* ks_new, const void* vs_new,
                                         const void* base_lens, void* out, int layer, int B,
                                         int S, int T, int Hq, int Hkv, int hd, void* stream) {
-  return md::pfa::prefill<true>(q, k, v, k_scale, v_scale, k_new, v_new, ks_new, vs_new,
-                                base_lens, out, layer, B, S, T, Hq, Hkv, hd,
-                                static_cast<cudaStream_t>(stream));
+  return md::pfa::prefill<md::pfa::kI4>(q, k, v, k_scale, v_scale, k_new, v_new, ks_new, vs_new,
+                                        base_lens, out, layer, B, S, T, Hq, Hkv, hd,
+                                        static_cast<cudaStream_t>(stream));
 }

@@ -1,8 +1,9 @@
-// B4, B6 and B4-int4 on Hopper: the draft's weight-streaming dots over its
-// int8 and group-wise int4 weight copies, one launch a call.
+// B4, B6, B4-int4 and B6-int4 on Hopper: the draft's weight-streaming dots
+// over its int8 and group-wise int4 weight copies, one launch a call.
 //
 // Replaces magicdec_tpu/ops/pallas/quant_matmul.py quant_matmul_pallas
-// (_int8_kernel: B6, the draft's int8 lm_head) and quant_matmul_fused_pallas
+// (_int8_kernel: B6, the draft's int8 lm_head; _int4_kernel: B6-int4, its
+// int4 lm_head, see qmm4_sm90_kernel below) and quant_matmul_fused_pallas
 // (_fused_kernel, int8 branch: B4, the draft's wqkv with its rms-norm, w13
 // with the SiLU gate, w2 or wo with a residual; nibble branch :151-167 with
 // bits=4: B4-int4, the same epilogues without the norm, which the reference
@@ -613,6 +614,290 @@ __global__ void __launch_bounds__(NTHREADS, MT <= 4 ? 2 : 1)
   }
 }
 
+// ---- B6-int4: the int4 head as the transposed product on wgmma --------------
+//
+// out = bf16(sum over groups g, in order, of f32(x_g @ q_g) * s_g), q packed
+// int4 [In / 2, Out], no epilogue: the draft's int4 lm_head (Out 128256),
+// whose 501 tiles of 256 columns fill the card without a split of the
+// contraction.  At M = 64 an int4 weight byte feeds 256 flops, near the
+// tensor cores' ridge (~295 flop/byte): mma.sync at MT = 4 (the cluster
+// kernel above) sets the time there, so this kernel puts the products on
+// wgmma and keeps the conversion in registers.
+//
+// - The transposed product.  out^T [Out, M] = q^T [Out, In] x^T [In, M]:
+//   the weight is wgmma's A operand, from registers, and x its B operand, a
+//   K-major tile in shared memory (N = 16, 32 or 64 rows of x a pass, so
+//   M = 32 wastes no tensor-core rows, as m64 over x would).
+// - Conversion in registers, no second tile.  Two consumer warpgroups each
+//   own 128 columns of a tile: two m64 A tiles.  A thread's A fragment needs,
+//   a k16 step, contraction rows 2 t4, 2 t4 + 1 and 2 t4 + 8, 2 t4 + 9 of
+//   its two rows: packed rows t4 and t4 + 4, so two 32-bit shared loads
+//   (packed rows t4 and t4 + 4, four columns each) give both A tiles'
+//   fragments in the weight's own row order, each byte one bf16x2 {low
+//   nibble, high nibble} by i4_pair.  A row of an A tile is a column of the
+//   weight: tile jt's row 16 warp + g + 8 h holds column colb + 2 jt + h,
+//   colb = 64 (g / 4) + 16 warp + 4 (g % 4), so the 32 lanes read 32
+//   different banks of the 128-byte-swizzled box and a thread's four
+//   output columns are adjacent (one 8-byte store a token).
+// - Group sums in order.  Each group's products accumulate in a fresh f32
+//   wgmma accumulator (scale-d 0 at its first k16 step) and are added as acc
+//   += part * s_g once they complete; the A registers rotate through
+//   T4_SETS sets, so one k16 step converts while the last ones' wgmmas run.
+// - Loads by TMA.  One producer warp (one lane) keeps a ring of stages in
+//   flight: 64 packed rows (128 contraction rows) of the tile's 256 columns
+//   as two 8 KB boxes (128-byte swizzle), the same 128 contraction rows of
+//   the pass's x rows (two 64-value boxes, 128-byte swizzle; rows past M
+//   arrive as zeros), and the stage's group scales of the tile's columns
+//   (bulk copies).  Blocks are persistent (one an SM) and walk the tiles, so
+//   the next tile's loads overlap this tile's last groups and stores; rows
+//   past N run as further passes over the tile.
+// - No split, no atomics: two launches give the same bits.
+constexpr int T4_COLS = 256;                     // output columns a tile
+constexpr int T4_WG = 2;                         // consumer warpgroups, 128 columns each
+constexpr int T4_THREADS = 128 * T4_WG + 32;     // + one producer warp
+constexpr int T4_PROWS = 64;                     // packed weight rows a stage
+constexpr int T4_KS = 2 * T4_PROWS;              // contraction rows a stage
+constexpr int T4_WBOX = T4_PROWS * 128;          // a warpgroup's weight box, 8 KB
+constexpr int T4_SETS = 2;                       // A register sets: k16 steps in flight
+
+template <int N>
+struct Cfg4 {
+  static constexpr int X_BYTES = N * T4_KS * 2;             // two 64-value boxes of N rows
+  static constexpr int SC_BYTES = MAX_G4 * T4_COLS * 4;     // the stage's group scales
+  static constexpr int STAGE = T4_WG * T4_WBOX + X_BYTES + SC_BYTES;
+  static constexpr int STAGES = N == 64 ? 5 : (N == 32 ? 7 : 8);
+  static constexpr int BARS = STAGES * STAGE;
+  static constexpr int SMEM = BARS + 16 * STAGES + 1024;  // + slack to align to 1024
+  static_assert(STAGE % 1024 == 0, "stages keep the swizzle's 1024-byte alignment");
+  static_assert(SMEM <= 227 * 1024, "shared memory of one block");
+};
+
+struct Args4 {
+  CUtensorMap wmap;        // q [In / 2, Out] bytes, box {128, T4_PROWS}, 128-byte swizzle
+  CUtensorMap xmap;        // x [M, In] bf16, box {64, N}, 128-byte swizzle
+  const float* scale;      // [In / group, Out]
+  __nv_bfloat16* out;      // [M, Out]
+  int M, In, Out, group, ntiles;
+};
+
+namespace {
+
+// D (+)= A B over one k16 step, m64nNk16: A (the weight) from registers in
+// the mma A fragment layout, B (x) K-major from shared memory (128-byte
+// swizzle).  d[4 j + e]: A row 16 warp + g + 8 (e / 2), x row 8 j + 2 t4 + e % 2.
+template <int N>
+__device__ __forceinline__ void wgmma_wx(float (&d)[N / 2], uint32_t (&a)[4], uint64_t db,
+                                         int accumulate);
+
+template <>
+__device__ __forceinline__ void wgmma_wx<16>(float (&d)[8], uint32_t (&a)[4], uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+r"(a[0]), "+r"(a[1]), "+r"(a[2]), "+r"(a[3])
+      : "l"(db), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_wx<32>(float (&d)[16], uint32_t (&a)[4], uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+r"(a[0]), "+r"(a[1]), "+r"(a[2]), "+r"(a[3])
+      : "l"(db), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_wx<64>(float (&d)[32], uint32_t (&a)[4], uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+r"(a[0]), "+r"(a[1]), "+r"(a[2]), "+r"(a[3])
+      : "l"(db), "r"(accumulate));
+}
+
+// Keep A registers (one set: [A tile][register]) unchanged until the
+// wgmmas that read them have completed: a use after the wait.
+__device__ __forceinline__ void fence_a(uint32_t (&a)[2][4]) {
+#pragma unroll
+  for (int jt = 0; jt < 2; ++jt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[jt][e])::"memory");
+}
+
+}  // namespace
+
+// Grid (blocks), T4_THREADS threads: warpgroups 0 and 1 consume (128
+// columns of each tile each), warp 8 produces.  One block an SM.
+template <int N>
+__global__ void __launch_bounds__(T4_THREADS, 1) qmm4_sm90_kernel(const __grid_constant__ Args4 a) {
+  using C = Cfg4<N>;
+  constexpr int S = C::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  // the swizzle patterns repeat every 1024 bytes of the shared address
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t pad = ((raw + 1023u) & ~1023u) - raw;
+  uint8_t* smem = smem_raw + pad;
+  const uint32_t sbase = raw + pad;
+  // full[s] at 8 s, empty[s] at 8 (S + s)
+  const uint32_t bars = sbase + C::BARS;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nk = a.In / T4_KS;
+  const int npass = (a.M + N - 1) / N;
+  const int ng = max(1, T4_KS / a.group);  // the scale rows a stage brings
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(bars + 8 * s, 1);                     // the producer's expect_tx
+      mbar_init(bars + 8 * (S + s), 128 * T4_WG);     // every consumer thread
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4 * T4_WG) {
+    // ---- producer: one lane issues the loads ---------------------------------
+    if (lane != 0) return;
+    prefetch_map(&a.wmap);
+    prefetch_map(&a.xmap);
+    int it = 0;
+    for (int t = blockIdx.x; t < a.ntiles; t += gridDim.x) {
+      const int c0 = t * T4_COLS;
+      const int cols = min(T4_COLS, a.Out - c0);  // the last tile may hold 128
+      for (int p = 0; p < npass; ++p) {
+        for (int i = 0; i < nk; ++i, ++it) {
+          const int s = it % S;
+          mbar_wait(bars + 8 * (S + s), ((it / S) & 1) ^ 1);  // the consumers released it
+          const uint32_t full = bars + 8 * s;
+          const uint32_t st = sbase + s * C::STAGE;
+          const int kt = i * T4_KS;
+          mbar_expect_tx(full, T4_WG * T4_WBOX + C::X_BYTES + ng * cols * 4);
+          // a box past Out arrives as zeros (its bytes still count)
+#pragma unroll
+          for (int w = 0; w < T4_WG; ++w)
+            tma_load_2d(st + w * T4_WBOX, &a.wmap, full, c0 + 128 * w, kt / 2);
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+            tma_load_2d(st + T4_WG * T4_WBOX + j * N * 128, &a.xmap, full, kt + 64 * j, p * N);
+          const uint32_t sc = st + T4_WG * T4_WBOX + C::X_BYTES;
+          for (int j = 0; j < ng; ++j)
+            bulk_load(sc + j * T4_COLS * 4,
+                      a.scale + (size_t)(kt / a.group + j) * a.Out + c0, cols * 4, full);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers ----------------------------------------------------------------
+  const int wg = warp >> 2, wi = warp & 3;
+  const int g = lane >> 2, t4 = lane & 3;
+  // this thread's four weight columns in its warpgroup's 128: colb .. colb + 3
+  const int colb = (g >> 2) * 64 + 16 * wi + 4 * (g & 3);
+  const int chunk = colb >> 4;
+  // its words of packed rows t4 and t4 + 4 of each k16 step (+ 1024 a step)
+  const uint32_t w_off0 = wg * T4_WBOX + t4 * 128 + ((chunk ^ t4) << 4) + (colb & 15);
+  const uint32_t w_off1 = wg * T4_WBOX + (t4 + 4) * 128 + ((chunk ^ (t4 + 4)) << 4) + (colb & 15);
+  int it = 0;
+  for (int t = blockIdx.x; t < a.ntiles; t += gridDim.x) {
+    const int col = t * T4_COLS + 128 * wg + colb;  // this thread's first output column
+    for (int p = 0; p < npass; ++p) {
+      float acc[2][N / 2], part[2][N / 2];
+#pragma unroll
+      for (int jt = 0; jt < 2; ++jt)
+#pragma unroll
+        for (int e = 0; e < N / 2; ++e) acc[jt][e] = part[jt][e] = 0.f;
+      uint32_t af[T4_SETS][2][4] = {};  // [set][A tile][register]
+      for (int i = 0; i < nk; ++i, ++it) {
+        const int s = it % S;
+        mbar_wait(bars + 8 * s, (it / S) & 1);  // the stage's boxes have landed
+        const uint8_t* st = smem + s * C::STAGE;
+        const uint32_t xst = sbase + s * C::STAGE + T4_WG * T4_WBOX;
+        const float* sc = reinterpret_cast<const float*>(st + T4_WG * T4_WBOX + C::X_BYTES) +
+                          128 * wg + colb;
+        const int kt = i * T4_KS;
+#pragma unroll
+        for (int kk = 0; kk < T4_KS / 16; ++kk) {
+          uint32_t (&A)[2][4] = af[kk % T4_SETS];
+          const uint32_t w0 = *reinterpret_cast<const uint32_t*>(st + w_off0 + kk * 1024);
+          const uint32_t w1 = *reinterpret_cast<const uint32_t*>(st + w_off1 + kk * 1024);
+          const uint32_t w04 = w0 >> 4, w14 = w1 >> 4;
+          // tile 0: columns colb (row g) and colb + 1 (row g + 8); tile 1: colb + 2, + 3
+          A[0][0] = i4_pair<0x4400u>(w0, w04);
+          A[0][1] = i4_pair<0x5511u>(w0, w04);
+          A[0][2] = i4_pair<0x4400u>(w1, w14);
+          A[0][3] = i4_pair<0x5511u>(w1, w14);
+          A[1][0] = i4_pair<0x6622u>(w0, w04);
+          A[1][1] = i4_pair<0x7733u>(w0, w04);
+          A[1][2] = i4_pair<0x6622u>(w1, w14);
+          A[1][3] = i4_pair<0x7733u>(w1, w14);
+          // x rows of this pass, contraction rows kt + 16 kk ..: box kk / 4, 32 bytes a step
+          const uint64_t xd = smem_desc(xst + (kk >> 2) * N * 128, 16, 1024) + 2 * (kk & 3);
+          const int first = ((kt + 16 * kk) & (a.group - 1)) != 0;  // 0: a fresh group
+          wgmma_fence();
+          wgmma_wx<N>(part[0], A[0], xd, first);
+          wgmma_wx<N>(part[1], A[1], xd, first);
+          wgmma_commit();
+          if (((kt + 16 * (kk + 1)) & (a.group - 1)) == 0) {
+            // the group ends here: its sums, scaled, into acc (columns colb
+            // .. + 3: tile 0 rows g, g + 8, tile 1 rows g, g + 8)
+            wgmma_wait<0>();
+            fence_regs(part[0]);
+            fence_regs(part[1]);
+#pragma unroll
+            for (int j = 0; j < T4_SETS; ++j) fence_a(af[j]);
+            const float4 sv = *reinterpret_cast<const float4*>(
+                sc + (a.group >= T4_KS ? 0 : (16 * kk) / a.group) * T4_COLS);
+            const float f[2][2] = {{sv.x, sv.y}, {sv.z, sv.w}};
+#pragma unroll
+            for (int jt = 0; jt < 2; ++jt)
+#pragma unroll
+              for (int e = 0; e < N / 2; ++e) acc[jt][e] += part[jt][e] * f[jt][(e >> 1) & 1];
+          } else if (kk + 1 == T4_KS / 16) {
+            wgmma_wait<0>();  // the stage's x read before it is released
+#pragma unroll
+            for (int j = 0; j < T4_SETS; ++j) fence_a(af[j]);
+          } else {
+            wgmma_wait<T4_SETS - 1>();  // the next step's A set is free again
+            fence_a(af[(kk + 1) % T4_SETS]);
+          }
+        }
+        mbar_arrive(bars + 8 * (S + s));
+      }
+      // out[m, col .. col + 3] for the thread's x rows m = p N + 8 j + 2 t4 + e
+      if (col < a.Out) {
+#pragma unroll
+        for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int m = p * N + 8 * j + 2 * t4 + e;
+            if (m >= a.M) continue;
+            const float y[4] = {acc[0][4 * j + e], acc[0][4 * j + 2 + e], acc[1][4 * j + e],
+                                acc[1][4 * j + 2 + e]};
+            *reinterpret_cast<uint2*>(a.out + (size_t)m * a.Out + col) = pack_bf16x4(y);
+          }
+      }
+    }
+  }
+}
+
 // ---- host side ----------------------------------------------------------------
 
 // The weight's map over its [rows, Out] bytes (int8 q, or packed int4 q with
@@ -685,6 +970,35 @@ static int run(Args& a, const void* q, int split, int unit, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
+// The int4 weight's map for B6-int4: box {128 columns, 64 packed rows},
+// 128-byte swizzle, encoded once per (pointer, shape).
+static CUresult weight_map4(CUtensorMap* map, const int8_t* q, int rows, int Out) {
+  return cached_map(map, std::make_tuple(static_cast<const void*>(q), rows, Out),
+                    [&](CUtensorMap* m) {
+                      return encode_2d(m, CU_TENSOR_MAP_DATA_TYPE_UINT8, q, 1, Out, rows, 128,
+                                       T4_PROWS, CU_TENSOR_MAP_SWIZZLE_128B);
+                    });
+}
+
+template <int N>
+static cudaError_t launch4(Args4& a, const void* x, cudaStream_t st) {
+  using C = Cfg4<N>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      qmm4_sm90_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (attr != cudaSuccess) return attr;
+  static const int sms = [] {
+    int dev = 0, n = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    return max(1, n);
+  }();
+  const CUresult enc = encode_2d(&a.xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, 2, a.In, a.M,
+                                 64, N, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (enc != CUDA_SUCCESS) return static_cast<cudaError_t>(kEncodeError + enc);
+  qmm4_sm90_kernel<N><<<min(a.ntiles, sms), T4_THREADS, C::SMEM, st>>>(a);
+  return cudaSuccess;
+}
+
 }  // namespace sm90
 }  // namespace md
 
@@ -744,4 +1058,34 @@ extern "C" int md_quant_matmul_int4_sm90(const void* x, const void* q, const voi
   a.group = group;
   a.eps = 0.f;
   return run<true>(a, q, split, max(group, KS), static_cast<cudaStream_t>(stream));
+}
+
+// B6-int4: out [M, Out] = bf16(x[M, In] @ dequant(q[In / 2, Out] packed int4,
+// scale[In / group, Out])) in one launch, the groups summed in order (no
+// split of the contraction).  group: a power of two >= 32 with In % max(group,
+// 128) == 0; Out % 128 == 0; M <= 256.  Returns as md_quant_matmul_sm90.
+extern "C" int md_quant_matmul_int4_t_sm90(const void* x, const void* q, const void* scale,
+                                           void* out, int M, int In, int Out, int group,
+                                           void* stream) {
+  using namespace md::sm90;
+  if (M < 1 || M > MAX_ROWS || Out % 128 != 0 || group < 32 || (group & (group - 1)) != 0 ||
+      In % max(group, T4_KS) != 0)
+    return (int)cudaErrorInvalidValue;
+  Args4 a;
+  const CUresult enc = weight_map4(&a.wmap, static_cast<const int8_t*>(q), In / 2, Out);
+  if (enc != CUDA_SUCCESS) return kEncodeError + (int)enc;
+  a.scale = static_cast<const float*>(scale);
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.M = M;
+  a.In = In;
+  a.Out = Out;
+  a.group = group;
+  a.ntiles = (Out + T4_COLS - 1) / T4_COLS;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = M <= 16   ? launch4<16>(a, x, st)
+                          : M <= 32 ? launch4<32>(a, x, st)
+                                    : launch4<64>(a, x, st);
+  if ((int)err >= kEncodeError) return (int)err;
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }

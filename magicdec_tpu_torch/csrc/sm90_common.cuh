@@ -295,19 +295,21 @@ inline CUresult encode_2d(CUtensorMap* map, CUtensorMapDataType type, const void
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-// A 3-D tensor map over a row-major [planes, rows, cols] byte array, box
-// {box_cols, box_rows, 1}, no swizzle.  Out-of-bounds rows read as zeros.
-inline CUresult encode_3d_u8(CUtensorMap* map, const void* ptr, uint64_t cols, uint64_t rows,
-                             uint64_t planes, uint32_t box_cols, uint32_t box_rows) {
+// A 3-D tensor map over a row-major [planes, rows, cols] array of `elem`
+// bytes an element, box {box_cols, box_rows, 1}.  Out-of-bounds rows read as
+// zeros.
+inline CUresult encode_3d(CUtensorMap* map, CUtensorMapDataType type, const void* ptr, int elem,
+                          uint64_t cols, uint64_t rows, uint64_t planes, uint32_t box_cols,
+                          uint32_t box_rows, CUtensorMapSwizzle swizzle) {
   const EncodeTiled fn = encode_fn();
   if (fn == nullptr) return CUDA_ERROR_NOT_FOUND;
   const cuuint64_t dims[3] = {cols, rows, planes};
-  const cuuint64_t strides[2] = {cols, cols * rows};
+  const cuuint64_t strides[2] = {cols * elem, cols * rows * elem};
   const cuuint32_t box[3] = {box_cols, box_rows, 1};
   const cuuint32_t estrides[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(ptr), dims, strides, box,
-            estrides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return fn(map, type, 3, const_cast<void*>(ptr), dims, strides, box, estrides,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
 // A tensor map encoded by `encode(map)` once per key (a pointer and a

@@ -1,6 +1,6 @@
-"""Variants of B15's ``dense_matmul_fused`` (``csrc/dense_matmul_sm90.cu``)
-and of B4-int4 (``csrc/quant_matmul_sm90.cu``) timed against each other on
-the card, in one process.
+"""Variants of B15's ``dense_matmul_fused`` (``csrc/dense_matmul_sm90.cu``),
+of B4-int4 and of B6-int4 (``csrc/quant_matmul_sm90.cu``) timed against
+each other on the card, in one process.
 
     python -m magicdec_tpu_torch.dot_variants [--variants a,b,...] [--plans]
 
@@ -12,7 +12,8 @@ swapped): ``dense_matmul_fused`` at the target's widths (wqkv + norm, wo +
 residual, w13 + norm, w2 + residual; M = 128 and 16) or
 ``quant_matmul_fused_int4`` at the draft's (wqkv, wo + residual, w13 +
 gate, w2 + residual; group 128, M = 32 and 64), over 16 layers' weights in
-turn, device ms a call by ``kernel_benchmark.graph_ms``.  For each variant
+turn, or ``quant_matmul_int4`` on the int4 lm_head [2048, 128256] (M = 32
+and 64), device ms a call by ``kernel_benchmark.graph_ms``.  For each variant
 the script prints ptxas's registers and spills and, for the dense kernel,
 the ``HGMMA`` instructions against the ``WARPGROUP.DEPBAR`` waits in
 ``cuobjdump -sass`` (one wait an ``HGMMA``: ptxas serialized the wgmmas).
@@ -37,7 +38,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 OUT_DIR = Path(__file__).resolve().parents[1] / "build" / "variants"
-SOURCES = {"dense": "dense_matmul_sm90.cu", "int4": "quant_matmul_sm90.cu"}
+SOURCES = {"dense": "dense_matmul_sm90.cu", "int4": "quant_matmul_sm90.cu",
+           "head": "quant_matmul_sm90.cu"}
 
 
 def _stamp(k: int, indent: str) -> str:
@@ -126,6 +128,17 @@ VARIANTS = {
     # 32-row passes (MT = 2) for every M instead of 64-row ones
     "int4_32_row_passes": ("int4", [("const int rows = min(a.M, INT4 ? 64 : 128);",
                                      "const int rows = min(a.M, INT4 ? 32 : 128);")]),
+    # B6-int4 (qmm4_sm90_kernel): as it stands, and with more k16 steps'
+    # wgmmas in flight (three or four A register sets)
+    "head_current": ("head", []),
+    "head_sets3": ("head", [("constexpr int T4_SETS = 2;", "constexpr int T4_SETS = 3;")]),
+    "head_sets4": ("head", [("constexpr int T4_SETS = 2;", "constexpr int T4_SETS = 4;")]),
+    # isolation: the head without its products (loads, conversion, scaling)
+    "head_no_products": ("head", [
+        ("          wgmma_wx<N>(part[0], A[0], xd, first);\n"
+         "          wgmma_wx<N>(part[1], A[1], xd, first);\n",
+         "          if (kk < 0) wgmma_wx<N>(part[0], A[0], xd, first);\n"
+         "          if (kk < 0) wgmma_wx<N>(part[1], A[1], xd, first);\n")]),
 }
 # the phases between a trace variant's stamps
 PHASES = {"trace": ("statistic", "first stage", "main loop", "barrier", "partials", "finish"),
@@ -185,12 +198,23 @@ def _build(names):
 
 
 def _cases(kind, dev, gen):
-    """[(label, [one call a layer])] of the dense or the int4 dots."""
+    """[(label, [one call a layer])] of the dense or the int4 dots, or of the
+    int4 head (one layer: 131 MB, past the L2)."""
     from magicdec_tpu_torch import quantization as Q
     from magicdec_tpu_torch.kernels import dense_matmul as DK
     from magicdec_tpu_torch.kernels import quant_matmul as QK
 
     L, D, F, bf = 16, 2048, 8192, torch.bfloat16
+    if kind == "head":
+        V = 128256
+        hw = Q.quantize_weight((torch.randn((D, V), generator=gen, device=dev)
+                                * D ** -0.5).to(bf), bits=4)
+        out = []
+        for M in (32, 64):
+            x = torch.randn((M, D), generator=gen, device=dev).to(bf)
+            out.append((f"lm_head M={M}", D, V,
+                        [lambda x=x: QK.quant_matmul_int4(x, hw.q, hw.scale)]))
+        return out
     shapes = {"wqkv": (D, D + 1024), "wo": (D, D), "w13": (D, 2 * F), "w2": (F, D)}
     norm_w = (torch.rand((D,), generator=gen, device=dev) + 0.5).to(bf)
     cases = []

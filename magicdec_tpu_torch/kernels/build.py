@@ -44,8 +44,8 @@ SIGNATURES = {
     "md_quant_mlp": [_P] * 11 + [_I] * 5 + [_F, _P],
     "md_decode_attend_quant4": [_P] * 13 + [_I] * 9 + [_P],
     "md_prefill_attend_quant4": [_P] * 11 + [_I] * 7 + [_P],
-    "md_quant_matmul_int4": [_P] * 5 + [_I] * 5 + [_P],
     "md_quant_matmul_int4_sm90": [_P] * 5 + [_I] * 6 + [_P],
+    "md_quant_matmul_int4_t_sm90": [_P] * 4 + [_I] * 4 + [_P],
     "md_paged_decode_attend": [_P] * 10 + [_I] * 11 + [_P],
     "md_paged_decode_attend_quant": [_P] * 14 + [_I] * 11 + [_P],
     "md_paged_decode_attend_quant4": [_P] * 14 + [_I] * 11 + [_P],

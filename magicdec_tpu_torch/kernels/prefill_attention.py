@@ -1,18 +1,20 @@
 """K2, K2q and B11: chunked-prefill flash attention (CUDA for Hopper).
 
-K2 (``csrc/prefill_attention.cu``) replaces
+All three run on ``csrc/prefill_attention_sm90.cu``, one launch a call of
+``prefill_sm90_kernel`` instantiated for the cache's format.  K2 replaces
 magicdec_tpu/ops/pallas/prefill_attention.py ``flash_prefill_attend``
-(``_prefill_kernel``) on the shared ``mma.sync`` core of
-``csrc/attention_common.cuh``.  K2q and B11 (``csrc/prefill_attention_sm90.cu``)
-replace ``flash_prefill_attend_quant`` (``_prefill_quant_kernel``) over an
-int8 cache with per-(token, kv head) f32 scales and
+(``_prefill_kernel``) over the bf16 cache; K2q and B11 replace
+``flash_prefill_attend_quant`` (``_prefill_quant_kernel``) over an int8
+cache with per-(token, kv head) f32 scales and
 ``flash_prefill_attend_quant4`` (``_prefill_quant4_kernel``) over an int4
 cache packed in head pairs.  Bound on the card: tensor-core operations and
 exponentials, about equally (4 hd flops and one exp a visible (row,
-column) pair).  K2q and B11 run one launch a call of a warp-specialized
-Hopper kernel: ``wgmma`` products, K/V rows by TMA into an mbarrier ring, a
-producer warpgroup converting int8 (int4) tiles to bf16 while three
-consumer warpgroups run the softmax — see the sources for the design.
+column) pair).  The kernel is warp-specialized: ``wgmma`` products, K/V
+rows by TMA into an mbarrier ring, three consumer warpgroups running the
+softmax, and a producer warpgroup that issues the loads and, for the
+quantized formats, converts int8 (int4) tiles to bf16; for bf16 it writes
+by hand only the tiles whose rows past the visible end must read as zeros
+— see the source for the design.
 """
 
 from __future__ import annotations

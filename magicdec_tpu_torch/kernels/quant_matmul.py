@@ -1,6 +1,7 @@
 """B4, B5, B6, B9: the int8 weight-only dots of the draft's weight copy, and
-B4-int4, B6-int4: its group-wise int4 dots (CUDA: B4, B6 and B4-int4 in
-``csrc/quant_matmul_sm90.cu``, the others in ``csrc/quant_matmul.cu``).
+B4-int4, B6-int4: its group-wise int4 dots (CUDA: B4, B6, B4-int4 and
+B6-int4 in ``csrc/quant_matmul_sm90.cu``, B5 and B9 in
+``csrc/quant_matmul.cu``).
 
 B4 ``quant_matmul_fused`` replaces magicdec_tpu/ops/pallas/quant_matmul.py
 ``quant_matmul_fused_pallas`` (``_fused_kernel``, int8): x @ (q * scale)
@@ -33,7 +34,11 @@ row r, ``quantization.pack_int4``) with f32 scales [In/group, Out].
 Numerics: acc = sum over groups g in order of f32(x_g @ q_g) * s_g, then
 one bf16 cast and B4's epilogue.  B4-int4 is one launch a call on B4's
 cluster kernel, its splits cut on group boundaries
-(``cluster_split_plan(In, Out, max(group, BK4))``).
+(``cluster_split_plan(In, Out, max(group, BK4))``).  B6-int4, the draft's
+int4 lm_head, is one launch a call of its own kernel: the transposed
+product out^T = q^T x^T on ``wgmma``, the nibbles converted in registers
+as its A operand, no split of the contraction (the head's columns alone
+fill the card), the groups summed in order.
 """
 
 from __future__ import annotations
@@ -51,11 +56,10 @@ ROWS_MAX = 256        # B4/B6 rows a launch (the routing's ROWS_CAP)
 
 
 def split_plan(In: int, Out: int, unit: int = BK) -> int:
-    """Contraction splits of one dot (B5, B9 and the int4 dots), cut in
-    units of ``unit`` rows (an int4 dot's max(group, BK4): every split
-    starts on a group boundary): enough that Out / BN column blocks times
-    the splits fill the card's 132 SMs, no split empty.  Fixed by the
-    weight's shape alone, so a row's sums run in the same order at every M."""
+    """Contraction splits of one dot of B5 and B9, cut in units of ``unit``
+    rows: enough that Out / BN column blocks times the splits fill the
+    card's 132 SMs, no split empty.  Fixed by the weight's shape alone, so a
+    row's sums run in the same order at every M."""
     tiles = In // unit
     want = max(1, min(tiles, -(-TARGET_BLOCKS // max(1, Out // BN))))
     per = -(-tiles // want)
@@ -317,21 +321,20 @@ def _check_dot_int4(x, q, scale, what):
 
 
 def _launch_b6_int4(x, q, scale):
-    """B6-int4 on the card (csrc/quant_matmul.cu): the split-K partials in
-    an f32 scratch, added by a second launch when there are several."""
+    """B6-int4 on the card (csrc/quant_matmul_sm90.cu): one launch, only
+    ``out`` allocated, no split of the contraction."""
     from magicdec_tpu_torch.kernels import build
 
+    what = "quant_matmul_int4"
     x = x.contiguous()
     require_bf16(x)
-    M, In, Out, group = _check_dot_int4(x, q, scale, "quant_matmul_int4")
-    split = split_plan(In, Out, max(group, BK4))
+    M, In, Out, group = _check_dot_int4(x, q, scale, what)
+    require(M <= ROWS_MAX, f"{what}: the kernel takes at most {ROWS_MAX} rows, got {M}")
     out = torch.empty((M, Out), dtype=torch.bfloat16, device=x.device)
-    part = (torch.empty((split, M, Out), dtype=torch.float32, device=x.device)
-            if split > 1 else None)
-    err = build.library().md_quant_matmul_int4(
-        ptr(x), ptr(q), ptr(scale.contiguous()), ptr(out), ptr(part), M, In, Out, split, group,
+    err = build.library().md_quant_matmul_int4_t_sm90(
+        ptr(x), ptr(q), ptr(scale.contiguous()), ptr(out), M, In, Out, group,
         build.stream_ptr(x))
-    build.check(err, "md_quant_matmul_int4")
+    build.check(err, f"{what} (md_quant_matmul_int4_t_sm90)")
     return out
 
 

@@ -1,5 +1,6 @@
-"""Variants of the K2q/B11 kernel (``csrc/prefill_attention_sm90.cu``) timed
-against each other on the card, in one process.
+"""Variants of the K2q/B11 kernel (``csrc/prefill_attention_sm90.cu``, the
+int8 and int4 instances of ``prefill_sm90_kernel``; K2's bf16 instance
+shares the consumers) timed against each other on the card, in one process.
 
     python -m magicdec_tpu_torch.prefill_variants [--variants a,b,...]
         [--formats int8,int4] [--bases 7680,0]
@@ -78,7 +79,7 @@ VARIANTS = {
         o[4 * n + 2] *= corr[1];
         o[4 * n + 3] *= corr[1];
       }
-      pack_p(s, scales(i) + SC_FLOATS, pa);
+      pack_p<Q8>(s, scales(i) + SC_FLOATS, pa);
       wgmma_fence();
       issue_pv(i);
       wgmma_wait<0>();
@@ -91,7 +92,7 @@ VARIANTS = {
     wgmma_wait<0>();
     fence_regs(s);
     softmax(0);
-    pack_p(s, scales(0) + SC_FLOATS, pa);
+    pack_p<Q8>(s, scales(0) + SC_FLOATS, pa);
     for (int i = 1; i < ntiles; ++i) {
       mbar_wait(bf_full + 8 * (i % BF_STAGES), (i / BF_STAGES) & 1);
       wgmma_fence();
@@ -110,7 +111,7 @@ VARIANTS = {
         o[4 * n + 2] *= corr[1];
         o[4 * n + 3] *= corr[1];
       }
-      pack_p(s, scales(i) + SC_FLOATS, pa);
+      pack_p<Q8>(s, scales(i) + SC_FLOATS, pa);
     }
     wgmma_fence();
     issue_pv(ntiles - 1);

@@ -103,6 +103,49 @@ def test_prefill_plain_matches_pallas(fresh):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
 
 
+class _FakeLibrary:
+    """Records the arguments of K2's entry point (returns success)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def md_prefill_attend(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+@pytest.mark.parametrize("fresh", [True, False], ids=["fresh", "cached"])
+def test_prefill_launch_once_against_a_fake_library(fresh, monkeypatch):
+    """K2's host side: one C call a wrapper call with the C signature kept
+    (q, k, v, k_new, v_new, base_lens, out, layer, B, S, T, Hq, Hkv, hd,
+    stream; the fresh rows null without them), the base lengths as int32,
+    only the output allocated besides them; a failed launch raises."""
+    from magicdec_tpu_torch.kernels import build
+
+    lib = _FakeLibrary()
+    monkeypatch.setattr(build, "library", lambda: lib)
+    monkeypatch.setattr(build, "stream_ptr", lambda t: 7)
+    monkeypatch.setattr(PA, "on_cpu", lambda *a: False)
+    Bc, C, Hkv, G, S = 2, 64, 2, 4, 256
+    bf = torch.bfloat16
+    q = torch.zeros(Bc, C, Hkv * G, HD, dtype=bf)
+    k, v = (torch.zeros(L, Bc, S, Hkv * HD, dtype=bf) for _ in range(2))
+    kn, vn = (torch.zeros(Bc, C, Hkv * HD, dtype=bf) for _ in range(2))
+    base = torch.tensor([0, 100], dtype=torch.int64)
+    kw = dict(k_new=kn, v_new=vn) if fresh else {}
+    out = PA.flash_prefill_attend(q, k, v, base, layer=LAYER, **kw)
+    assert out.shape == q.shape and out.dtype == bf
+    (args,) = lib.calls
+    assert len(args) == 15 == len(build.SIGNATURES["md_prefill_attend"])
+    assert args[:3] == (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    assert (args[3] is None) == (not fresh) and (args[4] is None) == (not fresh)
+    assert args[6] == out.data_ptr()
+    assert args[7:] == (LAYER, Bc, S, C, Hkv * G, Hkv, HD, 7)
+    monkeypatch.setattr(lib, "md_prefill_attend", lambda *a: 1)
+    with pytest.raises(RuntimeError, match="md_prefill_attend"):
+        PA.flash_prefill_attend(q, k, v, base, layer=LAYER, **kw)
+
+
 @pytest.mark.parametrize("T", [1, 4, 13])
 def test_append_plain_matches_pallas_bitwise(T):
     import jax.numpy as jnp
@@ -178,6 +221,82 @@ def test_prefill_kernel_matches_plain_on_card(cuda, C):
         ref = PA.flash_prefill_attend_plain(q, k, v, base, layer=LAYER, **kw)
         _gpu_close(out, ref)
     _gpu_not_close(PA.flash_prefill_attend(q, k, v, base, layer=LAYER), ref)
+
+
+def _poisoned(cache, base, end_of):
+    """A copy of the [L, B, S, K] cache with inf and NaN in every row from
+    each request's visible end on (a torch.empty cache may hold them)."""
+    bad = cache.clone()
+    for b, n in enumerate(base.tolist()):
+        end = end_of(n)
+        bad[:, b, end:] = float("inf")
+        bad[:, b, end + 1::3] = float("nan")
+    return bad
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [64, 200, 512])
+def test_prefill_kernel_poisoned_cache_on_card(cuda, C):
+    """K2 over a cache holding inf and NaN past every request's visible end
+    (base + C without fresh rows, base with them), at bases that start a
+    128-row tile (0), straddle one (37, 300) and end near S: finite and
+    within the bound of the plain version on the clean cache (a masked p of
+    0 times an inf V row would be NaN inside the products)."""
+    gen = torch.Generator(device=cuda).manual_seed(20 + C)
+    Bc, Hkv, G, S = 4, 8, 4, 1024
+    k = _rand(gen, L, Bc, S, Hkv * HD, device=cuda)
+    v = _rand(gen, L, Bc, S, Hkv * HD, device=cuda)
+    q = _rand(gen, Bc, C, Hkv * G, HD, device=cuda)
+    kn, vn = (_rand(gen, Bc, C, Hkv * HD, device=cuda) for _ in range(2))
+    base = torch.tensor([0, 37, 300, S - C - 5], dtype=torch.int32, device=cuda)
+    for fresh in (False, True):
+        kw = dict(k_new=kn, v_new=vn) if fresh else {}
+        end_of = (lambda n: n) if fresh else (lambda n: n + C)
+        out = PA.flash_prefill_attend(q, _poisoned(k, base, end_of), _poisoned(v, base, end_of),
+                                      base, layer=LAYER, **kw)
+        _gpu_close(out, PA.flash_prefill_attend_plain(q, k, v, base, layer=LAYER, **kw))
+
+
+def _prefill_operands(cuda, C=200, S=1024):
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    Bc, Hkv, G = 3, 8, 4
+    k = _rand(gen, L, Bc, S, Hkv * HD, device=cuda)
+    v = _rand(gen, L, Bc, S, Hkv * HD, device=cuda)
+    q = _rand(gen, Bc, C, Hkv * G, HD, device=cuda)
+    kn, vn = (_rand(gen, Bc, C, Hkv * HD, device=cuda) for _ in range(2))
+    base = torch.tensor([0, 300, S - C - 5], dtype=torch.int32, device=cuda)
+    return lambda: PA.flash_prefill_attend(q, k, v, base, layer=LAYER, k_new=kn, v_new=vn)
+
+
+@pytest.mark.gpu
+def test_prefill_kernel_deterministic_on_card(cuda):
+    """Two launches on the same inputs are bit-equal (no atomics, no split
+    of the KV range): encode and encode_baseline start from the same bits."""
+    run = _prefill_operands(cuda)
+    first = run()
+    for _ in range(3):
+        assert torch.equal(run(), first)
+
+
+@pytest.mark.gpu
+def test_prefill_graph_replay_matches_eager_on_card(cuda):
+    """Captured in a CUDA graph, K2's replay is bit-equal to its eager launch
+    (the tensor maps are encoded at capture)."""
+    run = _prefill_operands(cuda)
+    eager = run()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        run()  # warm the stream outside the capture
+    torch.cuda.current_stream().wait_stream(stream)
+    with torch.cuda.graph(graph):
+        captured = run()
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, eager)
 
 
 @pytest.mark.gpu

@@ -12,10 +12,12 @@ where the JAX package's routing reaches its kernels (the engine's tokens
 are in tests/test_torch_int4_engine.py); B4-int4's one-launch host side
 (its split plan on group boundaries, one C call with only ``out``
 allocated, against a fake library) and a plain model of its split and
-group order against the plain version and the Pallas kernel.  On the card
-(``gpu`` marker, skipped without one): each CUDA kernel against its plain
-version, B4-int4 at M = 32 to 256 and groups 64 to 256, bit-equal across
-two launches and under CUDA-graph replay.
+group order against the plain version and the Pallas kernel, and B6-int4's
+host side (one C call, only ``out`` allocated) and its order (split 1)
+against both.  On the card (``gpu`` marker, skipped without one): each
+CUDA kernel against its plain version, B4-int4 at M = 32 to 256 and groups
+64 to 256, B6-int4 at the lm_head's width, each bit-equal across two
+launches and under CUDA-graph replay.
 
 Tolerances.  Packing, quantization, dequantization and conversion are
 exact.  Plain versions against the Pallas kernels: atol = rtol = 2e-5 in
@@ -359,7 +361,7 @@ class _FakeLibrary:
         self.calls.append(("b4", args))
         return 0
 
-    def md_quant_matmul_int4(self, *args):
+    def md_quant_matmul_int4_t_sm90(self, *args):
         self.calls.append(("b6", args))
         return 0
 
@@ -368,7 +370,7 @@ class _FakeLibrary:
 def test_b4_int4_launch_once_with_a_shape_only_plan(epilogue, monkeypatch):
     """The B4-int4 host side: one kernel call a wrapper call, the split from
     the weight's shape and group at every M from 1 to 256, nothing allocated
-    but the output (rows past 256 raise); B6-int4 keeps its own entry."""
+    but the output (rows past 256 raise); B6-int4 takes its own entry."""
     from magicdec_tpu_torch.kernels import build
 
     lib = _FakeLibrary()
@@ -397,21 +399,57 @@ def test_b4_int4_launch_once_with_a_shape_only_plan(epilogue, monkeypatch):
     with pytest.raises(ValueError, match="at most 256 rows"):
         QK._launch_b4_int4(torch.zeros(257, In, dtype=torch.bfloat16), q, s)
     QK._launch_b6_int4(torch.zeros(32, In, dtype=torch.bfloat16), q, s)
-    assert lib.calls[-1][0] == "b6" and len(lib.calls[-1][1]) == 11
+    # x, q, scale, out, M, In, Out, group, stream: no split, no epilogue
+    assert lib.calls[-1][0] == "b6" and len(lib.calls[-1][1]) == 9
 
 
-def _int4_cluster_order_model(x, q, scale, res=None, *, gate=False):
+@pytest.mark.parametrize("group", [32, 128, 256])
+def test_b6_int4_launch_once_with_only_the_output(group, monkeypatch):
+    """The B6-int4 host side: one kernel call a wrapper call at every M from
+    1 to 256 with the shape and group passed as they are (no split), nothing
+    allocated but the output; rows past 256 raise."""
+    from magicdec_tpu_torch.kernels import build
+
+    lib = _FakeLibrary()
+    monkeypatch.setattr(build, "library", lambda: lib)
+    monkeypatch.setattr(build, "stream_ptr", lambda t: 0)
+    In, Out = 2048, 128256
+    q = torch.zeros(In // 2, Out, dtype=torch.int8)
+    s = torch.ones(In // group, Out)
+    allocated = []
+    empty = torch.empty
+    monkeypatch.setattr(torch, "empty", lambda *a, **k: allocated.append(a) or empty(*a, **k))
+    rows = (1, 16, 17, 32, 33, 64, 65, 160, 256)
+    for M in rows:
+        x = torch.zeros(M, In, dtype=torch.bfloat16)
+        out = QK._launch_b6_int4(x, q, s)
+        assert out.shape == (M, Out) and out.dtype == torch.bfloat16
+        assert lib.calls[-1][1][0] == x.data_ptr() and lib.calls[-1][1][3] == out.data_ptr()
+    assert allocated == [((M, Out),) for M in rows]
+    assert [c[0] for c in lib.calls] == ["b6"] * len(rows)
+    assert [c[1][4:8] for c in lib.calls] == [(M, In, Out, group) for M in rows]
+    with pytest.raises(ValueError, match="at most 256 rows"):
+        QK._launch_b6_int4(torch.zeros(257, In, dtype=torch.bfloat16), q, s)
+    with pytest.raises(ValueError, match="power-of-two group"):
+        QK._launch_b6_int4(torch.zeros(4, In, dtype=torch.bfloat16), q, torch.ones(In // 16, Out))
+    assert len(lib.calls) == len(rows)
+
+
+def _int4_cluster_order_model(x, q, scale, res=None, *, gate=False, split=None):
     """B4-int4's sum order in plain torch: the contraction cut by
-    cluster_split_plan in units of max(group, 128) rows; in each split the
-    groups in order, acc += f32(x_g @ q_g) * s_g; the splits' partials added
-    in split order; then B4's epilogue."""
+    cluster_split_plan (or into ``split`` parts) in units of max(group, 128)
+    rows; in each split the groups in order, acc += f32(x_g @ q_g) * s_g;
+    the splits' partials added in split order; then B4's epilogue.  With
+    split 1 and no epilogue: B6-int4's order, the groups of the whole
+    contraction in order."""
     from magicdec_tpu_torch.quantization import unpack_int4
 
     M, In = x.shape
     G = scale.shape[0]
     group = In // G
     unit = max(group, QK.BK4)
-    split = QK.cluster_split_plan(In, q.shape[1], unit)
+    if split is None:
+        split = QK.cluster_split_plan(In, q.shape[1], unit)
     per = -(-(In // unit) // split) * unit
     qf = unpack_int4(q).to(torch.float32)
     xf = x.to(torch.float32)
@@ -439,6 +477,19 @@ def test_int4_cluster_order_model_matches_plain(epilogue, group):
     got = _int4_cluster_order_model(x, q, s, res, gate=epilogue == "gate")
     want = QK.quant_matmul_fused_int4_plain(x, q, s, res, gate=epilogue == "gate")
     np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("group", [32, 64, 128, 256])
+def test_b6_int4_order_model_matches_plain(group):
+    """B6-int4's order (split 1, no epilogue: every group of the contraction
+    in order) against the plain version in float32, at a narrow Out where
+    cluster_split_plan would split."""
+    M, In, Out = 8, 1024, 256
+    _, _, _, ta = _operands_group(np.random.RandomState(7), "float32", M, In, Out, group)
+    x, q, s = ta[0], ta[-2], ta[-1]
+    assert QK.cluster_split_plan(In, Out, max(group, 128)) > 1
+    got = _int4_cluster_order_model(x, q, s, split=1)
+    np.testing.assert_allclose(got.numpy(), QK.quant_matmul_int4_plain(x, q, s).numpy(), **TOL)
 
 
 def _operands_group(rng, dtype, M, In, Out, group, *extra):
@@ -474,6 +525,20 @@ def test_int4_cluster_order_model_matches_pallas(epilogue, dtype):
                                     ta[1] if epilogue == "residual" else None,
                                     gate=epilogue == "gate")
     _compare(got, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("group", [64, 128])
+def test_b6_int4_order_model_matches_pallas(group, dtype):
+    """B6-int4's order (split 1, no epilogue) against ``quant_matmul_pallas``
+    with bits=4 (``_int4_kernel``) in interpret mode, at a narrow Out."""
+    from magicdec_tpu.ops.pallas.quant_matmul import quant_matmul_pallas
+
+    M, In, Out = 8, 1024, 256
+    jw, _, ja, ta = _operands_group(np.random.RandomState(8), dtype, M, In, Out, group)
+    ref = quant_matmul_pallas(ja[0], jw.q, jw.scale, bits=4, group_size=jw.group_size,
+                              block_in=512, block_out=128, interpret=True)
+    _compare(_int4_cluster_order_model(ta[0], ta[-2], ta[-1], split=1), ref, dtype)
 
 
 # -- the draft pass and the engine vs the JAX package -------------------------
@@ -624,6 +689,36 @@ def test_b4_int4_deterministic_and_graph_replay_on_card(cuda, kind, In, Out, M):
     torch.cuda.current_stream().wait_stream(stream)
     with torch.cuda.graph(graph):
         captured = run()
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, eager)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [32, 64, 160])
+def test_b6_int4_head_on_card(cuda, M):
+    """B6-int4 at the lm_head's width [2048, 128256]: within the bound of the
+    plain version, which the reference with the scales rolled by one column
+    fails; two launches bit-equal (no split, no atomics); CUDA-graph replay
+    bit-equal to the eager launch."""
+    gen = torch.Generator(device=cuda).manual_seed(100 + M)
+    q, s = _card_weight(gen, 2048, 128256, cuda)
+    x = torch.randn((M, 2048), generator=gen, device=cuda).to(torch.bfloat16)
+    eager = QK.quant_matmul_int4(x, q, s)
+    ref = QK.quant_matmul_int4_plain(x, q, s)
+    assert torch.isfinite(eager).all()
+    assert _outside(eager, ref) == 0
+    assert _outside(QK.quant_matmul_int4_plain(x, q, s.roll(1, -1)), ref) > 0
+    assert torch.equal(QK.quant_matmul_int4(x, q, s), eager)
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        QK.quant_matmul_int4(x, q, s)  # warm the stream outside the capture
+    torch.cuda.current_stream().wait_stream(stream)
+    with torch.cuda.graph(graph):
+        captured = QK.quant_matmul_int4(x, q, s)
     for _ in range(2):
         graph.replay()
         torch.cuda.synchronize()
