@@ -8,7 +8,8 @@ of which raises on failure:
 1. the card's name and power limit (``nvidia-smi``);
 2. build of every kernel from ``magicdec_tpu_torch/csrc`` (timed), with
    ptxas's registers, shared memory and spills of the Hopper kernels of B4/B6,
-   B4-int4/B6-int4, B15 and K2/K2q/B11;
+   B4-int4/B6-int4, B15, K2/K2q/B11 and K1q/B10 (with B12's int8/int4
+   pools);
 3. kernel phase: each Hopper kernel against its plain PyTorch version at the
    shapes of the bench's main path (llama-3.2-1b widths, B=32, target cache
    8704 rows in bf16 and in int8 with f32 scales quantized from the same
@@ -30,7 +31,11 @@ of which raises on failure:
    on the (dequantized) bf16 K/V for the attention kernels, ``index_copy_``
    of the rows (and scales) for the appends; timed only, never used by the
    port); K2, K2q and B11 also under torch.profiler, which must see one
-   launch of ``prefill_sm90_kernel`` a call; then the int8 dots of the
+   launch of ``prefill_sm90_kernel`` a call; K1q and B10 too, which must
+   see one ``decode_sm90_kernel`` and, with more than one split, one
+   ``combine_kernel`` a call, and for each of them every token of a T = 4
+   window bit-equal to the T = 1 step at its position over a cache holding
+   the window's earlier rows; then the int8 dots of the
    draft's weight copy (B4 with its norm,
    gate and residual epilogues, B5, B6, and B9), at llama-3.2-1b widths and
    M = 32 and 64, each timed over 16 layers' weights in turn (B4 and B6
@@ -52,7 +57,8 @@ of which raises on failure:
    8192 rows, page size 512 and 16, a random permuted table, ragged lengths
    including 0 and 8192 - T): B12 over bf16, int8 and packed int4 pools
    (wrong references: two table entries swapped, the fresh rows dropped),
-   each also bit-equal to its contiguous kernel over the gathered pool, and
+   each also bit-equal to its contiguous kernel over the gathered pool
+   (the int8 and int4 pools under torch.profiler as K1q and B10), and
    B13 into each pool bit for bit (library: SDPA on the gathered layer,
    ``index_copy_`` through the flattened page indices); B14, the per-array
    appends (rows on the int8 target cache and the draft's bf16 cache, f32
@@ -360,6 +366,9 @@ def kernel_phase(torch, gen):
                   PA.flash_prefill_attend_quant4):
             # K2 / K2q / B11: one launch of the Hopper kernel a call
             extra = _one_launch(torch, name, case, calls, kernel="prefill_sm90_kernel")
+        elif fn in (DA.flash_decode_attend_quant, DA.flash_decode_attend_quant4):
+            nsplit = DA.quant_split_plan(B, Hkv, S)[0]
+            extra = _decode_sm90_launches(torch, name, case, calls, nsplit)
         # one exponential a visible (row, column) pair
         record(name, case, err, tol, ms, plain_ms, nbytes, flops, library_ms, calls, [lib],
                extra, exps=Hq * pairs)
@@ -392,6 +401,8 @@ def kernel_phase(torch, gen):
         attn_case("flash_decode_attend_quant", DA.flash_decode_attend_quant,
                   DA.flash_decode_attend_quant_plain, f"target T={T} S={S}", qcaches,
                   quant_fresh, T, base_t, 3)
+    _window_equals_steps(torch, "flash_decode_attend_quant", DA.flash_decode_attend_quant,
+                         qcaches, layer, randn(B, 4, Hq, hd), base_t, quant_fresh(4))
     for base in (7680, 0):
         attn_case("flash_prefill_attend_quant", PA.flash_prefill_attend_quant,
                   PA.flash_prefill_attend_quant_plain, f"C=512 base={base}", qcaches,
@@ -405,6 +416,8 @@ def kernel_phase(torch, gen):
         attn_case("flash_decode_attend_quant4", DA.flash_decode_attend_quant4,
                   DA.flash_decode_attend_quant4_plain, f"target T={T} S={S}", pcaches,
                   quant4_fresh, T, base_t, 3, swap=True)
+    _window_equals_steps(torch, "flash_decode_attend_quant4", DA.flash_decode_attend_quant4,
+                         pcaches, layer, randn(B, 4, Hq, hd), base_t, quant4_fresh(4))
     for base in (7680, 0):
         attn_case("flash_prefill_attend_quant4", PA.flash_prefill_attend_quant4,
                   PA.flash_prefill_attend_quant4_plain, f"C=512 base={base}", pcaches,
@@ -769,9 +782,13 @@ def paged_kernel_cases(torch, gen, record):
             row_bytes = pools[0].shape[-1] * pools[0].element_size() + (Hkv * 4 if qz else 0)
             nbytes = (2 * q.numel() * 2 + 2 * float(vis.sum()) * row_bytes + table.numel() * 4
                       + sum(t.numel() * t.element_size() for t in fresh.values()))
+            calls = [lambda l=l: fn(q, *pools, table, base, layer=l, **fresh) for l in range(L)]
+            extra = None
+            if qz is not None:  # the int8 / int4 pools: decode_attention_sm90.cu's kernel
+                nsplit = DA.quant_split_plan(B, Hkv, S)[0]
+                extra = _decode_sm90_launches(torch, name, case, calls, nsplit)
             record(name, case, err, tol, ms, plain_ms, nbytes, 4 * hd * Hq * pairs, library_ms,
-                   [lambda l=l: fn(q, *pools, table, base, layer=l, **fresh) for l in range(L)],
-                   [lib])
+                   calls, [lib], extra)
             del lib_args
             fmt = {None: "bf16", quantize_kv_tokens: "int8"}.get(qz, "packed int4")
             paged_append_case(torch, record, pools, table, base, T, f"{fmt} pool ps={ps} ", gen)
@@ -1293,16 +1310,17 @@ def solo_phase(torch):
         return outs, engine.last_serve_stats
 
     def solo_b1(prompt, fixed_rows=False):
-        split_plan = DA.split_plan
-        if fixed_rows:  # the serving pass's rows and decode split plan
+        split_plan, quant_split_plan = DA.split_plan, DA.quant_split_plan
+        if fixed_rows:  # the serving pass's rows and decode split plans
             b1._hinted = lambda B: dataclasses.replace(
                 b1.cfg, decode_rows=slots * (b1.ecfg.gamma + 1))
             DA.split_plan = lambda B, Hkv, S: split_plan(slots, Hkv, S)
+            DA.quant_split_plan = lambda B, Hkv, S: quant_split_plan(slots, Hkv, S)
         try:
             _, stats = b1.generate(b1.encode(prompt[None]))
         finally:
             vars(b1).pop("_hinted", None)
-            DA.split_plan = split_plan
+            DA.split_plan, DA.quant_split_plan = split_plan, quant_split_plan
         n = int(stats["num_committed"][0])
         return stats["output"][0, :n].cpu().numpy()
 
@@ -1499,6 +1517,50 @@ def _one_launch(torch, name, label, calls, kernel=""):
             "kernel": sorted(kernels)}
 
 
+def _decode_sm90_launches(torch, name, label, calls, nsplit):
+    """K1q, B10 and B12's int8/int4 pools: the profiler must see one launch
+    of ``decode_sm90_kernel`` a call, and one of ``combine_kernel`` when the
+    plan has more than one split, and nothing else."""
+    per_call, prof_ms, kernels = _profiled(torch, calls)
+    want = 2 if nsplit > 1 else 1
+    print(f"[kernel] {name} {label}: profiler: {per_call:g} kernel launches a call "
+          f"({nsplit} splits), device ms a call {prof_ms:.4f} ({', '.join(sorted(kernels))})",
+          flush=True)
+    names = {"decode_sm90_kernel"} | ({"combine_kernel"} if nsplit > 1 else set())
+    if per_call != want or {n for n in names if any(n in k for k in kernels)} != names \
+            or not all(any(n in k for n in names) for k in kernels):
+        raise AssertionError(f"{name} {label}: {per_call} kernel launches a call "
+                             f"({sorted(kernels)}), not {want} of {sorted(names)}")
+    return {"launches_per_call": per_call, "profiler_device_ms": prof_ms,
+            "kernel": sorted(kernels)}
+
+
+def _window_equals_steps(torch, name, fn, caches, layer, q, base, fresh):
+    """Token t of a window (its fresh rows read at [base, base + T)) bit for
+    bit against the T = 1 step at base + t over layer ``layer`` holding the
+    window's rows before t, with fresh row t."""
+    one = [c[layer:layer + 1] for c in caches]
+    window = fn(q, *one, base, layer=0, **fresh)
+    T = q.shape[1]
+    for t in range(T):
+        k, ks, v, vs = (c.clone() for c in one)
+        for b, n in enumerate(base.tolist()):
+            k[0, b, n:n + t] = fresh["k_new"][b, :t]
+            v[0, b, n:n + t] = fresh["v_new"][b, :t]
+            ks[0, b, :, n:n + t] = fresh["ks_new"][b, :, :t]
+            vs[0, b, :, n:n + t] = fresh["vs_new"][b, :, :t]
+        step = fn(q[:, t:t + 1], k, ks, v, vs, base + t, layer=0,
+                  k_new=fresh["k_new"][:, t:t + 1], v_new=fresh["v_new"][:, t:t + 1],
+                  ks_new=fresh["ks_new"][:, :, t:t + 1].contiguous(),
+                  vs_new=fresh["vs_new"][:, :, t:t + 1].contiguous())
+        if not torch.equal(window[:, t:t + 1], step):
+            raise AssertionError(f"{name}: token {t} of the T={T} window differs in bits from "
+                                 f"the T=1 step at base + {t}")
+        del k, ks, v, vs
+    print(f"[kernel] {name}: every token of a T={T} window bit-equal to its T=1 step "
+          f"({len(base)} requests, ragged lengths)", flush=True)
+
+
 def _kernel_class(name):
     if "qmm4" in name or "qmm_sm90_kernel<true" in name:
         return "int4 dots (B4/B6-int4)"
@@ -1664,12 +1726,13 @@ def main():
     lib = build.build(verbose=True)
     print(f"[build] {lib.name} in {time.perf_counter() - t_start:.1f}s", flush=True)
     # registers, shared memory and spills of the Hopper kernels (B4/B6 and
-    # B4-int4, B6-int4, B15's dense_matmul_fused, K2/K2q/B11), each
-    # instantiation
+    # B4-int4, B6-int4, B15's dense_matmul_fused, K2/K2q/B11, K1q/B10 and
+    # B12's int8/int4 pools), each instantiation
     for source, kernel in (("quant_matmul_sm90", "qmm_sm90_kernel"),
                            ("quant_matmul_sm90", "qmm4_sm90_kernel"),
                            ("dense_matmul_sm90", "dmm_sm90_kernel"),
-                           ("prefill_attention_sm90", "prefill_sm90_kernel")):
+                           ("prefill_attention_sm90", "prefill_sm90_kernel"),
+                           ("decode_attention_sm90", "decode_sm90_kernel")):
         log = build.BUILD_DIR / f"{source}.nvcc.log"
         ptxas = log.read_text().splitlines() if log.exists() else []
         for i, line in enumerate(ptxas):
@@ -1791,7 +1854,7 @@ def main():
                                  "magicdec_tpu/ops/pallas/prefill_attention.py:304"),
         "append_all_rows_inplace": ("magicdec_tpu_torch/csrc/append.cu",
                                     "magicdec_tpu/ops/kv_cache.py:374"),
-        "flash_decode_attend_quant": ("magicdec_tpu_torch/csrc/decode_attention_quant.cu",
+        "flash_decode_attend_quant": ("magicdec_tpu_torch/csrc/decode_attention_sm90.cu",
                                       "magicdec_tpu/ops/pallas/decode_attention.py:547"),
         "flash_prefill_attend_quant": ("magicdec_tpu_torch/csrc/prefill_attention_sm90.cu",
                                        "magicdec_tpu/ops/pallas/prefill_attention.py:340"),
@@ -1805,7 +1868,7 @@ def main():
                          "magicdec_tpu/ops/pallas/quant_matmul.py:221"),
         "quant_mlp": ("magicdec_tpu_torch/csrc/quant_matmul.cu",
                       "magicdec_tpu/ops/pallas/quant_matmul.py:749"),
-        "flash_decode_attend_quant4": ("magicdec_tpu_torch/csrc/decode_attention_quant4.cu",
+        "flash_decode_attend_quant4": ("magicdec_tpu_torch/csrc/decode_attention_sm90.cu",
                                        "magicdec_tpu/ops/pallas/decode_attention.py:585"),
         "flash_prefill_attend_quant4": ("magicdec_tpu_torch/csrc/prefill_attention_sm90.cu",
                                         "magicdec_tpu/ops/pallas/prefill_attention.py:377"),
@@ -1817,9 +1880,9 @@ def main():
                               "magicdec_tpu/ops/pallas/quant_matmul.py:189"),
         "flash_paged_decode_attend": ("magicdec_tpu_torch/csrc/paged_attention.cu",
                                       "magicdec_tpu/ops/pallas/paged_attention.py:122"),
-        "flash_paged_decode_attend_quant": ("magicdec_tpu_torch/csrc/paged_attention.cu",
+        "flash_paged_decode_attend_quant": ("magicdec_tpu_torch/csrc/decode_attention_sm90.cu",
                                             "magicdec_tpu/ops/pallas/paged_attention.py:147"),
-        "flash_paged_decode_attend_quant4": ("magicdec_tpu_torch/csrc/paged_attention.cu",
+        "flash_paged_decode_attend_quant4": ("magicdec_tpu_torch/csrc/decode_attention_sm90.cu",
                                              "magicdec_tpu/ops/pallas/paged_attention.py:176"),
         "append_paged_rows_inplace": ("magicdec_tpu_torch/csrc/paged_attention.cu",
                                       "magicdec_tpu/ops/pallas/paged_attention.py:212"),

@@ -1,26 +1,25 @@
-// Shared flash-attention core of the decode (K1, K1q, B10, B12) and bf16
-// prefill (K2) kernels, which replace magicdec_tpu/ops/pallas/
-// decode_attention.py (_decode_kernel, _decode_quant_kernel,
-// _decode_quant4_kernel), paged_attention.py (_paged_call's kernels) and
-// prefill_attention.py (_prefill_kernel).  The quantized prefill kernels
-// (K2q, B11: _prefill_quant_kernel, _prefill_quant4_kernel) run on their own
-// Hopper kernel, prefill_attention_sm90.cu.
-//
-// Bound: bytes for the decode (few query rows over a long cache: K1 and K1q
-// stream the cache once), tensor-core operations and exponentials for K2
-// (each visible (row, column) pair costs 4 hd flops and one exp; at hd = 64
-// the two bounds are about equal on the H100).  The design serves both with
-// one tile loop: one thread block serves one (request b, kv head h) and a
-// run of W*16 grouped query rows; each warp owns 16 rows and keeps their
-// fp32 online softmax state (running max m, normaliser l, accumulator o) in
-// registers.  The block walks a range of KV rows in tiles of N rows staged
-// in shared memory by cp.async, two stages deep (the next tile's copy
-// overlaps this tile's arithmetic); each warp computes S = Q K^T and O += P
-// V with the tensor cores (mma.sync m16n8k16, bf16 in, fp32 accumulate; K
-// and V fragments through ldmatrix).  That is the pre-Hopper tensor-core
-// path: K2 runs S, softmax and P V in turn and stays at about 20% of its
-// bound (PERF.md), and is next in line for the wgmma core of
+// Shared flash-attention core of the bf16 decode kernels K1
+// (decode_attention.cu) and B12's bf16 pool (paged_attention.cu), which
+// replace magicdec_tpu/ops/pallas/decode_attention.py (_decode_kernel,
+// _whole_row_kernel) and paged_attention.py (_paged_call's bf16 kernel);
+// and the pieces the other attention sources share: the operands
+// (AttnArgs), a row's address in a contiguous cache or a page pool
+// (RowAddr), mma.sync / ldmatrix / cp.async, the exact int8 and int4
+// conversions, and the pass that merges split partials (combine_kernel).
+// The quantized decode kernels K1q and B10 and their paged twins run on
+// decode_attention_sm90.cu, the prefill kernels K2, K2q and B11 on
 // prefill_attention_sm90.cu.
+//
+// Bound: bytes (few query rows over a long cache: K1 streams the cache
+// once).  One thread block serves one (request b, kv head h, split of the
+// positions) and a run of W*16 grouped query rows; each warp owns 16 rows
+// and keeps their fp32 online softmax state (running max m, normaliser l,
+// accumulator o) in registers.  The block walks its positions in tiles of
+// N rows staged in shared memory by cp.async, two stages deep (the next
+// tile's copy overlaps this tile's arithmetic); each warp computes S = Q K^T
+// and O += P V with the tensor cores (mma.sync m16n8k16, bf16 in, fp32
+// accumulate; K and V fragments through ldmatrix).  K1 runs at 75-77% of
+// its byte bound (PERF.md).
 //
 // Rows are packed t-major inside a kv head: row r is token t = r / G of query
 // head h*G + r % G, so a row block covers consecutive tokens and its causal
@@ -36,48 +35,24 @@
 //
 // Masking follows magicdec_tpu's kernels exactly: scores of invisible columns
 // are set to -1e30 (not -inf), the running max starts at -1e30, and the
-// output is acc / max(l, 1e-30).
+// output is acc / max(l, 1e-30).  The quantized kernels add the scales as
+// magicdec_tpu's _quant_online_update does: the score of column c is s_raw *
+// (k_scale[c] * 1/sqrt(hd)), masked after scaling; the normaliser l sums the
+// unscaled p, and the P.V product takes bf16(p * v_scale[c]).
 //
-// int8 caches (QUANT = true: the K1q decode kernel).  The cache holds int8
-// rows with one f32 scale per (token, kv head), scales laid out [L, B, Hkv,
-// S] so a tile's columns of one head are contiguous.  A tile stages its int8
-// rows (HD bytes a row, four 16-byte cp.async) and its k and v scales
-// (4-byte cp.async each) two stages deep; after the copy lands, each thread
-// converts the chunks it copied to bf16 (exact: |q| <= 127, by integer and
-// float adds, i8x4_to_bf16x4) into the tile the tensor-core code reads, so
-// the mma path is K1's.  The scales follow magicdec_tpu's
-// _quant_online_update: the score of column c is s_raw * (k_scale[c] *
-// 1/sqrt(hd)), masked after scaling; the normaliser l sums the unscaled p,
-// and the P.V product takes bf16(p * v_scale[c]).
-//
-// int4 caches (QUANT and INT4: the B10 decode kernel).  The cache packs kv
-// heads 2i and 2i+1 into the low and high nibbles of packed pseudo-head i,
-// lane for lane, so a row is (Hkv/2)*HD bytes and head h's HD lanes sit at
-// (h/2)*HD; the scales are the int8 path's.  A block of head h stages those
-// HD bytes a row exactly as the int8 path stages its own, and converts the
-// (h & 1) nibble plane (i4x4_to_bf16x4: exact, no conversion unit), so the
-// tiles, the mma path and the scale order are K1q's.  Heads 2i and 2i+1 run
-// in separate blocks that read the same packed bytes: the second read
-// mostly hits L2 (the blocks of one request's heads run side by side), so
-// DRAM traffic stays at the packed bytes, while the L2 traffic is that of
-// an int8 cache.
-//
-// Page pools (PAGED = true: the B12 paged decode kernels).  The cache is a
-// pool [L, P, ps, K] shared by all requests, and row r of request b lives
-// in page table[b*npr + r/ps] at row r%ps (scales: pool [L, P, Hkv, ps]).
-// Only the address of a row changes (RowAddr); tiles, splits and
-// arithmetic are the contiguous kernel's at S = npr*ps, so a paged launch
-// gives the bits of a contiguous launch over the gathered cache.  A page
-// is resolved per 16-byte chunk (and per 4-byte scale), so a 32-row tile
-// may span pages of any size.  Rows at or past a request's visible length
-// are never read through the table.
+// Page pools (PAGED = true).  The cache is a pool [L, P, ps, K] shared by
+// all requests, and row r of request b lives in page table[b*npr + r/ps] at
+// row r%ps (scales: pool [L, P, Hkv, ps]).  Only the address of a row
+// changes (RowAddr); tiles, splits and arithmetic are the contiguous
+// kernel's at S = npr*ps, so a paged launch gives the bits of a contiguous
+// launch over the gathered cache.  A page is resolved per 16-byte chunk (and
+// per 4-byte scale), so a tile may span pages of any size.  Rows at or past
+// a request's visible length are never read through the table.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 namespace md {
 
@@ -89,7 +64,7 @@ struct AttnArgs {
   const __nv_bfloat16* v;
   const __nv_bfloat16* k_new;  // [B, T, Hkv*HD] fresh rows, or null
   const __nv_bfloat16* v_new;
-  const int8_t* kq;            // [L, B, S, Hkv*HD]  (int8 caches, QUANT;
+  const int8_t* kq;            // [L, B, S, Hkv*HD]  (int8 caches;
                                //  int4: [L, B, S, (Hkv/2)*HD] packed)
   const int8_t* vq;
   const int8_t* kq_new;        // [B, T, Hkv*HD] fresh int8 rows, or null
@@ -224,40 +199,9 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const Addr& cache,
   }
 }
 
-// int8 counterpart of load_tile: positions [c0, c0 + N) of one head, HD
-// bytes a row, into dst [N][HD] bytes.
-template <int HD, int N, int NT, typename Addr>
-__device__ __forceinline__ void load_tile_i8(int8_t* dst, const Addr& cache,
-                                             const int8_t* fresh, int fresh_at, int stride,
-                                             int c0, int c_end) {
-  constexpr int kVec = HD / 16;
-  for (int i = threadIdx.x; i < N * kVec; i += NT) {
-    const int row = i / kVec, c16 = i % kVec, col = c0 + row;
-    const bool valid = col < c_end;
-    const int8_t* src = !valid           ? cache.base
-                        : col < fresh_at ? cache(col) + c16 * 16
-                                         : fresh + (size_t)(col - fresh_at) * stride + c16 * 16;
-    cp_async16(dst + row * HD + c16 * 16, src, valid);
-  }
-}
-
-// The scales of positions [c0, c0 + N) of one head: `cache` addresses the
-// head's scales (scale_rows), `fresh` points at the fresh rows' (T columns,
-// the first at position fresh_at).  Zero past c_end.
-template <int N, int NT, typename Addr>
-__device__ __forceinline__ void load_scales(float* dst, const Addr& cache, const float* fresh,
-                                            int fresh_at, int c0, int c_end) {
-  for (int i = threadIdx.x; i < N; i += NT) {
-    const int col = c0 + i;
-    const bool valid = col < c_end;
-    const float* src = !valid ? cache.base : col < fresh_at ? cache(col) : fresh + (col - fresh_at);
-    cp_async4(dst + i, src, valid);
-  }
-}
-
 // Four int8 (one word, byte 0 first) -> four bf16 (two words, lo holds
 // bytes 0 and 1), exactly and without the conversion unit, which runs at a
-// fraction of the ALU rate and would bound K1q: byte v, its sign bit
+// fraction of the ALU rate (the int8 dots of quant_matmul.cu): byte v, its sign bit
 // flipped (v + 128), goes under the exponent of 2^23, so the float is
 // 2^23 + v + 128; subtracting 2^23 + 128 leaves v, and a float holding an
 // integer of at most 8 significant bits is its bf16 in the upper half.
@@ -272,31 +216,10 @@ __device__ __forceinline__ void i8x4_to_bf16x4(uint32_t w, uint32_t& lo, uint32_
   hi = __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632);
 }
 
-// int8 -> bf16 of the chunks of an int8 tile that this thread copied in
-// load_tile_i8 (the same index walk), into the padded bf16 tile: the
-// thread's own cp.async groups have landed once it has waited, so no
-// barrier is needed before the conversion, only after it.
-template <int HD, int N, int NT>
-__device__ __forceinline__ void convert_tile(__nv_bfloat16* dst, const int8_t* src) {
-  constexpr int kVec = HD / 16;
-  constexpr int LD = HD + 8;
-  for (int i = threadIdx.x; i < N * kVec; i += NT) {
-    const int row = i / kVec, c16 = i % kVec;
-    const uint4 raw = *reinterpret_cast<const uint4*>(src + row * HD + c16 * 16);
-    uint32_t w[8];
-    i8x4_to_bf16x4(raw.x, w[0], w[1]);
-    i8x4_to_bf16x4(raw.y, w[2], w[3]);
-    i8x4_to_bf16x4(raw.z, w[4], w[5]);
-    i8x4_to_bf16x4(raw.w, w[6], w[7]);
-    uint4* d = reinterpret_cast<uint4*>(dst + row * LD + c16 * 16);
-    d[0] = make_uint4(w[0], w[1], w[2], w[3]);
-    d[1] = make_uint4(w[4], w[5], w[6], w[7]);
-  }
-}
-
 // Four packed bytes (one word, byte 0 first) -> the four values of one
 // nibble plane (shift 0: the low nibbles, 4: the high ones) as bf16, two
-// words, lo holding bytes 0 and 1.  Exact, without the conversion unit: the
+// words, lo holding bytes 0 and 1 (the int4 producer of
+// prefill_attention_sm90.cu).  Exact, without the conversion unit: the
 // nibble n of value v has n ^ 8 == v + 8 in [0, 15]; as the low mantissa
 // bits under bf16's exponent of 2^7 it reads 128 + v + 8, and subtracting
 // 136 (exact: the difference is representable) leaves v.
@@ -311,28 +234,6 @@ __device__ __forceinline__ void i4x4_to_bf16x4(uint32_t w, int shift, uint32_t& 
   hi = *reinterpret_cast<const uint32_t*>(&v1);
 }
 
-// int4 counterpart of convert_tile: the chunks this thread copied in
-// load_tile_i8 hold 16 lanes of packed pairs; their `shift` plane goes into
-// the padded bf16 tile.
-template <int HD, int N, int NT>
-__device__ __forceinline__ void convert_tile_i4(__nv_bfloat16* dst, const int8_t* src,
-                                                int shift) {
-  constexpr int kVec = HD / 16;
-  constexpr int LD = HD + 8;
-  for (int i = threadIdx.x; i < N * kVec; i += NT) {
-    const int row = i / kVec, c16 = i % kVec;
-    const uint4 raw = *reinterpret_cast<const uint4*>(src + row * HD + c16 * 16);
-    uint32_t w[8];
-    i4x4_to_bf16x4(raw.x, shift, w[0], w[1]);
-    i4x4_to_bf16x4(raw.y, shift, w[2], w[3]);
-    i4x4_to_bf16x4(raw.z, shift, w[4], w[5]);
-    i4x4_to_bf16x4(raw.w, shift, w[6], w[7]);
-    uint4* d = reinterpret_cast<uint4*>(dst + row * LD + c16 * 16);
-    d[0] = make_uint4(w[0], w[1], w[2], w[3]);
-    d[1] = make_uint4(w[4], w[5], w[6], w[7]);
-  }
-}
-
 template <int HD>
 struct WarpState {
   uint32_t qf[HD / 16][4];  // Q as mma A fragments
@@ -342,13 +243,11 @@ struct WarpState {
 
 // One online-softmax update of a warp's 16 rows with the N-column tile held
 // in Ks/Vs.  Column col0 + c is visible to the thread's row i iff
-// col0 + c < lim[i].  QUANT: ksc/vsc hold the tile's k and v scales.
-template <int HD, int N, bool QUANT = false>
+// col0 + c < lim[i].
+template <int HD, int N>
 __device__ __forceinline__ void tile_update(WarpState<HD>& w, const __nv_bfloat16* Ks,
                                             const __nv_bfloat16* Vs, int col0,
-                                            const int lim[2], float scale, int lane,
-                                            const float* ksc = nullptr,
-                                            const float* vsc = nullptr) {
+                                            const int lim[2], float scale, int lane) {
   constexpr int LD = HD + 8;
   const int t4 = lane & 3;
   const int mat = lane >> 3, mrow = lane & 7;  // ldmatrix: this lane's row address
@@ -372,9 +271,7 @@ __device__ __forceinline__ void tile_update(WarpState<HD>& w, const __nv_bfloat1
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int i = e >> 1, c = j * 8 + t4 * 2 + (e & 1);
-      float f = scale;
-      if constexpr (QUANT) f = ksc[c] * scale;
-      const float x = col0 + c < lim[i] ? s[j][e] * f : kNegInf;
+      const float x = col0 + c < lim[i] ? s[j][e] * scale : kNegInf;
       s[j][e] = x;
       mx[i] = fmaxf(mx[i], x);
     }
@@ -407,26 +304,15 @@ __device__ __forceinline__ void tile_update(WarpState<HD>& w, const __nv_bfloat1
     w.o[n][3] *= corr[1];
   }
   // O += P V: P (rounded to bf16, as the reference rounds p to the value
-  // dtype; QUANT: p * v_scale) is re-used from the score registers as A
-  // fragments; V's B fragments (V rows are keys) come transposed by ldmatrix.
+  // dtype) is re-used from the score registers as A fragments; V's B
+  // fragments (V rows are keys) come transposed by ldmatrix.
 #pragma unroll
   for (int kk = 0; kk < N / 16; ++kk) {
     uint32_t a[4];
-    if constexpr (QUANT) {
-      // columns 16 kk + 2 t4 (+1) for s[2 kk], 16 kk + 8 + 2 t4 (+1) for s[2 kk + 1]
-      const float* v0 = vsc + 16 * kk + 2 * t4;
-      const float2 va = make_float2(v0[0], v0[1]);
-      const float2 vb = make_float2(v0[8], v0[9]);
-      a[0] = pack_bf16x2(s[2 * kk][0] * va.x, s[2 * kk][1] * va.y);
-      a[1] = pack_bf16x2(s[2 * kk][2] * va.x, s[2 * kk][3] * va.y);
-      a[2] = pack_bf16x2(s[2 * kk + 1][0] * vb.x, s[2 * kk + 1][1] * vb.y);
-      a[3] = pack_bf16x2(s[2 * kk + 1][2] * vb.x, s[2 * kk + 1][3] * vb.y);
-    } else {
-      a[0] = pack_bf16x2(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = pack_bf16x2(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-    }
+    a[0] = pack_bf16x2(s[2 * kk][0], s[2 * kk][1]);
+    a[1] = pack_bf16x2(s[2 * kk][2], s[2 * kk][3]);
+    a[2] = pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+    a[3] = pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3]);
 #pragma unroll
     for (int n = 0; n < HD / 8; n += 2) {
       uint32_t b[4];
@@ -437,36 +323,23 @@ __device__ __forceinline__ void tile_update(WarpState<HD>& w, const __nv_bfloat1
   }
 }
 
-// Shared tiles: bf16 K/V two stages deep; for int8 caches one bf16 tile
-// (converted) plus two stages of int8 rows and their scales.
-template <int HD, int N, bool QUANT>
+// Shared tiles: bf16 K/V two stages deep.
+template <int HD, int N>
 struct TileSmem {
   __nv_bfloat16 K[2][N * (HD + 8)];
   __nv_bfloat16 V[2][N * (HD + 8)];
 };
-template <int HD, int N>
-struct TileSmem<HD, N, true> {
-  __nv_bfloat16 K[1][N * (HD + 8)];
-  __nv_bfloat16 V[1][N * (HD + 8)];
-  int8_t Kq[2][N * HD];
-  int8_t Vq[2][N * HD];
-  float Ks[2][N];
-  float Vs[2][N];
-};
 
 // The kernel body.  Grid (row_blocks * nsplit, Hkv, B), W warps per block.
-// INT4 (with QUANT): the cache rows and fresh rows are packed in head pairs.
 // PAGED: the cache is a page pool read through a.table (RowAddr).
 // Split `split` covers positions [split*chunk, (split+1)*chunk); token t sees
 // positions [0, base + t + 1).  nsplit == 1 writes the normalised output;
 // nsplit > 1 writes (o, m, l) partials that a combine pass merges.
-template <int HD, int N, int W, int MIN_BLOCKS = 1, bool QUANT = false, bool INT4 = false,
-          bool PAGED = false>
+template <int HD, int N, int W, int MIN_BLOCKS = 1, bool PAGED = false>
 __global__ void __launch_bounds__(32 * W, MIN_BLOCKS) attend_kernel(AttnArgs a) {
-  static_assert(QUANT || !INT4, "an int4 cache is a quantized cache");
   constexpr int NT = 32 * W;
   // two stages: the next tile's copy runs while this one is computed
-  __shared__ __align__(16) TileSmem<HD, N, QUANT> sm;
+  __shared__ __align__(16) TileSmem<HD, N> sm;
 
   const int b = blockIdx.z, h = blockIdx.y;
   const int rb = blockIdx.x / a.nsplit, split = blockIdx.x % a.nsplit;
@@ -474,10 +347,10 @@ __global__ void __launch_bounds__(32 * W, MIN_BLOCKS) attend_kernel(AttnArgs a) 
   const int g = lane >> 2, t4 = lane & 3;
   const int G = a.Hq / a.Hkv, GT = G * a.T;
   // a cache row's width and the head's first lane in it
-  const int K = INT4 ? (a.Hkv / 2) * HD : a.Hkv * HD;
-  const int h_lane = INT4 ? (h >> 1) * HD : h * HD;
+  const int K = a.Hkv * HD;
+  const int h_lane = h * HD;
   const int base = a.base_lens[b];
-  const bool fresh = QUANT ? a.kq_new != nullptr : a.k_new != nullptr;
+  const bool fresh = a.k_new != nullptr;
   const int r_block = rb * 16 * W;
   const float scale = 1.f / sqrtf((float)HD);
 
@@ -511,44 +384,17 @@ __global__ void __launch_bounds__(32 * W, MIN_BLOCKS) attend_kernel(AttnArgs a) 
   w.m[0] = w.m[1] = kNegInf;
   w.l[0] = w.l[1] = 0.f;
 
-  using CacheT = std::conditional_t<QUANT, int8_t, __nv_bfloat16>;
-  const CacheT* kc;
-  const CacheT* vc;
-  if constexpr (QUANT) {
-    kc = a.kq;
-    vc = a.vq;
-  } else {
-    kc = a.k;
-    vc = a.v;
-  }
-  const RowAddr<CacheT, PAGED> krows = kv_rows<CacheT, PAGED>(a, kc, b, K, h_lane);
-  const RowAddr<CacheT, PAGED> vrows = kv_rows<CacheT, PAGED>(a, vc, b, K, h_lane);
-  RowAddr<float, PAGED> ksrows{}, vsrows{};
-  if constexpr (QUANT) {
-    ksrows = scale_rows<PAGED>(a, a.k_scale, b, h);
-    vsrows = scale_rows<PAGED>(a, a.v_scale, b, h);
-  }
+  const RowAddr<__nv_bfloat16, PAGED> krows = kv_rows<__nv_bfloat16, PAGED>(a, a.k, b, K, h_lane);
+  const RowAddr<__nv_bfloat16, PAGED> vrows = kv_rows<__nv_bfloat16, PAGED>(a, a.v, b, K, h_lane);
   const size_t f_off = (size_t)b * a.T * K + h_lane;
   const int fresh_at = fresh ? base : a.S;  // first position read from k_new
   const int lim_s[2] = {min(lim[0], hi_s), min(lim[1], hi_s)};
   const __nv_bfloat16* kn = fresh ? a.k_new + f_off : nullptr;
   const __nv_bfloat16* vn = fresh ? a.v_new + f_off : nullptr;
-  const int8_t* kqn = fresh ? a.kq_new + f_off : nullptr;
-  const int8_t* vqn = fresh ? a.vq_new + f_off : nullptr;
-  const size_t sn_off = ((size_t)b * a.Hkv + h) * a.T;
-  const float* ksn = fresh ? a.ks_new + sn_off : nullptr;
-  const float* vsn = fresh ? a.vs_new + sn_off : nullptr;
   // issue the copies of the tile at position c into stage st
   auto issue = [&](int st, int c) {
-    if constexpr (QUANT) {
-      load_tile_i8<HD, N, NT>(sm.Kq[st], krows, kqn, fresh_at, K, c, hi_s);
-      load_tile_i8<HD, N, NT>(sm.Vq[st], vrows, vqn, fresh_at, K, c, hi_s);
-      load_scales<N, NT>(sm.Ks[st], ksrows, ksn, fresh_at, c, hi_s);
-      load_scales<N, NT>(sm.Vs[st], vsrows, vsn, fresh_at, c, hi_s);
-    } else {
-      load_tile<HD, N, NT>(sm.K[st], krows, kn, fresh_at, K, c, hi_s);
-      load_tile<HD, N, NT>(sm.V[st], vrows, vn, fresh_at, K, c, hi_s);
-    }
+    load_tile<HD, N, NT>(sm.K[st], krows, kn, fresh_at, K, c, hi_s);
+    load_tile<HD, N, NT>(sm.V[st], vrows, vn, fresh_at, K, c, hi_s);
   };
   if (lo < hi_s) issue(0, lo);
   cp_async_commit();
@@ -558,21 +404,8 @@ __global__ void __launch_bounds__(32 * W, MIN_BLOCKS) attend_kernel(AttnArgs a) 
     if (c0 + N < hi_s) issue(stage ^ 1, c0 + N);
     cp_async_commit();
     cp_async_wait<1>();  // all groups but the newest have landed: this stage
-    if constexpr (INT4) {
-      convert_tile_i4<HD, N, NT>(sm.K[0], sm.Kq[stage], (h & 1) * 4);
-      convert_tile_i4<HD, N, NT>(sm.V[0], sm.Vq[stage], (h & 1) * 4);
-    } else if constexpr (QUANT) {
-      convert_tile<HD, N, NT>(sm.K[0], sm.Kq[stage]);
-      convert_tile<HD, N, NT>(sm.V[0], sm.Vq[stage]);
-    }
-    if constexpr (QUANT) {
-      __syncthreads();
-      tile_update<HD, N, true>(w, sm.K[0], sm.V[0], c0, lim_s, scale, lane, sm.Ks[stage],
-                               sm.Vs[stage]);
-    } else {
-      __syncthreads();
-      tile_update<HD, N>(w, sm.K[stage], sm.V[stage], c0, lim_s, scale, lane);
-    }
+    __syncthreads();
+    tile_update<HD, N>(w, sm.K[stage], sm.V[stage], c0, lim_s, scale, lane);
     __syncthreads();
     stage ^= 1;
   }
@@ -636,74 +469,39 @@ __global__ void combine_kernel(AttnArgs a, int R) {
   }
 }
 
-// ---- host side of the quantized-cache entry points (K1q, B10) ----
+// ---- host side of the bf16 decode entry points (K1, B12 bf16) ----
 
-// The entry points' operands of a quantized cache (int8, or int4 packed in
-// head pairs with INT4): q [B, T, Hq, 64] bf16; k/v int8 [L, B, S, K] (K =
-// Hkv*64, or (Hkv/2)*64 packed) with f32 scales [L, B, Hkv, S]; k_new/v_new
-// [B, T, K] and ks_new/vs_new [B, Hkv, T], or all four null; base_lens [B];
-// out [B, T, Hq, 64].  nullptr when the kernels do not take them.  One split
-// (the decode entry points set their split plan after).
-template <bool INT4>
-inline bool quant_args(AttnArgs& a, const void* q, const void* k, const void* v,
-                       const void* k_scale, const void* v_scale, const void* k_new,
-                       const void* v_new, const void* ks_new, const void* vs_new,
-                       const void* base_lens, void* out, int layer, int B, int S, int T,
-                       int Hq, int Hkv, int hd) {
-  if (hd != 64 || (INT4 && Hkv % 2 != 0) || (k_new == nullptr) != (ks_new == nullptr))
-    return false;
-  a = AttnArgs{};  // the bf16 fields stay null
-  a.q = static_cast<const __nv_bfloat16*>(q);
-  a.kq = static_cast<const int8_t*>(k);
-  a.vq = static_cast<const int8_t*>(v);
-  a.k_scale = static_cast<const float*>(k_scale);
-  a.v_scale = static_cast<const float*>(v_scale);
-  a.kq_new = static_cast<const int8_t*>(k_new);
-  a.vq_new = static_cast<const int8_t*>(v_new);
-  a.ks_new = static_cast<const float*>(ks_new);
-  a.vs_new = static_cast<const float*>(vs_new);
-  a.base_lens = static_cast<const int*>(base_lens);
-  a.out = static_cast<__nv_bfloat16*>(out);
-  a.layer = layer;
-  a.B = B;
-  a.S = S;
-  a.T = T;
-  a.Hq = Hq;
-  a.Hkv = Hkv;
-  a.nsplit = 1;
-  a.chunk = S;
-  return true;
-}
-
-template <int W, bool QUANT, bool INT4, bool PAGED>
+template <int W, bool PAGED>
 void launch_decode(const AttnArgs& a, cudaStream_t stream) {
   dim3 grid(a.nsplit, a.Hkv, a.B);
-  attend_kernel<64, 32, W, 1, QUANT, INT4, PAGED><<<grid, 32 * W, 0, stream>>>(a);
+  attend_kernel<64, 32, W, 1, PAGED><<<grid, 32 * W, 0, stream>>>(a);
   if (a.nsplit > 1) combine_kernel<64><<<dim3(a.Hkv, a.B), 256, 0, stream>>>(a, 16 * W);
 }
 
-// Decode (K1, K1q, B10; PAGED: their B12 twins): 32-row tiles, one block
-// per (split, kv head, request) of 16 grouped query rows a warp (1 to 8
-// warps), then the combine pass when a.nsplit > 1.  The caller sizes
-// part_o/part_ml with R = 16 * W rows (rows_pad in
-// kernels/decode_attention.py).  Returns cudaGetLastError().
-template <bool QUANT, bool INT4, bool PAGED = false>
+// Decode (K1; PAGED: B12's bf16 pool): 32-row tiles, one block per (split,
+// kv head, request) of 16 grouped query rows a warp (1 to 8 warps), then the
+// combine pass when a.nsplit > 1.  The caller sizes part_o/part_ml with R =
+// 16 * W rows (rows_pad in kernels/decode_attention.py).  Returns
+// cudaGetLastError().
+template <bool PAGED = false>
 int decode_attend(const AttnArgs& a, cudaStream_t st) {
   const int rows = (a.Hq / a.Hkv) * a.T;
   if (rows <= 16)
-    launch_decode<1, QUANT, INT4, PAGED>(a, st);
+    launch_decode<1, PAGED>(a, st);
   else if (rows <= 32)
-    launch_decode<2, QUANT, INT4, PAGED>(a, st);
+    launch_decode<2, PAGED>(a, st);
   else if (rows <= 64)
-    launch_decode<4, QUANT, INT4, PAGED>(a, st);
+    launch_decode<4, PAGED>(a, st);
   else if (rows <= 128)
-    launch_decode<8, QUANT, INT4, PAGED>(a, st);
+    launch_decode<8, PAGED>(a, st);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 
-// The bf16 counterpart of quant_args (K1; B12's bf16 entry point).
+// The bf16 operands of K1 and B12's bf16 entry point: q [B, T, Hq, 64]; k/v
+// [L, B, S, Hkv*64]; k_new/v_new [B, T, Hkv*64] or null; base_lens [B]; out
+// [B, T, Hq, 64].  One split (the entry points set their split plan after).
 inline bool dense_args(AttnArgs& a, const void* q, const void* k, const void* v,
                        const void* k_new, const void* v_new, const void* base_lens, void* out,
                        int layer, int B, int S, int T, int Hq, int Hkv, int hd) {
@@ -724,6 +522,17 @@ inline bool dense_args(AttnArgs& a, const void* q, const void* k, const void* v,
   a.Hkv = Hkv;
   a.nsplit = 1;
   a.chunk = S;
+  return true;
+}
+
+// The page pool's operands (S = npr * ps); false when they are not a pool's.
+inline bool paged_shape(AttnArgs& a, const void* table, int P, int ps, int npr) {
+  if (ps <= 0 || npr <= 0 || P <= 0) return false;
+  a.table = static_cast<const int*>(table);
+  a.P = P;
+  a.ps = ps;
+  a.npr = npr;
+  a.S = npr * ps;
   return true;
 }
 

@@ -37,5 +37,5 @@ extern "C" int md_decode_attend(const void* q, const void* k, const void* v,
   a.part_ml = static_cast<float*>(part_ml);
   a.nsplit = nsplit;
   a.chunk = chunk;
-  return md::decode_attend<false, false>(a, static_cast<cudaStream_t>(stream));
+  return md::decode_attend(a, static_cast<cudaStream_t>(stream));
 }

@@ -1,0 +1,655 @@
+// K1q and B10, with B12's int8 and int4 paged twins: flash decode / verify
+// attention over a quantized cache, on Hopper.
+//
+// Replaces magicdec_tpu/ops/pallas/decode_attention.py
+// flash_decode_attend_quant (:547; _decode_quant_kernel :171,
+// _quant_online_update :150, the blocked _decode_call :328/:387) over an
+// int8 cache, flash_decode_attend_quant4 (:585; _decode_quant4_kernel :255,
+// _unpack_int4_planes :241) over an int4 cache packed in head pairs, and
+// paged_attention.py flash_paged_decode_attend_quant (:147) and
+// flash_paged_decode_attend_quant4 (:176) (_paged_call) over page pools of
+// either.  A window of T <= 16 query tokens of request b attends layer
+// `layer`'s cache rows [0, base_b), each with its f32 per-(token, kv head) k
+// and v scale, plus, when given, its own T fresh rows and their scales,
+// read at their positions [base_b, base_b + T) (causal: token t sees
+// positions [0, base_b + t + 1)).  The numerics are the TPU kernel's
+// (attention_common.cuh): the score of column c is s_raw * (k_scale[c] *
+// 1/sqrt(hd)) (here in the exp2 domain, times log2 e), masked to -1e30
+// after scaling; the running max starts at -1e30; l sums the unscaled p;
+// P.V takes bf16(p * v_scale[c]); the output is acc / max(l, 1e-30).
+//
+// Bound: HBM bytes (a visible row is HD int8 bytes of k and of v a head, or
+// HD/2 packed, plus 4 bytes of scale each; the flops a byte are ~G*T).  The
+// PR 2/4 design (attention_common.cuh attend_kernel<.., QUANT>) ran at 47%
+// (int8) and 25% (int4) of that bound at the bench's shapes, whatever the
+// bytes: one-warp blocks walking 32-row tiles one at a time, each tile's
+// int8 rows written to shared memory as bf16 and read back between two
+// block barriers.  This design answers that:
+//
+// - Conversion in registers.  The int8 (or packed int4) tile stays in shared
+//   memory as it landed (HD bytes a position at a stride of HD + 16, so
+//   ldmatrix is free of bank conflicts).  ldmatrix of the bytes as 16-bit
+//   pairs gives each lane four bytes of one position (K: dims d..d+3) and
+//   ldmatrix.trans four bytes of two positions and two dims (V: (2t4, 2g),
+//   (2t4, 2g+1), (2t4+1, 2g), (2t4+1, 2g+1)).  Bytes 0 and 2 and bytes 1 and
+//   3 of such a word are exactly the pairs an m16n8k16 B fragment register
+//   holds: for V the two positions of one dim, for K two dims of one
+//   position once the head dims of each 16-dim step are permuted (slots 2t4,
+//   2t4+1, 2t4+8, 2t4+9 <- dims d, d+2, d+1, d+3, Q's A fragments loaded in
+//   the same order).  Each pair converts exactly without the conversion unit
+//   (i8_pair: two logic ops and a bf16x2 subtraction; i4_pair: one) and
+//   feeds the tensor cores directly: no bf16 tile, no barrier for it, and
+//   the output dims come out in the permuted order the epilogue undoes.
+// - A block a pair of kv heads: int8, the pair's 128 contiguous bytes a
+//   position (a single head's 64 bytes streamed at only ~3/4 the rate); B10
+//   the packed pair's 64, each warp converting both nibble planes of the
+//   words it loads, so a packed byte is read from HBM and shared memory once.
+//   An odd Hkv (int8) takes one head a block.
+// - Four warps a block, each with its own ring.  A block serves one (split
+//   of the positions, request, pair, 16 grouped query rows); the split is
+//   walked in 16-position tiles, tile j by warp j % 4, each warp through a
+//   ring of its own three stages filled by cp.async (its tiles' rows and
+//   scales) and waited for with cp.async.wait_group and __syncwarp only: no
+//   block barrier in the loop, two tiles a warp in flight.  The copies are
+//   issued per 16-byte chunk (4-byte per scale) by the warp's lanes, not by
+//   TMA, because a tile's positions come from three places the boxes of a
+//   tensor map cannot gather: cache rows below base, the fresh rows from
+//   base on (a T <= 16-row operand), and, paged, pages as small as 16 rows
+//   in any order; past the visible end nothing is read (zeros land
+//   instead).  A tile wholly below both ends takes a path without those
+//   tests.  The four warps merge their (m, l, o) through shared memory in
+//   warp order at the end.
+// - The softmax runs in the exp2 domain (log2 e folded into the score's
+//   scale) and skips the masks on a tile every row of the warp sees whole.
+//
+// Splits: kernels/decode_attention.py quant_split_plan, a function of (B,
+// Hkv, S) only; with more than one split a block writes its (o, m, l)
+// partial and combine_kernel (attention_common.cuh) merges them.  Which
+// positions go to which split, warp and tile, and in which order, depend on
+// static shapes alone, never on T or on the query rows, so a verify row and
+// the same token's autoregressive step give the same bits.  PAGED: only a
+// row's address changes (RowAddr), so a paged launch equals the contiguous
+// launch over the gathered pool bit for bit.
+#include "attention_common.cuh"
+
+namespace md {
+namespace dq90 {
+namespace {  // internal linkage: a second build of this file loads beside it
+
+constexpr int HD = 64;
+constexpr int NR = 16;     // positions a warp tile
+constexpr int NW = 4;      // warps a block
+constexpr int STAGES = 3;  // each warp's ring
+
+// One stage of a warp's ring: the k and v bytes of NR positions (RB bytes a
+// position: the block's HEADS int8 heads side by side, or one packed pair,
+// at a stride of RB + 16 so that ldmatrix is free of bank conflicts) and
+// their scales.
+template <bool INT4, int HEADS>
+struct Stage {
+  static constexpr int RB = INT4 ? HD : HEADS * HD;
+  static constexpr int LDB = RB + 16;
+  int8_t k[NR * LDB];
+  int8_t v[NR * LDB];
+  float ks[HEADS][NR];
+  float vs[HEADS][NR];
+};
+
+// The rings, and after the loop the four warps' states for the merge.
+template <bool INT4, int HEADS>
+union Smem {
+  Stage<INT4, HEADS> ring[NW][STAGES];
+  struct {
+    float o[NW][HEADS][16][HD];
+    float ml[NW][HEADS][16][2];
+  } merge;
+};
+
+__device__ __forceinline__ uint32_t bf16x2_sub(uint32_t a, uint32_t b) {
+  const __nv_bfloat162 d = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&a),
+                                   *reinterpret_cast<const __nv_bfloat162*>(&b));
+  return *reinterpret_cast<const uint32_t*>(&d);
+}
+
+// (a & b) op c in one logic op (the compiler splits it when b and c are
+// both immediates, so the constants ride in registers).
+__device__ __forceinline__ uint32_t and_or(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t d;
+  asm("lop3.b32 %0, %1, %2, %3, 0xEA;\n" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+__device__ __forceinline__ uint32_t and_xor(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t d;
+  asm("lop3.b32 %0, %1, %2, %3, 0x6A;\n" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The conversion constants, held in registers.
+struct Consts {
+  uint32_t k7, ks, kb, m4, b4;
+};
+
+// Bytes 0 and 2 of w (signed int8) -> bf16x2 {byte 0, byte 2}, exactly:
+// with low7 = v & 0x7F and sign = v & 0x80, bf16 0x4300 | low7 reads 128 +
+// low7 and 0x4300 | sign reads 128 or 256, so their difference is v.
+__device__ __forceinline__ uint32_t i8_pair(uint32_t w, const Consts& c) {
+  return bf16x2_sub(and_or(w, c.k7, c.kb), and_or(w, c.ks, c.kb));
+}
+
+// The low nibbles of bytes 0 and 2 of w (signed int4) -> bf16x2, exactly: a
+// nibble with its bit 3 flipped is v + 8 in [0, 15], 0x4300 | (v + 8) reads
+// 136 + v, and 136 (0x4308) is subtracted.
+__device__ __forceinline__ uint32_t i4_pair(uint32_t w, const Consts& c) {
+  return bf16x2_sub(and_xor(w, c.m4, c.b4), c.b4);
+}
+
+// The B fragment pair {even, odd} of word w: bytes {0, 2} and {1, 3} of
+// the int8 word, or of the `plane` nibbles of the packed word.
+template <bool INT4>
+__device__ __forceinline__ void pairs(uint32_t w, int plane, const Consts& c, uint32_t& even,
+                                      uint32_t& odd) {
+  if constexpr (INT4) {
+    even = i4_pair(w >> (4 * plane), c);
+    odd = i4_pair(w >> (8 + 4 * plane), c);
+  } else {
+    even = i8_pair(w, c);
+    odd = i8_pair(w >> 8, c);
+  }
+}
+
+// HEADS kv heads a block: INT4, the packed pair; int8, a pair of heads (one
+// when Hkv is odd), so that a block reads 128 contiguous bytes a position.
+template <bool INT4, int HEADS, bool PAGED>
+__global__ void __launch_bounds__(NW * 32, HEADS == 1 ? 4 : 3)
+    decode_sm90_kernel(AttnArgs a, int R) {
+  static_assert(HEADS == 2 || (!INT4 && HEADS == 1), "a packed row holds a pair of heads");
+  using St = Stage<INT4, HEADS>;
+  constexpr int LDB = St::LDB;
+  constexpr int CH = St::RB / 16;  // 16-byte chunks of a position
+  constexpr int PPI = 32 / CH;     // positions one copy instruction of a warp covers
+  extern __shared__ __align__(16) unsigned char dq_smem[];
+  Smem<INT4, HEADS>& sm = *reinterpret_cast<Smem<INT4, HEADS>*>(dq_smem);
+
+  const int b = blockIdx.z;
+  const int rb = blockIdx.x / a.nsplit, split = blockIdx.x % a.nsplit;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int G = a.Hq / a.Hkv, GT = G * a.T;
+  const int h0 = blockIdx.y * HEADS;  // the block's first kv head
+  const int K = INT4 ? (a.Hkv / 2) * HD : a.Hkv * HD;  // a cache row's bytes
+  const int lane_off = blockIdx.y * St::RB;  // the block's bytes in a row
+  const int base = a.base_lens[b];
+  const bool fresh = a.kq_new != nullptr;
+  const int r_block = rb * 16;
+  // 1/sqrt(hd), times log2(e): the softmax runs in the exp2 domain
+  const float scale = 1.f / sqrtf((float)HD) * 1.4426950408889634f;
+
+  const int t_last = min((r_block + 15) / G, a.T - 1);
+  const int hi = min(base + t_last + 1, a.S);
+  const int lo = split * a.chunk;
+  const int hi_s = min(hi, lo + a.chunk);
+  // positions [0, lim) visible to the thread's rows g and g + 8; a padding
+  // row (past G*T, never written) sees the block's whole range, so that the
+  // tiles every row sees whole take the softmax without masks
+  int lim[2];
+  bool valid[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r_block + g + 8 * i;
+    valid[i] = row < GT;
+    lim[i] = valid[i] ? min(base + row / G + 1, hi_s) : hi_s;
+  }
+  const int lim_min = min(lim[0], lim[1]);
+
+  // Q as A fragments, the dims of each 16-dim step in the order (d, d+2 |
+  // d+1, d+3) of the converted K pairs
+  uint32_t qf[HEADS][HD / 16][4];
+#pragma unroll
+  for (int hh = 0; hh < HEADS; ++hh)
+#pragma unroll
+    for (int mi = 0; mi < HD / 16; ++mi)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = r_block + g + 8 * i, t = row / G, gq = row % G;
+        uint2 qv = make_uint2(0u, 0u);
+        if (valid[i])
+          qv = *reinterpret_cast<const uint2*>(
+              a.q + (((size_t)b * a.T + t) * a.Hq + (h0 + hh) * G + gq) * HD + 16 * mi + 4 * t4);
+        qf[hh][mi][i] = __byte_perm(qv.x, qv.y, 0x5410);
+        qf[hh][mi][i + 2] = __byte_perm(qv.x, qv.y, 0x7632);
+      }
+  float o[HEADS][HD / 8][4];
+  float m[HEADS][2], l[HEADS][2];
+#pragma unroll
+  for (int hh = 0; hh < HEADS; ++hh) {
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n) o[hh][n][0] = o[hh][n][1] = o[hh][n][2] = o[hh][n][3] = 0.f;
+    m[hh][0] = m[hh][1] = kNegInf;
+    l[hh][0] = l[hh][1] = 0.f;
+  }
+  const Consts cs{0x007F007Fu, 0x00800080u, 0x43004300u, 0x000F000Fu, 0x43084308u};
+
+  const RowAddr<int8_t, PAGED> krows = kv_rows<int8_t, PAGED>(a, a.kq, b, K, lane_off);
+  const RowAddr<int8_t, PAGED> vrows = kv_rows<int8_t, PAGED>(a, a.vq, b, K, lane_off);
+  // a lane copies the k scales (lanes 0-15) or the v scales (16-31)
+  const bool is_v = lane >= 16;
+  RowAddr<float, PAGED> srows[HEADS];
+  const float* sfresh[HEADS];
+#pragma unroll
+  for (int hh = 0; hh < HEADS; ++hh) {
+    srows[hh] = scale_rows<PAGED>(a, is_v ? a.v_scale : a.k_scale, b, h0 + hh);
+    const size_t sn = ((size_t)b * a.Hkv + h0 + hh) * a.T;
+    sfresh[hh] = fresh ? (is_v ? a.vs_new : a.ks_new) + sn : nullptr;
+  }
+  const size_t f_off = (size_t)b * a.T * K + lane_off;
+  const int8_t* kqn = fresh ? a.kq_new + f_off : nullptr;
+  const int8_t* vqn = fresh ? a.vq_new + f_off : nullptr;
+  const int fresh_at = fresh ? base : a.S;  // the first position read from the fresh rows
+
+  // Copy the tile at position c into stage st of this warp's ring: each lane
+  // 16-byte chunks of k and of v (chunk lane % CH of positions lane / CH +
+  // PPI i) and the scales of position lane % 16 (k for lanes 0-15, v for
+  // 16-31) of each head; zeros past hi_s, where nothing is read.
+  auto issue = [&](int st, int c) {
+    St& s = sm.ring[warp][st];
+    if (c + NR <= min(hi_s, fresh_at)) {  // cache rows only, all read
+#pragma unroll
+      for (int i = 0; i < NR / PPI; ++i) {
+        const int r = lane / CH + PPI * i, c16 = 16 * (lane % CH);
+        cp_async16(s.k + r * LDB + c16, krows(c + r) + c16, true);
+        cp_async16(s.v + r * LDB + c16, vrows(c + r) + c16, true);
+      }
+#pragma unroll
+      for (int hh = 0; hh < HEADS; ++hh)
+        cp_async4((is_v ? s.vs[hh] : s.ks[hh]) + (lane & 15), srows[hh](c + (lane & 15)), true);
+      return;
+    }
+#pragma unroll
+    for (int i = 0; i < NR / PPI; ++i) {
+      const int r = lane / CH + PPI * i, c16 = 16 * (lane % CH), pos = c + r;
+      const bool ok = pos < hi_s;
+      const bool cached = pos < fresh_at;
+      const size_t f = (size_t)(pos - fresh_at) * K + c16;  // its fresh row's chunk
+      const int8_t* ks = !ok ? a.kq : cached ? krows(pos) + c16 : kqn + f;
+      const int8_t* vs = !ok ? a.vq : cached ? vrows(pos) + c16 : vqn + f;
+      cp_async16(s.k + r * LDB + c16, ks, ok);
+      cp_async16(s.v + r * LDB + c16, vs, ok);
+    }
+    const int r = lane & 15, pos = c + r;
+    const bool ok = pos < hi_s, cached = pos < fresh_at;
+#pragma unroll
+    for (int hh = 0; hh < HEADS; ++hh) {
+      const float* src =
+          !ok ? a.k_scale : cached ? srows[hh](pos) : sfresh[hh] + (pos - fresh_at);
+      cp_async4((is_v ? s.vs[hh] : s.ks[hh]) + r, src, ok);
+    }
+  };
+
+  const int ntiles = hi_s > lo ? (hi_s - lo + NR - 1) / NR : 0;
+  const int mine = ntiles > warp ? (ntiles - warp + NW - 1) / NW : 0;  // tiles warp, warp + NW, ...
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < mine) issue(st, lo + (warp + st * NW) * NR);
+    cp_async_commit();
+  }
+  for (int it = 0; it < mine; ++it) {
+    cp_async_wait<STAGES - 2>();  // this lane's copies of tile `it` have landed
+    __syncwarp();                 // every lane's; and tile it - 1's reads are done
+    if (it + STAGES - 1 < mine)
+      issue((it + STAGES - 1) % STAGES, lo + (warp + (it + STAGES - 1) * NW) * NR);
+    cp_async_commit();
+    const St& s = sm.ring[warp][it % STAGES];
+    const int c0 = lo + (warp + it * NW) * NR;
+
+    // S of each head.  K words (ldmatrix j, register mi): positions
+    // 8j..8j+7, dims 16mi..16mi+15 of the head (int4: of the pair)
+    float sc[HEADS][2][4];
+    uint32_t w[2][4];
+#pragma unroll
+    for (int hh = 0; hh < HEADS; ++hh) {
+      if (!INT4 || hh == 0) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          ldsm_x4(w[j], reinterpret_cast<const __nv_bfloat16*>(
+                            s.k + (INT4 ? 0 : hh * HD) + (8 * j + (lane & 7)) * LDB +
+                            16 * (lane >> 3)));
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) sc[hh][j][0] = sc[hh][j][1] = sc[hh][j][2] = sc[hh][j][3] = 0.f;
+#pragma unroll
+      for (int mi = 0; mi < HD / 16; ++mi)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          uint32_t b0, b1;
+          pairs<INT4>(w[j][mi], hh, cs, b0, b1);
+          mma_bf16_16816(sc[hh][j], qf[hh][mi], b0, b1);
+        }
+    }
+
+    // The online softmax of each head (sc[hh][j][e]: row g + 8 (e >> 1),
+    // position c0 + 8 j + 2 t4 + (e & 1)), in the exp2 domain (scores and
+    // the running max times log2 e); P as the A fragment, bf16(p * v_scale)
+    // as the reference.  A tile every row sees whole skips the masks (the
+    // same arithmetic, so the bits do not depend on which rows share it).
+    const bool whole = __all_sync(0xffffffffu, c0 + NR <= lim_min);
+    uint32_t pa[HEADS][4];
+    float corr[HEADS][2];
+#pragma unroll
+    for (int hh = 0; hh < HEADS; ++hh) {
+      const float2 kf[2] = {*reinterpret_cast<const float2*>(s.ks[hh] + 2 * t4),
+                            *reinterpret_cast<const float2*>(s.ks[hh] + 8 + 2 * t4)};
+      const float2 vf[2] = {*reinterpret_cast<const float2*>(s.vs[hh] + 2 * t4),
+                            *reinterpret_cast<const float2*>(s.vs[hh] + 8 + 2 * t4)};
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1;
+          const float f = (e & 1 ? kf[j].y : kf[j].x) * scale;
+          const float x =
+              whole || c0 + 8 * j + 2 * t4 + (e & 1) < lim[i] ? sc[hh][j][e] * f : kNegInf;
+          sc[hh][j][e] = x;
+          mx[i] = fmaxf(mx[i], x);
+        }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        const float m_new = fmaxf(m[hh][i], mx[i]);
+        corr[hh][i] = ex2(m[hh][i] - m_new);
+        m[hh][i] = m_new;
+        l[hh][i] *= corr[hh][i];
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1;
+          const float p = whole || c0 + 8 * j + 2 * t4 + (e & 1) < lim[i]
+                              ? ex2(sc[hh][j][e] - m[hh][i])
+                              : 0.f;
+          sc[hh][j][e] = p;
+          l[hh][i] += p;
+        }
+      pa[hh][0] = pack_bf16x2(sc[hh][0][0] * vf[0].x, sc[hh][0][1] * vf[0].y);
+      pa[hh][1] = pack_bf16x2(sc[hh][0][2] * vf[0].x, sc[hh][0][3] * vf[0].y);
+      pa[hh][2] = pack_bf16x2(sc[hh][1][0] * vf[1].x, sc[hh][1][1] * vf[1].y);
+      pa[hh][3] = pack_bf16x2(sc[hh][1][2] * vf[1].x, sc[hh][1][3] * vf[1].y);
+    }
+    bool rescale = false;
+#pragma unroll
+    for (int hh = 0; hh < HEADS; ++hh) rescale |= corr[hh][0] != 1.f || corr[hh][1] != 1.f;
+    if (__any_sync(0xffffffffu, rescale)) {
+#pragma unroll
+      for (int hh = 0; hh < HEADS; ++hh)
+#pragma unroll
+        for (int n = 0; n < HD / 8; ++n) {
+          o[hh][n][0] *= corr[hh][0];
+          o[hh][n][1] *= corr[hh][0];
+          o[hh][n][2] *= corr[hh][1];
+          o[hh][n][3] *= corr[hh][1];
+        }
+    }
+
+    // O += P V.  V words (ldmatrix.trans D, register 2 h2 + k): positions
+    // 8k..8k+7, dims 32D + 16 h2 .. + 15; n-block 4D + 2h2 (+1) holds dims
+    // 32D + 16h2 + 2n (+1) for its column n
+#pragma unroll
+    for (int hh = 0; hh < HEADS; ++hh)
+#pragma unroll
+      for (int D = 0; D < 2; ++D) {
+        if (!INT4 || hh == 0)
+          ldsm_x4_trans(w[D], reinterpret_cast<const __nv_bfloat16*>(
+                                  s.v + (INT4 ? 0 : hh * HD) +
+                                  ((lane & 7) + 8 * ((lane >> 3) & 1)) * LDB + 32 * D +
+                                  16 * (lane >> 4)));
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2) {
+          uint32_t e0, o0, e1, o1;
+          pairs<INT4>(w[D][2 * h2], hh, cs, e0, o0);
+          pairs<INT4>(w[D][2 * h2 + 1], hh, cs, e1, o1);
+          mma_bf16_16816(o[hh][4 * D + 2 * h2], pa[hh], e0, e1);
+          mma_bf16_16816(o[hh][4 * D + 2 * h2 + 1], pa[hh], o0, o1);
+        }
+      }
+  }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int hh = 0; hh < HEADS; ++hh)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      l[hh][i] += __shfl_xor_sync(0xffffffffu, l[hh][i], 1);
+      l[hh][i] += __shfl_xor_sync(0xffffffffu, l[hh][i], 2);
+    }
+
+  // Merge the four warps' states, in warp order.  o[hh][4D + k][e] is row
+  // g + 8 (e >> 1), dim 32D + 16 (k >> 1) + 4 t4 + 2 (e & 1) + (k & 1).
+  __syncthreads();  // every warp's ring is idle: the shared memory is the merge's
+#pragma unroll
+  for (int hh = 0; hh < HEADS; ++hh) {
+#pragma unroll
+    for (int D = 0; D < 2; ++D)
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sm.merge.o[warp][hh][g + 8 * (e >> 1)][32 * D + 16 * (k >> 1) + 4 * t4 + 2 * (e & 1) +
+                                                 (k & 1)] = o[hh][4 * D + k][e];
+    if (t4 == 0) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        sm.merge.ml[warp][hh][g + 8 * i][0] = m[hh][i];
+        sm.merge.ml[warp][hh][g + 8 * i][1] = l[hh][i];
+      }
+    }
+  }
+  __syncthreads();
+  const size_t part_base = ((size_t)b * a.Hkv + h0) * a.nsplit + split;
+  for (int item = threadIdx.x; item < HEADS * 16 * (HD / 8); item += NW * 32) {
+    const int hh = item / (16 * (HD / 8)), row = (item / (HD / 8)) % 16, d0 = 8 * (item % (HD / 8));
+    const int gr = r_block + row;
+    if (gr >= GT) continue;
+    float mw[NW], mm = kNegInf;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      mw[w] = sm.merge.ml[w][hh][row][0];
+      mm = fmaxf(mm, mw[w]);
+    }
+    float ll = 0.f, acc[8];
+#pragma unroll
+    for (int d = 0; d < 8; ++d) acc[d] = 0.f;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      const float c = ex2(mw[w] - mm);
+      ll += sm.merge.ml[w][hh][row][1] * c;
+#pragma unroll
+      for (int d = 0; d < 8; ++d) acc[d] += sm.merge.o[w][hh][row][d0 + d] * c;
+    }
+    if (a.nsplit == 1) {
+      const int t = gr / G, gq = gr % G;
+      const float inv = 1.f / fmaxf(ll, 1e-30f);
+      uint4 v;
+      v.x = pack_bf16x2(acc[0] * inv, acc[1] * inv);
+      v.y = pack_bf16x2(acc[2] * inv, acc[3] * inv);
+      v.z = pack_bf16x2(acc[4] * inv, acc[5] * inv);
+      v.w = pack_bf16x2(acc[6] * inv, acc[7] * inv);
+      *reinterpret_cast<uint4*>(a.out + (((size_t)b * a.T + t) * a.Hq + (h0 + hh) * G + gq) * HD +
+                                d0) = v;
+    } else {
+      const size_t pr = (part_base + (size_t)hh * a.nsplit) * R + gr;
+      float4* po = reinterpret_cast<float4*>(a.part_o + pr * HD + d0);
+      po[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
+      po[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
+      if (d0 == 0) {
+        a.part_ml[pr * 2] = mm * 0.6931471805599453f;  // natural log units for combine_kernel
+        a.part_ml[pr * 2 + 1] = ll;
+      }
+    }
+  }
+}
+
+// The operands of a quantized cache (int8, or int4 packed in head pairs
+// with INT4): q [B, T, Hq, 64] bf16; k/v int8 [L, B, S, K] (K = Hkv*64, or
+// (Hkv/2)*64 packed) with f32 scales [L, B, Hkv, S]; k_new/v_new [B, T, K]
+// and ks_new/vs_new [B, Hkv, T], or all four null; base_lens [B]; out [B, T,
+// Hq, 64]; the partials [B, Hkv, nsplit, R, 64] and [.., R, 2] when nsplit
+// > 1.  False when the shapes are not the kernel's.
+template <bool INT4>
+bool quant_args(AttnArgs& a, const void* q, const void* k, const void* v, const void* k_scale,
+                const void* v_scale, const void* k_new, const void* v_new, const void* ks_new,
+                const void* vs_new, const void* base_lens, void* out, void* part_o,
+                void* part_ml, int layer, int B, int S, int T, int Hq, int Hkv, int hd,
+                int nsplit, int chunk) {
+  if (hd != HD || Hkv < 1 || Hq % Hkv != 0 || (INT4 && Hkv % 2 != 0) || T < 1 || T > 16 ||
+      nsplit < 1 || chunk < NR || chunk % NR != 0 || (k_new == nullptr) != (ks_new == nullptr))
+    return false;
+  a = AttnArgs{};  // the bf16 fields stay null
+  a.q = static_cast<const __nv_bfloat16*>(q);
+  a.kq = static_cast<const int8_t*>(k);
+  a.vq = static_cast<const int8_t*>(v);
+  a.k_scale = static_cast<const float*>(k_scale);
+  a.v_scale = static_cast<const float*>(v_scale);
+  a.kq_new = static_cast<const int8_t*>(k_new);
+  a.vq_new = static_cast<const int8_t*>(v_new);
+  a.ks_new = static_cast<const float*>(ks_new);
+  a.vs_new = static_cast<const float*>(vs_new);
+  a.base_lens = static_cast<const int*>(base_lens);
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.part_o = static_cast<float*>(part_o);
+  a.part_ml = static_cast<float*>(part_ml);
+  a.layer = layer;
+  a.B = B;
+  a.S = S;
+  a.T = T;
+  a.Hq = Hq;
+  a.Hkv = Hkv;
+  a.nsplit = nsplit;
+  a.chunk = chunk;
+  return true;
+}
+
+// One launch of the kernel (grid: nsplit x 16-row blocks, kv-head pairs or
+// heads, requests), then the combine pass when nsplit > 1.  The partials
+// hold R = 16 * 2^k >= G*T rows a (request, kv head, split)
+// (kernels/decode_attention.py rows_pad).  Returns cudaGetLastError().
+template <bool INT4, int HEADS, bool PAGED>
+int launch_heads(const AttnArgs& a, cudaStream_t stream) {
+  constexpr int bytes = sizeof(Smem<INT4, HEADS>);
+  // once per instantiation: the shared memory past 48 KB
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      decode_sm90_kernel<INT4, HEADS, PAGED>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (attr != cudaSuccess) return (int)attr;
+  const int rows = (a.Hq / a.Hkv) * a.T;
+  int R = 16;
+  while (R < rows) R *= 2;
+  const dim3 grid(a.nsplit * ((rows + 15) / 16), a.Hkv / HEADS, a.B);
+  decode_sm90_kernel<INT4, HEADS, PAGED><<<grid, NW * 32, bytes, stream>>>(a, R);
+  if (a.nsplit > 1) combine_kernel<HD><<<dim3(a.Hkv, a.B), 256, 0, stream>>>(a, R);
+  return (int)cudaGetLastError();
+}
+
+// int4: one block a packed pair; int8: a pair of heads, or one when Hkv is
+// odd (kernels/decode_attention.py quant_split_plan counts the same blocks)
+template <bool INT4, bool PAGED>
+int launch(const AttnArgs& a, cudaStream_t stream) {
+  if constexpr (INT4)
+    return launch_heads<true, 2, PAGED>(a, stream);
+  else
+    return a.Hkv % 2 == 0 ? launch_heads<false, 2, PAGED>(a, stream)
+                          : launch_heads<false, 1, PAGED>(a, stream);
+}
+
+template <bool INT4>
+int contiguous(const void* q, const void* k, const void* v, const void* k_scale,
+               const void* v_scale, const void* k_new, const void* v_new, const void* ks_new,
+               const void* vs_new, const void* base_lens, void* out, void* part_o, void* part_ml,
+               int layer, int B, int S, int T, int Hq, int Hkv, int hd, int nsplit, int chunk,
+               void* stream) {
+  AttnArgs a;
+  if (!quant_args<INT4>(a, q, k, v, k_scale, v_scale, k_new, v_new, ks_new, vs_new, base_lens,
+                        out, part_o, part_ml, layer, B, S, T, Hq, Hkv, hd, nsplit, chunk))
+    return (int)cudaErrorInvalidValue;
+  return launch<INT4, false>(a, static_cast<cudaStream_t>(stream));
+}
+
+template <bool INT4>
+int paged(const void* q, const void* k_pool, const void* v_pool, const void* k_scale,
+          const void* v_scale, const void* table, const void* k_new, const void* v_new,
+          const void* ks_new, const void* vs_new, const void* base_lens, void* out, void* part_o,
+          void* part_ml, int layer, int B, int P, int ps, int npr, int T, int Hq, int Hkv,
+          int hd, int nsplit, int chunk, void* stream) {
+  AttnArgs a;
+  if (!quant_args<INT4>(a, q, k_pool, v_pool, k_scale, v_scale, k_new, v_new, ks_new, vs_new,
+                        base_lens, out, part_o, part_ml, layer, B, npr * ps, T, Hq, Hkv, hd,
+                        nsplit, chunk) ||
+      !paged_shape(a, table, P, ps, npr))
+    return (int)cudaErrorInvalidValue;
+  return launch<INT4, true>(a, static_cast<cudaStream_t>(stream));
+}
+
+}  // namespace
+}  // namespace dq90
+}  // namespace md
+
+// K1q: q [B, T, Hq, hd] bf16, k/v int8 [L, B, S, Hkv*hd] with f32 scales
+// k_scale/v_scale [L, B, Hkv, S], k_new/v_new [B, T, Hkv*hd] with
+// ks_new/vs_new [B, Hkv, T] or all null, base_lens [B], out [B, T, Hq, hd],
+// the partials part_o/part_ml of nsplit splits of `chunk` positions (a
+// multiple of 16).  Returns cudaGetLastError().
+extern "C" int md_decode_attend_quant(const void* q, const void* k, const void* v,
+                                      const void* k_scale, const void* v_scale,
+                                      const void* k_new, const void* v_new,
+                                      const void* ks_new, const void* vs_new,
+                                      const void* base_lens, void* out, void* part_o,
+                                      void* part_ml, int layer, int B, int S, int T, int Hq,
+                                      int Hkv, int hd, int nsplit, int chunk, void* stream) {
+  return md::dq90::contiguous<false>(q, k, v, k_scale, v_scale, k_new, v_new, ks_new, vs_new,
+                                     base_lens, out, part_o, part_ml, layer, B, S, T, Hq, Hkv,
+                                     hd, nsplit, chunk, stream);
+}
+
+// B10: as md_decode_attend_quant, with packed int4 k/v [L, B, S,
+// (Hkv/2)*hd] (+ k_new/v_new [B, T, (Hkv/2)*hd]); Hkv even.
+extern "C" int md_decode_attend_quant4(const void* q, const void* k, const void* v,
+                                       const void* k_scale, const void* v_scale,
+                                       const void* k_new, const void* v_new,
+                                       const void* ks_new, const void* vs_new,
+                                       const void* base_lens, void* out, void* part_o,
+                                       void* part_ml, int layer, int B, int S, int T, int Hq,
+                                       int Hkv, int hd, int nsplit, int chunk, void* stream) {
+  return md::dq90::contiguous<true>(q, k, v, k_scale, v_scale, k_new, v_new, ks_new, vs_new,
+                                    base_lens, out, part_o, part_ml, layer, B, S, T, Hq, Hkv,
+                                    hd, nsplit, chunk, stream);
+}
+
+// B12 over an int8 pool (INT4 = 0) or an int4 pool packed in head pairs:
+// as md_decode_attend_quant{,4}, with the pools [L, P, ps, Kc] and the scale
+// pools [L, P, Hkv, ps] read through table [B, npr] (S = npr * ps).
+extern "C" int md_paged_decode_attend_quant(
+    const void* q, const void* k_pool, const void* v_pool, const void* k_scale,
+    const void* v_scale, const void* table, const void* k_new, const void* v_new,
+    const void* ks_new, const void* vs_new, const void* base_lens, void* out, void* part_o,
+    void* part_ml, int layer, int B, int P, int ps, int npr, int T, int Hq, int Hkv, int hd,
+    int nsplit, int chunk, void* stream) {
+  return md::dq90::paged<false>(q, k_pool, v_pool, k_scale, v_scale, table, k_new, v_new,
+                                ks_new, vs_new, base_lens, out, part_o, part_ml, layer, B, P, ps,
+                                npr, T, Hq, Hkv, hd, nsplit, chunk, stream);
+}
+
+extern "C" int md_paged_decode_attend_quant4(
+    const void* q, const void* k_pool, const void* v_pool, const void* k_scale,
+    const void* v_scale, const void* table, const void* k_new, const void* v_new,
+    const void* ks_new, const void* vs_new, const void* base_lens, void* out, void* part_o,
+    void* part_ml, int layer, int B, int P, int ps, int npr, int T, int Hq, int Hkv, int hd,
+    int nsplit, int chunk, void* stream) {
+  return md::dq90::paged<true>(q, k_pool, v_pool, k_scale, v_scale, table, k_new, v_new,
+                               ks_new, vs_new, base_lens, out, part_o, part_ml, layer, B, P, ps,
+                               npr, T, Hq, Hkv, hd, nsplit, chunk, stream);
+}

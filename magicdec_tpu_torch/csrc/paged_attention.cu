@@ -1,19 +1,19 @@
-// B12 and B13: paged decode attention and the paged append, over KV page
-// pools shared by all requests of a serving batch.
+// B12 over a bf16 pool and B13: paged decode attention and the paged
+// append, over KV page pools shared by all requests of a serving batch.
 //
 // B12 replaces magicdec_tpu/ops/pallas/paged_attention.py
-// flash_paged_decode_attend, flash_paged_decode_attend_quant and
-// flash_paged_decode_attend_quant4 (_paged_call): the K1, K1q and B10
-// decode bodies over pools [L, P, ps, Kc] (bf16; int8; int4 packed in head
-// pairs, Kc = (Hkv/2)*hd) with f32 scale pools [L, P, Hkv, ps], reading row
-// r of request b from page table[b*npr + r/ps].  As in the TPU kernel the
-// bodies are shared and only the addressing differs: attend_kernel with
-// PAGED = true (attention_common.cuh RowAddr).  The split plan is the
-// contiguous kernel's at S = npr*ps (kernels/decode_attention.py
-// split_plan), so the paged kernel reads the same rows in the same tiles
-// and its output equals the contiguous kernel's over the gathered cache
-// bit for bit.  Bound: HBM bytes, as K1/K1q/B10; the table adds one 4-byte
-// read (an L1 hit) per 16-byte chunk.  Fresh rows ride as operands.
+// flash_paged_decode_attend (:122, _paged_call): the K1 decode body over
+// pools [L, P, ps, Hkv*hd], reading row r of request b from page
+// table[b*npr + r/ps].  As in the TPU kernel the body is shared and only the
+// addressing differs: attend_kernel with PAGED = true (attention_common.cuh
+// RowAddr).  The split plan is the contiguous kernel's at S = npr*ps
+// (kernels/decode_attention.py split_plan), so the paged kernel reads the
+// same rows in the same tiles and its output equals the contiguous kernel's
+// over the gathered cache bit for bit.  Bound: HBM bytes, as K1; the table
+// adds one 4-byte read (an L1 hit) per 16-byte chunk.  Fresh rows ride as
+// operands.  B12's int8 and int4 pools (flash_paged_decode_attend_quant
+// :147, _quant4 :176) are the PAGED instances of K1q's and B10's kernel in
+// decode_attention_sm90.cu.
 //
 // B13 replaces paged_attention.py append_paged_rows_inplace (its dense
 // call :294 and quantized call :331, the _merge_rows_block and
@@ -30,23 +30,6 @@
 #include "attention_common.cuh"
 
 namespace {
-
-// The common operands of the three paged decode entry points; false when
-// the shapes are not the kernels'.
-bool paged_shape(md::AttnArgs& a, const void* table, int P, int ps, int npr, int nsplit,
-                 int chunk, void* part_o, void* part_ml) {
-  if (ps <= 0 || npr <= 0 || P <= 0) return false;
-  a.table = static_cast<const int*>(table);
-  a.P = P;
-  a.ps = ps;
-  a.npr = npr;
-  a.S = npr * ps;
-  a.nsplit = nsplit;
-  a.chunk = chunk;
-  a.part_o = static_cast<float*>(part_o);
-  a.part_ml = static_cast<float*>(part_ml);
-  return true;
-}
 
 __global__ void append_paged_rows_kernel(uint4* __restrict__ pk, uint4* __restrict__ pv,
                                          float* __restrict__ sk, float* __restrict__ sv,
@@ -116,50 +99,13 @@ extern "C" int md_paged_decode_attend(const void* q, const void* k_pool, const v
   md::AttnArgs a;
   if (!md::dense_args(a, q, k_pool, v_pool, k_new, v_new, base_lens, out, layer, B, npr * ps,
                       T, Hq, Hkv, hd) ||
-      !paged_shape(a, table, P, ps, npr, nsplit, chunk, part_o, part_ml))
+      !md::paged_shape(a, table, P, ps, npr))
     return (int)cudaErrorInvalidValue;
-  return md::decode_attend<false, false, true>(a, static_cast<cudaStream_t>(stream));
-}
-
-// B12 over an int8 pool (INT4 = 0) or an int4 pool packed in head pairs
-// (INT4 = 1): as md_decode_attend_quant{,4}, with the pools [L, P, ps, Kc]
-// and the scale pools [L, P, Hkv, ps] read through table [B, npr].
-template <bool INT4>
-static int paged_decode_quant(const void* q, const void* k_pool, const void* v_pool,
-                              const void* k_scale, const void* v_scale, const void* table,
-                              const void* k_new, const void* v_new, const void* ks_new,
-                              const void* vs_new, const void* base_lens, void* out,
-                              void* part_o, void* part_ml, int layer, int B, int P, int ps,
-                              int npr, int T, int Hq, int Hkv, int hd, int nsplit, int chunk,
-                              void* stream) {
-  md::AttnArgs a;
-  if (!md::quant_args<INT4>(a, q, k_pool, v_pool, k_scale, v_scale, k_new, v_new, ks_new,
-                            vs_new, base_lens, out, layer, B, npr * ps, T, Hq, Hkv, hd) ||
-      !paged_shape(a, table, P, ps, npr, nsplit, chunk, part_o, part_ml))
-    return (int)cudaErrorInvalidValue;
-  return md::decode_attend<true, INT4, true>(a, static_cast<cudaStream_t>(stream));
-}
-
-extern "C" int md_paged_decode_attend_quant(
-    const void* q, const void* k_pool, const void* v_pool, const void* k_scale,
-    const void* v_scale, const void* table, const void* k_new, const void* v_new,
-    const void* ks_new, const void* vs_new, const void* base_lens, void* out, void* part_o,
-    void* part_ml, int layer, int B, int P, int ps, int npr, int T, int Hq, int Hkv, int hd,
-    int nsplit, int chunk, void* stream) {
-  return paged_decode_quant<false>(q, k_pool, v_pool, k_scale, v_scale, table, k_new, v_new,
-                                   ks_new, vs_new, base_lens, out, part_o, part_ml, layer, B,
-                                   P, ps, npr, T, Hq, Hkv, hd, nsplit, chunk, stream);
-}
-
-extern "C" int md_paged_decode_attend_quant4(
-    const void* q, const void* k_pool, const void* v_pool, const void* k_scale,
-    const void* v_scale, const void* table, const void* k_new, const void* v_new,
-    const void* ks_new, const void* vs_new, const void* base_lens, void* out, void* part_o,
-    void* part_ml, int layer, int B, int P, int ps, int npr, int T, int Hq, int Hkv, int hd,
-    int nsplit, int chunk, void* stream) {
-  return paged_decode_quant<true>(q, k_pool, v_pool, k_scale, v_scale, table, k_new, v_new,
-                                  ks_new, vs_new, base_lens, out, part_o, part_ml, layer, B,
-                                  P, ps, npr, T, Hq, Hkv, hd, nsplit, chunk, stream);
+  a.nsplit = nsplit;
+  a.chunk = chunk;
+  a.part_o = static_cast<float*>(part_o);
+  a.part_ml = static_cast<float*>(part_ml);
+  return md::decode_attend<true>(a, static_cast<cudaStream_t>(stream));
 }
 
 // B13, dense call: rows_k/rows_v [L, B, T, Kc] (row_bytes = Kc * element

@@ -7,14 +7,21 @@ here).
         [--bases 7680,0] [--which all|decode|prefill|append|paged|encode|dots]
         [--bench_args "--B 32 ..."] [--device cpu]
 
-Each case is timed by ``engine/profiling.py``'s chain: ``--iters`` launches
-back to back, each attention launch's output feeding the next one's queries,
-between CUDA events (on ``--device cpu``: the host clock, a CPU time).  The
+The ``append`` cases are timed by ``engine/profiling.py``'s chain:
+``--iters`` launches back to back between CUDA events (on ``--device cpu``:
+the host clock, a CPU time); the attention cases by ``graph_ms`` (below).  The
 last line is the JSON result; ``detail`` holds every case in ms.
 
 Cases (``--which``):
-  decode   K1 and K1q at T = 1 and ``--T`` (the verify window) over one
-           layer of an S-row cache, every request at length S - T;
+  decode   K1 (bf16 cache), K1q (int8) and B10 (int4 packed in head
+           pairs) at T = 1 and ``--T`` (the verify window) with the
+           window's fresh rows, over the layer stack's S-row caches in turn,
+           the requests' lengths ragged in [S - S/17, S - S/85 - T) (the
+           bench's 8192 ... 8600 at S = 8704): ``decode_{kind}_T{t}`` is
+           the device time a call (``graph_ms``, one call a layer captured
+           in a CUDA graph; on ``--device cpu`` the host clock over the
+           plain versions).  An A/B against an older checkout runs as for
+           ``prefill``;
   prefill  K2 (bf16 cache), K2q (int8) and B11 (int4 packed in head
            pairs) over a ``--C``-row chunk with its fresh rows, at each of
            ``--bases`` (the bench's last chunk, 7680, and its first, 0), over
@@ -33,7 +40,10 @@ Cases (``--which``):
            merged launch (``append_T{t}_merged``) against B14's four
            per-array launches (``append_T{t}_per_array``, the
            ``MAGICDEC_PER_ARRAY_APPEND`` path);
-  paged    B12 over bf16 and int8 pools, one layer, a permuted page table;
+  paged    B12 over bf16, int8 and int4 pools of the layer stack at page
+           sizes 512 and 16 (those dividing S), a permuted page table,
+           lengths ragged in [0, S - T]: ``paged_{kind}_ps{ps}_T{t}``,
+           device time a call as for ``decode`` (A/B likewise);
   encode   (not in "all") the time to first token at the bench's shapes:
            the wall milliseconds of ``SpecEngine.encode`` (target and draft
            prefill, ``encode_spec_{r}``) and ``encode_baseline`` (target
@@ -118,6 +128,9 @@ def parse_args(argv=None):
                    choices=["all", "decode", "prefill", "append", "paged", "encode", "dots"])
     p.add_argument("--bench_args", default="",
                    help="encode: the bench's flags, one string (its defaults otherwise)")
+    p.add_argument("--dump", default="",
+                   help="decode, paged: torch.save each case's layer-0 output to this file "
+                            "(to compare two checkouts' bits)")
     return p.parse_args(argv)
 
 
@@ -127,49 +140,21 @@ def main(argv=None):
     from magicdec_tpu_torch.config import ModelConfig
     from magicdec_tpu_torch.engine.profiling import _chain
     from magicdec_tpu_torch.kernels import append as AP
-    from magicdec_tpu_torch.kernels import decode_attention as DA
-    from magicdec_tpu_torch.kernels import paged_attention as PGA
-    from magicdec_tpu_torch.ops.kv_cache import quantize_kv_tokens
 
     dev = resolve_device(args.device)
     cfg = ModelConfig.from_name(args.model)
     B, S, C, T = args.B, args.S, args.C, args.T
-    Hq, Hkv, hd = cfg.n_head, cfg.n_kv_head, cfg.head_dim
+    Hkv, hd = cfg.n_kv_head, cfg.head_dim
     K = Hkv * hd
     gen = torch.Generator(device=dev).manual_seed(0)
-    bf = torch.bfloat16
-
-    def randn(*shape):
-        return torch.randn(shape, generator=gen, device=dev).to(bf)
-
     results = {}
-
-    def bench(name, fn, q, *rest):
-        """fn(q, *rest) -> an array shaped like q, timed as a chain whose
-        launches each take the previous output as queries."""
-        ms = _chain(lambda st, w: (fn(st[0], *w),), args.iters, lambda: (q.clone(),),
-                    rest)() * 1e3
-        results[name] = round(ms, 4)
-        print(f"[kernel] {name:32s} {ms:8.4f} ms", file=sys.stderr, flush=True)
 
     def lens(n):
         return torch.full((B,), n, dtype=torch.int32, device=dev)
 
+    outputs = {}
     if args.which in ("all", "decode"):
-        k4, v4 = randn(B, S, Hkv, hd), randn(B, S, Hkv, hd)
-        k, v = k4.reshape(1, B, S, K), v4.reshape(1, B, S, K)
-        (kq, ks), (vq, vs) = quantize_kv_tokens(k4), quantize_kv_tokens(v4)
-        kq, ks, vq, vs = kq[None], ks[None], vq[None], vs[None]
-        del k4, v4
-        for t in sorted({1, T}):
-            q = randn(B, t, Hq, hd)
-            bench(f"decode_T{t}_plain", DA.flash_decode_attend_plain, q, k, v, lens(S - t))
-            bench(f"decode_T{t}_flash", DA.flash_decode_attend, q, k, v, lens(S - t))
-            bench(f"decode_T{t}_int8_plain", DA.flash_decode_attend_quant_plain, q, kq, ks,
-                  vq, vs, lens(S - t))
-            bench(f"decode_T{t}_int8_flash", DA.flash_decode_attend_quant, q, kq, ks, vq, vs,
-                  lens(S - t))
-        del k, v, kq, ks, vq, vs
+        results.update(_decode(cfg, B, S, T, dev, gen, outputs))
 
     if args.which in ("all", "prefill"):
         results.update(_prefill(cfg, B, S, C, [int(x) for x in args.bases.split(",")], dev,
@@ -211,21 +196,9 @@ def main(argv=None):
                 print(f"[kernel] {name:32s} {ms:8.4f} ms", file=sys.stderr, flush=True)
 
     if args.which in ("all", "paged"):
-        # page-table indirection at the contiguous kernel's logical shape:
-        # one layer of pools, a permuted table
-        ps = 2048 if S % 2048 == 0 else (512 if S % 512 == 0 else 128)
-        npr = S // ps
-        perm = torch.randperm(B * npr, generator=gen, device=dev).to(torch.int32)
-        table = perm.reshape(B, npr).contiguous()
-        kp, vp = (torch.zeros((1, B * npr, ps, K), dtype=bf, device=dev) for _ in range(2))
-        kp8 = torch.zeros((1, B * npr, ps, K), dtype=torch.int8, device=dev)
-        sk8 = torch.zeros((1, B * npr, Hkv, ps), device=dev)
-        for t in sorted({1, T}):
-            q = randn(B, t, Hq, hd)
-            bench(f"paged_decode_T{t}_flash", PGA.flash_paged_decode_attend, q, kp, vp, table,
-                  lens(S - t))
-            bench(f"paged_decode_T{t}_int8_flash", PGA.flash_paged_decode_attend_quant, q, kp8,
-                  sk8, kp8, sk8, table, lens(S - t))
+        results.update(_paged(cfg, B, S, T, dev, gen, outputs))
+    if args.dump:
+        torch.save(outputs, args.dump)
 
     if args.which == "encode":
         results.update(_encode(args.bench_args.split() + ["--device", args.device], dev))
@@ -235,8 +208,108 @@ def main(argv=None):
 
     device = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(json.dumps({"metric": f"kernel_bench_{args.model}_B{B}_S{S}_torch",
-                      "value": results.get("decode_T1_flash", 0.0), "unit": "ms",
+                      "value": results.get("decode_bf16_T1", 0.0), "unit": "ms",
                       "vs_baseline": 1.0, "device": device, "detail": results}))
+    return results
+
+
+def _timed(calls, dev):
+    """Device ms a call of ``calls`` (graph replay) on the card; on the CPU
+    the host clock over one pass."""
+    if dev.type == "cuda":
+        return graph_ms(calls)
+    t0 = time.perf_counter()
+    for call in calls:
+        call()
+    return (time.perf_counter() - t0) * 1e3 / len(calls)
+
+
+def _quant_operands(shape, Hkv, gen, dev):
+    """Random int8 rows (int8 values, or packed int4 pairs) of ``shape``
+    and f32 scales [.., Hkv, rows] for timing: a kernel's time does not
+    depend on the values."""
+    q = torch.randint(-128, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+    s = torch.rand((*shape[:-2], Hkv, shape[-2]), generator=gen, device=dev) / 64
+    return q, s
+
+
+def _decode(cfg, B, S, T, dev, gen, outputs):
+    """The ``decode`` cases (see the module docstring); returns {case: ms}."""
+    from magicdec_tpu_torch.kernels import decode_attention as DA
+
+    L, Hq, Hkv, hd = cfg.n_layer, cfg.n_head, cfg.n_kv_head, cfg.head_dim
+    K = Hkv * hd
+    bf = torch.bfloat16
+    lo = S - S // 17
+    base = torch.randint(lo, max(lo + 1, S - S // 85 - T), (B,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    kinds = {"bf16": (DA.flash_decode_attend, K), "int8": (DA.flash_decode_attend_quant, K),
+             "int4": (DA.flash_decode_attend_quant4, K // 2)}
+    results = {}
+    for kind, (fn, width) in kinds.items():
+        if kind == "bf16":
+            caches = tuple(torch.randn((L, B, S, K), generator=gen, device=dev).to(bf)
+                           for _ in range(2))
+        else:
+            k, ks = _quant_operands((L, B, S, width), Hkv, gen, dev)
+            v, vs = _quant_operands((L, B, S, width), Hkv, gen, dev)
+            caches = (k, ks, v, vs)
+        for t in sorted({1, T}):
+            q = torch.randn((B, t, Hq, hd), generator=gen, device=dev).to(bf)
+            if kind == "bf16":
+                fresh = {"k_new": torch.randn((B, t, K), generator=gen, device=dev).to(bf),
+                         "v_new": torch.randn((B, t, K), generator=gen, device=dev).to(bf)}
+            else:
+                (kn, ksn), (vn, vsn) = (_quant_operands((B, t, width), Hkv, gen, dev)
+                                        for _ in range(2))
+                fresh = {"k_new": kn, "v_new": vn, "ks_new": ksn, "vs_new": vsn}
+            calls = [lambda l=l, q=q, fresh=fresh: fn(q, *caches, base, layer=l, **fresh)
+                     for l in range(L)]
+            name = f"decode_{kind}_T{t}"
+            outputs[name] = calls[0]().cpu()
+            results[name] = _timed(calls, dev)
+            print(f"[kernel] {name:32s} {results[name]:8.4f} ms", file=sys.stderr, flush=True)
+        del caches
+    return results
+
+
+def _paged(cfg, B, S, T, dev, gen, outputs):
+    """The ``paged`` cases (see the module docstring); returns {case: ms}."""
+    from magicdec_tpu_torch.kernels import paged_attention as PGA
+
+    L, Hq, Hkv, hd = cfg.n_layer, cfg.n_head, cfg.n_kv_head, cfg.head_dim
+    K = Hkv * hd
+    bf = torch.bfloat16
+    base = torch.randint(0, S - T + 1, (B,), generator=gen, device=dev, dtype=torch.int32)
+    kinds = {"bf16": (PGA.flash_paged_decode_attend, K),
+             "int8": (PGA.flash_paged_decode_attend_quant, K),
+             "int4": (PGA.flash_paged_decode_attend_quant4, K // 2)}
+    q = torch.randn((B, T, Hq, hd), generator=gen, device=dev).to(bf)
+    results = {}
+    for ps in (p for p in (512, 16) if S % p == 0):
+        npr = S // ps
+        P = B * npr
+        table = torch.randperm(P, generator=gen, device=dev).to(torch.int32).reshape(B, npr)
+        for kind, (fn, width) in kinds.items():
+            if kind == "bf16":
+                pools = tuple(torch.randn((L, P, ps, K), generator=gen, device=dev).to(bf)
+                              for _ in range(2))
+                fresh = {"k_new": torch.randn((B, T, K), generator=gen, device=dev).to(bf),
+                         "v_new": torch.randn((B, T, K), generator=gen, device=dev).to(bf)}
+            else:
+                k, ks = _quant_operands((L, P, ps, width), Hkv, gen, dev)
+                v, vs = _quant_operands((L, P, ps, width), Hkv, gen, dev)
+                pools = (k, ks, v, vs)
+                (kn, ksn), (vn, vsn) = (_quant_operands((B, T, width), Hkv, gen, dev)
+                                        for _ in range(2))
+                fresh = {"k_new": kn, "v_new": vn, "ks_new": ksn, "vs_new": vsn}
+            calls = [lambda l=l, fn=fn, pools=pools, fresh=fresh:
+                     fn(q, *pools, table, base, layer=l, **fresh) for l in range(L)]
+            name = f"paged_{kind}_ps{ps}_T{T}"
+            outputs[name] = calls[0]().cpu()
+            results[name] = _timed(calls, dev)
+            print(f"[kernel] {name:32s} {results[name]:8.4f} ms", file=sys.stderr, flush=True)
+            del pools
     return results
 
 

@@ -1,6 +1,6 @@
 """K1, K1q and B10: flash decode / verify attention (CUDA,
-``csrc/decode_attention.cu``, ``csrc/decode_attention_quant.cu`` and
-``csrc/decode_attention_quant4.cu``).
+``csrc/decode_attention.cu`` for K1, ``csrc/decode_attention_sm90.cu`` for
+K1q and B10).
 
 K1 replaces magicdec_tpu/ops/pallas/decode_attention.py
 ``flash_decode_attend`` (both ``_decode_kernel`` and ``_whole_row_kernel``);
@@ -11,7 +11,9 @@ cache packed in head pairs with the same scales.  Bound on the card: HBM
 bytes (each visible K/V row is read once and feeds only G*T query rows;
 int8 rows halve them, int4 rows quarter them).  All split each (request, kv
 head)'s KV rows over several blocks and merge their softmax partials in a
-second pass — see the sources for the design.
+second pass — see the sources for the design.  K1 splits by ``split_plan``
+(one-warp blocks); K1q and B10 by ``quant_split_plan`` (four-warp blocks,
+each serving a pair of kv heads, or one int8 head when Hkv is odd).
 """
 
 from __future__ import annotations
@@ -39,6 +41,30 @@ def split_plan(B: int, Hkv: int, S: int):
     return -(-S // chunk), chunk
 
 
+# K1q and B10 (csrc/decode_attention_sm90.cu): a block serves a pair of kv
+# heads (int8, Hkv odd: one) and its four warps take 16 positions each a
+# round, so splits are whole rounds of 64 positions; one wave holds 3 blocks
+# an SM, bounded by their registers.
+QUANT_ROUND = 64
+QUANT_BLOCKS = 132 * 3
+
+
+def quant_heads(Hkv: int) -> int:
+    """The kv heads one K1q / B10 block serves."""
+    return 2 if Hkv % 2 == 0 else 1
+
+
+def quant_split_plan(B: int, Hkv: int, S: int):
+    """(nsplit, chunk) of K1q and B10: KV splits per (request, block of
+    kv heads) and positions per split, fixed from static shapes (no host
+    read of the lengths, nothing from T)."""
+    rounds = -(-S // QUANT_ROUND)
+    blocks = B * (Hkv // quant_heads(Hkv))
+    nsplit = max(1, min(rounds, QUANT_BLOCKS // blocks))
+    chunk = -(-rounds // nsplit) * QUANT_ROUND
+    return -(-S // chunk), chunk
+
+
 def rows_pad(rows: int) -> int:
     """Grouped query rows per (request, kv head), padded to the 16-row warp
     tiles the kernel runs (1, 2, 4 or 8 warps)."""
@@ -48,12 +74,13 @@ def rows_pad(rows: int) -> int:
     return 16 * w
 
 
-def split_buffers(q, Hkv: int, S: int):
+def split_buffers(q, Hkv: int, S: int, quant: bool = False):
     """(nsplit, chunk, part_o, part_ml) of a decode launch over S positions:
-    the split plan and, with more than one split, the f32 partials the
-    combine pass merges (None otherwise)."""
+    the split plan (K1's ``split_plan``, or with ``quant`` K1q's and B10's
+    ``quant_split_plan``) and, with more than one split, the f32 partials
+    the combine pass merges (None otherwise)."""
     B, T, Hq, hd = q.shape
-    nsplit, chunk = split_plan(B, Hkv, S)
+    nsplit, chunk = quant_split_plan(B, Hkv, S) if quant else split_plan(B, Hkv, S)
     if nsplit == 1:
         return nsplit, chunk, None, None
     R = rows_pad(Hq // Hkv * T)
@@ -212,7 +239,7 @@ def _launch_decode_quant(entry, q, k_cache, k_scale, v_cache, v_scale, base_lens
     q = q.contiguous()
     lens = base_lens.to(torch.int32).contiguous()
     out = torch.empty_like(q)
-    nsplit, chunk, part_o, part_ml = split_buffers(q, Hkv, S)
+    nsplit, chunk, part_o, part_ml = split_buffers(q, Hkv, S, quant=True)
     err = getattr(build.library(), entry)(
         ptr(q), ptr(k_cache), ptr(v_cache), ptr(k_scale), ptr(v_scale), ptr(k_new),
         ptr(v_new), ptr(ks_new), ptr(vs_new), ptr(lens), ptr(out), ptr(part_o),

@@ -1,5 +1,6 @@
 """B12 and B13: decode attention over KV page pools and the paged append
-(CUDA, ``csrc/paged_attention.cu``).
+(CUDA, ``csrc/paged_attention.cu``; B12's int8 and int4 pools in
+``csrc/decode_attention_sm90.cu``).
 
 B12 replaces magicdec_tpu/ops/pallas/paged_attention.py
 ``flash_paged_decode_attend``, ``flash_paged_decode_attend_quant`` and
@@ -129,7 +130,7 @@ def _launch_paged_quant(entry, q, k_pool, k_scale, v_pool, v_scale, table, base_
     q = q.contiguous()
     lens = base_lens.to(torch.int32).contiguous()
     out = torch.empty_like(q)
-    nsplit, chunk, part_o, part_ml = DA.split_buffers(q, Hkv, npr * ps)
+    nsplit, chunk, part_o, part_ml = DA.split_buffers(q, Hkv, npr * ps, quant=True)
     err = getattr(build.library(), entry)(
         ptr(q), ptr(k_pool), ptr(v_pool), ptr(k_scale), ptr(v_scale), ptr(table), ptr(k_new),
         ptr(v_new), ptr(ks_new), ptr(vs_new), ptr(lens), ptr(out), ptr(part_o), ptr(part_ml),

@@ -8,7 +8,8 @@ interpret mode; K3q's plain version on packed rows; the target pass over an
 int4 cache; the bench's metric tag; conversion (the engine's tokens are in
 tests/test_torch_int4_engine.py).  On the card (``gpu`` marker,
 skipped without one): B10, B11 and K3q at the packed width against their
-plain versions.
+plain versions; B10's window ≡ step, poisoned-cache, determinism and
+graph-replay checks (the helpers of tests/test_torch_kv_quant.py).
 
 Tolerances.  Packing, unpacking, quantization, dequantization and the append
 are exact.  JAX's jitted passes quantize with x * f32(1/7) where the op and
@@ -380,11 +381,49 @@ def _card_attn_case(fn, plain, gen, cuda, S, T, base):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("S", [256, 8704])
-@pytest.mark.parametrize("T", [1, 4])
+@pytest.mark.parametrize("T", [1, 2, 4])
 def test_decode_quant4_kernel_matches_plain_on_card(cuda, T, S):
     gen = torch.Generator(device=cuda).manual_seed(T)
     _card_attn_case(DA.flash_decode_attend_quant4, DA.flash_decode_attend_quant4_plain, gen,
                     cuda, S, T, [0, S // 3, S - T])
+
+
+def _decode4_operands(gen, cuda, S, T, base):
+    from test_torch_kv_quant import _decode_operands
+
+    return _decode_operands(gen, cuda, S, T, base, quant=_int4_cache_on_card)
+
+
+@pytest.mark.gpu
+def test_decode_quant4_window_equals_step_on_card(cuda):
+    """B10: a verify window's token t has the bits of the autoregressive
+    step at base + t, at bases 0, S // 3 and S - T of an 8704-row cache."""
+    from test_torch_kv_quant import window_equals_steps
+
+    S, T = 8704, 4
+    gen = torch.Generator(device=cuda).manual_seed(40)
+    q, caches, fresh, base = _decode4_operands(gen, cuda, S, T, [0, S // 3, S - T])
+    window_equals_steps(DA.flash_decode_attend_quant4, q, caches, fresh, base)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [256, 8704])
+def test_decode_quant4_kernel_poisoned_cache_on_card(cuda, S):
+    from test_torch_kv_quant import poisoned_cache_matches_clean
+
+    gen = torch.Generator(device=cuda).manual_seed(41)
+    q, caches, fresh, base = _decode4_operands(gen, cuda, S, 4, [0, S // 3, S - 4])
+    poisoned_cache_matches_clean(DA.flash_decode_attend_quant4,
+                                 DA.flash_decode_attend_quant4_plain, q, caches, fresh, base)
+
+
+@pytest.mark.gpu
+def test_decode_quant4_kernel_deterministic_and_graph_replay_on_card(cuda):
+    from test_torch_kv_quant import deterministic_and_graph_replay
+
+    gen = torch.Generator(device=cuda).manual_seed(42)
+    q, caches, fresh, base = _decode4_operands(gen, cuda, 8704, 4, [0, 2900, 8700])
+    deterministic_and_graph_replay(DA.flash_decode_attend_quant4, q, caches, fresh, base)
 
 
 @pytest.mark.gpu

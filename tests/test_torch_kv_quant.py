@@ -4,8 +4,12 @@ default ``--kv_quant int8``).
 On the CPU, against the JAX package: the plain quantized-KV ops bit for bit;
 the plain versions of K1q (decode), K2q (prefill) and K3q (append) against
 its Pallas kernels in interpret mode; the target pass over int8 caches; the
-engine's tokens; the bench's defaults and metric name.  On the card (``gpu``
-marker, skipped without one): each CUDA kernel against its plain version.
+engine's tokens; the bench's defaults and metric name; K1q's and B10's
+split plan and C calls against a fake library.  On the card (``gpu``
+marker, skipped without one): each CUDA kernel against its plain version;
+K1q's window tokens bit-equal to their autoregressive steps, a cache
+poisoned past every visible end, two launches and a graph replay
+bit-equal.
 
 Tolerances.  Quantization, dequantization, the scale append and K3q are
 exact (copies and the same float32 operations); the int8 rows a model pass
@@ -192,6 +196,99 @@ def test_append_quant_plain_matches_pallas_bitwise(T):
     assert len(out) == 4
     for got, want in zip(out, ref):
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# -- K1q's and B10's host side: the split plan and one C call a launch -------
+
+
+@pytest.mark.parametrize("Hkv", [8, 6, 3])
+@pytest.mark.parametrize("S", [256, 8704])
+@pytest.mark.parametrize("Bc", [1, 2, 16, 32])
+def test_quant_split_plan_covers_each_position_once(Bc, S, Hkv):
+    """K1q's and B10's plan (a block a pair of kv heads, or one when Hkv is
+    odd): whole 64-position rounds a split, the splits cover [0, S) exactly
+    once (none empty), a wave's worth of blocks at most, and the same plan
+    whatever the window length."""
+    nsplit, chunk = DA.quant_split_plan(Bc, Hkv, S)
+    assert chunk % DA.QUANT_ROUND == 0 and nsplit >= 1
+    assert (nsplit - 1) * chunk < S <= nsplit * chunk
+    assert DA.quant_heads(Hkv) == {8: 2, 6: 2, 3: 1}[Hkv]
+    blocks = Bc * Hkv // DA.quant_heads(Hkv)
+    assert nsplit == 1 or blocks * nsplit <= DA.QUANT_BLOCKS
+    plans = set()
+    for T in (1, 4, 16):
+        q = torch.zeros(Bc, T, 4 * Hkv, HD, dtype=torch.bfloat16)
+        n, c, part_o, part_ml = DA.split_buffers(q, Hkv, S, quant=True)
+        plans.add((n, c))
+        R = DA.rows_pad(4 * T)
+        assert (part_o is None) == (n == 1) == (part_ml is None)
+        if n > 1:
+            assert part_o.shape == (Bc, Hkv, n, R, HD) and part_ml.shape == (Bc, Hkv, n, R, 2)
+            assert part_o.dtype == part_ml.dtype == torch.float32
+    assert plans == {(nsplit, chunk)}
+
+
+class _FakeQuantLibrary:
+    """Records the arguments of the quantized decode entry points (returns
+    success)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        if not name.startswith("md_"):
+            raise AttributeError(name)
+        return lambda *args: self.calls.append((name, args)) or 0
+
+
+@pytest.mark.parametrize("fresh", [True, False], ids=["fresh", "cached"])
+@pytest.mark.parametrize("packed", [False, True], ids=["int8", "int4"])
+def test_decode_quant_launch_once_against_a_fake_library(packed, fresh, monkeypatch):
+    """K1q's and B10's host side: one C call a wrapper call with the C
+    signature kept (q, k, v, k_scale, v_scale, the four fresh operands or
+    null, base_lens, out, part_o, part_ml, layer, B, S, T, Hq, Hkv, hd,
+    nsplit, chunk, stream), the plan of quant_split_plan and partials sized
+    from it (null with one split), one launch counted; a failed launch
+    raises."""
+    from magicdec_tpu_torch.kernels import build
+
+    lib = _FakeQuantLibrary()
+    monkeypatch.setattr(build, "library", lambda: lib)
+    monkeypatch.setattr(build, "stream_ptr", lambda t: 7)
+    monkeypatch.setattr(DA, "on_cpu", lambda *a: False)
+    fn = DA.flash_decode_attend_quant4 if packed else DA.flash_decode_attend_quant
+    entry = "md_decode_attend_quant4" if packed else "md_decode_attend_quant"
+    Hkv, G, T = 8, 4, 4
+    width = Hkv * HD // (2 if packed else 1)
+    for Bc, S in ((2, 8704), (32, 256)):
+        q = torch.zeros(Bc, T, Hkv * G, HD, dtype=torch.bfloat16)
+        k, v = (torch.zeros(L, Bc, S, width, dtype=torch.int8) for _ in range(2))
+        ks, vs = (torch.zeros(L, Bc, Hkv, S) for _ in range(2))
+        kw = {}
+        if fresh:
+            kw = dict(k_new=torch.zeros(Bc, T, width, dtype=torch.int8),
+                      v_new=torch.zeros(Bc, T, width, dtype=torch.int8),
+                      ks_new=torch.zeros(Bc, Hkv, T), vs_new=torch.zeros(Bc, Hkv, T))
+        base = torch.tensor([0] * (Bc - 1) + [S - T], dtype=torch.int64)
+        before = fn.launches
+        lib.calls.clear()
+        out = fn(q, k, ks, v, vs, base, layer=LAYER, **kw)
+        assert out.shape == q.shape and out.dtype == torch.bfloat16
+        assert fn.launches == before + 1
+        ((name, args),) = lib.calls
+        assert name == entry and len(args) == len(build.SIGNATURES[entry]) == 23
+        assert args[:5] == (q.data_ptr(), k.data_ptr(), v.data_ptr(), ks.data_ptr(),
+                            vs.data_ptr())
+        assert all((a is None) == (not fresh) for a in args[5:9])
+        assert args[10] == out.data_ptr()
+        nsplit, chunk = DA.quant_split_plan(Bc, Hkv, S)
+        assert (args[11] is None) == (args[12] is None) == (nsplit == 1)
+        assert args[13:] == (LAYER, Bc, S, T, Hkv * G, Hkv, HD, nsplit, chunk, 7)
+    failing = _FakeQuantLibrary()
+    setattr(failing, entry, lambda *a: 1)
+    monkeypatch.setattr(build, "library", lambda: failing)
+    with pytest.raises(RuntimeError, match=entry):
+        fn(q, k, ks, v, vs, base, layer=LAYER, **kw)
 
 
 # -- model pass and engine vs the JAX package -------------------------------
@@ -433,6 +530,130 @@ def test_decode_quant_kernel_matches_plain_on_card(cuda, T, S):
     gen = torch.Generator(device=cuda).manual_seed(T)
     _card_attn_case(DA.flash_decode_attend_quant, DA.flash_decode_attend_quant_plain, gen,
                     cuda, S, T, [0, S // 3, S - T])
+
+
+def _decode_operands(gen, cuda, S, T, base, quant=_quant_cache_on_card, Hkv=8):
+    """(q, caches (k, ks, v, vs), fresh rows, base) of a decode case on the
+    card: len(base) requests, Hkv kv heads, G = 4."""
+    Bc, G = len(base), 4
+    k, ks = quant(gen, L, Bc, S, Hkv, cuda)
+    v, vs = quant(gen, L, Bc, S, Hkv, cuda)
+    fk, fks = quant(gen, 1, Bc, T, Hkv, cuda)
+    fv, fvs = quant(gen, 1, Bc, T, Hkv, cuda)
+    q = torch.randn((Bc, T, Hkv * G, HD), generator=gen, device=cuda).to(torch.bfloat16)
+    fresh = dict(k_new=fk[0], v_new=fv[0], ks_new=fks[0], vs_new=fvs[0])
+    return q, (k, ks, v, vs), fresh, torch.tensor(base, dtype=torch.int32, device=cuda)
+
+
+def window_equals_steps(fn, q, caches, fresh, base):
+    """Token t of the window (its fresh rows at [base, base + T)) against a
+    T = 1 call at base + t over a cache that holds the window's rows before
+    t, with fresh row t: bit for bit."""
+    window = fn(q, *caches, base, layer=LAYER, **fresh)
+    for t in range(q.shape[1]):
+        k, ks, v, vs = (c.clone() for c in caches)
+        for b, n in enumerate(base.tolist()):
+            k[LAYER, b, n:n + t] = fresh["k_new"][b, :t]
+            v[LAYER, b, n:n + t] = fresh["v_new"][b, :t]
+            ks[LAYER, b, :, n:n + t] = fresh["ks_new"][b, :, :t]
+            vs[LAYER, b, :, n:n + t] = fresh["vs_new"][b, :, :t]
+        step = fn(q[:, t:t + 1], k, ks, v, vs, base + t, layer=LAYER,
+                  k_new=fresh["k_new"][:, t:t + 1], v_new=fresh["v_new"][:, t:t + 1],
+                  ks_new=fresh["ks_new"][:, :, t:t + 1].contiguous(),
+                  vs_new=fresh["vs_new"][:, :, t:t + 1].contiguous())
+        assert torch.equal(window[:, t:t + 1], step), f"token {t}"
+
+
+def poisoned_cache_matches_clean(fn, plain, q, caches, fresh, base):
+    """Rows past every visible end (base with the fresh rows, base + T
+    without) set to -128 and their scales to inf and NaN: the kernel never
+    reads them, so its output is the clean cache's bit for bit, finite and
+    within bf16_limit of the plain version on the clean cache."""
+    T = q.shape[1]
+    for kw, end in ((fresh, 0), ({}, T)):
+        k, ks, v, vs = (c.clone() for c in caches)
+        for b, n in enumerate(base.tolist()):
+            k[:, b, n + end:] = -128
+            v[:, b, n + end:] = -128
+            ks[:, b, :, n + end:] = float("inf")
+            vs[:, b, :, n + end:] = float("nan")
+        out = fn(q, k, ks, v, vs, base, layer=LAYER, **kw)
+        assert torch.isfinite(out).all()
+        assert torch.equal(out, fn(q, *caches, base, layer=LAYER, **kw))
+        assert _outside(out, plain(q, *caches, base, layer=LAYER, **kw)) == 0
+
+
+def deterministic_and_graph_replay(fn, q, caches, fresh, base):
+    """Two launches bit-equal, and a CUDA graph's replay bit-equal to the
+    eager launch (the split partials and their scratch included)."""
+    def run():
+        return fn(q, *caches, base, layer=LAYER, **fresh)
+    first = run()
+    for _ in range(3):
+        assert torch.equal(run(), first)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        run()  # warm the stream outside the capture
+    torch.cuda.current_stream().wait_stream(stream)
+    with torch.cuda.graph(graph):
+        captured = run()
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, first)
+
+
+@pytest.mark.gpu
+def test_decode_quant_window_equals_step_on_card(cuda):
+    """K1q: a verify window's token t has the bits of the autoregressive
+    step at base + t (the split plan, warps and tiles depend on the static
+    shapes only), at bases 0, S // 3 and S - T of an 8704-row cache."""
+    S, T = 8704, 4
+    gen = torch.Generator(device=cuda).manual_seed(40)
+    q, caches, fresh, base = _decode_operands(gen, cuda, S, T, [0, S // 3, S - T])
+    window_equals_steps(DA.flash_decode_attend_quant, q, caches, fresh, base)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Hkv", [6, 3])
+def test_decode_quant_kernel_head_groups_on_card(cuda, Hkv):
+    """Three pair blocks a request (Hkv = 6), and the blocks of one int8
+    head (Hkv odd): within bf16_limit of the plain version, and a window's
+    tokens bit-equal to their steps."""
+    S, T = 1024, 4
+    gen = torch.Generator(device=cuda).manual_seed(43 + Hkv)
+    kinds = [(DA.flash_decode_attend_quant, DA.flash_decode_attend_quant_plain,
+              _quant_cache_on_card)]
+    if Hkv % 2 == 0:
+        from test_torch_kv_int4 import _int4_cache_on_card
+
+        kinds.append((DA.flash_decode_attend_quant4, DA.flash_decode_attend_quant4_plain,
+                      _int4_cache_on_card))
+    for fn, plain, quant in kinds:
+        q, caches, fresh, base = _decode_operands(gen, cuda, S, T, [0, 300, S - T], quant, Hkv)
+        for kw in ({}, fresh):
+            out = fn(q, *caches, base, layer=LAYER, **kw)
+            assert _outside(out, plain(q, *caches, base, layer=LAYER, **kw)) == 0
+        window_equals_steps(fn, q, caches, fresh, base)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [256, 8704])
+def test_decode_quant_kernel_poisoned_cache_on_card(cuda, S):
+    gen = torch.Generator(device=cuda).manual_seed(41)
+    q, caches, fresh, base = _decode_operands(gen, cuda, S, 4, [0, S // 3, S - 4])
+    poisoned_cache_matches_clean(DA.flash_decode_attend_quant,
+                                 DA.flash_decode_attend_quant_plain, q, caches, fresh, base)
+
+
+@pytest.mark.gpu
+def test_decode_quant_kernel_deterministic_and_graph_replay_on_card(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(42)
+    q, caches, fresh, base = _decode_operands(gen, cuda, 8704, 4, [0, 2900, 8700])
+    deterministic_and_graph_replay(DA.flash_decode_attend_quant, q, caches, fresh, base)
 
 
 @pytest.mark.gpu

@@ -265,6 +265,50 @@ def test_paged_kv_helpers_match_jax():
     assert PKV.alloc_scale_pool(L, P, H, ps).shape == JPKV.alloc_scale_pool(L, P, H, ps).shape
 
 
+@pytest.mark.parametrize("ps", [16, 512])
+@pytest.mark.parametrize("packed", [False, True], ids=["int8", "int4"])
+def test_paged_quant_launch_once_against_a_fake_library(packed, ps, monkeypatch):
+    """B12's int8 and int4 host side: one C call a wrapper call with the C
+    signature kept (q, the pools, the scale pools, table, the four fresh
+    operands, base_lens, out, part_o, part_ml, layer, B, P, ps, npr, T, Hq,
+    Hkv, hd, nsplit, chunk, stream) and the contiguous kernel's plan at S =
+    npr * ps (quant_split_plan), so a paged launch reads the positions of
+    the contiguous one; one launch counted."""
+    from magicdec_tpu_torch.kernels import build
+
+    calls = []
+
+    class Lib:
+        def __getattr__(self, name):
+            return lambda *args: calls.append((name, args)) or 0
+
+    monkeypatch.setattr(build, "library", lambda: Lib())
+    monkeypatch.setattr(build, "stream_ptr", lambda t: 7)
+    monkeypatch.setattr(PGA, "on_cpu", lambda *a: False)
+    fn = PGA.flash_paged_decode_attend_quant4 if packed else PGA.flash_paged_decode_attend_quant
+    entry = "md_paged_decode_attend_quant4" if packed else "md_paged_decode_attend_quant"
+    L, B, Hkv, G, T, npr = 2, 3, 8, 4, 4, 8192 // ps
+    P = B * npr + 2
+    width = Hkv * HD // (2 if packed else 1)
+    q = torch.zeros(B, T, Hkv * G, HD, dtype=torch.bfloat16)
+    k, v = (torch.zeros(L, P, ps, width, dtype=torch.int8) for _ in range(2))
+    ks, vs = (torch.zeros(L, P, Hkv, ps) for _ in range(2))
+    table = torch.arange(B * npr, dtype=torch.int32).reshape(B, npr)
+    fresh = dict(k_new=torch.zeros(B, T, width, dtype=torch.int8),
+                 v_new=torch.zeros(B, T, width, dtype=torch.int8),
+                 ks_new=torch.zeros(B, Hkv, T), vs_new=torch.zeros(B, Hkv, T))
+    before = fn.launches
+    out = fn(q, k, ks, v, vs, table, torch.tensor([0, 5, 8192 - T]), layer=1, **fresh)
+    assert out.shape == q.shape and fn.launches == before + 1
+    ((name, args),) = calls
+    assert name == entry and len(args) == len(build.SIGNATURES[entry]) == 26
+    assert args[:6] == (q.data_ptr(), k.data_ptr(), v.data_ptr(), ks.data_ptr(),
+                        vs.data_ptr(), table.data_ptr())
+    nsplit, chunk = DA.quant_split_plan(B, Hkv, npr * ps)
+    assert nsplit > 1 and args[12] is not None and args[13] is not None
+    assert args[14:] == (1, B, P, ps, npr, T, Hkv * G, Hkv, HD, nsplit, chunk, 7)
+
+
 def test_attend_cache_routes_pools_to_the_paged_kernels(monkeypatch):
     """A page table in the caches routes decode windows to B12 (the variant
     by the pool's format) and longer windows to the gathered contiguous

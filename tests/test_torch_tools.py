@@ -137,6 +137,64 @@ def test_kernel_benchmark_encode_runs_on_cpu(capsys):
     assert line["detail"] == r and all(v > 0 for v in r.values())
 
 
+@pytest.mark.parametrize("which", ["decode", "paged"])
+def test_kernel_benchmark_decode_and_paged_run_on_cpu(which, capsys, monkeypatch, tmp_path):
+    """The decode cases (K1, K1q, B10 at T = 1 and --T) and the paged ones
+    (B12 over bf16, int8 and int4 pools at each page size dividing S): one
+    call a layer with the window's fresh rows, each case a time, and with
+    --dump each case's layer-0 output saved."""
+    from magicdec_tpu_torch import kernel_benchmark
+    from magicdec_tpu_torch.kernels import decode_attention as DA
+    from magicdec_tpu_torch.kernels import paged_attention as PGA
+
+    mod = DA if which == "decode" else PGA
+    names = ([f"flash_{'paged_' if which == 'paged' else ''}decode_attend{k}"
+              for k in ("", "_quant", "_quant4")])
+    calls = []
+    for name in names:
+        monkeypatch.setattr(mod, name, lambda *a, _f=getattr(mod, name), _n=name, **kw:
+                            calls.append((_n, kw["layer"], kw.get("k_new") is not None))
+                            or _f(*a, **kw))
+    dump = tmp_path / "out.pt"
+    r = kernel_benchmark.main(["--device", "cpu", "--which", which, "--model", "68m",
+                               "--B", "2", "--S", "512", "--T", "4", "--dump", str(dump)])
+    line = _last_json(capsys)
+    kinds = ("bf16", "int8", "int4")
+    if which == "decode":
+        want = {f"decode_{k}_T{t}" for k in kinds for t in (1, 4)}
+    else:
+        want = {f"paged_{k}_ps{ps}_T4" for k in kinds for ps in (512, 16)}
+    assert set(r) == want and line["detail"] == r and all(v > 0 for v in r.values())
+    per_case = 1 + 2  # the dumped layer-0 call, then the two layers timed
+    assert len(calls) == per_case * len(want) and all(fresh for _, _, fresh in calls)
+    assert sorted({layer for _, layer, _ in calls}) == [0, 1]
+    saved = torch.load(dump)
+    assert set(saved) == want and all(torch.isfinite(v.float()).all() for v in saved.values())
+
+
+def test_decode_variants_apply_to_the_sources():
+    """The K1q/B10 variants decode_variants times still apply to the
+    source: ``current`` is the source, ``trace`` adds its six stamps and
+    the readers, the isolation variants drop the arithmetic or the copies,
+    ``blocks4`` raises the launch bound; ``parent_trace`` patches the PR 10
+    core, which this tree no longer has."""
+    from magicdec_tpu_torch import decode_variants as DV
+
+    assert DV.patched("current") == {}
+    (text,) = DV.patched("trace").values()
+    assert text.count("MD_TRACE(") == 7  # the macro and six stamps
+    assert 'extern "C" int md_trace_read_int8' in text
+    assert len(DV.PHASES["trace"]) == 6
+    (alone,) = DV.patched("copies_alone").values()
+    assert "if (false) {" in alone
+    (alone,) = DV.patched("compute_alone").values()
+    assert "issue(st" not in alone and "issue((it" not in alone
+    (blocks,) = DV.patched("blocks4").values()
+    assert "HEADS == 1 ? 4 : 4" in blocks and DV.PLANS["blocks4"]["QUANT_BLOCKS"] == 132 * 4
+    with pytest.raises((ValueError, FileNotFoundError)):
+        DV.patched("parent_trace")
+
+
 def test_prefill_variants_apply_to_the_source():
     """Every variant of the K2q/B11 kernel that prefill_variants times still
     applies to the source (each patch's text is there), and says what it
