@@ -8,8 +8,8 @@ of which raises on failure:
 1. the card's name and power limit (``nvidia-smi``);
 2. build of every kernel from ``magicdec_tpu_torch/csrc`` (timed), with
    ptxas's registers, shared memory and spills of the Hopper kernels of B4/B6,
-   B4-int4/B6-int4, B15, K2/K2q/B11 and K1q/B10 (with B12's int8/int4
-   pools);
+   B4-int4/B6-int4, B5/B9 (both cores), B15, K2/K2q/B11 and K1q/B10 (with
+   B12's int8/int4 pools);
 3. kernel phase: each Hopper kernel against its plain PyTorch version at the
    shapes of the bench's main path (llama-3.2-1b widths, B=32, target cache
    8704 rows in bf16 and in int8 with f32 scales quantized from the same
@@ -38,8 +38,9 @@ of which raises on failure:
    the window's earlier rows; then the int8 dots of the
    draft's weight copy (B4 with its norm,
    gate and residual epilogues, B5, B6, and B9), at llama-3.2-1b widths and
-   M = 32 and 64, each timed over 16 layers' weights in turn (B4 and B6
-   also under torch.profiler, which must see one kernel launch a call), each
+   M = 32 and 64 (B9 at 256), each timed over 16 layers' weights in turn
+   (B4, B5, B6 and B9 also under torch.profiler, which must see one kernel
+   launch a call: B5's ``ffn_sm90_kernel``, B9's ``ffn_wg_sm90_kernel``), each
    with a deliberately wrong reference (B4 without its norm or residual, B5
    without its first residual, B6 with its scales off by one column, B9
    without its residual) that must fail bf16_limit, their bound the int8
@@ -1470,11 +1471,12 @@ def _device_ms(event):
     return (t if t is not None else event.self_cuda_time_total) / 1e3
 
 
-def _profiled(torch, calls, attempts=3):
+def _profiled(torch, calls, attempts=3, want=1):
     """(kernel launches a call, device ms a call, kernel names) of ``calls``
     under torch.profiler, after one unprofiled pass.  The profiler now and
-    then loses a run's events on the card (fewer kernels than calls, never
-    more): such a run is profiled again, at most ``attempts`` times."""
+    then loses a run's events on the card (fewer kernels than the ``want``
+    a call, never more): such a run is profiled again, at most
+    ``attempts`` times."""
     from torch.profiler import ProfilerActivity, profile
 
     for call in calls:
@@ -1488,7 +1490,7 @@ def _profiled(torch, calls, attempts=3):
         kern = [e for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA]
         launches = sum(e.count for e in kern)
-        if launches >= len(calls):
+        if launches >= want * len(calls):
             break
     return (launches / len(calls), sum(_device_ms(e) for e in kern) / len(calls),
             {e.key[:60] for e in kern})
@@ -1498,6 +1500,8 @@ def _profiled(torch, calls, attempts=3):
 # with what the kernel's name holds
 ONE_LAUNCH = {"quant_matmul_fused": "qmm_sm90_kernel<false",
               "quant_matmul": "qmm_sm90_kernel<false",
+              "quant_layer_tail": "ffn_sm90_kernel",      # B5: the mma.sync core
+              "quant_mlp": "ffn_wg_sm90_kernel",          # B9 at 256 rows: the wgmma core
               "quant_matmul_fused_int4": "qmm_sm90_kernel<true",
               "quant_matmul_int4": "qmm4_sm90_kernel",
               "dense_matmul_fused": "dmm_sm90_kernel"}
@@ -1521,8 +1525,8 @@ def _decode_sm90_launches(torch, name, label, calls, nsplit):
     """K1q, B10 and B12's int8/int4 pools: the profiler must see one launch
     of ``decode_sm90_kernel`` a call, and one of ``combine_kernel`` when the
     plan has more than one split, and nothing else."""
-    per_call, prof_ms, kernels = _profiled(torch, calls)
     want = 2 if nsplit > 1 else 1
+    per_call, prof_ms, kernels = _profiled(torch, calls, want=want)
     print(f"[kernel] {name} {label}: profiler: {per_call:g} kernel launches a call "
           f"({nsplit} splits), device ms a call {prof_ms:.4f} ({', '.join(sorted(kernels))})",
           flush=True)
@@ -1564,7 +1568,7 @@ def _window_equals_steps(torch, name, fn, caches, layer, q, base, fresh):
 def _kernel_class(name):
     if "qmm4" in name or "qmm_sm90_kernel<true" in name:
         return "int4 dots (B4/B6-int4)"
-    if "qmm" in name:
+    if "qmm" in name or "ffn_" in name:
         return "int8 dots (B4/B5/B6) and split-K epilogues"
     if "md::" in name or "attend_kernel" in name or "combine_kernel" in name \
             or "append_rows_kernel" in name:
@@ -1726,10 +1730,12 @@ def main():
     lib = build.build(verbose=True)
     print(f"[build] {lib.name} in {time.perf_counter() - t_start:.1f}s", flush=True)
     # registers, shared memory and spills of the Hopper kernels (B4/B6 and
-    # B4-int4, B6-int4, B15's dense_matmul_fused, K2/K2q/B11, K1q/B10 and
-    # B12's int8/int4 pools), each instantiation
+    # B4-int4, B6-int4, B5/B9, B15's dense_matmul_fused, K2/K2q/B11, K1q/B10
+    # and B12's int8/int4 pools), each instantiation
     for source, kernel in (("quant_matmul_sm90", "qmm_sm90_kernel"),
                            ("quant_matmul_sm90", "qmm4_sm90_kernel"),
+                           ("ffn_sm90", "ffn_sm90_kernel"),
+                           ("ffn_sm90", "ffn_wg_sm90_kernel"),
                            ("dense_matmul_sm90", "dmm_sm90_kernel"),
                            ("prefill_attention_sm90", "prefill_sm90_kernel"),
                            ("decode_attention_sm90", "decode_sm90_kernel")):
@@ -1862,11 +1868,11 @@ def main():
                                           "magicdec_tpu/ops/kv_cache.py:489"),
         "quant_matmul_fused": ("magicdec_tpu_torch/csrc/quant_matmul_sm90.cu",
                                "magicdec_tpu/ops/pallas/quant_matmul.py:301"),
-        "quant_layer_tail": ("magicdec_tpu_torch/csrc/quant_matmul.cu",
+        "quant_layer_tail": ("magicdec_tpu_torch/csrc/ffn_sm90.cu",
                              "magicdec_tpu/ops/pallas/quant_matmul.py:699"),
         "quant_matmul": ("magicdec_tpu_torch/csrc/quant_matmul_sm90.cu",
                          "magicdec_tpu/ops/pallas/quant_matmul.py:221"),
-        "quant_mlp": ("magicdec_tpu_torch/csrc/quant_matmul.cu",
+        "quant_mlp": ("magicdec_tpu_torch/csrc/ffn_sm90.cu",
                       "magicdec_tpu/ops/pallas/quant_matmul.py:749"),
         "flash_decode_attend_quant4": ("magicdec_tpu_torch/csrc/decode_attention_sm90.cu",
                                        "magicdec_tpu/ops/pallas/decode_attention.py:585"),

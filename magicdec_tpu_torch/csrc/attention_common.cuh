@@ -199,23 +199,6 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const Addr& cache,
   }
 }
 
-// Four int8 (one word, byte 0 first) -> four bf16 (two words, lo holds
-// bytes 0 and 1), exactly and without the conversion unit, which runs at a
-// fraction of the ALU rate (the int8 dots of quant_matmul.cu): byte v, its sign bit
-// flipped (v + 128), goes under the exponent of 2^23, so the float is
-// 2^23 + v + 128; subtracting 2^23 + 128 leaves v, and a float holding an
-// integer of at most 8 significant bits is its bf16 in the upper half.
-__device__ __forceinline__ void i8x4_to_bf16x4(uint32_t w, uint32_t& lo, uint32_t& hi) {
-  constexpr float kMagic = 8388736.f;  // 2^23 + 128
-  const uint32_t u = w ^ 0x80808080u;
-  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440)) - kMagic;
-  const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7441)) - kMagic;
-  const float f2 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7442)) - kMagic;
-  const float f3 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7443)) - kMagic;
-  lo = __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
-  hi = __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632);
-}
-
 // Four packed bytes (one word, byte 0 first) -> the four values of one
 // nibble plane (shift 0: the low nibbles, 4: the high ones) as bf16, two
 // words, lo holding bytes 0 and 1 (the int4 producer of

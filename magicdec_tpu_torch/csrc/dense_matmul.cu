@@ -12,8 +12,8 @@
 // Bound: HBM bytes of the bf16 weight.  At M <= 512 rows a weight byte
 // feeds M flops, at most 512, and at the decode rows (M = decode_rows: 128
 // at B=32, gamma=3) 128, under the ~295 flop/byte at which the bf16 tensor
-// cores limit.  The design is the int8 dots' (quant_matmul.cu) with bf16
-// weight tiles and no scale:
+// cores limit.  The design is that of the first port's int8 dots, with
+// bf16 weight tiles and no scale:
 // - dmm_partial_kernel: a block owns BN = 128 output columns and a range of
 //   the contraction (split-K, fixed by the wrapper from In and Out alone so
 //   that narrow matrices still fill the 132 SMs); warp w of 4 owns the 32

@@ -1,6 +1,5 @@
-// Tiles and the kernels around the dot that the split-K weight-streaming
-// dots of several launches share: B5/B9 and B6-int4 (quant_matmul.cu) and
-// B15's dense_mlp (dense_matmul.cu).
+// Tiles and the kernels around the dot of the split-K weight-streaming dot
+// of several launches, B15's dense_mlp (dense_matmul.cu).
 // The kernels sit in an unnamed namespace, so each source that includes
 // this header gets its own copy and the shared library links.
 #pragma once
@@ -27,9 +26,8 @@ __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
-// bf16(acc * scale) [+ res, added in bf16]; the int4 and dense dots pass
-// s = 1 (int4 groups are scaled already; bf16 weights have no scale), which
-// leaves acc as it is
+// bf16(acc * scale) [+ res, added in bf16]; the dense dots pass s = 1 (bf16
+// weights have no scale), which leaves acc as it is
 __device__ __forceinline__ __nv_bfloat16 finish(float acc, float s, const __nv_bfloat16* res) {
   float y = bf16_round(acc * s);
   if (res != nullptr) y += __bfloat162float(*res);
@@ -38,8 +36,8 @@ __device__ __forceinline__ __nv_bfloat16 finish(float acc, float s, const __nv_b
 
 // Sum the splits' partials in split order, then scale and finish: plain
 // (+ residual) over [M, Out], or the SiLU gate over [M, Out / 2] pairing
-// column n with column Out / 2 + n.  scale null: the partials are scaled
-// already (the int4 dots) or need none (the dense dots).
+// column n with column Out / 2 + n.  scale null: the partials need none
+// (the dense dots).
 __global__ void qmm_epilogue_kernel(const float* part, int split, size_t part_stride,
                                     const float* scale, const __nv_bfloat16* res,
                                     __nv_bfloat16* out, int M, int Out, int gate) {

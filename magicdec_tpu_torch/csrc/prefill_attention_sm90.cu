@@ -205,13 +205,6 @@ __device__ __forceinline__ uint32_t bf16x2_sub(uint32_t a, uint32_t b) {
   return *reinterpret_cast<const uint32_t*>(&d);
 }
 
-// (a & b) | c in one logic op (the compiler splits it when b and c are both
-// immediates).
-__device__ __forceinline__ uint32_t and_or(uint32_t a, uint32_t b, uint32_t c) {
-  uint32_t d;
-  asm("lop3.b32 %0, %1, %2, %3, 0xEA;\n" : "=r"(d) : "r"(a), "r"(b), "r"(c));
-  return d;
-}
 
 // Four int8 (one word, byte 0 first) -> four bf16 in order (lo: bytes 0 and
 // 1), exactly: with x holding bytes at 0 and 2 of each half, low7 = v & 0x7F
@@ -222,8 +215,8 @@ __device__ __forceinline__ uint32_t and_or(uint32_t a, uint32_t b, uint32_t c) {
 __device__ __forceinline__ void i8x4_bf16(uint32_t w, uint32_t k7, uint32_t ks, uint32_t kb,
                                           uint32_t& lo, uint32_t& hi) {
   const uint32_t x01 = __byte_perm(w, 0u, 0x4140), x23 = __byte_perm(w, 0u, 0x4342);
-  lo = bf16x2_sub(and_or(x01, k7, kb), and_or(x01, ks, kb));
-  hi = bf16x2_sub(and_or(x23, k7, kb), and_or(x23, ks, kb));
+  lo = bf16x2_sub(lop3_and_or(x01, k7, kb), lop3_and_or(x01, ks, kb));
+  hi = bf16x2_sub(lop3_and_or(x23, k7, kb), lop3_and_or(x23, ks, kb));
 }
 
 // Sixteen cache bytes -> sixteen bf16 values (int8, or the `shift` nibble

@@ -148,41 +148,6 @@ __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(NCW * 32) : "memory");
 }
 
-__device__ __forceinline__ void ldsm_x4_u32(uint32_t r[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_trans_u32(uint32_t r[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-// Bytes b0..b3 of w (signed int8) -> even = bf16x2 {b0, b2}, odd = {b1, b3}
-// (low half first), exactly: with low7 = b & 0x7F and sign = b & 0x80,
-// bf16 0x4300 | low7 is 128 + low7 and 0x4300 | sign is 128 or 256, so
-// their difference is b (an integer |b| <= 128, exact in bf16).  Three
-// logic ops and a bf16x2 subtraction a pair, no conversion unit.  An
-// ldmatrix.trans register of the int8 tile holds (k, col 2g), (k, col
-// 2g+1), (k+1, col 2g), (k+1, col 2g+1): even and odd are the k-pairs of the
-// two columns, i.e. mma B fragments.
-__device__ __forceinline__ uint32_t i8_pair(uint32_t w) {  // bytes 0 and 2 of w
-  const uint32_t lo = (w & 0x007F007Fu) | 0x43004300u;
-  const uint32_t hi = (w & 0x00800080u) | 0x43004300u;
-  const __nv_bfloat162 d = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&lo),
-                                   *reinterpret_cast<const __nv_bfloat162*>(&hi));
-  return *reinterpret_cast<const uint32_t*>(&d);
-}
-
-__device__ __forceinline__ void i8_pairs(uint32_t w, uint32_t& even, uint32_t& odd) {
-  even = i8_pair(w);
-  odd = i8_pair(w >> 8);
-}
-
 // The two nibbles of byte `sel` of w and of w >> 4 (selectors 0x4400, 0x5511,
 // 0x6622, 0x7733: bytes 0..3) -> bf16x2 {low nibble, high nibble} as signed
 // int4 values, exactly: a nibble n with its bit 3 flipped is v + 8 for the
@@ -208,14 +173,6 @@ __device__ __forceinline__ void i4_frags(uint32_t w, uint32_t (&even)[2], uint32
   even[1] = i4_pair<0x6622u>(w, w4);
   odd[0] = i4_pair<0x5511u>(w, w4);
   odd[1] = i4_pair<0x7733u>(w, w4);
-}
-
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-
-__device__ __forceinline__ uint2 pack_bf16x4(const float v[4]) {
-  return make_uint2(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]));
 }
 
 // The scales and residual of one fragment group (see finish_group): sc[box]

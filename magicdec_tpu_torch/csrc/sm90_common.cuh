@@ -1,7 +1,8 @@
 // Hopper building blocks shared by the sm_90a kernels (quant_matmul_sm90.cu,
-// dense_matmul_sm90.cu, prefill_attention_sm90.cu): mbarriers, TMA loads
-// (cp.async.bulk.tensor and the plain bulk copy), the async-proxy fence,
-// thread-block clusters (rank, barriers, mapa and st.async into another
+// ffn_sm90.cu, dense_matmul_sm90.cu, prefill_attention_sm90.cu): mbarriers,
+// TMA loads (cp.async.bulk.tensor and the plain bulk copy), the async-proxy
+// fence, the int8 weight tile's conversion into mma fragments, thread-block
+// clusters (rank, barriers, mapa and st.async into another
 // rank's shared memory), wgmma (shared-memory descriptors, fence, commit,
 // wait), and the host side's tensor-map encoding and its per-(pointer,
 // shape) cache.  cuTensorMapEncodeTiled comes through
@@ -16,6 +17,8 @@
 
 #include <map>
 #include <mutex>
+
+#include "attention_common.cuh"  // pack_bf16x2
 
 namespace md {
 namespace sm90 {
@@ -88,6 +91,59 @@ __device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
 // touches the same bytes.
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---- int8 weight tiles as mma operands (the int8 weight-streaming dots) ----
+
+__device__ __forceinline__ void ldsm_x4_u32(uint32_t r[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_trans_u32(uint32_t r[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// (a & b) | c in one logic op: written out, with b and c constants, the
+// compiler emits two (a SASS LOP3 takes one immediate)
+__device__ __forceinline__ uint32_t lop3_and_or(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t d;
+  asm("lop3.b32 %0, %1, %2, %3, 0xEA;\n" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+
+// Bytes b0..b3 of w (signed int8) -> even = bf16x2 {b0, b2}, odd = {b1, b3}
+// (low half first), exactly: with low7 = b & 0x7F and sign = b & 0x80,
+// bf16 0x4300 | low7 is 128 + low7 and 0x4300 | sign is 128 or 256, so
+// their difference is b (an integer |b| <= 128, exact in bf16).  Two
+// logic ops and a bf16x2 subtraction a pair, no conversion unit.  An
+// ldmatrix.trans register of the int8 tile holds (k, col 2g), (k, col
+// 2g+1), (k+1, col 2g), (k+1, col 2g+1): even and odd are the k-pairs of the
+// two columns, i.e. mma B fragments.
+__device__ __forceinline__ uint32_t i8_pair(uint32_t w) {  // bytes 0 and 2 of w
+  const uint32_t lo = lop3_and_or(w, 0x007F007Fu, 0x43004300u);
+  const uint32_t hi = lop3_and_or(w, 0x00800080u, 0x43004300u);
+  const __nv_bfloat162 d = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&lo),
+                                   *reinterpret_cast<const __nv_bfloat162*>(&hi));
+  return *reinterpret_cast<const uint32_t*>(&d);
+}
+
+__device__ __forceinline__ void i8_pairs(uint32_t w, uint32_t& even, uint32_t& odd) {
+  even = i8_pair(w);
+  odd = i8_pair(w >> 8);
+}
+
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+__device__ __forceinline__ uint2 pack_bf16x4(const float v[4]) {
+  return make_uint2(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]));
 }
 
 // ---- the rms-norm prologue of the weight-streaming dots -----------------------

@@ -1,6 +1,7 @@
 """Variants of B15's ``dense_matmul_fused`` (``csrc/dense_matmul_sm90.cu``),
-of B4-int4 and of B6-int4 (``csrc/quant_matmul_sm90.cu``) timed against
-each other on the card, in one process.
+of B4-int4 and of B6-int4 (``csrc/quant_matmul_sm90.cu``) and of B5 and B9
+(``csrc/ffn_sm90.cu``) timed against each other on the card, in one
+process.
 
     python -m magicdec_tpu_torch.dot_variants [--variants a,b,...] [--plans]
 
@@ -13,13 +14,20 @@ residual, w13 + norm, w2 + residual; M = 128 and 16) or
 ``quant_matmul_fused_int4`` at the draft's (wqkv, wo + residual, w13 +
 gate, w2 + residual; group 128, M = 32 and 64), over 16 layers' weights in
 turn, or ``quant_matmul_int4`` on the int4 lm_head [2048, 128256] (M = 32
-and 64), device ms a call by ``kernel_benchmark.graph_ms``.  For each variant
+and 64), or B5 (``quant_layer_tail``, M = 32 and 64) and B9 (``quant_mlp``
+with its residual, M = 256) at llama-3.2-1b widths over 16 layers, device
+ms a call by ``kernel_benchmark.graph_ms``.  For each variant
 the script prints ptxas's registers and spills and, for the dense kernel,
 the ``HGMMA`` instructions against the ``WARPGROUP.DEPBAR`` waits in
 ``cuobjdump -sass`` (one wait an ``HGMMA``: ptxas serialized the wgmmas).
 ``trace`` and ``int4_trace`` stamp ``%globaltimer`` at the phases of each
 block's first item; the script prints, per case, the median and largest
-microseconds of each phase over the blocks.  ``--plans`` also times the current dense kernel
+microseconds of each phase over the blocks.  ``--ffn_plans`` times B5 and
+B9 with each w13 split forced (the other dots keep the plan's).
+``ffn_trace`` stamps each
+block's entry, each dot's first landed stage, the norm's end and each
+dot's end (its arrival at the grid barrier); the script prints each
+stamp's median and latest microseconds after the first block's entry.  ``--plans`` also times the current dense kernel
 over (split, boxes) plans of each shape (``dense_plan`` swapped).  The last
 line is a JSON object of the device milliseconds.  Needs the card and
 ``nvcc``.
@@ -39,7 +47,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 OUT_DIR = Path(__file__).resolve().parents[1] / "build" / "variants"
 SOURCES = {"dense": "dense_matmul_sm90.cu", "int4": "quant_matmul_sm90.cu",
-           "head": "quant_matmul_sm90.cu"}
+           "head": "quant_matmul_sm90.cu", "ffn": "ffn_sm90.cu"}
 
 
 def _stamp(k: int, indent: str) -> str:
@@ -70,6 +78,94 @@ def _trace_patches(namespace: str, entry: str):
          f'extern "C" int {entry}('),
     ]
 
+
+def _ffn_stamp(k: str, indent: str, cond: str = "stamp") -> str:
+    return f"{indent}if ({cond}) tr[{k}] = gtime();\n"
+
+
+# B5/B9's stamps (the grid's timeline): 0 entry, 1 phase 0's first stage,
+# 2 phase 0 done, 3 the block's share of hn written, 4 phase 1's first
+# stage, 5 phase 1 done, 6 phase 2's first stage, 7 the end
+_FFN_FIRST = "p == 0 ? 1 : 2 * p + 2"
+_FFN_DONE = "p == 0 ? 2 : 2 * p + 3"
+_FFN_TRACE = [("namespace md {\nnamespace ffn90 {\n",
+               "__device__ unsigned g_smid[2048];\n\nnamespace md {\nnamespace ffn90 {\n")] + \
+    _trace_patches("ffn90", "md_ffn_sm90_resident")[:1] + [
+    ("  const uint32_t rank = cluster_rank();\n\n  if (warp == NCW) {\n",
+     "  const uint32_t rank = cluster_rank();\n"
+     "  unsigned long long* tr = g_trace[blockIdx.x % 2048];\n"
+     "  const bool stamp = threadIdx.x == 0;\n" + _ffn_stamp("0", "  ") +
+     "  if (stamp) { unsigned sm; asm volatile(\"mov.u32 %0, %%smid;\" : \"=r\"(sm)); "
+     "g_smid[blockIdx.x % 2048] = sm; }\n"
+     "\n  if (warp == NCW) {\n"),
+    ("        mbar_wait(bars + 8 * s, par);  // the stage's boxes have landed\n",
+     "        mbar_wait(bars + 8 * s, par);  // the stage's boxes have landed\n"
+     + _ffn_stamp(_FFN_FIRST, "        ", "stamp && first_item && i == 0")),
+    ("    if (p == 1) norm_rows<C>(a, g0, rr);\n    // the fragment groups",
+     "    if (p == 1) norm_rows<C>(a, g0, rr);\n" + _ffn_stamp("3", "    ", "stamp && p == 1")
+     + "    // the fragment groups"),
+    ("    if (p < 2) phase_done<C>(a, 2 * p + 1, g0);  // barriers 1 and 3\n  }\n}\n\n"
+     "// ---- the wgmma core",
+     _ffn_stamp(_FFN_DONE, "    ") + "    if (p < 2) phase_done<C>(a, 2 * p + 1, g0);\n  }\n}\n\n"
+     "// ---- the wgmma core"),
+    ("  const int c = 16 * wi + 2 * g + wg;  // this thread's column of each 64-column box\n",
+     "  const int c = 16 * wi + 2 * g + wg;  // this thread's column of each 64-column box\n"
+     "  unsigned long long* tr = g_trace[blockIdx.x % 2048];\n"
+     "  const bool stamp = tid == 0;\n" + _ffn_stamp("0", "  ")),
+    ("        mbar_wait(b.bars + 8 * s, par);  // the stage's boxes have landed\n",
+     "        mbar_wait(b.bars + 8 * s, par);  // the stage's boxes have landed\n"
+     + _ffn_stamp(_FFN_FIRST, "        ", "stamp && t == w.unit && i == 0")),
+    ("    if (p == 1) norm_rows<C>(a, g0, rr);\n    for (int t = w.unit;",
+     "    if (p == 1) norm_rows<C>(a, g0, rr);\n" + _ffn_stamp("3", "    ", "stamp && p == 1")
+     + "    for (int t = w.unit;"),
+    ("    if (p < 2) phase_done<C>(a, 2 * p + 1, g0);  // barriers 1 and 3\n  }\n}\n\n"
+     "// ---- host side",
+     _ffn_stamp(_FFN_DONE, "    ") + "    if (p < 2) phase_done<C>(a, 2 * p + 1, g0);\n  }\n}\n\n"
+     "// ---- host side"),
+] + _trace_patches("ffn90", "md_ffn_sm90_resident")[2:] + [
+    ('extern "C" int md_trace_read(void* dst) {',
+     'extern "C" int md_smid_read(void* dst) {\n'
+     "  return (int)cudaMemcpyFromSymbol(dst, g_smid, sizeof(g_smid));\n}\n\n"
+     'extern "C" int md_trace_read(void* dst) {')]
+FFN_STAMPS = ("entry", "phase 0 first stage", "phase 0 done", "norm written",
+              "phase 1 first stage", "phase 1 done", "phase 2 first stage", "end")
+# B5/B9's ring, stage by stage (clock64 of blocks 0 and 100, their first 64
+# stages): [it][0] the consumers start waiting for stage
+# it, [1] it has landed, [2] they release it, [3] the producer found its
+# slot free and issued it
+_FFN_STAGE_TRACE = [
+    ("namespace md {\nnamespace ffn90 {\n",
+     "__device__ long long g_stages[2][64][4];\n\nnamespace md {\nnamespace ffn90 {\n"),
+    ("        mbar_wait(b.bars + 8 * (S + s), par ^ 1);  // the consumers released the stage\n",
+     "        mbar_wait(b.bars + 8 * (S + s), par ^ 1);  // the consumers released the stage\n"
+     "        if ((blockIdx.x == 0 || blockIdx.x == 100) && it <= 64)\n"
+     "          g_stages[blockIdx.x == 100][it - 1][3] = clock64();\n"),
+    ("        mbar_wait(bars + 8 * s, par);  // the stage's boxes have landed\n",
+     "        const bool st_trace = (blockIdx.x == 0 || blockIdx.x == 100) && threadIdx.x == 0 "
+     "&& it <= 64;\n"
+     "        if (st_trace) g_stages[blockIdx.x == 100][it - 1][0] = clock64();\n"
+     "        mbar_wait(bars + 8 * s, par);  // the stage's boxes have landed\n"
+     "        if (st_trace) g_stages[blockIdx.x == 100][it - 1][1] = clock64();\n"),
+    ("        mbar_arrive(bars + 8 * (S + s));\n",
+     "        mbar_arrive(bars + 8 * (S + s));\n"
+     "        if (st_trace) g_stages[blockIdx.x == 100][it - 1][2] = clock64();\n"),
+    ("        mbar_wait(b.bars + 8 * s, par);  // the stage's boxes have landed\n",
+     "        const bool st_trace = (blockIdx.x == 0 || blockIdx.x == 100) && threadIdx.x == 0 "
+     "&& it <= 64;\n"
+     "        if (st_trace) g_stages[blockIdx.x == 100][it - 1][0] = clock64();\n"
+     "        mbar_wait(b.bars + 8 * s, par);  // the stage's boxes have landed\n"
+     "        if (st_trace) g_stages[blockIdx.x == 100][it - 1][1] = clock64();\n"),
+    ("        mbar_arrive(b.bars + 8 * (S + s));\n",
+     "        mbar_arrive(b.bars + 8 * (S + s));\n"
+     "        if (st_trace) g_stages[blockIdx.x == 100][it - 1][2] = clock64();\n"),
+    ('extern "C" int md_ffn_sm90_resident(',
+     'extern "C" int md_stages_read(void* dst) {\n'
+     "  return (int)cudaMemcpyFromSymbol(dst, g_stages, sizeof(g_stages));\n}\n\n"
+     'extern "C" int md_stages_clear() {\n'
+     "  static long long zero[2][64][4];\n"
+     "  return (int)cudaMemcpyToSymbol(g_stages, zero, sizeof(zero));\n}\n\n"
+     'extern "C" int md_ffn_sm90_resident('),
+]
 
 # name -> (source, [(old text, new text), ...] applied in order)
 VARIANTS = {
@@ -139,6 +235,21 @@ VARIANTS = {
          "          wgmma_wx<N>(part[1], A[1], xd, first);\n",
          "          if (kk < 0) wgmma_wx<N>(part[0], A[0], xd, first);\n"
          "          if (kk < 0) wgmma_wx<N>(part[1], A[1], xd, first);\n")]),
+    # B5 and B9 (csrc/ffn_sm90.cu): as they stand, traced, and without the
+    # products (the ring, the barriers, the reductions and epilogues alone)
+    "ffn_current": ("ffn", []),
+    "ffn_trace": ("ffn", _FFN_TRACE),
+    "ffn_stage_trace": ("ffn", _FFN_STAGE_TRACE),
+    # isolation: the x boxes read past the tensor (TMA fills them with zeros
+    # and reads no memory), so the ring streams the weights alone
+    "ffn_no_x": ("ffn", [
+        ("&a.xmap[p], full, kt, 0);", "&a.xmap[p], full, kt, 1 << 20);"),
+        ("b.bars + 8 * pend_s[j], pend_kt[j], 0);", "b.bars + 8 * pend_s[j], pend_kt[j], 1 << 20);")]),
+    "ffn_no_products": ("ffn", [
+        ("mma_bf16_16816(acc[mt][nb], af, bf[nb][0], bf[nb][1]);",
+         "if (kk < 0) mma_bf16_16816(acc[mt][nb], af, bf[nb][0], bf[nb][1]);"),
+        ("          wgmma_n256(acc, A, smem_desc(xst, 16, 1024) + 2 * kk);",
+         "          if (kk < 0) wgmma_n256(acc, A, smem_desc(xst, 16, 1024) + 2 * kk);")]),
 }
 # the phases between a trace variant's stamps
 PHASES = {"trace": ("statistic", "first stage", "main loop", "barrier", "partials", "finish"),
@@ -198,13 +309,33 @@ def _build(names):
 
 
 def _cases(kind, dev, gen):
-    """[(label, [one call a layer])] of the dense or the int4 dots, or of the
-    int4 head (one layer: 131 MB, past the L2)."""
+    """[(label, In, Out, [one call a layer])] of the dense or the int4 dots,
+    of the int4 head (one layer: 131 MB, past the L2), or of B5 and B9."""
     from magicdec_tpu_torch import quantization as Q
     from magicdec_tpu_torch.kernels import dense_matmul as DK
     from magicdec_tpu_torch.kernels import quant_matmul as QK
 
     L, D, F, bf = 16, 2048, 8192, torch.bfloat16
+    if kind == "ffn":
+        w = {}
+        for name, (In, Out) in (("wo", (D, D)), ("w13", (D, 2 * F)), ("w2", (F, D))):
+            qw = Q.quantize_weight((torch.randn((L, In, Out), generator=gen, device=dev)
+                                    * In ** -0.5).to(bf))
+            w[name] = (qw.q, qw.scale.reshape(L, Out))
+        norm_w = (torch.rand((D,), generator=gen, device=dev) + 0.5).to(bf)
+        out = []
+        for M in (32, 64):
+            a, x = (torch.randn((M, D), generator=gen, device=dev).to(bf) for _ in range(2))
+            out.append((f"B5 M={M}", D, D, [
+                lambda l=l, a=a, x=x: QK.quant_layer_tail(
+                    a, x, *(t[l] for n in ("wo", "w13", "w2") for t in w[n]), norm_w, eps=1e-5)
+                for l in range(L)]))
+        x = torch.randn((256, D), generator=gen, device=dev).to(bf)
+        out.append(("B9 M=256", D, D, [
+            lambda l=l: QK.quant_mlp(x, *(t[l] for n in ("w13", "w2") for t in w[n]), norm_w, x,
+                                     eps=1e-5)
+            for l in range(L)]))
+        return out
     if kind == "head":
         V = 128256
         hw = Q.quantize_weight((torch.randn((D, V), generator=gen, device=dev)
@@ -260,10 +391,72 @@ def _trace(lib, name, label, call):
     print(f"[trace] {label}: {len(rows)} blocks, span {span:.2f} us; {phases}", flush=True)
 
 
+def _trace_grid(lib, label, call):
+    """Each FFN_STAMPS stamp's median and latest microseconds after the first
+    block's entry, over the blocks that reached it."""
+    import numpy as np
+
+    lib.md_trace_clear()
+    call()
+    buf = np.zeros((2048, 8), dtype=np.uint64)
+    lib.md_trace_read.argtypes = [ctypes.c_void_p]
+    if lib.md_trace_read(buf.ctypes.data) != 0:
+        raise RuntimeError("md_trace_read failed")
+    rows = buf[buf[:, 0] > 0].astype(np.int64)
+    t0 = rows[:, 0].min()
+    parts = []
+    for k, n in enumerate(FFN_STAMPS):
+        v = (rows[:, k][rows[:, k] > 0] - t0) / 1e3
+        if len(v):
+            parts.append(f"{n} {np.median(v):.2f} (last {v.max():.2f}, {len(v)} blocks)")
+    print(f"[trace] {label}: {len(rows)} blocks; " + "; ".join(parts), flush=True)
+    if hasattr(lib, "md_smid_read"):
+        sm = np.zeros(2048, dtype=np.uint32)
+        lib.md_smid_read.argtypes = [ctypes.c_void_p]
+        if lib.md_smid_read(sm.ctypes.data) == 0:
+            n = len(rows)
+            per_sm = np.bincount(sm[:n], minlength=132)
+            print(f"[trace] {label}: SMs of cluster 0's ranks {sm[:8].tolist()}, cluster 1's "
+                  f"{sm[8:16].tolist()}; blocks an SM {np.bincount(per_sm).tolist()}", flush=True)
+
+
+def _trace_stages(lib, label, call):
+    """The ring of two B5/B9 blocks, cycles a stage: the consumers' wait for
+    it, their work on it, and how long a landed stage sat before they came
+    to it or a freed slot before the producer refilled it."""
+    import numpy as np
+
+    lib.md_stages_clear()
+    call()
+    torch.cuda.synchronize()
+    buf = np.zeros((2, 64, 4), dtype=np.int64)
+    lib.md_stages_read.argtypes = [ctypes.c_void_p]
+    if lib.md_stages_read(buf.ctypes.data) != 0:
+        raise RuntimeError("md_stages_read failed")
+    for b, blk in enumerate((0, 100)):
+        rows = buf[b][buf[b][:, 2] > 0]
+        if not len(rows):
+            continue
+        wait = rows[:, 1] - rows[:, 0]
+        work = rows[:, 2] - rows[:, 1]
+        issue_to_land = rows[:, 1] - rows[:, 3]
+        gaps = rows[1:, 0] - rows[:-1, 2]  # between stages: the items' reductions, epilogues
+        print(f"[stages] {label} block {blk}: {len(rows)} stages, {rows[-1, 2] - rows[0, 0]} "
+              f"cycles; consumer wait median {np.median(wait):.0f} (max {wait.max()}) cycles, "
+              f"work median {np.median(work):.0f} (max {work.max()}), issue to "
+              f"landed-and-seen median {np.median(issue_to_land):.0f}; gaps over 200 cycles "
+              f"(after stage: cycles): "
+              + " ".join(f"{i}:{g}" for i, g in enumerate(gaps) if g > 200)
+              + "; wait/work a stage: "
+              + " ".join(f"{w}/{k}" for w, k in zip(wait[:40], work[:40])), flush=True)
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--variants", default=",".join(VARIANTS))
     p.add_argument("--plans", action="store_true")
+    p.add_argument("--ffn_plans", action="store_true",
+                   help="also time B5/B9 on the current source with each w13 split forced")
     args = p.parse_args(argv)
     from magicdec_tpu_torch.kernel_benchmark import graph_ms
     from magicdec_tpu_torch.kernels import build
@@ -288,6 +481,26 @@ def main(argv=None):
                 print(f"[variant] {name:22s} {label:10s} {ms:8.4f} ms", flush=True)
                 if name in PHASES:
                     _trace(libs[name], name, label, calls[0])
+                if name == "ffn_trace":
+                    _trace_grid(libs[name], label, calls[0])
+                if name == "ffn_stage_trace":
+                    _trace_stages(libs[name], label, calls[0])
+        if args.ffn_plans and "ffn_current" in names:
+            from magicdec_tpu_torch.kernels import quant_matmul as QK
+
+            build.library = lambda: libs["ffn_current"]
+            plan = QK.ffn_plan
+            try:
+                for split in QK.FFN_SPLITS:
+                    # the w13 dot (In = D, Out = 2F) takes ``split``, the others the plan's
+                    QK.ffn_plan = lambda dots, m, r, sp=split: tuple(
+                        sp if o == 2 * dots[-1][0] else plan([(i, o)], m, r)[0]
+                        for i, o in dots)
+                    for label, _, _, calls in cases["ffn"]:
+                        ms = results[f"ffn w13 split {split} {label}"] = graph_ms(calls)
+                        print(f"[plan] {label:10s} w13 split {split}: {ms:8.4f} ms", flush=True)
+            finally:
+                QK.ffn_plan = plan
         if args.plans and "current" in names:
             build.library = lambda: libs["current"]
             for label, In, Out, calls in cases["dense"]:

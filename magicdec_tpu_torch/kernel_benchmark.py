@@ -53,7 +53,10 @@ Cases (``--which``):
            ``bench.setup`` and the engine's methods, so an A/B against an
            older checkout runs as for ``prefill``;
   dots     (the card only; not in "all") the draft's int8 dots B4 (wqkv +
-           norm, w13 + norm + gate, w2 + residual) and B6 (the lm_head) and
+           norm, wo + residual, w13 + norm + gate, w2 + residual), B5 (the
+           three as one layer tail, ``tail_M{m}``) and B6 (the lm_head), B9
+           (the FFN block at 256 rows, ``mlp_M256``; B5 and B9 also with
+           ``prefetch=False``, ``_no_prefetch``, where the wrappers take it) and
            its int4 dots B4-int4 (``int4_`` wqkv, wo + residual, w13 +
            gate, w2 + residual; group 128) and B6-int4 (``int4_lm_head``)
            at the model's widths and M = B and 2B rows, and the target's
@@ -426,20 +429,25 @@ def _dots(cfg, B, dev, gen):
                           dtype=torch.int8)
         return q, torch.rand((layers, Out), generator=gen, device=dev) / (127 * In ** 0.5)
 
-    weights = {"wqkv_norm": stack(D, qkv), "w13_norm_gate": stack(D, 2 * F),
-               "w2_residual": stack(F, D), "lm_head": stack(D, V, layers=1)}
+    Kd = cfg.n_head * cfg.head_dim
+    weights = {"wqkv_norm": stack(D, qkv), "wo_residual": stack(Kd, D),
+               "w13_norm_gate": stack(D, 2 * F), "w2_residual": stack(F, D),
+               "lm_head": stack(D, V, layers=1)}
     norm_w = (torch.rand((D,), generator=gen, device=dev) + 0.5).to(bf)
     results = {}
     for M in (B, 2 * B):
         x, g, res = (torch.randn((M, n), generator=gen, device=dev).to(bf) for n in (D, F, D))
+        o = torch.randn((M, Kd), generator=gen, device=dev).to(bf)
         kernels = {
             "wqkv_norm": lambda q, s: QK.quant_matmul_fused(x, q, s, norm_w),
+            "wo_residual": lambda q, s: QK.quant_matmul_fused(o, q, s, res=res),
             "w13_norm_gate": lambda q, s: QK.quant_matmul_fused(x, q, s, norm_w, gate=True),
             "w2_residual": lambda q, s: QK.quant_matmul_fused(g, q, s, res=res),
             "lm_head": lambda q, s: QK.quant_matmul(x, q, s),
         }
         _timed_dots(results, M, kernels, weights,
-                    lambda name: g if name == "w2_residual" else x, gen, dev)
+                    lambda name: {"w2_residual": g, "wo_residual": o}.get(name, x), gen, dev)
+    results.update(_dots_ffn(B, weights, norm_w, dev, gen))
     del weights
     results.update(_dots_int4(cfg, B, dev, gen))
     results.update(_dots_dense(cfg, dev, gen))
@@ -464,6 +472,46 @@ def _timed_dots(results, M, kernels, weights, lhs_of, gen, dev):
             print(f"[kernel] {tag:40s} {ms:8.4f} ms", file=sys.stderr, flush=True)
         del lib_w, lib
         torch.cuda.empty_cache()
+
+
+def _dots_ffn(B, weights, norm_w, dev, gen):
+    """B5 (``tail_M{m}_device``: wo + residual + FFN + residual, the three
+    B4 pieces' weights in one call) at M = B and 2B and B9 (``mlp_M256``:
+    the FFN block with its residual, the draft prefill chunk of two
+    requests) over the layer stack in turn; where the wrapper takes
+    ``prefetch`` also ``_no_prefetch``, each dot's weights held until the
+    grid barrier before it opens (what issuing them early saves)."""
+    import inspect
+
+    from magicdec_tpu_torch.kernels import quant_matmul as QK
+
+    bf = torch.bfloat16
+    (qo, so), (q13, s13), (q2, s2) = (weights[k] for k in
+                                      ("wo_residual", "w13_norm_gate", "w2_residual"))
+    L, Kd, D = qo.shape
+    variants = {"": {}}
+    if "prefetch" in inspect.signature(QK.quant_layer_tail).parameters:
+        variants["_no_prefetch"] = {"prefetch": False}
+    results = {}
+
+    def timed(tag, calls):
+        results[tag] = graph_ms(calls)
+        print(f"[kernel] {tag:40s} {results[tag]:8.4f} ms", file=sys.stderr, flush=True)
+
+    for M in (B, 2 * B):
+        a, x = (torch.randn((M, n), generator=gen, device=dev).to(bf) for n in (Kd, D))
+        for name, kw in variants.items():
+            timed(f"tail{name}_M{M}_device",
+                  [lambda l=l, kw=kw: QK.quant_layer_tail(a, x, qo[l], so[l], q13[l], s13[l], q2[l],
+                                                          s2[l], norm_w, eps=1e-5, **kw)
+                   for l in range(L)])
+    x = torch.randn((256, D), generator=gen, device=dev).to(bf)
+    for name, kw in variants.items():
+        timed(f"mlp{name}_M256_device",
+              [lambda l=l, kw=kw: QK.quant_mlp(x, q13[l], s13[l], q2[l], s2[l], norm_w, x,
+                                               eps=1e-5, **kw)
+               for l in range(L)])
+    return results
 
 
 def _dots_int4(cfg, B, dev, gen):

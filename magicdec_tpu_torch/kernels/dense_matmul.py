@@ -24,8 +24,7 @@ from __future__ import annotations
 import torch
 
 from magicdec_tpu_torch.kernels import on_cpu, ptr, require, require_bf16
-from magicdec_tpu_torch.kernels.quant_matmul import (BK, BN, TARGET_BLOCKS, _epilogue,
-                                                     split_plan)
+from magicdec_tpu_torch.kernels.quant_matmul import BK, BN, TARGET_BLOCKS, _epilogue
 from magicdec_tpu_torch.ops.norm import rms_norm
 
 BOX = 64          # dense_matmul_fused: weight columns a TMA box
@@ -33,6 +32,17 @@ ROWS_MAX = 512    # dense_matmul_fused rows a call (the dense routing's cap)
 # dense_matmul_fused's largest split: at one block an SM, clusters of 8 ran
 # up to 1.7x slower than clusters of 5 on the H100 (PERF.md, PR 9)
 DENSE_SPLIT = 5
+
+
+def split_plan(In: int, Out: int) -> int:
+    """Contraction splits of one dot of ``dense_mlp``, cut in BK-row tiles:
+    enough that Out / BN column blocks times the splits fill the card's 132
+    SMs, no split empty.  Fixed by the weight's shape alone, so a row's sums
+    run in the same order at every M."""
+    tiles = In // BK
+    want = max(1, min(tiles, -(-TARGET_BLOCKS // max(1, Out // BN))))
+    per = -(-tiles // want)
+    return -(-tiles // per)
 
 
 def dense_plan(In: int, Out: int, norm: bool) -> tuple[int, int]:

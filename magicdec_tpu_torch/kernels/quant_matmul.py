@@ -1,7 +1,7 @@
 """B4, B5, B6, B9: the int8 weight-only dots of the draft's weight copy, and
 B4-int4, B6-int4: its group-wise int4 dots (CUDA: B4, B6, B4-int4 and
 B6-int4 in ``csrc/quant_matmul_sm90.cu``, B5 and B9 in
-``csrc/quant_matmul.cu``).
+``csrc/ffn_sm90.cu``).
 
 B4 ``quant_matmul_fused`` replaces magicdec_tpu/ops/pallas/quant_matmul.py
 ``quant_matmul_fused_pallas`` (``_fused_kernel``, int8): x @ (q * scale)
@@ -23,7 +23,11 @@ rounds g and u to bf16 and returns bf16(g * sigmoid(g) * u); a residual is
 added in bf16.  Bound on the card: the weight's HBM bytes (see the sources
 for the designs).  B4 and B6 are one launch a call: the contraction's
 splits (``cluster_split_plan``, at most 8) form a thread-block cluster that
-adds its f32 partial sums on chip, in split order.
+adds its f32 partial sums on chip, in split order.  B5 and B9 are one
+persistent launch a call: clusters of 8 blocks, as many as the card holds
+at once, walk each dot's column tiles, grid barriers between the dots,
+each dot's splits (``ffn_plan``: 1, 2, 4 or 8 ranks of a cluster) added in
+split order.
 
 The int4 dots replace the nibble-plane branches of the same Pallas calls:
 ``quant_matmul_fused_int4`` (B4-int4, ``_fused_kernel`` with bits=4: the
@@ -55,17 +59,6 @@ MAX_SPLIT = 8         # B4/B6: the splits of a column tile form one portable clu
 ROWS_MAX = 256        # B4/B6 rows a launch (the routing's ROWS_CAP)
 
 
-def split_plan(In: int, Out: int, unit: int = BK) -> int:
-    """Contraction splits of one dot of B5 and B9, cut in units of ``unit``
-    rows: enough that Out / BN column blocks times the splits fill the
-    card's 132 SMs, no split empty.  Fixed by the weight's shape alone, so a
-    row's sums run in the same order at every M."""
-    tiles = In // unit
-    want = max(1, min(tiles, -(-TARGET_BLOCKS // max(1, Out // BN))))
-    per = -(-tiles // want)
-    return -(-tiles // per)
-
-
 def cluster_split_plan(In: int, Out: int, unit: int = BK) -> int:
     """B4/B6's (and B4-int4's) contraction splits, cut in units of ``unit``
     rows (B4-int4: max(group, BK4), so every split starts on a group
@@ -88,6 +81,63 @@ def cluster_split_plan(In: int, Out: int, unit: int = BK) -> int:
                -split)
         best = min(best or key, key)
     return -best[2]
+
+
+FFN_CLUSTER = 8            # B5/B9: blocks a cluster (the portable maximum)
+FFN_SPLITS = (1, 2, 4, 8)  # a dot's splits: groups of ranks that cut the cluster evenly
+FFN_ROWS = 128             # B5's rows a call, and the mma.sync core's; B9 takes ROWS_MAX
+FFN_WG_ROWS = 256          # B9's rows above FFN_ROWS: the wgmma core, one pass
+FFN_TILE_BARS = 1024       # the wgmma core's split tiles a dot (csrc TILE_BARS)
+# what an item of a split dot costs beyond its stages (the partials'
+# reduction, the group's wait for its slowest rank, the epilogue), in
+# BK-row stages, for the mma.sync core (partials through DSMEM) and the
+# wgmma core (through L2); fitted to the H100 sweep of the 1B w13 dot's
+# splits (PERF.md, PR 12: python -m magicdec_tpu_torch.dot_variants
+# --variants ffn_current --ffn_plans)
+FFN_ITEM_STAGES = {FFN_ROWS: 2, FFN_WG_ROWS: 24}
+
+
+def ffn_split_plan(In: int, Out: int, clusters: int, item_stages: int) -> int:
+    """The contraction splits of one dot of B5 or B9 on ``clusters``
+    resident clusters of 8 blocks: of the splits that cut a cluster into
+    equal groups (1, 2, 4, 8), none empty, the one whose busiest group
+    streams the fewest stages, ceil(column tiles / groups) items of
+    ceil(BK tiles / split) stages each, plus ``item_stages`` an item of a
+    split dot; of equals, the fewest splits.  Fixed by the weight's shape
+    and the card (its resident clusters) alone, so a row's sums run in the
+    same order at every M a core serves."""
+    ktiles, ntiles = In // BK, Out // BN
+    best = None
+    for split in FFN_SPLITS:
+        per = -(-ktiles // split)
+        if split > ktiles or -(-ktiles // per) != split:
+            continue  # an empty split
+        rounds = -(-ntiles // (clusters * (FFN_CLUSTER // split)))
+        key = (rounds * (per + (item_stages if split > 1 else 0)), split)
+        best = min(best or key, key)
+    return best[1]
+
+
+def ffn_rows_a_pass(M: int) -> int:
+    """The rows one pass of B5/B9's product core covers at M rows: 16, 32,
+    64 or 128 on the mma.sync core, FFN_WG_ROWS on the wgmma core (M >
+    FFN_ROWS, B9 only).  The C side picks its core, and keys its resident
+    count, by the same rule."""
+    return next(r for r in (16, 32, 64, FFN_ROWS, FFN_WG_ROWS) if M <= r)
+
+
+def ffn_plan(dots, M: int, resident: int) -> tuple[int, ...]:
+    """The splits of each dot of one B5/B9 call at M rows, ``dots`` the
+    (In, Out) of each dot in order, on ``resident`` clusters of 8 blocks:
+    the clusters the card holds at once for the call's core
+    (``md_ffn_sm90_resident``), which is also the grid (every cluster, so
+    that a phase with fewer tiles than groups still spreads over every SM;
+    the grid barrier needs every block on the card at once).  1B widths at
+    the H100's 30 clusters (mma.sync core): wo 8, w13 4, w2 8; B9 at 256
+    rows on 16 (wgmma core): w13 1, w2 8."""
+    require(resident >= 1, f"ffn_plan: {resident} resident clusters")
+    item = FFN_ITEM_STAGES[FFN_WG_ROWS if M > FFN_ROWS else FFN_ROWS]
+    return tuple(ffn_split_plan(In, Out, resident, item) for In, Out in dots)
 
 
 def _scaled(x, q, scale):
@@ -228,26 +278,47 @@ def _check_ffn(x, q13, s13, q2, s2, norm_w, what):
     on what the kernels do not take."""
     M, D, F2, s13 = _check_dot(x, q13, s13, what + " w13")
     F = F2 // 2
+    require(M <= ROWS_MAX, f"{what}: the kernel takes at most {ROWS_MAX} rows, got {M}")
     require(norm_w.numel() == D, f"{what}: norm weight of {norm_w.numel()}, not {D}")
+    require(D % BN == 0, f"{what}: the kernel takes D % {BN} == 0, got {D}")
     require(q2.shape == (F, D) and q2.dtype == torch.int8 and q2.is_contiguous()
             and F % BK == 0 and s2.dtype == torch.float32 and s2.numel() == D,
             f"{what}: w2 {tuple(q2.shape)} {q2.dtype} for F={F}, D={D}")
     return M, D, F, s13, s2.reshape(-1).contiguous(), norm_w.reshape(-1).contiguous()
 
 
-def _ffn_scratch(M, D, F, dev, *splits):
-    """hn [M, D], gated [M, F] and the partial sums of the largest phase."""
-    part = torch.empty((max(splits) * M,), dtype=torch.float32, device=dev)
-    return (torch.empty((M, D), dtype=torch.bfloat16, device=dev),
-            torch.empty((M, F), dtype=torch.bfloat16, device=dev), part)
+_GRID_BARRIERS = {}   # device -> the B5/B9 kernel's grid barrier words
+_RESIDENT = {}        # (device, rows a pass) -> resident clusters
 
 
-def quant_mlp(x, q13, s13, q2, s2, norm_w, res=None, *, eps):
-    """B9: x [M, D]; q13 [D, 2F] (gate columns, then up), q2 [F, D] int8
-    with per-column f32 scales; norm_w [D]; res [M, D] or None.  Returns
-    [res +] the FFN block of x, [M, D]."""
-    if on_cpu(x, q13, s13, q2, s2, norm_w, res):
-        return quant_mlp_plain(x, q13, s13, q2, s2, norm_w, res, eps=eps)
+def _resident(dev, M: int) -> int:
+    """The clusters of 8 the card holds at once for the core serving M
+    rows, read once a device and core."""
+    from magicdec_tpu_torch.kernels import build
+
+    key = (dev, ffn_rows_a_pass(M))
+    if key not in _RESIDENT:
+        with torch.cuda.device(dev):
+            n = build.library().md_ffn_sm90_resident(M)
+        build.check(-n if n < 0 else 0, "md_ffn_sm90_resident")
+        _RESIDENT[key] = n
+    return _RESIDENT[key]
+
+
+def _grid_barrier(dev):
+    """The B5/B9 kernel's barrier words on ``dev`` (the grid's, then the
+    wgmma core's tile barriers: 2 + 2 * FFN_TILE_BARS int32): one zeroed
+    buffer a device, allocated at the first call and kept (its words count
+    generations, so a captured graph replays with its fixed pointer)."""
+    if dev not in _GRID_BARRIERS:
+        _GRID_BARRIERS[dev] = torch.zeros(2 + 2 * FFN_TILE_BARS, dtype=torch.int32, device=dev)
+    return _GRID_BARRIERS[dev]
+
+
+def _launch_mlp(x, q13, s13, q2, s2, norm_w, res, eps, prefetch):
+    """B9 on the card (csrc/ffn_sm90.cu): one launch; scratch hn [M, D],
+    gated [M, F], the statistic's slots [M, D / 32] and, on the wgmma core
+    (M > 128) with a split dot, its f32 partials."""
     from magicdec_tpu_torch.kernels import build
 
     x = x.contiguous()
@@ -256,26 +327,28 @@ def quant_mlp(x, q13, s13, q2, s2, norm_w, res=None, *, eps):
     if res is not None:
         require(res.shape == (M, D), f"quant_mlp: residual {tuple(res.shape)}, not {(M, D)}")
         res = res.contiguous()
-    splits = (split_plan(D, 2 * F), split_plan(F, D))
-    hn, gated, part = _ffn_scratch(M, D, F, x.device, splits[0] * 2 * F, splits[1] * D)
-    out = torch.empty((M, D), dtype=torch.bfloat16, device=x.device)
-    err = build.library().md_quant_mlp(
+    dots = ((D, 2 * F), (F, D))
+    clusters = _resident(x.device, M)
+    splits = ffn_plan(dots, M, clusters)
+    dev = x.device
+    hn, out = (torch.empty((M, D), dtype=torch.bfloat16, device=dev) for _ in range(2))
+    gated = torch.empty((M, F), dtype=torch.bfloat16, device=dev)
+    slots = torch.empty((M, D // 32), dtype=torch.float32, device=dev)
+    # the wgmma core's split-K partials go through global memory
+    part_rows = max((s * Out for (_, Out), s in zip(dots, splits) if s > 1), default=0)
+    part = (torch.empty((part_rows * M,), dtype=torch.float32, device=dev)
+            if ffn_rows_a_pass(M) == FFN_WG_ROWS and part_rows else None)
+    err = build.library().md_quant_mlp_sm90(
         ptr(x), ptr(q13), ptr(s13), ptr(q2), ptr(s2), ptr(norm_w), ptr(res), ptr(out),
-        ptr(hn), ptr(gated), ptr(part), M, D, F, *splits, float(eps), build.stream_ptr(x))
-    build.check(err, "md_quant_mlp")
-    quant_mlp.launches += 1
+        ptr(hn), ptr(gated), ptr(slots), ptr(part), ptr(_grid_barrier(dev)), M, D, F, *splits,
+        clusters, int(prefetch), float(eps), build.stream_ptr(x))
+    build.check(err, "md_quant_mlp_sm90")
     return out
 
 
-quant_mlp.launches = 0
-
-
-def quant_layer_tail(a, x, qo, so, q13, s13, q2, s2, norm_w, *, eps):
-    """B5: a [M, K] attention output, x [M, D] the layer's input; qo [K, D],
-    q13 [D, 2F], q2 [F, D] int8 with per-column f32 scales; norm_w [D] the
-    FFN norm.  Returns the layer's output [M, D]."""
-    if on_cpu(a, x, qo, so, q13, s13, q2, s2, norm_w):
-        return quant_layer_tail_plain(a, x, qo, so, q13, s13, q2, s2, norm_w, eps=eps)
+def _launch_tail(a, x, qo, so, q13, s13, q2, s2, norm_w, eps, prefetch):
+    """B5 on the card (csrc/ffn_sm90.cu): one launch; scratch h and hn
+    [M, D], gated [M, F] and the statistic's slots [M, D / 32]."""
     from magicdec_tpu_torch.kernels import build
 
     a, x = a.contiguous(), x.contiguous()
@@ -283,15 +356,46 @@ def quant_layer_tail(a, x, qo, so, q13, s13, q2, s2, norm_w, *, eps):
     M, K, D, so = _check_dot(a, qo, so, "quant_layer_tail wo")
     _, _, F, s13, s2, norm_w = _check_ffn(x, q13, s13, q2, s2, norm_w, "quant_layer_tail")
     require(x.shape == (M, D), f"quant_layer_tail: x {tuple(x.shape)}, not {(M, D)}")
-    splits = (split_plan(K, D), split_plan(D, 2 * F), split_plan(F, D))
-    hn, gated, part = _ffn_scratch(M, D, F, x.device, splits[0] * D, splits[1] * 2 * F,
-                                   splits[2] * D)
-    h, out = (torch.empty((M, D), dtype=torch.bfloat16, device=x.device) for _ in range(2))
-    err = build.library().md_quant_layer_tail(
-        ptr(a), ptr(x), ptr(qo), ptr(so), ptr(q13), ptr(s13), ptr(q2), ptr(s2),
-        ptr(norm_w), ptr(out), ptr(h), ptr(hn), ptr(gated), ptr(part), M, K, D, F,
-        *splits, float(eps), build.stream_ptr(x))
-    build.check(err, "md_quant_layer_tail")
+    require(M <= FFN_ROWS, f"quant_layer_tail: the kernel takes at most {FFN_ROWS} rows, got {M}")
+    clusters = _resident(x.device, M)
+    splits = ffn_plan(((K, D), (D, 2 * F), (F, D)), M, clusters)
+    dev = x.device
+    h, hn, out = (torch.empty((M, D), dtype=torch.bfloat16, device=dev) for _ in range(3))
+    gated = torch.empty((M, F), dtype=torch.bfloat16, device=dev)
+    slots = torch.empty((M, D // 32), dtype=torch.float32, device=dev)
+    err = build.library().md_quant_layer_tail_sm90(
+        ptr(a), ptr(x), ptr(qo), ptr(so), ptr(q13), ptr(s13), ptr(q2), ptr(s2), ptr(norm_w),
+        ptr(out), ptr(h), ptr(hn), ptr(gated), ptr(slots), ptr(_grid_barrier(dev)), M, K, D, F,
+        *splits, clusters, int(prefetch), float(eps), build.stream_ptr(x))
+    build.check(err, "md_quant_layer_tail_sm90")
+    return out
+
+
+def quant_mlp(x, q13, s13, q2, s2, norm_w, res=None, *, eps, prefetch=True):
+    """B9: x [M, D]; q13 [D, 2F] (gate columns, then up), q2 [F, D] int8
+    with per-column f32 scales; norm_w [D]; res [M, D] or None; M <= 256.
+    Returns [res +] the FFN block of x, [M, D].  ``prefetch=False`` holds
+    the w2 weights until the grid barrier opens (to measure what issuing
+    them early saves)."""
+    if on_cpu(x, q13, s13, q2, s2, norm_w, res):
+        return quant_mlp_plain(x, q13, s13, q2, s2, norm_w, res, eps=eps)
+    out = _launch_mlp(x, q13, s13, q2, s2, norm_w, res, eps, prefetch)
+    quant_mlp.launches += 1
+    return out
+
+
+quant_mlp.launches = 0
+
+
+def quant_layer_tail(a, x, qo, so, q13, s13, q2, s2, norm_w, *, eps, prefetch=True):
+    """B5: a [M, K] attention output, x [M, D] the layer's input; qo [K, D],
+    q13 [D, 2F], q2 [F, D] int8 with per-column f32 scales; norm_w [D] the
+    FFN norm; M <= 128.  Returns the layer's output [M, D].
+    ``prefetch=False`` holds each dot's weights until the grid barrier
+    before it opens (to measure what issuing them early saves)."""
+    if on_cpu(a, x, qo, so, q13, s13, q2, s2, norm_w):
+        return quant_layer_tail_plain(a, x, qo, so, q13, s13, q2, s2, norm_w, eps=eps)
+    out = _launch_tail(a, x, qo, so, q13, s13, q2, s2, norm_w, eps, prefetch)
     quant_layer_tail.launches += 1
     return out
 

@@ -366,9 +366,11 @@ def test_cluster_split_plan_at_the_main_path():
     """llama-3.2-1b: wqkv 5 splits (120 blocks, one an SM: 6 would put two
     blocks on 12 SMs), wo 8, w13 2, w2 8 (the uncapped plan's 9 capped),
     lm_head 1 (its 1002 column tiles fill the card)."""
+    from magicdec_tpu_torch.kernels import dense_matmul as DM
+
     got = [QK.cluster_split_plan(*s) for s in _plan_shapes()[:5]]
     assert got == [5, 8, 2, 8, 1]
-    assert QK.split_plan(8192, 2048) == 9
+    assert DM.split_plan(8192, 2048) == 9
 
 
 class _FakeLibrary:
@@ -857,30 +859,93 @@ def test_quant_matmul_graph_replay_matches_eager_on_card(cuda, kind):
         assert torch.equal(captured, eager)
 
 
+def _ffn_case(kind, M, device, seed, K=2048, F=8192):
+    """(run, plain, wrong) of a B5 / B9 case at D = K (the 1B widths by
+    default): B5 with its first residual dropped, B9 without its residual
+    as the reference that must fail the bound."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    D = K
+    (qo, so), (q13, s13), (q2, s2) = (_card_weight(gen, i, o, device)
+                                      for i, o in ((K, D), (D, 2 * F), (F, D)))
+    a = torch.randn((M, K), generator=gen, device=device).to(torch.bfloat16)
+    x = torch.randn((M, D), generator=gen, device=device).to(torch.bfloat16)
+    nw = (torch.rand(D, generator=gen, device=device) + 0.5).to(torch.bfloat16)
+    if kind == "b5":
+        def wrong():
+            h = QK.quant_matmul_plain(a, qo, so)  # without x
+            return QK.quant_mlp_plain(h, q13, s13, q2, s2, nw, h, eps=1e-5)
+
+        return (lambda: QK.quant_layer_tail(a, x, qo, so, q13, s13, q2, s2, nw, eps=1e-5),
+                lambda: QK.quant_layer_tail_plain(a, x, qo, so, q13, s13, q2, s2, nw, eps=1e-5),
+                wrong)
+    return (lambda: QK.quant_mlp(x, q13, s13, q2, s2, nw, x, eps=1e-5),
+            lambda: QK.quant_mlp_plain(x, q13, s13, q2, s2, nw, x, eps=1e-5),
+            lambda: QK.quant_mlp_plain(x, q13, s13, q2, s2, nw, eps=1e-5))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("kind,M", [("b5", 32), ("b5", 64), ("b5", 128),
-                                    ("b9", 32), ("b9", 64), ("b9", 160)])
+                                    ("b9", 32), ("b9", 64), ("b9", 160),
+                                    ("b5", 1), ("b5", 17), ("b9", 129), ("b9", 200),
+                                    ("b9", 256)])
 def test_ffn_kernels_match_plain_on_card(cuda, kind, M):
-    """B5 (M <= 128) and B9 against their plain versions at the draft's
-    widths, with the first residual dropped as the wrong reference."""
-    gen = torch.Generator(device=cuda).manual_seed(M)
-    K = D = 2048
-    F = 8192
-    (qo, so), (q13, s13), (q2, s2) = (_card_weight(gen, i, o, cuda)
-                                      for i, o in ((K, D), (D, 2 * F), (F, D)))
-    a = torch.randn((M, K), generator=gen, device=cuda).to(torch.bfloat16)
-    x = torch.randn((M, D), generator=gen, device=cuda).to(torch.bfloat16)
-    nw = (torch.rand(D, generator=gen, device=cuda) + 0.5).to(torch.bfloat16)
-    if kind == "b5":
-        out = QK.quant_layer_tail(a, x, qo, so, q13, s13, q2, s2, nw, eps=1e-5)
-        ref = QK.quant_layer_tail_plain(a, x, qo, so, q13, s13, q2, s2, nw, eps=1e-5)
-        h = QK.quant_matmul_plain(a, qo, so)  # without x
-        wrong = QK.quant_mlp_plain(h, q13, s13, q2, s2, nw, h, eps=1e-5)
-    else:
-        out = QK.quant_mlp(x, q13, s13, q2, s2, nw, x, eps=1e-5)
-        ref = QK.quant_mlp_plain(x, q13, s13, q2, s2, nw, x, eps=1e-5)
-        wrong = QK.quant_mlp_plain(x, q13, s13, q2, s2, nw, eps=1e-5)
+    """B5 (M <= 128) and B9 (M <= 256) against their plain versions at the
+    draft's widths, with the first residual dropped as the wrong
+    reference."""
+    _check_case(*_ffn_case(kind, M, cuda, M))
+
+
+@pytest.mark.gpu
+def test_ffn_kernel_at_8b_widths_on_card(cuda):
+    """B5 at the 8B widths the port routes to it (D = K = 4096, F = 14336),
+    M = 32."""
+    _check_case(*_ffn_case("b5", 32, cuda, 8, K=4096, F=14336))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,M", [("b5", 32), ("b5", 128), ("b9", 256)])
+def test_ffn_kernels_deterministic_and_graph_replay_on_card(cuda, kind, M):
+    """Two calls give the same bits (splits added in split order, no
+    atomics), and three replays of a captured call equal the eager one (the
+    grid barrier's generation words carry over between launches)."""
+    run = _ffn_case(kind, M, cuda, 3)[0]
+    eager = run()
+    assert torch.equal(run(), eager)
     torch.cuda.synchronize()
-    assert torch.isfinite(out).all()
-    assert _outside(out, ref) == 0
-    assert _outside(wrong, ref) > 0
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        run()  # warm the stream outside the capture
+    torch.cuda.current_stream().wait_stream(stream)
+    with torch.cuda.graph(graph):
+        captured = run()
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, eager)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,M,kernel", [("b5", 32, "ffn_sm90_kernel<2>"),
+                                           ("b9", 64, "ffn_sm90_kernel<4>"),
+                                           ("b9", 256, "ffn_wg_sm90_kernel")])
+def test_ffn_kernels_one_launch_a_call_on_card(cuda, kind, M, kernel):
+    """torch.profiler sees one kernel launch a call: the mma.sync core up to
+    128 rows, the wgmma core above."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run = _ffn_case(kind, M, cuda, 4)[0]
+    run()
+    torch.cuda.synchronize()
+    for _ in range(3):  # the profiler now and then loses an event: profile again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                run()
+            torch.cuda.synchronize()
+        kern = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        if sum(e.count for e in kern) >= 3:
+            break
+    assert sum(e.count for e in kern) == 3, [(e.key, e.count) for e in kern]
+    assert all(kernel in e.key for e in kern), [e.key for e in kern]
