@@ -8,8 +8,11 @@ of which raises on failure:
 1. the card's name and power limit (``nvidia-smi``);
 2. build of every kernel from ``magicdec_tpu_torch/csrc`` (timed), with
    ptxas's registers, shared memory and spills of the Hopper kernels of B4/B6,
-   B4-int4/B6-int4, B5/B9 (both cores), B15, K2/K2q/B11 and K1q/B10 (with
-   B12's int8/int4 pools);
+   B4-int4/B6-int4, B5/B9 (both cores), B15, K2/K2q/B11 and the decode
+   kernel's instances (K1 and B12-bf16 with one to three row tiles a warp,
+   K1q, B10, B12's int8/int4 pools; the template arguments are the format
+   (0 int8, 1 int4, 2 bf16), the kv heads a block, the row tiles a warp and
+   paged);
 3. kernel phase: each Hopper kernel against its plain PyTorch version at the
    shapes of the bench's main path (llama-3.2-1b widths, B=32, target cache
    8704 rows in bf16 and in int8 with f32 scales quantized from the same
@@ -31,11 +34,12 @@ of which raises on failure:
    on the (dequantized) bf16 K/V for the attention kernels, ``index_copy_``
    of the rows (and scales) for the appends; timed only, never used by the
    port); K2, K2q and B11 also under torch.profiler, which must see one
-   launch of ``prefill_sm90_kernel`` a call; K1q and B10 too, which must
-   see one ``decode_sm90_kernel`` and, with more than one split, one
-   ``combine_kernel`` a call, and for each of them every token of a T = 4
-   window bit-equal to the T = 1 step at its position over a cache holding
-   the window's earlier rows; then the int8 dots of the
+   launch of ``prefill_sm90_kernel`` a call; K1 (target T = 4, 1 and 9,
+   draft T = 1 and 2), K1q and B10 too, which must see one
+   ``decode_sm90_kernel`` and, with more than one split, one
+   ``combine_kernel`` a call, and for K1, K1q and B10 every token of a T = 4
+   window at the target cache bit-equal to the T = 1 step at its position
+   over a cache holding the window's earlier rows; then the int8 dots of the
    draft's weight copy (B4 with its norm,
    gate and residual epilogues, B5, B6, and B9), at llama-3.2-1b widths and
    M = 32 and 64 (B9 at 256), each timed over 16 layers' weights in turn
@@ -59,7 +63,7 @@ of which raises on failure:
    including 0 and 8192 - T): B12 over bf16, int8 and packed int4 pools
    (wrong references: two table entries swapped, the fresh rows dropped),
    each also bit-equal to its contiguous kernel over the gathered pool
-   (the int8 and int4 pools under torch.profiler as K1q and B10), and
+   (each pool under torch.profiler as K1, K1q and B10), and
    B13 into each pool bit for bit (library: SDPA on the gathered layer,
    ``index_copy_`` through the flattened page indices); B14, the per-array
    appends (rows on the int8 target cache and the draft's bf16 cache, f32
@@ -367,22 +371,29 @@ def kernel_phase(torch, gen):
                   PA.flash_prefill_attend_quant4):
             # K2 / K2q / B11: one launch of the Hopper kernel a call
             extra = _one_launch(torch, name, case, calls, kernel="prefill_sm90_kernel")
-        elif fn in (DA.flash_decode_attend_quant, DA.flash_decode_attend_quant4):
-            nsplit = DA.quant_split_plan(B, Hkv, S)[0]
+        elif fn in (DA.flash_decode_attend, DA.flash_decode_attend_quant,
+                    DA.flash_decode_attend_quant4):
+            # K1 (bf16), K1q, B10: one decode_sm90_kernel a call, and the
+            # combine when the plan has more than one split
+            plan = DA.split_plan if fn is DA.flash_decode_attend else DA.quant_split_plan
+            nsplit = plan(B, Hkv, caches[0].shape[2])[0]
             extra = _decode_sm90_launches(torch, name, case, calls, nsplit)
         # one exponential a visible (row, column) pair
         record(name, case, err, tol, ms, plain_ms, nbytes, flops, library_ms, calls, [lib],
                extra, exps=Hq * pairs)
         del lib_args
 
-    # K1 at the target cache: verify (T = gamma + 1 = 4) and the AR step,
-    # ragged lengths around the bench's prefix
+    # K1 at the target cache: verify (T = gamma + 1 = 4), the AR step and
+    # the widest window bench --gamma 0 tries (gamma 8: 36 rows, three row
+    # tiles a warp), ragged lengths around the bench's prefix
     base_t = torch.randint(8192, 8600, (B,), generator=gen, device=dev, dtype=torch.int32)
     base_d = torch.randint(513, 600, (B,), generator=gen, device=dev, dtype=torch.int32)
-    for T in (4, 1):
+    for T in (4, 1, 9):
         attn_case("flash_decode_attend", DA.flash_decode_attend,
                   DA.flash_decode_attend_plain, f"target T={T} S={S}", (k4, v4),
                   dense_fresh, T, base_t, 3)
+    _window_equals_steps(torch, "flash_decode_attend", DA.flash_decode_attend, (k4, v4), layer,
+                         randn(B, 4, Hq, hd), base_t, dense_fresh(4))
     for T in (1, 2):
         attn_case("flash_decode_attend", DA.flash_decode_attend,
                   DA.flash_decode_attend_plain, f"draft T={T} S={Sd}", (dk4, dv4),
@@ -677,7 +688,7 @@ def paged_kernel_cases(torch, gen, record):
     """B12 (bf16, int8 and packed int4 pools) and B13 (the same three) at
     the serving paths' shapes: llama-3.2-1b widths (16 layers, 8 kv heads of
     64, 32 query heads), 16 slots, T = 4, npr * ps = 8192 logical rows a
-    slot, page size 512 and 16 (a 32-row tile spans two pages), the slots'
+    slot, page size 512 and 16 (a 16-position tile is one whole page), the slots'
     pages a random permutation of the pool's user pages (pages 0..15 are the
     scratch pages), ragged base_lens including 0 and 8192 - T.  Each B12 is
     held against its plain version within bf16_limit and bit for bit against
@@ -784,10 +795,9 @@ def paged_kernel_cases(torch, gen, record):
             nbytes = (2 * q.numel() * 2 + 2 * float(vis.sum()) * row_bytes + table.numel() * 4
                       + sum(t.numel() * t.element_size() for t in fresh.values()))
             calls = [lambda l=l: fn(q, *pools, table, base, layer=l, **fresh) for l in range(L)]
-            extra = None
-            if qz is not None:  # the int8 / int4 pools: decode_attention_sm90.cu's kernel
-                nsplit = DA.quant_split_plan(B, Hkv, S)[0]
-                extra = _decode_sm90_launches(torch, name, case, calls, nsplit)
+            # every pool: decode_attention_sm90.cu's kernel, the contiguous plan
+            plan = DA.split_plan if qz is None else DA.quant_split_plan
+            extra = _decode_sm90_launches(torch, name, case, calls, plan(B, Hkv, S)[0])
             record(name, case, err, tol, ms, plain_ms, nbytes, 4 * hd * Hq * pairs, library_ms,
                    calls, [lib], extra)
             del lib_args
@@ -1522,8 +1532,8 @@ def _one_launch(torch, name, label, calls, kernel=""):
 
 
 def _decode_sm90_launches(torch, name, label, calls, nsplit):
-    """K1q, B10 and B12's int8/int4 pools: the profiler must see one launch
-    of ``decode_sm90_kernel`` a call, and one of ``combine_kernel`` when the
+    """K1, K1q, B10 and B12 (each pool): the profiler must see one launch of
+    ``decode_sm90_kernel`` a call, and one of ``combine_kernel`` when the
     plan has more than one split, and nothing else."""
     want = 2 if nsplit > 1 else 1
     per_call, prof_ms, kernels = _profiled(torch, calls, want=want)
@@ -1542,27 +1552,41 @@ def _decode_sm90_launches(torch, name, label, calls, nsplit):
 def _window_equals_steps(torch, name, fn, caches, layer, q, base, fresh):
     """Token t of a window (its fresh rows read at [base, base + T)) bit for
     bit against the T = 1 step at base + t over layer ``layer`` holding the
-    window's rows before t, with fresh row t."""
+    window's rows before t, with fresh row t; caches (k, v) in bf16 or (k,
+    k_scale, v, v_scale) quantized."""
     one = [c[layer:layer + 1] for c in caches]
     window = fn(q, *one, base, layer=0, **fresh)
     T = q.shape[1]
     for t in range(T):
-        k, ks, v, vs = (c.clone() for c in one)
+        step_caches = [c.clone() for c in one]
         for b, n in enumerate(base.tolist()):
-            k[0, b, n:n + t] = fresh["k_new"][b, :t]
-            v[0, b, n:n + t] = fresh["v_new"][b, :t]
-            ks[0, b, :, n:n + t] = fresh["ks_new"][b, :, :t]
-            vs[0, b, :, n:n + t] = fresh["vs_new"][b, :, :t]
-        step = fn(q[:, t:t + 1], k, ks, v, vs, base + t, layer=0,
-                  k_new=fresh["k_new"][:, t:t + 1], v_new=fresh["v_new"][:, t:t + 1],
-                  ks_new=fresh["ks_new"][:, :, t:t + 1].contiguous(),
-                  vs_new=fresh["vs_new"][:, :, t:t + 1].contiguous())
+            step_caches[0][0, b, n:n + t] = fresh["k_new"][b, :t]
+            step_caches[-2 if len(one) == 4 else 1][0, b, n:n + t] = fresh["v_new"][b, :t]
+            if len(one) == 4:
+                step_caches[1][0, b, :, n:n + t] = fresh["ks_new"][b, :, :t]
+                step_caches[3][0, b, :, n:n + t] = fresh["vs_new"][b, :, :t]
+        step_fresh = {n: f[:, :, t:t + 1].contiguous() if n in ("ks_new", "vs_new")
+                      else f[:, t:t + 1] for n, f in fresh.items()}
+        step = fn(q[:, t:t + 1], *step_caches, base + t, layer=0, **step_fresh)
         if not torch.equal(window[:, t:t + 1], step):
             raise AssertionError(f"{name}: token {t} of the T={T} window differs in bits from "
                                  f"the T=1 step at base + {t}")
-        del k, ks, v, vs
+        del step_caches
     print(f"[kernel] {name}: every token of a T={T} window bit-equal to its T=1 step "
           f"({len(base)} requests, ragged lengths)", flush=True)
+
+
+def _instance(mangled):
+    """A decode_sm90_kernel instance's template arguments in words (the
+    mangled name, any other kernel's, as it is)."""
+    import re
+
+    m = re.search(r"decode_sm90_kernelILi(\d)ELi(\d)ELi(\d)ELb(\d)E", mangled)
+    if m is None:
+        return mangled
+    fmt, heads, tiles, paged = m.groups()
+    return (f"decode_sm90_kernel<{('int8', 'int4', 'bf16')[int(fmt)]}, {heads} kv head(s) a "
+            f"block, {tiles} row tile(s) a warp, {'paged' if paged == '1' else 'contiguous'}>")
 
 
 def _kernel_class(name):
@@ -1570,8 +1594,7 @@ def _kernel_class(name):
         return "int4 dots (B4/B6-int4)"
     if "qmm" in name or "ffn_" in name:
         return "int8 dots (B4/B5/B6) and split-K epilogues"
-    if "md::" in name or "attend_kernel" in name or "combine_kernel" in name \
-            or "append_rows_kernel" in name:
+    if "md::" in name or "combine_kernel" in name or "append_rows_kernel" in name:
         return "port kernels"
     if any(k in name.lower() for k in ("gemm", "gemv", "nvjet", "xmma", "cutlass")):
         return "cuBLAS GEMM"
@@ -1730,8 +1753,8 @@ def main():
     lib = build.build(verbose=True)
     print(f"[build] {lib.name} in {time.perf_counter() - t_start:.1f}s", flush=True)
     # registers, shared memory and spills of the Hopper kernels (B4/B6 and
-    # B4-int4, B6-int4, B5/B9, B15's dense_matmul_fused, K2/K2q/B11, K1q/B10
-    # and B12's int8/int4 pools), each instantiation
+    # B4-int4, B6-int4, B5/B9, B15's dense_matmul_fused, K2/K2q/B11, and the
+    # decode kernel of K1, K1q, B10 and B12), each instantiation
     for source, kernel in (("quant_matmul_sm90", "qmm_sm90_kernel"),
                            ("quant_matmul_sm90", "qmm4_sm90_kernel"),
                            ("ffn_sm90", "ffn_sm90_kernel"),
@@ -1745,7 +1768,7 @@ def main():
             if "Compiling entry function" in line and kernel in line:
                 detail = " | ".join(x.strip() for x in ptxas[i + 1:i + 4]
                                     if "ptxas" in x or "spill" in x)
-                print(f"[ptxas] {line.split(chr(39))[1]}: {detail}", flush=True)
+                print(f"[ptxas] {_instance(line.split(chr(39))[1])}: {detail}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1854,7 +1877,7 @@ def main():
     phase_done("profiles")
 
     meta = {
-        "flash_decode_attend": ("magicdec_tpu_torch/csrc/decode_attention.cu",
+        "flash_decode_attend": ("magicdec_tpu_torch/csrc/decode_attention_sm90.cu",
                                 "magicdec_tpu/ops/pallas/decode_attention.py:505"),
         "flash_prefill_attend": ("magicdec_tpu_torch/csrc/prefill_attention_sm90.cu",
                                  "magicdec_tpu/ops/pallas/prefill_attention.py:304"),
@@ -1884,7 +1907,7 @@ def main():
                                     "magicdec_tpu/ops/pallas/quant_matmul.py:151"),
         "quant_matmul_int4": ("magicdec_tpu_torch/csrc/quant_matmul_sm90.cu",
                               "magicdec_tpu/ops/pallas/quant_matmul.py:189"),
-        "flash_paged_decode_attend": ("magicdec_tpu_torch/csrc/paged_attention.cu",
+        "flash_paged_decode_attend": ("magicdec_tpu_torch/csrc/decode_attention_sm90.cu",
                                       "magicdec_tpu/ops/pallas/paged_attention.py:122"),
         "flash_paged_decode_attend_quant": ("magicdec_tpu_torch/csrc/decode_attention_sm90.cu",
                                             "magicdec_tpu/ops/pallas/paged_attention.py:147"),

@@ -1,85 +1,119 @@
-// K1q and B10, with B12's int8 and int4 paged twins: flash decode / verify
-// attention over a quantized cache, on Hopper.
+// The decode / verify attention kernels on Hopper: K1 over the bf16 cache
+// (the blocked target call and the whole-row draft call), K1q over an int8
+// cache, B10 over an int4 cache packed in head pairs, and B12's paged twins
+// of all three.
 //
-// Replaces magicdec_tpu/ops/pallas/decode_attention.py
+// Replaces magicdec_tpu/ops/pallas/decode_attention.py flash_decode_attend
+// (:505; the blocked _decode_call :387 with _decode_kernel :84, the
+// whole-row _whole_row_call :497 with _whole_row_kernel :395),
 // flash_decode_attend_quant (:547; _decode_quant_kernel :171,
-// _quant_online_update :150, the blocked _decode_call :328/:387) over an
-// int8 cache, flash_decode_attend_quant4 (:585; _decode_quant4_kernel :255,
-// _unpack_int4_planes :241) over an int4 cache packed in head pairs, and
-// paged_attention.py flash_paged_decode_attend_quant (:147) and
-// flash_paged_decode_attend_quant4 (:176) (_paged_call) over page pools of
-// either.  A window of T <= 16 query tokens of request b attends layer
-// `layer`'s cache rows [0, base_b), each with its f32 per-(token, kv head) k
-// and v scale, plus, when given, its own T fresh rows and their scales,
-// read at their positions [base_b, base_b + T) (causal: token t sees
+// _quant_online_update :150) over an int8 cache, flash_decode_attend_quant4
+// (:585; _decode_quant4_kernel :255, _unpack_int4_planes :241) over an int4
+// cache packed in head pairs, and paged_attention.py
+// flash_paged_decode_attend (:122), flash_paged_decode_attend_quant (:147)
+// and flash_paged_decode_attend_quant4 (:176) (_paged_call :109) over page
+// pools of each.  A window of T <= 16 query tokens of request b attends
+// layer `layer`'s cache rows [0, base_b) (quantized: each with its f32
+// per-(token, kv head) k and v scale) plus, when given, its own T fresh
+// rows, read at their positions [base_b, base_b + T) (causal: token t sees
 // positions [0, base_b + t + 1)).  The numerics are the TPU kernel's
-// (attention_common.cuh): the score of column c is s_raw * (k_scale[c] *
-// 1/sqrt(hd)) (here in the exp2 domain, times log2 e), masked to -1e30
-// after scaling; the running max starts at -1e30; l sums the unscaled p;
-// P.V takes bf16(p * v_scale[c]); the output is acc / max(l, 1e-30).
+// (attention_common.cuh): the score is s_raw * 1/sqrt(hd) (quantized:
+// times k_scale[c]) (here in the exp2 domain, times log2 e), masked to -1e30
+// after scaling; the running max starts at -1e30; l sums the (unscaled) p;
+// P.V takes bf16(p) (quantized: bf16(p * v_scale[c])); the output is acc /
+// max(l, 1e-30).
 //
-// Bound: HBM bytes (a visible row is HD int8 bytes of k and of v a head, or
-// HD/2 packed, plus 4 bytes of scale each; the flops a byte are ~G*T).  The
-// PR 2/4 design (attention_common.cuh attend_kernel<.., QUANT>) ran at 47%
-// (int8) and 25% (int4) of that bound at the bench's shapes, whatever the
-// bytes: one-warp blocks walking 32-row tiles one at a time, each tile's
-// int8 rows written to shared memory as bf16 and read back between two
-// block barriers.  This design answers that:
+// Bound: HBM bytes (a visible row is HD bf16 values of k and of v a head,
+// HD int8 bytes, or HD/2 packed, plus 4 bytes of scale each; the flops a
+// byte are ~G*T).  The earlier one-warp design (blocks walking 32-row
+// tiles, two cp.async stages, the quantized rows converted to bf16 in
+// shared memory between two block barriers) ran K1 at 77%, K1q at 47% and
+// B10 at 25% of that bound, B12 at 28% over 16 ragged slots (H100 80GB HBM3,
+// 700 W; PERF.md).  This design:
 //
-// - Conversion in registers.  The int8 (or packed int4) tile stays in shared
-//   memory as it landed (HD bytes a position at a stride of HD + 16, so
-//   ldmatrix is free of bank conflicts).  ldmatrix of the bytes as 16-bit
-//   pairs gives each lane four bytes of one position (K: dims d..d+3) and
-//   ldmatrix.trans four bytes of two positions and two dims (V: (2t4, 2g),
-//   (2t4, 2g+1), (2t4+1, 2g), (2t4+1, 2g+1)).  Bytes 0 and 2 and bytes 1 and
-//   3 of such a word are exactly the pairs an m16n8k16 B fragment register
-//   holds: for V the two positions of one dim, for K two dims of one
-//   position once the head dims of each 16-dim step are permuted (slots 2t4,
-//   2t4+1, 2t4+8, 2t4+9 <- dims d, d+2, d+1, d+3, Q's A fragments loaded in
-//   the same order).  Each pair converts exactly without the conversion unit
-//   (i8_pair: two logic ops and a bf16x2 subtraction; i4_pair: one) and
-//   feeds the tensor cores directly: no bf16 tile, no barrier for it, and
-//   the output dims come out in the permuted order the epilogue undoes.
-// - A block a pair of kv heads: int8, the pair's 128 contiguous bytes a
-//   position (a single head's 64 bytes streamed at only ~3/4 the rate); B10
-//   the packed pair's 64, each warp converting both nibble planes of the
-//   words it loads, so a packed byte is read from HBM and shared memory once.
-//   An odd Hkv (int8) takes one head a block.
 // - Four warps a block, each with its own ring.  A block serves one (split
-//   of the positions, request, pair, 16 grouped query rows); the split is
-//   walked in 16-position tiles, tile j by warp j % 4, each warp through a
-//   ring of its own three stages filled by cp.async (its tiles' rows and
-//   scales) and waited for with cp.async.wait_group and __syncwarp only: no
-//   block barrier in the loop, two tiles a warp in flight.  The copies are
-//   issued per 16-byte chunk (4-byte per scale) by the warp's lanes, not by
-//   TMA, because a tile's positions come from three places the boxes of a
-//   tensor map cannot gather: cache rows below base, the fresh rows from
-//   base on (a T <= 16-row operand), and, paged, pages as small as 16 rows
-//   in any order; past the visible end nothing is read (zeros land
-//   instead).  A tile wholly below both ends takes a path without those
-//   tests.  The four warps merge their (m, l, o) through shared memory in
-//   warp order at the end.
+//   of the positions, request, kv head or pair, run of grouped query rows);
+//   the split is walked in 16-position tiles, tile j by warp j % 4, each
+//   warp through a ring of its own three stages, two tiles in flight: no
+//   block barrier in the loop.  The four warps merge their (m, l, o)
+//   through shared memory in warp order at the end.
+// - bf16 (K1, B12's bf16 pool): a block a kv head, 128 bytes a position
+//   (on the H100 at 700 W, the int8 kernel's 64-byte rows streamed at ~3/4
+//   the rate, 128-byte rows at full rate; a pair's rings would take twice
+//   the shared memory and halve the blocks an SM).  The tiles land in
+//   TMA's 128-byte swizzle (16-byte chunk c of position r at c ^ r % 8), so
+//   ldmatrix reads K as mma B fragments and ldmatrix.trans reads V, free of
+//   bank conflicts, with no conversion.
+//   A tile wholly below both the visible end and base (the first fresh
+//   position) is two TMA boxes {64 dims, 16 positions} of the layer's cache
+//   (paged: of the page that holds the tile, when the page size is a
+//   multiple of 16), landed on the stage's mbarrier: one instruction a
+//   tile, no per-lane address arithmetic.  The tile straddling base, the
+//   fresh rows and the block's last tile take cp.async per 16-byte chunk,
+//   with zeros past the visible end (a masked p of 0 times an inf or NaN V
+//   row would be NaN in the product); so does every tile of a pool whose
+//   pages are not multiples of 16 rows, each chunk through its page.  A warp
+//   holds MT = 1..3 row tiles of 16 grouped query rows (Q as A fragments,
+//   each tile's (m, l, o) in registers), so up to 48 rows (T <= 12 at G =
+//   4) take one pass over the cache; more rows take a block per 48.
+// - int8 / int4 (K1q, B10, B12's quantized pools): a block a pair of kv
+//   heads: int8, the pair's 128 contiguous bytes a position; B10 the packed
+//   pair's 64, each warp converting both nibble planes of the words it
+//   loads, so a packed byte is read from HBM and shared memory once.  An
+//   odd Hkv (int8) takes one head a block.  The tile stays in shared memory
+//   as it landed (HD bytes a position at a stride of HD + 16, so ldmatrix is
+//   free of bank conflicts).  ldmatrix of the bytes as 16-bit pairs gives
+//   each lane four bytes of one position (K: dims d..d+3) and ldmatrix.trans
+//   four bytes of two positions and two dims (V: (2t4, 2g), (2t4, 2g+1),
+//   (2t4+1, 2g), (2t4+1, 2g+1)).  Bytes 0 and 2 and bytes 1 and 3 of such a
+//   word are exactly the pairs an m16n8k16 B fragment register holds: for V
+//   the two positions of one dim, for K two dims of one position once the
+//   head dims of each 16-dim step are permuted (slots 2t4, 2t4+1, 2t4+8,
+//   2t4+9 <- dims d, d+2, d+1, d+3, Q's A fragments loaded in the same
+//   order).  Each pair converts exactly without the conversion unit
+//   (i8_pair: two logic ops and a bf16x2 subtraction; i4_pair: one) and
+//   feeds the tensor cores directly, and the output dims come out in the
+//   permuted order the epilogue undoes.  The rows and scales are copied per
+//   16-byte chunk (4-byte per scale) by cp.async.
 // - The softmax runs in the exp2 domain (log2 e folded into the score's
 //   scale) and skips the masks on a tile every row of the warp sees whole.
 //
-// Splits: kernels/decode_attention.py quant_split_plan, a function of (B,
-// Hkv, S) only; with more than one split a block writes its (o, m, l)
-// partial and combine_kernel (attention_common.cuh) merges them.  Which
-// positions go to which split, warp and tile, and in which order, depend on
-// static shapes alone, never on T or on the query rows, so a verify row and
-// the same token's autoregressive step give the same bits.  PAGED: only a
-// row's address changes (RowAddr), so a paged launch equals the contiguous
-// launch over the gathered pool bit for bit.
+// Splits: kernels/decode_attention.py split_plan (bf16) and
+// quant_split_plan, functions of (B, Hkv, S) only; with more than one split
+// a block writes its (o, m, l) partial and combine_kernel
+// (attention_common.cuh) merges, for each row, the splits below its visible
+// end (a bf16 block with no visible position exits at once and writes
+// nothing).  Which positions go to which split, warp and tile, and in which
+// order, depend on static shapes alone, never on T, on the lengths or on
+// the query rows, and each row's arithmetic is the same whatever rows share
+// its warp, so a verify row and the same token's autoregressive step give
+// the same bits.  PAGED: only a row's address changes (RowAddr, or the TMA
+// box's page), so a paged launch equals the contiguous launch over the
+// gathered pool bit for bit.
+#include <tuple>
+
 #include "attention_common.cuh"
+#include "sm90_common.cuh"
 
 namespace md {
 namespace dq90 {
 namespace {  // internal linkage: a second build of this file loads beside it
 
+using sm90::fence_proxy_async;
+using sm90::ldsm_x4_trans_u32;
+using sm90::ldsm_x4_u32;
+using sm90::mbar_expect_tx;
+using sm90::mbar_init;
+using sm90::mbar_wait;
+using sm90::smem_u32;
+using sm90::tma_load_3d;
+
+constexpr int kI8 = 0, kI4 = 1, kBF16 = 2;  // the cache formats
 constexpr int HD = 64;
 constexpr int NR = 16;     // positions a warp tile
 constexpr int NW = 4;      // warps a block
 constexpr int STAGES = 3;  // each warp's ring
+constexpr int MT_MAX = 3;  // bf16: 16-row tiles of query rows a warp holds
 
 // One stage of a warp's ring: the k and v bytes of NR positions (RB bytes a
 // position: the block's HEADS int8 heads side by side, or one packed pair,
@@ -163,17 +197,17 @@ __device__ __forceinline__ void pairs(uint32_t w, int plane, const Consts& c, ui
   }
 }
 
-// HEADS kv heads a block: INT4, the packed pair; int8, a pair of heads (one
-// when Hkv is odd), so that a block reads 128 contiguous bytes a position.
+// The quantized body (K1q, B10, B12's int8 / int4 pools), HEADS kv heads a
+// block: INT4, the packed pair; int8, a pair of heads (one when Hkv is odd),
+// so that a block reads 128 contiguous bytes a position; one 16-row tile of
+// grouped query rows.
 template <bool INT4, int HEADS, bool PAGED>
-__global__ void __launch_bounds__(NW * 32, HEADS == 1 ? 4 : 3)
-    decode_sm90_kernel(AttnArgs a, int R) {
+__device__ __forceinline__ void quant_body(const AttnArgs& a, int R, unsigned char* dq_smem) {
   static_assert(HEADS == 2 || (!INT4 && HEADS == 1), "a packed row holds a pair of heads");
   using St = Stage<INT4, HEADS>;
   constexpr int LDB = St::LDB;
   constexpr int CH = St::RB / 16;  // 16-byte chunks of a position
   constexpr int PPI = 32 / CH;     // positions one copy instruction of a warp covers
-  extern __shared__ __align__(16) unsigned char dq_smem[];
   Smem<INT4, HEADS>& sm = *reinterpret_cast<Smem<INT4, HEADS>*>(dq_smem);
 
   const int b = blockIdx.z;
@@ -495,6 +529,360 @@ __global__ void __launch_bounds__(NW * 32, HEADS == 1 ? 4 : 3)
   }
 }
 
+// ---- bf16 (K1, B12's bf16 pool) -------------------------------------------------
+
+// The layer's k and v rows as TMA sees them: contiguous, [B, S, K] (box at
+// position c of plane b); paged, [P, ps, K] (box at row c % ps of the page
+// the table names).  Box {HD, NR, 1}, 128-byte swizzle; `tma` is 0 when no
+// tile can take a box (S < NR, or pages not a multiple of NR rows).
+struct Maps {
+  CUtensorMap k, v;
+  int tma;
+};
+
+// One stage of a bf16 warp ring: the k and v rows of NR positions, 128
+// bytes a position, 16-byte chunk c of position r at (c ^ r % 8) * 16.
+// BF_STAGES - 1 tiles a warp in flight.
+constexpr int BF_STAGES = 3;
+constexpr int BF_TILE = NR * HD * 2;
+struct BfStage {
+  __nv_bfloat16 k[NR * HD];
+  __nv_bfloat16 v[NR * HD];
+};
+
+// The rings, and after the loop the four warps' states of one row tile.
+union BfSmem {
+  BfStage ring[NW][BF_STAGES];
+  struct {
+    float o[NW][16][HD];
+    float ml[NW][16][2];
+  } merge;
+};
+// from a 1024-byte-aligned base (the swizzle's period): the union, then
+// each warp's stage barriers
+constexpr int BF_BARS = sizeof(BfSmem);
+constexpr int BF_SMEM = BF_BARS + 8 * NW * BF_STAGES + 1024;
+static_assert(sizeof(BfStage) % 1024 == 0 && BF_TILE % 1024 == 0, "tiles keep the swizzle period");
+
+__device__ __forceinline__ uint32_t ldg_u32(const __nv_bfloat16* p) {
+  return __ldg(reinterpret_cast<const unsigned int*>(p));
+}
+
+// A block: split blockIdx.x / nrb of the positions, rows [16 MT rb, 16 MT
+// (rb + 1)) of kv head blockIdx.y of request blockIdx.z (rb = blockIdx.x %
+// nrb).  Each warp holds MT row tiles: Q as A fragments, and (m, l, o).
+template <int MT, bool PAGED>
+__device__ __forceinline__ void bf16_body(const AttnArgs& a, int R, const Maps& maps,
+                                          unsigned char* raw_smem) {
+  const uint32_t raw = smem_u32(raw_smem);
+  const uint32_t pad = ((raw + 1023u) & ~1023u) - raw;
+  BfSmem& sm = *reinterpret_cast<BfSmem*>(raw_smem + pad);
+  const int nrb = gridDim.x / a.nsplit;
+  const int split = blockIdx.x / nrb, rb = blockIdx.x % nrb;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int G = a.Hq / a.Hkv, GT = G * a.T;
+  const int K = a.Hkv * HD;  // a cache row's elements
+  const int base = a.base_lens[b];
+  const int r_block = rb * 16 * MT;
+  const int t_last = min((r_block + 16 * MT - 1) / G, a.T - 1);
+  const int hi = min(base + t_last + 1, a.S);
+  const int lo = split * a.chunk;
+  if (lo >= hi) return;  // no position visible: combine_kernel never reads this split
+  const int hi_s = min(hi, lo + a.chunk);
+  const bool fresh = a.k_new != nullptr;
+  const int fresh_at = fresh ? base : a.S;  // the first position read from the fresh rows
+  // a tile [c, c + NR) with c + NR <= tma_end lands by TMA
+  const int tma_end = maps.tma ? min(hi_s, fresh_at) : 0;
+  // 1/sqrt(hd), times log2(e): the softmax runs in the exp2 domain
+  const float scale = 0.125f * 1.4426950408889634f;
+
+  // positions [0, lim) visible to the thread's rows g and g + 8 of each row
+  // tile; a padding row (past G*T, never written) sees the block's whole
+  // range, so that the tiles every row sees whole take the softmax without
+  // masks
+  int lim[MT][2], lim_min[MT];
+  uint32_t qf[MT][HD / 16][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = r_block + 16 * mt + g + 8 * i;
+      const bool valid = row < GT;
+      lim[mt][i] = valid ? min(base + row / G + 1, hi_s) : hi_s;
+      const __nv_bfloat16* qp =
+          a.q + (((size_t)b * a.T + row / G) * a.Hq + h * G + row % G) * HD + 2 * t4;
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        qf[mt][kk][i] = valid ? ldg_u32(qp + 16 * kk) : 0u;
+        qf[mt][kk][i + 2] = valid ? ldg_u32(qp + 16 * kk + 8) : 0u;
+      }
+    }
+    lim_min[mt] = min(lim[mt][0], lim[mt][1]);
+  }
+  float o[MT][HD / 8][4];
+  float m[MT][2], l[MT][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n) o[mt][n][0] = o[mt][n][1] = o[mt][n][2] = o[mt][n][3] = 0.f;
+    m[mt][0] = m[mt][1] = kNegInf;
+    l[mt][0] = l[mt][1] = 0.f;
+  }
+
+  const RowAddr<__nv_bfloat16, PAGED> krows =
+      kv_rows<__nv_bfloat16, PAGED>(a, a.k, b, K, h * HD);
+  const RowAddr<__nv_bfloat16, PAGED> vrows =
+      kv_rows<__nv_bfloat16, PAGED>(a, a.v, b, K, h * HD);
+  const size_t f_off = (size_t)b * a.T * K + h * HD;
+  const __nv_bfloat16* kn = fresh ? a.k_new + f_off : nullptr;
+  const __nv_bfloat16* vn = fresh ? a.v_new + f_off : nullptr;
+  const uint32_t bars = raw + pad + BF_BARS + 8 * BF_STAGES * warp;  // this warp's
+  if (lane == 0) {
+#pragma unroll
+    for (int s = 0; s < BF_STAGES; ++s) mbar_init(bars + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncwarp();
+
+  // Fill stage st with the tile at position c: two boxes by lane 0 on the
+  // stage's barrier, or each lane four 16-byte chunks of k and of v (chunk i
+  // = lane + 32 j: position i / 8, chunk i % 8), zeros past hi_s, where
+  // nothing is read.
+  auto fill = [&](int st, int c) {
+    BfStage& s = sm.ring[warp][st];
+    if (c + NR <= tma_end) {
+      if (lane == 0) {
+        fence_proxy_async();  // the stage's last generic reads and writes first
+        const uint32_t bar = bars + 8 * st;
+        int row = c, plane = b;
+        if constexpr (PAGED) {
+          row = c % a.ps;
+          plane = __ldg(a.table + (size_t)b * a.npr + c / a.ps);
+        }
+        mbar_expect_tx(bar, 2 * BF_TILE);
+        tma_load_3d(smem_u32(s.k), &maps.k, bar, h * HD, row, plane);
+        tma_load_3d(smem_u32(s.v), &maps.v, bar, h * HD, row, plane);
+      }
+      return;
+    }
+#pragma unroll
+    for (int j = 0; j < NR * HD / 8 / 32; ++j) {
+      const int i = lane + 32 * j, r = i >> 3, c8 = i & 7, pos = c + r;
+      const bool ok = pos < hi_s, cached = pos < fresh_at;
+      const size_t f = (size_t)(pos - fresh_at) * K + 8 * c8;  // its fresh row's chunk
+      const __nv_bfloat16* ks = !ok ? a.k : cached ? krows(pos) + 8 * c8 : kn + f;
+      const __nv_bfloat16* vs = !ok ? a.v : cached ? vrows(pos) + 8 * c8 : vn + f;
+      const int at = r * HD + ((c8 ^ (r & 7)) << 3);
+      cp_async16(s.k + at, ks, ok);
+      cp_async16(s.v + at, vs, ok);
+    }
+  };
+
+  const int ntiles = (hi_s - lo + NR - 1) / NR;
+  const int mine = ntiles > warp ? (ntiles - warp + NW - 1) / NW : 0;  // tiles warp, warp + NW, ...
+#pragma unroll
+  for (int st = 0; st < BF_STAGES - 1; ++st) {
+    if (st < mine) fill(st, lo + (warp + st * NW) * NR);
+    cp_async_commit();
+  }
+  // ldmatrix addresses within a tile: K (positions 8 (lane / 16) + lane % 8,
+  // chunk 2 kk + lane / 8 % 2) and V (positions lane % 8 + 8 (lane / 8 % 2),
+  // chunk 2 np + lane / 16), each chunk at its swizzled place
+  const int k_row = 8 * (lane >> 4) + (lane & 7), k_c = (lane >> 3) & 1;
+  const int v_row = (lane & 7) + 8 * ((lane >> 3) & 1), v_c = lane >> 4;
+  uint32_t phase = 0;  // the parity each stage's barrier waits for next
+  for (int it = 0; it < mine; ++it) {
+    const int st = it % BF_STAGES;
+    const int c0 = lo + (warp + it * NW) * NR;
+    cp_async_wait<BF_STAGES - 2>();  // this lane's copies of tile `it` have landed
+    if (c0 + NR <= tma_end) {     // or its boxes
+      mbar_wait(bars + 8 * st, (phase >> st) & 1u);
+      phase ^= 1u << st;
+    }
+    __syncwarp();  // every lane's; and tile it - 1's reads are done
+    if (it + BF_STAGES - 1 < mine)
+      fill((it + BF_STAGES - 1) % BF_STAGES, lo + (warp + (it + BF_STAGES - 1) * NW) * NR);
+    cp_async_commit();
+    const uint32_t ks = smem_u32(sm.ring[warp][st].k), vs = smem_u32(sm.ring[warp][st].v);
+
+    // Each row tile: S = Q K^T (K words (ldmatrix, kk): positions 0-7 and
+    // 8-15, dims 16 kk .. 16 kk + 15), then the online softmax in the exp2
+    // domain (sc[j][e]: row g + 8 (e >> 1), position c0 + 8 j + 2 t4 + (e &
+    // 1)); P as the A fragment, bf16(p) as the reference.  A tile every row
+    // of the warp sees whole skips the masks (the same arithmetic, so the
+    // bits do not depend on which rows share it); the products and sums are
+    // rounded one by one (no contraction), the same in every instance.
+    uint32_t pa[MT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      if (r_block + 16 * mt >= GT) break;  // a row tile of padding only
+      float sc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        uint32_t kb[4];
+        ldsm_x4_u32(kb, ks + k_row * 128 + (((2 * kk + k_c) ^ (k_row & 7)) << 4));
+        mma_bf16_16816(sc[0], qf[mt][kk], kb[0], kb[1]);
+        mma_bf16_16816(sc[1], qf[mt][kk], kb[2], kb[3]);
+      }
+      const bool whole = __all_sync(0xffffffffu, c0 + NR <= lim_min[mt]);
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1;
+          const float x = whole || c0 + 8 * j + 2 * t4 + (e & 1) < lim[mt][i]
+                              ? __fmul_rn(sc[j][e], scale)
+                              : kNegInf;
+          sc[j][e] = x;
+          mx[i] = fmaxf(mx[i], x);
+        }
+      float corr[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        const float m_new = fmaxf(m[mt][i], mx[i]);
+        corr[i] = ex2(__fsub_rn(m[mt][i], m_new));
+        m[mt][i] = m_new;
+        l[mt][i] = __fmul_rn(l[mt][i], corr[i]);
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1;
+          const float p = whole || c0 + 8 * j + 2 * t4 + (e & 1) < lim[mt][i]
+                              ? ex2(__fsub_rn(sc[j][e], m[mt][i]))
+                              : 0.f;
+          sc[j][e] = p;
+          l[mt][i] = __fadd_rn(l[mt][i], p);
+        }
+      pa[mt][0] = pack_bf16x2(sc[0][0], sc[0][1]);
+      pa[mt][1] = pack_bf16x2(sc[0][2], sc[0][3]);
+      pa[mt][2] = pack_bf16x2(sc[1][0], sc[1][1]);
+      pa[mt][3] = pack_bf16x2(sc[1][2], sc[1][3]);
+      if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
+#pragma unroll
+        for (int n = 0; n < HD / 8; ++n) {
+          o[mt][n][0] *= corr[0];
+          o[mt][n][1] *= corr[0];
+          o[mt][n][2] *= corr[1];
+          o[mt][n][3] *= corr[1];
+        }
+      }
+    }
+
+    // O += P V.  V words (ldmatrix.trans, np): positions 0-7 and 8-15 of
+    // dims 16 np .. 16 np + 7 (n-block 2 np) and 16 np + 8 .. 16 np + 15
+    // (n-block 2 np + 1); o[mt][n][e] is row g + 8 (e >> 1), dim 8 n + 2 t4 +
+    // (e & 1)
+#pragma unroll
+    for (int np = 0; np < HD / 16; ++np) {
+      uint32_t vb[4];
+      ldsm_x4_trans_u32(vb, vs + v_row * 128 + (((2 * np + v_c) ^ (v_row & 7)) << 4));
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        if (r_block + 16 * mt >= GT) break;
+        mma_bf16_16816(o[mt][2 * np], pa[mt], vb[0], vb[1]);
+        mma_bf16_16816(o[mt][2 * np + 1], pa[mt], vb[2], vb[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // Merge the four warps' states of each row tile, in warp order, then the
+  // output (one split) or the partial (natural log units for combine_kernel).
+  const size_t part = ((size_t)b * a.Hkv + h) * a.nsplit + split;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    if (r_block + 16 * mt >= GT) break;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      l[mt][i] = __fadd_rn(l[mt][i], __shfl_xor_sync(0xffffffffu, l[mt][i], 1));
+      l[mt][i] = __fadd_rn(l[mt][i], __shfl_xor_sync(0xffffffffu, l[mt][i], 2));
+    }
+    __syncthreads();  // every warp's ring (or the last row tile's merge) is idle
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        *reinterpret_cast<float2*>(&sm.merge.o[warp][g + 8 * i][8 * n + 2 * t4]) =
+            make_float2(o[mt][n][2 * i], o[mt][n][2 * i + 1]);
+    if (t4 == 0) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        sm.merge.ml[warp][g + 8 * i][0] = m[mt][i];
+        sm.merge.ml[warp][g + 8 * i][1] = l[mt][i];
+      }
+    }
+    __syncthreads();
+    const int row = threadIdx.x >> 3, d0 = 8 * (threadIdx.x & 7);  // 16 rows x 8 chunks
+    const int gr = r_block + 16 * mt + row;
+    if (gr < GT) {
+      float mw[NW], mm = kNegInf;
+#pragma unroll
+      for (int w = 0; w < NW; ++w) {
+        mw[w] = sm.merge.ml[w][row][0];
+        mm = fmaxf(mm, mw[w]);
+      }
+      float ll = 0.f, acc[8];
+#pragma unroll
+      for (int d = 0; d < 8; ++d) acc[d] = 0.f;
+#pragma unroll
+      for (int w = 0; w < NW; ++w) {
+        const float c = ex2(__fsub_rn(mw[w], mm));
+        ll = __fadd_rn(ll, __fmul_rn(sm.merge.ml[w][row][1], c));
+#pragma unroll
+        for (int d = 0; d < 8; ++d)
+          acc[d] = __fadd_rn(acc[d], __fmul_rn(sm.merge.o[w][row][d0 + d], c));
+      }
+      if (a.nsplit == 1) {
+        const float inv = 1.f / fmaxf(ll, 1e-30f);
+        uint4 v;
+        v.x = pack_bf16x2(acc[0] * inv, acc[1] * inv);
+        v.y = pack_bf16x2(acc[2] * inv, acc[3] * inv);
+        v.z = pack_bf16x2(acc[4] * inv, acc[5] * inv);
+        v.w = pack_bf16x2(acc[6] * inv, acc[7] * inv);
+        const size_t at = (((size_t)b * a.T + gr / G) * a.Hq + h * G + gr % G) * HD + d0;
+        *reinterpret_cast<uint4*>(a.out + at) = v;
+      } else {
+        float4* po = reinterpret_cast<float4*>(a.part_o + (part * R + gr) * HD + d0);
+        po[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
+        po[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
+        if (d0 == 0) {
+          a.part_ml[(part * R + gr) * 2] = mm * 0.6931471805599453f;
+          a.part_ml[(part * R + gr) * 2 + 1] = ll;
+        }
+      }
+    }
+  }
+}
+
+// Blocks an SM the launch bound asks for: quantized, three pair blocks (168
+// registers) or four one-head blocks; bf16, by its row tiles.
+constexpr int min_blocks(int FMT, int HEADS, int MT) {
+  return FMT == kBF16 ? (MT == 1 ? 4 : MT == 2 ? 3 : 2) : (HEADS == 1 ? 4 : 3);
+}
+
+// FMT kBF16: one kv head a block (HEADS 1), MT row tiles a warp, the tensor
+// maps of the layer's rows; kI8 / kI4: HEADS kv heads a block (INT4: the
+// packed pair), MT 1, the maps unused.
+template <int FMT, int HEADS, int MT, bool PAGED>
+__global__ void __launch_bounds__(NW * 32, min_blocks(FMT, HEADS, MT))
+    decode_sm90_kernel(const __grid_constant__ AttnArgs a, int R,
+                       const __grid_constant__ Maps maps) {
+  extern __shared__ __align__(16) unsigned char dq_smem[];
+  if constexpr (FMT == kBF16)
+    bf16_body<MT, PAGED>(a, R, maps, dq_smem);
+  else
+    quant_body<FMT == kI4, HEADS, PAGED>(a, R, dq_smem);
+}
+
+// ---- host side ------------------------------------------------------------------
+
 // The operands of a quantized cache (int8, or int4 packed in head pairs
 // with INT4): q [B, T, Hq, 64] bf16; k/v int8 [L, B, S, K] (K = Hkv*64, or
 // (Hkv/2)*64 packed) with f32 scales [L, B, Hkv, S]; k_new/v_new [B, T, K]
@@ -535,23 +923,62 @@ bool quant_args(AttnArgs& a, const void* q, const void* k, const void* v, const 
   return true;
 }
 
-// One launch of the kernel (grid: nsplit x 16-row blocks, kv-head pairs or
-// heads, requests), then the combine pass when nsplit > 1.  The partials
-// hold R = 16 * 2^k >= G*T rows a (request, kv head, split)
-// (kernels/decode_attention.py rows_pad).  Returns cudaGetLastError().
-template <bool INT4, int HEADS, bool PAGED>
-int launch_heads(const AttnArgs& a, cudaStream_t stream) {
-  constexpr int bytes = sizeof(Smem<INT4, HEADS>);
-  // once per instantiation: the shared memory past 48 KB
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      decode_sm90_kernel<INT4, HEADS, PAGED>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (attr != cudaSuccess) return (int)attr;
+// The bf16 operands (K1, B12's bf16 pool): q [B, T, Hq, 64]; k/v [L, B, S,
+// Hkv*64]; k_new/v_new [B, T, Hkv*64] or both null; base_lens [B]; out [B,
+// T, Hq, 64]; the partials as above.  G*T <= 128 rows.
+bool dense_args(AttnArgs& a, const void* q, const void* k, const void* v, const void* k_new,
+                const void* v_new, const void* base_lens, void* out, void* part_o,
+                void* part_ml, int layer, int B, int S, int T, int Hq, int Hkv, int hd,
+                int nsplit, int chunk) {
+  if (hd != HD || Hkv < 1 || Hq % Hkv != 0 || T < 1 || T > 16 || (Hq / Hkv) * T > 128 ||
+      nsplit < 1 || chunk < NR || chunk % NR != 0 || (long long)nsplit * chunk < S ||
+      (k_new == nullptr) != (v_new == nullptr))
+    return false;
+  a = AttnArgs{};  // the int8 fields stay null
+  a.q = static_cast<const __nv_bfloat16*>(q);
+  a.k = static_cast<const __nv_bfloat16*>(k);
+  a.v = static_cast<const __nv_bfloat16*>(v);
+  a.k_new = static_cast<const __nv_bfloat16*>(k_new);
+  a.v_new = static_cast<const __nv_bfloat16*>(v_new);
+  a.base_lens = static_cast<const int*>(base_lens);
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.part_o = static_cast<float*>(part_o);
+  a.part_ml = static_cast<float*>(part_ml);
+  a.layer = layer;
+  a.B = B;
+  a.S = S;
+  a.T = T;
+  a.Hq = Hq;
+  a.Hkv = Hkv;
+  a.nsplit = nsplit;
+  a.chunk = chunk;
+  return true;
+}
+
+// The partials' rows a (request, kv head, split): R = 16 * 2^k >= G*T
+// (kernels/decode_attention.py rows_pad).
+int rows_pad(const AttnArgs& a) {
   const int rows = (a.Hq / a.Hkv) * a.T;
   int R = 16;
   while (R < rows) R *= 2;
-  const dim3 grid(a.nsplit * ((rows + 15) / 16), a.Hkv / HEADS, a.B);
-  decode_sm90_kernel<INT4, HEADS, PAGED><<<grid, NW * 32, bytes, stream>>>(a, R);
-  if (a.nsplit > 1) combine_kernel<HD><<<dim3(a.Hkv, a.B), 256, 0, stream>>>(a, R);
+  return R;
+}
+
+// One launch of the kernel (grid: nsplit x blocks of grouped query rows,
+// kv heads or head pairs, requests), then the combine pass when nsplit > 1.
+// Returns cudaGetLastError().
+template <int FMT, int HEADS, int MT, bool PAGED>
+int launch_kernel(const AttnArgs& a, const Maps& maps, int bytes, cudaStream_t stream) {
+  // once per instantiation: the shared memory past 48 KB
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(decode_sm90_kernel<FMT, HEADS, MT, PAGED>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (attr != cudaSuccess) return (int)attr;
+  const int R = rows_pad(a);
+  const int row_blocks = ((a.Hq / a.Hkv) * a.T + 16 * MT - 1) / (16 * MT);
+  const dim3 grid(a.nsplit * row_blocks, a.Hkv / HEADS, a.B);
+  decode_sm90_kernel<FMT, HEADS, MT, PAGED><<<grid, NW * 32, bytes, stream>>>(a, R, maps);
+  if (a.nsplit > 1) launch_combine<HD>(a, R, stream);
   return (int)cudaGetLastError();
 }
 
@@ -559,11 +986,45 @@ int launch_heads(const AttnArgs& a, cudaStream_t stream) {
 // odd (kernels/decode_attention.py quant_split_plan counts the same blocks)
 template <bool INT4, bool PAGED>
 int launch(const AttnArgs& a, cudaStream_t stream) {
+  const Maps none{};
   if constexpr (INT4)
-    return launch_heads<true, 2, PAGED>(a, stream);
+    return launch_kernel<kI4, 2, 1, PAGED>(a, none, sizeof(Smem<true, 2>), stream);
   else
-    return a.Hkv % 2 == 0 ? launch_heads<false, 2, PAGED>(a, stream)
-                          : launch_heads<false, 1, PAGED>(a, stream);
+    return a.Hkv % 2 == 0
+               ? launch_kernel<kI8, 2, 1, PAGED>(a, none, sizeof(Smem<false, 2>), stream)
+               : launch_kernel<kI8, 1, 1, PAGED>(a, none, sizeof(Smem<false, 1>), stream);
+}
+
+// bf16: one block a kv head, min(row tiles, MT_MAX) row tiles a warp
+template <bool PAGED>
+int launch_bf16(const AttnArgs& a, const Maps& maps, cudaStream_t stream) {
+  const int tiles = ((a.Hq / a.Hkv) * a.T + 15) / 16;
+  if (tiles == 1) return launch_kernel<kBF16, 1, 1, PAGED>(a, maps, BF_SMEM, stream);
+  if (tiles == 2) return launch_kernel<kBF16, 1, 2, PAGED>(a, maps, BF_SMEM, stream);
+  return launch_kernel<kBF16, 1, MT_MAX, PAGED>(a, maps, BF_SMEM, stream);
+}
+
+// The map of `planes` x `rows` rows of `cols` bf16 values (one layer's k or
+// v), box {HD, NR, 1}, 128-byte swizzle; encoded once per (pointer, shape).
+CUresult rows_map(CUtensorMap* map, const void* ptr, int cols, int rows, int planes) {
+  return sm90::cached_map(map, std::make_tuple(ptr, cols, rows, planes), [&](CUtensorMap* m) {
+    return sm90::encode_3d(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, ptr, 2, cols, rows, planes, HD,
+                           NR, CU_TENSOR_MAP_SWIZZLE_128B);
+  });
+}
+
+// The maps of layer a.layer of caches k/v, whose layers hold `planes` x
+// `rows` rows (contiguous: B x S; a pool: P x ps); none when no tile can
+// take a box.
+CUresult layer_maps(Maps& maps, const AttnArgs& a, int planes, int rows, bool boxes) {
+  maps = Maps{};
+  if (!boxes) return CUDA_SUCCESS;
+  const int K = a.Hkv * HD;
+  const size_t layer = (size_t)a.layer * planes * rows * K;
+  CUresult enc = rows_map(&maps.k, a.k + layer, K, rows, planes);
+  if (enc == CUDA_SUCCESS) enc = rows_map(&maps.v, a.v + layer, K, rows, planes);
+  maps.tma = enc == CUDA_SUCCESS;
+  return enc;
 }
 
 template <bool INT4>
@@ -597,6 +1058,47 @@ int paged(const void* q, const void* k_pool, const void* v_pool, const void* k_s
 }  // namespace
 }  // namespace dq90
 }  // namespace md
+
+// K1: q [B, T, Hq, hd] bf16 (T <= 16, G*T <= 128), k/v bf16 [L, B, S,
+// Hkv*hd], k_new/v_new [B, T, Hkv*hd] or both null, base_lens [B], out [B,
+// T, Hq, hd], the partials part_o/part_ml of nsplit splits of `chunk`
+// positions (a multiple of 16).  Returns cudaGetLastError(), or 0x10000 +
+// the CUresult of a failed tensor-map encode.
+extern "C" int md_decode_attend(const void* q, const void* k, const void* v, const void* k_new,
+                                const void* v_new, const void* base_lens, void* out,
+                                void* part_o, void* part_ml, int layer, int B, int S, int T,
+                                int Hq, int Hkv, int hd, int nsplit, int chunk, void* stream) {
+  using namespace md::dq90;
+  md::AttnArgs a;
+  if (!dense_args(a, q, k, v, k_new, v_new, base_lens, out, part_o, part_ml, layer, B, S, T, Hq,
+                  Hkv, hd, nsplit, chunk))
+    return (int)cudaErrorInvalidValue;
+  Maps maps;
+  const CUresult enc = layer_maps(maps, a, B, S, S >= NR);
+  if (enc != CUDA_SUCCESS) return md::sm90::kEncodeError + (int)enc;
+  return launch_bf16<false>(a, maps, static_cast<cudaStream_t>(stream));
+}
+
+// B12 over a bf16 pool: as md_decode_attend, with k_pool/v_pool [L, P, ps,
+// Hkv*hd] read through table [B, npr] (S = npr * ps; a tile takes a box of
+// its page when ps is a multiple of 16).
+extern "C" int md_paged_decode_attend(const void* q, const void* k_pool, const void* v_pool,
+                                      const void* table, const void* k_new, const void* v_new,
+                                      const void* base_lens, void* out, void* part_o,
+                                      void* part_ml, int layer, int B, int P, int ps, int npr,
+                                      int T, int Hq, int Hkv, int hd, int nsplit, int chunk,
+                                      void* stream) {
+  using namespace md::dq90;
+  md::AttnArgs a;
+  if (!dense_args(a, q, k_pool, v_pool, k_new, v_new, base_lens, out, part_o, part_ml, layer, B,
+                  npr * ps, T, Hq, Hkv, hd, nsplit, chunk) ||
+      !md::paged_shape(a, table, P, ps, npr))
+    return (int)cudaErrorInvalidValue;
+  Maps maps;
+  const CUresult enc = layer_maps(maps, a, P, ps, ps % NR == 0);
+  if (enc != CUDA_SUCCESS) return md::sm90::kEncodeError + (int)enc;
+  return launch_bf16<true>(a, maps, static_cast<cudaStream_t>(stream));
+}
 
 // K1q: q [B, T, Hq, hd] bf16, k/v int8 [L, B, S, Hkv*hd] with f32 scales
 // k_scale/v_scale [L, B, Hkv, S], k_new/v_new [B, T, Hkv*hd] with

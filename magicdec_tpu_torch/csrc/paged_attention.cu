@@ -1,19 +1,7 @@
-// B12 over a bf16 pool and B13: paged decode attention and the paged
-// append, over KV page pools shared by all requests of a serving batch.
-//
-// B12 replaces magicdec_tpu/ops/pallas/paged_attention.py
-// flash_paged_decode_attend (:122, _paged_call): the K1 decode body over
-// pools [L, P, ps, Hkv*hd], reading row r of request b from page
-// table[b*npr + r/ps].  As in the TPU kernel the body is shared and only the
-// addressing differs: attend_kernel with PAGED = true (attention_common.cuh
-// RowAddr).  The split plan is the contiguous kernel's at S = npr*ps
-// (kernels/decode_attention.py split_plan), so the paged kernel reads the
-// same rows in the same tiles and its output equals the contiguous kernel's
-// over the gathered cache bit for bit.  Bound: HBM bytes, as K1; the table
-// adds one 4-byte read (an L1 hit) per 16-byte chunk.  Fresh rows ride as
-// operands.  B12's int8 and int4 pools (flash_paged_decode_attend_quant
-// :147, _quant4 :176) are the PAGED instances of K1q's and B10's kernel in
-// decode_attention_sm90.cu.
+// B13: the paged append, over KV page pools shared by all requests of a
+// serving batch.  (B12, the paged decode attention over bf16, int8 and int4
+// pools, is the PAGED instance of the decode kernel in
+// decode_attention_sm90.cu.)
 //
 // B13 replaces paged_attention.py append_paged_rows_inplace (its dense
 // call :294 and quantized call :331, the _merge_rows_block and
@@ -87,26 +75,6 @@ int append_paged(void* pool_k, void* pool_v, void* spool_k, void* spool_v, const
 }
 
 }  // namespace
-
-// B12 over a bf16 pool: as md_decode_attend, with k_pool/v_pool [L, P, ps,
-// Hkv*hd] read through table [B, npr].  Returns cudaGetLastError().
-extern "C" int md_paged_decode_attend(const void* q, const void* k_pool, const void* v_pool,
-                                      const void* table, const void* k_new, const void* v_new,
-                                      const void* base_lens, void* out, void* part_o,
-                                      void* part_ml, int layer, int B, int P, int ps, int npr,
-                                      int T, int Hq, int Hkv, int hd, int nsplit, int chunk,
-                                      void* stream) {
-  md::AttnArgs a;
-  if (!md::dense_args(a, q, k_pool, v_pool, k_new, v_new, base_lens, out, layer, B, npr * ps,
-                      T, Hq, Hkv, hd) ||
-      !md::paged_shape(a, table, P, ps, npr))
-    return (int)cudaErrorInvalidValue;
-  a.nsplit = nsplit;
-  a.chunk = chunk;
-  a.part_o = static_cast<float*>(part_o);
-  a.part_ml = static_cast<float*>(part_ml);
-  return md::decode_attend<true>(a, static_cast<cudaStream_t>(stream));
-}
 
 // B13, dense call: rows_k/rows_v [L, B, T, Kc] (row_bytes = Kc * element
 // size, a multiple of 16) into pool_k/pool_v [L, P, ps, Kc] at logical

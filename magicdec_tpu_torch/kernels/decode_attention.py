@@ -1,6 +1,5 @@
 """K1, K1q and B10: flash decode / verify attention (CUDA,
-``csrc/decode_attention.cu`` for K1, ``csrc/decode_attention_sm90.cu`` for
-K1q and B10).
+``csrc/decode_attention_sm90.cu``).
 
 K1 replaces magicdec_tpu/ops/pallas/decode_attention.py
 ``flash_decode_attend`` (both ``_decode_kernel`` and ``_whole_row_kernel``);
@@ -9,11 +8,13 @@ an int8 cache with per-(token, kv head) f32 scales; B10 replaces
 ``flash_decode_attend_quant4`` (``_decode_quant4_kernel``) over an int4
 cache packed in head pairs with the same scales.  Bound on the card: HBM
 bytes (each visible K/V row is read once and feeds only G*T query rows;
-int8 rows halve them, int4 rows quarter them).  All split each (request, kv
-head)'s KV rows over several blocks and merge their softmax partials in a
-second pass — see the sources for the design.  K1 splits by ``split_plan``
-(one-warp blocks); K1q and B10 by ``quant_split_plan`` (four-warp blocks,
-each serving a pair of kv heads, or one int8 head when Hkv is odd).
+int8 rows halve them, int4 rows quarter them).  All run one kernel,
+``decode_sm90_kernel`` (four warps a block, each with its own ring of
+16-position tiles), which splits each (request, kv head)'s KV rows over
+several blocks; a second pass merges their softmax partials — see the
+source for the design.  K1 splits by ``split_plan`` (a block a kv head,
+three blocks an SM at most), K1q and B10 by ``quant_split_plan`` (a block a
+pair of kv heads, or one int8 head when Hkv is odd, one wave).
 """
 
 from __future__ import annotations
@@ -25,49 +26,53 @@ from magicdec_tpu_torch.ops.attention import attend
 from magicdec_tpu_torch.ops.kv_cache import (append_rows_all_layers,
                                              append_scale_rows_all_layers, dequant_kv)
 
-TILE = 32             # KV rows per shared-memory tile (N in the source)
-# The most one-warp blocks one wave holds: 11 per SM (each keeps 18 KB of
-# double-buffered tiles in shared memory) on the H100's 132 SMs; a second,
-# partial wave only adds a tail.
-TARGET_BLOCKS = 132 * 11
+# A block of either format's kernel has four warps taking 16 positions each
+# a round, so splits are whole rounds of 64 positions.  A plan aims at
+# PLAN_BLOCKS blocks, three an SM, and splits no further: the int8 pair
+# blocks' registers hold three an SM; a bf16 block keeps 32 KB of tiles in
+# flight, so a (request, kv head) a block already streams the target cache
+# at 91% of the HBM rate (B=32; H100 80GB HBM3 at 700 W), and a split adds a
+# partial to write and merge; a ragged serve (16 slots) takes three
+# splits, a block past its request's visible end exiting at once (PERF.md:
+# `decode_variants --blocks`).
+PLAN_ROUND = 64
+PLAN_BLOCKS = 3 * 132
 
 
-def split_plan(B: int, Hkv: int, S: int):
-    """(nsplit, chunk): KV splits per (request, kv head) and rows per split.
-    Fixed from static shapes (no host read of the lengths)."""
-    tiles = -(-S // TILE)
-    nsplit = max(1, min(tiles, TARGET_BLOCKS // (B * Hkv)))
-    chunk = -(-tiles // nsplit) * TILE
+def _plan(blocks: int, S: int):
+    """(nsplit, chunk) of `blocks` blocks a split over S positions."""
+    rounds = -(-S // PLAN_ROUND)
+    nsplit = max(1, min(rounds, PLAN_BLOCKS // blocks))
+    chunk = -(-rounds // nsplit) * PLAN_ROUND
     return -(-S // chunk), chunk
 
 
-# K1q and B10 (csrc/decode_attention_sm90.cu): a block serves a pair of kv
-# heads (int8, Hkv odd: one) and its four warps take 16 positions each a
-# round, so splits are whole rounds of 64 positions; one wave holds 3 blocks
-# an SM, bounded by their registers.
-QUANT_ROUND = 64
-QUANT_BLOCKS = 132 * 3
+def split_plan(B: int, Hkv: int, S: int):
+    """(nsplit, chunk) of K1 and B12's bf16 pool (a block a kv head): KV
+    splits per (request, kv head) and positions per split.  A function of
+    (B, Hkv, S) only: no host read of the lengths, nothing from T or the
+    query rows, and the same for a pool of npr pages of ps rows as for a
+    cache of S = npr * ps, so a verify row equals its autoregressive step
+    and a paged launch the contiguous one, bit for bit."""
+    return _plan(B * Hkv, S)
 
 
 def quant_heads(Hkv: int) -> int:
-    """The kv heads one K1q / B10 block serves."""
+    """The kv heads one K1q / B10 block serves: a pair (int8: one when Hkv
+    is odd)."""
     return 2 if Hkv % 2 == 0 else 1
 
 
 def quant_split_plan(B: int, Hkv: int, S: int):
     """(nsplit, chunk) of K1q and B10: KV splits per (request, block of
-    kv heads) and positions per split, fixed from static shapes (no host
-    read of the lengths, nothing from T)."""
-    rounds = -(-S // QUANT_ROUND)
-    blocks = B * (Hkv // quant_heads(Hkv))
-    nsplit = max(1, min(rounds, QUANT_BLOCKS // blocks))
-    chunk = -(-rounds // nsplit) * QUANT_ROUND
-    return -(-S // chunk), chunk
+    kv heads) and positions per split, fixed from static shapes as
+    ``split_plan``'s."""
+    return _plan(B * (Hkv // quant_heads(Hkv)), S)
 
 
 def rows_pad(rows: int) -> int:
-    """Grouped query rows per (request, kv head), padded to the 16-row warp
-    tiles the kernel runs (1, 2, 4 or 8 warps)."""
+    """Rows of a split's partial per (request, kv head): the grouped query
+    rows padded to 16 * 2^k (the kernel's R)."""
     w = 1
     while 16 * w < rows:
         w *= 2
@@ -118,7 +123,7 @@ def flash_decode_attend(q, k_cache, v_cache, base_lens, *, layer=0,
                         k_new=None, v_new=None):
     """Attention of a T <= 16 token window over layer ``layer``.
 
-    q [B, T, Hq, hd]; k_cache/v_cache [L, B, S, Hkv*hd];
+    q [B, T, Hq, hd] (G*T <= 128 rows); k_cache/v_cache [L, B, S, Hkv*hd];
     base_lens [B] int32, the visible length before the window; k_new/v_new
     [B, T, Hkv*hd] the window's rows when the cache does not hold them yet.
     Returns [B, T, Hq, hd] in q.dtype.
@@ -132,8 +137,8 @@ def flash_decode_attend(q, k_cache, v_cache, base_lens, *, layer=0,
     L, Bc, S, K = k_cache.shape
     Hkv = K // hd
     require(Bc == B and Hkv * hd == K and Hq % Hkv == 0, "shape mismatch")
-    require(v_cache.shape == k_cache.shape and 0 <= layer < L and 1 <= T <= 16,
-            "bad cache shape, layer or window length")
+    require(v_cache.shape == k_cache.shape and 0 <= layer < L and 1 <= T <= 16
+            and Hq // Hkv * T <= 128, "bad cache shape, layer or window length")
     require(k_cache.is_contiguous() and v_cache.is_contiguous(), "caches must be contiguous")
     fresh = k_new is not None
     if fresh:

@@ -1,6 +1,6 @@
 """B12 and B13: decode attention over KV page pools and the paged append
-(CUDA, ``csrc/paged_attention.cu``; B12's int8 and int4 pools in
-``csrc/decode_attention_sm90.cu``).
+(CUDA: B12 in ``csrc/decode_attention_sm90.cu``, B13 in
+``csrc/paged_attention.cu``).
 
 B12 replaces magicdec_tpu/ops/pallas/paged_attention.py
 ``flash_paged_decode_attend``, ``flash_paged_decode_attend_quant`` and
@@ -64,7 +64,9 @@ def flash_paged_decode_attend(q, k_pool, v_pool, table, base_lens, *, layer=0, k
                               v_new=None):
     """B12 over a bf16 pool: attention of a T <= 16 token window.
 
-    q [B, T, Hq, hd]; k_pool/v_pool [L, P, ps, Hkv*hd]; table [B, npr] int32;
+    q [B, T, Hq, hd] (G*T <= 128 rows); k_pool/v_pool [L, P, ps, Hkv*hd];
+    table [B, npr] int32 (pages of any size; a page of a multiple of 16 rows
+    holds whole tiles, which land by TMA);
     base_lens [B] int32, the visible length before the window; k_new/v_new
     [B, T, Hkv*hd] the window's rows when the pool does not hold them yet.
     Returns [B, T, Hq, hd] in q.dtype.
@@ -80,8 +82,8 @@ def flash_paged_decode_attend(q, k_pool, v_pool, table, base_lens, *, layer=0, k
     _check_table(table, B, P)
     npr = table.shape[1]
     require(Hkv * hd == K and Hq % Hkv == 0, "shape mismatch")
-    require(v_pool.shape == k_pool.shape and 0 <= layer < L and 1 <= T <= 16,
-            "bad pool shape, layer or window length")
+    require(v_pool.shape == k_pool.shape and 0 <= layer < L and 1 <= T <= 16
+            and Hq // Hkv * T <= 128, "bad pool shape, layer or window length")
     require(k_pool.is_contiguous() and v_pool.is_contiguous(), "pools must be contiguous")
     if k_new is not None:
         k_new = k_new.reshape(B, T, K).to(q.dtype).contiguous()

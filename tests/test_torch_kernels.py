@@ -146,6 +146,140 @@ def test_prefill_launch_once_against_a_fake_library(fresh, monkeypatch):
         PA.flash_prefill_attend(q, k, v, base, layer=LAYER, **kw)
 
 
+# -- K1's and B12-bf16's host side: the split plan and one C call a launch ----
+
+
+@pytest.mark.parametrize("Hkv", [8, 2])
+@pytest.mark.parametrize("S", [16, 100, 640, 8192, 8704])
+@pytest.mark.parametrize("Bc", [1, 2, 16, 32])
+def test_split_plan_covers_each_position_once(Bc, S, Hkv):
+    """K1's plan (a block a kv head): whole 64-position rounds a split, the
+    splits cover [0, S) exactly once (none empty), at most PLAN_BLOCKS
+    blocks unless a request's kv heads alone exceed it, and the same plan,
+    from (B, Hkv, S) alone, whatever the window length."""
+    nsplit, chunk = DA.split_plan(Bc, Hkv, S)
+    assert chunk % DA.PLAN_ROUND == 0 and nsplit >= 1
+    assert (nsplit - 1) * chunk < S <= nsplit * chunk
+    assert nsplit == 1 or Bc * Hkv * nsplit <= DA.PLAN_BLOCKS
+    plans = set()
+    for T in (1, 4, 9, 16):
+        q = torch.zeros(Bc, T, 4 * Hkv, HD, dtype=torch.bfloat16)
+        n, c, part_o, part_ml = DA.split_buffers(q, Hkv, S)
+        plans.add((n, c))
+        R = DA.rows_pad(4 * T)
+        assert R >= 4 * T and R % 16 == 0
+        assert (part_o is None) == (n == 1) == (part_ml is None)
+        if n > 1:
+            assert part_o.shape == (Bc, Hkv, n, R, HD) and part_ml.shape == (Bc, Hkv, n, R, 2)
+    assert plans == {(nsplit, chunk)}
+
+
+def test_split_plan_at_the_main_path():
+    """The plans of the main path's shapes: the target cache (B=32, S=8704)
+    and the draft's 640-row cache whole (256 blocks: one launch, no
+    combine), the served pool (16 slots of 8192 rows) in three splits, and a
+    small batch split further."""
+    assert DA.split_plan(32, 8, 8704) == (1, 8704)
+    assert DA.split_plan(32, 8, 640) == (1, 640)
+    assert DA.split_plan(16, 8, 8192) == (3, 2752)
+    assert DA.split_plan(2, 8, 8704) == (23, 384)
+
+
+class _FakeDecodeLibrary:
+    """Records the arguments of the bf16 decode entry points (returns
+    success)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        if not name.startswith("md_"):
+            raise AttributeError(name)
+        return lambda *args: self.calls.append((name, args)) or 0
+
+
+@pytest.mark.parametrize("T", [1, 4, 9])
+@pytest.mark.parametrize("fresh", [True, False], ids=["fresh", "cached"])
+def test_decode_launch_once_against_a_fake_library(fresh, T, monkeypatch):
+    """K1's host side: one C call a wrapper call with the C signature kept
+    (q, k, v, k_new, v_new, base_lens, out, part_o, part_ml, layer, B, S, T,
+    Hq, Hkv, hd, nsplit, chunk, stream), split_plan's plan and partials of
+    rows_pad(G*T) rows (null with one split), one launch counted; a failed
+    launch raises."""
+    from magicdec_tpu_torch.kernels import build
+
+    lib = _FakeDecodeLibrary()
+    monkeypatch.setattr(build, "library", lambda: lib)
+    monkeypatch.setattr(build, "stream_ptr", lambda t: 7)
+    monkeypatch.setattr(DA, "on_cpu", lambda *a: False)
+    Hkv, G = 8, 4
+    bf = torch.bfloat16
+    for Bc, S in ((2, 8704), (32, 640)):
+        q = torch.zeros(Bc, T, Hkv * G, HD, dtype=bf)
+        k, v = (torch.zeros(L, Bc, S, Hkv * HD, dtype=bf) for _ in range(2))
+        kw = {}
+        if fresh:
+            kw = {n: torch.zeros(Bc, T, Hkv * HD, dtype=bf) for n in ("k_new", "v_new")}
+        base = torch.tensor([0] * (Bc - 1) + [S - T], dtype=torch.int64)
+        before = DA.flash_decode_attend.launches
+        lib.calls.clear()
+        out = DA.flash_decode_attend(q, k, v, base, layer=LAYER, **kw)
+        assert out.shape == q.shape and out.dtype == bf
+        assert DA.flash_decode_attend.launches == before + 1
+        ((name, args),) = lib.calls
+        assert name == "md_decode_attend" and len(args) == 19
+        assert len(build.SIGNATURES[name]) == 19
+        assert args[:3] == (q.data_ptr(), k.data_ptr(), v.data_ptr())
+        assert (args[3] is None) == (args[4] is None) == (not fresh)
+        assert args[6] == out.data_ptr()
+        nsplit, chunk = DA.split_plan(Bc, Hkv, S)
+        assert (args[7] is None) == (args[8] is None) == (nsplit == 1)
+        assert args[9:] == (LAYER, Bc, S, T, Hkv * G, Hkv, HD, nsplit, chunk, 7)
+    with pytest.raises(ValueError, match="window length"):  # G*T > 128 rows
+        DA.flash_decode_attend(torch.zeros(Bc, 9, 16 * Hkv, HD, dtype=bf), k, v, base)
+    lib.md_decode_attend = lambda *a: 1
+    with pytest.raises(RuntimeError, match="md_decode_attend"):
+        DA.flash_decode_attend(q, k, v, base, layer=LAYER, **kw)
+
+
+@pytest.mark.parametrize("ps", [16, 40, 512])
+def test_paged_decode_launch_once_against_a_fake_library(ps, monkeypatch):
+    """B12-bf16's host side: one C call with the C signature kept (q, the
+    pools, table, k_new, v_new, base_lens, out, part_o, part_ml, layer, B,
+    P, ps, npr, T, Hq, Hkv, hd, nsplit, chunk, stream), and the plan of
+    K1's launch over a cache of S = npr * ps rows: the same (nsplit,
+    chunk) reach both entry points, so the paged launch reads the contiguous
+    one's positions in the same splits and tiles."""
+    from magicdec_tpu_torch.kernels import build
+    from magicdec_tpu_torch.kernels import paged_attention as PGA
+
+    lib = _FakeDecodeLibrary()
+    monkeypatch.setattr(build, "library", lambda: lib)
+    monkeypatch.setattr(build, "stream_ptr", lambda t: 7)
+    monkeypatch.setattr(PGA, "on_cpu", lambda *a: False)
+    monkeypatch.setattr(DA, "on_cpu", lambda *a: False)
+    Bc, Hkv, G, T, npr = 3, 8, 4, 4, 8192 // ps
+    S = npr * ps
+    P = Bc * npr + 2
+    bf = torch.bfloat16
+    q = torch.zeros(Bc, T, Hkv * G, HD, dtype=bf)
+    pk, pv = (torch.zeros(L, P, ps, Hkv * HD, dtype=bf) for _ in range(2))
+    table = torch.arange(Bc * npr, dtype=torch.int32).reshape(Bc, npr)
+    fresh = {n: torch.zeros(Bc, T, Hkv * HD, dtype=bf) for n in ("k_new", "v_new")}
+    base = torch.tensor([0, 5, S - T])
+    before = PGA.flash_paged_decode_attend.launches
+    out = PGA.flash_paged_decode_attend(q, pk, pv, table, base, layer=1, **fresh)
+    assert out.shape == q.shape and PGA.flash_paged_decode_attend.launches == before + 1
+    k, v = (torch.zeros(L, Bc, S, Hkv * HD, dtype=bf) for _ in range(2))
+    DA.flash_decode_attend(q, k, v, base, layer=1, **fresh)
+    (name, args), (cname, cargs) = lib.calls
+    assert name == "md_paged_decode_attend" and len(args) == 22
+    assert len(build.SIGNATURES[name]) == 22 and cname == "md_decode_attend"
+    assert args[:4] == (q.data_ptr(), pk.data_ptr(), pv.data_ptr(), table.data_ptr())
+    assert args[10:] == (1, Bc, P, ps, npr, T, Hkv * G, Hkv, HD) + cargs[-3:]
+    assert cargs[-3:-1] == DA.split_plan(Bc, Hkv, S) and cargs[11] == S
+
+
 @pytest.mark.parametrize("T", [1, 4, 13])
 def test_append_plain_matches_pallas_bitwise(T):
     import jax.numpy as jnp
@@ -189,9 +323,13 @@ def _gpu_not_close(wrong, ref):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("S", [256, 8704])
-@pytest.mark.parametrize("T", [1, 2, 4])
+@pytest.mark.parametrize("S", [256, 640, 8704])
+@pytest.mark.parametrize("T", [1, 2, 4, 9, 16])
 def test_decode_kernel_matches_plain_on_card(cuda, T, S):
+    """K1 within bf16_limit of its plain version, with and without the
+    fresh rows (without them it must fail), at the draft's whole cache (S =
+    640, one split) and the target's, and at windows of one to three row
+    tiles a warp (T = 9: 36 rows) and of two row blocks (T = 16: 64 rows)."""
     gen = torch.Generator(device=cuda).manual_seed(T)
     Bc, Hkv, G = 3, 8, 4
     k = _rand(gen, L, Bc, S, Hkv * HD, device=cuda)
@@ -204,6 +342,85 @@ def test_decode_kernel_matches_plain_on_card(cuda, T, S):
         ref = DA.flash_decode_attend_plain(q, k, v, base, layer=LAYER, **kw)
         _gpu_close(out, ref)
     _gpu_not_close(DA.flash_decode_attend(q, k, v, base, layer=LAYER), ref)
+
+
+def _decode_operands(cuda, S, T, base, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    Bc, Hkv, G = len(base), 8, 4
+    k = _rand(gen, L, Bc, S, Hkv * HD, device=cuda)
+    v = _rand(gen, L, Bc, S, Hkv * HD, device=cuda)
+    q = _rand(gen, Bc, T, Hkv * G, HD, device=cuda)
+    fresh = {n: _rand(gen, Bc, T, Hkv * HD, device=cuda) for n in ("k_new", "v_new")}
+    return q, k, v, fresh, torch.tensor(base, dtype=torch.int32, device=cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [640, 8704])
+def test_decode_kernel_poisoned_cache_on_card(cuda, S):
+    """K1 over a cache holding inf and NaN past every request's visible end
+    (base with the fresh rows, base + T without), at bases that start a
+    tile, straddle one and end the cache: the kernel never reads those rows
+    (the TMA boxes stop below base, the edge tiles land zeros), so its
+    output is the clean cache's bit for bit, and within bf16_limit."""
+    T = 4
+    q, k, v, fresh, base = _decode_operands(cuda, S, T, [0, 37, 300, S // 2 + 5, S - T], 50 + S)
+    for kw, end in ((fresh, 0), ({}, T)):
+        out = DA.flash_decode_attend(q, _poisoned(k, base, lambda n: n + end),
+                                     _poisoned(v, base, lambda n: n + end), base, layer=LAYER,
+                                     **kw)
+        assert torch.isfinite(out).all()
+        assert torch.equal(out, DA.flash_decode_attend(q, k, v, base, layer=LAYER, **kw))
+        _gpu_close(out, DA.flash_decode_attend_plain(q, k, v, base, layer=LAYER, **kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [640, 8704])
+def test_decode_kernel_deterministic_and_graph_replay_on_card(cuda, S):
+    """Two launches bit-equal, and a CUDA graph's replay bit-equal to the
+    eager launch (the tensor maps are encoded at capture, the split
+    partials and their combine included)."""
+    q, k, v, fresh, base = _decode_operands(cuda, S, 4, [0, S // 3, S - 4], 60)
+
+    def run():
+        return DA.flash_decode_attend(q, k, v, base, layer=LAYER, **fresh)
+    first = run()
+    for _ in range(3):
+        assert torch.equal(run(), first)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        run()  # warm the stream outside the capture
+    torch.cuda.current_stream().wait_stream(stream)
+    with torch.cuda.graph(graph):
+        captured = run()
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, first)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [4, 9, 16])
+@pytest.mark.parametrize("S", [640, 8704])
+def test_decode_window_equals_step_on_card(cuda, S, T):
+    """K1: a window's token t has the bits of the T = 1 step at base + t
+    over a cache holding the window's rows before t (the split plan, warps
+    and tiles depend on the static shapes only, and a row's arithmetic on
+    neither the row tiles a warp holds nor the rows beside it), at bases 0,
+    S // 3 and S - T."""
+    q, k, v, fresh, base = _decode_operands(cuda, S, T, [0, S // 3, S - T], 70 + T)
+    window = DA.flash_decode_attend(q, k, v, base, layer=LAYER, **fresh)
+    for t in range(T):
+        kc, vc = k.clone(), v.clone()
+        for b, n in enumerate(base.tolist()):
+            kc[LAYER, b, n:n + t] = fresh["k_new"][b, :t]
+            vc[LAYER, b, n:n + t] = fresh["v_new"][b, :t]
+        step = DA.flash_decode_attend(q[:, t:t + 1], kc, vc, base + t, layer=LAYER,
+                                      k_new=fresh["k_new"][:, t:t + 1],
+                                      v_new=fresh["v_new"][:, t:t + 1])
+        assert torch.equal(window[:, t:t + 1], step), f"token {t}"
 
 
 @pytest.mark.gpu

@@ -210,11 +210,11 @@ def test_quant_split_plan_covers_each_position_once(Bc, S, Hkv):
     once (none empty), a wave's worth of blocks at most, and the same plan
     whatever the window length."""
     nsplit, chunk = DA.quant_split_plan(Bc, Hkv, S)
-    assert chunk % DA.QUANT_ROUND == 0 and nsplit >= 1
+    assert chunk % DA.PLAN_ROUND == 0 and nsplit >= 1
     assert (nsplit - 1) * chunk < S <= nsplit * chunk
     assert DA.quant_heads(Hkv) == {8: 2, 6: 2, 3: 1}[Hkv]
     blocks = Bc * Hkv // DA.quant_heads(Hkv)
-    assert nsplit == 1 or blocks * nsplit <= DA.QUANT_BLOCKS
+    assert nsplit == 1 or blocks * nsplit <= DA.PLAN_BLOCKS
     plans = set()
     for T in (1, 4, 16):
         q = torch.zeros(Bc, T, 4 * Hkv, HD, dtype=torch.bfloat16)

@@ -409,12 +409,14 @@ def _card_pools(gen, L, P, ps, Hkv, bits, device):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("ps", [16, 64, 512])
+@pytest.mark.parametrize("ps", [16, 40, 64, 512])
 @pytest.mark.parametrize("bits", [0, 8, 4])
 def test_paged_decode_kernel_on_card(cuda, bits, ps):
     """Against the plain version within bf16_limit (without the fresh rows
     it must fail), and bit-equal to the contiguous kernel over the gathered
-    pool, with and without fresh rows."""
+    pool, with and without fresh rows; pages of a multiple of 16 rows
+    (whole tiles, a bf16 tile by TMA from its page) and of 40 (tiles across
+    pages, each 16-byte chunk through its page)."""
     gen = torch.Generator(device=cuda).manual_seed(bits + ps)
     L, B, Hkv, G, T, layer = 2, 3, 8, 4, 4, 1
     npr = 1024 // ps

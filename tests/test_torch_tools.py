@@ -173,24 +173,28 @@ def test_kernel_benchmark_decode_and_paged_run_on_cpu(which, capsys, monkeypatch
 
 
 def test_decode_variants_apply_to_the_sources():
-    """The K1q/B10 variants decode_variants times still apply to the
-    source: ``current`` is the source, ``trace`` adds its six stamps and
-    the readers, the isolation variants drop the arithmetic or the copies,
-    ``blocks4`` raises the launch bound; ``parent_trace`` patches the PR 10
-    core, which this tree no longer has."""
+    """The decode kernel's variants decode_variants times still apply to
+    the source: ``current`` is the source, ``trace`` adds its six stamps to
+    the quantized body and to the bf16 body and the readers, the isolation
+    variants drop the arithmetic (both bodies) or the copies (the quantized
+    body, the only formats it runs), ``blocks4`` raises the quantized launch
+    bound; ``parent_trace`` patches the one-warp core, which this tree no
+    longer has."""
     from magicdec_tpu_torch import decode_variants as DV
 
     assert DV.patched("current") == {}
     (text,) = DV.patched("trace").values()
-    assert text.count("MD_TRACE(") == 7  # the macro and six stamps
-    assert 'extern "C" int md_trace_read_int8' in text
+    assert text.count("MD_TRACE(") == 13  # the macro and six stamps a body
+    for fmt in ("int8", "int4", "bf16"):
+        assert f'extern "C" int md_trace_read_{fmt}' in text
     assert len(DV.PHASES["trace"]) == 6
     (alone,) = DV.patched("copies_alone").values()
-    assert "if (false) {" in alone
+    assert alone.count("if (false) {") == 2
+    assert DV.FORMATS["compute_alone"] == ("int8", "int4")
     (alone,) = DV.patched("compute_alone").values()
     assert "issue(st" not in alone and "issue((it" not in alone
     (blocks,) = DV.patched("blocks4").values()
-    assert "HEADS == 1 ? 4 : 4" in blocks and DV.PLANS["blocks4"]["QUANT_BLOCKS"] == 132 * 4
+    assert "HEADS == 1 ? 4 : 4" in blocks and DV.PLANS["blocks4"]["PLAN_BLOCKS"] == 132 * 4
     with pytest.raises((ValueError, FileNotFoundError)):
         DV.patched("parent_trace")
 
