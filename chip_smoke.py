@@ -8,7 +8,8 @@ of which raises on failure:
 1. the card's name and power limit (``nvidia-smi``);
 2. build of every kernel from ``magicdec_tpu_torch/csrc`` (timed), with
    ptxas's registers, shared memory and spills of the Hopper kernels of B4/B6,
-   B4-int4/B6-int4, B5/B9 (both cores), B15, K2/K2q/B11 and the decode
+   B4-int4/B6-int4, B5/B9 (both cores) and B15's dense_mlp (their bf16
+   instance), B15's dense_matmul_fused, K2/K2q/B11 and the decode
    kernel's instances (K1 and B12-bf16 with one to three row tiles a warp,
    K1q, B10, B12's int8/int4 pools; the template arguments are the format
    (0 int8, 1 int4, 2 bf16), the kv heads a block, the row tiles a warp and
@@ -70,11 +71,13 @@ of which raises on failure:
    scale columns) at T = 4, 1 and 512 with a window running past the cache's
    end, bit for bit (library: ``index_copy_`` of the kept rows); and B15,
    the target's bf16 dots (``dense_matmul_fused`` as wqkv + norm, wo +
-   residual, w13 + norm and w2 + residual at M = 128, 16 and 8, under
-   torch.profiler one kernel launch a call; ``dense_mlp`` at M = 128 and
-   16), within bf16_limit, with wrong
+   residual, w13 + norm and w2 + residual at M = 128, 16 and 8; ``dense_mlp``
+   on ``ffn_sm90.cu``'s bf16 instance at M = 128 and 16 and at the 8B
+   widths, M = 128; each under torch.profiler one kernel launch a call),
+   within bf16_limit, with wrong
    references (without the norm, without the residual, the w13 halves
-   swapped) that must fail it (library: ``torch.matmul`` on the weight);
+   swapped) that must fail it (library: ``torch.matmul`` on the weight;
+   for ``dense_mlp`` the main path's FFN with the dense kernels off);
 4. main paths: ``magicdec_tpu_torch.bench.main`` (1) with ``--iters 1``
    (its defaults otherwise: int8 target cache, int8 draft weight copy), (2) with ``--kv_quant none
    --draft_quant none --iters 1`` (all bf16, one measured repeat instead of
@@ -590,12 +593,17 @@ def dense_kernel_cases(torch, gen, record):
     w2 [8192, 2048]) and the target pass's row counts, M = decode_rows = 128
     (B=32, gamma 3), 16 and 8 (B=4 and 2): dense_matmul_fused as wqkv +
     norm, wo + residual, w13 + norm and w2 + residual, and dense_mlp (the
-    FFN block with its residual) at M = 128 and 16, each timed over 16
-    layers' weights in turn, within bf16_limit of the plain version; wrong
-    references that must fail it: without the norm, without the residual,
-    with the w13 halves swapped.  Bound: the weight's bytes (with the rows
-    in and out); library_ms: torch.matmul on the same weight (none for
-    dense_mlp, two dots)."""
+    FFN block with its residual, on ffn_sm90.cu's bf16 instance) at M = 128
+    and 16 and at the llama-3.1-8b widths (D 4096, F 14336, M = 128, four
+    layers), each timed over the layers' weights in turn and under
+    torch.profiler one kernel launch a call, within bf16_limit of the plain
+    version; wrong references that must fail it: without the norm, without
+    the residual, with the w13 halves swapped.  Bound: the weight's bytes
+    (with the rows in and out); library_ms: torch.matmul on the same weight,
+    for dense_mlp the main path's own FFN with the dense kernels off
+    (kernel_benchmark.cublas_ffn: rms_norm, the w13 dot, SiLU * up, the w2
+    dot, the residual)."""
+    from magicdec_tpu_torch.kernel_benchmark import cublas_ffn
     from magicdec_tpu_torch.kernels import dense_matmul as DK
 
     dev = torch.device("cuda")
@@ -611,7 +619,10 @@ def dense_kernel_cases(torch, gen, record):
                "w2": randn(L, F, D, scale=0.25 * F ** -0.5)}
     norm_w = (torch.rand((D,), generator=gen, device=dev) + 0.5).to(bf)
 
-    def case(name, label, fn, plain, wrongs, args_of, keys, lib=None, M=128):
+    def case(name, label, fn, plain, wrongs, args_of, keys, lib=None, M=128, library=None,
+             ws=weights, nl=L):
+        """``lib``: the lhs of torch.matmul on the case's weight; ``library``:
+        a callable on the case's arguments (dense_mlp's composition)."""
         args = args_of(0)
         out, ref = fn(*args), plain(*args)
         torch.cuda.synchronize()
@@ -623,20 +634,24 @@ def dense_kernel_cases(torch, gen, record):
                   flush=True)
             if not w_bad:
                 raise AssertionError(f"{name} {label}: bf16_limit passes {what}")
-        layers = itertools.cycle(range(L))
+        layers = itertools.cycle(range(nl))
         ms = _cuda_ms(lambda: fn(*args_of(next(layers))))
         plain_ms = _cuda_ms(lambda: plain(*args), iters=3, warmup=1)
         library_ms, lib_calls = None, None
         if lib is not None:
-            ws = itertools.cycle([weights[keys[0]][l] for l in range(L)])
-            library_ms = _cuda_ms(lambda: torch.matmul(lib, next(ws)))
-            lib_calls = [lambda w=weights[keys[0]][l]: torch.matmul(lib, w) for l in range(L)]
+            lw = itertools.cycle([ws[keys[0]][l] for l in range(nl)])
+            library_ms = _cuda_ms(lambda: torch.matmul(lib, next(lw)))
+            lib_calls = [lambda w=ws[keys[0]][l]: torch.matmul(lib, w) for l in range(nl)]
+        if library is not None:
+            layers = itertools.cycle(range(nl))
+            library_ms = _cuda_ms(lambda: library(*args_of(next(layers))))
+            lib_calls = [lambda l=l: library(*args_of(l)) for l in range(nl)]
         # every operand read once (one layer's weights, rows, norm) and the
         # output written once
         moved = float(sum(a.numel() * a.element_size() for a in args)
                       + out.numel() * out.element_size())
-        flops = 2.0 * M * sum(weights[k][0].numel() for k in keys)
-        calls = [lambda l=l: fn(*args_of(l)) for l in range(L)]
+        flops = 2.0 * M * sum(ws[k][0].numel() for k in keys)
+        calls = [lambda l=l: fn(*args_of(l)) for l in range(nl)]
         extra = (_one_launch(torch, name, label, calls, ONE_LAUNCH[name]) if name in ONE_LAUNCH
                  else None)
         record(name, label, err, tol, ms, plain_ms, moved, flops, library_ms, calls, lib_calls,
@@ -668,19 +683,38 @@ def dense_kernel_cases(torch, gen, record):
              lambda l: (g, w("w2", l), res), ["w2"], lib=g, M=M)
 
     def halves_swapped(w13):
-        return torch.cat([w13[:, F:], w13[:, :F]], dim=1).contiguous()
+        Fw = w13.shape[1] // 2
+        return torch.cat([w13[:, Fw:], w13[:, :Fw]], dim=1).contiguous()
+
+    mlp_wrongs = {
+        "with the w13 halves swapped": lambda x, w13, w2, n, r: DK.dense_mlp_plain(
+            x, halves_swapped(w13), w2, n, r, eps=1e-5),
+        "without the residual": lambda x, w13, w2, n, r: DK.dense_mlp_plain(
+            x, w13, w2, n, eps=1e-5)}
+
+    def mlp(x, w13, w2, n, r):
+        return DK.dense_mlp(x, w13, w2, n, r, eps=1e-5)
+
+    def mlp_plain(x, w13, w2, n, r):
+        return DK.dense_mlp_plain(x, w13, w2, n, r, eps=1e-5)
 
     for M in (128, 16):
         x, res = randn(M, D), randn(M, D)
-        case("dense_mlp", f"FFN + residual M={M}",
-             lambda x, w13, w2, n, r: DK.dense_mlp(x, w13, w2, n, r, eps=1e-5),
-             lambda x, w13, w2, n, r: DK.dense_mlp_plain(x, w13, w2, n, r, eps=1e-5),
-             {"with the w13 halves swapped": lambda x, w13, w2, n, r: DK.dense_mlp_plain(
-                 x, halves_swapped(w13), w2, n, r, eps=1e-5),
-              "without the residual": lambda x, w13, w2, n, r: DK.dense_mlp_plain(
-                  x, w13, w2, n, eps=1e-5)},
-             lambda l: (x, w("w13", l), w("w2", l), norm_w, res), ["w13", "w2"], M=M)
+        case("dense_mlp", f"FFN + residual M={M}", mlp, mlp_plain, mlp_wrongs,
+             lambda l: (x, w("w13", l), w("w2", l), norm_w, res), ["w13", "w2"], M=M,
+             library=cublas_ffn)
     del weights
+    torch.cuda.empty_cache()
+    # the llama-3.1-8b widths the dense routing takes (up to 146 rows)
+    D8, F8, L8 = 4096, 14336, 4
+    w8 = {"w13": randn(L8, D8, 2 * F8, scale=D8 ** -0.5),
+          "w2": randn(L8, F8, D8, scale=0.25 * F8 ** -0.5)}
+    n8 = (torch.rand((D8,), generator=gen, device=dev) + 0.5).to(bf)
+    x, res = randn(128, D8), randn(128, D8)
+    case("dense_mlp", "FFN + residual 8B widths M=128", mlp, mlp_plain, mlp_wrongs,
+         lambda l: (x, w8["w13"][l], w8["w2"][l], n8, res), ["w13", "w2"], M=128,
+         library=cublas_ffn, ws=w8, nl=L8)
+    del w8
     torch.cuda.empty_cache()
 
 
@@ -1481,11 +1515,12 @@ def _device_ms(event):
     return (t if t is not None else event.self_cuda_time_total) / 1e3
 
 
-def _profiled(torch, calls, attempts=3, want=1):
+def _profiled(torch, calls, attempts=8, want=1):
     """(kernel launches a call, device ms a call, kernel names) of ``calls``
     under torch.profiler, after one unprofiled pass.  The profiler now and
     then loses a run's events on the card (fewer kernels than the ``want``
-    a call, never more): such a run is profiled again, at most
+    a call, never more; once three runs in a row, for 16 draft-attention
+    calls of 18 us each): such a run is profiled again, at most
     ``attempts`` times."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -1514,7 +1549,8 @@ ONE_LAUNCH = {"quant_matmul_fused": "qmm_sm90_kernel<false",
               "quant_mlp": "ffn_wg_sm90_kernel",          # B9 at 256 rows: the wgmma core
               "quant_matmul_fused_int4": "qmm_sm90_kernel<true",
               "quant_matmul_int4": "qmm4_sm90_kernel",
-              "dense_matmul_fused": "dmm_sm90_kernel"}
+              "dense_matmul_fused": "dmm_sm90_kernel",
+              "dense_mlp": "ffn_bf16_sm90_kernel"}      # B15's FFN: the bf16 instance
 
 
 def _one_launch(torch, name, label, calls, kernel=""):
@@ -1753,12 +1789,14 @@ def main():
     lib = build.build(verbose=True)
     print(f"[build] {lib.name} in {time.perf_counter() - t_start:.1f}s", flush=True)
     # registers, shared memory and spills of the Hopper kernels (B4/B6 and
-    # B4-int4, B6-int4, B5/B9, B15's dense_matmul_fused, K2/K2q/B11, and the
+    # B4-int4, B6-int4, B5/B9 and B15's dense_mlp (their bf16 instance),
+    # B15's dense_matmul_fused, K2/K2q/B11, and the
     # decode kernel of K1, K1q, B10 and B12), each instantiation
     for source, kernel in (("quant_matmul_sm90", "qmm_sm90_kernel"),
                            ("quant_matmul_sm90", "qmm4_sm90_kernel"),
                            ("ffn_sm90", "ffn_sm90_kernel"),
                            ("ffn_sm90", "ffn_wg_sm90_kernel"),
+                           ("ffn_sm90", "ffn_bf16_sm90_kernel"),
                            ("dense_matmul_sm90", "dmm_sm90_kernel"),
                            ("prefill_attention_sm90", "prefill_sm90_kernel"),
                            ("decode_attention_sm90", "decode_sm90_kernel")):
@@ -1921,7 +1959,7 @@ def main():
                                       "magicdec_tpu/ops/kv_cache.py:499"),
         "dense_matmul_fused": ("magicdec_tpu_torch/csrc/dense_matmul_sm90.cu",
                                "magicdec_tpu/ops/pallas/quant_matmul.py:507"),
-        "dense_mlp": ("magicdec_tpu_torch/csrc/dense_matmul.cu",
+        "dense_mlp": ("magicdec_tpu_torch/csrc/ffn_sm90.cu",
                       "magicdec_tpu/ops/pallas/quant_matmul.py:605"),
     }
     kernels = []

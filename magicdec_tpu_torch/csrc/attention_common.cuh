@@ -3,8 +3,8 @@
 // ldmatrix / cp.async, the exact int4 conversion, and the pass that merges
 // split partials (combine_kernel).  The decode kernels K1, K1q, B10 and
 // B12's paged twins run on decode_attention_sm90.cu, the prefill kernels
-// K2, K2q and B11 on prefill_attention_sm90.cu; dense_matmul.cu takes the
-// mma and copy helpers.
+// K2, K2q and B11 on prefill_attention_sm90.cu; the sm90 dots take the mma
+// helpers.
 //
 // Contracts the attention kernels keep:
 //

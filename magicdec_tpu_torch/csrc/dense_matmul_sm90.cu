@@ -6,7 +6,7 @@
 // (_dense_fused_kernel): y = [res +] bf16(norm?(x)[M, In] @ w[In, Out]) with
 // bf16 x and w, f32 sums, the norm bf16(bf16(x * rsqrt(mean(x^2) + eps)) *
 // norm_w), the residual added in bf16.  (dense_mlp, the whole FFN block,
-// stays on dense_matmul.cu.)
+// is a bf16 instance of ffn_sm90.cu's persistent kernel.)
 //
 // Bound: the weight's HBM bytes at the decode and verify rows.  A bf16
 // weight byte feeds M flops: at M = 128 (decode_rows at B = 32, gamma = 3)
@@ -24,8 +24,8 @@
 // - Weight by TMA: bf16 boxes of 64 columns x 64 contraction rows (8 KB,
 //   128-byte swizzle) and the x tile [R rows, 64] (128-byte swizzle; rows
 //   past M arrive as zeros) on an mbarrier ring fed by one producer lane.
-//   The weight's tensor map is encoded once per (pointer, shape) and cached,
-//   x's per call; a failed encode returns an error (the wrapper raises).
+//   The weight's tensor map (sm90_common.cuh bf16_weight_map) is encoded
+//   once per (pointer, shape) and cached, x's per call; a failed encode returns an error (the wrapper raises).
 // - Products on wgmma m64n64k16, one per box and k16 step: x the K-major A
 //   operand from the stage, the weight the MN-major B operand straight from
 //   its TMA box (no conversion, no producer arithmetic).  A consumer
@@ -373,14 +373,6 @@ __global__ void __launch_bounds__(DCfg<NWG, NBOX>::NTHREADS, 1)
 
 // ---- host side ----------------------------------------------------------------
 
-// The weight's map, encoded once per (pointer, shape).
-static CUresult weight_map(CUtensorMap* map, const void* w, int In, int Out) {
-  return cached_map(map, std::make_tuple(w, In, Out), [&](CUtensorMap* m) {
-    return encode_2d(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, w, 2, Out, In, BOX, BKD,
-                     CU_TENSOR_MAP_SWIZZLE_128B);
-  });
-}
-
 template <int NWG, int NBOX>
 static cudaError_t launch(DArgs& a, int split, cudaStream_t st) {
   using C = DCfg<NWG, NBOX>;
@@ -435,7 +427,7 @@ extern "C" int md_dense_matmul_sm90(const void* x, const void* w, const void* no
   const int per = (tiles + split - 1) / split;
   if ((tiles + per - 1) / per != split) return (int)cudaErrorInvalidValue;  // an empty split
   DArgs a;
-  const CUresult enc = weight_map(&a.wmap, w, In, Out);
+  const CUresult enc = bf16_weight_map(&a.wmap, w, In, Out);  // box {BOX, BKD}
   if (enc != CUDA_SUCCESS) return kEncodeError + (int)enc;
   a.x = static_cast<const __nv_bfloat16*>(x);
   a.norm_w = static_cast<const __nv_bfloat16*>(norm_w);

@@ -17,6 +17,7 @@
 
 #include <map>
 #include <mutex>
+#include <tuple>
 
 #include "attention_common.cuh"  // pack_bf16x2
 
@@ -388,6 +389,17 @@ inline CUresult cached_map(CUtensorMap* map, const Key& key, Encode encode) {
     cache.emplace(key, *map);
   }
   return res;
+}
+
+// A bf16 weight's map over its row-major [rows, cols] elements: boxes of 64
+// columns (128 bytes a row) by 64 rows, 8 KB, under the 128-byte swizzle;
+// encoded once per (pointer, shape).  B15's dense_matmul_fused and
+// dense_mlp stream their weights in these boxes.
+inline CUresult bf16_weight_map(CUtensorMap* map, const void* w, int rows, int cols) {
+  return cached_map(map, std::make_tuple(w, rows, cols), [&](CUtensorMap* m) {
+    return encode_2d(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, w, 2, cols, rows, 64, 64,
+                     CU_TENSOR_MAP_SWIZZLE_128B);
+  });
 }
 
 }  // namespace sm90

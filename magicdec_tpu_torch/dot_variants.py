@@ -1,7 +1,7 @@
 """Variants of B15's ``dense_matmul_fused`` (``csrc/dense_matmul_sm90.cu``),
-of B4-int4 and of B6-int4 (``csrc/quant_matmul_sm90.cu``) and of B5 and B9
-(``csrc/ffn_sm90.cu``) timed against each other on the card, in one
-process.
+of B4-int4 and of B6-int4 (``csrc/quant_matmul_sm90.cu``) and of B5, B9
+and B15's ``dense_mlp`` (``csrc/ffn_sm90.cu``) timed against each other on
+the card, in one process.
 
     python -m magicdec_tpu_torch.dot_variants [--variants a,b,...] [--plans]
 
@@ -14,8 +14,9 @@ residual, w13 + norm, w2 + residual; M = 128 and 16) or
 ``quant_matmul_fused_int4`` at the draft's (wqkv, wo + residual, w13 +
 gate, w2 + residual; group 128, M = 32 and 64), over 16 layers' weights in
 turn, or ``quant_matmul_int4`` on the int4 lm_head [2048, 128256] (M = 32
-and 64), or B5 (``quant_layer_tail``, M = 32 and 64) and B9 (``quant_mlp``
-with its residual, M = 256) at llama-3.2-1b widths over 16 layers, device
+and 64), or B5 (``quant_layer_tail``, M = 32 and 64), B9 (``quant_mlp``
+with its residual, M = 256) and ``dense_mlp`` (with its residual, M = 128
+and 16) at llama-3.2-1b widths over 16 layers, device
 ms a call by ``kernel_benchmark.graph_ms``.  For each variant
 the script prints ptxas's registers and spills and, for the dense kernel,
 the ``HGMMA`` instructions against the ``WARPGROUP.DEPBAR`` waits in
@@ -23,11 +24,15 @@ the ``HGMMA`` instructions against the ``WARPGROUP.DEPBAR`` waits in
 ``trace`` and ``int4_trace`` stamp ``%globaltimer`` at the phases of each
 block's first item; the script prints, per case, the median and largest
 microseconds of each phase over the blocks.  ``--ffn_plans`` times B5 and
-B9 with each w13 split forced (the other dots keep the plan's).
+B9 with each w13 split forced (the other dots keep the plan's), and
+``dense_mlp`` at every (w13, w2) split pair.
 ``ffn_trace`` stamps each
 block's entry, each dot's first landed stage, the norm's end and each
 dot's end (its arrival at the grid barrier); the script prints each
-stamp's median and latest microseconds after the first block's entry.  ``--plans`` also times the current dense kernel
+stamp's median and latest microseconds after the first block's entry.
+``ffn_bf16_wgmma`` runs ``dense_mlp`` at M <= 16 and 65..128 on the other
+product core, ``wgmma``'s transposed product from shared memory.
+``--plans`` also times the current dense kernel
 over (split, boxes) plans of each shape (``dense_plan`` swapped).  The last
 line is a JSON object of the device milliseconds.  Needs the card and
 ``nvcc``.
@@ -91,8 +96,9 @@ _FFN_DONE = "p == 0 ? 2 : 2 * p + 3"
 _FFN_TRACE = [("namespace md {\nnamespace ffn90 {\n",
                "__device__ unsigned g_smid[2048];\n\nnamespace md {\nnamespace ffn90 {\n")] + \
     _trace_patches("ffn90", "md_ffn_sm90_resident")[:1] + [
-    ("  const uint32_t rank = cluster_rank();\n\n  if (warp == NCW) {\n",
-     "  const uint32_t rank = cluster_rank();\n"
+    ("  const uint32_t rank = C::CLUSTERED ? cluster_rank() : blockIdx.x % CLUSTER;\n\n"
+     "  if (warp == NCW) {\n",
+     "  const uint32_t rank = C::CLUSTERED ? cluster_rank() : blockIdx.x % CLUSTER;\n"
      "  unsigned long long* tr = g_trace[blockIdx.x % 2048];\n"
      "  const bool stamp = threadIdx.x == 0;\n" + _ffn_stamp("0", "  ") +
      "  if (stamp) { unsigned sm; asm volatile(\"mov.u32 %0, %%smid;\" : \"=r\"(sm)); "
@@ -101,13 +107,13 @@ _FFN_TRACE = [("namespace md {\nnamespace ffn90 {\n",
     ("        mbar_wait(bars + 8 * s, par);  // the stage's boxes have landed\n",
      "        mbar_wait(bars + 8 * s, par);  // the stage's boxes have landed\n"
      + _ffn_stamp(_FFN_FIRST, "        ", "stamp && first_item && i == 0")),
-    ("    if (p == 1) norm_rows<C>(a, g0, rr);\n    // the fragment groups",
-     "    if (p == 1) norm_rows<C>(a, g0, rr);\n" + _ffn_stamp("3", "    ", "stamp && p == 1")
+    ("    if (p == 1) norm_rows<C>(a, g0, rr, sl);\n    // the fragment groups",
+     "    if (p == 1) norm_rows<C>(a, g0, rr, sl);\n" + _ffn_stamp("3", "    ", "stamp && p == 1")
      + "    // the fragment groups"),
-    ("    if (p < 2) phase_done<C>(a, 2 * p + 1, g0);  // barriers 1 and 3\n  }\n}\n\n"
-     "// ---- the wgmma core",
-     _ffn_stamp(_FFN_DONE, "    ") + "    if (p < 2) phase_done<C>(a, 2 * p + 1, g0);\n  }\n}\n\n"
-     "// ---- the wgmma core"),
+    ("    if (p < 2) phase_done<C>(a, 2 * p + 1 - a.first, g0);  // after phase 0 and 1\n  }\n}\n\n"
+     "template <int MT>\n",
+     _ffn_stamp(_FFN_DONE, "    ") + "    if (p < 2) phase_done<C>(a, 2 * p + 1 - a.first, g0);\n"
+     "  }\n}\n\ntemplate <int MT>\n"),
     ("  const int c = 16 * wi + 2 * g + wg;  // this thread's column of each 64-column box\n",
      "  const int c = 16 * wi + 2 * g + wg;  // this thread's column of each 64-column box\n"
      "  unsigned long long* tr = g_trace[blockIdx.x % 2048];\n"
@@ -115,18 +121,140 @@ _FFN_TRACE = [("namespace md {\nnamespace ffn90 {\n",
     ("        mbar_wait(b.bars + 8 * s, par);  // the stage's boxes have landed\n",
      "        mbar_wait(b.bars + 8 * s, par);  // the stage's boxes have landed\n"
      + _ffn_stamp(_FFN_FIRST, "        ", "stamp && t == w.unit && i == 0")),
-    ("    if (p == 1) norm_rows<C>(a, g0, rr);\n    for (int t = w.unit;",
-     "    if (p == 1) norm_rows<C>(a, g0, rr);\n" + _ffn_stamp("3", "    ", "stamp && p == 1")
+    ("    if (p == 1) norm_rows<C>(a, g0, rr, sl);\n    for (int t = w.unit;",
+     "    if (p == 1) norm_rows<C>(a, g0, rr, sl);\n" + _ffn_stamp("3", "    ", "stamp && p == 1")
      + "    for (int t = w.unit;"),
-    ("    if (p < 2) phase_done<C>(a, 2 * p + 1, g0);  // barriers 1 and 3\n  }\n}\n\n"
+    ("    if (p < 2) phase_done<C>(a, 2 * p + 1 - a.first, g0);  // after phase 1\n  }\n}\n\n"
      "// ---- host side",
-     _ffn_stamp(_FFN_DONE, "    ") + "    if (p < 2) phase_done<C>(a, 2 * p + 1, g0);\n  }\n}\n\n"
-     "// ---- host side"),
+     _ffn_stamp(_FFN_DONE, "    ") + "    if (p < 2) phase_done<C>(a, 2 * p + 1 - a.first, g0);\n"
+     "  }\n}\n\n// ---- host side"),
 ] + _trace_patches("ffn90", "md_ffn_sm90_resident")[2:] + [
     ('extern "C" int md_trace_read(void* dst) {',
      'extern "C" int md_smid_read(void* dst) {\n'
      "  return (int)cudaMemcpyFromSymbol(dst, g_smid, sizeof(g_smid));\n}\n\n"
      'extern "C" int md_trace_read(void* dst) {')]
+
+
+def _wg_box(mt: int) -> str:
+    """D += W^T x^T over one k16 step of weight box BOX: wgmma m64n(16 mt)k16,
+    A the bf16 weight box MN-major (transposed, 128-byte swizzle), B the x
+    tile K-major, both from the stage; d[4 j + e] is acc[j / 2][2 BOX + j %
+    2][e] (box column 16 warp + g + 8 (e / 2), x row 8 j + 2 t4 + e % 2)."""
+    regs = [f"acc[{j // 2}][2 * BOX + {j % 2}][{e}]" for j in range(2 * mt) for e in range(4)]
+    k = len(regs)
+    return (f"template <int BOX>\n__device__ __forceinline__ void wg_box{mt}("
+            f"float (&acc)[{mt}][4][4], uint64_t da, uint64_t db) {{\n"
+            f'  asm volatile("{{\\n.reg .pred p;\\nsetp.ne.b32 p, %{k + 2}, 0;\\n"\n'
+            f'      "wgmma.mma_async.sync.aligned.m64n{16 * mt}k16.f32.bf16.bf16 {{'
+            + ", ".join(f"%{i}" for i in range(k))
+            + f'}}, %{k}, %{k + 1}, p, 1, 1, 1, 0;\\n}}\\n"\n'
+            "      : " + ", ".join(f'"+f"({r})' for r in regs)
+            + '\n      : "l"(da), "l"(db), "r"(1));\n}\n\n')
+
+
+# dense_mlp's other product core (the bf16 instance at M <= 16 and 65..128 rows,
+# MT = 1 and 8): the transposed product out^T = W^T x^T on wgmma, the one
+# consumer warpgroup issuing both boxes' k16 steps of a stage from shared
+# memory (no ldmatrix, no fragments in registers), one stage's products in
+# flight while the next lands; the epilogue and the split-K partials take
+# the wgmma layout (a lane holds a weight column and x rows 2 t4, 2 t4 + 1).
+_FFN_WGMMA = [
+    ("// The body of the mma.sync core's kernels (ffn_sm90_kernel: int8 weights,\n",
+     _wg_box(1) + _wg_box(8) +
+     "// wgmma-layout partial of an item (see _wg_box) for reduce_item\n"
+     "template <int MT>\n"
+     "__device__ __forceinline__ void store_partial_wg(const Args& a, const Phase& ph, int rg,\n"
+     "                                                 int t, int m0, int warp, int lane,\n"
+     "                                                 const float (&acc)[MT][4][4]) {\n"
+     "  const int c0 = ph.gate ? t * HALF : t * BN;\n"
+     "  const int c1 = ph.gate ? ph.Out / 2 + t * HALF : t * BN + HALF;\n"
+     "  float* part = a.part + (size_t)rg * a.M * ph.Out;\n"
+     "#pragma unroll\n"
+     "  for (int mt = 0; mt < MT; ++mt)\n"
+     "#pragma unroll\n"
+     "    for (int nb = 0; nb < 4; ++nb)\n"
+     "#pragma unroll\n"
+     "      for (int e = 0; e < 4; ++e) {\n"
+     "        const int m = m0 + 16 * mt + 8 * (nb & 1) + 2 * (lane & 3) + (e & 1);\n"
+     "        const int c = 16 * warp + (lane >> 2) + 8 * (e >> 1);\n"
+     "        if (m < a.M) part[(size_t)m * ph.Out + ((nb >> 1) ? c1 : c0) + c] = acc[mt][nb][e];\n"
+     "      }\n"
+     "}\n\n"
+     "// wgmma-layout epilogue of one fragment group (see _wg_box): bf16 only\n"
+     "__device__ __forceinline__ void finish_group_wg(const Phase& ph, int M, int t, int row0,\n"
+     "                                                int uw, int lane, const float (&v)[4][4]) {\n"
+     "  const int g = lane >> 2, t4 = lane & 3;\n"
+     "#pragma unroll\n"
+     "  for (int q = 0; q < 2; ++q)\n"
+     "#pragma unroll\n"
+     "    for (int e = 0; e < 4; ++e) {\n"
+     "      const int m = row0 + 8 * q + 2 * t4 + (e & 1), c = 16 * uw + g + 8 * (e >> 1);\n"
+     "      if (m >= M) continue;\n"
+     "      const float v0 = v[q][e], v1 = v[2 + q][e];\n"
+     "      if (ph.gate) {\n"
+     "        const float gv = bf16_round(v0), uv = bf16_round(v1);\n"
+     "        ph.out[(size_t)m * (ph.Out / 2) + t * HALF + c] =\n"
+     "            __float2bfloat16(gv * (1.f / (1.f + expf(-gv))) * uv);\n"
+     "        continue;\n"
+     "      }\n"
+     "#pragma unroll\n"
+     "      for (int box = 0; box < 2; ++box) {\n"
+     "        const size_t n = (size_t)m * ph.Out + t * BN + box * HALF + c;\n"
+     "        float y = bf16_round(box ? v1 : v0);\n"
+     "        if (ph.res != nullptr) y += __bfloat162float(ph.res[n]);\n"
+     "        ph.out[n] = __float2bfloat16(y);\n"
+     "      }\n"
+     "    }\n"
+     "}\n\n"
+     "// The body of the mma.sync core's kernels (ffn_sm90_kernel: int8 weights,\n"),
+    ("  const int npass = (a.M + C::R - 1) / C::R;\n  int it = 0, red_n = 0, free_n = 0;\n",
+     "  const int npass = (a.M + C::R - 1) / C::R;\n  int it = 0, red_n = 0, free_n = 0;\n"
+     "  constexpr bool WG = BF16 && (MT == 1 || MT == 8);\n  int prev = -1;\n"),
+    ("        const uint32_t xst = wst + 2 * C::W_BYTES;\n#pragma unroll KU\n",
+     "        const uint32_t xst = wst + 2 * C::W_BYTES;\n"
+     "        if constexpr (WG) {\n"
+     "          wgmma_fence();\n"
+     "#pragma unroll\n"
+     "          for (int kk = 0; kk < BK / 16; ++kk) {\n"
+     "            const uint64_t db = smem_desc(xst, 16, 1024) + 2 * kk;\n"
+     "            if constexpr (MT == 1) {\n"
+     "              wg_box1<0>(acc, smem_desc(wst, 1024, 1024) + 128 * kk, db);\n"
+     "              wg_box1<1>(acc, smem_desc(wst + C::W_BYTES, 1024, 1024) + 128 * kk, db);\n"
+     "            } else {\n"
+     "              wg_box8<0>(acc, smem_desc(wst, 1024, 1024) + 128 * kk, db);\n"
+     "              wg_box8<1>(acc, smem_desc(wst + C::W_BYTES, 1024, 1024) + 128 * kk, db);\n"
+     "            }\n"
+     "          }\n"
+     "          wgmma_commit();\n"
+     "          wgmma_wait<1>();  // the previous stage's products are done\n"
+     "          if (prev >= 0) mbar_arrive(bars + 8 * (S + prev));\n"
+     "          prev = s;\n"
+     "          continue;\n"
+     "        }\n"
+     "#pragma unroll KU\n"),
+    ("        mbar_arrive(bars + 8 * (S + s));\n      }\n\n      if (split == 1) {\n",
+     "        mbar_arrive(bars + 8 * (S + s));\n      }\n"
+     "      if constexpr (WG) {\n"
+     "        wgmma_wait<0>();\n"
+     "#pragma unroll\n"
+     "        for (int mt = 0; mt < MT; ++mt)\n"
+     "#pragma unroll\n"
+     "          for (int nb = 0; nb < 4; ++nb) fence_regs(acc[mt][nb]);\n"
+     "        if (prev >= 0) mbar_arrive(bars + 8 * (S + prev));\n"
+     "        prev = -1;\n"
+     "      }\n\n      if (split == 1) {\n"),
+    ("          finish_group<BF16>(ph, a.M, t, m0 + mt * 16, warp, lane, acc[mt], ops, slots);\n",
+     "          if constexpr (WG)\n"
+     "            finish_group_wg(ph, a.M, t, m0 + mt * 16, warp, lane, acc[mt]);\n"
+     "          else\n"
+     "            finish_group<BF16>(ph, a.M, t, m0 + mt * 16, warp, lane, acc[mt], ops,\n"
+     "                               slots);\n"),
+    ("        store_partial<BF16>(a, ph, w.rg, t, m0, warp, lane, acc);\n",
+     "        if constexpr (WG)\n"
+     "          store_partial_wg<MT>(a, ph, w.rg, t, m0, warp, lane, acc);\n"
+     "        else\n"
+     "          store_partial<BF16>(a, ph, w.rg, t, m0, warp, lane, acc);\n"),
+]
 FFN_STAMPS = ("entry", "phase 0 first stage", "phase 0 done", "norm written",
               "phase 1 first stage", "phase 1 done", "phase 2 first stage", "end")
 # B5/B9's ring, stage by stage (clock64 of blocks 0 and 100, their first 64
@@ -235,16 +363,19 @@ VARIANTS = {
          "          wgmma_wx<N>(part[1], A[1], xd, first);\n",
          "          if (kk < 0) wgmma_wx<N>(part[0], A[0], xd, first);\n"
          "          if (kk < 0) wgmma_wx<N>(part[1], A[1], xd, first);\n")]),
-    # B5 and B9 (csrc/ffn_sm90.cu): as they stand, traced, and without the
-    # products (the ring, the barriers, the reductions and epilogues alone)
+    # B5, B9 and B15's dense_mlp (csrc/ffn_sm90.cu): as they stand, traced,
+    # and without the products (the ring, the barriers, the reductions and
+    # epilogues alone); dense_mlp on the other product core (wgmma)
     "ffn_current": ("ffn", []),
     "ffn_trace": ("ffn", _FFN_TRACE),
     "ffn_stage_trace": ("ffn", _FFN_STAGE_TRACE),
+    "ffn_bf16_wgmma": ("ffn", _FFN_WGMMA),
     # isolation: the x boxes read past the tensor (TMA fills them with zeros
     # and reads no memory), so the ring streams the weights alone
     "ffn_no_x": ("ffn", [
-        ("&a.xmap[p], full, kt, 0);", "&a.xmap[p], full, kt, 1 << 20);"),
-        ("b.bars + 8 * pend_s[j], pend_kt[j], 0);", "b.bars + 8 * pend_s[j], pend_kt[j], 1 << 20);")]),
+        ("&a.xmap[p], full, kt, m0);", "&a.xmap[p], full, kt, m0 + (1 << 20));"),
+        ("b.bars + 8 * pend_s[j], pend_kt[j], pend_m[j]);",
+         "b.bars + 8 * pend_s[j], pend_kt[j], pend_m[j] + (1 << 20));")]),
     "ffn_no_products": ("ffn", [
         ("mma_bf16_16816(acc[mt][nb], af, bf[nb][0], bf[nb][1]);",
          "if (kk < 0) mma_bf16_16816(acc[mt][nb], af, bf[nb][0], bf[nb][1]);"),
@@ -255,6 +386,9 @@ VARIANTS = {
 PHASES = {"trace": ("statistic", "first stage", "main loop", "barrier", "partials", "finish"),
           "int4_trace": ("start", "first stage", "main loop", "partials", "finish")}
 PLANS = ((2, 2), (5, 2), (8, 2), (1, 4), (2, 4), (4, 4), (5, 4), (8, 4))
+# label -> the plain version of a case's layer-0 call (dense_mlp), against
+# which each variant's output is held (kernels.bf16_limit)
+PLAIN = {}
 
 
 def patched(name: str) -> str:
@@ -335,6 +469,15 @@ def _cases(kind, dev, gen):
             lambda l=l: QK.quant_mlp(x, *(t[l] for n in ("w13", "w2") for t in w[n]), norm_w, x,
                                      eps=1e-5)
             for l in range(L)]))
+        w13 = (torch.randn((L, D, 2 * F), generator=gen, device=dev) * D ** -0.5).to(bf)
+        w2 = (torch.randn((L, F, D), generator=gen, device=dev) * (0.25 * F ** -0.5)).to(bf)
+        for M in (128, 16):
+            x, res = (torch.randn((M, D), generator=gen, device=dev).to(bf) for _ in range(2))
+            out.append((f"dense_mlp M={M}", D, D, [
+                lambda l=l, x=x, res=res: DK.dense_mlp(x, w13[l], w2[l], norm_w, res)
+                for l in range(L)]))
+            PLAIN[out[-1][0]] = lambda x=x, res=res: DK.dense_mlp_plain(x, w13[0], w2[0], norm_w,
+                                                                       res)
         return out
     if kind == "head":
         V = 128256
@@ -479,6 +622,13 @@ def main(argv=None):
             for label, _, _, calls in cases[VARIANTS[name][0]]:
                 ms = results[f"{name} {label}"] = graph_ms(calls)
                 print(f"[variant] {name:22s} {label:10s} {ms:8.4f} ms", flush=True)
+                if label in PLAIN:
+                    from magicdec_tpu_torch.kernels import bf16_limit
+
+                    out, ref = calls[0](), PLAIN[label]()
+                    bad = int(((out.float() - ref.float()).abs() > bf16_limit(ref)).sum())
+                    print(f"[variant] {name} {label}: {bad} of {ref.numel()} outside "
+                          "bf16_limit of the plain version", flush=True)
                 if name in PHASES:
                     _trace(libs[name], name, label, calls[0])
                 if name == "ffn_trace":
@@ -497,10 +647,26 @@ def main(argv=None):
                         sp if o == 2 * dots[-1][0] else plan([(i, o)], m, r)[0]
                         for i, o in dots)
                     for label, _, _, calls in cases["ffn"]:
+                        if label.startswith("dense_mlp"):
+                            continue
                         ms = results[f"ffn w13 split {split} {label}"] = graph_ms(calls)
                         print(f"[plan] {label:10s} w13 split {split}: {ms:8.4f} ms", flush=True)
             finally:
                 QK.ffn_plan = plan
+            # dense_mlp: every (w13, w2) split pair
+            dplan = DK.dense_mlp_plan
+            try:
+                for s13 in QK.FFN_SPLITS:
+                    for s2 in QK.FFN_SPLITS:
+                        DK.dense_mlp_plan = lambda d, f, c, sp=(s13, s2): sp
+                        for label, _, _, calls in cases["ffn"]:
+                            if label.startswith("dense_mlp"):
+                                ms = results[f"dense_mlp split {s13}x{s2} {label}"] = \
+                                    graph_ms(calls)
+                                print(f"[plan] {label:14s} split {s13} x {s2}: {ms:8.4f} ms",
+                                      flush=True)
+            finally:
+                DK.dense_mlp_plan = dplan
         if args.plans and "current" in names:
             build.library = lambda: libs["current"]
             for label, In, Out, calls in cases["dense"]:

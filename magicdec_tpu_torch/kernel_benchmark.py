@@ -4,7 +4,7 @@ kernel against its plain PyTorch version (counterpart of
 here).
 
     python -m magicdec_tpu_torch.kernel_benchmark [--B 32] [--S 8704] [--C 512]
-        [--bases 7680,0] [--which all|decode|prefill|append|paged|encode|dots]
+        [--bases 7680,0] [--which all|decode|prefill|append|paged|encode|dots|dense_mlp]
         [--bench_args "--B 32 ..."] [--device cpu]
 
 The ``append`` cases are timed by ``engine/profiling.py``'s chain:
@@ -39,7 +39,9 @@ Cases (``--which``):
            caches with their f32 scales) at T = 1 and ``--T``: K3q's one
            merged launch (``append_T{t}_merged``) against B14's four
            per-array launches (``append_T{t}_per_array``, the
-           ``MAGICDEC_PER_ARRAY_APPEND`` path);
+           ``MAGICDEC_PER_ARRAY_APPEND`` path); on the card also
+           ``launch_floor_device``, one ``add_`` on one element by
+           ``graph_ms``: the least device time any kernel launch takes;
   paged    B12 over bf16, int8 and int4 pools of the layer stack at page
            sizes 512 and 16 (those dividing S), a permuted page table,
            lengths ragged in [0, S - T]: ``paged_{kind}_ps{ps}_T{t}``,
@@ -73,6 +75,12 @@ Cases (``--which``):
            runs against an older checkout of the package, whose own
            ``chip_smoke.py`` may have no device times (PYTHONPATH=<checkout>
            python magicdec_tpu_torch/kernel_benchmark.py --which dots).
+           B15's ``dense_mlp`` (the FFN block with its residual) at M =
+           128, 16 and 402: ``dense_mlp_M{m}_device`` beside
+           ``dense_mlp_M{m}_cublas_device``, the main path's own FFN with
+           the dense kernels off (``cublas_ffn``);
+  dense_mlp  (the card only; not in "all") the ``dense_mlp`` cases of
+           ``dots`` alone, for the A/B against an older checkout.
 """
 
 from __future__ import annotations
@@ -128,7 +136,8 @@ def parse_args(argv=None):
     p.add_argument("--T", type=int, default=5, help="verify window gamma+1 for the decode kernels")
     p.add_argument("--iters", type=int, default=20)
     p.add_argument("--which", default="all",
-                   choices=["all", "decode", "prefill", "append", "paged", "encode", "dots"])
+                   choices=["all", "decode", "prefill", "append", "paged", "encode", "dots",
+                            "dense_mlp"])
     p.add_argument("--bench_args", default="",
                    help="encode: the bench's flags, one string (its defaults otherwise)")
     p.add_argument("--dump", default="",
@@ -197,6 +206,11 @@ def main(argv=None):
                 ms = _chain(fn, args.iters, mk_state, (pos, rows, srows))() * 1e3
                 results[name] = round(ms, 4)
                 print(f"[kernel] {name:32s} {ms:8.4f} ms", file=sys.stderr, flush=True)
+        if dev.type == "cuda":
+            one = torch.zeros(1, device=dev)
+            results["launch_floor_device"] = graph_ms([lambda: one.add_(1)] * L)
+            print(f"[kernel] {'launch_floor_device':32s} {results['launch_floor_device']:8.4f} "
+                  "ms", file=sys.stderr, flush=True)
 
     if args.which in ("all", "paged"):
         results.update(_paged(cfg, B, S, T, dev, gen, outputs))
@@ -208,6 +222,8 @@ def main(argv=None):
 
     if args.which == "dots":
         results.update(_dots(cfg, B, dev, gen))
+    if args.which == "dense_mlp":
+        results.update(_dots_dense_mlp(cfg, dev, gen))
 
     device = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(json.dumps({"metric": f"kernel_bench_{args.model}_B{B}_S{S}_torch",
@@ -451,6 +467,7 @@ def _dots(cfg, B, dev, gen):
     del weights
     results.update(_dots_int4(cfg, B, dev, gen))
     results.update(_dots_dense(cfg, dev, gen))
+    results.update(_dots_dense_mlp(cfg, dev, gen))
     return results
 
 
@@ -571,6 +588,46 @@ def _dots_dense(cfg, dev, gen):
         }
         _timed_dots(results, M, kernels, weights,
                     lambda name: g if name == "dense_w2_residual" else x, gen, dev)
+    return results
+
+
+def cublas_ffn(x, w13, w2, norm_w, res, eps=1e-5):
+    """The main path's FFN block with the dense kernels off
+    (``models/llama.py _mlp``): rms_norm, the w13 dot, SiLU(gate) * up, the
+    w2 dot and the residual, cuBLAS's dots between PyTorch's elementwise
+    ops.  ``dense_mlp``'s library column: timed only, the port's kernel
+    path never calls it."""
+    import torch.nn.functional as F
+
+    from magicdec_tpu_torch.ops.norm import rms_norm
+
+    gu = rms_norm(x, norm_w, eps) @ w13
+    Fh = gu.shape[-1] // 2
+    return res + (F.silu(gu[..., :Fh]) * gu[..., Fh:]) @ w2
+
+
+def _dots_dense_mlp(cfg, dev, gen, rows=(128, 16, 402)):
+    """B15's dense_mlp (with its residual) at M = 128, 16 and 402 beside
+    ``cublas_ffn``, over the layer stack's bf16 w13 and w2 in turn."""
+    from magicdec_tpu_torch.kernels import dense_matmul as DK
+
+    if dev.type != "cuda":
+        raise SystemExit("dense_mlp times the card's kernels: it needs --device cuda")
+    L, D, F = cfg.n_layer, cfg.dim, cfg.intermediate_size
+    bf = torch.bfloat16
+    w13 = (torch.randn((L, D, 2 * F), generator=gen, device=dev) * D ** -0.5).to(bf)
+    w2 = (torch.randn((L, F, D), generator=gen, device=dev) * (0.25 * F ** -0.5)).to(bf)
+    norm_w = (torch.rand((D,), generator=gen, device=dev) + 0.5).to(bf)
+    results = {}
+    for M in rows:
+        x, res = (torch.randn((M, D), generator=gen, device=dev).to(bf) for _ in range(2))
+        for tag, fn in ((f"dense_mlp_M{M}_device", DK.dense_mlp),
+                        (f"dense_mlp_M{M}_cublas_device", cublas_ffn)):
+            results[tag] = graph_ms([lambda l=l, fn=fn: fn(x, w13[l], w2[l], norm_w, res)
+                                     for l in range(L)])
+            print(f"[kernel] {tag:40s} {results[tag]:8.4f} ms", file=sys.stderr, flush=True)
+    del w13, w2
+    torch.cuda.empty_cache()
     return results
 
 

@@ -41,8 +41,9 @@ SIGNATURES = {
     "md_append_rows_quant": [_P] * 9 + [_I] * 6 + [_P],
     "md_quant_matmul_sm90": [_P] * 6 + [_I] * 5 + [_F, _P],
     "md_quant_layer_tail_sm90": [_P] * 15 + [_I] * 9 + [_F, _P],
-    "md_quant_mlp_sm90": [_P] * 13 + [_I] * 7 + [_F, _P],
-    "md_ffn_sm90_resident": [_I],
+    "md_quant_mlp_sm90": [_P] * 12 + [_I] * 7 + [_F, _P],
+    "md_ffn_sm90_resident": [_I, _I],
+    "md_dense_mlp_sm90": [_P] * 10 + [_I] * 7 + [_F, _P],
     "md_decode_attend_quant4": [_P] * 13 + [_I] * 9 + [_P],
     "md_prefill_attend_quant4": [_P] * 11 + [_I] * 7 + [_P],
     "md_quant_matmul_int4_sm90": [_P] * 5 + [_I] * 6 + [_P],
@@ -55,7 +56,6 @@ SIGNATURES = {
     "md_append_array_rows": [_P] * 3 + [_I] * 5 + [_P],
     "md_append_scale_cols": [_P] * 3 + [_I] * 5 + [_P],
     "md_dense_matmul_sm90": [_P] * 5 + [_I] * 5 + [_F, _P],
-    "md_dense_mlp": [_P] * 9 + [_I] * 5 + [_F, _P],
 }
 
 _lock = threading.Lock()

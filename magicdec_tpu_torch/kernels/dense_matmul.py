@@ -1,6 +1,6 @@
 """B15: the bf16 weight-streaming dots of the target's decode and verify
 passes (CUDA: ``dense_matmul_fused`` in ``csrc/dense_matmul_sm90.cu``,
-``dense_mlp`` in ``csrc/dense_matmul.cu``).
+``dense_mlp`` in ``csrc/ffn_sm90.cu``).
 
 ``dense_matmul_fused`` replaces magicdec_tpu/ops/pallas/quant_matmul.py
 ``dense_matmul_fused_pallas`` (``_dense_fused_kernel``): [res +] rms_norm?(x)
@@ -16,7 +16,14 @@ the target's padded autoregressive step needs.  Bound on the card: the
 weight's HBM bytes.  ``dense_matmul_fused`` is one launch a call: wgmma
 products on TMA-streamed weight boxes, the contraction's splits
 (``dense_plan``, at most 5) a thread-block cluster that adds its f32
-partials on chip in split order.
+partials on chip in split order.  ``dense_mlp`` is one launch a call of the
+persistent FFN kernel that also runs the draft's int8 B5 and B9
+(``kernels/quant_matmul.py``), on bf16 weight boxes without scales: every
+resident run of 8 blocks walks each dot's column tiles, a grid barrier
+after the norm (each block takes its rows' statistic from x) and after
+w13, each dot's splits (``dense_mlp_plan``: 1, 2, 4 or 8 ranks of a run)
+added through L2 in split order, every M from 1 to 512 in one launch
+(128-row passes above 128).
 """
 
 from __future__ import annotations
@@ -24,25 +31,29 @@ from __future__ import annotations
 import torch
 
 from magicdec_tpu_torch.kernels import on_cpu, ptr, require, require_bf16
+from magicdec_tpu_torch.kernels import quant_matmul as QK
 from magicdec_tpu_torch.kernels.quant_matmul import BK, BN, TARGET_BLOCKS, _epilogue
 from magicdec_tpu_torch.ops.norm import rms_norm
 
 BOX = 64          # dense_matmul_fused: weight columns a TMA box
-ROWS_MAX = 512    # dense_matmul_fused rows a call (the dense routing's cap)
+ROWS_MAX = 512    # dense_matmul_fused and dense_mlp rows a call (the dense routing's cap)
 # dense_matmul_fused's largest split: at one block an SM, clusters of 8 ran
 # up to 1.7x slower than clusters of 5 on the H100 (PERF.md, PR 9)
 DENSE_SPLIT = 5
 
 
-def split_plan(In: int, Out: int) -> int:
-    """Contraction splits of one dot of ``dense_mlp``, cut in BK-row tiles:
-    enough that Out / BN column blocks times the splits fill the card's 132
-    SMs, no split empty.  Fixed by the weight's shape alone, so a row's sums
-    run in the same order at every M."""
-    tiles = In // BK
-    want = max(1, min(tiles, -(-TARGET_BLOCKS // max(1, Out // BN))))
-    per = -(-tiles // want)
-    return -(-tiles // per)
+def dense_mlp_plan(D: int, F: int, clusters: int) -> tuple[int, int]:
+    """The splits of ``dense_mlp``'s w13 [D, 2F] and w2 [F, D] dots:
+    ``quant_matmul.ffn_split_plan`` on ``clusters``, the card's resident runs
+    of 8 blocks of the bf16 core's 128-row pass (one block an SM), whatever
+    core M picks, with the item cost of split-K through L2 (the wgmma
+    core's).  Fixed by the weights' shapes and the card, never by M, so a
+    row's sums run in the same order at every M (the greedy spec == AR
+    contract: the AR step pads its rows to the verify pass's).  The grid is
+    the resident runs of M's core; it only changes which block runs an
+    item.  1B widths on the H100's 16 runs: w13 1, w2 8."""
+    item = QK.FFN_ITEM_STAGES[QK.FFN_WG_ROWS]
+    return tuple(QK.ffn_split_plan(In, Out, clusters, item) for In, Out in ((D, 2 * F), (F, D)))
 
 
 def dense_plan(In: int, Out: int, norm: bool) -> tuple[int, int]:
@@ -140,35 +151,49 @@ def _launch_fused(x, w, norm_w, res, eps):
     return out
 
 
-def dense_mlp(x, w13, w2, norm_w, res=None, *, eps=1e-5):
-    """B15: x [M, D]; w13 [D, 2F] (gate columns, then up), w2 [F, D], bf16;
-    norm_w [D]; res [M, D] or None.  Returns [res +] the FFN block of x."""
-    if on_cpu(x, w13, w2, norm_w, res):
-        return dense_mlp_plain(x, w13, w2, norm_w, res, eps=eps)
+def _launch_mlp(x, w13, w2, norm_w, res, eps):
+    """``dense_mlp`` on the card (csrc/ffn_sm90.cu): one launch; scratch hn
+    [M, D], gated [M, F] and, with a split dot, its f32 partials [split, M,
+    Out]."""
     from magicdec_tpu_torch.kernels import build
 
     x = x.contiguous()
     require_bf16(x, w13, w2, norm_w, res)
     M, D, F2 = _check_dot(x, w13, "dense_mlp w13")
     F = F2 // 2
-    require(w2.shape == (F, D) and w2.is_contiguous() and F % BK == 0,
+    require(M <= ROWS_MAX, f"dense_mlp: the kernel takes at most {ROWS_MAX} rows, got {M}")
+    require(D % BN == 0 and D <= QK.FFN_MAX_D,
+            f"dense_mlp: the kernel takes D % {BN} == 0 and D <= {QK.FFN_MAX_D}, got {D}")
+    require(tuple(w2.shape) == (F, D) and w2.is_contiguous() and F % BK == 0,
             f"dense_mlp: w2 {tuple(w2.shape)} for F={F}, D={D}")
     require(norm_w.numel() == D, f"dense_mlp: norm weight of {norm_w.numel()}, not {D}")
     norm_w = norm_w.reshape(-1).contiguous()
     if res is not None:
         require(res.shape == (M, D), f"dense_mlp: residual {tuple(res.shape)}, not {(M, D)}")
         res = res.contiguous()
-    splits = (split_plan(D, 2 * F), split_plan(F, D))
     dev = x.device
-    hn = torch.empty((M, D), dtype=torch.bfloat16, device=dev)
+    splits = dense_mlp_plan(D, F, QK._resident(dev, QK.FFN_ROWS, bf16=True))
+    clusters = QK._resident(dev, M, bf16=True)
+    hn, out = (torch.empty((M, D), dtype=torch.bfloat16, device=dev) for _ in range(2))
     gated = torch.empty((M, F), dtype=torch.bfloat16, device=dev)
-    part = torch.empty((max(splits[0] * 2 * F, splits[1] * D) * M,), dtype=torch.float32,
-                       device=dev)
-    out = torch.empty((M, D), dtype=torch.bfloat16, device=dev)
-    err = build.library().md_dense_mlp(
-        ptr(x), ptr(w13), ptr(w2), ptr(norm_w), ptr(res), ptr(out),
-        ptr(hn), ptr(gated), ptr(part), M, D, F, *splits, float(eps), build.stream_ptr(x))
-    build.check(err, "md_dense_mlp")
+    part_rows = max((s * Out for s, Out in zip(splits, (2 * F, D)) if s > 1), default=0)
+    part = (torch.empty((part_rows * M,), dtype=torch.float32, device=dev) if part_rows
+            else None)
+    err = build.library().md_dense_mlp_sm90(
+        ptr(x), ptr(w13), ptr(w2), ptr(norm_w), ptr(res), ptr(out), ptr(hn), ptr(gated),
+        ptr(part), ptr(QK._grid_barrier(dev)), M, D, F, *splits, clusters, 1, float(eps),
+        build.stream_ptr(x))
+    build.check(err, "dense_mlp (md_dense_mlp_sm90)")
+    return out
+
+
+def dense_mlp(x, w13, w2, norm_w, res=None, *, eps=1e-5):
+    """B15: x [M, D]; w13 [D, 2F] (gate columns, then up), w2 [F, D], bf16;
+    norm_w [D]; res [M, D] or None.  Returns [res +] the FFN block of x.  On
+    the card: one launch, M <= ROWS_MAX."""
+    if on_cpu(x, w13, w2, norm_w, res):
+        return dense_mlp_plain(x, w13, w2, norm_w, res, eps=eps)
+    out = _launch_mlp(x, w13, w2, norm_w, res, eps)
     dense_mlp.launches += 1
     return out
 

@@ -87,7 +87,8 @@ FFN_CLUSTER = 8            # B5/B9: blocks a cluster (the portable maximum)
 FFN_SPLITS = (1, 2, 4, 8)  # a dot's splits: groups of ranks that cut the cluster evenly
 FFN_ROWS = 128             # B5's rows a call, and the mma.sync core's; B9 takes ROWS_MAX
 FFN_WG_ROWS = 256          # B9's rows above FFN_ROWS: the wgmma core, one pass
-FFN_TILE_BARS = 1024       # the wgmma core's split tiles a dot (csrc TILE_BARS)
+FFN_TILE_BARS = 1024       # split items a dot: their meeting words (csrc TILE_BARS)
+FFN_MAX_D = 16384          # the norm's rows: their 32-column slots in shared memory
 # what an item of a split dot costs beyond its stages (the partials'
 # reduction, the group's wait for its slowest rank, the epilogue), in
 # BK-row stages, for the mma.sync core (partials through DSMEM) and the
@@ -98,9 +99,10 @@ FFN_ITEM_STAGES = {FFN_ROWS: 2, FFN_WG_ROWS: 24}
 
 
 def ffn_split_plan(In: int, Out: int, clusters: int, item_stages: int) -> int:
-    """The contraction splits of one dot of B5 or B9 on ``clusters``
-    resident clusters of 8 blocks: of the splits that cut a cluster into
-    equal groups (1, 2, 4, 8), none empty, the one whose busiest group
+    """The contraction splits of one dot of the persistent FFN kernel (B5,
+    B9, B15's ``dense_mlp``) on ``clusters`` resident clusters (or runs) of
+    8 blocks: of the splits that cut a cluster into equal groups (1, 2, 4,
+    8), none empty, the one whose busiest group
     streams the fewest stages, ceil(column tiles / groups) items of
     ceil(BK tiles / split) stages each, plus ``item_stages`` an item of a
     split dot; of equals, the fewest splits.  Fixed by the weight's shape
@@ -118,11 +120,15 @@ def ffn_split_plan(In: int, Out: int, clusters: int, item_stages: int) -> int:
     return best[1]
 
 
-def ffn_rows_a_pass(M: int) -> int:
-    """The rows one pass of B5/B9's product core covers at M rows: 16, 32,
-    64 or 128 on the mma.sync core, FFN_WG_ROWS on the wgmma core (M >
-    FFN_ROWS, B9 only).  The C side picks its core, and keys its resident
-    count, by the same rule."""
+def ffn_rows_a_pass(M: int, bf16: bool = False) -> int:
+    """The rows one pass of the persistent FFN kernel's product core covers
+    at M rows: 16, 32, 64 or 128 on the mma.sync core, FFN_WG_ROWS on the
+    wgmma core (int8 M > FFN_ROWS, B9 only); bf16 weights (B15's
+    ``dense_mlp``) take the mma.sync core at every M, 128 rows a pass above
+    FFN_ROWS.  The C side picks its core, and keys its resident count, by
+    the same rule."""
+    if bf16:
+        return next((r for r in (16, 32, 64) if M <= r), FFN_ROWS)
     return next(r for r in (16, 32, 64, FFN_ROWS, FFN_WG_ROWS) if M <= r)
 
 
@@ -280,36 +286,42 @@ def _check_ffn(x, q13, s13, q2, s2, norm_w, what):
     F = F2 // 2
     require(M <= ROWS_MAX, f"{what}: the kernel takes at most {ROWS_MAX} rows, got {M}")
     require(norm_w.numel() == D, f"{what}: norm weight of {norm_w.numel()}, not {D}")
-    require(D % BN == 0, f"{what}: the kernel takes D % {BN} == 0, got {D}")
+    require(D % BN == 0 and D <= FFN_MAX_D,
+            f"{what}: the kernel takes D % {BN} == 0 and D <= {FFN_MAX_D}, got {D}")
     require(q2.shape == (F, D) and q2.dtype == torch.int8 and q2.is_contiguous()
             and F % BK == 0 and s2.dtype == torch.float32 and s2.numel() == D,
             f"{what}: w2 {tuple(q2.shape)} {q2.dtype} for F={F}, D={D}")
     return M, D, F, s13, s2.reshape(-1).contiguous(), norm_w.reshape(-1).contiguous()
 
 
-_GRID_BARRIERS = {}   # device -> the B5/B9 kernel's grid barrier words
-_RESIDENT = {}        # (device, rows a pass) -> resident clusters
+_GRID_BARRIERS = {}   # device -> the persistent FFN kernel's grid barrier words
+_RESIDENT = {}        # (device, bf16 weights, rows a pass) -> resident clusters
 
 
-def _resident(dev, M: int) -> int:
-    """The clusters of 8 the card holds at once for the core serving M
-    rows, read once a device and core."""
+def _resident(dev, M: int, bf16: bool = False) -> int:
+    """The clusters (or runs) of 8 blocks the card holds at once for the
+    core serving M rows of int8 (B5, B9) or bf16 (B15's ``dense_mlp``: runs,
+    no cluster) weights, read once a device, format and core: the two
+    formats' cores hold different shared memory, so a grid sized for one
+    can exceed the other's residency."""
     from magicdec_tpu_torch.kernels import build
 
-    key = (dev, ffn_rows_a_pass(M))
+    key = (dev, bool(bf16), ffn_rows_a_pass(M, bf16))
     if key not in _RESIDENT:
         with torch.cuda.device(dev):
-            n = build.library().md_ffn_sm90_resident(M)
+            n = build.library().md_ffn_sm90_resident(M, int(bf16))
         build.check(-n if n < 0 else 0, "md_ffn_sm90_resident")
         _RESIDENT[key] = n
     return _RESIDENT[key]
 
 
 def _grid_barrier(dev):
-    """The B5/B9 kernel's barrier words on ``dev`` (the grid's, then the
-    wgmma core's tile barriers: 2 + 2 * FFN_TILE_BARS int32): one zeroed
-    buffer a device, allocated at the first call and kept (its words count
-    generations, so a captured graph replays with its fixed pointer)."""
+    """The persistent FFN kernel's barrier words on ``dev`` (the grid's,
+    then the wgmma core's tile barriers: 2 + 2 * FFN_TILE_BARS int32): one
+    zeroed buffer a device, shared by B5, B9 and B15's ``dense_mlp``,
+    allocated at the first call and kept (its words count generations, so
+    calls in turn on one stream and a captured graph's replays need no
+    reset)."""
     if dev not in _GRID_BARRIERS:
         _GRID_BARRIERS[dev] = torch.zeros(2 + 2 * FFN_TILE_BARS, dtype=torch.int32, device=dev)
     return _GRID_BARRIERS[dev]
@@ -317,8 +329,8 @@ def _grid_barrier(dev):
 
 def _launch_mlp(x, q13, s13, q2, s2, norm_w, res, eps, prefetch):
     """B9 on the card (csrc/ffn_sm90.cu): one launch; scratch hn [M, D],
-    gated [M, F], the statistic's slots [M, D / 32] and, on the wgmma core
-    (M > 128) with a split dot, its f32 partials."""
+    gated [M, F] and, on the wgmma core (M > 128) with a split dot, its f32
+    partials."""
     from magicdec_tpu_torch.kernels import build
 
     x = x.contiguous()
@@ -333,14 +345,13 @@ def _launch_mlp(x, q13, s13, q2, s2, norm_w, res, eps, prefetch):
     dev = x.device
     hn, out = (torch.empty((M, D), dtype=torch.bfloat16, device=dev) for _ in range(2))
     gated = torch.empty((M, F), dtype=torch.bfloat16, device=dev)
-    slots = torch.empty((M, D // 32), dtype=torch.float32, device=dev)
     # the wgmma core's split-K partials go through global memory
     part_rows = max((s * Out for (_, Out), s in zip(dots, splits) if s > 1), default=0)
     part = (torch.empty((part_rows * M,), dtype=torch.float32, device=dev)
             if ffn_rows_a_pass(M) == FFN_WG_ROWS and part_rows else None)
     err = build.library().md_quant_mlp_sm90(
         ptr(x), ptr(q13), ptr(s13), ptr(q2), ptr(s2), ptr(norm_w), ptr(res), ptr(out),
-        ptr(hn), ptr(gated), ptr(slots), ptr(part), ptr(_grid_barrier(dev)), M, D, F, *splits,
+        ptr(hn), ptr(gated), ptr(part), ptr(_grid_barrier(dev)), M, D, F, *splits,
         clusters, int(prefetch), float(eps), build.stream_ptr(x))
     build.check(err, "md_quant_mlp_sm90")
     return out

@@ -24,6 +24,8 @@ also run where JAX is absent:
 ``python -m pytest tests/test_torch_dense_matmul.py -m gpu --noconftest``.
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -374,7 +376,7 @@ def test_dot_variants_apply_to_the_sources():
             not DV.VARIANTS[name][1])
 
 
-def test_dense_wrappers_never_fall_back():
+def test_dense_wrappers_never_fall_back(fake_mlp, monkeypatch):
     x = torch.zeros(4, 512, dtype=torch.bfloat16, device="meta")
     w = torch.zeros(512, 256, dtype=torch.bfloat16, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
@@ -385,6 +387,147 @@ def test_dense_wrappers_never_fall_back():
                      torch.ones(512, dtype=torch.bfloat16, device="meta"))
     with pytest.raises(ValueError, match="several devices"):
         DK.dense_matmul_fused(x, torch.zeros(512, 256, dtype=torch.bfloat16))
+    # md_dense_mlp_sm90 reporting an error raises; the plain version never runs
+    monkeypatch.setattr(DK, "dense_mlp_plain", lambda *a, **k: pytest.fail("fell back"))
+    fake_mlp.err = 700
+    with pytest.raises(RuntimeError, match="md_dense_mlp_sm90"):
+        DK._launch_mlp(*_mlp_host_operands(8, 256, 512), 1e-5)
+    assert len(fake_mlp.calls) == 1
+
+
+# -- dense_mlp on ffn_sm90.cu: the host side against a fake library -------------
+
+# the fake card's resident clusters (or runs) of 8 blocks: the bf16 core's
+# runs at two blocks an SM (16, 32 and 64 rows a pass) and one (128), the
+# int8 cores' clusters and runs; each format's core counts its own
+_RES = {(True, 16): 33, (True, 32): 33, (True, 64): 32, (True, 128): 16,
+        (False, 16): 30, (False, 32): 30, (False, 64): 30, (False, 128): 15,
+        (False, 256): 16}
+
+
+class _FakeMlpLibrary:
+    """Records md_dense_mlp_sm90's arguments (returns ``err``) and answers
+    md_ffn_sm90_resident from _RES."""
+
+    def __init__(self):
+        self.calls, self.resident, self.err = [], [], 0
+
+    def md_dense_mlp_sm90(self, *args):
+        self.calls.append(args)
+        return self.err
+
+    def md_ffn_sm90_resident(self, M, bf16):
+        from magicdec_tpu_torch.kernels import quant_matmul as QK
+
+        self.resident.append((M, bf16))
+        return _RES[bool(bf16), QK.ffn_rows_a_pass(M, bool(bf16))]
+
+
+@pytest.fixture
+def fake_mlp(monkeypatch):
+    from magicdec_tpu_torch.kernels import build
+    from magicdec_tpu_torch.kernels import quant_matmul as QK
+
+    lib = _FakeMlpLibrary()
+    monkeypatch.setattr(build, "library", lambda: lib)
+    monkeypatch.setattr(build, "stream_ptr", lambda t: 0)
+    monkeypatch.setattr(QK, "_RESIDENT", {})
+    monkeypatch.setattr(QK, "_GRID_BARRIERS", {})
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    return lib
+
+
+def _mlp_host_operands(M, D, F, res=True):
+    bf = torch.bfloat16
+    return (torch.zeros(M, D, dtype=bf), torch.zeros(D, 2 * F, dtype=bf),
+            torch.zeros(F, D, dtype=bf), torch.ones(D, dtype=bf),
+            torch.zeros(M, D, dtype=bf) if res else None)
+
+
+_MLP_ROWS = (1, 8, 16, 17, 64, 65, 128, 129, 256, 402, 512)
+
+
+def test_dense_mlp_host_one_call_a_wrapper_call(fake_mlp, monkeypatch):
+    """One md_dense_mlp_sm90 call a wrapper call, every M from 1 to 512;
+    the splits are the plan's at the bf16 128-row core's residency whatever
+    M is (1B widths: w13 1, w2 8), the grid the residency of M's own core;
+    nothing allocated but out and the kernel's scratch (hn, gated, the split
+    w2's partials); one grid barrier buffer for every call."""
+    D, F = 2048, 8192
+    assert DK.dense_mlp_plan(D, F, _RES[True, 128]) == (1, 8)
+    allocated = []
+    empty = torch.empty
+    monkeypatch.setattr(torch, "empty", lambda *a, **k: allocated.append(a[0]) or empty(*a, **k))
+    for M in _MLP_ROWS:
+        out = DK._launch_mlp(*_mlp_host_operands(M, D, F, res=M % 2 == 0), 1e-5)
+        assert out.shape == (M, D) and out.dtype == torch.bfloat16
+    assert allocated == [s for M in _MLP_ROWS
+                         for s in ((M, D), (M, D), (M, F), (8 * D * M,))]
+    calls = fake_mlp.calls
+    assert len(calls) == len(_MLP_ROWS) and all(len(c) == 19 for c in calls)
+    # x, w13, w2, norm_w, res, out, hn, gated, part, bar, M, D, F, split_13, split_2,
+    # clusters, flags, eps, stream
+    assert [c[10:13] for c in calls] == [(M, D, F) for M in _MLP_ROWS]
+    assert {c[13:15] for c in calls} == {(1, 8)}
+    assert [c[15] for c in calls] == [_RES[True, 128 if M > 64 else (16 if M <= 16 else
+                                                                   (32 if M <= 32 else 64))]
+                                      for M in _MLP_ROWS]
+    assert {c[16] for c in calls} == {1}
+    assert [c[4] is None for c in calls] == [M % 2 == 1 for M in _MLP_ROWS]
+    assert all(c[8] is not None for c in calls)
+    assert len({c[9] for c in calls}) == 1  # the barrier words
+
+
+@pytest.mark.parametrize("M", [8, 16, 128, 402])
+def test_dense_mlp_plan_is_shape_only(fake_mlp, M):
+    """The splits a call passes do not depend on M: at the 1B widths they
+    are dense_mlp_plan's at the bf16 128-row core's residency, at M = 8, 16,
+    128 and 402 alike (the rows' sums run in one order: row invariance)."""
+    DK._launch_mlp(*_mlp_host_operands(M, 2048, 8192), 1e-5)
+    assert fake_mlp.calls[0][13:15] == DK.dense_mlp_plan(2048, 8192, _RES[True, 128])
+
+
+def test_resident_cache_keyed_by_format(fake_mlp):
+    """The residency cache holds a count a (device, format, core): an int8
+    and a bf16 call at the same M query the card each, once."""
+    from magicdec_tpu_torch.kernels import quant_matmul as QK
+
+    dev = torch.device("cpu")
+    for _ in range(2):
+        assert QK._resident(dev, 64) == _RES[False, 64]
+        assert QK._resident(dev, 64, bf16=True) == _RES[True, 64]
+        assert QK._resident(dev, 200, bf16=True) == _RES[True, 128]
+        assert QK._resident(dev, 200) == _RES[False, 256]
+    assert fake_mlp.resident == [(64, 0), (64, 1), (200, 1), (200, 0)]
+    assert set(QK._RESIDENT) == {(dev, False, 64), (dev, True, 64), (dev, True, 128),
+                                 (dev, False, 256)}
+
+
+@pytest.mark.parametrize("case", ["rows", "width", "wide", "ffn", "w2", "dtype", "residual"])
+def test_dense_mlp_host_raises_on_shapes_it_does_not_take(case, fake_mlp):
+    x, w13, w2, nw, res = _mlp_host_operands(8, 256, 512)
+    if case == "rows":
+        with pytest.raises(ValueError, match="at most 512 rows"):
+            DK._launch_mlp(*_mlp_host_operands(513, 256, 512), 1e-5)
+    elif case == "width":  # D % 128 != 0
+        with pytest.raises(ValueError, match="D % 128"):
+            DK._launch_mlp(*_mlp_host_operands(8, 192, 512), 1e-5)
+    elif case == "wide":  # a row's slots past the norm's shared memory
+        with pytest.raises(ValueError, match="D <= 16384"):
+            DK._launch_mlp(*_mlp_host_operands(8, 16512, 64), 1e-5)
+    elif case == "ffn":  # 2F % 128 != 0
+        with pytest.raises(ValueError, match="Out % 128"):
+            DK._launch_mlp(*_mlp_host_operands(8, 256, 96), 1e-5)
+    elif case == "w2":
+        with pytest.raises(ValueError, match="w2"):
+            DK._launch_mlp(x, w13, w2.t().contiguous(), nw, res, 1e-5)
+    elif case == "dtype":
+        with pytest.raises(TypeError, match="bfloat16"):
+            DK._launch_mlp(x, w13.float(), w2, nw, res, 1e-5)
+    else:
+        with pytest.raises(ValueError, match="residual"):
+            DK._launch_mlp(x, w13, w2, nw, res[:4], 1e-5)
+    assert fake_mlp.calls == []
 
 
 # -- on the card: each kernel against its plain version, bf16 -----------------
@@ -466,18 +609,163 @@ def test_dense_matmul_fused_rows_bit_equal_across_m_on_card(cuda, dot):
     assert torch.equal(big[:16], small)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("M", [128, 16])
-def test_dense_mlp_kernel_matches_plain_on_card(cuda, M):
-    D, F = 2048, 8192
-    gen = torch.Generator(device=cuda).manual_seed(M)
-    x, res = _rand(gen, M, D, device=cuda), _rand(gen, M, D, device=cuda)
-    w13 = _rand(gen, D, 2 * F, device=cuda, scale=D ** -0.5)
-    w2 = _rand(gen, F, D, device=cuda, scale=0.25 * F ** -0.5)
-    nw = (torch.rand((D,), generator=gen, device=cuda) + 0.5).to(torch.bfloat16)
+def _mlp_operands(gen, M, device, D=2048, F=8192):
+    """x, w13, w2, norm_w, res of a dense_mlp case (the 1B widths by
+    default)."""
+    x, res = _rand(gen, M, D, device=device), _rand(gen, M, D, device=device)
+    w13 = _rand(gen, D, 2 * F, device=device, scale=D ** -0.5)
+    w2 = _rand(gen, F, D, device=device, scale=0.25 * F ** -0.5)
+    nw = (torch.rand((D,), generator=gen, device=device) + 0.5).to(torch.bfloat16)
+    return x, w13, w2, nw, res
+
+
+def _check_mlp(x, w13, w2, nw, res):
+    """The kernel within bf16_limit of dense_mlp_plain; the wrong references
+    (the w13 halves swapped, the residual dropped) outside it."""
+    F = w2.shape[0]
     out = DK.dense_mlp(x, w13, w2, nw, res)
     ref = DK.dense_mlp_plain(x, w13, w2, nw, res)
     assert torch.isfinite(out).all() and _outside(out, ref) == 0
     swapped = torch.cat([w13[:, F:], w13[:, :F]], dim=1).contiguous()
     assert _outside(DK.dense_mlp_plain(x, swapped, w2, nw, res), ref) > 0
     assert _outside(DK.dense_mlp_plain(x, w13, w2, nw), ref) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [128, 16, 8, 256, 402])
+def test_dense_mlp_kernel_matches_plain_on_card(cuda, M):
+    """dense_mlp on ffn_sm90.cu's bf16 instance at the 1B widths, every row
+    count the routing sends there (402: decode_rows of B = 100 at gamma 3,
+    four 128-row passes)."""
+    _check_mlp(*_mlp_operands(torch.Generator(device=cuda).manual_seed(M), M, cuda))
+
+
+@pytest.mark.gpu
+def test_dense_mlp_kernel_at_8b_widths_on_card(cuda):
+    """The 8B widths (D 4096, F 14336) at M = 128 (the routing takes up to
+    146 rows there)."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    _check_mlp(*_mlp_operands(gen, 128, cuda, D=4096, F=14336))
+
+
+@pytest.mark.gpu
+def test_dense_mlp_rows_bit_equal_across_m_on_card(cuda):
+    """Row invariance: the rows of M = 8 and 16 calls (the AR step at B = 2
+    and 4, padded) equal those rows of an M = 128 call (and of 402) bit for
+    bit: the splits come from the shapes and the card, never from M."""
+    x, w13, w2, nw, res = _mlp_operands(torch.Generator(device=cuda).manual_seed(11), 402, cuda)
+    outs = {m: DK.dense_mlp(x[:m].contiguous(), w13, w2, nw, res[:m].contiguous())
+            for m in (402, 128, 16, 8)}
+    for m in (128, 16, 8):
+        assert torch.equal(outs[402][:m], outs[m]), m
+
+
+@pytest.mark.gpu
+def test_dense_mlp_rows_own_data_only_on_card(cuda):
+    """At M = 128, rows 0-15 have the same bits whether rows 16+ hold real
+    rows or zeros (the AR step's padding)."""
+    x, w13, w2, nw, res = _mlp_operands(torch.Generator(device=cuda).manual_seed(12), 128, cuda)
+    padded, padded_res = x.clone(), res.clone()
+    padded[16:] = 0
+    padded_res[16:] = 0
+    real = DK.dense_mlp(x, w13, w2, nw, res)
+    zero = DK.dense_mlp(padded, w13, w2, nw, padded_res)
+    assert torch.equal(real[:16], zero[:16])
+    assert not zero[16:].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [128, 16])
+def test_dense_mlp_deterministic_and_graph_replay_on_card(cuda, M):
+    """Two calls give the same bits, and three replays of a captured call
+    equal the eager one (the grid barrier's generation words carry over)."""
+    args = _mlp_operands(torch.Generator(device=cuda).manual_seed(3), M, cuda)
+    eager = DK.dense_mlp(*args)
+    assert torch.equal(DK.dense_mlp(*args), eager)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        DK.dense_mlp(*args)  # warm the stream outside the capture
+    torch.cuda.current_stream().wait_stream(stream)
+    with torch.cuda.graph(graph):
+        captured = DK.dense_mlp(*args)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, eager)
+
+
+@pytest.mark.gpu
+def test_dense_mlp_shares_the_barrier_words_on_card(cuda):
+    """dense_mlp, quant_mlp and quant_layer_tail in turn on one stream, three
+    rounds (as path (10) interleaves the target's dense_mlp and the draft's
+    B5): every call equals its solo result, the three cores' launches
+    sharing the device's grid barrier words."""
+    from magicdec_tpu_torch import quantization as Q
+    from magicdec_tpu_torch.kernels import quant_matmul as QK
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    dense = _mlp_operands(gen, 128, cuda)
+    D, F = 2048, 8192
+    qws = [Q.quantize_weight(_rand(gen, i, o, device=cuda, scale=i ** -0.5))
+           for i, o in ((D, D), (D, 2 * F), (F, D))]
+    (qo, so), (q13, s13), (q2, s2) = ((qw.q, qw.scale) for qw in qws)
+    a, x = _rand(gen, 32, D, device=cuda), _rand(gen, 32, D, device=cuda)
+    xm = _rand(gen, 200, D, device=cuda)
+    nw = dense[3]
+    calls = [lambda: DK.dense_mlp(*dense),
+             lambda: QK.quant_mlp(xm, q13, s13, q2, s2, nw, xm, eps=1e-5),
+             lambda: QK.quant_layer_tail(a, x, qo, so, q13, s13, q2, s2, nw, eps=1e-5)]
+    solo = []
+    for call in calls:
+        solo.append(call())
+        torch.cuda.synchronize()
+    rounds = [[call() for call in calls] for _ in range(3)]
+    torch.cuda.synchronize()
+    for outs in rounds:
+        for got, want in zip(outs, solo):
+            assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [128, 16])
+def test_dense_mlp_poisoned_scratch_on_card(cuda, M, monkeypatch):
+    """Scratch from torch.empty that holds inf and NaN (hn, gated, the
+    statistic's slots and out) gives the same bits: the kernel writes every
+    element it reads back."""
+    args = _mlp_operands(torch.Generator(device=cuda).manual_seed(7), M, cuda)
+    clean = DK.dense_mlp(*args)
+    empty = torch.empty
+    poison = iter([float("inf"), float("nan")] * 8)
+
+    def poisoned(*a, **k):
+        return empty(*a, **k).fill_(next(poison))
+
+    monkeypatch.setattr(torch, "empty", poisoned)
+    got = DK.dense_mlp(*args)
+    monkeypatch.setattr(torch, "empty", empty)
+    assert torch.equal(got, clean)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [16, 128, 402])
+def test_dense_mlp_one_launch_a_call_on_card(cuda, M):
+    """torch.profiler sees one launch of ffn_sm90.cu's bf16 kernel a call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    args = _mlp_operands(torch.Generator(device=cuda).manual_seed(4), M, cuda)
+    DK.dense_mlp(*args)
+    torch.cuda.synchronize()
+    for _ in range(3):  # the profiler now and then loses an event: profile again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                DK.dense_mlp(*args)
+            torch.cuda.synchronize()
+        kern = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        if sum(e.count for e in kern) >= 3:
+            break
+    assert sum(e.count for e in kern) == 3, [(e.key, e.count) for e in kern]
+    assert all("ffn_bf16_sm90_kernel" in e.key for e in kern), [e.key for e in kern]

@@ -228,6 +228,63 @@ def test_mlp_order_model_matches_pallas(residual, dtype, splits, pallas):
     _check(got, ref, dtype)
 
 
+# -- B15's dense_mlp: the same phases on bf16 weights --------------------------
+
+
+def _dense_mlp_model(x, w13, w2, norm_w, res=None, *, splits, eps):
+    """dense_mlp on the bf16 instance: B9's order with no scales (a scale of
+    one is exact in f32)."""
+    ones = [torch.ones(w.shape[1]) for w in (w13, w2)]
+    return _order_model(x, w13, ones[0], w2, ones[1], norm_w, res, _x_statistic(x), splits,
+                        eps)
+
+
+def _dense_operands(dtype, seed, M=8):
+    """numpy and torch x, w13, w2, norm_w, res at the t512 widths
+    (tiny_config(**T512): D 512, F 1024)."""
+    rng = np.random.RandomState(seed)
+    D, F = T512["dim"], T512["intermediate_size"]
+    arrs = (rng.randn(M, D).astype(np.float32) * 2,
+            (rng.randn(D, 2 * F) / np.sqrt(D)).astype(np.float32),
+            (rng.randn(F, D) / np.sqrt(F)).astype(np.float32),
+            (rng.rand(D) + 0.5).astype(np.float32), rng.randn(M, D).astype(np.float32))
+    return arrs, [torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrs]
+
+
+# w13 (8 BK tiles) and w2 (16) cut into 1, 2, 4 and 8 splits
+_DENSE_SPLITS = [(1, 1), (2, 2), (4, 4), (8, 8), (1, 8)]
+
+
+@pytest.mark.parametrize("splits", _DENSE_SPLITS, ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("residual", [True, False], ids=["residual", "no_residual"])
+def test_dense_mlp_order_model_matches_plain(residual, splits):
+    from magicdec_tpu_torch.kernels import dense_matmul as DK
+
+    _, (x, w13, w2, nw, r) = _dense_operands("float32", 21)
+    r = r if residual else None
+    got = _dense_mlp_model(x, w13, w2, nw, r, splits=splits, eps=1e-5)
+    want = DK.dense_mlp_plain(x, w13, w2, nw, r, eps=1e-5)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("splits", _DENSE_SPLITS, ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("residual", [True, False], ids=["residual", "no_residual"])
+def test_dense_mlp_order_model_matches_pallas(residual, dtype, splits):
+    """The dense_mlp model against ``_dense_mlp_kernel`` (interpret, four
+    F-blocks of 256)."""
+    import jax.numpy as jnp
+    from magicdec_tpu.ops.pallas.quant_matmul import dense_mlp_pallas
+
+    (x, w13, w2, nw, r), (tx, t13, t2, tn, tr) = _dense_operands(dtype, 22)
+    jd = getattr(jnp, dtype)
+    ref = dense_mlp_pallas(jnp.asarray(x, jd), jnp.asarray(w13, jd), jnp.asarray(w2, jd),
+                           jnp.asarray(nw, jd), jnp.asarray(r, jd) if residual else None,
+                           block_f=256, norm_eps=1e-5, interpret=True)
+    got = _dense_mlp_model(tx, t13, t2, tn, tr if residual else None, splits=splits, eps=1e-5)
+    _check(got, ref, dtype)
+
+
 # -- the plans ------------------------------------------------------------------
 
 
@@ -295,6 +352,14 @@ def test_ffn_rows_a_pass(M, rows):
     assert QK.ffn_rows_a_pass(M) == rows
 
 
+@pytest.mark.parametrize("M,rows", [(1, 16), (16, 16), (17, 32), (33, 64), (64, 64), (65, 128),
+                                    (128, 128), (129, 128), (402, 128), (512, 128)])
+def test_ffn_rows_a_pass_bf16(M, rows):
+    """bf16 weights (dense_mlp): the mma.sync core at every M, 128 rows a
+    pass above 128 (four passes at 402 rows)."""
+    assert QK.ffn_rows_a_pass(M, bf16=True) == rows
+
+
 # -- the host side --------------------------------------------------------------
 
 
@@ -353,15 +418,15 @@ def test_host_side_one_call_a_wrapper_call(fake):
     # stream
     assert {c[19:23] for c in tails} == {(8, 4, 8, 30)} and {c[23] for c in tails} == {1}
     assert [c[15] for c in tails] == [1, 17, 32, 64, 128]
-    # ... res (6), ..., slots (10), part (11), bar (12), M, D, F, split_13, split_2,
-    # clusters, flags, eps, stream: above 128 rows the wgmma core, w2's partials in part
-    assert [c[13] for c in mlps] == [1, 129, 200, 256]
-    assert [c[16:19] for c in mlps] == [(4, 8, 30)] + [(1, 8, 30)] * 3
-    assert {c[19] for c in mlps} == {0}
+    # ... res (6), ..., part (10), bar (11), M, D, F, split_13, split_2, clusters, flags,
+    # eps, stream: above 128 rows the wgmma core, w2's partials in part (B9 takes its
+    # statistic from x in the norm's blocks: no slots)
+    assert [c[12] for c in mlps] == [1, 129, 200, 256]
+    assert [c[15:18] for c in mlps] == [(4, 8, 30)] + [(1, 8, 30)] * 3
+    assert {c[18] for c in mlps} == {0}
     assert [c[6] is None for c in mlps] == [True, False, True, False]
-    assert [c[10] is None for c in mlps] == [False] * 4
-    assert [c[11] is None for c in mlps] == [True, False, False, False]
-    assert len({c[14] for c in tails} | {c[12] for c in mlps}) == 1  # the barrier
+    assert [c[10] is None for c in mlps] == [True, False, False, False]
+    assert len({c[14] for c in tails} | {c[11] for c in mlps}) == 1  # the barrier
 
 
 @pytest.mark.parametrize("case", ["tail_rows", "mlp_rows", "odd_width", "odd_ffn", "dtype",

@@ -365,12 +365,15 @@ def test_cluster_split_plan_capped_none_empty(In, Out):
 def test_cluster_split_plan_at_the_main_path():
     """llama-3.2-1b: wqkv 5 splits (120 blocks, one an SM: 6 would put two
     blocks on 12 SMs), wo 8, w13 2, w2 8 (the uncapped plan's 9 capped),
-    lm_head 1 (its 1002 column tiles fill the card)."""
+    lm_head 1 (its 1002 column tiles fill the card).  B15's dense_mlp on
+    the persistent FFN kernel: at the H100's 16 resident runs of 8 blocks
+    of its bf16 128-row core, w13 1 (128 column tiles, one a block) and w2
+    8 (16 tiles, a run's eight ranks each)."""
     from magicdec_tpu_torch.kernels import dense_matmul as DM
 
     got = [QK.cluster_split_plan(*s) for s in _plan_shapes()[:5]]
     assert got == [5, 8, 2, 8, 1]
-    assert DM.split_plan(8192, 2048) == 9
+    assert DM.dense_mlp_plan(2048, 8192, 16) == (1, 8)
 
 
 class _FakeLibrary:
