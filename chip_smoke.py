@@ -34,8 +34,9 @@ of which raises on failure:
    and a library yardstick (``library_ms``: ``scaled_dot_product_attention``
    on the (dequantized) bf16 K/V for the attention kernels, ``index_copy_``
    of the rows (and scales) for the appends; timed only, never used by the
-   port); K2, K2q and B11 also under torch.profiler, which must see one
-   launch of ``prefill_sm90_kernel`` a call; K1 (target T = 4, 1 and 9,
+   port); K2, K2q and B11 (C = 512 at bases 7680 and 0, and SnapKV's
+   32-token window chunk at base 8192) also under torch.profiler, which
+   must see one launch of ``prefill_sm90_kernel`` a call; K1 (target T = 4, 1 and 9,
    draft T = 1 and 2), K1q and B10 too, which must see one
    ``decode_sm90_kernel`` and, with more than one split, one
    ``combine_kernel`` a call, and for K1, K1q and B10 every token of a T = 4
@@ -106,15 +107,28 @@ of which raises on failure:
    the JAX package's kernel A/B switches on, ``set_dense_kernels(True)``
    and ``MAGICDEC_PER_ARRAY_APPEND=1``: B14 and B15 launched, K3, K3q and
    B13 idle, spec == AR; ``bench --gamma 0 --B 2 --prefix_len 2048``: the
-   gamma the autotune picks, spec == AR at it;
+   gamma the autotune picks, spec == AR at it; (11) ``--mode snapkv --iters
+   1`` (SnapKV self-speculation at the bench defaults, the prefix rounded to
+   8224, after checking that ``torch.backends.cuda.matmul.allow_tf32`` is
+   False so that the compression's scores run in float32): K2q (its chunks
+   and the 32-token window chunk, counted exactly), K1q, K1, K3q, K3, B4,
+   B5 and B6 launched, no paged, per-array, B9 or B15 kernel, spec == AR on
+   all 32 requests, >= 2.5 tokens per step, its time to first token and
+   peak memory beside path (1)'s and the compression's share of the
+   encode printed; then the paged SnapKV serve (``SNAPKV_SERVE_ARGV``: 16
+   slots, 16 requests of 7968 tokens, an int8 pool of 512-row pages): B12's
+   int8 pool once a layer per target pass, B13 and K3 (the verify's two
+   appends) launched, ``ServingEngine`` on the same prompts giving every
+   token;
 5. C2, served == solo: 4 equal-length prompts (one admission bucket) and 4
    of distinct lengths served through 16 slots over an int8 pool, each
    against the same prompt served alone through the same slots and against
    a B=1 ``SpecEngine`` on the same weights; where tokens differ, again at
    a fixed row count (each prefill alone; the B=1 decode at the slots'
    rows and split plan), which must agree;
-6. row invariance at B=32, 4 and 2, on cuBLAS and with the target's dots on
-   B15: for each of the target's dots, and for two layers and the head, a
+6. row invariance at B=32, 4 and 2 (the verify of ``forward_target`` and
+   of SnapKV's ``forward_verify_snapkv``), on cuBLAS and with the target's
+   dots on B15: for each of the target's dots, and for two layers and the head, a
    row's bits at verify (B*(gamma+1) rows) against the AR step (B rows),
    at the live row count and padded to decode_rows; fails if the model's
    rows differ when padded, which the engine runs;
@@ -122,9 +136,10 @@ of which raises on failure:
    (baseline, verify and noctx steps), without and with ``--dense_kernels``
    in turns, and ``kernel_benchmark --which append`` (merged against
    per-array appends);
-8. profile: where the decode time goes at the bench's default shapes and on
-   the int4 path (spec generate and AR generate on the host clock, with the
-   host time spent issuing draft steps, then under torch.profiler for the
+8. profile: where the decode time goes at the bench's default shapes, on
+   the int4 path and on the SnapKV path (spec generate and AR generate on
+   the host clock, SnapKV's spec generate only, with the host time spent
+   issuing draft steps, then under torch.profiler for the
    device's busy time and the kernels that take it), spec == AR again, and,
    on the default path, the AR step's decode_rows padding against its live
    rows, ten alternating pairs in one run.
@@ -401,10 +416,14 @@ def kernel_phase(torch, gen):
         attn_case("flash_decode_attend", DA.flash_decode_attend,
                   DA.flash_decode_attend_plain, f"draft T={T} S={Sd}", (dk4, dv4),
                   dense_fresh, T, base_d, 3)
-    for base in (7680, 0):
+    # the prefill chunks at the first and last bases of an encode, and
+    # SnapKV's 32-token observation-window chunk at the bench's 8192-token
+    # pre-window prefix
+    prefill_shapes = ((512, 7680), (512, 0), (32, 8192))
+    for C, base in prefill_shapes:
         attn_case("flash_prefill_attend", PA.flash_prefill_attend,
-                  PA.flash_prefill_attend_plain, f"C=512 base={base}", (k4, v4),
-                  dense_fresh, 512, torch.full((B,), base, device=dev, dtype=torch.int32), 1)
+                  PA.flash_prefill_attend_plain, f"C={C} base={base}", (k4, v4),
+                  dense_fresh, C, torch.full((B,), base, device=dev, dtype=torch.int32), 1)
     del dk4, dv4
 
     # K1q and K2q over the int8 cache quantized from the same values, at the
@@ -418,10 +437,10 @@ def kernel_phase(torch, gen):
                   quant_fresh, T, base_t, 3)
     _window_equals_steps(torch, "flash_decode_attend_quant", DA.flash_decode_attend_quant,
                          qcaches, layer, randn(B, 4, Hq, hd), base_t, quant_fresh(4))
-    for base in (7680, 0):
+    for C, base in prefill_shapes:
         attn_case("flash_prefill_attend_quant", PA.flash_prefill_attend_quant,
-                  PA.flash_prefill_attend_quant_plain, f"C=512 base={base}", qcaches,
-                  quant_fresh, 512, torch.full((B,), base, device=dev, dtype=torch.int32), 1)
+                  PA.flash_prefill_attend_quant_plain, f"C={C} base={base}", qcaches,
+                  quant_fresh, C, torch.full((B,), base, device=dev, dtype=torch.int32), 1)
     # B10 and B11 over the int4 cache packed in head pairs, quantized from
     # the same values
     kp4, kps4 = quantize4(k4)
@@ -433,10 +452,10 @@ def kernel_phase(torch, gen):
                   quant4_fresh, T, base_t, 3, swap=True)
     _window_equals_steps(torch, "flash_decode_attend_quant4", DA.flash_decode_attend_quant4,
                          pcaches, layer, randn(B, 4, Hq, hd), base_t, quant4_fresh(4))
-    for base in (7680, 0):
+    for C, base in prefill_shapes:
         attn_case("flash_prefill_attend_quant4", PA.flash_prefill_attend_quant4,
-                  PA.flash_prefill_attend_quant4_plain, f"C=512 base={base}", pcaches,
-                  quant4_fresh, 512, torch.full((B,), base, device=dev, dtype=torch.int32), 1,
+                  PA.flash_prefill_attend_quant4_plain, f"C={C} base={base}", pcaches,
+                  quant4_fresh, C, torch.full((B,), base, device=dev, dtype=torch.int32), 1,
                   swap=True)
     torch.cuda.empty_cache()
 
@@ -1091,7 +1110,7 @@ def main_path(torch, wrappers, required, argv, forbidden=(), min_tokens_per_step
     before and read just after.  Fails unless every kernel in ``required``
     was launched, none in ``forbidden`` was, tokens per step reach
     ``min_tokens_per_step`` and spec == AR on every committed token.
-    Returns (bench result, launches, peak GiB)."""
+    Returns (bench output, launches, peak GiB)."""
     from magicdec_tpu_torch import bench
 
     for w in wrappers:
@@ -1123,7 +1142,45 @@ def main_path(torch, wrappers, required, argv, forbidden=(), min_tokens_per_step
     if res["tokens_per_step"] < min_tokens_per_step:
         raise AssertionError(f"acceptance collapsed ({tag}): {res['tokens_per_step']} "
                              "tokens/step")
-    return res, launches, peak
+    return out, launches, peak
+
+
+def snapkv_main_path(torch, wrappers, required, forbidden):
+    """``main_path`` with ``--mode snapkv --iters 1``, the compression
+    (``SpecEngine._snapkv_fill_draft``) timed inside each encode between
+    synchronizations: its share of the last measured encode is printed.
+    Fails unless K2q ran the 32-token window chunk too: its launches exceed
+    the pre-window chunks' (16 layers x 16 chunks an encode)."""
+    from magicdec_tpu_torch.engine.engine import SpecEngine
+    from magicdec_tpu_torch.kernels import prefill_attention as PA
+
+    fill = SpecEngine._snapkv_fill_draft
+    times = []
+
+    def timed(self, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fill(self, *a, **kw)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+
+    SpecEngine._snapkv_fill_draft = timed
+    try:
+        out, launches, peak = main_path(torch, wrappers, required, ["--mode", "snapkv",
+                                                                    "--iters", "1"],
+                                        forbidden=forbidden)
+    finally:
+        SpecEngine._snapkv_fill_draft = fill
+    # spec encodes: the warmup and the measured one; baseline encodes run
+    # the 512-row chunks only (17 chunks at 8224 tokens)
+    chunks = 16 * (2 * 17 + 2 * 16)
+    if launches[PA.flash_prefill_attend_quant.__name__] != chunks + 16 * 2:
+        raise AssertionError(f"K2q launched {launches[PA.flash_prefill_attend_quant.__name__]} "
+                             f"times, not {chunks} chunk calls + 32 window-chunk calls")
+    print(f"[snapkv] the compression (16 layers x 32 requests) took {times[-1]:.4f} s of the "
+          f"last measured encode's {out['encode_s']:.4f} s ({times[-1] / out['encode_s']:.1%}; "
+          f"every encode: {[round(t, 4) for t in times]} s)", flush=True)
+    return out, launches, peak
 
 
 # The serving paths: llama-3.2-1b widths, synthetic weights, gamma 3, draft
@@ -1212,12 +1269,12 @@ def np_equal(a, b):
     return len(a) == len(b) and bool((a == b).all())
 
 
-def contiguous_serve(extra, prompts):
+def contiguous_serve(argv, prompts):
     """The same prompts through ``ServingEngine`` (contiguous slots), slots
-    and windows_per_sync of the paged run."""
+    and windows_per_sync of the paged run of ``argv``."""
     from magicdec_tpu_torch import serving_bench
 
-    args = serving_bench.parse_args([a for a in SERVE_ARGV + extra if a != "--paged"])
+    args = serving_bench.parse_args([a for a in argv if a != "--paged"])
     engine, _ = serving_bench.setup(args)
     return engine.serve(prompts, B=args.slots, windows_per_sync=args.windows_per_sync)
 
@@ -1255,7 +1312,7 @@ def serving_phase(torch, wrappers, kernels):
         if fmt == "bf16":
             result["append_paged_rows_inplace"] = launches["append_paged_rows_inplace"]
         t0 = time.perf_counter()
-        contig = contiguous_serve(extra, out["prompts"])
+        contig = contiguous_serve(SERVE_ARGV + extra, out["prompts"])
         print(f"[serve {fmt}] " + _same_tokens(
             "PagedServingEngine against ServingEngine", out["outputs"], contig)
             + f" (contiguous serve {time.perf_counter() - t0:.1f}s)", flush=True)
@@ -1285,6 +1342,64 @@ def serving_phase(torch, wrappers, kernels):
     if peaks["int8 half"] >= peaks["int8"]:
         raise AssertionError("the half pool did not peak below the full one")
     return result
+
+
+# The paged SnapKV serve: 16 slots, 16 requests of one length (7936 rounds
+# to 7968 = 62 x 128 + 32, SnapKV's shape contract; not ragged, which the
+# contract refuses), an int8 pool of 512-row pages, the bf16 draft shared
+# with the target (serving_bench's default)
+SNAPKV_SERVE_ARGV = ["--mode", "snapkv", "--kv_quant", "int8", "--paged", "--slots", "16",
+                     "--num_requests", "16", "--prefix_len", "7936", "--max_len", "8192",
+                     "--page_size", "512", "--skip_warmup"]
+
+
+def snapkv_serving_phase(torch, wrappers, kernels):
+    """``serving_bench`` with SNAPKV_SERVE_ARGV, the counters zeroed just
+    before and read just after: B12's int8 pool once a layer per target
+    pass, B13 (the verify's target half), K3 (its draft half, contiguous),
+    K2q and K3q (the admission's encode, window chunk included) and K1 (the
+    draft) launched, no other paged kernel and no contiguous K1q; then
+    ``ServingEngine`` on the same prompts must give every token.  Returns
+    the launches."""
+    from magicdec_tpu_torch import serving_bench
+
+    DA, PA, AP, PGA = (kernels[n] for n in ("DA", "PA", "AP", "PGA"))
+    for w in wrappers:
+        w.launches = 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = serving_bench.main(SNAPKV_SERVE_ARGV)
+    wall = time.perf_counter() - t0
+    launches = {w.__name__: w.launches for w in wrappers}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[serve snapkv] wall={wall:.1f}s launches={launches} peak_mem={peak:.2f} GiB",
+          flush=True)
+    print("[serve snapkv] " + _serving_summary(out), flush=True)
+    required = [PGA.flash_paged_decode_attend_quant, PGA.append_paged_rows_inplace,
+                AP.append_all_rows_inplace, PA.flash_prefill_attend_quant,
+                AP.append_all_rows_inplace_quant, DA.flash_decode_attend]
+    forbidden = [PGA.flash_paged_decode_attend, PGA.flash_paged_decode_attend_quant4,
+                 DA.flash_decode_attend_quant]
+    for w in required:
+        if launches[w.__name__] <= 0:
+            raise AssertionError(f"the snapkv serve never launched {w.__name__}")
+    for w in forbidden:
+        if launches[w.__name__]:
+            raise AssertionError(f"the snapkv serve launched {w.__name__}")
+    passes = out["stats"]["windows"]
+    if launches["flash_paged_decode_attend_quant"] != 16 * passes:
+        raise AssertionError(f"B12-int8 launched {launches['flash_paged_decode_attend_quant']} "
+                             f"times, not 16 layers x {passes} target passes")
+    if out["stats"]["tokens_per_step"] < 1.8:
+        raise AssertionError(f"snapkv serve acceptance collapsed: "
+                             f"{out['stats']['tokens_per_step']} tokens/step")
+    t0 = time.perf_counter()
+    contig = contiguous_serve(SNAPKV_SERVE_ARGV, out["prompts"])
+    print("[serve snapkv] " + _same_tokens("PagedServingEngine against ServingEngine",
+                                           out["outputs"], contig)
+          + f" (contiguous serve {time.perf_counter() - t0:.1f}s)", flush=True)
+    return launches
 
 
 # C2: served == solo (the JAX package's contract, tests/test_paged_serving.py
@@ -1433,8 +1548,9 @@ def row_invariance_phase(torch, B=32, dense=False):
     """Is a target row computed the same at verify (M = B*(gamma+1) rows) as
     at the AR step (M = B)?  At the bench's widths, each target dot alone,
     then two layers and the head: the logits of a 4-token verify window
-    against 4 single-token steps, with the dots at the live row count and
-    padded to decode_rows.  ``dense``: the model part with the target's
+    (``forward_target``'s and SnapKV's ``forward_verify_snapkv``, which must
+    share its target pass) against 4 single-token steps, with the dots at
+    the live row count and padded to decode_rows.  ``dense``: the model part with the target's
     bf16 dots on B15 (``quantization.set_dense_kernels``), which must
     launch; the dots alone are cuBLAS's and are skipped."""
     import dataclasses
@@ -1486,6 +1602,8 @@ def row_invariance_phase(torch, B=32, dense=False):
     for fn in (DK.dense_matmul_fused, DK.dense_mlp):
         fn.launches = 0
     Q.set_dense_kernels(dense)
+    dshape = (cfg.n_layer, B, 640, cfg.n_kv_head * cfg.head_dim)
+    dfill = torch.full((B,), 513, dtype=torch.int32, device=dev)
     try:
         for rows in (0, B * T):
             hcfg = dataclasses.replace(cfg, decode_rows=rows)
@@ -1494,10 +1612,23 @@ def row_invariance_phase(torch, B=32, dense=False):
             c = {n: t.clone() for n, t in caches.items()}
             ar = torch.cat([M.forward_target(params, hcfg, tokens[:, t:t + 1], lens + t, c,
                                              head="logits")[0] for t in range(T)], dim=1)
+            # SnapKV's verify (the target pass and the dual append into a
+            # 640-row draft cache at fill 513)
+            c = {n: t.clone() for n, t in caches.items()}
+            c.update({n: torch.zeros(dshape, dtype=torch.bfloat16, device=dev)
+                      for n in ("dk", "dv")})
+            snap, _ = M.forward_verify_snapkv(params, hcfg, tokens, lens, dfill, c,
+                                              head="logits")
+            del c
             differ = int((verify != ar).any(-1).sum())
+            differ_snap = int((snap != ar).any(-1).sum())
             print(f"[rows] B={B} decode_rows={rows}{tag}: {differ} of {B * T} target rows "
                   f"differ in bits between verify and AR, {int((verify != ar).sum())} of "
-                  f"{ar.numel()} logits", flush=True)
+                  f"{ar.numel()} logits; the snapkv verify: {differ_snap} rows, "
+                  f"{int((snap != ar).sum())} logits", flush=True)
+            if rows and differ_snap:
+                raise AssertionError(f"B={B}{tag}: the snapkv verify's target rows differ "
+                                     "from AR even with the dots padded to decode_rows")
             if rows and differ:
                 # the engine runs its target passes at decode_rows = B * (gamma + 1)
                 # and rests on this for greedy spec == AR
@@ -1637,11 +1768,12 @@ def _kernel_class(name):
     return "other PyTorch ops"
 
 
-def profile_phase(torch, argv=(), pad_pairs=True):
+def profile_phase(torch, argv=(), pad_pairs=True, spec_only=False):
     """Spec generate and AR generate at the bench's shapes with ``argv``:
     host-clock wall time, then a profiled run for the device's busy time and
     the kernels that take it, then whether the spec and AR tokens agree;
-    ``pad_pairs``: then the AR step padded against its live rows."""
+    ``pad_pairs``: then the AR step padded against its live rows;
+    ``spec_only``: spec generate alone (its AR is another path's)."""
     from torch.profiler import ProfilerActivity, profile
 
     from magicdec_tpu_torch import bench
@@ -1661,7 +1793,7 @@ def profile_phase(torch, argv=(), pad_pairs=True):
         draft_s[0] += time.perf_counter() - t0
         return out
     runs = (("spec", engine.encode, engine.generate),
-            ("AR", engine.encode_baseline, engine.generate_baseline))
+            ("AR", engine.encode_baseline, engine.generate_baseline))[:1 if spec_only else 2]
     outputs = {}
     for name, encode, generate in runs:
         torch.cuda.synchronize()
@@ -1712,6 +1844,9 @@ def profile_phase(torch, argv=(), pad_pairs=True):
         for e in sorted(kern, key=_device_ms, reverse=True)[:6]:
             print(f"[profile {tag}]   {_device_ms(e):8.2f} ms  x{e.count:<6d} {e.key[:90]}",
                   flush=True)
+    if spec_only:
+        del engine
+        return
     print(f"[profile {tag}] " + _agreement(outputs["spec"]["output"],
                                            outputs["spec"]["num_committed"],
                                            outputs["AR"]["output"], args.max_gen), flush=True)
@@ -1829,7 +1964,7 @@ def main():
     # (1) the default path (one measured repeat): the target on the int8 KV
     # kernels, the draft's int8 weight copy on B4/B5/B6 and its bf16 cache
     # on K1 and K3; B14 and B15 stay off by default
-    _, launches, peak8 = main_path(
+    out1, launches, peak8 = main_path(
         torch, wrappers, quant + dots + [DA.flash_decode_attend, AP.append_all_rows_inplace],
         ["--iters", "1"], forbidden=paged + per_array + dense_dots)
     # (2) all bf16 (one measured repeat): K2 carries the target prefill
@@ -1858,6 +1993,22 @@ def main():
               ["--kv_quant", "int4", "--iters", "1"],
               forbidden=[DA.flash_decode_attend_quant, PA.flash_prefill_attend_quant]
               + dots4)
+    # (11) SnapKV self-speculation at the bench defaults (one measured
+    # repeat; the prefix rounds to 8224): no draft prefill, the draft cache
+    # compressed from the target's; K2q also runs the 32-token window chunk,
+    # the verify appends to both caches (K3q and K3).  The compression's
+    # scores must run in full float32
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("torch.backends.cuda.matmul.allow_tf32 is True: SnapKV's "
+                             "scores would run in TF32")
+    print("[snapkv] torch.backends.cuda.matmul.allow_tf32 is False: the compression's "
+          "scores run in float32", flush=True)
+    out_snap, launches_snap, peak_snap = snapkv_main_path(
+        torch, wrappers, quant + dots + [DA.flash_decode_attend, AP.append_all_rows_inplace],
+        forbidden=paged + per_array + dense_dots + [QK.quant_mlp])
+    print(f"[snapkv] time to first token (B=32): snapkv {out_snap['encode_s']:.4f} s against "
+          f"streamingllm's {out1['encode_s']:.4f} s (path (1)); peak device memory "
+          f"{peak_snap:.2f} GiB against {peak8:.2f} GiB", flush=True)
     launches["flash_prefill_attend"] = launches16["flash_prefill_attend"]
     launches["quant_mlp"] = launches2["quant_mlp"]
     launches.update({w.__name__: launches4[w.__name__] for w in quant4 + dots4})
@@ -1898,6 +2049,8 @@ def main():
     # (6)-(9) the paged serving paths
     launches.update(serving_phase(torch, wrappers, {"DA": DA, "PA": PA, "AP": AP, "PGA": PGA}))
     phase_done("serving paths")
+    snapkv_serving_phase(torch, wrappers, {"DA": DA, "PA": PA, "AP": AP, "PGA": PGA})
+    phase_done("snapkv serve")
     solo_phase(torch)
     phase_done("C2: served against solo")
     # the row-invariance question (PERF.md): is a target row computed the
@@ -1912,6 +2065,7 @@ def main():
     phase_done("dense and append A/B")
     profile_phase(torch)
     profile_phase(torch, ["--kv_quant", "int4", "--draft_quant", "int4"], pad_pairs=False)
+    profile_phase(torch, ["--mode", "snapkv"], spec_only=True)
     phase_done("profiles")
 
     meta = {

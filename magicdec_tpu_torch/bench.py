@@ -5,7 +5,10 @@ throughput (counterpart of the repository's ``bench.py``).
 
 Same protocol, flags and defaults as ``bench.py`` for what this port runs:
 llama-3.2-1b widths with synthetic weights, StreamingLLM self-speculation at
-B=32, prefix 8192, gamma=3, draft budget 513, prefill chunk 512, max_gen 80,
+B=32, prefix 8192, gamma=3, draft budget 513, prefill chunk 512, max_gen 80
+(``--mode snapkv``: the SnapKV draft cache, observation window 32, avg-pool
+kernel 5, the prefix rounded as ``bench.py`` rounds it to a multiple of 128
+plus 32, so 8224 by default),
 an int8 target KV cache with f32 scales (``--kv_quant none``: bf16;
 ``--kv_quant int4``: int4 packed in kv-head pairs, the capacity format),
 bf16 verify weights, and an int8 per-channel copy of the weights for the
@@ -112,12 +115,21 @@ def parse_args(argv=None):
     p.add_argument("--draft_head", default="quant", choices=["quant", "shared"],
                    help="shared: the quantized draft copy reuses the target's bf16 lm_head")
     p.add_argument("--device", default="cuda")
-    return p.parse_args(argv)
+    args = p.parse_args(argv)
+    if args.mode == "snapkv":
+        args.prefix_len = snapkv_prefix(args.prefix_len)
+    return args
+
+
+def snapkv_prefix(prefix: int) -> int:
+    """SnapKV's shape contract, as ``bench.py`` and
+    ``benchmarks/serving_benchmark.py`` apply it: the prefill's last chunk
+    is the 32-token observation window, so the prefix is a multiple of 128
+    plus 32."""
+    return (prefix // 128) * 128 + 32
 
 
 def _not_ported(args):
-    if args.mode != "streamingllm":
-        return "--mode snapkv is ROADMAP item A7"
     if args.attn_backend != "flash":
         return "--attn_backend jnp: the port runs its Hopper kernels only"
     if args.quant_backend != "pallas":
@@ -133,7 +145,8 @@ def _not_ported(args):
 
 def metric_name(args) -> str:
     """The result's metric name: ``bench.py``'s, with its quantization tags
-    before ``_B``, and ``_torch`` after."""
+    before ``_B``, and ``_torch`` after; ``ctx`` is the prefix run (rounded
+    under SnapKV)."""
     tag = f"_{args.quantize}" if args.quantize else ""
     tag += f"_kvq{args.kv_quant[3:]}" if args.kv_quant != "none" else ""
     tag += f"_dq{args.draft_quant[3:]}" if args.draft_quant != "none" else ""

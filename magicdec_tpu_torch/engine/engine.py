@@ -1,11 +1,21 @@
-"""Self-speculative decoding engine, StreamingLLM mode (counterpart of
-magicdec_tpu/engine/engine.py ``SpecEngine``).
+"""Self-speculative decoding engine (counterpart of
+magicdec_tpu/engine/engine.py ``SpecEngine``), with either draft cache of
+the JAX package: StreamingLLM (``mode="streamingllm"``) or SnapKV
+(``mode="snapkv"``).
 
-- ``encode``            chunked target prefill, then the StreamingLLM draft
-                        prefill with sink+window eviction;
+- ``encode``            StreamingLLM: chunked target prefill, then the
+                        draft prefill with sink+window eviction.  SnapKV:
+                        chunked target prefill of the prefix before the
+                        observation window, the window chunk collecting its
+                        roped queries, then per layer the draft cache
+                        compressed from the target's own cache
+                        (``ops/snapkv.py``); no draft prefill runs;
 - ``generate``          draft gamma tokens / verify / accept / roll back by
-                        length arithmetic, one window per loop iteration;
-                        the host reads ``done`` once per window;
+                        length arithmetic, one window per loop iteration
+                        (``_window`` picks the mode's); the host reads
+                        ``done`` once per window.  SnapKV drafts at real
+                        rope positions and its verify appends the window's
+                        rows to both caches (``forward_verify_snapkv``);
 - ``encode_baseline`` / ``generate_baseline``  greedy autoregressive decoding.
 
 Greedy acceptance matches the reference exactly (engine/spec.py).  The draft
@@ -66,13 +76,16 @@ def weight_quant_bits(draft_quant) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
-    mode: str = "streamingllm"       # "snapkv" arrives with ROADMAP A7
+    mode: str = "streamingllm"       # "streamingllm" | "snapkv"
     gamma: int = 3
     draft_budget: int = 257          # reference constraint: budget % 128 == 1
     max_seq_len: int = 2048
     chunk_size: int = 128            # draft-eviction granularity
     prefill_chunk_size: int = 0      # target prefill chunk (0 = chunk_size)
+    window_size: int = 32            # SnapKV observation window
     sink_size: int = 16              # StreamingLLM attention sink
+    kernel_size: int = 5             # SnapKV pooling kernel
+    pooling: str = "avgpool"         # SnapKV pooling: "avgpool" | "maxpool"
     max_gen: int = 80                # reference stop rule
     eot_ids: Tuple[int, ...] = (-1,)
     cache_dtype: Any = torch.bfloat16
@@ -97,11 +110,10 @@ class SpecEngine:
     def __init__(self, params, cfg: ModelConfig, ecfg: EngineConfig,
                  device="cuda"):
         self.device = resolve_device(device)
-        if ecfg.mode != "streamingllm":
-            raise NotImplementedError(
-                f"mode {ecfg.mode!r}: the port runs streamingllm only "
-                "(SnapKV is ROADMAP item A7)")
-        if ecfg.draft_budget - ecfg.sink_size < ecfg.chunk_size:
+        if ecfg.mode not in ("streamingllm", "snapkv"):
+            raise ValueError(f"mode must be 'streamingllm' or 'snapkv', got {ecfg.mode!r}")
+        if (ecfg.mode == "streamingllm"
+                and ecfg.draft_budget - ecfg.sink_size < ecfg.chunk_size):
             raise ValueError(
                 f"streamingllm eviction needs draft_budget - sink_size >= "
                 f"chunk_size (got {ecfg.draft_budget} - {ecfg.sink_size} < "
@@ -206,12 +218,28 @@ class SpecEngine:
         """Prefill's first generated token."""
         return M.head_argmax(self.params, self.cfg, x_last[:, None])[:, 0]
 
+    def _fresh_state(self, tcaches, dcaches, lens, token0, draft_fill, draft_pos) -> SpecState:
+        B = token0.shape[0]
+        return SpecState(
+            k=tcaches["k"], v=tcaches["v"], ks=tcaches.get("ks"), vs=tcaches.get("vs"),
+            target_lens=lens,
+            dk=dcaches["dk"], dv=dcaches["dv"],
+            draft_fill=draft_fill, draft_pos=draft_pos, token0=token0,
+            output=torch.zeros((B, self._out_cap), dtype=torch.int32, device=self.device),
+            num_committed=torch.zeros((B,), dtype=torch.int32, device=self.device),
+            target_steps=torch.zeros((), dtype=torch.int32, device=self.device),
+            done=torch.zeros((), dtype=torch.bool, device=self.device),
+            db_tokens=torch.stack([token0, torch.zeros_like(token0)], dim=1),
+            db_update=torch.ones((B,), dtype=torch.int32, device=self.device))
+
     def encode(self, input_ids) -> SpecState:
         """Prefill both caches from [B, prefix] prompts; returns ready state."""
         e = self.ecfg
         tokens = self._tokens(input_ids)
         B, prefix = tokens.shape
         self._check_capacity(prefix)
+        if e.mode == "snapkv":
+            return self._encode_snapkv(tokens)
         tcaches, dcaches = self._zero_caches(B)
         lens, x_last = self._target_prefill(tokens, tcaches)
         token0 = self._head_token(x_last)
@@ -227,17 +255,54 @@ class SpecEngine:
             fill = min(fill + chunk.shape[1], e.draft_budget)
         dcaches = M.streaming_finalize_draft(self.cfg, dcaches, budget=e.draft_budget)
         draft_fill = torch.full((B,), fill, dtype=torch.int32, device=self.device)
-        return SpecState(
-            k=tcaches["k"], v=tcaches["v"], ks=tcaches.get("ks"), vs=tcaches.get("vs"),
-            target_lens=lens,
-            dk=dcaches["dk"], dv=dcaches["dv"],
-            draft_fill=draft_fill, draft_pos=draft_fill.clone(), token0=token0,
-            output=torch.zeros((B, self._out_cap), dtype=torch.int32, device=self.device),
-            num_committed=torch.zeros((B,), dtype=torch.int32, device=self.device),
-            target_steps=torch.zeros((), dtype=torch.int32, device=self.device),
-            done=torch.zeros((), dtype=torch.bool, device=self.device),
-            db_tokens=torch.stack([token0, torch.zeros_like(token0)], dim=1),
-            db_update=torch.ones((B,), dtype=torch.int32, device=self.device))
+        return self._fresh_state(tcaches, dcaches, lens, token0, draft_fill, draft_fill.clone())
+
+    def _encode_snapkv(self, tokens) -> SpecState:
+        """SnapKV encode (the JAX package's split encode,
+        ``_encode_split_snapkv``): the prefix before the observation window
+        in ``prefill_chunk_size`` chunks (the remainder last, the monolithic
+        encode's layout), the W-token window chunk collecting each layer's
+        roped queries, then the draft cache compressed layer by layer from
+        the target's cache into slots [0, budget).  The draft keeps real
+        rope positions: draft_fill = budget, draft_pos = the prefix."""
+        e = self.ecfg
+        B, prefix = tokens.shape
+        W = e.window_size
+        if prefix < W or prefix % e.chunk_size != W % e.chunk_size:
+            raise ValueError(
+                f"snapkv prefill requires prefix = window (mod chunk_size): a prefix of "
+                f"{prefix} with window {W} and chunk_size {e.chunk_size} (bench and "
+                f"serving_bench round the prefix to a multiple of 128 plus 32)")
+        tcaches, dcaches = self._zero_caches(B)
+        lens, _ = self._target_prefill(tokens[:, :prefix - W], tcaches)
+        x, tcaches, qs = M.forward_prefill_snapkv_window(
+            self.params, self.cfg, tokens[:, prefix - W:], lens, tcaches)
+        self._snapkv_fill_draft(tcaches, dcaches, qs, prefix)
+        token0 = self._head_token(x[:, -1])
+        lens = lens + W
+        return self._fresh_state(
+            tcaches, dcaches, lens, token0,
+            torch.full((B,), e.draft_budget, dtype=torch.int32, device=self.device),
+            lens.clone())
+
+    def _snapkv_fill_draft(self, tcaches, dcaches, qs, prefix: int) -> None:
+        """Compress each layer's target cache (window appended) with its
+        window queries qs [L, B, W, Hq*hd] into draft slots [0, budget), in
+        place: one layer's [B, budget, Kc] draft rows live at a time (the
+        JAX package's ``_snapkv_compress_split``)."""
+        from magicdec_tpu_torch.ops.snapkv import snapkv_compress
+
+        e, c = self.ecfg, self.cfg
+        L, B, W = qs.shape[:3]
+        quant = "ks" in tcaches
+        for l in range(L):
+            dk, dv = snapkv_compress(
+                qs[l].reshape(B, W, c.n_head, c.head_dim), tcaches["k"][l], tcaches["v"][l],
+                ctx_len=prefix, window=W, budget=e.draft_budget, kernel_size=e.kernel_size,
+                pooling=e.pooling, k_scale=tcaches["ks"][l] if quant else None,
+                v_scale=tcaches["vs"][l] if quant else None)
+            dcaches["dk"][l, :, :e.draft_budget] = dk.reshape(B, e.draft_budget, -1)
+            dcaches["dv"][l, :, :e.draft_budget] = dv.reshape(B, e.draft_budget, -1)
 
     # -- speculative generation --------------------------------------------
 
@@ -245,7 +310,7 @@ class SpecEngine:
         max_steps = self.ecfg.max_gen + 1  # every window commits >= 1 token
         steps = 0
         while steps < max_steps and not bool(state.done):
-            state = self._window_streaming(state)
+            state = self._window()(state)
             steps += 1
         stats = {"output": state.output, "num_committed": state.num_committed,
                  "gen_tokens": state.num_committed - 1,  # excludes the prefill token
@@ -304,6 +369,10 @@ class SpecEngine:
             db_update=db_update)
         return st if masks is None else (st, done_vec)
 
+    def _window(self):
+        """The speculation-window step of this engine's draft-cache mode."""
+        return self._window_snapkv if self.ecfg.mode == "snapkv" else self._window_streaming
+
     def _window_streaming(self, st: SpecState, masks=None):
         """Double-buffer speculation window: the first draft step consumes the
         2-token double buffer (bonus + carried last-draft token after a fully
@@ -332,6 +401,31 @@ class SpecEngine:
             st, tokens_buffer, target_tokens,
             fill_after=lambda acc: f0 + st.db_update - 1 + torch.clamp(acc, max=e.gamma),
             masks=masks)
+
+    def _window_snapkv(self, st: SpecState, masks=None):
+        """SnapKV window: gamma single-token draft steps at real rope
+        positions from token0, then the target verify with the dual append
+        at draft fill f0, which overwrites the speculated slots; the fill
+        and the position advance by the accepted count.  ``masks``: serving
+        mode, as in ``_finish_window``."""
+        e = self.ecfg
+        f0 = st.draft_fill
+        dcaches = {"dk": st.dk, "dv": st.dv}
+        tok, fill, pos = st.token0, f0, st.draft_pos
+        drafted = []
+        for _ in range(e.gamma):
+            nxt, dcaches = M.forward_draft(self.draft_params, self.cfg, tok[:, None], fill,
+                                           pos, dcaches)
+            tok = nxt[:, 0]
+            drafted.append(tok)
+            fill, pos = fill + 1, pos + 1
+        tokens_buffer = torch.stack([st.token0, *drafted], dim=1)
+        caches = {**self._state_tcaches(st), **dcaches}
+        target_tokens, _ = M.forward_verify_snapkv(
+            self.params, self._hinted(tokens_buffer.shape[0]), tokens_buffer,
+            st.target_lens, f0, caches)
+        return self._finish_window(st, tokens_buffer, target_tokens,
+                                   fill_after=lambda acc: f0 + acc, masks=masks)
 
     # -- autoregressive baseline --------------------------------------------
 

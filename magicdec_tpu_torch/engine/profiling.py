@@ -91,7 +91,9 @@ def time_phases_config(engine, B: int, ctx: int, iters: int = 20) -> Dict[str, f
     dev = engine.device
     lens = torch.full((B,), ctx, dtype=torch.int32, device=dev)
     dfill = torch.full((B,), min(e.draft_budget, ctx), dtype=torch.int32, device=dev)
-    return _time_phases_impl(engine, B, lens, dfill, dfill, tshapes, dshapes, iters)
+    # a SnapKV draft ropes at the target's positions
+    dpos = lens if e.mode == "snapkv" else dfill
+    return _time_phases_impl(engine, B, lens, dfill, dpos, tshapes, dshapes, iters)
 
 
 def time_phases(engine, state, iters: int = 20) -> Dict[str, float]:

@@ -43,8 +43,8 @@ _SLOT_FIELDS = ("target_lens", "draft_fill", "draft_pos", "token0", "num_committ
 
 
 class ServingEngine(SpecEngine):
-    """StreamingLLM self-speculation with a per-request lifecycle over B
-    contiguous slots.  ``serve(prompts, B)`` runs the whole stream and
+    """Self-speculation (either draft cache) with a per-request lifecycle
+    over B contiguous slots.  ``serve(prompts, B)`` runs the whole stream and
     returns each request's generated tokens in submission order."""
 
     def _empty_state(self, tcaches: dict, dcaches: dict, B: int, table=None) -> ServingState:
@@ -205,7 +205,7 @@ class ServingEngine(SpecEngine):
         while pending or slot_pages:
             for _ in range(windows_per_sync):  # no host read in here
                 passes += (sst.active & ~sst.done).to(torch.int32)
-                spec, done = self._window_streaming(sst.spec, masks=(sst.active, sst.done))
+                spec, done = self._window()(sst.spec, masks=(sst.active, sst.done))
                 sst = ServingState(spec=spec, active=sst.active, done=done)
             count["windows"] += windows_per_sync
             sst = refill(sst)
@@ -240,7 +240,8 @@ class PagedServingEngine(ServingEngine):
     - the decode windows run the paged decode kernel (B12) and one paged
       append per forward (B13).
 
-    The draft's budget-sized caches stay contiguous per slot.  One page
+    The draft's budget-sized caches stay contiguous per slot (SnapKV's
+    verify appends its draft half there by K3).  One page
     group only (the JAX package's data axis is ROADMAP item A15).
     """
 

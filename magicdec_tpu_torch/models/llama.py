@@ -27,7 +27,9 @@ int8 or int4 ``quantization.QuantizedWeight`` (the draft's weight copy,
 ``EngineConfig.draft_quant``): ``matmul`` dispatches on it; with int8 the
 attention norm rides the wqkv dot (B4), draft decode passes run each
 layer's tail as one B5 call and the head as B6; with int4 every dot is
-B4-int4 (the norms run first) and the head B6-int4.
+B4-int4 (the norms run first) and the head B6-int4.  Every target pass
+(``forward_target``, and SnapKV's window chunk and dual-append verify)
+runs one layer loop, ``_target_layers``.
 """
 
 from __future__ import annotations
@@ -287,6 +289,26 @@ def _decode_layers(params, cfg, x, B, T, cs, attend_fn, *, mega=False):
     return x, {n: torch.stack([r[n] for r in per_layer]) for n in per_layer[0]}
 
 
+def _target_layers(params, cfg, tokens, base_lens, caches, collect=None):
+    """Embed tokens [B, T], pad to ``cfg.decode_rows`` and run every layer
+    over the target cache at positions base_lens + arange(T), attending the
+    layer's new KV as fresh operands; ``collect(l, q, k, v, rows) -> dict``
+    adds its tensors (of the live rows) to layer l's rows.  Returns x [R, D]
+    and the rows stacked [L, ...].  Every target pass takes this one path, so a
+    target row gets the same arithmetic at the verify and at the
+    autoregressive step, whichever pass runs the verify."""
+    B, T = tokens.shape
+    pos = base_lens[:, None] + torch.arange(T, device=tokens.device, dtype=torch.int32)
+    cs = rope_cos_sin(pos, rope_inv_freq(cfg, tokens.device))
+    x = pad_rows(embed_lookup(params, tokens), cfg.decode_rows)
+
+    def attend_fn(q, k, v, l):
+        out, rows = _target_attend(q, k, v, caches, l, base_lens)
+        return out, (rows if collect is None else {**rows, **collect(l, q, k, v, rows)})
+
+    return _decode_layers(params, cfg, x, B, T, cs, attend_fn)
+
+
 def forward_target(params: Params, cfg: ModelConfig, tokens, base_lens, caches,
                    *, head: str = "argmax"):
     """Decode / verify / prefill chunk over the full target cache.
@@ -299,13 +321,93 @@ def forward_target(params: Params, cfg: ModelConfig, tokens, base_lens, caches,
     count (``pad_rows``).  Returns (head output, caches).
     """
     B, T = tokens.shape
-    pos = base_lens[:, None] + torch.arange(T, device=tokens.device, dtype=torch.int32)
-    cs = rope_cos_sin(pos, rope_inv_freq(cfg, tokens.device))
-    x = pad_rows(embed_lookup(params, tokens), cfg.decode_rows)
-    x, rows = _decode_layers(
-        params, cfg, x, B, T, cs,
-        lambda q, k, v, l: _target_attend(q, k, v, caches, l, base_lens))
+    x, rows = _target_layers(params, cfg, tokens, base_lens, caches)
     caches = _append_rows(caches, rows, base_lens)
+    return _head(params, cfg, x, head, B, T), caches
+
+
+def forward_verify_snapkv(params: Params, cfg: ModelConfig, tokens, base_lens, draft_fill,
+                          caches, *, head: str = "argmax"):
+    """SnapKV self-speculation verify: ``forward_target``'s pass, then a
+    dual append.
+
+    The T window tokens' k, v (roped at their real positions) go into the
+    target cache at base_lens and, in the draft cache's dtype, into the
+    draft cache at draft_fill [B], over the slots the draft speculated
+    (the JAX package's ``forward_verify_snapkv``).  The draft rows are the
+    live rows' only, never the decode_rows padding.  caches: the target's
+    {'k','v'[,'ks','vs','table']} and the draft's {'dk','dv'}; the draft
+    cache stays contiguous under paged serving.  Returns (head output,
+    caches)."""
+    B, T = tokens.shape
+
+    def draft_rows(l, q, k, v, rows):
+        d = _kv_rows(k, v, caches, prefix="d")
+        return {"dk": d["k"], "dv": d["v"]}
+
+    x, rows = _target_layers(params, cfg, tokens, base_lens, caches, collect=draft_rows)
+    caches = _append_rows(caches, rows, base_lens)
+    caches = _append_rows(caches, {"k": rows["dk"], "v": rows["dv"]}, draft_fill, prefix="d")
+    return _head(params, cfg, x, head, B, T), caches
+
+
+def forward_prefill_snapkv_window(params: Params, cfg: ModelConfig, tokens, base_lens,
+                                  caches):
+    """The SnapKV observation-window chunk without the compression: the
+    target's forward and append of tokens [B, W] at base_lens, collecting
+    each layer's roped window queries.
+
+    Returns (x [B, W, D] final hidden states, caches with the window
+    appended, qs [L, B, W, Hq*hd]).  The engine then compresses layer by
+    layer (``ops.snapkv.snapkv_compress``); the values equal
+    ``forward_prefill_snapkv_last``'s, which compresses inside the layer
+    loop from the same queries and the same appended rows."""
+    B, W = tokens.shape
+    x, rows = _target_layers(params, cfg, tokens, base_lens, caches,
+                             collect=lambda l, q, k, v, rows: {"q": q.reshape(B, W, -1)})
+    caches = _append_rows(caches, rows, base_lens)
+    return _head(params, cfg, x, "none", B, W), caches, rows["q"]
+
+
+def forward_prefill_snapkv_last(params: Params, cfg: ModelConfig, tokens, base_lens, caches,
+                                *, ctx_len: int, window: int, budget: int,
+                                kernel_size: int = 5, pooling: str = "avgpool",
+                                head: str = "none"):
+    """The last SnapKV prefill chunk with the compression inside the layer
+    loop (the JAX package's ``forward_prefill_snapkv_last``): the target's
+    forward and append of tokens [B, window] at base_lens, and per layer
+    the draft set compressed from the layer's cache with the window's rows
+    written, filling draft slots [0, budget) of every layer.
+
+    ctx_len: the prefix length after this chunk.  caches: the target's and
+    the draft's {'dk','dv'}.  Each layer's compression reads a copy of the
+    layer with the window written (the cache itself is appended after the
+    loop).  Returns (head output, caches)."""
+    from magicdec_tpu_torch.ops.kv_cache import (append_rows_all_layers,
+                                                 append_scale_rows_all_layers)
+    from magicdec_tpu_torch.ops.snapkv import snapkv_compress
+
+    B, T = tokens.shape
+
+    def compress(l, q, k, v, rows):
+        layer = {}
+        for n in ("k", "v"):
+            layer[n] = append_rows_all_layers(caches[n][l:l + 1].clone(), rows[n][None],
+                                              base_lens)[0]
+        for n in ("ks", "vs"):
+            if n in rows:
+                layer[n] = append_scale_rows_all_layers(caches[n][l:l + 1].clone(),
+                                                        rows[n][None], base_lens)[0]
+        dk, dv = snapkv_compress(q[:, -window:], layer["k"], layer["v"], ctx_len=ctx_len,
+                                 window=window, budget=budget, kernel_size=kernel_size,
+                                 pooling=pooling, k_scale=layer.get("ks"),
+                                 v_scale=layer.get("vs"))
+        return {"dk": dk.reshape(B, budget, -1), "dv": dv.reshape(B, budget, -1)}
+
+    x, rows = _target_layers(params, cfg, tokens, base_lens, caches, collect=compress)
+    caches = _append_rows(caches, rows, base_lens)
+    caches["dk"][:, :, :budget] = rows["dk"]
+    caches["dv"][:, :, :budget] = rows["dv"]
     return _head(params, cfg, x, head, B, T), caches
 
 

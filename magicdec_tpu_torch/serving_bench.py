@@ -4,9 +4,13 @@
     python -m magicdec_tpu_torch.serving_bench [--paged] [--slots 4] ...
 
 A stream of requests is served through a fixed number of batch slots with
-StreamingLLM self-speculation; finished slots are recycled with freshly
-prefilled queued prompts (``engine/serving.py``; ``--paged``: over a shared
-KV page pool, ``PagedServingEngine``).  Same flags, defaults and JSON line
+StreamingLLM self-speculation (``--mode snapkv``: the SnapKV draft cache,
+the prefix rounded to a multiple of 128 plus 32 before the corpus is built,
+as the JAX benchmark does; ``--ragged`` lengths then break SnapKV's shape
+contract and the encode raises, as the JAX package's asserts); finished
+slots are recycled with freshly prefilled queued prompts
+(``engine/serving.py``; ``--paged``: over a shared KV page pool,
+``PagedServingEngine``).  Same flags, defaults and JSON line
 as ``benchmarks/serving_benchmark.py``, with ``_torch`` appended to the
 metric, except that ``--attn_backend`` defaults to ``flash`` (the port runs
 its Hopper kernels only; ``jnp`` raises) and ``--device`` picks the device
@@ -110,12 +114,15 @@ def parse_args(argv=None):
     p.add_argument("--device", default="cuda")
     p.add_argument("--skip_warmup", action="store_true",
                    help="no warmup serve (for a process whose kernels are built and warm)")
-    return p.parse_args(argv)
+    args = p.parse_args(argv)
+    if args.mode == "snapkv":
+        from magicdec_tpu_torch.bench import snapkv_prefix
+
+        args.prefix_len = snapkv_prefix(args.prefix_len)
+    return args
 
 
 def _not_ported(args):
-    if args.mode == "snapkv":
-        return "--mode snapkv is ROADMAP item A7"
     if args.mode == "full" or args.draft_model:
         return "a standalone draft (--mode full, --draft_model) is ROADMAP item A9"
     if args.temperature > 0:

@@ -149,7 +149,7 @@ def test_synthetic_dataset_matches_jax():
 
 
 @pytest.mark.parametrize("argv", [
-    ["--mode", "snapkv"], ["--mode", "full"], ["--draft_model", "x"],
+    ["--mode", "full"], ["--draft_model", "x"],
     ["--temperature", "0.8"], ["--model_parallel", "2"], ["--attn_backend", "jnp"],
     ["--kv_quant", "int8", "--kv_scale", "bf16"],
 ], ids=lambda a: "_".join(a).strip("-"))
