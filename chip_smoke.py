@@ -44,7 +44,10 @@ of which raises on failure:
    over a cache holding the window's earlier rows; then the int8 dots of the
    draft's weight copy (B4 with its norm,
    gate and residual epilogues, B5, B6, and B9), at llama-3.2-1b widths and
-   M = 32 and 64 (B9 at 256), each timed over 16 layers' weights in turn
+   M = 32 and 64 (B9 at 256), and the quantized target's shapes at its
+   decode_rows M = 128 (B4 wqkv + norm and wo + residual, B9, B6 on the
+   head and on the tied ``quantize_embed`` table through
+   ``quantization.quant_matmul``), each timed over 16 layers' weights in turn
    (B4, B5, B6 and B9 also under torch.profiler, which must see one kernel
    launch a call: B5's ``ffn_sm90_kernel``, B9's ``ffn_wg_sm90_kernel``), each
    with a deliberately wrong reference (B4 without its norm or residual, B5
@@ -57,7 +60,7 @@ of which raises on failure:
    fresh rows, and with the nibble planes swapped), K3q on packed rows bit
    for bit, and the group-wise int4 dots B4-int4 (wqkv, wo + residual, w13
    + gate, w2 + residual) and B6-int4 (the head), each under torch.profiler
-   one kernel launch a call, at M = 32 and 64 (wrong references: the group
+   one kernel launch a call, at M = 32, 64 and 128 (wrong references: the group
    scales shifted by one group, the head's scales rolled by one column),
    their bound the packed weight and its scales; and
    the paged serving kernels at the serving paths' shapes (16 slots of
@@ -93,12 +96,18 @@ of which raises on failure:
    less), the spec and autoregressive streams agreeing on every committed
    token of every request, path (1)'s peak device memory below path (2)'s
    and path (4)'s below path (1)'s, each path's time to first token (its
-   last measured spec encode) printed; then the paged serving paths,
-   ``magicdec_tpu_torch.serving_bench.main`` with ``SERVE_ARGV`` (16 slots,
-   32 requests of distinct lengths in [4096, 8000], 512-row pages): (6) a
-   bf16 pool, (7) an int8 pool, (8) an int8 pool of half the pages
-   (backpressure), (9) an int4 pool, (7) to (9) serving the first 16 of the
-   requests (a depth cut for the time limit), each failing unless every kernel of
+   last measured spec encode) printed; (12) ``--quantize int8 --iters 1``
+   (int8 verify weights shared by the draft: B4, B9 and B6 launched at the
+   target's 128 rows, counted by row count; B5 on the draft; no int4 dot)
+   against path (1), then the row check below on those weights at B = 32, 4
+   and 2; (13) ``--quantize int4 --quantize_embed --prefix_len 2048 --iters
+   1`` (B4-int4 and B6-int4 at 128 rows; no int8 dot, B5 or B9); then the
+   paged serving paths, ``magicdec_tpu_torch.serving_bench.main`` with
+   ``SERVE_ARGV`` (16 slots, 32 requests of distinct lengths in [4096,
+   8000], 512-row pages): (6) a bf16 pool, (7) an int8 pool, (8) an int8
+   pool of half the pages (backpressure), (9) an int4 pool, each serving
+   the first 16 of the requests without a warmup serve (a depth cut for the
+   time limit), each failing unless every kernel of
    the path launched, the paged decode kernel once a layer per target pass,
    tokens per step >= 1.8, and ``ServingEngine`` on the same prompts
    returns the same tokens for every request; on the int8 path, 8 requests
@@ -126,6 +135,15 @@ of which raises on failure:
    a B=1 ``SpecEngine`` on the same weights; where tokens differ, again at
    a fixed row count (each prefill alone; the B=1 decode at the slots'
    rows and split plan), which must agree;
+   (14) the checkpoint round trip at full width: an HF-format
+   llama-3.2-1b directory (two safetensors shards written by hand, the
+   index, ``config.json``) from ``bench.make_params(tied=True)``, ``python
+   -m magicdec_tpu_torch.convert_checkpoint --quantize int8`` on it,
+   ``serving_bench --model`` on the bf16 file and on the int8 dump (8
+   requests of 2048 tokens) each equal token for token to a serve of the
+   in-memory params (the int8 one: ``quantize_params`` of them, scales
+   rounded through bf16), and the int8 dump's NLL within 2% of the bf16
+   file's on 4 windows of 2048 tokens (``quality.perplexity``, K2);
 6. row invariance at B=32, 4 and 2 (the verify of ``forward_target`` and
    of SnapKV's ``forward_verify_snapkv``), on cuBLAS and with the target's
    dots on B15: for each of the target's dots, and for two layers and the head, a
@@ -142,7 +160,8 @@ of which raises on failure:
    issuing draft steps, then under torch.profiler for the
    device's busy time and the kernels that take it), spec == AR again, and,
    on the default path, the AR step's decode_rows padding against its live
-   rows, ten alternating pairs in one run.
+   rows, four alternating pairs in one run; and a
+   spec-only profile of ``--quantize int8``.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -159,6 +178,7 @@ PEAK_BYTES_S = 3.35e12   # H100 SXM HBM3
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
 EX2_PER_CLOCK_SM = 16     # compute capability 9.0: ex2 a clock per SM
 SMS = 132                 # H100 SXM
+PAD_PAIRS = 4             # profile_phase: AR generate padded / live, alternating pairs
 SM_CLOCK_HZ = None        # the card's maximum SM clock (nvidia-smi), set in main
 
 
@@ -944,8 +964,10 @@ def quant_kernel_cases(torch, gen, record):
     def nbytes(*tensors):
         return float(sum(t.numel() * t.element_size() for t in tensors))
 
-    def case(name, label, fn, plain, wrong, args_of, keys, lib=None, M=32):
-        """fn / plain / wrong(args) with args_of(layer) the operands."""
+    def case(name, label, fn, plain, wrong, args_of, keys, lib=None, M=32, kernel=None):
+        """fn / plain / wrong(args) with args_of(layer) the operands;
+        ``kernel``: what the profiled kernel's name holds, if not
+        ``ONE_LAUNCH[name]``."""
         args = args_of(0)
         out, ref = fn(*args), plain(*args)
         torch.cuda.synchronize()
@@ -963,7 +985,7 @@ def quant_kernel_cases(torch, gen, record):
         calls = [lambda l=l: fn(*args_of(l)) for l in range(n_layers)]
         extra = None
         if name in ONE_LAUNCH:
-            extra = _one_launch(torch, name, label, calls, ONE_LAUNCH[name])
+            extra = _one_launch(torch, name, label, calls, kernel or ONE_LAUNCH[name])
         library_ms, deq = None, None
         if lib is not None:
             deq = [dequant(k, l) for k in keys for l in range(weights[k][0].shape[0])]
@@ -1031,14 +1053,51 @@ def quant_kernel_cases(torch, gen, record):
              lambda l: (x, *w("lm_head", l)), ["lm_head"], lib=x, M=M)
     # B9: the draft's FFN where B5 declines (129..256 rows: the prefill chunk
     # of two requests); not on the B=32 path
-    x = randn(256, D)
-    case("quant_mlp", "FFN + residual M=256",
-         lambda x, q13, s13, q2, s2, n: QK.quant_mlp(x, q13, s13, q2, s2, n, x, eps=1e-5),
-         lambda x, q13, s13, q2, s2, n: QK.quant_mlp_plain(x, q13, s13, q2, s2, n, x,
-                                                           eps=1e-5),
-         lambda x, q13, s13, q2, s2, n: QK.quant_mlp_plain(x, q13, s13, q2, s2, n,
-                                                           eps=1e-5),  # no residual
-         lambda l: (x, *w("w13", l), *w("w2", l), norm_w), ["w13", "w2"], M=256)
+    def mlp_case(label, M):
+        x = randn(M, D)
+        case("quant_mlp", label,
+             lambda x, q13, s13, q2, s2, n: QK.quant_mlp(x, q13, s13, q2, s2, n, x, eps=1e-5),
+             lambda x, q13, s13, q2, s2, n: QK.quant_mlp_plain(x, q13, s13, q2, s2, n, x,
+                                                               eps=1e-5),
+             lambda x, q13, s13, q2, s2, n: QK.quant_mlp_plain(x, q13, s13, q2, s2, n,
+                                                               eps=1e-5),  # no residual
+             lambda l: (x, *w("w13", l), *w("w2", l), norm_w), ["w13", "w2"], M=M,
+             # up to 128 rows B9 runs on B5's mma.sync core
+             kernel="ffn_sm90_kernel<" if M <= 128 else None)
+
+    mlp_case("FFN + residual M=256", 256)
+    # the quantized target (bench --quantize int8, a converted -int8.npz):
+    # its verify and padded AR step run every dot at decode_rows = 128 rows
+    M = 128
+    x = randn(M, D, scale=3.0)
+    case("quant_matmul_fused", f"target wqkv + attention norm M={M}",
+         lambda x, q, s, n: QK.quant_matmul_fused(x, q, s, n),
+         lambda x, q, s, n: QK.quant_matmul_fused_plain(x, q, s, n),
+         lambda x, q, s, n: QK.quant_matmul_plain(x, q, s),  # without the norm
+         lambda l: (x, *w("wqkv", l), norm_w), ["wqkv"], lib=x, M=M)
+    a, res = randn(M, D), randn(M, D)
+    case("quant_matmul_fused", f"target wo + residual M={M}",
+         lambda x, q, s, r: QK.quant_matmul_fused(x, q, s, res=r),
+         lambda x, q, s, r: QK.quant_matmul_fused_plain(x, q, s, res=r),
+         lambda x, q, s, r: QK.quant_matmul_plain(x, q, s),  # without the residual
+         lambda l: (a, *w("wo", l), res), ["wo"], lib=a, M=M)
+    mlp_case(f"target FFN + residual M={M}", M)
+    x = randn(M, D, scale=0.5)
+    case("quant_matmul", f"target lm_head [2048, 128256] M={M}",
+         QK.quant_matmul, QK.quant_matmul_plain,
+         lambda x, q, s: QK.quant_matmul_plain(x, q, s.roll(1, -1)),  # scales off by one
+         lambda l: (x, *w("lm_head", l)), ["lm_head"], lib=x, M=M)
+    del weights["lm_head"]
+    # the tied head over quantize_embed's [D, V] table (bench --quantize_embed
+    # on a tied model), through the routing of quantization.quant_matmul
+    eq = Q.quantize_embed(randn(V, D))
+    weights["embed_t"] = (eq.q[None], eq.scale)
+    del eq
+    case("quant_matmul", f"tied quantize_embed head [2048, 128256] M={M}",
+         lambda x, q, s: Q.quant_matmul(x, Q.QuantizedWeight(q, s[None])),
+         QK.quant_matmul_plain,
+         lambda x, q, s: QK.quant_matmul_plain(x, q, s.roll(1, -1)),
+         lambda l: (x, *w("embed_t", l)), ["embed_t"], lib=x, M=M)
     del weights
     torch.cuda.empty_cache()
 
@@ -1056,27 +1115,29 @@ def quant_kernel_cases(torch, gen, record):
     def shifted(s):
         return s.roll(1, 0)  # each group takes the scales of the group before
 
-    for M in (32, 64):
+    # M = 128: the int4 target (bench --quantize int4) at decode_rows
+    for M in (32, 64, 128):
+        target = "target " if M == 128 else ""
         x, res = randn(M, D), randn(M, D)
         g = randn(M, F, scale=0.5)
-        case("quant_matmul_fused_int4", f"wqkv M={M}", fused4, plain4,
+        case("quant_matmul_fused_int4", f"{target}wqkv M={M}", fused4, plain4,
              lambda x, q, s: plain4(x, q, shifted(s)),
              lambda l: (x, *w("wqkv4", l)), ["wqkv4"], lib=x, M=M)
-        case("quant_matmul_fused_int4", f"wo + residual M={M}",
+        case("quant_matmul_fused_int4", f"{target}wo + residual M={M}",
              lambda x, q, s, r: fused4(x, q, s, r), lambda x, q, s, r: plain4(x, q, s, r),
              lambda x, q, s, r: plain4(x, q, shifted(s), r),
              lambda l: (x, *w("wo4", l), res), ["wo4"], lib=x, M=M)
-        case("quant_matmul_fused_int4", f"w13 + SiLU gate M={M}",
+        case("quant_matmul_fused_int4", f"{target}w13 + SiLU gate M={M}",
              lambda x, q, s: fused4(x, q, s, gate=True),
              lambda x, q, s: plain4(x, q, s, gate=True),
              lambda x, q, s: plain4(x, q, shifted(s), gate=True),
              lambda l: (x, *w("w134", l)), ["w134"], lib=x, M=M)
-        case("quant_matmul_fused_int4", f"w2 + residual M={M}",
+        case("quant_matmul_fused_int4", f"{target}w2 + residual M={M}",
              lambda x, q, s, r: fused4(x, q, s, r), lambda x, q, s, r: plain4(x, q, s, r),
              lambda x, q, s, r: plain4(x, q, shifted(s), r),
              lambda l: (g, *w("w24", l), res), ["w24"], lib=g, M=M)
         x = randn(M, D, scale=0.5)
-        case("quant_matmul_int4", f"lm_head [2048, 128256] M={M}",
+        case("quant_matmul_int4", f"{target}lm_head [2048, 128256] M={M}",
              QK.quant_matmul_int4, QK.quant_matmul_int4_plain,
              lambda x, q, s: QK.quant_matmul_int4_plain(x, q, s.roll(1, -1)),
              lambda l: (x, *w("lm_head4", l)), ["lm_head4"], lib=x, M=M)
@@ -1181,6 +1242,235 @@ def snapkv_main_path(torch, wrappers, required, forbidden):
           f"last measured encode's {out['encode_s']:.4f} s ({times[-1] / out['encode_s']:.1%}; "
           f"every encode: {[round(t, 4) for t in times]} s)", flush=True)
     return out, launches, peak
+
+
+# the int8 / int4 weight wrappers whose launches the quantized-target paths
+# count by row count (the target's passes run at decode_rows = 128 rows)
+ROW_COUNTED = ("quant_matmul_fused", "quant_mlp", "quant_matmul", "quant_layer_tail",
+               "quant_matmul_fused_int4", "quant_matmul_int4")
+
+
+def quantized_main_path(torch, wrappers, required, argv, forbidden, at_128):
+    """``main_path`` with ``argv`` (a ``--quantize`` path), each int8 / int4
+    weight wrapper's launches also counted by their row count (wrapping the
+    module attributes the routing calls; the launch counters stay the
+    wrappers' own).  Fails unless every wrapper in ``at_128`` launched at
+    the target's 128 rows (B=32 x (gamma 3 + 1): the verify and the padded
+    AR step).  Returns (bench output, launches, peak GiB, {wrapper: {rows:
+    launches}})."""
+    from magicdec_tpu_torch.kernels import quant_matmul as QK
+
+    rows = {n: {} for n in ROW_COUNTED}
+    originals = {n: getattr(QK, n) for n in ROW_COUNTED}
+
+    def spy_of(name, fn):
+        def spy(x, *a, **kw):
+            # the wrapper counts its launch on the module attribute, this spy:
+            # pass the count on to the wrapper's own counter
+            spy.launches = 0
+            out = fn(x, *a, **kw)
+            if spy.launches:
+                fn.launches += spy.launches
+                rows[name][x.shape[0]] = rows[name].get(x.shape[0], 0) + 1
+            return out
+        spy.launches = 0
+        return spy
+
+    for name, fn in originals.items():
+        setattr(QK, name, spy_of(name, fn))
+    try:
+        out, launches, peak = main_path(torch, wrappers, required, argv, forbidden=forbidden)
+    finally:
+        for name, fn in originals.items():
+            setattr(QK, name, fn)
+    tag = " ".join(argv)
+    print(f"[main {tag}] launches by row count: "
+          + ", ".join(f"{n} {dict(sorted(r.items()))}" for n, r in rows.items() if r),
+          flush=True)
+    for name in at_128:
+        if not rows[name].get(128):
+            raise AssertionError(f"the path ({tag}) never launched {name} at the target's "
+                                 f"128 rows: {rows[name]}")
+    return out, launches, peak, rows
+
+
+def _bench_summary(out):
+    r = out["result"]
+    return (f"spec {r['value']} tok/s ({r['latency_ms_per_token']} ms/token), AR "
+            f"{round(r['value'] / r['vs_baseline'], 2)} tok/s "
+            f"({r['baseline_latency_ms_per_token']} ms/token), {r['tokens_per_step']} "
+            f"tokens/step, time to first token {out['encode_s']:.4f} s")
+
+
+# the checkpoint round trip's serves: 8 requests of 2048 tokens through 8
+# contiguous slots (a depth cut for the time limit), the draft sharing the
+# target's weights (serving_bench's default)
+ROUND_TRIP_ARGV = ["--slots", "8", "--num_requests", "8", "--prefix_len", "2048",
+                   "--max_len", "2304", "--skip_warmup"]
+_HF_LAYER = (("self_attn.q_proj.weight", "wq", True), ("self_attn.k_proj.weight", "wk", True),
+             ("self_attn.v_proj.weight", "wv", True), ("self_attn.o_proj.weight", "wo", True),
+             ("mlp.gate_proj.weight", "w1", True), ("mlp.up_proj.weight", "w3", True),
+             ("mlp.down_proj.weight", "w2", True),
+             ("input_layernorm.weight", "attn_norm", False),
+             ("post_attention_layernorm.weight", "ffn_norm", False))
+
+
+def write_hf_checkpoint(torch, params, cfg, d):
+    """An HF-format directory of bf16 ``params`` (the port's layout, a tied
+    head): two safetensors shards written by hand (an 8-byte little-endian
+    header length, the JSON header, the raw tensors), the shard index and
+    ``config.json``.  Returns the bytes written."""
+    L = cfg.n_layer
+    named = [[("model.embed_tokens.weight", params["embed"])], [("model.norm.weight",
+                                                                   params["final_norm"])]]
+    for l in range(L):
+        for hf, ours, transpose in _HF_LAYER:
+            w = params["layers"][ours][l]
+            named[l * 2 // L].append((f"model.layers.{l}.{hf}", w.T if transpose else w))
+    weight_map, total = {}, 0
+    for i, tensors in enumerate(named):
+        fname = f"model-{i + 1:05d}-of-{len(named):05d}.safetensors"
+        header, off = {}, 0
+        for name, t in tensors:
+            n = t.numel() * t.element_size()
+            header[name] = {"dtype": "BF16", "shape": list(t.shape), "data_offsets": [off, off + n]}
+            off += n
+            weight_map[name] = fname
+        raw = json.dumps(header).encode()
+        raw += b" " * (-len(raw) % 8)
+        with open(os.path.join(d, fname), "wb") as f:
+            f.write(len(raw).to_bytes(8, "little") + raw)
+            for _, t in tensors:
+                f.write(t.contiguous().cpu().view(torch.uint8).numpy().tobytes())
+        total += 8 + len(raw) + off
+    with open(os.path.join(d, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": total}, "weight_map": weight_map}, f)
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump({"model_type": "llama", "hidden_size": cfg.dim,
+                   "intermediate_size": cfg.intermediate_size,
+                   "num_hidden_layers": L, "num_attention_heads": cfg.n_head,
+                   "num_key_value_heads": cfg.n_kv_head, "vocab_size": cfg.vocab_size,
+                   "max_position_embeddings": cfg.block_size, "rms_norm_eps": cfg.norm_eps,
+                   "rope_theta": cfg.rope_base, "tie_word_embeddings": True,
+                   "rope_scaling": {"rope_type": "llama3", "factor": cfg.rope_scaling_factor,
+                                    "low_freq_factor": cfg.low_freq_factor,
+                                    "high_freq_factor": cfg.high_freq_factor,
+                                    "original_max_position_embeddings":
+                                        cfg.original_max_position_embeddings}}, f)
+    return total
+
+
+def checkpoint_round_trip_phase(torch, wrappers):
+    """(14) The checkpoint pipeline at llama-3.2-1b's full width: an
+    HF-format directory written from ``bench.make_params(tied=True)``,
+    ``python -m magicdec_tpu_torch.convert_checkpoint --quantize int8`` on
+    it (a subprocess on the card), then ``serving_bench --model
+    .../llama-3.2-1b.npz`` against a serve of the in-memory params, and
+    ``--model .../llama-3.2-1b-int8.npz`` against a serve of
+    ``quantize_params`` of them with the scales rounded through bf16 (what
+    ``serving_bench``'s ``load_converted(dtype=bfloat16)`` makes of the dump), each
+    token for token; then the int8 dump's NLL within 2% of the bf16 file's
+    on 4 synthetic windows of 2048 tokens (chunks of 512 on K2).  The files
+    live in a temporary directory removed at the end."""
+    import tempfile
+
+    from magicdec_tpu_torch import quantization as Q
+    from magicdec_tpu_torch import serving_bench
+    from magicdec_tpu_torch.bench import make_params
+    from magicdec_tpu_torch.config import ModelConfig
+    from magicdec_tpu_torch.kernels import prefill_attention as PA
+    from magicdec_tpu_torch.quality import perplexity
+    from magicdec_tpu_torch.utils.checkpoint import load_converted
+
+    dev = torch.device("cuda")
+    cfg = ModelConfig.from_name("llama-3.2-1b")
+    params = make_params(cfg, tied=True, device=dev)
+    load = serving_bench.load_params_and_config
+
+    def serve(model, in_memory=None):
+        """serving_bench's timed serve of ROUND_TRIP_ARGV: ``--model`` a
+        converted file, or (``in_memory``) the given params."""
+        if in_memory is not None:
+            serving_bench.load_params_and_config = lambda m, device: (in_memory, cfg)
+        try:
+            for w in wrappers:
+                w.launches = 0
+            t0 = time.perf_counter()
+            out = serving_bench.main(ROUND_TRIP_ARGV + ["--model", model])
+            wall = time.perf_counter() - t0
+        finally:
+            serving_bench.load_params_and_config = load
+        launched = sorted(w.__name__ for w in wrappers if w.launches)
+        print(f"[ckpt] serve {model}{' (in memory)' if in_memory is not None else ''}: "
+              f"wall {wall:.1f} s; {_serving_summary(out)}; kernels {launched}", flush=True)
+        return out
+
+    with tempfile.TemporaryDirectory(prefix="magicdec_ckpt_") as tmp:
+        hf_dir = os.path.join(tmp, "hf", "llama-3.2-1b")
+        os.makedirs(hf_dir)
+        t0 = time.perf_counter()
+        written = write_hf_checkpoint(torch, params, cfg, hf_dir)
+        print(f"[ckpt] wrote the HF directory ({written} bytes, two shards) in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        out_dir = os.path.join(tmp, "npz")
+        os.makedirs(out_dir)
+        bf16_path = os.path.join(out_dir, "llama-3.2-1b.npz")
+        int8_path = os.path.join(out_dir, "llama-3.2-1b-int8.npz")
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "magicdec_tpu_torch.convert_checkpoint",
+                            "--checkpoint_dir", hf_dir, "--out", bf16_path, "--quantize", "int8"],
+                           capture_output=True, text=True, timeout=600,
+                           cwd=os.path.dirname(os.path.abspath(__file__)))
+        if r.returncode:
+            raise AssertionError(f"convert_checkpoint failed ({r.returncode}): "
+                                 f"{r.stderr[-3000:]}")
+        sizes = {p: os.path.getsize(p) for p in (bf16_path, int8_path)}
+        print(f"[ckpt] convert_checkpoint --quantize int8: {time.perf_counter() - t0:.2f} s "
+              f"(the process); read {written} bytes, wrote {sizes[bf16_path]} + "
+              f"{sizes[int8_path]} bytes; its output: {r.stdout.strip()!r}", flush=True)
+
+        out = serve(bf16_path)
+        ref = serve("llama-3.2-1b", in_memory=params)
+        print("[ckpt] " + _same_tokens("the converted bf16 file against the in-memory params",
+                                       out["outputs"], ref["outputs"]), flush=True)
+        del out, ref
+        qparams = Q.quantize_params(params, bits=8)
+        qparams = dict(qparams, layers={
+            k: Q.QuantizedWeight(w.q, w.scale.to(torch.bfloat16).float(), w.bits, w.group_size)
+            if Q.is_quantized(w) else w for k, w in qparams["layers"].items()})
+        out = serve(int8_path)
+        ref = serve("llama-3.2-1b-int8", in_memory=qparams)
+        print("[ckpt] " + _same_tokens(
+            "the converted int8 dump against quantize_params of the in-memory params "
+            "(scales rounded through bf16)", out["outputs"], ref["outputs"]), flush=True)
+        del out, ref, qparams
+
+        data = serving_bench.synthetic_long_context_dataset(2048, num_seqs=4,
+                                                            vocab_size=cfg.vocab_size, seed=0)
+        nll = {}
+        for label, path in (("bf16", bf16_path), ("int8", int8_path)):
+            t0 = time.perf_counter()
+            p = load_converted(path, dtype=torch.bfloat16, device=dev)
+            if Q.bits_from_path(path):
+                p = Q.quantize_params(p, bits=Q.bits_from_path(path))
+            t_load = time.perf_counter() - t0
+            PA.flash_prefill_attend.launches = 0
+            t0 = time.perf_counter()
+            ppl, nll[label] = perplexity(p, cfg, data, batch_size=4, chunk_size=512)
+            print(f"[ckpt] perplexity of the {label} file: nll {nll[label]:.6f}, ppl "
+                  f"{ppl:.6g} (load {t_load:.2f} s, {os.path.getsize(path)} bytes read; "
+                  f"eval {time.perf_counter() - t0:.2f} s, K2 launched "
+                  f"{PA.flash_prefill_attend.launches} times)", flush=True)
+            if not PA.flash_prefill_attend.launches:
+                raise AssertionError("the perplexity gate never launched K2")
+            del p
+        drift = abs(nll["int8"] - nll["bf16"]) / nll["bf16"]
+        print(f"[ckpt] the int8 dump's NLL is {drift:.4%} from the bf16 file's (gate 2%)",
+              flush=True)
+        if not drift < 0.02:
+            raise AssertionError(f"the int8 dump's NLL drifts {drift:.4%} from the bf16 file's")
+    del params
+    torch.cuda.empty_cache()
 
 
 # The serving paths: llama-3.2-1b widths, synthetic weights, gamma 3, draft
@@ -1301,10 +1591,10 @@ def serving_phase(torch, wrappers, kernels):
     result = {}
     peaks = {}
     for fmt, (extra, own) in paths.items():
-        # the first path as a user runs it; the others skip the warmup serve
-        # and serve the first 16 of its 32 requests (a depth cut that keeps
-        # chip_smoke.py inside its time limit on a slow host)
-        extra = extra + ([] if fmt == "bf16" else ["--skip_warmup", "--num_requests", "16"])
+        # each skips the warmup serve and serves the first 16 of the 32
+        # requests (a depth cut that keeps chip_smoke.py inside its time
+        # limit on a slow host)
+        extra = extra + ["--skip_warmup", "--num_requests", "16"]
         out, launches, peaks[fmt] = serving_path(
             torch, wrappers, own + draft + [PGA.append_paged_rows_inplace], own[0], extra,
             forbidden=[w for w in paged_all if w is not own[0]])
@@ -1544,7 +1834,7 @@ def dense_ab_phase(torch, wrappers):
     return {"profile_decode": runs, "append": append}
 
 
-def row_invariance_phase(torch, B=32, dense=False):
+def row_invariance_phase(torch, B=32, dense=False, quantize=None):
     """Is a target row computed the same at verify (M = B*(gamma+1) rows) as
     at the AR step (M = B)?  At the bench's widths, each target dot alone,
     then two layers and the head: the logits of a 4-token verify window
@@ -1552,18 +1842,24 @@ def row_invariance_phase(torch, B=32, dense=False):
     share its target pass) against 4 single-token steps, with the dots at
     the live row count and padded to decode_rows.  ``dense``: the model part with the target's
     bf16 dots on B15 (``quantization.set_dense_kernels``), which must
-    launch; the dots alone are cuBLAS's and are skipped."""
+    launch; the dots alone are cuBLAS's and are skipped.  ``quantize``
+    ('int8'): the model part on ``bench --quantize``'s target weights, its
+    dots on B4 / B9 / B6, which must launch."""
     import dataclasses
 
     from magicdec_tpu_torch import quantization as Q
-    from magicdec_tpu_torch.bench import make_params
+    from magicdec_tpu_torch.bench import make_params, make_params_quantized
     from magicdec_tpu_torch.config import ModelConfig
     from magicdec_tpu_torch.kernels import dense_matmul as DK
+    from magicdec_tpu_torch.kernels import quant_matmul as QK
     from magicdec_tpu_torch.models import llama as M
 
     dev = torch.device("cuda")
     cfg = dataclasses.replace(ModelConfig.from_name("llama-3.2-1b"), n_layer=2)
-    params = M.fuse_exec_params(make_params(cfg, device=dev), cfg)
+    if quantize:
+        params = make_params_quantized(cfg, 8 if quantize == "int8" else 4, device=dev)
+    else:
+        params = M.fuse_exec_params(make_params(cfg, device=dev), cfg)
     T, S, P = 4, 1024, 512
     gen = torch.Generator(device=dev).manual_seed(1)
     shape = (cfg.n_layer, B, S, cfg.n_kv_head * cfg.head_dim)
@@ -1576,7 +1872,7 @@ def row_invariance_phase(torch, B=32, dense=False):
     # a strided view of the window (x[:, t])
     dots = {n: params["layers"][n][0] for n in ("wqkv", "wo", "w13", "w2")}
     dots["lm_head"] = params["lm_head"]
-    for name, w in ({} if dense else dots).items():
+    for name, w in ({} if dense or quantize else dots).items():
         x = torch.randn((B, T, w.shape[0]), generator=gen, device=dev).to(torch.bfloat16)
         counts = []
 
@@ -1598,8 +1894,11 @@ def row_invariance_phase(torch, B=32, dense=False):
               f"{counts[3]}, of {B * T * w.shape[1]}", flush=True)
     tokens = torch.randint(0, cfg.vocab_size, (B, T), generator=gen, device=dev)
     lens = torch.full((B,), P, dtype=torch.int32, device=dev)
-    tag = " (B15 dense dots)" if dense else ""
-    for fn in (DK.dense_matmul_fused, DK.dense_mlp):
+    tag = (" (B15 dense dots)" if dense else "") + (f" ({quantize} target weights)"
+                                                     if quantize else "")
+    quant_dots = ((QK.quant_matmul_fused, QK.quant_mlp, QK.quant_matmul) if quantize == "int8"
+                  else (QK.quant_matmul_fused_int4, QK.quant_matmul_int4) if quantize else ())
+    for fn in (DK.dense_matmul_fused, DK.dense_mlp) + quant_dots:
         fn.launches = 0
     Q.set_dense_kernels(dense)
     dshape = (cfg.n_layer, B, 640, cfg.n_kv_head * cfg.head_dim)
@@ -1638,6 +1937,9 @@ def row_invariance_phase(torch, B=32, dense=False):
         Q.set_dense_kernels(False)
     if dense and not (DK.dense_matmul_fused.launches and DK.dense_mlp.launches):
         raise AssertionError(f"B={B}: the padded passes never launched B15")
+    if not all(fn.launches for fn in quant_dots):
+        raise AssertionError(f"B={B}{tag}: the passes never launched "
+                             f"{[fn.__name__ for fn in quant_dots if not fn.launches]}")
     del params, caches
 
 
@@ -1855,11 +2157,12 @@ def profile_phase(torch, argv=(), pad_pairs=True, spec_only=False):
         return
     # the cost of the target's decode_rows padding: AR generate from one
     # encoded state with the AR step padded to B * (gamma + 1) rows (the
-    # engine's passes) and at its live B rows, ten pairs, alternating which
-    # side runs first (verify passes have B * (gamma + 1) rows already)
+    # engine's passes) and at its live B rows, four pairs (a depth cut for the
+    # time limit), alternating which side runs first
+    # (verify passes have B * (gamma + 1) rows already)
     st = engine.encode_baseline(prompt)
     walls = {"padded": [], "live": []}
-    for i in range(10):
+    for i in range(PAD_PAIRS):
         for label in (("padded", "live") if i % 2 == 0 else ("live", "padded")):
             if label == "live":
                 engine._hinted = lambda B: engine.cfg
@@ -1871,12 +2174,13 @@ def profile_phase(torch, argv=(), pad_pairs=True, spec_only=False):
             vars(engine).pop("_hinted", None)
     steps = int(stats["num_committed"][0]) - 1
     wins = sum(p < q for p, q in zip(walls["padded"], walls["live"]))
-    quart = {k: [sorted(v)[i] / steps for i in (2, 5, 7)] for k, v in walls.items()}
-    print(f"[pad] AR generate wall over {steps} steps, ten alternating pairs: padded to "
+    quart = {k: [sorted(v)[i] / steps for i in (0, PAD_PAIRS // 2, PAD_PAIRS - 1)]
+             for k, v in walls.items()}
+    print(f"[pad] AR generate wall over {steps} steps, {PAD_PAIRS} alternating pairs: padded to "
           f"decode_rows {[round(t, 1) for t in walls['padded']]} ms, live rows "
-          f"{[round(t, 1) for t in walls['live']]} ms; per step (lower quartile, median, "
-          f"upper quartile) padded {[round(t, 2) for t in quart['padded']]} ms, live "
-          f"{[round(t, 2) for t in quart['live']]} ms; padded faster in {wins} of 10 "
+          f"{[round(t, 1) for t in walls['live']]} ms; per step (least, median, most) "
+          f"padded {[round(t, 2) for t in quart['padded']]} ms, live "
+          f"{[round(t, 2) for t in quart['live']]} ms; padded faster in {wins} of {PAD_PAIRS} "
           "pairs", flush=True)
     del st, engine
 
@@ -2009,6 +2313,30 @@ def main():
     print(f"[snapkv] time to first token (B=32): snapkv {out_snap['encode_s']:.4f} s against "
           f"streamingllm's {out1['encode_s']:.4f} s (path (1)); peak device memory "
           f"{peak_snap:.2f} GiB against {peak8:.2f} GiB", flush=True)
+    # (12) quantized verify weights (bench --quantize int8, one measured
+    # repeat): the target's wqkv and wo on B4, its FFN on B9 and its head on
+    # B6, each at decode_rows = 128 rows; the draft shares them (B4 / B5 /
+    # B6 at 32 and 64 rows); no int4 dot and no draft copy
+    out12, _, peak12, _ = quantized_main_path(
+        torch, wrappers, quant + dots + [QK.quant_mlp, DA.flash_decode_attend,
+                                         AP.append_all_rows_inplace],
+        ["--quantize", "int8", "--iters", "1"], paged + per_array + dense_dots + dots4,
+        at_128=["quant_matmul_fused", "quant_mlp", "quant_matmul"])
+    print(f"[quantize int8] {_bench_summary(out12)}, peak {peak12:.2f} GiB; path (1) (bf16 "
+          f"verify weights): {_bench_summary(out1)}, peak {peak8:.2f} GiB", flush=True)
+    for B in (32, 4, 2):
+        row_invariance_phase(torch, B, quantize="int8")
+    phase_done("path (12): --quantize int8")
+    # (13) int4 verify weights with the int8 embedding table, prefix 2048
+    # (one measured repeat; B=32, so the target still runs 128 rows): B4-int4
+    # and B6-int4 on the target and the draft, no int8 dot
+    out13, _, _, _ = quantized_main_path(
+        torch, wrappers, dots4 + quant + [DA.flash_decode_attend, AP.append_all_rows_inplace],
+        ["--quantize", "int4", "--quantize_embed", "--prefix_len", "2048", "--iters", "1"],
+        paged + per_array + dense_dots + dots + [QK.quant_mlp],
+        at_128=["quant_matmul_fused_int4", "quant_matmul_int4"])
+    print(f"[quantize int4 + quantize_embed] {_bench_summary(out13)}", flush=True)
+    phase_done("path (13): --quantize int4 --quantize_embed")
     launches["flash_prefill_attend"] = launches16["flash_prefill_attend"]
     launches["quant_mlp"] = launches2["quant_mlp"]
     launches.update({w.__name__: launches4[w.__name__] for w in quant4 + dots4})
@@ -2053,6 +2381,9 @@ def main():
     phase_done("snapkv serve")
     solo_phase(torch)
     phase_done("C2: served against solo")
+    # (14) the checkpoint pipeline at full width
+    checkpoint_round_trip_phase(torch, wrappers)
+    phase_done("path (14): the checkpoint round trip")
     # the row-invariance question (PERF.md): is a target row computed the
     # same at verify and at the AR step; at B=4 and 2 the live row counts
     # differ (cuBLAS's w2, torch's row mean), the padded ones the engine runs
@@ -2066,6 +2397,7 @@ def main():
     profile_phase(torch)
     profile_phase(torch, ["--kv_quant", "int4", "--draft_quant", "int4"], pad_pairs=False)
     profile_phase(torch, ["--mode", "snapkv"], spec_only=True)
+    profile_phase(torch, ["--quantize", "int8"], spec_only=True)
     phase_done("profiles")
 
     meta = {

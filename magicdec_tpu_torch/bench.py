@@ -15,7 +15,13 @@ bf16 verify weights, and an int8 per-channel copy of the weights for the
 draft with a quantized lm_head (``--draft_quant none``: the draft shares the
 bf16 weights; ``--draft_quant int4``: a group-wise int4 copy, groups of 128;
 ``--draft_head shared``: the copy shares the bf16 head) on the Hopper
-kernels.  ``--gamma 0`` autotunes gamma as ``bench.py`` does: a warmup run
+kernels.  ``--quantize int8|int4``: quantized verify weights, drawn and
+quantized on the device a layer at a time with an independent quantized
+head (``make_params_quantized``, as ``bench.py``'s
+``make_params_device_quant``); the draft shares them and ``--draft_quant``
+is turned off.  ``--quantize_embed``: the int8 [D, V] embedding table
+(``quantization.quantize_embed``), with or without ``--quantize``.
+``--gamma 0`` autotunes gamma as ``bench.py`` does: a warmup run
 at gamma 4, alpha from its tokens per window, the phase timers
 (``engine/profiling.py``, 8 steps a phase), the throughput-best gamma in
 2..8 (``engine/autotune.py``), and a rebuild at that gamma.  Decode-loop
@@ -75,6 +81,70 @@ def make_params(cfg, seed=0, dtype=torch.bfloat16, residual_scale=0.25,
             "lm_head": None if tied else w(D, cfg.vocab_size, scale=0.02)}
 
 
+def _synth_layer(gen, cfg, dev, dtype=torch.bfloat16, residual_scale=0.25):
+    """One layer's bf16 weights {wq, wk, wv, wo, w1, w3, w2}, drawn from
+    ``gen`` in that order with ``make_params``'s distributions."""
+    D, F = cfg.dim, cfg.intermediate_size
+    hq, hkv = cfg.n_head * cfg.head_dim, cfg.n_kv_head * cfg.head_dim
+
+    def w(In, Out, scale=None):
+        x = torch.randn((In, Out), generator=gen, device=dev, dtype=torch.float32)
+        return (x * (scale if scale is not None else 1.0 / np.sqrt(In))).to(dtype)
+
+    return {"wq": w(D, hq), "wk": w(D, hkv), "wv": w(D, hkv),
+            "wo": w(hq, D, residual_scale / np.sqrt(D)), "w1": w(D, F), "w3": w(D, F),
+            "w2": w(F, D, residual_scale / np.sqrt(F))}
+
+
+def _fused_layer(lw):
+    """A ``_synth_layer`` dict in the fused execution layout."""
+    return {"wqkv": torch.cat([lw["wq"], lw["wk"], lw["wv"]], dim=-1), "wo": lw["wo"],
+            "w13": torch.cat([lw["w1"], lw["w3"]], dim=-1), "w2": lw["w2"]}
+
+
+def make_params_quantized(cfg, bits, seed=0, quantize_embed=False, device="cuda"):
+    """Quantized verify weights (``--quantize``), the construction of
+    ``bench.py``'s ``make_params_device_quant``: ``make_params``'s
+    distributions (damped residuals, unit-scale embeddings) and an
+    independent 0.02-scale head quantized at ``bits``, in the fused layout,
+    drawn and quantized on ``device`` a layer at a time, so no bf16 copy
+    outlives its layer; ``quantize_embed``: the int8 [D, V] table.  The
+    layers and the head are scaled by the f32 reciprocal, as the JAX
+    package's jitted quantization does, so the layers equal
+    ``quantization.quantize_params`` of the stacked fused ``_synth_layer``
+    draws bit for bit."""
+    from magicdec_tpu_torch import quantization as Q
+
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    L, D = cfg.n_layer, cfg.dim
+    stacked = {}
+    for l in range(L):
+        for name, w in _fused_layer(_synth_layer(gen, cfg, dev)).items():
+            qw = Q.quantize_weight(w, bits=bits, reciprocal=True)
+            if l == 0:
+                stacked[name] = Q.QuantizedWeight(
+                    torch.empty((L, *qw.q.shape), dtype=qw.q.dtype, device=dev),
+                    torch.empty((L, *qw.scale.shape), dtype=qw.scale.dtype, device=dev),
+                    qw.bits, qw.group_size)
+            stacked[name].q[l] = qw.q
+            stacked[name].scale[l] = qw.scale
+            del w, qw
+    ones = torch.ones((L, D), dtype=torch.bfloat16, device=dev)
+    layers = {"wqkv": stacked["wqkv"], "bqkv": None, "wo": stacked["wo"],
+              "w13": stacked["w13"], "w2": stacked["w2"], "attn_norm": ones,
+              "ffn_norm": ones.clone()}
+    embed = (torch.randn((cfg.vocab_size, D), generator=gen, device=dev,
+                         dtype=torch.float32).to(torch.bfloat16))
+    if quantize_embed:
+        embed = Q.quantize_embed(embed)
+    head = (torch.randn((D, cfg.vocab_size), generator=gen, device=dev, dtype=torch.float32)
+            * 0.02).to(torch.bfloat16)
+    head = Q.quantize_weight(head, bits=bits, reciprocal=True)
+    return {"embed": embed, "layers": layers,
+            "final_norm": torch.ones((D,), dtype=torch.bfloat16, device=dev), "lm_head": head}
+
+
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--model", default="llama-3.2-1b")
@@ -95,7 +165,9 @@ def parse_args(argv=None):
                         "batch, reported as the mean")
     p.add_argument("--prefill_chunk", type=int, default=512)
     p.add_argument("--attn_backend", default="flash", choices=["jnp", "flash"])
-    p.add_argument("--quantize", choices=["int8", "int4"], default=None)
+    p.add_argument("--quantize", choices=["int8", "int4"], default=None,
+                   help="quantized verify weights (the draft shares them; "
+                        "--draft_quant is turned off)")
     p.add_argument("--quant_backend", default="pallas", choices=["jnp", "pallas"],
                    help="int8 dots of the draft copy: pallas = the Hopper kernels "
                         "(B4/B5/B6); the port runs no other")
@@ -111,7 +183,7 @@ def parse_args(argv=None):
                         "weight-bandwidth-bound; the output still equals greedy AR; "
                         "int4: group-wise, groups of 128)")
     p.add_argument("--quantize_embed", action="store_true",
-                   help="quantize the embedding table (not ported yet)")
+                   help="the int8 [D, V] embedding table (lookup a column a token)")
     p.add_argument("--draft_head", default="quant", choices=["quant", "shared"],
                    help="shared: the quantized draft copy reuses the target's bf16 lm_head")
     p.add_argument("--device", default="cuda")
@@ -134,10 +206,6 @@ def _not_ported(args):
         return "--attn_backend jnp: the port runs its Hopper kernels only"
     if args.quant_backend != "pallas":
         return "--quant_backend jnp: the port runs its Hopper kernels only"
-    if args.quantize:
-        return "--quantize (int8/int4 verify weights) is ROADMAP item A8"
-    if args.quantize_embed:
-        return "--quantize_embed (the quantized embedding) is ROADMAP item A8"
     if args.kv_quant != "none" and args.kv_scale != "f32":
         return "--kv_scale bf16 is ROADMAP item A8"
     return None
@@ -160,15 +228,28 @@ def setup(args):
     missing = _not_ported(args)
     if missing:
         raise NotImplementedError(missing)
+    from magicdec_tpu_torch import quantization as Q
     from magicdec_tpu_torch.config import ModelConfig
     from magicdec_tpu_torch.engine.engine import EngineConfig, SpecEngine
     from magicdec_tpu_torch.models.llama import fuse_exec_params
 
     dev = resolve_device(args.device)
     cfg = ModelConfig.from_name(args.model)
+    if args.quantize:
+        params = make_params_quantized(cfg, 8 if args.quantize == "int8" else 4,
+                                       quantize_embed=args.quantize_embed, device=dev)
+        if args.draft_quant != "none":
+            # the draft shares the quantized target weights (bench.py:298-304)
+            print(f"[bench] --quantize {args.quantize}: draft shares the quantized target "
+                  "weights (draft_quant disabled)", file=sys.stderr)
+            args.draft_quant = "none"
+    else:
+        params = make_params(cfg, device=dev)
+        if args.quantize_embed:
+            params = dict(params, embed=Q.quantize_embed(params["embed"]))
     # fused once here: the engine's own fuse is then a no-op and no unfused
     # copy of the weights stays alive beside the fused one
-    params = fuse_exec_params(make_params(cfg, device=dev), cfg)
+    params = fuse_exec_params(params, cfg)
     prefix = args.prefix_len
     gamma_max = GAMMA_MAX if args.gamma == 0 else args.gamma
     # the cache length rounds to 512 rows for every format.  bench.py rounds

@@ -22,7 +22,9 @@ Greedy acceptance matches the reference exactly (engine/spec.py).  The draft
 shares the target's weights, or under ``draft_quant`` runs an int8 or int4
 copy of them (built once at init; its prefill and decode passes both use
 it), and attends its budget-sized cache, which stays in ``cache_dtype``; the
-target keeps the bf16 weights, and its cache is int8, or int4 packed in
+target keeps the bf16 weights (or its own int8 / int4 weights, ``bench
+--quantize`` or a converted dump, which the draft then shares: with
+``draft_quant`` set as well the engine raises), and its cache is int8, or int4 packed in
 kv-head pairs, with per-(token, kv head) f32 scales under ``kv_quant``.
 Target decode and verify passes run at ``ModelConfig.decode_rows`` = B * (gamma + 1) rows, the autoregressive
 step's B rows padded once per pass (``models.llama.pad_rows``), where the
@@ -129,6 +131,11 @@ class SpecEngine:
                 f"kv_quant='int4' packs adjacent kv-head pairs and needs an even kv-head "
                 f"count, got {cfg.n_kv_head}")
         wbits = weight_quant_bits(ecfg.draft_quant)
+        if wbits and _has_quantized_layers(params):
+            raise ValueError(
+                "draft_quant on quantized target weights: the draft shares the target's "
+                "quantized weights (a quantized copy of a quantized tree is undefined, "
+                "as in the JAX package's bench); build the engine with draft_quant=False")
         self.params = _to_device(M.fuse_exec_params(params, cfg), self.device)
         # the draft's weights: the target's, or an int8 / int4 copy quantized
         # once on the device, sharing embed, norms and (draft_quant_head=False)
@@ -456,6 +463,10 @@ class SpecEngine:
         state = dataclasses.replace(state, lens=lens, token0=tok, output=out,
                                     num_committed=n)
         return state, {"output": out, "num_committed": n, "gen_tokens": n - 1}
+
+
+def _has_quantized_layers(params) -> bool:
+    return any(Q.is_quantized(w) for w in params["layers"].values())
 
 
 def _to_device(params, device):

@@ -24,10 +24,15 @@ decode or verify pass with ``quantization.set_dense_kernels(True)``, where
 they take B15 as the JAX package's do (``cfg.decode_rows`` as the rows
 hint).  A weight may be an
 int8 or int4 ``quantization.QuantizedWeight`` (the draft's weight copy,
-``EngineConfig.draft_quant``): ``matmul`` dispatches on it; with int8 the
-attention norm rides the wqkv dot (B4), draft decode passes run each
-layer's tail as one B5 call and the head as B6; with int4 every dot is
-B4-int4 (the norms run first) and the head B6-int4.  Every target pass
+``EngineConfig.draft_quant``, or the target's own under ``bench
+--quantize`` and a converted ``-int8.npz`` / ``-int4.npz``, which the draft
+then shares): ``matmul`` dispatches on it; with int8 the attention norm
+rides the wqkv dot (B4), draft decode passes run each layer's tail as one
+B5 call, target decode and verify passes (``decode_rows`` rows) wo with its
+residual on B4 and the FFN block on B9, and the head is B6; with int4 every
+dot is B4-int4 (the norms run first) and the head B6-int4.  A quantized
+embedding ([D, V] int8, ``quantization.quantize_embed``) is gathered a
+column a token and serves a tied head through B6.  Every target pass
 (``forward_target``, and SnapKV's window chunk and dual-append verify)
 runs one layer loop, ``_target_layers``.
 """
@@ -185,9 +190,12 @@ def _layer(params: Params, l: int) -> Params:
 
 
 def head_logits(params: Params, x_normed):
+    """The lm head: ``lm_head``, else the tied embedding (a quantized table
+    is stored [D, V] already, ``quantization.quantize_embed``)."""
     if params.get("lm_head") is not None:
         return matmul(x_normed, params["lm_head"])
-    return matmul(x_normed, params["embed"].T)  # tied embeddings
+    embed = params["embed"]
+    return matmul(x_normed, embed if Q.is_quantized(embed) else embed.T)
 
 
 def head_argmax(params: Params, cfg: ModelConfig, x) -> torch.Tensor:
@@ -197,7 +205,18 @@ def head_argmax(params: Params, cfg: ModelConfig, x) -> torch.Tensor:
 
 
 def embed_lookup(params: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens.long()]
+    """Input embedding rows for tokens [...].  A quantized table
+    (``quantization.quantize_embed``, [D, V] int8, a scale per vocab
+    column) gives token t as column t times scale[0, t] in float32, then
+    ``final_norm``'s dtype, as the JAX package's ``embed_lookup``: the bf16
+    table never exists."""
+    embed = params["embed"]
+    if Q.is_quantized(embed):
+        idx = tokens.long()
+        x = embed.q.T[idx].to(torch.float32)                  # [..., D]
+        s = embed.scale[0][idx].to(torch.float32)             # [...]
+        return (x * s[..., None]).to(params["final_norm"].dtype)
+    return embed[tokens.long()]
 
 
 def _attn_project(x, wl, cfg, B, T, cs_q, cs_k):

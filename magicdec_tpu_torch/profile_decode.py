@@ -17,7 +17,9 @@ so the gap to the card's bound is attributable:
 
 The target passes run at ``decode_rows`` = B * (gamma + 1) rows, as the
 engine runs them; ``--dense_kernels`` sends their bf16 dots to B15
-(``quantization.set_dense_kernels``).  Caches are built directly (no
+(``quantization.set_dense_kernels``); ``--quantize int8|int4`` profiles the
+quantized-target window (B4/B9/B6, or B4-int4/B6-int4, at ``decode_rows``
+rows), its draft step on the same weights.  Caches are built directly (no
 prefill) with constant contents, once per timed chain: timing does not
 depend on values.  Each phase is timed by ``engine/profiling.py``'s chain
 (CUDA events around n back-to-back steps; on ``--device cpu``, the host
@@ -49,7 +51,8 @@ def parse_args(argv=None):
     p.add_argument("--draft_budget", type=int, default=513)
     p.add_argument("--kv_quant", default=None, choices=["int8", "int4"])
     p.add_argument("--quantize", default=None, choices=["int8", "int4"],
-                   help="quantized verify weights (not ported yet)")
+                   help="quantized verify weights (quantize_params of the synthetic "
+                        "weights, head included); the draft step then shares them")
     p.add_argument("--draft_quant", default=None, choices=["int8", "int4"],
                    help="quantized draft-pass weight copy (EngineConfig.draft_quant): "
                         "draft_step runs on it")
@@ -68,8 +71,6 @@ def parse_args(argv=None):
 def main(argv=None):
     """Run the profile; returns {phase: ms}."""
     args = parse_args(argv)
-    if args.quantize:
-        raise NotImplementedError("--quantize (int8/int4 verify weights) is ROADMAP item A8")
     from magicdec_tpu_torch import quantization as Q
     from magicdec_tpu_torch.bench import make_params
     from magicdec_tpu_torch.config import ModelConfig
@@ -79,8 +80,10 @@ def main(argv=None):
     dev = resolve_device(args.device)
     cfg = ModelConfig.from_name(args.model)
     params = M.fuse_exec_params(make_params(cfg, device=dev), cfg)
+    if args.quantize:
+        params = Q.quantize_params(params, bits=8 if args.quantize == "int8" else 4)
     dparams = params
-    if args.draft_quant:
+    if args.draft_quant and not args.quantize:
         dparams = Q.quantize_params(params, bits=8 if args.draft_quant == "int8" else 4)
 
     B, ctx, g = args.B, args.ctx, args.gamma
@@ -174,7 +177,7 @@ def main(argv=None):
     if "baseline_step_ms" in r:
         print(f"{'tok_per_s_ar':28s} {B / r['baseline_step_ms'] * 1e3:10.3f}", flush=True)
     device = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    tag = "_dense" if args.dense_kernels else ""
+    tag = ("_dense" if args.dense_kernels else "") + (f"_{args.quantize}" if args.quantize else "")
     print(json.dumps({"metric": f"profile_decode_{args.model}_B{B}_ctx{ctx}{tag}_torch",
                       "unit": "ms", "device": device, "detail": r}))
     return r

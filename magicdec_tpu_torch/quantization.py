@@ -1,4 +1,5 @@
-"""Weight-only int8 and int4 quantization of the draft's weight copy
+"""Weight-only int8 and int4 quantization: the draft's weight copy, the
+target's quantized verify weights and the quantized embedding
 (counterpart of magicdec_tpu/quantization.py).
 
 A quantized weight is a ``QuantizedWeight``: int8 ``q [..., In, Out]`` with
@@ -22,6 +23,19 @@ facts of the TPU and are dropped: at llama-3.2-1b widths they never decline
 for M <= 128.  A pass whose rows are padded (a target pass at
 ``ModelConfig.decode_rows``) hands its dots the padded rows, so the JAX
 package's ``rows_hint`` is the live row count here.
+
+The target's quantized weights (``bench --quantize``, a converted
+``-int8.npz`` / ``-int4.npz`` dump; the draft then shares them) route by the
+same predicates.  A target decode or verify pass runs at
+``ModelConfig.decode_rows`` rows (B * (gamma + 1) = 128 at the bench's
+B=32), padded once per pass, so the autoregressive step and the verify both
+reach B4 (wqkv with its norm, wo with its residual), B9 (the FFN block) and
+B6 (the head), or B4-int4 and B6-int4, at M = ``decode_rows`` with one
+split plan; prefill chunks (M = B * C) take the plain product, as the JAX
+package takes XLA's dequantized dot above its 256-row cap.  A quantized
+embedding (``quantize_embed``, [D, V] int8 with per-vocab-column scales)
+serves the lookup (``models.llama.embed_lookup``) and, tied, the head
+through B6.
 
 The target's bf16 dots on its decode and verify passes (``rows_hint`` =
 ``ModelConfig.decode_rows`` > 0) take B15 (``kernels/dense_matmul.py``)
@@ -221,29 +235,60 @@ def dequantize_weight(wq: QuantizedWeight, dtype=torch.bfloat16) -> torch.Tensor
     return deq.reshape(*q.shape[:-2], In, Out).to(dtype)
 
 
+def quantize_embed(embed: torch.Tensor, bits: int = 8) -> QuantizedWeight:
+    """The embedding table quantized int8 TRANSPOSED, [D, V] with one scale
+    per vocab column (the JAX package's ``quantize_embed``, which runs
+    eagerly and so divides by 127): one format serves the lookup (token t
+    is column t times scale[0, t], ``models.llama.embed_lookup``) and a tied
+    head (``quant_matmul`` over it, B6).  int8 only: embeddings are
+    quality-sensitive, and the JAX package's benchmarks never offer int4."""
+    if bits != 8:
+        raise ValueError(f"the quantized embedding is int8 only, got bits={bits}")
+    return quantize_weight(embed.T, bits=8)
+
+
 def quantize_params(params, bits: int = 8, group_size=None, include_head: bool = True,
-                    materialize_tied_head: bool = False):
+                    materialize_tied_head: bool = False, include_embed: bool = False):
     """Quantize every linear weight of the layers (``QUANT_KEYS``) and, with
     ``include_head``, the lm_head; ``materialize_tied_head`` builds a
-    quantized [D, V] head from a tied embedding.  Embeddings, norms and an
-    unquantized head are the input's tensors, shared, not copied (the
-    quantized embedding is ROADMAP item A8).  Bit for bit the JAX package's
+    quantized [D, V] head from a tied embedding; ``include_embed`` the
+    int8 embedding (``quantize_embed``, whatever ``bits``).  Embeddings,
+    norms and an unquantized head are the input's tensors, shared, not
+    copied.  A leaf that is already quantized stays as it is, so a
+    converted ``-int8.npz`` / ``-int4.npz`` dump goes through ``serving_bench``'s
+    ``quantize_params`` unchanged (the JAX package's raises an
+    AttributeError on such a tree).  Bit for bit the JAX package's
     ``quantize_params``, whose jitted quantization scales by the f32
-    reciprocal of 127 (int8) or of 7 (int4)."""
+    reciprocal of 127 (int8) or of 7 (int4), and whose eager
+    ``quantize_embed`` divides."""
     qw = functools.partial(quantize_weight, bits=bits, group_size=group_size,
                            reciprocal=True)
     layers = dict(params["layers"])
     for key in QUANT_KEYS:
-        if layers.get(key) is not None:
+        if layers.get(key) is not None and not is_quantized(layers[key]):
             layers[key] = qw(layers[key])
     out = dict(params, layers=layers)
+    embed = params.get("embed")
     if include_head:
         head = params.get("lm_head")
         if head is not None and not is_quantized(head):
             out["lm_head"] = qw(head)
-        elif materialize_tied_head and head is None:
-            out["lm_head"] = qw(params["embed"].T)
+        elif (materialize_tied_head and head is None and embed is not None
+              and not is_quantized(embed)):
+            out["lm_head"] = qw(embed.T)
+    if include_embed and embed is not None and not is_quantized(embed):
+        out["embed"] = quantize_embed(embed)
     return out
+
+
+def bits_from_path(path) -> "int | None":
+    """The checkpoint-name convention (the JAX package's ``bits_from_path``):
+    8 for a path naming int8, 4 for int4, else None."""
+    if "int8" in str(path):
+        return 8
+    if "int4" in str(path):
+        return 4
+    return None
 
 
 def quant_matmul(x, wq: QuantizedWeight, norm=None, gate: bool = False, residual=None):

@@ -14,8 +14,13 @@ slots are recycled with freshly prefilled queued prompts
 as ``benchmarks/serving_benchmark.py``, with ``_torch`` appended to the
 metric, except that ``--attn_backend`` defaults to ``flash`` (the port runs
 its Hopper kernels only; ``jnp`` raises) and ``--device`` picks the device
-(``cpu`` runs the plain kernel versions).  Synthetic weights
-(``bench.make_params``) and the synthetic long-context corpus.  A warmup
+(``cpu`` runs the plain kernel versions).  ``--model`` is a config name
+(synthetic weights, ``bench.make_params``) or a converted checkpoint
+``.npz`` (``convert_checkpoint``; its config from the file name, loaded in
+bf16 and, for a name holding ``int8`` / ``int4``, as quantized verify
+weights that the draft shares, ``--draft_quant`` then off), as
+``benchmarks/common.py load_params_and_config`` loads it.  The synthetic
+long-context corpus.  A warmup
 serve of the first ``--slots`` requests (kernel build, allocator, cuBLAS
 heuristics; ``--skip_warmup``: none) precedes the timed serve; throughput
 counts committed tokens over the timed serve's wall time, admissions
@@ -64,7 +69,8 @@ def synthetic_long_context_dataset(seq_len: int, num_seqs: int = 32, vocab_size:
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--model", type=str, default="llama-3.2-1b",
-                   help="config name (synthetic weights)")
+                   help="config name (synthetic weights) or a converted checkpoint .npz "
+                        "(-int8 / -int4 in its name: quantized verify weights)")
     p.add_argument("--model_name", type=str, default=None,
                    help="HF tokenizer name (tokenized corpora are not ported yet)")
     p.add_argument("--dataset", type=str, default="pg19")
@@ -143,6 +149,32 @@ def metric_name(args) -> str:
             f"{args.model.split('/')[-1]}_slots{args.slots}_ctx{args.prefix_len}_torch")
 
 
+def load_params_and_config(model: str, device):
+    """(params, cfg) for ``--model``: a converted ``.npz`` (its config from
+    the path, ``ModelConfig.from_name``; loaded with ``dtype=bfloat16``,
+    which rounds a dump's scales through bf16 as the JAX benchmarks do; then
+    ``quantize_params`` when ``bits_from_path`` says so, which leaves the
+    dump's quantized leaves as they are), or a config name with
+    ``bench.make_params``'s synthetic weights."""
+    import torch
+
+    from magicdec_tpu_torch import quantization as Q
+    from magicdec_tpu_torch.bench import make_params
+    from magicdec_tpu_torch.config import ModelConfig
+
+    if str(model).endswith(".npz"):
+        from magicdec_tpu_torch.utils.checkpoint import load_converted
+
+        cfg = ModelConfig.from_name(str(model))
+        params = load_converted(str(model), dtype=torch.bfloat16, device=device)
+        bits = Q.bits_from_path(str(model))
+        if bits:
+            params = Q.quantize_params(params, bits=bits)
+        return params, cfg
+    cfg = ModelConfig.from_name(model)
+    return make_params(cfg, device=device), cfg
+
+
 def setup(args):
     """(engine, prompts) for the parsed arguments; raises NotImplementedError
     for a path the port does not run yet."""
@@ -151,15 +183,19 @@ def setup(args):
         raise NotImplementedError(missing)
     import torch
 
-    from magicdec_tpu_torch.bench import make_params
-    from magicdec_tpu_torch.config import ModelConfig
+    from magicdec_tpu_torch import quantization as Q
     from magicdec_tpu_torch.engine.engine import EngineConfig
     from magicdec_tpu_torch.engine.serving import PagedServingEngine, ServingEngine
     from magicdec_tpu_torch.models.llama import fuse_exec_params
 
     dev = resolve_device(args.device)
-    cfg = ModelConfig.from_name(args.model)
-    params = fuse_exec_params(make_params(cfg, device=dev), cfg)
+    params, cfg = load_params_and_config(args.model, dev)
+    params = fuse_exec_params(params, cfg)
+    if args.draft_quant and any(Q.is_quantized(w) for w in params["layers"].values()):
+        # the draft shares the quantized target weights, as bench --quantize
+        print(f"[serving] {args.model}: the draft shares the quantized target weights "
+              "(draft_quant disabled)", file=sys.stderr)
+        args.draft_quant = None
     prefix = args.prefix_len
     ecfg = EngineConfig(
         mode=args.mode, gamma=args.gamma, draft_budget=args.draft_budget,

@@ -445,7 +445,6 @@ def test_bench_defaults_and_metric_tag():
 
 @pytest.mark.parametrize("argv,match", [
     (["--kv_scale", "bf16"], "A8"), (["--kv_quant", "int4", "--kv_scale", "bf16"], "A8"),
-    (["--quantize", "int4"], "A8"),
 ], ids=lambda a: "_".join(a).replace("--", "").strip("_") if isinstance(a, list) else a)
 def test_bench_quant_paths_not_ported_raise(argv, match):
     with pytest.raises(NotImplementedError, match=match):

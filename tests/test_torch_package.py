@@ -56,8 +56,7 @@ def test_chip_smoke_fails_without_card(no_card, capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--quantize", "int4"], ["--quantize_embed"],
-    ["--quantize", "int8"],
+    ["--kv_scale", "bf16"],
     ["--attn_backend", "jnp"], ["--quant_backend", "jnp"],
 ], ids=lambda a: "_".join(a).strip("-"))
 def test_bench_paths_not_ported_raise(argv):

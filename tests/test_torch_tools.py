@@ -65,14 +65,18 @@ def test_profile_decode_runs_on_cpu(capsys):
 
 
 def test_profile_decode_phase_subset_and_unported_flags(capsys):
+    """A subset of the phases; ``--quantize int8`` (the quantized-target
+    window, no longer a flag that raises) profiles it too, its metric
+    tagged."""
     from magicdec_tpu_torch import profile_decode
 
-    r = profile_decode.main(["--device", "cpu", "--model", "68m", "--B", "1", "--ctx", "128",
-                             "--seq_round", "128", "--iters", "2", "--kv_quant", "int8",
-                             "--phases", "verify_step_ms,noctx_step_ms"])
-    assert set(r) == {"verify_step_ms", "noctx_step_ms"}
-    with pytest.raises(NotImplementedError, match="A8"):
-        profile_decode.main(["--device", "cpu", "--quantize", "int8"])
+    for extra in ([], ["--quantize", "int8"]):
+        r = profile_decode.main(["--device", "cpu", "--model", "68m", "--B", "1", "--ctx",
+                                 "128", "--seq_round", "128", "--iters", "2", "--kv_quant",
+                                 "int8", "--phases", "verify_step_ms,noctx_step_ms"] + extra)
+        assert set(r) == {"verify_step_ms", "noctx_step_ms"}
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["metric"] == "profile_decode_68m_B1_ctx128_int8_torch"
 
 
 def test_kernel_benchmark_append_runs_on_cpu(capsys, monkeypatch):
