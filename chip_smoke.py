@@ -34,7 +34,16 @@ of which raises on failure:
    and a library yardstick (``library_ms``: ``scaled_dot_product_attention``
    on the (dequantized) bf16 K/V for the attention kernels, ``index_copy_``
    of the rows (and scales) for the appends; timed only, never used by the
-   port); K2, K2q and B11 (C = 512 at bases 7680 and 0, and SnapKV's
+   port); the bf16-scale instances (``--kv_scale bf16``: K1q, B10 at T = 4
+   and 1, K2q, B11 at C = 512, bases 7680 and 0, K3q on int8 and packed rows
+   and B14's scale columns at T = 4, 1 and 512, B12's int8 and int4 pools
+   and B13 at ps 512 and 16), each also against the same kernel's f32
+   instance on the widened scales, 0 bits differing (the appends' scale
+   caches compared bit for bit), their bound counting 2 bytes a scale; B4
+   (wqkv + norm, w13 + gate, w2 + residual) and B6 (the head) on group-wise
+   int8 weights (group 128) at M = 32, 64 and 128 (wrong reference: the
+   group scales shifted by one group); K2, K2q and B11 (C = 512 at bases
+   7680 and 0, and SnapKV's
    32-token window chunk at base 8192) also under torch.profiler, which
    must see one launch of ``prefill_sm90_kernel`` a call; K1 (target T = 4, 1 and 9,
    draft T = 1 and 2), K1q and B10 too, which must see one
@@ -101,7 +110,14 @@ of which raises on failure:
    target's 128 rows, counted by row count; B5 on the draft; no int4 dot)
    against path (1), then the row check below on those weights at B = 32, 4
    and 2; (13) ``--quantize int4 --quantize_embed --prefix_len 2048 --iters
-   1`` (B4-int4 and B6-int4 at 128 rows; no int8 dot, B5 or B9); then the
+   1`` (B4-int4 and B6-int4 at 128 rows; no int8 dot, B5 or B9); (15) path
+   (5) and (16) path (1) with ``--kv_scale bf16``, every quantized-KV kernel
+   of the path on its bf16-scale instance alone, beside path (5) / (1);
+   group-wise int8 verify weights (``quantize_params(bits=8,
+   group_size=128)``): the row check at B = 32, 4 and 2, and a short
+   ``SpecEngine`` run (B=4, prefix 2048, max_gen 32, the int8 cache on bf16
+   scales, the appends as B14's per-array calls) with spec == AR, B4 and B6
+   on the grouped weights, B5 and B9 idle; then the
    paged serving paths, ``magicdec_tpu_torch.serving_bench.main`` with
    ``SERVE_ARGV`` (16 slots, 32 requests of distinct lengths in [4096,
    8000], 512-row pages): (6) a bf16 pool, (7) an int8 pool, (8) an int8
@@ -128,7 +144,9 @@ of which raises on failure:
    slots, 16 requests of 7968 tokens, an int8 pool of 512-row pages): B12's
    int8 pool once a layer per target pass, B13 and K3 (the verify's two
    appends) launched, ``ServingEngine`` on the same prompts giving every
-   token;
+   token; then ``--kv_scale bf16`` serves over an int8 and an int4 pool (8
+   requests each): B12, B13, K2q / B11 and K3q on bf16 scales alone, tokens
+   equal to ``ServingEngine``'s;
 5. C2, served == solo: 4 equal-length prompts (one admission bucket) and 4
    of distinct lengths served through 16 slots over an int8 pool, each
    against the same prompt served alone through the same slots and against
@@ -258,6 +276,41 @@ def _sdpa_inputs(q, k_layer, v_layer, base, k_new, v_new):
     return q.transpose(1, 2).contiguous(), kf, vf, mask
 
 
+BF16S = "[bf16 scales]"  # the cases and kernels-line entries of the bf16-scale instances
+GROUP8 = 128                    # the group-wise int8 weights' group
+GROUPED8 = "[group-wise int8]"  # ... and of B4 / B6 on them
+
+
+def _same_bits_as_f32(torch, what, out, run, caches, fresh):
+    """A bf16-scale launch's output ``out`` against ``run`` (the same
+    kernel) on the cache operands (k, k_scale, v, v_scale) and fresh rows
+    with every scale widened to f32: 0 bits may differ."""
+    wide = [c.float() if i % 2 else c for i, c in enumerate(caches)]
+    wfresh = {n: t.float() if n in ("ks_new", "vs_new") else t for n, t in fresh.items()}
+    twin = run(wide, wfresh)
+    differ = int((out.view(torch.int16) != twin.view(torch.int16)).sum())
+    print(f"[kernel] {what}: {differ} of {out.numel()} outputs differ in bits from the f32 "
+          "instance on the widened scales", flush=True)
+    if differ:
+        raise AssertionError(f"{what}: the bf16-scale instance differs from the f32 one on the "
+                             "widened scales")
+
+
+def _same_scale_bits(name, case, got, wide, data=2):
+    """An append's bf16-scale results (``data`` data arrays, then scales)
+    against its f32 instance's on the widened scales, bit for bit."""
+    import torch
+
+    same = all(torch.equal(a, b) for a, b, in zip(got[:data], wide[:data])) and all(
+        torch.equal(a.float().view(torch.int32), b.view(torch.int32))
+        for a, b in zip(got[data:], wide[data:]))
+    if not same:
+        raise AssertionError(f"{name} {case}: the bf16-scale instance differs from the f32 one "
+                             "on the widened scales")
+    print(f"[kernel] {name} {case}: bit-equal to the f32 instance on the widened scales",
+          flush=True)
+
+
 def _swap_planes(packed):
     """Packed int4 bytes with their nibbles swapped: kv heads 2i and 2i+1
     exchanged (a wrong reference)."""
@@ -307,30 +360,37 @@ def kernel_phase(torch, gen):
               flush=True)
         return c
 
-    def quantize(x, fn=quantize_kv_tokens, width=K):
+    def quantize(x, fn=quantize_kv_tokens, width=K, scale_dtype=torch.float32):
         """[L, B, S, K] bf16 -> int8 [L, B, S, width] (``fn``: int8, or int4
-        packed in head pairs at width K // 2) and f32 scales [L, B, Hkv, S],
-        one layer at a time (the float32 temporaries of a whole cache would
-        take 18 GB)."""
+        packed in head pairs at width K // 2) and scales [L, B, Hkv, S] in
+        ``scale_dtype``, one layer at a time (the float32 temporaries of a
+        whole cache would take 18 GB)."""
         Lx, Bx, Sx = x.shape[:3]
         q = torch.empty((Lx, Bx, Sx, width), dtype=torch.int8, device=dev)
-        s = torch.empty((Lx, Bx, Hkv, Sx), dtype=torch.float32, device=dev)
+        s = torch.empty((Lx, Bx, Hkv, Sx), dtype=scale_dtype, device=dev)
         for l in range(Lx):
-            q[l], s[l] = fn(x[l].view(Bx, Sx, Hkv, hd))
+            q[l], s[l] = fn(x[l].view(Bx, Sx, Hkv, hd), scale_dtype=scale_dtype)
         return q, s
 
-    def quantize4(x):
-        return quantize(x, quantize_kv_tokens_int4, K // 2)
+    def quantize4(x, scale_dtype=torch.float32):
+        return quantize(x, quantize_kv_tokens_int4, K // 2, scale_dtype)
 
     def dense_fresh(T):
         return {"k_new": randn(B, T, K), "v_new": randn(B, T, K)}
 
-    def quant_fresh(T, fn=quantize_kv_tokens):
-        (kn, ksn), (vn, vsn) = (fn(randn(B, T, Hkv, hd)) for _ in range(2))
+    def quant_fresh(T, fn=quantize_kv_tokens, scale_dtype=torch.float32):
+        (kn, ksn), (vn, vsn) = (fn(randn(B, T, Hkv, hd), scale_dtype=scale_dtype)
+                                for _ in range(2))
         return {"k_new": kn, "v_new": vn, "ks_new": ksn, "vs_new": vsn}
 
     def quant4_fresh(T):
         return quant_fresh(T, quantize_kv_tokens_int4)
+
+    def bf16s_fresh(T):
+        return quant_fresh(T, scale_dtype=bf)
+
+    def bf16s4_fresh(T):
+        return quant_fresh(T, quantize_kv_tokens_int4, bf)
 
     def swapped(plain, caches):
         """A wrong reference of an int4 kernel: its plain version over layer
@@ -355,17 +415,22 @@ def kernel_phase(torch, gen):
                 dequant_kv(fresh["v_new"], fresh["vs_new"], hd, bf))
 
     def attn_case(name, fn, plain, case, caches, make_fresh, T, base, plain_iters,
-                  swap=False):
+                  swap=False, profile=True):
         """caches: the cache operands as the kernel takes them, (k, v) or
         (k, k_scale, v, v_scale); make_fresh(T): the window's rows; swap: an
         int4 cache, whose plain version with the nibble planes swapped must
-        fail too."""
+        fail too.  bf16 scales: the same kernel's f32 instance on the
+        widened scales must give the same bits.  ``profile``: count the
+        kernel launches a call under torch.profiler."""
         q = randn(B, T, Hq, hd)
         fresh = make_fresh(T)
         out = fn(q, *caches, base, layer=layer, **fresh)
         ref = plain(q, *caches, base, layer=layer, **fresh)
         torch.cuda.synchronize()
         err, tol = _err(out, ref)
+        if len(caches) == 4 and caches[1].dtype == bf:
+            _same_bits_as_f32(torch, f"{name} {case}", out,
+                              lambda c, f: fn(q, *c, base, layer=layer, **f), caches, fresh)
         # the same kernel without the fresh rows reads the cache where they
         # belong: bf16_limit must reject it
         wrongs = {"without the fresh rows": fn(q, *caches, base, layer=layer)}
@@ -399,14 +464,16 @@ def kernel_phase(torch, gen):
         # a visible row of k (and of v): its bytes (int4: K / 2) and, when
         # quantized, its Hkv scales
         row_bytes = (caches[0].shape[-1] * caches[0].element_size()
-                     + (Hkv * 4 if len(caches) == 4 else 0))
+                     + (Hkv * caches[1].element_size() if len(caches) == 4 else 0))
         nbytes = (2 * q.numel() * 2 + 2 * float(vis.sum()) * row_bytes
                   + sum(t.numel() * t.element_size() for t in fresh.values()))
         flops = 4 * hd * Hq * pairs
         calls = [lambda l=l: fn(q, *caches, base, layer=l, **fresh) for l in range(L)]
         extra = None
-        if fn in (PA.flash_prefill_attend, PA.flash_prefill_attend_quant,
-                  PA.flash_prefill_attend_quant4):
+        if not profile:
+            pass
+        elif fn in (PA.flash_prefill_attend, PA.flash_prefill_attend_quant,
+                    PA.flash_prefill_attend_quant4):
             # K2 / K2q / B11: one launch of the Hopper kernel a call
             extra = _one_launch(torch, name, case, calls, kernel="prefill_sm90_kernel")
         elif fn in (DA.flash_decode_attend, DA.flash_decode_attend_quant,
@@ -477,6 +544,26 @@ def kernel_phase(torch, gen):
                   PA.flash_prefill_attend_quant4_plain, f"C={C} base={base}", pcaches,
                   quant4_fresh, C, torch.full((B,), base, device=dev, dtype=torch.int32), 1,
                   swap=True)
+    # --kv_scale bf16: the same values quantized with bf16 scales (2 bytes a
+    # scale); K1q, B10, K2q and B11 take their bf16-scale instances, each
+    # also bit for bit against its f32 instance on the widened scales
+    bcaches = (*quantize(k4, scale_dtype=bf), *quantize(v4, scale_dtype=bf))
+    bpcaches = (*quantize4(k4, bf), *quantize4(v4, bf))
+    for T in (4, 1):
+        attn_case(f"flash_decode_attend_quant {BF16S}", DA.flash_decode_attend_quant,
+                  DA.flash_decode_attend_quant_plain, f"target T={T} S={S}", bcaches,
+                  bf16s_fresh, T, base_t, 3, profile=False)
+        attn_case(f"flash_decode_attend_quant4 {BF16S}", DA.flash_decode_attend_quant4,
+                  DA.flash_decode_attend_quant4_plain, f"target T={T} S={S}", bpcaches,
+                  bf16s4_fresh, T, base_t, 3, swap=True, profile=False)
+    for C, base in prefill_shapes[:2]:
+        at = torch.full((B,), base, device=dev, dtype=torch.int32)
+        attn_case(f"flash_prefill_attend_quant {BF16S}", PA.flash_prefill_attend_quant,
+                  PA.flash_prefill_attend_quant_plain, f"C={C} base={base}", bcaches,
+                  bf16s_fresh, C, at, 1, profile=False)
+        attn_case(f"flash_prefill_attend_quant4 {BF16S}", PA.flash_prefill_attend_quant4,
+                  PA.flash_prefill_attend_quant4_plain, f"C={C} base={base}", bpcaches,
+                  bf16s4_fresh, C, at, 1, swap=True, profile=False)
     torch.cuda.empty_cache()
 
     def flat_index(rows, pos, T):
@@ -493,6 +580,12 @@ def kernel_phase(torch, gen):
         case = f"{label}T={T}"
         copies = [c.clone() for c in caches]
         fn(*copies[:2], *rows[:2], pos, *copies[2:], *rows[2:])
+        if len(caches) == 4 and caches[2].dtype == bf:
+            # the f32 instance on the widened scales writes the same values
+            wide = [c.clone() if i < 2 else c.float() for i, c in enumerate(caches)]
+            fn(*wide[:2], *rows[:2], pos, *wide[2:], *(r.float() for r in rows[2:]))
+            _same_scale_bits(name, case, copies, wide)
+            del wide
         plain(*caches[:2], *rows[:2], pos, *caches[2:], *rows[2:])
         torch.cuda.synchronize()
         if not all(torch.equal(a, b) for a, b in zip(copies, caches)):
@@ -538,6 +631,16 @@ def kernel_phase(torch, gen):
                     AP.append_all_rows_inplace_plain, (kp4, vp4, kps4, vps4),
                     (rk, rv, srk, srv), pos, T, label="packed int4 ")
     del pcaches, kp4, kps4, vp4, vps4
+    # K3q into the bf16-scale caches, int8 and packed int4 rows
+    for caches, qz, label in ((bcaches, quantize, "int8 "), (bpcaches, quantize4, "packed int4 ")):
+        for T in (4, 1, 512):
+            pos = torch.randint(0, S - T, (B,), generator=gen, device=dev, dtype=torch.int32)
+            (rk, srk), (rv, srv) = (qz(randn(L, B, T, K), scale_dtype=bf) for _ in range(2))
+            append_case(f"append_all_rows_inplace_quant {BF16S}",
+                        AP.append_all_rows_inplace_quant, AP.append_all_rows_inplace_plain,
+                        (caches[0], caches[2], caches[1], caches[3]), (rk, rv, srk, srv), pos,
+                        T, label=label)
+    del bcaches, bpcaches
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     quant_kernel_cases(torch, gen, record)
@@ -568,9 +671,15 @@ def per_array_append_cases(torch, gen, record):
     L, B, Hkv, K = 16, 32, 8, 512
 
     def case(name, fn, plain, dst, src, pos, T, label):
-        S = dst.shape[-1] if name == "append_scale_rows_inplace" else dst.shape[2]
+        scales = name.startswith("append_scale_rows_inplace")
+        S = dst.shape[-1] if scales else dst.shape[2]
         mine = dst.clone()
         fn(mine, src, pos)
+        if dst.dtype == torch.bfloat16 and scales:
+            wide = dst.float()
+            fn(wide, src.float(), pos)
+            _same_scale_bits(name, f"{label} T={T}", [mine], [wide], data=0)
+            del wide
         plain(dst, src, pos)
         torch.cuda.synchronize()
         if not torch.equal(mine, dst):
@@ -581,7 +690,7 @@ def per_array_append_cases(torch, gen, record):
         p = pos.long()[:, None] + torch.arange(T, device=dev)
         b, t = (p < S).nonzero(as_tuple=True)
         lb = torch.arange(L, device=dev)[:, None] * B + b[None]             # [L, kept]
-        if name == "append_scale_rows_inplace":
+        if scales:
             h = torch.arange(Hkv, device=dev)[None, None]
             flat = ((lb[..., None] * Hkv + h) * S + p[b, t][None, :, None]).reshape(-1)
             vals = src[:, b, :, t].permute(1, 0, 2).reshape(-1)
@@ -606,6 +715,7 @@ def per_array_append_cases(torch, gen, record):
     for label, cache in caches.items():
         S = cache.shape[2]
         scale = torch.rand((L, B, Hkv, S), generator=gen, device=dev)
+        bscale = scale.to(torch.bfloat16)
         for T in (4, 1, 512):
             pos = torch.randint(0, S - T + 1, (B,), generator=gen, device=dev,
                                 dtype=torch.int32)
@@ -621,6 +731,11 @@ def per_array_append_cases(torch, gen, record):
                  AP.append_scale_rows_inplace_plain, scale,
                  torch.rand((L, B, Hkv, T), generator=gen, device=dev), pos, T,
                  f"f32 scales S={S}")
+            if cache.dtype == torch.int8:  # --kv_scale bf16: the target's bf16 scales
+                case(f"append_scale_rows_inplace {BF16S}", AP.append_scale_rows_inplace,
+                     AP.append_scale_rows_inplace_plain, bscale,
+                     torch.rand((L, B, Hkv, T), generator=gen, device=dev).to(torch.bfloat16),
+                     pos, T, f"bf16 scales S={S}")
         del scale
     del caches
     torch.cuda.empty_cache()
@@ -789,6 +904,9 @@ def paged_kernel_cases(torch, gen, record):
     base = torch.randint(0, S - T + 1, (B,), generator=gen, device=dev, dtype=torch.int32)
     base[0], base[-1] = 0, S - T
     wide = int(base.argmax())  # the request whose table gets two entries swapped
+    def bf16s(qz):
+        return lambda x: qz(x, scale_dtype=bf)
+
     formats = {
         "flash_paged_decode_attend": (None, DA.flash_decode_attend,
                                       PGA.flash_paged_decode_attend_plain),
@@ -797,6 +915,14 @@ def paged_kernel_cases(torch, gen, record):
         "flash_paged_decode_attend_quant4": (quantize_kv_tokens_int4,
                                              DA.flash_decode_attend_quant4,
                                              PGA.flash_paged_decode_attend_quant4_plain),
+        # --kv_scale bf16: the bf16-scale instances, bit for bit against the
+        # f32 ones on the widened scales
+        f"flash_paged_decode_attend_quant {BF16S}": (
+            bf16s(quantize_kv_tokens), DA.flash_decode_attend_quant,
+            PGA.flash_paged_decode_attend_quant_plain),
+        f"flash_paged_decode_attend_quant4 {BF16S}": (
+            bf16s(quantize_kv_tokens_int4), DA.flash_decode_attend_quant4,
+            PGA.flash_paged_decode_attend_quant4_plain),
     }
     for ps in (512, 16):
         npr = S // ps
@@ -818,12 +944,16 @@ def paged_kernel_cases(torch, gen, record):
                     pools += [torch.stack([a for a, _ in qs]), torch.stack([b for _, b in qs])]
                 (kn, ksn), (vn, vsn) = (qz(randn(B, T, Hkv, hd)) for _ in range(2))
                 fresh = {"k_new": kn, "v_new": vn, "ks_new": ksn, "vs_new": vsn}
-            fn = getattr(PGA, name)
+            fn = getattr(PGA, name.split()[0])
             q = randn(B, T, Hq, hd)
             out = fn(q, *pools, table, base, layer=5, **fresh)
             ref = plain(q, *pools, table, base, layer=5, **fresh)
             torch.cuda.synchronize()
             err, tol = _err(out, ref)
+            if qz is not None and pools[1].dtype == bf:
+                _same_bits_as_f32(torch, f"{name} {case}", out,
+                                  lambda c, f: fn(q, *c, table, base, layer=5, **f), pools,
+                                  fresh)
             gathered = [PKV.scale_pool_gather(p, table) if qz and i % 2
                         else PKV.pool_gather(p, table) for i, p in enumerate(pools)]
             for kw in (fresh, {}):
@@ -864,7 +994,8 @@ def paged_kernel_cases(torch, gen, record):
             library_ms = _cuda_ms(lib)
             vis = base.double()
             pairs = float((vis[:, None] + torch.arange(1, T + 1, device=dev)).sum())
-            row_bytes = pools[0].shape[-1] * pools[0].element_size() + (Hkv * 4 if qz else 0)
+            row_bytes = (pools[0].shape[-1] * pools[0].element_size()
+                         + (Hkv * pools[1].element_size() if qz else 0))
             nbytes = (2 * q.numel() * 2 + 2 * float(vis.sum()) * row_bytes + table.numel() * 4
                       + sum(t.numel() * t.element_size() for t in fresh.values()))
             calls = [lambda l=l: fn(q, *pools, table, base, layer=l, **fresh) for l in range(L)]
@@ -874,7 +1005,8 @@ def paged_kernel_cases(torch, gen, record):
             record(name, case, err, tol, ms, plain_ms, nbytes, 4 * hd * Hq * pairs, library_ms,
                    calls, [lib], extra)
             del lib_args
-            fmt = {None: "bf16", quantize_kv_tokens: "int8"}.get(qz, "packed int4")
+            fmt = ("bf16" if qz is None else "packed int4" if "quant4" in name else "int8")
+            fmt += " (bf16 scales)" if qz is not None and pools[1].dtype == bf else ""
             paged_append_case(torch, record, pools, table, base, T, f"{fmt} pool ps={ps} ", gen)
             del pools, fresh
             torch.cuda.empty_cache()
@@ -897,7 +1029,8 @@ def paged_append_case(torch, record, pools, table, pos, T, label, gen):
         rows = [torch.randint(-128, 128, (L, B, T, Kc), generator=gen, device=dev,
                               dtype=torch.int8) for _ in range(2)]
         H = scales[0].shape[2]
-        srows = [torch.rand((L, B, H, T), generator=gen, device=dev) for _ in range(2)]
+        srows = [torch.rand((L, B, H, T), generator=gen, device=dev).to(scales[0].dtype)
+                 for _ in range(2)]
     else:
         rows = [torch.randn((L, B, T, Kc), generator=gen, device=dev).to(data[0].dtype)
                 for _ in range(2)]
@@ -905,6 +1038,13 @@ def paged_append_case(torch, record, pools, table, pos, T, label, gen):
     ops = (*rows, pos, table)
     mine = [t.clone() for t in data + scales]
     out = PGA.append_paged_rows_inplace(*mine[:2], *ops, *mine[2:], *srows)
+    name = "append_paged_rows_inplace"
+    if scales and scales[0].dtype == torch.bfloat16:
+        name += f" {BF16S}"
+        wide = [t.clone() for t in data] + [t.float() for t in scales]
+        PGA.append_paged_rows_inplace(*wide[:2], *ops, *wide[2:], *(r.float() for r in srows))
+        _same_scale_bits(name, f"{label}T={T}", out, wide)
+        del wide
     ref = PGA.append_paged_rows_inplace_plain(*data, *ops, *scales, *srows)
     torch.cuda.synchronize()
     if not all(torch.equal(a, b) for a, b in zip(out, ref)):
@@ -927,7 +1067,7 @@ def paged_append_case(torch, record, pools, table, pos, T, label, gen):
     library_ms = _cuda_ms(lambda: [d.index_copy_(0, i, r) for d, i, r in pairs])
     nbytes = (2 * sum(r.numel() * r.element_size() for r in rows + srows)
               + table.numel() * 4 + pos.numel() * 4)
-    record("append_paged_rows_inplace", f"{label}T={T}", 0.0, "bit-exact", ms, plain_ms,
+    record(name, f"{label}T={T}", 0.0, "bit-exact", ms, plain_ms,
            nbytes, 0.0, library_ms,
            [lambda: PGA.append_paged_rows_inplace(*data, *ops, *scales, *srows)] * 10,
            [lambda: [d.index_copy_(0, i, r) for d, i, r in pairs]] * 10)
@@ -984,8 +1124,8 @@ def quant_kernel_cases(torch, gen, record):
         plain_ms = _cuda_ms(lambda: plain(*args), iters=3, warmup=1)
         calls = [lambda l=l: fn(*args_of(l)) for l in range(n_layers)]
         extra = None
-        if name in ONE_LAUNCH:
-            extra = _one_launch(torch, name, label, calls, kernel or ONE_LAUNCH[name])
+        if name.split()[0] in ONE_LAUNCH:
+            extra = _one_launch(torch, name, label, calls, kernel or ONE_LAUNCH[name.split()[0]])
         library_ms, deq = None, None
         if lib is not None:
             deq = [dequant(k, l) for k in keys for l in range(weights[k][0].shape[0])]
@@ -1000,13 +1140,15 @@ def quant_kernel_cases(torch, gen, record):
         del deq
 
     def is4(key):
-        """An int4 weight: its per-layer scales are [G, Out]."""
-        return weights[key][1].dim() == 3
+        """An int4 weight (keys ending in 4)."""
+        return key.endswith("4")
 
     def dequant(key, l):
         q, s = w(key, l)
-        if is4(key):
-            return Q.dequantize_weight(Q.QuantizedWeight(q, s, 4, 2 * q.shape[0] // s.shape[0]))
+        if s.dim() == 2:  # group-wise, int4 or int8: [G, Out]
+            bits = 4 if is4(key) else 8
+            rows = q.shape[0] * (2 if bits == 4 else 1)
+            return Q.dequantize_weight(Q.QuantizedWeight(q, s, bits, rows // s.shape[0]))
         return (q.float() * s).to(bf)
 
     def w(key, l):
@@ -1101,6 +1243,44 @@ def quant_kernel_cases(torch, gen, record):
     del weights
     torch.cuda.empty_cache()
 
+    def shifted(s):
+        return s.roll(1, 0)  # each group takes the scales of the group before
+
+    # group-wise int8 (quantize_params(bits=8, group_size=128), scales
+    # [L, G, Out]): B4 with its norm, gate or residual and B6, at the
+    # draft's rows and the target's decode_rows (two 64-row passes)
+    def stack8g(In, Out, layers=L):
+        w = Q.quantize_params({"layers": {"wo": randn(layers, In, Out, scale=In ** -0.5)}},
+                              bits=8, group_size=GROUP8, include_head=False)["layers"]["wo"]
+        return w.q, w.scale
+
+    weights = {"wqkvg8": stack8g(D, D + 1024), "w13g8": stack8g(D, 2 * F),
+               "w2g8": stack8g(F, D), "lm_headg8": stack8g(D, V, layers=1)}
+    for M in (32, 64, 128):
+        x, g, res = randn(M, D, scale=3.0), randn(M, F, scale=0.5), randn(M, D)
+        case(f"quant_matmul_fused {GROUPED8}", f"wqkv + attention norm M={M}",
+             lambda x, q, s, n: QK.quant_matmul_fused(x, q, s, n),
+             lambda x, q, s, n: QK.quant_matmul_fused_plain(x, q, s, n),
+             lambda x, q, s, n: QK.quant_matmul_fused_plain(x, q, shifted(s), n),
+             lambda l: (x, *w("wqkvg8", l), norm_w), ["wqkvg8"], lib=x, M=M)
+        case(f"quant_matmul_fused {GROUPED8}", f"w13 + norm + SiLU gate M={M}",
+             lambda x, q, s, n: QK.quant_matmul_fused(x, q, s, n, gate=True),
+             lambda x, q, s, n: QK.quant_matmul_fused_plain(x, q, s, n, gate=True),
+             lambda x, q, s, n: QK.quant_matmul_fused_plain(x, q, shifted(s), n, gate=True),
+             lambda l: (x, *w("w13g8", l), norm_w), ["w13g8"], lib=x, M=M)
+        case(f"quant_matmul_fused {GROUPED8}", f"w2 + residual M={M}",
+             lambda x, q, s, r: QK.quant_matmul_fused(x, q, s, res=r),
+             lambda x, q, s, r: QK.quant_matmul_fused_plain(x, q, s, res=r),
+             lambda x, q, s, r: QK.quant_matmul_fused_plain(x, q, shifted(s), res=r),
+             lambda l: (g, *w("w2g8", l), res), ["w2g8"], lib=g, M=M)
+        x = randn(M, D, scale=0.5)
+        case(f"quant_matmul {GROUPED8}", f"lm_head [2048, 128256] M={M}",
+             QK.quant_matmul, QK.quant_matmul_plain,
+             lambda x, q, s: QK.quant_matmul_plain(x, q, shifted(s)),
+             lambda l: (x, *w("lm_headg8", l)), ["lm_headg8"], lib=x, M=M)
+    del weights
+    torch.cuda.empty_cache()
+
     # the int4 copy: groups of 128 contraction rows, scales [L, G, Out];
     # every dot takes its input normed already (no norm in the int4 kernels)
     def stack4(In, Out, layers=L):
@@ -1111,9 +1291,6 @@ def quant_kernel_cases(torch, gen, record):
     weights = {"wqkv4": stack4(D, D + 1024), "wo4": stack4(D, D), "w134": stack4(D, 2 * F),
                "w24": stack4(F, D), "lm_head4": stack4(D, V, layers=1)}
     fused4, plain4 = QK.quant_matmul_fused_int4, QK.quant_matmul_fused_int4_plain
-
-    def shifted(s):
-        return s.roll(1, 0)  # each group takes the scales of the group before
 
     # M = 128: the int4 target (bench --quantize int4) at decode_rows
     for M in (32, 64, 128):
@@ -1166,6 +1343,36 @@ def _agreement(spec_out, spec_n, base_out, max_gen):
     return summary
 
 
+def _zero_counts(wrappers):
+    """Every wrapper's launch counters to 0 (and its bf16-scale count)."""
+    for w in wrappers:
+        w.launches = 0
+        if hasattr(w, "bf16_scale_launches"):
+            w.bf16_scale_launches = 0
+
+
+def _read_counts(wrappers):
+    """{wrapper: launches}, and {f"wrapper {BF16S}": its launches on bf16
+    scales} for the quantized-KV wrappers."""
+    counts = {w.__name__: w.launches for w in wrappers}
+    counts.update({f"{w.__name__} {BF16S}": w.bf16_scale_launches for w in wrappers
+                   if hasattr(w, "bf16_scale_launches")})
+    return counts
+
+
+def _all_on_bf16_scales(tag, launches, wrappers):
+    """Raises unless each of ``wrappers`` launched, every launch on bf16
+    scales; returns the printable counts."""
+    counts = {w.__name__: (launches[f"{w.__name__} {BF16S}"], launches[w.__name__])
+              for w in wrappers}
+    summary = ", ".join(f"{n} {b} of {a}" for n, (b, a) in counts.items())
+    print(f"[{tag}] launches on bf16 scales: {summary}", flush=True)
+    bad = [n for n, (b, a) in counts.items() if not a or b != a]
+    if bad:
+        raise AssertionError(f"{tag}: {bad} did not run on bf16 scales alone ({summary})")
+    return summary
+
+
 def main_path(torch, wrappers, required, argv, forbidden=(), min_tokens_per_step=2.5):
     """The bench's main path with ``argv``; the counters are zeroed just
     before and read just after.  Fails unless every kernel in ``required``
@@ -1174,14 +1381,13 @@ def main_path(torch, wrappers, required, argv, forbidden=(), min_tokens_per_step
     Returns (bench output, launches, peak GiB)."""
     from magicdec_tpu_torch import bench
 
-    for w in wrappers:
-        w.launches = 0
+    _zero_counts(wrappers)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     out = bench.main(argv)
     wall = time.perf_counter() - t0
-    launches = {w.__name__: w.launches for w in wrappers}
+    launches = _read_counts(wrappers)
     peak = torch.cuda.max_memory_allocated() / 2**30
     tag = " ".join(argv) or "defaults"
     print(f"[main {tag}] wall={wall:.1f}s gamma={out['gamma']} launches={launches} "
@@ -1508,14 +1714,13 @@ def serving_path(torch, wrappers, required, paged_attend, extra, forbidden=(),
     from magicdec_tpu_torch import serving_bench
 
     argv = SERVE_ARGV + extra
-    for w in wrappers:
-        w.launches = 0
+    _zero_counts(wrappers)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     out = serving_bench.main(argv)
     wall = time.perf_counter() - t0
-    launches = {w.__name__: w.launches for w in wrappers}
+    launches = _read_counts(wrappers)
     peak = torch.cuda.max_memory_allocated() / 2**30
     tag = " ".join(extra) or "bf16 pool"
     print(f"[serve {tag}] wall={wall:.1f}s launches={launches} peak_mem={peak:.2f} GiB",
@@ -1834,7 +2039,123 @@ def dense_ab_phase(torch, wrappers):
     return {"profile_decode": runs, "append": append}
 
 
-def row_invariance_phase(torch, B=32, dense=False, quantize=None):
+def bf16_scale_serving_phase(torch, wrappers, kernels):
+    """``serving_bench`` with SERVE_ARGV, ``--kv_scale bf16`` and an int8,
+    then an int4 pool, 8 requests each, no warmup: B12, B13, K2q or B11 and
+    K3q on their bf16-scale instances alone, B12 once a layer per target
+    pass, each serve's tokens equal to ``ServingEngine``'s on the same
+    prompts.  Returns the bf16-scale launches of B12 and B13."""
+    DA, PA, AP, PGA = (kernels[n] for n in ("DA", "PA", "AP", "PGA"))
+    draft = [DA.flash_decode_attend, AP.append_all_rows_inplace]
+    result = {}
+    for fmt, paged, prefill in (("int8", PGA.flash_paged_decode_attend_quant,
+                                 PA.flash_prefill_attend_quant),
+                                ("int4", PGA.flash_paged_decode_attend_quant4,
+                                 PA.flash_prefill_attend_quant4)):
+        extra = ["--kv_quant", fmt, "--kv_scale", "bf16", "--skip_warmup", "--num_requests", "8"]
+        own = [paged, prefill, AP.append_all_rows_inplace_quant, PGA.append_paged_rows_inplace]
+        out, launches, peak = serving_path(
+            torch, wrappers, own + draft, paged, extra,
+            forbidden=[w for w in (PGA.flash_paged_decode_attend,
+                                   PGA.flash_paged_decode_attend_quant,
+                                   PGA.flash_paged_decode_attend_quant4) if w is not paged])
+        _all_on_bf16_scales(f"serve {fmt} bf16 scales", launches, own)
+        t0 = time.perf_counter()
+        contig = contiguous_serve(SERVE_ARGV + extra, out["prompts"])
+        print(f"[serve {fmt} bf16 scales] " + _same_tokens(
+            "PagedServingEngine against ServingEngine", out["outputs"], contig)
+            + f" (contiguous serve {time.perf_counter() - t0:.1f}s); peak {peak:.2f} GiB",
+            flush=True)
+        # the paged kernels' counts (the bench paths count the contiguous ones)
+        result.update({f"{w.__name__} {BF16S}": launches[f"{w.__name__} {BF16S}"]
+                       for w in (paged, PGA.append_paged_rows_inplace)})
+    return result
+
+
+def grouped_int8_engine_phase(torch, wrappers):
+    """A short ``SpecEngine`` run on group-wise int8 verify weights,
+    ``quantize_params(make_params(cfg), bits=8, group_size=GROUP8)`` at the
+    full llama-3.2-1b widths (the draft shares them): B=4, prefix 2048,
+    max_gen 32, the int8 cache on bf16 scales and every append as B14's
+    per-array calls (``MAGICDEC_PER_ARRAY_APPEND``).  Fails unless greedy
+    spec == AR on every committed token, B4 and B6 launched on the grouped
+    weights (their row counts printed), B5 and B9 idle (they decline G > 1),
+    and B14's scale appends ran on bf16 scales alone.  Returns the
+    launches."""
+    from magicdec_tpu_torch import quantization as Q
+    from magicdec_tpu_torch.bench import make_params
+    from magicdec_tpu_torch.config import ModelConfig
+    from magicdec_tpu_torch.engine.engine import EngineConfig, SpecEngine
+    from magicdec_tpu_torch.kernels import append as AP
+    from magicdec_tpu_torch.kernels import quant_matmul as QK
+
+    dev = torch.device("cuda")
+    cfg = ModelConfig.from_name("llama-3.2-1b")
+    params = Q.quantize_params(make_params(cfg, device=dev), bits=8, group_size=GROUP8)
+    B, prefix, max_gen = 4, 2048, 32
+    ecfg = EngineConfig(mode="streamingllm", gamma=3, draft_budget=513, max_seq_len=2560,
+                        chunk_size=128, prefill_chunk_size=512, max_gen=max_gen, eot_ids=(-1,),
+                        cache_dtype=torch.bfloat16, kv_quant="int8",
+                        kv_scale_dtype=torch.bfloat16, draft_quant=False)
+    prompt = torch.randint(0, cfg.vocab_size, (B, prefix), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(3))
+    rows = {"quant_matmul_fused": {}, "quant_matmul": {}}
+    originals = {n: getattr(QK, n) for n in rows}
+
+    def spy_of(name, fn):
+        def spy(x, q, scale, *a, **kw):
+            spy.launches = 0
+            out = fn(x, q, scale, *a, **kw)
+            if spy.launches:  # the wrapper counted on this spy: pass it on
+                fn.launches += spy.launches
+                key = (x.shape[0], scale.shape[0])  # (rows, scale groups)
+                rows[name][key] = rows[name].get(key, 0) + 1
+            return out
+        spy.launches = 0
+        return spy
+
+    env = os.environ.get("MAGICDEC_PER_ARRAY_APPEND")
+    os.environ["MAGICDEC_PER_ARRAY_APPEND"] = "1"
+    for name, fn in originals.items():
+        setattr(QK, name, spy_of(name, fn))
+    try:
+        engine = SpecEngine(params, cfg, ecfg, device=dev)
+        _zero_counts(wrappers)
+        st, stats = engine.generate(engine.encode(prompt))
+        spec_out, committed = stats["output"].cpu().numpy(), stats["num_committed"].cpu().numpy()
+        steps = int(stats["target_steps"])
+        tps = float(stats["gen_tokens"].sum()) / max(steps, 1) / B
+        del st
+        st, bstats = engine.generate_baseline(engine.encode_baseline(prompt), max_new=max_gen)
+        base_out = bstats["output"].cpu().numpy()
+        del st, engine
+        torch.cuda.synchronize()
+        launches = _read_counts(wrappers)
+    finally:
+        for name, fn in originals.items():
+            setattr(QK, name, fn)
+        if env is None:
+            os.environ.pop("MAGICDEC_PER_ARRAY_APPEND")
+        else:
+            os.environ["MAGICDEC_PER_ARRAY_APPEND"] = env
+    tag = f"group-wise int8 target (group {GROUP8})"
+    print(f"[{tag}] B={B} prefix={prefix}: {tps:.3f} tokens/step; launches by (rows, scale "
+          f"groups): " + ", ".join(f"{n} {dict(sorted(r.items()))}" for n, r in rows.items()),
+          flush=True)
+    print(f"[{tag}] " + _agreement(spec_out, committed, base_out, max_gen), flush=True)
+    for name, r in rows.items():
+        if not any(g > 1 for _, g in r):
+            raise AssertionError(f"{tag}: {name} never launched on the group-wise weights")
+    for name in ("quant_layer_tail", "quant_mlp"):
+        if launches[name]:
+            raise AssertionError(f"{tag}: {name} launched on group-wise weights")
+    _all_on_bf16_scales(tag, launches, [AP.append_scale_rows_inplace])
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def row_invariance_phase(torch, B=32, dense=False, quantize=None, group_size=None):
     """Is a target row computed the same at verify (M = B*(gamma+1) rows) as
     at the AR step (M = B)?  At the bench's widths, each target dot alone,
     then two layers and the head: the logits of a 4-token verify window
@@ -1844,7 +2165,10 @@ def row_invariance_phase(torch, B=32, dense=False, quantize=None):
     bf16 dots on B15 (``quantization.set_dense_kernels``), which must
     launch; the dots alone are cuBLAS's and are skipped.  ``quantize``
     ('int8'): the model part on ``bench --quantize``'s target weights, its
-    dots on B4 / B9 / B6, which must launch."""
+    dots on B4 / B9 / B6, which must launch; with ``group_size``, on
+    ``quantize_params(make_params(cfg), bits=8, group_size=group_size)``,
+    its dots on B4 and B6 (B9 declines group-wise weights and must not
+    launch)."""
     import dataclasses
 
     from magicdec_tpu_torch import quantization as Q
@@ -1856,7 +2180,10 @@ def row_invariance_phase(torch, B=32, dense=False, quantize=None):
 
     dev = torch.device("cuda")
     cfg = dataclasses.replace(ModelConfig.from_name("llama-3.2-1b"), n_layer=2)
-    if quantize:
+    if group_size:
+        params = M.fuse_exec_params(Q.quantize_params(make_params(cfg, device=dev), bits=8,
+                                                      group_size=group_size), cfg)
+    elif quantize:
         params = make_params_quantized(cfg, 8 if quantize == "int8" else 4, device=dev)
     else:
         params = M.fuse_exec_params(make_params(cfg, device=dev), cfg)
@@ -1896,9 +2223,12 @@ def row_invariance_phase(torch, B=32, dense=False, quantize=None):
     lens = torch.full((B,), P, dtype=torch.int32, device=dev)
     tag = (" (B15 dense dots)" if dense else "") + (f" ({quantize} target weights)"
                                                      if quantize else "")
-    quant_dots = ((QK.quant_matmul_fused, QK.quant_mlp, QK.quant_matmul) if quantize == "int8"
+    tag += f" (group {group_size})" if group_size else ""
+    quant_dots = ((QK.quant_matmul_fused, QK.quant_matmul) if group_size
+                  else (QK.quant_matmul_fused, QK.quant_mlp, QK.quant_matmul)
+                  if quantize == "int8"
                   else (QK.quant_matmul_fused_int4, QK.quant_matmul_int4) if quantize else ())
-    for fn in (DK.dense_matmul_fused, DK.dense_mlp) + quant_dots:
+    for fn in (DK.dense_matmul_fused, DK.dense_mlp, QK.quant_mlp) + quant_dots:
         fn.launches = 0
     Q.set_dense_kernels(dense)
     dshape = (cfg.n_layer, B, 640, cfg.n_kv_head * cfg.head_dim)
@@ -1940,6 +2270,8 @@ def row_invariance_phase(torch, B=32, dense=False, quantize=None):
     if not all(fn.launches for fn in quant_dots):
         raise AssertionError(f"B={B}{tag}: the passes never launched "
                              f"{[fn.__name__ for fn in quant_dots if not fn.launches]}")
+    if group_size and QK.quant_mlp.launches:
+        raise AssertionError(f"B={B}{tag}: B9 launched on group-wise weights")
     del params, caches
 
 
@@ -1953,23 +2285,29 @@ def _profiled(torch, calls, attempts=8, want=1):
     under torch.profiler, after one unprofiled pass.  The profiler now and
     then loses a run's events on the card (fewer kernels than the ``want``
     a call, never more; once three runs in a row, for 16 draft-attention
-    calls of 18 us each): such a run is profiled again, at most
-    ``attempts`` times."""
+    calls of 18 us each; eight in a row, one of 16 B4 calls at
+    M=64): such a run is profiled again, at most ``attempts`` times."""
     from torch.profiler import ProfilerActivity, profile
 
     for call in calls:
         call()
     torch.cuda.synchronize()
     for _ in range(attempts):
+        # a short spin kernel before and after the calls, not counted: a
+        # run's first or last event is the one the profiler loses
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
             for call in calls:
                 call()
+            torch.cuda._sleep(1000)
             torch.cuda.synchronize()
         kern = [e for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA]
+                if e.device_type == torch.autograd.DeviceType.CUDA and "spin" not in e.key]
         launches = sum(e.count for e in kern)
         if launches >= want * len(calls):
             break
+        print(f"[profiler] {launches} of {want * len(calls)} kernels seen: profiling again",
+              flush=True)
     return (launches / len(calls), sum(_device_ms(e) for e in kern) / len(calls),
             {e.key[:60] for e in kern})
 
@@ -2050,12 +2388,13 @@ def _instance(mangled):
     mangled name, any other kernel's, as it is)."""
     import re
 
-    m = re.search(r"decode_sm90_kernelILi(\d)ELi(\d)ELi(\d)ELb(\d)E", mangled)
+    m = re.search(r"decode_sm90_kernelILi(\d)ELi(\d)ELi(\d)ELb(\d)ELb(\d)E", mangled)
     if m is None:
         return mangled
-    fmt, heads, tiles, paged = m.groups()
+    fmt, heads, tiles, paged, bf16s = m.groups()
     return (f"decode_sm90_kernel<{('int8', 'int4', 'bf16')[int(fmt)]}, {heads} kv head(s) a "
-            f"block, {tiles} row tile(s) a warp, {'paged' if paged == '1' else 'contiguous'}>")
+            f"block, {tiles} row tile(s) a warp, {'paged' if paged == '1' else 'contiguous'}"
+            f"{', bf16 scales' if bf16s == '1' else ''}>")
 
 
 def _kernel_class(name):
@@ -2293,10 +2632,28 @@ def main():
                    PA.flash_prefill_attend_quant], min_tokens_per_step=1.8)
     # (5) the int4 cache under the default int8 draft copy (one measured
     # repeat): the cache format alone keeps the default's acceptance floor
-    main_path(torch, wrappers, quant4 + dots + [AP.append_all_rows_inplace_quant],
-              ["--kv_quant", "int4", "--iters", "1"],
-              forbidden=[DA.flash_decode_attend_quant, PA.flash_prefill_attend_quant]
-              + dots4)
+    out5, _, peak5 = main_path(
+        torch, wrappers, quant4 + dots + [AP.append_all_rows_inplace_quant],
+        ["--kv_quant", "int4", "--iters", "1"],
+        forbidden=[DA.flash_decode_attend_quant, PA.flash_prefill_attend_quant] + dots4)
+    # (15) path (5) with bf16 scales, (16) path (1) with bf16 scales: every
+    # quantized-KV kernel on its bf16-scale instance alone
+    bf16_launches = {}
+    for tag, argv, own, forbid, (peer, peer_peak, peer_tag) in (
+            ("15", ["--kv_quant", "int4", "--kv_scale", "bf16", "--iters", "1"],
+             quant4 + [AP.append_all_rows_inplace_quant],
+             [DA.flash_decode_attend_quant, PA.flash_prefill_attend_quant] + dots4,
+             (out5, peak5, "(5)")),
+            ("16", ["--kv_scale", "bf16", "--iters", "1"], quant,
+             paged + per_array + dense_dots, (out1, peak8, "(1)"))):
+        out_b, launches_b, peak_b = main_path(torch, wrappers, own + dots, argv,
+                                              forbidden=forbid)
+        _all_on_bf16_scales(f"main ({tag})", launches_b, own)
+        bf16_launches.update({k: v for k, v in launches_b.items() if k.endswith(BF16S) and v})
+        print(f"[main ({tag}) bf16 scales] {_bench_summary(out_b)}, peak {peak_b:.2f} GiB; "
+              f"path {peer_tag} (f32 scales): {_bench_summary(peer)}, peak {peer_peak:.2f} GiB",
+              flush=True)
+    phase_done("paths (15), (16): --kv_scale bf16")
     # (11) SnapKV self-speculation at the bench defaults (one measured
     # repeat; the prefix rounds to 8224): no draft prefill, the draft cache
     # compressed from the target's; K2q also runs the 32-token window chunk,
@@ -2327,6 +2684,12 @@ def main():
     for B in (32, 4, 2):
         row_invariance_phase(torch, B, quantize="int8")
     phase_done("path (12): --quantize int8")
+    # group-wise int8 verify weights: the row check at B = 32, 4, 2 (128, 16
+    # and 8 padded rows), then a short engine run
+    for B in (32, 4, 2):
+        row_invariance_phase(torch, B, quantize="int8", group_size=GROUP8)
+    launches_g = grouped_int8_engine_phase(torch, wrappers)
+    phase_done("group-wise int8 target")
     # (13) int4 verify weights with the int8 embedding table, prefix 2048
     # (one measured repeat; B=32, so the target still runs 128 rows): B4-int4
     # and B6-int4 on the target and the draft, no int8 dot
@@ -2379,6 +2742,9 @@ def main():
     phase_done("serving paths")
     snapkv_serving_phase(torch, wrappers, {"DA": DA, "PA": PA, "AP": AP, "PGA": PGA})
     phase_done("snapkv serve")
+    bf16_launches.update(bf16_scale_serving_phase(torch, wrappers,
+                                                  {"DA": DA, "PA": PA, "AP": AP, "PGA": PGA}))
+    phase_done("bf16-scale serves")
     solo_phase(torch)
     phase_done("C2: served against solo")
     # (14) the checkpoint pipeline at full width
@@ -2448,8 +2814,22 @@ def main():
         "dense_mlp": ("magicdec_tpu_torch/csrc/ffn_sm90.cu",
                       "magicdec_tpu/ops/pallas/quant_matmul.py:605"),
     }
+    # the bf16-scale instances (their launches: paths (15), (16), the
+    # bf16-scale serves and, for B14, the group-wise int8 engine run) and B4 /
+    # B6 on group-wise int8 weights (that run)
+    for name in list(meta):
+        if f"{name} {BF16S}" in cases:
+            meta[f"{name} {BF16S}"] = meta[name]
+    launches.update(bf16_launches)
+    launches[f"append_scale_rows_inplace {BF16S}"] = launches_g[
+        f"append_scale_rows_inplace {BF16S}"]
+    for name in ("quant_matmul_fused", "quant_matmul"):
+        meta[f"{name} {GROUPED8}"] = meta[name]
+        launches[f"{name} {GROUPED8}"] = launches_g[name]
     kernels = []
     for name, (source, replaces) in meta.items():
+        if launches.get(name, 0) <= 0:
+            raise AssertionError(f"{name}: no path of this run launched it")
         head = cases[name][0]  # the first case is the headline shape
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,

@@ -10,7 +10,8 @@ B=32, prefix 8192, gamma=3, draft budget 513, prefill chunk 512, max_gen 80
 kernel 5, the prefix rounded as ``bench.py`` rounds it to a multiple of 128
 plus 32, so 8224 by default),
 an int8 target KV cache with f32 scales (``--kv_quant none``: bf16;
-``--kv_quant int4``: int4 packed in kv-head pairs, the capacity format),
+``--kv_quant int4``: int4 packed in kv-head pairs, the capacity format;
+``--kv_scale bf16``: bf16 scales),
 bf16 verify weights, and an int8 per-channel copy of the weights for the
 draft with a quantized lm_head (``--draft_quant none``: the draft shares the
 bf16 weights; ``--draft_quant int4``: a group-wise int4 copy, groups of 128;
@@ -176,7 +177,8 @@ def parse_args(argv=None):
                    help="quantized target KV cache (int8 halves the bytes the "
                         "decode kernels stream, int4 quarters them)")
     p.add_argument("--kv_scale", default="f32", choices=["f32", "bf16"],
-                   help="quantized-cache scale dtype (bf16 is not ported yet)")
+                   help="quantized-cache scale dtype (bf16: 2 bytes a scale, widened to "
+                        "f32 in the kernels)")
     p.add_argument("--draft_quant", nargs="?", const="int8", default="int8",
                    choices=["int8", "int4", "none"],
                    help="quantize the draft pass's weight copy (draft decode is "
@@ -206,8 +208,6 @@ def _not_ported(args):
         return "--attn_backend jnp: the port runs its Hopper kernels only"
     if args.quant_backend != "pallas":
         return "--quant_backend jnp: the port runs its Hopper kernels only"
-    if args.kv_quant != "none" and args.kv_scale != "f32":
-        return "--kv_scale bf16 is ROADMAP item A8"
     return None
 
 
@@ -263,6 +263,7 @@ def setup(args):
         chunk_size=128, prefill_chunk_size=args.prefill_chunk,
         max_gen=args.max_gen, eot_ids=(-1,), cache_dtype=torch.bfloat16,
         kv_quant=args.kv_quant if args.kv_quant != "none" else False,
+        kv_scale_dtype=torch.bfloat16 if args.kv_scale == "bf16" else torch.float32,
         draft_quant=args.draft_quant if args.draft_quant != "none" else False,
         draft_quant_head=args.draft_head == "quant")
     engine = SpecEngine(params, cfg, ecfg, device=dev)

@@ -14,7 +14,10 @@
 // Design: one launch for k and v and all layers; each thread moves one
 // 16-byte vector of a row of k and the same vector of v.  The TPU kernel
 // merges 8-row blocks because its DMA granule is a block; here the write
-// granule is the vector, so no cache row is read.
+// granule is the vector, so no cache row is read.  The scales are f32 or
+// bf16 (the JAX package's kv_scale_dtype; the _bf16s entry points): a copy
+// of the quantizer's already rounded values in their own type, so either
+// is bit-exact.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -40,8 +43,10 @@ __global__ void append_rows_kernel(uint4* __restrict__ ck, uint4* __restrict__ c
 
 // B14 append_scale_rows_inplace: scale rows srows [L, B, H, T] into scale
 // [L, B, H, S] columns [pos_b, pos_b + T), columns at or past S dropped;
-// thread idx < H*T of each (request, layer) moves one f32.
-__global__ void append_scale_cols_kernel(float* __restrict__ sc, const float* __restrict__ sr,
+// thread idx < H*T of each (request, layer) moves one scale (SC: float, or
+// the 16 bits of a bf16).
+template <typename SC>
+__global__ void append_scale_cols_kernel(SC* __restrict__ sc, const SC* __restrict__ sr,
                                          const int* __restrict__ pos, int B, int H, int S,
                                          int T) {
   const int b = blockIdx.y, l = blockIdx.z;
@@ -62,15 +67,16 @@ namespace md {
 // kernel, _merge_rows_block and _merge_scale_block).  As append_rows_kernel
 // for the int8 rows, and in the same launch the scale rows srows [L, B, H, T]
 // land at scale [L, B, H, S] columns [pos_b, pos_b + T), those at or past S
-// dropped: thread idx < H*T of each (request, layer) moves one f32 of k and
-// one of v.  Both are copies, so the result is bit-exact; bound: HBM bytes,
-// launch-bound at T <= 4.
+// dropped: thread idx < H*T of each (request, layer) moves one scale of k
+// and one of v (SC: float, or the 16 bits of a bf16).  Both are copies, so
+// the result is bit-exact; bound: HBM bytes, launch-bound at T <= 4.
+template <typename SC>
 __global__ void append_rows_quant_kernel(uint4* __restrict__ ck, uint4* __restrict__ cv,
-                                         float* __restrict__ sk, float* __restrict__ sv,
+                                         SC* __restrict__ sk, SC* __restrict__ sv,
                                          const uint4* __restrict__ rk,
                                          const uint4* __restrict__ rv,
-                                         const float* __restrict__ srk,
-                                         const float* __restrict__ srv,
+                                         const SC* __restrict__ srk,
+                                         const SC* __restrict__ srv,
                                          const int* __restrict__ pos, int B, int S, int T,
                                          int H, int vec) {
   const int b = blockIdx.y, l = blockIdx.z;
@@ -113,26 +119,60 @@ extern "C" int md_append_rows(void* cache_k, void* cache_v, const void* rows_k,
   return (int)cudaGetLastError();
 }
 
-// K3q: int8 rows (row_bytes = K, a multiple of 16) and their f32 scale rows
-// srows_k/srows_v [L, B, H, T] into scale_k/scale_v [L, B, H, S], one launch.
-// Returns cudaGetLastError().
-extern "C" int md_append_rows_quant(void* cache_k, void* cache_v, void* scale_k, void* scale_v,
-                                    const void* rows_k, const void* rows_v,
-                                    const void* srows_k, const void* srows_v,
-                                    const void* write_pos, int L, int B, int S, int T, int H,
-                                    int row_bytes, void* stream) {
+namespace {
+
+template <typename SC>
+int append_rows_quant(void* cache_k, void* cache_v, void* scale_k, void* scale_v,
+                      const void* rows_k, const void* rows_v, const void* srows_k,
+                      const void* srows_v, const void* write_pos, int L, int B, int S, int T,
+                      int H, int row_bytes, void* stream) {
   if (row_bytes % 16 != 0 || T > S) return (int)cudaErrorInvalidValue;
   const int vec = row_bytes / 16;
   const int threads = 256;
   const int work = T * (vec > H ? vec : H);
   dim3 grid((work + threads - 1) / threads, B, L);
-  md::append_rows_quant_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<uint4*>(cache_k), static_cast<uint4*>(cache_v),
-      static_cast<float*>(scale_k), static_cast<float*>(scale_v),
-      static_cast<const uint4*>(rows_k), static_cast<const uint4*>(rows_v),
-      static_cast<const float*>(srows_k), static_cast<const float*>(srows_v),
-      static_cast<const int*>(write_pos), B, S, T, H, vec);
+  md::append_rows_quant_kernel<SC><<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<uint4*>(cache_k), static_cast<uint4*>(cache_v), static_cast<SC*>(scale_k),
+      static_cast<SC*>(scale_v), static_cast<const uint4*>(rows_k),
+      static_cast<const uint4*>(rows_v), static_cast<const SC*>(srows_k),
+      static_cast<const SC*>(srows_v), static_cast<const int*>(write_pos), B, S, T, H, vec);
   return (int)cudaGetLastError();
+}
+
+template <typename SC>
+int append_scale_cols(void* scale, const void* rows, const void* write_pos, int L, int B, int H,
+                      int S, int T, void* stream) {
+  if (T > S) return (int)cudaErrorInvalidValue;
+  const int threads = 256;
+  dim3 grid((H * T + threads - 1) / threads, B, L);
+  append_scale_cols_kernel<SC><<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<SC*>(scale), static_cast<const SC*>(rows), static_cast<const int*>(write_pos),
+      B, H, S, T);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// K3q: int8 rows (row_bytes = K, a multiple of 16) and their f32 scale rows
+// srows_k/srows_v [L, B, H, T] into scale_k/scale_v [L, B, H, S], one launch;
+// _bf16s: bf16 scales.  Returns cudaGetLastError().
+extern "C" int md_append_rows_quant(void* cache_k, void* cache_v, void* scale_k, void* scale_v,
+                                    const void* rows_k, const void* rows_v,
+                                    const void* srows_k, const void* srows_v,
+                                    const void* write_pos, int L, int B, int S, int T, int H,
+                                    int row_bytes, void* stream) {
+  return append_rows_quant<float>(cache_k, cache_v, scale_k, scale_v, rows_k, rows_v, srows_k,
+                                  srows_v, write_pos, L, B, S, T, H, row_bytes, stream);
+}
+
+extern "C" int md_append_rows_quant_bf16s(void* cache_k, void* cache_v, void* scale_k,
+                                          void* scale_v, const void* rows_k, const void* rows_v,
+                                          const void* srows_k, const void* srows_v,
+                                          const void* write_pos, int L, int B, int S, int T,
+                                          int H, int row_bytes, void* stream) {
+  return append_rows_quant<uint16_t>(cache_k, cache_v, scale_k, scale_v, rows_k, rows_v,
+                                     srows_k, srows_v, write_pos, L, B, S, T, H, row_bytes,
+                                     stream);
 }
 
 // B14 append_rows_inplace (replaces magicdec_tpu/ops/kv_cache.py
@@ -155,14 +195,14 @@ extern "C" int md_append_array_rows(void* cache, const void* rows, const void* w
 
 // B14 append_scale_rows_inplace (replaces append_scale_rows_inplace,
 // _inplace_scale_kernel): f32 scale rows [L, B, H, T] into scale [L, B, H, S]
-// at write_pos, columns at or past S dropped.  Returns cudaGetLastError().
+// at write_pos, columns at or past S dropped; _bf16s: bf16 scales.  Returns
+// cudaGetLastError().
 extern "C" int md_append_scale_cols(void* scale, const void* rows, const void* write_pos, int L,
                                     int B, int H, int S, int T, void* stream) {
-  if (T > S) return (int)cudaErrorInvalidValue;
-  const int threads = 256;
-  dim3 grid((H * T + threads - 1) / threads, B, L);
-  append_scale_cols_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<float*>(scale), static_cast<const float*>(rows),
-      static_cast<const int*>(write_pos), B, H, S, T);
-  return (int)cudaGetLastError();
+  return append_scale_cols<float>(scale, rows, write_pos, L, B, H, S, T, stream);
+}
+
+extern "C" int md_append_scale_cols_bf16s(void* scale, const void* rows, const void* write_pos,
+                                          int L, int B, int H, int S, int T, void* stream) {
+  return append_scale_cols<uint16_t>(scale, rows, write_pos, L, B, H, S, T, stream);
 }

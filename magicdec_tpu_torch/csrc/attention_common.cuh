@@ -33,7 +33,7 @@
 // changes (RowAddr); tiles, splits and arithmetic are the contiguous
 // kernel's at S = npr*ps, so a paged launch gives the bits of a contiguous
 // launch over the gathered cache.  RowAddr resolves a page per 16-byte chunk
-// (and per 4-byte scale), so a tile may span pages of any size.  Rows at or
+// (and per scale, or bf16 pair of scales), so a tile may span pages of any size.  Rows at or
 // past a request's visible length are never read through the table.
 #pragma once
 
@@ -56,10 +56,10 @@ struct AttnArgs {
   const int8_t* vq;
   const int8_t* kq_new;        // [B, T, Hkv*HD] fresh int8 rows, or null
   const int8_t* vq_new;
-  const float* k_scale;        // [L, B, Hkv, S]
-  const float* v_scale;
-  const float* ks_new;         // [B, Hkv, T] scales of the fresh rows
-  const float* vs_new;
+  const void* k_scale;         // [L, B, Hkv, S] f32, or bf16 (the kernel's
+  const void* v_scale;         //  scale type)
+  const void* ks_new;          // [B, Hkv, T] scales of the fresh rows
+  const void* vs_new;
   const int* base_lens;        // [B]
   __nv_bfloat16* out;          // [B, T, Hq, HD]            (nsplit == 1)
   float* part_o;               // [B, Hkv, nsplit, R, HD]   (nsplit > 1)
@@ -100,11 +100,11 @@ __device__ __forceinline__ RowAddr<T, PAGED> kv_rows(const AttnArgs& a, const T*
     return {cache + (((size_t)a.layer * a.B + b) * a.S) * K + h_lane, nullptr, 0, K, 0};
 }
 
-// The scales of kv head h of request b in layer a.layer: [L, B, Hkv, S]
-// contiguous, [L, P, Hkv, ps] paged.
-template <bool PAGED>
-__device__ __forceinline__ RowAddr<float, PAGED> scale_rows(const AttnArgs& a,
-                                                            const float* scale, int b, int h) {
+// The scales (of type T) of kv head h of request b in layer a.layer:
+// [L, B, Hkv, S] contiguous, [L, P, Hkv, ps] paged.
+template <typename T, bool PAGED>
+__device__ __forceinline__ RowAddr<T, PAGED> scale_rows(const AttnArgs& a, const T* scale, int b,
+                                                        int h) {
   if constexpr (PAGED)
     return {scale + ((size_t)a.layer * a.P * a.Hkv + h) * a.ps, a.table + (size_t)b * a.npr,
             (size_t)a.Hkv * a.ps, 1, a.ps};

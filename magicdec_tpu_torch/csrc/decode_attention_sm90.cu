@@ -14,7 +14,7 @@
 // and flash_paged_decode_attend_quant4 (:176) (_paged_call :109) over page
 // pools of each.  A window of T <= 16 query tokens of request b attends
 // layer `layer`'s cache rows [0, base_b) (quantized: each with its f32
-// per-(token, kv head) k and v scale) plus, when given, its own T fresh
+// per-(token, kv head) k and v scale, f32 or bf16) plus, when given, its own T fresh
 // rows, read at their positions [base_b, base_b + T) (causal: token t sees
 // positions [0, base_b + t + 1)).  The numerics are the TPU kernel's
 // (attention_common.cuh): the score is s_raw * 1/sqrt(hd) (quantized:
@@ -24,8 +24,8 @@
 // max(l, 1e-30).
 //
 // Bound: HBM bytes (a visible row is HD bf16 values of k and of v a head,
-// HD int8 bytes, or HD/2 packed, plus 4 bytes of scale each; the flops a
-// byte are ~G*T).  The earlier one-warp design (blocks walking 32-row
+// HD int8 bytes, or HD/2 packed, plus 4 (bf16: 2) bytes of scale each; the
+// flops a byte are ~G*T).  The earlier one-warp design (blocks walking 32-row
 // tiles, two cp.async stages, the quantized rows converted to bf16 in
 // shared memory between two block barriers) ran K1 at 77%, K1q at 47% and
 // B10 at 25% of that bound, B12 at 28% over 16 ragged slots (H100 80GB HBM3,
@@ -75,6 +75,18 @@
 //   feeds the tensor cores directly, and the output dims come out in the
 //   permuted order the epilogue undoes.  The rows and scales are copied per
 //   16-byte chunk (4-byte per scale) by cp.async.
+// - bf16 scales (BFS: the JAX package's kv_scale_dtype=bf16, magicdec_tpu/
+//   ops/pallas/decode_attention.py:150-153): the stage keeps them as they
+//   are stored, 2 bytes a position, and each is widened to f32 exactly as it
+//   is read from shared memory, so all arithmetic is the f32 instance's and
+//   a launch on bf16 scales gives the bits of one on f32 scales holding the
+//   widened values.  cp.async copies at least 4 bytes: a tile of cache rows
+//   takes its scales as 4-byte pairs of positions (a tile starts at a
+//   multiple of 16, so a pair is aligned when a scale row, S positions or a
+//   page's ps, has an even length); a tile that holds the visible end or
+//   fresh rows (whose window may start at an odd position), or any tile of
+//   an odd-length row, loads each position's scale by a plain 2-byte load
+//   and stores it, zero past the visible end.
 // - The softmax runs in the exp2 domain (log2 e folded into the score's
 //   scale) and skips the masks on a tile every row of the warp sees whole.
 //
@@ -91,6 +103,7 @@
 // box's page), so a paged launch equals the contiguous launch over the
 // gathered pool bit for bit.
 #include <tuple>
+#include <type_traits>
 
 #include "attention_common.cuh"
 #include "sm90_common.cuh"
@@ -115,24 +128,28 @@ constexpr int NW = 4;      // warps a block
 constexpr int STAGES = 3;  // each warp's ring
 constexpr int MT_MAX = 3;  // bf16: 16-row tiles of query rows a warp holds
 
+// A scale at rest: f32, or bf16 kept as its 16 bits (BFS).
+template <bool BFS>
+using ScaleT = std::conditional_t<BFS, uint16_t, float>;
+
 // One stage of a warp's ring: the k and v bytes of NR positions (RB bytes a
 // position: the block's HEADS int8 heads side by side, or one packed pair,
 // at a stride of RB + 16 so that ldmatrix is free of bank conflicts) and
-// their scales.
-template <bool INT4, int HEADS>
+// their scales as stored (f32, or bf16 with BFS).
+template <bool INT4, int HEADS, bool BFS>
 struct Stage {
   static constexpr int RB = INT4 ? HD : HEADS * HD;
   static constexpr int LDB = RB + 16;
   int8_t k[NR * LDB];
   int8_t v[NR * LDB];
-  float ks[HEADS][NR];
-  float vs[HEADS][NR];
+  ScaleT<BFS> ks[HEADS][NR];
+  ScaleT<BFS> vs[HEADS][NR];
 };
 
 // The rings, and after the loop the four warps' states for the merge.
-template <bool INT4, int HEADS>
+template <bool INT4, int HEADS, bool BFS>
 union Smem {
-  Stage<INT4, HEADS> ring[NW][STAGES];
+  Stage<INT4, HEADS, BFS> ring[NW][STAGES];
   struct {
     float o[NW][HEADS][16][HD];
     float ml[NW][HEADS][16][2];
@@ -162,6 +179,16 @@ __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
+}
+
+// The scales of positions p and p + 1 (p even) from a stage, widened to f32
+// exactly (a bf16 is the high half of its f32).
+__device__ __forceinline__ float2 scale_pair(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 scale_pair(const uint16_t* p) {
+  const uint32_t w = *reinterpret_cast<const uint32_t*>(p);
+  return make_float2(__uint_as_float(w << 16), __uint_as_float(w & 0xFFFF0000u));
 }
 
 // The conversion constants, held in registers.
@@ -200,15 +227,16 @@ __device__ __forceinline__ void pairs(uint32_t w, int plane, const Consts& c, ui
 // The quantized body (K1q, B10, B12's int8 / int4 pools), HEADS kv heads a
 // block: INT4, the packed pair; int8, a pair of heads (one when Hkv is odd),
 // so that a block reads 128 contiguous bytes a position; one 16-row tile of
-// grouped query rows.
-template <bool INT4, int HEADS, bool PAGED>
+// grouped query rows; BFS: bf16 scales.
+template <bool INT4, int HEADS, bool PAGED, bool BFS>
 __device__ __forceinline__ void quant_body(const AttnArgs& a, int R, unsigned char* dq_smem) {
   static_assert(HEADS == 2 || (!INT4 && HEADS == 1), "a packed row holds a pair of heads");
-  using St = Stage<INT4, HEADS>;
+  using St = Stage<INT4, HEADS, BFS>;
+  using SC = ScaleT<BFS>;
   constexpr int LDB = St::LDB;
   constexpr int CH = St::RB / 16;  // 16-byte chunks of a position
   constexpr int PPI = 32 / CH;     // positions one copy instruction of a warp covers
-  Smem<INT4, HEADS>& sm = *reinterpret_cast<Smem<INT4, HEADS>*>(dq_smem);
+  Smem<INT4, HEADS, BFS>& sm = *reinterpret_cast<Smem<INT4, HEADS, BFS>*>(dq_smem);
 
   const int b = blockIdx.z;
   const int rb = blockIdx.x / a.nsplit, split = blockIdx.x % a.nsplit;
@@ -273,14 +301,18 @@ __device__ __forceinline__ void quant_body(const AttnArgs& a, int R, unsigned ch
   const RowAddr<int8_t, PAGED> vrows = kv_rows<int8_t, PAGED>(a, a.vq, b, K, lane_off);
   // a lane copies the k scales (lanes 0-15) or the v scales (16-31)
   const bool is_v = lane >= 16;
-  RowAddr<float, PAGED> srows[HEADS];
-  const float* sfresh[HEADS];
+  RowAddr<SC, PAGED> srows[HEADS];
+  const SC* sfresh[HEADS];
 #pragma unroll
   for (int hh = 0; hh < HEADS; ++hh) {
-    srows[hh] = scale_rows<PAGED>(a, is_v ? a.v_scale : a.k_scale, b, h0 + hh);
+    srows[hh] = scale_rows<SC, PAGED>(a, static_cast<const SC*>(is_v ? a.v_scale : a.k_scale),
+                                      b, h0 + hh);
     const size_t sn = ((size_t)b * a.Hkv + h0 + hh) * a.T;
-    sfresh[hh] = fresh ? (is_v ? a.vs_new : a.ks_new) + sn : nullptr;
+    sfresh[hh] = fresh ? static_cast<const SC*>(is_v ? a.vs_new : a.ks_new) + sn : nullptr;
   }
+  // bf16: a tile of cache rows copies its scales as aligned 4-byte pairs of
+  // positions when every scale row has an even length
+  const bool pairs_ok = !BFS || (PAGED ? a.ps % 2 == 0 : a.S % 2 == 0);
   const size_t f_off = (size_t)b * a.T * K + lane_off;
   const int8_t* kqn = fresh ? a.kq_new + f_off : nullptr;
   const int8_t* vqn = fresh ? a.vq_new + f_off : nullptr;
@@ -289,19 +321,29 @@ __device__ __forceinline__ void quant_body(const AttnArgs& a, int R, unsigned ch
   // Copy the tile at position c into stage st of this warp's ring: each lane
   // 16-byte chunks of k and of v (chunk lane % CH of positions lane / CH +
   // PPI i) and the scales of position lane % 16 (k for lanes 0-15, v for
-  // 16-31) of each head; zeros past hi_s, where nothing is read.
+  // 16-31) of each head (bf16, a tile of cache rows: positions 2 (lane % 8)
+  // and + 1, lanes 0-7 and 16-23); zeros past hi_s, where nothing is read.
   auto issue = [&](int st, int c) {
     St& s = sm.ring[warp][st];
-    if (c + NR <= min(hi_s, fresh_at)) {  // cache rows only, all read
+    if (c + NR <= min(hi_s, fresh_at) && pairs_ok) {  // cache rows only, all read
 #pragma unroll
       for (int i = 0; i < NR / PPI; ++i) {
         const int r = lane / CH + PPI * i, c16 = 16 * (lane % CH);
         cp_async16(s.k + r * LDB + c16, krows(c + r) + c16, true);
         cp_async16(s.v + r * LDB + c16, vrows(c + r) + c16, true);
       }
+      if constexpr (BFS) {
+        if ((lane & 15) < NR / 2) {
+          const int r = 2 * (lane & 7);
 #pragma unroll
-      for (int hh = 0; hh < HEADS; ++hh)
-        cp_async4((is_v ? s.vs[hh] : s.ks[hh]) + (lane & 15), srows[hh](c + (lane & 15)), true);
+          for (int hh = 0; hh < HEADS; ++hh)
+            cp_async4((is_v ? s.vs[hh] : s.ks[hh]) + r, srows[hh](c + r), true);
+        }
+      } else {
+#pragma unroll
+        for (int hh = 0; hh < HEADS; ++hh)
+          cp_async4((is_v ? s.vs[hh] : s.ks[hh]) + (lane & 15), srows[hh](c + (lane & 15)), true);
+      }
       return;
     }
 #pragma unroll
@@ -319,9 +361,12 @@ __device__ __forceinline__ void quant_body(const AttnArgs& a, int R, unsigned ch
     const bool ok = pos < hi_s, cached = pos < fresh_at;
 #pragma unroll
     for (int hh = 0; hh < HEADS; ++hh) {
-      const float* src =
-          !ok ? a.k_scale : cached ? srows[hh](pos) : sfresh[hh] + (pos - fresh_at);
-      cp_async4((is_v ? s.vs[hh] : s.ks[hh]) + r, src, ok);
+      const SC* src = !ok ? static_cast<const SC*>(a.k_scale)
+                          : cached ? srows[hh](pos) : sfresh[hh] + (pos - fresh_at);
+      if constexpr (BFS)  // one position's 2 bytes: a plain load, seen after __syncwarp
+        (is_v ? s.vs[hh] : s.ks[hh])[r] = ok ? __ldg(src) : (uint16_t)0;
+      else
+        cp_async4((is_v ? s.vs[hh] : s.ks[hh]) + r, src, ok);
     }
   };
 
@@ -376,10 +421,8 @@ __device__ __forceinline__ void quant_body(const AttnArgs& a, int R, unsigned ch
     float corr[HEADS][2];
 #pragma unroll
     for (int hh = 0; hh < HEADS; ++hh) {
-      const float2 kf[2] = {*reinterpret_cast<const float2*>(s.ks[hh] + 2 * t4),
-                            *reinterpret_cast<const float2*>(s.ks[hh] + 8 + 2 * t4)};
-      const float2 vf[2] = {*reinterpret_cast<const float2*>(s.vs[hh] + 2 * t4),
-                            *reinterpret_cast<const float2*>(s.vs[hh] + 8 + 2 * t4)};
+      const float2 kf[2] = {scale_pair(s.ks[hh] + 2 * t4), scale_pair(s.ks[hh] + 8 + 2 * t4)};
+      const float2 vf[2] = {scale_pair(s.vs[hh] + 2 * t4), scale_pair(s.vs[hh] + 8 + 2 * t4)};
       float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
       for (int j = 0; j < 2; ++j)
@@ -869,8 +912,8 @@ constexpr int min_blocks(int FMT, int HEADS, int MT) {
 
 // FMT kBF16: one kv head a block (HEADS 1), MT row tiles a warp, the tensor
 // maps of the layer's rows; kI8 / kI4: HEADS kv heads a block (INT4: the
-// packed pair), MT 1, the maps unused.
-template <int FMT, int HEADS, int MT, bool PAGED>
+// packed pair), MT 1, the maps unused, BFS: bf16 scales.
+template <int FMT, int HEADS, int MT, bool PAGED, bool BFS = false>
 __global__ void __launch_bounds__(NW * 32, min_blocks(FMT, HEADS, MT))
     decode_sm90_kernel(const __grid_constant__ AttnArgs a, int R,
                        const __grid_constant__ Maps maps) {
@@ -878,14 +921,14 @@ __global__ void __launch_bounds__(NW * 32, min_blocks(FMT, HEADS, MT))
   if constexpr (FMT == kBF16)
     bf16_body<MT, PAGED>(a, R, maps, dq_smem);
   else
-    quant_body<FMT == kI4, HEADS, PAGED>(a, R, dq_smem);
+    quant_body<FMT == kI4, HEADS, PAGED, BFS>(a, R, dq_smem);
 }
 
 // ---- host side ------------------------------------------------------------------
 
 // The operands of a quantized cache (int8, or int4 packed in head pairs
 // with INT4): q [B, T, Hq, 64] bf16; k/v int8 [L, B, S, K] (K = Hkv*64, or
-// (Hkv/2)*64 packed) with f32 scales [L, B, Hkv, S]; k_new/v_new [B, T, K]
+// (Hkv/2)*64 packed) with f32 or bf16 scales [L, B, Hkv, S]; k_new/v_new [B, T, K]
 // and ks_new/vs_new [B, Hkv, T], or all four null; base_lens [B]; out [B, T,
 // Hq, 64]; the partials [B, Hkv, nsplit, R, 64] and [.., R, 2] when nsplit
 // > 1.  False when the shapes are not the kernel's.
@@ -902,12 +945,12 @@ bool quant_args(AttnArgs& a, const void* q, const void* k, const void* v, const 
   a.q = static_cast<const __nv_bfloat16*>(q);
   a.kq = static_cast<const int8_t*>(k);
   a.vq = static_cast<const int8_t*>(v);
-  a.k_scale = static_cast<const float*>(k_scale);
-  a.v_scale = static_cast<const float*>(v_scale);
+  a.k_scale = k_scale;
+  a.v_scale = v_scale;
   a.kq_new = static_cast<const int8_t*>(k_new);
   a.vq_new = static_cast<const int8_t*>(v_new);
-  a.ks_new = static_cast<const float*>(ks_new);
-  a.vs_new = static_cast<const float*>(vs_new);
+  a.ks_new = ks_new;
+  a.vs_new = vs_new;
   a.base_lens = static_cast<const int*>(base_lens);
   a.out = static_cast<__nv_bfloat16*>(out);
   a.part_o = static_cast<float*>(part_o);
@@ -967,32 +1010,35 @@ int rows_pad(const AttnArgs& a) {
 // One launch of the kernel (grid: nsplit x blocks of grouped query rows,
 // kv heads or head pairs, requests), then the combine pass when nsplit > 1.
 // Returns cudaGetLastError().
-template <int FMT, int HEADS, int MT, bool PAGED>
+template <int FMT, int HEADS, int MT, bool PAGED, bool BFS = false>
 int launch_kernel(const AttnArgs& a, const Maps& maps, int bytes, cudaStream_t stream) {
   // once per instantiation: the shared memory past 48 KB
   static const cudaError_t attr =
-      cudaFuncSetAttribute(decode_sm90_kernel<FMT, HEADS, MT, PAGED>,
+      cudaFuncSetAttribute(decode_sm90_kernel<FMT, HEADS, MT, PAGED, BFS>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (attr != cudaSuccess) return (int)attr;
   const int R = rows_pad(a);
   const int row_blocks = ((a.Hq / a.Hkv) * a.T + 16 * MT - 1) / (16 * MT);
   const dim3 grid(a.nsplit * row_blocks, a.Hkv / HEADS, a.B);
-  decode_sm90_kernel<FMT, HEADS, MT, PAGED><<<grid, NW * 32, bytes, stream>>>(a, R, maps);
+  decode_sm90_kernel<FMT, HEADS, MT, PAGED, BFS><<<grid, NW * 32, bytes, stream>>>(a, R, maps);
   if (a.nsplit > 1) launch_combine<HD>(a, R, stream);
   return (int)cudaGetLastError();
 }
 
 // int4: one block a packed pair; int8: a pair of heads, or one when Hkv is
-// odd (kernels/decode_attention.py quant_split_plan counts the same blocks)
-template <bool INT4, bool PAGED>
+// odd (kernels/decode_attention.py quant_split_plan counts the same blocks);
+// BFS: the bf16-scale instances
+template <bool INT4, bool PAGED, bool BFS>
 int launch(const AttnArgs& a, cudaStream_t stream) {
   const Maps none{};
   if constexpr (INT4)
-    return launch_kernel<kI4, 2, 1, PAGED>(a, none, sizeof(Smem<true, 2>), stream);
+    return launch_kernel<kI4, 2, 1, PAGED, BFS>(a, none, sizeof(Smem<true, 2, BFS>), stream);
   else
     return a.Hkv % 2 == 0
-               ? launch_kernel<kI8, 2, 1, PAGED>(a, none, sizeof(Smem<false, 2>), stream)
-               : launch_kernel<kI8, 1, 1, PAGED>(a, none, sizeof(Smem<false, 1>), stream);
+               ? launch_kernel<kI8, 2, 1, PAGED, BFS>(a, none, sizeof(Smem<false, 2, BFS>),
+                                                      stream)
+               : launch_kernel<kI8, 1, 1, PAGED, BFS>(a, none, sizeof(Smem<false, 1, BFS>),
+                                                      stream);
 }
 
 // bf16: one block a kv head, min(row tiles, MT_MAX) row tiles a warp
@@ -1027,7 +1073,7 @@ CUresult layer_maps(Maps& maps, const AttnArgs& a, int planes, int rows, bool bo
   return enc;
 }
 
-template <bool INT4>
+template <bool INT4, bool BFS>
 int contiguous(const void* q, const void* k, const void* v, const void* k_scale,
                const void* v_scale, const void* k_new, const void* v_new, const void* ks_new,
                const void* vs_new, const void* base_lens, void* out, void* part_o, void* part_ml,
@@ -1037,10 +1083,10 @@ int contiguous(const void* q, const void* k, const void* v, const void* k_scale,
   if (!quant_args<INT4>(a, q, k, v, k_scale, v_scale, k_new, v_new, ks_new, vs_new, base_lens,
                         out, part_o, part_ml, layer, B, S, T, Hq, Hkv, hd, nsplit, chunk))
     return (int)cudaErrorInvalidValue;
-  return launch<INT4, false>(a, static_cast<cudaStream_t>(stream));
+  return launch<INT4, false, BFS>(a, static_cast<cudaStream_t>(stream));
 }
 
-template <bool INT4>
+template <bool INT4, bool BFS>
 int paged(const void* q, const void* k_pool, const void* v_pool, const void* k_scale,
           const void* v_scale, const void* table, const void* k_new, const void* v_new,
           const void* ks_new, const void* vs_new, const void* base_lens, void* out, void* part_o,
@@ -1052,7 +1098,7 @@ int paged(const void* q, const void* k_pool, const void* v_pool, const void* k_s
                         nsplit, chunk) ||
       !paged_shape(a, table, P, ps, npr))
     return (int)cudaErrorInvalidValue;
-  return launch<INT4, true>(a, static_cast<cudaStream_t>(stream));
+  return launch<INT4, true, BFS>(a, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -1104,54 +1150,45 @@ extern "C" int md_paged_decode_attend(const void* q, const void* k_pool, const v
 // k_scale/v_scale [L, B, Hkv, S], k_new/v_new [B, T, Hkv*hd] with
 // ks_new/vs_new [B, Hkv, T] or all null, base_lens [B], out [B, T, Hq, hd],
 // the partials part_o/part_ml of nsplit splits of `chunk` positions (a
-// multiple of 16).  Returns cudaGetLastError().
-extern "C" int md_decode_attend_quant(const void* q, const void* k, const void* v,
-                                      const void* k_scale, const void* v_scale,
-                                      const void* k_new, const void* v_new,
-                                      const void* ks_new, const void* vs_new,
-                                      const void* base_lens, void* out, void* part_o,
-                                      void* part_ml, int layer, int B, int S, int T, int Hq,
-                                      int Hkv, int hd, int nsplit, int chunk, void* stream) {
-  return md::dq90::contiguous<false>(q, k, v, k_scale, v_scale, k_new, v_new, ks_new, vs_new,
-                                     base_lens, out, part_o, part_ml, layer, B, S, T, Hq, Hkv,
-                                     hd, nsplit, chunk, stream);
-}
-
+// multiple of 16).  Returns cudaGetLastError().  The _bf16s entries take
+// bf16 scales (the cache's and the fresh rows'), the arguments otherwise
+// the same.
+#define MD_DECODE_QUANT(NAME, INT4, BFS)                                                  \
+  extern "C" int NAME(const void* q, const void* k, const void* v, const void* k_scale,    \
+                      const void* v_scale, const void* k_new, const void* v_new,           \
+                      const void* ks_new, const void* vs_new, const void* base_lens,       \
+                      void* out, void* part_o, void* part_ml, int layer, int B, int S,     \
+                      int T, int Hq, int Hkv, int hd, int nsplit, int chunk,               \
+                      void* stream) {                                                      \
+    return md::dq90::contiguous<INT4, BFS>(q, k, v, k_scale, v_scale, k_new, v_new,        \
+                                           ks_new, vs_new, base_lens, out, part_o,         \
+                                           part_ml, layer, B, S, T, Hq, Hkv, hd, nsplit,   \
+                                           chunk, stream);                                 \
+  }
+MD_DECODE_QUANT(md_decode_attend_quant, false, false)
+MD_DECODE_QUANT(md_decode_attend_quant_bf16s, false, true)
 // B10: as md_decode_attend_quant, with packed int4 k/v [L, B, S,
 // (Hkv/2)*hd] (+ k_new/v_new [B, T, (Hkv/2)*hd]); Hkv even.
-extern "C" int md_decode_attend_quant4(const void* q, const void* k, const void* v,
-                                       const void* k_scale, const void* v_scale,
-                                       const void* k_new, const void* v_new,
-                                       const void* ks_new, const void* vs_new,
-                                       const void* base_lens, void* out, void* part_o,
-                                       void* part_ml, int layer, int B, int S, int T, int Hq,
-                                       int Hkv, int hd, int nsplit, int chunk, void* stream) {
-  return md::dq90::contiguous<true>(q, k, v, k_scale, v_scale, k_new, v_new, ks_new, vs_new,
-                                    base_lens, out, part_o, part_ml, layer, B, S, T, Hq, Hkv,
-                                    hd, nsplit, chunk, stream);
-}
+MD_DECODE_QUANT(md_decode_attend_quant4, true, false)
+MD_DECODE_QUANT(md_decode_attend_quant4_bf16s, true, true)
 
 // B12 over an int8 pool (INT4 = 0) or an int4 pool packed in head pairs:
 // as md_decode_attend_quant{,4}, with the pools [L, P, ps, Kc] and the scale
-// pools [L, P, Hkv, ps] read through table [B, npr] (S = npr * ps).
-extern "C" int md_paged_decode_attend_quant(
-    const void* q, const void* k_pool, const void* v_pool, const void* k_scale,
-    const void* v_scale, const void* table, const void* k_new, const void* v_new,
-    const void* ks_new, const void* vs_new, const void* base_lens, void* out, void* part_o,
-    void* part_ml, int layer, int B, int P, int ps, int npr, int T, int Hq, int Hkv, int hd,
-    int nsplit, int chunk, void* stream) {
-  return md::dq90::paged<false>(q, k_pool, v_pool, k_scale, v_scale, table, k_new, v_new,
-                                ks_new, vs_new, base_lens, out, part_o, part_ml, layer, B, P, ps,
-                                npr, T, Hq, Hkv, hd, nsplit, chunk, stream);
-}
-
-extern "C" int md_paged_decode_attend_quant4(
-    const void* q, const void* k_pool, const void* v_pool, const void* k_scale,
-    const void* v_scale, const void* table, const void* k_new, const void* v_new,
-    const void* ks_new, const void* vs_new, const void* base_lens, void* out, void* part_o,
-    void* part_ml, int layer, int B, int P, int ps, int npr, int T, int Hq, int Hkv, int hd,
-    int nsplit, int chunk, void* stream) {
-  return md::dq90::paged<true>(q, k_pool, v_pool, k_scale, v_scale, table, k_new, v_new,
-                               ks_new, vs_new, base_lens, out, part_o, part_ml, layer, B, P, ps,
-                               npr, T, Hq, Hkv, hd, nsplit, chunk, stream);
-}
+// pools [L, P, Hkv, ps] read through table [B, npr] (S = npr * ps); _bf16s:
+// bf16 scales.
+#define MD_PAGED_QUANT(NAME, INT4, BFS)                                                   \
+  extern "C" int NAME(const void* q, const void* k_pool, const void* v_pool,               \
+                      const void* k_scale, const void* v_scale, const void* table,         \
+                      const void* k_new, const void* v_new, const void* ks_new,            \
+                      const void* vs_new, const void* base_lens, void* out, void* part_o,  \
+                      void* part_ml, int layer, int B, int P, int ps, int npr, int T,      \
+                      int Hq, int Hkv, int hd, int nsplit, int chunk, void* stream) {      \
+    return md::dq90::paged<INT4, BFS>(q, k_pool, v_pool, k_scale, v_scale, table, k_new,   \
+                                      v_new, ks_new, vs_new, base_lens, out, part_o,       \
+                                      part_ml, layer, B, P, ps, npr, T, Hq, Hkv, hd,       \
+                                      nsplit, chunk, stream);                              \
+  }
+MD_PAGED_QUANT(md_paged_decode_attend_quant, false, false)
+MD_PAGED_QUANT(md_paged_decode_attend_quant_bf16s, false, true)
+MD_PAGED_QUANT(md_paged_decode_attend_quant4, true, false)
+MD_PAGED_QUANT(md_paged_decode_attend_quant4_bf16s, true, true)

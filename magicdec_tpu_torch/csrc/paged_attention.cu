@@ -10,7 +10,8 @@
 // and v (and their scale rows [L, B, H, T]) in ONE launch; a row at or past
 // S = npr*ps is dropped (no clamp and no shift, unlike K3's
 // dynamic_update_slice start).  Design: K3/K3q's (one 16-byte vector of k
-// and the same one of v per thread, 4-byte scale copies), with each row's
+// and the same one of v per thread, one scale copy each, f32 or bf16 (the
+// _bf16s entry point)), with each row's
 // page looked up in the table; the TPU kernel's 8-row read-modify-write
 // blocks exist for its DMA granule, so no pool row is read here.  Bound:
 // HBM bytes, launch-bound at T <= 4.  Copies, so the result is bit-exact,
@@ -19,12 +20,13 @@
 
 namespace {
 
+template <typename SC>
 __global__ void append_paged_rows_kernel(uint4* __restrict__ pk, uint4* __restrict__ pv,
-                                         float* __restrict__ sk, float* __restrict__ sv,
+                                         SC* __restrict__ sk, SC* __restrict__ sv,
                                          const uint4* __restrict__ rk,
                                          const uint4* __restrict__ rv,
-                                         const float* __restrict__ srk,
-                                         const float* __restrict__ srv,
+                                         const SC* __restrict__ srk,
+                                         const SC* __restrict__ srv,
                                          const int* __restrict__ pos,
                                          const int* __restrict__ table, int B, int P, int ps,
                                          int npr, int T, int H, int vec) {
@@ -56,6 +58,7 @@ __global__ void append_paged_rows_kernel(uint4* __restrict__ pk, uint4* __restri
   }
 }
 
+template <typename SC>
 int append_paged(void* pool_k, void* pool_v, void* spool_k, void* spool_v, const void* rows_k,
                  const void* rows_v, const void* srows_k, const void* srows_v,
                  const void* write_pos, const void* table, int L, int B, int P, int ps,
@@ -65,11 +68,11 @@ int append_paged(void* pool_k, void* pool_v, void* spool_k, void* spool_v, const
   const int threads = 256;
   const int work = T * (vec > H ? vec : H);
   dim3 grid((work + threads - 1) / threads, B, L);
-  append_paged_rows_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<uint4*>(pool_k), static_cast<uint4*>(pool_v), static_cast<float*>(spool_k),
-      static_cast<float*>(spool_v), static_cast<const uint4*>(rows_k),
-      static_cast<const uint4*>(rows_v), static_cast<const float*>(srows_k),
-      static_cast<const float*>(srows_v), static_cast<const int*>(write_pos),
+  append_paged_rows_kernel<SC><<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<uint4*>(pool_k), static_cast<uint4*>(pool_v), static_cast<SC*>(spool_k),
+      static_cast<SC*>(spool_v), static_cast<const uint4*>(rows_k),
+      static_cast<const uint4*>(rows_v), static_cast<const SC*>(srows_k),
+      static_cast<const SC*>(srows_v), static_cast<const int*>(write_pos),
       static_cast<const int*>(table), B, P, ps, npr, T, H, vec);
   return (int)cudaGetLastError();
 }
@@ -84,19 +87,32 @@ extern "C" int md_append_paged_rows(void* pool_k, void* pool_v, const void* rows
                                     const void* rows_v, const void* write_pos,
                                     const void* table, int L, int B, int P, int ps, int npr,
                                     int T, int row_bytes, void* stream) {
-  return append_paged(pool_k, pool_v, nullptr, nullptr, rows_k, rows_v, nullptr, nullptr,
-                      write_pos, table, L, B, P, ps, npr, T, 0, row_bytes, stream);
+  return append_paged<float>(pool_k, pool_v, nullptr, nullptr, rows_k, rows_v, nullptr,
+                             nullptr, write_pos, table, L, B, P, ps, npr, T, 0, row_bytes, stream);
 }
 
 // B13, quantized call: int8 (or packed int4) rows as above, and in the same
 // launch their f32 scale rows srows_k/srows_v [L, B, H, T] into the scale
-// pools spool_k/spool_v [L, P, H, ps].  Returns cudaGetLastError().
+// pools spool_k/spool_v [L, P, H, ps]; _bf16s: bf16 scales.  Returns
+// cudaGetLastError().
 extern "C" int md_append_paged_rows_quant(void* pool_k, void* pool_v, void* spool_k,
                                           void* spool_v, const void* rows_k, const void* rows_v,
                                           const void* srows_k, const void* srows_v,
                                           const void* write_pos, const void* table, int L,
                                           int B, int P, int ps, int npr, int T, int H,
                                           int row_bytes, void* stream) {
-  return append_paged(pool_k, pool_v, spool_k, spool_v, rows_k, rows_v, srows_k, srows_v,
-                      write_pos, table, L, B, P, ps, npr, T, H, row_bytes, stream);
+  return append_paged<float>(pool_k, pool_v, spool_k, spool_v, rows_k, rows_v, srows_k, srows_v,
+                             write_pos, table, L, B, P, ps, npr, T, H, row_bytes, stream);
+}
+
+extern "C" int md_append_paged_rows_quant_bf16s(void* pool_k, void* pool_v, void* spool_k,
+                                                void* spool_v, const void* rows_k,
+                                                const void* rows_v, const void* srows_k,
+                                                const void* srows_v, const void* write_pos,
+                                                const void* table, int L, int B, int P, int ps,
+                                                int npr, int T, int H, int row_bytes,
+                                                void* stream) {
+  return append_paged<uint16_t>(pool_k, pool_v, spool_k, spool_v, rows_k, rows_v, srows_k,
+                                srows_v, write_pos, table, L, B, P, ps, npr, T, H, row_bytes,
+                                stream);
 }

@@ -12,7 +12,10 @@
 // t + 1, S)).  The score of column c is s_raw / sqrt(hd) (quantized: s_raw *
 // (k_scale[c] / sqrt(hd))), masked columns take -1e30, l sums the unscaled
 // p, P.V takes bf16(p) (quantized: bf16(p * v_scale[c])), and the output is
-// acc / max(l, 1e-30) in bf16.
+// acc / max(l, 1e-30) in bf16.  The scales are f32 or, in the bf16-scale
+// instances (BFS; the JAX package's kv_scale_dtype=bf16), bf16, each widened
+// to f32 exactly as the producer loads it and before the k factor's fold, so
+// every product is the f32 instance's on the widened values.
 //
 // Bound: tensor-core operations and exponentials, about equally.  Each
 // visible (row, column) pair costs 4 hd = 256 flops and one ex2; at 989
@@ -130,10 +133,10 @@ struct Args {
   const uint8_t* v;
   const uint8_t* k_new;      // [B, T, Kw] or null
   const uint8_t* v_new;
-  const float* k_scale;      // [L, B, Hkv, S] (quantized)
-  const float* v_scale;
-  const float* ks_new;       // [B, Hkv, T] or null
-  const float* vs_new;
+  const void* k_scale;       // [L, B, Hkv, S] (quantized; f32, or bf16 with BFS)
+  const void* v_scale;
+  const void* ks_new;        // [B, Hkv, T] or null
+  const void* vs_new;
   const int* base_lens;      // [B]
   __nv_bfloat16* out;        // [B, T, Hq, HD]
   int layer, B, S, T, Hq, Hkv, Kw;  // Kw: a row's values (int4: bytes of a head pair's rows)
@@ -330,9 +333,18 @@ __device__ __forceinline__ void producer_sync() {
   asm volatile("bar.sync %0, 128;\n" ::"n"(BAR_PRODUCER) : "memory");
 }
 
+// Scale i of an f32 or (BFS) bf16 array, widened to f32 exactly.
+template <bool BFS>
+__device__ __forceinline__ float load_scale(const void* scale, size_t i) {
+  if constexpr (BFS)
+    return __uint_as_float((uint32_t)__ldg(static_cast<const uint16_t*>(scale) + i) << 16);
+  else
+    return __ldg(static_cast<const float*>(scale) + i);
+}
+
 // Grid (row blocks, Hkv, B), NTHREADS threads: warpgroups 0 .. NCONS - 1
-// consume (64 rows each), warpgroup NCONS produces.
-template <int FMT>
+// consume (64 rows each), warpgroup NCONS produces; BFS: bf16 scales.
+template <int FMT, bool BFS = false>
 __global__ void __launch_bounds__(NTHREADS, 1) prefill_sm90_kernel(const __grid_constant__ Args a) {
   constexpr bool INT4 = FMT == kI4, Q8 = FMT != kBF16;
   extern __shared__ uint8_t smem_raw[];
@@ -470,10 +482,9 @@ __global__ void __launch_bounds__(NTHREADS, 1) prefill_sm90_kernel(const __grid_
     auto load_scales = [&](int c0, float& ksv, float& vsv) {
       const int col = c0 + p;
       const bool from_new = fresh && col >= base;
-      const float* kp = from_new ? a.ks_new + snew + (col - base) : a.k_scale + srow + col;
-      const float* vp = from_new ? a.vs_new + snew + (col - base) : a.v_scale + srow + col;
-      ksv = col < hi ? __ldg(kp) : 0.f;
-      vsv = col < hi ? __ldg(vp) : 0.f;
+      const size_t kat = from_new ? snew + (col - base) : srow + col;
+      ksv = col < hi ? load_scale<BFS>(from_new ? a.ks_new : a.k_scale, kat) : 0.f;
+      vsv = col < hi ? load_scale<BFS>(from_new ? a.vs_new : a.v_scale, kat) : 0.f;
     };
     // this thread's chunks: 16-byte chunk c16 of rows row0 + 32 k of each
     // tile, whose bf16 halves land at fixed swizzled offsets
@@ -649,7 +660,7 @@ static CUresult bf16_rows_map(CUtensorMap* map, const void* ptr, int cols, int r
   });
 }
 
-template <int FMT>
+template <int FMT, bool BFS = false>
 static int prefill(const void* q, const void* k, const void* v, const void* k_scale,
                    const void* v_scale, const void* k_new, const void* v_new, const void* ks_new,
                    const void* vs_new, const void* base_lens, void* out, int layer, int B, int S,
@@ -660,7 +671,7 @@ static int prefill(const void* q, const void* k, const void* v, const void* k_sc
       (Q8 && (k_new == nullptr) != (ks_new == nullptr)))
     return (int)cudaErrorInvalidValue;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      prefill_sm90_kernel<FMT>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM<FMT>);
+      prefill_sm90_kernel<FMT, BFS>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM<FMT>);
   if (attr != cudaSuccess) return (int)attr;
   Args a;
   a.Kw = FMT == kI4 ? (Hkv / 2) * HD : Hkv * HD;
@@ -678,10 +689,10 @@ static int prefill(const void* q, const void* k, const void* v, const void* k_sc
   a.q = static_cast<const __nv_bfloat16*>(q);
   a.k_new = static_cast<const uint8_t*>(k_new);
   a.v_new = static_cast<const uint8_t*>(v_new);
-  a.k_scale = static_cast<const float*>(k_scale);
-  a.v_scale = static_cast<const float*>(v_scale);
-  a.ks_new = static_cast<const float*>(ks_new);
-  a.vs_new = static_cast<const float*>(vs_new);
+  a.k_scale = k_scale;
+  a.v_scale = v_scale;
+  a.ks_new = ks_new;
+  a.vs_new = vs_new;
   a.base_lens = static_cast<const int*>(base_lens);
   a.out = static_cast<__nv_bfloat16*>(out);
   a.layer = layer;
@@ -692,7 +703,7 @@ static int prefill(const void* q, const void* k, const void* v, const void* k_sc
   a.Hkv = Hkv;
   const int rows = (Hq / Hkv) * T;
   dim3 grid((rows + BM - 1) / BM, Hkv, B);
-  prefill_sm90_kernel<FMT><<<grid, NTHREADS, SMEM<FMT>, st>>>(a);
+  prefill_sm90_kernel<FMT, BFS><<<grid, NTHREADS, SMEM<FMT>, st>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -737,4 +748,30 @@ extern "C" int md_prefill_attend_quant4(const void* q, const void* k, const void
   return md::pfa::prefill<md::pfa::kI4>(q, k, v, k_scale, v_scale, k_new, v_new, ks_new, vs_new,
                                         base_lens, out, layer, B, S, T, Hq, Hkv, hd,
                                         static_cast<cudaStream_t>(stream));
+}
+
+// K2q and B11 over bf16 scales (k_scale/v_scale and ks_new/vs_new bf16),
+// the arguments otherwise md_prefill_attend_quant{,4}'s.
+extern "C" int md_prefill_attend_quant_bf16s(const void* q, const void* k, const void* v,
+                                             const void* k_scale, const void* v_scale,
+                                             const void* k_new, const void* v_new,
+                                             const void* ks_new, const void* vs_new,
+                                             const void* base_lens, void* out, int layer,
+                                             int B, int S, int T, int Hq, int Hkv, int hd,
+                                             void* stream) {
+  return md::pfa::prefill<md::pfa::kI8, true>(q, k, v, k_scale, v_scale, k_new, v_new, ks_new,
+                                              vs_new, base_lens, out, layer, B, S, T, Hq, Hkv,
+                                              hd, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int md_prefill_attend_quant4_bf16s(const void* q, const void* k, const void* v,
+                                              const void* k_scale, const void* v_scale,
+                                              const void* k_new, const void* v_new,
+                                              const void* ks_new, const void* vs_new,
+                                              const void* base_lens, void* out, int layer,
+                                              int B, int S, int T, int Hq, int Hkv, int hd,
+                                              void* stream) {
+  return md::pfa::prefill<md::pfa::kI4, true>(q, k, v, k_scale, v_scale, k_new, v_new, ks_new,
+                                              vs_new, base_lens, out, layer, B, S, T, Hq, Hkv,
+                                              hd, static_cast<cudaStream_t>(stream));
 }

@@ -10,11 +10,12 @@
 // applies outside).  They compute
 //   y = epilogue(norm?(x)[M, In] @ q[In, Out] * scale)
 // with bf16 x and f32 sums: int8 q with one f32 scale per output column, the
-// sum scaled once; or int4 q packed in contraction-row pairs ([In/2, Out]:
-// byte [r, n] holds row 2r in its low nibble, 2r + 1 in its high one) with
-// one f32 scale per group of `group` contraction rows and column, each
-// group's products summed in a fresh f32 partial and added as acc +=
-// part * s_g in group order.  The epilogue is bf16(acc) [+ res in bf16], or
+// sum scaled once; or group-wise (GRP): int8 q, or int4 q packed in
+// contraction-row pairs ([In/2, Out]: byte [r, n] holds row 2r in its low
+// nibble, 2r + 1 in its high one), with one f32 scale per group of `group`
+// contraction rows and column, each group's products summed in a fresh f32
+// partial and added as acc += part * s_g in group order (the int8 branch of
+// _int8_kernel / _fused_kernel with n_groups_per_block > 1).  The epilogue is bf16(acc) [+ res in bf16], or
 // bf16(g * sigmoid(g) * u) over the bf16-rounded gate and up halves of q;
 // the norm is bf16(bf16(x * rsqrt(mean(x^2) + eps)) * norm_w).
 //
@@ -70,8 +71,10 @@
 //   contiguous bytes a row, the same at every M).  mma.sync m16n8k16 (bf16
 //   in, f32 accumulate): the tensor cores are not the limit here (see the
 //   bound), and x stays the 16-row A operand, tiled MT = 1, 2, 4 or 8 times
-//   (M <= 16, 32, 64, 128 rows a pass; int4 at most 4: its group partials
-//   double the accumulators).
+//   (M <= 16, 32, 64, 128 rows a pass; group-wise, int8 or int4, at most 4:
+//   the group partials double the accumulators, so 128 rows take two
+//   64-row passes, a plan of M alone that leaves each row's sums as they
+//   are).
 // - Persistence.  Clusters walk the column tiles (tile c, c + G, ...), G =
 //   min(tiles, resident blocks / split), so the lm_head's 1002 tiles run on
 //   one wave of resident blocks and the next tile's loads overlap this tile's
@@ -95,9 +98,10 @@ constexpr int MAX_ROWS = 256;  // the routing's ROWS_CAP (quantization.py)
 constexpr int MAX_SPLIT = 8;   // the portable cluster size
 constexpr int MAX_G4 = 4;      // int4 scale rows a stage (group 32)
 
-template <bool INT4, int MT>
+// GRP: group-wise scales (int4 always; int8 when the scale has G > 1 rows)
+template <bool INT4, int MT, bool GRP = INT4>
 struct Cfg {
-  static_assert(!INT4 || MT <= 4, "int4: acc and the group partial in registers");
+  static_assert(!GRP || MT <= 4, "group-wise: acc and the group partial in registers");
   static constexpr int R = 16 * MT;            // x rows a pass
   static constexpr int KS = INT4 ? 2 * BK : BK;  // contraction rows a stage
   static constexpr int W_BYTES = BK * HALF;    // one weight box, 4 KB
@@ -114,15 +118,15 @@ struct Cfg {
   // partials' pushes)
   static constexpr int BARS = RECV + RECV_BYTES;
   // int8: the statistic's partials [MAX_SPLIT][MAX_ROWS] f32, the rows'
-  // factors and the norm weight's BK values a stage; int4: the group scales,
-  // [MAX_G4 rows][2 boxes][HALF] f32 a stage
+  // factors and the norm weight's BK values a stage; group-wise: the group
+  // scales, [scale rows][2 boxes][HALF] f32 a stage (int4 MAX_G4 rows, int8
+  // BK / 32 at group 32)
   static constexpr int SSQ = BARS + 16 * STAGES + 16;
   static constexpr int RR = SSQ + (INT4 ? 0 : 4 * MAX_SPLIT * MAX_ROWS);
   static constexpr int NW = RR + (INT4 ? 0 : 4 * MAX_ROWS);
-  static constexpr int SC_STAGE = MAX_G4 * 2 * HALF * 4;
-  static constexpr int SC = NW;
-  static constexpr int SMEM =
-      NW + (INT4 ? STAGES * SC_STAGE : STAGES * BK * 2) + 1024;  // + slack to align to 1024
+  static constexpr int SC_STAGE = (INT4 ? MAX_G4 : BK / 32) * 2 * HALF * 4;
+  static constexpr int SC = NW + (INT4 ? 0 : STAGES * BK * 2);
+  static constexpr int SMEM = SC + (GRP ? STAGES * SC_STAGE : 0) + 1024;  // + slack to align
   static_assert(STAGE % 1024 == 0, "stages keep the swizzle's 1024-byte alignment");
   // two blocks an SM up to MT = 4 (registers allow one at MT = 8)
   static_assert(MT == 8 || 2 * (SMEM + 1024) <= 228 * 1024, "two blocks an SM");
@@ -132,12 +136,12 @@ struct Args {
   CUtensorMap wmap;            // q [In, Out] int8 (int4: [In / 2, Out]), box {HALF, BK}, 64-byte swizzle
   CUtensorMap xmap;            // x [M, In] bf16, box {BK, R}, 128-byte swizzle
   const __nv_bfloat16* x;      // [M, In], for the norm's statistic
-  const float* scale;          // [Out]; int4: [In / group, Out]
+  const float* scale;          // [Out]; group-wise: [In / group, Out]
   const __nv_bfloat16* norm_w;  // [In] or null
   const __nv_bfloat16* res;    // [M, Out] or null
   __nv_bfloat16* out;          // [M, Out], or [M, Out / 2] with the gate
   int M, In, Out, kchunk, ntiles, gate;
-  int group;                   // int4: contraction rows a scale group
+  int group;                   // group-wise: contraction rows a scale group
   float eps;
 };
 
@@ -183,13 +187,13 @@ struct GroupOperands {
   uint2 rv[2][2];
 };
 
-template <bool INT4>
+template <bool GRP>
 __device__ __forceinline__ void load_group(const Args& a, int t, int row0, int uw, int lane,
                                            GroupOperands& o) {
   const int cw = 16 * uw + 4 * (lane & 3);
   const int c0 = a.gate ? t * HALF : t * BN;
   const int c1 = a.gate ? a.Out / 2 + t * HALF : t * BN + HALF;
-  if constexpr (INT4) {
+  if constexpr (GRP) {
     o.sc[0] = o.sc[1] = make_float4(1.f, 1.f, 1.f, 1.f);  // the groups are scaled already
   } else {
     o.sc[0] = __ldg(reinterpret_cast<const float4*>(a.scale + c0 + cw));
@@ -267,10 +271,11 @@ __device__ __forceinline__ void finish_group(const Args& a, int t, int row0, int
 // Two blocks an SM up to MT = 4.  int4 at MT = 4 (acc and the group partial
 // in registers) then spills a few hundred bytes; one block an SM without
 // spills was slower (PERF.md, PR 9).
-template <bool INT4, int MT>
+// GRP: group-wise scales.
+template <bool INT4, int MT, bool GRP = INT4>
 __global__ void __launch_bounds__(NTHREADS, MT <= 4 ? 2 : 1)
     qmm_sm90_kernel(const __grid_constant__ Args a) {
-  using C = Cfg<INT4, MT>;
+  using C = Cfg<INT4, MT, GRP>;
   constexpr int R = C::R, S = C::STAGES, KS = C::KS;
   constexpr int KU = MT <= 2 ? BK / 16 : 2;  // int8 k-steps unrolled (registers at MT >= 4)
   extern __shared__ uint8_t smem_raw[];
@@ -293,9 +298,9 @@ __global__ void __launch_bounds__(NTHREADS, MT <= 4 ? 2 : 1)
   const int nk = (k1 - k0) / KS;
   const int npass = (a.M + R - 1) / R;
   const bool norm = !INT4 && a.norm_w != nullptr;
-  // int4: the scale rows a stage brings (the groups it spans, or the one it
-  // lies in)
-  const int ng = INT4 ? max(1, KS / a.group) : 0;
+  // group-wise: the scale rows a stage brings (the groups it spans, or the
+  // one it lies in)
+  const int ng = GRP ? max(1, KS / a.group) : 0;
   // the fragment groups u = (warp, row tile) this rank reduces: u = rank,
   // rank + split, ...; each receives every rank's partial (2 KB)
   const int owned = (NCW * MT - (int)rank + split - 1) / split;
@@ -333,7 +338,7 @@ __global__ void __launch_bounds__(NTHREADS, MT <= 4 ? 2 : 1)
       mbar_wait(bars + 8 * (S + s), ph ^ 1);  // the consumers released the stage
       const uint32_t full = bars + 8 * s;
       mbar_expect_tx(full, 2 * C::W_BYTES + C::X_BYTES + (norm ? BK * 2 : 0) +
-                               (INT4 ? ng * 2 * HALF * 4 : 0));
+                               (GRP ? ng * 2 * HALF * 4 : 0));
       const uint32_t st = sbase + s * C::STAGE;
       const int kt = k0 + i * KS;
       if (norm) bulk_load(sbase + C::NW + s * BK * 2, a.norm_w + kt, BK * 2, full);
@@ -345,7 +350,7 @@ __global__ void __launch_bounds__(NTHREADS, MT <= 4 ? 2 : 1)
 #pragma unroll
       for (int j = 0; j < KS / BK; ++j)
         tma_load_2d(st + 2 * C::W_BYTES + j * R * 128, &a.xmap, full, kt + j * BK, p * R);
-      if constexpr (INT4) {
+      if constexpr (GRP) {
         // the scale rows of the groups of [kt, kt + KS), the tile's two boxes each
         const uint32_t sc = sbase + C::SC + s * C::SC_STAGE;
         for (int j = 0; j < ng; ++j) {
@@ -386,7 +391,7 @@ __global__ void __launch_bounds__(NTHREADS, MT <= 4 ? 2 : 1)
       // the finish does not wait on them
       const int u0 = split == 1 ? warp * MT : (int)rank + split * warp;
       GroupOperands ops;
-      if (u0 < NCW * MT) load_group<INT4>(a, t, m0 + (u0 % MT) * 16, u0 / MT, lane, ops);
+      if (u0 < NCW * MT) load_group<GRP>(a, t, m0 + (u0 % MT) * 16, u0 / MT, lane, ops);
       float acc[MT][4][4];
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
@@ -394,9 +399,9 @@ __global__ void __launch_bounds__(NTHREADS, MT <= 4 ? 2 : 1)
         for (int nb = 0; nb < 4; ++nb)
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[mt][nb][e] = 0.f;
-      // int4: the current group's f32 partial (products of one group only)
-      float part[INT4 ? MT : 1][4][4];
-      if constexpr (INT4) {
+      // group-wise: the current group's f32 partial (products of one group only)
+      float part[GRP ? MT : 1][4][4];
+      if constexpr (GRP) {
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -515,7 +520,34 @@ __global__ void __launch_bounds__(NTHREADS, MT <= 4 ? 2 : 1)
               const int ch = kk * 2 + (lane >> 4);
               ldsm_x4_u32(af, xst + row * 128 + ((ch ^ (row & 7)) << 4));
 #pragma unroll
-              for (int nb = 0; nb < 4; ++nb) mma_bf16_16816(acc[mt][nb], af, b[nb][0], b[nb][1]);
+              for (int nb = 0; nb < 4; ++nb) {
+                if constexpr (GRP)
+                  mma_bf16_16816(part[mt][nb], af, b[nb][0], b[nb][1]);
+                else
+                  mma_bf16_16816(acc[mt][nb], af, b[nb][0], b[nb][1]);
+              }
+            }
+            if constexpr (GRP) {
+              const int kt = k0 + i * KS;
+              if (((kt + (kk + 1) * 16) & (a.group - 1)) == 0) {
+                // the group ends here: its partial, scaled, into acc (the
+                // lane's columns as B4-int4's above)
+                const float* srow = reinterpret_cast<const float*>(smem + C::SC + s * C::SC_STAGE) +
+                                    16 * warp + 4 * (lane & 3) +
+                                    (a.group >= KS ? 0 : (kk * 16) / a.group) * 2 * HALF;
+                const float4 s0 = *reinterpret_cast<const float4*>(srow);
+                const float4 s1 = *reinterpret_cast<const float4*>(srow + HALF);
+                const float sv[4][2] = {{s0.x, s0.z}, {s0.y, s0.w}, {s1.x, s1.z}, {s1.y, s1.w}};
+#pragma unroll
+                for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+                  for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) {
+                      acc[mt][nb][e] += part[mt][nb][e] * sv[nb][e & 1];
+                      part[mt][nb][e] = 0.f;
+                    }
+              }
             }
           }
           if (norm) fence_proxy_async();  // the normalized tile before TMA reuses it
@@ -526,7 +558,7 @@ __global__ void __launch_bounds__(NTHREADS, MT <= 4 ? 2 : 1)
       if (split == 1) {
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
-          if (mt > 0 && a.res != nullptr) load_group<INT4>(a, t, m0 + mt * 16, warp, lane, ops);
+          if (mt > 0 && a.res != nullptr) load_group<GRP>(a, t, m0 + mt * 16, warp, lane, ops);
           finish_group(a, t, m0 + mt * 16, warp, lane, acc[mt], ops);
         }
         continue;
@@ -561,7 +593,7 @@ __global__ void __launch_bounds__(NTHREADS, MT <= 4 ? 2 : 1)
             const float4 q = slot[(r * 4 + nb) * 32];
             v[nb][0] += q.x, v[nb][1] += q.y, v[nb][2] += q.z, v[nb][3] += q.w;
           }
-        if (u != u0) load_group<INT4>(a, t, m0 + (u % MT) * 16, u / MT, lane, ops);
+        if (u != u0) load_group<GRP>(a, t, m0 + (u % MT) * 16, u / MT, lane, ops);
         finish_group(a, t, m0 + (u % MT) * 16, u / MT, lane, v, ops);
       }
       // between two items of a cluster the receive slots are reused
@@ -867,19 +899,19 @@ static CUresult weight_map(CUtensorMap* map, const int8_t* q, int rows, int Out)
                     });
 }
 
-template <bool INT4, int MT>
+template <bool INT4, int MT, bool GRP>
 static cudaError_t launch(Args& a, int split, cudaStream_t st) {
-  using C = Cfg<INT4, MT>;
+  using C = Cfg<INT4, MT, GRP>;
   // once per instantiation: the attribute, and the blocks an SM holds
   static const cudaError_t attr = cudaFuncSetAttribute(
-      qmm_sm90_kernel<INT4, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+      qmm_sm90_kernel<INT4, MT, GRP>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (attr != cudaSuccess) return attr;
   static const int resident = [] {
     int dev = 0, sms = 0, per_sm = 0;
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, qmm_sm90_kernel<INT4, MT>, NTHREADS,
-                                                  C::SMEM);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, qmm_sm90_kernel<INT4, MT, GRP>,
+                                                  NTHREADS, C::SMEM);
     return max(1, sms * max(1, per_sm));
   }();
   const CUresult enc = encode_2d(&a.xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, a.x, 2, a.In, a.M,
@@ -897,12 +929,13 @@ static cudaError_t launch(Args& a, int split, cudaStream_t st) {
   cluster[0].val.clusterDim.z = 1;
   cfg.attrs = cluster;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, qmm_sm90_kernel<INT4, MT>, a);
+  return cudaLaunchKernelEx(&cfg, qmm_sm90_kernel<INT4, MT, GRP>, a);
 }
 
-// The checks and the launch both entry points share; unit: the contraction
-// rows a split is cut in (a multiple of the stage's).
-template <bool INT4>
+// The checks and the launch the entry points share; unit: the contraction
+// rows a split is cut in (a multiple of the stage's); GRP: group-wise scales
+// (64-row passes at most).
+template <bool INT4, bool GRP = INT4>
 static int run(Args& a, const void* q, int split, int unit, cudaStream_t st) {
   const int tiles = a.In / unit;
   const int per = (tiles + split - 1) / split;
@@ -915,13 +948,13 @@ static int run(Args& a, const void* q, int split, int unit, cudaStream_t st) {
   const int rows = min(a.M, INT4 ? 64 : 128);
   cudaError_t err;
   if (rows <= 16)
-    err = launch<INT4, 1>(a, split, st);
+    err = launch<INT4, 1, GRP>(a, split, st);
   else if (rows <= 32)
-    err = launch<INT4, 2>(a, split, st);
-  else if (rows <= 64 || INT4)
-    err = launch<INT4, 4>(a, split, st);
+    err = launch<INT4, 2, GRP>(a, split, st);
+  else if (rows <= 64 || GRP)
+    err = launch<INT4, 4, GRP>(a, split, st);
   else
-    err = launch<INT4, INT4 ? 4 : 8>(a, split, st);
+    err = launch<INT4, GRP ? 4 : 8, GRP>(a, split, st);
   if ((int)err >= kEncodeError) return (int)err;
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
@@ -956,6 +989,32 @@ static cudaError_t launch4(Args4& a, const void* x, cudaStream_t st) {
   return cudaSuccess;
 }
 
+// B4 and B6 over int8 q, one scale a column (group == In) or group-wise (a
+// power of two >= 32 dividing In).
+static int quant_matmul_int8(const void* x, const void* q, const void* scale,
+                             const void* norm_w, const void* res, void* out, int M, int In,
+                             int Out, int gate, int split, int group, float eps,
+                             cudaStream_t stream) {
+  if (M < 1 || M > MAX_ROWS || In % BK != 0 || Out % BN != 0 || split < 1 ||
+      split > MAX_SPLIT || (gate && res != nullptr) || In % group != 0 ||
+      (group != In && (group < 32 || (group & (group - 1)) != 0)))
+    return (int)cudaErrorInvalidValue;
+  Args a;
+  a.x = static_cast<const __nv_bfloat16*>(x);
+  a.scale = static_cast<const float*>(scale);
+  a.norm_w = static_cast<const __nv_bfloat16*>(norm_w);
+  a.res = static_cast<const __nv_bfloat16*>(res);
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.M = M;
+  a.In = In;
+  a.Out = Out;
+  a.gate = gate != 0;
+  a.group = group;
+  a.eps = eps;
+  if (group == In) return run<false, false>(a, q, split, BK, stream);
+  return run<false, true>(a, q, split, max(group, BK), stream);
+}
+
 }  // namespace sm90
 }  // namespace md
 
@@ -968,23 +1027,21 @@ extern "C" int md_quant_matmul_sm90(const void* x, const void* q, const void* sc
                                     const void* norm_w, const void* res, void* out, int M,
                                     int In, int Out, int gate, int split, float eps,
                                     void* stream) {
-  using namespace md::sm90;
-  if (M < 1 || M > MAX_ROWS || In % BK != 0 || Out % BN != 0 || split < 1 ||
-      split > MAX_SPLIT || (gate && res != nullptr))
-    return (int)cudaErrorInvalidValue;
-  Args a;
-  a.x = static_cast<const __nv_bfloat16*>(x);
-  a.scale = static_cast<const float*>(scale);
-  a.norm_w = static_cast<const __nv_bfloat16*>(norm_w);
-  a.res = static_cast<const __nv_bfloat16*>(res);
-  a.out = static_cast<__nv_bfloat16*>(out);
-  a.M = M;
-  a.In = In;
-  a.Out = Out;
-  a.gate = gate != 0;
-  a.group = In;
-  a.eps = eps;
-  return run<false>(a, q, split, BK, static_cast<cudaStream_t>(stream));
+  return md::sm90::quant_matmul_int8(x, q, scale, norm_w, res, out, M, In, Out, gate, split, In,
+                                     eps, static_cast<cudaStream_t>(stream));
+}
+
+// B4 and B6 over group-wise int8 q: as md_quant_matmul_sm90 with scale
+// [In / group, Out], each group's f32 partial scaled and added in group
+// order.  group: a power of two >= 32 dividing In, below In; split: in units
+// of max(group, 64) rows (the wrapper's cluster_split_plan).
+extern "C" int md_quant_matmul_grouped_sm90(const void* x, const void* q, const void* scale,
+                                            const void* norm_w, const void* res, void* out,
+                                            int M, int In, int Out, int gate, int split,
+                                            int group, float eps, void* stream) {
+  if (group >= In) return (int)cudaErrorInvalidValue;  // one group: md_quant_matmul_sm90
+  return md::sm90::quant_matmul_int8(x, q, scale, norm_w, res, out, M, In, Out, gate, split,
+                                     group, eps, static_cast<cudaStream_t>(stream));
 }
 
 // B4-int4: out = epilogue(x[M, In] @ dequant(q[In / 2, Out] packed int4,

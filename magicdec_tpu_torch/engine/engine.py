@@ -95,7 +95,7 @@ class EngineConfig:
                                      # per-(token, kv head) scales | "int4": int4,
                                      # kv heads packed in pairs, the same scales;
                                      # the draft cache stays in cache_dtype
-    kv_scale_dtype: Any = torch.float32  # the scales' dtype (bf16: A8)
+    kv_scale_dtype: Any = torch.float32  # the quantized cache's scales: f32 or bf16
     draft_quant: Any = False         # False | True/"int8": the draft runs an int8
                                      # per-channel copy of the weights | "int4": a
                                      # group-wise int4 copy (groups of 128); the
@@ -122,10 +122,9 @@ class SpecEngine:
                 f"{ecfg.chunk_size}); the reference uses budget = 128k+1")
         # wq|wk|wv and w1|w3 as single dots (idempotent)
         self._kv_bits = kv_quant_bits(ecfg.kv_quant)
-        if self._kv_bits and ecfg.kv_scale_dtype != torch.float32:
-            raise NotImplementedError(
-                f"kv_scale_dtype {ecfg.kv_scale_dtype}: the port's quantized caches keep "
-                "float32 scales (bf16 scales are ROADMAP item A8)")
+        if self._kv_bits and ecfg.kv_scale_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"kv_scale_dtype must be float32 or bfloat16, got "
+                             f"{ecfg.kv_scale_dtype}")
         if self._kv_bits == 4 and cfg.n_kv_head % 2:
             raise ValueError(
                 f"kv_quant='int4' packs adjacent kv-head pairs and needs an even kv-head "

@@ -49,6 +49,29 @@ def bf16_limit(ref: torch.Tensor) -> torch.Tensor:
     return 2.0 ** -5 * ref.pow(2).mean(-1, keepdim=True).sqrt() + 2.0 ** -6 * ref.abs()
 
 
+SCALE_DTYPES = (torch.float32, torch.bfloat16)  # a quantized KV cache's scales
+
+
+def scale_entry(entry: str, *scales) -> str:
+    """The C entry point of a quantized-KV kernel for its scales: ``entry``
+    for float32, its ``_bf16s`` instance for bfloat16.  Every given scale
+    (the cache's and the fresh rows') must share one of the two dtypes;
+    nothing is cast."""
+    dtypes = {t.dtype for t in scales if t is not None}
+    if len(dtypes) != 1 or not dtypes <= set(SCALE_DTYPES):
+        raise TypeError(f"{entry}: the scales must all be float32 or all bfloat16, got "
+                        f"{sorted(map(str, dtypes))}")
+    return entry + ("_bf16s" if dtypes == {torch.bfloat16} else "")
+
+
+def count_launch(wrapper, entry: str) -> None:
+    """One kernel launch of ``wrapper``: its ``launches``, and its
+    ``bf16_scale_launches`` when ``entry`` is a bf16-scale instance."""
+    wrapper.launches += 1
+    if entry.endswith("_bf16s"):
+        wrapper.bf16_scale_launches += 1
+
+
 def ptr(t) -> int | None:
     """Device pointer of a tensor (None for an absent operand), checked for
     the 16-byte alignment the kernels' vector loads need."""

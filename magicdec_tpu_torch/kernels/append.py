@@ -11,14 +11,16 @@ land at or past the cache's end is dropped, as the Pallas kernels' row-range
 test drops it (``ops/kv_cache.py``'s jnp counterpart clamps the start
 instead).  Bound on the card: HBM bytes, twice the rows' bytes; at decode
 windows (T = 1..4) the launch itself dominates.  Each launch writes its
-arrays of every layer with vector copies and never reads the cache.
+arrays of every layer with vector copies and never reads the cache.  The
+scales are float32 or bfloat16 (the ``_bf16s`` instances, counted by
+``bf16_scale_launches``): copies either way, bit for bit.
 """
 
 from __future__ import annotations
 
 import torch
 
-from magicdec_tpu_torch.kernels import on_cpu, ptr, require
+from magicdec_tpu_torch.kernels import count_launch, on_cpu, ptr, require, scale_entry
 
 
 def _kept(write_pos, T: int, S: int):
@@ -107,8 +109,8 @@ append_all_rows_inplace.launches = 0
 def append_all_rows_inplace_quant(cache_k, cache_v, rows_k, rows_v, write_pos,
                                   scale_k, scale_v, srows_k, srows_v):
     """The quantized call of ``append_all_rows_inplace``: int8 rows and
-    their f32 scale columns, all layers, in ONE launch and in place.
-    Returns (cache_k, cache_v, scale_k, scale_v)."""
+    their scale columns (float32 or bfloat16, one dtype), all layers, in ONE
+    launch and in place.  Returns (cache_k, cache_v, scale_k, scale_v)."""
     if on_cpu(cache_k, cache_v, rows_k, rows_v, write_pos, scale_k, scale_v, srows_k,
               srows_v):
         return append_all_rows_inplace_plain(cache_k, cache_v, rows_k, rows_v, write_pos,
@@ -121,22 +123,21 @@ def append_all_rows_inplace_quant(cache_k, cache_v, rows_k, rows_v, write_pos,
             f"scales {tuple(scale_k.shape)} do not match cache {tuple(cache_k.shape)}")
     require(srows_k.shape == (L, B, H, T) and srows_v.shape == srows_k.shape,
             f"scale rows {tuple(srows_k.shape)} do not match scales {tuple(scale_k.shape)}")
-    require(scale_k.dtype == scale_v.dtype == torch.float32,
-            "the scales must be float32 (bf16 scales are ROADMAP item A8)")
     require(scale_k.is_contiguous() and scale_v.is_contiguous(), "scales must be contiguous")
-    srows_k = srows_k.to(torch.float32).contiguous()
-    srows_v = srows_v.to(torch.float32).contiguous()
+    entry = scale_entry("md_append_rows_quant", scale_k, scale_v, srows_k, srows_v)
+    srows_k, srows_v = srows_k.contiguous(), srows_v.contiguous()
     pos = write_pos.to(torch.int32).contiguous()
-    err = build.library().md_append_rows_quant(
+    err = getattr(build.library(), entry)(
         ptr(cache_k), ptr(cache_v), ptr(scale_k), ptr(scale_v), ptr(rows_k), ptr(rows_v),
         ptr(srows_k), ptr(srows_v), ptr(pos), L, B, S, T, H, row_bytes,
         build.stream_ptr(cache_k))
-    build.check(err, "md_append_rows_quant")
-    append_all_rows_inplace_quant.launches += 1
+    build.check(err, entry)
+    count_launch(append_all_rows_inplace_quant, entry)
     return cache_k, cache_v, scale_k, scale_v
 
 
 append_all_rows_inplace_quant.launches = 0
+append_all_rows_inplace_quant.bf16_scale_launches = 0
 
 
 def _check_per_array(write_pos, S: int, align: int, what: str):
@@ -179,9 +180,9 @@ append_rows_inplace.launches = 0
 
 
 def append_scale_rows_inplace(scale, rows, write_pos):
-    """B14: f32 scale rows [L, B, H, T] into ONE scale array [L, B, H, S] at
+    """B14: scale rows [L, B, H, T] into ONE scale array [L, B, H, S] at
     columns [write_pos[b], write_pos[b] + T), in place, columns at or past S
-    dropped.  One launch; returns scale."""
+    dropped; float32 or bfloat16, one dtype.  One launch; returns scale."""
     L, B, H, S = scale.shape
     _check_per_array(write_pos, S, 128, "append_scale_rows_inplace")
     if on_cpu(scale, rows, write_pos):
@@ -192,15 +193,16 @@ def append_scale_rows_inplace(scale, rows, write_pos):
     require(rows.shape == (L, B, H, T), f"scale rows {tuple(rows.shape)} do not match "
                                         f"scales {tuple(scale.shape)}")
     require(1 <= T <= S, "window longer than the cache")
-    require(scale.dtype == torch.float32 and scale.is_contiguous(),
-            "the scales must be contiguous float32 (bf16 scales are ROADMAP item A8)")
-    rows = rows.to(torch.float32).contiguous()
+    require(scale.is_contiguous(), "the scales must be contiguous")
+    entry = scale_entry("md_append_scale_cols", scale, rows)
+    rows = rows.contiguous()
     pos = write_pos.to(torch.int32).contiguous()
-    err = build.library().md_append_scale_cols(ptr(scale), ptr(rows), ptr(pos), L, B, H, S, T,
-                                               build.stream_ptr(scale))
-    build.check(err, "md_append_scale_cols")
-    append_scale_rows_inplace.launches += 1
+    err = getattr(build.library(), entry)(ptr(scale), ptr(rows), ptr(pos), L, B, H, S, T,
+                                          build.stream_ptr(scale))
+    build.check(err, entry)
+    count_launch(append_scale_rows_inplace, entry)
     return scale
 
 
 append_scale_rows_inplace.launches = 0
+append_scale_rows_inplace.bf16_scale_launches = 0

@@ -56,7 +56,14 @@ SIGNATURES = {
     "md_append_array_rows": [_P] * 3 + [_I] * 5 + [_P],
     "md_append_scale_cols": [_P] * 3 + [_I] * 5 + [_P],
     "md_dense_matmul_sm90": [_P] * 5 + [_I] * 5 + [_F, _P],
+    "md_quant_matmul_grouped_sm90": [_P] * 6 + [_I] * 6 + [_F, _P],
 }
+# the bf16-scale instances of the quantized-KV kernels take the f32 ones'
+# arguments
+SIGNATURES.update({name + "_bf16s": SIGNATURES[name] for name in (
+    "md_decode_attend_quant", "md_decode_attend_quant4", "md_paged_decode_attend_quant",
+    "md_paged_decode_attend_quant4", "md_prefill_attend_quant", "md_prefill_attend_quant4",
+    "md_append_rows_quant", "md_append_scale_cols", "md_append_paged_rows_quant")})
 
 _lock = threading.Lock()
 _lib = None

@@ -4,7 +4,9 @@
 K1 replaces magicdec_tpu/ops/pallas/decode_attention.py
 ``flash_decode_attend`` (both ``_decode_kernel`` and ``_whole_row_kernel``);
 K1q replaces ``flash_decode_attend_quant`` (``_decode_quant_kernel``) over
-an int8 cache with per-(token, kv head) f32 scales; B10 replaces
+an int8 cache with per-(token, kv head) f32 or bf16 scales (bf16: the
+kernel's ``_bf16s`` instance, each scale widened to f32 as it is read, so
+its bits equal the f32 instance's on the widened values); B10 replaces
 ``flash_decode_attend_quant4`` (``_decode_quant4_kernel``) over an int4
 cache packed in head pairs with the same scales.  Bound on the card: HBM
 bytes (each visible K/V row is read once and feeds only G*T query rows;
@@ -21,7 +23,8 @@ from __future__ import annotations
 
 import torch
 
-from magicdec_tpu_torch.kernels import on_cpu, ptr, require, require_bf16
+from magicdec_tpu_torch.kernels import (count_launch, on_cpu, ptr, require, require_bf16,
+                                        scale_entry)
 from magicdec_tpu_torch.ops.attention import attend
 from magicdec_tpu_torch.ops.kv_cache import (append_rows_all_layers,
                                              append_scale_rows_all_layers, dequant_kv)
@@ -192,8 +195,10 @@ def check_quant_operands(q, k_cache, k_scale, v_cache, v_scale, k_new, v_new, ks
                          vs_new, *, packed=False):
     """Shapes, types and layouts the quantized attention kernels take (K1q,
     K2q; ``packed``: the int4 B10, B11).  Hkv comes from the scales: a
-    packed row is (Hkv//2)*hd bytes wide.  Returns Hkv and the fresh operands
-    made contiguous (None when absent)."""
+    packed row is (Hkv//2)*hd bytes wide; the scales are float32 or bfloat16,
+    one dtype for the cache's and the fresh rows' (``scale_entry`` picks the
+    instance).  Returns Hkv and the fresh operands made contiguous (None when
+    absent)."""
     B, T, Hq, hd = q.shape
     L, Bc, S, K = k_cache.shape
     require(k_scale.dim() == 4, f"scales {tuple(k_scale.shape)} must be [L, B, Hkv, S]")
@@ -206,8 +211,6 @@ def check_quant_operands(q, k_cache, k_scale, v_cache, v_scale, k_new, v_new, ks
     require(k_scale.shape == (L, B, Hkv, S) and v_scale.shape == k_scale.shape,
             f"scales {tuple(k_scale.shape)} do not match the cache {tuple(k_cache.shape)}")
     require(k_cache.dtype == v_cache.dtype == torch.int8, "the cache must be int8")
-    require(k_scale.dtype == v_scale.dtype == torch.float32,
-            "the scales must be float32 (bf16 scales are ROADMAP item A8)")
     require(all(t.is_contiguous() for t in (k_cache, v_cache, k_scale, v_scale)),
             "caches and scales must be contiguous")
     require_bf16(q)
@@ -215,7 +218,7 @@ def check_quant_operands(q, k_cache, k_scale, v_cache, v_scale, k_new, v_new, ks
 
 
 def quant_fresh_operands(B, T, Hkv, K, k_new, v_new, ks_new, vs_new):
-    """The fresh rows of a quantized window (int8 [B, T, K] with f32 scales
+    """The fresh rows of a quantized window (int8 [B, T, K] with scales
     [B, Hkv, T]) made contiguous, or four Nones when absent."""
     if k_new is None:
         return None, None, None, None
@@ -224,16 +227,15 @@ def quant_fresh_operands(B, T, Hkv, K, k_new, v_new, ks_new, vs_new):
     v_new = v_new.reshape(B, T, K).contiguous()
     ks_new = ks_new.reshape(B, Hkv, T).contiguous()
     vs_new = vs_new.reshape(B, Hkv, T).contiguous()
-    require(k_new.dtype == v_new.dtype == torch.int8
-            and ks_new.dtype == vs_new.dtype == torch.float32,
-            "fresh rows must be int8 with float32 scales")
+    require(k_new.dtype == v_new.dtype == torch.int8, "fresh rows must be int8")
     return k_new, v_new, ks_new, vs_new
 
 
 def _launch_decode_quant(entry, q, k_cache, k_scale, v_cache, v_scale, base_lens, layer,
                          fresh, packed):
     """One launch of K1q (``md_decode_attend_quant``) or B10
-    (``md_decode_attend_quant4``); returns the output."""
+    (``md_decode_attend_quant4``), or their bf16-scale instances; returns
+    the output and the entry point launched."""
     from magicdec_tpu_torch.kernels import build
 
     B, T, Hq, hd = q.shape
@@ -241,6 +243,7 @@ def _launch_decode_quant(entry, q, k_cache, k_scale, v_cache, v_scale, base_lens
     require(0 <= layer < L and 1 <= T <= 16, "bad layer or window length")
     Hkv, (k_new, v_new, ks_new, vs_new) = check_quant_operands(
         q, k_cache, k_scale, v_cache, v_scale, *fresh, packed=packed)
+    entry = scale_entry(entry, k_scale, v_scale, ks_new, vs_new)
     q = q.contiguous()
     lens = base_lens.to(torch.int32).contiguous()
     out = torch.empty_like(q)
@@ -250,7 +253,7 @@ def _launch_decode_quant(entry, q, k_cache, k_scale, v_cache, v_scale, base_lens
         ptr(v_new), ptr(ks_new), ptr(vs_new), ptr(lens), ptr(out), ptr(part_o),
         ptr(part_ml), layer, B, S, T, Hq, Hkv, hd, nsplit, chunk, build.stream_ptr(q))
     build.check(err, entry)
-    return out
+    return out, entry
 
 
 def flash_decode_attend_quant(q, k_cache, k_scale, v_cache, v_scale, base_lens, *,
@@ -258,23 +261,26 @@ def flash_decode_attend_quant(q, k_cache, k_scale, v_cache, v_scale, base_lens, 
     """``flash_decode_attend`` over an int8 cache.
 
     q [B, T, Hq, hd] bf16 (T <= 16); k_cache/v_cache int8 [L, B, S, Hkv*hd];
-    k_scale/v_scale f32 [L, B, Hkv, S]; base_lens [B] int32; k_new/v_new int8
-    [B, T, Hkv*hd] with ks_new/vs_new f32 [B, Hkv, T]: the window's rows when
-    the cache does not hold them yet.  Returns [B, T, Hq, hd] in q.dtype.
+    k_scale/v_scale f32 or bf16 [L, B, Hkv, S]; base_lens [B] int32;
+    k_new/v_new int8 [B, T, Hkv*hd] with ks_new/vs_new [B, Hkv, T] in the
+    scales' dtype: the window's rows when the cache does not hold them yet.
+    Returns [B, T, Hq, hd] in q.dtype.  ``bf16_scale_launches`` counts the
+    launches on bf16 scales.
     """
     if on_cpu(q, k_cache, k_scale, v_cache, v_scale, base_lens, k_new, v_new, ks_new,
               vs_new):
         return flash_decode_attend_quant_plain(
             q, k_cache, k_scale, v_cache, v_scale, base_lens, layer=layer,
             k_new=k_new, v_new=v_new, ks_new=ks_new, vs_new=vs_new)
-    out = _launch_decode_quant("md_decode_attend_quant", q, k_cache, k_scale, v_cache,
-                               v_scale, base_lens, layer, (k_new, v_new, ks_new, vs_new),
-                               packed=False)
-    flash_decode_attend_quant.launches += 1
+    out, entry = _launch_decode_quant("md_decode_attend_quant", q, k_cache, k_scale, v_cache,
+                                      v_scale, base_lens, layer,
+                                      (k_new, v_new, ks_new, vs_new), packed=False)
+    count_launch(flash_decode_attend_quant, entry)
     return out
 
 
 flash_decode_attend_quant.launches = 0
+flash_decode_attend_quant.bf16_scale_launches = 0
 
 # The plain versions dequantize by dequant_kv, which reads either layout.
 flash_decode_attend_quant4_plain = flash_decode_attend_quant_plain
@@ -286,8 +292,8 @@ def flash_decode_attend_quant4(q, k_cache, k_scale, v_cache, v_scale, base_lens,
     pairs (``ops.kv_cache.quantize_kv_tokens_int4``).
 
     q [B, T, Hq, hd] bf16 (T <= 16); k_cache/v_cache int8 [L, B, S,
-    (Hkv//2)*hd]; k_scale/v_scale f32 [L, B, Hkv, S]; base_lens [B] int32;
-    k_new/v_new packed int8 [B, T, (Hkv//2)*hd] with ks_new/vs_new f32
+    (Hkv//2)*hd]; k_scale/v_scale f32 or bf16 [L, B, Hkv, S]; base_lens [B]
+    int32; k_new/v_new packed int8 [B, T, (Hkv//2)*hd] with ks_new/vs_new
     [B, Hkv, T].  Returns [B, T, Hq, hd] in q.dtype.
     """
     if on_cpu(q, k_cache, k_scale, v_cache, v_scale, base_lens, k_new, v_new, ks_new,
@@ -295,11 +301,12 @@ def flash_decode_attend_quant4(q, k_cache, k_scale, v_cache, v_scale, base_lens,
         return flash_decode_attend_quant4_plain(
             q, k_cache, k_scale, v_cache, v_scale, base_lens, layer=layer,
             k_new=k_new, v_new=v_new, ks_new=ks_new, vs_new=vs_new)
-    out = _launch_decode_quant("md_decode_attend_quant4", q, k_cache, k_scale, v_cache,
-                               v_scale, base_lens, layer, (k_new, v_new, ks_new, vs_new),
-                               packed=True)
-    flash_decode_attend_quant4.launches += 1
+    out, entry = _launch_decode_quant("md_decode_attend_quant4", q, k_cache, k_scale, v_cache,
+                                      v_scale, base_lens, layer,
+                                      (k_new, v_new, ks_new, vs_new), packed=True)
+    count_launch(flash_decode_attend_quant4, entry)
     return out
 
 
 flash_decode_attend_quant4.launches = 0
+flash_decode_attend_quant4.bf16_scale_launches = 0

@@ -20,7 +20,8 @@ from __future__ import annotations
 
 import torch
 
-from magicdec_tpu_torch.kernels import on_cpu, ptr, require, require_bf16
+from magicdec_tpu_torch.kernels import (count_launch, on_cpu, ptr, require, require_bf16,
+                                        scale_entry)
 from magicdec_tpu_torch.kernels import decode_attention as DA
 from magicdec_tpu_torch.ops.paged_kv import (append_paged_rows_all_layers,
                                              append_paged_scale_rows_all_layers, pool_gather,
@@ -107,7 +108,9 @@ flash_paged_decode_attend.launches = 0
 
 def _launch_paged_quant(entry, q, k_pool, k_scale, v_pool, v_scale, table, base_lens, layer,
                         fresh, packed):
-    """One launch of the int8 or packed-int4 B12 entry point."""
+    """One launch of the int8 or packed-int4 B12 entry point (its
+    bf16-scale instance for bf16 scales); returns the output and the entry
+    point launched."""
     from magicdec_tpu_torch.kernels import build
 
     B, T, Hq, hd = q.shape
@@ -123,12 +126,11 @@ def _launch_paged_quant(entry, q, k_pool, k_scale, v_pool, v_scale, table, base_
     require(k_scale.shape == (L, P, Hkv, ps) and v_scale.shape == k_scale.shape,
             f"scale pools {tuple(k_scale.shape)} do not match the pool {tuple(k_pool.shape)}")
     require(k_pool.dtype == v_pool.dtype == torch.int8, "the pool must be int8")
-    require(k_scale.dtype == v_scale.dtype == torch.float32,
-            "the scales must be float32 (bf16 scales are ROADMAP item A8)")
     require(all(t.is_contiguous() for t in (k_pool, v_pool, k_scale, v_scale)),
             "pools must be contiguous")
     require_bf16(q)
     k_new, v_new, ks_new, vs_new = DA.quant_fresh_operands(B, T, Hkv, Kc, *fresh)
+    entry = scale_entry(entry, k_scale, v_scale, ks_new, vs_new)
     q = q.contiguous()
     lens = base_lens.to(torch.int32).contiguous()
     out = torch.empty_like(q)
@@ -138,47 +140,52 @@ def _launch_paged_quant(entry, q, k_pool, k_scale, v_pool, v_scale, table, base_
         ptr(v_new), ptr(ks_new), ptr(vs_new), ptr(lens), ptr(out), ptr(part_o), ptr(part_ml),
         layer, B, P, ps, npr, T, Hq, Hkv, hd, nsplit, chunk, build.stream_ptr(q))
     build.check(err, entry)
-    return out
+    return out, entry
 
 
 def flash_paged_decode_attend_quant(q, k_pool, k_scale, v_pool, v_scale, table, base_lens, *,
                                     layer=0, k_new=None, v_new=None, ks_new=None,
                                     vs_new=None):
     """B12 over an int8 pool: pools int8 [L, P, ps, Hkv*hd], scale pools f32
-    [L, P, Hkv, ps]; fresh rows int8 [B, T, Hkv*hd] with scales [B, Hkv, T];
-    otherwise as ``flash_paged_decode_attend``."""
+    or bf16 [L, P, Hkv, ps]; fresh rows int8 [B, T, Hkv*hd] with scales
+    [B, Hkv, T] in the pools' scale dtype; otherwise as
+    ``flash_paged_decode_attend``."""
     fresh = (k_new, v_new, ks_new, vs_new)
     if on_cpu(q, k_pool, k_scale, v_pool, v_scale, table, base_lens, *fresh):
         return flash_paged_decode_attend_quant_plain(
             q, k_pool, k_scale, v_pool, v_scale, table, base_lens, layer=layer,
             k_new=k_new, v_new=v_new, ks_new=ks_new, vs_new=vs_new)
-    out = _launch_paged_quant("md_paged_decode_attend_quant", q, k_pool, k_scale, v_pool,
-                              v_scale, table, base_lens, layer, fresh, packed=False)
-    flash_paged_decode_attend_quant.launches += 1
+    out, entry = _launch_paged_quant("md_paged_decode_attend_quant", q, k_pool, k_scale,
+                                     v_pool, v_scale, table, base_lens, layer, fresh,
+                                     packed=False)
+    count_launch(flash_paged_decode_attend_quant, entry)
     return out
 
 
 flash_paged_decode_attend_quant.launches = 0
+flash_paged_decode_attend_quant.bf16_scale_launches = 0
 
 
 def flash_paged_decode_attend_quant4(q, k_pool, k_scale, v_pool, v_scale, table, base_lens, *,
                                      layer=0, k_new=None, v_new=None, ks_new=None,
                                      vs_new=None):
     """B12 over an int4 pool packed in head pairs: pools int8 [L, P, ps,
-    (Hkv//2)*hd], scale pools f32 [L, P, Hkv, ps] (Hkv from the scales);
+    (Hkv//2)*hd], scale pools f32 or bf16 [L, P, Hkv, ps] (Hkv from the scales);
     fresh rows packed [B, T, (Hkv//2)*hd] with scales [B, Hkv, T]."""
     fresh = (k_new, v_new, ks_new, vs_new)
     if on_cpu(q, k_pool, k_scale, v_pool, v_scale, table, base_lens, *fresh):
         return flash_paged_decode_attend_quant4_plain(
             q, k_pool, k_scale, v_pool, v_scale, table, base_lens, layer=layer,
             k_new=k_new, v_new=v_new, ks_new=ks_new, vs_new=vs_new)
-    out = _launch_paged_quant("md_paged_decode_attend_quant4", q, k_pool, k_scale, v_pool,
-                              v_scale, table, base_lens, layer, fresh, packed=True)
-    flash_paged_decode_attend_quant4.launches += 1
+    out, entry = _launch_paged_quant("md_paged_decode_attend_quant4", q, k_pool, k_scale,
+                                     v_pool, v_scale, table, base_lens, layer, fresh,
+                                     packed=True)
+    count_launch(flash_paged_decode_attend_quant4, entry)
     return out
 
 
 flash_paged_decode_attend_quant4.launches = 0
+flash_paged_decode_attend_quant4.bf16_scale_launches = 0
 
 
 def append_paged_rows_inplace_plain(pool_k, pool_v, rows_k, rows_v, write_pos, table,
@@ -198,8 +205,10 @@ def append_paged_rows_inplace(pool_k, pool_v, rows_k, rows_v, write_pos, table,
     Kc] at request b's logical positions [write_pos[b], write_pos[b] + T)
     through table [B, npr], every layer, in place; a row at or past npr*ps
     is dropped.  With a quantized pool's scale pools (scale_k/scale_v
-    [L, P, H, ps], srows_k/srows_v [L, B, H, T]) the scale columns land in
-    the same launch.  Returns (pool_k, pool_v[, scale_k, scale_v])."""
+    [L, P, H, ps], srows_k/srows_v [L, B, H, T], float32 or bfloat16, one
+    dtype; bf16 takes the ``_bf16s`` instance, ``bf16_scale_launches``) the
+    scale columns land in the same launch.  Returns (pool_k, pool_v[,
+    scale_k, scale_v])."""
     quant = scale_k is not None
     if on_cpu(pool_k, pool_v, rows_k, rows_v, write_pos, table, scale_k, scale_v, srows_k,
               srows_v):
@@ -234,18 +243,17 @@ def append_paged_rows_inplace(pool_k, pool_v, rows_k, rows_v, write_pos, table,
             f"scale pools {tuple(scale_k.shape)} do not match the pool {tuple(pool_k.shape)}")
     require(srows_k.shape == (L, B, H, T) and srows_v.shape == srows_k.shape,
             f"scale rows {tuple(srows_k.shape)} do not match the scale pools")
-    require(scale_k.dtype == scale_v.dtype == torch.float32,
-            "the scales must be float32 (bf16 scales are ROADMAP item A8)")
     require(scale_k.is_contiguous() and scale_v.is_contiguous(), "scale pools must be contiguous")
-    srows_k = srows_k.to(torch.float32).contiguous()
-    srows_v = srows_v.to(torch.float32).contiguous()
-    err = lib.md_append_paged_rows_quant(
+    entry = scale_entry("md_append_paged_rows_quant", scale_k, scale_v, srows_k, srows_v)
+    srows_k, srows_v = srows_k.contiguous(), srows_v.contiguous()
+    err = getattr(lib, entry)(
         ptr(pool_k), ptr(pool_v), ptr(scale_k), ptr(scale_v), ptr(rows_k), ptr(rows_v),
         ptr(srows_k), ptr(srows_v), ptr(pos), ptr(table), L, B, P, ps, npr, T, H, row_bytes,
         stream)
-    build.check(err, "md_append_paged_rows_quant")
-    append_paged_rows_inplace.launches += 1
+    build.check(err, entry)
+    count_launch(append_paged_rows_inplace, entry)
     return pool_k, pool_v, scale_k, scale_v
 
 
 append_paged_rows_inplace.launches = 0
+append_paged_rows_inplace.bf16_scale_launches = 0

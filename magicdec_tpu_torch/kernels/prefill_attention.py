@@ -21,7 +21,8 @@ from __future__ import annotations
 
 import torch
 
-from magicdec_tpu_torch.kernels import on_cpu, ptr, require, require_bf16
+from magicdec_tpu_torch.kernels import (count_launch, on_cpu, ptr, require, require_bf16,
+                                        scale_entry)
 from magicdec_tpu_torch.kernels.decode_attention import (check_quant_operands,
                                                          visible_layer_quant)
 from magicdec_tpu_torch.ops.attention import attend, attend_quant
@@ -109,8 +110,9 @@ def flash_prefill_attend_quant_plain(q, k_cache, k_scale, v_cache, v_scale, base
 def _launch_prefill_quant(entry, q, k_cache, k_scale, v_cache, v_scale, base_lens, layer,
                           fresh, packed):
     """One launch of K2q (``md_prefill_attend_quant``) or B11
-    (``md_prefill_attend_quant4``); returns the output (a failed tensor-map
-    encode raises)."""
+    (``md_prefill_attend_quant4``), or their bf16-scale instances; returns
+    the output and the entry point launched (a failed tensor-map encode
+    raises)."""
     from magicdec_tpu_torch.kernels import build
 
     B, C, Hq, hd = q.shape
@@ -118,6 +120,7 @@ def _launch_prefill_quant(entry, q, k_cache, k_scale, v_cache, v_scale, base_len
     require(0 <= layer < L, "bad layer")
     Hkv, (k_new, v_new, ks_new, vs_new) = check_quant_operands(
         q, k_cache, k_scale, v_cache, v_scale, *fresh, packed=packed)
+    entry = scale_entry(entry, k_scale, v_scale, ks_new, vs_new)
     q = q.contiguous()
     lens = base_lens.to(torch.int32).contiguous()
     out = torch.empty_like(q)
@@ -126,7 +129,7 @@ def _launch_prefill_quant(entry, q, k_cache, k_scale, v_cache, v_scale, base_len
         ptr(v_new), ptr(ks_new), ptr(vs_new), ptr(lens), ptr(out),
         layer, B, S, C, Hq, Hkv, hd, build.stream_ptr(q))
     build.check(err, entry)
-    return out
+    return out, entry
 
 
 def flash_prefill_attend_quant(q, k_cache, k_scale, v_cache, v_scale, base_lens, *,
@@ -134,23 +137,26 @@ def flash_prefill_attend_quant(q, k_cache, k_scale, v_cache, v_scale, base_lens,
     """``flash_prefill_attend`` over an int8 cache.
 
     q [B, C, Hq, hd] bf16; k_cache/v_cache int8 [L, B, S, Hkv*hd];
-    k_scale/v_scale f32 [L, B, Hkv, S]; base_lens [B] int32; k_new/v_new int8
-    [B, C, Hkv*hd] with ks_new/vs_new f32 [B, Hkv, C]: the chunk's rows when
-    the cache does not hold them yet.  Returns [B, C, Hq, hd] in q.dtype.
+    k_scale/v_scale f32 or bf16 [L, B, Hkv, S] (bf16: the ``_bf16s``
+    instance, ``bf16_scale_launches``); base_lens [B] int32; k_new/v_new int8
+    [B, C, Hkv*hd] with ks_new/vs_new [B, Hkv, C] in the scales' dtype: the
+    chunk's rows when the cache does not hold them yet.  Returns [B, C, Hq,
+    hd] in q.dtype.
     """
     if on_cpu(q, k_cache, k_scale, v_cache, v_scale, base_lens, k_new, v_new, ks_new,
               vs_new):
         return flash_prefill_attend_quant_plain(
             q, k_cache, k_scale, v_cache, v_scale, base_lens, layer=layer,
             k_new=k_new, v_new=v_new, ks_new=ks_new, vs_new=vs_new)
-    out = _launch_prefill_quant("md_prefill_attend_quant", q, k_cache, k_scale, v_cache,
-                                v_scale, base_lens, layer, (k_new, v_new, ks_new, vs_new),
-                                packed=False)
-    flash_prefill_attend_quant.launches += 1
+    out, entry = _launch_prefill_quant("md_prefill_attend_quant", q, k_cache, k_scale,
+                                       v_cache, v_scale, base_lens, layer,
+                                       (k_new, v_new, ks_new, vs_new), packed=False)
+    count_launch(flash_prefill_attend_quant, entry)
     return out
 
 
 flash_prefill_attend_quant.launches = 0
+flash_prefill_attend_quant.bf16_scale_launches = 0
 
 # The plain version dequantizes by dequant_kv, which reads either layout.
 flash_prefill_attend_quant4_plain = flash_prefill_attend_quant_plain
@@ -166,11 +172,12 @@ def flash_prefill_attend_quant4(q, k_cache, k_scale, v_cache, v_scale, base_lens
         return flash_prefill_attend_quant4_plain(
             q, k_cache, k_scale, v_cache, v_scale, base_lens, layer=layer,
             k_new=k_new, v_new=v_new, ks_new=ks_new, vs_new=vs_new)
-    out = _launch_prefill_quant("md_prefill_attend_quant4", q, k_cache, k_scale, v_cache,
-                                v_scale, base_lens, layer, (k_new, v_new, ks_new, vs_new),
-                                packed=True)
-    flash_prefill_attend_quant4.launches += 1
+    out, entry = _launch_prefill_quant("md_prefill_attend_quant4", q, k_cache, k_scale,
+                                       v_cache, v_scale, base_lens, layer,
+                                       (k_new, v_new, ks_new, vs_new), packed=True)
+    count_launch(flash_prefill_attend_quant4, entry)
     return out
 
 
 flash_prefill_attend_quant4.launches = 0
+flash_prefill_attend_quant4.bf16_scale_launches = 0

@@ -15,9 +15,12 @@ and an optional residual, which the draft takes where B5 declines (129 to
 256 rows, e.g. a prefill chunk of 2 requests).
 
 Weights are int8 ``q [In, Out]`` with one f32 scale per output column
-(``scale`` [1, Out] or [Out]).  Numerics of the kernels and of the plain
-versions: acc = f32 sum of x * q; y = bf16(acc * scale) with the scale in
-f32 (the reference scales each in-block partial, equal up to f32 rounding);
+(``scale`` [1, Out] or [Out]); B4 and B6 also take group-wise int8 scales
+[In/group, Out] (group a power of two >= 32: the ``_grouped`` entry point),
+summed as the int4 dots below sum theirs.  Numerics of the kernels and of
+the plain versions: acc = f32 sum of x * q; y = bf16(acc * scale) with the
+scale in f32 (the reference scales each in-block partial, equal up to f32
+rounding);
 the norm is ``bf16(xf * rsqrt(mean(xf^2) + eps)) * bf16(norm_w)``; the gate
 rounds g and u to bf16 and returns bf16(g * sigmoid(g) * u); a residual is
 added in bf16.  Bound on the card: the weight's HBM bytes (see the sources
@@ -147,15 +150,23 @@ def ffn_plan(dots, M: int, resident: int) -> tuple[int, ...]:
 
 
 def _scaled(x, q, scale):
+    """The f32 sums of an int8 dot, scaled: x @ q * s with one scale a
+    column, or group-wise (scale [G, Out], G > 1) as ``_group_sums``."""
+    if scale.dim() == 2 and scale.shape[0] > 1:
+        return _group_sums(x, q.to(torch.float32), scale)
     return (x.to(torch.float32) @ q.to(torch.float32)) * scale.reshape(-1).to(torch.float32)
 
 
 def _scaled_int4(x, q, scale):
-    """sum over groups g, in order, of f32(x_g @ q_g) * s_g: q packed
-    [In/2, Out], scale [G, Out]."""
+    """``_group_sums`` of q packed int4 [In/2, Out]."""
     from magicdec_tpu_torch.quantization import unpack_int4
 
-    qf = unpack_int4(q).to(torch.float32)
+    return _group_sums(x, unpack_int4(q).to(torch.float32), scale)
+
+
+def _group_sums(x, qf, scale):
+    """sum over groups g, in order, of f32(x_g @ q_g) * s_g: qf f32
+    [In, Out], scale [G, Out]."""
     G = scale.shape[-2]
     gs = qf.shape[0] // G
     xf = x.to(torch.float32)
@@ -214,9 +225,11 @@ def quant_layer_tail_plain(a, x, qo, so, q13, s13, q2, s2, norm_w, *, eps):
     return quant_mlp_plain(h, q13, s13, q2, s2, norm_w, h, eps=eps)
 
 
-def _check_dot(x, q, scale, what):
-    """(M, In, Out, flat f32 scale) of one dequant dot on the card; raises
-    on what the kernel does not take."""
+def _check_dot(x, q, scale, what, grouped=False):
+    """(M, In, Out, f32 scale, group) of one int8 dequant dot on the card;
+    raises on what the kernel does not take.  One scale a column (flat,
+    group In); with ``grouped`` (B4, B6) also group-wise scales [G, Out],
+    G > 1, whose group In / G must be a power of two >= 32."""
     require(x.dim() == 2 and q.dim() == 2, f"{what}: x [M, In] and q [In, Out] are 2-D")
     M, In = x.shape
     Out = q.shape[1]
@@ -224,9 +237,17 @@ def _check_dot(x, q, scale, what):
     require(q.dtype == torch.int8 and q.is_contiguous(), f"{what}: q must be contiguous int8")
     require(In % BK == 0 and Out % BN == 0,
             f"{what}: the kernel takes In % {BK} == 0 and Out % {BN} == 0, got {In}, {Out}")
-    require(scale.dtype == torch.float32 and scale.numel() == Out,
-            f"{what}: one float32 scale per output column")
-    return M, In, Out, scale.reshape(-1).contiguous()
+    require(scale.dtype == torch.float32, f"{what}: the scales must be float32")
+    if grouped and scale.dim() == 2 and scale.shape[0] > 1:
+        G = scale.shape[0]
+        group = In // G
+        require(scale.shape[1] == Out and G * group == In and group >= 32
+                and group & (group - 1) == 0,
+                f"{what}: group-wise int8 scales [G, {Out}] need a power-of-two group >= 32 "
+                f"dividing {In}, got {tuple(scale.shape)}")
+        return M, In, Out, scale.contiguous(), group
+    require(scale.numel() == Out, f"{what}: one float32 scale per output column")
+    return M, In, Out, scale.reshape(-1).contiguous(), In
 
 
 def _launch_dot(x, q, scale, norm_w=None, res=None, gate=False, eps=1e-5, what=""):
@@ -235,7 +256,7 @@ def _launch_dot(x, q, scale, norm_w=None, res=None, gate=False, eps=1e-5, what="
 
     x = x.contiguous()
     require_bf16(x, norm_w, res)
-    M, In, Out, scale = _check_dot(x, q, scale, what)
+    M, In, Out, scale, group = _check_dot(x, q, scale, what, grouped=True)
     require(M <= ROWS_MAX, f"{what}: the kernel takes at most {ROWS_MAX} rows, got {M}")
     Fo = Out // 2 if gate else Out
     if norm_w is not None:
@@ -245,15 +266,24 @@ def _launch_dot(x, q, scale, norm_w=None, res=None, gate=False, eps=1e-5, what="
         require(res.shape == (M, Out), f"{what}: residual {tuple(res.shape)}, not {(M, Out)}")
         res = res.contiguous()
     out = torch.empty((M, Fo), dtype=torch.bfloat16, device=x.device)
-    err = build.library().md_quant_matmul_sm90(
-        ptr(x), ptr(q), ptr(scale), ptr(norm_w), ptr(res), ptr(out), M, In, Out, int(gate),
-        cluster_split_plan(In, Out), float(eps), build.stream_ptr(x))
-    build.check(err, f"{what} (md_quant_matmul_sm90)")
+    operands = (ptr(x), ptr(q), ptr(scale), ptr(norm_w), ptr(res), ptr(out), M, In, Out,
+                int(gate))
+    if group == In:
+        entry = "md_quant_matmul_sm90"
+        err = build.library().md_quant_matmul_sm90(
+            *operands, cluster_split_plan(In, Out), float(eps), build.stream_ptr(x))
+    else:  # group-wise: the splits start on group boundaries
+        entry = "md_quant_matmul_grouped_sm90"
+        err = build.library().md_quant_matmul_grouped_sm90(
+            *operands, cluster_split_plan(In, Out, max(group, BK)), group, float(eps),
+            build.stream_ptr(x))
+    build.check(err, f"{what} ({entry})")
     return out
 
 
 def quant_matmul(x, q, scale):
-    """B6: x [M, In] @ (q int8 [In, Out] * scale [Out]) -> [M, Out]."""
+    """B6: x [M, In] @ (q int8 [In, Out] * scale [Out], or group-wise
+    scale [In/group, Out]) -> [M, Out]."""
     if on_cpu(x, q, scale):
         return quant_matmul_plain(x, q, scale)
     out = _launch_dot(x, q, scale, what="quant_matmul")
@@ -282,7 +312,7 @@ quant_matmul_fused.launches = 0
 def _check_ffn(x, q13, s13, q2, s2, norm_w, what):
     """(M, D, F, s13, s2, norm_w) of an int8 FFN block on the card; raises
     on what the kernels do not take."""
-    M, D, F2, s13 = _check_dot(x, q13, s13, what + " w13")
+    M, D, F2, s13, _ = _check_dot(x, q13, s13, what + " w13")
     F = F2 // 2
     require(M <= ROWS_MAX, f"{what}: the kernel takes at most {ROWS_MAX} rows, got {M}")
     require(norm_w.numel() == D, f"{what}: norm weight of {norm_w.numel()}, not {D}")
@@ -364,7 +394,7 @@ def _launch_tail(a, x, qo, so, q13, s13, q2, s2, norm_w, eps, prefetch):
 
     a, x = a.contiguous(), x.contiguous()
     require_bf16(a, x, norm_w)
-    M, K, D, so = _check_dot(a, qo, so, "quant_layer_tail wo")
+    M, K, D, so, _ = _check_dot(a, qo, so, "quant_layer_tail wo")
     _, _, F, s13, s2, norm_w = _check_ffn(x, q13, s13, q2, s2, norm_w, "quant_layer_tail")
     require(x.shape == (M, D), f"quant_layer_tail: x {tuple(x.shape)}, not {(M, D)}")
     require(M <= FFN_ROWS, f"quant_layer_tail: the kernel takes at most {FFN_ROWS} rows, got {M}")

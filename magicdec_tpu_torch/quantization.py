@@ -3,7 +3,8 @@ target's quantized verify weights and the quantized embedding
 (counterpart of magicdec_tpu/quantization.py).
 
 A quantized weight is a ``QuantizedWeight``: int8 ``q [..., In, Out]`` with
-f32 ``scale [..., 1, Out]``, one scale per output column, or int4 packed in
+f32 ``scale [..., 1, Out]``, one scale per output column (or, with
+``group_size``, group-wise ``scale [..., In/group, Out]``), or int4 packed in
 contraction-row pairs into ``q [..., In/2, Out]`` (``pack_int4``) with
 group-wise f32 ``scale [..., In/group, Out]`` (group 128 by default), the
 JAX package's at-rest formats (``convert.py`` moves them across bit for
@@ -16,7 +17,9 @@ product ``x @ q.to(x.dtype) * scale.to(x.dtype)`` (int4: ``x @ bf16(q * s)``,
 dequantized by groups first) that the JAX package leaves to XLA
 (prefill-sized M).  An int4 dot never takes the norm into its kernel: as in
 the JAX package, the rms-norm runs first and B4-int4 takes the gate or the
-residual, B6-int4 neither; B5 and B9 take int8 only.  The JAX package's
+residual, B6-int4 neither; B5 and B9 take int8 with one scale a column
+only (group-wise int8 takes B4 with its norm, gate or residual, or B6, as the
+JAX package routes it).  The JAX package's
 VMEM budgets (``_pick_block_out``, the 13 and 14 MiB budgets of
 ``quant_layer_tail`` and ``quant_mlp``) are
 facts of the TPU and are dropped: at llama-3.2-1b widths they never decline
@@ -54,8 +57,6 @@ above 402, e.g. B=128 at gamma 3) and ``dense_matmul`` never does
 above 200 (B=32 at gamma 3 is 128 rows).  Routing reads ``rows_hint``,
 never the live M, so the padded autoregressive step and the verify pass
 take the same kernel.
-
-Group-wise int8 is ROADMAP item A8.
 """
 
 from __future__ import annotations
@@ -123,9 +124,9 @@ def _plain_backend(x: torch.Tensor) -> bool:
 
 @dataclasses.dataclass(frozen=True)
 class QuantizedWeight:
-    """bits 8: q int8 [..., In, Out], scale f32 [..., 1, Out]; bits 4: q
-    packed int8 [..., In/2, Out], scale f32 [..., G, Out] with G groups
-    tiling the contraction.  ``w[l]`` slices a layer-stacked weight (both
+    """bits 8: q int8 [..., In, Out], scale f32 [..., G, Out] (G = 1: one
+    scale a column); bits 4: q packed int8 [..., In/2, Out], scale f32
+    [..., G, Out]; G groups tile the contraction.  ``w[l]`` slices a layer-stacked weight (both
     arrays)."""
 
     q: torch.Tensor
@@ -136,8 +137,6 @@ class QuantizedWeight:
     def __post_init__(self):
         if self.bits not in (8, 4):
             raise ValueError(f"bits must be 8 or 4, got {self.bits}")
-        if self.bits == 8 and self.scale.shape[-2] != 1:
-            raise NotImplementedError("group-wise int8 weights are ROADMAP item A8")
 
     @property
     def in_features(self) -> int:
@@ -169,8 +168,8 @@ def quantize_weight(w: torch.Tensor, bits: int = 8, group_size=None, *,
                     reciprocal: bool = False) -> QuantizedWeight:
     """Symmetric quantization of [..., In, Out] weights, the JAX package's
     ``quantize_weight`` op for op: per group of ``group_size`` contraction
-    rows and output column (int8: the whole column; int4: 128 rows by
-    default), scale = amax / qmax (127 or 7), at least 1e-10; q =
+    rows and output column (by default int8 the whole column, int4 128
+    rows), scale = amax / qmax (127 or 7), at least 1e-10; q =
     clip(round(w / scale), -qmax - 1, qmax), rounding half to even; int4
     packed by ``pack_int4``.  ``reciprocal``: scale = amax * f32(1/qmax),
     which is what XLA makes of the division inside the JAX package's jitted
@@ -181,8 +180,6 @@ def quantize_weight(w: torch.Tensor, bits: int = 8, group_size=None, *,
     if bits not in (8, 4):
         raise ValueError(f"bits must be 8 or 4, got {bits}")
     gs = default_group_size(In, bits) if group_size is None else group_size
-    if bits == 8 and gs != In:
-        raise NotImplementedError("group-wise int8 weights are ROADMAP item A8")
     if In % gs:
         raise ValueError(f"group size {gs} does not divide {In}")
     G = In // gs
@@ -341,8 +338,10 @@ def quant_matmul(x, wq: QuantizedWeight, norm=None, gate: bool = False, residual
 
 def _all_int8_2d(*ws) -> bool:
     """B5 and B9 take 2-D int8 per-column weights only (the JAX package's
-    ``quant_mlp`` and ``quant_layer_tail`` decline the rest)."""
-    return all(is_quantized(w) and w.q.dim() == 2 and w.bits == 8 for w in ws)
+    ``quant_mlp`` and ``quant_layer_tail`` decline the rest, group-wise int8
+    by its ``scale.shape[0] != 1``)."""
+    return all(is_quantized(w) and w.q.dim() == 2 and w.bits == 8 and w.scale.shape[-2] == 1
+               for w in ws)
 
 
 def quant_mlp(x, w13: QuantizedWeight, w2: QuantizedWeight, norm, residual=None):

@@ -137,8 +137,6 @@ def _not_ported(args):
         return "a device mesh is ROADMAP item A15"
     if args.attn_backend != "flash":
         return "--attn_backend jnp: the port runs its Hopper kernels only"
-    if args.kv_quant and args.kv_scale != "f32":
-        return "--kv_scale bf16 is ROADMAP item A8"
     if args.model_name:
         return "--model_name (tokenized corpora) is ROADMAP item A13"
     return None
@@ -204,6 +202,7 @@ def setup(args):
                             else 128),
         max_gen=args.max_gen, eot_ids=(-1,), cache_dtype=torch.bfloat16,
         page_size=args.page_size, kv_quant=args.kv_quant or False,
+        kv_scale_dtype=torch.bfloat16 if args.kv_scale == "bf16" else torch.float32,
         draft_quant=args.draft_quant or False,
         draft_quant_head=args.draft_head == "quant")
     engine = (PagedServingEngine if args.paged else ServingEngine)(params, cfg, ecfg,

@@ -413,18 +413,33 @@ def test_int8_bench_protocol_acceptance():
     assert rate >= 2.5, f"int8-KV synthetic-weight protocol collapsed: {rate:.2f} tokens/step"
 
 
-@pytest.mark.parametrize("kw,match", [
-    (dict(kv_quant="int4", kv_scale_dtype=torch.bfloat16), "A8"),
-    (dict(kv_quant=True, kv_scale_dtype=torch.bfloat16), "A8"),
+@pytest.mark.parametrize("kw", [
+    dict(kv_quant="int4", kv_scale_dtype=torch.bfloat16),
+    dict(kv_quant=True, kv_scale_dtype=torch.bfloat16),
 ], ids=["int4_bf16_scales", "bf16_scales"])
-def test_engine_quant_configs_not_ported_raise(kw, match):
+def test_engine_bf16_scale_configs_run(kw):
+    """The int8 and int4 caches with bf16 scales (``--kv_scale bf16``):
+    the engine builds, keeps its scales in bf16 through an encode and a
+    generate, and its spec tokens equal its autoregressive ones
+    (tests/test_torch_kv_scale_bf16.py holds them against the JAX
+    engine)."""
     from magicdec_tpu_torch.config import tiny_config
     from magicdec_tpu_torch.engine.engine import EngineConfig, SpecEngine
 
     cfg = tiny_config()
-    with pytest.raises(NotImplementedError, match=match):
-        SpecEngine(bench.make_params(cfg, device="cpu"), cfg,
-                   EngineConfig(draft_budget=257, **kw), device="cpu")
+    eng = SpecEngine(bench.make_params(cfg, device="cpu"), cfg,
+                     EngineConfig(draft_budget=257, max_seq_len=512, chunk_size=128,
+                                  max_gen=8, cache_dtype=torch.float32, **kw), device="cpu")
+    prompt = np.random.RandomState(0).randint(0, cfg.vocab_size, (2, 300))
+    st = eng.encode(prompt)
+    assert st.ks.dtype == st.vs.dtype == torch.bfloat16
+    st, spec = eng.generate(st)
+    assert st.ks.dtype == torch.bfloat16
+    _, base = eng.generate_baseline(eng.encode_baseline(prompt), max_new=8)
+    for b in range(2):
+        m = min(int(spec["num_committed"][b]), 8)
+        assert m > 0
+        assert torch.equal(spec["output"][b, :m], base["output"][b, :m])
 
 
 # -- bench defaults and conversion ------------------------------------------
@@ -443,12 +458,19 @@ def test_bench_defaults_and_metric_tag():
     assert bench.parse_args(["--draft_quant"]).draft_quant == "int8"
 
 
-@pytest.mark.parametrize("argv,match", [
-    (["--kv_scale", "bf16"], "A8"), (["--kv_quant", "int4", "--kv_scale", "bf16"], "A8"),
-], ids=lambda a: "_".join(a).replace("--", "").strip("_") if isinstance(a, list) else a)
-def test_bench_quant_paths_not_ported_raise(argv, match):
-    with pytest.raises(NotImplementedError, match=match):
-        bench.setup(bench.parse_args(argv + ["--device", "cpu"]))
+@pytest.mark.parametrize("argv", [
+    ["--kv_scale", "bf16"], ["--kv_quant", "int4", "--kv_scale", "bf16"],
+], ids=lambda a: "_".join(a).replace("--", "").strip("_"))
+def test_bench_bf16_scale_paths_set_up(argv):
+    """``bench --kv_scale bf16`` (int8, and int4) builds its engine with bf16
+    scale caches, which an encode fills."""
+    engine, prompts = bench.setup(bench.parse_args(
+        argv + ["--device", "cpu", "--model", "68m", "--B", "2", "--prefix_len", "256",
+                "--draft_budget", "257", "--prefill_chunk", "128", "--max_gen", "8",
+                "--iters", "1", "--draft_quant", "none"]))
+    assert engine.ecfg.kv_scale_dtype == torch.bfloat16
+    st = engine.encode(prompts[0])
+    assert st.ks.dtype == st.vs.dtype == torch.bfloat16 and st.k.dtype == torch.int8
 
 
 def test_convert_int8_caches_round_trip_bitwise():

@@ -56,7 +56,6 @@ def test_chip_smoke_fails_without_card(no_card, capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--kv_scale", "bf16"],
     ["--attn_backend", "jnp"], ["--quant_backend", "jnp"],
 ], ids=lambda a: "_".join(a).strip("-"))
 def test_bench_paths_not_ported_raise(argv):
@@ -64,6 +63,29 @@ def test_bench_paths_not_ported_raise(argv):
 
     with pytest.raises(NotImplementedError, match="ROADMAP|Hopper"):
         bench.run(bench.parse_args(argv + ["--device", "cpu"]))
+
+
+def test_bench_kv_scale_bf16_runs_on_cpu(capsys):
+    """``bench --kv_scale bf16`` end to end at a tiny size (it raised before
+    the bf16-scale kernels): the JSON line, spec == AR on every committed
+    token, and the metric name untagged, as the JAX package's."""
+    import json
+
+    import numpy as np
+
+    from magicdec_tpu_torch import bench
+
+    argv = ["--device", "cpu", "--model", "68m", "--B", "2", "--prefix_len", "256",
+            "--draft_budget", "257", "--prefill_chunk", "128", "--max_gen", "8", "--iters", "1",
+            "--kv_scale", "bf16", "--draft_quant", "none"]
+    out = bench.main(argv)
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line == out["result"]
+    f32 = [a if a != "bf16" else "f32" for a in argv]
+    assert line["metric"] == bench.metric_name(bench.parse_args(f32))
+    for b in range(2):
+        m = min(int(out["spec_committed"][b]), 8)
+        np.testing.assert_array_equal(out["spec_output"][b, :m], out["base_output"][b, :m])
 
 
 def test_kernel_wrappers_never_fall_back():

@@ -193,17 +193,20 @@ def test_quantize_params_matches_jax(head):
                                       jp["lm_head"].scale.numpy())
 
 
-def test_int4_and_groupwise_raise_naming_a8():
-    """Group-wise int8 weights are not ported (int4 verify weights are, since
-    ``bench --quantize int4``: tests/test_torch_quantized_target.py; the int4
-    draft copy: tests/test_torch_weight_int4.py)."""
+def test_groupwise_int8_weights_build():
+    """Group-wise int8 weights (they raised before B4/B6 took them): the
+    weight, a leaf built by hand and ``quantize_params`` hold [G, Out]
+    scales, and dequantize group by group (tests/test_torch_quant_group_int8.py
+    holds them against the JAX package)."""
     w = torch.randn(64, 32)
-    with pytest.raises(NotImplementedError, match="A8"):
-        Q.quantize_weight(w, group_size=32)
-    with pytest.raises(NotImplementedError, match="A8"):
-        Q.QuantizedWeight(torch.zeros(32, 32, dtype=torch.int8), torch.ones(2, 32), 8, 16)
-    with pytest.raises(NotImplementedError, match="A8"):
-        Q.quantize_params({"layers": {"wo": w}}, bits=8, group_size=32)
+    qw = Q.quantize_weight(w, group_size=32)
+    assert (qw.bits, qw.group_size, tuple(qw.scale.shape)) == (8, 32, (2, 32))
+    assert (Q.dequantize_weight(qw, torch.float32) - w).abs().max() <= qw.scale.max() / 2 + 1e-6
+    leaf = Q.QuantizedWeight(torch.zeros(32, 32, dtype=torch.int8), torch.ones(2, 32), 8, 16)
+    assert tuple(leaf[None].scale.shape) == (1, 2, 32)
+    qp = Q.quantize_params({"layers": {"wo": w}}, bits=8, group_size=32)
+    assert torch.equal(qp["layers"]["wo"].scale, Q.quantize_weight(
+        w, group_size=32, reciprocal=True).scale)
 
 
 def test_convert_quantized_weight_round_trip_bitwise():

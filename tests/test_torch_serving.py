@@ -151,11 +151,32 @@ def test_synthetic_dataset_matches_jax():
 @pytest.mark.parametrize("argv", [
     ["--mode", "full"], ["--draft_model", "x"],
     ["--temperature", "0.8"], ["--model_parallel", "2"], ["--attn_backend", "jnp"],
-    ["--kv_quant", "int8", "--kv_scale", "bf16"],
 ], ids=lambda a: "_".join(a).strip("-"))
 def test_serving_bench_paths_not_ported_raise(argv):
     with pytest.raises(NotImplementedError, match="ROADMAP|Hopper"):
         serving_bench.run(serving_bench.parse_args(argv + ["--device", "cpu"]))
+
+
+def test_serving_bench_kv_scale_bf16_runs_on_cpu(monkeypatch, capsys):
+    """``serving_bench --paged --kv_quant int8 --kv_scale bf16`` (it raised
+    before the bf16-scale kernels) at a tiny size: every request served,
+    and the same tokens as the contiguous engine on the same prompts."""
+    import json
+
+    monkeypatch.setattr(tcfg.ModelConfig, "from_name",
+                        classmethod(lambda cls, name: tcfg.tiny_config(**KW)))
+    argv = ["--device", "cpu", "--model", "tiny", "--slots", "2", "--num_requests", "3",
+            "--prefix_len", "160", "--ragged", "--max_len", "512", "--page_size", "128",
+            "--max_gen", "8", "--kv_quant", "int8", "--kv_scale", "bf16", "--skip_warmup"]
+    out = serving_bench.main(argv + ["--paged"])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["value"] > 0 and out["stats"]["served"] == 3
+    args = serving_bench.parse_args(argv)
+    engine, _ = serving_bench.setup(args)
+    assert engine.ecfg.kv_scale_dtype == torch.bfloat16
+    for p, c in zip(out["outputs"], engine.serve(out["prompts"], B=args.slots,
+                                                 windows_per_sync=args.windows_per_sync)):
+        np.testing.assert_array_equal(p, c)
 
 
 def test_serving_bench_runs_on_cpu(monkeypatch, capsys):
