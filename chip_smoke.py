@@ -71,7 +71,14 @@ of which raises on failure:
    + gate, w2 + residual) and B6-int4 (the head), each under torch.profiler
    one kernel launch a call, at M = 32, 64 and 128 (wrong references: the group
    scales shifted by one group, the head's scales rolled by one column),
-   their bound the packed weight and its scales; and
+   their bound the packed weight and its scales; the head-dim-128
+   instances of B10, B11 and B12's int4 pool at the longspec path's 8B
+   target (32 query heads, 8 kv heads of 128 dims, B = 8, an int4 cache of
+   16512 rows: B10 at T = 4 and 1, each window token bit-equal to its step;
+   B11 at C = 512, bases 15872 and 0; B12 over 512-row pages, bit-equal to
+   B10 over the gathered pool; each counted on ``hd128_launches``, wrong
+   references without the fresh rows and with the nibble planes swapped,
+   one kernel launch a call under torch.profiler, library: SDPA); and
    the paged serving kernels at the serving paths' shapes (16 slots of
    8192 rows, page size 512 and 16, a random permuted table, ragged lengths
    including 0 and 8192 - T): B12 over bf16, int8 and packed int4 pools
@@ -113,6 +120,20 @@ of which raises on failure:
    1`` (B4-int4 and B6-int4 at 128 rows; no int8 dot, B5 or B9); (15) path
    (5) and (16) path (1) with ``--kv_scale bf16``, every quantized-KV kernel
    of the path on its bf16-scale instance alone, beside path (5) / (1);
+   (17)-(19) ``magicdec_tpu_torch.longspec_benchmark`` (standalone-draft
+   speculation, ``LONGSPEC_ARGV``: llama-3.1-8b verified by llama-3.2-1b,
+   the coupled synthetic pair, the draft's int8 copy, B=8, the int4 target
+   cache, 512-token prefill chunks, ``--baseline``): streamingllm at 16384
+   and snapkv at 16416 of 16512 rows, full mode at 4096 of 4608, each
+   failing unless spec == AR on every committed token of every batch, B10
+   and B11 launched on their head-dim-128 instances alone, the draft's
+   K1, K3, B4, B5, B6 (and K2 for full and snapkv) and the target's K3q
+   launched, no int8 KV, paged, per-array, dense or int4 dot kernel, and
+   >= 2.2 tokens per step in streamingllm and snapkv; then a paged int4
+   ``PagedServingLongSpecEngine`` serve of 8 requests of distinct lengths
+   (3072..4095) through 8 slots against ``ServingLongSpecEngine``, every
+   token equal, B12's int4 pool at head dim 128 once a layer per target
+   pass;
    group-wise int8 verify weights (``quantize_params(bits=8,
    group_size=128)``): the row check at B = 32, 4 and 2, and a short
    ``SpecEngine`` run (B=4, prefix 2048, max_gen 32, the int8 cache on bf16
@@ -172,14 +193,13 @@ of which raises on failure:
    (baseline, verify and noctx steps), without and with ``--dense_kernels``
    in turns, and ``kernel_benchmark --which append`` (merged against
    per-array appends);
-8. profile: where the decode time goes at the bench's default shapes, on
-   the int4 path and on the SnapKV path (spec generate and AR generate on
-   the host clock, SnapKV's spec generate only, with the host time spent
-   issuing draft steps, then under torch.profiler for the
-   device's busy time and the kernels that take it), spec == AR again, and,
-   on the default path, the AR step's decode_rows padding against its live
-   rows, four alternating pairs in one run; and a
-   spec-only profile of ``--quantize int8``.
+8. profile: where the decode time goes at the bench's default shapes (spec
+   generate and AR generate on the host clock, with the host time spent
+   issuing draft steps, then under torch.profiler for the device's busy
+   time and the kernels that take it), spec == AR again, and the AR step's
+   decode_rows padding against its live rows, four alternating pairs in one
+   run (the int4, SnapKV and ``--quantize int8`` profiles are cut for the
+   time limit).
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -643,6 +663,10 @@ def kernel_phase(torch, gen):
     del bcaches, bpcaches
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
+    head_dim128_kernel_cases(torch, gen, record)
+    print(f"[time] kernel phase: the head-dim-128 cases took {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    t0 = time.perf_counter()
     quant_kernel_cases(torch, gen, record)
     t1 = time.perf_counter()
     paged_kernel_cases(torch, gen, record)
@@ -653,6 +677,184 @@ def kernel_phase(torch, gen):
     print(f"[time] kernel phase: the dots took {t1 - t0:.1f}s, the paged kernels "
           f"{t2 - t1:.1f}s, B14 {t3 - t2:.1f}s, B15 {time.perf_counter() - t3:.1f}s", flush=True)
     return entries
+
+
+HD128 = "[hd128]"  # the cases and kernels-line entries of the head-dim-128 instances
+
+
+def head_dim128_kernel_cases(torch, gen, record):
+    """B10, B11 and B12's int4 pool at head dim 128, at the longspec path's
+    8B target (llama-3.1-8b: 32 query heads, 8 kv heads of 128 dims; B = 8;
+    an int4 cache of 16512 rows packed in head pairs, f32 scales, quantized
+    from bf16 randn; 4 layers timed in turn, each 68 MB of packed k rows,
+    past the L2): B10 at the verify (T = 4) and the AR step (T = 1) at
+    ragged lengths 16300..16500, each token of a window bit-equal to its
+    step; B11 at the encode's last and first 512-token chunks (bases 15872
+    and 0); B12's int4 pool of 512-row pages through a permuted table (8
+    ragged slots of 16384 rows), bit-equal to B10 over the gathered pool.
+    Each within bf16_limit of its plain version, each failing it without
+    the fresh rows and with the nibble planes swapped; each launch counted
+    on the wrapper's ``hd128_launches``; under torch.profiler one
+    ``decode_sm90_kernel`` (and ``combine_kernel`` with splits) or one
+    ``prefill_sm90_kernel`` a call.  library_ms: SDPA on the dequantized
+    bf16 K/V."""
+    from magicdec_tpu_torch.kernels import decode_attention as DA
+    from magicdec_tpu_torch.kernels import paged_attention as PGA
+    from magicdec_tpu_torch.kernels import prefill_attention as PA
+    from magicdec_tpu_torch.ops import paged_kv as PKV
+    from magicdec_tpu_torch.ops.kv_cache import dequant_kv, quantize_kv_tokens_int4
+
+    F = torch.nn.functional
+    dev = torch.device("cuda")
+    L, B, Hq, Hkv, hd, S = 4, 8, 32, 8, 128, 16512
+    bf = torch.bfloat16
+    layer = 1
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(bf)
+
+    def int4_cache(Lc, Bc, Sc):
+        q = torch.empty((Lc, Bc, Sc, Hkv * hd // 2), dtype=torch.int8, device=dev)
+        s = torch.empty((Lc, Bc, Hkv, Sc), dtype=torch.float32, device=dev)
+        for l in range(Lc):
+            q[l], s[l] = quantize_kv_tokens_int4(randn(Bc, Sc, Hkv, hd))
+        return q, s
+
+    def fresh_rows(T):
+        (kn, ksn), (vn, vsn) = (quantize_kv_tokens_int4(randn(B, T, Hkv, hd)) for _ in range(2))
+        return {"k_new": kn, "v_new": vn, "ks_new": ksn, "vs_new": vsn}
+
+    def check(name, case, fn, plain, args, fresh, swapped_args, counter):
+        """bf16_limit against the plain version, the wrong references
+        outside it, the launch on the head-dim-128 instance."""
+        n = counter.hd128_launches
+        out = fn(*args, layer=layer, **fresh)
+        if counter.hd128_launches != n + 1:
+            raise AssertionError(f"{name} {case}: the launch did not take the head-dim-128 "
+                                 "instance")
+        ref = plain(*args, layer=layer, **fresh)
+        torch.cuda.synchronize()
+        err, tol = _err(out, ref)
+        sw = {k: _swap_planes(t) if k in ("k_new", "v_new") else t for k, t in fresh.items()}
+        wrongs = {"without the fresh rows": fn(*args, layer=layer),
+                  "the plain version with the nibble planes swapped":
+                      plain(*swapped_args, layer=layer, **sw)}
+        for what, wrong in wrongs.items():
+            w_err, w_bad, w_share = _outside(wrong, ref)
+            print(f"[kernel] {name} {case}: {what} max_abs_err={w_err:.3e}, {w_bad} of "
+                  f"{ref.numel()} elements outside bf16_limit (up to {w_share:.3g} of it)",
+                  flush=True)
+            if not w_bad:
+                raise AssertionError(f"{name} {case}: bf16_limit passes {what}")
+        return err, tol
+
+    def measure(name, case, fn, plain, q, args_of, base, fresh, kl, vl, err, tol, extra_of,
+                plain_iters):
+        """Times (over the layers in turn), bound, library call; record."""
+        T = q.shape[1]
+        layers = itertools.cycle(range(L))
+        ms = _cuda_ms(lambda: fn(*args_of(), layer=next(layers), **fresh))
+        plain_ms = _cuda_ms(lambda: plain(*args_of(), layer=layer, **fresh), iters=plain_iters,
+                            warmup=1)
+        knl = dequant_kv(fresh["k_new"], fresh["ks_new"], hd, bf)
+        vnl = dequant_kv(fresh["v_new"], fresh["vs_new"], hd, bf)
+        lib_args = _sdpa_inputs(q, kl, vl, base, knl, vnl)
+
+        def lib():
+            return F.scaled_dot_product_attention(lib_args[0], lib_args[1], lib_args[2],
+                                                  attn_mask=lib_args[3])
+        library_ms = _cuda_ms(lib)
+        vis = base.double()
+        pairs = float((vis[:, None] + torch.arange(1, T + 1, device=dev)).sum())
+        row_bytes = Hkv * hd // 2 + Hkv * 4  # a packed row and its f32 scales
+        nbytes = (2 * q.numel() * 2 + 2 * float(vis.sum()) * row_bytes
+                  + sum(t.numel() * t.element_size() for t in fresh.values()))
+        calls = [lambda l=l: fn(*args_of(), layer=l, **fresh) for l in range(L)]
+        record(name, case, err, tol, ms, plain_ms, nbytes, 4 * hd * Hq * pairs, library_ms,
+               calls, [lib], extra_of(calls), exps=Hq * pairs)
+        del lib_args
+
+    k, ks = int4_cache(L, B, S)
+    v, vs = int4_cache(L, B, S)
+    caches = (k, ks, v, vs)
+    swapped = (_swap_planes(k), ks, _swap_planes(v), vs)
+
+    def layer_bf16(c, sc, i):
+        return dequant_kv(c[i], sc[i], hd, bf)
+
+    # B10: the verify and the AR step near the end of the 16512-row cache
+    base_t = torch.randint(16300, 16500, (B,), generator=gen, device=dev, dtype=torch.int32)
+    nsplit = DA.quant_split_plan(B, Hkv, S, hd)[0]
+    name = f"flash_decode_attend_quant4 {HD128}"
+    for T in (4, 1):
+        q, fresh, case = randn(B, T, Hq, hd), fresh_rows(T), f"target T={T} S={S}"
+        err, tol = check(name, case, DA.flash_decode_attend_quant4,
+                         DA.flash_decode_attend_quant4_plain, (q, *caches, base_t), fresh,
+                         (q, *swapped, base_t), DA.flash_decode_attend_quant4)
+        measure(name, case, DA.flash_decode_attend_quant4, DA.flash_decode_attend_quant4_plain,
+                q, lambda: (q, *caches, base_t), base_t, fresh, layer_bf16(k, ks, layer),
+                layer_bf16(v, vs, layer), err, tol,
+                lambda calls: _decode_sm90_launches(torch, name, case, calls, nsplit), 2)
+    _window_equals_steps(torch, name, DA.flash_decode_attend_quant4, caches, layer,
+                         randn(B, 4, Hq, hd), base_t, fresh_rows(4))
+    # B11: the longspec encode's last and first 512-token chunks
+    name = f"flash_prefill_attend_quant4 {HD128}"
+    for C, at in ((512, 15872), (512, 0)):
+        base = torch.full((B,), at, device=dev, dtype=torch.int32)
+        q, fresh, case = randn(B, C, Hq, hd), fresh_rows(C), f"C={C} base={at}"
+        err, tol = check(name, case, PA.flash_prefill_attend_quant4,
+                         PA.flash_prefill_attend_quant4_plain, (q, *caches, base), fresh,
+                         (q, *swapped, base), PA.flash_prefill_attend_quant4)
+        measure(name, case, PA.flash_prefill_attend_quant4, PA.flash_prefill_attend_quant4_plain,
+                q, lambda: (q, *caches, base), base, fresh, layer_bf16(k, ks, layer),
+                layer_bf16(v, vs, layer), err, tol,
+                lambda calls: _one_launch(torch, name, case, calls,
+                                          kernel="prefill_sm90_kernel"), 1)
+    # B12's int4 pool: the contiguous cache's first 16384 rows of each
+    # request scattered into 512-row pages through a permuted table
+    ps, npr = 512, 16384 // 512
+    P = B + B * npr
+    table = ((torch.randperm(B * npr, generator=gen, device=dev) + B).to(torch.int32)
+             .reshape(B, npr).contiguous())
+    pools = []
+    for data, scale in ((k, ks), (v, vs)):
+        pool = PKV.pool_scatter(torch.zeros((L, P, ps, data.shape[-1]), dtype=torch.int8,
+                                            device=dev), table, data[:, :, :npr * ps])
+        segs = (scale[..., :npr * ps].reshape(L, B, Hkv, npr, ps).permute(0, 1, 3, 2, 4)
+                .reshape(L, B * npr, Hkv, ps))
+        spool = torch.zeros((L, P, Hkv, ps), dtype=torch.float32, device=dev)
+        spool[:, table.reshape(-1).long()] = segs
+        pools += [pool, spool]
+    del caches, swapped
+    gathered = [PKV.scale_pool_gather(p, table) if i % 2 else PKV.pool_gather(p, table)
+                for i, p in enumerate(pools)]
+    base_p = torch.randint(0, npr * ps - 4, (B,), generator=gen, device=dev, dtype=torch.int32)
+    base_p[0], base_p[-1] = 0, npr * ps - 4
+    name, case = f"flash_paged_decode_attend_quant4 {HD128}", f"T=4 ps={ps}"
+    q, fresh = randn(B, 4, Hq, hd), fresh_rows(4)
+    swapped_pools = (_swap_planes(pools[0]), pools[1], _swap_planes(pools[2]), pools[3])
+    err, tol = check(name, case, PGA.flash_paged_decode_attend_quant4,
+                     PGA.flash_paged_decode_attend_quant4_plain, (q, *pools, table, base_p),
+                     fresh, (q, *swapped_pools, table, base_p),
+                     PGA.flash_paged_decode_attend_quant4)
+    del swapped_pools
+    for kw in (fresh, {}):
+        if not torch.equal(PGA.flash_paged_decode_attend_quant4(q, *pools, table, base_p,
+                                                                layer=layer, **kw),
+                           DA.flash_decode_attend_quant4(q, *gathered, base_p, layer=layer,
+                                                         **kw)):
+            raise AssertionError(f"{name}: the paged kernel and B10 over the gathered pool "
+                                 "differ in bits")
+    print(f"[kernel] {name} {case}: bit-equal to B10 over the gathered pool, with and "
+          "without the fresh rows", flush=True)
+    nsplit = DA.quant_split_plan(B, Hkv, npr * ps, hd)[0]
+    measure(name, case, PGA.flash_paged_decode_attend_quant4,
+            PGA.flash_paged_decode_attend_quant4_plain, q, lambda: (q, *pools, table, base_p),
+            base_p, fresh, layer_bf16(gathered[0], gathered[1], layer),
+            layer_bf16(gathered[2], gathered[3], layer), err, tol,
+            lambda calls: _decode_sm90_launches(torch, name, case, calls, nsplit), 2)
+    del pools, gathered
+    torch.cuda.empty_cache()
 
 
 def per_array_append_cases(torch, gen, record):
@@ -1344,19 +1546,25 @@ def _agreement(spec_out, spec_n, base_out, max_gen):
 
 
 def _zero_counts(wrappers):
-    """Every wrapper's launch counters to 0 (and its bf16-scale count)."""
+    """Every wrapper's launch counters to 0 (and its bf16-scale and
+    head-dim-128 counts)."""
     for w in wrappers:
         w.launches = 0
         if hasattr(w, "bf16_scale_launches"):
             w.bf16_scale_launches = 0
+        if hasattr(w, "hd128_launches"):
+            w.hd128_launches = 0
 
 
 def _read_counts(wrappers):
     """{wrapper: launches}, and {f"wrapper {BF16S}": its launches on bf16
-    scales} for the quantized-KV wrappers."""
+    scales} for the quantized-KV wrappers, {f"wrapper {HD128}": its launches
+    at head dim 128} for B10, B11 and B12's int4 pool."""
     counts = {w.__name__: w.launches for w in wrappers}
     counts.update({f"{w.__name__} {BF16S}": w.bf16_scale_launches for w in wrappers
                    if hasattr(w, "bf16_scale_launches")})
+    counts.update({f"{w.__name__} {HD128}": w.hd128_launches for w in wrappers
+                   if hasattr(w, "hd128_launches")})
     return counts
 
 
@@ -1506,6 +1714,155 @@ def _bench_summary(out):
             f"{round(r['value'] / r['vs_baseline'], 2)} tok/s "
             f"({r['baseline_latency_ms_per_token']} ms/token), {r['tokens_per_step']} "
             f"tokens/step, time to first token {out['encode_s']:.4f} s")
+
+
+# The longspec path (standalone-draft speculation): llama-3.1-8b verified
+# by llama-3.2-1b (the coupled synthetic pair, the draft's int8 copy), B=8,
+# the target's int4 cache, 512-token prefill chunks; streamingllm at 16384
+# and snapkv at 16416 (the 32-token observation window last) of 16512 rows,
+# full mode at 4096 of 4608.  Each run times one batch after
+# the first (streamingllm: one warmup batch; snapkv and full: the batch they
+# run, their kernels and dots warmed by the streamingllm run) and runs the
+# target's AR baseline on the same batches.
+LONGSPEC_ARGV = ["--model", "llama-3.1-8b", "--draft_model", "llama-3.2-1b", "--B", "8",
+                 "--kv_quant", "int4", "--draft_quant", "int8", "--prefill_chunk", "512",
+                 "--baseline"]
+LONGSPEC_RUNS = (
+    ("streamingllm", ["--prefix_len", "16384", "--max_len", "16512", "--num_batches", "2",
+                      "--warmup_batches", "1"]),
+    ("snapkv", ["--mode", "snapkv", "--prefix_len", "16416", "--max_len", "16512",
+                "--num_batches", "1", "--warmup_batches", "0"]),
+    ("full", ["--draft_budget", "-1", "--prefix_len", "4096", "--max_len", "4608",
+              "--num_batches", "1", "--warmup_batches", "0"]))
+
+
+def longspec_phase(torch, wrappers, required, forbidden):
+    """``python -m magicdec_tpu_torch.longspec_benchmark`` with LONGSPEC_ARGV
+    in each mode of LONGSPEC_RUNS, the counters zeroed just before and read
+    just after each run.  Fails unless spec == AR on every committed token
+    of every batch, B10 and B11 launched on their head-dim-128 instances
+    (the 8B target's attention) and every launch of theirs was one, every
+    kernel of ``required`` launched (full and snapkv: K2 too, the draft's
+    prefill over its full cache) and none of ``forbidden``, and tokens per
+    step reach 2.2 in streamingllm and snapkv (the JAX package's gate for
+    the coupled pair).  Prints each run's spec and AR tok/s, tokens per
+    step, time to first token (the timed batch's encode) and peak device
+    memory.  Returns {mode: (result line, launches, peak GiB, encode s)}."""
+    from magicdec_tpu_torch import longspec_benchmark
+    from magicdec_tpu_torch.kernels import decode_attention as DA
+    from magicdec_tpu_torch.kernels import prefill_attention as PA
+
+    results = {}
+    for mode, extra in LONGSPEC_RUNS:
+        argv = LONGSPEC_ARGV + extra
+        _zero_counts(wrappers)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = longspec_benchmark.main(argv)
+        wall = time.perf_counter() - t0
+        launches = _read_counts(wrappers)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        res = out["result"]
+        tag = f"longspec {mode}"
+        print(f"[{tag}] wall={wall:.1f}s launches={launches} peak_mem={peak:.2f} GiB",
+              flush=True)
+        if res is None or out["engine_mode"] != mode:
+            raise AssertionError(f"{tag}: no timed batch, or the engine ran {out['engine_mode']}")
+        args = longspec_benchmark.parse_args(argv)
+        for i, (s, b) in enumerate(zip(out["spec"], out["base"])):
+            print(f"[{tag}] batch {i}: " + _agreement(s["output"], s["num_committed"],
+                                                     b["output"], args.max_gen), flush=True)
+        if len(out["spec"]) != len(out["base"]) or not out["spec"]:
+            raise AssertionError(f"{tag}: the AR baseline did not run on every batch")
+        for w in (DA.flash_decode_attend_quant4, PA.flash_prefill_attend_quant4):
+            n, n128 = launches[w.__name__], launches[f"{w.__name__} {HD128}"]
+            if n128 <= 0 or n128 != n:
+                raise AssertionError(f"{tag}: {w.__name__} launched {n} times, {n128} of them "
+                                     "on its head-dim-128 instance")
+        want = list(required) + ([PA.flash_prefill_attend] if mode != "streamingllm" else [])
+        for w in want:
+            if launches[w.__name__] <= 0:
+                raise AssertionError(f"{tag} never launched {w.__name__}")
+        for w in forbidden:
+            if launches[w.__name__]:
+                raise AssertionError(f"{tag} launched {w.__name__}, which it must not reach")
+        if mode != "full" and res["tokens_per_step"] < 2.2:
+            raise AssertionError(f"{tag}: acceptance collapsed, {res['tokens_per_step']} "
+                                 "tokens/step")
+        timed = out["spec"][args.warmup_batches]
+        ar_tps = res["value"] / res["vs_baseline"] if res["vs_baseline"] else float("nan")
+        print(f"[{tag}] B={args.B} prefix={args.prefix_len}: spec {res['value']} tok/s, AR "
+              f"{ar_tps:.2f} tok/s (vs_baseline {res['vs_baseline']}), "
+              f"{res['tokens_per_step']} tokens/step, {timed['target_steps']} windows, time to "
+              f"first token {timed['encode_s']:.4f} s, peak {peak:.2f} GiB; {res['metric']}",
+              flush=True)
+        results[mode] = (res, launches, peak, timed["encode_s"])
+        del out
+    return results
+
+
+# the paged int4 longspec serve: 8 requests of distinct lengths in [3072,
+# 4096] through 8 slots, 512-row pages, the 8B target and the 1B draft
+LONGSPEC_SERVE = dict(slots=8, lens=(3072, 3201, 3330, 3459, 3588, 3717, 3846, 4095),
+                      max_len=4608, page_size=512, max_gen=32)
+
+
+def longspec_serving_phase(torch, wrappers):
+    """``PagedServingLongSpecEngine`` over an int4 pool against
+    ``ServingLongSpecEngine`` on the same weights (the coupled 8B + 1B pair,
+    the draft's int8 copy) and prompts: every request's tokens equal; B12's
+    int4 pool on its head-dim-128 instance once a layer per target pass
+    (32 layers x the windows), B13 launched.  Returns the paged serve's launches."""
+    import numpy as np
+
+    from magicdec_tpu_torch import bench
+    from magicdec_tpu_torch.config import ModelConfig
+    from magicdec_tpu_torch.engine.engine import EngineConfig
+    from magicdec_tpu_torch.engine.serving import (PagedServingLongSpecEngine,
+                                                   ServingLongSpecEngine)
+    from magicdec_tpu_torch.kernels import paged_attention as PGA
+
+    c = LONGSPEC_SERVE
+    cfg, dcfg = ModelConfig.from_name("llama-3.1-8b"), ModelConfig.from_name("llama-3.2-1b")
+    params, dparams = bench.make_longspec_params(cfg, dcfg, seed=1)
+    ecfg = EngineConfig(mode="streamingllm", gamma=3, draft_budget=257, max_seq_len=c["max_len"],
+                        chunk_size=128, prefill_chunk_size=512, max_gen=c["max_gen"],
+                        eot_ids=(-1,), cache_dtype=torch.bfloat16, kv_quant="int4",
+                        draft_quant="int8", page_size=c["page_size"])
+    rng = np.random.RandomState(5)
+    prompts = [rng.randint(0, cfg.vocab_size, size=n).astype(np.int32) for n in c["lens"]]
+    outs, stats = {}, {}
+    for name, cls in (("contiguous", ServingLongSpecEngine), ("paged", PagedServingLongSpecEngine)):
+        engine = cls(params, cfg, dparams, dcfg, ecfg)
+        _zero_counts(wrappers)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs[name] = engine.serve(prompts, B=c["slots"], windows_per_sync=4)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        stats[name] = (engine.last_serve_stats, _read_counts(wrappers))
+        del engine
+        torch.cuda.empty_cache()
+        st = stats[name][0]
+        print(f"[longspec serve {name}] {len(prompts)} requests through {c['slots']} slots in "
+              f"{wall:.2f}s, {st['windows']} windows, {st['tokens_per_step']:.3f} tokens/step",
+              flush=True)
+    print("[longspec serve] " + _same_tokens("paged int4 pool against contiguous slots",
+                                             outs["paged"], outs["contiguous"]), flush=True)
+    st, launches = stats["paged"]
+    name = PGA.flash_paged_decode_attend_quant4.__name__
+    want = cfg.n_layer * st["windows"]
+    if launches[f"{name} {HD128}"] != want or launches[name] != want:
+        raise AssertionError(f"{name} launched {launches[name]} times "
+                             f"({launches[f'{name} {HD128}']}"
+                             f" at head dim 128), not {cfg.n_layer} layers x {st['windows']} "
+                             "target passes")
+    if launches[PGA.append_paged_rows_inplace.__name__] <= 0:
+        raise AssertionError("the paged longspec serve never launched B13")
+    del params, dparams
+    torch.cuda.empty_cache()
+    return launches
 
 
 # the checkpoint round trip's serves: 8 requests of 2048 tokens through 8
@@ -1970,7 +2327,7 @@ def solo_phase(torch):
             b1._hinted = lambda B: dataclasses.replace(
                 b1.cfg, decode_rows=slots * (b1.ecfg.gamma + 1))
             DA.split_plan = lambda B, Hkv, S: split_plan(slots, Hkv, S)
-            DA.quant_split_plan = lambda B, Hkv, S: quant_split_plan(slots, Hkv, S)
+            DA.quant_split_plan = lambda B, Hkv, S, hd=64: quant_split_plan(slots, Hkv, S, hd)
         try:
             _, stats = b1.generate(b1.encode(prompt[None]))
         finally:
@@ -2388,13 +2745,13 @@ def _instance(mangled):
     mangled name, any other kernel's, as it is)."""
     import re
 
-    m = re.search(r"decode_sm90_kernelILi(\d)ELi(\d)ELi(\d)ELb(\d)ELb(\d)E", mangled)
+    m = re.search(r"decode_sm90_kernelILi(\d)ELi(\d)ELi(\d)ELb(\d)ELb(\d)ELi(\d+)E", mangled)
     if m is None:
         return mangled
-    fmt, heads, tiles, paged, bf16s = m.groups()
+    fmt, heads, tiles, paged, bf16s, hd = m.groups()
     return (f"decode_sm90_kernel<{('int8', 'int4', 'bf16')[int(fmt)]}, {heads} kv head(s) a "
             f"block, {tiles} row tile(s) a warp, {'paged' if paged == '1' else 'contiguous'}"
-            f"{', bf16 scales' if bf16s == '1' else ''}>")
+            f"{', bf16 scales' if bf16s == '1' else ''}, head dim {hd}>")
 
 
 def _kernel_class(name):
@@ -2700,6 +3057,19 @@ def main():
         at_128=["quant_matmul_fused_int4", "quant_matmul_int4"])
     print(f"[quantize int4 + quantize_embed] {_bench_summary(out13)}", flush=True)
     phase_done("path (13): --quantize int4 --quantize_embed")
+    # (17)-(19) standalone-draft speculation at llama-3.1-8b + llama-3.2-1b:
+    # the target on B10 and B11's head-dim-128 instances and K3q (packed
+    # rows), the draft's int8 copy on B4 / B5 / B6, its cache on K1 and K3
+    # (full, snapkv: its prefill on K2); then the paged int4 twin against
+    # the contiguous one (B12's int4 pool at head dim 128)
+    ls_results = longspec_phase(
+        torch, wrappers, dots + [DA.flash_decode_attend, AP.append_all_rows_inplace,
+                                 AP.append_all_rows_inplace_quant],
+        forbidden=[DA.flash_decode_attend_quant, PA.flash_prefill_attend_quant] + paged
+        + per_array + dense_dots + dots4)
+    phase_done("paths (17)-(19): longspec")
+    ls_serve = longspec_serving_phase(torch, wrappers)
+    phase_done("the paged int4 longspec serve")
     launches["flash_prefill_attend"] = launches16["flash_prefill_attend"]
     launches["quant_mlp"] = launches2["quant_mlp"]
     launches.update({w.__name__: launches4[w.__name__] for w in quant4 + dots4})
@@ -2760,10 +3130,10 @@ def main():
     phase_done("row invariance")
     dense_ab_phase(torch, wrappers)
     phase_done("dense and append A/B")
+    # the default path's profile only (a depth cut for the time limit: the
+    # int4, snapkv and --quantize int8 profiles of earlier runs are in
+    # PERF.md)
     profile_phase(torch)
-    profile_phase(torch, ["--kv_quant", "int4", "--draft_quant", "int4"], pad_pairs=False)
-    profile_phase(torch, ["--mode", "snapkv"], spec_only=True)
-    profile_phase(torch, ["--quantize", "int8"], spec_only=True)
     phase_done("profiles")
 
     meta = {
@@ -2826,6 +3196,13 @@ def main():
     for name in ("quant_matmul_fused", "quant_matmul"):
         meta[f"{name} {GROUPED8}"] = meta[name]
         launches[f"{name} {GROUPED8}"] = launches_g[name]
+    # the head-dim-128 instances: B10 and B11 on the longspec streamingllm
+    # path (17), B12's int4 pool in the paged longspec serve
+    for name, counts in (("flash_decode_attend_quant4", ls_results["streamingllm"][1]),
+                         ("flash_prefill_attend_quant4", ls_results["streamingllm"][1]),
+                         ("flash_paged_decode_attend_quant4", ls_serve)):
+        meta[f"{name} {HD128}"] = meta[name]
+        launches[f"{name} {HD128}"] = counts[f"{name} {HD128}"]
     kernels = []
     for name, (source, replaces) in meta.items():
         if launches.get(name, 0) <= 0:

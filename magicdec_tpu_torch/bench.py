@@ -103,6 +103,39 @@ def _fused_layer(lw):
             "w13": torch.cat([lw["w1"], lw["w3"]], dim=-1), "w2": lw["w2"]}
 
 
+def _synth_stack(gen, cfg, dev, residual_scale=0.25, bits=None):
+    """The layer stack in the fused layout {wqkv, bqkv, wo, w13, w2, norms},
+    drawn on ``dev`` a layer at a time (``_synth_layer``'s distributions,
+    wo and w2 damped by ``residual_scale``) into preallocated stacks, so no
+    second copy of the model exists; ``bits``: each weight quantized as it
+    is drawn (scaled by the f32 reciprocal, as the JAX package's jitted
+    quantization), the bf16 draw freed with its layer."""
+    from magicdec_tpu_torch import quantization as Q
+
+    L, D = cfg.n_layer, cfg.dim
+    stacked = {}
+    for l in range(L):
+        for name, w in _fused_layer(_synth_layer(gen, cfg, dev,
+                                                 residual_scale=residual_scale)).items():
+            if not bits:
+                if l == 0:
+                    stacked[name] = torch.empty((L, *w.shape), dtype=w.dtype, device=dev)
+                stacked[name][l] = w
+                continue
+            qw = Q.quantize_weight(w, bits=bits, reciprocal=True)
+            if l == 0:
+                stacked[name] = Q.QuantizedWeight(
+                    torch.empty((L, *qw.q.shape), dtype=qw.q.dtype, device=dev),
+                    torch.empty((L, *qw.scale.shape), dtype=qw.scale.dtype, device=dev),
+                    qw.bits, qw.group_size)
+            stacked[name].q[l] = qw.q
+            stacked[name].scale[l] = qw.scale
+            del w, qw
+    ones = torch.ones((L, D), dtype=torch.bfloat16, device=dev)
+    return {"wqkv": stacked["wqkv"], "bqkv": None, "wo": stacked["wo"], "w13": stacked["w13"],
+            "w2": stacked["w2"], "attn_norm": ones, "ffn_norm": ones.clone()}
+
+
 def make_params_quantized(cfg, bits, seed=0, quantize_embed=False, device="cuda"):
     """Quantized verify weights (``--quantize``), the construction of
     ``bench.py``'s ``make_params_device_quant``: ``make_params``'s
@@ -118,23 +151,8 @@ def make_params_quantized(cfg, bits, seed=0, quantize_embed=False, device="cuda"
 
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    L, D = cfg.n_layer, cfg.dim
-    stacked = {}
-    for l in range(L):
-        for name, w in _fused_layer(_synth_layer(gen, cfg, dev)).items():
-            qw = Q.quantize_weight(w, bits=bits, reciprocal=True)
-            if l == 0:
-                stacked[name] = Q.QuantizedWeight(
-                    torch.empty((L, *qw.q.shape), dtype=qw.q.dtype, device=dev),
-                    torch.empty((L, *qw.scale.shape), dtype=qw.scale.dtype, device=dev),
-                    qw.bits, qw.group_size)
-            stacked[name].q[l] = qw.q
-            stacked[name].scale[l] = qw.scale
-            del w, qw
-    ones = torch.ones((L, D), dtype=torch.bfloat16, device=dev)
-    layers = {"wqkv": stacked["wqkv"], "bqkv": None, "wo": stacked["wo"],
-              "w13": stacked["w13"], "w2": stacked["w2"], "attn_norm": ones,
-              "ffn_norm": ones.clone()}
+    D = cfg.dim
+    layers = _synth_stack(gen, cfg, dev, bits=bits)
     embed = (torch.randn((cfg.vocab_size, D), generator=gen, device=dev,
                          dtype=torch.float32).to(torch.bfloat16))
     if quantize_embed:
@@ -144,6 +162,61 @@ def make_params_quantized(cfg, bits, seed=0, quantize_embed=False, device="cuda"
     head = Q.quantize_weight(head, bits=bits, reciprocal=True)
     return {"embed": embed, "layers": layers,
             "final_norm": torch.ones((D,), dtype=torch.bfloat16, device=dev), "lm_head": head}
+
+
+def make_longspec_params(tcfg, dcfg, seed=0, dtype=torch.bfloat16, t_bits=None,
+                         quantize_embed=False, target_residual=None, draft_residual=None,
+                         device="cuda"):
+    """Coupled synthetic weights for standalone-draft speculation, the
+    construction of ``bench.py``'s ``make_longspec_params``: returns
+    (target params, draft params).
+
+    Two independently random models agree on almost no greedy token, so
+    both share a low-rank bigram backbone: A [V, Dd] (the shared token
+    code) and C [Dd, V] (the shared readout, 0.02 scale); the draft embeds
+    with A and reads out with C, the target embeds with A @ P and reads out
+    with P^T @ C, P [Dd, Dt] exactly semi-orthogonal (P P^T = I, from the QR
+    of a [Dt, Dd] gaussian).  Each adds its own damped-residual transformer
+    stack (``_synth_stack``), the residual scales 0.24 / sqrt(L_t) and 0.042
+    / sqrt(L_d) by default, so that acceptance does not fall with depth.
+    ``t_bits``: the target's layer stack and head quantized as they are
+    drawn (8 or 4); ``quantize_embed``: the target's int8 [D, V] embedding
+    table; the draft stays bf16 (``EngineConfig.draft_quant`` quantizes it
+    inside ``LongSpecEngine``).  Drawn on ``device`` from seeded
+    ``torch.Generator``s (JAX's keys cannot be reproduced), in the fused
+    layout."""
+    from magicdec_tpu_torch import quantization as Q
+
+    if dcfg.vocab_size != tcfg.vocab_size:
+        raise ValueError("the coupled protocol needs one vocabulary")
+    if target_residual is None:
+        target_residual = 0.24 / np.sqrt(tcfg.n_layer)
+    if draft_residual is None:
+        draft_residual = 0.042 / np.sqrt(dcfg.n_layer)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    V, Dt, Dd = tcfg.vocab_size, tcfg.dim, dcfg.dim
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
+
+    A = randn(V, Dd)
+    C = randn(Dd, V) * 0.02
+    q, _ = torch.linalg.qr(randn(Dt, Dd))
+    P = q.T.contiguous()
+    t_embed = (A @ P).to(dtype)
+    t_head = (P.T @ C).to(dtype)
+    A, C = A.to(dtype), C.to(dtype)
+    del q, P
+    if t_bits:
+        t_head = Q.quantize_weight(t_head, bits=t_bits, reciprocal=True)
+    if quantize_embed:
+        t_embed = Q.quantize_embed(t_embed)
+    target = {"embed": t_embed, "layers": _synth_stack(gen, tcfg, dev, target_residual, t_bits),
+              "final_norm": torch.ones((Dt,), dtype=dtype, device=dev), "lm_head": t_head}
+    draft = {"embed": A, "layers": _synth_stack(gen, dcfg, dev, draft_residual),
+             "final_norm": torch.ones((Dd,), dtype=dtype, device=dev), "lm_head": C}
+    return target, draft
 
 
 def parse_args(argv=None):

@@ -12,7 +12,7 @@
 // cache packed in head pairs, and paged_attention.py
 // flash_paged_decode_attend (:122), flash_paged_decode_attend_quant (:147)
 // and flash_paged_decode_attend_quant4 (:176) (_paged_call :109) over page
-// pools of each.  A window of T <= 16 query tokens of request b attends
+// pools of each, at head dim 64 (every instance) and 128 (the int4 ones).  A window of T <= 16 query tokens of request b attends
 // layer `layer`'s cache rows [0, base_b) (quantized: each with its f32
 // per-(token, kv head) k and v scale, f32 or bf16) plus, when given, its own T fresh
 // rows, read at their positions [base_b, base_b + T) (causal: token t sees
@@ -89,6 +89,13 @@
 //   and stores it, zero past the visible end.
 // - The softmax runs in the exp2 domain (log2 e folded into the score's
 //   scale) and skips the masks on a tile every row of the warp sees whole.
+// - Head dim 128 (QD = 128: B10 and B12's int4 pool, the 8B target's int4
+//   cache; f32 scales): the packed pair's row is 128 bytes; a warp holds
+//   both heads' output (128 registers a thread), so the Q fragments live
+//   in shared memory (warp 0 writes them, each warp reads 16 bytes a lane a
+//   16-dim step), K takes two ldmatrix per 8 positions and V four blocks of
+//   32 dims; the launch bound asks for two blocks an SM and
+//   quant_split_plan aims at two.  Head dim 64 keeps its registers and code.
 //
 // Splits: kernels/decode_attention.py split_plan (bf16) and
 // quant_split_plan, functions of (B, Hkv, S) only; with more than one split
@@ -122,7 +129,7 @@ using sm90::smem_u32;
 using sm90::tma_load_3d;
 
 constexpr int kI8 = 0, kI4 = 1, kBF16 = 2;  // the cache formats
-constexpr int HD = 64;
+constexpr int HD = 64;     // the head dim of the bf16 instances (the quantized: QD)
 constexpr int NR = 16;     // positions a warp tile
 constexpr int NW = 4;      // warps a block
 constexpr int STAGES = 3;  // each warp's ring
@@ -135,10 +142,10 @@ using ScaleT = std::conditional_t<BFS, uint16_t, float>;
 // One stage of a warp's ring: the k and v bytes of NR positions (RB bytes a
 // position: the block's HEADS int8 heads side by side, or one packed pair,
 // at a stride of RB + 16 so that ldmatrix is free of bank conflicts) and
-// their scales as stored (f32, or bf16 with BFS).
-template <bool INT4, int HEADS, bool BFS>
+// their scales as stored (f32, or bf16 with BFS); QD: the head dim.
+template <bool INT4, int HEADS, bool BFS, int QD>
 struct Stage {
-  static constexpr int RB = INT4 ? HD : HEADS * HD;
+  static constexpr int RB = INT4 ? QD : HEADS * QD;
   static constexpr int LDB = RB + 16;
   int8_t k[NR * LDB];
   int8_t v[NR * LDB];
@@ -147,14 +154,23 @@ struct Stage {
 };
 
 // The rings, and after the loop the four warps' states for the merge.
-template <bool INT4, int HEADS, bool BFS>
+template <bool INT4, int HEADS, bool BFS, int QD>
 union Smem {
-  Stage<INT4, HEADS, BFS> ring[NW][STAGES];
+  Stage<INT4, HEADS, BFS, QD> ring[NW][STAGES];
   struct {
-    float o[NW][HEADS][16][HD];
+    float o[NW][HEADS][16][QD];
     float ml[NW][HEADS][16][2];
   } merge;
 };
+
+// Head dim 128 keeps the Q fragments in shared memory past the Smem union
+// (HEADS x QD/16 x 32 lanes of 16 bytes: a warp's registers cannot hold
+// them beside the output of two heads); head dim 64 keeps them in
+// registers.
+template <int HEADS, int QD>
+constexpr int QSM_BYTES = QD > 64 ? HEADS * (QD / 16) * 32 * 16 : 0;
+template <bool INT4, int HEADS, bool BFS, int QD>
+constexpr int QUANT_SMEM = sizeof(Smem<INT4, HEADS, BFS, QD>) + QSM_BYTES<HEADS, QD>;
 
 __device__ __forceinline__ uint32_t bf16x2_sub(uint32_t a, uint32_t b) {
   const __nv_bfloat162 d = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&a),
@@ -227,16 +243,20 @@ __device__ __forceinline__ void pairs(uint32_t w, int plane, const Consts& c, ui
 // The quantized body (K1q, B10, B12's int8 / int4 pools), HEADS kv heads a
 // block: INT4, the packed pair; int8, a pair of heads (one when Hkv is odd),
 // so that a block reads 128 contiguous bytes a position; one 16-row tile of
-// grouped query rows; BFS: bf16 scales.
-template <bool INT4, int HEADS, bool PAGED, bool BFS>
+// grouped query rows; BFS: bf16 scales; QD: the head dim (64, or 128 with
+// the Q fragments in shared memory, QSM).
+template <bool INT4, int HEADS, bool PAGED, bool BFS, int QD>
 __device__ __forceinline__ void quant_body(const AttnArgs& a, int R, unsigned char* dq_smem) {
   static_assert(HEADS == 2 || (!INT4 && HEADS == 1), "a packed row holds a pair of heads");
-  using St = Stage<INT4, HEADS, BFS>;
+  static_assert(QD == 64 || QD == 128, "head dim 64 or 128");
+  using St = Stage<INT4, HEADS, BFS, QD>;
   using SC = ScaleT<BFS>;
   constexpr int LDB = St::LDB;
   constexpr int CH = St::RB / 16;  // 16-byte chunks of a position
   constexpr int PPI = 32 / CH;     // positions one copy instruction of a warp covers
-  Smem<INT4, HEADS, BFS>& sm = *reinterpret_cast<Smem<INT4, HEADS, BFS>*>(dq_smem);
+  constexpr bool QSM = QSM_BYTES<HEADS, QD> > 0;
+  Smem<INT4, HEADS, BFS, QD>& sm = *reinterpret_cast<Smem<INT4, HEADS, BFS, QD>*>(dq_smem);
+  uint4* qsm = reinterpret_cast<uint4*>(dq_smem + sizeof(sm));  // QSM: [HEADS][QD/16][32]
 
   const int b = blockIdx.z;
   const int rb = blockIdx.x / a.nsplit, split = blockIdx.x % a.nsplit;
@@ -244,13 +264,13 @@ __device__ __forceinline__ void quant_body(const AttnArgs& a, int R, unsigned ch
   const int g = lane >> 2, t4 = lane & 3;
   const int G = a.Hq / a.Hkv, GT = G * a.T;
   const int h0 = blockIdx.y * HEADS;  // the block's first kv head
-  const int K = INT4 ? (a.Hkv / 2) * HD : a.Hkv * HD;  // a cache row's bytes
+  const int K = INT4 ? (a.Hkv / 2) * QD : a.Hkv * QD;  // a cache row's bytes
   const int lane_off = blockIdx.y * St::RB;  // the block's bytes in a row
   const int base = a.base_lens[b];
   const bool fresh = a.kq_new != nullptr;
   const int r_block = rb * 16;
   // 1/sqrt(hd), times log2(e): the softmax runs in the exp2 domain
-  const float scale = 1.f / sqrtf((float)HD) * 1.4426950408889634f;
+  const float scale = 1.f / sqrtf((float)QD) * 1.4426950408889634f;
 
   const int t_last = min((r_block + 15) / G, a.T - 1);
   const int hi = min(base + t_last + 1, a.S);
@@ -270,28 +290,41 @@ __device__ __forceinline__ void quant_body(const AttnArgs& a, int R, unsigned ch
   const int lim_min = min(lim[0], lim[1]);
 
   // Q as A fragments, the dims of each 16-dim step in the order (d, d+2 |
-  // d+1, d+3) of the converted K pairs
-  uint32_t qf[HEADS][HD / 16][4];
+  // d+1, d+3) of the converted K pairs (QSM: warp 0's, in shared memory,
+  // lane-major; every warp of the block holds the same rows)
+  uint32_t qf[QSM ? 1 : HEADS][QSM ? 1 : QD / 16][4];
+  if (!QSM || warp == 0) {
 #pragma unroll
-  for (int hh = 0; hh < HEADS; ++hh)
+    for (int hh = 0; hh < HEADS; ++hh)
 #pragma unroll
-    for (int mi = 0; mi < HD / 16; ++mi)
+      for (int mi = 0; mi < QD / 16; ++mi) {
+        uint32_t f[4];
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int row = r_block + g + 8 * i, t = row / G, gq = row % G;
-        uint2 qv = make_uint2(0u, 0u);
-        if (valid[i])
-          qv = *reinterpret_cast<const uint2*>(
-              a.q + (((size_t)b * a.T + t) * a.Hq + (h0 + hh) * G + gq) * HD + 16 * mi + 4 * t4);
-        qf[hh][mi][i] = __byte_perm(qv.x, qv.y, 0x5410);
-        qf[hh][mi][i + 2] = __byte_perm(qv.x, qv.y, 0x7632);
+        for (int i = 0; i < 2; ++i) {
+          const int row = r_block + g + 8 * i, t = row / G, gq = row % G;
+          uint2 qv = make_uint2(0u, 0u);
+          if (valid[i])
+            qv = *reinterpret_cast<const uint2*>(
+                a.q + (((size_t)b * a.T + t) * a.Hq + (h0 + hh) * G + gq) * QD + 16 * mi +
+                4 * t4);
+          f[i] = __byte_perm(qv.x, qv.y, 0x5410);
+          f[i + 2] = __byte_perm(qv.x, qv.y, 0x7632);
+        }
+        if constexpr (QSM) {
+          qsm[(hh * (QD / 16) + mi) * 32 + lane] = make_uint4(f[0], f[1], f[2], f[3]);
+        } else {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) qf[hh][mi][i] = f[i];
+        }
       }
-  float o[HEADS][HD / 8][4];
+  }
+  if constexpr (QSM) __syncthreads();  // warp 0's fragments are every warp's
+  float o[HEADS][QD / 8][4];
   float m[HEADS][2], l[HEADS][2];
 #pragma unroll
   for (int hh = 0; hh < HEADS; ++hh) {
 #pragma unroll
-    for (int n = 0; n < HD / 8; ++n) o[hh][n][0] = o[hh][n][1] = o[hh][n][2] = o[hh][n][3] = 0.f;
+    for (int n = 0; n < QD / 8; ++n) o[hh][n][0] = o[hh][n][1] = o[hh][n][2] = o[hh][n][3] = 0.f;
     m[hh][0] = m[hh][1] = kNegInf;
     l[hh][0] = l[hh][1] = 0.f;
   }
@@ -386,29 +419,41 @@ __device__ __forceinline__ void quant_body(const AttnArgs& a, int R, unsigned ch
     const St& s = sm.ring[warp][it % STAGES];
     const int c0 = lo + (warp + it * NW) * NR;
 
-    // S of each head.  K words (ldmatrix j, register mi): positions
-    // 8j..8j+7, dims 16mi..16mi+15 of the head (int4: of the pair)
+    // S of each head.  K words (ldmatrix j (and hq, the 64 dims), register
+    // mi): positions 8j..8j+7, dims 16mi..16mi+15 of the head (int4: of the
+    // pair)
     float sc[HEADS][2][4];
-    uint32_t w[2][4];
+    uint32_t w[QD / 32][QD / 16];  // K: [j][mi]; V (below): [D][0..3]
 #pragma unroll
     for (int hh = 0; hh < HEADS; ++hh) {
       if (!INT4 || hh == 0) {
 #pragma unroll
         for (int j = 0; j < 2; ++j)
-          ldsm_x4(w[j], reinterpret_cast<const __nv_bfloat16*>(
-                            s.k + (INT4 ? 0 : hh * HD) + (8 * j + (lane & 7)) * LDB +
-                            16 * (lane >> 3)));
+#pragma unroll
+          for (int hq = 0; hq < QD / 64; ++hq)
+            ldsm_x4(w[j] + 4 * hq, reinterpret_cast<const __nv_bfloat16*>(
+                                       s.k + (INT4 ? 0 : hh * QD) + (8 * j + (lane & 7)) * LDB +
+                                       64 * hq + 16 * (lane >> 3)));
       }
 #pragma unroll
       for (int j = 0; j < 2; ++j) sc[hh][j][0] = sc[hh][j][1] = sc[hh][j][2] = sc[hh][j][3] = 0.f;
 #pragma unroll
-      for (int mi = 0; mi < HD / 16; ++mi)
+      for (int mi = 0; mi < QD / 16; ++mi) {
+        uint32_t qa[4];
+        if constexpr (QSM) {
+          const uint4 qv = qsm[(hh * (QD / 16) + mi) * 32 + lane];
+          qa[0] = qv.x, qa[1] = qv.y, qa[2] = qv.z, qa[3] = qv.w;
+        } else {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) qa[i] = qf[hh][mi][i];
+        }
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
           uint32_t b0, b1;
           pairs<INT4>(w[j][mi], hh, cs, b0, b1);
-          mma_bf16_16816(sc[hh][j], qf[hh][mi], b0, b1);
+          mma_bf16_16816(sc[hh][j], qa, b0, b1);
         }
+      }
     }
 
     // The online softmax of each head (sc[hh][j][e]: row g + 8 (e >> 1),
@@ -467,7 +512,7 @@ __device__ __forceinline__ void quant_body(const AttnArgs& a, int R, unsigned ch
 #pragma unroll
       for (int hh = 0; hh < HEADS; ++hh)
 #pragma unroll
-        for (int n = 0; n < HD / 8; ++n) {
+        for (int n = 0; n < QD / 8; ++n) {
           o[hh][n][0] *= corr[hh][0];
           o[hh][n][1] *= corr[hh][0];
           o[hh][n][2] *= corr[hh][1];
@@ -481,10 +526,10 @@ __device__ __forceinline__ void quant_body(const AttnArgs& a, int R, unsigned ch
 #pragma unroll
     for (int hh = 0; hh < HEADS; ++hh)
 #pragma unroll
-      for (int D = 0; D < 2; ++D) {
+      for (int D = 0; D < QD / 32; ++D) {
         if (!INT4 || hh == 0)
           ldsm_x4_trans(w[D], reinterpret_cast<const __nv_bfloat16*>(
-                                  s.v + (INT4 ? 0 : hh * HD) +
+                                  s.v + (INT4 ? 0 : hh * QD) +
                                   ((lane & 7) + 8 * ((lane >> 3) & 1)) * LDB + 32 * D +
                                   16 * (lane >> 4)));
 #pragma unroll
@@ -512,7 +557,7 @@ __device__ __forceinline__ void quant_body(const AttnArgs& a, int R, unsigned ch
 #pragma unroll
   for (int hh = 0; hh < HEADS; ++hh) {
 #pragma unroll
-    for (int D = 0; D < 2; ++D)
+    for (int D = 0; D < QD / 32; ++D)
 #pragma unroll
       for (int k = 0; k < 4; ++k)
 #pragma unroll
@@ -529,8 +574,8 @@ __device__ __forceinline__ void quant_body(const AttnArgs& a, int R, unsigned ch
   }
   __syncthreads();
   const size_t part_base = ((size_t)b * a.Hkv + h0) * a.nsplit + split;
-  for (int item = threadIdx.x; item < HEADS * 16 * (HD / 8); item += NW * 32) {
-    const int hh = item / (16 * (HD / 8)), row = (item / (HD / 8)) % 16, d0 = 8 * (item % (HD / 8));
+  for (int item = threadIdx.x; item < HEADS * 16 * (QD / 8); item += NW * 32) {
+    const int hh = item / (16 * (QD / 8)), row = (item / (QD / 8)) % 16, d0 = 8 * (item % (QD / 8));
     const int gr = r_block + row;
     if (gr >= GT) continue;
     float mw[NW], mm = kNegInf;
@@ -557,11 +602,11 @@ __device__ __forceinline__ void quant_body(const AttnArgs& a, int R, unsigned ch
       v.y = pack_bf16x2(acc[2] * inv, acc[3] * inv);
       v.z = pack_bf16x2(acc[4] * inv, acc[5] * inv);
       v.w = pack_bf16x2(acc[6] * inv, acc[7] * inv);
-      *reinterpret_cast<uint4*>(a.out + (((size_t)b * a.T + t) * a.Hq + (h0 + hh) * G + gq) * HD +
+      *reinterpret_cast<uint4*>(a.out + (((size_t)b * a.T + t) * a.Hq + (h0 + hh) * G + gq) * QD +
                                 d0) = v;
     } else {
       const size_t pr = (part_base + (size_t)hh * a.nsplit) * R + gr;
-      float4* po = reinterpret_cast<float4*>(a.part_o + pr * HD + d0);
+      float4* po = reinterpret_cast<float4*>(a.part_o + pr * QD + d0);
       po[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
       po[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
       if (d0 == 0) {
@@ -905,40 +950,42 @@ __device__ __forceinline__ void bf16_body(const AttnArgs& a, int R, const Maps& 
 }
 
 // Blocks an SM the launch bound asks for: quantized, three pair blocks (168
-// registers) or four one-head blocks; bf16, by its row tiles.
-constexpr int min_blocks(int FMT, int HEADS, int MT) {
-  return FMT == kBF16 ? (MT == 1 ? 4 : MT == 2 ? 3 : 2) : (HEADS == 1 ? 4 : 3);
+// registers) or four one-head blocks, two pair blocks at head dim 128 (the
+// output of two heads takes 128 registers a thread); bf16, by its row tiles.
+constexpr int min_blocks(int FMT, int HEADS, int MT, int QD) {
+  return FMT == kBF16 ? (MT == 1 ? 4 : MT == 2 ? 3 : 2)
+                      : (QD > 64 ? 2 : HEADS == 1 ? 4 : 3);
 }
 
 // FMT kBF16: one kv head a block (HEADS 1), MT row tiles a warp, the tensor
 // maps of the layer's rows; kI8 / kI4: HEADS kv heads a block (INT4: the
-// packed pair), MT 1, the maps unused, BFS: bf16 scales.
-template <int FMT, int HEADS, int MT, bool PAGED, bool BFS = false>
-__global__ void __launch_bounds__(NW * 32, min_blocks(FMT, HEADS, MT))
+// packed pair), MT 1, the maps unused, BFS: bf16 scales, QD: the head dim.
+template <int FMT, int HEADS, int MT, bool PAGED, bool BFS = false, int QD = HD>
+__global__ void __launch_bounds__(NW * 32, min_blocks(FMT, HEADS, MT, QD))
     decode_sm90_kernel(const __grid_constant__ AttnArgs a, int R,
                        const __grid_constant__ Maps maps) {
   extern __shared__ __align__(16) unsigned char dq_smem[];
   if constexpr (FMT == kBF16)
     bf16_body<MT, PAGED>(a, R, maps, dq_smem);
   else
-    quant_body<FMT == kI4, HEADS, PAGED, BFS>(a, R, dq_smem);
+    quant_body<FMT == kI4, HEADS, PAGED, BFS, QD>(a, R, dq_smem);
 }
 
 // ---- host side ------------------------------------------------------------------
 
 // The operands of a quantized cache (int8, or int4 packed in head pairs
-// with INT4): q [B, T, Hq, 64] bf16; k/v int8 [L, B, S, K] (K = Hkv*64, or
-// (Hkv/2)*64 packed) with f32 or bf16 scales [L, B, Hkv, S]; k_new/v_new [B, T, K]
+// with INT4): q [B, T, Hq, QD] bf16; k/v int8 [L, B, S, K] (K = Hkv*QD, or
+// (Hkv/2)*QD packed) with f32 or bf16 scales [L, B, Hkv, S]; k_new/v_new [B, T, K]
 // and ks_new/vs_new [B, Hkv, T], or all four null; base_lens [B]; out [B, T,
-// Hq, 64]; the partials [B, Hkv, nsplit, R, 64] and [.., R, 2] when nsplit
+// Hq, QD]; the partials [B, Hkv, nsplit, R, QD] and [.., R, 2] when nsplit
 // > 1.  False when the shapes are not the kernel's.
-template <bool INT4>
+template <bool INT4, int QD>
 bool quant_args(AttnArgs& a, const void* q, const void* k, const void* v, const void* k_scale,
                 const void* v_scale, const void* k_new, const void* v_new, const void* ks_new,
                 const void* vs_new, const void* base_lens, void* out, void* part_o,
                 void* part_ml, int layer, int B, int S, int T, int Hq, int Hkv, int hd,
                 int nsplit, int chunk) {
-  if (hd != HD || Hkv < 1 || Hq % Hkv != 0 || (INT4 && Hkv % 2 != 0) || T < 1 || T > 16 ||
+  if (hd != QD || Hkv < 1 || Hq % Hkv != 0 || (INT4 && Hkv % 2 != 0) || T < 1 || T > 16 ||
       nsplit < 1 || chunk < NR || chunk % NR != 0 || (k_new == nullptr) != (ks_new == nullptr))
     return false;
   a = AttnArgs{};  // the bf16 fields stay null
@@ -1010,35 +1057,37 @@ int rows_pad(const AttnArgs& a) {
 // One launch of the kernel (grid: nsplit x blocks of grouped query rows,
 // kv heads or head pairs, requests), then the combine pass when nsplit > 1.
 // Returns cudaGetLastError().
-template <int FMT, int HEADS, int MT, bool PAGED, bool BFS = false>
+template <int FMT, int HEADS, int MT, bool PAGED, bool BFS = false, int QD = HD>
 int launch_kernel(const AttnArgs& a, const Maps& maps, int bytes, cudaStream_t stream) {
   // once per instantiation: the shared memory past 48 KB
   static const cudaError_t attr =
-      cudaFuncSetAttribute(decode_sm90_kernel<FMT, HEADS, MT, PAGED, BFS>,
+      cudaFuncSetAttribute(decode_sm90_kernel<FMT, HEADS, MT, PAGED, BFS, QD>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (attr != cudaSuccess) return (int)attr;
   const int R = rows_pad(a);
   const int row_blocks = ((a.Hq / a.Hkv) * a.T + 16 * MT - 1) / (16 * MT);
   const dim3 grid(a.nsplit * row_blocks, a.Hkv / HEADS, a.B);
-  decode_sm90_kernel<FMT, HEADS, MT, PAGED, BFS><<<grid, NW * 32, bytes, stream>>>(a, R, maps);
-  if (a.nsplit > 1) launch_combine<HD>(a, R, stream);
+  decode_sm90_kernel<FMT, HEADS, MT, PAGED, BFS, QD><<<grid, NW * 32, bytes, stream>>>(a, R,
+                                                                                      maps);
+  if (a.nsplit > 1) launch_combine<QD>(a, R, stream);
   return (int)cudaGetLastError();
 }
 
 // int4: one block a packed pair; int8: a pair of heads, or one when Hkv is
 // odd (kernels/decode_attention.py quant_split_plan counts the same blocks);
-// BFS: the bf16-scale instances
-template <bool INT4, bool PAGED, bool BFS>
+// BFS: the bf16-scale instances; QD: the head dim
+template <bool INT4, bool PAGED, bool BFS, int QD = HD>
 int launch(const AttnArgs& a, cudaStream_t stream) {
   const Maps none{};
   if constexpr (INT4)
-    return launch_kernel<kI4, 2, 1, PAGED, BFS>(a, none, sizeof(Smem<true, 2, BFS>), stream);
+    return launch_kernel<kI4, 2, 1, PAGED, BFS, QD>(a, none, QUANT_SMEM<true, 2, BFS, QD>,
+                                                    stream);
   else
     return a.Hkv % 2 == 0
-               ? launch_kernel<kI8, 2, 1, PAGED, BFS>(a, none, sizeof(Smem<false, 2, BFS>),
-                                                      stream)
-               : launch_kernel<kI8, 1, 1, PAGED, BFS>(a, none, sizeof(Smem<false, 1, BFS>),
-                                                      stream);
+               ? launch_kernel<kI8, 2, 1, PAGED, BFS, QD>(a, none,
+                                                          QUANT_SMEM<false, 2, BFS, QD>, stream)
+               : launch_kernel<kI8, 1, 1, PAGED, BFS, QD>(a, none,
+                                                          QUANT_SMEM<false, 1, BFS, QD>, stream);
 }
 
 // bf16: one block a kv head, min(row tiles, MT_MAX) row tiles a warp
@@ -1073,32 +1122,33 @@ CUresult layer_maps(Maps& maps, const AttnArgs& a, int planes, int rows, bool bo
   return enc;
 }
 
-template <bool INT4, bool BFS>
+template <bool INT4, bool BFS, int QD = HD>
 int contiguous(const void* q, const void* k, const void* v, const void* k_scale,
                const void* v_scale, const void* k_new, const void* v_new, const void* ks_new,
                const void* vs_new, const void* base_lens, void* out, void* part_o, void* part_ml,
                int layer, int B, int S, int T, int Hq, int Hkv, int hd, int nsplit, int chunk,
                void* stream) {
   AttnArgs a;
-  if (!quant_args<INT4>(a, q, k, v, k_scale, v_scale, k_new, v_new, ks_new, vs_new, base_lens,
-                        out, part_o, part_ml, layer, B, S, T, Hq, Hkv, hd, nsplit, chunk))
+  if (!quant_args<INT4, QD>(a, q, k, v, k_scale, v_scale, k_new, v_new, ks_new, vs_new,
+                            base_lens, out, part_o, part_ml, layer, B, S, T, Hq, Hkv, hd, nsplit,
+                            chunk))
     return (int)cudaErrorInvalidValue;
-  return launch<INT4, false, BFS>(a, static_cast<cudaStream_t>(stream));
+  return launch<INT4, false, BFS, QD>(a, static_cast<cudaStream_t>(stream));
 }
 
-template <bool INT4, bool BFS>
+template <bool INT4, bool BFS, int QD = HD>
 int paged(const void* q, const void* k_pool, const void* v_pool, const void* k_scale,
           const void* v_scale, const void* table, const void* k_new, const void* v_new,
           const void* ks_new, const void* vs_new, const void* base_lens, void* out, void* part_o,
           void* part_ml, int layer, int B, int P, int ps, int npr, int T, int Hq, int Hkv,
           int hd, int nsplit, int chunk, void* stream) {
   AttnArgs a;
-  if (!quant_args<INT4>(a, q, k_pool, v_pool, k_scale, v_scale, k_new, v_new, ks_new, vs_new,
-                        base_lens, out, part_o, part_ml, layer, B, npr * ps, T, Hq, Hkv, hd,
-                        nsplit, chunk) ||
+  if (!quant_args<INT4, QD>(a, q, k_pool, v_pool, k_scale, v_scale, k_new, v_new, ks_new,
+                            vs_new, base_lens, out, part_o, part_ml, layer, B, npr * ps, T, Hq,
+                            Hkv, hd, nsplit, chunk) ||
       !paged_shape(a, table, P, ps, npr))
     return (int)cudaErrorInvalidValue;
-  return launch<INT4, true, BFS>(a, static_cast<cudaStream_t>(stream));
+  return launch<INT4, true, BFS, QD>(a, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -1153,42 +1203,45 @@ extern "C" int md_paged_decode_attend(const void* q, const void* k_pool, const v
 // multiple of 16).  Returns cudaGetLastError().  The _bf16s entries take
 // bf16 scales (the cache's and the fresh rows'), the arguments otherwise
 // the same.
-#define MD_DECODE_QUANT(NAME, INT4, BFS)                                                  \
+#define MD_DECODE_QUANT(NAME, INT4, BFS, QD)                                              \
   extern "C" int NAME(const void* q, const void* k, const void* v, const void* k_scale,    \
                       const void* v_scale, const void* k_new, const void* v_new,           \
                       const void* ks_new, const void* vs_new, const void* base_lens,       \
                       void* out, void* part_o, void* part_ml, int layer, int B, int S,     \
                       int T, int Hq, int Hkv, int hd, int nsplit, int chunk,               \
                       void* stream) {                                                      \
-    return md::dq90::contiguous<INT4, BFS>(q, k, v, k_scale, v_scale, k_new, v_new,        \
-                                           ks_new, vs_new, base_lens, out, part_o,         \
-                                           part_ml, layer, B, S, T, Hq, Hkv, hd, nsplit,   \
-                                           chunk, stream);                                 \
+    return md::dq90::contiguous<INT4, BFS, QD>(q, k, v, k_scale, v_scale, k_new, v_new,    \
+                                               ks_new, vs_new, base_lens, out, part_o,     \
+                                               part_ml, layer, B, S, T, Hq, Hkv, hd,       \
+                                               nsplit, chunk, stream);                     \
   }
-MD_DECODE_QUANT(md_decode_attend_quant, false, false)
-MD_DECODE_QUANT(md_decode_attend_quant_bf16s, false, true)
+MD_DECODE_QUANT(md_decode_attend_quant, false, false, 64)
+MD_DECODE_QUANT(md_decode_attend_quant_bf16s, false, true, 64)
 // B10: as md_decode_attend_quant, with packed int4 k/v [L, B, S,
-// (Hkv/2)*hd] (+ k_new/v_new [B, T, (Hkv/2)*hd]); Hkv even.
-MD_DECODE_QUANT(md_decode_attend_quant4, true, false)
-MD_DECODE_QUANT(md_decode_attend_quant4_bf16s, true, true)
+// (Hkv/2)*hd] (+ k_new/v_new [B, T, (Hkv/2)*hd]); Hkv even.  The _hd128
+// entry: head dim 128 (f32 scales); the others take head dim 64.
+MD_DECODE_QUANT(md_decode_attend_quant4, true, false, 64)
+MD_DECODE_QUANT(md_decode_attend_quant4_bf16s, true, true, 64)
+MD_DECODE_QUANT(md_decode_attend_quant4_hd128, true, false, 128)
 
 // B12 over an int8 pool (INT4 = 0) or an int4 pool packed in head pairs:
 // as md_decode_attend_quant{,4}, with the pools [L, P, ps, Kc] and the scale
 // pools [L, P, Hkv, ps] read through table [B, npr] (S = npr * ps); _bf16s:
 // bf16 scales.
-#define MD_PAGED_QUANT(NAME, INT4, BFS)                                                   \
+#define MD_PAGED_QUANT(NAME, INT4, BFS, QD)                                               \
   extern "C" int NAME(const void* q, const void* k_pool, const void* v_pool,               \
                       const void* k_scale, const void* v_scale, const void* table,         \
                       const void* k_new, const void* v_new, const void* ks_new,            \
                       const void* vs_new, const void* base_lens, void* out, void* part_o,  \
                       void* part_ml, int layer, int B, int P, int ps, int npr, int T,      \
                       int Hq, int Hkv, int hd, int nsplit, int chunk, void* stream) {      \
-    return md::dq90::paged<INT4, BFS>(q, k_pool, v_pool, k_scale, v_scale, table, k_new,   \
-                                      v_new, ks_new, vs_new, base_lens, out, part_o,       \
-                                      part_ml, layer, B, P, ps, npr, T, Hq, Hkv, hd,       \
-                                      nsplit, chunk, stream);                              \
+    return md::dq90::paged<INT4, BFS, QD>(q, k_pool, v_pool, k_scale, v_scale, table,      \
+                                          k_new, v_new, ks_new, vs_new, base_lens, out,    \
+                                          part_o, part_ml, layer, B, P, ps, npr, T, Hq,    \
+                                          Hkv, hd, nsplit, chunk, stream);                 \
   }
-MD_PAGED_QUANT(md_paged_decode_attend_quant, false, false)
-MD_PAGED_QUANT(md_paged_decode_attend_quant_bf16s, false, true)
-MD_PAGED_QUANT(md_paged_decode_attend_quant4, true, false)
-MD_PAGED_QUANT(md_paged_decode_attend_quant4_bf16s, true, true)
+MD_PAGED_QUANT(md_paged_decode_attend_quant, false, false, 64)
+MD_PAGED_QUANT(md_paged_decode_attend_quant_bf16s, false, true, 64)
+MD_PAGED_QUANT(md_paged_decode_attend_quant4, true, false, 64)
+MD_PAGED_QUANT(md_paged_decode_attend_quant4_bf16s, true, true, 64)
+MD_PAGED_QUANT(md_paged_decode_attend_quant4_hd128, true, false, 128)

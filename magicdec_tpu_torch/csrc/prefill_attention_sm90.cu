@@ -4,7 +4,8 @@
 //
 // Replaces magicdec_tpu/ops/pallas/prefill_attention.py flash_prefill_attend
 // (_prefill_kernel), flash_prefill_attend_quant (_prefill_quant_kernel) and
-// flash_prefill_attend_quant4 (_prefill_quant4_kernel), the quantized ones
+// flash_prefill_attend_quant4 (_prefill_quant4_kernel; at head dim 64, and
+// the int4 one at 128 too), the quantized ones
 // with the scale order of decode_attention.py _quant_online_update.  A
 // C-token chunk of request b attends the cache rows [0, base_b) of layer
 // `layer` plus its own fresh rows [base_b, base_b + C) (or, without fresh
@@ -77,6 +78,13 @@
 //   token's limit, the row maxima and sums as trees.
 // - Bits.  No atomics and no split of the KV range: every launch on the same
 //   inputs gives the same bits (the encode and encode_baseline contract).
+// - Head dim 128 (B11's instance, the 8B target's int4 cache; Geo<128>): a
+//   tile keeps its bytes at 64 positions, so the stages, the ring and the
+//   consumers' registers (S 32, O 64, P 16) stay in budget beside a Q of
+//   48 KB; a 128-value bf16 row is two 64-value halves of 128 bytes under
+//   the swizzle (TMA's widest box), Q and K walk k16 steps 0-3 in the first
+//   half and 4-7 in the second, and P.V runs one m64n64k16 a half of V
+//   into its half of O.
 #include <tuple>
 
 #include "attention_common.cuh"
@@ -87,39 +95,60 @@ namespace pfa {
 
 using namespace md::sm90;
 
-constexpr int HD = 64;
-constexpr float kFold = 0.125f * 1.4426950408889634f;  // 1/sqrt(HD) * log2(e)
 // the cache formats: bf16 (K2), int8 (K2q), int4 packed in head pairs (B11)
 enum Fmt { kBF16 = 0, kI8 = 1, kI4 = 2 };
 constexpr int NCONS = 3;                    // consumer warpgroups of 64 rows
 constexpr int BM = 64 * NCONS;              // grouped query rows a block
-constexpr int BN = 128;                     // KV positions a tile
-constexpr int NS = BN / 2;                  // scores a consumer thread holds (S fragment)
 constexpr int NTHREADS = 128 * (NCONS + 1);  // + the producer warpgroup
 constexpr int I8_STAGES = 4;                // int8 tiles in flight (TMA)
 constexpr int BF_STAGES = 3;                // converted tiles ready for wgmma
-constexpr int I8_TILE = BN * HD;            // bytes of one int8 K or V tile
-constexpr int BF_TILE = BN * HD * 2;        // bytes of one bf16 K or V tile
-// shared memory, from a 1024-byte-aligned base (the swizzle's period)
-constexpr int Q_OFF = 0;                    // [BM][HD] bf16, swizzled
-constexpr int BF_OFF = Q_OFF + BM * HD * 2;
-// a tile's column scales, laid out for the consumers: column c = 8 j + 2 t4
-// + e at t4 * SC_LD + 2 j + e, so the thread quad's lane t4 reads its 32
-// columns as 16-byte loads, each quad lane from other banks
-constexpr int SC_LD = BN / 4 + 4;
-constexpr int SC_FLOATS = 4 * SC_LD;
-constexpr int BF_STAGE = 2 * BF_TILE + 2048;  // K, V, k factors and v scales (2 x SC_FLOATS)
-constexpr int I8_OFF = BF_OFF + BF_STAGES * BF_STAGE;
-constexpr int I8_STAGE = 2 * I8_TILE;       // K, V
-// the barriers: after the int8 ring, or (bf16) where it would start
-template <int FMT>
-constexpr int BAR_OFF = I8_OFF + (FMT == kBF16 ? 0 : I8_STAGES * I8_STAGE);
 constexpr int NBARS = I8_STAGES + 2 * BF_STAGES;
-template <int FMT>
-constexpr int SMEM = BAR_OFF<FMT> + 8 * NBARS + 1024;  // + slack to align the base
-static_assert(BF_STAGE % 1024 == 0 && BF_OFF % 1024 == 0, "bf16 tiles keep the swizzle period");
-static_assert(SMEM<kI8> <= 227 * 1024, "shared memory of one block");
-static_assert(2 * SC_FLOATS * 4 <= 2048, "the scales fit their slot");
+
+// The geometry of the instance of head dim HD (64: K2, K2q, B11; 128: B11).
+// A tile keeps its bytes: 128 positions at head dim 64, 64 at 128, so the
+// stages and the consumers' score registers fit either way.  A bf16 row of
+// 128 values is 256 bytes, past the 128-byte swizzle's box: Q, K and V
+// tiles are stored as 64-value column halves, each [rows][128 bytes]
+// under the swizzle, and wgmma's k16 steps walk both halves.
+template <int HD_>
+struct Geo {
+  static constexpr int HD = HD_;
+  static constexpr int BN = 8192 / HD;      // KV positions a tile
+  static constexpr int NS = BN / 2;         // scores a consumer thread holds (S fragment)
+  static constexpr int HALVES = HD / 64;    // 64-value column halves of a bf16 row
+  static constexpr int HALF = BN * 128;     // bytes of one half of a bf16 K or V tile
+  static constexpr int Q_HALF = 64 * 128;   // bytes of one half of a warpgroup's Q
+  // 1/sqrt(HD) * log2(e)
+  static constexpr float kFold = (HD == 64 ? 0.125f : 0.08838834764831845f) * 1.4426950408889634f;
+  static constexpr int I8_TILE = BN * HD;    // bytes of one int8 K or V tile
+  static constexpr int BF_TILE = BN * HD * 2;  // bytes of one bf16 K or V tile
+  // shared memory, from a 1024-byte-aligned base (the swizzle's period)
+  static constexpr int Q_OFF = 0;            // [BM][HD] bf16, swizzled halves
+  static constexpr int BF_OFF = Q_OFF + BM * HD * 2;
+  // a tile's column scales, laid out for the consumers: column c = 8 j + 2
+  // t4 + e at t4 * SC_LD + 2 j + e, so the thread quad's lane t4 reads its
+  // BN / 4 columns as 16-byte loads, each quad lane from other banks
+  static constexpr int SC_LD = BN / 4 + 4;
+  static constexpr int SC_FLOATS = 4 * SC_LD;
+  static constexpr int BF_STAGE = 2 * BF_TILE + 2048;  // K, V, k factors and v scales
+  static constexpr int I8_OFF = BF_OFF + BF_STAGES * BF_STAGE;
+  static constexpr int I8_STAGE = 2 * I8_TILE;  // K, V
+  // the barriers: after the int8 ring, or (bf16) where it would start
+  __host__ __device__ static constexpr int bar_off(int fmt) {
+    return I8_OFF + (fmt == kBF16 ? 0 : I8_STAGES * I8_STAGE);
+  }
+  __host__ __device__ static constexpr int smem(int fmt) {  // + slack to align the base
+    return bar_off(fmt) + 8 * NBARS + 1024;
+  }
+};
+template <int HD>
+constexpr bool geo_ok() {
+  using G = Geo<HD>;
+  return G::BF_STAGE % 1024 == 0 && G::BF_OFF % 1024 == 0 && G::HALF % 1024 == 0 &&
+         G::smem(kI8) <= 227 * 1024 && 2 * G::SC_FLOATS * 4 <= 2048;
+}
+static_assert(geo_ok<64>() && geo_ok<128>(),
+              "bf16 tiles keep the swizzle period; one block's shared memory; the scales fit");
 // named barriers (0 is __syncthreads): the producer warpgroup's, each
 // consumer warpgroup's Q
 constexpr int BAR_PRODUCER = 1;
@@ -127,6 +156,7 @@ constexpr int BAR_Q = 2;
 
 struct Args {
   CUtensorMap kmap, vmap;    // layer's cache [B, S, Kw], box {HD, BN, 1} (bf16: 128-byte swizzle)
+                             // (HD, BN: the instance's Geo)
   CUtensorMap knmap, vnmap;  // fresh rows [B, T, Kw], same box (with fresh rows)
   const __nv_bfloat16* q;    // [B, T, Hq, HD]
   const uint8_t* k;          // the layer's cache [B, S, Kw] (bf16: the producer's own loads)
@@ -172,6 +202,28 @@ __device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t da, uint64_t d
       "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
       "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
       "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// The same at BN = 64 (head dim 128): m64n64k16, 32 accumulators (d[4j +
+// e]: column 8 j + 2 t4 + e % 2).
+__device__ __forceinline__ void wgmma_qk64(float (&d)[32], uint64_t da, uint64_t db,
+                                           int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+      "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+      "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
@@ -256,13 +308,15 @@ __device__ __forceinline__ void tree(float* t, Op op) {
 // the exp2 domain: y = s_raw * kf (SCALED: k_scale / sqrt(hd) * log2 e a
 // column, else kFold), -1e30 where masked (MASKED: a tile reaching past the
 // warpgroup's first limit); s becomes p, m and l are updated, corr is the
-// factor for the accumulator.  kf points at the thread's 32 columns (2 j +
-// e).  The row maxima and sums are trees, not chains: a warp has few
-// neighbours to hide latency.
-template <bool MASKED, bool SCALED>
-__device__ __forceinline__ void softmax_tile(float (&s)[NS], const float* kf, int c0,
+// factor for the accumulator.  kf points at the thread's BN / 4 columns (2
+// j + e).  The row maxima and sums are trees, not chains: a warp has few
+// neighbours to hide latency.  HD: the instance (Geo<HD>'s BN, NS, kFold).
+template <int HD, bool MASKED, bool SCALED>
+__device__ __forceinline__ void softmax_tile(float (&s)[Geo<HD>::NS], const float* kf, int c0,
                                              const int (&lim)[2], int t4, float (&m)[2],
                                              float (&l)[2], float (&corr)[2]) {
+  constexpr int BN = Geo<HD>::BN, NS = Geo<HD>::NS;
+  constexpr float kFold = Geo<HD>::kFold;
   if constexpr (SCALED) {
 #pragma unroll
     for (int j2 = 0; j2 < BN / 16; ++j2) {
@@ -309,11 +363,12 @@ __device__ __forceinline__ void softmax_tile(float (&s)[NS], const float* kf, in
 }
 
 // P = bf16(p * v_scale) (SCALED) or bf16(p) as A fragments (pa[kk]:
-// columns 16 kk .. 16 kk + 15); vsc points at the thread's 32 columns (2 j +
-// e).
-template <bool SCALED>
-__device__ __forceinline__ void pack_p(const float (&s)[NS], const float* vsc,
-                                       uint32_t (&pa)[BN / 16][4]) {
+// columns 16 kk .. 16 kk + 15); vsc points at the thread's BN / 4 columns
+// (2 j + e).
+template <int HD, bool SCALED>
+__device__ __forceinline__ void pack_p(const float (&s)[Geo<HD>::NS], const float* vsc,
+                                       uint32_t (&pa)[Geo<HD>::BN / 16][4]) {
+  constexpr int BN = Geo<HD>::BN;
 #pragma unroll
   for (int kk = 0; kk < BN / 16; ++kk) {
     // columns 16 kk + 2 t4 (+1) (j = 2 kk) and 16 kk + 8 + 2 t4 (+1) (j = 2 kk + 1)
@@ -343,10 +398,18 @@ __device__ __forceinline__ float load_scale(const void* scale, size_t i) {
 }
 
 // Grid (row blocks, Hkv, B), NTHREADS threads: warpgroups 0 .. NCONS - 1
-// consume (64 rows each), warpgroup NCONS produces; BFS: bf16 scales.
-template <int FMT, bool BFS = false>
+// consume (64 rows each), warpgroup NCONS produces; BFS: bf16 scales; HD:
+// the head dim (128: the quantized formats only).
+template <int FMT, bool BFS = false, int HD = 64>
 __global__ void __launch_bounds__(NTHREADS, 1) prefill_sm90_kernel(const __grid_constant__ Args a) {
   constexpr bool INT4 = FMT == kI4, Q8 = FMT != kBF16;
+  static_assert(HD == 64 || Q8, "the bf16 producer writes 64-value rows");
+  using Gm = Geo<HD>;
+  constexpr int BN = Gm::BN, NS = Gm::NS, HALVES = Gm::HALVES, HALF = Gm::HALF;
+  constexpr int I8_TILE = Gm::I8_TILE, BF_TILE = Gm::BF_TILE, BF_OFF = Gm::BF_OFF;
+  constexpr int BF_STAGE = Gm::BF_STAGE, I8_OFF = Gm::I8_OFF, I8_STAGE = Gm::I8_STAGE;
+  constexpr int SC_LD = Gm::SC_LD, SC_FLOATS = Gm::SC_FLOATS;
+  constexpr float kFold = Gm::kFold;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t pad = ((raw + 1023u) & ~1023u) - raw;
@@ -354,7 +417,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) prefill_sm90_kernel(const __grid_
   const uint32_t sbase = raw + pad;
   // i8_full[s] (TMA bytes), bf_full[s] (the producer's 128 threads; bf16:
   // the lead thread, with the TMA bytes), bf_empty[s] (every consumer thread)
-  const uint32_t i8_full = sbase + BAR_OFF<FMT>;
+  const uint32_t i8_full = sbase + Gm::bar_off(FMT);
   const uint32_t bf_full = i8_full + 8 * I8_STAGES;
   const uint32_t bf_empty = bf_full + 8 * BF_STAGES;
 
@@ -478,19 +541,23 @@ __global__ void __launch_bounds__(NTHREADS, 1) prefill_sm90_kernel(const __grid_
     }
     const size_t srow = (((size_t)a.layer * a.B + b) * a.Hkv + h) * a.S;
     const size_t snew = ((size_t)b * a.Hkv + h) * a.T;
-    // the scales of column c0 + p, zero where the block sees nothing
+    // the scales of column c0 + p (threads p < BN), zero where the block
+    // sees nothing
+    const bool scaler = BN == 128 || p < BN;
     auto load_scales = [&](int c0, float& ksv, float& vsv) {
       const int col = c0 + p;
       const bool from_new = fresh && col >= base;
       const size_t kat = from_new ? snew + (col - base) : srow + col;
-      ksv = col < hi ? load_scale<BFS>(from_new ? a.ks_new : a.k_scale, kat) : 0.f;
-      vsv = col < hi ? load_scale<BFS>(from_new ? a.vs_new : a.v_scale, kat) : 0.f;
+      ksv = scaler && col < hi ? load_scale<BFS>(from_new ? a.ks_new : a.k_scale, kat) : 0.f;
+      vsv = scaler && col < hi ? load_scale<BFS>(from_new ? a.vs_new : a.v_scale, kat) : 0.f;
     };
-    // this thread's chunks: 16-byte chunk c16 of rows row0 + 32 k of each
-    // tile, whose bf16 halves land at fixed swizzled offsets
-    const int row0 = p >> 2, c16 = p & 3;
-    const uint32_t lo_off = ((2 * c16) ^ (row0 & 7)) << 4;
-    const uint32_t hi_off = ((2 * c16 + 1) ^ (row0 & 7)) << 4;
+    // this thread's chunks: 16-byte chunk c16 (of CPR a row) of rows row0 +
+    // RSTEP k of each tile, whose two bf16 chunks land at fixed swizzled
+    // offsets of column half c16 / 4
+    constexpr int CPR = HD / 16, RSTEP = 128 / CPR;
+    const int row0 = p / CPR, c16 = p % CPR, hc = c16 & 3;
+    const uint32_t lo_off = (c16 >> 2) * HALF + (((2 * hc) ^ (row0 & 7)) << 4);
+    const uint32_t hi_off = (c16 >> 2) * HALF + (((2 * hc + 1) ^ (row0 & 7)) << 4);
     const int slot = ((p >> 1) & 3) * SC_LD + (p >> 3) * 2 + (p & 1);
     const uint32_t kconst[3] = {0x007F007Fu, 0x00800080u, 0x43004300u};
     float ksv, vsv;
@@ -504,8 +571,9 @@ __global__ void __launch_bounds__(NTHREADS, 1) prefill_sm90_kernel(const __grid_
       mbar_wait(i8_full + 8 * s8, (i / I8_STAGES) & 1);         // the int8 tile landed
       const uint8_t* src = smem + I8_OFF + s8 * I8_STAGE + row0 * HD + c16 * 16;
       uint8_t* dst = smem + BF_OFF + sb * BF_STAGE + row0 * 128;
-      // rows row0 + 32 k of one tile, converted, into its bf16 tile (128
-      // bytes a row, 16-byte chunk c at c ^ row % 8: the 128-byte swizzle)
+      // rows row0 + RSTEP k of one tile, converted, into its bf16 tile
+      // (each half 128 bytes a row, 16-byte chunk c at c ^ row % 8: the
+      // 128-byte swizzle)
       auto put = [&](uint8_t* row, uint4 v) {
         uint4 lo, hi16;
         convert16<INT4>(v, shift, kconst, lo, hi16);
@@ -519,20 +587,22 @@ __global__ void __launch_bounds__(NTHREADS, 1) prefill_sm90_kernel(const __grid_
       for (int kv = 0; kv < 2; ++kv) {
         const uint8_t* fr = (kv ? a.v_new : a.k_new) + h_lane + c16 * 16;
 #pragma unroll
-        for (int k = 0; k < BN / 32; ++k) {
-          uint4 v = *reinterpret_cast<const uint4*>(src + kv * I8_TILE + k * 32 * HD);
+        for (int k = 0; k < BN / RSTEP; ++k) {
+          uint4 v = *reinterpret_cast<const uint4*>(src + kv * I8_TILE + k * RSTEP * HD);
           if (straddle) {
-            const int t = c0 + row0 + 32 * k - base;
+            const int t = c0 + row0 + RSTEP * k - base;
             if (t >= 0)
               v = t < a.T ? __ldg(reinterpret_cast<const uint4*>(fr + ((size_t)b * a.T + t) * a.Kw))
                           : make_uint4(0, 0, 0, 0);
           }
-          put(dst + kv * BF_TILE + k * 32 * 128, v);
+          put(dst + kv * BF_TILE + k * RSTEP * 128, v);
         }
       }
       float* sc = reinterpret_cast<float*>(smem + BF_OFF + sb * BF_STAGE + 2 * BF_TILE);
-      sc[slot] = ksv * kFold;
-      sc[SC_FLOATS + slot] = vsv;
+      if (scaler) {
+        sc[slot] = ksv * kFold;
+        sc[SC_FLOATS + slot] = vsv;
+      }
       ksv = ks_next;
       vsv = vs_next;
       fence_proxy_async();  // the tile's generic writes before wgmma reads them
@@ -547,17 +617,19 @@ __global__ void __launch_bounds__(NTHREADS, 1) prefill_sm90_kernel(const __grid_
     const int tid = threadIdx.x & 127;
     const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
     const int r_wg = r_block + 64 * wg;
-    // Q: this warpgroup's 64 rows into shared memory, 128-byte swizzle
-    uint8_t* qs = smem + Q_OFF + wg * 64 * HD * 2;
-    for (int j = tid; j < 64 * 8; j += 128) {
-      const int rl = j >> 3, c = j & 7, r = r_wg + rl;
+    // Q: this warpgroup's 64 rows into shared memory, 128-byte swizzle, in
+    // column halves of 64 values (16-byte chunk c of a row: half c / 8)
+    uint8_t* qs = smem + Gm::Q_OFF + wg * 64 * HD * 2;
+    for (int j = tid; j < 64 * (HD / 8); j += 128) {
+      const int rl = j / (HD / 8), c = j % (HD / 8), r = r_wg + rl;
       uint4 v = make_uint4(0, 0, 0, 0);
       if (r < GT) {
         const int t = r / G, gq = r % G;
         v = __ldg(reinterpret_cast<const uint4*>(
             a.q + (((size_t)b * a.T + t) * a.Hq + h * G + gq) * HD + c * 8));
       }
-      *reinterpret_cast<uint4*>(qs + rl * 128 + ((c ^ (rl & 7)) << 4)) = v;
+      *reinterpret_cast<uint4*>(qs + (c >> 3) * Gm::Q_HALF + rl * 128 +
+                                (((c & 7) ^ (rl & 7)) << 4)) = v;
     }
     fence_proxy_async();
     asm volatile("bar.sync %0, 128;\n" ::"r"(BAR_Q + wg) : "memory");
@@ -572,23 +644,38 @@ __global__ void __launch_bounds__(NTHREADS, 1) prefill_sm90_kernel(const __grid_
     }
     // a tile ending at or below the first token's limit needs no mask
     const int lim_full = min(base + r_wg / G + 1, a.S);
-    float o[32];
+    float o[HALVES][32];  // dims 64 h + 8 n + 2 t4 + e at o[h][4 n + 2 i + e]
 #pragma unroll
-    for (int n = 0; n < 32; ++n) o[n] = 0.f;
+    for (int hf = 0; hf < HALVES; ++hf)
+#pragma unroll
+      for (int n = 0; n < 32; ++n) o[hf][n] = 0.f;
     float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, corr[2];
     float s[NS];
     uint32_t pa[BN / 16][4];  // P as the P.V product's A fragments
     auto stage = [&](int i) { return sbase + BF_OFF + (i % BF_STAGES) * BF_STAGE; };
+    // k16 step kk reads column half kk / 4 of Q and of K, 32 bytes on per
+    // step inside it
     auto issue_qk = [&](int i) {
       const uint64_t kdesc = smem_desc(stage(i), 16, 1024);
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) wgmma_qk(s, qdesc + 2 * kk, kdesc + 2 * kk, kk);
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const uint64_t qa = qdesc + (kk >> 2) * (Gm::Q_HALF >> 4) + 2 * (kk & 3);
+        const uint64_t kb = kdesc + (kk >> 2) * (HALF >> 4) + 2 * (kk & 3);
+        if constexpr (BN == 128)
+          wgmma_qk(s, qa, kb, kk);
+        else
+          wgmma_qk64(s, qa, kb, kk);
+      }
       wgmma_commit();
     };
+    // each column half of V into its half of O
     auto issue_pv = [&](int i) {
-      const uint64_t vdesc = smem_desc(stage(i) + BF_TILE, 1024, 1024);
 #pragma unroll
-      for (int kk = 0; kk < BN / 16; ++kk) wgmma_pv(o, pa[kk], vdesc + 128 * kk);
+      for (int hf = 0; hf < HALVES; ++hf) {
+        const uint64_t vdesc = smem_desc(stage(i) + BF_TILE + hf * HALF, 1024, 1024);
+#pragma unroll
+        for (int kk = 0; kk < BN / 16; ++kk) wgmma_pv(o[hf], pa[kk], vdesc + 128 * kk);
+      }
       wgmma_commit();
     };
     auto scales = [&](int i) {
@@ -597,9 +684,9 @@ __global__ void __launch_bounds__(NTHREADS, 1) prefill_sm90_kernel(const __grid_
     };
     auto softmax = [&](int i) {
       if (i * BN + BN > lim_full)
-        softmax_tile<true, Q8>(s, scales(i), i * BN, lim, t4, m, l, corr);
+        softmax_tile<HD, true, Q8>(s, scales(i), i * BN, lim, t4, m, l, corr);
       else
-        softmax_tile<false, Q8>(s, scales(i), i * BN, lim, t4, m, l, corr);
+        softmax_tile<HD, false, Q8>(s, scales(i), i * BN, lim, t4, m, l, corr);
     };
     for (int i = 0; i < ntiles; ++i) {
       mbar_wait(bf_full + 8 * (i % BF_STAGES), (i / BF_STAGES) & 1);
@@ -609,17 +696,20 @@ __global__ void __launch_bounds__(NTHREADS, 1) prefill_sm90_kernel(const __grid_
       fence_regs(s);
       softmax(i);
 #pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        o[4 * n] *= corr[0];
-        o[4 * n + 1] *= corr[0];
-        o[4 * n + 2] *= corr[1];
-        o[4 * n + 3] *= corr[1];
-      }
-      pack_p<Q8>(s, scales(i) + SC_FLOATS, pa);
+      for (int hf = 0; hf < HALVES; ++hf)
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          o[hf][4 * n] *= corr[0];
+          o[hf][4 * n + 1] *= corr[0];
+          o[hf][4 * n + 2] *= corr[1];
+          o[hf][4 * n + 3] *= corr[1];
+        }
+      pack_p<HD, Q8>(s, scales(i) + SC_FLOATS, pa);
       wgmma_fence();
       issue_pv(i);
       wgmma_wait<0>();
-      fence_regs(o);
+#pragma unroll
+      for (int hf = 0; hf < HALVES; ++hf) fence_regs(o[hf]);
       mbar_arrive(bf_empty + 8 * (i % BF_STAGES));
     }
 
@@ -633,9 +723,11 @@ __global__ void __launch_bounds__(NTHREADS, 1) prefill_sm90_kernel(const __grid_
       const float inv = 1.f / fmaxf(l[i], 1e-30f);
       __nv_bfloat16* op = a.out + (((size_t)b * a.T + t) * a.Hq + h * G + gq) * HD + 2 * t4;
 #pragma unroll
-      for (int n = 0; n < 8; ++n)
-        *reinterpret_cast<__nv_bfloat162*>(op + 8 * n) =
-            __floats2bfloat162_rn(o[4 * n + 2 * i] * inv, o[4 * n + 2 * i + 1] * inv);
+      for (int hf = 0; hf < HALVES; ++hf)
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+          *reinterpret_cast<__nv_bfloat162*>(op + 64 * hf + 8 * n) =
+              __floats2bfloat162_rn(o[hf][4 * n + 2 * i] * inv, o[hf][4 * n + 2 * i + 1] * inv);
     }
   }
 }
@@ -643,24 +735,28 @@ __global__ void __launch_bounds__(NTHREADS, 1) prefill_sm90_kernel(const __grid_
 // ---- host side ----------------------------------------------------------------
 
 // A map over `planes` planes of `rows` rows of `cols` bytes, box {HD, BN,
-// 1}, encoded once per (pointer, shape).
+// 1} of the instance of head dim HD, encoded once per (pointer, shape) and
+// instance.
+template <int HD>
 static CUresult rows_map(CUtensorMap* map, const void* ptr, int cols, int rows, int planes) {
   return cached_map(map, std::make_tuple(ptr, cols, rows, planes), [&](CUtensorMap* m) {
-    return encode_3d(m, CU_TENSOR_MAP_DATA_TYPE_UINT8, ptr, 1, cols, rows, planes, HD, BN,
-                     CU_TENSOR_MAP_SWIZZLE_NONE);
+    return encode_3d(m, CU_TENSOR_MAP_DATA_TYPE_UINT8, ptr, 1, cols, rows, planes, HD,
+                     Geo<HD>::BN, CU_TENSOR_MAP_SWIZZLE_NONE);
   });
 }
 
-// The same over bf16 values, the 128-byte swizzle the consumers' wgmma reads.
+// The same over bf16 values, the 128-byte swizzle the consumers' wgmma
+// reads (head dim 64: a box is one 128-byte row of 64 values).
+template <int HD>
 static CUresult bf16_rows_map(CUtensorMap* map, const void* ptr, int cols, int rows,
                               int planes) {
   return cached_map(map, std::make_tuple(ptr, cols, rows, planes), [&](CUtensorMap* m) {
-    return encode_3d(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, ptr, 2, cols, rows, planes, HD, BN,
-                     CU_TENSOR_MAP_SWIZZLE_128B);
+    return encode_3d(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, ptr, 2, cols, rows, planes, HD,
+                     Geo<HD>::BN, CU_TENSOR_MAP_SWIZZLE_128B);
   });
 }
 
-template <int FMT, bool BFS = false>
+template <int FMT, bool BFS = false, int HD = 64>
 static int prefill(const void* q, const void* k, const void* v, const void* k_scale,
                    const void* v_scale, const void* k_new, const void* v_new, const void* ks_new,
                    const void* vs_new, const void* base_lens, void* out, int layer, int B, int S,
@@ -670,8 +766,9 @@ static int prefill(const void* q, const void* k, const void* v, const void* k_sc
       T < 1 || layer < 0 || (k_new == nullptr) != (v_new == nullptr) ||
       (Q8 && (k_new == nullptr) != (ks_new == nullptr)))
     return (int)cudaErrorInvalidValue;
+  constexpr int smem = Geo<HD>::smem(FMT);
   static const cudaError_t attr = cudaFuncSetAttribute(
-      prefill_sm90_kernel<FMT, BFS>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM<FMT>);
+      prefill_sm90_kernel<FMT, BFS, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return (int)attr;
   Args a;
   a.Kw = FMT == kI4 ? (Hkv / 2) * HD : Hkv * HD;
@@ -679,7 +776,8 @@ static int prefill(const void* q, const void* k, const void* v, const void* k_sc
   const size_t layer_bytes = (size_t)B * S * a.Kw * elem;
   a.k = static_cast<const uint8_t*>(k) + (size_t)layer * layer_bytes;
   a.v = static_cast<const uint8_t*>(v) + (size_t)layer * layer_bytes;
-  const auto map = Q8 ? rows_map : bf16_rows_map;
+  CUresult (*const map)(CUtensorMap*, const void*, int, int, int) =
+      Q8 ? &rows_map<HD> : &bf16_rows_map<HD>;
   CUresult enc = map(&a.kmap, a.k, a.Kw, S, B);
   if (enc == CUDA_SUCCESS) enc = map(&a.vmap, a.v, a.Kw, S, B);
   if (enc == CUDA_SUCCESS && k_new != nullptr) enc = map(&a.knmap, k_new, a.Kw, T, B);
@@ -703,7 +801,7 @@ static int prefill(const void* q, const void* k, const void* v, const void* k_sc
   a.Hkv = Hkv;
   const int rows = (Hq / Hkv) * T;
   dim3 grid((rows + BM - 1) / BM, Hkv, B);
-  prefill_sm90_kernel<FMT, BFS><<<grid, NTHREADS, SMEM<FMT>, st>>>(a);
+  prefill_sm90_kernel<FMT, BFS, HD><<<grid, NTHREADS, smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -748,6 +846,21 @@ extern "C" int md_prefill_attend_quant4(const void* q, const void* k, const void
   return md::pfa::prefill<md::pfa::kI4>(q, k, v, k_scale, v_scale, k_new, v_new, ks_new, vs_new,
                                         base_lens, out, layer, B, S, T, Hq, Hkv, hd,
                                         static_cast<cudaStream_t>(stream));
+}
+
+// B11 at head dim 128: as md_prefill_attend_quant4, with q [B, T, Hq,
+// 128], k/v [L, B, S, (Hkv/2)*128] and out [B, T, Hq, 128] (f32 scales).
+extern "C" int md_prefill_attend_quant4_hd128(const void* q, const void* k, const void* v,
+                                              const void* k_scale, const void* v_scale,
+                                              const void* k_new, const void* v_new,
+                                              const void* ks_new, const void* vs_new,
+                                              const void* base_lens, void* out, int layer,
+                                              int B, int S, int T, int Hq, int Hkv, int hd,
+                                              void* stream) {
+  return md::pfa::prefill<md::pfa::kI4, false, 128>(q, k, v, k_scale, v_scale, k_new, v_new,
+                                                    ks_new, vs_new, base_lens, out, layer, B, S,
+                                                    T, Hq, Hkv, hd,
+                                                    static_cast<cudaStream_t>(stream));
 }
 
 // K2q and B11 over bf16 scales (k_scale/v_scale and ks_new/vs_new bf16),

@@ -188,7 +188,7 @@ VARIANTS["compute_alone"] = (["decode_attention_sm90.cu"], {"decode_attention_sm
      "")]})
 # four pair blocks an SM (128 registers a thread), the plan's wave to match
 VARIANTS["blocks4"] = (["decode_attention_sm90.cu"], {"decode_attention_sm90.cu": [
-    ("(HEADS == 1 ? 4 : 3)", "(HEADS == 1 ? 4 : 4)")]})
+    ("(QD > 64 ? 2 : HEADS == 1 ? 4 : 3)", "(QD > 64 ? 2 : HEADS == 1 ? 4 : 4)")]})
 # bf16: deeper rings (three or four tiles a warp in flight; the shared
 # memory then holds three or two blocks an SM, as many as the plan aims at)
 for _n in (4, 5):

@@ -1,7 +1,10 @@
-"""Self-speculative decoding engine (counterpart of
-magicdec_tpu/engine/engine.py ``SpecEngine``), with either draft cache of
-the JAX package: StreamingLLM (``mode="streamingllm"``) or SnapKV
-(``mode="snapkv"``).
+"""Speculative decoding engines (counterparts of
+magicdec_tpu/engine/engine.py ``SpecEngine`` and ``LongSpecEngine``).
+``SpecEngine`` speculates with the target's own weights (self-speculation)
+over either draft cache of the JAX package: StreamingLLM
+(``mode="streamingllm"``) or SnapKV (``mode="snapkv"``).
+``LongSpecEngine`` speculates with a standalone, smaller draft model over
+its own cache: full, StreamingLLM or SnapKV-compressed (below).
 
 - ``encode``            StreamingLLM: chunked target prefill, then the
                         draft prefill with sink+window eviction.  SnapKV:
@@ -33,6 +36,17 @@ the same bits at verify and at the autoregressive step, the greedy spec ==
 AR contract (on the H100, cuBLAS's w2 dot at B = 4 and 8 and torch's row
 mean at B = 2 to 8 differ by M otherwise; ``chip_smoke.py`` checks).
 Prefill and draft passes run at the live row count.
+
+``LongSpecEngine`` (standalone-draft speculation): the draft has its own
+config and weights (under ``draft_quant`` its int8 / int4 copy, the tied
+head materialized), its cache ``[L_d, B, S_d, Hkv_d * hd_d]`` in
+``cache_dtype``; every window is the double-buffer window.  Its encode
+follows the JAX package's split encode: full, the target's chunked prefill
+then the draft's over its whole cache (``S_d = max_seq_len``);
+streamingllm, the target's then the draft's sink+window chunks; snapkv,
+draft first (its temporary full cache over the prefix before the window,
+the window chunk collecting its queries, the compression layer by layer,
+the temporary cache freed), then the target's prefill.
 """
 
 from __future__ import annotations
@@ -78,7 +92,7 @@ def weight_quant_bits(draft_quant) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
-    mode: str = "streamingllm"       # "streamingllm" | "snapkv"
+    mode: str = "streamingllm"       # "streamingllm" | "snapkv" | "full" (LongSpecEngine)
     gamma: int = 3
     draft_budget: int = 257          # reference constraint: budget % 128 == 1
     max_seq_len: int = 2048
@@ -107,13 +121,17 @@ class EngineConfig:
 
 
 class SpecEngine:
-    """Self-speculation engine (one weight set, two caches)."""
+    """Self-speculation engine (one weight set, two caches).  ``draft``: a
+    standalone draft's (params, cfg) (``LongSpecEngine``), else the draft
+    shares the target's weights."""
+
+    ALLOWED_MODES = ("streamingllm", "snapkv")
 
     def __init__(self, params, cfg: ModelConfig, ecfg: EngineConfig,
-                 device="cuda"):
+                 device="cuda", *, draft=None):
         self.device = resolve_device(device)
-        if ecfg.mode not in ("streamingllm", "snapkv"):
-            raise ValueError(f"mode must be 'streamingllm' or 'snapkv', got {ecfg.mode!r}")
+        if ecfg.mode not in self.ALLOWED_MODES:
+            raise ValueError(f"mode must be one of {self.ALLOWED_MODES}, got {ecfg.mode!r}")
         if (ecfg.mode == "streamingllm"
                 and ecfg.draft_budget - ecfg.sink_size < ecfg.chunk_size):
             raise ValueError(
@@ -130,19 +148,25 @@ class SpecEngine:
                 f"kv_quant='int4' packs adjacent kv-head pairs and needs an even kv-head "
                 f"count, got {cfg.n_kv_head}")
         wbits = weight_quant_bits(ecfg.draft_quant)
-        if wbits and _has_quantized_layers(params):
+        if wbits and _has_quantized_layers(params if draft is None else draft[0]):
+            whose = ("the draft shares the target's quantized weights" if draft is None
+                     else "the standalone draft's weights are quantized")
             raise ValueError(
-                "draft_quant on quantized target weights: the draft shares the target's "
-                "quantized weights (a quantized copy of a quantized tree is undefined, "
-                "as in the JAX package's bench); build the engine with draft_quant=False")
+                f"draft_quant on quantized weights: {whose} (a quantized copy of a quantized "
+                "tree is undefined, as in the JAX package's bench); build the engine with "
+                "draft_quant=False")
         self.params = _to_device(M.fuse_exec_params(params, cfg), self.device)
-        # the draft's weights: the target's, or an int8 / int4 copy quantized
-        # once on the device, sharing embed, norms and (draft_quant_head=False)
-        # the bf16 head with the target
-        self.draft_params = self.params
+        # the draft's weights: the target's, or a standalone draft's; under
+        # draft_quant an int8 / int4 copy quantized once on the device,
+        # sharing embed, norms and (draft_quant_head=False) the bf16 head with
+        # the weights it copies
+        self.draft_params, self.draft_cfg = self.params, cfg
+        if draft is not None:
+            self.draft_cfg = draft[1]
+            self.draft_params = _to_device(M.fuse_exec_params(draft[0], draft[1]), self.device)
         if wbits:
             self.draft_params = Q.quantize_params(
-                self.params, bits=wbits, include_head=ecfg.draft_quant_head,
+                self.draft_params, bits=wbits, include_head=ecfg.draft_quant_head,
                 materialize_tied_head=ecfg.draft_quant_head)
         self.cfg = cfg
         self.ecfg = ecfg
@@ -152,8 +176,9 @@ class SpecEngine:
 
     # -- allocation -------------------------------------------------------
 
-    def _cache_shape(self, B: int, S: int):
-        c = self.cfg
+    def _cache_shape(self, B: int, S: int, cfg=None):
+        """[L, B, S, Hkv * hd] of the target (or of ``cfg``: the draft's)."""
+        c = cfg or self.cfg
         return (c.n_layer, B, S, c.n_kv_head * c.head_dim)
 
     def _zeros(self, shape):
@@ -186,11 +211,14 @@ class SpecEngine:
             c["table"] = st.table
         return c
 
+    def _zero_draft_caches(self, B: int) -> dict:
+        """{'dk','dv'} [L_d, B, draft cap, Hkv_d * hd_d] in cache_dtype."""
+        shape = self._cache_shape(B, self._draft_cap, self.draft_cfg)
+        return {"dk": self._zeros(shape), "dv": self._zeros(shape)}
+
     def _zero_caches(self, B: int):
         """(target cache dict, draft cache dict)."""
-        shape = self._cache_shape(B, self._draft_cap)
-        return self._zero_target_caches(B), {"dk": self._zeros(shape),
-                                             "dv": self._zeros(shape)}
+        return self._zero_target_caches(B), self._zero_draft_caches(B)
 
     def _check_capacity(self, prefix: int) -> None:
         e = self.ecfg
@@ -209,13 +237,19 @@ class SpecEngine:
     def _target_prefill(self, tokens, caches):
         """Chunked target prefill over tokens [B, P]; returns (lens [B],
         last hidden state [B, D])."""
+        return self._chunked_prefill(self.params, self.cfg, tokens, caches)
+
+    def _chunked_prefill(self, params, cfg, tokens, caches):
+        """Chunked prefill of the model (params, cfg) over tokens [B, P]
+        into caches {'k','v'[,'ks','vs']}: ``prefill_chunk_size`` chunks, the
+        remainder last (the JAX package's chunk boundaries); returns (lens
+        [B], last hidden state [B, D])."""
         B, P = tokens.shape
         Cp = self.ecfg.prefill_chunk_size or self.ecfg.chunk_size
         x_last = None
         for start in range(0, P, Cp):
             lens = torch.full((B,), start, dtype=torch.int32, device=self.device)
-            x, caches = M.forward_target(self.params, self.cfg,
-                                         tokens[:, start:start + Cp], lens, caches,
+            x, caches = M.forward_target(params, cfg, tokens[:, start:start + Cp], lens, caches,
                                          head="none")
             x_last = x[:, -1]
         return torch.full((B,), P, dtype=torch.int32, device=self.device), x_last
@@ -249,19 +283,33 @@ class SpecEngine:
         tcaches, dcaches = self._zero_caches(B)
         lens, x_last = self._target_prefill(tokens, tcaches)
         token0 = self._head_token(x_last)
-        # draft prefill with sink+window eviction, with the draft's weights
-        # (the int8 copy under draft_quant), so decode queries match
-        # prefilled keys
+        draft_fill = self._stream_draft_prefill(tokens, dcaches)
+        return self._fresh_state(tcaches, dcaches, lens, token0, draft_fill, draft_fill.clone())
+
+    def _stream_draft_prefill(self, tokens, dcaches) -> torch.Tensor:
+        """The draft prefill with sink+window eviction, in ``chunk_size``
+        chunks, with the draft's weights (the int8 copy under draft_quant),
+        so decode queries match prefilled keys; returns draft_fill [B]."""
+        e = self.ecfg
+        B, prefix = tokens.shape
         C, fill = e.chunk_size, 0
         for start in range(0, prefix, C):
             chunk = tokens[:, start:start + C]
             _, dcaches = M.forward_streaming_draft_chunk(
-                self.draft_params, self.cfg, chunk, fill, dcaches,
+                self.draft_params, self.draft_cfg, chunk, fill, dcaches,
                 budget=e.draft_budget, sink=e.sink_size)
             fill = min(fill + chunk.shape[1], e.draft_budget)
-        dcaches = M.streaming_finalize_draft(self.cfg, dcaches, budget=e.draft_budget)
-        draft_fill = torch.full((B,), fill, dtype=torch.int32, device=self.device)
-        return self._fresh_state(tcaches, dcaches, lens, token0, draft_fill, draft_fill.clone())
+        M.streaming_finalize_draft(self.draft_cfg, dcaches, budget=e.draft_budget)
+        return torch.full((B,), fill, dtype=torch.int32, device=self.device)
+
+    def _check_snapkv_prefix(self, prefix: int) -> None:
+        e = self.ecfg
+        W = e.window_size
+        if prefix < W or prefix % e.chunk_size != W % e.chunk_size:
+            raise ValueError(
+                f"snapkv prefill requires prefix = window (mod chunk_size): a prefix of "
+                f"{prefix} with window {W} and chunk_size {e.chunk_size} (bench and "
+                f"serving_bench round the prefix to a multiple of 128 plus 32)")
 
     def _encode_snapkv(self, tokens) -> SpecState:
         """SnapKV encode (the JAX package's split encode,
@@ -274,11 +322,7 @@ class SpecEngine:
         e = self.ecfg
         B, prefix = tokens.shape
         W = e.window_size
-        if prefix < W or prefix % e.chunk_size != W % e.chunk_size:
-            raise ValueError(
-                f"snapkv prefill requires prefix = window (mod chunk_size): a prefix of "
-                f"{prefix} with window {W} and chunk_size {e.chunk_size} (bench and "
-                f"serving_bench round the prefix to a multiple of 128 plus 32)")
+        self._check_snapkv_prefix(prefix)
         tcaches, dcaches = self._zero_caches(B)
         lens, _ = self._target_prefill(tokens[:, :prefix - W], tcaches)
         x, tcaches, qs = M.forward_prefill_snapkv_window(
@@ -291,14 +335,15 @@ class SpecEngine:
             torch.full((B,), e.draft_budget, dtype=torch.int32, device=self.device),
             lens.clone())
 
-    def _snapkv_fill_draft(self, tcaches, dcaches, qs, prefix: int) -> None:
+    def _snapkv_fill_draft(self, tcaches, dcaches, qs, prefix: int, cfg=None) -> None:
         """Compress each layer's target cache (window appended) with its
         window queries qs [L, B, W, Hq*hd] into draft slots [0, budget), in
         place: one layer's [B, budget, Kc] draft rows live at a time (the
-        JAX package's ``_snapkv_compress_split``)."""
+        JAX package's ``_snapkv_compress_split``).  ``cfg``: the model whose
+        cache and queries these are (default the target)."""
         from magicdec_tpu_torch.ops.snapkv import snapkv_compress
 
-        e, c = self.ecfg, self.cfg
+        e, c = self.ecfg, cfg or self.cfg
         L, B, W = qs.shape[:3]
         quant = "ks" in tcaches
         for l in range(L):
@@ -388,14 +433,14 @@ class SpecEngine:
         f0 = st.draft_fill
         delta = st.draft_pos - st.draft_fill
         dcaches = {"dk": st.dk, "dv": st.dv}
-        nxt2, dcaches = M.forward_draft(self.draft_params, self.cfg, st.db_tokens, f0,
+        nxt2, dcaches = M.forward_draft(self.draft_params, self.draft_cfg, st.db_tokens, f0,
                                         f0 + delta, dcaches)
         tok = torch.gather(nxt2, 1, (st.db_update - 1)[:, None].long())[:, 0]
         fill = f0 + st.db_update
         drafted = [tok]
         for _ in range(e.gamma - 1):
-            nxt, dcaches = M.forward_draft(self.draft_params, self.cfg, tok[:, None], fill,
-                                           fill + delta, dcaches)
+            nxt, dcaches = M.forward_draft(self.draft_params, self.draft_cfg, tok[:, None],
+                                           fill, fill + delta, dcaches)
             tok = nxt[:, 0]
             drafted.append(tok)
             fill = fill + 1
@@ -420,8 +465,8 @@ class SpecEngine:
         tok, fill, pos = st.token0, f0, st.draft_pos
         drafted = []
         for _ in range(e.gamma):
-            nxt, dcaches = M.forward_draft(self.draft_params, self.cfg, tok[:, None], fill,
-                                           pos, dcaches)
+            nxt, dcaches = M.forward_draft(self.draft_params, self.draft_cfg, tok[:, None],
+                                           fill, pos, dcaches)
             tok = nxt[:, 0]
             drafted.append(tok)
             fill, pos = fill + 1, pos + 1
@@ -462,6 +507,82 @@ class SpecEngine:
         state = dataclasses.replace(state, lens=lens, token0=tok, output=out,
                                     num_committed=n)
         return state, {"output": out, "num_committed": n, "gen_tokens": n - 1}
+
+
+class LongSpecEngine(SpecEngine):
+    """Standalone-draft speculation (the JAX package's ``LongSpecEngine``):
+    a separate, smaller draft model speculates gamma tokens over its own
+    cache, the target verifies gamma + 1 against its full cache.
+
+    ``ecfg.mode`` picks the draft cache: "full" (the draft keeps its whole
+    cache, ``max_seq_len`` rows), "streamingllm" (sink+window, prefilled by
+    eviction) or "snapkv" (compressed from the draft's own full cache at the
+    observation window; real rope positions).  Every mode decodes with the
+    double-buffer window (``_window_streaming``): the draft advances at most
+    gamma a window and the verify does not append to the draft cache.
+    ``draft_quant`` quantizes the draft's own weights (with a tied head
+    materialized as its quantized copy)."""
+
+    ALLOWED_MODES = ("streamingllm", "snapkv", "full")
+
+    def __init__(self, params, cfg: ModelConfig, draft_params, draft_cfg: ModelConfig,
+                 ecfg: EngineConfig, device="cuda"):
+        if draft_cfg.vocab_size != cfg.vocab_size:
+            raise ValueError(f"the draft's vocabulary ({draft_cfg.vocab_size}) differs from the "
+                             f"target's ({cfg.vocab_size})")
+        super().__init__(params, cfg, ecfg, device, draft=(draft_params, draft_cfg))
+        if ecfg.mode == "full":
+            self._draft_cap = ecfg.max_seq_len
+
+    def _window(self):
+        return self._window_streaming
+
+    def encode(self, input_ids) -> SpecState:
+        """Prefill both models' caches from [B, prefix] prompts (the JAX
+        package's split encode, mode by mode); returns the ready state."""
+        e = self.ecfg
+        tokens = self._tokens(input_ids)
+        B, prefix = tokens.shape
+        self._check_capacity(prefix)
+        if e.mode == "snapkv":
+            return self._encode_longspec_snapkv(tokens)
+        tcaches, dcaches = self._zero_caches(B)
+        lens, x_last = self._target_prefill(tokens, tcaches)
+        token0 = self._head_token(x_last)
+        if e.mode == "full":
+            draft_fill, _ = self._chunked_prefill(self.draft_params, self.draft_cfg, tokens,
+                                                  {"k": dcaches["dk"], "v": dcaches["dv"]})
+        else:
+            draft_fill = self._stream_draft_prefill(tokens, dcaches)
+        return self._fresh_state(tcaches, dcaches, lens, token0, draft_fill, draft_fill.clone())
+
+    def _encode_longspec_snapkv(self, tokens) -> SpecState:
+        """SnapKV with a standalone draft, draft first (the JAX package's
+        ``_encode_split``): the draft's temporary full cache over the prefix
+        before the observation window (``prefill_chunk_size`` chunks), the
+        window chunk collecting its queries, the compression layer by layer
+        into draft slots [0, budget), the temporary cache freed before the
+        target's cache exists; then the target's prefill of the whole
+        prefix.  draft_fill = budget, draft_pos = the prefix."""
+        e, dcfg = self.ecfg, self.draft_cfg
+        B, prefix = tokens.shape
+        W = e.window_size
+        self._check_snapkv_prefix(prefix)
+        shape = self._cache_shape(B, _round_up(prefix, e.chunk_size), dcfg)
+        full = {"k": self._zeros(shape), "v": self._zeros(shape)}
+        flens, _ = self._chunked_prefill(self.draft_params, dcfg, tokens[:, :prefix - W], full)
+        _, full, qs = M.forward_prefill_snapkv_window(self.draft_params, dcfg,
+                                                      tokens[:, prefix - W:], flens, full)
+        dcaches = self._zero_draft_caches(B)
+        self._snapkv_fill_draft(full, dcaches, qs, prefix, dcfg)
+        del full, qs
+        tcaches = self._zero_target_caches(B)
+        lens, x_last = self._target_prefill(tokens, tcaches)
+        token0 = self._head_token(x_last)
+        return self._fresh_state(
+            tcaches, dcaches, lens, token0,
+            torch.full((B,), e.draft_budget, dtype=torch.int32, device=self.device),
+            lens.clone())
 
 
 def _has_quantized_layers(params) -> bool:

@@ -86,7 +86,7 @@ def time_phases_config(engine, B: int, ctx: int, iters: int = 20) -> Dict[str, f
     if bits:
         sshape = (cfg.n_layer, B, cfg.n_kv_head, e.max_seq_len)
         tshapes.update(ks=(sshape, e.kv_scale_dtype), vs=(sshape, e.kv_scale_dtype))
-    dshape = engine._cache_shape(B, engine._draft_cap)
+    dshape = engine._cache_shape(B, engine._draft_cap, engine.draft_cfg)
     dshapes = {"dk": (dshape, e.cache_dtype), "dv": (dshape, e.cache_dtype)}
     dev = engine.device
     lens = torch.full((B,), ctx, dtype=torch.int32, device=dev)
@@ -121,7 +121,7 @@ def _time_phases_impl(engine, B, lens, dfill, dpos, tshapes, dshapes,
 
     def draft_step(st, dparams):
         tok, fill, pos, caches = st
-        nxt, caches = M.forward_draft(dparams, engine.cfg, tok, fill, pos, caches)
+        nxt, caches = M.forward_draft(dparams, engine.draft_cfg, tok, fill, pos, caches)
         return nxt, fill + 1, pos + 1, caches
 
     def verify_step(st, params):

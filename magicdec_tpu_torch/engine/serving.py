@@ -17,9 +17,11 @@ the KV ``PageAllocator`` of ``magicdec_tpu_torch/native.py``.
 its capacity is B x max_seq_len.  ``PagedServingEngine`` keeps the target
 cache in a shared page pool read through per-slot page tables (the paged
 decode and append kernels, ``kernels/paged_attention.py``), so its capacity
-is the sum of the admitted requests' lengths.  Both greedy; sampled serving
-is ROADMAP item A10, the standalone-draft engines A9, a data axis of page
-groups A15.
+is the sum of the admitted requests' lengths.  ``ServingLongSpecEngine``
+and ``PagedServingLongSpecEngine`` serve with a standalone draft model
+(``LongSpecEngine``'s encode and window; its draft cache stays contiguous a
+slot, as in the JAX package).  All greedy; sampled serving is ROADMAP item
+A10, a data axis of page groups A15.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ import numpy as np
 import torch
 
 from magicdec_tpu_torch import native
-from magicdec_tpu_torch.engine.engine import SpecEngine
+from magicdec_tpu_torch.engine.engine import LongSpecEngine, SpecEngine
 from magicdec_tpu_torch.engine.state import ServingState, SpecState
 from magicdec_tpu_torch.ops import paged_kv as PKV
 
@@ -274,10 +276,8 @@ class PagedServingEngine(ServingEngine):
             tcaches.update({n: PKV.alloc_scale_pool(c.n_layer, P, c.n_kv_head, ps,
                                                     e.kv_scale_dtype, self.device)
                             for n in ("ks", "vs")})
-        shape = self._cache_shape(B, self._draft_cap)
-        dcaches = {"dk": self._zeros(shape), "dv": self._zeros(shape)}
         table = self._scratch_rows(torch.arange(B, device=self.device))
-        return self._empty_state(tcaches, dcaches, B, table=table)
+        return self._empty_state(tcaches, self._zero_draft_caches(B), B, table=table)
 
     def _scratch_rows(self, slots: torch.Tensor) -> torch.Tensor:
         """Table rows [k, npr] pointing every logical page of ``slots`` at
@@ -328,3 +328,16 @@ class PagedServingEngine(ServingEngine):
         sst = super()._drain(sst, idx)
         table = sst.spec.table.index_copy(0, idx, self._scratch_rows(idx))
         return dataclasses.replace(sst, spec=dataclasses.replace(sst.spec, table=table))
+
+
+class ServingLongSpecEngine(ServingEngine, LongSpecEngine):
+    """Continuous-batching serving with a standalone draft model (the JAX
+    package's ``ServingLongSpecEngine``): the per-request lifecycle of
+    ``ServingEngine``, the draft model, its encode per draft-cache mode
+    (full, streamingllm, snapkv) and its window of ``LongSpecEngine``."""
+
+
+class PagedServingLongSpecEngine(PagedServingEngine, LongSpecEngine):
+    """``ServingLongSpecEngine`` over the target's page pool (the JAX
+    package's ``PagedServingLongSpecEngine``): the pool and page tables of
+    ``PagedServingEngine``; the draft's cache stays contiguous a slot."""

@@ -64,6 +64,10 @@ SIGNATURES.update({name + "_bf16s": SIGNATURES[name] for name in (
     "md_decode_attend_quant", "md_decode_attend_quant4", "md_paged_decode_attend_quant",
     "md_paged_decode_attend_quant4", "md_prefill_attend_quant", "md_prefill_attend_quant4",
     "md_append_rows_quant", "md_append_scale_cols", "md_append_paged_rows_quant")})
+# the head-dim-128 instances (B10, B11, B12's int4 pool) take the head-dim-64
+# ones' arguments
+SIGNATURES.update({name + "_hd128": SIGNATURES[name] for name in (
+    "md_decode_attend_quant4", "md_prefill_attend_quant4", "md_paged_decode_attend_quant4")})
 
 _lock = threading.Lock()
 _lib = None

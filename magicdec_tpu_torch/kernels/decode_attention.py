@@ -16,15 +16,18 @@ int8 rows halve them, int4 rows quarter them).  All run one kernel,
 several blocks; a second pass merges their softmax partials — see the
 source for the design.  K1 splits by ``split_plan`` (a block a kv head,
 three blocks an SM at most), K1q and B10 by ``quant_split_plan`` (a block a
-pair of kv heads, or one int8 head when Hkv is odd, one wave).
+pair of kv heads, or one int8 head when Hkv is odd, one wave).  Every kernel
+takes head dim 64; B10 also 128 (its ``_hd128`` instance, f32 scales: the
+8B target's int4 cache); any other head dim raises before a launch
+(``kernels.head_dim_entry``).
 """
 
 from __future__ import annotations
 
 import torch
 
-from magicdec_tpu_torch.kernels import (count_launch, on_cpu, ptr, require, require_bf16,
-                                        scale_entry)
+from magicdec_tpu_torch.kernels import (count_launch, head_dim_entry, on_cpu, ptr, require,
+                                        require_bf16, scale_entry)
 from magicdec_tpu_torch.ops.attention import attend
 from magicdec_tpu_torch.ops.kv_cache import (append_rows_all_layers,
                                              append_scale_rows_all_layers, dequant_kv)
@@ -40,12 +43,15 @@ from magicdec_tpu_torch.ops.kv_cache import (append_rows_all_layers,
 # `decode_variants --blocks`).
 PLAN_ROUND = 64
 PLAN_BLOCKS = 3 * 132
+# the head-dim-128 quantized instance holds two pair blocks an SM (its
+# registers: the output of two heads), so its plan aims at two an SM
+PLAN_BLOCKS_HD128 = 2 * 132
 
 
-def _plan(blocks: int, S: int):
+def _plan(blocks: int, S: int, plan_blocks: int = PLAN_BLOCKS):
     """(nsplit, chunk) of `blocks` blocks a split over S positions."""
     rounds = -(-S // PLAN_ROUND)
-    nsplit = max(1, min(rounds, PLAN_BLOCKS // blocks))
+    nsplit = max(1, min(rounds, plan_blocks // blocks))
     chunk = -(-rounds // nsplit) * PLAN_ROUND
     return -(-S // chunk), chunk
 
@@ -66,11 +72,12 @@ def quant_heads(Hkv: int) -> int:
     return 2 if Hkv % 2 == 0 else 1
 
 
-def quant_split_plan(B: int, Hkv: int, S: int):
+def quant_split_plan(B: int, Hkv: int, S: int, hd: int = 64):
     """(nsplit, chunk) of K1q and B10: KV splits per (request, block of
     kv heads) and positions per split, fixed from static shapes as
-    ``split_plan``'s."""
-    return _plan(B * (Hkv // quant_heads(Hkv)), S)
+    ``split_plan``'s (the head dim: two blocks an SM at 128)."""
+    return _plan(B * (Hkv // quant_heads(Hkv)), S,
+                 PLAN_BLOCKS_HD128 if hd == 128 else PLAN_BLOCKS)
 
 
 def rows_pad(rows: int) -> int:
@@ -88,7 +95,7 @@ def split_buffers(q, Hkv: int, S: int, quant: bool = False):
     ``quant_split_plan``) and, with more than one split, the f32 partials
     the combine pass merges (None otherwise)."""
     B, T, Hq, hd = q.shape
-    nsplit, chunk = quant_split_plan(B, Hkv, S) if quant else split_plan(B, Hkv, S)
+    nsplit, chunk = quant_split_plan(B, Hkv, S, hd) if quant else split_plan(B, Hkv, S)
     if nsplit == 1:
         return nsplit, chunk, None, None
     R = rows_pad(Hq // Hkv * T)
@@ -137,6 +144,7 @@ def flash_decode_attend(q, k_cache, v_cache, base_lens, *, layer=0,
     from magicdec_tpu_torch.kernels import build
 
     B, T, Hq, hd = q.shape
+    entry = head_dim_entry("md_decode_attend", hd)
     L, Bc, S, K = k_cache.shape
     Hkv = K // hd
     require(Bc == B and Hkv * hd == K and Hq % Hkv == 0, "shape mismatch")
@@ -152,11 +160,11 @@ def flash_decode_attend(q, k_cache, v_cache, base_lens, *, layer=0,
     lens = base_lens.to(torch.int32).contiguous()
     out = torch.empty_like(q)
     nsplit, chunk, part_o, part_ml = split_buffers(q, Hkv, S)
-    err = build.library().md_decode_attend(
+    err = getattr(build.library(), entry)(
         ptr(q), ptr(k_cache), ptr(v_cache), ptr(k_new), ptr(v_new), ptr(lens), ptr(out),
         ptr(part_o), ptr(part_ml), layer, B, S, T, Hq, Hkv, hd, nsplit, chunk,
         build.stream_ptr(q))
-    build.check(err, "md_decode_attend")
+    build.check(err, entry)
     flash_decode_attend.launches += 1
     return out
 
@@ -234,8 +242,9 @@ def quant_fresh_operands(B, T, Hkv, K, k_new, v_new, ks_new, vs_new):
 def _launch_decode_quant(entry, q, k_cache, k_scale, v_cache, v_scale, base_lens, layer,
                          fresh, packed):
     """One launch of K1q (``md_decode_attend_quant``) or B10
-    (``md_decode_attend_quant4``), or their bf16-scale instances; returns
-    the output and the entry point launched."""
+    (``md_decode_attend_quant4``), or their bf16-scale instances (B10 at
+    head dim 128: ``_hd128``); returns the output and the entry point
+    launched."""
     from magicdec_tpu_torch.kernels import build
 
     B, T, Hq, hd = q.shape
@@ -243,7 +252,7 @@ def _launch_decode_quant(entry, q, k_cache, k_scale, v_cache, v_scale, base_lens
     require(0 <= layer < L and 1 <= T <= 16, "bad layer or window length")
     Hkv, (k_new, v_new, ks_new, vs_new) = check_quant_operands(
         q, k_cache, k_scale, v_cache, v_scale, *fresh, packed=packed)
-    entry = scale_entry(entry, k_scale, v_scale, ks_new, vs_new)
+    entry = head_dim_entry(scale_entry(entry, k_scale, v_scale, ks_new, vs_new), hd)
     q = q.contiguous()
     lens = base_lens.to(torch.int32).contiguous()
     out = torch.empty_like(q)
@@ -294,7 +303,8 @@ def flash_decode_attend_quant4(q, k_cache, k_scale, v_cache, v_scale, base_lens,
     q [B, T, Hq, hd] bf16 (T <= 16); k_cache/v_cache int8 [L, B, S,
     (Hkv//2)*hd]; k_scale/v_scale f32 or bf16 [L, B, Hkv, S]; base_lens [B]
     int32; k_new/v_new packed int8 [B, T, (Hkv//2)*hd] with ks_new/vs_new
-    [B, Hkv, T].  Returns [B, T, Hq, hd] in q.dtype.
+    [B, Hkv, T].  Returns [B, T, Hq, hd] in q.dtype.  hd is 64, or 128 on
+    f32 scales (the ``_hd128`` instance, counted in ``hd128_launches``).
     """
     if on_cpu(q, k_cache, k_scale, v_cache, v_scale, base_lens, k_new, v_new, ks_new,
               vs_new):
@@ -310,3 +320,4 @@ def flash_decode_attend_quant4(q, k_cache, k_scale, v_cache, v_scale, base_lens,
 
 flash_decode_attend_quant4.launches = 0
 flash_decode_attend_quant4.bf16_scale_launches = 0
+flash_decode_attend_quant4.hd128_launches = 0

@@ -20,8 +20,8 @@ from __future__ import annotations
 
 import torch
 
-from magicdec_tpu_torch.kernels import (count_launch, on_cpu, ptr, require, require_bf16,
-                                        scale_entry)
+from magicdec_tpu_torch.kernels import (count_launch, head_dim_entry, on_cpu, ptr, require,
+                                        require_bf16, scale_entry)
 from magicdec_tpu_torch.kernels import decode_attention as DA
 from magicdec_tpu_torch.ops.paged_kv import (append_paged_rows_all_layers,
                                              append_paged_scale_rows_all_layers, pool_gather,
@@ -78,6 +78,7 @@ def flash_paged_decode_attend(q, k_pool, v_pool, table, base_lens, *, layer=0, k
     from magicdec_tpu_torch.kernels import build
 
     B, T, Hq, hd = q.shape
+    entry = head_dim_entry("md_paged_decode_attend", hd)
     L, P, ps, K = k_pool.shape
     Hkv = K // hd
     _check_table(table, B, P)
@@ -94,11 +95,11 @@ def flash_paged_decode_attend(q, k_pool, v_pool, table, base_lens, *, layer=0, k
     lens = base_lens.to(torch.int32).contiguous()
     out = torch.empty_like(q)
     nsplit, chunk, part_o, part_ml = DA.split_buffers(q, Hkv, npr * ps)
-    err = build.library().md_paged_decode_attend(
+    err = getattr(build.library(), entry)(
         ptr(q), ptr(k_pool), ptr(v_pool), ptr(table), ptr(k_new), ptr(v_new), ptr(lens),
         ptr(out), ptr(part_o), ptr(part_ml), layer, B, P, ps, npr, T, Hq, Hkv, hd, nsplit,
         chunk, build.stream_ptr(q))
-    build.check(err, "md_paged_decode_attend")
+    build.check(err, entry)
     flash_paged_decode_attend.launches += 1
     return out
 
@@ -130,7 +131,7 @@ def _launch_paged_quant(entry, q, k_pool, k_scale, v_pool, v_scale, table, base_
             "pools must be contiguous")
     require_bf16(q)
     k_new, v_new, ks_new, vs_new = DA.quant_fresh_operands(B, T, Hkv, Kc, *fresh)
-    entry = scale_entry(entry, k_scale, v_scale, ks_new, vs_new)
+    entry = head_dim_entry(scale_entry(entry, k_scale, v_scale, ks_new, vs_new), hd)
     q = q.contiguous()
     lens = base_lens.to(torch.int32).contiguous()
     out = torch.empty_like(q)
@@ -171,7 +172,8 @@ def flash_paged_decode_attend_quant4(q, k_pool, k_scale, v_pool, v_scale, table,
                                      vs_new=None):
     """B12 over an int4 pool packed in head pairs: pools int8 [L, P, ps,
     (Hkv//2)*hd], scale pools f32 or bf16 [L, P, Hkv, ps] (Hkv from the scales);
-    fresh rows packed [B, T, (Hkv//2)*hd] with scales [B, Hkv, T]."""
+    fresh rows packed [B, T, (Hkv//2)*hd] with scales [B, Hkv, T].  hd is
+    64, or 128 on f32 scales (``hd128_launches``)."""
     fresh = (k_new, v_new, ks_new, vs_new)
     if on_cpu(q, k_pool, k_scale, v_pool, v_scale, table, base_lens, *fresh):
         return flash_paged_decode_attend_quant4_plain(
@@ -186,6 +188,7 @@ def flash_paged_decode_attend_quant4(q, k_pool, k_scale, v_pool, v_scale, table,
 
 flash_paged_decode_attend_quant4.launches = 0
 flash_paged_decode_attend_quant4.bf16_scale_launches = 0
+flash_paged_decode_attend_quant4.hd128_launches = 0
 
 
 def append_paged_rows_inplace_plain(pool_k, pool_v, rows_k, rows_v, write_pos, table,

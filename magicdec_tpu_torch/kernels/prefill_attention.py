@@ -14,15 +14,18 @@ rows by TMA into an mbarrier ring, three consumer warpgroups running the
 softmax, and a producer warpgroup that issues the loads and, for the
 quantized formats, converts int8 (int4) tiles to bf16; for bf16 it writes
 by hand only the tiles whose rows past the visible end must read as zeros
-— see the source for the design.
+— see the source for the design.  Every kernel takes head dim 64; B11 also
+128 (its ``_hd128`` instance, f32 scales: 64-position tiles, each bf16 row
+in two 64-value swizzled halves); any other head dim raises before a launch
+(``kernels.head_dim_entry``).
 """
 
 from __future__ import annotations
 
 import torch
 
-from magicdec_tpu_torch.kernels import (count_launch, on_cpu, ptr, require, require_bf16,
-                                        scale_entry)
+from magicdec_tpu_torch.kernels import (count_launch, head_dim_entry, on_cpu, ptr, require,
+                                        require_bf16, scale_entry)
 from magicdec_tpu_torch.kernels.decode_attention import (check_quant_operands,
                                                          visible_layer_quant)
 from magicdec_tpu_torch.ops.attention import attend, attend_quant
@@ -64,6 +67,7 @@ def flash_prefill_attend(q, k_cache, v_cache, base_lens, *, layer=0,
     from magicdec_tpu_torch.kernels import build
 
     B, C, Hq, hd = q.shape
+    entry = head_dim_entry("md_prefill_attend", hd)
     L, Bc, S, K = k_cache.shape
     Hkv = K // hd
     require(Bc == B and Hkv * hd == K and Hq % Hkv == 0, "shape mismatch")
@@ -76,10 +80,10 @@ def flash_prefill_attend(q, k_cache, v_cache, base_lens, *, layer=0,
     require_bf16(q, k_cache, v_cache)
     lens = base_lens.to(torch.int32).contiguous()
     out = torch.empty_like(q)
-    err = build.library().md_prefill_attend(
+    err = getattr(build.library(), entry)(
         ptr(q), ptr(k_cache), ptr(v_cache), ptr(k_new), ptr(v_new), ptr(lens), ptr(out),
         layer, B, S, C, Hq, Hkv, hd, build.stream_ptr(q))
-    build.check(err, "md_prefill_attend")
+    build.check(err, entry)
     flash_prefill_attend.launches += 1
     return out
 
@@ -110,9 +114,9 @@ def flash_prefill_attend_quant_plain(q, k_cache, k_scale, v_cache, v_scale, base
 def _launch_prefill_quant(entry, q, k_cache, k_scale, v_cache, v_scale, base_lens, layer,
                           fresh, packed):
     """One launch of K2q (``md_prefill_attend_quant``) or B11
-    (``md_prefill_attend_quant4``), or their bf16-scale instances; returns
-    the output and the entry point launched (a failed tensor-map encode
-    raises)."""
+    (``md_prefill_attend_quant4``), or their bf16-scale instances (B11 at
+    head dim 128: ``_hd128``); returns the output and the entry point
+    launched (a failed tensor-map encode raises)."""
     from magicdec_tpu_torch.kernels import build
 
     B, C, Hq, hd = q.shape
@@ -120,7 +124,7 @@ def _launch_prefill_quant(entry, q, k_cache, k_scale, v_cache, v_scale, base_len
     require(0 <= layer < L, "bad layer")
     Hkv, (k_new, v_new, ks_new, vs_new) = check_quant_operands(
         q, k_cache, k_scale, v_cache, v_scale, *fresh, packed=packed)
-    entry = scale_entry(entry, k_scale, v_scale, ks_new, vs_new)
+    entry = head_dim_entry(scale_entry(entry, k_scale, v_scale, ks_new, vs_new), hd)
     q = q.contiguous()
     lens = base_lens.to(torch.int32).contiguous()
     out = torch.empty_like(q)
@@ -166,7 +170,8 @@ def flash_prefill_attend_quant4(q, k_cache, k_scale, v_cache, v_scale, base_lens
                                 layer=0, k_new=None, v_new=None, ks_new=None, vs_new=None):
     """B11: ``flash_prefill_attend_quant`` over an int4 cache packed in head
     pairs: k_cache/v_cache int8 [L, B, S, (Hkv//2)*hd], k_new/v_new packed
-    int8 [B, C, (Hkv//2)*hd]; the rest as ``flash_prefill_attend_quant``."""
+    int8 [B, C, (Hkv//2)*hd]; the rest as ``flash_prefill_attend_quant``.
+    hd is 64, or 128 on f32 scales (``hd128_launches``)."""
     if on_cpu(q, k_cache, k_scale, v_cache, v_scale, base_lens, k_new, v_new, ks_new,
               vs_new):
         return flash_prefill_attend_quant4_plain(
@@ -181,3 +186,4 @@ def flash_prefill_attend_quant4(q, k_cache, k_scale, v_cache, v_scale, base_lens
 
 flash_prefill_attend_quant4.launches = 0
 flash_prefill_attend_quant4.bf16_scale_launches = 0
+flash_prefill_attend_quant4.hd128_launches = 0

@@ -51,7 +51,7 @@ _NO_PRODUCER_WORK = [
     ("      if (p == 0 && i + I8_STAGES < ntiles) issue(i + I8_STAGES);\n", ""),
     ("      mbar_wait(i8_full + 8 * s8, (i / I8_STAGES) & 1);         // the int8 tile landed\n",
      ""),
-    ("          put(dst + kv * BF_TILE + k * 32 * 128, v);\n", ""),
+    ("          put(dst + kv * BF_TILE + k * RSTEP * 128, v);\n", ""),
 ]
 
 # name -> [(old text, new text), ...], applied to the source in order
@@ -73,17 +73,20 @@ VARIANTS = {
       fence_regs(s);
       softmax(i);
 #pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        o[4 * n] *= corr[0];
-        o[4 * n + 1] *= corr[0];
-        o[4 * n + 2] *= corr[1];
-        o[4 * n + 3] *= corr[1];
-      }
-      pack_p<Q8>(s, scales(i) + SC_FLOATS, pa);
+      for (int hf = 0; hf < HALVES; ++hf)
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          o[hf][4 * n] *= corr[0];
+          o[hf][4 * n + 1] *= corr[0];
+          o[hf][4 * n + 2] *= corr[1];
+          o[hf][4 * n + 3] *= corr[1];
+        }
+      pack_p<HD, Q8>(s, scales(i) + SC_FLOATS, pa);
       wgmma_fence();
       issue_pv(i);
       wgmma_wait<0>();
-      fence_regs(o);
+#pragma unroll
+      for (int hf = 0; hf < HALVES; ++hf) fence_regs(o[hf]);
       mbar_arrive(bf_empty + 8 * (i % BF_STAGES));
     }
 """, """    mbar_wait(bf_full, 0);
@@ -92,7 +95,7 @@ VARIANTS = {
     wgmma_wait<0>();
     fence_regs(s);
     softmax(0);
-    pack_p<Q8>(s, scales(0) + SC_FLOATS, pa);
+    pack_p<HD, Q8>(s, scales(0) + SC_FLOATS, pa);
     for (int i = 1; i < ntiles; ++i) {
       mbar_wait(bf_full + 8 * (i % BF_STAGES), (i / BF_STAGES) & 1);
       wgmma_fence();
@@ -102,21 +105,25 @@ VARIANTS = {
       fence_regs(s);
       softmax(i);
       wgmma_wait<0>();
-      fence_regs(o);
+#pragma unroll
+      for (int hf = 0; hf < HALVES; ++hf) fence_regs(o[hf]);
       mbar_arrive(bf_empty + 8 * ((i - 1) % BF_STAGES));
 #pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        o[4 * n] *= corr[0];
-        o[4 * n + 1] *= corr[0];
-        o[4 * n + 2] *= corr[1];
-        o[4 * n + 3] *= corr[1];
-      }
-      pack_p<Q8>(s, scales(i) + SC_FLOATS, pa);
+      for (int hf = 0; hf < HALVES; ++hf)
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          o[hf][4 * n] *= corr[0];
+          o[hf][4 * n + 1] *= corr[0];
+          o[hf][4 * n + 2] *= corr[1];
+          o[hf][4 * n + 3] *= corr[1];
+        }
+      pack_p<HD, Q8>(s, scales(i) + SC_FLOATS, pa);
     }
     wgmma_fence();
     issue_pv(ntiles - 1);
     wgmma_wait<0>();
-    fence_regs(o);
+#pragma unroll
+    for (int hf = 0; hf < HALVES; ++hf) fence_regs(o[hf]);
     mbar_arrive(bf_empty + 8 * ((ntiles - 1) % BF_STAGES));
 """),
     ],

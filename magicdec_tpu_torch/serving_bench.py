@@ -10,7 +10,10 @@ as the JAX benchmark does; ``--ragged`` lengths then break SnapKV's shape
 contract and the encode raises, as the JAX package's asserts); finished
 slots are recycled with freshly prefilled queued prompts
 (``engine/serving.py``; ``--paged``: over a shared KV page pool,
-``PagedServingEngine``).  Same flags, defaults and JSON line
+``PagedServingEngine``; ``--draft_model`` or ``--mode full``: a standalone
+draft, ``ServingLongSpecEngine`` / ``PagedServingLongSpecEngine``, whose
+weights load as ``--model``'s do, ``--model``'s own when no draft is
+named).  Same flags, defaults and JSON line
 as ``benchmarks/serving_benchmark.py``, with ``_torch`` appended to the
 metric, except that ``--attn_backend`` defaults to ``flash`` (the port runs
 its Hopper kernels only; ``jnp`` raises) and ``--device`` picks the device
@@ -129,8 +132,6 @@ def parse_args(argv=None):
 
 
 def _not_ported(args):
-    if args.mode == "full" or args.draft_model:
-        return "a standalone draft (--mode full, --draft_model) is ROADMAP item A9"
     if args.temperature > 0:
         return "sampled serving (--temperature > 0) is ROADMAP item A10"
     if args.data_parallel * args.model_parallel > 1 or args.force_mesh:
@@ -183,16 +184,23 @@ def setup(args):
 
     from magicdec_tpu_torch import quantization as Q
     from magicdec_tpu_torch.engine.engine import EngineConfig
-    from magicdec_tpu_torch.engine.serving import PagedServingEngine, ServingEngine
+    from magicdec_tpu_torch.engine.serving import (PagedServingEngine,
+                                                   PagedServingLongSpecEngine, ServingEngine,
+                                                   ServingLongSpecEngine)
     from magicdec_tpu_torch.models.llama import fuse_exec_params
 
     dev = resolve_device(args.device)
     params, cfg = load_params_and_config(args.model, dev)
     params = fuse_exec_params(params, cfg)
-    if args.draft_quant and any(Q.is_quantized(w) for w in params["layers"].values()):
-        # the draft shares the quantized target weights, as bench --quantize
-        print(f"[serving] {args.model}: the draft shares the quantized target weights "
-              "(draft_quant disabled)", file=sys.stderr)
+    draft = None
+    if args.draft_model or args.mode == "full":
+        # a standalone draft, as benchmarks/serving_benchmark.py:83-86 builds it
+        draft = load_params_and_config(args.draft_model or args.model, dev)
+    drafted = params if draft is None else draft[0]
+    if args.draft_quant and any(Q.is_quantized(w) for w in drafted["layers"].values()):
+        # the draft runs these quantized weights, as bench --quantize
+        print(f"[serving] {args.draft_model or args.model}: the draft runs its quantized "
+              "weights (draft_quant disabled)", file=sys.stderr)
         args.draft_quant = None
     prefix = args.prefix_len
     ecfg = EngineConfig(
@@ -205,8 +213,13 @@ def setup(args):
         kv_scale_dtype=torch.bfloat16 if args.kv_scale == "bf16" else torch.float32,
         draft_quant=args.draft_quant or False,
         draft_quant_head=args.draft_head == "quant")
-    engine = (PagedServingEngine if args.paged else ServingEngine)(params, cfg, ecfg,
-                                                                   device=dev)
+    if draft is not None:
+        cls = PagedServingLongSpecEngine if args.paged else ServingLongSpecEngine
+        engine = cls(params, cfg, *draft, ecfg, device=dev)
+        del draft, drafted
+    else:
+        engine = (PagedServingEngine if args.paged else ServingEngine)(params, cfg, ecfg,
+                                                                       device=dev)
     data = synthetic_long_context_dataset(prefix, num_seqs=max(args.B * 2, 16),
                                           vocab_size=cfg.vocab_size, seed=args.seed)
     lens = [prefix] * args.num_requests

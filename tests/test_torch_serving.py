@@ -149,7 +149,10 @@ def test_synthetic_dataset_matches_jax():
 
 
 @pytest.mark.parametrize("argv", [
-    ["--mode", "full"], ["--draft_model", "x"],
+    # a standalone draft is served now (tests/test_torch_longspec_serving.py);
+    # these two cases keep its flags with a path that still raises
+    pytest.param(["--mode", "full", "--temperature", "0.8"], id="mode_full"),
+    pytest.param(["--draft_model", "x", "--model_parallel", "2"], id="draft_model_x"),
     ["--temperature", "0.8"], ["--model_parallel", "2"], ["--attn_backend", "jnp"],
 ], ids=lambda a: "_".join(a).strip("-"))
 def test_serving_bench_paths_not_ported_raise(argv):
