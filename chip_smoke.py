@@ -12,8 +12,9 @@ of which raises on failure:
    instance), B15's dense_matmul_fused, K2/K2q/B11 and the decode
    kernel's instances (K1 and B12-bf16 with one to three row tiles a warp,
    K1q, B10, B12's int8/int4 pools; the template arguments are the format
-   (0 int8, 1 int4, 2 bf16), the kv heads a block, the row tiles a warp and
-   paged);
+   (0 int8, 1 int4, 2 bf16), the kv heads a block, the row tiles a warp,
+   paged, bf16 scales and the head dim), the head-dim-128 ones from
+   ``csrc/*_hd128_sm90.cu`` (built beside the others, one nvcc a source);
 3. kernel phase: each Hopper kernel against its plain PyTorch version at the
    shapes of the bench's main path (llama-3.2-1b widths, B=32, target cache
    8704 rows in bf16 and in int8 with f32 scales quantized from the same
@@ -56,7 +57,10 @@ of which raises on failure:
    M = 32 and 64 (B9 at 256), and the quantized target's shapes at its
    decode_rows M = 128 (B4 wqkv + norm and wo + residual, B9, B6 on the
    head and on the tied ``quantize_embed`` table through
-   ``quantization.quant_matmul``), each timed over 16 layers' weights in turn
+   ``quantization.quant_matmul``), and B4 (all three), B5 and B6 again at
+   llama-3.1-8b widths (path (20)'s draft copy: D 4096, F 14336, wqkv 4096
+   -> 6144, the head 4096 -> 128256) at M = 32 and 64, each timed over 16
+   layers' weights in turn (4 at 8B)
    (B4, B5, B6 and B9 also under torch.profiler, which must see one kernel
    launch a call: B5's ``ffn_sm90_kernel``, B9's ``ffn_wg_sm90_kernel``), each
    with a deliberately wrong reference (B4 without its norm or residual, B5
@@ -72,14 +76,23 @@ of which raises on failure:
    one kernel launch a call, at M = 32, 64 and 128 (wrong references: the group
    scales shifted by one group, the head's scales rolled by one column),
    their bound the packed weight and its scales; the head-dim-128
-   instances of B10, B11 and B12's int4 pool at the longspec path's 8B
-   target (32 query heads, 8 kv heads of 128 dims, B = 8, an int4 cache of
-   16512 rows: B10 at T = 4 and 1, each window token bit-equal to its step;
-   B11 at C = 512, bases 15872 and 0; B12 over 512-row pages, bit-equal to
-   B10 over the gathered pool; each counted on ``hd128_launches``, wrong
-   references without the fresh rows and with the nibble planes swapped,
-   one kernel launch a call under torch.profiler, library: SDPA); and
-   the paged serving kernels at the serving paths' shapes (16 slots of
+   instances of B10 and B11 at the longspec path's 8B target (32 query
+   heads, 8 kv heads of 128 dims, B = 8, an int4 cache of 16512 rows: B10
+   at T = 4 and 1, each window token bit-equal to its step; B11 at C = 512,
+   bases 15872 and 0; each counted on ``hd128_launches``, wrong references
+   without the fresh rows and with the nibble planes swapped, one kernel
+   launch a call under torch.profiler, library: SDPA); the
+   head-dim-128 instances of the 8B self-speculation paths
+   (``head_dim128_self_spec_cases``: llama-3.1-8b, B = 32, the target cache
+   8704 rows, the draft's 640): K1 at T = 4 and 1 and the draft's
+   whole-row call, K1q at T = 4 and 1 (each window token bit-equal to its
+   step), K2 and K2q at C = 512, bases 7680 and 0, the bf16-scale K1q, B10
+   (T = 4), K2q and B11 (C = 512), each bit-equal to its f32 instance on the
+   widened scales, K3 and K3q on the 8B cache rows at T = 4, 1 and 512 bit
+   for bit, and B12's bf16, int8, int4 and bf16-scale int8 / int4 pools (8
+   ragged slots of 8192 rows, 512-row pages) bit-equal to the contiguous
+   kernel over the gathered pool, each launch counted on
+   ``hd128_launches``; and the paged serving kernels at the serving paths' shapes (16 slots of
    8192 rows, page size 512 and 16, a random permuted table, ragged lengths
    including 0 and 8192 - T): B12 over bf16, int8 and packed int4 pools
    (wrong references: two table entries swapped, the fresh rows dropped),
@@ -118,7 +131,8 @@ of which raises on failure:
    against path (1), then the row check below on those weights at B = 32, 4
    and 2; (13) ``--quantize int4 --quantize_embed --prefix_len 2048 --iters
    1`` (B4-int4 and B6-int4 at 128 rows; no int8 dot, B5 or B9); (15) path
-   (5) and (16) path (1) with ``--kv_scale bf16``, every quantized-KV kernel
+   (5) and (16) path (1) with ``--kv_scale bf16`` at B=8 x 4096 (a depth
+   cut for the time limit), every quantized-KV kernel
    of the path on its bf16-scale instance alone, beside path (5) / (1);
    (17)-(19) ``magicdec_tpu_torch.longspec_benchmark`` (standalone-draft
    speculation, ``LONGSPEC_ARGV``: llama-3.1-8b verified by llama-3.2-1b,
@@ -133,7 +147,20 @@ of which raises on failure:
    ``PagedServingLongSpecEngine`` serve of 8 requests of distinct lengths
    (3072..4095) through 8 slots against ``ServingLongSpecEngine``, every
    token equal, B12's int4 pool at head dim 128 once a layer per target
-   pass;
+   pass; (20) ``bench --model llama-3.1-8b --iters 1`` (self-speculation
+   at the paper's target, the bench's defaults: B=32 x 8192, the int8
+   cache, the int8 draft copy): spec == AR on every committed token, >= 2.0
+   tokens per step, K1q, K2q and the draft's whole-row K1 launched on their
+   head-dim-128 instances alone, K3, K3q and the draft's B4, B5, B6 at 8B
+   widths, its time to first token and peak memory printed; (21) the same
+   with ``--kv_quant none --draft_quant none`` (K1 and K2 at head dim 128;
+   its peak above path (20)'s); (22) the paged 8B serves (``SERVE8B``: 8
+   requests of distinct lengths in [1024, 2048] through 8 slots, 512-row
+   pages, the draft sharing the target's bf16 weights) over a bf16, an
+   int8 and bf16-scale int8 and int4 pools, each against ``ServingEngine``
+   token for token, B12 at head dim 128 once a layer per target pass, B13
+   launched, every bf16-scale instance at head dim 128 launched (the
+   contiguous twins: K1q and B10);
    group-wise int8 verify weights (``quantize_params(bits=8,
    group_size=128)``): the row check at B = 32, 4 and 2, and a short
    ``SpecEngine`` run (B=4, prefix 2048, max_gen 32, the int8 cache on bf16
@@ -143,11 +170,11 @@ of which raises on failure:
    ``SERVE_ARGV`` (16 slots, 32 requests of distinct lengths in [4096,
    8000], 512-row pages): (6) a bf16 pool, (7) an int8 pool, (8) an int8
    pool of half the pages (backpressure), (9) an int4 pool, each serving
-   the first 16 of the requests without a warmup serve (a depth cut for the
+   the first 12 of the requests without a warmup serve (a depth cut for the
    time limit), each failing unless every kernel of
    the path launched, the paged decode kernel once a layer per target pass,
    tokens per step >= 1.8, and ``ServingEngine`` on the same prompts
-   returns the same tokens for every request; on the int8 path, 8 requests
+   returns the same tokens for every request; on the int8 path, 4 requests
    each served alone through the same 16 slots return their served tokens,
    and the half pool peaks below the full one; (10) the default path with
    the JAX package's kernel A/B switches on, ``set_dense_kernels(True)``
@@ -165,7 +192,7 @@ of which raises on failure:
    slots, 16 requests of 7968 tokens, an int8 pool of 512-row pages): B12's
    int8 pool once a layer per target pass, B13 and K3 (the verify's two
    appends) launched, ``ServingEngine`` on the same prompts giving every
-   token; then ``--kv_scale bf16`` serves over an int8 and an int4 pool (8
+   token; then ``--kv_scale bf16`` serves over an int8 and an int4 pool (4
    requests each): B12, B13, K2q / B11 and K3q on bf16 scales alone, tokens
    equal to ``ServingEngine``'s;
 5. C2, served == solo: 4 equal-length prompts (one admission bucket) and 4
@@ -211,6 +238,7 @@ import os
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 PEAK_BYTES_S = 3.35e12   # H100 SXM HBM3
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
@@ -297,6 +325,7 @@ def _sdpa_inputs(q, k_layer, v_layer, base, k_new, v_new):
 
 
 BF16S = "[bf16 scales]"  # the cases and kernels-line entries of the bf16-scale instances
+BF16S_CUT = ["--B", "8", "--prefix_len", "4096"]  # paths (15), (16): a depth cut
 GROUP8 = 128                    # the group-wise int8 weights' group
 GROUPED8 = "[group-wise int8]"  # ... and of B4 / B6 on them
 
@@ -337,9 +366,12 @@ def _swap_planes(packed):
     return (packed << 4) | ((packed >> 4) & 0x0F)
 
 
-def kernel_phase(torch, gen):
-    from magicdec_tpu_torch.kernel_benchmark import graph_ms
-    from magicdec_tpu_torch.kernels import append as AP
+def _case_kit(torch, record, gen, L, B, Hq, Hkv, hd, layer):
+    """The kernel phase's attention and append cases at one model's widths
+    (L layers, B requests, Hq and Hkv heads of hd dims; the checks read
+    layer ``layer``), recorded by ``record`` under their names, and the
+    operands' makers.  Returns a namespace of randn, quantize, dense_fresh,
+    quant_fresh, attn_case and append_case."""
     from magicdec_tpu_torch.kernels import decode_attention as DA
     from magicdec_tpu_torch.kernels import prefill_attention as PA
     from magicdec_tpu_torch.ops.kv_cache import (dequant_kv, quantize_kv_tokens,
@@ -347,53 +379,24 @@ def kernel_phase(torch, gen):
 
     F = torch.nn.functional
     dev = torch.device("cuda")
-    L, B, Hq, Hkv, hd = 16, 32, 32, 8, 64
-    K = Hkv * hd
     bf = torch.bfloat16
+    K = Hkv * hd
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(bf)
 
-    S, Sd = 8704, 640
-    k4, v4 = randn(L, B, S, K), randn(L, B, S, K)
-    dk4, dv4 = randn(L, B, Sd, K), randn(L, B, Sd, K)
-    layer = 5
-    entries = {}
-
-    def record(name, case, err, tol, ms, plain_ms, nbytes, flops, library_ms, calls,
-               lib_calls=None, extra=None, exps=0.0):
-        """One case: its host-issued times (``ms``, ``plain_ms``,
-        ``library_ms``), and the device-only times of ``calls`` (the
-        kernel's launches) and ``lib_calls`` (the library call's) from CUDA
-        graph replay; a case that cannot be captured fails the run."""
-        bound_ms, bound_by = _bound(nbytes, flops, exps)
-        device_ms = graph_ms(calls)
-        lib_device_ms = graph_ms(lib_calls) if lib_calls else None
-        c = {"case": case, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
-             "device_ms": device_ms, "library_device_ms": lib_device_ms, **(extra or {})}
-        entries.setdefault(name, []).append(c)
-        print(f"[kernel] {name} {case}: max_abs_err={err:.3e} ({tol}) "
-              f"ms={ms:.4f} device_ms={device_ms:.4f} plain_ms={plain_ms:.4f} "
-              f"bound_ms={bound_ms:.4f} ({bound_by}, {bound_ms / device_ms:.1%} of roofline) "
-              f"library_ms={_round(library_ms)} library_device_ms={_round(lib_device_ms)}",
-              flush=True)
-        return c
-
-    def quantize(x, fn=quantize_kv_tokens, width=K, scale_dtype=torch.float32):
-        """[L, B, S, K] bf16 -> int8 [L, B, S, width] (``fn``: int8, or int4
-        packed in head pairs at width K // 2) and scales [L, B, Hkv, S] in
-        ``scale_dtype``, one layer at a time (the float32 temporaries of a
-        whole cache would take 18 GB)."""
+    def quantize(x, fn=quantize_kv_tokens, scale_dtype=torch.float32):
+        """[L, B, S, K] bf16 -> int8 [L, B, S, K] (``fn`` the int4
+        quantizer: packed in head pairs, K / 2 bytes a row) and scales [L,
+        B, Hkv, S] in ``scale_dtype``, one layer at a time (the float32
+        temporaries of a whole cache would take 18 GB)."""
         Lx, Bx, Sx = x.shape[:3]
+        width = K // 2 if fn is quantize_kv_tokens_int4 else K
         q = torch.empty((Lx, Bx, Sx, width), dtype=torch.int8, device=dev)
         s = torch.empty((Lx, Bx, Hkv, Sx), dtype=scale_dtype, device=dev)
         for l in range(Lx):
             q[l], s[l] = fn(x[l].view(Bx, Sx, Hkv, hd), scale_dtype=scale_dtype)
         return q, s
-
-    def quantize4(x, scale_dtype=torch.float32):
-        return quantize(x, quantize_kv_tokens_int4, K // 2, scale_dtype)
 
     def dense_fresh(T):
         return {"k_new": randn(B, T, K), "v_new": randn(B, T, K)}
@@ -402,15 +405,6 @@ def kernel_phase(torch, gen):
         (kn, ksn), (vn, vsn) = (fn(randn(B, T, Hkv, hd), scale_dtype=scale_dtype)
                                 for _ in range(2))
         return {"k_new": kn, "v_new": vn, "ks_new": ksn, "vs_new": vsn}
-
-    def quant4_fresh(T):
-        return quant_fresh(T, quantize_kv_tokens_int4)
-
-    def bf16s_fresh(T):
-        return quant_fresh(T, scale_dtype=bf)
-
-    def bf16s4_fresh(T):
-        return quant_fresh(T, quantize_kv_tokens_int4, bf)
 
     def swapped(plain, caches):
         """A wrong reference of an int4 kernel: its plain version over layer
@@ -444,7 +438,11 @@ def kernel_phase(torch, gen):
         kernel launches a call under torch.profiler."""
         q = randn(B, T, Hq, hd)
         fresh = make_fresh(T)
+        n128 = getattr(fn, "hd128_launches", 0)
         out = fn(q, *caches, base, layer=layer, **fresh)
+        if hd == 128 and fn.hd128_launches != n128 + 1:
+            raise AssertionError(f"{name} {case}: the launch did not take the head-dim-128 "
+                                 "instance")
         ref = plain(q, *caches, base, layer=layer, **fresh)
         torch.cuda.synchronize()
         err, tol = _err(out, ref)
@@ -501,12 +499,116 @@ def kernel_phase(torch, gen):
             # K1 (bf16), K1q, B10: one decode_sm90_kernel a call, and the
             # combine when the plan has more than one split
             plan = DA.split_plan if fn is DA.flash_decode_attend else DA.quant_split_plan
-            nsplit = plan(B, Hkv, caches[0].shape[2])[0]
+            nsplit = plan(B, Hkv, caches[0].shape[2], hd)[0]
             extra = _decode_sm90_launches(torch, name, case, calls, nsplit)
         # one exponential a visible (row, column) pair
         record(name, case, err, tol, ms, plain_ms, nbytes, flops, library_ms, calls, [lib],
                extra, exps=Hq * pairs)
         del lib_args
+
+
+
+    def flat_index(rows, pos, T, S):
+        """Flat row indices of the appended rows ([L, rows, S] viewed as one
+        axis; rows = B for the data, B * Hkv for the scales, each request's
+        rows at its position)."""
+        lead = torch.arange(L * rows, device=dev).view(L, rows)[..., None] * S
+        start = pos.long().repeat_interleave(rows // B)[None, :, None]
+        return (lead + start + torch.arange(T, device=dev)[None, None]).reshape(-1)
+
+    def append_case(name, fn, plain, caches, rows, pos, T, label=""):
+        """Bit-exact against the plain version on copies of the caches, then
+        timed; caches and rows in the wrapper's order, data then scales."""
+        case = f"{label}T={T}"
+        copies = [c.clone() for c in caches]
+        fn(*copies[:2], *rows[:2], pos, *copies[2:], *rows[2:])
+        if len(caches) == 4 and caches[2].dtype == bf:
+            # the f32 instance on the widened scales writes the same values
+            wide = [c.clone() if i < 2 else c.float() for i, c in enumerate(caches)]
+            fn(*wide[:2], *rows[:2], pos, *wide[2:], *(r.float() for r in rows[2:]))
+            _same_scale_bits(name, case, copies, wide)
+            del wide
+        plain(*caches[:2], *rows[:2], pos, *caches[2:], *rows[2:])
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(copies, caches)):
+            raise AssertionError(f"{name} {case}: kernel and plain version differ")
+        del copies
+        ms = _cuda_ms(lambda: fn(*caches[:2], *rows[:2], pos, *caches[2:], *rows[2:]))
+        plain_ms = _cuda_ms(lambda: plain(*caches[:2], *rows[:2], pos, *caches[2:], *rows[2:]),
+                            iters=5, warmup=1)
+        S = caches[0].shape[2]
+        flat = flat_index(B, pos, T, S)
+        width = caches[0].shape[-1]
+        pairs = [(caches[i].view(-1, width), flat, rows[i].reshape(-1, width)) for i in (0, 1)]
+        if len(caches) == 4:
+            sflat = flat_index(B * Hkv, pos, T, S)
+            pairs += [(caches[i].view(-1), sflat, rows[i].reshape(-1)) for i in (2, 3)]
+        library_ms = _cuda_ms(lambda: [c.index_copy_(0, i, r) for c, i, r in pairs])
+        nbytes = 2 * sum(r.numel() * r.element_size() for r in rows)  # read + write
+        call = lambda: fn(*caches[:2], *rows[:2], pos, *caches[2:], *rows[2:])  # noqa: E731
+        lib = lambda: [c.index_copy_(0, i, r) for c, i, r in pairs]  # noqa: E731
+        record(name, case, 0.0, "bit-exact", ms, plain_ms, nbytes, 0.0, library_ms,
+               [call] * 10, [lib] * 10)
+
+    return SimpleNamespace(randn=randn, quantize=quantize, dense_fresh=dense_fresh,
+                           quant_fresh=quant_fresh, attn_case=attn_case,
+                           append_case=append_case)
+
+
+def kernel_phase(torch, gen):
+    from magicdec_tpu_torch.kernel_benchmark import graph_ms
+    from magicdec_tpu_torch.kernels import append as AP
+    from magicdec_tpu_torch.kernels import decode_attention as DA
+    from magicdec_tpu_torch.kernels import prefill_attention as PA
+    from magicdec_tpu_torch.ops.kv_cache import quantize_kv_tokens_int4
+
+    dev = torch.device("cuda")
+    L, B, Hq, Hkv, hd = 16, 32, 32, 8, 64
+    K = Hkv * hd
+    bf = torch.bfloat16
+    S, Sd = 8704, 640
+    layer = 5
+    entries = {}
+
+    def record(name, case, err, tol, ms, plain_ms, nbytes, flops, library_ms, calls,
+               lib_calls=None, extra=None, exps=0.0):
+        """One case: its host-issued times (``ms``, ``plain_ms``,
+        ``library_ms``), and the device-only times of ``calls`` (the
+        kernel's launches) and ``lib_calls`` (the library call's) from CUDA
+        graph replay; a case that cannot be captured fails the run."""
+        bound_ms, bound_by = _bound(nbytes, flops, exps)
+        device_ms = graph_ms(calls)
+        lib_device_ms = graph_ms(lib_calls) if lib_calls else None
+        c = {"case": case, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+             "device_ms": device_ms, "library_device_ms": lib_device_ms, **(extra or {})}
+        entries.setdefault(name, []).append(c)
+        print(f"[kernel] {name} {case}: max_abs_err={err:.3e} ({tol}) "
+              f"ms={ms:.4f} device_ms={device_ms:.4f} plain_ms={plain_ms:.4f} "
+              f"bound_ms={bound_ms:.4f} ({bound_by}, {bound_ms / device_ms:.1%} of roofline) "
+              f"library_ms={_round(library_ms)} library_device_ms={_round(lib_device_ms)}",
+              flush=True)
+        return c
+
+    kit = _case_kit(torch, record, gen, L, B, Hq, Hkv, hd, layer)
+    randn, quantize, dense_fresh, quant_fresh = (kit.randn, kit.quantize, kit.dense_fresh,
+                                                 kit.quant_fresh)
+    attn_case, append_case = kit.attn_case, kit.append_case
+
+    def quantize4(x, scale_dtype=torch.float32):
+        return quantize(x, quantize_kv_tokens_int4, scale_dtype)
+
+    def quant4_fresh(T):
+        return quant_fresh(T, quantize_kv_tokens_int4)
+
+    def bf16s_fresh(T):
+        return quant_fresh(T, scale_dtype=bf)
+
+    def bf16s4_fresh(T):
+        return quant_fresh(T, quantize_kv_tokens_int4, bf)
+
+    k4, v4 = randn(L, B, S, K), randn(L, B, S, K)
+    dk4, dv4 = randn(L, B, Sd, K), randn(L, B, Sd, K)
 
     # K1 at the target cache: verify (T = gamma + 1 = 4), the AR step and
     # the widest window bench --gamma 0 tries (gamma 8: 36 rows, three row
@@ -586,47 +688,6 @@ def kernel_phase(torch, gen):
                   bf16s4_fresh, C, at, 1, swap=True, profile=False)
     torch.cuda.empty_cache()
 
-    def flat_index(rows, pos, T):
-        """Flat row indices of the appended rows ([L, rows, S] viewed as one
-        axis; rows = B for the data, B * Hkv for the scales, each request's
-        rows at its position)."""
-        lead = torch.arange(L * rows, device=dev).view(L, rows)[..., None] * S
-        start = pos.long().repeat_interleave(rows // B)[None, :, None]
-        return (lead + start + torch.arange(T, device=dev)[None, None]).reshape(-1)
-
-    def append_case(name, fn, plain, caches, rows, pos, T, label=""):
-        """Bit-exact against the plain version on copies of the caches, then
-        timed; caches and rows in the wrapper's order, data then scales."""
-        case = f"{label}T={T}"
-        copies = [c.clone() for c in caches]
-        fn(*copies[:2], *rows[:2], pos, *copies[2:], *rows[2:])
-        if len(caches) == 4 and caches[2].dtype == bf:
-            # the f32 instance on the widened scales writes the same values
-            wide = [c.clone() if i < 2 else c.float() for i, c in enumerate(caches)]
-            fn(*wide[:2], *rows[:2], pos, *wide[2:], *(r.float() for r in rows[2:]))
-            _same_scale_bits(name, case, copies, wide)
-            del wide
-        plain(*caches[:2], *rows[:2], pos, *caches[2:], *rows[2:])
-        torch.cuda.synchronize()
-        if not all(torch.equal(a, b) for a, b in zip(copies, caches)):
-            raise AssertionError(f"{name} {case}: kernel and plain version differ")
-        del copies
-        ms = _cuda_ms(lambda: fn(*caches[:2], *rows[:2], pos, *caches[2:], *rows[2:]))
-        plain_ms = _cuda_ms(lambda: plain(*caches[:2], *rows[:2], pos, *caches[2:], *rows[2:]),
-                            iters=5, warmup=1)
-        flat = flat_index(B, pos, T)
-        width = caches[0].shape[-1]
-        pairs = [(caches[i].view(-1, width), flat, rows[i].reshape(-1, width)) for i in (0, 1)]
-        if len(caches) == 4:
-            sflat = flat_index(B * Hkv, pos, T)
-            pairs += [(caches[i].view(-1), sflat, rows[i].reshape(-1)) for i in (2, 3)]
-        library_ms = _cuda_ms(lambda: [c.index_copy_(0, i, r) for c, i, r in pairs])
-        nbytes = 2 * sum(r.numel() * r.element_size() for r in rows)  # read + write
-        call = lambda: fn(*caches[:2], *rows[:2], pos, *caches[2:], *rows[2:])  # noqa: E731
-        lib = lambda: [c.index_copy_(0, i, r) for c, i, r in pairs]  # noqa: E731
-        record(name, case, 0.0, "bit-exact", ms, plain_ms, nbytes, 0.0, library_ms,
-               [call] * 10, [lib] * 10)
-
     # K3 and K3q: bit-exact against the plain versions on copies of the
     # target caches
     for T in (4, 1, 512):
@@ -664,8 +725,11 @@ def kernel_phase(torch, gen):
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     head_dim128_kernel_cases(torch, gen, record)
-    print(f"[time] kernel phase: the head-dim-128 cases took {time.perf_counter() - t0:.1f}s",
-          flush=True)
+    t1 = time.perf_counter()
+    head_dim128_self_spec_cases(torch, gen, record)
+    print(f"[time] kernel phase: the head-dim-128 cases took {t1 - t0:.1f}s (B10, B11 at the "
+          f"longspec shapes) and {time.perf_counter() - t1:.1f}s (the self-speculation "
+          "instances, K3 / K3q and B12 at 8B rows)", flush=True)
     t0 = time.perf_counter()
     quant_kernel_cases(torch, gen, record)
     t1 = time.perf_counter()
@@ -683,177 +747,147 @@ HD128 = "[hd128]"  # the cases and kernels-line entries of the head-dim-128 inst
 
 
 def head_dim128_kernel_cases(torch, gen, record):
-    """B10, B11 and B12's int4 pool at head dim 128, at the longspec path's
-    8B target (llama-3.1-8b: 32 query heads, 8 kv heads of 128 dims; B = 8;
-    an int4 cache of 16512 rows packed in head pairs, f32 scales, quantized
-    from bf16 randn; 4 layers timed in turn, each 68 MB of packed k rows,
-    past the L2): B10 at the verify (T = 4) and the AR step (T = 1) at
-    ragged lengths 16300..16500, each token of a window bit-equal to its
-    step; B11 at the encode's last and first 512-token chunks (bases 15872
-    and 0); B12's int4 pool of 512-row pages through a permuted table (8
-    ragged slots of 16384 rows), bit-equal to B10 over the gathered pool.
-    Each within bf16_limit of its plain version, each failing it without
-    the fresh rows and with the nibble planes swapped; each launch counted
-    on the wrapper's ``hd128_launches``; under torch.profiler one
-    ``decode_sm90_kernel`` (and ``combine_kernel`` with splits) or one
-    ``prefill_sm90_kernel`` a call.  library_ms: SDPA on the dequantized
-    bf16 K/V."""
+    """B10 and B11 at head dim 128, at the longspec path's 8B target
+    (llama-3.1-8b: 32 query heads, 8 kv heads of 128 dims; B = 8; an int4
+    cache of 16512 rows packed in head pairs, f32 scales, quantized from
+    bf16 randn; 4 layers timed in turn, each 68 MB of packed k rows, past
+    the L2): B10 at the verify (T = 4) and the AR step (T = 1) at ragged
+    lengths 16300..16500, each token of a window bit-equal to its step; B11
+    at the encode's last and first 512-token chunks (bases 15872 and 0).
+    The checks are ``_case_kit``'s attention case with the nibble planes
+    swapped as a second wrong reference."""
     from magicdec_tpu_torch.kernels import decode_attention as DA
-    from magicdec_tpu_torch.kernels import paged_attention as PGA
     from magicdec_tpu_torch.kernels import prefill_attention as PA
-    from magicdec_tpu_torch.ops import paged_kv as PKV
-    from magicdec_tpu_torch.ops.kv_cache import dequant_kv, quantize_kv_tokens_int4
+    from magicdec_tpu_torch.ops.kv_cache import quantize_kv_tokens_int4
 
-    F = torch.nn.functional
     dev = torch.device("cuda")
-    L, B, Hq, Hkv, hd, S = 4, 8, 32, 8, 128, 16512
-    bf = torch.bfloat16
-    layer = 1
+    L, B, Hq, Hkv, hd, S, layer = 4, 8, 32, 8, 128, 16512, 1
+    kit = _case_kit(torch, record, gen, L, B, Hq, Hkv, hd, layer)
+    caches = ()
+    for _ in range(2):  # k, then v
+        caches += kit.quantize(kit.randn(L, B, S, Hkv * hd), quantize_kv_tokens_int4)
+        torch.cuda.empty_cache()
 
-    def randn(*shape):
-        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(bf)
+    def fresh(T):
+        return kit.quant_fresh(T, quantize_kv_tokens_int4)
 
-    def int4_cache(Lc, Bc, Sc):
-        q = torch.empty((Lc, Bc, Sc, Hkv * hd // 2), dtype=torch.int8, device=dev)
-        s = torch.empty((Lc, Bc, Hkv, Sc), dtype=torch.float32, device=dev)
-        for l in range(Lc):
-            q[l], s[l] = quantize_kv_tokens_int4(randn(Bc, Sc, Hkv, hd))
-        return q, s
-
-    def fresh_rows(T):
-        (kn, ksn), (vn, vsn) = (quantize_kv_tokens_int4(randn(B, T, Hkv, hd)) for _ in range(2))
-        return {"k_new": kn, "v_new": vn, "ks_new": ksn, "vs_new": vsn}
-
-    def check(name, case, fn, plain, args, fresh, swapped_args, counter):
-        """bf16_limit against the plain version, the wrong references
-        outside it, the launch on the head-dim-128 instance."""
-        n = counter.hd128_launches
-        out = fn(*args, layer=layer, **fresh)
-        if counter.hd128_launches != n + 1:
-            raise AssertionError(f"{name} {case}: the launch did not take the head-dim-128 "
-                                 "instance")
-        ref = plain(*args, layer=layer, **fresh)
-        torch.cuda.synchronize()
-        err, tol = _err(out, ref)
-        sw = {k: _swap_planes(t) if k in ("k_new", "v_new") else t for k, t in fresh.items()}
-        wrongs = {"without the fresh rows": fn(*args, layer=layer),
-                  "the plain version with the nibble planes swapped":
-                      plain(*swapped_args, layer=layer, **sw)}
-        for what, wrong in wrongs.items():
-            w_err, w_bad, w_share = _outside(wrong, ref)
-            print(f"[kernel] {name} {case}: {what} max_abs_err={w_err:.3e}, {w_bad} of "
-                  f"{ref.numel()} elements outside bf16_limit (up to {w_share:.3g} of it)",
-                  flush=True)
-            if not w_bad:
-                raise AssertionError(f"{name} {case}: bf16_limit passes {what}")
-        return err, tol
-
-    def measure(name, case, fn, plain, q, args_of, base, fresh, kl, vl, err, tol, extra_of,
-                plain_iters):
-        """Times (over the layers in turn), bound, library call; record."""
-        T = q.shape[1]
-        layers = itertools.cycle(range(L))
-        ms = _cuda_ms(lambda: fn(*args_of(), layer=next(layers), **fresh))
-        plain_ms = _cuda_ms(lambda: plain(*args_of(), layer=layer, **fresh), iters=plain_iters,
-                            warmup=1)
-        knl = dequant_kv(fresh["k_new"], fresh["ks_new"], hd, bf)
-        vnl = dequant_kv(fresh["v_new"], fresh["vs_new"], hd, bf)
-        lib_args = _sdpa_inputs(q, kl, vl, base, knl, vnl)
-
-        def lib():
-            return F.scaled_dot_product_attention(lib_args[0], lib_args[1], lib_args[2],
-                                                  attn_mask=lib_args[3])
-        library_ms = _cuda_ms(lib)
-        vis = base.double()
-        pairs = float((vis[:, None] + torch.arange(1, T + 1, device=dev)).sum())
-        row_bytes = Hkv * hd // 2 + Hkv * 4  # a packed row and its f32 scales
-        nbytes = (2 * q.numel() * 2 + 2 * float(vis.sum()) * row_bytes
-                  + sum(t.numel() * t.element_size() for t in fresh.values()))
-        calls = [lambda l=l: fn(*args_of(), layer=l, **fresh) for l in range(L)]
-        record(name, case, err, tol, ms, plain_ms, nbytes, 4 * hd * Hq * pairs, library_ms,
-               calls, [lib], extra_of(calls), exps=Hq * pairs)
-        del lib_args
-
-    k, ks = int4_cache(L, B, S)
-    v, vs = int4_cache(L, B, S)
-    caches = (k, ks, v, vs)
-    swapped = (_swap_planes(k), ks, _swap_planes(v), vs)
-
-    def layer_bf16(c, sc, i):
-        return dequant_kv(c[i], sc[i], hd, bf)
-
-    # B10: the verify and the AR step near the end of the 16512-row cache
     base_t = torch.randint(16300, 16500, (B,), generator=gen, device=dev, dtype=torch.int32)
-    nsplit = DA.quant_split_plan(B, Hkv, S, hd)[0]
     name = f"flash_decode_attend_quant4 {HD128}"
     for T in (4, 1):
-        q, fresh, case = randn(B, T, Hq, hd), fresh_rows(T), f"target T={T} S={S}"
-        err, tol = check(name, case, DA.flash_decode_attend_quant4,
-                         DA.flash_decode_attend_quant4_plain, (q, *caches, base_t), fresh,
-                         (q, *swapped, base_t), DA.flash_decode_attend_quant4)
-        measure(name, case, DA.flash_decode_attend_quant4, DA.flash_decode_attend_quant4_plain,
-                q, lambda: (q, *caches, base_t), base_t, fresh, layer_bf16(k, ks, layer),
-                layer_bf16(v, vs, layer), err, tol,
-                lambda calls: _decode_sm90_launches(torch, name, case, calls, nsplit), 2)
+        kit.attn_case(name, DA.flash_decode_attend_quant4, DA.flash_decode_attend_quant4_plain,
+                      f"target T={T} S={S}", caches, fresh, T, base_t, 2, swap=True)
     _window_equals_steps(torch, name, DA.flash_decode_attend_quant4, caches, layer,
-                         randn(B, 4, Hq, hd), base_t, fresh_rows(4))
-    # B11: the longspec encode's last and first 512-token chunks
-    name = f"flash_prefill_attend_quant4 {HD128}"
-    for C, at in ((512, 15872), (512, 0)):
-        base = torch.full((B,), at, device=dev, dtype=torch.int32)
-        q, fresh, case = randn(B, C, Hq, hd), fresh_rows(C), f"C={C} base={at}"
-        err, tol = check(name, case, PA.flash_prefill_attend_quant4,
-                         PA.flash_prefill_attend_quant4_plain, (q, *caches, base), fresh,
-                         (q, *swapped, base), PA.flash_prefill_attend_quant4)
-        measure(name, case, PA.flash_prefill_attend_quant4, PA.flash_prefill_attend_quant4_plain,
-                q, lambda: (q, *caches, base), base, fresh, layer_bf16(k, ks, layer),
-                layer_bf16(v, vs, layer), err, tol,
-                lambda calls: _one_launch(torch, name, case, calls,
-                                          kernel="prefill_sm90_kernel"), 1)
-    # B12's int4 pool: the contiguous cache's first 16384 rows of each
-    # request scattered into 512-row pages through a permuted table
-    ps, npr = 512, 16384 // 512
-    P = B + B * npr
-    table = ((torch.randperm(B * npr, generator=gen, device=dev) + B).to(torch.int32)
-             .reshape(B, npr).contiguous())
-    pools = []
-    for data, scale in ((k, ks), (v, vs)):
-        pool = PKV.pool_scatter(torch.zeros((L, P, ps, data.shape[-1]), dtype=torch.int8,
-                                            device=dev), table, data[:, :, :npr * ps])
-        segs = (scale[..., :npr * ps].reshape(L, B, Hkv, npr, ps).permute(0, 1, 3, 2, 4)
-                .reshape(L, B * npr, Hkv, ps))
-        spool = torch.zeros((L, P, Hkv, ps), dtype=torch.float32, device=dev)
-        spool[:, table.reshape(-1).long()] = segs
-        pools += [pool, spool]
-    del caches, swapped
-    gathered = [PKV.scale_pool_gather(p, table) if i % 2 else PKV.pool_gather(p, table)
-                for i, p in enumerate(pools)]
-    base_p = torch.randint(0, npr * ps - 4, (B,), generator=gen, device=dev, dtype=torch.int32)
-    base_p[0], base_p[-1] = 0, npr * ps - 4
-    name, case = f"flash_paged_decode_attend_quant4 {HD128}", f"T=4 ps={ps}"
-    q, fresh = randn(B, 4, Hq, hd), fresh_rows(4)
-    swapped_pools = (_swap_planes(pools[0]), pools[1], _swap_planes(pools[2]), pools[3])
-    err, tol = check(name, case, PGA.flash_paged_decode_attend_quant4,
-                     PGA.flash_paged_decode_attend_quant4_plain, (q, *pools, table, base_p),
-                     fresh, (q, *swapped_pools, table, base_p),
-                     PGA.flash_paged_decode_attend_quant4)
-    del swapped_pools
-    for kw in (fresh, {}):
-        if not torch.equal(PGA.flash_paged_decode_attend_quant4(q, *pools, table, base_p,
-                                                                layer=layer, **kw),
-                           DA.flash_decode_attend_quant4(q, *gathered, base_p, layer=layer,
-                                                         **kw)):
-            raise AssertionError(f"{name}: the paged kernel and B10 over the gathered pool "
-                                 "differ in bits")
-    print(f"[kernel] {name} {case}: bit-equal to B10 over the gathered pool, with and "
-          "without the fresh rows", flush=True)
-    nsplit = DA.quant_split_plan(B, Hkv, npr * ps, hd)[0]
-    measure(name, case, PGA.flash_paged_decode_attend_quant4,
-            PGA.flash_paged_decode_attend_quant4_plain, q, lambda: (q, *pools, table, base_p),
-            base_p, fresh, layer_bf16(gathered[0], gathered[1], layer),
-            layer_bf16(gathered[2], gathered[3], layer), err, tol,
-            lambda calls: _decode_sm90_launches(torch, name, case, calls, nsplit), 2)
-    del pools, gathered
+                         kit.randn(B, 4, Hq, hd), base_t, fresh(4))
+    for at in (15872, 0):
+        kit.attn_case(f"flash_prefill_attend_quant4 {HD128}", PA.flash_prefill_attend_quant4,
+                      PA.flash_prefill_attend_quant4_plain, f"C=512 base={at}", caches, fresh,
+                      512, torch.full((B,), at, device=dev, dtype=torch.int32), 1, swap=True)
+    del caches
+    torch.cuda.empty_cache()
+
+
+def head_dim128_self_spec_cases(torch, gen, record):
+    """K1, K1q, K2 and K2q at head dim 128, at the 8B self-speculation
+    paths' shapes (llama-3.1-8b: 32 query heads, 8 kv heads of 128 dims;
+    B = 32; the target cache 8704 rows, the draft's 640; 4 layers timed in
+    turn, each 57 MB of bf16 k rows, past the L2): K1 at the verify (T = 4)
+    and the AR step (T = 1), each window token bit-equal to its step, and
+    the draft's whole-row call (T = 1 over 640 rows); K1q likewise at T = 4
+    and 1; K2 and K2q at the encode's last and first 512-token chunks (bases
+    7680 and 0); K3q and K3 on the 8B cache rows (1024 int8 or bf16 values
+    a row) at T = 4, 1 and 512, bit-exact; the bf16-scale instances of K1q
+    and B10 (T = 4) and of K2q and B11 (C = 512, base 7680), each bit-equal
+    to its f32 instance on the widened scales; then B12's bf16, int8 and
+    int4 pools and its bf16-scale int8 and int4 ones at the 8B serve's shape
+    (8 ragged slots of 8192 rows, 512-row pages), each bit-equal to its
+    contiguous kernel over the gathered pool.  Each within bf16_limit of
+    its plain version, failing it without the fresh rows (the int4 ones also
+    with the nibble planes swapped); each launch on the head-dim-128
+    instance; the decode kernels one ``decode_sm90_kernel`` (and
+    ``combine_kernel`` with splits) a call, the prefill ones one
+    ``prefill_sm90_kernel``, under torch.profiler (the bf16-scale ones
+    untraced).  library_ms: SDPA on the (dequantized) bf16 layer;
+    ``index_copy_`` for the appends."""
+    from magicdec_tpu_torch.kernels import append as AP
+    from magicdec_tpu_torch.kernels import decode_attention as DA
+    from magicdec_tpu_torch.kernels import prefill_attention as PA
+    from magicdec_tpu_torch.ops.kv_cache import quantize_kv_tokens, quantize_kv_tokens_int4
+
+    dev = torch.device("cuda")
+    L, B, Hq, Hkv, hd, layer = 4, 32, 32, 8, 128, 1
+    S, Sd, K = 8704, 640, 8 * 128
+    bf = torch.bfloat16
+    kit = _case_kit(torch, record, gen, L, B, Hq, Hkv, hd, layer)
+    randn, quantize, dense_fresh, quant_fresh = (kit.randn, kit.quantize, kit.dense_fresh,
+                                                 kit.quant_fresh)
+    attn_case = kit.attn_case
+
+    base_t = torch.randint(8192, 8600, (B,), generator=gen, device=dev, dtype=torch.int32)
+    base_d = torch.randint(513, 600, (B,), generator=gen, device=dev, dtype=torch.int32)
+    chunks = [(512, torch.full((B,), at, device=dev, dtype=torch.int32)) for at in (7680, 0)]
+    k4, v4 = randn(L, B, S, K), randn(L, B, S, K)
+    name = f"flash_decode_attend {HD128}"
+    for T in (4, 1):
+        attn_case(name, DA.flash_decode_attend, DA.flash_decode_attend_plain,
+                  f"target T={T} S={S}", (k4, v4), dense_fresh, T, base_t, 2)
+    _window_equals_steps(torch, name, DA.flash_decode_attend, (k4, v4), layer,
+                         randn(B, 4, Hq, hd), base_t, dense_fresh(4))
+    dk, dv = randn(L, B, Sd, K), randn(L, B, Sd, K)
+    attn_case(name, DA.flash_decode_attend, DA.flash_decode_attend_plain,
+              f"draft T=1 S={Sd}", (dk, dv), dense_fresh, 1, base_d, 3)
+    del dk, dv
+    for C, at in chunks:
+        attn_case(f"flash_prefill_attend {HD128}", PA.flash_prefill_attend,
+                  PA.flash_prefill_attend_plain, f"C={C} base={int(at[0])}", (k4, v4),
+                  dense_fresh, C, at, 1)
+    kq, ks = quantize(k4)
+    vq, vs = quantize(v4)
+    qcaches = (kq, ks, vq, vs)
+    name = f"flash_decode_attend_quant {HD128}"
+    for T in (4, 1):
+        attn_case(name, DA.flash_decode_attend_quant, DA.flash_decode_attend_quant_plain,
+                  f"target T={T} S={S}", qcaches, quant_fresh, T, base_t, 2)
+    _window_equals_steps(torch, name, DA.flash_decode_attend_quant, qcaches, layer,
+                         randn(B, 4, Hq, hd), base_t, quant_fresh(4))
+    for C, at in chunks:
+        attn_case(f"flash_prefill_attend_quant {HD128}", PA.flash_prefill_attend_quant,
+                  PA.flash_prefill_attend_quant_plain, f"C={C} base={int(at[0])}", qcaches,
+                  quant_fresh, C, at, 1)
+    # --kv_scale bf16 at head dim 128: int8 and packed int4, each launch
+    # bit for bit its f32 instance on the widened scales
+    for fmt, qz in (("", quantize_kv_tokens), ("4", quantize_kv_tokens_int4)):
+        caches = (*quantize(k4, qz, bf), *quantize(v4, qz, bf))
+        fresh = lambda T, qz=qz: quant_fresh(T, qz, bf)  # noqa: E731
+        dec = getattr(DA, f"flash_decode_attend_quant{fmt}")
+        pre = getattr(PA, f"flash_prefill_attend_quant{fmt}")
+        attn_case(f"{dec.__name__} {BF16S} {HD128}", dec, getattr(DA, dec.__name__ + "_plain"),
+                  f"target T=4 S={S}", caches, fresh, 4, base_t, 2, swap=bool(fmt),
+                  profile=False)
+        C, at = chunks[0]
+        attn_case(f"{pre.__name__} {BF16S} {HD128}", pre, getattr(PA, pre.__name__ + "_plain"),
+                  f"C={C} base={int(at[0])}", caches, fresh, C, at, 1, swap=bool(fmt),
+                  profile=False)
+        del caches
+    # K3 and K3q on the 8B caches' rows (the appends take any row width;
+    # path (20) writes these), bit-exact against the plain versions
+    for T in (4, 1, 512):
+        pos = torch.randint(0, S - T, (B,), generator=gen, device=dev, dtype=torch.int32)
+        kit.append_case("append_all_rows_inplace", AP.append_all_rows_inplace,
+                        AP.append_all_rows_inplace_plain, (k4, v4),
+                        (randn(L, B, T, K), randn(L, B, T, K)), pos, T,
+                        label="llama-3.1-8b rows ")
+        (rk, srk), (rv, srv) = (quantize(randn(L, B, T, K)) for _ in range(2))
+        kit.append_case("append_all_rows_inplace_quant", AP.append_all_rows_inplace_quant,
+                        AP.append_all_rows_inplace_plain, (kq, vq, ks, vs),
+                        (rk, rv, srk, srv), pos, T, label="llama-3.1-8b int8 rows ")
+    del k4, v4, qcaches, kq, ks, vq, vs
+    torch.cuda.empty_cache()
+    paged_kernel_cases(torch, gen, record, L=L, B=8, hd=hd, page_sizes=(512,),
+                       only=("flash_paged_decode_attend", "flash_paged_decode_attend_quant",
+                             "flash_paged_decode_attend_quant4",
+                             f"flash_paged_decode_attend_quant {BF16S}",
+                             f"flash_paged_decode_attend_quant4 {BF16S}"),
+                       suffix=f" {HD128}")
     torch.cuda.empty_cache()
 
 
@@ -1074,7 +1108,8 @@ def dense_kernel_cases(torch, gen, record):
     torch.cuda.empty_cache()
 
 
-def paged_kernel_cases(torch, gen, record):
+def paged_kernel_cases(torch, gen, record, L=16, B=16, hd=64, page_sizes=(512, 16),
+                       only=None, suffix=""):
     """B12 (bf16, int8 and packed int4 pools) and B13 (the same three) at
     the serving paths' shapes: llama-3.2-1b widths (16 layers, 8 kv heads of
     64, 32 query heads), 16 slots, T = 4, npr * ps = 8192 logical rows a
@@ -1087,7 +1122,10 @@ def paged_kernel_cases(torch, gen, record):
     table entries of a request swapped, and without the fresh rows.  Each
     B13 is bit-exact against its plain version.  library_ms: SDPA on the
     gathered (and dequantized) layer, the gather untimed; for B13,
-    index_copy_ through the flattened page indices."""
+    index_copy_ through the flattened page indices.  The head-dim-128
+    instances run the same cases at llama-3.1-8b's widths (``L`` layers of
+    8 kv heads of ``hd`` dims, ``B`` slots, ``page_sizes``), the formats
+    ``only`` names, recorded with ``suffix`` and without B13."""
     from magicdec_tpu_torch.kernels import decode_attention as DA
     from magicdec_tpu_torch.kernels import paged_attention as PGA
     from magicdec_tpu_torch.ops import paged_kv as PKV
@@ -1096,8 +1134,9 @@ def paged_kernel_cases(torch, gen, record):
 
     F = torch.nn.functional
     dev = torch.device("cuda")
-    L, B, Hq, Hkv, hd, T, S = 16, 16, 32, 8, 64, 4, 8192
+    Hq, Hkv, T, S = 32, 8, 4, 8192
     K = Hkv * hd
+    lay = min(5, L - 1)  # the layer each check reads
     bf = torch.bfloat16
 
     def randn(*shape):
@@ -1126,7 +1165,8 @@ def paged_kernel_cases(torch, gen, record):
             bf16s(quantize_kv_tokens_int4), DA.flash_decode_attend_quant4,
             PGA.flash_paged_decode_attend_quant4_plain),
     }
-    for ps in (512, 16):
+    formats = {n: f for n, f in formats.items() if only is None or n in only}
+    for ps in page_sizes:
         npr = S // ps
         P = B * npr + B
         table = (torch.randperm(B * npr, generator=gen, device=dev) + B).to(torch.int32)
@@ -1147,27 +1187,28 @@ def paged_kernel_cases(torch, gen, record):
                 (kn, ksn), (vn, vsn) = (qz(randn(B, T, Hkv, hd)) for _ in range(2))
                 fresh = {"k_new": kn, "v_new": vn, "ks_new": ksn, "vs_new": vsn}
             fn = getattr(PGA, name.split()[0])
+            name += suffix
             q = randn(B, T, Hq, hd)
-            out = fn(q, *pools, table, base, layer=5, **fresh)
-            ref = plain(q, *pools, table, base, layer=5, **fresh)
+            out = fn(q, *pools, table, base, layer=lay, **fresh)
+            ref = plain(q, *pools, table, base, layer=lay, **fresh)
             torch.cuda.synchronize()
             err, tol = _err(out, ref)
             if qz is not None and pools[1].dtype == bf:
                 _same_bits_as_f32(torch, f"{name} {case}", out,
-                                  lambda c, f: fn(q, *c, table, base, layer=5, **f), pools,
+                                  lambda c, f: fn(q, *c, table, base, layer=lay, **f), pools,
                                   fresh)
             gathered = [PKV.scale_pool_gather(p, table) if qz and i % 2
                         else PKV.pool_gather(p, table) for i, p in enumerate(pools)]
             for kw in (fresh, {}):
-                if not torch.equal(fn(q, *pools, table, base, layer=5, **kw),
-                                   contig(q, *gathered, base, layer=5, **kw)):
+                if not torch.equal(fn(q, *pools, table, base, layer=lay, **kw),
+                                   contig(q, *gathered, base, layer=lay, **kw)):
                     raise AssertionError(f"{name} {case}: the paged kernel and the contiguous "
                                          "kernel over the gathered pool differ in bits")
             print(f"[kernel] {name} {case}: bit-equal to {contig.__name__} over the gathered "
                   "pool, with and without the fresh rows", flush=True)
-            wrongs = {"with two table entries swapped": fn(q, *pools, swapped, base, layer=5,
+            wrongs = {"with two table entries swapped": fn(q, *pools, swapped, base, layer=lay,
                                                            **fresh),
-                      "without the fresh rows": fn(q, *pools, table, base, layer=5)}
+                      "without the fresh rows": fn(q, *pools, table, base, layer=lay)}
             for what, wrong in wrongs.items():
                 w_err, w_bad, w_share = _outside(wrong, ref)
                 print(f"[kernel] {name} {case}: {what} max_abs_err={w_err:.3e}, {w_bad} of "
@@ -1178,12 +1219,12 @@ def paged_kernel_cases(torch, gen, record):
             del wrongs
             layers = itertools.cycle(range(L))
             ms = _cuda_ms(lambda: fn(q, *pools, table, base, layer=next(layers), **fresh))
-            plain_ms = _cuda_ms(lambda: plain(q, *pools, table, base, layer=5, **fresh),
+            plain_ms = _cuda_ms(lambda: plain(q, *pools, table, base, layer=lay, **fresh),
                                 iters=3, warmup=1)
             if qz is None:
-                kl, vl, knl, vnl = gathered[0][5], gathered[1][5], fresh["k_new"], fresh["v_new"]
+                kl, vl, knl, vnl = gathered[0][lay], gathered[1][lay], fresh["k_new"], fresh["v_new"]
             else:
-                kl, vl = (dequant_kv(gathered[i][5], gathered[i + 1][5], hd, bf) for i in (0, 2))
+                kl, vl = (dequant_kv(gathered[i][lay], gathered[i + 1][lay], hd, bf) for i in (0, 2))
                 knl = dequant_kv(fresh["k_new"], fresh["ks_new"], hd, bf)
                 vnl = dequant_kv(fresh["v_new"], fresh["vs_new"], hd, bf)
             del gathered
@@ -1203,13 +1244,15 @@ def paged_kernel_cases(torch, gen, record):
             calls = [lambda l=l: fn(q, *pools, table, base, layer=l, **fresh) for l in range(L)]
             # every pool: decode_attention_sm90.cu's kernel, the contiguous plan
             plan = DA.split_plan if qz is None else DA.quant_split_plan
-            extra = _decode_sm90_launches(torch, name, case, calls, plan(B, Hkv, S)[0])
+            extra = _decode_sm90_launches(torch, name, case, calls, plan(B, Hkv, S, hd)[0])
             record(name, case, err, tol, ms, plain_ms, nbytes, 4 * hd * Hq * pairs, library_ms,
                    calls, [lib], extra)
             del lib_args
             fmt = ("bf16" if qz is None else "packed int4" if "quant4" in name else "int8")
             fmt += " (bf16 scales)" if qz is not None and pools[1].dtype == bf else ""
-            paged_append_case(torch, record, pools, table, base, T, f"{fmt} pool ps={ps} ", gen)
+            if not suffix:
+                paged_append_case(torch, record, pools, table, base, T, f"{fmt} pool ps={ps} ",
+                                  gen)
             del pools, fresh
             torch.cuda.empty_cache()
         del dense
@@ -1279,9 +1322,11 @@ def quant_kernel_cases(torch, gen, record):
     """B4, B5, B6 (and B9) against their plain versions at the draft's
     shapes: llama-3.2-1b widths, int8 weights quantized by the port's
     quantize_params rule from bf16 N(0, 1/fan_in) weights, M = 32 (the
-    draft's steps at B=32) and 64 (the first step's two tokens).  Each is
-    timed over the 16 layers of a stacked weight in turn, as the draft pass
-    streams them (one layer's weights would sit in the 50 MB L2 otherwise);
+    draft's steps at B=32) and 64 (the first step's two tokens); B4, B5 and
+    B6 again at llama-3.1-8b widths (path (20)'s draft copy).  Each is
+    timed over the layers of a stacked weight in turn (16; 4 at 8B), as the
+    draft pass streams them (one layer's weights would sit in the 50 MB L2
+    otherwise);
     one deliberately wrong reference per case must fail bf16_limit.
     library_ms: torch.matmul on the dequantized bf16 weight (B4, B6)."""
     from magicdec_tpu_torch import quantization as Q
@@ -1299,9 +1344,6 @@ def quant_kernel_cases(torch, gen, record):
                               include_head=False)["layers"]["wo"]
         return w.q, w.scale.reshape(layers, Out)
 
-    weights = {"wqkv": stack(D, D + 1024), "wo": stack(D, D), "w13": stack(D, 2 * F),
-               "w2": stack(F, D), "lm_head": stack(D, V, layers=1)}
-    norm_w = (torch.rand((D,), generator=gen, device=dev) + 0.5).to(bf)
 
     def nbytes(*tensors):
         return float(sum(t.numel() * t.element_size() for t in tensors))
@@ -1356,45 +1398,56 @@ def quant_kernel_cases(torch, gen, record):
     def w(key, l):
         return weights[key][0][l], weights[key][1][l]
 
-    for M in (32, 64):
-        x = randn(M, D, scale=3.0)
-        case("quant_matmul_fused", f"wqkv + attention norm M={M}",
-             lambda x, q, s, n: QK.quant_matmul_fused(x, q, s, n),
-             lambda x, q, s, n: QK.quant_matmul_fused_plain(x, q, s, n),
-             lambda x, q, s, n: QK.quant_matmul_plain(x, q, s),  # without the norm
-             lambda l: (x, *w("wqkv", l), norm_w), ["wqkv"], lib=x, M=M)
-    for M in (32, 64):
-        x = randn(M, D, scale=3.0)
-        case("quant_matmul_fused", f"w13 + norm + SiLU gate M={M}",
-             lambda x, q, s, n: QK.quant_matmul_fused(x, q, s, n, gate=True),
-             lambda x, q, s, n: QK.quant_matmul_fused_plain(x, q, s, n, gate=True),
-             lambda x, q, s, n: QK.quant_matmul_fused_plain(x, q, s, gate=True),  # no norm
-             lambda l: (x, *w("w13", l), norm_w), ["w13"], lib=x, M=M)
-        g, res = randn(M, F, scale=0.5), randn(M, D)
-        case("quant_matmul_fused", f"w2 + residual M={M}",
-             lambda x, q, s, r: QK.quant_matmul_fused(x, q, s, res=r),
-             lambda x, q, s, r: QK.quant_matmul_fused_plain(x, q, s, res=r),
-             lambda x, q, s, r: QK.quant_matmul_plain(x, q, s),  # without the residual
-             lambda l: (g, *w("w2", l), res), ["w2"], lib=g, M=M)
+    weights = norm_w = None
 
-    def tail_args(M):
-        a, x = randn(M, D), randn(M, D)
-        return lambda l: (a, x, *w("wo", l), *w("w13", l), *w("w2", l), norm_w)
+    def draft_dots(D, F, kv, layers, model=""):
+        """B4 (wqkv + norm, w13 + gate, w2 + residual), B5 and B6 at the
+        draft's rows, M = 32 and 64, over ``layers`` layers of int8 weights
+        at widths D and F (wqkv D -> D + 2 kv), quantized as the engine's
+        draft copy; ``model`` heads each case's label."""
+        nonlocal weights, norm_w
+        weights = {"wqkv": stack(D, D + 2 * kv, layers), "wo": stack(D, D, layers),
+                   "w13": stack(D, 2 * F, layers), "w2": stack(F, D, layers),
+                   "lm_head": stack(D, V, layers=1)}
+        norm_w = (torch.rand((D,), generator=gen, device=dev) + 0.5).to(bf)
+        for M in (32, 64):
+            x = randn(M, D, scale=3.0)
+            case("quant_matmul_fused", f"{model}wqkv + attention norm M={M}",
+                 lambda x, q, s, n: QK.quant_matmul_fused(x, q, s, n),
+                 lambda x, q, s, n: QK.quant_matmul_fused_plain(x, q, s, n),
+                 lambda x, q, s, n: QK.quant_matmul_plain(x, q, s),  # without the norm
+                 lambda l: (x, *w("wqkv", l), norm_w), ["wqkv"], lib=x, M=M)
+        for M in (32, 64):
+            x = randn(M, D, scale=3.0)
+            case("quant_matmul_fused", f"{model}w13 + norm + SiLU gate M={M}",
+                 lambda x, q, s, n: QK.quant_matmul_fused(x, q, s, n, gate=True),
+                 lambda x, q, s, n: QK.quant_matmul_fused_plain(x, q, s, n, gate=True),
+                 lambda x, q, s, n: QK.quant_matmul_fused_plain(x, q, s, gate=True),  # no norm
+                 lambda l: (x, *w("w13", l), norm_w), ["w13"], lib=x, M=M)
+            g, res = randn(M, F, scale=0.5), randn(M, D)
+            case("quant_matmul_fused", f"{model}w2 + residual M={M}",
+                 lambda x, q, s, r: QK.quant_matmul_fused(x, q, s, res=r),
+                 lambda x, q, s, r: QK.quant_matmul_fused_plain(x, q, s, res=r),
+                 lambda x, q, s, r: QK.quant_matmul_plain(x, q, s),  # without the residual
+                 lambda l: (g, *w("w2", l), res), ["w2"], lib=g, M=M)
+        for M in (32, 64):
+            a, x = randn(M, D), randn(M, D)
+            case("quant_layer_tail", f"{model}draft layer tail M={M}",
+                 lambda *a: QK.quant_layer_tail(*a, eps=1e-5),
+                 lambda *a: QK.quant_layer_tail_plain(*a, eps=1e-5),
+                 # without the first residual: h = bf16(a @ wo * so)
+                 lambda a, x, qo, so, *rest: QK.quant_layer_tail_plain(
+                     a, torch.zeros_like(x), qo, so, *rest, eps=1e-5),
+                 lambda l, a=a, x=x: (a, x, *w("wo", l), *w("w13", l), *w("w2", l), norm_w),
+                 ["wo", "w13", "w2"], M=M)
+        for M in (32, 64):
+            x = randn(M, D, scale=0.5)
+            case("quant_matmul", f"{model}lm_head [{D}, {V}] M={M}",
+                 QK.quant_matmul, QK.quant_matmul_plain,
+                 lambda x, q, s: QK.quant_matmul_plain(x, q, s.roll(1, -1)),  # scales off by one
+                 lambda l: (x, *w("lm_head", l)), ["lm_head"], lib=x, M=M)
 
-    for M in (32, 64):
-        case("quant_layer_tail", f"draft layer tail M={M}",
-             lambda *a: QK.quant_layer_tail(*a, eps=1e-5),
-             lambda *a: QK.quant_layer_tail_plain(*a, eps=1e-5),
-             # without the first residual: h = bf16(a @ wo * so)
-             lambda a, x, qo, so, *rest: QK.quant_layer_tail_plain(
-                 a, torch.zeros_like(x), qo, so, *rest, eps=1e-5),
-             tail_args(M), ["wo", "w13", "w2"], M=M)
-    for M in (32, 64):
-        x = randn(M, D, scale=0.5)
-        case("quant_matmul", f"lm_head [2048, 128256] M={M}",
-             QK.quant_matmul, QK.quant_matmul_plain,
-             lambda x, q, s: QK.quant_matmul_plain(x, q, s.roll(1, -1)),  # scales off by one
-             lambda l: (x, *w("lm_head", l)), ["lm_head"], lib=x, M=M)
+    draft_dots(D, F, 512, L)
     # B9: the draft's FFN where B5 declines (129..256 rows: the prefill chunk
     # of two requests); not on the B=32 path
     def mlp_case(label, M):
@@ -1521,6 +1574,12 @@ def quant_kernel_cases(torch, gen, record):
              lambda x, q, s: QK.quant_matmul_int4_plain(x, q, s.roll(1, -1)),
              lambda l: (x, *w("lm_head4", l)), ["lm_head4"], lib=x, M=M)
     del weights
+    torch.cuda.empty_cache()
+    # the draft's int8 copy at llama-3.1-8b widths (path (20): D 4096, F
+    # 14336, 8 kv heads of 128), 4 layers in turn (a layer's w13 alone is 117
+    # MB, past the L2)
+    draft_dots(4096, 14336, 1024, 4, "llama-3.1-8b ")
+    del weights, norm_w
     torch.cuda.empty_cache()
 
 
@@ -1865,6 +1924,115 @@ def longspec_serving_phase(torch, wrappers):
     return launches
 
 
+# The paged 8B serve (llama-3.1-8b, the draft sharing the target's bf16
+# weights, serving_bench's default): 8 requests of distinct lengths in [1024,
+# 2048] through 8 slots, 512-row pages; a short serve per pool format
+SERVE8B = dict(slots=8, num_requests=8, prefix=2048, max_len=2560, page_size=512, max_gen=16)
+
+
+def _all_at_hd128(tag, launches, wrappers):
+    """Raises unless each of ``wrappers`` launched, every launch on its
+    head-dim-128 instance; returns the printable counts."""
+    counts = {w.__name__: (launches[f"{w.__name__} {HD128}"], launches[w.__name__])
+              for w in wrappers}
+    summary = ", ".join(f"{n} {h} of {a}" for n, (h, a) in counts.items())
+    print(f"[{tag}] launches at head dim 128: {summary}", flush=True)
+    bad = [n for n, (h, a) in counts.items() if not a or h != a]
+    if bad:
+        raise AssertionError(f"{tag}: {bad} did not run at head dim 128 alone ({summary})")
+    return summary
+
+
+def serve_8b_phase(torch, wrappers, kernels):
+    """(22) The paged 8B serve: ``PagedServingEngine`` against
+    ``ServingEngine`` on the same weights (``bench.make_params`` at
+    llama-3.1-8b) and prompts, over a bf16, an int8, and bf16-scale int8
+    and int4 pools, the counters zeroed just before and read just after
+    each serve.  Every request's tokens equal; the paged serve's B12 on its
+    head-dim-128 instance once a layer per target pass, B13 launched; the
+    contiguous serve's K1 / K1q / B10 and both serves' K2 / K2q / B11 at
+    head dim 128 (on bf16 scales for the bf16-scale pools); tokens per step
+    >= 1.8.  Returns {kernels-line name: launches} of the head-dim-128
+    instances these serves ran."""
+    import numpy as np
+
+    from magicdec_tpu_torch import bench
+    from magicdec_tpu_torch.config import ModelConfig
+    from magicdec_tpu_torch.engine.engine import EngineConfig
+    from magicdec_tpu_torch.engine.serving import PagedServingEngine, ServingEngine
+    from magicdec_tpu_torch.models.llama import fuse_exec_params
+
+    DA, PA, PGA = (kernels[n] for n in ("DA", "PA", "PGA"))
+    c = SERVE8B
+    bf = torch.bfloat16
+    cfg = ModelConfig.from_name("llama-3.1-8b")
+    params = fuse_exec_params(bench.make_params(cfg, seed=0), cfg)
+    rng = np.random.RandomState(108)
+    lens = rng.choice(np.arange(c["prefix"] // 2, c["prefix"] + 1), c["num_requests"],
+                      replace=False)
+    prompts = [rng.randint(0, cfg.vocab_size, size=int(n)).astype(np.int32) for n in lens]
+    formats = {
+        "bf16": ({}, PGA.flash_paged_decode_attend, DA.flash_decode_attend,
+                 PA.flash_prefill_attend),
+        "int8": ({"kv_quant": "int8"}, PGA.flash_paged_decode_attend_quant,
+                 DA.flash_decode_attend_quant, PA.flash_prefill_attend_quant),
+        "int8 bf16 scales": ({"kv_quant": "int8", "kv_scale_dtype": bf},
+                             PGA.flash_paged_decode_attend_quant, DA.flash_decode_attend_quant,
+                             PA.flash_prefill_attend_quant),
+        "int4 bf16 scales": ({"kv_quant": "int4", "kv_scale_dtype": bf},
+                             PGA.flash_paged_decode_attend_quant4,
+                             DA.flash_decode_attend_quant4, PA.flash_prefill_attend_quant4),
+    }
+    result = {}
+    for fmt, (kw, paged_fn, contig_fn, prefill_fn) in formats.items():
+        ecfg = EngineConfig(mode="streamingllm", gamma=3, draft_budget=257,
+                            max_seq_len=c["max_len"], chunk_size=128, prefill_chunk_size=512,
+                            max_gen=c["max_gen"], eot_ids=(-1,), cache_dtype=bf,
+                            page_size=c["page_size"], **kw)
+        bf16s = "kv_scale_dtype" in kw
+        outs = {}
+        for name, cls, attend in (("paged", PagedServingEngine, paged_fn),
+                                  ("contiguous", ServingEngine, contig_fn)):
+            engine = cls(params, cfg, ecfg)
+            _zero_counts(wrappers)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs[name] = engine.serve(prompts, B=c["slots"], windows_per_sync=4)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            st, launches = engine.last_serve_stats, _read_counts(wrappers)
+            del engine
+            torch.cuda.empty_cache()
+            tag = f"serve 8B {fmt} {name}"
+            print(f"[{tag}] {len(prompts)} requests (lengths {min(lens)}..{max(lens)}) through "
+                  f"{c['slots']} slots in {wall:.2f}s, {st['windows']} windows, "
+                  f"{st['tokens_per_step']:.3f} tokens/step", flush=True)
+            _all_at_hd128(tag, launches, [attend, prefill_fn, DA.flash_decode_attend])
+            if bf16s:
+                _all_on_bf16_scales(tag, launches, [attend, prefill_fn])
+            if name == "paged":
+                want = cfg.n_layer * st["windows"]
+                if launches[attend.__name__] != want:
+                    raise AssertionError(f"{tag}: {attend.__name__} launched "
+                                         f"{launches[attend.__name__]} times, not "
+                                         f"{cfg.n_layer} layers x {st['windows']} target passes")
+                if launches[PGA.append_paged_rows_inplace.__name__] <= 0:
+                    raise AssertionError(f"{tag}: B13 never launched")
+            if st["tokens_per_step"] < 1.8:
+                raise AssertionError(f"{tag}: acceptance collapsed: {st['tokens_per_step']} "
+                                     "tokens/step")
+            for w in (attend, prefill_fn, DA.flash_decode_attend):
+                key = f"{w.__name__} {BF16S} {HD128}" if bf16s and w is not \
+                    DA.flash_decode_attend else f"{w.__name__} {HD128}"
+                result[key] = result.get(key, 0) + launches[w.__name__]
+        print(f"[serve 8B {fmt}] " + _same_tokens("PagedServingEngine against ServingEngine",
+                                                   outs["paged"], outs["contiguous"]),
+              flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return result
+
+
 # the checkpoint round trip's serves: 8 requests of 2048 tokens through 8
 # contiguous slots (a depth cut for the time limit), the draft sharing the
 # target's weights (serving_bench's default)
@@ -2153,10 +2321,10 @@ def serving_phase(torch, wrappers, kernels):
     result = {}
     peaks = {}
     for fmt, (extra, own) in paths.items():
-        # each skips the warmup serve and serves the first 16 of the 32
+        # each skips the warmup serve and serves the first 12 of the 32
         # requests (a depth cut that keeps chip_smoke.py inside its time
-        # limit on a slow host)
-        extra = extra + ["--skip_warmup", "--num_requests", "16"]
+        # limit)
+        extra = extra + ["--skip_warmup", "--num_requests", "12"]
         out, launches, peaks[fmt] = serving_path(
             torch, wrappers, own + draft + [PGA.append_paged_rows_inplace], own[0], extra,
             forbidden=[w for w in paged_all if w is not own[0]])
@@ -2179,13 +2347,13 @@ def serving_phase(torch, wrappers, kernels):
                                                   half["outputs"], out["outputs"]), flush=True)
         if half["stats"]["page_blocked"] <= 0:
             raise AssertionError("the half pool never made a free slot wait for pages")
-        # served == solo: each of 8 requests alone through the same 16 slots
+        # served == solo: each of 4 requests alone through the same 16 slots
         engine, _ = serving_bench.setup(serving_bench.parse_args(SERVE_ARGV + extra))
-        idx = list(range(0, len(out["prompts"]), len(out["prompts"]) // 8))
+        idx = list(range(0, len(out["prompts"]), len(out["prompts"]) // 4))
         t0 = time.perf_counter()
         solo = [engine.serve([out["prompts"][i]], B=16, windows_per_sync=4)[0] for i in idx]
         print(f"[serve int8] " + _same_tokens(
-            "served against solo (8 requests, each alone through the same 16 slots)",
+            "served against solo (4 requests, each alone through the same 16 slots)",
             [out["outputs"][i] for i in idx], solo)
             + f" ({time.perf_counter() - t0:.1f}s)", flush=True)
         del engine, solo
@@ -2326,7 +2494,7 @@ def solo_phase(torch):
         if fixed_rows:  # the serving pass's rows and decode split plans
             b1._hinted = lambda B: dataclasses.replace(
                 b1.cfg, decode_rows=slots * (b1.ecfg.gamma + 1))
-            DA.split_plan = lambda B, Hkv, S: split_plan(slots, Hkv, S)
+            DA.split_plan = lambda B, Hkv, S, hd=64: split_plan(slots, Hkv, S, hd)
             DA.quant_split_plan = lambda B, Hkv, S, hd=64: quant_split_plan(slots, Hkv, S, hd)
         try:
             _, stats = b1.generate(b1.encode(prompt[None]))
@@ -2398,7 +2566,8 @@ def dense_ab_phase(torch, wrappers):
 
 def bf16_scale_serving_phase(torch, wrappers, kernels):
     """``serving_bench`` with SERVE_ARGV, ``--kv_scale bf16`` and an int8,
-    then an int4 pool, 8 requests each, no warmup: B12, B13, K2q or B11 and
+    then an int4 pool, 4 requests each (a depth cut for the time limit),
+    no warmup: B12, B13, K2q or B11 and
     K3q on their bf16-scale instances alone, B12 once a layer per target
     pass, each serve's tokens equal to ``ServingEngine``'s on the same
     prompts.  Returns the bf16-scale launches of B12 and B13."""
@@ -2409,7 +2578,7 @@ def bf16_scale_serving_phase(torch, wrappers, kernels):
                                  PA.flash_prefill_attend_quant),
                                 ("int4", PGA.flash_paged_decode_attend_quant4,
                                  PA.flash_prefill_attend_quant4)):
-        extra = ["--kv_quant", fmt, "--kv_scale", "bf16", "--skip_warmup", "--num_requests", "8"]
+        extra = ["--kv_quant", fmt, "--kv_scale", "bf16", "--skip_warmup", "--num_requests", "4"]
         own = [paged, prefill, AP.append_all_rows_inplace_quant, PGA.append_paged_rows_inplace]
         out, launches, peak = serving_path(
             torch, wrappers, own + draft, paged, extra,
@@ -2934,7 +3103,9 @@ def main():
                            ("ffn_sm90", "ffn_bf16_sm90_kernel"),
                            ("dense_matmul_sm90", "dmm_sm90_kernel"),
                            ("prefill_attention_sm90", "prefill_sm90_kernel"),
-                           ("decode_attention_sm90", "decode_sm90_kernel")):
+                           ("prefill_attention_hd128_sm90", "prefill_sm90_kernel"),
+                           ("decode_attention_sm90", "decode_sm90_kernel"),
+                           ("decode_attention_hd128_sm90", "decode_sm90_kernel")):
         log = build.BUILD_DIR / f"{source}.nvcc.log"
         ptxas = log.read_text().splitlines() if log.exists() else []
         for i, line in enumerate(ptxas):
@@ -2994,14 +3165,15 @@ def main():
         ["--kv_quant", "int4", "--iters", "1"],
         forbidden=[DA.flash_decode_attend_quant, PA.flash_prefill_attend_quant] + dots4)
     # (15) path (5) with bf16 scales, (16) path (1) with bf16 scales: every
-    # quantized-KV kernel on its bf16-scale instance alone
+    # quantized-KV kernel on its bf16-scale instance alone, at B=8 x 4096
+    # (BF16S_CUT, a depth cut for the time limit)
     bf16_launches = {}
     for tag, argv, own, forbid, (peer, peer_peak, peer_tag) in (
-            ("15", ["--kv_quant", "int4", "--kv_scale", "bf16", "--iters", "1"],
+            ("15", ["--kv_quant", "int4", "--kv_scale", "bf16"] + BF16S_CUT + ["--iters", "1"],
              quant4 + [AP.append_all_rows_inplace_quant],
              [DA.flash_decode_attend_quant, PA.flash_prefill_attend_quant] + dots4,
              (out5, peak5, "(5)")),
-            ("16", ["--kv_scale", "bf16", "--iters", "1"], quant,
+            ("16", ["--kv_scale", "bf16"] + BF16S_CUT + ["--iters", "1"], quant,
              paged + per_array + dense_dots, (out1, peak8, "(1)"))):
         out_b, launches_b, peak_b = main_path(torch, wrappers, own + dots, argv,
                                               forbidden=forbid)
@@ -3070,6 +3242,35 @@ def main():
     phase_done("paths (17)-(19): longspec")
     ls_serve = longspec_serving_phase(torch, wrappers)
     phase_done("the paged int4 longspec serve")
+    # (20) self-speculation at llama-3.1-8b, the bench's defaults otherwise
+    # (B=32 x 8192, one measured repeat): the target's int8 cache on K1q,
+    # K2q and K3q at head dim 128, the draft's int8 copy on B4 / B5 / B6 at
+    # 8B widths, its bf16 cache on K1 (the whole-row call) and K3.  A broken
+    # draft reads near 1 token a step: the gate is 2.0 (the 1B paths keep 2.5)
+    out20, launches20, peak20 = main_path(
+        torch, wrappers, quant + dots + [DA.flash_decode_attend, AP.append_all_rows_inplace],
+        ["--model", "llama-3.1-8b", "--iters", "1"],
+        forbidden=paged + per_array + dense_dots + quant4 + dots4, min_tokens_per_step=2.0)
+    _all_at_hd128("main (20)", launches20, [DA.flash_decode_attend_quant,
+                                            PA.flash_prefill_attend_quant, DA.flash_decode_attend])
+    print(f"[main (20) llama-3.1-8b] {_bench_summary(out20)}, peak {peak20:.2f} GiB",
+          flush=True)
+    phase_done("path (20): bench --model llama-3.1-8b")
+    # (21) all bf16 at llama-3.1-8b: K1 (the target's verify and AR step,
+    # the draft's whole-row call) and K2 at head dim 128, at B=8 x 4096 (a
+    # depth cut for the time limit: the default's B=32 x 8192 took 75 s)
+    out21, launches21, peak21 = main_path(
+        torch, wrappers, dense, ["--model", "llama-3.1-8b", "--kv_quant", "none",
+                                 "--draft_quant", "none", "--B", "8", "--prefix_len", "4096",
+                                 "--iters", "1"],
+        forbidden=quant + dots + [QK.quant_mlp] + quant4 + dots4 + paged + per_array
+        + dense_dots, min_tokens_per_step=2.0)
+    _all_at_hd128("main (21)", launches21, [DA.flash_decode_attend, PA.flash_prefill_attend])
+    print(f"[main (21) llama-3.1-8b all bf16, B=8 x 4096] {_bench_summary(out21)}, peak "
+          f"{peak21:.2f} GiB", flush=True)
+    phase_done("path (21): bench --model llama-3.1-8b, all bf16")
+    serve8 = serve_8b_phase(torch, wrappers, {"DA": DA, "PA": PA, "PGA": PGA})
+    phase_done("(22) the paged 8B serves")
     launches["flash_prefill_attend"] = launches16["flash_prefill_attend"]
     launches["quant_mlp"] = launches2["quant_mlp"]
     launches.update({w.__name__: launches4[w.__name__] for w in quant4 + dots4})
@@ -3196,13 +3397,23 @@ def main():
     for name in ("quant_matmul_fused", "quant_matmul"):
         meta[f"{name} {GROUPED8}"] = meta[name]
         launches[f"{name} {GROUPED8}"] = launches_g[name]
-    # the head-dim-128 instances: B10 and B11 on the longspec streamingllm
-    # path (17), B12's int4 pool in the paged longspec serve
+    # the head-dim-128 instances (csrc/*_hd128_sm90.cu): B10 and B11 on the
+    # longspec streamingllm path (17), B12's int4 pool in the paged longspec
+    # serve, K1q and K2q on path (20), K1 and K2 on path (21), B12's bf16 and
+    # int8 pools and every bf16-scale instance in the paged 8B serves (22)
+    # (the contiguous twins: K1q and B10)
+    launches.update(serve8)
     for name, counts in (("flash_decode_attend_quant4", ls_results["streamingllm"][1]),
                          ("flash_prefill_attend_quant4", ls_results["streamingllm"][1]),
-                         ("flash_paged_decode_attend_quant4", ls_serve)):
-        meta[f"{name} {HD128}"] = meta[name]
+                         ("flash_paged_decode_attend_quant4", ls_serve),
+                         ("flash_decode_attend_quant", launches20),
+                         ("flash_prefill_attend_quant", launches20),
+                         ("flash_decode_attend", launches21),
+                         ("flash_prefill_attend", launches21)):
         launches[f"{name} {HD128}"] = counts[f"{name} {HD128}"]
+    for name in [n for n in cases if n.endswith(HD128)]:
+        source, replaces = meta[name.split()[0]]
+        meta[name] = (source.replace("_sm90.cu", "_hd128_sm90.cu"), replaces)
     kernels = []
     for name, (source, replaces) in meta.items():
         if launches.get(name, 0) <= 0:

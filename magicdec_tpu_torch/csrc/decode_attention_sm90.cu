@@ -12,7 +12,9 @@
 // cache packed in head pairs, and paged_attention.py
 // flash_paged_decode_attend (:122), flash_paged_decode_attend_quant (:147)
 // and flash_paged_decode_attend_quant4 (:176) (_paged_call :109) over page
-// pools of each, at head dim 64 (every instance) and 128 (the int4 ones).  A window of T <= 16 query tokens of request b attends
+// pools of each, at head dim 64 and 128 (decode_attention_hd128_sm90.cu
+// builds the head-dim-128 instances of this file's bodies in a translation
+// unit of their own).  A window of T <= 16 query tokens of request b attends
 // layer `layer`'s cache rows [0, base_b) (quantized: each with its f32
 // per-(token, kv head) k and v scale, f32 or bf16) plus, when given, its own T fresh
 // rows, read at their positions [base_b, base_b + T) (causal: token t sees
@@ -89,13 +91,23 @@
 //   and stores it, zero past the visible end.
 // - The softmax runs in the exp2 domain (log2 e folded into the score's
 //   scale) and skips the masks on a tile every row of the warp sees whole.
-// - Head dim 128 (QD = 128: B10 and B12's int4 pool, the 8B target's int4
-//   cache; f32 scales): the packed pair's row is 128 bytes; a warp holds
-//   both heads' output (128 registers a thread), so the Q fragments live
-//   in shared memory (warp 0 writes them, each warp reads 16 bytes a lane a
-//   16-dim step), K takes two ldmatrix per 8 positions and V four blocks of
-//   32 dims; the launch bound asks for two blocks an SM and
-//   quant_split_plan aims at two.  Head dim 64 keeps its registers and code.
+// - Head dim 128 (QD = 128, the 7B/8B targets' caches).  Quantized (K1q,
+//   B10, B12's int8 / int4 pools, either scale dtype): the packed pair's
+//   row is 128 bytes, the int8 pair's 256; a warp holds both heads' output
+//   (128 registers a thread), so the Q fragments live in shared memory
+//   (warp 0 writes them, each warp reads 16 bytes a lane a 16-dim step), K
+//   takes two ldmatrix per 8 positions and V four blocks of 32 dims; the
+//   launch bound asks for two blocks an SM (the int8 pair's rings and Q
+//   take 113 KB, two blocks the SM's whole 228 KB) and quant_split_plan
+//   aims at two.  bf16 (K1, B12's bf16 pool): a 256-byte row is wider than
+//   the 128-byte swizzle's box, so a tile is stored as two 64-value halves
+//   of [16 positions][128 bytes] under the swizzle (two TMA boxes each of k
+//   and v, or cp.async chunks at the same places), S walks its k16 steps
+//   0-3 in the first half and 4-7 in the second, and P.V reads V's halves
+//   in turn; a warp holds one row tile (MT = 1: the output takes 64
+//   registers, Q's fragments 32), so a window of more than 16 grouped rows
+//   takes a block per 16; 8 KB stages hold two blocks an SM and split_plan
+//   aims at two.  Head dim 64 keeps its registers and code.
 //
 // Splits: kernels/decode_attention.py split_plan (bf16) and
 // quant_split_plan, functions of (B, Hkv, S) only; with more than one split
@@ -129,7 +141,7 @@ using sm90::smem_u32;
 using sm90::tma_load_3d;
 
 constexpr int kI8 = 0, kI4 = 1, kBF16 = 2;  // the cache formats
-constexpr int HD = 64;     // the head dim of the bf16 instances (the quantized: QD)
+constexpr int HD = 64;     // the head dim by default (the instances' QD: 64 or 128)
 constexpr int NR = 16;     // positions a warp tile
 constexpr int NW = 4;      // warps a block
 constexpr int STAGES = 3;  // each warp's ring
@@ -628,29 +640,38 @@ struct Maps {
   int tma;
 };
 
-// One stage of a bf16 warp ring: the k and v rows of NR positions, 128
-// bytes a position, 16-byte chunk c of position r at (c ^ r % 8) * 16.
-// BF_STAGES - 1 tiles a warp in flight.
+// One stage of a bf16 warp ring: the k and v rows of NR positions of head
+// dim QD, as QD / 64 halves of [NR positions][128 bytes] (a half: 64 values
+// a position, BF_HALF bytes), 16-byte chunk c of position r at (c ^ r % 8)
+// * 16 in its row.  BF_STAGES - 1 tiles a warp in flight.
 constexpr int BF_STAGES = 3;
-constexpr int BF_TILE = NR * HD * 2;
+constexpr int BF_HALF = NR * 128;
+template <int QD>
+constexpr int BF_TILE = NR * QD * 2;
+template <int QD>
 struct BfStage {
-  __nv_bfloat16 k[NR * HD];
-  __nv_bfloat16 v[NR * HD];
+  __nv_bfloat16 k[NR * QD];
+  __nv_bfloat16 v[NR * QD];
 };
 
 // The rings, and after the loop the four warps' states of one row tile.
+template <int QD>
 union BfSmem {
-  BfStage ring[NW][BF_STAGES];
+  BfStage<QD> ring[NW][BF_STAGES];
   struct {
-    float o[NW][16][HD];
+    float o[NW][16][QD];
     float ml[NW][16][2];
   } merge;
 };
 // from a 1024-byte-aligned base (the swizzle's period): the union, then
 // each warp's stage barriers
-constexpr int BF_BARS = sizeof(BfSmem);
-constexpr int BF_SMEM = BF_BARS + 8 * NW * BF_STAGES + 1024;
-static_assert(sizeof(BfStage) % 1024 == 0 && BF_TILE % 1024 == 0, "tiles keep the swizzle period");
+template <int QD>
+constexpr int BF_BARS = sizeof(BfSmem<QD>);
+template <int QD>
+constexpr int BF_SMEM = BF_BARS<QD> + 8 * NW * BF_STAGES + 1024;
+static_assert(sizeof(BfStage<64>) % 1024 == 0 && sizeof(BfStage<128>) % 1024 == 0 &&
+                  BF_HALF % 1024 == 0,
+              "tiles and their halves keep the swizzle period");
 
 __device__ __forceinline__ uint32_t ldg_u32(const __nv_bfloat16* p) {
   return __ldg(reinterpret_cast<const unsigned int*>(p));
@@ -659,19 +680,21 @@ __device__ __forceinline__ uint32_t ldg_u32(const __nv_bfloat16* p) {
 // A block: split blockIdx.x / nrb of the positions, rows [16 MT rb, 16 MT
 // (rb + 1)) of kv head blockIdx.y of request blockIdx.z (rb = blockIdx.x %
 // nrb).  Each warp holds MT row tiles: Q as A fragments, and (m, l, o).
-template <int MT, bool PAGED>
+// QD: the head dim (128: MT 1).
+template <int MT, bool PAGED, int QD>
 __device__ __forceinline__ void bf16_body(const AttnArgs& a, int R, const Maps& maps,
                                           unsigned char* raw_smem) {
+  static_assert(QD == 64 || (QD == 128 && MT == 1), "head dim 64, or 128 with one row tile");
   const uint32_t raw = smem_u32(raw_smem);
   const uint32_t pad = ((raw + 1023u) & ~1023u) - raw;
-  BfSmem& sm = *reinterpret_cast<BfSmem*>(raw_smem + pad);
+  BfSmem<QD>& sm = *reinterpret_cast<BfSmem<QD>*>(raw_smem + pad);
   const int nrb = gridDim.x / a.nsplit;
   const int split = blockIdx.x / nrb, rb = blockIdx.x % nrb;
   const int h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const int G = a.Hq / a.Hkv, GT = G * a.T;
-  const int K = a.Hkv * HD;  // a cache row's elements
+  const int K = a.Hkv * QD;  // a cache row's elements
   const int base = a.base_lens[b];
   const int r_block = rb * 16 * MT;
   const int t_last = min((r_block + 16 * MT - 1) / G, a.T - 1);
@@ -684,14 +707,14 @@ __device__ __forceinline__ void bf16_body(const AttnArgs& a, int R, const Maps& 
   // a tile [c, c + NR) with c + NR <= tma_end lands by TMA
   const int tma_end = maps.tma ? min(hi_s, fresh_at) : 0;
   // 1/sqrt(hd), times log2(e): the softmax runs in the exp2 domain
-  const float scale = 0.125f * 1.4426950408889634f;
+  const float scale = (QD == 64 ? 0.125f : 0.08838834764831845f) * 1.4426950408889634f;
 
   // positions [0, lim) visible to the thread's rows g and g + 8 of each row
   // tile; a padding row (past G*T, never written) sees the block's whole
   // range, so that the tiles every row sees whole take the softmax without
   // masks
   int lim[MT][2], lim_min[MT];
-  uint32_t qf[MT][HD / 16][4];
+  uint32_t qf[MT][QD / 16][4];
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
@@ -700,33 +723,33 @@ __device__ __forceinline__ void bf16_body(const AttnArgs& a, int R, const Maps& 
       const bool valid = row < GT;
       lim[mt][i] = valid ? min(base + row / G + 1, hi_s) : hi_s;
       const __nv_bfloat16* qp =
-          a.q + (((size_t)b * a.T + row / G) * a.Hq + h * G + row % G) * HD + 2 * t4;
+          a.q + (((size_t)b * a.T + row / G) * a.Hq + h * G + row % G) * QD + 2 * t4;
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
+      for (int kk = 0; kk < QD / 16; ++kk) {
         qf[mt][kk][i] = valid ? ldg_u32(qp + 16 * kk) : 0u;
         qf[mt][kk][i + 2] = valid ? ldg_u32(qp + 16 * kk + 8) : 0u;
       }
     }
     lim_min[mt] = min(lim[mt][0], lim[mt][1]);
   }
-  float o[MT][HD / 8][4];
+  float o[MT][QD / 8][4];
   float m[MT][2], l[MT][2];
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
-    for (int n = 0; n < HD / 8; ++n) o[mt][n][0] = o[mt][n][1] = o[mt][n][2] = o[mt][n][3] = 0.f;
+    for (int n = 0; n < QD / 8; ++n) o[mt][n][0] = o[mt][n][1] = o[mt][n][2] = o[mt][n][3] = 0.f;
     m[mt][0] = m[mt][1] = kNegInf;
     l[mt][0] = l[mt][1] = 0.f;
   }
 
   const RowAddr<__nv_bfloat16, PAGED> krows =
-      kv_rows<__nv_bfloat16, PAGED>(a, a.k, b, K, h * HD);
+      kv_rows<__nv_bfloat16, PAGED>(a, a.k, b, K, h * QD);
   const RowAddr<__nv_bfloat16, PAGED> vrows =
-      kv_rows<__nv_bfloat16, PAGED>(a, a.v, b, K, h * HD);
-  const size_t f_off = (size_t)b * a.T * K + h * HD;
+      kv_rows<__nv_bfloat16, PAGED>(a, a.v, b, K, h * QD);
+  const size_t f_off = (size_t)b * a.T * K + h * QD;
   const __nv_bfloat16* kn = fresh ? a.k_new + f_off : nullptr;
   const __nv_bfloat16* vn = fresh ? a.v_new + f_off : nullptr;
-  const uint32_t bars = raw + pad + BF_BARS + 8 * BF_STAGES * warp;  // this warp's
+  const uint32_t bars = raw + pad + BF_BARS<QD> + 8 * BF_STAGES * warp;  // this warp's
   if (lane == 0) {
 #pragma unroll
     for (int s = 0; s < BF_STAGES; ++s) mbar_init(bars + 8 * s, 1);
@@ -734,12 +757,12 @@ __device__ __forceinline__ void bf16_body(const AttnArgs& a, int R, const Maps& 
   }
   __syncwarp();
 
-  // Fill stage st with the tile at position c: two boxes by lane 0 on the
-  // stage's barrier, or each lane four 16-byte chunks of k and of v (chunk i
-  // = lane + 32 j: position i / 8, chunk i % 8), zeros past hi_s, where
-  // nothing is read.
+  // Fill stage st with the tile at position c: a box a half of k and of v
+  // by lane 0 on the stage's barrier, or each lane QD / 16 16-byte chunks of
+  // k and of v (chunk i = lane + 32 j: position i / (QD / 8), chunk c8 = i %
+  // (QD / 8), in half c8 / 8), zeros past hi_s, where nothing is read.
   auto fill = [&](int st, int c) {
-    BfStage& s = sm.ring[warp][st];
+    BfStage<QD>& s = sm.ring[warp][st];
     if (c + NR <= tma_end) {
       if (lane == 0) {
         fence_proxy_async();  // the stage's last generic reads and writes first
@@ -749,20 +772,23 @@ __device__ __forceinline__ void bf16_body(const AttnArgs& a, int R, const Maps& 
           row = c % a.ps;
           plane = __ldg(a.table + (size_t)b * a.npr + c / a.ps);
         }
-        mbar_expect_tx(bar, 2 * BF_TILE);
-        tma_load_3d(smem_u32(s.k), &maps.k, bar, h * HD, row, plane);
-        tma_load_3d(smem_u32(s.v), &maps.v, bar, h * HD, row, plane);
+        mbar_expect_tx(bar, 2 * BF_TILE<QD>);
+#pragma unroll
+        for (int hf = 0; hf < QD / 64; ++hf) {
+          tma_load_3d(smem_u32(s.k) + hf * BF_HALF, &maps.k, bar, h * QD + 64 * hf, row, plane);
+          tma_load_3d(smem_u32(s.v) + hf * BF_HALF, &maps.v, bar, h * QD + 64 * hf, row, plane);
+        }
       }
       return;
     }
 #pragma unroll
-    for (int j = 0; j < NR * HD / 8 / 32; ++j) {
-      const int i = lane + 32 * j, r = i >> 3, c8 = i & 7, pos = c + r;
+    for (int j = 0; j < NR * QD / 8 / 32; ++j) {
+      const int i = lane + 32 * j, r = i / (QD / 8), c8 = i % (QD / 8), pos = c + r;
       const bool ok = pos < hi_s, cached = pos < fresh_at;
       const size_t f = (size_t)(pos - fresh_at) * K + 8 * c8;  // its fresh row's chunk
       const __nv_bfloat16* ks = !ok ? a.k : cached ? krows(pos) + 8 * c8 : kn + f;
       const __nv_bfloat16* vs = !ok ? a.v : cached ? vrows(pos) + 8 * c8 : vn + f;
-      const int at = r * HD + ((c8 ^ (r & 7)) << 3);
+      const int at = (c8 >> 3) * (BF_HALF / 2) + r * 64 + (((c8 & 7) ^ (r & 7)) << 3);
       cp_async16(s.k + at, ks, ok);
       cp_async16(s.v + at, vs, ok);
     }
@@ -777,7 +803,8 @@ __device__ __forceinline__ void bf16_body(const AttnArgs& a, int R, const Maps& 
   }
   // ldmatrix addresses within a tile: K (positions 8 (lane / 16) + lane % 8,
   // chunk 2 kk + lane / 8 % 2) and V (positions lane % 8 + 8 (lane / 8 % 2),
-  // chunk 2 np + lane / 16), each chunk at its swizzled place
+  // chunk 2 np + lane / 16), each chunk at its swizzled place in half kk / 4
+  // (np / 4)
   const int k_row = 8 * (lane >> 4) + (lane & 7), k_c = (lane >> 3) & 1;
   const int v_row = (lane & 7) + 8 * ((lane >> 3) & 1), v_c = lane >> 4;
   uint32_t phase = 0;  // the parity each stage's barrier waits for next
@@ -796,7 +823,7 @@ __device__ __forceinline__ void bf16_body(const AttnArgs& a, int R, const Maps& 
     const uint32_t ks = smem_u32(sm.ring[warp][st].k), vs = smem_u32(sm.ring[warp][st].v);
 
     // Each row tile: S = Q K^T (K words (ldmatrix, kk): positions 0-7 and
-    // 8-15, dims 16 kk .. 16 kk + 15), then the online softmax in the exp2
+    // 8-15, dims 16 kk .. 16 kk + 15, in half kk / 4), then the online softmax in the exp2
     // domain (sc[j][e]: row g + 8 (e >> 1), position c0 + 8 j + 2 t4 + (e &
     // 1)); P as the A fragment, bf16(p) as the reference.  A tile every row
     // of the warp sees whole skips the masks (the same arithmetic, so the
@@ -808,9 +835,10 @@ __device__ __forceinline__ void bf16_body(const AttnArgs& a, int R, const Maps& 
       if (r_block + 16 * mt >= GT) break;  // a row tile of padding only
       float sc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
+      for (int kk = 0; kk < QD / 16; ++kk) {
         uint32_t kb[4];
-        ldsm_x4_u32(kb, ks + k_row * 128 + (((2 * kk + k_c) ^ (k_row & 7)) << 4));
+        ldsm_x4_u32(kb, ks + (kk >> 2) * BF_HALF + k_row * 128 +
+                            (((2 * (kk & 3) + k_c) ^ (k_row & 7)) << 4));
         mma_bf16_16816(sc[0], qf[mt][kk], kb[0], kb[1]);
         mma_bf16_16816(sc[1], qf[mt][kk], kb[2], kb[3]);
       }
@@ -854,7 +882,7 @@ __device__ __forceinline__ void bf16_body(const AttnArgs& a, int R, const Maps& 
       pa[mt][3] = pack_bf16x2(sc[1][2], sc[1][3]);
       if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
 #pragma unroll
-        for (int n = 0; n < HD / 8; ++n) {
+        for (int n = 0; n < QD / 8; ++n) {
           o[mt][n][0] *= corr[0];
           o[mt][n][1] *= corr[0];
           o[mt][n][2] *= corr[1];
@@ -865,12 +893,13 @@ __device__ __forceinline__ void bf16_body(const AttnArgs& a, int R, const Maps& 
 
     // O += P V.  V words (ldmatrix.trans, np): positions 0-7 and 8-15 of
     // dims 16 np .. 16 np + 7 (n-block 2 np) and 16 np + 8 .. 16 np + 15
-    // (n-block 2 np + 1); o[mt][n][e] is row g + 8 (e >> 1), dim 8 n + 2 t4 +
-    // (e & 1)
+    // (n-block 2 np + 1), in half np / 4; o[mt][n][e] is row g + 8 (e >> 1),
+    // dim 8 n + 2 t4 + (e & 1)
 #pragma unroll
-    for (int np = 0; np < HD / 16; ++np) {
+    for (int np = 0; np < QD / 16; ++np) {
       uint32_t vb[4];
-      ldsm_x4_trans_u32(vb, vs + v_row * 128 + (((2 * np + v_c) ^ (v_row & 7)) << 4));
+      ldsm_x4_trans_u32(vb, vs + (np >> 2) * BF_HALF + v_row * 128 +
+                                (((2 * (np & 3) + v_c) ^ (v_row & 7)) << 4));
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
         if (r_block + 16 * mt >= GT) break;
@@ -894,7 +923,7 @@ __device__ __forceinline__ void bf16_body(const AttnArgs& a, int R, const Maps& 
     }
     __syncthreads();  // every warp's ring (or the last row tile's merge) is idle
 #pragma unroll
-    for (int n = 0; n < HD / 8; ++n)
+    for (int n = 0; n < QD / 8; ++n)
 #pragma unroll
       for (int i = 0; i < 2; ++i)
         *reinterpret_cast<float2*>(&sm.merge.o[warp][g + 8 * i][8 * n + 2 * t4]) =
@@ -907,9 +936,11 @@ __device__ __forceinline__ void bf16_body(const AttnArgs& a, int R, const Maps& 
       }
     }
     __syncthreads();
-    const int row = threadIdx.x >> 3, d0 = 8 * (threadIdx.x & 7);  // 16 rows x 8 chunks
-    const int gr = r_block + 16 * mt + row;
-    if (gr < GT) {
+    // 16 rows x QD / 8 chunks of 8 dims, NW * 32 a pass
+    for (int item = threadIdx.x; item < 16 * (QD / 8); item += NW * 32) {
+      const int row = item / (QD / 8), d0 = 8 * (item % (QD / 8));
+      const int gr = r_block + 16 * mt + row;
+      if (gr >= GT) continue;
       float mw[NW], mm = kNegInf;
 #pragma unroll
       for (int w = 0; w < NW; ++w) {
@@ -934,10 +965,10 @@ __device__ __forceinline__ void bf16_body(const AttnArgs& a, int R, const Maps& 
         v.y = pack_bf16x2(acc[2] * inv, acc[3] * inv);
         v.z = pack_bf16x2(acc[4] * inv, acc[5] * inv);
         v.w = pack_bf16x2(acc[6] * inv, acc[7] * inv);
-        const size_t at = (((size_t)b * a.T + gr / G) * a.Hq + h * G + gr % G) * HD + d0;
+        const size_t at = (((size_t)b * a.T + gr / G) * a.Hq + h * G + gr % G) * QD + d0;
         *reinterpret_cast<uint4*>(a.out + at) = v;
       } else {
-        float4* po = reinterpret_cast<float4*>(a.part_o + (part * R + gr) * HD + d0);
+        float4* po = reinterpret_cast<float4*>(a.part_o + (part * R + gr) * QD + d0);
         po[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
         po[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
         if (d0 == 0) {
@@ -951,22 +982,26 @@ __device__ __forceinline__ void bf16_body(const AttnArgs& a, int R, const Maps& 
 
 // Blocks an SM the launch bound asks for: quantized, three pair blocks (168
 // registers) or four one-head blocks, two pair blocks at head dim 128 (the
-// output of two heads takes 128 registers a thread); bf16, by its row tiles.
+// output of two heads takes 128 registers a thread); bf16, by its row tiles,
+// two at head dim 128 (8 KB stages: the shared memory holds two).
 constexpr int min_blocks(int FMT, int HEADS, int MT, int QD) {
-  return FMT == kBF16 ? (MT == 1 ? 4 : MT == 2 ? 3 : 2)
+  return FMT == kBF16 ? (QD > 64 ? 2 : MT == 1 ? 4 : MT == 2 ? 3 : 2)
                       : (QD > 64 ? 2 : HEADS == 1 ? 4 : 3);
 }
+static_assert(2 * (BF_SMEM<128> + 1024) <= 228 * 1024 &&
+                  2 * (QUANT_SMEM<false, 2, false, 128> + 1024) <= 228 * 1024,
+              "two head-dim-128 blocks an SM (the SM's 228 KB, 1 KB a block reserved)");
 
 // FMT kBF16: one kv head a block (HEADS 1), MT row tiles a warp, the tensor
 // maps of the layer's rows; kI8 / kI4: HEADS kv heads a block (INT4: the
-// packed pair), MT 1, the maps unused, BFS: bf16 scales, QD: the head dim.
+// packed pair), MT 1, the maps unused, BFS: bf16 scales; QD: the head dim.
 template <int FMT, int HEADS, int MT, bool PAGED, bool BFS = false, int QD = HD>
 __global__ void __launch_bounds__(NW * 32, min_blocks(FMT, HEADS, MT, QD))
     decode_sm90_kernel(const __grid_constant__ AttnArgs a, int R,
                        const __grid_constant__ Maps maps) {
   extern __shared__ __align__(16) unsigned char dq_smem[];
   if constexpr (FMT == kBF16)
-    bf16_body<MT, PAGED>(a, R, maps, dq_smem);
+    bf16_body<MT, PAGED, QD>(a, R, maps, dq_smem);
   else
     quant_body<FMT == kI4, HEADS, PAGED, BFS, QD>(a, R, dq_smem);
 }
@@ -1013,14 +1048,15 @@ bool quant_args(AttnArgs& a, const void* q, const void* k, const void* v, const 
   return true;
 }
 
-// The bf16 operands (K1, B12's bf16 pool): q [B, T, Hq, 64]; k/v [L, B, S,
-// Hkv*64]; k_new/v_new [B, T, Hkv*64] or both null; base_lens [B]; out [B,
-// T, Hq, 64]; the partials as above.  G*T <= 128 rows.
+// The bf16 operands (K1, B12's bf16 pool): q [B, T, Hq, QD]; k/v [L, B, S,
+// Hkv*QD]; k_new/v_new [B, T, Hkv*QD] or both null; base_lens [B]; out [B,
+// T, Hq, QD]; the partials as above.  G*T <= 128 rows.
+template <int QD>
 bool dense_args(AttnArgs& a, const void* q, const void* k, const void* v, const void* k_new,
                 const void* v_new, const void* base_lens, void* out, void* part_o,
                 void* part_ml, int layer, int B, int S, int T, int Hq, int Hkv, int hd,
                 int nsplit, int chunk) {
-  if (hd != HD || Hkv < 1 || Hq % Hkv != 0 || T < 1 || T > 16 || (Hq / Hkv) * T > 128 ||
+  if (hd != QD || Hkv < 1 || Hq % Hkv != 0 || T < 1 || T > 16 || (Hq / Hkv) * T > 128 ||
       nsplit < 1 || chunk < NR || chunk % NR != 0 || (long long)nsplit * chunk < S ||
       (k_new == nullptr) != (v_new == nullptr))
     return false;
@@ -1090,36 +1126,76 @@ int launch(const AttnArgs& a, cudaStream_t stream) {
                                                           QUANT_SMEM<false, 1, BFS, QD>, stream);
 }
 
-// bf16: one block a kv head, min(row tiles, MT_MAX) row tiles a warp
-template <bool PAGED>
+// bf16: one block a kv head, min(row tiles, MT_MAX) row tiles a warp (head
+// dim 128: one)
+template <bool PAGED, int QD>
 int launch_bf16(const AttnArgs& a, const Maps& maps, cudaStream_t stream) {
-  const int tiles = ((a.Hq / a.Hkv) * a.T + 15) / 16;
-  if (tiles == 1) return launch_kernel<kBF16, 1, 1, PAGED>(a, maps, BF_SMEM, stream);
-  if (tiles == 2) return launch_kernel<kBF16, 1, 2, PAGED>(a, maps, BF_SMEM, stream);
-  return launch_kernel<kBF16, 1, MT_MAX, PAGED>(a, maps, BF_SMEM, stream);
+  if constexpr (QD > 64) {
+    return launch_kernel<kBF16, 1, 1, PAGED, false, QD>(a, maps, BF_SMEM<QD>, stream);
+  } else {
+    const int tiles = ((a.Hq / a.Hkv) * a.T + 15) / 16;
+    if (tiles == 1) return launch_kernel<kBF16, 1, 1, PAGED>(a, maps, BF_SMEM<QD>, stream);
+    if (tiles == 2) return launch_kernel<kBF16, 1, 2, PAGED>(a, maps, BF_SMEM<QD>, stream);
+    return launch_kernel<kBF16, 1, MT_MAX, PAGED>(a, maps, BF_SMEM<QD>, stream);
+  }
 }
 
 // The map of `planes` x `rows` rows of `cols` bf16 values (one layer's k or
-// v), box {HD, NR, 1}, 128-byte swizzle; encoded once per (pointer, shape).
+// v), box {64, NR, 1} (128 bytes a row: a tile's half), 128-byte swizzle;
+// encoded once per (pointer, shape).
 CUresult rows_map(CUtensorMap* map, const void* ptr, int cols, int rows, int planes) {
   return sm90::cached_map(map, std::make_tuple(ptr, cols, rows, planes), [&](CUtensorMap* m) {
-    return sm90::encode_3d(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, ptr, 2, cols, rows, planes, HD,
+    return sm90::encode_3d(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, ptr, 2, cols, rows, planes, 64,
                            NR, CU_TENSOR_MAP_SWIZZLE_128B);
   });
 }
 
-// The maps of layer a.layer of caches k/v, whose layers hold `planes` x
-// `rows` rows (contiguous: B x S; a pool: P x ps); none when no tile can
-// take a box.
+// The maps of layer a.layer of caches k/v of head dim QD, whose layers hold
+// `planes` x `rows` rows (contiguous: B x S; a pool: P x ps); none when no
+// tile can take a box.
+template <int QD>
 CUresult layer_maps(Maps& maps, const AttnArgs& a, int planes, int rows, bool boxes) {
   maps = Maps{};
   if (!boxes) return CUDA_SUCCESS;
-  const int K = a.Hkv * HD;
+  const int K = a.Hkv * QD;
   const size_t layer = (size_t)a.layer * planes * rows * K;
   CUresult enc = rows_map(&maps.k, a.k + layer, K, rows, planes);
   if (enc == CUDA_SUCCESS) enc = rows_map(&maps.v, a.v + layer, K, rows, planes);
   maps.tma = enc == CUDA_SUCCESS;
   return enc;
+}
+
+// K1 and B12's bf16 pool at head dim QD (md_decode_attend,
+// md_paged_decode_attend and their _hd128 entries below).
+template <int QD>
+int dense_contiguous(const void* q, const void* k, const void* v, const void* k_new,
+                     const void* v_new, const void* base_lens, void* out, void* part_o,
+                     void* part_ml, int layer, int B, int S, int T, int Hq, int Hkv, int hd,
+                     int nsplit, int chunk, void* stream) {
+  AttnArgs a;
+  if (!dense_args<QD>(a, q, k, v, k_new, v_new, base_lens, out, part_o, part_ml, layer, B, S, T,
+                      Hq, Hkv, hd, nsplit, chunk))
+    return (int)cudaErrorInvalidValue;
+  Maps maps;
+  const CUresult enc = layer_maps<QD>(maps, a, B, S, S >= NR);
+  if (enc != CUDA_SUCCESS) return sm90::kEncodeError + (int)enc;
+  return launch_bf16<false, QD>(a, maps, static_cast<cudaStream_t>(stream));
+}
+
+template <int QD>
+int dense_paged(const void* q, const void* k_pool, const void* v_pool, const void* table,
+                const void* k_new, const void* v_new, const void* base_lens, void* out,
+                void* part_o, void* part_ml, int layer, int B, int P, int ps, int npr, int T,
+                int Hq, int Hkv, int hd, int nsplit, int chunk, void* stream) {
+  AttnArgs a;
+  if (!dense_args<QD>(a, q, k_pool, v_pool, k_new, v_new, base_lens, out, part_o, part_ml,
+                      layer, B, npr * ps, T, Hq, Hkv, hd, nsplit, chunk) ||
+      !paged_shape(a, table, P, ps, npr))
+    return (int)cudaErrorInvalidValue;
+  Maps maps;
+  const CUresult enc = layer_maps<QD>(maps, a, P, ps, ps % NR == 0);
+  if (enc != CUDA_SUCCESS) return sm90::kEncodeError + (int)enc;
+  return launch_bf16<true, QD>(a, maps, static_cast<cudaStream_t>(stream));
 }
 
 template <bool INT4, bool BFS, int QD = HD>
@@ -1160,41 +1236,29 @@ int paged(const void* q, const void* k_pool, const void* v_pool, const void* k_s
 // T, Hq, hd], the partials part_o/part_ml of nsplit splits of `chunk`
 // positions (a multiple of 16).  Returns cudaGetLastError(), or 0x10000 +
 // the CUresult of a failed tensor-map encode.
-extern "C" int md_decode_attend(const void* q, const void* k, const void* v, const void* k_new,
-                                const void* v_new, const void* base_lens, void* out,
-                                void* part_o, void* part_ml, int layer, int B, int S, int T,
-                                int Hq, int Hkv, int hd, int nsplit, int chunk, void* stream) {
-  using namespace md::dq90;
-  md::AttnArgs a;
-  if (!dense_args(a, q, k, v, k_new, v_new, base_lens, out, part_o, part_ml, layer, B, S, T, Hq,
-                  Hkv, hd, nsplit, chunk))
-    return (int)cudaErrorInvalidValue;
-  Maps maps;
-  const CUresult enc = layer_maps(maps, a, B, S, S >= NR);
-  if (enc != CUDA_SUCCESS) return md::sm90::kEncodeError + (int)enc;
-  return launch_bf16<false>(a, maps, static_cast<cudaStream_t>(stream));
-}
+#define MD_DECODE_BF16(NAME, QD)                                                          \
+  extern "C" int NAME(const void* q, const void* k, const void* v, const void* k_new,      \
+                      const void* v_new, const void* base_lens, void* out, void* part_o,   \
+                      void* part_ml, int layer, int B, int S, int T, int Hq, int Hkv,      \
+                      int hd, int nsplit, int chunk, void* stream) {                       \
+    return md::dq90::dense_contiguous<QD>(q, k, v, k_new, v_new, base_lens, out, part_o,   \
+                                          part_ml, layer, B, S, T, Hq, Hkv, hd, nsplit,    \
+                                          chunk, stream);                                  \
+  }
 
 // B12 over a bf16 pool: as md_decode_attend, with k_pool/v_pool [L, P, ps,
 // Hkv*hd] read through table [B, npr] (S = npr * ps; a tile takes a box of
 // its page when ps is a multiple of 16).
-extern "C" int md_paged_decode_attend(const void* q, const void* k_pool, const void* v_pool,
-                                      const void* table, const void* k_new, const void* v_new,
-                                      const void* base_lens, void* out, void* part_o,
-                                      void* part_ml, int layer, int B, int P, int ps, int npr,
-                                      int T, int Hq, int Hkv, int hd, int nsplit, int chunk,
-                                      void* stream) {
-  using namespace md::dq90;
-  md::AttnArgs a;
-  if (!dense_args(a, q, k_pool, v_pool, k_new, v_new, base_lens, out, part_o, part_ml, layer, B,
-                  npr * ps, T, Hq, Hkv, hd, nsplit, chunk) ||
-      !md::paged_shape(a, table, P, ps, npr))
-    return (int)cudaErrorInvalidValue;
-  Maps maps;
-  const CUresult enc = layer_maps(maps, a, P, ps, ps % NR == 0);
-  if (enc != CUDA_SUCCESS) return md::sm90::kEncodeError + (int)enc;
-  return launch_bf16<true>(a, maps, static_cast<cudaStream_t>(stream));
-}
+#define MD_PAGED_BF16(NAME, QD)                                                           \
+  extern "C" int NAME(const void* q, const void* k_pool, const void* v_pool,               \
+                      const void* table, const void* k_new, const void* v_new,             \
+                      const void* base_lens, void* out, void* part_o, void* part_ml,       \
+                      int layer, int B, int P, int ps, int npr, int T, int Hq, int Hkv,    \
+                      int hd, int nsplit, int chunk, void* stream) {                       \
+    return md::dq90::dense_paged<QD>(q, k_pool, v_pool, table, k_new, v_new, base_lens,    \
+                                     out, part_o, part_ml, layer, B, P, ps, npr, T, Hq,    \
+                                     Hkv, hd, nsplit, chunk, stream);                      \
+  }
 
 // K1q: q [B, T, Hq, hd] bf16, k/v int8 [L, B, S, Hkv*hd] with f32 scales
 // k_scale/v_scale [L, B, Hkv, S], k_new/v_new [B, T, Hkv*hd] with
@@ -1202,7 +1266,8 @@ extern "C" int md_paged_decode_attend(const void* q, const void* k_pool, const v
 // the partials part_o/part_ml of nsplit splits of `chunk` positions (a
 // multiple of 16).  Returns cudaGetLastError().  The _bf16s entries take
 // bf16 scales (the cache's and the fresh rows'), the arguments otherwise
-// the same.
+// the same.  B10: packed int4 k/v [L, B, S, (Hkv/2)*hd] (+ k_new/v_new [B,
+// T, (Hkv/2)*hd]); Hkv even.
 #define MD_DECODE_QUANT(NAME, INT4, BFS, QD)                                              \
   extern "C" int NAME(const void* q, const void* k, const void* v, const void* k_scale,    \
                       const void* v_scale, const void* k_new, const void* v_new,           \
@@ -1215,14 +1280,6 @@ extern "C" int md_paged_decode_attend(const void* q, const void* k_pool, const v
                                                part_ml, layer, B, S, T, Hq, Hkv, hd,       \
                                                nsplit, chunk, stream);                     \
   }
-MD_DECODE_QUANT(md_decode_attend_quant, false, false, 64)
-MD_DECODE_QUANT(md_decode_attend_quant_bf16s, false, true, 64)
-// B10: as md_decode_attend_quant, with packed int4 k/v [L, B, S,
-// (Hkv/2)*hd] (+ k_new/v_new [B, T, (Hkv/2)*hd]); Hkv even.  The _hd128
-// entry: head dim 128 (f32 scales); the others take head dim 64.
-MD_DECODE_QUANT(md_decode_attend_quant4, true, false, 64)
-MD_DECODE_QUANT(md_decode_attend_quant4_bf16s, true, true, 64)
-MD_DECODE_QUANT(md_decode_attend_quant4_hd128, true, false, 128)
 
 // B12 over an int8 pool (INT4 = 0) or an int4 pool packed in head pairs:
 // as md_decode_attend_quant{,4}, with the pools [L, P, ps, Kc] and the scale
@@ -1240,8 +1297,18 @@ MD_DECODE_QUANT(md_decode_attend_quant4_hd128, true, false, 128)
                                           part_o, part_ml, layer, B, P, ps, npr, T, Hq,    \
                                           Hkv, hd, nsplit, chunk, stream);                 \
   }
+
+// The head-dim-64 entries; decode_attention_hd128_sm90.cu defines
+// MD_HD128_UNIT and builds the _hd128 ones from the same bodies.
+#ifndef MD_HD128_UNIT
+MD_DECODE_BF16(md_decode_attend, 64)
+MD_PAGED_BF16(md_paged_decode_attend, 64)
+MD_DECODE_QUANT(md_decode_attend_quant, false, false, 64)
+MD_DECODE_QUANT(md_decode_attend_quant_bf16s, false, true, 64)
+MD_DECODE_QUANT(md_decode_attend_quant4, true, false, 64)
+MD_DECODE_QUANT(md_decode_attend_quant4_bf16s, true, true, 64)
 MD_PAGED_QUANT(md_paged_decode_attend_quant, false, false, 64)
 MD_PAGED_QUANT(md_paged_decode_attend_quant_bf16s, false, true, 64)
 MD_PAGED_QUANT(md_paged_decode_attend_quant4, true, false, 64)
 MD_PAGED_QUANT(md_paged_decode_attend_quant4_bf16s, true, true, 64)
-MD_PAGED_QUANT(md_paged_decode_attend_quant4_hd128, true, false, 128)
+#endif

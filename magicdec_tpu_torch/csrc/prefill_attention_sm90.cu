@@ -4,8 +4,9 @@
 //
 // Replaces magicdec_tpu/ops/pallas/prefill_attention.py flash_prefill_attend
 // (_prefill_kernel), flash_prefill_attend_quant (_prefill_quant_kernel) and
-// flash_prefill_attend_quant4 (_prefill_quant4_kernel; at head dim 64, and
-// the int4 one at 128 too), the quantized ones
+// flash_prefill_attend_quant4 (_prefill_quant4_kernel), at head dim 64 and
+// 128 (prefill_attention_hd128_sm90.cu builds the head-dim-128 instances of
+// this file's kernel in a translation unit of its own), the quantized ones
 // with the scale order of decode_attention.py _quant_online_update.  A
 // C-token chunk of request b attends the cache rows [0, base_b) of layer
 // `layer` plus its own fresh rows [base_b, base_b + C) (or, without fresh
@@ -78,13 +79,15 @@
 //   token's limit, the row maxima and sums as trees.
 // - Bits.  No atomics and no split of the KV range: every launch on the same
 //   inputs gives the same bits (the encode and encode_baseline contract).
-// - Head dim 128 (B11's instance, the 8B target's int4 cache; Geo<128>): a
+// - Head dim 128 (Geo<128>: K2, K2q, B11, the 7B/8B targets' caches): a
 //   tile keeps its bytes at 64 positions, so the stages, the ring and the
 //   consumers' registers (S 32, O 64, P 16) stay in budget beside a Q of
 //   48 KB; a 128-value bf16 row is two 64-value halves of 128 bytes under
 //   the swizzle (TMA's widest box), Q and K walk k16 steps 0-3 in the first
 //   half and 4-7 in the second, and P.V runs one m64n64k16 a half of V
-//   into its half of O.
+//   into its half of O.  The bf16 producer lands a tile as two boxes of k
+//   and two of v, one a half, and writes its hand-made tiles (zeros from
+//   the visible end on) in the same halves.
 #include <tuple>
 
 #include "attention_common.cuh"
@@ -104,7 +107,7 @@ constexpr int I8_STAGES = 4;                // int8 tiles in flight (TMA)
 constexpr int BF_STAGES = 3;                // converted tiles ready for wgmma
 constexpr int NBARS = I8_STAGES + 2 * BF_STAGES;
 
-// The geometry of the instance of head dim HD (64: K2, K2q, B11; 128: B11).
+// The geometry of the instance of head dim HD (64 or 128).
 // A tile keeps its bytes: 128 positions at head dim 64, 64 at 128, so the
 // stages and the consumers' score registers fit either way.  A bf16 row of
 // 128 values is 256 bytes, past the 128-byte swizzle's box: Q, K and V
@@ -155,8 +158,8 @@ constexpr int BAR_PRODUCER = 1;
 constexpr int BAR_Q = 2;
 
 struct Args {
-  CUtensorMap kmap, vmap;    // layer's cache [B, S, Kw], box {HD, BN, 1} (bf16: 128-byte swizzle)
-                             // (HD, BN: the instance's Geo)
+  CUtensorMap kmap, vmap;    // layer's cache [B, S, Kw], box {HD, BN, 1} (bf16: {64, BN, 1}, a
+                             // tile's half, 128-byte swizzle) (HD, BN: the instance's Geo)
   CUtensorMap knmap, vnmap;  // fresh rows [B, T, Kw], same box (with fresh rows)
   const __nv_bfloat16* q;    // [B, T, Hq, HD]
   const uint8_t* k;          // the layer's cache [B, S, Kw] (bf16: the producer's own loads)
@@ -399,11 +402,10 @@ __device__ __forceinline__ float load_scale(const void* scale, size_t i) {
 
 // Grid (row blocks, Hkv, B), NTHREADS threads: warpgroups 0 .. NCONS - 1
 // consume (64 rows each), warpgroup NCONS produces; BFS: bf16 scales; HD:
-// the head dim (128: the quantized formats only).
+// the head dim.
 template <int FMT, bool BFS = false, int HD = 64>
 __global__ void __launch_bounds__(NTHREADS, 1) prefill_sm90_kernel(const __grid_constant__ Args a) {
   constexpr bool INT4 = FMT == kI4, Q8 = FMT != kBF16;
-  static_assert(HD == 64 || Q8, "the bf16 producer writes 64-value rows");
   using Gm = Geo<HD>;
   constexpr int BN = Gm::BN, NS = Gm::NS, HALVES = Gm::HALVES, HALF = Gm::HALF;
   constexpr int I8_TILE = Gm::I8_TILE, BF_TILE = Gm::BF_TILE, BF_OFF = Gm::BF_OFF;
@@ -454,7 +456,10 @@ __global__ void __launch_bounds__(NTHREADS, 1) prefill_sm90_kernel(const __grid_
         prefetch_map(&a.vnmap);
       }
     }
-    const int c16 = p & 7;  // this thread's 16-byte chunk of every row
+    // this thread's 16-byte chunk c16 (of CPR a row, in half c16 / 8) of rows
+    // p / CPR + RSTEP k
+    constexpr int CPR = HD / 8, RSTEP = 128 / CPR;
+    const int c16 = p % CPR;
     const size_t col = (size_t)h * HD + c16 * 8;
     for (int i = 0; i < ntiles; ++i) {
       const int c0 = i * BN, s = i % BF_STAGES;
@@ -471,24 +476,30 @@ __global__ void __launch_bounds__(NTHREADS, 1) prefill_sm90_kernel(const __grid_
         mbar_expect_tx(full, 2 * BF_TILE);
         const bool from_new = fresh && c0 >= base;
         const int row = from_new ? c0 - base : c0;
-        tma_load_3d(dst, from_new ? &a.knmap : &a.kmap, full, h * HD, row, b);
-        tma_load_3d(dst + BF_TILE, from_new ? &a.vnmap : &a.vmap, full, h * HD, row, b);
+#pragma unroll
+        for (int hf = 0; hf < HALVES; ++hf) {
+          tma_load_3d(dst + hf * HALF, from_new ? &a.knmap : &a.kmap, full, h * HD + 64 * hf,
+                      row, b);
+          tma_load_3d(dst + BF_TILE + hf * HALF, from_new ? &a.vnmap : &a.vmap, full,
+                      h * HD + 64 * hf, row, b);
+        }
         continue;
       }
       // row c0 + r: fresh row r + c0 - base from base on, a cache row below
-      // the visible end, else zeros; 128 bytes a row, 16-byte chunk c at c ^
-      // r % 8 (the 128-byte swizzle TMA writes); four loads in flight
-      uint8_t* tile = smem + BF_OFF + s * BF_STAGE;
+      // the visible end, else zeros; each half 128 bytes a row, 16-byte
+      // chunk c at c ^ r % 8 (the 128-byte swizzle TMA writes); four loads
+      // in flight
+      uint8_t* tile = smem + BF_OFF + s * BF_STAGE + (c16 >> 3) * HALF;
 #pragma unroll
       for (int kv = 0; kv < 2; ++kv) {
         const uint8_t* cache = kv ? a.v : a.k;
         const uint8_t* fr = kv ? a.v_new : a.k_new;
 #pragma unroll
-        for (int k0 = 0; k0 < BN / 16; k0 += 4) {
+        for (int k0 = 0; k0 < BN / RSTEP; k0 += 4) {
           uint4 v[4];
 #pragma unroll
           for (int k = 0; k < 4; ++k) {
-            const int r = c0 + (p >> 3) + 16 * (k0 + k);
+            const int r = c0 + p / CPR + RSTEP * (k0 + k);
             v[k] = make_uint4(0, 0, 0, 0);
             if (fresh && r >= base) {
               if (r - base < a.T)
@@ -501,9 +512,9 @@ __global__ void __launch_bounds__(NTHREADS, 1) prefill_sm90_kernel(const __grid_
           }
 #pragma unroll
           for (int k = 0; k < 4; ++k) {
-            const int r = (p >> 3) + 16 * (k0 + k);
-            *reinterpret_cast<uint4*>(tile + kv * BF_TILE + r * 128 + ((c16 ^ (r & 7)) << 4)) =
-                v[k];
+            const int r = p / CPR + RSTEP * (k0 + k);
+            *reinterpret_cast<uint4*>(tile + kv * BF_TILE + r * 128 +
+                                      (((c16 & 7) ^ (r & 7)) << 4)) = v[k];
           }
         }
       }
@@ -746,12 +757,13 @@ static CUresult rows_map(CUtensorMap* map, const void* ptr, int cols, int rows, 
 }
 
 // The same over bf16 values, the 128-byte swizzle the consumers' wgmma
-// reads (head dim 64: a box is one 128-byte row of 64 values).
+// reads: a box is BN rows of 64 values (128 bytes), one half of a tile's
+// rows (head dim 64: the whole row).
 template <int HD>
 static CUresult bf16_rows_map(CUtensorMap* map, const void* ptr, int cols, int rows,
                               int planes) {
   return cached_map(map, std::make_tuple(ptr, cols, rows, planes), [&](CUtensorMap* m) {
-    return encode_3d(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, ptr, 2, cols, rows, planes, HD,
+    return encode_3d(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, ptr, 2, cols, rows, planes, 64,
                      Geo<HD>::BN, CU_TENSOR_MAP_SWIZZLE_128B);
   });
 }
@@ -808,83 +820,43 @@ static int prefill(const void* q, const void* k, const void* v, const void* k_sc
 }  // namespace pfa
 }  // namespace md
 
-// K2: q [B, T, Hq, 64] bf16; k/v bf16 [L, B, S, Hkv*64]; k_new/v_new bf16
-// [B, T, Hkv*64], or both null; base_lens [B]; out [B, T, Hq, 64].  Returns
+// K2: q [B, T, Hq, hd] bf16; k/v bf16 [L, B, S, Hkv*hd]; k_new/v_new bf16
+// [B, T, Hkv*hd], or both null; base_lens [B]; out [B, T, Hq, hd].  Returns
 // cudaGetLastError(), or 0x10000 + the CUresult of a failed tensor-map
 // encode.
-extern "C" int md_prefill_attend(const void* q, const void* k, const void* v, const void* k_new,
-                                 const void* v_new, const void* base_lens, void* out, int layer,
-                                 int B, int S, int T, int Hq, int Hkv, int hd, void* stream) {
-  return md::pfa::prefill<md::pfa::kBF16>(q, k, v, nullptr, nullptr, k_new, v_new, nullptr,
-                                          nullptr, base_lens, out, layer, B, S, T, Hq, Hkv, hd,
-                                          static_cast<cudaStream_t>(stream));
-}
+#define MD_PREFILL_BF16(NAME, HD)                                                          \
+  extern "C" int NAME(const void* q, const void* k, const void* v, const void* k_new,       \
+                      const void* v_new, const void* base_lens, void* out, int layer, int B, \
+                      int S, int T, int Hq, int Hkv, int hd, void* stream) {                \
+    return md::pfa::prefill<md::pfa::kBF16, false, HD>(                                     \
+        q, k, v, nullptr, nullptr, k_new, v_new, nullptr, nullptr, base_lens, out, layer, B, \
+        S, T, Hq, Hkv, hd, static_cast<cudaStream_t>(stream));                              \
+  }
 
-// K2q: q [B, T, Hq, 64] bf16; k/v int8 [L, B, S, Hkv*64] with f32 scales
-// k_scale/v_scale [L, B, Hkv, S]; k_new/v_new [B, T, Hkv*64] and
+// K2q (FMT kI8): q [B, T, Hq, hd] bf16; k/v int8 [L, B, S, Hkv*hd] with f32
+// scales k_scale/v_scale [L, B, Hkv, S]; k_new/v_new [B, T, Hkv*hd] and
 // ks_new/vs_new [B, Hkv, T], or all four null; base_lens [B]; out [B, T, Hq,
-// 64].  Returns as md_prefill_attend.
-extern "C" int md_prefill_attend_quant(const void* q, const void* k, const void* v,
-                                       const void* k_scale, const void* v_scale,
-                                       const void* k_new, const void* v_new,
-                                       const void* ks_new, const void* vs_new,
-                                       const void* base_lens, void* out, int layer, int B,
-                                       int S, int T, int Hq, int Hkv, int hd, void* stream) {
-  return md::pfa::prefill<md::pfa::kI8>(q, k, v, k_scale, v_scale, k_new, v_new, ks_new, vs_new,
-                                        base_lens, out, layer, B, S, T, Hq, Hkv, hd,
-                                        static_cast<cudaStream_t>(stream));
-}
+// hd].  B11 (kI4): packed int4 k/v [L, B, S, (Hkv/2)*hd] (+ k_new/v_new [B,
+// T, (Hkv/2)*hd]); Hkv even.  BFS (the _bf16s entries): bf16 scales (the
+// cache's and the fresh rows').  Returns as md_prefill_attend.
+#define MD_PREFILL_QUANT(NAME, FMT, BFS, HD)                                              \
+  extern "C" int NAME(const void* q, const void* k, const void* v, const void* k_scale,    \
+                      const void* v_scale, const void* k_new, const void* v_new,           \
+                      const void* ks_new, const void* vs_new, const void* base_lens,       \
+                      void* out, int layer, int B, int S, int T, int Hq, int Hkv, int hd,  \
+                      void* stream) {                                                      \
+    return md::pfa::prefill<md::pfa::FMT, BFS, HD>(q, k, v, k_scale, v_scale, k_new, v_new, \
+                                                    ks_new, vs_new, base_lens, out, layer,  \
+                                                    B, S, T, Hq, Hkv, hd,                   \
+                                                    static_cast<cudaStream_t>(stream));     \
+  }
 
-// B11: as md_prefill_attend_quant over packed int4 k/v [L, B, S, (Hkv/2)*64]
-// (+ k_new/v_new [B, T, (Hkv/2)*64]); Hkv must be even.
-extern "C" int md_prefill_attend_quant4(const void* q, const void* k, const void* v,
-                                        const void* k_scale, const void* v_scale,
-                                        const void* k_new, const void* v_new,
-                                        const void* ks_new, const void* vs_new,
-                                        const void* base_lens, void* out, int layer, int B,
-                                        int S, int T, int Hq, int Hkv, int hd, void* stream) {
-  return md::pfa::prefill<md::pfa::kI4>(q, k, v, k_scale, v_scale, k_new, v_new, ks_new, vs_new,
-                                        base_lens, out, layer, B, S, T, Hq, Hkv, hd,
-                                        static_cast<cudaStream_t>(stream));
-}
-
-// B11 at head dim 128: as md_prefill_attend_quant4, with q [B, T, Hq,
-// 128], k/v [L, B, S, (Hkv/2)*128] and out [B, T, Hq, 128] (f32 scales).
-extern "C" int md_prefill_attend_quant4_hd128(const void* q, const void* k, const void* v,
-                                              const void* k_scale, const void* v_scale,
-                                              const void* k_new, const void* v_new,
-                                              const void* ks_new, const void* vs_new,
-                                              const void* base_lens, void* out, int layer,
-                                              int B, int S, int T, int Hq, int Hkv, int hd,
-                                              void* stream) {
-  return md::pfa::prefill<md::pfa::kI4, false, 128>(q, k, v, k_scale, v_scale, k_new, v_new,
-                                                    ks_new, vs_new, base_lens, out, layer, B, S,
-                                                    T, Hq, Hkv, hd,
-                                                    static_cast<cudaStream_t>(stream));
-}
-
-// K2q and B11 over bf16 scales (k_scale/v_scale and ks_new/vs_new bf16),
-// the arguments otherwise md_prefill_attend_quant{,4}'s.
-extern "C" int md_prefill_attend_quant_bf16s(const void* q, const void* k, const void* v,
-                                             const void* k_scale, const void* v_scale,
-                                             const void* k_new, const void* v_new,
-                                             const void* ks_new, const void* vs_new,
-                                             const void* base_lens, void* out, int layer,
-                                             int B, int S, int T, int Hq, int Hkv, int hd,
-                                             void* stream) {
-  return md::pfa::prefill<md::pfa::kI8, true>(q, k, v, k_scale, v_scale, k_new, v_new, ks_new,
-                                              vs_new, base_lens, out, layer, B, S, T, Hq, Hkv,
-                                              hd, static_cast<cudaStream_t>(stream));
-}
-
-extern "C" int md_prefill_attend_quant4_bf16s(const void* q, const void* k, const void* v,
-                                              const void* k_scale, const void* v_scale,
-                                              const void* k_new, const void* v_new,
-                                              const void* ks_new, const void* vs_new,
-                                              const void* base_lens, void* out, int layer,
-                                              int B, int S, int T, int Hq, int Hkv, int hd,
-                                              void* stream) {
-  return md::pfa::prefill<md::pfa::kI4, true>(q, k, v, k_scale, v_scale, k_new, v_new, ks_new,
-                                              vs_new, base_lens, out, layer, B, S, T, Hq, Hkv,
-                                              hd, static_cast<cudaStream_t>(stream));
-}
+// The head-dim-64 entries; prefill_attention_hd128_sm90.cu defines
+// MD_HD128_UNIT and builds the _hd128 ones from the same kernel.
+#ifndef MD_HD128_UNIT
+MD_PREFILL_BF16(md_prefill_attend, 64)
+MD_PREFILL_QUANT(md_prefill_attend_quant, kI8, false, 64)
+MD_PREFILL_QUANT(md_prefill_attend_quant_bf16s, kI8, true, 64)
+MD_PREFILL_QUANT(md_prefill_attend_quant4, kI4, false, 64)
+MD_PREFILL_QUANT(md_prefill_attend_quant4_bf16s, kI4, true, 64)
+#endif

@@ -64,27 +64,19 @@ def scale_entry(entry: str, *scales) -> str:
     return entry + ("_bf16s" if dtypes == {torch.bfloat16} else "")
 
 
-# The attention kernels' C entry points that have a head-dim-128 instance
-# (``<entry>_hd128``, f32 scales); every other attention entry point, and
-# every bf16-scale instance, takes head dim 64 only.
-HD128_ENTRIES = frozenset({"md_decode_attend_quant4", "md_prefill_attend_quant4",
-                           "md_paged_decode_attend_quant4"})
-HD128_ITEM = "ROADMAP item A16"  # the head-dim-128 instances still to port
+HEAD_DIMS = (64, 128)  # the head dims the attention kernels take
 
 
 def head_dim_entry(entry: str, hd: int) -> str:
     """The instance of attention entry point ``entry`` (after ``scale_entry``)
-    for head dim ``hd``: ``entry`` at 64, ``entry + '_hd128'`` at 128 where
-    the kernel has that instance.  Any other head dim raises here, before
-    any launch, naming the ROADMAP item."""
-    if hd == 64:
-        return entry
-    if hd == 128 and entry in HD128_ENTRIES:
-        return entry + "_hd128"
-    raise ValueError(
-        f"{entry}: no instance for head dim {hd} (the attention kernels take head dim 64; "
-        f"B10, B11 and B12's int4 pool also 128, on f32 scales); the other head-dim-128 "
-        f"instances are {HD128_ITEM}")
+    for head dim ``hd``: ``entry`` at 64, ``entry + '_hd128'`` at 128 (every
+    attention entry and bf16-scale form has one, ``build.SIGNATURES``).  Any
+    other head dim raises here, before any launch, naming the head dims the
+    kernels take."""
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"{entry}: no instance for head dim {hd} (the attention kernels "
+                         f"take head dims {' and '.join(map(str, HEAD_DIMS))})")
+    return entry if hd == 64 else entry + "_hd128"
 
 
 def count_launch(wrapper, entry: str) -> None:
@@ -92,7 +84,7 @@ def count_launch(wrapper, entry: str) -> None:
     ``bf16_scale_launches`` when ``entry`` is a bf16-scale instance and its
     ``hd128_launches`` when it is a head-dim-128 instance."""
     wrapper.launches += 1
-    if entry.endswith("_bf16s"):
+    if "_bf16s" in entry:
         wrapper.bf16_scale_launches += 1
     if entry.endswith("_hd128"):
         wrapper.hd128_launches += 1

@@ -17,9 +17,10 @@ several blocks; a second pass merges their softmax partials — see the
 source for the design.  K1 splits by ``split_plan`` (a block a kv head,
 three blocks an SM at most), K1q and B10 by ``quant_split_plan`` (a block a
 pair of kv heads, or one int8 head when Hkv is odd, one wave).  Every kernel
-takes head dim 64; B10 also 128 (its ``_hd128`` instance, f32 scales: the
-8B target's int4 cache); any other head dim raises before a launch
-(``kernels.head_dim_entry``).
+takes head dim 64 and 128 (its ``_hd128`` instance, on either scale dtype:
+the 7B/8B targets' caches, built from ``csrc/decode_attention_hd128_sm90.cu``
+and counted in each wrapper's ``hd128_launches``); any other head dim
+raises before a launch (``kernels.head_dim_entry``).
 """
 
 from __future__ import annotations
@@ -43,8 +44,8 @@ from magicdec_tpu_torch.ops.kv_cache import (append_rows_all_layers,
 # `decode_variants --blocks`).
 PLAN_ROUND = 64
 PLAN_BLOCKS = 3 * 132
-# the head-dim-128 quantized instance holds two pair blocks an SM (its
-# registers: the output of two heads), so its plan aims at two an SM
+# the head-dim-128 instances hold two blocks an SM (quantized: the output of
+# two heads in registers; bf16: 8 KB stages), so their plans aim at two an SM
 PLAN_BLOCKS_HD128 = 2 * 132
 
 
@@ -56,14 +57,15 @@ def _plan(blocks: int, S: int, plan_blocks: int = PLAN_BLOCKS):
     return -(-S // chunk), chunk
 
 
-def split_plan(B: int, Hkv: int, S: int):
+def split_plan(B: int, Hkv: int, S: int, hd: int = 64):
     """(nsplit, chunk) of K1 and B12's bf16 pool (a block a kv head): KV
     splits per (request, kv head) and positions per split.  A function of
-    (B, Hkv, S) only: no host read of the lengths, nothing from T or the
-    query rows, and the same for a pool of npr pages of ps rows as for a
-    cache of S = npr * ps, so a verify row equals its autoregressive step
-    and a paged launch the contiguous one, bit for bit."""
-    return _plan(B * Hkv, S)
+    (B, Hkv, S) and the head dim only: no host read of the lengths, nothing
+    from T or the query rows, and the same for a pool of npr pages of ps
+    rows as for a cache of S = npr * ps, so a verify row equals its
+    autoregressive step and a paged launch the contiguous one, bit for bit
+    (head dim 128: two blocks an SM)."""
+    return _plan(B * Hkv, S, PLAN_BLOCKS_HD128 if hd == 128 else PLAN_BLOCKS)
 
 
 def quant_heads(Hkv: int) -> int:
@@ -95,7 +97,7 @@ def split_buffers(q, Hkv: int, S: int, quant: bool = False):
     ``quant_split_plan``) and, with more than one split, the f32 partials
     the combine pass merges (None otherwise)."""
     B, T, Hq, hd = q.shape
-    nsplit, chunk = quant_split_plan(B, Hkv, S, hd) if quant else split_plan(B, Hkv, S)
+    nsplit, chunk = quant_split_plan(B, Hkv, S, hd) if quant else split_plan(B, Hkv, S, hd)
     if nsplit == 1:
         return nsplit, chunk, None, None
     R = rows_pad(Hq // Hkv * T)
@@ -136,7 +138,7 @@ def flash_decode_attend(q, k_cache, v_cache, base_lens, *, layer=0,
     q [B, T, Hq, hd] (G*T <= 128 rows); k_cache/v_cache [L, B, S, Hkv*hd];
     base_lens [B] int32, the visible length before the window; k_new/v_new
     [B, T, Hkv*hd] the window's rows when the cache does not hold them yet.
-    Returns [B, T, Hq, hd] in q.dtype.
+    Returns [B, T, Hq, hd] in q.dtype; hd is 64 or 128 (``hd128_launches``).
     """
     if on_cpu(q, k_cache, v_cache, base_lens, k_new, v_new):
         return flash_decode_attend_plain(q, k_cache, v_cache, base_lens,
@@ -165,11 +167,12 @@ def flash_decode_attend(q, k_cache, v_cache, base_lens, *, layer=0,
         ptr(part_o), ptr(part_ml), layer, B, S, T, Hq, Hkv, hd, nsplit, chunk,
         build.stream_ptr(q))
     build.check(err, entry)
-    flash_decode_attend.launches += 1
+    count_launch(flash_decode_attend, entry)
     return out
 
 
 flash_decode_attend.launches = 0
+flash_decode_attend.hd128_launches = 0
 
 
 def visible_layer_quant(cache, scale, layer, rows, srows, base_lens):
@@ -242,8 +245,8 @@ def quant_fresh_operands(B, T, Hkv, K, k_new, v_new, ks_new, vs_new):
 def _launch_decode_quant(entry, q, k_cache, k_scale, v_cache, v_scale, base_lens, layer,
                          fresh, packed):
     """One launch of K1q (``md_decode_attend_quant``) or B10
-    (``md_decode_attend_quant4``), or their bf16-scale instances (B10 at
-    head dim 128: ``_hd128``); returns the output and the entry point
+    (``md_decode_attend_quant4``), or their bf16-scale instances, each at
+    head dim 64 or 128 (``_hd128``); returns the output and the entry point
     launched."""
     from magicdec_tpu_torch.kernels import build
 
@@ -274,7 +277,7 @@ def flash_decode_attend_quant(q, k_cache, k_scale, v_cache, v_scale, base_lens, 
     k_new/v_new int8 [B, T, Hkv*hd] with ks_new/vs_new [B, Hkv, T] in the
     scales' dtype: the window's rows when the cache does not hold them yet.
     Returns [B, T, Hq, hd] in q.dtype.  ``bf16_scale_launches`` counts the
-    launches on bf16 scales.
+    launches on bf16 scales, ``hd128_launches`` those at head dim 128.
     """
     if on_cpu(q, k_cache, k_scale, v_cache, v_scale, base_lens, k_new, v_new, ks_new,
               vs_new):
@@ -290,6 +293,7 @@ def flash_decode_attend_quant(q, k_cache, k_scale, v_cache, v_scale, base_lens, 
 
 flash_decode_attend_quant.launches = 0
 flash_decode_attend_quant.bf16_scale_launches = 0
+flash_decode_attend_quant.hd128_launches = 0
 
 # The plain versions dequantize by dequant_kv, which reads either layout.
 flash_decode_attend_quant4_plain = flash_decode_attend_quant_plain
@@ -303,8 +307,8 @@ def flash_decode_attend_quant4(q, k_cache, k_scale, v_cache, v_scale, base_lens,
     q [B, T, Hq, hd] bf16 (T <= 16); k_cache/v_cache int8 [L, B, S,
     (Hkv//2)*hd]; k_scale/v_scale f32 or bf16 [L, B, Hkv, S]; base_lens [B]
     int32; k_new/v_new packed int8 [B, T, (Hkv//2)*hd] with ks_new/vs_new
-    [B, Hkv, T].  Returns [B, T, Hq, hd] in q.dtype.  hd is 64, or 128 on
-    f32 scales (the ``_hd128`` instance, counted in ``hd128_launches``).
+    [B, Hkv, T].  Returns [B, T, Hq, hd] in q.dtype.  hd is 64 or 128 (the
+    ``_hd128`` instance, counted in ``hd128_launches``).
     """
     if on_cpu(q, k_cache, k_scale, v_cache, v_scale, base_lens, k_new, v_new, ks_new,
               vs_new):

@@ -70,7 +70,7 @@ def flash_paged_decode_attend(q, k_pool, v_pool, table, base_lens, *, layer=0, k
     holds whole tiles, which land by TMA);
     base_lens [B] int32, the visible length before the window; k_new/v_new
     [B, T, Hkv*hd] the window's rows when the pool does not hold them yet.
-    Returns [B, T, Hq, hd] in q.dtype.
+    Returns [B, T, Hq, hd] in q.dtype; hd is 64 or 128 (``hd128_launches``).
     """
     if on_cpu(q, k_pool, v_pool, table, base_lens, k_new, v_new):
         return flash_paged_decode_attend_plain(q, k_pool, v_pool, table, base_lens,
@@ -100,18 +100,19 @@ def flash_paged_decode_attend(q, k_pool, v_pool, table, base_lens, *, layer=0, k
         ptr(out), ptr(part_o), ptr(part_ml), layer, B, P, ps, npr, T, Hq, Hkv, hd, nsplit,
         chunk, build.stream_ptr(q))
     build.check(err, entry)
-    flash_paged_decode_attend.launches += 1
+    count_launch(flash_paged_decode_attend, entry)
     return out
 
 
 flash_paged_decode_attend.launches = 0
+flash_paged_decode_attend.hd128_launches = 0
 
 
 def _launch_paged_quant(entry, q, k_pool, k_scale, v_pool, v_scale, table, base_lens, layer,
                         fresh, packed):
     """One launch of the int8 or packed-int4 B12 entry point (its
-    bf16-scale instance for bf16 scales); returns the output and the entry
-    point launched."""
+    bf16-scale instance for bf16 scales, its ``_hd128`` instance at head dim
+    128); returns the output and the entry point launched."""
     from magicdec_tpu_torch.kernels import build
 
     B, T, Hq, hd = q.shape
@@ -150,7 +151,7 @@ def flash_paged_decode_attend_quant(q, k_pool, k_scale, v_pool, v_scale, table, 
     """B12 over an int8 pool: pools int8 [L, P, ps, Hkv*hd], scale pools f32
     or bf16 [L, P, Hkv, ps]; fresh rows int8 [B, T, Hkv*hd] with scales
     [B, Hkv, T] in the pools' scale dtype; otherwise as
-    ``flash_paged_decode_attend``."""
+    ``flash_paged_decode_attend`` (``hd128_launches``)."""
     fresh = (k_new, v_new, ks_new, vs_new)
     if on_cpu(q, k_pool, k_scale, v_pool, v_scale, table, base_lens, *fresh):
         return flash_paged_decode_attend_quant_plain(
@@ -165,6 +166,7 @@ def flash_paged_decode_attend_quant(q, k_pool, k_scale, v_pool, v_scale, table, 
 
 flash_paged_decode_attend_quant.launches = 0
 flash_paged_decode_attend_quant.bf16_scale_launches = 0
+flash_paged_decode_attend_quant.hd128_launches = 0
 
 
 def flash_paged_decode_attend_quant4(q, k_pool, k_scale, v_pool, v_scale, table, base_lens, *,
@@ -173,7 +175,7 @@ def flash_paged_decode_attend_quant4(q, k_pool, k_scale, v_pool, v_scale, table,
     """B12 over an int4 pool packed in head pairs: pools int8 [L, P, ps,
     (Hkv//2)*hd], scale pools f32 or bf16 [L, P, Hkv, ps] (Hkv from the scales);
     fresh rows packed [B, T, (Hkv//2)*hd] with scales [B, Hkv, T].  hd is
-    64, or 128 on f32 scales (``hd128_launches``)."""
+    64 or 128 (``hd128_launches``)."""
     fresh = (k_new, v_new, ks_new, vs_new)
     if on_cpu(q, k_pool, k_scale, v_pool, v_scale, table, base_lens, *fresh):
         return flash_paged_decode_attend_quant4_plain(

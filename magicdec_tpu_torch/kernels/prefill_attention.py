@@ -14,10 +14,11 @@ rows by TMA into an mbarrier ring, three consumer warpgroups running the
 softmax, and a producer warpgroup that issues the loads and, for the
 quantized formats, converts int8 (int4) tiles to bf16; for bf16 it writes
 by hand only the tiles whose rows past the visible end must read as zeros
-— see the source for the design.  Every kernel takes head dim 64; B11 also
-128 (its ``_hd128`` instance, f32 scales: 64-position tiles, each bf16 row
-in two 64-value swizzled halves); any other head dim raises before a launch
-(``kernels.head_dim_entry``).
+— see the source for the design.  Every kernel takes head dim 64 and 128
+(its ``_hd128`` instance, on either scale dtype, from
+``csrc/prefill_attention_hd128_sm90.cu``: 64-position tiles, each bf16 row
+in two 64-value swizzled halves; ``hd128_launches``); any other head dim
+raises before a launch (``kernels.head_dim_entry``).
 """
 
 from __future__ import annotations
@@ -59,7 +60,8 @@ def flash_prefill_attend(q, k_cache, v_cache, base_lens, *, layer=0,
 
     q [B, C, Hq, hd]; k_cache/v_cache [L, B, S, Hkv*hd];
     base_lens [B] int32; k_new/v_new [B, C, Hkv*hd] the chunk's rows when the
-    cache does not hold them yet.  Returns [B, C, Hq, hd] in q.dtype.
+    cache does not hold them yet.  Returns [B, C, Hq, hd] in q.dtype; hd is
+    64 or 128 (``hd128_launches``).
     """
     if on_cpu(q, k_cache, v_cache, base_lens, k_new, v_new):
         return flash_prefill_attend_plain(q, k_cache, v_cache, base_lens,
@@ -84,11 +86,12 @@ def flash_prefill_attend(q, k_cache, v_cache, base_lens, *, layer=0,
         ptr(q), ptr(k_cache), ptr(v_cache), ptr(k_new), ptr(v_new), ptr(lens), ptr(out),
         layer, B, S, C, Hq, Hkv, hd, build.stream_ptr(q))
     build.check(err, entry)
-    flash_prefill_attend.launches += 1
+    count_launch(flash_prefill_attend, entry)
     return out
 
 
 flash_prefill_attend.launches = 0
+flash_prefill_attend.hd128_launches = 0
 
 
 def flash_prefill_attend_quant_plain(q, k_cache, k_scale, v_cache, v_scale, base_lens, *,
@@ -114,8 +117,8 @@ def flash_prefill_attend_quant_plain(q, k_cache, k_scale, v_cache, v_scale, base
 def _launch_prefill_quant(entry, q, k_cache, k_scale, v_cache, v_scale, base_lens, layer,
                           fresh, packed):
     """One launch of K2q (``md_prefill_attend_quant``) or B11
-    (``md_prefill_attend_quant4``), or their bf16-scale instances (B11 at
-    head dim 128: ``_hd128``); returns the output and the entry point
+    (``md_prefill_attend_quant4``), or their bf16-scale instances, each at
+    head dim 64 or 128 (``_hd128``); returns the output and the entry point
     launched (a failed tensor-map encode raises)."""
     from magicdec_tpu_torch.kernels import build
 
@@ -161,6 +164,7 @@ def flash_prefill_attend_quant(q, k_cache, k_scale, v_cache, v_scale, base_lens,
 
 flash_prefill_attend_quant.launches = 0
 flash_prefill_attend_quant.bf16_scale_launches = 0
+flash_prefill_attend_quant.hd128_launches = 0
 
 # The plain version dequantizes by dequant_kv, which reads either layout.
 flash_prefill_attend_quant4_plain = flash_prefill_attend_quant_plain
@@ -171,7 +175,7 @@ def flash_prefill_attend_quant4(q, k_cache, k_scale, v_cache, v_scale, base_lens
     """B11: ``flash_prefill_attend_quant`` over an int4 cache packed in head
     pairs: k_cache/v_cache int8 [L, B, S, (Hkv//2)*hd], k_new/v_new packed
     int8 [B, C, (Hkv//2)*hd]; the rest as ``flash_prefill_attend_quant``.
-    hd is 64, or 128 on f32 scales (``hd128_launches``)."""
+    hd is 64 or 128 (``hd128_launches``)."""
     if on_cpu(q, k_cache, k_scale, v_cache, v_scale, base_lens, k_new, v_new, ks_new,
               vs_new):
         return flash_prefill_attend_quant4_plain(

@@ -162,10 +162,10 @@ VARIANTS = {
          " + 2 * BF_TILE);\n"),
         ('      asm volatile("bar.sync %0, 128;\\n" ::"n"(BAR_PRODUCER) : "memory");\n',
          '      asm volatile("bar.sync %0, 128;\\n" ::"n"(BAR_PRODUCER) : "memory");\n' + _tr(4)),
-        ('extern "C" int md_prefill_attend_quant(',
+        ("// The head-dim-64 entries;",
          'extern "C" int md_trace_read(void* dst) {\n'
          '  return (int)cudaMemcpyFromSymbol(dst, md::pfa::g_trace, sizeof(md::pfa::g_trace));\n'
-         '}\n\nextern "C" int md_prefill_attend_quant('),
+         '}\n\n// The head-dim-64 entries;'),
     ],
 }
 TRACE_SHAPE = (4, 80, 8)  # g_trace: [consumer warpgroups + producer, tiles, phases]

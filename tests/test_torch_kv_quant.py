@@ -569,19 +569,20 @@ def _decode_operands(gen, cuda, S, T, base, quant=_quant_cache_on_card, Hkv=8):
 def window_equals_steps(fn, q, caches, fresh, base):
     """Token t of the window (its fresh rows at [base, base + T)) against a
     T = 1 call at base + t over a cache that holds the window's rows before
-    t, with fresh row t: bit for bit."""
+    t, with fresh row t: bit for bit.  caches: (k, k_scale, v, v_scale)
+    quantized, or (k, v) in bf16."""
     window = fn(q, *caches, base, layer=LAYER, **fresh)
     for t in range(q.shape[1]):
-        k, ks, v, vs = (c.clone() for c in caches)
+        cs = [c.clone() for c in caches]
         for b, n in enumerate(base.tolist()):
-            k[LAYER, b, n:n + t] = fresh["k_new"][b, :t]
-            v[LAYER, b, n:n + t] = fresh["v_new"][b, :t]
-            ks[LAYER, b, :, n:n + t] = fresh["ks_new"][b, :, :t]
-            vs[LAYER, b, :, n:n + t] = fresh["vs_new"][b, :, :t]
-        step = fn(q[:, t:t + 1], k, ks, v, vs, base + t, layer=LAYER,
-                  k_new=fresh["k_new"][:, t:t + 1], v_new=fresh["v_new"][:, t:t + 1],
-                  ks_new=fresh["ks_new"][:, :, t:t + 1].contiguous(),
-                  vs_new=fresh["vs_new"][:, :, t:t + 1].contiguous())
+            cs[0][LAYER, b, n:n + t] = fresh["k_new"][b, :t]
+            cs[len(cs) // 2][LAYER, b, n:n + t] = fresh["v_new"][b, :t]
+            if len(cs) == 4:
+                cs[1][LAYER, b, :, n:n + t] = fresh["ks_new"][b, :, :t]
+                cs[3][LAYER, b, :, n:n + t] = fresh["vs_new"][b, :, :t]
+        step = fn(q[:, t:t + 1], *cs, base + t, layer=LAYER,
+                  **{n: (a[:, :, t:t + 1] if n in ("ks_new", "vs_new") else a[:, t:t + 1])
+                     .contiguous() for n, a in fresh.items()})
         assert torch.equal(window[:, t:t + 1], step), f"token {t}"
 
 

@@ -5,8 +5,8 @@ against the JAX package on numpy weights and prompts made from a seed.
   target's attention on its int4 cache): their plain versions against the
   Pallas kernels in interpret mode at head dim 128, at the tolerance the
   head-dim-64 tests hold them to (2e-5, tests/test_torch_kv_int4.py); the
-  head dims each attention entry point takes, and the ROADMAP item a
-  missing instance names.
+  head dims each attention entry point takes (64 and 128, each quantized
+  one on either scale dtype; any other raises).
 - ``LongSpecEngine``, every mode and prefix of tests/test_longspec.py (full
   48, streamingllm 96, snapkv 104): tokens equal to the JAX engine's on
   every token both commit, and greedy spec == the target's greedy AR; the
@@ -157,24 +157,22 @@ ENTRIES = ["md_decode_attend", "md_prefill_attend", "md_paged_decode_attend",
 
 @pytest.mark.parametrize("entry", ENTRIES)
 def test_head_dim_entries(entry):
-    """Head dim 64 takes every entry point as it is; 128 the ``_hd128``
-    instances of B10, B11 and B12's int4 pool (f32 scales) and nothing
-    else; any other head dim raises, naming the ROADMAP item, before a
-    launch (the instances exist in the kernel library's signatures)."""
+    """Head dim 64 takes every entry point as it is; 128 its ``_hd128``
+    instance, and the ``_bf16s_hd128`` one of a quantized entry's bf16-scale
+    form (each in the kernel library's signatures); any other head dim
+    raises before a launch, naming the head dims the kernels take."""
     from magicdec_tpu_torch.kernels import build
 
     assert K.head_dim_entry(entry, 64) == entry
-    if entry in K.HD128_ENTRIES:
-        assert K.head_dim_entry(entry, 128) == entry + "_hd128"
-        assert entry + "_hd128" in build.SIGNATURES
-        with pytest.raises(ValueError, match=K.HD128_ITEM):
-            K.head_dim_entry(entry + "_bf16s", 128)
-    else:
-        with pytest.raises(ValueError, match=K.HD128_ITEM):
-            K.head_dim_entry(entry, 128)
+    forms = [entry] + ([entry + "_bf16s"] if "quant" in entry else [])
+    for form in forms:
+        assert K.head_dim_entry(form, 128) == form + "_hd128"
+        assert form + "_hd128" in build.SIGNATURES
+        assert build.SIGNATURES[form + "_hd128"] == build.SIGNATURES[form]
     for hd in (32, 80, 96, 256):
-        with pytest.raises(ValueError, match=K.HD128_ITEM):
-            K.head_dim_entry(entry, hd)
+        for form in forms:
+            with pytest.raises(ValueError, match="head dims 64 and 128"):
+                K.head_dim_entry(form, hd)
 
 
 def test_hd128_split_plan_aims_at_two_blocks_an_sm():
