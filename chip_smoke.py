@@ -110,7 +110,13 @@ of which raises on failure:
    within bf16_limit, with wrong
    references (without the norm, without the residual, the w13 halves
    swapped) that must fail it (library: ``torch.matmul`` on the weight;
-   for ``dense_mlp`` the main path's FFN with the dense kernels off);
+   for ``dense_mlp`` the main path's FFN with the dense kernels off); and
+   S1, the coupled-Gumbel sampled head (``kernels/sampling.py``), at 128,
+   32, 16 and 8 rows of 128,256 logits (divisor 0.6) and on 128 top-p-filtered
+   rows, against its plain version: tokens equal on every row whose
+   top-two gap is at least 1e-4, a wrong reference (salt + 1) disagreeing
+   on most rows, 4096 stream positions of a 4-token row sampling its
+   softmax to 0.03; its bound the integer ALU (library: none);
 4. main paths: ``magicdec_tpu_torch.bench.main`` (1) with ``--iters 1``
    (its defaults otherwise: int8 target cache, int8 draft weight copy), (2) with ``--kv_quant none
    --draft_quant none --iters 1`` (all bf16, one measured repeat instead of
@@ -137,13 +143,18 @@ of which raises on failure:
    (17)-(19) ``magicdec_tpu_torch.longspec_benchmark`` (standalone-draft
    speculation, ``LONGSPEC_ARGV``: llama-3.1-8b verified by llama-3.2-1b,
    the coupled synthetic pair, the draft's int8 copy, B=8, the int4 target
-   cache, 512-token prefill chunks, ``--baseline``): streamingllm at 16384
+   cache, 512-token prefill chunks, ``--baseline``, one batch each, no
+   warmup batch): streamingllm at 16384
    and snapkv at 16416 of 16512 rows, full mode at 4096 of 4608, each
    failing unless spec == AR on every committed token of every batch, B10
    and B11 launched on their head-dim-128 instances alone, the draft's
    K1, K3, B4, B5, B6 (and K2 for full and snapkv) and the target's K3q
    launched, no int8 KV, paged, per-array, dense or int4 dot kernel, and
-   >= 2.2 tokens per step in streamingllm and snapkv; then a paged int4
+   >= 2.2 tokens per step in streamingllm and snapkv, S1 idle; (23) exact
+   speculative sampling on the streamingllm draft (``--temperature 0.6
+   --top_p 0.9``, 4096 of 4608 rows): spec sampling == baseline sampling
+   on every committed token, >= 2.2 tokens per step, S1 launched once a
+   sampled head; then a paged int4
    ``PagedServingLongSpecEngine`` serve of 8 requests of distinct lengths
    (3072..4095) through 8 slots against ``ServingLongSpecEngine``, every
    token equal, B12's int4 pool at head dim 128 once a layer per target
@@ -170,8 +181,8 @@ of which raises on failure:
    ``SERVE_ARGV`` (16 slots, 32 requests of distinct lengths in [4096,
    8000], 512-row pages): (6) a bf16 pool, (7) an int8 pool, (8) an int8
    pool of half the pages (backpressure), (9) an int4 pool, each serving
-   the first 12 of the requests without a warmup serve (a depth cut for the
-   time limit), each failing unless every kernel of
+   the first 8 of the requests (the int8 pools 12) without a warmup serve
+   (depth cuts for the time limit), each failing unless every kernel of
    the path launched, the paged decode kernel once a layer per target pass,
    tokens per step >= 1.8, and ``ServingEngine`` on the same prompts
    returns the same tokens for every request; on the int8 path, 4 requests
@@ -195,12 +206,19 @@ of which raises on failure:
    token; then ``--kv_scale bf16`` serves over an int8 and an int4 pool (4
    requests each): B12, B13, K2q / B11 and K3q on bf16 scales alone, tokens
    equal to ``ServingEngine``'s;
-5. C2, served == solo: 4 equal-length prompts (one admission bucket) and 4
-   of distinct lengths served through 16 slots over an int8 pool, each
-   against the same prompt served alone through the same slots and against
-   a B=1 ``SpecEngine`` on the same weights; where tokens differ, again at
-   a fixed row count (each prefill alone; the B=1 decode at the slots'
-   rows and split plan), which must agree;
+5. C2, served == solo: 4 equal-length prompts (one admission bucket)
+   served through 16 slots over an int8 pool, each against the same prompt
+   served alone through the same slots and against a B=1 ``SpecEngine`` on
+   the same weights; where tokens differ, again at a fixed row count (each
+   prefill alone; the B=1 decode at the slots' rows and split plan), which
+   must agree (the stream of 4 distinct lengths of earlier runs is cut for
+   the time limit: (24) serves 8 distinct lengths against B=1 runs, sampled);
+   (24) sampled serving (``SAMPLED_SERVE_ARGV``: ``serving_bench --paged
+   --kv_quant int8 --temperature 0.8 --top_p 0.9``, llama-3.2-1b, 8
+   requests of distinct lengths in [1024, 2048] through 8 slots): each
+   request's tokens equal to a B=1 ``SpecEngine`` run of its prompt with its
+   request id as the salt, at the slots' row count as C2 fixes it; S1
+   launched once a sampled head;
    (14) the checkpoint round trip at full width: an HF-format
    llama-3.2-1b directory (two safetensors shards written by hand, the
    index, ``config.json``) from ``bench.make_params(tied=True)``, ``python
@@ -224,9 +242,9 @@ of which raises on failure:
    generate and AR generate on the host clock, with the host time spent
    issuing draft steps, then under torch.profiler for the device's busy
    time and the kernels that take it), spec == AR again, and the AR step's
-   decode_rows padding against its live rows, four alternating pairs in one
-   run (the int4, SnapKV and ``--quantize int8`` profiles are cut for the
-   time limit).
+   decode_rows padding against its live rows, two alternating pairs in one
+   run (the int4, SnapKV and ``--quantize int8`` profiles and two of the
+   four pairs are cut for the time limit).
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -244,8 +262,17 @@ PEAK_BYTES_S = 3.35e12   # H100 SXM HBM3
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
 EX2_PER_CLOCK_SM = 16     # compute capability 9.0: ex2 a clock per SM
 SMS = 132                 # H100 SXM
-PAD_PAIRS = 4             # profile_phase: AR generate padded / live, alternating pairs
+PAD_PAIRS = 2             # profile_phase: AR generate padded / live, alternating pairs
 SM_CLOCK_HZ = None        # the card's maximum SM clock (nvidia-smi), set in main
+INT32_PER_CLOCK_SM = 64   # compute capability 9.0: integer ALU lanes an SM
+FP32_PER_CLOCK_SM = 128   # float32 lanes an SM (an FMA counted once)
+# S1's work an element, counted from csrc/sampling_sm90.cu: integer, the
+# hash's 20 rounds of add, rotate and xor (60), its 10 key injections and
+# the counter's add, the bits' xor, shift and or, the loop's add and
+# compare (76); float32, the uniform's subtract, add and max, two accurate
+# logf (about 12 each), the IEEE division (about 5: a reciprocal and its
+# refinement), the add and the two compares of the running max (35)
+S1_INT_OPS, S1_FP32_OPS = 76, 35
 
 
 def _cuda_ms(fn, iters=20, warmup=3):
@@ -268,11 +295,15 @@ def _round(ms):
     return ms if ms is None else round(ms, 4)
 
 
-def _bound(nbytes, flops, exps=0.0):
+def _bound(nbytes, flops, exps=0.0, int_ops=0.0, fp32_ops=0.0):
     """(ms, kind): the largest of the bytes over the HBM rate, the tensor
     flops over the bf16 peak and, for attention, the exponentials over the
-    SMs' ex2 rate at the card's maximum SM clock."""
-    times = {"bytes": nbytes / PEAK_BYTES_S, "operations": flops / PEAK_BF16_FLOPS,
+    SMs' ex2 rate at the card's maximum SM clock; for S1 the operations are
+    the integer and float32 ALU instructions over their lanes' rates (the
+    slower pipe)."""
+    alu = max(int_ops / INT32_PER_CLOCK_SM, fp32_ops / FP32_PER_CLOCK_SM) / (SMS * SM_CLOCK_HZ)
+    times = {"bytes": nbytes / PEAK_BYTES_S,
+             "operations": max(flops / PEAK_BF16_FLOPS, alu),
              "exp": exps / (EX2_PER_CLOCK_SM * SMS * SM_CLOCK_HZ) if exps else 0.0}
     kind = max(times, key=times.get)
     return times[kind] * 1e3, kind
@@ -571,12 +602,12 @@ def kernel_phase(torch, gen):
     entries = {}
 
     def record(name, case, err, tol, ms, plain_ms, nbytes, flops, library_ms, calls,
-               lib_calls=None, extra=None, exps=0.0):
+               lib_calls=None, extra=None, exps=0.0, int_ops=0.0, fp32_ops=0.0):
         """One case: its host-issued times (``ms``, ``plain_ms``,
         ``library_ms``), and the device-only times of ``calls`` (the
         kernel's launches) and ``lib_calls`` (the library call's) from CUDA
         graph replay; a case that cannot be captured fails the run."""
-        bound_ms, bound_by = _bound(nbytes, flops, exps)
+        bound_ms, bound_by = _bound(nbytes, flops, exps, int_ops, fp32_ops)
         device_ms = graph_ms(calls)
         lib_device_ms = graph_ms(lib_calls) if lib_calls else None
         c = {"case": case, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -738,9 +769,90 @@ def kernel_phase(torch, gen):
     per_array_append_cases(torch, gen, record)
     t3 = time.perf_counter()
     dense_kernel_cases(torch, gen, record)
+    t4 = time.perf_counter()
+    sampling_kernel_cases(torch, gen, record)
     print(f"[time] kernel phase: the dots took {t1 - t0:.1f}s, the paged kernels "
-          f"{t2 - t1:.1f}s, B14 {t3 - t2:.1f}s, B15 {time.perf_counter() - t3:.1f}s", flush=True)
+          f"{t2 - t1:.1f}s, B14 {t3 - t2:.1f}s, B15 {t4 - t3:.1f}s, S1 "
+          f"{time.perf_counter() - t4:.1f}s", flush=True)
     return entries
+
+
+S1_GAP = 1e-4  # S1 against its plain version: rows whose top-two gap is below may flip
+
+
+def sampling_kernel_cases(torch, gen, record):
+    """S1 (``kernels/sampling.py gumbel_argmax``, the coupled-Gumbel sampled
+    head) against its plain version on the same card tensors: R = 128 (the
+    verify rows of B = 32), 32, 16 and 8 rows (the verify and draft steps of
+    B = 8) of llama-3's 128,256 logits with the divisor 0.6, and 128
+    top-p-filtered rows (-inf outside the nucleus, divisor 1).  The tokens
+    must agree on every row whose plain top-two gap
+    (logits / div + g) is at least S1_GAP, the rows under it printed; a
+    wrong reference (every salt + 1) must disagree on most rows; 4096
+    stream positions of one 4-token row must sample its softmax to 0.03
+    (tests/test_sampling_spec.py:70).  max_abs_err counts the rows whose
+    tokens differ (near ties only).  The bound: the integer ALU
+    (S1_INT_OPS an element) against the float32 pipe and the logits'
+    bytes; no single library call samples so (library: none)."""
+    from magicdec_tpu_torch.kernels import sampling as S1
+    from magicdec_tpu_torch.ops import prng
+    from magicdec_tpu_torch.ops.sampling import get_sampling_logits
+
+    dev = torch.device("cuda")
+    V = 128256
+    key = prng.PRNGKey(1234, device=dev)
+    # 128 / 32: the verify rows of B = 32 / 8; 16 and 8: the first and later
+    # draft steps of B = 8 (paths (23), (24))
+    for R, top_p in ((128, None), (32, None), (16, None), (8, None), (128, 0.9)):
+        x, div = torch.randn(R, V, generator=gen, device=dev), 0.6
+        if top_p is not None:
+            x, div = get_sampling_logits(x, top_p, 0.6), 1.0
+        salt = torch.randint(0, 1 << 20, (R,), generator=gen, device=dev, dtype=torch.int32)
+        idx = torch.randint(0, 1 << 16, (R,), generator=gen, device=dev, dtype=torch.int32)
+        case = f"R={R} V={V} " + (f"top-p {top_p} filtered, div=1" if top_p else f"div={div}")
+
+        def call(x=x, salt=salt, idx=idx, div=div):
+            return S1.gumbel_argmax(x, key, salt, idx, div)
+
+        got = call()
+        want = S1.gumbel_argmax_plain(x, key, salt, idx, div)
+        g = prng.gumbel(prng.fold_in(prng.fold_in(key, salt), idx), (V,))
+        top = torch.topk(x / torch.tensor(div, device=dev) + g, 2, dim=-1).values
+        gap = (top[:, 0] - top[:, 1]).cpu()
+        differ = (got != want).cpu()
+        near = [(r, f"{gap[r].item():.3g}") for r in range(R) if gap[r] < S1_GAP]
+        print(f"[kernel] gumbel_argmax {case}: rows under the {S1_GAP} gap {near}, rows "
+              f"differing {differ.nonzero().flatten().tolist()}", flush=True)
+        if (differ & (gap >= S1_GAP)).any():
+            raise AssertionError(f"S1 disagrees with its plain version ({case}) on rows "
+                                 f"{(differ & (gap >= S1_GAP)).nonzero().flatten().tolist()}")
+        if top_p is not None and not torch.isfinite(x.gather(1, got.long()[:, None])).all():
+            raise AssertionError(f"S1 sampled a token outside the nucleus ({case})")
+        wrong = (S1.gumbel_argmax_plain(x, key, salt + 1, idx, div) == got).float().mean()
+        if wrong > 0.5:
+            raise AssertionError(f"S1 agrees with a wrong reference (salt + 1) on "
+                                 f"{wrong.item():.1%} of the rows ({case})")
+        del g, top
+        ms = _cuda_ms(call)
+        plain_ms = _cuda_ms(lambda: S1.gumbel_argmax_plain(x, key, salt, idx, div), iters=3,
+                            warmup=1)
+        record("gumbel_argmax", case, float(differ.sum()), "tokens: rows differing, near ties",
+               ms, plain_ms, R * V * 4 + R * 12 + 16, 0.0, None, [call],
+               extra={"wrong_reference_agrees": wrong.item()},
+               int_ops=R * V * S1_INT_OPS, fp32_ops=R * V * S1_FP32_OPS)
+        del x, got, want
+    n = 4096
+    logits = torch.tensor([[0.0, 1.0, 2.0, -1.0]], device=dev).expand(n, 4).contiguous()
+    toks = S1.gumbel_argmax(logits, key, torch.zeros(n, dtype=torch.int32, device=dev),
+                            torch.arange(n, dtype=torch.int32, device=dev), 1.0)
+    freq = torch.bincount(toks.long(), minlength=4).float() / n
+    dev_max = (freq - torch.softmax(logits[0], -1)).abs().max().item()
+    print(f"[kernel] gumbel_argmax: {n} stream positions of one 4-token row, frequencies "
+          f"{[round(f, 4) for f in freq.tolist()]} against the softmax, max deviation "
+          f"{dev_max:.4f} (bound 0.03)", flush=True)
+    if dev_max > 0.03:
+        raise AssertionError(f"S1's samples do not follow the softmax: {dev_max:.4f}")
+    torch.cuda.empty_cache()
 
 
 HD128 = "[hd128]"  # the cases and kernels-line entries of the head-dim-128 instances
@@ -1600,7 +1712,7 @@ def _agreement(spec_out, spec_n, base_out, max_gen):
                f"min={min(prefix)} over tokens compared mean="
                f"{sum(compared) / len(compared):.2f} min={min(compared)}")
     if agree != len(prefix):
-        raise AssertionError("greedy spec and AR tokens differ: " + summary)
+        raise AssertionError("spec and AR tokens differ: " + summary)
     return summary
 
 
@@ -1672,6 +1784,8 @@ def main_path(torch, wrappers, required, argv, forbidden=(), min_tokens_per_step
         if launches[w.__name__]:
             raise AssertionError(f"the main path ({tag}) launched {w.__name__}, which it "
                                  "must not reach")
+    if launches.get("gumbel_argmax"):
+        raise AssertionError(f"the greedy main path ({tag}) launched S1")
     res = out["result"]
     if res["tokens_per_step"] < min_tokens_per_step:
         raise AssertionError(f"acceptance collapsed ({tag}): {res['tokens_per_step']} "
@@ -1779,40 +1893,55 @@ def _bench_summary(out):
 # by llama-3.2-1b (the coupled synthetic pair, the draft's int8 copy), B=8,
 # the target's int4 cache, 512-token prefill chunks; streamingllm at 16384
 # and snapkv at 16416 (the 32-token observation window last) of 16512 rows,
-# full mode at 4096 of 4608.  Each run times one batch after
-# the first (streamingllm: one warmup batch; snapkv and full: the batch they
-# run, their kernels and dots warmed by the streamingllm run) and runs the
-# target's AR baseline on the same batches.
+# full mode at 4096 of 4608.  Each run times the one batch it runs (no
+# warmup batch: the kernels are built and warm from the kernel phase, a
+# depth cut for the time limit) and runs the target's AR baseline on it.
+# (23): exact speculative sampling on the streamingllm draft at the JAX
+# package's sample() defaults (temperature 0.6, top-p 0.9), a 4096-token
+# prompt (a depth cut: the greedy run keeps 16384), its baseline sampling
+# with the same key.
 LONGSPEC_ARGV = ["--model", "llama-3.1-8b", "--draft_model", "llama-3.2-1b", "--B", "8",
                  "--kv_quant", "int4", "--draft_quant", "int8", "--prefill_chunk", "512",
                  "--baseline"]
+# (tag, draft mode, tokens/step floor (0: none), flags)
 LONGSPEC_RUNS = (
-    ("streamingllm", ["--prefix_len", "16384", "--max_len", "16512", "--num_batches", "2",
-                      "--warmup_batches", "1"]),
-    ("snapkv", ["--mode", "snapkv", "--prefix_len", "16416", "--max_len", "16512",
-                "--num_batches", "1", "--warmup_batches", "0"]),
-    ("full", ["--draft_budget", "-1", "--prefix_len", "4096", "--max_len", "4608",
-              "--num_batches", "1", "--warmup_batches", "0"]))
+    ("streamingllm", "streamingllm", 2.2,
+     ["--prefix_len", "16384", "--max_len", "16512", "--num_batches", "1",
+      "--warmup_batches", "0"]),
+    ("snapkv", "snapkv", 2.2, ["--mode", "snapkv", "--prefix_len", "16416", "--max_len",
+                               "16512", "--num_batches", "1", "--warmup_batches", "0"]),
+    ("full", "full", 0.0, ["--draft_budget", "-1", "--prefix_len", "4096", "--max_len", "4608",
+                           "--num_batches", "1", "--warmup_batches", "0"]),
+    ("sampled", "streamingllm", 2.2,
+     ["--prefix_len", "4096", "--max_len", "4608", "--num_batches", "1", "--warmup_batches",
+      "0", "--temperature", "0.6", "--top_p", "0.9"]))
 
 
 def longspec_phase(torch, wrappers, required, forbidden):
     """``python -m magicdec_tpu_torch.longspec_benchmark`` with LONGSPEC_ARGV
-    in each mode of LONGSPEC_RUNS, the counters zeroed just before and read
+    in each run of LONGSPEC_RUNS, the counters zeroed just before and read
     just after each run.  Fails unless spec == AR on every committed token
-    of every batch, B10 and B11 launched on their head-dim-128 instances
-    (the 8B target's attention) and every launch of theirs was one, every
+    of every batch (the sampled run: spec sampling == baseline sampling),
+    B10 and B11 launched on their head-dim-128 instances (the 8B target's
+    attention) and every launch of theirs was one, every
     kernel of ``required`` launched (full and snapkv: K2 too, the draft's
     prefill over its full cache) and none of ``forbidden``, and tokens per
-    step reach 2.2 in streamingllm and snapkv (the JAX package's gate for
-    the coupled pair).  Prints each run's spec and AR tok/s, tokens per
-    step, time to first token (the timed batch's encode) and peak device
-    memory.  Returns {mode: (result line, launches, peak GiB, encode s)}."""
+    step reach the run's floor: 2.2 in streamingllm, snapkv and sampled
+    (the JAX package's gate for the coupled pair; a sampling draft whose
+    noise is not the target's reads near 1, the coupled pair 2.433 on an
+    H100 80GB HBM3 at 700 W).  S1 launches on the sampled run
+    only, once a head: (gamma + 1) a window and token0 for spec, one a step
+    and token0 for the baseline.  Prints each run's spec and AR tok/s,
+    tokens per step, time to first token (the timed batch's encode) and
+    peak device memory.  Returns {tag: (result line, launches, peak GiB,
+    encode s)}."""
     from magicdec_tpu_torch import longspec_benchmark
     from magicdec_tpu_torch.kernels import decode_attention as DA
     from magicdec_tpu_torch.kernels import prefill_attention as PA
+    from magicdec_tpu_torch.kernels import sampling as S1
 
     results = {}
-    for mode, extra in LONGSPEC_RUNS:
+    for run, mode, floor, extra in LONGSPEC_RUNS:
         argv = LONGSPEC_ARGV + extra
         _zero_counts(wrappers)
         torch.cuda.empty_cache()
@@ -1823,7 +1952,7 @@ def longspec_phase(torch, wrappers, required, forbidden):
         launches = _read_counts(wrappers)
         peak = torch.cuda.max_memory_allocated() / 2**30
         res = out["result"]
-        tag = f"longspec {mode}"
+        tag = f"longspec {run}"
         print(f"[{tag}] wall={wall:.1f}s launches={launches} peak_mem={peak:.2f} GiB",
               flush=True)
         if res is None or out["engine_mode"] != mode:
@@ -1846,9 +1975,14 @@ def longspec_phase(torch, wrappers, required, forbidden):
         for w in forbidden:
             if launches[w.__name__]:
                 raise AssertionError(f"{tag} launched {w.__name__}, which it must not reach")
-        if mode != "full" and res["tokens_per_step"] < 2.2:
+        if res["tokens_per_step"] < floor:
             raise AssertionError(f"{tag}: acceptance collapsed, {res['tokens_per_step']} "
                                  "tokens/step")
+        heads = (sum(s["target_steps"] * (args.gamma + 1) + 1 for s in out["spec"])
+                 + len(out["base"]) * args.max_gen) if args.temperature > 0 else 0
+        if launches[S1.gumbel_argmax.__name__] != heads:
+            raise AssertionError(f"{tag}: S1 launched {launches[S1.gumbel_argmax.__name__]} "
+                                 f"times, not the run's {heads} sampled heads")
         timed = out["spec"][args.warmup_batches]
         ar_tps = res["value"] / res["vs_baseline"] if res["vs_baseline"] else float("nan")
         print(f"[{tag}] B={args.B} prefix={args.prefix_len}: spec {res['value']} tok/s, AR "
@@ -1856,7 +1990,7 @@ def longspec_phase(torch, wrappers, required, forbidden):
               f"{res['tokens_per_step']} tokens/step, {timed['target_steps']} windows, time to "
               f"first token {timed['encode_s']:.4f} s, peak {peak:.2f} GiB; {res['metric']}",
               flush=True)
-        results[mode] = (res, launches, peak, timed["encode_s"])
+        results[run] = (res, launches, peak, timed["encode_s"])
         del out
     return results
 
@@ -2321,10 +2455,11 @@ def serving_phase(torch, wrappers, kernels):
     result = {}
     peaks = {}
     for fmt, (extra, own) in paths.items():
-        # each skips the warmup serve and serves the first 12 of the 32
-        # requests (a depth cut that keeps chip_smoke.py inside its time
-        # limit)
-        extra = extra + ["--skip_warmup", "--num_requests", "12"]
+        # each skips the warmup serve and serves the first 8 of the 32
+        # requests, int8 12 (its half pool must make a free slot wait for
+        # pages): depth cuts that keep chip_smoke.py inside its time limit
+        n = "12" if fmt == "int8" else "8"
+        extra = extra + ["--skip_warmup", "--num_requests", n]
         out, launches, peaks[fmt] = serving_path(
             torch, wrappers, own + draft + [PGA.append_paged_rows_inplace], own[0], extra,
             forbidden=[w for w in paged_all if w is not own[0]])
@@ -2424,8 +2559,7 @@ def snapkv_serving_phase(torch, wrappers, kernels):
 
 # C2: served == solo (the JAX package's contract, tests/test_paged_serving.py
 # _solo) at the serving path's widths: 16 slots, an int8 pool of 512-row
-# pages, 4 requests of 2048-token prompts (one admission bucket) and 4 of
-# distinct lengths
+# pages, 4 requests of 2048-token prompts (one admission bucket)
 SOLO_ARGV = ["--paged", "--slots", "16", "--num_requests", "4", "--prefix_len", "2048",
              "--max_len", "4096", "--page_size", "512", "--kv_quant", "int8"]
 
@@ -2453,8 +2587,8 @@ def solo_phase(torch):
     """C2: each served request against (a) the same prompt served alone
     through the same 16 slots and (b) a B=1 ``SpecEngine.generate`` on the
     same prompt and weights, for a stream of 4 equal-length prompts (one
-    admission bucket: its prefill runs at 4x the chunk's rows) and one of 4
-    distinct lengths.  Where tokens differ at the live row counts, the check
+    admission bucket: its prefill runs at 4x the chunk's rows; distinct
+    lengths: (24)).  Where tokens differ at the live row counts, the check
     runs again at a fixed row count: the served stream with each request's
     prefill alone (a bucket of one), and the B=1 engine's target passes at
     the 16 slots' decode_rows and decode split plan; it fails unless they
@@ -2473,9 +2607,7 @@ def solo_phase(torch):
     slots, V, P = args.slots, engine.cfg.vocab_size, args.prefix_len
     rng = np.random.RandomState(11)
     streams = {"one bucket of 4 equal-length prompts":
-               [rng.randint(0, V, P).astype(np.int32) for _ in range(4)],
-               "4 distinct lengths":  # 1280, 1536, 1792 and 2048 tokens
-               [rng.randint(0, V, P * (4 + i) // 8).astype(np.int32) for i in range(1, 5)]}
+               [rng.randint(0, V, P).astype(np.int32) for _ in range(4)]}
     b1 = SpecEngine(engine.params, engine.cfg, engine.ecfg, device=engine.device)
 
     def serve(prompts, one_bucket_each=False):
@@ -2535,6 +2667,81 @@ def solo_phase(torch):
     del engine, b1
     torch.cuda.empty_cache()
     return summary
+
+
+# (24) sampled serving: 8 requests of distinct lengths in [1024, 2048]
+# through 8 slots over an int8 pool, temperature 0.8, top-p 0.9
+SAMPLED_SERVE_ARGV = ["--paged", "--kv_quant", "int8", "--temperature", "0.8", "--top_p", "0.9",
+                      "--slots", "8", "--num_requests", "8", "--prefix_len", "2048", "--ragged",
+                      "--seed", "31", "--max_len", "4096", "--page_size", "512", "--skip_warmup"]
+
+
+def sampled_serving_phase(torch, wrappers):
+    """(24) ``serving_bench`` with SAMPLED_SERVE_ARGV (exact speculative
+    sampling, llama-3.2-1b, the int8 pool; the key of ``--seed``, each
+    request's id its salt), the counters zeroed just before and read just
+    after.  Each request's tokens must equal its prompt alone through a
+    B=1 ``SpecEngine`` with that salt (and reach 1.8 tokens per step, the
+    serving paths' floor), at the served passes' row count as
+    C2 fixes it (the prompts' lengths are distinct, so each prefill runs
+    alone; the B=1 verify at the 8 slots' decode_rows and decode split
+    plans, its encode as an admission's); S1 launched once a head: (gamma
+    + 1) a window and one token0 an admission.  Returns the launches."""
+    import dataclasses
+
+    from magicdec_tpu_torch import serving_bench
+    from magicdec_tpu_torch.engine.engine import SpecEngine
+    from magicdec_tpu_torch.kernels import decode_attention as DA
+    from magicdec_tpu_torch.kernels import sampling as S1
+    from magicdec_tpu_torch.utils.seeding import sampling_rng
+
+    _zero_counts(wrappers)
+    t0 = time.perf_counter()
+    out = serving_bench.main(SAMPLED_SERVE_ARGV)
+    wall = time.perf_counter() - t0
+    launches = _read_counts(wrappers)
+    st = out["stats"]
+    print(f"[sampled serve] wall={wall:.1f}s launches={launches}", flush=True)
+    print("[sampled serve] " + _serving_summary(out), flush=True)
+    prompts = out["prompts"]
+    lens = [len(p) for p in prompts]
+    if len(set(lens)) != len(lens):
+        raise AssertionError(f"(24): the prompt lengths are not distinct: {lens}")
+    args = serving_bench.parse_args(SAMPLED_SERVE_ARGV)
+    heads = (args.gamma + 1) * st["windows"] + len(prompts)
+    if launches[S1.gumbel_argmax.__name__] != heads:
+        raise AssertionError(f"(24): S1 launched {launches[S1.gumbel_argmax.__name__]} times, "
+                             f"not {heads} ({st['windows']} windows, {len(prompts)} admissions)")
+    engine, _ = serving_bench.setup(args)
+    b1 = SpecEngine(engine.params, engine.cfg, engine.ecfg, device=engine.device)
+    del engine
+    slots, key = args.slots, sampling_rng(args, b1.device)
+    split_plan, quant_split_plan = DA.split_plan, DA.quant_split_plan
+    refs = []
+    t0 = time.perf_counter()
+    for rid, prompt in enumerate(prompts):
+        st1 = b1.encode(prompt[None], rng=key, salt=[rid])
+        b1._hinted = lambda B: dataclasses.replace(b1.cfg, decode_rows=slots * (b1.ecfg.gamma + 1))
+        DA.split_plan = lambda B, Hkv, S, hd=64: split_plan(slots, Hkv, S, hd)
+        DA.quant_split_plan = lambda B, Hkv, S, hd=64: quant_split_plan(slots, Hkv, S, hd)
+        try:
+            _, stats = b1.generate(st1)
+        finally:
+            vars(b1).pop("_hinted", None)
+            DA.split_plan, DA.quant_split_plan = split_plan, quant_split_plan
+        refs.append(stats["output"][0, :int(stats["num_committed"][0])].cpu().numpy())
+    diffs = _first_diffs(out["outputs"], refs)
+    counts = ([len(o) for o in out["outputs"]], [len(r) for r in refs])
+    print(f"[sampled serve] against B=1 SpecEngine runs by salt ({time.perf_counter() - t0:.1f}s):"
+          f" first differing tokens {diffs}, token counts {counts[0]} served, {counts[1]} "
+          "alone", flush=True)
+    if diffs:
+        raise AssertionError(f"(24): sampled served != solo by salt: requests {sorted(diffs)}")
+    if st["tokens_per_step"] < 1.8:
+        raise AssertionError(f"(24): acceptance collapsed, {st['tokens_per_step']} tokens/step")
+    del b1
+    torch.cuda.empty_cache()
+    return launches
 
 
 def dense_ab_phase(torch, wrappers):
@@ -3069,6 +3276,7 @@ def main():
         from magicdec_tpu_torch.kernels import paged_attention as PGA
         from magicdec_tpu_torch.kernels import prefill_attention as PA
         from magicdec_tpu_torch.kernels import quant_matmul as QK
+        from magicdec_tpu_torch.kernels import sampling as S1
     except ImportError as exc:
         print(f"chip_smoke: the magicdec_tpu_torch package is missing ({exc})",
               file=sys.stderr)
@@ -3131,7 +3339,7 @@ def main():
     per_array = [AP.append_rows_inplace, AP.append_scale_rows_inplace]
     dense_dots = [DK.dense_matmul_fused, DK.dense_mlp]
     wrappers = (dense + quant + dots + [QK.quant_mlp] + quant4 + dots4 + paged + per_array
-                + dense_dots)
+                + dense_dots + [S1.gumbel_argmax])
     # (1) the default path (one measured repeat): the target on the int8 KV
     # kernels, the draft's int8 weight copy on B4/B5/B6 and its bf16 cache
     # on K1 and K3; B14 and B15 stay off by default
@@ -3318,6 +3526,9 @@ def main():
     phase_done("bf16-scale serves")
     solo_phase(torch)
     phase_done("C2: served against solo")
+    # (24) sampled serving: served == solo by salt
+    launches24 = sampled_serving_phase(torch, wrappers)
+    phase_done("(24) the sampled serve")
     # (14) the checkpoint pipeline at full width
     checkpoint_round_trip_phase(torch, wrappers)
     phase_done("path (14): the checkpoint round trip")
@@ -3384,6 +3595,9 @@ def main():
                                "magicdec_tpu/ops/pallas/quant_matmul.py:507"),
         "dense_mlp": ("magicdec_tpu_torch/csrc/ffn_sm90.cu",
                       "magicdec_tpu/ops/pallas/quant_matmul.py:605"),
+        # not a Pallas site: the JAX package samples with plain jnp
+        "gumbel_argmax": ("magicdec_tpu_torch/csrc/sampling_sm90.cu",
+                          "magicdec_tpu/ops/sampling.py:70"),
     }
     # the bf16-scale instances (their launches: paths (15), (16), the
     # bf16-scale serves and, for B14, the group-wise int8 engine run) and B4 /
@@ -3403,6 +3617,10 @@ def main():
     # int8 pools and every bf16-scale instance in the paged 8B serves (22)
     # (the contiguous twins: K1q and B10)
     launches.update(serve8)
+    # S1: the sampled longspec path (23); (24) printed beside it
+    launches["gumbel_argmax"] = ls_results["sampled"][1]["gumbel_argmax"]
+    print(f"[S1] launches: path (23) {launches['gumbel_argmax']}, path (24) "
+          f"{launches24['gumbel_argmax']}", flush=True)
     for name, counts in (("flash_decode_attend_quant4", ls_results["streamingllm"][1]),
                          ("flash_prefill_attend_quant4", ls_results["streamingllm"][1]),
                          ("flash_paged_decode_attend_quant4", ls_serve),

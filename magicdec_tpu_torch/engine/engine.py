@@ -19,7 +19,7 @@ its own cache: full, StreamingLLM or SnapKV-compressed (below).
                         ``done`` once per window.  SnapKV drafts at real
                         rope positions and its verify appends the window's
                         rows to both caches (``forward_verify_snapkv``);
-- ``encode_baseline`` / ``generate_baseline``  greedy autoregressive decoding.
+- ``encode_baseline`` / ``generate_baseline``  autoregressive decoding.
 
 Greedy acceptance matches the reference exactly (engine/spec.py).  The draft
 shares the target's weights, or under ``draft_quant`` runs an int8 or int4
@@ -36,6 +36,20 @@ the same bits at verify and at the autoregressive step, the greedy spec ==
 AR contract (on the H100, cuBLAS's w2 dot at B = 4 and 8 and torch's row
 mean at B = 2 to 8 differ by M otherwise; ``chip_smoke.py`` checks).
 Prefill and draft passes run at the live row count.
+
+Sampling (``EngineConfig.temperature`` > 0, the JAX package's exact
+speculative sampling): every head samples argmax(logits / temperature +
+g) after the top-p filter, where g is the Gumbel noise row of the
+request's salt and the candidate's output-stream index
+(``ops/sampling.py coupled_gumbel``; S1 on the card): draft and target
+draw the same row for the same stream position, so the greedy acceptance
+commits exact samples from the target, and spec output equals sampled
+autoregressive output token for token.  ``encode`` / ``encode_baseline``
+then take the stream key ``rng`` (``ops/prng.py PRNGKey``) and the salts
+[B] (default ``arange(B)``), carried in the state.  token0 is stream index
+0, sampled through the hinted config's padded rows; a window's draft
+candidates and verify rows take the indices after the committed count.
+With temperature 0 the heads are the argmax and ``rng`` / ``salt`` None.
 
 ``LongSpecEngine`` (standalone-draft speculation): the draft has its own
 config and weights (under ``draft_quant`` its int8 / int4 copy, the tied
@@ -118,6 +132,12 @@ class EngineConfig:
     draft_quant_head: bool = True    # False: the quantized draft copy shares the
                                      # target's bf16 lm_head (no copy)
     page_size: int = 2048            # paged serving (PagedServingEngine)
+    temperature: float = 0.0         # > 0: Gumbel-coupled sampling, every committed
+                                     # token an exact sample from the (top-p
+                                     # filtered) target distribution, spec output
+                                     # equal to sampled baseline output with the
+                                     # same rng (ops/sampling.py coupled_gumbel)
+    top_p: float = 1.0
 
 
 class SpecEngine:
@@ -254,11 +274,48 @@ class SpecEngine:
             x_last = x[:, -1]
         return torch.full((B,), P, dtype=torch.int32, device=self.device), x_last
 
-    def _head_token(self, x_last) -> torch.Tensor:
-        """Prefill's first generated token."""
-        return M.head_argmax(self.params, self.cfg, x_last[:, None])[:, 0]
+    # -- sampling (Gumbel-coupled; EngineConfig.temperature > 0) -----------
 
-    def _fresh_state(self, tcaches, dcaches, lens, token0, draft_fill, draft_pos) -> SpecState:
+    def _sampling_args(self, B: int, rng, salt):
+        """encode()'s sampling arguments on the device: (key, salt [B]
+        int32, default arange(B)); (None, None) when greedy."""
+        if self.ecfg.temperature <= 0:
+            return None, None
+        if rng is None:
+            raise ValueError("EngineConfig.temperature > 0 requires an rng key: "
+                             "encode(input_ids, rng=ops.prng.PRNGKey(seed))")
+        salt = (torch.arange(B, dtype=torch.int32) if salt is None
+                else torch.as_tensor(salt, dtype=torch.int32))
+        rng = torch.as_tensor(rng, dtype=torch.int64).to(self.device, copy=True)
+        return rng, salt.to(self.device)
+
+    def _sample_spec(self, st, n0, offset: int, T: int = 1, back=None):
+        """The ``head_sample`` spec of T candidates at output-stream rows
+        n0 + offset (- back) + arange(T), n0 / back [B]; None when greedy
+        (the argmax head)."""
+        e = self.ecfg
+        if e.temperature <= 0:
+            return None
+        idx = n0[:, None] + (torch.arange(T, dtype=torch.int32, device=n0.device) + offset)
+        if back is not None:
+            idx = idx - back[:, None]
+        return {"key": st.rng, "salt": st.salt, "idx": idx,
+                "temperature": e.temperature, "top_p": e.top_p}
+
+    def _head_token(self, x_last, rng=None, salt=None) -> torch.Tensor:
+        """Prefill's first generated token from the last hidden state [B, D]:
+        the argmax, or the stream-index-0 sample through the hinted config
+        (the head over decode_rows padded rows, as the target's passes)."""
+        if self.ecfg.temperature <= 0:
+            return M.head_argmax(self.params, self.cfg, x_last[:, None])[:, 0]
+        B = x_last.shape[0]
+        spec = {"key": rng, "salt": salt,
+                "idx": torch.zeros((B, 1), dtype=torch.int32, device=self.device),
+                "temperature": self.ecfg.temperature, "top_p": self.ecfg.top_p}
+        return M.head_sample(self.params, self._hinted(B), x_last[:, None], spec)[:, 0]
+
+    def _fresh_state(self, tcaches, dcaches, lens, token0, draft_fill, draft_pos,
+                     rng=None, salt=None) -> SpecState:
         B = token0.shape[0]
         return SpecState(
             k=tcaches["k"], v=tcaches["v"], ks=tcaches.get("ks"), vs=tcaches.get("vs"),
@@ -270,21 +327,27 @@ class SpecEngine:
             target_steps=torch.zeros((), dtype=torch.int32, device=self.device),
             done=torch.zeros((), dtype=torch.bool, device=self.device),
             db_tokens=torch.stack([token0, torch.zeros_like(token0)], dim=1),
-            db_update=torch.ones((B,), dtype=torch.int32, device=self.device))
+            db_update=torch.ones((B,), dtype=torch.int32, device=self.device),
+            rng=rng, salt=salt)
 
-    def encode(self, input_ids) -> SpecState:
-        """Prefill both caches from [B, prefix] prompts; returns ready state."""
+    def encode(self, input_ids, rng=None, salt=None) -> SpecState:
+        """Prefill both caches from [B, prefix] prompts; returns ready state.
+        ``rng`` / ``salt`` apply under sampling only: the stream key and the
+        per-request noise-stream salts [B] (default arange(B); serving
+        passes request ids)."""
         e = self.ecfg
         tokens = self._tokens(input_ids)
         B, prefix = tokens.shape
         self._check_capacity(prefix)
+        rng, salt = self._sampling_args(B, rng, salt)
         if e.mode == "snapkv":
-            return self._encode_snapkv(tokens)
+            return self._encode_snapkv(tokens, rng, salt)
         tcaches, dcaches = self._zero_caches(B)
         lens, x_last = self._target_prefill(tokens, tcaches)
-        token0 = self._head_token(x_last)
+        token0 = self._head_token(x_last, rng, salt)
         draft_fill = self._stream_draft_prefill(tokens, dcaches)
-        return self._fresh_state(tcaches, dcaches, lens, token0, draft_fill, draft_fill.clone())
+        return self._fresh_state(tcaches, dcaches, lens, token0, draft_fill, draft_fill.clone(),
+                                 rng, salt)
 
     def _stream_draft_prefill(self, tokens, dcaches) -> torch.Tensor:
         """The draft prefill with sink+window eviction, in ``chunk_size``
@@ -311,7 +374,7 @@ class SpecEngine:
                 f"{prefix} with window {W} and chunk_size {e.chunk_size} (bench and "
                 f"serving_bench round the prefix to a multiple of 128 plus 32)")
 
-    def _encode_snapkv(self, tokens) -> SpecState:
+    def _encode_snapkv(self, tokens, rng=None, salt=None) -> SpecState:
         """SnapKV encode (the JAX package's split encode,
         ``_encode_split_snapkv``): the prefix before the observation window
         in ``prefill_chunk_size`` chunks (the remainder last, the monolithic
@@ -328,12 +391,12 @@ class SpecEngine:
         x, tcaches, qs = M.forward_prefill_snapkv_window(
             self.params, self.cfg, tokens[:, prefix - W:], lens, tcaches)
         self._snapkv_fill_draft(tcaches, dcaches, qs, prefix)
-        token0 = self._head_token(x[:, -1])
+        token0 = self._head_token(x[:, -1], rng, salt)
         lens = lens + W
         return self._fresh_state(
             tcaches, dcaches, lens, token0,
             torch.full((B,), e.draft_budget, dtype=torch.int32, device=self.device),
-            lens.clone())
+            lens.clone(), rng, salt)
 
     def _snapkv_fill_draft(self, tcaches, dcaches, qs, prefix: int, cfg=None) -> None:
         """Compress each layer's target cache (window appended) with its
@@ -433,21 +496,29 @@ class SpecEngine:
         f0 = st.draft_fill
         delta = st.draft_pos - st.draft_fill
         dcaches = {"dk": st.dk, "dv": st.dv}
+        n0 = st.num_committed  # token0 is the candidate for output slot n0
+        # db_tokens[j] sits at output slot n0 - db_update + 1 + j, so nxt2[j]
+        # is the candidate for slot n0 + 2 - db_update + j; the row taken,
+        # db_update - 1, is always slot n0 + 1
         nxt2, dcaches = M.forward_draft(self.draft_params, self.draft_cfg, st.db_tokens, f0,
-                                        f0 + delta, dcaches)
+                                        f0 + delta, dcaches,
+                                        sample=self._sample_spec(st, n0, 2, 2, st.db_update))
         tok = torch.gather(nxt2, 1, (st.db_update - 1)[:, None].long())[:, 0]
         fill = f0 + st.db_update
         drafted = [tok]
-        for _ in range(e.gamma - 1):
+        for j in range(e.gamma - 1):
             nxt, dcaches = M.forward_draft(self.draft_params, self.draft_cfg, tok[:, None],
-                                           fill, fill + delta, dcaches)
+                                           fill, fill + delta, dcaches,
+                                           sample=self._sample_spec(st, n0, 2 + j))
             tok = nxt[:, 0]
             drafted.append(tok)
             fill = fill + 1
         tokens_buffer = torch.stack([st.token0, *drafted], dim=1)
+        # target_tokens[i] is the candidate for output slot n0 + 1 + i
         target_tokens, _ = M.forward_target(self.params, self._hinted(tokens_buffer.shape[0]),
                                             tokens_buffer,
-                                            st.target_lens, self._state_tcaches(st))
+                                            st.target_lens, self._state_tcaches(st),
+                                            sample=self._sample_spec(st, n0, 1, e.gamma + 1))
         return self._finish_window(
             st, tokens_buffer, target_tokens,
             fill_after=lambda acc: f0 + st.db_update - 1 + torch.clamp(acc, max=e.gamma),
@@ -463,10 +534,12 @@ class SpecEngine:
         f0 = st.draft_fill
         dcaches = {"dk": st.dk, "dv": st.dv}
         tok, fill, pos = st.token0, f0, st.draft_pos
+        n0 = st.num_committed  # token0 is the candidate for output slot n0
         drafted = []
-        for _ in range(e.gamma):
+        for j in range(e.gamma):
             nxt, dcaches = M.forward_draft(self.draft_params, self.draft_cfg, tok[:, None],
-                                           fill, pos, dcaches)
+                                           fill, pos, dcaches,
+                                           sample=self._sample_spec(st, n0, 1 + j))
             tok = nxt[:, 0]
             drafted.append(tok)
             fill, pos = fill + 1, pos + 1
@@ -474,25 +547,29 @@ class SpecEngine:
         caches = {**self._state_tcaches(st), **dcaches}
         target_tokens, _ = M.forward_verify_snapkv(
             self.params, self._hinted(tokens_buffer.shape[0]), tokens_buffer,
-            st.target_lens, f0, caches)
+            st.target_lens, f0, caches, sample=self._sample_spec(st, n0, 1, e.gamma + 1))
         return self._finish_window(st, tokens_buffer, target_tokens,
                                    fill_after=lambda acc: f0 + acc, masks=masks)
 
     # -- autoregressive baseline --------------------------------------------
 
-    def encode_baseline(self, input_ids) -> BaselineState:
+    def encode_baseline(self, input_ids, rng=None, salt=None) -> BaselineState:
+        """The target's prefill of [B, prefix] prompts and token0 (``rng`` /
+        ``salt`` as in ``encode``)."""
         tokens = self._tokens(input_ids)
         B, prefix = tokens.shape
         self._check_capacity(prefix)
+        rng, salt = self._sampling_args(B, rng, salt)
         caches = self._zero_target_caches(B)
         lens, x_last = self._target_prefill(tokens, caches)
-        token0 = self._head_token(x_last)
+        token0 = self._head_token(x_last, rng, salt)
         output = torch.zeros((B, self._out_cap), dtype=torch.int32, device=self.device)
         output = spec_ops.write_at(output, torch.zeros_like(token0), token0)
         return BaselineState(k=caches["k"], v=caches["v"], ks=caches.get("ks"),
                              vs=caches.get("vs"), lens=lens, token0=token0, output=output,
                              num_committed=torch.ones((B,), dtype=torch.int32,
-                                                      device=self.device))
+                                                      device=self.device),
+                             rng=rng, salt=salt)
 
     def generate_baseline(self, state: BaselineState, max_new=None):
         max_new = max_new if max_new is not None else self.ecfg.max_gen
@@ -500,7 +577,9 @@ class SpecEngine:
         lens, tok, out, n = state.lens, state.token0, state.output, state.num_committed
         cfg = self._hinted(tok.shape[0])
         for _ in range(max_new - 1):
-            nxt, caches = M.forward_target(self.params, cfg, tok[:, None], lens, caches)
+            # the produced token is the candidate for output slot n
+            nxt, caches = M.forward_target(self.params, cfg, tok[:, None], lens, caches,
+                                           sample=self._sample_spec(state, n, 0))
             tok = nxt[:, 0]
             out = spec_ops.write_at(out, n, tok)
             lens, n = lens + 1, n + 1
@@ -537,26 +616,29 @@ class LongSpecEngine(SpecEngine):
     def _window(self):
         return self._window_streaming
 
-    def encode(self, input_ids) -> SpecState:
+    def encode(self, input_ids, rng=None, salt=None) -> SpecState:
         """Prefill both models' caches from [B, prefix] prompts (the JAX
-        package's split encode, mode by mode); returns the ready state."""
+        package's split encode, mode by mode); returns the ready state
+        (``rng`` / ``salt`` as in ``SpecEngine.encode``)."""
         e = self.ecfg
         tokens = self._tokens(input_ids)
         B, prefix = tokens.shape
         self._check_capacity(prefix)
+        rng, salt = self._sampling_args(B, rng, salt)
         if e.mode == "snapkv":
-            return self._encode_longspec_snapkv(tokens)
+            return self._encode_longspec_snapkv(tokens, rng, salt)
         tcaches, dcaches = self._zero_caches(B)
         lens, x_last = self._target_prefill(tokens, tcaches)
-        token0 = self._head_token(x_last)
+        token0 = self._head_token(x_last, rng, salt)
         if e.mode == "full":
             draft_fill, _ = self._chunked_prefill(self.draft_params, self.draft_cfg, tokens,
                                                   {"k": dcaches["dk"], "v": dcaches["dv"]})
         else:
             draft_fill = self._stream_draft_prefill(tokens, dcaches)
-        return self._fresh_state(tcaches, dcaches, lens, token0, draft_fill, draft_fill.clone())
+        return self._fresh_state(tcaches, dcaches, lens, token0, draft_fill, draft_fill.clone(),
+                                 rng, salt)
 
-    def _encode_longspec_snapkv(self, tokens) -> SpecState:
+    def _encode_longspec_snapkv(self, tokens, rng=None, salt=None) -> SpecState:
         """SnapKV with a standalone draft, draft first (the JAX package's
         ``_encode_split``): the draft's temporary full cache over the prefix
         before the observation window (``prefill_chunk_size`` chunks), the
@@ -578,11 +660,11 @@ class LongSpecEngine(SpecEngine):
         del full, qs
         tcaches = self._zero_target_caches(B)
         lens, x_last = self._target_prefill(tokens, tcaches)
-        token0 = self._head_token(x_last)
+        token0 = self._head_token(x_last, rng, salt)
         return self._fresh_state(
             tcaches, dcaches, lens, token0,
             torch.full((B,), e.draft_budget, dtype=torch.int32, device=self.device),
-            lens.clone())
+            lens.clone(), rng, salt)
 
 
 def _has_quantized_layers(params) -> bool:

@@ -20,8 +20,12 @@ decode and append kernels, ``kernels/paged_attention.py``), so its capacity
 is the sum of the admitted requests' lengths.  ``ServingLongSpecEngine``
 and ``PagedServingLongSpecEngine`` serve with a standalone draft model
 (``LongSpecEngine``'s encode and window; its draft cache stays contiguous a
-slot, as in the JAX package).  All greedy; sampled serving is ROADMAP item
-A10, a data axis of page groups A15.
+slot, as in the JAX package).  Greedy, or sampled under
+``EngineConfig.temperature`` > 0: one stream key for the batch
+(``serve(..., rng=...)``) and each request's id as its noise-stream salt,
+spliced into its slot at admission, so a request samples the tokens it
+would sample alone with that salt.  A data axis of page groups is ROADMAP
+item A15.
 """
 
 from __future__ import annotations
@@ -49,7 +53,8 @@ class ServingEngine(SpecEngine):
     over B contiguous slots.  ``serve(prompts, B)`` runs the whole stream and
     returns each request's generated tokens in submission order."""
 
-    def _empty_state(self, tcaches: dict, dcaches: dict, B: int, table=None) -> ServingState:
+    def _empty_state(self, tcaches: dict, dcaches: dict, B: int, table=None,
+                     rng=None) -> ServingState:
         def z(n):
             return torch.zeros((n,), dtype=torch.int32, device=self.device)
 
@@ -62,23 +67,27 @@ class ServingEngine(SpecEngine):
             target_steps=torch.zeros((), dtype=torch.int32, device=self.device),
             done=torch.zeros((), dtype=torch.bool, device=self.device),
             db_tokens=torch.zeros((B, 2), dtype=torch.int32, device=self.device),
-            db_update=torch.ones((B,), dtype=torch.int32, device=self.device))
+            db_update=torch.ones((B,), dtype=torch.int32, device=self.device),
+            rng=rng, salt=None if rng is None else z(B))
         flags = torch.zeros((B,), dtype=torch.bool, device=self.device)
         return ServingState(spec=spec, active=flags, done=flags.clone())
 
-    def init_serving(self, B: int, total_pages: Optional[int] = None) -> ServingState:
+    def init_serving(self, B: int, total_pages: Optional[int] = None,
+                     rng=None) -> ServingState:
         """An empty batch of B slots (``total_pages`` sizes the page pool of
-        ``PagedServingEngine``; contiguous slots have none)."""
+        ``PagedServingEngine``; contiguous slots have none).  Under sampling
+        ``rng`` is the batch's stream key; the salts come with admission."""
+        rng, _ = self._sampling_args(B, rng, None)
         tcaches, dcaches = self._zero_caches(B)
-        return self._empty_state(tcaches, dcaches, B)
+        return self._empty_state(tcaches, dcaches, B, rng=rng)
 
     # -- admission ----------------------------------------------------------
 
     def admit_many(self, sst: ServingState, admissions) -> ServingState:
         """Admit a wave: ``admissions`` = [(slot, prompt, request id), ...].
         Prompts are bucketed by length; each bucket prefills as ONE encode
-        over its [k, P] prompts and is spliced into its slots.  (The request
-        id is the noise-stream salt of sampled serving, ROADMAP A10.)
+        over its [k, P] prompts and is spliced into its slots.  The request
+        id is the request's noise-stream salt under sampling.
         ``PagedServingEngine`` takes a fourth entry, the slot's table row
         [npr] int32: its pool pages (allocator pages offset past the scratch
         pages; unused tail entries = the slot's scratch page)."""
@@ -88,7 +97,8 @@ class ServingEngine(SpecEngine):
         for group in buckets.values():
             slots = torch.as_tensor([g[0] for g in group], dtype=torch.long,
                                     device=self.device)
-            stk = self.encode(np.stack([np.asarray(g[1]) for g in group]))
+            stk = self.encode(np.stack([np.asarray(g[1]) for g in group]),
+                              rng=sst.spec.rng, salt=[g[2] for g in group])
             sst = self._admit(sst, stk, slots, group)
         return sst
 
@@ -99,6 +109,8 @@ class ServingEngine(SpecEngine):
         spec.dk.index_copy_(1, slots, stk.dk)
         spec.dv.index_copy_(1, slots, stk.dv)
         upd = {n: getattr(spec, n).index_copy(0, slots, getattr(stk, n)) for n in _SLOT_FIELDS}
+        if spec.salt is not None:
+            upd["salt"] = spec.salt.index_copy(0, slots, stk.salt)
         return ServingState(spec=dataclasses.replace(spec, **upd, **spec_upd),
                             active=sst.active.index_fill(0, slots, True),
                             done=sst.done.index_fill(0, slots, False))
@@ -126,9 +138,11 @@ class ServingEngine(SpecEngine):
                             done=sst.done.index_fill(0, idx, False))
 
     def serve(self, prompts: List[np.ndarray], B: int, windows_per_sync: int = 4,
-              total_pages: Optional[int] = None) -> List[np.ndarray]:
+              total_pages: Optional[int] = None, rng=None) -> List[np.ndarray]:
         """Serve every prompt (arbitrary lengths) through B slots; returns
-        each request's generated tokens in submission order.
+        each request's generated tokens in submission order.  ``rng``: the
+        stream key under sampling (each request samples with its id as the
+        salt).
 
         Each admission reserves ceil((prompt + max_gen + gamma + 2) / page
         size) pages and releases them at drain; with ``total_pages`` below
@@ -145,7 +159,7 @@ class ServingEngine(SpecEngine):
         if n_pages < worst:
             raise ValueError(f"total_pages={n_pages} cannot hold the longest request "
                              f"({worst} pages)")
-        sst = self.init_serving(B, total_pages=n_pages)
+        sst = self.init_serving(B, total_pages=n_pages, rng=rng)
         sched = native.Scheduler(B)
         alloc = native.PageAllocator(n_pages, ps, B, cap)
         slot_pages: Dict[int, int] = {}  # batch slot -> allocator slot
@@ -262,9 +276,12 @@ class PagedServingEngine(ServingEngine):
             raise ValueError(f"page_size {e.page_size} > 128 must be a multiple of 128")
         return e.max_seq_len // e.page_size
 
-    def init_serving(self, B: int, total_pages: Optional[int] = None) -> ServingState:
+    def init_serving(self, B: int, total_pages: Optional[int] = None,
+                     rng=None) -> ServingState:
         """B empty slots over a pool of ``total_pages`` pages (default: the
-        full B x npr capacity) plus the B scratch pages."""
+        full B x npr capacity) plus the B scratch pages (``rng`` as in
+        ``ServingEngine.init_serving``)."""
+        rng, _ = self._sampling_args(B, rng, None)
         e, c = self.ecfg, self.cfg
         ps, npr = e.page_size, self._npr
         P = (B * npr if total_pages is None else total_pages) + B
@@ -277,7 +294,7 @@ class PagedServingEngine(ServingEngine):
                                                     e.kv_scale_dtype, self.device)
                             for n in ("ks", "vs")})
         table = self._scratch_rows(torch.arange(B, device=self.device))
-        return self._empty_state(tcaches, self._zero_draft_caches(B), B, table=table)
+        return self._empty_state(tcaches, self._zero_draft_caches(B), B, table=table, rng=rng)
 
     def _scratch_rows(self, slots: torch.Tensor) -> torch.Tensor:
         """Table rows [k, npr] pointing every logical page of ``slots`` at

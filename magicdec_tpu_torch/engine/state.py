@@ -1,8 +1,7 @@
 """Decode state of the engines (counterpart of magicdec_tpu/engine/state.py).
 
 Plain dataclasses of tensors.  The caches inside are updated in place by the
-model passes; the other fields are replaced each window.  The sampling
-fields of the reference arrive with their slice (ROADMAP A10).
+model passes; the other fields are replaced each window.
 """
 
 from __future__ import annotations
@@ -35,6 +34,11 @@ class SpecState:
     # for a bf16 cache), the ops.kv_cache.quantize_kv_tokens layout
     ks: Optional[torch.Tensor] = None
     vs: Optional[torch.Tensor] = None
+    # Gumbel-coupled sampling (EngineConfig.temperature > 0; None when
+    # greedy): rng the stream key (ops/prng.py, int64 [2]), salt [B] int32
+    # the per-request noise-stream identity (ops/sampling.py coupled_gumbel)
+    rng: Optional[torch.Tensor] = None
+    salt: Optional[torch.Tensor] = None
     # Paged serving (engine/serving.PagedServingEngine): k/v (+ks/vs) are page
     # POOLS [L, P, ps, Kc] (+ [L, P, Hkv, ps]) shared by the slots, and table
     # [B, npr] int32 maps a slot's logical pages to pool pages.  None:
@@ -63,3 +67,5 @@ class BaselineState:
     num_committed: torch.Tensor
     ks: Optional[torch.Tensor] = None  # int8-cache scales, as in SpecState
     vs: Optional[torch.Tensor] = None
+    rng: Optional[torch.Tensor] = None   # sampling key and salt, as in SpecState
+    salt: Optional[torch.Tensor] = None

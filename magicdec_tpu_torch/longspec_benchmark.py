@@ -25,8 +25,11 @@ quantizes the target's stack and head as they are drawn,
 target's weights).  Prompts: the synthetic long-context corpus, ``--B``
 requests a batch, ``--num_batches`` batches of which the first
 ``--warmup_batches`` are not timed; decode-loop wall time between
-``torch.cuda.synchronize()`` calls.  ``--baseline``: the target's greedy
-autoregressive decoding on the same batches (``vs_baseline``).  Per-batch
+``torch.cuda.synchronize()`` calls.  ``--baseline``: the target's
+autoregressive decoding on the same batches (``vs_baseline``).
+``--temperature`` > 0 runs exact speculative sampling (``--top_p``; the
+key of ``--seed``, request b of a batch salt b), the baseline sampling with
+the same key.  Per-batch
 lines go to stderr, the JAX benchmark's totals to stdout, and the last line on
 stdout is the JSON result, printed when a batch was timed.
 """
@@ -103,8 +106,6 @@ def _not_ported(args):
                 "ROADMAP item A15")
     if args.data_parallel * args.model_parallel > 1 or args.force_mesh:
         return "a device mesh is ROADMAP item A15"
-    if args.temperature > 0:
-        return "sampled speculation (--temperature > 0) is ROADMAP item A10"
     if args.attn_backend != "flash":
         return "--attn_backend jnp: the port runs its Hopper kernels only"
     if args.quant_backend != "pallas":
@@ -163,8 +164,10 @@ def setup(args):
 
     from magicdec_tpu_torch.engine.engine import EngineConfig, LongSpecEngine
     from magicdec_tpu_torch.serving_bench import synthetic_long_context_dataset
+    from magicdec_tpu_torch.utils.seeding import setup_seed
 
     dev = resolve_device(args.device)
+    setup_seed(args.seed)
     params, cfg, dparams, dcfg = load_pair(args, dev)
     mode, budget = draft_mode(args)
     ecfg = EngineConfig(
@@ -172,7 +175,8 @@ def setup(args):
         max_gen=args.max_gen, eot_ids=(-1,), prefill_chunk_size=args.prefill_chunk,
         cache_dtype=torch.bfloat16, kv_quant=args.kv_quant or False,
         kv_scale_dtype=torch.bfloat16 if args.kv_scale == "bf16" else torch.float32,
-        draft_quant=args.draft_quant or False, draft_quant_head=args.draft_head == "quant")
+        draft_quant=args.draft_quant or False, draft_quant_head=args.draft_head == "quant",
+        temperature=args.temperature, top_p=args.top_p)
     engine = LongSpecEngine(params, cfg, dparams, dcfg, ecfg, device=dev)
     # the engine holds its own (fused, quantized) copies; these go
     del params, dparams
@@ -192,8 +196,11 @@ def run(args):
     batch {'output', 'num_committed', 'seconds'}], 'engine_mode'}."""
     import torch
 
+    from magicdec_tpu_torch.utils.seeding import sampling_rng
+
     engine, batches = setup(args)
     cuda = engine.device.type == "cuda"
+    rng = sampling_rng(args, engine.device)  # --temperature > 0: the key of --seed
 
     def sync():
         if cuda:
@@ -204,7 +211,7 @@ def run(args):
     for i, prompt in enumerate(batches):
         sync()
         t0 = time.perf_counter()
-        st = engine.encode(prompt)
+        st = engine.encode(prompt, rng=rng)
         sync()
         encode_s = time.perf_counter() - t0
         t0 = time.perf_counter()
@@ -238,7 +245,7 @@ def run(args):
     if args.baseline and total_time > 0:
         bt, btok = 0.0, 0
         for i, prompt in enumerate(batches):
-            st = engine.encode_baseline(prompt)
+            st = engine.encode_baseline(prompt, rng=rng)
             sync()
             t0 = time.perf_counter()
             st, stats = engine.generate_baseline(st, max_new=args.max_gen)

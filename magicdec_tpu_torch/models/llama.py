@@ -52,6 +52,7 @@ from magicdec_tpu_torch.kernels.append import (append_all_rows_inplace, append_r
                                                append_scale_rows_inplace)
 from magicdec_tpu_torch.kernels.paged_attention import append_paged_rows_inplace
 from magicdec_tpu_torch.ops import attention as attn_ops
+from magicdec_tpu_torch.ops import sampling as S
 from magicdec_tpu_torch.ops.kv_cache import (is_packed_int4, quantize_kv_tokens,
                                              quantize_kv_tokens_int4)
 from magicdec_tpu_torch.ops.norm import rms_norm
@@ -281,15 +282,36 @@ def _target_attend(q, k, v, caches, l, base_lens):
     return out, rows
 
 
-def _head(params, cfg, x, head, B, T):
-    """The head over x [R, D]; returns its first B*T rows as [B, T, ...]."""
-    if head == "logits":
+def _head(params, cfg, x, head, B, T, sample=None):
+    """The head over x [R, D]; returns its first B*T rows as [B, T, ...].
+    ``sample`` (see ``head_sample``) replaces the 'argmax' head's argmax
+    with the coupled-Gumbel sample of those rows' logits."""
+    if head == "logits" or (head == "argmax" and sample is not None):
         out = head_logits(params, rms_norm(x, params["final_norm"], cfg.norm_eps))
     elif head == "none":
         out = x
     else:
         out = head_argmax(params, cfg, x)
-    return out[:B * T].reshape(B, T, *out.shape[1:])
+    out = out[:B * T].reshape(B, T, *out.shape[1:])
+    if head == "argmax" and sample is not None:
+        return S.gumbel_sample_tokens(out, sample["key"], sample["salt"], sample["idx"],
+                                      temperature=sample["temperature"],
+                                      top_p=sample["top_p"])
+    return out
+
+
+def head_sample(params: Params, cfg: ModelConfig, x, sample) -> torch.Tensor:
+    """Final norm + lm head + coupled-Gumbel categorical sample -> int32
+    [B, T] for x [B, T, D], the head run over x's rows padded to
+    ``cfg.decode_rows`` (``pad_rows``).
+
+    ``sample``: {'key': the key (``ops/prng.py``), 'salt': [B] int32, 'idx':
+    [B, T] int32 output-stream indices, 'temperature': float, 'top_p':
+    float}.  The shared noise a (request, stream position) is what makes
+    speculative sampling exact under the greedy-match acceptance
+    (``ops/sampling.py``)."""
+    B, T = x.shape[:2]
+    return _head(params, cfg, pad_rows(x, cfg.decode_rows), "argmax", B, T, sample)
 
 
 def _decode_layers(params, cfg, x, B, T, cs, attend_fn, *, mega=False):
@@ -329,24 +351,25 @@ def _target_layers(params, cfg, tokens, base_lens, caches, collect=None):
 
 
 def forward_target(params: Params, cfg: ModelConfig, tokens, base_lens, caches,
-                   *, head: str = "argmax"):
+                   *, head: str = "argmax", sample=None):
     """Decode / verify / prefill chunk over the full target cache.
 
     tokens [B, T]; base_lens [B] int32 = visible cache length before this
     call; caches {'k','v'} [L, B, S, K] (+ {'ks','vs'} [L, B, Hkv, S] for an
     int8 cache), appended in place at base_lens.
     Positions are base_lens + arange(T).  head: 'argmax' | 'logits' | 'none'
-    (final hidden states).  ``cfg.decode_rows`` pads the pass's rows to that
-    count (``pad_rows``).  Returns (head output, caches).
+    (final hidden states); ``sample`` (``head_sample``) samples instead of
+    the argmax.  ``cfg.decode_rows`` pads the pass's rows to that count
+    (``pad_rows``).  Returns (head output, caches).
     """
     B, T = tokens.shape
     x, rows = _target_layers(params, cfg, tokens, base_lens, caches)
     caches = _append_rows(caches, rows, base_lens)
-    return _head(params, cfg, x, head, B, T), caches
+    return _head(params, cfg, x, head, B, T, sample), caches
 
 
 def forward_verify_snapkv(params: Params, cfg: ModelConfig, tokens, base_lens, draft_fill,
-                          caches, *, head: str = "argmax"):
+                          caches, *, head: str = "argmax", sample=None):
     """SnapKV self-speculation verify: ``forward_target``'s pass, then a
     dual append.
 
@@ -356,8 +379,8 @@ def forward_verify_snapkv(params: Params, cfg: ModelConfig, tokens, base_lens, d
     (the JAX package's ``forward_verify_snapkv``).  The draft rows are the
     live rows' only, never the decode_rows padding.  caches: the target's
     {'k','v'[,'ks','vs','table']} and the draft's {'dk','dv'}; the draft
-    cache stays contiguous under paged serving.  Returns (head output,
-    caches)."""
+    cache stays contiguous under paged serving.  ``sample`` as in
+    ``forward_target``.  Returns (head output, caches)."""
     B, T = tokens.shape
 
     def draft_rows(l, q, k, v, rows):
@@ -367,7 +390,7 @@ def forward_verify_snapkv(params: Params, cfg: ModelConfig, tokens, base_lens, d
     x, rows = _target_layers(params, cfg, tokens, base_lens, caches, collect=draft_rows)
     caches = _append_rows(caches, rows, base_lens)
     caches = _append_rows(caches, {"k": rows["dk"], "v": rows["dv"]}, draft_fill, prefix="d")
-    return _head(params, cfg, x, head, B, T), caches
+    return _head(params, cfg, x, head, B, T, sample), caches
 
 
 def forward_prefill_snapkv_window(params: Params, cfg: ModelConfig, tokens, base_lens,
@@ -391,7 +414,7 @@ def forward_prefill_snapkv_window(params: Params, cfg: ModelConfig, tokens, base
 def forward_prefill_snapkv_last(params: Params, cfg: ModelConfig, tokens, base_lens, caches,
                                 *, ctx_len: int, window: int, budget: int,
                                 kernel_size: int = 5, pooling: str = "avgpool",
-                                head: str = "none"):
+                                head: str = "none", sample=None):
     """The last SnapKV prefill chunk with the compression inside the layer
     loop (the JAX package's ``forward_prefill_snapkv_last``): the target's
     forward and append of tokens [B, window] at base_lens, and per layer
@@ -401,7 +424,8 @@ def forward_prefill_snapkv_last(params: Params, cfg: ModelConfig, tokens, base_l
     ctx_len: the prefix length after this chunk.  caches: the target's and
     the draft's {'dk','dv'}.  Each layer's compression reads a copy of the
     layer with the window written (the cache itself is appended after the
-    loop).  Returns (head output, caches)."""
+    loop).  ``sample`` as in ``forward_target``.  Returns (head output,
+    caches)."""
     from magicdec_tpu_torch.ops.kv_cache import (append_rows_all_layers,
                                                  append_scale_rows_all_layers)
     from magicdec_tpu_torch.ops.snapkv import snapkv_compress
@@ -427,7 +451,7 @@ def forward_prefill_snapkv_last(params: Params, cfg: ModelConfig, tokens, base_l
     caches = _append_rows(caches, rows, base_lens)
     caches["dk"][:, :, :budget] = rows["dk"]
     caches["dv"][:, :, :budget] = rows["dv"]
-    return _head(params, cfg, x, head, B, T), caches
+    return _head(params, cfg, x, head, B, T, sample), caches
 
 
 def forward_streaming_draft_chunk(params: Params, cfg: ModelConfig, tokens,
@@ -477,13 +501,14 @@ def streaming_finalize_draft(cfg: ModelConfig, caches, *, budget: int):
 
 
 def forward_draft(params: Params, cfg: ModelConfig, tokens, draft_fill, rope_pos,
-                  caches):
+                  caches, *, sample=None):
     """Draft decode step over the budget-sized draft cache.
 
     tokens [B, T]; draft_fill [B] = append position and causal base;
     rope_pos [B] = rope position of the first token (slot positions for
     StreamingLLM); caches {'dk','dv'}, appended in place at draft_fill.
-    Returns (argmax tokens [B, T] int32, caches).
+    Returns (argmax tokens [B, T] int32, or with ``sample`` the
+    coupled-Gumbel sample (``head_sample``), caches).
     """
     B, T = tokens.shape
     pos = rope_pos[:, None] + torch.arange(T, device=tokens.device, dtype=torch.int32)
@@ -498,4 +523,6 @@ def forward_draft(params: Params, cfg: ModelConfig, tokens, draft_fill, rope_pos
 
     x, rows = _decode_layers(params, cfg, x, B, T, cs, attend_fn, mega=True)
     caches = _append_rows(caches, rows, draft_fill, prefix="d")
+    if sample is not None:
+        return _head(params, cfg, x, "argmax", B, T, sample), caches
     return head_argmax(params, cfg, x.reshape(B, T, -1)), caches

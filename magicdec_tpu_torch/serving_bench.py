@@ -17,7 +17,9 @@ named).  Same flags, defaults and JSON line
 as ``benchmarks/serving_benchmark.py``, with ``_torch`` appended to the
 metric, except that ``--attn_backend`` defaults to ``flash`` (the port runs
 its Hopper kernels only; ``jnp`` raises) and ``--device`` picks the device
-(``cpu`` runs the plain kernel versions).  ``--model`` is a config name
+(``cpu`` runs the plain kernel versions).  ``--temperature`` > 0 serves
+with exact speculative sampling (``--top_p``; the key of ``--seed``, each
+request's id its salt).  ``--model`` is a config name
 (synthetic weights, ``bench.make_params``) or a converted checkpoint
 ``.npz`` (``convert_checkpoint``; its config from the file name, loaded in
 bf16 and, for a name holding ``int8`` / ``int4``, as quantized verify
@@ -132,8 +134,6 @@ def parse_args(argv=None):
 
 
 def _not_ported(args):
-    if args.temperature > 0:
-        return "sampled serving (--temperature > 0) is ROADMAP item A10"
     if args.data_parallel * args.model_parallel > 1 or args.force_mesh:
         return "a device mesh is ROADMAP item A15"
     if args.attn_backend != "flash":
@@ -212,7 +212,8 @@ def setup(args):
         page_size=args.page_size, kv_quant=args.kv_quant or False,
         kv_scale_dtype=torch.bfloat16 if args.kv_scale == "bf16" else torch.float32,
         draft_quant=args.draft_quant or False,
-        draft_quant_head=args.draft_head == "quant")
+        draft_quant_head=args.draft_head == "quant",
+        temperature=args.temperature, top_p=args.top_p)
     if draft is not None:
         cls = PagedServingLongSpecEngine if args.paged else ServingLongSpecEngine
         engine = cls(params, cfg, *draft, ecfg, device=dev)
@@ -238,8 +239,12 @@ def run(args):
     'seconds'}."""
     import torch
 
+    from magicdec_tpu_torch.utils.seeding import sampling_rng
+
     engine, prompts = setup(args)
-    serve_kw = dict(windows_per_sync=args.windows_per_sync)
+    # --temperature > 0: the key of --seed, each request's id its salt
+    serve_kw = dict(windows_per_sync=args.windows_per_sync,
+                    rng=sampling_rng(args, engine.device))
     if args.paged and args.total_pages:
         serve_kw["total_pages"] = args.total_pages
 

@@ -9,7 +9,8 @@ versions), against the JAX package on the same numpy weights and prompts.
   target and the int8 draft copy equal to the contiguous twin.
 - ``serving_bench --mode full`` and ``--draft_model``, and the longspec
   benchmark (``python -m magicdec_tpu_torch.longspec_benchmark``) end to end at
-  a tiny size: the JSON line, spec == AR, and the paths that raise.
+  a tiny size: the JSON line, spec == AR (greedy and sampled), and the
+  paths that raise.
 """
 
 import functools
@@ -167,18 +168,31 @@ def test_longspec_benchmark_runs_on_cpu(tiny_pair, capsys, extra, mode, prefix):
 
 def test_longspec_benchmark_untimed_and_not_ported(tiny_pair, capsys):
     """The JAX benchmark's defaults (B=8 with 16 sequences: two batches, both
-    warmup) time nothing and print no result; the draft's sub-mesh, a mesh,
-    sampling and jnp backends raise."""
+    warmup) time nothing and print no result; the draft's sub-mesh, a mesh
+    and jnp backends raise."""
     out = longspec_benchmark.main(["--device", "cpu", "--model", "big", "--draft_model",
                                    "small", "--prefix_len", "160", "--max_len", "320",
                                    "--max_gen", "4", "--prefill_chunk", "64"])
     assert out["result"] is None and len(out["spec"]) == 2
     assert "{" not in capsys.readouterr().out
     for argv, item in ((["--model_parallel_outer", "2", "--model_parallel_inner", "2"], "A15"),
-                       (["--model_parallel", "2"], "A15"), (["--temperature", "0.5"], "A10"),
-                       (["--attn_backend", "jnp"], "Hopper")):
+                       (["--model_parallel", "2"], "A15"), (["--attn_backend", "jnp"], "Hopper")):
         with pytest.raises(NotImplementedError, match=item):
             longspec_benchmark.run(longspec_benchmark.parse_args(argv + ["--device", "cpu"]))
+
+
+def test_longspec_benchmark_samples_on_cpu(tiny_pair, capsys):
+    """``--temperature 0.5`` (which raised before sampling was ported) with
+    ``--baseline``: the sampled spec equals the sampled baseline on every
+    committed token of both batches, and differs from the greedy run."""
+    argv = ["--device", "cpu", "--model", "big", "--draft_model", "small", "--B", "2",
+            "--prefix_len", "160", "--max_len", "320", "--max_gen", "12", "--prefill_chunk",
+            "64", "--num_batches", "2", "--warmup_batches", "1", "--baseline"]
+    out = longspec_benchmark.main(argv + ["--temperature", "0.5", "--top_p", "0.9"])
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1])["value"] > 0
+    _spec_equals_ar(out, 12)
+    greedy = longspec_benchmark.run(longspec_benchmark.parse_args(argv))
+    assert any((s["output"] != g["output"]).any() for s, g in zip(out["spec"], greedy["spec"]))
 
 
 @pytest.mark.parametrize("argv", [["--mode", "full"], ["--draft_model", "small", "--paged"]],

@@ -150,14 +150,38 @@ def test_synthetic_dataset_matches_jax():
 
 @pytest.mark.parametrize("argv", [
     # a standalone draft is served now (tests/test_torch_longspec_serving.py);
-    # these two cases keep its flags with a path that still raises
-    pytest.param(["--mode", "full", "--temperature", "0.8"], id="mode_full"),
+    # this case keeps its flags with a path that still raises
     pytest.param(["--draft_model", "x", "--model_parallel", "2"], id="draft_model_x"),
-    ["--temperature", "0.8"], ["--model_parallel", "2"], ["--attn_backend", "jnp"],
+    ["--model_parallel", "2"], ["--attn_backend", "jnp"],
 ], ids=lambda a: "_".join(a).strip("-"))
 def test_serving_bench_paths_not_ported_raise(argv):
     with pytest.raises(NotImplementedError, match="ROADMAP|Hopper"):
         serving_bench.run(serving_bench.parse_args(argv + ["--device", "cpu"]))
+
+
+@pytest.mark.parametrize("argv", [
+    pytest.param(["--mode", "full", "--temperature", "0.8"], id="mode_full"),
+    pytest.param(["--temperature", "0.8"], id="temperature_0.8"),
+])
+def test_serving_bench_sampled_paths_run_on_cpu(monkeypatch, capsys, argv):
+    """``serving_bench --temperature 0.8`` (which raised before sampling was
+    ported), self-speculation and ``--mode full`` (the standalone-draft
+    twin), at a tiny size: every request served, each equal to its prompt
+    alone through a B=1 engine with its request id as the salt."""
+    from magicdec_tpu_torch.ops.prng import PRNGKey
+
+    monkeypatch.setattr(tcfg.ModelConfig, "from_name",
+                        classmethod(lambda cls, name: tcfg.tiny_config(**KW)))
+    common = ["--device", "cpu", "--model", "tiny", "--max_len", "256", "--page_size", "64",
+              "--max_gen", "8", "--top_p", "0.9"] + argv
+    out = serving_bench.main(common + ["--slots", "2", "--num_requests", "3", "--prefix_len",
+                                       "96", "--skip_warmup"])
+    assert out["stats"]["served"] == 3
+    engine, _ = serving_bench.setup(serving_bench.parse_args(common))
+    assert (engine.ecfg.temperature, engine.ecfg.top_p) == (0.8, 0.9)
+    for rid, (prompt, got) in enumerate(zip(out["prompts"], out["outputs"])):
+        _, stats = engine.generate(engine.encode(prompt[None], rng=PRNGKey(123), salt=[rid]))
+        np.testing.assert_array_equal(got, stats["output"][0, :int(stats["num_committed"][0])])
 
 
 def test_serving_bench_kv_scale_bf16_runs_on_cpu(monkeypatch, capsys):
