@@ -77,9 +77,9 @@ of which raises on failure:
    scales shifted by one group, the head's scales rolled by one column),
    their bound the packed weight and its scales; the head-dim-128
    instances of B10 and B11 at the longspec path's 8B target (32 query
-   heads, 8 kv heads of 128 dims, B = 8, an int4 cache of 16512 rows: B10
+   heads, 8 kv heads of 128 dims, B = 8, an int4 cache of 8320 rows: B10
    at T = 4 and 1, each window token bit-equal to its step; B11 at C = 512,
-   bases 15872 and 0; each counted on ``hd128_launches``, wrong references
+   bases 7680 and 0; each counted on ``hd128_launches``, wrong references
    without the fresh rows and with the nibble planes swapped, one kernel
    launch a call under torch.profiler, library: SDPA); the
    head-dim-128 instances of the 8B self-speculation paths
@@ -124,14 +124,15 @@ of which raises on failure:
    prefill chunk's 256 rows take B9), (4) with ``--kv_quant int4
    --draft_quant int4 --iters 1`` (the int4 capacity path: B10, B11, K3q on
    packed rows, B4-int4 and B6-int4; B5, B9, K1q and K2q must not launch),
-   (5) with ``--kv_quant int4 --iters 1`` (the int4 cache under the int8
-   draft copy), each with the launch counters zeroed just before and read
+   (5) with ``--kv_quant int4 --B 8 --prefix_len 4096 --iters 1`` (the
+   int4 cache under the int8 draft copy, at path (15)'s shape), each with the launch counters zeroed just before and read
    just after: every kernel of the path launched, tokens per step >= 2.5
    (>= 1.8 on path (4), whose int4 draft copy of random weights accepts
    less), the spec and autoregressive streams agreeing on every committed
    token of every request, path (1)'s peak device memory below path (2)'s
    and path (4)'s below path (1)'s, each path's time to first token (its
-   last measured spec encode) printed; (12) ``--quantize int8 --iters 1``
+   last measured spec encode) printed; (12) ``--quantize int8
+   --prefix_len 4096 --iters 1``
    (int8 verify weights shared by the draft: B4, B9 and B6 launched at the
    target's 128 rows, counted by row count; B5 on the draft; no int4 dot)
    against path (1), then the row check below on those weights at B = 32, 4
@@ -144,8 +145,8 @@ of which raises on failure:
    speculation, ``LONGSPEC_ARGV``: llama-3.1-8b verified by llama-3.2-1b,
    the coupled synthetic pair, the draft's int8 copy, B=8, the int4 target
    cache, 512-token prefill chunks, ``--baseline``, one batch each, no
-   warmup batch): streamingllm at 16384
-   and snapkv at 16416 of 16512 rows, full mode at 4096 of 4608, each
+   warmup batch): streamingllm at 8192
+   and snapkv at 8224 of 8320 rows, full mode at 4096 of 4608, each
    failing unless spec == AR on every committed token of every batch, B10
    and B11 launched on their head-dim-128 instances alone, the draft's
    K1, K3, B4, B5, B6 (and K2 for full and snapkv) and the target's K3q
@@ -155,17 +156,18 @@ of which raises on failure:
    --top_p 0.9``, 4096 of 4608 rows): spec sampling == baseline sampling
    on every committed token, >= 2.2 tokens per step, S1 launched once a
    sampled head; then a paged int4
-   ``PagedServingLongSpecEngine`` serve of 8 requests of distinct lengths
+   ``PagedServingLongSpecEngine`` serve of 4 requests of distinct lengths
    (3072..4095) through 8 slots against ``ServingLongSpecEngine``, every
    token equal, B12's int4 pool at head dim 128 once a layer per target
    pass; (20) ``bench --model llama-3.1-8b --iters 1`` (self-speculation
-   at the paper's target, the bench's defaults: B=32 x 8192, the int8
+   at the paper's target, the bench's defaults but 8 rows (a depth cut):
+   B=8 x 8192, the int8
    cache, the int8 draft copy): spec == AR on every committed token, >= 2.0
    tokens per step, K1q, K2q and the draft's whole-row K1 launched on their
    head-dim-128 instances alone, K3, K3q and the draft's B4, B5, B6 at 8B
    widths, its time to first token and peak memory printed; (21) the same
-   with ``--kv_quant none --draft_quant none`` (K1 and K2 at head dim 128;
-   its peak above path (20)'s); (22) the paged 8B serves (``SERVE8B``: 8
+   with ``--kv_quant none --draft_quant none`` at B=8 x 4096 (K1 and K2 at
+   head dim 128; its peak printed); (22) the paged 8B serves (``SERVE8B``: 2
    requests of distinct lengths in [1024, 2048] through 8 slots, 512-row
    pages, the draft sharing the target's bf16 weights) over a bf16, an
    int8 and bf16-scale int8 and int4 pools, each against ``ServingEngine``
@@ -181,14 +183,14 @@ of which raises on failure:
    ``SERVE_ARGV`` (16 slots, 32 requests of distinct lengths in [4096,
    8000], 512-row pages): (6) a bf16 pool, (7) an int8 pool, (8) an int8
    pool of half the pages (backpressure), (9) an int4 pool, each serving
-   the first 8 of the requests (the int8 pools 12) without a warmup serve
+   the first 2 of the requests (the int8 pools 12) without a warmup serve
    (depth cuts for the time limit), each failing unless every kernel of
    the path launched, the paged decode kernel once a layer per target pass,
    tokens per step >= 1.8, and ``ServingEngine`` on the same prompts
-   returns the same tokens for every request; on the int8 path, 4 requests
+   returns the same tokens for every request; on the int8 path, 2 requests
    each served alone through the same 16 slots return their served tokens,
-   and the half pool peaks below the full one; (10) the default path with
-   the JAX package's kernel A/B switches on, ``set_dense_kernels(True)``
+   and the half pool peaks below the full one; (10) the default path over
+   a 4096-token prefix with the JAX package's kernel A/B switches on, ``set_dense_kernels(True)``
    and ``MAGICDEC_PER_ARRAY_APPEND=1``: B14 and B15 launched, K3, K3q and
    B13 idle, spec == AR; ``bench --gamma 0 --B 2 --prefix_len 2048``: the
    gamma the autotune picks, spec == AR at it; (11) ``--mode snapkv --iters
@@ -203,18 +205,18 @@ of which raises on failure:
    slots, 16 requests of 7968 tokens, an int8 pool of 512-row pages): B12's
    int8 pool once a layer per target pass, B13 and K3 (the verify's two
    appends) launched, ``ServingEngine`` on the same prompts giving every
-   token; then ``--kv_scale bf16`` serves over an int8 and an int4 pool (4
+   token; then ``--kv_scale bf16`` serves over an int8 and an int4 pool (2
    requests each): B12, B13, K2q / B11 and K3q on bf16 scales alone, tokens
    equal to ``ServingEngine``'s;
-5. C2, served == solo: 4 equal-length prompts (one admission bucket)
+5. C2, served == solo: 2 equal-length prompts (one admission bucket)
    served through 16 slots over an int8 pool, each against the same prompt
    served alone through the same slots and against a B=1 ``SpecEngine`` on
    the same weights; where tokens differ, again at a fixed row count (each
    prefill alone; the B=1 decode at the slots' rows and split plan), which
    must agree (the stream of 4 distinct lengths of earlier runs is cut for
-   the time limit: (24) serves 8 distinct lengths against B=1 runs, sampled);
+   the time limit: (24) serves 4 distinct lengths against B=1 runs, sampled);
    (24) sampled serving (``SAMPLED_SERVE_ARGV``: ``serving_bench --paged
-   --kv_quant int8 --temperature 0.8 --top_p 0.9``, llama-3.2-1b, 8
+   --kv_quant int8 --temperature 0.8 --top_p 0.9``, llama-3.2-1b, 4
    requests of distinct lengths in [1024, 2048] through 8 slots): each
    request's tokens equal to a B=1 ``SpecEngine`` run of its prompt with its
    request id as the salt, at the slots' row count as C2 fixes it; S1
@@ -222,12 +224,27 @@ of which raises on failure:
    (14) the checkpoint round trip at full width: an HF-format
    llama-3.2-1b directory (two safetensors shards written by hand, the
    index, ``config.json``) from ``bench.make_params(tied=True)``, ``python
-   -m magicdec_tpu_torch.convert_checkpoint --quantize int8`` on it,
+   -m magicdec_tpu_torch.convert_checkpoint --quantize int8`` on it (a
+   process of its own, started before C2 and waited for after (24)),
    ``serving_bench --model`` on the bf16 file and on the int8 dump (8
    requests of 2048 tokens) each equal token for token to a serve of the
    in-memory params (the int8 one: ``quantize_params`` of them, scales
    rounded through bf16), and the int8 dump's NLL within 2% of the bf16
    file's on 4 windows of 2048 tokens (``quality.perplexity``, K2);
+   (25) ``perplexity_benchmark`` at llama-3.2-1b (``PPL_ARGV``: 8 windows
+   of 2048 tokens, 4 a batch, 512-token chunks) with ``--compare
+   kv_int8``, ``kv_int4`` and ``int8``: the kv_int8 NLL within 1% of the
+   bf16 one, the int8 weights' within 2%, kv_int4 finite, K2, K2q and
+   B11 launched, the bf16 NLL equal to a direct ``quality.perplexity``
+   call to 1e-6; (26) ``baseline_benchmark`` and ``selfspec_benchmark
+   --benchmark --draft_quant --draft_budget 513`` on one batch of 8
+   prompts of 4000 tokens over the int8 cache (``DRIVER_ARGV``): the
+   self-spec committed tokens equal to the baseline's on every row, >=
+   2.2 tokens per step, the autotune's gamma one of its candidates, K2q,
+   K1q, K3q (and the draft's K1, K3, B4, B5, B6) launched; (27)
+   ``profile_draft --iters 10`` (each chain's time finite and positive;
+   K1, K3, B4, B5, B6 launched) and ``sweep_benchmark --set smoke`` (a
+   bench process; one row with a result and its table line);
 6. row invariance at B=32, 4 and 2 (the verify of ``forward_target`` and
    of SnapKV's ``forward_verify_snapkv``), on cuBLAS and with the target's
    dots on B15: for each of the target's dots, and for two layers and the head, a
@@ -238,7 +255,8 @@ of which raises on failure:
    (baseline, verify and noctx steps), without and with ``--dense_kernels``
    in turns, and ``kernel_benchmark --which append`` (merged against
    per-array appends);
-8. profile: where the decode time goes at the bench's default shapes (spec
+8. profile: where the decode time goes at the bench's default shapes,
+   40 generated tokens (``PROFILE_ARGV``; 80 in earlier runs) (spec
    generate and AR generate on the host clock, with the host time spent
    issuing draft steps, then under torch.profiler for the device's busy
    time and the kernels that take it), spec == AR again, and the AR step's
@@ -252,6 +270,7 @@ The line before the last is {"kernels": [...]}; the last line is
 
 import itertools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -263,6 +282,7 @@ PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
 EX2_PER_CLOCK_SM = 16     # compute capability 9.0: ex2 a clock per SM
 SMS = 132                 # H100 SXM
 PAD_PAIRS = 2             # profile_phase: AR generate padded / live, alternating pairs
+PROFILE_ARGV = ["--max_gen", "40"]  # profile_phase: the bench's shapes, half its tokens
 SM_CLOCK_HZ = None        # the card's maximum SM clock (nvidia-smi), set in main
 INT32_PER_CLOCK_SM = 64   # compute capability 9.0: integer ALU lanes an SM
 FP32_PER_CLOCK_SM = 128   # float32 lanes an SM (an FMA counted once)
@@ -356,7 +376,10 @@ def _sdpa_inputs(q, k_layer, v_layer, base, k_new, v_new):
 
 
 BF16S = "[bf16 scales]"  # the cases and kernels-line entries of the bf16-scale instances
-BF16S_CUT = ["--B", "8", "--prefix_len", "4096"]  # paths (15), (16): a depth cut
+BF16S_CUT = ["--B", "8", "--prefix_len", "4096"]  # paths (5), (15), (16): a depth cut
+# paths (10) and (12): the bench's 32 rows (the target's dots at 128) over
+# half its prefix, a depth cut for the time limit
+HALF_PREFIX = ["--prefix_len", "4096"]
 GROUP8 = 128                    # the group-wise int8 weights' group
 GROUPED8 = "[group-wise int8]"  # ... and of B4 / B6 on them
 
@@ -861,11 +884,12 @@ HD128 = "[hd128]"  # the cases and kernels-line entries of the head-dim-128 inst
 def head_dim128_kernel_cases(torch, gen, record):
     """B10 and B11 at head dim 128, at the longspec path's 8B target
     (llama-3.1-8b: 32 query heads, 8 kv heads of 128 dims; B = 8; an int4
-    cache of 16512 rows packed in head pairs, f32 scales, quantized from
-    bf16 randn; 4 layers timed in turn, each 68 MB of packed k rows, past
-    the L2): B10 at the verify (T = 4) and the AR step (T = 1) at ragged
-    lengths 16300..16500, each token of a window bit-equal to its step; B11
-    at the encode's last and first 512-token chunks (bases 15872 and 0).
+    cache of 8320 rows packed in head pairs, f32 scales, quantized from
+    bf16 randn; 4 layers timed in turn, each 34 MB of packed k rows and as
+    much of v, past the L2): B10 at the verify (T = 4) and the AR step
+    (T = 1) at ragged lengths 8100..8300, each token of a window bit-equal
+    to its step; B11 at the encode's last and first 512-token chunks (bases
+    7680 and 0).
     The checks are ``_case_kit``'s attention case with the nibble planes
     swapped as a second wrong reference."""
     from magicdec_tpu_torch.kernels import decode_attention as DA
@@ -873,7 +897,7 @@ def head_dim128_kernel_cases(torch, gen, record):
     from magicdec_tpu_torch.ops.kv_cache import quantize_kv_tokens_int4
 
     dev = torch.device("cuda")
-    L, B, Hq, Hkv, hd, S, layer = 4, 8, 32, 8, 128, 16512, 1
+    L, B, Hq, Hkv, hd, S, layer = 4, 8, 32, 8, 128, 8320, 1
     kit = _case_kit(torch, record, gen, L, B, Hq, Hkv, hd, layer)
     caches = ()
     for _ in range(2):  # k, then v
@@ -883,14 +907,14 @@ def head_dim128_kernel_cases(torch, gen, record):
     def fresh(T):
         return kit.quant_fresh(T, quantize_kv_tokens_int4)
 
-    base_t = torch.randint(16300, 16500, (B,), generator=gen, device=dev, dtype=torch.int32)
+    base_t = torch.randint(8100, 8300, (B,), generator=gen, device=dev, dtype=torch.int32)
     name = f"flash_decode_attend_quant4 {HD128}"
     for T in (4, 1):
         kit.attn_case(name, DA.flash_decode_attend_quant4, DA.flash_decode_attend_quant4_plain,
                       f"target T={T} S={S}", caches, fresh, T, base_t, 2, swap=True)
     _window_equals_steps(torch, name, DA.flash_decode_attend_quant4, caches, layer,
                          kit.randn(B, 4, Hq, hd), base_t, fresh(4))
-    for at in (15872, 0):
+    for at in (7680, 0):
         kit.attn_case(f"flash_prefill_attend_quant4 {HD128}", PA.flash_prefill_attend_quant4,
                       PA.flash_prefill_attend_quant4_plain, f"C=512 base={at}", caches, fresh,
                       512, torch.full((B,), at, device=dev, dtype=torch.int32), 1, swap=True)
@@ -1891,14 +1915,15 @@ def _bench_summary(out):
 
 # The longspec path (standalone-draft speculation): llama-3.1-8b verified
 # by llama-3.2-1b (the coupled synthetic pair, the draft's int8 copy), B=8,
-# the target's int4 cache, 512-token prefill chunks; streamingllm at 16384
-# and snapkv at 16416 (the 32-token observation window last) of 16512 rows,
-# full mode at 4096 of 4608.  Each run times the one batch it runs (no
+# the target's int4 cache, 512-token prefill chunks; streamingllm at 8192
+# and snapkv at 8224 (the 32-token observation window last) of 8320 rows
+# (the 16384 and 16416 of 16512 of earlier runs halved, a depth cut for the
+# time limit), full mode at 4096 of 4608.  Each run times the one batch it runs (no
 # warmup batch: the kernels are built and warm from the kernel phase, a
 # depth cut for the time limit) and runs the target's AR baseline on it.
 # (23): exact speculative sampling on the streamingllm draft at the JAX
 # package's sample() defaults (temperature 0.6, top-p 0.9), a 4096-token
-# prompt (a depth cut: the greedy run keeps 16384), its baseline sampling
+# prompt (a depth cut: the greedy run keeps 8192), its baseline sampling
 # with the same key.
 LONGSPEC_ARGV = ["--model", "llama-3.1-8b", "--draft_model", "llama-3.2-1b", "--B", "8",
                  "--kv_quant", "int4", "--draft_quant", "int8", "--prefill_chunk", "512",
@@ -1906,10 +1931,10 @@ LONGSPEC_ARGV = ["--model", "llama-3.1-8b", "--draft_model", "llama-3.2-1b", "--
 # (tag, draft mode, tokens/step floor (0: none), flags)
 LONGSPEC_RUNS = (
     ("streamingllm", "streamingllm", 2.2,
-     ["--prefix_len", "16384", "--max_len", "16512", "--num_batches", "1",
+     ["--prefix_len", "8192", "--max_len", "8320", "--num_batches", "1",
       "--warmup_batches", "0"]),
-    ("snapkv", "snapkv", 2.2, ["--mode", "snapkv", "--prefix_len", "16416", "--max_len",
-                               "16512", "--num_batches", "1", "--warmup_batches", "0"]),
+    ("snapkv", "snapkv", 2.2, ["--mode", "snapkv", "--prefix_len", "8224", "--max_len",
+                               "8320", "--num_batches", "1", "--warmup_batches", "0"]),
     ("full", "full", 0.0, ["--draft_budget", "-1", "--prefix_len", "4096", "--max_len", "4608",
                            "--num_batches", "1", "--warmup_batches", "0"]),
     ("sampled", "streamingllm", 2.2,
@@ -1995,9 +2020,10 @@ def longspec_phase(torch, wrappers, required, forbidden):
     return results
 
 
-# the paged int4 longspec serve: 8 requests of distinct lengths in [3072,
-# 4096] through 8 slots, 512-row pages, the 8B target and the 1B draft
-LONGSPEC_SERVE = dict(slots=8, lens=(3072, 3201, 3330, 3459, 3588, 3717, 3846, 4095),
+# the paged int4 longspec serve: 4 requests of distinct lengths in [3072,
+# 4096] through 8 slots (8 in earlier runs, a depth cut for the time
+# limit), 512-row pages, the 8B target and the 1B draft
+LONGSPEC_SERVE = dict(slots=8, lens=(3072, 3459, 3846, 4095),
                       max_len=4608, page_size=512, max_gen=32)
 
 
@@ -2059,9 +2085,10 @@ def longspec_serving_phase(torch, wrappers):
 
 
 # The paged 8B serve (llama-3.1-8b, the draft sharing the target's bf16
-# weights, serving_bench's default): 8 requests of distinct lengths in [1024,
-# 2048] through 8 slots, 512-row pages; a short serve per pool format
-SERVE8B = dict(slots=8, num_requests=8, prefix=2048, max_len=2560, page_size=512, max_gen=16)
+# weights, serving_bench's default): 2 requests of distinct lengths in [1024,
+# 2048] through 8 slots (4 in earlier runs, a depth cut for the time
+# limit), 512-row pages; a short serve per pool format
+SERVE8B = dict(slots=8, num_requests=2, prefix=2048, max_len=2560, page_size=512, max_gen=16)
 
 
 def _all_at_hd128(tag, launches, wrappers):
@@ -2225,31 +2252,81 @@ def write_hf_checkpoint(torch, params, cfg, d):
     return total
 
 
-def checkpoint_round_trip_phase(torch, wrappers):
-    """(14) The checkpoint pipeline at llama-3.2-1b's full width: an
-    HF-format directory written from ``bench.make_params(tied=True)``,
-    ``python -m magicdec_tpu_torch.convert_checkpoint --quantize int8`` on
-    it (a subprocess on the card), then ``serving_bench --model
+def start_checkpoint_conversion(torch):
+    """(14)'s first half: an HF-format directory written from
+    ``bench.make_params(tied=True)`` at llama-3.2-1b's full width into a
+    temporary directory, and ``python -m
+    magicdec_tpu_torch.convert_checkpoint --quantize int8`` on it started
+    as a process of its own (on the card), which runs while the phases
+    before ``checkpoint_round_trip_phase`` do (it reads and writes files;
+    nothing it does is timed against them).  Returns the state that
+    ``checkpoint_round_trip_phase`` finishes; ``stop_checkpoint_conversion``
+    ends the process and removes the directory on any path."""
+    import tempfile
+
+    from magicdec_tpu_torch.bench import make_params
+    from magicdec_tpu_torch.config import ModelConfig
+
+    cfg = ModelConfig.from_name("llama-3.2-1b")
+    params = make_params(cfg, tied=True, device=torch.device("cuda"))
+    tmp = tempfile.mkdtemp(prefix="magicdec_ckpt_")
+    run = {"tmp": tmp, "cfg": cfg, "params": params, "proc": None}
+    try:
+        hf_dir = os.path.join(tmp, "hf", "llama-3.2-1b")
+        os.makedirs(hf_dir)
+        t0 = time.perf_counter()
+        run["written"] = write_hf_checkpoint(torch, params, cfg, hf_dir)
+        print(f"[ckpt] wrote the HF directory ({run['written']} bytes, two shards) in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        out_dir = os.path.join(tmp, "npz")
+        os.makedirs(out_dir)
+        run["bf16_path"] = os.path.join(out_dir, "llama-3.2-1b.npz")
+        run["int8_path"] = os.path.join(out_dir, "llama-3.2-1b-int8.npz")
+        run["t0"] = time.perf_counter()
+        run["proc"] = subprocess.Popen(
+            [sys.executable, "-m", "magicdec_tpu_torch.convert_checkpoint",
+             "--checkpoint_dir", hf_dir, "--out", run["bf16_path"], "--quantize", "int8"],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+    except BaseException:
+        stop_checkpoint_conversion(run)
+        raise
+    return run
+
+
+def stop_checkpoint_conversion(run):
+    """End ``start_checkpoint_conversion``'s process if it still runs and
+    remove its temporary directory."""
+    import shutil
+
+    proc = run.get("proc")
+    if proc is not None and proc.poll() is None:
+        proc.kill()
+        proc.communicate()
+    shutil.rmtree(run["tmp"], ignore_errors=True)
+
+
+def checkpoint_round_trip_phase(torch, wrappers, run):
+    """(14) The checkpoint pipeline at llama-3.2-1b's full width, after
+    ``start_checkpoint_conversion(torch)`` (``run``): the conversion's
+    process must end at rc 0 (waited for here, at most 600 s from its
+    start), then ``serving_bench --model
     .../llama-3.2-1b.npz`` against a serve of the in-memory params, and
     ``--model .../llama-3.2-1b-int8.npz`` against a serve of
     ``quantize_params`` of them with the scales rounded through bf16 (what
     ``serving_bench``'s ``load_converted(dtype=bfloat16)`` makes of the dump), each
     token for token; then the int8 dump's NLL within 2% of the bf16 file's
-    on 4 synthetic windows of 2048 tokens (chunks of 512 on K2).  The files
-    live in a temporary directory removed at the end."""
-    import tempfile
-
+    on 4 synthetic windows of 2048 tokens (chunks of 512 on K2).  The
+    temporary directory is removed at the end."""
     from magicdec_tpu_torch import quantization as Q
     from magicdec_tpu_torch import serving_bench
-    from magicdec_tpu_torch.bench import make_params
-    from magicdec_tpu_torch.config import ModelConfig
+    from magicdec_tpu_torch.data.datasets import synthetic_long_context_dataset
     from magicdec_tpu_torch.kernels import prefill_attention as PA
     from magicdec_tpu_torch.quality import perplexity
     from magicdec_tpu_torch.utils.checkpoint import load_converted
 
     dev = torch.device("cuda")
-    cfg = ModelConfig.from_name("llama-3.2-1b")
-    params = make_params(cfg, tied=True, device=dev)
+    cfg, params = run["cfg"], run.pop("params")
     load = serving_bench.load_params_and_config
 
     def serve(model, in_memory=None):
@@ -2270,29 +2347,20 @@ def checkpoint_round_trip_phase(torch, wrappers):
               f"wall {wall:.1f} s; {_serving_summary(out)}; kernels {launched}", flush=True)
         return out
 
-    with tempfile.TemporaryDirectory(prefix="magicdec_ckpt_") as tmp:
-        hf_dir = os.path.join(tmp, "hf", "llama-3.2-1b")
-        os.makedirs(hf_dir)
-        t0 = time.perf_counter()
-        written = write_hf_checkpoint(torch, params, cfg, hf_dir)
-        print(f"[ckpt] wrote the HF directory ({written} bytes, two shards) in "
-              f"{time.perf_counter() - t0:.2f} s", flush=True)
-        out_dir = os.path.join(tmp, "npz")
-        os.makedirs(out_dir)
-        bf16_path = os.path.join(out_dir, "llama-3.2-1b.npz")
-        int8_path = os.path.join(out_dir, "llama-3.2-1b-int8.npz")
-        t0 = time.perf_counter()
-        r = subprocess.run([sys.executable, "-m", "magicdec_tpu_torch.convert_checkpoint",
-                            "--checkpoint_dir", hf_dir, "--out", bf16_path, "--quantize", "int8"],
-                           capture_output=True, text=True, timeout=600,
-                           cwd=os.path.dirname(os.path.abspath(__file__)))
-        if r.returncode:
-            raise AssertionError(f"convert_checkpoint failed ({r.returncode}): "
-                                 f"{r.stderr[-3000:]}")
+    try:
+        bf16_path, int8_path, proc = run["bf16_path"], run["int8_path"], run["proc"]
+        t_wait = time.perf_counter()
+        stdout, stderr = proc.communicate(
+            timeout=max(1.0, 600 - (time.perf_counter() - run["t0"])))
+        if proc.returncode:
+            raise AssertionError(f"convert_checkpoint failed ({proc.returncode}): "
+                                 f"{stderr[-3000:]}")
         sizes = {p: os.path.getsize(p) for p in (bf16_path, int8_path)}
-        print(f"[ckpt] convert_checkpoint --quantize int8: {time.perf_counter() - t0:.2f} s "
-              f"(the process); read {written} bytes, wrote {sizes[bf16_path]} + "
-              f"{sizes[int8_path]} bytes; its output: {r.stdout.strip()!r}", flush=True)
+        print(f"[ckpt] convert_checkpoint --quantize int8: the process ended "
+              f"{time.perf_counter() - run['t0']:.2f} s after its start, "
+              f"{time.perf_counter() - t_wait:.2f} s of them waited for here; read "
+              f"{run['written']} bytes, wrote {sizes[bf16_path]} + "
+              f"{sizes[int8_path]} bytes; its output: {stdout.strip()!r}", flush=True)
 
         out = serve(bf16_path)
         ref = serve("llama-3.2-1b", in_memory=params)
@@ -2310,8 +2378,8 @@ def checkpoint_round_trip_phase(torch, wrappers):
             "(scales rounded through bf16)", out["outputs"], ref["outputs"]), flush=True)
         del out, ref, qparams
 
-        data = serving_bench.synthetic_long_context_dataset(2048, num_seqs=4,
-                                                            vocab_size=cfg.vocab_size, seed=0)
+        data = synthetic_long_context_dataset(2048, num_seqs=4, vocab_size=cfg.vocab_size,
+                                              seed=0)
         nll = {}
         for label, path in (("bf16", bf16_path), ("int8", int8_path)):
             t0 = time.perf_counter()
@@ -2334,6 +2402,8 @@ def checkpoint_round_trip_phase(torch, wrappers):
               flush=True)
         if not drift < 0.02:
             raise AssertionError(f"the int8 dump's NLL drifts {drift:.4%} from the bf16 file's")
+    finally:
+        stop_checkpoint_conversion(run)
     del params
     torch.cuda.empty_cache()
 
@@ -2455,10 +2525,10 @@ def serving_phase(torch, wrappers, kernels):
     result = {}
     peaks = {}
     for fmt, (extra, own) in paths.items():
-        # each skips the warmup serve and serves the first 8 of the 32
+        # each skips the warmup serve and serves the first 2 of the 32
         # requests, int8 12 (its half pool must make a free slot wait for
         # pages): depth cuts that keep chip_smoke.py inside its time limit
-        n = "12" if fmt == "int8" else "8"
+        n = "12" if fmt == "int8" else "2"
         extra = extra + ["--skip_warmup", "--num_requests", n]
         out, launches, peaks[fmt] = serving_path(
             torch, wrappers, own + draft + [PGA.append_paged_rows_inplace], own[0], extra,
@@ -2482,13 +2552,14 @@ def serving_phase(torch, wrappers, kernels):
                                                   half["outputs"], out["outputs"]), flush=True)
         if half["stats"]["page_blocked"] <= 0:
             raise AssertionError("the half pool never made a free slot wait for pages")
-        # served == solo: each of 4 requests alone through the same 16 slots
+        # served == solo: each of 2 requests (4 in earlier runs, a depth cut
+        # for the time limit) alone through the same 16 slots
         engine, _ = serving_bench.setup(serving_bench.parse_args(SERVE_ARGV + extra))
-        idx = list(range(0, len(out["prompts"]), len(out["prompts"]) // 4))
+        idx = list(range(0, len(out["prompts"]), len(out["prompts"]) // 2))
         t0 = time.perf_counter()
         solo = [engine.serve([out["prompts"][i]], B=16, windows_per_sync=4)[0] for i in idx]
         print(f"[serve int8] " + _same_tokens(
-            "served against solo (4 requests, each alone through the same 16 slots)",
+            "served against solo (2 requests, each alone through the same 16 slots)",
             [out["outputs"][i] for i in idx], solo)
             + f" ({time.perf_counter() - t0:.1f}s)", flush=True)
         del engine, solo
@@ -2559,8 +2630,9 @@ def snapkv_serving_phase(torch, wrappers, kernels):
 
 # C2: served == solo (the JAX package's contract, tests/test_paged_serving.py
 # _solo) at the serving path's widths: 16 slots, an int8 pool of 512-row
-# pages, 4 requests of 2048-token prompts (one admission bucket)
-SOLO_ARGV = ["--paged", "--slots", "16", "--num_requests", "4", "--prefix_len", "2048",
+# pages, 2 requests of 2048-token prompts (one admission bucket; the 4 of
+# earlier runs cut to 2 for the time limit)
+SOLO_ARGV = ["--paged", "--slots", "16", "--num_requests", "2", "--prefix_len", "2048",
              "--max_len", "4096", "--page_size", "512", "--kv_quant", "int8"]
 
 
@@ -2586,8 +2658,8 @@ def _first_diffs(outs, refs):
 def solo_phase(torch):
     """C2: each served request against (a) the same prompt served alone
     through the same 16 slots and (b) a B=1 ``SpecEngine.generate`` on the
-    same prompt and weights, for a stream of 4 equal-length prompts (one
-    admission bucket: its prefill runs at 4x the chunk's rows; distinct
+    same prompt and weights, for a stream of ``SOLO_ARGV``'s 2 equal-length
+    prompts (one admission bucket: its prefill runs at 2x the chunk's rows; distinct
     lengths: (24)).  Where tokens differ at the live row counts, the check
     runs again at a fixed row count: the served stream with each request's
     prefill alone (a bucket of one), and the B=1 engine's target passes at
@@ -2606,8 +2678,9 @@ def solo_phase(torch):
     engine, _ = serving_bench.setup(args)
     slots, V, P = args.slots, engine.cfg.vocab_size, args.prefix_len
     rng = np.random.RandomState(11)
-    streams = {"one bucket of 4 equal-length prompts":
-               [rng.randint(0, V, P).astype(np.int32) for _ in range(4)]}
+    n = args.num_requests
+    streams = {f"one bucket of {n} equal-length prompts":
+               [rng.randint(0, V, P).astype(np.int32) for _ in range(n)]}
     b1 = SpecEngine(engine.params, engine.cfg, engine.ecfg, device=engine.device)
 
     def serve(prompts, one_bucket_each=False):
@@ -2649,7 +2722,7 @@ def solo_phase(torch):
             ref = make_ref(False)
             diffs = _first_diffs(served, ref)
             if not diffs:
-                line = "all 4 requests agree on every token both committed"
+                line = f"all {n} requests agree on every token both committed"
                 if any(len(o) != len(r) for o, r in zip(served, ref)):
                     line += (f" (token counts {[len(o) for o in served]} served, "
                              f"{[len(r) for r in ref]} in the reference)")
@@ -2660,7 +2733,7 @@ def solo_phase(torch):
                 if fixed:
                     raise AssertionError(f"C2 {stream} against {ref_name}: {line}; still "
                                          f"differ at a fixed row count: {fixed}")
-                line += "; at a fixed row count all 4 agree on every token"
+                line += f"; at a fixed row count all {n} agree on every token"
             summary[(stream, ref_name)] = line
             print(f"[C2] {stream}, against {ref_name}: {line}", flush=True)
         print(f"[C2] {stream}: {time.perf_counter() - t0:.1f}s", flush=True)
@@ -2669,10 +2742,11 @@ def solo_phase(torch):
     return summary
 
 
-# (24) sampled serving: 8 requests of distinct lengths in [1024, 2048]
-# through 8 slots over an int8 pool, temperature 0.8, top-p 0.9
+# (24) sampled serving: 4 requests of distinct lengths in [1024, 2048]
+# through 8 slots over an int8 pool, temperature 0.8, top-p 0.9 (the 8
+# requests of earlier runs cut to 4 for the time limit)
 SAMPLED_SERVE_ARGV = ["--paged", "--kv_quant", "int8", "--temperature", "0.8", "--top_p", "0.9",
-                      "--slots", "8", "--num_requests", "8", "--prefix_len", "2048", "--ragged",
+                      "--slots", "8", "--num_requests", "4", "--prefix_len", "2048", "--ragged",
                       "--seed", "31", "--max_len", "4096", "--page_size", "512", "--skip_warmup"]
 
 
@@ -2773,7 +2847,8 @@ def dense_ab_phase(torch, wrappers):
 
 def bf16_scale_serving_phase(torch, wrappers, kernels):
     """``serving_bench`` with SERVE_ARGV, ``--kv_scale bf16`` and an int8,
-    then an int4 pool, 4 requests each (a depth cut for the time limit),
+    then an int4 pool, 2 requests each (a depth cut for the time limit; 4
+    in earlier runs),
     no warmup: B12, B13, K2q or B11 and
     K3q on their bf16-scale instances alone, B12 once a layer per target
     pass, each serve's tokens equal to ``ServingEngine``'s on the same
@@ -2785,7 +2860,7 @@ def bf16_scale_serving_phase(torch, wrappers, kernels):
                                  PA.flash_prefill_attend_quant),
                                 ("int4", PGA.flash_paged_decode_attend_quant4,
                                  PA.flash_prefill_attend_quant4)):
-        extra = ["--kv_quant", fmt, "--kv_scale", "bf16", "--skip_warmup", "--num_requests", "4"]
+        extra = ["--kv_quant", fmt, "--kv_scale", "bf16", "--skip_warmup", "--num_requests", "2"]
         own = [paged, prefill, AP.append_all_rows_inplace_quant, PGA.append_paged_rows_inplace]
         out, launches, peak = serving_path(
             torch, wrappers, own + draft, paged, extra,
@@ -3257,6 +3332,174 @@ def profile_phase(torch, argv=(), pad_pairs=True, spec_only=False):
     del st, engine
 
 
+# (25) the perplexity driver at llama-3.2-1b: 8 windows of 2048 tokens of
+# the synthetic corpus, 4 a batch, 512-token chunks (K2 over the bf16 cache,
+# K2q over int8, B11 over int4, K3 / K3q at T = 512; the quantized weights'
+# dots run at 4 x 512 rows, above the quantized kernels' 256-row cap)
+PPL_ARGV = ["--seq_len", "2048", "--num_seqs", "8", "--B", "4", "--chunk", "512",
+            "--device", "cuda"]
+# (25)'s gates: the JAX package's (tests/test_quality.py); kv_int4 has none
+PPL_GATES = {"kv_int8": 0.01, "kv_int4": None, "int8": 0.02}
+
+
+def perplexity_phase(torch, wrappers, kernels):
+    """(25) ``perplexity_benchmark.main`` with ``--compare kv_int8``,
+    ``kv_int4`` and ``int8`` (``PPL_ARGV``), the launch counters zeroed just
+    before each and read just after.  Fails unless the NLL drifts stay
+    within ``PPL_GATES``, every NLL is finite, K2 launched in each run, K2q
+    under kv_int8 and B11 under kv_int4, and the bf16 NLL equals a direct
+    ``quality.perplexity`` call on the driver's own params and windows to
+    1e-6 relative.  Returns {compare: launches}."""
+    from magicdec_tpu_torch import perplexity_benchmark as PB
+    from magicdec_tpu_torch.quality import perplexity
+
+    DA, PA, AP, QK = kernels["DA"], kernels["PA"], kernels["AP"], kernels["QK"]
+    need = {"kv_int8": PA.flash_prefill_attend_quant, "kv_int4": PA.flash_prefill_attend_quant4,
+            "int8": PA.flash_prefill_attend}
+    named = [PA.flash_prefill_attend, PA.flash_prefill_attend_quant,
+             PA.flash_prefill_attend_quant4, AP.append_all_rows_inplace,
+             AP.append_all_rows_inplace_quant, QK.quant_matmul_fused, QK.quant_matmul,
+             QK.quant_mlp, DA.flash_decode_attend]
+    counts, bf16_nll = {}, None
+    for compare, gate in PPL_GATES.items():
+        _zero_counts(wrappers)
+        t0 = time.perf_counter()
+        out = PB.main(PPL_ARGV + ["--compare", compare])
+        wall = time.perf_counter() - t0
+        launches = counts[compare] = _read_counts(wrappers)
+        runs = out["runs"]
+        (full, q), = [(runs["bf16"], r) for k, r in runs.items() if k != "bf16"]
+        drift = abs(q["nll"] - full["nll"]) / full["nll"]
+        print(f"[ppl {compare}] wall {wall:.1f} s; " + "; ".join(
+            f"{k}: nll {r['nll']:.6f} ppl {r['ppl']:.6g} ({r['seconds']:.2f} s)"
+            for k, r in runs.items())
+            + f"; drift {drift:.4%} (gate {'none' if gate is None else f'{gate:.0%}'}); "
+            "launches " + ", ".join(f"{w.__name__} {launches[w.__name__]}" for w in named),
+            flush=True)
+        if not all(math.isfinite(r["nll"]) for r in runs.values()):
+            raise AssertionError(f"(25) --compare {compare}: a non-finite NLL {runs}")
+        if gate is not None and not drift < gate:
+            raise AssertionError(f"(25) --compare {compare}: the NLL drifts {drift:.4%}, "
+                                 f"over {gate:.0%}")
+        for w in (PA.flash_prefill_attend, need[compare]):
+            if launches[w.__name__] <= 0:
+                raise AssertionError(f"(25) --compare {compare} never launched {w.__name__}")
+        if bf16_nll is None:
+            bf16_nll = full["nll"]
+        del out
+    params, cfg, data = PB.setup(PB.parse_args(PPL_ARGV))
+    _, direct = perplexity(params, cfg, data, batch_size=4, chunk_size=512)
+    rel = abs(direct - bf16_nll) / direct
+    print(f"[ppl] the driver's bf16 NLL {bf16_nll:.8f} against a direct quality.perplexity "
+          f"call {direct:.8f}: {rel:.2e} relative (gate 1e-6)", flush=True)
+    if not rel <= 1e-6:
+        raise AssertionError(f"(25) the driver's bf16 NLL is {rel:.2e} from quality.perplexity's")
+    del params, data
+    torch.cuda.empty_cache()
+    return counts
+
+
+# (26) the reference-protocol drivers at llama-3.2-1b, one batch of 8
+# synthetic prompts of 4000 tokens, the int8 cache, no warmup batch (the
+# kernels are built and warm); the self-spec run with the bench's draft
+# (its int8 copy, budget 513, gamma 3) and --benchmark
+DRIVER_ARGV = ["--B", "8", "--prefix_len", "4000", "--max_len", "4096", "--kv_quant",
+               "--num_batches", "1", "--warmup_batches", "0", "--device", "cuda"]
+SELFSPEC_ARGV = ["--benchmark", "--draft_quant", "--draft_budget", "513", "--gamma", "3"]
+
+
+def drivers_phase(torch, wrappers, kernels):
+    """(26) ``baseline_benchmark.main`` and then ``selfspec_benchmark.main``
+    (``DRIVER_ARGV``) on the same batch, the counters zeroed before and read
+    after each.  Fails unless the self-spec committed tokens equal the
+    baseline's on every row, tokens/step reach 2.2, the autotune's gamma is
+    one of its candidates (1..8) with a positive prediction, the baseline
+    launched K2q, K1q and K3q, and the self-spec run
+    K2q, K1q, K3q, K1, K3, B4, B5 and B6."""
+    from magicdec_tpu_torch import baseline_benchmark, selfspec_benchmark
+
+    DA, PA, AP, QK = kernels["DA"], kernels["PA"], kernels["AP"], kernels["QK"]
+    target = [PA.flash_prefill_attend_quant, DA.flash_decode_attend_quant,
+              AP.append_all_rows_inplace_quant]
+    draft = [DA.flash_decode_attend, AP.append_all_rows_inplace, QK.quant_matmul_fused,
+             QK.quant_layer_tail, QK.quant_matmul]
+    res = {}
+    for name, module, argv, required in (
+            ("baseline", baseline_benchmark, DRIVER_ARGV, target),
+            ("selfspec", selfspec_benchmark, DRIVER_ARGV + SELFSPEC_ARGV, target + draft)):
+        _zero_counts(wrappers)
+        t0 = time.perf_counter()
+        out = module.main(argv)
+        wall = time.perf_counter() - t0
+        launches = _read_counts(wrappers)
+        res[name] = (out, launches)
+        print(f"[drivers {name}] wall {wall:.1f} s; {out['tokens_per_s']:.2f} tok/s; launches "
+              + ", ".join(f"{w.__name__} {launches[w.__name__]}" for w in target + draft),
+              flush=True)
+        for w in required:
+            if launches[w.__name__] <= 0:
+                raise AssertionError(f"(26) {name} never launched {w.__name__}")
+        if launches.get("gumbel_argmax"):
+            raise AssertionError(f"(26) the greedy {name} launched S1")
+    (base, _), (spec, _) = res["baseline"], res["selfspec"]
+    sb, bb = spec["batches"][0], base["batches"][0]
+    print("[drivers] self-spec against baseline: " + _agreement(
+        sb["output"], sb["num_committed"], bb["output"], 80), flush=True)
+    print(f"[drivers] self-spec {spec['tokens_per_s']:.2f} tok/s against the baseline's "
+          f"{base['tokens_per_s']:.2f} ({spec['tokens_per_s'] / base['tokens_per_s']:.4f}x), "
+          f"{spec['tokens_per_step']:.3f} tokens/step; phases (ms) "
+          + ", ".join(f"{k} {v:.3f}" for k, v in spec["phases"].items())
+          + f"; alpha {spec['alpha']:.3f}, autotuned gamma {spec['gamma']} (predicted "
+          f"{spec['predicted_tokens_per_s']:.1f} tok/s)", flush=True)
+    if spec["tokens_per_step"] < 2.2:
+        raise AssertionError(f"(26) acceptance collapsed: {spec['tokens_per_step']} tokens/step")
+    # the JAX driver's pick: pick_gamma's default candidates, 1 included (at
+    # B=8 the host-bound draft step costs 65% of a verify, and gamma 1 wins)
+    if spec["gamma"] not in (1, 2, 3, 4, 5, 6, 8) or not spec["predicted_tokens_per_s"] > 0:
+        raise AssertionError(f"(26) the autotune picked gamma {spec['gamma']} (predicted "
+                             f"{spec['predicted_tokens_per_s']} tok/s)")
+    torch.cuda.empty_cache()
+    return res
+
+
+def tools_phase(torch, wrappers, kernels):
+    """(27) ``profile_draft.main --iters 10`` at its defaults (llama-3.2-1b,
+    B=32, budget 513, the int8 draft copy; its counters read: K1, K3, B4, B5
+    and B6 launched), each chain's time finite and positive; then
+    ``sweep_benchmark --set smoke --device cuda`` (a bench process of its
+    own), one row with a result and its table line."""
+    from magicdec_tpu_torch import profile_draft, sweep_benchmark
+
+    DA, AP, QK = kernels["DA"], kernels["AP"], kernels["QK"]
+    _zero_counts(wrappers)
+    t0 = time.perf_counter()
+    r = profile_draft.main(["--iters", "10"])
+    wall = time.perf_counter() - t0
+    launches = _read_counts(wrappers)
+    used = [DA.flash_decode_attend, AP.append_all_rows_inplace, QK.quant_matmul_fused,
+            QK.quant_layer_tail, QK.quant_matmul]
+    print(f"[profile_draft] wall {wall:.1f} s; " + ", ".join(f"{k} {v:.4f}" for k, v in r.items())
+          + "; launches " + ", ".join(f"{w.__name__} {launches[w.__name__]}" for w in used),
+          flush=True)
+    bad = [k for k in profile_draft.CHAINS if not (math.isfinite(r[k]) and r[k] > 0)]
+    if bad:
+        raise AssertionError(f"(27) profile_draft: {bad} not finite and positive ({r})")
+    for w in used:
+        if launches[w.__name__] <= 0:
+            raise AssertionError(f"(27) profile_draft never launched {w.__name__}")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    sweep = sweep_benchmark.main(["--set", "smoke", "--device", "cuda"])
+    print(f"[sweep] --set smoke: wall {time.perf_counter() - t0:.1f} s; rows {sweep['rows']}",
+          flush=True)
+    rows, table = sweep["rows"], sweep["table"]
+    if len(rows) != 1 or "error" in rows[0] or "value" not in rows[0]:
+        raise AssertionError(f"(27) the sweep's smoke row has no result: {rows}")
+    if len(table) != 3 or not table[2].startswith("| smoke |"):
+        raise AssertionError(f"(27) the sweep's table: {table}")
+    return r, sweep
+
+
 def main():
     try:
         import torch
@@ -3367,10 +3610,12 @@ def main():
         forbidden=[QK.quant_layer_tail, QK.quant_mlp, DA.flash_decode_attend_quant,
                    PA.flash_prefill_attend_quant], min_tokens_per_step=1.8)
     # (5) the int4 cache under the default int8 draft copy (one measured
-    # repeat): the cache format alone keeps the default's acceptance floor
+    # repeat) at B=8 x 4096, path (15)'s shape (BF16S_CUT, a depth cut for
+    # the time limit): the cache format alone keeps the default's
+    # acceptance floor
     out5, _, peak5 = main_path(
         torch, wrappers, quant4 + dots + [AP.append_all_rows_inplace_quant],
-        ["--kv_quant", "int4", "--iters", "1"],
+        ["--kv_quant", "int4"] + BF16S_CUT + ["--iters", "1"],
         forbidden=[DA.flash_decode_attend_quant, PA.flash_prefill_attend_quant] + dots4)
     # (15) path (5) with bf16 scales, (16) path (1) with bf16 scales: every
     # quantized-KV kernel on its bf16-scale instance alone, at B=8 x 4096
@@ -3414,7 +3659,8 @@ def main():
     out12, _, peak12, _ = quantized_main_path(
         torch, wrappers, quant + dots + [QK.quant_mlp, DA.flash_decode_attend,
                                          AP.append_all_rows_inplace],
-        ["--quantize", "int8", "--iters", "1"], paged + per_array + dense_dots + dots4,
+        ["--quantize", "int8"] + HALF_PREFIX + ["--iters", "1"],
+        paged + per_array + dense_dots + dots4,
         at_128=["quant_matmul_fused", "quant_mlp", "quant_matmul"])
     print(f"[quantize int8] {_bench_summary(out12)}, peak {peak12:.2f} GiB; path (1) (bf16 "
           f"verify weights): {_bench_summary(out1)}, peak {peak8:.2f} GiB", flush=True)
@@ -3451,13 +3697,14 @@ def main():
     ls_serve = longspec_serving_phase(torch, wrappers)
     phase_done("the paged int4 longspec serve")
     # (20) self-speculation at llama-3.1-8b, the bench's defaults otherwise
-    # (B=32 x 8192, one measured repeat): the target's int8 cache on K1q,
+    # (B=8 x 8192, one measured repeat; the default's 32 rows are a depth
+    # cut for the time limit): the target's int8 cache on K1q,
     # K2q and K3q at head dim 128, the draft's int8 copy on B4 / B5 / B6 at
     # 8B widths, its bf16 cache on K1 (the whole-row call) and K3.  A broken
     # draft reads near 1 token a step: the gate is 2.0 (the 1B paths keep 2.5)
     out20, launches20, peak20 = main_path(
         torch, wrappers, quant + dots + [DA.flash_decode_attend, AP.append_all_rows_inplace],
-        ["--model", "llama-3.1-8b", "--iters", "1"],
+        ["--model", "llama-3.1-8b", "--B", "8", "--iters", "1"],
         forbidden=paged + per_array + dense_dots + quant4 + dots4, min_tokens_per_step=2.0)
     _all_at_hd128("main (20)", launches20, [DA.flash_decode_attend_quant,
                                             PA.flash_prefill_attend_quant, DA.flash_decode_attend])
@@ -3489,7 +3736,8 @@ def main():
     if peak4 >= peak8:
         raise AssertionError("the int4 path did not lower peak device memory below int8's")
     phase_done("main paths")
-    # (10) the JAX package's kernel A/B configuration on the default path:
+    # (10) the JAX package's kernel A/B configuration on the default path
+    # (over HALF_PREFIX, a depth cut for the time limit):
     # the target's bf16 decode and verify dots on B15 (set_dense_kernels)
     # and every cache append as B14's per-array calls
     # (MAGICDEC_PER_ARRAY_APPEND), the merged appends idle
@@ -3500,7 +3748,7 @@ def main():
         _, launches10, _ = main_path(
             torch, wrappers,
             per_array + dense_dots + [DA.flash_decode_attend_quant, DA.flash_decode_attend] + dots,
-            ["--iters", "1"],
+            HALF_PREFIX + ["--iters", "1"],
             forbidden=[AP.append_all_rows_inplace, AP.append_all_rows_inplace_quant,
                        PGA.append_paged_rows_inplace])
     finally:
@@ -3524,14 +3772,30 @@ def main():
     bf16_launches.update(bf16_scale_serving_phase(torch, wrappers,
                                                   {"DA": DA, "PA": PA, "AP": AP, "PGA": PGA}))
     phase_done("bf16-scale serves")
-    solo_phase(torch)
-    phase_done("C2: served against solo")
-    # (24) sampled serving: served == solo by salt
-    launches24 = sampled_serving_phase(torch, wrappers)
-    phase_done("(24) the sampled serve")
-    # (14) the checkpoint pipeline at full width
-    checkpoint_round_trip_phase(torch, wrappers)
+    # (14) the checkpoint pipeline at full width: its conversion process
+    # runs through C2 and (24)
+    ckpt = start_checkpoint_conversion(torch)
+    try:
+        solo_phase(torch)
+        phase_done("C2: served against solo")
+        # (24) sampled serving: served == solo by salt
+        launches24 = sampled_serving_phase(torch, wrappers)
+        phase_done("(24) the sampled serve")
+    except BaseException:
+        stop_checkpoint_conversion(ckpt)
+        raise
+    checkpoint_round_trip_phase(torch, wrappers, ckpt)
     phase_done("path (14): the checkpoint round trip")
+    kits = {"DA": DA, "PA": PA, "AP": AP, "QK": QK}
+    # (25) the perplexity driver: K2, K2q and B11 (K3 / K3q at T = 512)
+    perplexity_phase(torch, wrappers, kits)
+    phase_done("(25) perplexity")
+    # (26) the reference-protocol baseline and self-spec drivers
+    drivers_phase(torch, wrappers, kits)
+    phase_done("(26) baseline and self-spec drivers")
+    # (27) profile_draft and the sweep's smoke row
+    tools_phase(torch, wrappers, kits)
+    phase_done("(27) profile_draft and the sweep")
     # the row-invariance question (PERF.md): is a target row computed the
     # same at verify and at the AR step; at B=4 and 2 the live row counts
     # differ (cuBLAS's w2, torch's row mean), the padded ones the engine runs
@@ -3542,10 +3806,10 @@ def main():
     phase_done("row invariance")
     dense_ab_phase(torch, wrappers)
     phase_done("dense and append A/B")
-    # the default path's profile only (a depth cut for the time limit: the
-    # int4, snapkv and --quantize int8 profiles of earlier runs are in
-    # PERF.md)
-    profile_phase(torch)
+    # the default path's profile only, over 40 generated tokens (depth cuts
+    # for the time limit: the bench's 80 and the int4, snapkv and
+    # --quantize int8 profiles of earlier runs are in PERF.md)
+    profile_phase(torch, PROFILE_ARGV)
     phase_done("profiles")
 
     meta = {

@@ -21,8 +21,10 @@ coupled synthetic pair (``bench.make_longspec_params``: ``--quantize``
 quantizes the target's stack and head as they are drawn,
 ``--target_residual`` / ``--draft_residual`` set its residual scales); a
 ``.npz`` for either model loads both through
-``serving_bench.load_params_and_config`` (``--quantize`` then quantizes the
-target's weights).  Prompts: the synthetic long-context corpus, ``--B``
+``common.load_params_and_config`` (``--quantize`` then quantizes the
+target's weights).  Prompts: ``common.load_dataset`` (the synthetic
+long-context corpus of ``--seed``, or with ``--model_name`` that
+tokenizer's ``--dataset`` windows), ``--B``
 requests a batch, ``--num_batches`` batches of which the first
 ``--warmup_batches`` are not timed; decode-loop wall time between
 ``torch.cuda.synchronize()`` calls.  ``--baseline``: the target's
@@ -49,7 +51,8 @@ def parse_args(argv=None):
     p.add_argument("--model", type=str, default="llama-3.2-1b",
                    help="target: config name (synthetic weights) or a converted checkpoint .npz")
     p.add_argument("--model_name", type=str, default=None,
-                   help="HF tokenizer name (tokenized corpora are not ported yet)")
+                   help="HF tokenizer name or directory: --dataset's windows through it "
+                        "(common.load_dataset; the synthetic corpus where it does not load)")
     p.add_argument("--dataset", type=str, default="pg19")
     p.add_argument("--B", type=int, default=8)
     p.add_argument("--prefix_len", type=int, default=4000)
@@ -110,8 +113,6 @@ def _not_ported(args):
         return "--attn_backend jnp: the port runs its Hopper kernels only"
     if args.quant_backend != "pallas":
         return "--quant_backend jnp: the port runs its Hopper kernels only"
-    if args.model_name:
-        return "--model_name (tokenized corpora) is ROADMAP item A13"
     return None
 
 
@@ -133,8 +134,8 @@ def load_pair(args, dev):
     """(params, cfg, draft params, draft cfg) for ``--model`` and
     ``--draft_model``."""
     from magicdec_tpu_torch import quantization as Q
+    from magicdec_tpu_torch.common import load_params_and_config
     from magicdec_tpu_torch.config import ModelConfig
-    from magicdec_tpu_torch.serving_bench import load_params_and_config
 
     bits = None if not args.quantize else 8 if args.quantize == "int8" else 4
     if not str(args.model).endswith(".npz") and not str(args.draft_model).endswith(".npz"):
@@ -162,8 +163,9 @@ def setup(args):
         raise NotImplementedError(missing)
     import torch
 
+    from magicdec_tpu_torch.common import load_dataset
+    from magicdec_tpu_torch.data.datasets import batch_iterator
     from magicdec_tpu_torch.engine.engine import EngineConfig, LongSpecEngine
-    from magicdec_tpu_torch.serving_bench import synthetic_long_context_dataset
     from magicdec_tpu_torch.utils.seeding import setup_seed
 
     dev = resolve_device(args.device)
@@ -180,12 +182,9 @@ def setup(args):
     engine = LongSpecEngine(params, cfg, dparams, dcfg, ecfg, device=dev)
     # the engine holds its own (fused, quantized) copies; these go
     del params, dparams
-    data = synthetic_long_context_dataset(args.prefix_len, num_seqs=max(args.B * 2, 16),
-                                          vocab_size=min(cfg.vocab_size, dcfg.vocab_size),
-                                          seed=args.seed)
-    data = data[:args.num_batches * args.B]
-    batches = [data[i * args.B:(i + 1) * args.B, :args.prefix_len]
-               for i in range(len(data) // args.B)]  # drop_last, as the JAX batch_iterator
+    data = load_dataset(args, min(cfg.vocab_size, dcfg.vocab_size))
+    batches = [b[:, :args.prefix_len]
+               for b in batch_iterator(data[:args.num_batches * args.B], args.B)]
     return engine, batches
 
 

@@ -1,10 +1,13 @@
-"""Host bookkeeping of the serving engines: the KV page allocator and the
-FCFS request scheduler (counterpart of magicdec_tpu/native/__init__.py
-``PageAllocator`` and ``Scheduler``).
+"""Host bookkeeping: the data layer's window packing and the serving
+engines' KV page allocator and FCFS request scheduler (counterpart of
+magicdec_tpu/native/__init__.py ``window_pack``, ``PageAllocator`` and
+``Scheduler``).
 
-A pure-Python copy of the JAX package's own Python fallbacks, with their
-semantics: the engines call these once per admission wave and drain, never
-inside the decode loop, so there is nothing here for the card to speed up.
+Pure Python and numpy with the semantics of the JAX package's native
+runtime (``runtime.cpp``) and its Python fallbacks: the windows are packed
+once when a corpus loads, and the engines call the allocator and the
+scheduler once per admission wave and drain, never inside the decode loop,
+so there is nothing here for the card to speed up.
 """
 
 from __future__ import annotations
@@ -12,6 +15,29 @@ from __future__ import annotations
 from typing import List, Optional, Tuple
 
 import numpy as np
+
+
+def tile_windows(windows: np.ndarray, repeats: int) -> np.ndarray:
+    """[n, seq_len] windows tiled ``repeats`` times: [n * repeats, seq_len],
+    the whole matrix once a repeat (``md_tile_windows``)."""
+    windows = np.ascontiguousarray(windows, dtype=np.int32)
+    return np.tile(windows, (max(int(repeats), 0), 1))
+
+
+def window_pack(tokens: np.ndarray, seq_len: int, bos_id: Optional[int],
+                repeats: int = 1) -> np.ndarray:
+    """Token stream -> [n * repeats, seq_len] int32 windows, n = len(tokens)
+    // seq_len, each with ``bos_id`` forced at its position 0 (``None``: the
+    tokens as they are), tiled ``repeats`` times.  ``seq_len`` <= 0 or a
+    stream shorter than ``seq_len`` gives 0 windows (``md_window_pack``)."""
+    tokens = np.ascontiguousarray(tokens, dtype=np.int32).reshape(-1)
+    if seq_len <= 0 or len(tokens) < seq_len:
+        return np.empty((0, max(int(seq_len), 0)), np.int32)
+    n = len(tokens) // seq_len
+    out = tokens[: n * seq_len].reshape(n, seq_len).copy()
+    if bos_id is not None:
+        out[:, 0] = bos_id
+    return out if repeats == 1 else tile_windows(out, repeats)
 
 
 class PageAllocator:

@@ -24,8 +24,11 @@ request's id its salt).  ``--model`` is a config name
 ``.npz`` (``convert_checkpoint``; its config from the file name, loaded in
 bf16 and, for a name holding ``int8`` / ``int4``, as quantized verify
 weights that the draft shares, ``--draft_quant`` then off), as
-``benchmarks/common.py load_params_and_config`` loads it.  The synthetic
-long-context corpus.  A warmup
+``benchmarks/common.py load_params_and_config`` loads it
+(``common.load_params_and_config``).  Prompts: ``common.load_dataset``,
+the synthetic long-context corpus of ``--seed`` (``max(2B, 16)``
+sequences), or with ``--model_name`` that tokenizer's ``--dataset``
+windows.  A warmup
 serve of the first ``--slots`` requests (kernel build, allocator, cuBLAS
 heuristics; ``--skip_warmup``: none) precedes the timed serve; throughput
 counts committed tokens over the timed serve's wall time, admissions
@@ -39,36 +42,11 @@ import argparse
 import json
 import sys
 import time
-from typing import List, Optional
 
 import numpy as np
 
 from magicdec_tpu_torch import resolve_device
-
-
-def synthetic_long_context_dataset(seq_len: int, num_seqs: int = 32, vocab_size: int = 32000,
-                                   seed: int = 0, bos_id: Optional[int] = 1) -> np.ndarray:
-    """Structured synthetic token streams (a copy of magicdec_tpu/data/
-    datasets.py ``synthetic_long_context_dataset``, the same tokens for the
-    same seed): repeated 16-token motifs (70%) mixed with random runs, so a
-    compressed draft cache sees realistic locality."""
-    rng = np.random.RandomState(seed)
-    motifs = rng.randint(0, vocab_size, size=(64, 16))
-    out = np.empty((num_seqs, seq_len), np.int32)
-    for i in range(num_seqs):
-        stream: List[np.ndarray] = []
-        n = 0
-        while n < seq_len:
-            if rng.rand() < 0.7:
-                m = motifs[rng.randint(len(motifs))]
-            else:
-                m = rng.randint(0, vocab_size, size=16)
-            stream.append(m)
-            n += len(m)
-        out[i] = np.concatenate(stream)[:seq_len]
-    if bos_id is not None:
-        out[:, 0] = bos_id
-    return out
+from magicdec_tpu_torch.common import load_dataset, load_params_and_config
 
 
 def parse_args(argv=None):
@@ -77,7 +55,8 @@ def parse_args(argv=None):
                    help="config name (synthetic weights) or a converted checkpoint .npz "
                         "(-int8 / -int4 in its name: quantized verify weights)")
     p.add_argument("--model_name", type=str, default=None,
-                   help="HF tokenizer name (tokenized corpora are not ported yet)")
+                   help="HF tokenizer name or directory: --dataset's windows through it "
+                        "(common.load_dataset; the synthetic corpus where it does not load)")
     p.add_argument("--dataset", type=str, default="pg19")
     p.add_argument("--B", type=int, default=8,
                    help="sizes the synthetic corpus (max(2B, 16) sequences)")
@@ -138,40 +117,12 @@ def _not_ported(args):
         return "a device mesh is ROADMAP item A15"
     if args.attn_backend != "flash":
         return "--attn_backend jnp: the port runs its Hopper kernels only"
-    if args.model_name:
-        return "--model_name (tokenized corpora) is ROADMAP item A13"
     return None
 
 
 def metric_name(args) -> str:
     return (f"serving{'_paged' if args.paged else ''}_{args.mode}_tokens_per_s_"
             f"{args.model.split('/')[-1]}_slots{args.slots}_ctx{args.prefix_len}_torch")
-
-
-def load_params_and_config(model: str, device):
-    """(params, cfg) for ``--model``: a converted ``.npz`` (its config from
-    the path, ``ModelConfig.from_name``; loaded with ``dtype=bfloat16``,
-    which rounds a dump's scales through bf16 as the JAX benchmarks do; then
-    ``quantize_params`` when ``bits_from_path`` says so, which leaves the
-    dump's quantized leaves as they are), or a config name with
-    ``bench.make_params``'s synthetic weights."""
-    import torch
-
-    from magicdec_tpu_torch import quantization as Q
-    from magicdec_tpu_torch.bench import make_params
-    from magicdec_tpu_torch.config import ModelConfig
-
-    if str(model).endswith(".npz"):
-        from magicdec_tpu_torch.utils.checkpoint import load_converted
-
-        cfg = ModelConfig.from_name(str(model))
-        params = load_converted(str(model), dtype=torch.bfloat16, device=device)
-        bits = Q.bits_from_path(str(model))
-        if bits:
-            params = Q.quantize_params(params, bits=bits)
-        return params, cfg
-    cfg = ModelConfig.from_name(model)
-    return make_params(cfg, device=device), cfg
 
 
 def setup(args):
@@ -221,8 +172,7 @@ def setup(args):
     else:
         engine = (PagedServingEngine if args.paged else ServingEngine)(params, cfg, ecfg,
                                                                        device=dev)
-    data = synthetic_long_context_dataset(prefix, num_seqs=max(args.B * 2, 16),
-                                          vocab_size=cfg.vocab_size, seed=args.seed)
+    data = load_dataset(args, cfg.vocab_size)
     lens = [prefix] * args.num_requests
     if args.ragged:
         lrng = np.random.RandomState(args.seed)

@@ -46,6 +46,25 @@ def test_entry_points_default_to_cuda_and_raise_without_card(no_card):
     params = make_params(cfg, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         SpecEngine(params, cfg, EngineConfig(draft_budget=257))
+    # the reference-protocol drivers and tools: cuda by default, raising
+    # before any work without a card; the sweep passes its device to every
+    # row; prepare_ruler is host-only text generation
+    from magicdec_tpu_torch import (baseline_benchmark, perplexity_benchmark, prepare_ruler,
+                                    profile_draft, selfspec_benchmark, sweep_benchmark)
+
+    for mod in (perplexity_benchmark, baseline_benchmark, selfspec_benchmark):
+        args = mod.parse_args([])
+        assert args.device == "cuda"
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            mod.run(args)
+    assert profile_draft.parse_args([]).device == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        profile_draft.main([])
+    args = sweep_benchmark.parse_args([])
+    assert args.device == "cuda"
+    for _, extra in sweep_benchmark.SETS["ladder"] + sweep_benchmark.SETS["alpha"]:
+        assert sweep_benchmark.command(extra, args.device)[-2:] == ["--device", "cuda"]
+    assert "device" not in vars(prepare_ruler.parse_args(["--task", "qa", "--out", "x"]))
 
 
 def test_chip_smoke_fails_without_card(no_card, capsys):

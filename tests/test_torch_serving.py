@@ -142,9 +142,10 @@ def test_paged_config_checks():
 
 def test_synthetic_dataset_matches_jax():
     from magicdec_tpu.data.datasets import synthetic_long_context_dataset
+    from magicdec_tpu_torch.data import datasets
 
     np.testing.assert_array_equal(
-        serving_bench.synthetic_long_context_dataset(300, num_seqs=5, vocab_size=1000, seed=7),
+        datasets.synthetic_long_context_dataset(300, num_seqs=5, vocab_size=1000, seed=7),
         synthetic_long_context_dataset(300, num_seqs=5, vocab_size=1000, seed=7))
 
 
