@@ -8,7 +8,9 @@ of which raises on failure:
 1. the card's name and power limit (``nvidia-smi``);
 2. build of every kernel from ``magicdec_tpu_torch/csrc`` (timed), with
    ptxas's registers, shared memory and spills of the Hopper kernels of B4/B6,
-   B4-int4/B6-int4, B5/B9 (both cores) and B15's dense_mlp (their bf16
+   B4-int4/B6-int4, the 128-row core of B4/B6/B4-int4 (``qmm_m128_kernel``,
+   its template argument 0 int8, 1 group-wise int8, 2 int4), B5/B9 (both
+   cores) and B15's dense_mlp (their bf16
    instance), B15's dense_matmul_fused, K2/K2q/B11 and the decode
    kernel's instances (K1 and B12-bf16 with one to three row tiles a warp,
    K1q, B10, B12's int8/int4 pools; the template arguments are the format
@@ -59,8 +61,15 @@ of which raises on failure:
    head and on the tied ``quantize_embed`` table through
    ``quantization.quant_matmul``), and B4 (all three), B5 and B6 again at
    llama-3.1-8b widths (path (20)'s draft copy: D 4096, F 14336, wqkv 4096
-   -> 6144, the head 4096 -> 128256) at M = 32 and 64, each timed over 16
-   layers' weights in turn (4 at 8B)
+   -> 6144, the head 4096 -> 128256) at M = 32 and 64, then the quantized
+   8B target's 128-row dots (path (28)): B4 wqkv + norm and wo + residual,
+   B9 and B6 on the same int8 weights, B4 on group-wise int8 weights (wqkv +
+   norm, wo + residual, w13 + norm + gate, w2 + residual), B4-int4 (wqkv,
+   wo + residual, w13 + gate, w2 + residual) and B6-int4 (the head), each
+   timed over 16 layers' weights in turn (4 at 8B); every B4, B6 and
+   B4-int4 case of 128 rows runs on the 128-row core
+   (``csrc/quant_matmul_m128_sm90.cu``, its cases and kernels-line entries
+   tagged ``[128-row core]``, the profiler's kernel ``qmm_m128_kernel``)
    (B4, B5, B6 and B9 also under torch.profiler, which must see one kernel
    launch a call: B5's ``ffn_sm90_kernel``, B9's ``ffn_wg_sm90_kernel``), each
    with a deliberately wrong reference (B4 without its norm or residual, B5
@@ -137,7 +146,16 @@ of which raises on failure:
    target's 128 rows, counted by row count; B5 on the draft; no int4 dot)
    against path (1), then the row check below on those weights at B = 32, 4
    and 2; (13) ``--quantize int4 --quantize_embed --prefix_len 2048 --iters
-   1`` (B4-int4 and B6-int4 at 128 rows; no int8 dot, B5 or B9); (15) path
+   1`` (B4-int4 and B6-int4 at 128 rows; no int8 dot, B5 or B9); (28)
+   ``--model llama-3.1-8b --quantize int8 --B 32 --prefix_len 2048 --max_gen
+   40 --iters 1`` (``QUANTIZED_8B_ARGV``: the quantized 8B target, the
+   draft sharing its int8 weights: B4, B9 and B6 at 8B widths and 128 rows,
+   B4 and B6 on the 128-row core, the draft's B4 / B5 / B6 at 32 and 64
+   rows, attention on the head-dim-128 instances, >= 2.0 tokens per step,
+   its time to first token and peak memory printed); on (12), (13) and
+   (28) every quantized dot of at most 256 rows (a decode pass) must launch
+   a kernel, and every B4 / B6 / B4-int4 launch above 64 rows must be the
+   128-row core's; (15) path
    (5) and (16) path (1) with ``--kv_scale bf16`` at B=8 x 4096 (a depth
    cut for the time limit), every quantized-KV kernel
    of the path on its bf16-scale instance alone, beside path (5) / (1);
@@ -161,12 +179,12 @@ of which raises on failure:
    token equal, B12's int4 pool at head dim 128 once a layer per target
    pass; (20) ``bench --model llama-3.1-8b --iters 1`` (self-speculation
    at the paper's target, the bench's defaults but 8 rows (a depth cut):
-   B=8 x 8192, the int8
+   B=8 x 4096, the int8
    cache, the int8 draft copy): spec == AR on every committed token, >= 2.0
    tokens per step, K1q, K2q and the draft's whole-row K1 launched on their
    head-dim-128 instances alone, K3, K3q and the draft's B4, B5, B6 at 8B
    widths, its time to first token and peak memory printed; (21) the same
-   with ``--kv_quant none --draft_quant none`` at B=8 x 4096 (K1 and K2 at
+   with ``--kv_quant none --draft_quant none`` at B=8 x 2048 (K1 and K2 at
    head dim 128; its peak printed); (22) the paged 8B serves (``SERVE8B``: 2
    requests of distinct lengths in [1024, 2048] through 8 slots, 512-row
    pages, the draft sharing the target's bf16 weights) over a bf16, an
@@ -182,14 +200,15 @@ of which raises on failure:
    paged serving paths, ``magicdec_tpu_torch.serving_bench.main`` with
    ``SERVE_ARGV`` (16 slots, 32 requests of distinct lengths in [4096,
    8000], 512-row pages): (6) a bf16 pool, (7) an int8 pool, (8) an int8
-   pool of half the pages (backpressure), (9) an int4 pool, each serving
-   the first 2 of the requests (the int8 pools 12) without a warmup serve
+   pool of 96 of the 256 pages, fewer than its requests need
+   (backpressure), (9) an int4 pool, each serving the first 2 of the
+   requests (the int8 pools 8) without a warmup serve
    (depth cuts for the time limit), each failing unless every kernel of
    the path launched, the paged decode kernel once a layer per target pass,
    tokens per step >= 1.8, and ``ServingEngine`` on the same prompts
    returns the same tokens for every request; on the int8 path, 2 requests
    each served alone through the same 16 slots return their served tokens,
-   and the half pool peaks below the full one; (10) the default path over
+   and the small pool peaks below the full one; (10) the default path over
    a 4096-token prefix with the JAX package's kernel A/B switches on, ``set_dense_kernels(True)``
    and ``MAGICDEC_PER_ARRAY_APPEND=1``: B14 and B15 launched, K3, K3q and
    B13 idle, spec == AR; ``bench --gamma 0 --B 2 --prefix_len 2048``: the
@@ -256,7 +275,7 @@ of which raises on failure:
    in turns, and ``kernel_benchmark --which append`` (merged against
    per-array appends);
 8. profile: where the decode time goes at the bench's default shapes,
-   40 generated tokens (``PROFILE_ARGV``; 80 in earlier runs) (spec
+   24 generated tokens (``PROFILE_ARGV``; 80, then 40 in earlier runs) (spec
    generate and AR generate on the host clock, with the host time spent
    issuing draft steps, then under torch.profiler for the device's busy
    time and the kernels that take it), spec == AR again, and the AR step's
@@ -282,7 +301,7 @@ PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
 EX2_PER_CLOCK_SM = 16     # compute capability 9.0: ex2 a clock per SM
 SMS = 132                 # H100 SXM
 PAD_PAIRS = 2             # profile_phase: AR generate padded / live, alternating pairs
-PROFILE_ARGV = ["--max_gen", "40"]  # profile_phase: the bench's shapes, half its tokens
+PROFILE_ARGV = ["--max_gen", "24"]  # profile_phase: the bench's shapes, 24 of its 80 tokens
 SM_CLOCK_HZ = None        # the card's maximum SM clock (nvidia-smi), set in main
 INT32_PER_CLOCK_SM = 64   # compute capability 9.0: integer ALU lanes an SM
 FP32_PER_CLOCK_SM = 128   # float32 lanes an SM (an FMA counted once)
@@ -382,6 +401,10 @@ BF16S_CUT = ["--B", "8", "--prefix_len", "4096"]  # paths (5), (15), (16): a dep
 HALF_PREFIX = ["--prefix_len", "4096"]
 GROUP8 = 128                    # the group-wise int8 weights' group
 GROUPED8 = "[group-wise int8]"  # ... and of B4 / B6 on them
+# the cases and kernels-line entries of B4, B6 and B4-int4 on the 128-row
+# core (csrc/quant_matmul_m128_sm90.cu: every call of 65 to 256 rows)
+M128 = "[128-row core]"
+M128_KERNEL = "qmm_m128_kernel"
 
 
 def _same_bits_as_f32(torch, what, out, run, caches, fresh):
@@ -1504,6 +1527,8 @@ def quant_kernel_cases(torch, gen, record):
         plain_ms = _cuda_ms(lambda: plain(*args), iters=3, warmup=1)
         calls = [lambda l=l: fn(*args_of(l)) for l in range(n_layers)]
         extra = None
+        if M128 in name:
+            kernel = kernel or M128_KERNEL
         if name.split()[0] in ONE_LAUNCH:
             extra = _one_launch(torch, name, label, calls, kernel or ONE_LAUNCH[name.split()[0]])
         library_ms, deq = None, None
@@ -1599,38 +1624,46 @@ def quant_kernel_cases(torch, gen, record):
              kernel="ffn_sm90_kernel<" if M <= 128 else None)
 
     mlp_case("FFN + residual M=256", 256)
-    # the quantized target (bench --quantize int8, a converted -int8.npz):
-    # its verify and padded AR step run every dot at decode_rows = 128 rows
-    M = 128
-    x = randn(M, D, scale=3.0)
-    case("quant_matmul_fused", f"target wqkv + attention norm M={M}",
-         lambda x, q, s, n: QK.quant_matmul_fused(x, q, s, n),
-         lambda x, q, s, n: QK.quant_matmul_fused_plain(x, q, s, n),
-         lambda x, q, s, n: QK.quant_matmul_plain(x, q, s),  # without the norm
-         lambda l: (x, *w("wqkv", l), norm_w), ["wqkv"], lib=x, M=M)
-    a, res = randn(M, D), randn(M, D)
-    case("quant_matmul_fused", f"target wo + residual M={M}",
-         lambda x, q, s, r: QK.quant_matmul_fused(x, q, s, res=r),
-         lambda x, q, s, r: QK.quant_matmul_fused_plain(x, q, s, res=r),
-         lambda x, q, s, r: QK.quant_matmul_plain(x, q, s),  # without the residual
-         lambda l: (a, *w("wo", l), res), ["wo"], lib=a, M=M)
-    mlp_case(f"target FFN + residual M={M}", M)
-    x = randn(M, D, scale=0.5)
-    case("quant_matmul", f"target lm_head [2048, 128256] M={M}",
-         QK.quant_matmul, QK.quant_matmul_plain,
-         lambda x, q, s: QK.quant_matmul_plain(x, q, s.roll(1, -1)),  # scales off by one
-         lambda l: (x, *w("lm_head", l)), ["lm_head"], lib=x, M=M)
+
+    def target_dots(model=""):
+        """The quantized target (bench --quantize int8, a converted
+        -int8.npz): its verify and padded AR step run every dot at
+        decode_rows = 128 rows: B4 (wqkv + norm, wo + residual) and B6 (the
+        head) on the 128-row core, B9 (the FFN) on B5's mma.sync core, over
+        the int8 ``weights`` of draft_dots."""
+        M = 128
+        x = randn(M, D, scale=3.0)
+        case(f"quant_matmul_fused {M128}", f"{model}target wqkv + attention norm M={M}",
+             lambda x, q, s, n: QK.quant_matmul_fused(x, q, s, n),
+             lambda x, q, s, n: QK.quant_matmul_fused_plain(x, q, s, n),
+             lambda x, q, s, n: QK.quant_matmul_plain(x, q, s),  # without the norm
+             lambda l: (x, *w("wqkv", l), norm_w), ["wqkv"], lib=x, M=M)
+        a, res = randn(M, D), randn(M, D)
+        case(f"quant_matmul_fused {M128}", f"{model}target wo + residual M={M}",
+             lambda x, q, s, r: QK.quant_matmul_fused(x, q, s, res=r),
+             lambda x, q, s, r: QK.quant_matmul_fused_plain(x, q, s, res=r),
+             lambda x, q, s, r: QK.quant_matmul_plain(x, q, s),  # without the residual
+             lambda l: (a, *w("wo", l), res), ["wo"], lib=a, M=M)
+        mlp_case(f"{model}target FFN + residual M={M}", M)
+        x = randn(M, D, scale=0.5)
+        case(f"quant_matmul {M128}", f"{model}target lm_head [{D}, {V}] M={M}",
+             QK.quant_matmul, QK.quant_matmul_plain,
+             lambda x, q, s: QK.quant_matmul_plain(x, q, s.roll(1, -1)),  # scales off by one
+             lambda l: (x, *w("lm_head", l)), ["lm_head"], lib=x, M=M)
+        return x
+
+    x = target_dots()
     del weights["lm_head"]
     # the tied head over quantize_embed's [D, V] table (bench --quantize_embed
     # on a tied model), through the routing of quantization.quant_matmul
     eq = Q.quantize_embed(randn(V, D))
     weights["embed_t"] = (eq.q[None], eq.scale)
     del eq
-    case("quant_matmul", f"tied quantize_embed head [2048, 128256] M={M}",
+    case(f"quant_matmul {M128}", "tied quantize_embed head [2048, 128256] M=128",
          lambda x, q, s: Q.quant_matmul(x, Q.QuantizedWeight(q, s[None])),
          QK.quant_matmul_plain,
          lambda x, q, s: QK.quant_matmul_plain(x, q, s.roll(1, -1)),
-         lambda l: (x, *w("embed_t", l)), ["embed_t"], lib=x, M=M)
+         lambda l: (x, *w("embed_t", l)), ["embed_t"], lib=x, M=128)
     del weights
     torch.cuda.empty_cache()
 
@@ -1639,7 +1672,8 @@ def quant_kernel_cases(torch, gen, record):
 
     # group-wise int8 (quantize_params(bits=8, group_size=128), scales
     # [L, G, Out]): B4 with its norm, gate or residual and B6, at the
-    # draft's rows and the target's decode_rows (two 64-row passes)
+    # draft's rows (the cluster core) and the target's decode_rows (the
+    # 128-row core)
     def stack8g(In, Out, layers=L):
         w = Q.quantize_params({"layers": {"wo": randn(layers, In, Out, scale=In ** -0.5)}},
                               bits=8, group_size=GROUP8, include_head=False)["layers"]["wo"]
@@ -1649,23 +1683,27 @@ def quant_kernel_cases(torch, gen, record):
                "w2g8": stack8g(F, D), "lm_headg8": stack8g(D, V, layers=1)}
     for M in (32, 64, 128):
         x, g, res = randn(M, D, scale=3.0), randn(M, F, scale=0.5), randn(M, D)
-        case(f"quant_matmul_fused {GROUPED8}", f"wqkv + attention norm M={M}",
+        fused8g = (f"quant_matmul_fused {M128}" if M == 128
+                   else f"quant_matmul_fused {GROUPED8}")
+        head8g = f"quant_matmul {M128}" if M == 128 else f"quant_matmul {GROUPED8}"
+        tag = "group-wise int8 " if M == 128 else ""
+        case(fused8g, f"{tag}wqkv + attention norm M={M}",
              lambda x, q, s, n: QK.quant_matmul_fused(x, q, s, n),
              lambda x, q, s, n: QK.quant_matmul_fused_plain(x, q, s, n),
              lambda x, q, s, n: QK.quant_matmul_fused_plain(x, q, shifted(s), n),
              lambda l: (x, *w("wqkvg8", l), norm_w), ["wqkvg8"], lib=x, M=M)
-        case(f"quant_matmul_fused {GROUPED8}", f"w13 + norm + SiLU gate M={M}",
+        case(fused8g, f"{tag}w13 + norm + SiLU gate M={M}",
              lambda x, q, s, n: QK.quant_matmul_fused(x, q, s, n, gate=True),
              lambda x, q, s, n: QK.quant_matmul_fused_plain(x, q, s, n, gate=True),
              lambda x, q, s, n: QK.quant_matmul_fused_plain(x, q, shifted(s), n, gate=True),
              lambda l: (x, *w("w13g8", l), norm_w), ["w13g8"], lib=x, M=M)
-        case(f"quant_matmul_fused {GROUPED8}", f"w2 + residual M={M}",
+        case(fused8g, f"{tag}w2 + residual M={M}",
              lambda x, q, s, r: QK.quant_matmul_fused(x, q, s, res=r),
              lambda x, q, s, r: QK.quant_matmul_fused_plain(x, q, s, res=r),
              lambda x, q, s, r: QK.quant_matmul_fused_plain(x, q, shifted(s), res=r),
              lambda l: (g, *w("w2g8", l), res), ["w2g8"], lib=g, M=M)
         x = randn(M, D, scale=0.5)
-        case(f"quant_matmul {GROUPED8}", f"lm_head [2048, 128256] M={M}",
+        case(head8g, f"{tag}lm_head [2048, 128256] M={M}",
              QK.quant_matmul, QK.quant_matmul_plain,
              lambda x, q, s: QK.quant_matmul_plain(x, q, shifted(s)),
              lambda l: (x, *w("lm_headg8", l)), ["lm_headg8"], lib=x, M=M)
@@ -1683,24 +1721,26 @@ def quant_kernel_cases(torch, gen, record):
                "w24": stack4(F, D), "lm_head4": stack4(D, V, layers=1)}
     fused4, plain4 = QK.quant_matmul_fused_int4, QK.quant_matmul_fused_int4_plain
 
-    # M = 128: the int4 target (bench --quantize int4) at decode_rows
+    # M = 128: the int4 target (bench --quantize int4) at decode_rows, on
+    # the 128-row core
     for M in (32, 64, 128):
         target = "target " if M == 128 else ""
+        b4 = f"quant_matmul_fused_int4 {M128}" if M == 128 else "quant_matmul_fused_int4"
         x, res = randn(M, D), randn(M, D)
         g = randn(M, F, scale=0.5)
-        case("quant_matmul_fused_int4", f"{target}wqkv M={M}", fused4, plain4,
+        case(b4, f"{target}wqkv M={M}", fused4, plain4,
              lambda x, q, s: plain4(x, q, shifted(s)),
              lambda l: (x, *w("wqkv4", l)), ["wqkv4"], lib=x, M=M)
-        case("quant_matmul_fused_int4", f"{target}wo + residual M={M}",
+        case(b4, f"{target}wo + residual M={M}",
              lambda x, q, s, r: fused4(x, q, s, r), lambda x, q, s, r: plain4(x, q, s, r),
              lambda x, q, s, r: plain4(x, q, shifted(s), r),
              lambda l: (x, *w("wo4", l), res), ["wo4"], lib=x, M=M)
-        case("quant_matmul_fused_int4", f"{target}w13 + SiLU gate M={M}",
+        case(b4, f"{target}w13 + SiLU gate M={M}",
              lambda x, q, s: fused4(x, q, s, gate=True),
              lambda x, q, s: plain4(x, q, s, gate=True),
              lambda x, q, s: plain4(x, q, shifted(s), gate=True),
              lambda l: (x, *w("w134", l)), ["w134"], lib=x, M=M)
-        case("quant_matmul_fused_int4", f"{target}w2 + residual M={M}",
+        case(b4, f"{target}w2 + residual M={M}",
              lambda x, q, s, r: fused4(x, q, s, r), lambda x, q, s, r: plain4(x, q, s, r),
              lambda x, q, s, r: plain4(x, q, shifted(s), r),
              lambda l: (g, *w("w24", l), res), ["w24"], lib=g, M=M)
@@ -1713,8 +1753,58 @@ def quant_kernel_cases(torch, gen, record):
     torch.cuda.empty_cache()
     # the draft's int8 copy at llama-3.1-8b widths (path (20): D 4096, F
     # 14336, 8 kv heads of 128), 4 layers in turn (a layer's w13 alone is 117
-    # MB, past the L2)
-    draft_dots(4096, 14336, 1024, 4, "llama-3.1-8b ")
+    # MB, past the L2); then the quantized 8B target's 128-row dots on the
+    # same weights (path (28)), and on group-wise int8 and int4 copies
+    D, F = 4096, 14336
+    draft_dots(D, F, 1024, 4, "llama-3.1-8b ")
+    target_dots("llama-3.1-8b ")
+    del weights
+    torch.cuda.empty_cache()
+    # two layers in turn (a layer's w13 is 117 MB int8, 59 MB int4: past the L2)
+    M, L8, model = 128, 2, "llama-3.1-8b target "
+    x, g, res = randn(M, D, scale=3.0), randn(M, F, scale=0.5), randn(M, D)
+    weights = {"wqkvg8": stack8g(D, D + 2048, L8), "wog8": stack8g(D, D, L8),
+               "w13g8": stack8g(D, 2 * F, L8), "w2g8": stack8g(F, D, L8)}
+    for key, label, norm, gate, lhs in (("wqkvg8", "wqkv + attention norm", True, False, x),
+                                        ("wog8", "wo + residual", False, False, x),
+                                        ("w13g8", "w13 + norm + SiLU gate", True, True, x),
+                                        ("w2g8", "w2 + residual", False, False, g)):
+        # the norm weight, or the residual, as the operand after the scales;
+        # the wrong references shift the group scales by one group
+        kw = (lambda n, gate=gate: dict(norm_w=n, gate=gate)) if norm else (
+            lambda r: dict(res=r))
+        case(f"quant_matmul_fused {M128}", f"{model}group-wise int8 {label} M={M}",
+             lambda x, q, s, e, kw=kw: QK.quant_matmul_fused(x, q, s, **kw(e)),
+             lambda x, q, s, e, kw=kw: QK.quant_matmul_fused_plain(x, q, s, **kw(e)),
+             lambda x, q, s, e, kw=kw: QK.quant_matmul_fused_plain(x, q, shifted(s), **kw(e)),
+             lambda l, k=key, a=lhs, e=(norm_w if norm else res): (a, *w(k, l), e), [key],
+             lib=lhs, M=M)
+    del weights
+    torch.cuda.empty_cache()
+    weights = {"wqkv4": stack4(D, D + 2048, L8), "wo4": stack4(D, D, L8),
+               "w134": stack4(D, 2 * F, L8), "w24": stack4(F, D, L8),
+               "lm_head4": stack4(D, V, layers=1)}
+    x = randn(M, D)
+    case(f"quant_matmul_fused_int4 {M128}", f"{model}wqkv M={M}", fused4, plain4,
+         lambda x, q, s: plain4(x, q, shifted(s)),
+         lambda l: (x, *w("wqkv4", l)), ["wqkv4"], lib=x, M=M)
+    case(f"quant_matmul_fused_int4 {M128}", f"{model}wo + residual M={M}",
+         lambda x, q, s, r: fused4(x, q, s, r), lambda x, q, s, r: plain4(x, q, s, r),
+         lambda x, q, s, r: plain4(x, q, s),  # without the residual
+         lambda l: (x, *w("wo4", l), res), ["wo4"], lib=x, M=M)
+    case(f"quant_matmul_fused_int4 {M128}", f"{model}w13 + SiLU gate M={M}",
+         lambda x, q, s: fused4(x, q, s, gate=True), lambda x, q, s: plain4(x, q, s, gate=True),
+         lambda x, q, s: plain4(x, q, shifted(s), gate=True),
+         lambda l: (x, *w("w134", l)), ["w134"], lib=x, M=M)
+    case(f"quant_matmul_fused_int4 {M128}", f"{model}w2 + residual M={M}",
+         lambda x, q, s, r: fused4(x, q, s, r), lambda x, q, s, r: plain4(x, q, s, r),
+         lambda x, q, s, r: plain4(x, q, shifted(s), r),
+         lambda l: (g, *w("w24", l), res), ["w24"], lib=g, M=M)
+    x = randn(M, D, scale=0.5)
+    case("quant_matmul_int4", f"{model}lm_head [{D}, {V}] M={M}",
+         QK.quant_matmul_int4, QK.quant_matmul_int4_plain,
+         lambda x, q, s: QK.quant_matmul_int4_plain(x, q, s.roll(1, -1)),
+         lambda l: (x, *w("lm_head4", l)), ["lm_head4"], lib=x, M=M)
     del weights, norm_w
     torch.cuda.empty_cache()
 
@@ -1741,25 +1831,27 @@ def _agreement(spec_out, spec_n, base_out, max_gen):
 
 
 def _zero_counts(wrappers):
-    """Every wrapper's launch counters to 0 (and its bf16-scale and
-    head-dim-128 counts)."""
+    """Every wrapper's launch counters to 0 (and its bf16-scale,
+    head-dim-128 and 128-row-core counts)."""
     for w in wrappers:
         w.launches = 0
-        if hasattr(w, "bf16_scale_launches"):
-            w.bf16_scale_launches = 0
-        if hasattr(w, "hd128_launches"):
-            w.hd128_launches = 0
+        for count in ("bf16_scale_launches", "hd128_launches", "m128_launches"):
+            if hasattr(w, count):
+                setattr(w, count, 0)
 
 
 def _read_counts(wrappers):
     """{wrapper: launches}, and {f"wrapper {BF16S}": its launches on bf16
     scales} for the quantized-KV wrappers, {f"wrapper {HD128}": its launches
-    at head dim 128} for B10, B11 and B12's int4 pool."""
+    at head dim 128} for the attention wrappers, {f"wrapper {M128}": its
+    launches on the 128-row core} for B4, B6 and B4-int4."""
     counts = {w.__name__: w.launches for w in wrappers}
     counts.update({f"{w.__name__} {BF16S}": w.bf16_scale_launches for w in wrappers
                    if hasattr(w, "bf16_scale_launches")})
     counts.update({f"{w.__name__} {HD128}": w.hd128_launches for w in wrappers
                    if hasattr(w, "hd128_launches")})
+    counts.update({f"{w.__name__} {M128}": w.m128_launches for w in wrappers
+                   if hasattr(w, "m128_launches")})
     return counts
 
 
@@ -1855,20 +1947,28 @@ def snapkv_main_path(torch, wrappers, required, forbidden):
     return out, launches, peak
 
 
+# (28): bench --model llama-3.1-8b --quantize int8 at B=32 (decode_rows 128)
+# over 2048-token prompts, 40 tokens
+QUANTIZED_8B_ARGV = ["--model", "llama-3.1-8b", "--quantize", "int8", "--B", "32",
+                     "--prefix_len", "2048", "--max_gen", "40", "--iters", "1"]
 # the int8 / int4 weight wrappers whose launches the quantized-target paths
 # count by row count (the target's passes run at decode_rows = 128 rows)
 ROW_COUNTED = ("quant_matmul_fused", "quant_mlp", "quant_matmul", "quant_layer_tail",
                "quant_matmul_fused_int4", "quant_matmul_int4")
 
 
-def quantized_main_path(torch, wrappers, required, argv, forbidden, at_128):
+def quantized_main_path(torch, wrappers, required, argv, forbidden, at_128,
+                        min_tokens_per_step=2.5):
     """``main_path`` with ``argv`` (a ``--quantize`` path), each int8 / int4
     weight wrapper's launches also counted by their row count (wrapping the
     module attributes the routing calls; the launch counters stay the
     wrappers' own).  Fails unless every wrapper in ``at_128`` launched at
     the target's 128 rows (B=32 x (gamma 3 + 1): the verify and the padded
-    AR step).  Returns (bench output, launches, peak GiB, {wrapper: {rows:
-    launches}})."""
+    AR step), and unless every quantized dot of a decode pass (at most
+    quantization.ROWS_CAP rows: the target's and the draft's steps) ran a
+    kernel: only prefill chunks take the plain product.  Returns (bench
+    output, launches, peak GiB, {wrapper: {rows: launches}})."""
+    from magicdec_tpu_torch import quantization as Q
     from magicdec_tpu_torch.kernels import quant_matmul as QK
 
     rows = {n: {} for n in ROW_COUNTED}
@@ -1877,31 +1977,67 @@ def quantized_main_path(torch, wrappers, required, argv, forbidden, at_128):
     def spy_of(name, fn):
         def spy(x, *a, **kw):
             # the wrapper counts its launch on the module attribute, this spy:
-            # pass the count on to the wrapper's own counter
-            spy.launches = 0
+            # pass the counts on to the wrapper's own counters
+            spy.launches = spy.m128_launches = 0
             out = fn(x, *a, **kw)
             if spy.launches:
                 fn.launches += spy.launches
                 rows[name][x.shape[0]] = rows[name].get(x.shape[0], 0) + 1
+            if spy.m128_launches:
+                fn.m128_launches += spy.m128_launches
             return out
-        spy.launches = 0
+        spy.launches = spy.m128_launches = 0
         return spy
+
+    # each outermost quantization.quant_matmul call: its rows, and whether a
+    # kernel launched inside it
+    dots, depth, routed = {}, [0], Q.quant_matmul
+
+    def dot_spy(x, wq, *a, **kw):
+        if depth[0]:
+            return routed(x, wq, *a, **kw)
+        before = sum(fn.launches for fn in originals.values())
+        depth[0] += 1
+        try:
+            out = routed(x, wq, *a, **kw)
+        finally:
+            depth[0] -= 1
+        key = (math.prod(x.shape[:-1]),
+               "kernel" if sum(fn.launches for fn in originals.values()) > before else "plain")
+        dots[key] = dots.get(key, 0) + 1
+        return out
 
     for name, fn in originals.items():
         setattr(QK, name, spy_of(name, fn))
+    Q.quant_matmul = dot_spy
     try:
-        out, launches, peak = main_path(torch, wrappers, required, argv, forbidden=forbidden)
+        out, launches, peak = main_path(torch, wrappers, required, argv, forbidden=forbidden,
+                                        min_tokens_per_step=min_tokens_per_step)
     finally:
+        Q.quant_matmul = routed
         for name, fn in originals.items():
             setattr(QK, name, fn)
     tag = " ".join(argv)
     print(f"[main {tag}] launches by row count: "
           + ", ".join(f"{n} {dict(sorted(r.items()))}" for n, r in rows.items() if r),
           flush=True)
+    print(f"[main {tag}] quantized dots by (rows, route): {dict(sorted(dots.items()))}",
+          flush=True)
     for name in at_128:
         if not rows[name].get(128):
             raise AssertionError(f"the path ({tag}) never launched {name} at the target's "
                                  f"128 rows: {rows[name]}")
+    plain = {m: n for (m, route), n in dots.items() if route == "plain" and m <= Q.ROWS_CAP}
+    if plain:
+        raise AssertionError(f"the path ({tag}) took the plain product on a decode pass: "
+                             f"{plain} (rows: calls)")
+    # B4, B6 and B4-int4 above 64 rows ran on the 128-row core, and only there
+    for name in ("quant_matmul_fused", "quant_matmul", "quant_matmul_fused_int4"):
+        wide = sum(n for m, n in rows[name].items() if m > QK.CLUSTER_ROWS)
+        if launches[f"{name} {M128}"] != wide:
+            raise AssertionError(f"the path ({tag}): {name} launched {wide} times above "
+                                 f"{QK.CLUSTER_ROWS} rows, {launches[f'{name} {M128}']} on "
+                                 "the 128-row core")
     return out, launches, peak, rows
 
 
@@ -2526,9 +2662,10 @@ def serving_phase(torch, wrappers, kernels):
     peaks = {}
     for fmt, (extra, own) in paths.items():
         # each skips the warmup serve and serves the first 2 of the 32
-        # requests, int8 12 (its half pool must make a free slot wait for
-        # pages): depth cuts that keep chip_smoke.py inside its time limit
-        n = "12" if fmt == "int8" else "2"
+        # requests, int8 8 (its small pool must make a free slot wait for
+        # pages; 12 in earlier runs): depth cuts that keep chip_smoke.py inside
+        # its time limit
+        n = "8" if fmt == "int8" else "2"
         extra = extra + ["--skip_warmup", "--num_requests", n]
         out, launches, peaks[fmt] = serving_path(
             torch, wrappers, own + draft + [PGA.append_paged_rows_inplace], own[0], extra,
@@ -2544,14 +2681,15 @@ def serving_phase(torch, wrappers, kernels):
         del contig
         if fmt != "int8":
             continue
-        # backpressure: half the pages of 16 slots x 16 pages
+        # backpressure: 96 of the 16 slots x 16 pages, where the 8 requests
+        # need 106 (half the pages, 128, under 12 requests in earlier runs)
         half, _, peaks["int8 half"] = serving_path(
             torch, wrappers, own + draft + [PGA.append_paged_rows_inplace], own[0],
-            extra + ["--total_pages", "128"], forbidden=paged_all[::2])
-        print("[serve int8 half] " + _same_tokens("the half pool against the full pool",
+            extra + ["--total_pages", "96"], forbidden=paged_all[::2])
+        print("[serve int8 half] " + _same_tokens("the small pool against the full pool",
                                                   half["outputs"], out["outputs"]), flush=True)
         if half["stats"]["page_blocked"] <= 0:
-            raise AssertionError("the half pool never made a free slot wait for pages")
+            raise AssertionError("the small pool never made a free slot wait for pages")
         # served == solo: each of 2 requests (4 in earlier runs, a depth cut
         # for the time limit) alone through the same 16 slots
         engine, _ = serving_bench.setup(serving_bench.parse_args(SERVE_ARGV + extra))
@@ -2566,7 +2704,7 @@ def serving_phase(torch, wrappers, kernels):
     print("[serve] peak device memory: " + ", ".join(f"{k} pool {v:.2f} GiB"
                                                      for k, v in peaks.items()), flush=True)
     if peaks["int8 half"] >= peaks["int8"]:
-        raise AssertionError("the half pool did not peak below the full one")
+        raise AssertionError("the small pool did not peak below the full one")
     return result
 
 
@@ -2912,14 +3050,15 @@ def grouped_int8_engine_phase(torch, wrappers):
 
     def spy_of(name, fn):
         def spy(x, q, scale, *a, **kw):
-            spy.launches = 0
+            spy.launches = spy.m128_launches = 0
             out = fn(x, q, scale, *a, **kw)
             if spy.launches:  # the wrapper counted on this spy: pass it on
                 fn.launches += spy.launches
                 key = (x.shape[0], scale.shape[0])  # (rows, scale groups)
                 rows[name][key] = rows[name].get(key, 0) + 1
+            fn.m128_launches += spy.m128_launches
             return out
-        spy.launches = 0
+        spy.launches = spy.m128_launches = 0
         return spy
 
     env = os.environ.get("MAGICDEC_PER_ARRAY_APPEND")
@@ -3206,7 +3345,7 @@ def _instance(mangled):
 
 
 def _kernel_class(name):
-    if "qmm4" in name or "qmm_sm90_kernel<true" in name:
+    if "qmm4" in name or "qmm_sm90_kernel<true" in name or "qmm_m128_kernel<2" in name:
         return "int4 dots (B4/B6-int4)"
     if "qmm" in name or "ffn_" in name:
         return "int8 dots (B4/B5/B6) and split-K epilogues"
@@ -3549,6 +3688,7 @@ def main():
     # decode kernel of K1, K1q, B10 and B12), each instantiation
     for source, kernel in (("quant_matmul_sm90", "qmm_sm90_kernel"),
                            ("quant_matmul_sm90", "qmm4_sm90_kernel"),
+                           ("quant_matmul_m128_sm90", "qmm_m128_kernel"),
                            ("ffn_sm90", "ffn_sm90_kernel"),
                            ("ffn_sm90", "ffn_wg_sm90_kernel"),
                            ("ffn_sm90", "ffn_bf16_sm90_kernel"),
@@ -3676,13 +3816,34 @@ def main():
     # (13) int4 verify weights with the int8 embedding table, prefix 2048
     # (one measured repeat; B=32, so the target still runs 128 rows): B4-int4
     # and B6-int4 on the target and the draft, no int8 dot
-    out13, _, _, _ = quantized_main_path(
+    out13, launches13, _, _ = quantized_main_path(
         torch, wrappers, dots4 + quant + [DA.flash_decode_attend, AP.append_all_rows_inplace],
         ["--quantize", "int4", "--quantize_embed", "--prefix_len", "2048", "--iters", "1"],
         paged + per_array + dense_dots + dots + [QK.quant_mlp],
         at_128=["quant_matmul_fused_int4", "quant_matmul_int4"])
     print(f"[quantize int4 + quantize_embed] {_bench_summary(out13)}", flush=True)
     phase_done("path (13): --quantize int4 --quantize_embed")
+    # (28) the quantized llama-3.1-8b target (self-speculation, the draft
+    # sharing the int8 weights; B=32 x 2048, 40 tokens: a depth cut for the
+    # time limit): the target's wqkv and wo on B4 and its head on B6, both
+    # on the 128-row core, its FFN on B9, all at 8B widths and 128 rows; the
+    # draft's B4 / B5 / B6 at 32 and 64 rows; attention on the head-dim-128
+    # instances; prefill chunks on the plain product, no decode pass
+    out28, launches28, peak28, rows28 = quantized_main_path(
+        torch, wrappers, quant + dots + [QK.quant_mlp, DA.flash_decode_attend,
+                                         AP.append_all_rows_inplace],
+        QUANTIZED_8B_ARGV, paged + per_array + dense_dots + dots4 + quant4,
+        at_128=["quant_matmul_fused", "quant_mlp", "quant_matmul"], min_tokens_per_step=2.0)
+    _all_at_hd128("main (28)", launches28, [DA.flash_decode_attend_quant,
+                                            PA.flash_prefill_attend_quant, DA.flash_decode_attend])
+    for name in ("quant_matmul_fused", "quant_matmul"):
+        if not launches28[f"{name} {M128}"]:
+            raise AssertionError(f"path (28) never launched {name} on the 128-row core")
+    print(f"[main (28) llama-3.1-8b --quantize int8] {_bench_summary(out28)}, peak "
+          f"{peak28:.2f} GiB; 128-row core launches: B4 "
+          f"{launches28[f'quant_matmul_fused {M128}']}, B6 {launches28[f'quant_matmul {M128}']}",
+          flush=True)
+    phase_done("path (28): bench --model llama-3.1-8b --quantize int8")
     # (17)-(19) standalone-draft speculation at llama-3.1-8b + llama-3.2-1b:
     # the target on B10 and B11's head-dim-128 instances and K3q (packed
     # rows), the draft's int8 copy on B4 / B5 / B6, its cache on K1 and K3
@@ -3697,14 +3858,14 @@ def main():
     ls_serve = longspec_serving_phase(torch, wrappers)
     phase_done("the paged int4 longspec serve")
     # (20) self-speculation at llama-3.1-8b, the bench's defaults otherwise
-    # (B=8 x 8192, one measured repeat; the default's 32 rows are a depth
+    # (B=8 x 4096, one measured repeat; the default's 32 rows and 8192 tokens are a depth
     # cut for the time limit): the target's int8 cache on K1q,
     # K2q and K3q at head dim 128, the draft's int8 copy on B4 / B5 / B6 at
     # 8B widths, its bf16 cache on K1 (the whole-row call) and K3.  A broken
     # draft reads near 1 token a step: the gate is 2.0 (the 1B paths keep 2.5)
     out20, launches20, peak20 = main_path(
         torch, wrappers, quant + dots + [DA.flash_decode_attend, AP.append_all_rows_inplace],
-        ["--model", "llama-3.1-8b", "--B", "8", "--iters", "1"],
+        ["--model", "llama-3.1-8b", "--B", "8", "--prefix_len", "4096", "--iters", "1"],
         forbidden=paged + per_array + dense_dots + quant4 + dots4, min_tokens_per_step=2.0)
     _all_at_hd128("main (20)", launches20, [DA.flash_decode_attend_quant,
                                             PA.flash_prefill_attend_quant, DA.flash_decode_attend])
@@ -3712,16 +3873,16 @@ def main():
           flush=True)
     phase_done("path (20): bench --model llama-3.1-8b")
     # (21) all bf16 at llama-3.1-8b: K1 (the target's verify and AR step,
-    # the draft's whole-row call) and K2 at head dim 128, at B=8 x 4096 (a
+    # the draft's whole-row call) and K2 at head dim 128, at B=8 x 2048 (a
     # depth cut for the time limit: the default's B=32 x 8192 took 75 s)
     out21, launches21, peak21 = main_path(
         torch, wrappers, dense, ["--model", "llama-3.1-8b", "--kv_quant", "none",
-                                 "--draft_quant", "none", "--B", "8", "--prefix_len", "4096",
+                                 "--draft_quant", "none", "--B", "8", "--prefix_len", "2048",
                                  "--iters", "1"],
         forbidden=quant + dots + [QK.quant_mlp] + quant4 + dots4 + paged + per_array
         + dense_dots, min_tokens_per_step=2.0)
     _all_at_hd128("main (21)", launches21, [DA.flash_decode_attend, PA.flash_prefill_attend])
-    print(f"[main (21) llama-3.1-8b all bf16, B=8 x 4096] {_bench_summary(out21)}, peak "
+    print(f"[main (21) llama-3.1-8b all bf16, B=8 x 2048] {_bench_summary(out21)}, peak "
           f"{peak21:.2f} GiB", flush=True)
     phase_done("path (21): bench --model llama-3.1-8b, all bf16")
     serve8 = serve_8b_phase(torch, wrappers, {"DA": DA, "PA": PA, "PGA": PGA})
@@ -3806,8 +3967,8 @@ def main():
     phase_done("row invariance")
     dense_ab_phase(torch, wrappers)
     phase_done("dense and append A/B")
-    # the default path's profile only, over 40 generated tokens (depth cuts
-    # for the time limit: the bench's 80 and the int4, snapkv and
+    # the default path's profile only, over 24 generated tokens (depth cuts
+    # for the time limit: the bench's 80, 40, and the int4, snapkv and
     # --quantize int8 profiles of earlier runs are in PERF.md)
     profile_phase(torch, PROFILE_ARGV)
     phase_done("profiles")
@@ -3875,6 +4036,13 @@ def main():
     for name in ("quant_matmul_fused", "quant_matmul"):
         meta[f"{name} {GROUPED8}"] = meta[name]
         launches[f"{name} {GROUPED8}"] = launches_g[name]
+    # B4, B6 and B4-int4 on the 128-row core: path (28) (and (12)) for the
+    # int8 ones, path (13) for B4-int4
+    for name, counts in (("quant_matmul_fused", launches28), ("quant_matmul", launches28),
+                         ("quant_matmul_fused_int4", launches13)):
+        meta[f"{name} {M128}"] = ("magicdec_tpu_torch/csrc/quant_matmul_m128_sm90.cu",
+                                  meta[name][1])
+        launches[f"{name} {M128}"] = counts[f"{name} {M128}"]
     # the head-dim-128 instances (csrc/*_hd128_sm90.cu): B10 and B11 on the
     # longspec streamingllm path (17), B12's int4 pool in the paged longspec
     # serve, K1q and K2q on path (20), K1 and K2 on path (21), B12's bf16 and

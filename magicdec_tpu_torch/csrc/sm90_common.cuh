@@ -1,5 +1,6 @@
 // Hopper building blocks shared by the sm_90a kernels (quant_matmul_sm90.cu,
-// ffn_sm90.cu, dense_matmul_sm90.cu, prefill_attention_sm90.cu): mbarriers,
+// quant_matmul_m128_sm90.cu, ffn_sm90.cu, dense_matmul_sm90.cu,
+// prefill_attention_sm90.cu): mbarriers,
 // TMA loads (cp.async.bulk.tensor and the plain bulk copy), the async-proxy
 // fence, the int8 weight tile's conversion into mma fragments, thread-block
 // clusters (rank, barriers, mapa and st.async into another

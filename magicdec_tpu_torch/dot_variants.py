@@ -52,7 +52,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 OUT_DIR = Path(__file__).resolve().parents[1] / "build" / "variants"
 SOURCES = {"dense": "dense_matmul_sm90.cu", "int4": "quant_matmul_sm90.cu",
-           "head": "quant_matmul_sm90.cu", "ffn": "ffn_sm90.cu"}
+           "head": "quant_matmul_sm90.cu", "ffn": "ffn_sm90.cu",
+           "m128": "quant_matmul_m128_sm90.cu"}
 
 
 def _stamp(k: int, indent: str) -> str:
@@ -376,6 +377,40 @@ VARIANTS = {
         ("&a.xmap[p], full, kt, m0);", "&a.xmap[p], full, kt, m0 + (1 << 20));"),
         ("b.bars + 8 * pend_s[j], pend_kt[j], pend_m[j]);",
          "b.bars + 8 * pend_s[j], pend_kt[j], pend_m[j] + (1 << 20));")]),
+    # the 128-row core of B4 / B6 / B4-int4 (csrc/quant_matmul_m128_sm90.cu):
+    # as it stands; traced (0 entry, 1 the statistic or the cluster's start,
+    # 2 the first stage landed, 3 the products done, 4 the partials landed
+    # (owners; with one split, the finish), 5 finished); without the products;
+    # with the x tiles read past the tensor (TMA fills zeros and reads no
+    # memory); without the norm's pass over each x stage
+    "m128_current": ("m128", []),
+    "m128_trace": ("m128", _trace_patches("qmt", "md_quant_matmul_m128_sm90") + [
+        ("  const float* rr = reinterpret_cast<const float*>(smem + C::RR);\n",
+         "  if (stamp) tr[1] = gtime();\n"
+         "  const float* rr = reinterpret_cast<const float*>(smem + C::RR);\n"),
+        ("        mbar_wait(bars + 8 * s, ph);  // the stage's boxes have landed\n",
+         "        mbar_wait(bars + 8 * s, ph);  // the stage's boxes have landed\n"
+         "        if (stamp && i == 0 && t == (int)blockIdx.x && p == 0) tr[2] = gtime();\n"),
+        ("      wgmma_wait<0>();\n      fence_regs(acc);\n",
+         "      wgmma_wait<0>();\n      fence_regs(acc);\n" + _stamp(3, "      ")),
+        ("        continue;\n      }\n      // unit u = (wg, j)",
+         _stamp(4, "        ") + _stamp(5, "        ") + "        continue;\n      }\n"
+         "      // unit u = (wg, j)"),
+        ("      mbar_wait(red_bar, item & 1);  // every rank's partials of this rank's units\n",
+         "      mbar_wait(red_bar, item & 1);  // every rank's partials of this rank's units\n"
+         + _stamp(4, "      ")),
+        ("      // this rank has read its slots: the arrive of the next item's wait\n",
+         _stamp(5, "      ")
+         + "      // this rank has read its slots: the arrive of the next item's wait\n"),
+    ]),
+    "m128_no_products": ("m128", [
+        ("            wgmma_n128(part, A, xd, first);", "            if (kk < 0) wgmma_n128(part, A, xd, first);"),
+        ("            wgmma_n128(acc, A, xd, 1);", "            if (kk < 0) wgmma_n128(acc, A, xd, 1);")]),
+    # four A register sets (three wgmma groups in flight a warpgroup)
+    "m128_sets4": ("m128", [("constexpr int NSETS = 2; ", "constexpr int NSETS = 4; ")]),
+    "m128_no_x": ("m128", [("&a.xmap, full, kt + 64 * j, p * N);",
+                            "&a.xmap, full, kt + 64 * j, p * N + (1 << 20));")]),
+    "m128_no_norm_pass": ("m128", [("  if (m0 + r >= M) return;", "  if (m0 + r >= M || M > 0) return;")]),
     "ffn_no_products": ("ffn", [
         ("mma_bf16_16816(acc[mt][nb], af, bf[nb][0], bf[nb][1]);",
          "if (kk < 0) mma_bf16_16816(acc[mt][nb], af, bf[nb][0], bf[nb][1]);"),
@@ -384,7 +419,8 @@ VARIANTS = {
 }
 # the phases between a trace variant's stamps
 PHASES = {"trace": ("statistic", "first stage", "main loop", "barrier", "partials", "finish"),
-          "int4_trace": ("start", "first stage", "main loop", "partials", "finish")}
+          "int4_trace": ("start", "first stage", "main loop", "partials", "finish"),
+          "m128_trace": ("start", "first stage", "main loop", "partials", "finish")}
 PLANS = ((2, 2), (5, 2), (8, 2), (1, 4), (2, 4), (4, 4), (5, 4), (8, 4))
 # label -> the plain version of a case's layer-0 call (dense_mlp), against
 # which each variant's output is held (kernels.bf16_limit)
@@ -450,6 +486,8 @@ def _cases(kind, dev, gen):
     from magicdec_tpu_torch.kernels import quant_matmul as QK
 
     L, D, F, bf = 16, 2048, 8192, torch.bfloat16
+    if kind == "m128":
+        return _m128_cases(dev, gen)
     if kind == "ffn":
         w = {}
         for name, (In, Out) in (("wo", (D, D)), ("w13", (D, 2 * F)), ("w2", (F, D))):
@@ -511,6 +549,55 @@ def _cases(kind, dev, gen):
                          for l in range(L)]
             cases.append((f"{name} M={M}", In, Out, calls))
     return cases
+
+
+def _m128_cases(dev, gen):
+    """The quantized target's dots at 128 rows on the 128-row core: at
+    llama-3.2-1b widths over 16 layers (int8 wqkv + norm, wo + residual and
+    the head; group-wise int8 w13 + norm + gate; int4 w2 + residual) and at
+    llama-3.1-8b widths over 4 (int8 wqkv + norm, wo + residual; group-wise
+    int8 w13 + norm + gate and w2 + residual; int4 w13 + gate).  Each case:
+    (label, In, Out, [one call a layer]), and its layer-0 plain version in
+    PLAIN."""
+    from magicdec_tpu_torch import quantization as Q
+    from magicdec_tpu_torch.kernels import quant_matmul as QK
+
+    bf, M = torch.bfloat16, 128
+    out = []
+    for tag, L, D, F, qkv, V in (("1b", 16, 2048, 8192, 3072, 128256),
+                                 ("8b", 4, 4096, 14336, 6144, None)):
+        norm_w = (torch.rand((D,), generator=gen, device=dev) + 0.5).to(bf)
+        shapes = [("wqkv_norm", D, qkv, 8, 0), ("wo_residual", D, D, 8, 0),
+                  ("w13_norm_gate", D, 2 * F, 8, 128)]
+        shapes += ([("w2_residual", F, D, 4, 128), ("lm_head", D, V, 8, 0)] if tag == "1b"
+                   else [("w2_residual", F, D, 8, 128), ("w13_gate", D, 2 * F, 4, 128)])
+        for name, In, Out, bits, group in shapes:
+            layers = 1 if name == "lm_head" else L
+            w = [Q.quantize_weight((torch.randn((In, Out), generator=gen, device=dev)
+                                    * In ** -0.5).to(bf), bits=bits, group_size=group or None)
+                 for _ in range(layers)]
+            w = [(q.q, q.scale) for q in w]
+            x = (torch.randn((M, In), generator=gen, device=dev) * 3).to(bf)
+            res = torch.randn((M, Out), generator=gen, device=dev).to(bf)
+            kw = ({"norm_w": norm_w} if name.endswith("norm") else
+                  {"norm_w": norm_w, "gate": True} if name == "w13_norm_gate" else
+                  {"gate": True} if name == "w13_gate" else
+                  {"res": res} if name.endswith("residual") else {})
+            if bits == 4:
+                kw4 = {k: v for k, v in kw.items() if k != "norm_w"}
+                fn, plain = (lambda x, q, s, kw4=kw4: QK.quant_matmul_fused_int4(x, q, s, **kw4),
+                             lambda x, q, s, kw4=kw4: QK.quant_matmul_fused_int4_plain(
+                                 x, q, s, **kw4))
+            elif name == "lm_head":
+                fn, plain = QK.quant_matmul, QK.quant_matmul_plain
+            else:
+                fn, plain = (lambda x, q, s, kw=kw: QK.quant_matmul_fused(x, q, s, **kw),
+                             lambda x, q, s, kw=kw: QK.quant_matmul_fused_plain(x, q, s, **kw))
+            label = f"{tag} {'int4 ' if bits == 4 else 'g8 ' if group else ''}{name}"
+            out.append((label, In, Out, [lambda l=l, x=x, w=w, fn=fn: fn(x, *w[l])
+                                         for l in range(layers)]))
+            PLAIN[label] = lambda x=x, w=w, plain=plain: plain(x, *w[0])
+    return out
 
 
 def _trace(lib, name, label, call):
@@ -600,6 +687,8 @@ def main(argv=None):
     p.add_argument("--plans", action="store_true")
     p.add_argument("--ffn_plans", action="store_true",
                    help="also time B5/B9 on the current source with each w13 split forced")
+    p.add_argument("--m128_plans", action="store_true",
+                   help="also time the 128-row core's cases with each split forced")
     args = p.parse_args(argv)
     from magicdec_tpu_torch.kernel_benchmark import graph_ms
     from magicdec_tpu_torch.kernels import build
@@ -667,6 +756,25 @@ def main(argv=None):
                                       flush=True)
             finally:
                 DK.dense_mlp_plan = dplan
+        if args.m128_plans and "m128_current" in names:
+            from magicdec_tpu_torch.kernels import quant_matmul as QK
+
+            build.library = lambda: libs["m128_current"]
+            plan = QK.m128_split_plan
+            try:
+                for label, In, Out, calls in cases["m128"]:
+                    stage = 128 if "int4" in label else 64
+                    unit = 128 if "int4" in label or "g8" in label else 64
+                    for split in range(1, 9):
+                        units = In // unit
+                        if split > units or -(-units // -(-units // split)) != split:
+                            continue
+                        QK.m128_split_plan = lambda i, o, u, st, sp=split: sp
+                        ms = results[f"m128 split {split} {label}"] = graph_ms(calls)
+                        print(f"[plan] {label:22s} split {split}: {ms:8.4f} ms "
+                              f"(the plan's: {plan(In, Out, unit, stage)})", flush=True)
+            finally:
+                QK.m128_split_plan = plan
         if args.plans and "current" in names:
             build.library = lambda: libs["current"]
             for label, In, Out, calls in cases["dense"]:

@@ -80,7 +80,18 @@ Cases (``--which``):
            ``dense_mlp_M{m}_cublas_device``, the main path's own FFN with
            the dense kernels off (``cublas_ffn``);
   dense_mlp  (the card only; not in "all") the ``dense_mlp`` cases of
-           ``dots`` alone, for the A/B against an older checkout.
+           ``dots`` alone, for the A/B against an older checkout;
+  target_dots  (the card only; not in "all") the quantized target's dots at
+           ``--model``'s widths and M = 128 (its decode_rows at B=32, gamma
+           3), over 16 layers' weights in turn at dim 2048, else 4 (an 8B
+           w13 alone is 117 MB): B4 on int8 weights with one scale a column
+           (``t8_wqkv_norm``, ``t8_wo_residual``), B6 (``t8_lm_head``), B9
+           (``t8_mlp``), B4 on group-wise int8 weights (``t8g_``: wqkv +
+           norm, wo + residual, w13 + norm + gate, w2 + residual; group
+           128), B4-int4 (``t4_``: wqkv, wo + residual, w13 + gate, w2 +
+           residual) and B6-int4 (``t4_lm_head``), each beside
+           ``_matmul_device`` as in ``dots``.  Public signatures only: the
+           A/B against an older checkout runs as for ``dots``.
 """
 
 from __future__ import annotations
@@ -137,7 +148,7 @@ def parse_args(argv=None):
     p.add_argument("--iters", type=int, default=20)
     p.add_argument("--which", default="all",
                    choices=["all", "decode", "prefill", "append", "paged", "encode", "dots",
-                            "dense_mlp"])
+                            "dense_mlp", "target_dots"])
     p.add_argument("--bench_args", default="",
                    help="encode: the bench's flags, one string (its defaults otherwise)")
     p.add_argument("--dump", default="",
@@ -224,6 +235,8 @@ def main(argv=None):
         results.update(_dots(cfg, B, dev, gen))
     if args.which == "dense_mlp":
         results.update(_dots_dense_mlp(cfg, dev, gen))
+    if args.which == "target_dots":
+        results.update(_target_dots(cfg, 128, 16 if cfg.dim <= 2048 else 4, dev, gen))
 
     device = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(json.dumps({"metric": f"kernel_bench_{args.model}_B{B}_S{S}_torch",
@@ -468,6 +481,71 @@ def _dots(cfg, B, dev, gen):
     results.update(_dots_int4(cfg, B, dev, gen))
     results.update(_dots_dense(cfg, dev, gen))
     results.update(_dots_dense_mlp(cfg, dev, gen))
+    return results
+
+
+def _target_dots(cfg, M, L, dev, gen):
+    """The ``target_dots`` cases (see the module docstring); returns {case:
+    ms}."""
+    from magicdec_tpu_torch.kernels import quant_matmul as QK
+
+    if dev.type != "cuda":
+        raise SystemExit("--which target_dots times the card's kernels: it needs --device cuda")
+    D, F, V = cfg.dim, cfg.intermediate_size, cfg.vocab_size
+    qkv = (cfg.n_head + 2 * cfg.n_kv_head) * cfg.head_dim
+    Kd = cfg.n_head * cfg.head_dim
+    bf = torch.bfloat16
+
+    def stack(In, Out, layers=L, groups=1, bits=8):
+        lo, hi = (-127, 128) if bits == 8 else (-128, 128)
+        q = torch.randint(lo, hi, (layers, In // (2 if bits == 4 else 1), Out), generator=gen,
+                          device=dev, dtype=torch.int8)
+        s = torch.rand((layers, groups, Out), generator=gen, device=dev) / (127 * In ** 0.5)
+        return q, (s if groups > 1 else s[:, 0])
+
+    norm_w = (torch.rand((D,), generator=gen, device=dev) + 0.5).to(bf)
+    x, g, res = (torch.randn((M, n), generator=gen, device=dev).to(bf) for n in (D, F, D))
+    o = torch.randn((M, Kd), generator=gen, device=dev).to(bf)
+    results = {}
+    weights = {"t8_wqkv_norm": stack(D, qkv), "t8_wo_residual": stack(Kd, D),
+               "t8_lm_head": stack(D, V, layers=1)}
+    kernels = {"t8_wqkv_norm": lambda q, s: QK.quant_matmul_fused(x, q, s, norm_w),
+               "t8_wo_residual": lambda q, s: QK.quant_matmul_fused(o, q, s, res=res),
+               "t8_lm_head": lambda q, s: QK.quant_matmul(x, q, s)}
+    _timed_dots(results, M, kernels, weights,
+                lambda name: o if name == "t8_wo_residual" else x, gen, dev)
+    (q13, s13), (q2, s2) = stack(D, 2 * F), stack(F, D)
+    mlp = [lambda l=l: QK.quant_mlp(x, q13[l], s13[l], q2[l], s2[l], norm_w, x, eps=1e-5)
+           for l in range(L)]
+    results[f"t8_mlp_M{M}_device"] = graph_ms(mlp)
+    print(f"[kernel] {f't8_mlp_M{M}_device':40s} {results[f't8_mlp_M{M}_device']:8.4f} ms",
+          file=sys.stderr, flush=True)
+    del weights, q13, s13, q2, s2, mlp
+    torch.cuda.empty_cache()
+    weights = {"t8g_wqkv_norm": stack(D, qkv, groups=D // 128),
+               "t8g_wo_residual": stack(Kd, D, groups=Kd // 128),
+               "t8g_w13_norm_gate": stack(D, 2 * F, groups=D // 128),
+               "t8g_w2_residual": stack(F, D, groups=F // 128)}
+    kernels = {"t8g_wqkv_norm": lambda q, s: QK.quant_matmul_fused(x, q, s, norm_w),
+               "t8g_wo_residual": lambda q, s: QK.quant_matmul_fused(o, q, s, res=res),
+               "t8g_w13_norm_gate": lambda q, s: QK.quant_matmul_fused(x, q, s, norm_w, gate=True),
+               "t8g_w2_residual": lambda q, s: QK.quant_matmul_fused(g, q, s, res=res)}
+    _timed_dots(results, M, kernels, weights,
+                lambda name: {"t8g_w2_residual": g, "t8g_wo_residual": o}.get(name, x), gen, dev)
+    del weights
+    torch.cuda.empty_cache()
+    weights = {"t4_wqkv": stack(D, qkv, groups=D // 128, bits=4),
+               "t4_wo_residual": stack(Kd, D, groups=Kd // 128, bits=4),
+               "t4_w13_gate": stack(D, 2 * F, groups=D // 128, bits=4),
+               "t4_w2_residual": stack(F, D, groups=F // 128, bits=4),
+               "t4_lm_head": stack(D, V, layers=1, groups=D // 128, bits=4)}
+    kernels = {"t4_wqkv": lambda q, s: QK.quant_matmul_fused_int4(x, q, s),
+               "t4_wo_residual": lambda q, s: QK.quant_matmul_fused_int4(o, q, s, res),
+               "t4_w13_gate": lambda q, s: QK.quant_matmul_fused_int4(x, q, s, gate=True),
+               "t4_w2_residual": lambda q, s: QK.quant_matmul_fused_int4(g, q, s, res),
+               "t4_lm_head": lambda q, s: QK.quant_matmul_int4(x, q, s)}
+    _timed_dots(results, M, kernels, weights,
+                lambda name: {"t4_w2_residual": g, "t4_wo_residual": o}.get(name, x), gen, dev)
     return results
 
 

@@ -58,6 +58,9 @@ SIGNATURES = {
     "md_dense_matmul_sm90": [_P] * 5 + [_I] * 5 + [_F, _P],
     "md_quant_matmul_grouped_sm90": [_P] * 6 + [_I] * 6 + [_F, _P],
     "md_gumbel_argmax": [_P] * 8 + [_I] * 4 + [_F, _P],
+    "md_quant_matmul_m128_sm90": [_P] * 6 + [_I] * 6 + [_F, _P],
+    "md_quant_matmul_int4_m128_sm90": [_P] * 5 + [_I] * 6 + [_P],
+    "md_quant_matmul_m128_resident": [_I, _I],
 }
 # the bf16-scale instances of the quantized-KV kernels take the f32 ones'
 # arguments

@@ -46,6 +46,14 @@ int4 lm_head, is one launch a call of its own kernel: the transposed
 product out^T = q^T x^T on ``wgmma``, the nibbles converted in registers
 as its A operand, no split of the contraction (the head's columns alone
 fill the card), the groups summed in order.
+
+B4, B6 and B4-int4 route by M alone (``dot_route``): up to CLUSTER_ROWS = 64
+rows (the draft's steps) they run on the cluster core above; from 65 to 256
+rows (the quantized target's decode_rows) on the 128-row core of
+``csrc/quant_matmul_m128_sm90.cu``, the same transposed ``wgmma`` product
+with x^T as a 128-row B operand, two consumer warpgroups and its own split
+plan (``m128_split_plan``, a function of the weight's shape alone).  Its
+launches are also counted on each wrapper's ``m128_launches``.
 """
 
 from __future__ import annotations
@@ -60,6 +68,14 @@ BK4 = 128             # contraction rows per int4 stage (64 packed rows)
 TARGET_BLOCKS = 132   # one block per SM of the H100 before splitting further
 MAX_SPLIT = 8         # B4/B6: the splits of a column tile form one portable cluster
 ROWS_MAX = 256        # B4/B6 rows a launch (the routing's ROWS_CAP)
+CLUSTER_ROWS = 64     # B4/B6/B4-int4 rows on the cluster core; above, the 128-row core
+M128_TILE = 128       # the 128-row core's weight columns a tile (a block)
+M128_ITEM_STAGES = 3  # a split item's cost beyond its stages (the on-chip reduction)
+# the clusters of each split (1..8 blocks, one an SM) the H100 holds at once
+# for the 128-row core (csrc md_quant_matmul_m128_resident; a card test holds
+# the table to it): clusters must fit in one GPC, so splits that do not
+# divide its SMs leave some idle
+M128_CLUSTERS = {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15}
 
 
 def cluster_split_plan(In: int, Out: int, unit: int = BK) -> int:
@@ -84,6 +100,39 @@ def cluster_split_plan(In: int, Out: int, unit: int = BK) -> int:
                -split)
         best = min(best or key, key)
     return -best[2]
+
+
+def dot_route(M: int) -> str:
+    """The core of B4, B6 and B4-int4 at M rows: "cluster" (M <= 64, the
+    draft's steps: csrc/quant_matmul_sm90.cu) or "m128" (65..256, the
+    quantized target's decode_rows: csrc/quant_matmul_m128_sm90.cu).  On
+    the target M is always decode_rows, so its verify and padded AR step
+    take one kernel and one plan."""
+    return "cluster" if M <= CLUSTER_ROWS else "m128"
+
+
+def m128_split_plan(In: int, Out: int, unit: int, stage: int) -> int:
+    """The 128-row core's contraction splits, cut in units of ``unit`` rows
+    (a multiple of the ``stage`` rows a ring stage brings: 64 int8, 128
+    int4; group-wise, max(group, stage), so every split starts on a group
+    boundary): at most MAX_SPLIT (one portable cluster a column tile of
+    M128_TILE), none empty.  Of the splits, the one whose busiest SM
+    streams the fewest stages: ceil(tiles / clusters) items of ceil(units
+    / split) units, plus M128_ITEM_STAGES an item of a split dot, with
+    M128_CLUSTERS[split] clusters on the card at once; of equals, the
+    fewest splits.  Fixed by the weight's shape alone, so a row's sums run in the
+    same order at every M the core serves."""
+    units = max(1, In // unit)
+    ntiles = max(1, Out // M128_TILE)
+    per_unit = max(1, unit // stage)
+    best = None
+    for want in range(1, min(MAX_SPLIT, units) + 1):
+        per = -(-units // want)
+        split = -(-units // per)
+        rounds = -(-ntiles // M128_CLUSTERS[split])
+        key = (rounds * (per * per_unit + (M128_ITEM_STAGES if split > 1 else 0)), split)
+        best = min(best or key, key)
+    return best[1]
 
 
 FFN_CLUSTER = 8            # B5/B9: blocks a cluster (the portable maximum)
@@ -251,7 +300,8 @@ def _check_dot(x, q, scale, what, grouped=False):
 
 
 def _launch_dot(x, q, scale, norm_w=None, res=None, gate=False, eps=1e-5, what=""):
-    """B4 and B6 on the card: one launch, only ``out`` allocated."""
+    """B4 and B6 on the card: one launch on the core of ``dot_route(M)``,
+    only ``out`` allocated."""
     from magicdec_tpu_torch.kernels import build
 
     x = x.contiguous()
@@ -268,7 +318,13 @@ def _launch_dot(x, q, scale, norm_w=None, res=None, gate=False, eps=1e-5, what="
     out = torch.empty((M, Fo), dtype=torch.bfloat16, device=x.device)
     operands = (ptr(x), ptr(q), ptr(scale), ptr(norm_w), ptr(res), ptr(out), M, In, Out,
                 int(gate))
-    if group == In:
+    if dot_route(M) == "m128":  # group-wise: the splits start on group boundaries
+        entry = "md_quant_matmul_m128_sm90"
+        unit = BK if group == In else max(group, BK)
+        err = build.library().md_quant_matmul_m128_sm90(
+            *operands, m128_split_plan(In, Out, unit, BK), group, float(eps),
+            build.stream_ptr(x))
+    elif group == In:
         entry = "md_quant_matmul_sm90"
         err = build.library().md_quant_matmul_sm90(
             *operands, cluster_split_plan(In, Out), float(eps), build.stream_ptr(x))
@@ -287,11 +343,21 @@ def quant_matmul(x, q, scale):
     if on_cpu(x, q, scale):
         return quant_matmul_plain(x, q, scale)
     out = _launch_dot(x, q, scale, what="quant_matmul")
-    quant_matmul.launches += 1
+    _count(quant_matmul, x.shape[0])
     return out
 
 
-quant_matmul.launches = 0
+def _count(wrapper, M: int) -> None:
+    """One launch of B4, B6 or B4-int4 at M rows: ``launches``, and
+    ``m128_launches`` on the 128-row core (``wrapper`` is the module's
+    name for it, which a caller's spy may stand in for: the spy then holds
+    both counts)."""
+    wrapper.launches += 1
+    if dot_route(M) == "m128":
+        wrapper.m128_launches = getattr(wrapper, "m128_launches", 0) + 1
+
+
+quant_matmul.launches = quant_matmul.m128_launches = 0
 
 
 def quant_matmul_fused(x, q, scale, norm_w=None, res=None, *, gate=False, eps=1e-5):
@@ -302,11 +368,11 @@ def quant_matmul_fused(x, q, scale, norm_w=None, res=None, *, gate=False, eps=1e
     if on_cpu(x, q, scale, norm_w, res):
         return quant_matmul_fused_plain(x, q, scale, norm_w, res, gate=gate, eps=eps)
     out = _launch_dot(x, q, scale, norm_w, res, gate, eps, what="quant_matmul_fused")
-    quant_matmul_fused.launches += 1
+    _count(quant_matmul_fused, x.shape[0])
     return out
 
 
-quant_matmul_fused.launches = 0
+quant_matmul_fused.launches = quant_matmul_fused.m128_launches = 0
 
 
 def _check_ffn(x, q13, s13, q2, s2, norm_w, what):
@@ -484,7 +550,8 @@ def _launch_b6_int4(x, q, scale):
 
 
 def _launch_b4_int4(x, q, scale, res=None, gate=False):
-    """B4-int4 on the card (csrc/quant_matmul_sm90.cu): one launch, only
+    """B4-int4 on the card: one launch on the core of ``dot_route(M)``
+    (csrc/quant_matmul_sm90.cu or csrc/quant_matmul_m128_sm90.cu), only
     ``out`` allocated."""
     from magicdec_tpu_torch.kernels import build
 
@@ -497,10 +564,18 @@ def _launch_b4_int4(x, q, scale, res=None, gate=False):
         require(res.shape == (M, Out), f"{what}: residual {tuple(res.shape)}, not {(M, Out)}")
         res = res.contiguous()
     out = torch.empty((M, Out // 2 if gate else Out), dtype=torch.bfloat16, device=x.device)
-    err = build.library().md_quant_matmul_int4_sm90(
-        ptr(x), ptr(q), ptr(scale.contiguous()), ptr(res), ptr(out), M, In, Out, int(gate),
-        cluster_split_plan(In, Out, max(group, BK4)), group, build.stream_ptr(x))
-    build.check(err, f"{what} (md_quant_matmul_int4_sm90)")
+    operands = (ptr(x), ptr(q), ptr(scale.contiguous()), ptr(res), ptr(out), M, In, Out,
+                int(gate))
+    if dot_route(M) == "m128":
+        entry = "md_quant_matmul_int4_m128_sm90"
+        err = build.library().md_quant_matmul_int4_m128_sm90(
+            *operands, m128_split_plan(In, Out, max(group, BK4), BK4), group,
+            build.stream_ptr(x))
+    else:
+        entry = "md_quant_matmul_int4_sm90"
+        err = build.library().md_quant_matmul_int4_sm90(
+            *operands, cluster_split_plan(In, Out, max(group, BK4)), group, build.stream_ptr(x))
+    build.check(err, f"{what} ({entry})")
     return out
 
 
@@ -525,8 +600,8 @@ def quant_matmul_fused_int4(x, q, scale, res=None, *, gate=False):
     if on_cpu(x, q, scale, res):
         return quant_matmul_fused_int4_plain(x, q, scale, res, gate=gate)
     out = _launch_b4_int4(x, q, scale, res, gate)
-    quant_matmul_fused_int4.launches += 1
+    _count(quant_matmul_fused_int4, x.shape[0])
     return out
 
 
-quant_matmul_fused_int4.launches = 0
+quant_matmul_fused_int4.launches = quant_matmul_fused_int4.m128_launches = 0

@@ -15,6 +15,13 @@ so the gap to the card's bound is attributable:
                     no KV read): the cost apart from attention
   - head_ms:        final norm + lm_head matmul + argmax alone
 
+On the card each phase also runs one step under ``torch.profiler`` after
+its chain: ``{phase}_device_busy_ms``, the sum of its kernels' device time
+(what the card spends on the step, host issue aside), and
+``{phase}_dots_device_ms``, the share of the weight dots' own kernels (B4 /
+B6 / B4-int4 / B6-int4 and B5 / B9: ``qmm`` and ``ffn_`` in the kernel's
+name).
+
 The target passes run at ``decode_rows`` = B * (gamma + 1) rows, as the
 engine runs them; ``--dense_kernels`` sends their bf16 dots to B15
 (``quantization.set_dense_kernels``); ``--quantize int8|int4`` profiles the
@@ -66,6 +73,26 @@ def parse_args(argv=None):
                         "(quantization.set_dense_kernels)")
     p.add_argument("--device", default="cuda")
     return p.parse_args(argv)
+
+
+def _device_busy(fn, mk, w):
+    """(device ms of all kernels, device ms of the weight dots' kernels) of
+    one step of ``fn`` under torch.profiler, after a warm step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    st = fn(mk(), w)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn(st, w)
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    def ms(e):
+        t = getattr(e, "self_device_time_total", None)
+        return (t if t is not None else e.self_cuda_time_total) / 1e3
+
+    return (sum(ms(e) for e in kern),
+            sum(ms(e) for e in kern if "qmm" in e.key or "ffn_" in e.key))
 
 
 def main(argv=None):
@@ -166,6 +193,11 @@ def main(argv=None):
             r[name] = _chain(fn, nn, mk, w)() * 1e3
             print(f"{name:28s} {r[name]:10.3f}   (wall {time.perf_counter() - t0:.0f}s)",
                   flush=True)
+            if dev.type == "cuda":
+                busy, dots = _device_busy(fn, mk, w)
+                r[name[:-3] + "_device_busy_ms"], r[name[:-3] + "_dots_device_ms"] = busy, dots
+                print(f"{name[:-3] + '_device_busy_ms':28s} {busy:10.3f}   (the weight dots' "
+                      f"kernels {dots:.3f})", flush=True)
     finally:
         Q.set_matmul_backend(old[0])
         Q.set_dense_kernels(old[1])

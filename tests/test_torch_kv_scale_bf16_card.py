@@ -316,15 +316,19 @@ def test_b4_b6_group_int8_on_card(cuda, group, M):
 
 @pytest.mark.gpu
 def test_b4_group_int8_rows_equal_across_m_on_card(cuda):
-    """A row's bits do not depend on the rows beside it: rows of a 128-row
-    call (two 64-row passes) equal the same rows called at 32 and 64."""
+    """A row's bits do not depend on the rows beside it within a core (the
+    wrappers route by M alone: up to 64 rows the cluster core, 65 to 256 the
+    128-row core): rows of a 64-row call (one pass of 64) equal the same
+    rows called at 32, and rows of a 128-row call equal the same rows called
+    at 65 and 100."""
     gen = torch.Generator(device=cuda).manual_seed(1)
     w = _grouped(gen, 2048, 3072, 128, cuda)
     norm_w = (torch.rand((2048,), generator=gen, device=cuda) + 0.5).to(BF)
     x = (torch.randn((128, 2048), generator=gen, device=cuda) * 3).to(BF)
-    full = QK.quant_matmul_fused(x, w.q, w.scale, norm_w)
-    for M in (32, 64):
-        assert torch.equal(QK.quant_matmul_fused(x[:M], w.q, w.scale, norm_w), full[:M])
+    for full_rows, rows in ((64, (32,)), (128, (65, 100))):
+        full = QK.quant_matmul_fused(x[:full_rows], w.q, w.scale, norm_w)
+        for M in rows:
+            assert torch.equal(QK.quant_matmul_fused(x[:M], w.q, w.scale, norm_w), full[:M])
 
 
 @pytest.mark.gpu

@@ -379,20 +379,27 @@ def test_cluster_split_plan_at_the_main_path():
 
 
 class _FakeLibrary:
-    """Records the arguments of md_quant_matmul_sm90 (returns success)."""
+    """Records the calls of B4 / B6's two C entries, by core (returns
+    success)."""
 
     def __init__(self):
         self.calls = []
 
     def md_quant_matmul_sm90(self, *args):
-        self.calls.append(args)
+        self.calls.append(("cluster", args))
+        return 0
+
+    def md_quant_matmul_m128_sm90(self, *args):
+        self.calls.append(("m128", args))
         return 0
 
 
 @pytest.mark.parametrize("gate", [False, True], ids=["plain", "gate"])
 def test_b4_b6_launch_once_with_a_shape_only_plan(gate, monkeypatch):
-    """The B4/B6 host side: one kernel call a wrapper call, the split from
-    the weight's shape at every M from 1 to 256, nothing allocated but the
+    """The B4/B6 host side: one kernel call a wrapper call, routed by M
+    alone (1..64 rows the cluster core's ``md_quant_matmul_sm90``, 65..256
+    the 128-row core's ``md_quant_matmul_m128_sm90``), each core's split
+    from the weight's shape at every M it serves, nothing allocated but the
     output (rows past 256 raise)."""
     from magicdec_tpu_torch.kernels import build
 
@@ -402,14 +409,24 @@ def test_b4_b6_launch_once_with_a_shape_only_plan(gate, monkeypatch):
     In, Out = 8192, 2048
     q = torch.zeros(In, Out, dtype=torch.int8)
     s = torch.ones(1, Out)
-    for M in (1, 17, 32, 64, 128, 160, 256):
+    rows = (1, 17, 32, 64, 65, 128, 160, 256)
+    allocated = []
+    empty = torch.empty
+    monkeypatch.setattr(torch, "empty", lambda *a, **k: allocated.append(a) or empty(*a, **k))
+    for M in rows:
         out = QK._launch_dot(torch.zeros(M, In, dtype=torch.bfloat16), q, s, gate=gate)
         assert out.shape == (M, Out // 2 if gate else Out)
-    assert len(lib.calls) == 7
-    args = lib.calls[0]
-    assert len(args) == 13  # x, q, scale, norm_w, res, out, M, In, Out, gate, split, eps, stream
-    assert {c[10] for c in lib.calls} == {QK.cluster_split_plan(In, Out)} == {8}
-    assert [c[6] for c in lib.calls] == [1, 17, 32, 64, 128, 160, 256]
+    assert allocated == [((M, Out // 2 if gate else Out),) for M in rows]
+    assert [c[0] for c in lib.calls] == [QK.dot_route(M) for M in rows] == \
+        ["cluster"] * 4 + ["m128"] * 4
+    cluster = [a for n, a in lib.calls if n == "cluster"]
+    m128 = [a for n, a in lib.calls if n == "m128"]
+    assert all(len(a) == 13 for a in cluster)  # x, q, scale, norm_w, res, out, M, In, Out, gate, split, eps, stream
+    assert all(len(a) == 14 for a in m128)  # ... gate, split, group, eps, stream
+    assert {a[10] for a in cluster} == {QK.cluster_split_plan(In, Out)} == {8}
+    assert {a[10] for a in m128} == {QK.m128_split_plan(In, Out, QK.BK, QK.BK)} == {6}
+    assert {(a[9], a[11]) for a in m128} == {(int(gate), In)}  # one scale a column: group In
+    assert [a[6] for a in cluster + m128] == list(rows)
     with pytest.raises(ValueError, match="at most 256 rows"):
         QK._launch_dot(torch.zeros(257, In, dtype=torch.bfloat16), q, s)
 
@@ -489,6 +506,144 @@ def test_cluster_order_model_matches_pallas(epilogue, dtype):
                                         block_out=64, **kw)
     norm_w, res, gate = _epilogue_args(epilogue, ta)
     _compare(_cluster_order_model(ta[0], tw.q, tw.scale, norm_w, res, gate=gate), ref, dtype)
+
+
+# -- the 128-row core (65..256 rows): split plan and sum order ---------------
+
+
+def _m128_order_model(x, q, scale, norm_w=None, res=None, *, gate=False, eps=1e-5, bits=8):
+    """The 128-row core's sum order in plain torch: the contraction cut by
+    m128_split_plan in units of the stage's rows (64 int8, 128 int4;
+    group-wise max(group, stage)); the norm's sum of squares one partial a
+    split, added in split order; in each split its f32 partial product
+    (group-wise: the groups in order, part += f32(x_g @ q_g) * s_g); the
+    splits' partials added in split order; then the column scale (one a
+    column) and the epilogue."""
+    from magicdec_tpu_torch.quantization import unpack_int4
+
+    M, In = x.shape
+    Out = q.shape[1]
+    grouped = bits == 4 or scale.shape[0] > 1
+    stage = QK.BK4 if bits == 4 else QK.BK
+    group = In // scale.shape[0] if grouped else In
+    unit = max(group, stage) if grouped else stage
+    split = QK.m128_split_plan(In, Out, unit, stage)
+    per = -(-(In // unit) // split) * unit
+    bounds = [(k, min(In, k + per)) for k in range(0, In, per)]
+    assert len(bounds) == split
+    qf = (unpack_int4(q) if bits == 4 else q).to(torch.float32)
+    xf = x.to(torch.float32)
+    if norm_w is not None:
+        ss = torch.zeros(M, dtype=torch.float32)
+        for k0, k1 in bounds:
+            ss = ss + (xf[:, k0:k1] * xf[:, k0:k1]).sum(-1)
+        r = 1.0 / torch.sqrt(ss / In + eps)
+        xf = ((xf * r[:, None]).to(x.dtype) * norm_w.to(x.dtype)).to(torch.float32)
+    acc = None
+    for k0, k1 in bounds:
+        if grouped:
+            part = torch.zeros((M, Out), dtype=torch.float32)
+            for g0 in range(k0, k1, group):
+                part += (xf[:, g0:g0 + group] @ qf[g0:g0 + group]) * scale[g0 // group].float()
+        else:
+            part = xf[:, k0:k1] @ qf[k0:k1]
+        acc = part if acc is None else acc + part
+    if not grouped:
+        acc = acc * scale.reshape(-1).to(torch.float32)
+    return QK._epilogue(acc, x.dtype, res, gate)
+
+
+def test_m128_split_plan_at_the_target_shapes():
+    """The 128-row core's splits at the quantized targets' shapes, with the
+    H100's cluster residency (M128_CLUSTERS: 39 clusters of 3, 30 of 4, 22
+    of 5, 17 of 6): llama-3.2-1b wqkv 4, wo 6, w2 6 (int8 and group-wise),
+    w13 and the head 1 (their column tiles fill the card); llama-3.1-8b
+    wqkv 2, wo 3, w2 3, w13 and the head 1; int4 (128-row units) alike."""
+    plan = QK.m128_split_plan
+    assert [plan(2048, 3072, 64, 64), plan(2048, 2048, 64, 64), plan(8192, 2048, 128, 64),
+            plan(2048, 16384, 128, 64), plan(2048, 128256, 64, 64)] == [4, 6, 6, 1, 1]
+    assert [plan(4096, 6144, 64, 64), plan(4096, 4096, 64, 64), plan(14336, 4096, 128, 64),
+            plan(4096, 28672, 128, 64), plan(4096, 128256, 64, 64)] == [2, 3, 3, 1, 1]
+    assert [plan(2048, 3072, 128, 128), plan(2048, 2048, 128, 128), plan(8192, 2048, 128, 128),
+            plan(4096, 6144, 128, 128), plan(14336, 4096, 128, 128)] == [4, 6, 6, 2, 3]
+
+
+# (format, epilogue): int8 one scale a column, group-wise int8 (group 64:
+# two groups a split) and int4 (group 128)
+_M128_CASES = [("int8", "norm"), ("int8", "gate"), ("int8", "residual"), ("int8", "none"),
+               ("int8", "norm_gate"), ("int8g", "norm"), ("int8g", "norm_gate"),
+               ("int8g", "residual"), ("int4", "none"), ("int4", "gate"),
+               ("int4", "residual")]
+
+
+def _m128_operands(fmt, epilogue, dtype, seed, M=128, In=1024, Out=256):
+    """(JAX weight, port q, port scale, JAX arrays, port arrays) of one
+    128-row core case: x [M, In], then the norm weight or the residual."""
+    import jax.numpy as jnp
+    from magicdec_tpu import quantization as JQ
+
+    rng = np.random.RandomState(seed)
+    w = (rng.randn(In, Out) / np.sqrt(In)).astype(np.float32)
+    if fmt == "int8":
+        jw = JQ.quantize_weight(jnp.asarray(w))
+    else:
+        jw = JQ.quantize_weight(jnp.asarray(w), bits=4 if fmt == "int4" else 8,
+                                group_size=128 if fmt == "int4" else 64)
+    tw = _tq(jw)
+    extra = {"norm": [(In,)], "norm_gate": [(In,)], "residual": [(M, Out)]}.get(epilogue, [])
+    arrays = [rng.randn(M, In).astype(np.float32)] + [
+        (rng.rand(*sh) + 0.5).astype(np.float32) for sh in extra]
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    return (jw, tw.q, tw.scale, [jnp.asarray(a, jd) for a in arrays],
+            [torch.from_numpy(a).to(td) for a in arrays])
+
+
+@pytest.mark.parametrize("In,Out", [(1024, 256), (512, 16384)], ids=["8_splits", "1_split"])
+@pytest.mark.parametrize("fmt,epilogue", _M128_CASES, ids=[f"{f}-{e}" for f, e in _M128_CASES])
+def test_m128_order_model_matches_plain(fmt, epilogue, In, Out):
+    """The 128-row core's split- and group-order model against the plain
+    versions in float32 at M = 128: 8 splits over In 1024 (Out 256), and
+    one split (In 512, Out 16384: 128 column tiles fill the card), in each
+    format."""
+    _, q, s, _, ta = _m128_operands(fmt, epilogue, "float32", 20, In=In, Out=Out)
+    norm_w, res, gate = _epilogue_args(epilogue, ta)
+    bits = 4 if fmt == "int4" else 8
+    stage = QK.BK4 if bits == 4 else QK.BK
+    unit = stage if fmt == "int8" else max(In // s.shape[0], stage)
+    split = QK.m128_split_plan(In, Out, unit, stage)
+    assert split == (8 if In == 1024 else 1)
+    got = _m128_order_model(ta[0], q, s, norm_w, res, gate=gate, bits=bits)
+    if bits == 4:
+        want = QK.quant_matmul_fused_int4_plain(ta[0], q, s, res, gate=gate)
+    else:
+        want = QK.quant_matmul_fused_plain(ta[0], q, s, norm_w, res, gate=gate)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("fmt,epilogue", [("int8", "norm"), ("int8", "gate"),
+                                          ("int8", "residual"), ("int8g", "norm_gate"),
+                                          ("int8g", "residual"), ("int4", "gate"),
+                                          ("int4", "residual")])
+def test_m128_order_model_matches_pallas(fmt, epilogue, dtype):
+    """The 128-row core's order model against ``quant_matmul_fused_pallas``
+    (``_fused_kernel``: int8 one scale a column, group-wise int8 and the
+    nibble branch with bits=4) in interpret mode at M = 128."""
+    from magicdec_tpu.ops.pallas.quant_matmul import quant_matmul_fused_pallas
+
+    jw, q, s, ja, ta = _m128_operands(fmt, epilogue, dtype, 21)
+    bits = 4 if fmt == "int4" else 8
+    kw = dict(bits=bits, group_size=jw.group_size, block_out=64, interpret=True,
+              gate=epilogue.endswith("gate"))
+    if epilogue.startswith("norm"):
+        ref = quant_matmul_fused_pallas(ja[0], jw.q, jw.scale, ja[1], block_in=1024, norm=True,
+                                        norm_eps=1e-5, **kw)
+    elif epilogue == "residual":
+        ref = quant_matmul_fused_pallas(ja[0], jw.q, jw.scale, None, ja[1], block_in=512, **kw)
+    else:
+        ref = quant_matmul_fused_pallas(ja[0], jw.q, jw.scale, block_in=512, **kw)
+    norm_w, res, gate = _epilogue_args(epilogue, ta)
+    _compare(_m128_order_model(ta[0], q, s, norm_w, res, gate=gate, bits=bits), ref, dtype)
 
 
 # -- routing ------------------------------------------------------------------

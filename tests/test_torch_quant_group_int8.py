@@ -144,10 +144,14 @@ class _FakeLibrary:
 
 @pytest.mark.parametrize("group", [32, 128, 512])
 def test_b4_b6_group_int8_launch_against_a_fake_library(group, monkeypatch):
-    """The grouped entry point with the group and a split cut on group
-    boundaries (``cluster_split_plan(In, Out, max(group, 64))``), one C
-    call a wrapper call; a group the kernel does not take raises before
-    any call, and one scale a column keeps ``md_quant_matmul_sm90``."""
+    """The grouped entry points with the group and a split cut on group
+    boundaries, one C call a wrapper call: at the target's 128 rows the
+    128-row core (``md_quant_matmul_m128_sm90``, ``m128_split_plan(In, Out,
+    max(group, 64), 64)``), at the draft's 32 the cluster core
+    (``md_quant_matmul_grouped_sm90``, ``cluster_split_plan(In, Out,
+    max(group, 64))``); a group the kernel does not take raises before any
+    call, and one scale a column keeps group In on the 128-row core and
+    ``md_quant_matmul_sm90`` on the cluster core."""
     from magicdec_tpu_torch.kernels import build
 
     lib = _FakeLibrary()
@@ -158,11 +162,19 @@ def test_b4_b6_group_int8_launch_against_a_fake_library(group, monkeypatch):
     x = torch.zeros(128, In, dtype=torch.bfloat16)
     QK._launch_dot(x, q, torch.ones(In // group, Out), torch.ones(In, dtype=torch.bfloat16))
     ((name, args),) = lib.calls
+    assert name == "md_quant_matmul_m128_sm90" and len(args) == 14
+    assert args[6:12] == (128, In, Out, 0, QK.m128_split_plan(In, Out, max(group, 64), 64),
+                          group)
+    lib.calls.clear()
+    QK._launch_dot(x[:32], q, torch.ones(In // group, Out), torch.ones(In, dtype=torch.bfloat16))
+    ((name, args),) = lib.calls
     assert name == "md_quant_matmul_grouped_sm90" and len(args) == 14
-    assert args[6:12] == (128, In, Out, 0, QK.cluster_split_plan(In, Out, max(group, 64)), group)
+    assert args[6:12] == (32, In, Out, 0, QK.cluster_split_plan(In, Out, max(group, 64)), group)
     lib.calls.clear()
     QK._launch_dot(x, q, torch.ones(1, Out))
-    assert [n for n, _ in lib.calls] == ["md_quant_matmul_sm90"]
+    QK._launch_dot(x[:32], q, torch.ones(1, Out))
+    assert [n for n, _ in lib.calls] == ["md_quant_matmul_m128_sm90", "md_quant_matmul_sm90"]
+    assert lib.calls[0][1][11] == In
     lib.calls.clear()
     for bad in (16, 96):
         qb = torch.zeros(96 * 16, 256, dtype=torch.int8)

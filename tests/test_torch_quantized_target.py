@@ -228,6 +228,95 @@ def test_forward_target_quantized_matches_jax(bits, T, pallas, calls):
     assert set(calls) == want, calls
 
 
+# -- the target's decode passes at llama-3.1-8b shapes: the routes ------------
+
+
+@pytest.fixture
+def shape_only_dots(monkeypatch):
+    """Each kernel wrapper replaced by a stub that records (name, M, In,
+    Out) and returns zeros of the output's shape: the routing alone, no
+    product (request it before ``calls``, whose spies then wrap the stubs)."""
+    seen = []
+
+    def stub(name, out_cols):
+        def fn(x, q, *a, **kw):
+            Out = q.shape[-1]
+            seen.append((name, x.shape[0], x.shape[1], Out))
+            return torch.zeros((x.shape[0], out_cols(x, Out, kw)), dtype=x.dtype)
+        return fn
+
+    half_if_gate = lambda x, Out, kw: Out // 2 if kw.get("gate") else Out  # noqa: E731
+    for name in ("quant_matmul", "quant_matmul_int4"):
+        monkeypatch.setattr(QK, name, stub(name, lambda x, Out, kw: Out))
+    for name in ("quant_matmul_fused", "quant_matmul_fused_int4"):
+        monkeypatch.setattr(QK, name, stub(name, half_if_gate))
+    monkeypatch.setattr(QK, "quant_mlp", stub("quant_mlp", lambda x, Out, kw: x.shape[1]))
+    monkeypatch.setattr(QK, "quant_layer_tail", stub("quant_layer_tail",
+                                                     lambda x, Out, kw: x.shape[1]))
+    return seen
+
+
+def _shape_only_params(cfg, bits):
+    """Quantized target params at ``cfg``'s shapes whose weights are
+    broadcast views of one row (no weight in memory): int8 one scale a
+    column, or int4 packed with group-128 scales; bf16 norms and embedding."""
+    L, D, F, V = cfg.n_layer, cfg.dim, cfg.intermediate_size, cfg.vocab_size
+    qkv = (cfg.n_head + 2 * cfg.n_kv_head) * cfg.head_dim
+    bf = torch.bfloat16
+
+    def w(In, Out, lead=(L,)):
+        rows = In // 2 if bits == 4 else In
+        q = torch.zeros((1,) * (len(lead) + 1) + (Out,), dtype=torch.int8).expand(
+            *lead, rows, Out)
+        g = In // 128 if bits == 4 else 1
+        scale = torch.ones((1,) * (len(lead) + 1) + (Out,)).expand(*lead, g, Out)
+        return Q.QuantizedWeight(q, scale, bits, 128 if bits == 4 else 0)
+
+    return {"embed": torch.zeros((1, D), dtype=bf).expand(V, D),
+            "layers": {"wqkv": w(D, qkv), "bqkv": None, "wo": w(cfg.n_head * cfg.head_dim, D),
+                       "w13": w(D, 2 * F), "w2": w(F, D),
+                       "attn_norm": torch.ones((L, D), dtype=bf),
+                       "ffn_norm": torch.ones((L, D), dtype=bf)},
+            "final_norm": torch.ones((D,), dtype=bf), "lm_head": w(D, V, lead=())}
+
+
+@pytest.mark.parametrize("bits,T", [(8, 4), (8, 1), (4, 4), (4, 1)],
+                         ids=["int8-verify", "int8-ar_step", "int4-verify", "int4-ar_step"])
+def test_target_decode_passes_route_at_8b_shapes(bits, T, shape_only_dots, calls):
+    """The quantized llama-3.1-8b target's decode passes (B=32, the verify
+    window T = gamma + 1 = 4 and the AR step, both padded to decode_rows =
+    128) send every dot to B4 (wqkv + norm, wo + residual), B9 (the FFN) and
+    B6 (the head), or B4-int4 and B6-int4, all at 128 rows; B4, B6 and
+    B4-int4 there take the 128-row core.  The weights are broadcast views
+    and the wrappers stubs: shapes and routes only."""
+    from magicdec_tpu_torch.config import ModelConfig
+
+    cfg = dataclasses.replace(ModelConfig.from_name("llama-3.1-8b"), n_layer=2,
+                              decode_rows=128)
+    B, S, P = 32, 64, 40
+    K = cfg.n_kv_head * cfg.head_dim
+    caches = {n: torch.zeros((cfg.n_layer, B, S, K), dtype=torch.int8) for n in "kv"}
+    caches.update({n: torch.full((cfg.n_layer, B, cfg.n_kv_head, S), 0.01)
+                   for n in ("ks", "vs")})
+    TM.forward_target(_shape_only_params(cfg, bits), cfg,
+                      torch.zeros((B, T), dtype=torch.int32),
+                      torch.full((B,), P, dtype=torch.int32), caches)
+    D, F, V = cfg.dim, cfg.intermediate_size, cfg.vocab_size
+    qkv = (cfg.n_head + 2 * cfg.n_kv_head) * cfg.head_dim
+    if bits == 8:
+        layer = [("quant_matmul_fused", D, qkv), ("quant_matmul_fused", D, D),
+                 ("quant_mlp", D, 2 * F)]
+        head = [("quant_matmul", D, V)]
+    else:
+        layer = [("quant_matmul_fused_int4", D, qkv), ("quant_matmul_fused_int4", D, D),
+                 ("quant_matmul_fused_int4", D, 2 * F), ("quant_matmul_fused_int4", F, D)]
+        head = [("quant_matmul_int4", D, V)]
+    want = [(n, 128, i, o) for n, i, o in layer * cfg.n_layer + head]
+    assert shape_only_dots == want
+    assert calls == [n for n, *_ in want]
+    assert QK.dot_route(128) == "m128"
+
+
 # -- the engine: spec == AR on the kernel routes, tokens against the JAX engine
 
 

@@ -365,12 +365,19 @@ class _FakeLibrary:
         self.calls.append(("b6", args))
         return 0
 
+    def md_quant_matmul_int4_m128_sm90(self, *args):
+        self.calls.append(("b4_m128", args))
+        return 0
+
 
 @pytest.mark.parametrize("epilogue", ["none", "gate", "residual"])
 def test_b4_int4_launch_once_with_a_shape_only_plan(epilogue, monkeypatch):
-    """The B4-int4 host side: one kernel call a wrapper call, the split from
-    the weight's shape and group at every M from 1 to 256, nothing allocated
-    but the output (rows past 256 raise); B6-int4 takes its own entry."""
+    """The B4-int4 host side: one kernel call a wrapper call, routed by M
+    alone (1..64 rows the cluster core's ``md_quant_matmul_int4_sm90``,
+    65..256 the 128-row core's ``md_quant_matmul_int4_m128_sm90``), each
+    core's split from the weight's shape and group at every M it serves,
+    nothing allocated but the output (rows past 256 raise); B6-int4 takes
+    its own entry."""
     from magicdec_tpu_torch.kernels import build
 
     lib = _FakeLibrary()
@@ -389,11 +396,13 @@ def test_b4_int4_launch_once_with_a_shape_only_plan(epilogue, monkeypatch):
         out = QK._launch_b4_int4(torch.zeros(M, In, dtype=torch.bfloat16), q, s, res, gate)
         assert out.shape == (M, Out // 2 if gate else Out)
     assert allocated == [((M, Out // 2 if gate else Out),) for M in rows]
-    assert [c[0] for c in lib.calls] == ["b4"] * len(rows)
+    assert [c[0] for c in lib.calls] == ["b4"] * 4 + ["b4_m128"] * 3
+    assert [QK.dot_route(M) for M in rows] == ["cluster"] * 4 + ["m128"] * 3
     args = [c[1] for c in lib.calls]
     # x, q, scale, res, out, M, In, Out, gate, split, group, stream
     assert all(len(a) == 12 for a in args)
-    assert {a[9] for a in args} == {QK.cluster_split_plan(In, Out, 128)} == {8}
+    assert {a[9] for a in args[:4]} == {QK.cluster_split_plan(In, Out, 128)} == {8}
+    assert {a[9] for a in args[4:]} == {QK.m128_split_plan(In, Out, 128, QK.BK4)} == {6}
     assert {(a[8], a[10]) for a in args} == {(int(gate), group)}
     assert [a[5] for a in args] == list(rows)
     with pytest.raises(ValueError, match="at most 256 rows"):
