@@ -263,7 +263,29 @@ of which raises on failure:
    K1q, K3q (and the draft's K1, K3, B4, B5, B6) launched; (27)
    ``profile_draft --iters 10`` (each chain's time finite and positive;
    K1, K3, B4, B5, B6 launched) and ``sweep_benchmark --set smoke`` (a
-   bench process; one row with a result and its table line);
+   bench process; one row with a result and its table line); (29) tensor
+   parallelism (``TP_ARGV`` + ``TP_MESH``: ``selfspec_benchmark --model
+   llama-3.1-8b --model_parallel 2 --dist_backend gloo --kv_quant int8
+   --draft_quant int8``, B=8 x 1024, 32 tokens, 2 ranks on this card
+   through ``parallel.multihost.launch``, then the autoregressive baseline
+   on the same engine): the ranks agree, spec == AR on every committed token, >=
+   2.0 tokens per step, every token equal to a TP 1 run of the same
+   arguments except where TP 1's top-two logit gap is below twice
+   ``SPREAD_LIMIT`` of TP 1's largest |logit|, the two runs' logits at the
+   prompts' last position within ``SPREAD_LIMIT`` (0.025) of it and a
+   control (rank 1 dropping wo's sums) beyond it, on each rank K2q, K1q,
+   K1, K3q, K3, B4 and B6 launched (the attention at head dim 128 on 4
+   local kv heads, B4 on the local wqkv's 3072 columns, B6 on the padded
+   head shard's 64,256), B5, B9, B15's dense_mlp and every plain product of
+   a decode pass idle, each rank's peak memory, all-reduces and gloo
+   transport printed; (30) data parallelism (``DP_SERVE_ARGV`` +
+   ``DP_MESH``: ``serving_bench --paged --kv_quant int8 --data_parallel 2
+   --dist_backend gloo``, llama-3.2-1b, 8 requests of distinct lengths in
+   [1024, 2048] through 8 slots, 16 pages that must block): the ranks
+   agree, B12 (int8 pool) and B13 on both ranks, each request equal to its
+   B=1 run (C2's fixed-row recheck where they differ), then
+   ``--force_mesh --dist_backend nccl`` (one rank) equal to the meshless
+   serve token for token;
 6. row invariance at B=32, 4 and 2 (the verify of ``forward_target`` and
    of SnapKV's ``forward_verify_snapkv``), on cuBLAS and with the target's
    dots on B15: for each of the target's dots, and for two layers and the head, a
@@ -271,11 +293,13 @@ of which raises on failure:
    at the live row count and padded to decode_rows; fails if the model's
    rows differ when padded, which the engine runs;
 7. the dense A/B, ``profile_decode`` at B=32, ctx 8192, the int8 cache
-   (baseline, verify and noctx steps), without and with ``--dense_kernels``
-   in turns, and ``kernel_benchmark --which append`` (merged against
+   (baseline, verify and noctx steps), without then with ``--dense_kernels``
+   (one run each: the two turns of earlier runs are a depth cut for the
+   time limit), and ``kernel_benchmark --which append`` (merged against
    per-array appends);
 8. profile: where the decode time goes at the bench's default shapes,
-   24 generated tokens (``PROFILE_ARGV``; 80, then 40 in earlier runs) (spec
+   over a 4096-token prompt, 24 generated tokens (``PROFILE_ARGV``; 80,
+   then 40 in earlier runs, and 8192-token prompts) (spec
    generate and AR generate on the host clock, with the host time spent
    issuing draft steps, then under torch.profiler for the device's busy
    time and the kernels that take it), spec == AR again, and the AR step's
@@ -301,7 +325,8 @@ PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
 EX2_PER_CLOCK_SM = 16     # compute capability 9.0: ex2 a clock per SM
 SMS = 132                 # H100 SXM
 PAD_PAIRS = 2             # profile_phase: AR generate padded / live, alternating pairs
-PROFILE_ARGV = ["--max_gen", "24"]  # profile_phase: the bench's shapes, 24 of its 80 tokens
+# profile_phase: the bench's B=32, 24 of its 80 tokens over half its prompt
+PROFILE_ARGV = ["--max_gen", "24", "--prefix_len", "4096"]
 SM_CLOCK_HZ = None        # the card's maximum SM clock (nvidia-smi), set in main
 INT32_PER_CLOCK_SM = 64   # compute capability 9.0: integer ALU lanes an SM
 FP32_PER_CLOCK_SM = 128   # float32 lanes an SM (an FMA counted once)
@@ -1991,32 +2016,19 @@ def quantized_main_path(torch, wrappers, required, argv, forbidden, at_128,
 
     # each outermost quantization.quant_matmul call: its rows, and whether a
     # kernel launched inside it
-    dots, depth, routed = {}, [0], Q.quant_matmul
-
-    def dot_spy(x, wq, *a, **kw):
-        if depth[0]:
-            return routed(x, wq, *a, **kw)
-        before = sum(fn.launches for fn in originals.values())
-        depth[0] += 1
-        try:
-            out = routed(x, wq, *a, **kw)
-        finally:
-            depth[0] -= 1
-        key = (math.prod(x.shape[:-1]),
-               "kernel" if sum(fn.launches for fn in originals.values()) > before else "plain")
-        dots[key] = dots.get(key, 0) + 1
-        return out
-
+    shapes, undo = _dot_spy(torch)
     for name, fn in originals.items():
         setattr(QK, name, spy_of(name, fn))
-    Q.quant_matmul = dot_spy
     try:
         out, launches, peak = main_path(torch, wrappers, required, argv, forbidden=forbidden,
                                         min_tokens_per_step=min_tokens_per_step)
     finally:
-        Q.quant_matmul = routed
+        undo()
         for name, fn in originals.items():
             setattr(QK, name, fn)
+    dots = {}
+    for (m, _, _, route), n in shapes.items():
+        dots[(m, route)] = dots.get((m, route), 0) + n
     tag = " ".join(argv)
     print(f"[main {tag}] launches by row count: "
           + ", ".join(f"{n} {dict(sorted(r.items()))}" for n, r in rows.items() if r),
@@ -2469,7 +2481,7 @@ def checkpoint_round_trip_phase(torch, wrappers, run):
         """serving_bench's timed serve of ROUND_TRIP_ARGV: ``--model`` a
         converted file, or (``in_memory``) the given params."""
         if in_memory is not None:
-            serving_bench.load_params_and_config = lambda m, device: (in_memory, cfg)
+            serving_bench.load_params_and_config = lambda m, device, mesh=None: (in_memory, cfg)
         try:
             for w in wrappers:
                 w.launches = 0
@@ -2958,15 +2970,16 @@ def sampled_serving_phase(torch, wrappers):
 
 def dense_ab_phase(torch, wrappers):
     """The dense A/B: ``profile_decode`` at B=32, ctx 8192, the int8 cache,
-    phases baseline, verify and noctx, without and with --dense_kernels, in
-    turns (off, on, on, off); B15 must launch in the dense runs only.  Then
+    phases baseline, verify and noctx, without then with --dense_kernels
+    (the turns off, on, on, off of earlier runs: a depth cut for the time
+    limit); B15 must launch in the dense run only.  Then
     ``kernel_benchmark --which append``: K3q's merged launch against B14's
     four per-array launches.  Returns the figures."""
     from magicdec_tpu_torch import kernel_benchmark, profile_decode
     from magicdec_tpu_torch.kernels import dense_matmul as DK
 
     runs = {"cuBLAS": [], "B15": []}
-    for dense in (False, True, True, False):
+    for dense in (False, True):
         for w in wrappers:
             w.launches = 0
         r = profile_decode.main(AB_ARGV + (["--dense_kernels"] if dense else []))
@@ -3601,6 +3614,461 @@ def drivers_phase(torch, wrappers, kernels):
     return res
 
 
+def _kernel_wrappers():
+    """Every counted kernel wrapper, in the kernels line's groups (``main``'s
+    list; a spawned rank builds its own)."""
+    from magicdec_tpu_torch.kernels import append as AP
+    from magicdec_tpu_torch.kernels import decode_attention as DA
+    from magicdec_tpu_torch.kernels import dense_matmul as DK
+    from magicdec_tpu_torch.kernels import paged_attention as PGA
+    from magicdec_tpu_torch.kernels import prefill_attention as PA
+    from magicdec_tpu_torch.kernels import quant_matmul as QK
+    from magicdec_tpu_torch.kernels import sampling as S1
+
+    return [DA.flash_decode_attend, PA.flash_prefill_attend, AP.append_all_rows_inplace,
+            DA.flash_decode_attend_quant, PA.flash_prefill_attend_quant,
+            AP.append_all_rows_inplace_quant, QK.quant_matmul_fused, QK.quant_layer_tail,
+            QK.quant_matmul, QK.quant_mlp, DA.flash_decode_attend_quant4,
+            PA.flash_prefill_attend_quant4, QK.quant_matmul_fused_int4, QK.quant_matmul_int4,
+            PGA.flash_paged_decode_attend, PGA.flash_paged_decode_attend_quant,
+            PGA.flash_paged_decode_attend_quant4, PGA.append_paged_rows_inplace,
+            AP.append_rows_inplace, AP.append_scale_rows_inplace, DK.dense_matmul_fused,
+            DK.dense_mlp, S1.gumbel_argmax]
+
+
+def _dot_spy(torch):
+    """Wraps ``quantization.quant_matmul``: each outermost call's (rows,
+    contraction, output columns, "kernel" or "plain") counted in the returned
+    dict (a kernel: some int8 / int4 wrapper launched inside it); the
+    returned ``undo`` restores it."""
+    from magicdec_tpu_torch import quantization as Q
+    from magicdec_tpu_torch.kernels import quant_matmul as QK
+
+    fns = [getattr(QK, n) for n in ROW_COUNTED]
+    dots, depth, routed = {}, [0], Q.quant_matmul
+
+    def spy(x, wq, *a, **kw):
+        if depth[0]:
+            return routed(x, wq, *a, **kw)
+        before = sum(fn.launches for fn in fns)
+        depth[0] += 1
+        try:
+            out = routed(x, wq, *a, **kw)
+        finally:
+            depth[0] -= 1
+        key = (math.prod(x.shape[:-1]), wq.in_features, wq.q.shape[-1],
+               "kernel" if sum(fn.launches for fn in fns) > before else "plain")
+        dots[key] = dots.get(key, 0) + 1
+        return out
+
+    Q.quant_matmul = spy
+
+    def undo():
+        Q.quant_matmul = routed
+
+    return dots, undo
+
+
+# (29) tensor parallelism: selfspec_benchmark at llama-3.1-8b over 2 ranks
+# (--model_parallel 2) sharing cuda:0 through gloo, the int8 cache and the
+# int8 draft copy, B=8 over 1024-token prompts (2048 before: a depth cut for
+# the time limit: gloo's prefill all-reduces cost 1.3 ms a MB on one H100), 32
+# tokens; the same arguments at TP 1 (in this process) are the reference
+TP_ARGV = ["--model", "llama-3.1-8b", "--kv_quant", "int8", "--draft_quant", "int8", "--B", "8",
+           "--prefix_len", "1024", "--max_len", "1152", "--max_gen", "32", "--prefill_chunk",
+           "512", "--num_batches", "1", "--warmup_batches", "0"]
+TP_MESH = ["--model_parallel", "2", "--dist_backend", "gloo"]
+# the largest difference between TP 2's and TP 1's float32 logits at the
+# prompts' last position, over the largest |logit| of TP 1, may be at most
+# SPREAD_LIMIT; the control (rank 1 keeping its own partial wo product in
+# every layer of a prefill, the sum dropped) must exceed it.  Set from the
+# card's readings at 2048-token prompts (NVIDIA H100 80GB HBM3, 700 W):
+# sound 0.0126, control 0.0681.  A TP token may differ from TP 1's only
+# where TP 1's top-two gap is below twice that limit of the largest |logit|
+# (each of the two logits moving by at most the limit)
+SPREAD_LIMIT = 0.025
+
+
+def _capture_last_hidden(engine):
+    """A list that gets the last prompt position's hidden states [B, D] of
+    each of ``engine``'s encodes (its token-0 head's input)."""
+    seen, head = [], engine._head_token
+
+    def spy(x_last, *a, **kw):
+        seen.append(x_last.clone())
+        return head(x_last, *a, **kw)
+
+    engine._head_token = spy
+    return seen
+
+
+def _logits_of(torch, engine, x):
+    """The target's whole logits rows for hidden states [B, D], on the
+    host, computed in float32 from the bf16 states (the final norm and the
+    bf16 lm_head too, so the difference of two runs is not in steps of the
+    head's bf16 rounding); gathered over the vocab split under TP."""
+    from magicdec_tpu_torch.ops.norm import rms_norm
+
+    p = engine.params
+    y = rms_norm(x.float(), p["final_norm"].float(), engine.cfg.norm_eps) @ p["lm_head"].float()
+    tp = p.get("shard")
+    return (y if tp is None else tp.full_logits(y)).cpu().numpy()
+
+
+def _drop_wo_sum(reduce, rank: int):
+    """The control's ``collectives.all_reduce``: every rank takes part in
+    every all-reduce, but rank 1 keeps its own partial wo product (the first
+    of a layer's two sums, wo's then w2's) in place of the sum."""
+    seen = [0]
+
+    def faulty(t, op="sum", group=None):
+        if op != "sum" or group is None:
+            return reduce(t, op, group)
+        own = t.clone() if seen[0] % 2 == 0 and rank == 1 else None
+        seen[0] += 1
+        reduce(t, op, group)
+        return t if own is None else own
+
+    return faulty
+
+
+def _tp_rank(spec_argv):
+    """One rank of path (29), in a process of its own: ``selfspec_benchmark``
+    with the launch counters zeroed just before and read just after and the
+    quantized dots by (rows, in, out, route); then, on the engine and batch
+    it built (``baseline_benchmark.setup``'s), the autoregressive baseline,
+    the target's logits at the prompts' last position, and the control's:
+    the first request's prefill again with rank 1 dropping the sum of wo's
+    products in every layer (``_drop_wo_sum``)."""
+    import torch
+    import torch.distributed as dist
+
+    from magicdec_tpu_torch import baseline_benchmark, selfspec_benchmark
+    from magicdec_tpu_torch.parallel import collectives, multihost
+
+    dev = multihost.rank_device()
+    cuda = dev.type == "cuda"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    wrappers = _kernel_wrappers()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    dots, undo = _dot_spy(torch)
+    reduce, calls = collectives.all_reduce, {}
+
+    def counted(t, op="sum", group=None):  # the all-reduces of the spec run, by op
+        if group is not None:
+            calls[op] = calls.get(op, 0) + 1
+            calls[f"{op} MB"] = calls.get(f"{op} MB", 0.0) + t.numel() * t.element_size() / 1e6
+        return reduce(t, op, group)
+
+    setup, built = baseline_benchmark.setup, []
+
+    def keep(*a, **kw):  # selfspec_benchmark's engine and batches, kept
+        built.append(setup(*a, **kw))
+        return built[-1]
+
+    collectives.all_reduce, baseline_benchmark.setup = counted, keep
+    try:
+        _zero_counts(wrappers)
+        t0 = time.perf_counter()
+        args = selfspec_benchmark.parse_args(spec_argv)
+        spec = selfspec_benchmark.run(args)
+        spec_s = time.perf_counter() - t0
+        launches, spec_dots, spec_calls = _read_counts(wrappers), dict(dots), dict(calls)
+        collectives.all_reduce, baseline_benchmark.setup = reduce, setup
+        dots.clear()
+        _zero_counts(wrappers)
+        (engine, batches), = built
+        last = _capture_last_hidden(engine)
+        st = engine.encode_baseline(batches[0])
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, base = engine.generate_baseline(st, max_new=args.max_gen)
+        base_output = base["output"].cpu().numpy()
+        base_s = time.perf_counter() - t0
+        base_launches = _read_counts(wrappers)
+        logits = _logits_of(torch, engine, last[0])
+        collectives.all_reduce = _drop_wo_sum(reduce, dist.get_rank())
+        try:
+            engine.encode_baseline(batches[0][:1])
+        finally:
+            collectives.all_reduce = reduce
+        control = _logits_of(torch, engine, last[1])
+        del engine, st, base, built
+    finally:
+        undo()
+        collectives.all_reduce, baseline_benchmark.setup = reduce, setup
+    # the gloo transport between the ranks on this card: one all-reduce of a
+    # verify pass's residual rows (32 x 4096) and of a prefill chunk's (8 x 512)
+    transport = {}
+    for rows in (32, 4096):
+        t = torch.ones((rows, 4096), dtype=torch.bfloat16, device=dev)
+        dist.all_reduce(t)
+        if cuda:
+            torch.cuda.synchronize()
+        n = 20 if rows < 1000 else 3
+        t0 = time.perf_counter()
+        for _ in range(n):
+            dist.all_reduce(t)
+        if cuda:
+            torch.cuda.synchronize()
+        transport[f"[{rows}, 4096] bf16 ms"] = round((time.perf_counter() - t0) / n * 1e3, 4)
+    b = spec["batches"][0]
+    return {"rank": dist.get_rank(), "output": b["output"], "committed": b["num_committed"],
+            "base_output": base_output, "logits": logits, "control": control,
+            "tokens_per_step": spec["tokens_per_step"], "tokens_per_s": spec["tokens_per_s"],
+            "base_tokens_per_s": base_output.shape[0] * (args.max_gen - 1) / base_s,
+            "spec_s": spec_s, "base_s": base_s,
+            "launches": launches, "base_launches": base_launches, "dots": spec_dots,
+            "all_reduces": spec_calls, "transport": transport,
+            "peak": torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0}
+
+
+def _top_two_gap(torch, engine, prompt, committed):
+    """TP 1's top-two logit gap at the position after
+    ``prompt`` + ``committed`` tokens: one request's prefill in the
+    engine's chunks, the last row's float32 logits."""
+    import numpy as np
+
+    from magicdec_tpu_torch.models import llama as M
+
+    seq = torch.as_tensor(np.concatenate([prompt, committed]).astype(np.int32),
+                          device=engine.device)[None]
+    caches = engine._zero_target_caches(1)
+    C = engine.ecfg.prefill_chunk_size or engine.ecfg.chunk_size
+    lens = torch.zeros((1,), dtype=torch.int32, device=engine.device)
+    for s in range(0, seq.shape[1], C):
+        logits, caches = M.forward_target(engine.params, engine.cfg, seq[:, s:s + C], lens,
+                                          caches, head="logits")
+        lens = lens + seq[:, s:s + C].shape[1]
+    top = torch.topk(logits[0, -1].float(), 2).values.tolist()
+    return top[0] - top[1]
+
+
+def tp_phase(torch):
+    """(29): ``selfspec_benchmark`` with TP_ARGV + TP_MESH, 2 ranks on this
+    card (``parallel.multihost.launch``, each rank ``_tp_rank``), against
+    the same arguments at TP 1.  Fails unless the two ranks agree, spec ==
+    AR on every committed token of the TP run, tokens per step >= 2.0, the
+    two runs' logits at the prompts' last position differ by at most
+    SPREAD_LIMIT of TP 1's largest |logit| while the control's (rank 1
+    dropping wo's sums, ``_drop_wo_sum``) differ by more, each TP token
+    equals TP 1's except where TP 1's top-two gap is below twice
+    SPREAD_LIMIT of that largest |logit| (the first such token a request
+    ends its comparison, printed), each rank launched K2q, K1q, K1, K3q, K3, B4 and
+    B6 (the attention at head dim 128 on 4 local kv heads, B4 on the local
+    wqkv's 3072 columns, B6 on the padded head shard's 64,256), and B5, B9,
+    B15's dense_mlp and every plain product of a decode pass stayed idle.
+    Prints each rank's peak memory.  Returns rank 0's launches."""
+    import numpy as np
+
+    from magicdec_tpu_torch import baseline_benchmark, selfspec_benchmark
+    from magicdec_tpu_torch.parallel import multihost
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = multihost.launch(_tp_rank, (TP_ARGV + TP_MESH,), 2, backend="gloo", device="cuda")
+    wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    for r in ranks:
+        print(f"[tp (29)] rank {r['rank']}: spec {r['spec_s']:.1f} s, AR {r['base_s']:.1f} s, "
+              f"{r['tokens_per_step']:.3f} tokens/step, spec {r['tokens_per_s']:.2f} tok/s, AR "
+              f"{r['base_tokens_per_s']:.2f} tok/s, peak {r['peak']:.2f} GiB; launches "
+              f"{ {k: v for k, v in r['launches'].items() if v} }", flush=True)
+    print(f"[tp (29)] rank 0 quantized dots (rows, in, out, route): "
+          f"{dict(sorted(r0['dots'].items()))}; both ranks {wall:.1f} s of wall", flush=True)
+    print(f"[tp (29)] rank 0's all-reduces in the spec run (encode + generate): "
+          f"{ {k: round(v, 1) for k, v in r0['all_reduces'].items()} }; gloo transport on "
+          f"this card: {r0['transport']}", flush=True)
+    for r in ranks[1:]:
+        if not (np_equal(r["output"].reshape(-1), r0["output"].reshape(-1))
+                and np_equal(r["base_output"].reshape(-1), r0["base_output"].reshape(-1))):
+            raise AssertionError(f"(29): rank {r['rank']}'s tokens differ from rank 0's")
+    args = selfspec_benchmark.parse_args(TP_ARGV)
+    print("[tp (29)] TP 2 " + _agreement(r0["output"], r0["committed"], r0["base_output"],
+                                          args.max_gen), flush=True)
+    if r0["tokens_per_step"] < 2.0:
+        raise AssertionError(f"(29): acceptance collapsed, {r0['tokens_per_step']} tokens/step")
+    # TP 1: the same arguments in this process
+    t0 = time.perf_counter()
+    engine, batches = baseline_benchmark.setup(
+        args, mode=args.mode, gamma=args.gamma, draft_budget=args.draft_budget,
+        draft_quant=args.draft_quant or False, draft_quant_head=args.draft_head == "quant")
+    last = _capture_last_hidden(engine)
+    _, stats = engine.generate(engine.encode(batches[0]))
+    out1, n1 = stats["output"].cpu().numpy(), stats["num_committed"].cpu().numpy()
+    ref = _logits_of(torch, engine, last[0])
+    scale = float(np.abs(ref).max())
+    spread = float(np.abs(ref - r0["logits"]).max()) / scale
+    control = float(np.abs(ref[:1] - r0["control"]).max()) / scale
+    print(f"[tp (29)] TP 2 against TP 1 at the prompts' last position: the largest logit "
+          f"difference is {spread:.6f} of TP 1's largest |logit| {scale:.4f} (limit "
+          f"{SPREAD_LIMIT}); the control's (rank 1 dropping wo's sums) {control:.6f}",
+          flush=True)
+    bound, ties = 2 * SPREAD_LIMIT * scale, {}
+    for b in range(out1.shape[0]):
+        n = min(int(n1[b]), int(r0["committed"][b]), args.max_gen)
+        j = next((j for j in range(n) if out1[b, j] != r0["output"][b, j]), None)
+        if j is None:
+            continue
+        gap = _top_two_gap(torch, engine, batches[0][b], out1[b, :j])
+        ties[b] = (j, round(gap, 6))
+        if gap >= bound:
+            raise AssertionError(f"(29): request {b} differs from TP 1 at token {j} where TP 1's "
+                                 f"top-two gap is {gap}, not below {bound} (2 x {SPREAD_LIMIT} "
+                                 f"of TP 1's largest |logit| {scale})")
+    same = out1.shape[0] - len(ties)
+    print(f"[tp (29)] TP 2 against TP 1 ({time.perf_counter() - t0:.1f} s): {same} of "
+          f"{out1.shape[0]} requests equal on every token both committed; near ties (request: "
+          f"(first differing token, TP 1 top-two gap)) {ties}, below {bound:.4f}", flush=True)
+    need = ["flash_prefill_attend_quant", "flash_decode_attend_quant", "flash_decode_attend",
+            "append_all_rows_inplace_quant", "append_all_rows_inplace", "quant_matmul_fused",
+            "quant_matmul"]
+    idle = ["quant_layer_tail", "quant_mlp", "dense_mlp"]
+    for r in ranks:
+        missing = [n for n in need if not r["launches"][n]]
+        busy = [n for n in idle if r["launches"][n] or r["base_launches"][n]]
+        attn = [n for n in need[:3] if r["launches"][f"{n} {HD128}"] != r["launches"][n]]
+        plain = {k: v for k, v in r["dots"].items() if k[3] == "plain" and k[0] <= 256}
+        if missing or busy or attn or plain:
+            raise AssertionError(f"(29) rank {r['rank']}: never launched {missing}; launched "
+                                 f"{busy}; off head dim 128: {attn}; plain decode dots {plain}")
+        widths = {(k[2], k[3]) for k in r["dots"]}
+        for w in ((3072, "kernel"), (64256, "kernel")):
+            if w not in widths:
+                raise AssertionError(f"(29) rank {r['rank']}: no {w[1]} dot at {w[0]} columns "
+                                     f"(the local wqkv, the padded head shard): {widths}")
+    if spread > SPREAD_LIMIT or control <= SPREAD_LIMIT:
+        raise AssertionError(f"(29): the logit difference against TP 1 is {spread} (limit "
+                             f"{SPREAD_LIMIT}), the control's {control} (must exceed it)")
+    del engine, stats
+    torch.cuda.empty_cache()
+    return r0["launches"]
+
+
+# (30) data parallelism: the paged int8 serve of llama-3.2-1b over 2 data
+# ranks sharing cuda:0 through gloo (4 slots and 8 of the 16 pages a
+# group: requests of 3 to 5 pages wait for them), 8 requests of distinct
+# lengths in [1024, 2048], 32 tokens each (80 before: a depth cut for the
+# time limit); then the same serve with --force_mesh (one rank, NCCL)
+# against the meshless serve
+DP_SERVE_ARGV = ["--paged", "--kv_quant", "int8", "--slots", "8", "--num_requests", "8",
+                 "--prefix_len", "2048", "--ragged", "--seed", "41", "--max_len", "4096",
+                 "--page_size", "512", "--total_pages", "16", "--max_gen", "32",
+                 "--skip_warmup"]
+DP_MESH = ["--data_parallel", "2", "--dist_backend", "gloo"]
+
+
+def _dp_rank(argv):
+    """One rank of path (30): ``serving_bench`` with the counters zeroed
+    just before and read just after."""
+    import torch
+    import torch.distributed as dist
+
+    from magicdec_tpu_torch import serving_bench
+    from magicdec_tpu_torch.parallel import multihost
+
+    cuda = multihost.rank_device().type == "cuda"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    wrappers = _kernel_wrappers()
+    _zero_counts(wrappers)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    out = serving_bench.run(serving_bench.parse_args(argv))
+    return {"rank": dist.get_rank(), "outputs": out["outputs"], "prompts": out["prompts"],
+            "stats": out["stats"], "seconds": out["seconds"], "result": out["result"],
+            "launches": _read_counts(wrappers),
+            "peak": torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0}
+
+
+def dp_phase(torch):
+    """(30): ``serving_bench`` with DP_SERVE_ARGV + DP_MESH in 2 ranks on
+    this card (each ``_dp_rank``).  Fails unless the ranks agree, the
+    prompts are distinct lengths, a free slot waited for pages, B12 (int8
+    pool) and B13 launched on both ranks, and each request equals its
+    prompt alone through a B=1 ``SpecEngine`` (C2's rule: where the live
+    row counts differ, again at the data group's row count and split plans,
+    which must agree); then ``serving_bench --force_mesh --dist_backend
+    nccl`` (one rank in this process) must equal the meshless serve token
+    for token.  Returns rank 0's launches."""
+    import dataclasses
+
+    from magicdec_tpu_torch import serving_bench
+    from magicdec_tpu_torch.engine.engine import SpecEngine
+    from magicdec_tpu_torch.kernels import decode_attention as DA
+    from magicdec_tpu_torch.parallel import multihost
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = multihost.launch(_dp_rank, (DP_SERVE_ARGV + DP_MESH,), 2, backend="gloo",
+                             device="cuda")
+    wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    for r in ranks:
+        print(f"[dp (30)] rank {r['rank']}: serve {r['seconds']:.1f} s, peak {r['peak']:.2f} "
+              f"GiB; launches { {k: v for k, v in r['launches'].items() if v} }", flush=True)
+    print(f"[dp (30)] " + _serving_summary(r0) + f"; both ranks {wall:.1f} s of wall",
+          flush=True)
+    for r in ranks[1:]:
+        if not all(np_equal(a, b) for a, b in zip(r["outputs"], r0["outputs"])):
+            raise AssertionError(f"(30): rank {r['rank']}'s tokens differ from rank 0's")
+    lens = [len(p) for p in r0["prompts"]]
+    if len(set(lens)) != len(lens):
+        raise AssertionError(f"(30): the prompt lengths are not distinct: {lens}")
+    if r0["stats"]["page_blocked"] <= 0:
+        raise AssertionError("(30): no free slot waited for pages")
+    # served == solo, B=1 SpecEngine runs (meshless: the data axis keeps TP 1)
+    args = serving_bench.parse_args(DP_SERVE_ARGV)
+    engine, _ = serving_bench.setup(args)
+    b1 = SpecEngine(engine.params, engine.cfg, engine.ecfg, device=engine.device)
+    del engine
+    slots = args.slots // 2  # a data group's
+    split_plan, quant_split_plan = DA.split_plan, DA.quant_split_plan
+
+    def solo(prompt, fixed):
+        if fixed:  # the data group's rows and split plans
+            b1._hinted = lambda B: dataclasses.replace(
+                b1.cfg, decode_rows=slots * (b1.ecfg.gamma + 1))
+            DA.split_plan = lambda B, Hkv, S, hd=64: split_plan(slots, Hkv, S, hd)
+            DA.quant_split_plan = lambda B, Hkv, S, hd=64: quant_split_plan(slots, Hkv, S, hd)
+        try:
+            _, stats = b1.generate(b1.encode(prompt[None]))
+        finally:
+            vars(b1).pop("_hinted", None)
+            DA.split_plan, DA.quant_split_plan = split_plan, quant_split_plan
+        return stats["output"][0, :int(stats["num_committed"][0])].cpu().numpy()
+
+    t0 = time.perf_counter()
+    diffs = _first_diffs(r0["outputs"], [solo(p, False) for p in r0["prompts"]])
+    line = f"all {len(lens)} requests agree with their B=1 runs on every token both committed"
+    if diffs:
+        # the requests that differ, again at the data group's row count
+        again = sorted(diffs)
+        fixed = {again[i]: j for i, j in _first_diffs(
+            [r0["outputs"][i] for i in again], [solo(r0["prompts"][i], True) for i in again]).items()}
+        if fixed:
+            raise AssertionError(f"(30): served != solo at the live row counts {diffs} and at "
+                                 f"the data group's row count {fixed}")
+        line = (f"DIFFER at the live row counts (requests: first differing token {diffs}); "
+                f"at the data group's {slots} slots' row count those {len(again)} agree")
+    print(f"[dp (30)] served against B=1 ({time.perf_counter() - t0:.1f} s): {line}", flush=True)
+    del b1
+    torch.cuda.empty_cache()
+    # the one NCCL check: --force_mesh (one rank, NCCL) against no mesh
+    t0 = time.perf_counter()
+    nccl = serving_bench.main(DP_SERVE_ARGV + ["--force_mesh", "--dist_backend", "nccl"])
+    plain = serving_bench.main(DP_SERVE_ARGV)
+    print("[dp (30)] " + _same_tokens("--force_mesh over NCCL against the meshless serve",
+                                      nccl["outputs"], plain["outputs"])
+          + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
+    for r in ranks:
+        for n in ("flash_paged_decode_attend_quant", "append_paged_rows_inplace"):
+            if not r["launches"][n]:
+                raise AssertionError(f"(30) rank {r['rank']} never launched {n}")
+    return r0["launches"]
+
+
 def tools_phase(torch, wrappers, kernels):
     """(27) ``profile_draft.main --iters 10`` at its defaults (llama-3.2-1b,
     B=32, budget 513, the int8 draft copy; its counters read: K1, K3, B4, B5
@@ -3658,7 +4126,6 @@ def main():
         from magicdec_tpu_torch.kernels import paged_attention as PGA
         from magicdec_tpu_torch.kernels import prefill_attention as PA
         from magicdec_tpu_torch.kernels import quant_matmul as QK
-        from magicdec_tpu_torch.kernels import sampling as S1
     except ImportError as exc:
         print(f"chip_smoke: the magicdec_tpu_torch package is missing ({exc})",
               file=sys.stderr)
@@ -3721,8 +4188,7 @@ def main():
              PGA.flash_paged_decode_attend_quant4, PGA.append_paged_rows_inplace]
     per_array = [AP.append_rows_inplace, AP.append_scale_rows_inplace]
     dense_dots = [DK.dense_matmul_fused, DK.dense_mlp]
-    wrappers = (dense + quant + dots + [QK.quant_mlp] + quant4 + dots4 + paged + per_array
-                + dense_dots + [S1.gumbel_argmax])
+    wrappers = _kernel_wrappers()
     # (1) the default path (one measured repeat): the target on the int8 KV
     # kernels, the draft's int8 weight copy on B4/B5/B6 and its bf16 cache
     # on K1 and K3; B14 and B15 stay off by default
@@ -3957,6 +4423,12 @@ def main():
     # (27) profile_draft and the sweep's smoke row
     tools_phase(torch, wrappers, kits)
     phase_done("(27) profile_draft and the sweep")
+    # (29) tensor parallelism: llama-3.1-8b over 2 gloo ranks on this card
+    tp_phase(torch)
+    phase_done("(29) TP 2 at llama-3.1-8b")
+    # (30) the paged serve over 2 data ranks, then --force_mesh over NCCL
+    dp_phase(torch)
+    phase_done("(30) the serve over a data axis")
     # the row-invariance question (PERF.md): is a target row computed the
     # same at verify and at the AR step; at B=4 and 2 the live row counts
     # differ (cuBLAS's w2, torch's row mean), the padded ones the engine runs
@@ -3967,9 +4439,10 @@ def main():
     phase_done("row invariance")
     dense_ab_phase(torch, wrappers)
     phase_done("dense and append A/B")
-    # the default path's profile only, over 24 generated tokens (depth cuts
-    # for the time limit: the bench's 80, 40, and the int4, snapkv and
-    # --quantize int8 profiles of earlier runs are in PERF.md)
+    # the default path's profile only, over 24 generated tokens of a
+    # 4096-token prompt (depth cuts for the time limit: the bench's 80, 40,
+    # 8192-token prompts, and the int4, snapkv and --quantize int8 profiles
+    # of earlier runs are in PERF.md)
     profile_phase(torch, PROFILE_ARGV)
     phase_done("profiles")
 

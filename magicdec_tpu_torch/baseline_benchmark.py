@@ -13,6 +13,9 @@ decode loop timed between ``torch.cuda.synchronize()`` calls, the first
 (the prefill chunks), K1q at T=1 and K3q with ``--kv_quant``, K2 / K1 / K3
 without it.  Same flags and defaults as the JAX driver (``common``); the
 per-batch lines go to stderr, ``Final tokens per second :`` to stdout.
+``--data_parallel`` / ``--model_parallel`` / ``--force_mesh`` run the engine
+over a mesh (``parallel/``: one process a rank, spawned here; rank 0
+writes stdout; ``--dist_backend gloo`` lets ranks share one card).
 """
 
 from __future__ import annotations
@@ -44,10 +47,14 @@ def setup(args, **ecfg_kw):
     from magicdec_tpu_torch.engine.engine import SpecEngine
     from magicdec_tpu_torch.utils.seeding import setup_seed
 
-    dev = resolve_device(args.device)
+    from magicdec_tpu_torch.parallel.multihost import build_mesh
+
+    mesh = build_mesh(args)
+    dev = resolve_device(args.device) if mesh is None else mesh.device
     setup_seed(args.seed)
-    params, cfg = common.load_params_and_config(args.model, dev)
-    engine = SpecEngine(params, cfg, common.engine_config(args, **ecfg_kw), device=dev)
+    params, cfg = common.load_params_and_config(args.model, dev, mesh)
+    engine = SpecEngine(params, cfg, common.engine_config(args, **ecfg_kw), device=dev,
+                        mesh=mesh)
     del params
     data = common.load_dataset(args, cfg.vocab_size)
     batches = [np.ascontiguousarray(b[:, :args.prefix_len], np.int32)
@@ -85,7 +92,9 @@ def run(args):
 
 
 def main(argv=None):
-    return run(parse_args(argv))
+    from magicdec_tpu_torch.parallel.multihost import run_driver
+
+    return run_driver("magicdec_tpu_torch.baseline_benchmark", parse_args(argv))
 
 
 if __name__ == "__main__":

@@ -49,20 +49,22 @@ AUTOTUNE_WARMUP_GAMMA = 4   # --gamma 0: the warmup run's window
 
 
 def make_params(cfg, seed=0, dtype=torch.bfloat16, residual_scale=0.25,
-                tied=False, device="cuda"):
+                tied=False, device="cuda", store=None):
     """Synthetic benchmark weights, the distributions of ``bench.make_params``:
     N(0, 1/fan_in) projections, damped residual outputs (wo, w2 scaled by
     ``residual_scale``), unit-scale embeddings and an independent 0.02-scale
     lm_head (``tied=False``: a tied head on random weights makes the draft
     agree on every token; ``tied=None`` follows the config).  Drawn on
-    ``device`` from a seeded ``torch.Generator``."""
+    ``device`` from a seeded ``torch.Generator``; ``store``: where each
+    leaf is kept once drawn (default ``device``), its values unchanged."""
     dev = resolve_device(device)
+    keep = dev if store is None else resolve_device(store)
     gen = torch.Generator(device=dev).manual_seed(seed)
 
     def w(*shape, scale=None):
         scale = scale if scale is not None else 1.0 / np.sqrt(shape[-2] if len(shape) > 1 else 1)
         x = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
-        return (x * scale).to(dtype)
+        return (x * scale).to(dtype).to(keep)
 
     L, D, F = cfg.n_layer, cfg.dim, cfg.intermediate_size
     layers = {
@@ -73,12 +75,12 @@ def make_params(cfg, seed=0, dtype=torch.bfloat16, residual_scale=0.25,
         "wo": w(L, cfg.n_head * cfg.head_dim, D, scale=residual_scale / np.sqrt(D)),
         "w1": w(L, D, F), "w3": w(L, D, F),
         "w2": w(L, F, D, scale=residual_scale / np.sqrt(F)),
-        "attn_norm": torch.ones((L, D), dtype=dtype, device=dev),
-        "ffn_norm": torch.ones((L, D), dtype=dtype, device=dev),
+        "attn_norm": torch.ones((L, D), dtype=dtype, device=keep),
+        "ffn_norm": torch.ones((L, D), dtype=dtype, device=keep),
     }
     tied = cfg.tie_word_embeddings if tied is None else tied
     return {"embed": w(cfg.vocab_size, D, scale=1.0), "layers": layers,
-            "final_norm": torch.ones((D,), dtype=dtype, device=dev),
+            "final_norm": torch.ones((D,), dtype=dtype, device=keep),
             "lm_head": None if tied else w(D, cfg.vocab_size, scale=0.02)}
 
 

@@ -6,7 +6,8 @@ The flags and defaults are the JAX drivers', except that
 ``--attn_backend`` defaults to ``flash`` (the port runs its Hopper kernels
 only; ``jnp`` raises), ``--platform`` is accepted for parity (``--device``
 picks the device) and ``--device`` is added (``cuda`` unless the caller
-asks for ``cpu``, which runs the plain kernel versions).
+asks for ``cpu``, which runs the plain kernel versions), and so is
+``--dist_backend`` (the mesh's ``torch.distributed`` backend).
 """
 
 from __future__ import annotations
@@ -34,10 +35,7 @@ def add_common_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=123)
     p.add_argument("--printoutput", action="store_true")
     p.add_argument("--benchmark", action="store_true")
-    p.add_argument("--data_parallel", type=int, default=1,
-                   help="a device mesh is ROADMAP item A15 (> 1 raises)")
-    p.add_argument("--model_parallel", type=int, default=1,
-                   help="a device mesh is ROADMAP item A15 (> 1 raises)")
+    add_mesh_args(p)
     p.add_argument("--compile", action="store_true",
                    help="accepted for CLI parity; the port runs eagerly")
     p.add_argument("--temperature", type=float, default=0.0,
@@ -59,47 +57,66 @@ def add_common_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
                    help="quantized-cache scale dtype")
     p.add_argument("--prefill_chunk", type=int, default=0,
                    help="target prefill chunk size (0 = EngineConfig.chunk_size)")
-    p.add_argument("--force_mesh", action="store_true",
-                   help="a device mesh is ROADMAP item A15 (raises)")
     p.add_argument("--platform", choices=["default", "cpu"], default="default",
                    help="accepted for CLI parity; --device picks the device")
     p.add_argument("--device", default="cuda")
     return p
 
 
+def add_mesh_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    """The mesh flags (``parallel/``): one process a rank, spawned by the
+    driver (``parallel.multihost.run_driver``) unless it runs under
+    torchrun already."""
+    p.add_argument("--data_parallel", type=int, default=1,
+                   help="mesh data axis: the batch (serving: the slots and pages) split over "
+                        "this many ranks")
+    p.add_argument("--model_parallel", type=int, default=1,
+                   help="mesh model axis: tensor parallelism over this many ranks")
+    p.add_argument("--force_mesh", action="store_true",
+                   help="build the mesh even at data * model == 1 (one rank in this "
+                        "process): runs the mesh code paths and their collectives")
+    p.add_argument("--dist_backend", choices=["nccl", "gloo"], default=None,
+                   help="torch.distributed backend (default: nccl on cuda, gloo on cpu); gloo "
+                        "lets several ranks share one card, which NCCL refuses")
+    return p
+
+
 def not_ported(args):
     """Why the port cannot run ``args`` yet, or None."""
-    if args.data_parallel * args.model_parallel > 1 or args.force_mesh:
-        return "a device mesh is ROADMAP item A15"
     if args.attn_backend != "flash":
         return "--attn_backend jnp: the port runs its Hopper kernels only"
     return None
 
 
-def load_params_and_config(model: str, device):
+def load_params_and_config(model: str, device, mesh=None):
     """(params, cfg) for ``--model``: a converted ``.npz`` (its config from
     the path, ``ModelConfig.from_name``; loaded with ``dtype=bfloat16``,
     which rounds a dump's scales through bf16 as the JAX drivers do; then
     ``quantize_params`` when ``bits_from_path`` says so, which leaves the
     dump's quantized leaves as they are), or a config name with
-    ``bench.make_params``'s synthetic weights."""
+    ``bench.make_params``'s synthetic weights (drawn on ``device``).  Under
+    a ``mesh`` that splits the model the whole tree is kept in host memory:
+    each rank's engine copies its shards to the device, which never holds
+    the whole model."""
     import torch
 
     from magicdec_tpu_torch import quantization as Q
     from magicdec_tpu_torch.bench import make_params
     from magicdec_tpu_torch.config import ModelConfig
+    from magicdec_tpu_torch.parallel.sharding import model_axes_of
 
+    store = "cpu" if mesh is not None and mesh.size(model_axes_of(mesh)) > 1 else None
     if str(model).endswith(".npz"):
         from magicdec_tpu_torch.utils.checkpoint import load_converted
 
         cfg = ModelConfig.from_name(str(model))
-        params = load_converted(str(model), dtype=torch.bfloat16, device=device)
+        params = load_converted(str(model), dtype=torch.bfloat16, device=store or device)
         bits = Q.bits_from_path(str(model))
         if bits:
             params = Q.quantize_params(params, bits=bits)
         return params, cfg
     cfg = ModelConfig.from_name(model)
-    return make_params(cfg, device=device), cfg
+    return make_params(cfg, device=device, store=store), cfg
 
 
 def _tokenizer(name):

@@ -35,7 +35,9 @@ class ModelConfig:
     dim: int = 4096
     intermediate_size: Optional[int] = None
     n_kv_head: int = -1  # reference calls this n_local_heads
-    head_dim: int = 64
+    head_dim: int = 0    # 0: dim // n_head; kept by dataclasses.replace, so a
+                         # tensor-parallel shard's config (its local head
+                         # counts, parallel/sharding.py) keeps the model's
     rope_base: float = 10000.0
     norm_eps: float = 1e-5
     rope_scaling_factor: float = 1.0
@@ -61,7 +63,8 @@ class ModelConfig:
             hidden_dim = 4 * self.dim
             n_hidden = int(2 * hidden_dim / 3)
             object.__setattr__(self, "intermediate_size", find_multiple(n_hidden, 256))
-        object.__setattr__(self, "head_dim", self.dim // self.n_head)
+        if not self.head_dim:
+            object.__setattr__(self, "head_dim", self.dim // self.n_head)
 
     @property
     def gqa_groups(self) -> int:

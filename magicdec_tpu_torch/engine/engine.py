@@ -61,6 +61,16 @@ streamingllm, the target's then the draft's sink+window chunks; snapkv,
 draft first (its temporary full cache over the prefix before the window,
 the window chunk collecting its queries, the compression layer by layer,
 the temporary cache freed), then the target's prefill.
+
+Under a mesh (``mesh=``, ``parallel/sharding.py``; one process a rank) an
+engine holds its rank's shards: the weights padded to the model axis
+(``pad_heads_for_tp``), checked (``validate_mesh``), then split
+(``shard_params``; the draft_quant copy quantized from the whole weights,
+then split); a standalone draft over its own axes (``mi`` of a sub-mesh).
+``encode`` / ``encode_baseline`` take the whole batch and keep this data
+rank's rows; the fixed batch's stop rule is global over the data ranks,
+and ``generate`` / ``generate_baseline`` gather the outputs over them.
+Target passes keep ``decode_rows``: the port's cuBLAS choice depends on M.
 """
 
 from __future__ import annotations
@@ -153,8 +163,9 @@ class SpecEngine:
     ALLOWED_MODES = ("streamingllm", "snapkv")
 
     def __init__(self, params, cfg: ModelConfig, ecfg: EngineConfig,
-                 device="cuda", *, draft=None):
-        self.device = resolve_device(device)
+                 device="cuda", *, draft=None, mesh=None):
+        self.mesh = mesh
+        self.device = resolve_device(device if mesh is None else mesh.device)
         if ecfg.mode not in self.ALLOWED_MODES:
             raise ValueError(f"mode must be one of {self.ALLOWED_MODES}, got {ecfg.mode!r}")
         if (ecfg.mode == "streamingllm"
@@ -180,24 +191,91 @@ class SpecEngine:
                 f"draft_quant on quantized weights: {whose} (a quantized copy of a quantized "
                 "tree is undefined, as in the JAX package's bench); build the engine with "
                 "draft_quant=False")
-        self.params = _to_device(M.fuse_exec_params(params, cfg), self.device)
         # the draft's weights: the target's, or a standalone draft's; under
         # draft_quant an int8 / int4 copy quantized once on the device,
         # sharing embed, norms and (draft_quant_head=False) the bf16 head with
         # the weights it copies
-        self.draft_params, self.draft_cfg = self.params, cfg
-        if draft is not None:
-            self.draft_cfg = draft[1]
-            self.draft_params = _to_device(M.fuse_exec_params(draft[0], draft[1]), self.device)
-        if wbits:
-            self.draft_params = Q.quantize_params(
-                self.draft_params, bits=wbits, include_head=ecfg.draft_quant_head,
-                materialize_tied_head=ecfg.draft_quant_head)
+        qkw = dict(bits=wbits, include_head=ecfg.draft_quant_head,
+                   materialize_tied_head=ecfg.draft_quant_head)
+        self._data_group = None
+        if mesh is not None:
+            cfg = self._init_mesh(params, cfg, draft, qkw)
+        else:
+            self.params = _to_device(M.fuse_exec_params(params, cfg), self.device)
+            self.draft_params, self.draft_cfg = self.params, cfg
+            if draft is not None:
+                self.draft_cfg = draft[1]
+                self.draft_params = _to_device(M.fuse_exec_params(draft[0], draft[1]),
+                                               self.device)
+            if wbits:
+                self.draft_params = Q.quantize_params(self.draft_params, **qkw)
         self.cfg = cfg
         self.ecfg = ecfg
         self._draft_cap = _round_up(ecfg.draft_budget + ecfg.max_gen + ecfg.gamma + 2, 128)
         self._out_cap = ecfg.max_gen + ecfg.gamma + 2
         self._eot = torch.tensor(ecfg.eot_ids, dtype=torch.int32, device=self.device)
+
+    def _init_mesh(self, params, cfg, draft, qkw):
+        """This rank's shards (the JAX package's mesh engine: pad, then
+        validate, then shard): the target over the mesh's model axes, a
+        standalone draft over its draft axes (``mi`` of a sub-mesh, else the
+        target's); the draft_quant copy quantized from the whole weights,
+        then sharded (``sharding.quantize_sharded``).  Sets the params, the
+        draft's and the data group; returns the target's local config."""
+        from magicdec_tpu_torch.ops.shard import check_int4_local_heads
+        from magicdec_tpu_torch.parallel import sharding as S
+
+        mesh, dev = self.mesh, self.device
+
+        def shard(p, c, axes, copy_draft):
+            # the whole tree may lie in host memory (common.load_params_and_config):
+            # only shards and one whole leaf at a time reach the device
+            full, c = S.pad_heads_for_tp(S.unfuse_params(p, c), c, mesh, axes)
+            S.validate_mesh(c, mesh, axes)
+            local = _to_device(S.shard_params(full, c, mesh, axes), dev)
+            dq = (S.quantize_sharded(full, c, mesh, axes, local=local, device=dev, **qkw)
+                  if copy_draft and qkw["bits"] else None)
+            del full
+            lcfg = S.local_config(c, mesh.size(axes))
+            # both trees' layer dicts are this engine's own (_to_device and
+            # quantize_sharded build new ones): fusing consumes their parts
+            # group by group, so no layer is held unfused and fused at once
+            fuse = lambda t: None if t is None else M.fuse_exec_params(t, lcfg, consume=True)
+            dq = fuse(dq)
+            return fuse(local), dq, c, lcfg
+
+        axes = S.model_axes_of(mesh)
+        self.params, dq, full_cfg, cfg = shard(params, cfg, axes, draft is None)
+        if self._kv_bits == 4:
+            check_int4_local_heads(full_cfg, mesh.size(axes))
+        if draft is None:
+            self.draft_params, self.draft_cfg = dq or self.params, cfg
+        else:
+            dlocal, dq, _, self.draft_cfg = shard(draft[0], draft[1], S.draft_axes_of(mesh), True)
+            self.draft_params = dq or dlocal
+        self._data_group = mesh.group(("data",))
+        return cfg
+
+    def _data_rows(self, B: int):
+        """[lo, hi) of a [B, ...] batch this rank runs (its data coordinate's)."""
+        return (0, B) if self.mesh is None else self.mesh.data_rows(B)
+
+    def _gather_data(self, t: torch.Tensor) -> torch.Tensor:
+        """[B_local, ...] per data rank -> the whole batch [B, ...] on every rank."""
+        if self._data_group is None:
+            return t
+        from magicdec_tpu_torch.parallel.collectives import gather_rows
+
+        return gather_rows(t, self.mesh.coords["data"], self.mesh.data, self._data_group)
+
+    def _any_data(self, flag: torch.Tensor) -> torch.Tensor:
+        """A batch-global bool over the data ranks' local ones (the fixed
+        batch's stop rule is global)."""
+        if self._data_group is None:
+            return flag
+        from magicdec_tpu_torch.parallel.collectives import all_reduce
+
+        return all_reduce(flag.to(torch.int32), "max", self._data_group).bool()
 
     # -- allocation -------------------------------------------------------
 
@@ -335,13 +413,27 @@ class SpecEngine:
             db_update=torch.ones((B,), dtype=torch.int32, device=self.device),
             rng=rng, salt=salt)
 
+    def _local_batch(self, input_ids, salt):
+        """The [B, prefix] prompts as tokens on the device and the salts
+        (default arange(B) under sampling), each cut to this rank's data
+        rows."""
+        tokens = self._tokens(input_ids)
+        B = tokens.shape[0]
+        if salt is None and self.ecfg.temperature > 0:
+            salt = torch.arange(B, dtype=torch.int32)
+        lo, hi = self._data_rows(B)
+        return tokens[lo:hi], None if salt is None else torch.as_tensor(salt)[lo:hi]
+
     def encode(self, input_ids, rng=None, salt=None) -> SpecState:
         """Prefill both caches from [B, prefix] prompts; returns ready state.
         ``rng`` / ``salt`` apply under sampling only: the stream key and the
         per-request noise-stream salts [B] (default arange(B); serving
-        passes request ids)."""
+        passes request ids).  Under a data axis the state is this rank's
+        rows of the batch."""
+        return self._encode_tokens(*self._local_batch(input_ids, salt), rng)
+
+    def _encode_tokens(self, tokens, salt=None, rng=None) -> SpecState:
         e = self.ecfg
-        tokens = self._tokens(input_ids)
         B, prefix = tokens.shape
         self._check_capacity(prefix)
         rng, salt = self._sampling_args(B, rng, salt)
@@ -431,8 +523,9 @@ class SpecEngine:
         while steps < max_steps and not bool(state.done):
             state = self._window()(state)
             steps += 1
-        stats = {"output": state.output, "num_committed": state.num_committed,
-                 "gen_tokens": state.num_committed - 1,  # excludes the prefill token
+        committed = self._gather_data(state.num_committed)
+        stats = {"output": self._gather_data(state.output), "num_committed": committed,
+                 "gen_tokens": committed - 1,  # excludes the prefill token
                  "target_steps": state.target_steps}
         return state, stats
 
@@ -456,8 +549,8 @@ class SpecEngine:
         output = spec_ops.commit_tokens(st.output, st.num_committed, tokens_buffer, accept)
         committed = st.num_committed + accept
         if masks is None:
-            done = (eot_accepted.any() | spec_ops.is_eot(bonus, self._eot).any()
-                    | (committed.max() >= e.max_gen))
+            done = self._any_data(eot_accepted.any() | spec_ops.is_eot(bonus, self._eot).any()
+                                  | (committed.max() >= e.max_gen))
             output = torch.where(done, spec_ops.write_at(output, committed, bonus), output)
             committed = committed + done.to(torch.int32)
         else:
@@ -561,7 +654,7 @@ class SpecEngine:
     def encode_baseline(self, input_ids, rng=None, salt=None) -> BaselineState:
         """The target's prefill of [B, prefix] prompts and token0 (``rng`` /
         ``salt`` as in ``encode``)."""
-        tokens = self._tokens(input_ids)
+        tokens, salt = self._local_batch(input_ids, salt)
         B, prefix = tokens.shape
         self._check_capacity(prefix)
         rng, salt = self._sampling_args(B, rng, salt)
@@ -590,7 +683,8 @@ class SpecEngine:
             lens, n = lens + 1, n + 1
         state = dataclasses.replace(state, lens=lens, token0=tok, output=out,
                                     num_committed=n)
-        return state, {"output": out, "num_committed": n, "gen_tokens": n - 1}
+        n = self._gather_data(n)
+        return state, {"output": self._gather_data(out), "num_committed": n, "gen_tokens": n - 1}
 
 
 class LongSpecEngine(SpecEngine):
@@ -610,23 +704,22 @@ class LongSpecEngine(SpecEngine):
     ALLOWED_MODES = ("streamingllm", "snapkv", "full")
 
     def __init__(self, params, cfg: ModelConfig, draft_params, draft_cfg: ModelConfig,
-                 ecfg: EngineConfig, device="cuda"):
+                 ecfg: EngineConfig, device="cuda", mesh=None):
         if draft_cfg.vocab_size != cfg.vocab_size:
             raise ValueError(f"the draft's vocabulary ({draft_cfg.vocab_size}) differs from the "
                              f"target's ({cfg.vocab_size})")
-        super().__init__(params, cfg, ecfg, device, draft=(draft_params, draft_cfg))
+        super().__init__(params, cfg, ecfg, device, draft=(draft_params, draft_cfg), mesh=mesh)
         if ecfg.mode == "full":
             self._draft_cap = ecfg.max_seq_len
 
     def _window(self):
         return self._window_streaming
 
-    def encode(self, input_ids, rng=None, salt=None) -> SpecState:
+    def _encode_tokens(self, tokens, salt=None, rng=None) -> SpecState:
         """Prefill both models' caches from [B, prefix] prompts (the JAX
         package's split encode, mode by mode); returns the ready state
         (``rng`` / ``salt`` as in ``SpecEngine.encode``)."""
         e = self.ecfg
-        tokens = self._tokens(input_ids)
         B, prefix = tokens.shape
         self._check_capacity(prefix)
         rng, salt = self._sampling_args(B, rng, salt)
@@ -679,4 +772,4 @@ def _has_quantized_layers(params) -> bool:
 def _to_device(params, device):
     if isinstance(params, dict):
         return {k: _to_device(v, device) for k, v in params.items()}
-    return params if params is None else params.to(device)
+    return params.to(device) if hasattr(params, "to") else params  # a ModelShard stays

@@ -24,8 +24,22 @@ slot, as in the JAX package).  Greedy, or sampled under
 ``EngineConfig.temperature`` > 0: one stream key for the batch
 (``serve(..., rng=...)``) and each request's id as its noise-stream salt,
 spliced into its slot at admission, so a request samples the tokens it
-would sample alone with that salt.  A data axis of page groups is ROADMAP
-item A15.
+would sample alone with that salt.
+
+Under a mesh (``mesh=``, ``parallel/sharding.py``) the B slots split over
+the data axis: data rank d holds slots [d * B/data, (d + 1) * B/data) and
+runs the windows and admissions of those alone (tensor-parallel over its
+model group).  Every rank runs the same host loop over every slot, so the
+schedulers and allocators are replicated and decide alike; one collective
+per sync (``_sync``) shares every slot's flags, committed count and
+output.  ``PagedServingEngine`` splits its pool too (the JAX package's
+page groups): each data group owns B/data scratch pages and total_pages /
+data pages, its table rows hold group-local page ids
+(``ops.shard.group_table_row``), and it has its own ``Scheduler`` and
+``PageAllocator``; the head request goes to the group with the most free
+pages among those with a free slot (strict FCFS), and a request must fit
+one group's pages.  ``ServingEngine`` keeps one scheduler over every
+slot, as the JAX package's.
 """
 
 from __future__ import annotations
@@ -42,6 +56,7 @@ from magicdec_tpu_torch import native
 from magicdec_tpu_torch.engine.engine import LongSpecEngine, SpecEngine
 from magicdec_tpu_torch.engine.state import ServingState, SpecState
 from magicdec_tpu_torch.ops import paged_kv as PKV
+from magicdec_tpu_torch.ops.shard import group_table_row
 
 # the per-slot carries an admission splices from the encoded wave
 _SLOT_FIELDS = ("target_lens", "draft_fill", "draft_pos", "token0", "num_committed",
@@ -74,12 +89,15 @@ class ServingEngine(SpecEngine):
 
     def init_serving(self, B: int, total_pages: Optional[int] = None,
                      rng=None) -> ServingState:
-        """An empty batch of B slots (``total_pages`` sizes the page pool of
-        ``PagedServingEngine``; contiguous slots have none).  Under sampling
-        ``rng`` is the batch's stream key; the salts come with admission."""
-        rng, _ = self._sampling_args(B, rng, None)
-        tcaches, dcaches = self._zero_caches(B)
-        return self._empty_state(tcaches, dcaches, B, rng=rng)
+        """An empty batch of B slots, this rank's B / data of them
+        (``total_pages`` sizes the page pool of ``PagedServingEngine``;
+        contiguous slots have none).  Under sampling ``rng`` is the batch's
+        stream key; the salts come with admission."""
+        lo, hi = self._data_rows(B)
+        Bl = hi - lo
+        rng, _ = self._sampling_args(Bl, rng, None)
+        tcaches, dcaches = self._zero_caches(Bl)
+        return self._empty_state(tcaches, dcaches, Bl, rng=rng)
 
     # -- admission ----------------------------------------------------------
 
@@ -91,14 +109,17 @@ class ServingEngine(SpecEngine):
         ``PagedServingEngine`` takes a fourth entry, the slot's table row
         [npr] int32: its pool pages (allocator pages offset past the scratch
         pages; unused tail entries = the slot's scratch page)."""
+        Bl = sst.active.shape[0]
+        lo = 0 if self.mesh is None else self.mesh.coords["data"] * Bl
         buckets: Dict[int, list] = {}
         for adm in admissions:
-            buckets.setdefault(len(adm[1]), []).append(adm)
+            if lo <= adm[0] < lo + Bl:  # this data rank's slots, as local ids
+                buckets.setdefault(len(adm[1]), []).append((adm[0] - lo,) + tuple(adm[1:]))
         for group in buckets.values():
             slots = torch.as_tensor([g[0] for g in group], dtype=torch.long,
                                     device=self.device)
-            stk = self.encode(np.stack([np.asarray(g[1]) for g in group]),
-                              rng=sst.spec.rng, salt=[g[2] for g in group])
+            stk = self._encode_tokens(self._tokens(np.stack([np.asarray(g[1]) for g in group])),
+                                      [g[2] for g in group], sst.spec.rng)
             sst = self._admit(sst, stk, slots, group)
         return sst
 
@@ -130,12 +151,33 @@ class ServingEngine(SpecEngine):
         gate admission (``total_pages``), as in the JAX package."""
         return 128, -(-self.ecfg.max_seq_len // 128)
 
+    def _sched_groups(self) -> int:
+        """Scheduler / allocator groups: one over every slot here (the JAX
+        package's contiguous engine); ``PagedServingEngine``'s data groups."""
+        return 1
+
     def _admission(self, slot: int, prompt, rid: int, alloc, aslot: int):
         return (slot, prompt, rid)
 
     def _drain(self, sst: ServingState, idx: torch.Tensor) -> ServingState:
         return ServingState(spec=sst.spec, active=sst.active.index_fill(0, idx, False),
                             done=sst.done.index_fill(0, idx, False))
+
+    def _sync(self, sst: ServingState, passes: torch.Tensor) -> np.ndarray:
+        """Every slot's [active, done, committed, passes, output...] as int32
+        rows [B, 4 + out_cap] on the host: this rank's slots, gathered over
+        the data ranks in one collective under a mesh.  Without a data axis
+        active and done are read first, and only [B, 2] of them returned
+        when no slot drained."""
+        spec = sst.spec
+        flags = torch.stack([sst.active.to(torch.int32), sst.done.to(torch.int32)], dim=1)
+        if self._data_group is None:
+            f = flags.cpu().numpy()
+            if not (f[:, 0] & f[:, 1]).any():
+                return f
+        rows = torch.cat([flags, torch.stack([spec.num_committed, passes], dim=1), spec.output],
+                         dim=1)
+        return self._gather_data(rows).cpu().numpy()
 
     def serve(self, prompts: List[np.ndarray], B: int, windows_per_sync: int = 4,
               total_pages: Optional[int] = None, rng=None) -> List[np.ndarray]:
@@ -155,60 +197,70 @@ class ServingEngine(SpecEngine):
         ps, cap = self._serve_pages()
         reserve = e.max_gen + e.gamma + 2
         n_pages = B * cap if total_pages is None else total_pages
+        G = self._sched_groups()
         worst = -(-(max(len(p) for p in prompts) + reserve) // ps)
-        if n_pages < worst:
-            raise ValueError(f"total_pages={n_pages} cannot hold the longest request "
-                             f"({worst} pages)")
+        if n_pages // G < worst:
+            raise ValueError(f"total_pages={n_pages} over {G} group(s) cannot hold the longest "
+                             f"request ({worst} pages a group needed)")
         sst = self.init_serving(B, total_pages=n_pages, rng=rng)
-        sched = native.Scheduler(B)
-        alloc = native.PageAllocator(n_pages, ps, B, cap)
-        slot_pages: Dict[int, int] = {}  # batch slot -> allocator slot
+        Bs = B // G  # slots a scheduler group
+        scheds = [native.Scheduler(Bs) for _ in range(G)]
+        allocs = [native.PageAllocator(n_pages // G, ps, Bs, cap) for _ in range(G)]
+        slot_pages: Dict[int, tuple] = {}  # batch slot -> (group, allocator slot)
         pending = deque(range(len(prompts)))
         t0 = time.perf_counter_ns()
 
         def now_us():
             return (time.perf_counter_ns() - t0) // 1000
 
-        for rid in range(len(prompts)):
-            sched.submit(rid, now_us())
+        # every request arrives now; it is submitted to its group's scheduler
+        # at admission with this stamp, so queue times measure real waiting
+        arrivals = {rid: now_us() for rid in range(len(prompts))}
         results: Dict[int, np.ndarray] = {}
         passes_of: Dict[int, int] = {}
         # target passes each slot's request was live for (device; read at drain)
-        passes = torch.zeros((B,), dtype=torch.int32, device=self.device)
-        count = dict(waves=0, admitted=0, admit_s=0.0, min_free=alloc.free_pages(),
-                     windows=0, page_blocked=0)
+        passes = torch.zeros_like(sst.spec.num_committed)
+        count = dict(waves=0, admitted=0, admit_s=0.0, windows=0, page_blocked=0,
+                     min_free=sum(a.free_pages() for a in allocs))
+        lo = self._data_rows(B)[0]
 
         def refill(sst):
-            active, done = torch.stack([sst.active, sst.done]).cpu().numpy()
-            drained = [s for s in range(B) if active[s] and done[s]]
-            if drained:
-                out, committed, npass = (t.cpu().numpy() for t in
-                                         (sst.spec.output, sst.spec.num_committed, passes))
-                for slot in drained:
-                    rid = sched.complete(slot, now_us())
-                    alloc.release(slot_pages.pop(slot))
-                    results[rid] = out[slot, :int(committed[slot])]
-                    passes_of[rid] = int(npass[slot])
-                idx = torch.as_tensor(drained, dtype=torch.long, device=self.device)
+            rows = self._sync(sst, passes)
+            drained = [s for s in range(B) if rows[s, 0] and rows[s, 1]]
+            mine = []
+            for slot in drained:
+                g, aslot = slot_pages.pop(slot)
+                rid = scheds[g].complete(slot % Bs, now_us())
+                allocs[g].release(aslot)
+                results[rid] = rows[slot, 4:4 + int(rows[slot, 2])]
+                passes_of[rid] = int(rows[slot, 3])
+                if lo <= slot < lo + passes.shape[0]:
+                    mine.append(slot - lo)
+            if mine:
+                idx = torch.as_tensor(mine, dtype=torch.long, device=self.device)
                 passes.index_fill_(0, idx, 0)
                 sst = self._drain(sst, idx)
             wave = []
             while pending:
                 need_len = len(prompts[pending[0]]) + reserve
-                if alloc.free_pages() < -(-need_len // ps):
+                need = -(-need_len // ps)
+                free_slot = [g for g in range(G) if scheds[g].counts()[1] < Bs]
+                cands = [g for g in free_slot if allocs[g].free_pages() >= need]
+                if not cands:
                     # FCFS backpressure: the head of the line waits for pages
-                    count["page_blocked"] += sched.counts()[1] < B
+                    count["page_blocked"] += bool(free_slot)
                     break
-                got = sched.assign(now_us(), max_n=1)
-                if not got:
-                    break  # no free slot
-                rid, slot = got[0]
-                assert rid == pending.popleft()
-                aslot = alloc.admit(need_len)
+                g = max(cands, key=lambda g: allocs[g].free_pages())
+                rid = pending.popleft()
+                scheds[g].submit(rid, arrivals[rid])
+                got = scheds[g].assign(now_us(), max_n=1)
+                assert got and got[0][0] == rid
+                slot = g * Bs + got[0][1]
+                aslot = allocs[g].admit(need_len)
                 assert aslot >= 0
-                slot_pages[slot] = aslot
-                wave.append(self._admission(slot, prompts[rid], rid, alloc, aslot))
-            count["min_free"] = min(count["min_free"], alloc.free_pages())
+                slot_pages[slot] = (g, aslot)
+                wave.append(self._admission(slot, prompts[rid], rid, allocs[g], aslot))
+            count["min_free"] = min(count["min_free"], sum(a.free_pages() for a in allocs))
             if wave:
                 t = time.perf_counter()
                 sst = self.admit_many(sst, wave)
@@ -225,11 +277,13 @@ class ServingEngine(SpecEngine):
                 sst = ServingState(spec=spec, active=sst.active, done=done)
             count["windows"] += windows_per_sync
             sst = refill(sst)
-        mean_q_us, mean_s_us = sched.stats()
+        qs = [s.stats() for s in scheds]
+        ns = [s.counts()[2] for s in scheds]
+        wmean = lambda i: sum(q[i] * n for q, n in zip(qs, ns)) / max(sum(ns), 1)
         gen = sum(len(results[i]) - 1 for i in results)
         self.last_serve_stats = {
-            "mean_queue_ms": mean_q_us / 1e3, "mean_service_ms": mean_s_us / 1e3,
-            "served": sched.counts()[2], "admission_waves": count["waves"],
+            "mean_queue_ms": wmean(0) / 1e3, "mean_service_ms": wmean(1) / 1e3,
+            "served": sum(ns), "admission_waves": count["waves"],
             "mean_admissions_per_wave": count["admitted"] / max(count["waves"], 1),
             "admission_time_s": count["admit_s"], "total_pages": n_pages,
             "min_free_pages": count["min_free"], "windows": count["windows"],
@@ -257,8 +311,9 @@ class PagedServingEngine(ServingEngine):
       append per forward (B13).
 
     The draft's budget-sized caches stay contiguous per slot (SnapKV's
-    verify appends its draft half there by K3).  One page
-    group only (the JAX package's data axis is ROADMAP item A15).
+    verify appends its draft half there by K3).  Under a data axis each
+    data rank's pool is its group's: B/data scratch pages, then
+    total_pages / data pages, addressed by group-local ids.
     """
 
     @property
@@ -281,10 +336,16 @@ class PagedServingEngine(ServingEngine):
         """B empty slots over a pool of ``total_pages`` pages (default: the
         full B x npr capacity) plus the B scratch pages (``rng`` as in
         ``ServingEngine.init_serving``)."""
-        rng, _ = self._sampling_args(B, rng, None)
         e, c = self.ecfg, self.cfg
         ps, npr = e.page_size, self._npr
-        P = (B * npr if total_pages is None else total_pages) + B
+        data = 1 if self.mesh is None else self.mesh.data
+        total = B * npr if total_pages is None else total_pages
+        if B % data or total % data:
+            raise ValueError(f"paged serving over data={data}: slots B={B} and pool pages "
+                             f"{total} must both divide by the data axis")
+        B = B // data  # this rank's group: its slots, scratch pages and pages
+        P = total // data + B
+        rng, _ = self._sampling_args(B, rng, None)
         bits = self._kv_bits
         lane = c.n_kv_head * c.head_dim // (2 if bits == 4 else 1)
         dt = torch.int8 if bits else e.cache_dtype
@@ -332,12 +393,14 @@ class PagedServingEngine(ServingEngine):
     def _serve_pages(self):
         return self.ecfg.page_size, self._npr
 
+    def _sched_groups(self) -> int:
+        return 1 if self.mesh is None else self.mesh.data
+
     def _admission(self, slot: int, prompt, rid: int, alloc, aslot: int):
-        B = alloc.shape[0]
-        row = alloc.tables()[0][aslot].copy()
-        row[row >= 0] += B       # pool pages 0..B-1 are the scratch pages
-        row[row < 0] = slot      # the unused tail -> the slot's scratch page (never read)
-        return (slot, prompt, rid, row.astype(np.int32))
+        # a group's pool pages 0..Bl-1 are its slots' scratch pages; the
+        # unused tail points at the slot's own (never read)
+        Bl = alloc.shape[0]
+        return (slot, prompt, rid, group_table_row(alloc.tables()[0][aslot], slot % Bl, Bl))
 
     def _drain(self, sst: ServingState, idx: torch.Tensor) -> ServingState:
         """Drained slots point their whole table row at their scratch page

@@ -14,9 +14,12 @@ SnapKV-compressed cache (a SnapKV prefix must be a multiple of 128 plus the
 defaults and JSON line as the JAX benchmark, with ``_torch`` appended to the
 metric, except that ``--attn_backend`` defaults to ``flash`` (the port runs
 its Hopper kernels only; ``jnp`` raises), ``--device`` picks the device
-(``cpu`` runs the plain kernel versions), and the draft's sub-mesh
-(``--model_parallel_outer`` / ``--model_parallel_inner``) and every other
-mesh raise, naming ROADMAP item A15.  Weights: for two config names, the
+(``cpu`` runs the plain kernel versions) and ``--dist_backend`` picks the
+mesh's backend.  The mesh flags run it over ``parallel/``'s ranks (a
+process a rank, spawned here): ``--data_parallel`` x ``--model_parallel``,
+or the draft's sub-mesh ``--model_parallel_outer`` x
+``--model_parallel_inner``, where the target splits over both and the
+draft over the inner axis alone.  Weights: for two config names, the
 coupled synthetic pair (``bench.make_longspec_params``: ``--quantize``
 quantizes the target's stack and head as they are drawn,
 ``--target_residual`` / ``--draft_residual`` set its residual scales); a
@@ -43,7 +46,7 @@ import json
 import sys
 import time
 
-from magicdec_tpu_torch import resolve_device
+from magicdec_tpu_torch import common, resolve_device
 
 
 def parse_args(argv=None):
@@ -60,8 +63,6 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=123)
     p.add_argument("--printoutput", action="store_true")
     p.add_argument("--benchmark", action="store_true")
-    p.add_argument("--data_parallel", type=int, default=1)
-    p.add_argument("--model_parallel", type=int, default=1)
     p.add_argument("--compile", action="store_true",
                    help="accepted for CLI parity; the port runs eagerly")
     p.add_argument("--temperature", type=float, default=0.0)
@@ -76,7 +77,6 @@ def parse_args(argv=None):
     p.add_argument("--kv_scale", default="f32", choices=["f32", "bf16"])
     p.add_argument("--prefill_chunk", type=int, default=0,
                    help="prefill chunk of both models (0 = the 128-token eviction chunk)")
-    p.add_argument("--force_mesh", action="store_true")
     p.add_argument("--platform", choices=["default", "cpu"], default="default",
                    help="accepted for CLI parity; --device picks the device")
     p.add_argument("--draft_model", type=str, default="llama-3.2-1b")
@@ -100,15 +100,11 @@ def parse_args(argv=None):
     p.add_argument("--draft_residual", type=float, default=None)
     p.add_argument("--quant_backend", default="pallas", choices=["jnp", "pallas"])
     p.add_argument("--device", default="cuda")
+    common.add_mesh_args(p)
     return p.parse_args(argv)
 
 
 def _not_ported(args):
-    if args.model_parallel_outer or args.model_parallel_inner:
-        return ("the draft's sub-mesh (--model_parallel_outer / --model_parallel_inner) is "
-                "ROADMAP item A15")
-    if args.data_parallel * args.model_parallel > 1 or args.force_mesh:
-        return "a device mesh is ROADMAP item A15"
     if args.attn_backend != "flash":
         return "--attn_backend jnp: the port runs its Hopper kernels only"
     if args.quant_backend != "pallas":
@@ -168,7 +164,10 @@ def setup(args):
     from magicdec_tpu_torch.engine.engine import EngineConfig, LongSpecEngine
     from magicdec_tpu_torch.utils.seeding import setup_seed
 
-    dev = resolve_device(args.device)
+    from magicdec_tpu_torch.parallel.multihost import build_mesh
+
+    mesh = build_mesh(args)
+    dev = resolve_device(args.device) if mesh is None else mesh.device
     setup_seed(args.seed)
     params, cfg, dparams, dcfg = load_pair(args, dev)
     mode, budget = draft_mode(args)
@@ -179,7 +178,7 @@ def setup(args):
         kv_scale_dtype=torch.bfloat16 if args.kv_scale == "bf16" else torch.float32,
         draft_quant=args.draft_quant or False, draft_quant_head=args.draft_head == "quant",
         temperature=args.temperature, top_p=args.top_p)
-    engine = LongSpecEngine(params, cfg, dparams, dcfg, ecfg, device=dev)
+    engine = LongSpecEngine(params, cfg, dparams, dcfg, ecfg, device=dev, mesh=mesh)
     # the engine holds its own (fused, quantized) copies; these go
     del params, dparams
     data = load_dataset(args, min(cfg.vocab_size, dcfg.vocab_size))
@@ -279,7 +278,9 @@ def run(args):
 
 
 def main(argv=None):
-    out = run(parse_args(argv))
+    from magicdec_tpu_torch.parallel.multihost import run_driver
+
+    out = run_driver("magicdec_tpu_torch.longspec_benchmark", parse_args(argv))
     if out["result"] is not None:
         print(json.dumps(out["result"]))
     return out

@@ -35,6 +35,17 @@ embedding ([D, V] int8, ``quantization.quantize_embed``) is gathered a
 column a token and serves a tied head through B6.  Every target pass
 (``forward_target``, and SnapKV's window chunk and dual-append verify)
 runs one layer loop, ``_target_layers``.
+
+Tensor parallelism (``parallel/sharding.py``): a rank's params hold its
+heads' columns of wq / wk / wv (fused, the concatenation of its local
+columns), w1 / w3's columns, wo / w2's rows and the lm_head's vocab
+columns, and their ``"shard"`` entry (``ops.shard.ModelShard``); ``cfg``
+holds the local head counts.  wo's and w2's products are then partial
+sums, added over the model group before the residual, so B5 (which fuses
+across that sum) and the grid-barrier FFN kernels (B9, B15's
+``dense_mlp``) are not taken; the head's argmax runs over the vocab split
+by two all-reduces and its logits row (sampling, ``head="logits"``) is
+gathered whole.  Rows stay padded to ``decode_rows``.
 """
 
 from __future__ import annotations
@@ -113,21 +124,30 @@ def _qkv(x, wl, cfg: ModelConfig, B: int, T: int):
             v.reshape(B, T, cfg.n_kv_head, hd))
 
 
-def _mlp(x, wl, cfg: ModelConfig, residual=None):
+def _mlp(x, wl, cfg: ModelConfig, residual=None, tp=None, fused: bool = True):
     """rms_norm -> silu-gated MLP [+ residual].  An int8 w13 takes the norm
     and the gate into its dot and w2 the residual (B4 where routed); a bf16
     w13 on a target decode or verify pass takes B15 where routed
-    (``quantization.dense_mlp``, else ``dense_matmul`` pieces)."""
+    (``quantization.dense_mlp``, else ``dense_matmul`` pieces).  ``tp``
+    (``ops.shard.ModelShard``): w13's columns and w2's rows are this rank's,
+    so w2's product is a partial sum, added over the model group before the
+    residual; the pieces run unfused (``fused=False``: B9 and B15's
+    ``dense_mlp`` are grid-barrier kernels over the whole block), as the
+    JAX package's mesh engines fuse nothing."""
+    if tp is not None:
+        y = tp.all_reduce(_mlp(x, wl, cfg, fused=False))
+        return y if residual is None else residual + y
     norm = (wl["ffn_norm"], cfg.norm_eps)
     if "w13" in wl and Q.is_quantized(wl["w13"]):
-        y = Q.quant_mlp(x, wl["w13"], wl["w2"], norm, residual=residual)
+        y = Q.quant_mlp(x, wl["w13"], wl["w2"], norm, residual=residual) if fused else None
         if y is not None:
             return y
         gated = Q.quant_matmul(x, wl["w13"], norm=norm, gate=True)
         return Q.quant_matmul(gated, wl["w2"], residual=residual)
     if "w13" in wl:
         hint = cfg.decode_rows
-        y = Q.dense_mlp(x, wl["w13"], wl["w2"], norm, residual=residual, rows_hint=hint)
+        y = (Q.dense_mlp(x, wl["w13"], wl["w2"], norm, residual=residual, rows_hint=hint)
+             if fused else None)
         if y is not None:
             return y
         gu = Q.dense_matmul(x, wl["w13"], norm=norm, rows_hint=hint)
@@ -139,32 +159,40 @@ def _mlp(x, wl, cfg: ModelConfig, residual=None):
     return y if residual is None else residual + y
 
 
-def _layer_tail(x, out, wl, cfg: ModelConfig, *, mega: bool = False):
+def _layer_tail(x, out, wl, cfg: ModelConfig, *, mega: bool = False, tp=None):
     """x [R, D] + out @ wo, then the FFN block with its residual; out
     [B, T, Hq, hd] is the attention output of x's first B*T rows, padded
     with zero rows to R.  An int8 wo adds x in its dot's epilogue.  ``mega``
     (draft decode passes only, as in the JAX package): an int8 layer's
-    whole tail as one B5 call where it routes."""
+    whole tail as one B5 call where it routes.  ``tp``: wo's rows are this
+    rank's heads, so its product is summed over the model group before the
+    residual is added (and B5, which fuses across that sum, is not taken)."""
     o = pad_rows(out.reshape(-1, cfg.n_head * cfg.head_dim), x.shape[0])
-    if mega and Q.is_quantized(wl["wo"]) and "w13" in wl:
+    if mega and tp is None and Q.is_quantized(wl["wo"]) and "w13" in wl:
         y = Q.quant_layer_tail(o, x, wl["wo"], wl["w13"], wl["w2"],
                                (wl["ffn_norm"], cfg.norm_eps))
         if y is not None:
             return y
+    res = x if tp is None else None
     if Q.is_quantized(wl["wo"]):
-        h = Q.quant_matmul(o, wl["wo"], residual=x)
+        h = Q.quant_matmul(o, wl["wo"], residual=res)
     else:
-        h = Q.dense_matmul(o, wl["wo"], residual=x, rows_hint=cfg.decode_rows)
-    return _mlp(h, wl, cfg, residual=h)
+        h = Q.dense_matmul(o, wl["wo"], residual=res, rows_hint=cfg.decode_rows)
+    if tp is not None:
+        h = x + tp.all_reduce(h)
+    return _mlp(h, wl, cfg, residual=h, tp=tp)
 
 
-def fuse_exec_params(params: Params, cfg: ModelConfig) -> Params:
+def fuse_exec_params(params: Params, cfg: ModelConfig, *, consume: bool = False) -> Params:
     """wq|wk|wv -> wqkv and w1|w3 -> w13, concatenated on the output axis:
     one QKV dot and one gate/up dot per layer.  Bit-identical (each output
     column contracts independently); quantized weights concatenate their
     data and their scales ([..., G, Out]: the groups tile the shared
-    contraction axis) and must share bits and group size.  Idempotent."""
-    L = dict(params["layers"])
+    contraction axis) and must share bits and group size.  Idempotent.
+    ``consume``: the parts are taken out of ``params["layers"]`` itself, so
+    a tree that nothing else holds (a rank's fresh shards) frees each
+    group's parts once their concatenation exists."""
+    L = params["layers"] if consume else dict(params["layers"])
     if "wqkv" in L or "w13" in L:
         return params
 
@@ -192,16 +220,24 @@ def _layer(params: Params, l: int) -> Params:
 
 def head_logits(params: Params, x_normed):
     """The lm head: ``lm_head``, else the tied embedding (a quantized table
-    is stored [D, V] already, ``quantization.quantize_embed``)."""
+    is stored [D, V] already, ``quantization.quantize_embed``).  A
+    vocab-split head (params' ``"shard"``) gives the whole row on every
+    rank."""
     if params.get("lm_head") is not None:
-        return matmul(x_normed, params["lm_head"])
+        y = matmul(x_normed, params["lm_head"])
+        tp = params.get("shard")
+        return y if tp is None else tp.full_logits(y)
     embed = params["embed"]
     return matmul(x_normed, embed if Q.is_quantized(embed) else embed.T)
 
 
 def head_argmax(params: Params, cfg: ModelConfig, x) -> torch.Tensor:
-    """Final norm + lm head + greedy argmax (lowest index on ties) -> int32."""
+    """Final norm + lm head + greedy argmax (lowest index on ties) -> int32;
+    over a vocab-split head, the two all-reduces of ``ModelShard.argmax``."""
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    tp = params.get("shard")
+    if tp is not None and params.get("lm_head") is not None:
+        return tp.argmax(matmul(x, params["lm_head"]))
     return torch.argmax(head_logits(params, x), dim=-1).to(torch.int32)
 
 
@@ -321,12 +357,13 @@ def _decode_layers(params, cfg, x, B, T, cs, attend_fn, *, mega=False):
     [L, B, T, K], and {'ks','vs'} [L, B, Hkv, T] for an int8 cache) for the
     post-loop append."""
     per_layer = []
+    tp = params.get("shard")
     for l in range(cfg.n_layer):
         wl = _layer(params, l)
         q, k, v = _attn_project(x, wl, cfg, B, T, cs, cs)
         out, rows = attend_fn(q, k, v, l)
         per_layer.append(rows)
-        x = _layer_tail(x, out, wl, cfg, mega=mega)
+        x = _layer_tail(x, out, wl, cfg, mega=mega, tp=tp)
     return x, {n: torch.stack([r[n] for r in per_layer]) for n in per_layer[0]}
 
 
@@ -481,7 +518,7 @@ def forward_streaming_draft_chunk(params: Params, cfg: ModelConfig, tokens,
         stream_update_raw(dk, dv, k, v, fill, budget=budget, sink=sink)
         k_att = apply_rope_cs(dk[:, :budget].reshape(B, budget, Hkv, hd), *cs_slot)
         out = attn_ops.attend(q, k_att.reshape(B, budget, -1), dv[:, :budget], base)
-        x = _layer_tail(x, out, wl, cfg)
+        x = _layer_tail(x, out, wl, cfg, tp=params.get("shard"))
     return x.reshape(B, C, -1), caches
 
 

@@ -56,6 +56,11 @@ def setup(args):
         raise NotImplementedError(missing)
     from magicdec_tpu_torch.utils.seeding import setup_seed
 
+    from magicdec_tpu_torch.parallel.multihost import mesh_world
+
+    if mesh_world(args):
+        print("[ppl] the mesh flags are accepted for parity: perplexity runs on one device, "
+              "as the JAX driver does", file=sys.stderr)
     dev = resolve_device(args.device)
     setup_seed(args.seed)
     params, cfg = common.load_params_and_config(args.model, dev)

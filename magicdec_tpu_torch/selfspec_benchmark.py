@@ -18,7 +18,11 @@ measured acceptance (``engine/autotune``).  On the card, ``--kv_quant
 --draft_quant`` runs the bench's self-spec kernels: K2q, K1q and K3q on
 the target, the draft's int8 copy on B4, B5 and B6, its cache on K1 (the
 whole-row call) and K3; without ``--draft_quant`` (the JAX driver's
-default) the draft's dots are cuBLAS on the shared bf16 weights.
+default) the draft's dots are cuBLAS on the shared bf16 weights.  The mesh
+flags run it over ``parallel/``'s ranks as ``baseline_benchmark``'s do:
+under ``--model_parallel`` each rank runs these kernels on its shard (4
+local kv heads at llama-3.1-8b over 2 ranks), the draft's wo, w2 and head
+on B6 (B5 fuses across the all-reduce and stays off).
 """
 
 from __future__ import annotations
@@ -111,7 +115,9 @@ def run(args):
 
 
 def main(argv=None):
-    return run(parse_args(argv))
+    from magicdec_tpu_torch.parallel.multihost import run_driver
+
+    return run_driver("magicdec_tpu_torch.selfspec_benchmark", parse_args(argv))
 
 
 if __name__ == "__main__":

@@ -33,7 +33,10 @@ serve of the first ``--slots`` requests (kernel build, allocator, cuBLAS
 heuristics; ``--skip_warmup``: none) precedes the timed serve; throughput
 counts committed tokens over the timed serve's wall time, admissions
 included.  Throughput and scheduler statistics go to stderr; the single
-JSON line on stdout is the result.
+JSON line on stdout is the result.  ``--data_parallel`` splits the slots
+(and a paged pool's pages) over data ranks, ``--model_parallel`` runs each
+data group tensor-parallel, ``--force_mesh`` builds a one-rank mesh
+(``parallel/``: a process a rank, spawned here; ``--dist_backend``).
 """
 
 from __future__ import annotations
@@ -46,7 +49,7 @@ import time
 import numpy as np
 
 from magicdec_tpu_torch import resolve_device
-from magicdec_tpu_torch.common import load_dataset, load_params_and_config
+from magicdec_tpu_torch.common import add_mesh_args, load_dataset, load_params_and_config
 
 
 def parse_args(argv=None):
@@ -65,8 +68,6 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=123)
     p.add_argument("--printoutput", action="store_true")
     p.add_argument("--benchmark", action="store_true")
-    p.add_argument("--data_parallel", type=int, default=1)
-    p.add_argument("--model_parallel", type=int, default=1)
     p.add_argument("--compile", action="store_true",
                    help="accepted for CLI parity; the port runs eagerly")
     p.add_argument("--temperature", type=float, default=0.0)
@@ -81,7 +82,6 @@ def parse_args(argv=None):
     p.add_argument("--prefill_chunk", type=int, default=0,
                    help="accepted for CLI parity; as in the JAX benchmark, the prefill "
                         "chunk follows --prefix_len")
-    p.add_argument("--force_mesh", action="store_true")
     p.add_argument("--platform", choices=["default", "cpu"], default="default",
                    help="accepted for CLI parity; --device picks the device")
     p.add_argument("--mode", default="streamingllm", choices=["streamingllm", "snapkv", "full"])
@@ -104,6 +104,7 @@ def parse_args(argv=None):
     p.add_argument("--device", default="cuda")
     p.add_argument("--skip_warmup", action="store_true",
                    help="no warmup serve (for a process whose kernels are built and warm)")
+    add_mesh_args(p)
     args = p.parse_args(argv)
     if args.mode == "snapkv":
         from magicdec_tpu_torch.bench import snapkv_prefix
@@ -113,8 +114,6 @@ def parse_args(argv=None):
 
 
 def _not_ported(args):
-    if args.data_parallel * args.model_parallel > 1 or args.force_mesh:
-        return "a device mesh is ROADMAP item A15"
     if args.attn_backend != "flash":
         return "--attn_backend jnp: the port runs its Hopper kernels only"
     return None
@@ -140,13 +139,16 @@ def setup(args):
                                                    ServingLongSpecEngine)
     from magicdec_tpu_torch.models.llama import fuse_exec_params
 
-    dev = resolve_device(args.device)
-    params, cfg = load_params_and_config(args.model, dev)
+    from magicdec_tpu_torch.parallel.multihost import build_mesh
+
+    mesh = build_mesh(args)
+    dev = resolve_device(args.device) if mesh is None else mesh.device
+    params, cfg = load_params_and_config(args.model, dev, mesh)
     params = fuse_exec_params(params, cfg)
     draft = None
     if args.draft_model or args.mode == "full":
         # a standalone draft, as benchmarks/serving_benchmark.py:83-86 builds it
-        draft = load_params_and_config(args.draft_model or args.model, dev)
+        draft = load_params_and_config(args.draft_model or args.model, dev, mesh)
     drafted = params if draft is None else draft[0]
     if args.draft_quant and any(Q.is_quantized(w) for w in drafted["layers"].values()):
         # the draft runs these quantized weights, as bench --quantize
@@ -167,11 +169,12 @@ def setup(args):
         temperature=args.temperature, top_p=args.top_p)
     if draft is not None:
         cls = PagedServingLongSpecEngine if args.paged else ServingLongSpecEngine
-        engine = cls(params, cfg, *draft, ecfg, device=dev)
+        engine = cls(params, cfg, *draft, ecfg, device=dev, mesh=mesh)
         del draft, drafted
     else:
         engine = (PagedServingEngine if args.paged else ServingEngine)(params, cfg, ecfg,
-                                                                       device=dev)
+                                                                       device=dev, mesh=mesh)
+    del params
     data = load_dataset(args, cfg.vocab_size)
     lens = [prefix] * args.num_requests
     if args.ragged:
@@ -233,7 +236,9 @@ def run(args):
 
 
 def main(argv=None):
-    out = run(parse_args(argv))
+    from magicdec_tpu_torch.parallel.multihost import run_driver
+
+    out = run_driver("magicdec_tpu_torch.serving_bench", parse_args(argv))
     print(json.dumps(out["result"]))
     return out
 

@@ -129,8 +129,11 @@ def test_baseline_and_selfspec_tokens_agree(tiny, capsys):
     assert set(spec["phases"]) >= {"draft_step_ms", "verify_step_ms", "window_ms_est"}
     with pytest.raises(ValueError, match="128k\\+1"):
         selfspec_benchmark.parse_args(DRIVER_ARGV + ["--draft_budget", "300"])
-    with pytest.raises(NotImplementedError, match="A15"):
-        baseline_benchmark.main(DRIVER_ARGV + ["--model_parallel", "2"])
+    # the mesh flags run: a one-rank mesh (gloo, in this process) gives the
+    # meshless tokens
+    mesh = baseline_benchmark.main(DRIVER_ARGV + ["--force_mesh"])
+    for b, m in zip(base["batches"], mesh["batches"]):
+        np.testing.assert_array_equal(m["output"], b["output"])
 
 
 def test_prefill_max_call_carried_tokens_unchanged(tiny):

@@ -168,15 +168,15 @@ def test_longspec_benchmark_runs_on_cpu(tiny_pair, capsys, extra, mode, prefix):
 
 def test_longspec_benchmark_untimed_and_not_ported(tiny_pair, capsys):
     """The JAX benchmark's defaults (B=8 with 16 sequences: two batches, both
-    warmup) time nothing and print no result; the draft's sub-mesh, a mesh
-    and jnp backends raise."""
+    warmup) time nothing and print no result; jnp backends raise (the
+    draft's sub-mesh and a mesh run: tests/test_torch_sharding.py)."""
     out = longspec_benchmark.main(["--device", "cpu", "--model", "big", "--draft_model",
                                    "small", "--prefix_len", "160", "--max_len", "320",
                                    "--max_gen", "4", "--prefill_chunk", "64"])
     assert out["result"] is None and len(out["spec"]) == 2
     assert "{" not in capsys.readouterr().out
-    for argv, item in ((["--model_parallel_outer", "2", "--model_parallel_inner", "2"], "A15"),
-                       (["--model_parallel", "2"], "A15"), (["--attn_backend", "jnp"], "Hopper")):
+    for argv, item in ((["--quant_backend", "jnp"], "Hopper"),
+                       (["--attn_backend", "jnp"], "Hopper")):
         with pytest.raises(NotImplementedError, match=item):
             longspec_benchmark.run(longspec_benchmark.parse_args(argv + ["--device", "cpu"]))
 

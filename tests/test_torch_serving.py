@@ -150,10 +150,9 @@ def test_synthetic_dataset_matches_jax():
 
 
 @pytest.mark.parametrize("argv", [
-    # a standalone draft is served now (tests/test_torch_longspec_serving.py);
-    # this case keeps its flags with a path that still raises
-    pytest.param(["--draft_model", "x", "--model_parallel", "2"], id="draft_model_x"),
-    ["--model_parallel", "2"], ["--attn_backend", "jnp"],
+    # a standalone draft and the mesh flags are served now
+    # (tests/test_torch_longspec_serving.py, tests/test_torch_serving_mesh.py)
+    ["--attn_backend", "jnp"],
 ], ids=lambda a: "_".join(a).strip("-"))
 def test_serving_bench_paths_not_ported_raise(argv):
     with pytest.raises(NotImplementedError, match="ROADMAP|Hopper"):
